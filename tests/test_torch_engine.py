@@ -1,0 +1,440 @@
+"""The port's seeding, Lloyd and kmeans against ``repro.core.engine``.
+
+The reference runs ``ClusterEngine(<backend>, bounds=False)`` on the CPU, its
+Pallas kernels in interpret mode. The port gets the reference's random draws
+(replayed from its key schedule, see ``test_torch_jaxref``) and its tile
+geometry (``convert.with_geometry``), and its ``cuda`` backend runs the
+kernels' plain versions, since the tensors lie on the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_jaxref import (EPS32, ROOT, assert_labels_match,
+                               assert_same_draw, cdf_tol, d2_tol, draws_for,
+                               exact_d2, key_schedule, ref_geometry,
+                               ref)  # noqa: F401  (ref is a fixture)
+from repro_torch import convert
+from repro_torch.configs import FULL, SMOKE
+from repro_torch.core import ClusterEngine, FusedBackend, make_backend
+from repro_torch.core import bounds, engine, sampling
+from repro_torch.core.kmeanspp import kmeanspp
+from repro_torch.core.lloyd import kmeans, lloyd
+from repro_torch.core.quality import cluster_sizes, inertia
+from repro_torch.data import blobs
+
+# (port backend, reference backend) pairs computing the same round math
+PAIRS = [("cuda", "pallas"), ("fused", "fused"), ("reference", "reference")]
+N, D, K = 3000, 8, 6
+
+
+def _ref_engine(ref, backend):
+    return ref.engine.ClusterEngine(backend, bounds=False)
+
+
+def _port(backend, block_n, tps):
+    return convert.with_geometry(make_backend(backend), block_n, tps)
+
+
+# ---------------------------------------------------------------------------
+# seeding
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("sampler", ["cdf", "tiled"])
+@pytest.mark.parametrize("port_be,ref_be", PAIRS)
+def test_seed_rounds_pick_the_reference_index(ref, sampler, port_be, ref_be):
+    """Fed the reference's seeds and uniforms, every round of the port picks
+    the reference's next seed (a boundary draw may differ, and the test
+    checks that it is one); the port's own run picks the same seeds, and
+    its final D² agrees within the D² tolerance."""
+    pts, _ = blobs(N, D, K, seed=0)
+    seed = 4
+    want = _ref_engine(ref, ref_be).seed(jax.random.PRNGKey(seed),
+                                         jnp.asarray(pts), K,
+                                         sampler=sampler)
+    ridx = np.asarray(want.indices)
+    first, u, fb = key_schedule(seed, N, K)
+    assert ridx[0] == first
+    bn = ref.engine.make_backend(ref_be).seed_tile(N, D)
+    be = _port(port_be, bn, 1)
+    x = torch.from_numpy(pts)
+    cache = be.prologue(x)
+    md = torch.full((N,), torch.inf)
+    # two fp32 prefix sums, plus N rows of D² error between the two sides
+    dtol = N * d2_tol(pts, pts)
+    weights = {}
+    for m in range(1, K):
+        rnd = be.seed_round(x, x[int(ridx[m - 1])][None], md, cache=cache)
+        md = rnd.min_d2
+        weights[m] = md.numpy().copy()
+        ut, fbt = torch.tensor(u[m - 1]), torch.tensor(fb[m - 1:m])
+        if sampler == "cdf":
+            idx = sampling.categorical_cdf(ut, fbt, md)
+        else:
+            idx = sampling.categorical_tiled(ut, fbt, md, rnd.partials,
+                                             block_n=bn)
+        assert_same_draw(int(idx), int(ridx[m]), u[m - 1], weights[m],
+                         cdf_tol(weights[m]) + dtol)
+
+    got = ClusterEngine(be, device="cpu").seed(
+        pts, K, draws=draws_for(seed, N, K), sampler=sampler)
+    gidx = got.indices.numpy()
+    assert got.centroids.shape == (K, D) and got.recovered.sum() == 0
+    for m in range(1, K):
+        if gidx[m] != ridx[m]:   # later rounds follow the other seed
+            assert_same_draw(int(gidx[m]), int(ridx[m]), u[m - 1],
+                             weights[m], cdf_tol(weights[m]) + dtol)
+            break
+    else:
+        np.testing.assert_array_equal(got.centroids.numpy(), pts[ridx])
+        np.testing.assert_allclose(got.min_d2.numpy(),
+                                   np.asarray(want.min_d2), rtol=0,
+                                   atol=d2_tol(pts, pts))
+
+
+def test_seed_guard_heals_a_poisoned_round():
+    """A round whose carried D² turns NaN is detected by the finite check on
+    its total, refolded from the clean carry, and the run goes on to the
+    seeds an unpoisoned run picks; the heal is flagged in ``recovered``."""
+
+    @dataclasses.dataclass(frozen=True)
+    class Poisoned(FusedBackend):
+        calls: list = dataclasses.field(default_factory=list)
+
+        def seed_round(self, points, c_new, min_d2, *, cache):
+            self.calls.append(1)
+            if len(self.calls) == 3:
+                min_d2 = min_d2.clone()
+                min_d2[:5] = torch.nan
+            return super().seed_round(points, c_new, min_d2, cache=cache)
+
+    pts, _ = blobs(2000, 3, 5, seed=1)
+    draws = draws_for(0, 2000, 5)
+    clean = ClusterEngine("fused", device="cpu").seed(pts, 5, draws=draws)
+    healed = ClusterEngine(Poisoned(), device="cpu").seed(pts, 5,
+                                                          draws=draws)
+    assert torch.equal(healed.indices, clean.indices)
+    assert torch.equal(healed.min_d2, clean.min_d2)
+    assert healed.recovered.tolist() == [0, 0, 1, 0, 0]
+    off = ClusterEngine(Poisoned(), device="cpu", validate="off").seed(
+        pts, 5, draws=draws)
+    assert off.recovered is None
+
+
+# ---------------------------------------------------------------------------
+# Lloyd and kmeans
+# ---------------------------------------------------------------------------
+
+
+def _assert_fit_matches(got, want, pts, prev_centroids):
+    """n_iters equal; labels equal outside near-ties against the centroids
+    the last assignment saw; centroids within n·eps of the largest
+    coordinate (fp32 cluster sums of up to n rows in two orders); inertia
+    within n D² errors plus n·eps of itself."""
+    n = pts.shape[0]
+    assert got.n_iters == want.n_iters
+    assert got.assignment.dtype == torch.int32
+    tol = d2_tol(pts, prev_centroids)
+    assert_labels_match(got.assignment.numpy(), want.assignment.numpy(),
+                        exact_d2(pts, prev_centroids), tol)
+    np.testing.assert_allclose(got.centroids.numpy(),
+                               want.centroids.numpy(), rtol=0,
+                               atol=n * EPS32 * float(np.abs(pts).max()))
+    inertia_tol = n * tol + n * EPS32 * float(want.inertia)
+    assert abs(float(got.inertia) - float(want.inertia)) <= inertia_tol
+
+
+@pytest.mark.parametrize("port_be,ref_be", PAIRS)
+def test_lloyd_from_reference_seeds_matches(ref, port_be, ref_be):
+    """Started from the reference's seeds (carried over by ``convert``),
+    the port's Lloyd loop takes the reference's steps."""
+    pts, _ = blobs(N, D, K, seed=2)
+    reng = _ref_engine(ref, ref_be)
+    rseed = reng.seed(jax.random.PRNGKey(1), jnp.asarray(pts), K)
+    rfit = reng.fit(jnp.asarray(pts), rseed.centroids, max_iters=25)
+    seeds = convert.kmeanspp_result(rseed.centroids, rseed.indices,
+                                    rseed.min_d2)
+    want = convert.lloyd_result(rfit.centroids, rfit.assignment,
+                                rfit.inertia, rfit.n_iters)
+    assert 2 < want.n_iters < 25
+    prev = np.asarray(reng.fit(jnp.asarray(pts), rseed.centroids,
+                               max_iters=want.n_iters - 1).centroids)
+    bn, tps = ref_geometry(ref, N, D, K, ref_be)
+    got = ClusterEngine(_port(port_be, bn, tps), device="cpu").fit(
+        pts, seeds.centroids, max_iters=25)
+    _assert_fit_matches(got, want, pts, prev)
+
+
+@pytest.mark.parametrize("sampler", ["cdf", "tiled"])
+@pytest.mark.parametrize("n,d,k,seed", [(5000, 2, 8, 1), (2500, 16, 16, 2)])
+def test_kmeans_matches_reference_end_to_end(ref, sampler, n, d, k, seed):
+    """``ClusterEngine.kmeans`` on blobs, the paper's path: the port (cuda
+    backend, plain versions on the CPU) against the reference's Pallas
+    backend, with the reference's draws and geometry. More than one tile
+    (and super-tiles at tps > 1) whenever the reference's geometry has
+    them."""
+    pts, _ = blobs(n, d, k, seed=seed)
+    reng = _ref_engine(ref, "pallas")
+    want_seed = reng.seed(jax.random.PRNGKey(seed), jnp.asarray(pts), k,
+                          sampler=sampler)
+    want = reng.kmeans(jax.random.PRNGKey(seed), jnp.asarray(pts), k,
+                       sampler=sampler, max_iters=25)
+    bn, tps = ref_geometry(ref, n, d, k)
+    be = _port("cuda", bn, tps)
+    eng = ClusterEngine(be, device="cpu")
+    seeds = eng.seed(pts, k, draws=draws_for(seed, n, k), sampler=sampler)
+    np.testing.assert_array_equal(seeds.indices.numpy(),
+                                  np.asarray(want_seed.indices))
+    got = eng.kmeans(pts, k, draws=draws_for(seed, n, k), sampler=sampler,
+                     max_iters=25)
+    prev = np.asarray(reng.fit(jnp.asarray(pts), want_seed.centroids,
+                               max_iters=int(want.n_iters) - 1).centroids)
+    _assert_fit_matches(got, convert.lloyd_result(*want[:4]), pts, prev)
+
+
+def test_kmeans_shares_one_geometry_and_matches_seed_then_fit():
+    """kmeans = seed then fit, bit for bit, with the seeding tile pinned to
+    the fit's (``tile_m = k``)."""
+    pts, _ = blobs(3000, 4, 10, seed=3)
+    eng = ClusterEngine("cuda", device="cpu")
+    be = dataclasses.replace(eng.backend, tile_m=10)
+    draws = draws_for(3, 3000, 10)
+    got = eng.kmeans(pts, 10, draws=draws, sampler="tiled")
+    two = ClusterEngine(be, device="cpu")
+    seeds = two.seed(pts, 10, draws=draws, sampler="tiled")
+    fit = two.fit(pts, seeds.centroids)
+    assert torch.equal(got.centroids, fit.centroids)
+    assert torch.equal(got.assignment, fit.assignment)
+    assert got.n_iters == fit.n_iters
+
+
+def test_generator_runs_are_reproducible_and_sane():
+    pts, _ = blobs(4000, 2, 8, seed=5)
+    runs = [ClusterEngine("cuda", device="cpu").kmeans(
+        pts, 8, generator=torch.Generator().manual_seed(7), max_iters=25)
+        for _ in range(2)]
+    assert torch.equal(runs[0].centroids, runs[1].centroids)
+    r = runs[0]
+    assert r.centroids.shape == (8, 2) and torch.isfinite(r.centroids).all()
+    assert 0 <= int(r.assignment.min()) and int(r.assignment.max()) < 8
+    # the loop's inertia is the one the final assignment reaches
+    np.testing.assert_allclose(
+        float(r.inertia), float(((torch.from_numpy(pts) - r.centroids[
+            r.assignment.long()]) ** 2).sum()), rtol=1e-3)
+
+
+def test_shims_route_through_the_engine():
+    pts, _ = blobs(1000, 2, 4, seed=6)
+    draws = draws_for(0, 1000, 4)
+    s = kmeanspp(pts, 4, draws=draws, device="cpu")
+    s2 = ClusterEngine("cuda", device="cpu").seed(pts, 4, draws=draws)
+    assert torch.equal(s.indices, s2.indices)
+    f = lloyd(pts, s.centroids, device="cpu", max_iters=10)
+    f2 = ClusterEngine("cuda", device="cpu").fit(pts, s.centroids,
+                                                 max_iters=10)
+    assert torch.equal(f.centroids, f2.centroids)
+    km = kmeans(pts, 4, generator=torch.Generator().manual_seed(0),
+                device="cpu")
+    assert km.centroids.shape == (4, 2)
+
+
+def test_reseed_and_empty_clusters_match_reference(ref):
+    """The empty-cluster policies: a centroid far from every point keeps
+    its place under 'keep' and jumps next to the largest cluster's under
+    'reseed', as in the reference."""
+    pts, _ = blobs(1000, 2, 3, seed=7)
+    init = np.concatenate([pts[:3], [[50.0, 50.0]]]).astype(np.float32)
+    for empty in ("keep", "reseed"):
+        want = _ref_engine(ref, "fused").fit(jnp.asarray(pts),
+                                             jnp.asarray(init), max_iters=5,
+                                             empty=empty)
+        bn, tps = ref_geometry(ref, 1000, 2, 4, "fused")
+        got = ClusterEngine(_port("fused", bn, tps), device="cpu").fit(
+            pts, init, max_iters=5, empty=empty)
+        np.testing.assert_allclose(got.centroids.numpy(),
+                                   np.asarray(want.centroids), rtol=0,
+                                   atol=1000 * EPS32 * 50)
+        assert got.n_iters == int(want.n_iters)
+
+
+# ---------------------------------------------------------------------------
+# building blocks the port keeps its own copies of
+# ---------------------------------------------------------------------------
+
+
+def test_own_copies_match_reference_modules(ref):
+    from repro.configs import kmeans_paper
+    from repro.data import synthetic
+    for a, b in ((FULL, kmeans_paper.FULL), (SMOKE, kmeans_paper.SMOKE)):
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    for args in ((100, 3, 4), (57, 2, 9)):
+        for p, q in zip(blobs(*args, seed=3), synthetic.blobs(*args, seed=3)):
+            np.testing.assert_array_equal(p, q)
+
+
+@pytest.mark.parametrize("n_tiles,tps", [(1, None), (8, None), (9, None),
+                                         (977, None), (25, None), (10, 3),
+                                         (4, 64), (100, 16)])
+def test_bounds_geometry_matches_reference(ref, n_tiles, tps):
+    assert bounds.tiles_per_super(n_tiles, tps) == \
+        ref.bounds.tiles_per_super(n_tiles, tps)
+    assert bounds.n_supers(n_tiles, tps) == ref.bounds.n_supers(n_tiles, tps)
+
+
+def test_bounds_helpers_match_reference(ref):
+    x = np.random.default_rng(0).normal(size=(130, 4)).astype(np.float32)
+    np.testing.assert_allclose(bounds.point_norms(torch.from_numpy(x)),
+                               np.asarray(ref.bounds.point_norms(
+                                   jnp.asarray(x))), rtol=1e-6)
+    np.testing.assert_array_equal(bounds.tile_counts(130, 32).numpy(),
+                                  np.asarray(ref.bounds.tile_counts(130, 32)))
+    t = np.random.default_rng(1).normal(size=(7, 3, 2)).astype(np.float32)
+    np.testing.assert_allclose(
+        bounds.super_reduce(torch.from_numpy(t), 4).numpy(),
+        np.asarray(ref.bounds.super_reduce(jnp.asarray(t), 4)), rtol=1e-6)
+
+
+def test_distance_helpers_and_quality_match_reference(ref):
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(500, 5)).astype(np.float32)
+    c = rng.normal(size=(7, 5)).astype(np.float32)
+    xt, ct = torch.from_numpy(x), torch.from_numpy(c)
+    tol = d2_tol(x, c)
+    np.testing.assert_allclose(engine.pairwise_d2(xt, ct).numpy(),
+                               np.asarray(ref.engine.pairwise_d2(
+                                   jnp.asarray(x), jnp.asarray(c))),
+                               rtol=0, atol=tol)
+    np.testing.assert_allclose(engine.point_d2(xt, ct[0]).numpy(),
+                               np.asarray(ref.engine.point_d2(
+                                   jnp.asarray(x), jnp.asarray(c[0]))),
+                               rtol=1e-6)
+    from repro.core import quality
+    want = float(quality.inertia(jnp.asarray(x), jnp.asarray(c), block=128))
+    assert abs(float(inertia(xt, ct, block=128)) - want) <= \
+        500 * tol + 500 * EPS32 * want
+    a = torch.from_numpy(rng.integers(0, 7, 500).astype(np.int32))
+    np.testing.assert_array_equal(
+        cluster_sizes(a, 7).numpy(),
+        np.asarray(quality.cluster_sizes(jnp.asarray(a.numpy()), 7)))
+    sums, counts = engine.segment_update(xt, a, 7)
+    rs, rc = ref.engine.segment_update(jnp.asarray(x), jnp.asarray(a.numpy()),
+                                       7, None)
+    np.testing.assert_allclose(sums.numpy(), np.asarray(rs), rtol=0,
+                               atol=500 * EPS32 * 5)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(rc))
+
+
+@pytest.mark.parametrize("policy", ["raise", "sanitize", "off"])
+@pytest.mark.parametrize("case", ["clean", "nan_rows", "neg_weight",
+                                  "zero_weights", "bad_shape"])
+def test_guards_match_reference(ref, policy, case):
+    """Same input, same policy: both sides raise InvalidInputError, or both
+    return the same sanitized array."""
+    from repro.core import guards as rguards
+    from repro_torch.core import guards
+    x = np.random.default_rng(0).normal(size=(20, 3)).astype(np.float32)
+    w = np.abs(x[:, 0]) + 0.5
+    if case == "nan_rows":
+        x[[2, 7], 1] = np.nan
+        x[4, 0] = np.inf
+    elif case == "neg_weight":
+        w[3] = -1.0
+    elif case == "zero_weights":
+        w[:] = 0.0
+    elif case == "bad_shape":
+        w = w[:-1]
+
+    def run(mod, arr):
+        try:
+            return (mod.guard_points(arr(x), policy),
+                    mod.guard_weights(arr(w), 20, policy))
+        except mod.InvalidInputError:
+            return "raised"
+
+    want = run(rguards, jnp.asarray)
+    got = run(guards, torch.from_numpy)
+    if want == "raised":
+        assert got == "raised"
+    else:
+        for g, r in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    c = x[:3].copy()
+    c[1, 2] = np.nan
+    for mod, arr in ((rguards, jnp.asarray), (guards, torch.from_numpy)):
+        with pytest.raises(mod.InvalidInputError):
+            mod.guard_centroids(arr(c), 3, "sanitize")
+        with pytest.raises(mod.InvalidInputError):
+            mod.guard_centroids(arr(c[:, :2]), 3, "off")
+    for k, n in ((0, 5), (6, 5), (5, 5)):
+        for mod in (rguards, guards):
+            if k == 5:
+                mod.check_shape(k, n)
+            else:
+                with pytest.raises(mod.InvalidInputError):
+                    mod.check_shape(k, n)
+
+
+# ---------------------------------------------------------------------------
+# the port's rules
+# ---------------------------------------------------------------------------
+
+
+def test_entry_points_need_a_card_or_device_cpu():
+    """Without a card and without ``device=``, nothing runs on the CPU in
+    its place."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is the card")
+    pts, _ = blobs(100, 2, 3, seed=0)
+    for call in (lambda: ClusterEngine(),
+                 lambda: ClusterEngine("fused"),
+                 lambda: ClusterEngine(device="cuda"),
+                 lambda: kmeanspp(pts, 3),
+                 lambda: kmeans(pts, 3),
+                 lambda: lloyd(pts, pts[:3])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        ClusterEngine(device="cpu", bounds=True)
+    pts, _ = blobs(100, 2, 3, seed=0)
+    eng = ClusterEngine(device="cpu")
+    for sampler in ("gumbel", "rejection"):
+        with pytest.raises(NotImplementedError):
+            eng.seed(pts, 3, sampler=sampler)
+    with pytest.raises(ValueError):
+        make_backend("pallas")
+
+
+def test_port_imports_neither_jax_nor_repro():
+    """Every module of ``repro_torch``, and ``chip_smoke.py``, imported in a
+    fresh process, leave ``jax`` and ``repro`` out of ``sys.modules``."""
+    code = """
+import importlib, importlib.util, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               'repro_torch.')]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
+assert not bad, bad
+assert len(names) >= 15, names
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
