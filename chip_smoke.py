@@ -5,21 +5,40 @@
 
 Phases, each of which exits non-zero on failure:
 
+0. The samplers' prefix sums: ``torch.cumsum`` and ``sampling.prefix_sum``
+   (the fixed-order scan the samplers use), each run repeatedly on one
+   tensor of the cdf sampler's length (n) and of the tiled sampler's two
+   (n_tiles and block_n at the paper's shape); ``prefix_sum`` must give one
+   bit pattern at each. The host time of one call of each is printed.
 1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
    source, all at once) and print the build time and ptxas report.
 2. Hold every kernel against its plain PyTorch twin on the card, at the
-   paper's shape (n = 4,000,000, d = 2) and a ragged wide one
-   (n = 100,003, d = 128): K2 (seeding round) with resident centroids on and
-   off at m = 1 and m = 8, K3 (tiled assignment) at k = 50 or 64 (tps > 1)
-   and at k = 1. Two launches must give identical bits. Each kernel's median
-   time (CUDA events) is printed beside its plain twin's and its bound.
-3. Drive the main path, ``ClusterEngine(device="cuda", bounds=False).kmeans``
-   on blobs(4M, 2, 50) with k = 50, 25 iterations, for sampler cdf and
-   tiled, with the launch counters zeroed just before and read just after;
-   then the same draws through the plain ``FusedBackend`` on the card.
+   paper's shape (n = 4,000,000, d = 2; label-sorted for the gated seeding
+   round, so its gate skips) and a ragged wide one (n = 100,003, d = 128):
+   K1 (prologue), K2 (seeding round) with resident centroids on and off at
+   m = 1 and m = 8, K3 (tiled assignment) at k = 50 or 64 (tps > 1) and at
+   k = 1, K5 (gated seeding round) at m = 1 and 8, resident on and off, with
+   the gate's mask, all tiles, half and none active, and K6 (gated
+   assignment) at k = 50 or 64 and k = 1 from a carried state whose lower
+   bounds make the prune fire, with every tile, half the supers and the
+   gate's mask active. Two launches must give identical bits, skipped
+   tiles must keep their carried values, and all-active K5 and K6 (the
+   latter with no carried bound) must be bitwise K2 and K3. Each kernel's
+   median time (CUDA events) is printed beside its plain twin's and its
+   bound (for the gated kernels, from the bytes of the active tiles).
+3. Drive the main path, ``ClusterEngine(device="cuda").kmeans`` (bound-gated)
+   at the paper's size, k = 50, 25 iterations, for sampler cdf and tiled, on
+   the shuffled blobs and on a label-sorted copy, with the launch counters
+   zeroed just before each run and read just after (K1 once, K5 k times,
+   K6 n_iters times, K2/K3 never); each run is held bitwise to
+   ``bounds=False`` (seeds, centroids, assignment, inertia, n_iters), and a
+   second run to the first. The ungated path is driven the same way
+   (K2 k times, K3 n_iters times) and compared with the plain
+   ``FusedBackend`` on the card from the same draws.
 4. With ``--profile`` only: trace one seeding run per sampler and one Lloyd
-   fit at that shape with torch.profiler, and print the device time by
-   kernel and the device's idle share.
+   fit at that shape, ungated and gated (shuffled and sorted), with
+   torch.profiler, and print the device time by kernel and the device's
+   idle share.
 
 The last three lines of stdout are the card's name and power limit, the
 kernels' JSON record, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -126,6 +145,29 @@ def k2_case(torch, kd, ops, pts, norms, m, resident, gen):
                 bound_ms=bms, bound_by=by)
 
 
+def super_sums_ok(torch, pts, lab, ssums, scounts, rows_per_super,
+                  supers=None) -> bool:
+    """Super-tile sums and counts against a float64 segment sum over the
+    KERNEL's labels ``lab``: counts exact, sums within 1e-4 of the rows'
+    absolute sum (the sequential fp32 adds of up to ``rows_per_super``
+    rows). ``supers`` (n_super,) bool restricts the check to those supers."""
+    n, d = pts.shape
+    n_super, k = scounts.shape
+    s_of = torch.arange(n, device=pts.device) // rows_per_super
+    slot = s_of * k + lab.long()
+    want_c = torch.bincount(slot, minlength=n_super * k).view(n_super, k)
+    x64 = pts.double()
+    want_s = torch.zeros(n_super * k, d, dtype=torch.float64,
+                         device=pts.device).index_add_(0, slot, x64)
+    abs_s = torch.zeros_like(want_s).index_add_(0, slot, x64.abs())
+    ok_s = ((ssums.double().view(-1, d) - want_s).abs()
+            <= 1e-4 * abs_s + 1e-6).view(n_super, k, d).all(dim=2)
+    ok = ok_s & (scounts == want_c.float())
+    if supers is not None:
+        ok = ok[supers]
+    return bool(ok.all())
+
+
 def k3_case(torch, la, ops, bounds, pts, norms, k, gen):
     n, d = pts.shape
     bn = ops.choose_block_n(n, d, k)
@@ -158,21 +200,9 @@ def k3_case(torch, la, ops, bounds, pts, norms, k, gen):
     check(torch.equal(torch.isfinite(gap), gfin)
           and bool(((gap - ref[3])[gfin].abs() <= 2 * math.sqrt(tol)).all()),
           "K3 gaps outside tolerance")
-    # sums/counts against a float64 segment sum over the KERNEL's labels:
-    # counts exact, sums within 1e-4 of the rows' absolute sum (the
-    # sequential fp32 adds of <= tps * block_n rows)
-    s_of = torch.arange(n, device=pts.device) // (bn * tps)
-    slot = (s_of * k + lab.long())
+    check(super_sums_ok(torch, pts, lab, ssums, scounts, bn * tps),
+          f"K3 k={k}: super sums or counts outside tolerance")
     n_super = ssums.shape[0]
-    want_c = torch.bincount(slot, minlength=n_super * k).view(n_super, k)
-    check(torch.equal(scounts, want_c.float()), f"K3 k={k}: counts differ")
-    x64 = pts.double()
-    want_s = torch.zeros(n_super * k, d, dtype=torch.float64,
-                         device=pts.device).index_add_(0, slot, x64)
-    abs_s = torch.zeros_like(want_s).index_add_(0, slot, x64.abs())
-    err_s = (ssums.double().view(-1, d) - want_s).abs()
-    check(bool((err_s <= 1e-4 * abs_s + 1e-6).all()),
-          f"K3 k={k}: sums outside tolerance")
     ms = gpu_ms(torch, lambda: la.lloyd_assign_tiled(
         pts, norms, cents, block_n=bn, tps=tps))
     plain = gpu_ms(torch, lambda: la.lloyd_assign_tiled_torch(
@@ -184,6 +214,244 @@ def k3_case(torch, la, ops, bounds, pts, norms, k, gen):
     return dict(n=n, d=d, k=k, block_n=bn, tps=tps, label_diffs=n_diff,
                 max_abs_err=err_md, tol=tol, ms=ms, plain_ms=plain,
                 bound_ms=bms, bound_by=by)
+
+
+def timed(torch, fn, plain):
+    return gpu_ms(torch, fn), gpu_ms(torch, plain)
+
+
+def k1_case(torch, kd, bounds, pts):
+    n, d = pts.shape
+    bn = 4096 if n >= 4096 else 128
+    out1 = kd.seed_prologue(pts, bn)
+    out2 = kd.seed_prologue(pts, bn)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out1, out2)),
+          f"K1 d={d}: two launches differ")
+    check(torch.equal(out1[0], bounds.point_norms(pts)),
+          f"K1 d={d}: norms are not bitwise bounds.point_norms")
+    ref = kd.seed_prologue_torch(pts, bn)
+    # centers are means and radii/center_d square roots of sums of d
+    # squares, each summed in another order than the plain version's
+    tol = 1e-5 * float(pts.abs().max())
+    err = max(float((a - b).abs().max()) for a, b in zip(out1[1:], ref[1:]))
+    check(err <= tol, f"K1 d={d}: centers/radii/center_d err {err} > {tol}")
+    ms, plain = timed(torch, lambda: kd.seed_prologue(pts, bn),
+                      lambda: kd.seed_prologue_torch(pts, bn))
+    t = -(-n // bn)
+    bms, by = bound_ms(4 * (n * d + 2 * n + t * (d + 1)),
+                       n * (3 * d + 1) + t * d)
+    return dict(n=n, d=d, block_n=bn, max_abs_err=err, tol=tol, ms=ms,
+                plain_ms=plain, bound_ms=bms, bound_by=by)
+
+
+def k5_case(torch, kd, bounds, ops, pts, cache, md_in, cents, mask, resident):
+    """K5 on one carried state: ``mask`` is 'gate' (the seeding gate's own
+    mask for these centroids), 'all', 'half' or 'none'."""
+    n, d = pts.shape
+    m = cents.shape[0]
+    bn = ops.choose_block_n(n, d, 50)
+    parts = kd.distance_min_update_torch(pts, cache.norms, cents[:1],
+                                         md_in, block_n=bn)[1]
+    tmax = bounds.tile_reduce_max(md_in, bn)
+    act, dc, margin = bounds.seed_gate(cents, cache, tmax)
+    t = act.shape[0]
+    act = {"gate": act, "all": torch.ones_like(act),
+           "half": torch.arange(t, device=pts.device) % 2 == 0,
+           "none": torch.zeros_like(act)}[mask]
+    args = (pts, cache.norms, cents, md_in, cache.center_d, dc, margin,
+            parts, tmax, act)
+    out1 = kd.distance_min_update_gated(*args, block_n=bn, resident=resident)
+    out2 = kd.distance_min_update_gated(*args, block_n=bn, resident=resident)
+    torch.cuda.synchronize()
+    what = f"K5 d={d} m={m} resident={resident} mask={mask}"
+    check(all(torch.equal(a, b) for a, b in zip(out1, out2)),
+          f"{what}: two launches differ")
+    ref = kd.distance_min_update_gated_torch(*args, block_n=bn)
+    tol = d2_tol(torch, cache.norms, cents)
+    err = float((out1[0] - ref[0]).abs().max())
+    check(err <= tol, f"{what}: min_d2 err {err} > {tol}")
+    check(bool(((out1[1] - ref[1]).abs()
+                <= partial_tol(tol, bn, ref[1])).all()),
+          f"{what}: partials outside tolerance")
+    check(float((out1[2] - ref[2]).abs().max()) <= tol,
+          f"{what}: tile maxima outside tolerance")
+    # the prune test is the same four roundings on the same inputs
+    check(torch.equal(out1[3], ref[3]), f"{what}: pruned counts differ")
+    skip = ~act
+    rows = bounds.expand_mask(skip, bn, n)
+    check(torch.equal(out1[0][rows], md_in[rows])
+          and torch.equal(out1[1][skip], parts[skip])
+          and torch.equal(out1[2][skip], tmax[skip])
+          and not bool(out1[3][skip].any()),
+          f"{what}: a skipped tile's outputs moved")
+    if mask == "all":
+        k2 = kd.distance_min_update(pts, cache.norms, cents, md_in,
+                                    block_n=bn, resident=resident)
+        check(torch.equal(out1[0], k2[0]) and torch.equal(out1[1], k2[1]),
+              f"{what}: all-active K5 is not bitwise K2")
+    ms, plain = timed(
+        torch, lambda: kd.distance_min_update_gated(*args, block_n=bn,
+                                                    resident=resident),
+        lambda: kd.distance_min_update_gated_torch(*args, block_n=bn))
+    rows_act = int(bounds.expand_mask(act, bn, n).sum())
+    n_pruned = int(out1[3].sum())
+    fresh = rows_act - n_pruned
+    bms, by = bound_ms(4 * (3 * rows_act + fresh * (d + 1) + m * d + 7 * t),
+                       fresh * m * (2 * d + 3) + rows_act * 6)
+    return dict(n=n, d=d, m=m, resident=resident, mask=mask, block_n=bn,
+                active_tiles=int(act.sum()), tiles=t, pruned=n_pruned,
+                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
+                bound_ms=bms, bound_by=by)
+
+
+def k6_case(torch, la, bounds, ops, pts, cache, k, gen):
+    """K6 from a carried state: one all-active launch with no carried bound
+    (held bitwise to K3) gives the state; two centroids then move a little
+    (none at k = 1), so the rows of unmoved clusters prune. Masks: every
+    tile, half the supers, the movement gate's."""
+    n, d = pts.shape
+    bn = ops.choose_block_n(n, d, k)
+    t = -(-n // bn)
+    tps = bounds.tiles_per_super(t)
+    s = -(-t // tps)
+    dev = pts.device
+    c0 = (pts[torch.randint(n, (k,), generator=gen, device=dev)]
+          + 0.01).contiguous()
+    all_on = torch.ones(t, dtype=torch.bool, device=dev)
+    zero_t = torch.zeros(t, device=dev)
+    first = la.lloyd_assign_gated(
+        pts, cache.norms, c0, torch.zeros(k, device=dev), zero_t, zero_t,
+        torch.zeros(n, dtype=torch.int32, device=dev),
+        torch.zeros(n, device=dev), torch.full((n,), -torch.inf, device=dev),
+        zero_t, zero_t, torch.zeros((s, k, d), device=dev),
+        torch.zeros((s, k), device=dev), all_on, block_n=bn, tps=tps)
+    k3 = la.lloyd_assign_tiled(pts, cache.norms, c0, block_n=bn, tps=tps)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(
+        (first[0], first[1], first[3], first[4], first[5], first[6]), k3))
+        and not bool(first[7].any()),
+        f"K6 d={d} k={k}: all-active K6 without a bound is not bitwise K3")
+    c1 = c0.clone()
+    if k > 1:
+        c1[[0, k - 1]] += 0.002
+    st = bounds.BoundState(first[3], tile_gap=first[4], tile_sums=first[5],
+                           tile_counts=first[6], assignment=first[0],
+                           min_d2=first[1], point_lb=first[2],
+                           lb_debt=zero_t)
+    delta = bounds.centroid_movement(c1, c0)
+    thresh, absorb = bounds.assign_point_scalars(delta, c1, st, cache)
+    masks = {"all": all_on,
+             "half": (torch.arange(t, device=dev) // tps) % 2 == 0,
+             "gate": bounds.expand_active_supers(bounds.assign_active_tiles(
+                 delta, c1, st, cache, tps=tps), tps)}
+    tol = d2_tol(torch, cache.norms, c1)
+    d2 = la.tile_d2(pts, c1, cache.norms)
+    res = []
+    for name, act in masks.items():
+        what = f"K6 d={d} k={k} mask={name}"
+        args = (pts, cache.norms, c1, delta, thresh, absorb, st.assignment,
+                st.min_d2, st.point_lb, st.partials, st.tile_gap,
+                st.tile_sums, st.tile_counts, act)
+        out1 = la.lloyd_assign_gated(*args, block_n=bn, tps=tps)
+        out2 = la.lloyd_assign_gated(*args, block_n=bn, tps=tps)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(out1, out2)),
+              f"{what}: two launches differ")
+        ref = la.lloyd_assign_gated_torch(*args, block_n=bn, tps=tps)
+        act_pt = bounds.expand_mask(act, bn, n)
+        prune = bounds.assign_point_prune(
+            st.assignment, st.min_d2, st.point_lb, delta,
+            bounds.expand_mask(thresh, bn, n), act_pt)
+        check(torch.equal(out1[7], ref[7]), f"{what}: pruned counts differ")
+        if name != "half":
+            check(int(out1[7].sum()) > 0, f"{what}: the prune never fired")
+        # a pruned row takes its carried label and D² and lb = prev_lb −
+        # absorb, one fp32 subtraction on the same inputs: bitwise
+        check(all(torch.equal(o[prune], r[prune])
+                  for o, r in zip(out1[:3], ref[:3])),
+              f"{what}: pruned rows' label, D² or lb differ")
+        lab = out1[0].long()
+        diff = lab != ref[0].long()
+        tie_gap = (d2.gather(1, lab[:, None])
+                   - d2.gather(1, ref[0].long()[:, None])).abs()[:, 0]
+        check(bool((tie_gap[diff] <= tol).all()),
+              f"{what}: labels differ beyond near-ties")
+        err = float((out1[1] - ref[1]).abs().max())
+        check(err <= tol, f"{what}: min_d2 err {err} > {tol}")
+        # fresh rows' lb = √second: sqrt turns a D² error δ into at most √δ
+        fin = torch.isfinite(ref[2])
+        fresh_pt = act_pt & ~prune & fin
+        check(torch.equal(torch.isfinite(out1[2]), fin)
+              and bool(((out1[2] - ref[2])[fresh_pt].abs()
+                        <= 2 * math.sqrt(tol)).all()),
+              f"{what}: lower bounds outside tolerance")
+        # active tiles' partials and gaps as K3's; active supers' sums and
+        # counts over the kernel's labels, pruned rows under their carried
+        # label included
+        check(bool(((out1[3] - ref[3])[act].abs()
+                    <= partial_tol(tol, bn, ref[3])[act]).all()),
+              f"{what}: partials outside tolerance")
+        gfin = torch.isfinite(ref[4])
+        check(torch.equal(torch.isfinite(out1[4]), gfin)
+              and bool(((out1[4] - ref[4])[gfin & act].abs()
+                        <= 2 * math.sqrt(tol)).all()),
+              f"{what}: gaps outside tolerance")
+        sup_act = bounds.super_any(act, tps)
+        check(super_sums_ok(torch, pts, lab, out1[5], out1[6], bn * tps,
+                            sup_act),
+              f"{what}: super sums or counts outside tolerance")
+        skip = ~act
+        rows = bounds.expand_mask(skip, bn, n)
+        sup_skip = ~sup_act
+        kept = all(torch.equal(o[sel], c[sel]) for o, c, sel in (
+            (out1[0], st.assignment, rows), (out1[1], st.min_d2, rows),
+            (out1[2], st.point_lb, rows), (out1[3], st.partials, skip),
+            (out1[4], st.tile_gap, skip), (out1[5], st.tile_sums, sup_skip),
+            (out1[6], st.tile_counts, sup_skip)))
+        check(kept and not bool(out1[7][skip].any()),
+              f"{what}: a skipped tile's or super's outputs moved")
+        ms, plain = timed(
+            torch, lambda: la.lloyd_assign_gated(*args, block_n=bn, tps=tps),
+            lambda: la.lloyd_assign_gated_torch(*args, block_n=bn, tps=tps))
+        rows_act = int(act_pt.sum())
+        n_pruned = int(out1[7].sum())
+        fresh = rows_act - n_pruned
+        s_act = int(sup_act.sum())
+        # an active row reads x and its three carries and writes label, D²
+        # and lb; only a fresh row also reads its norm
+        bms, by = bound_ms(4 * (rows_act * (d + 6) + fresh + k * (d + 1)
+                                + 6 * t + s_act * k * (d + 1)),
+                           fresh * k * (2 * d + 3) + rows_act * (d + 4))
+        res.append(dict(n=n, d=d, k=k, mask=name, block_n=bn, tps=tps,
+                        active_tiles=int(act.sum()), tiles=t,
+                        pruned=n_pruned, label_diffs=int(diff.sum()),
+                        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
+                        bound_ms=bms, bound_by=by))
+    return res
+
+
+def scan_determinism(torch, sampling, w, reps: int) -> dict:
+    """How many distinct bit patterns ``reps`` runs of torch.cumsum and of
+    the samplers' fixed-order prefix_sum give on one tensor, and the host
+    time of one synchronised call of each (median of ``reps``, in µs)."""
+    out = {}
+    for name, fn in (("torch.cumsum", lambda: torch.cumsum(w, 0)),
+                     ("prefix_sum", lambda: sampling.prefix_sum(w))):
+        runs, times = [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs.append(fn())
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e6)
+        distinct = []
+        for r in runs:
+            if not any(torch.equal(r, q) for q in distinct):
+                distinct.append(r)
+        out[name] = len(distinct)
+        out[f"{name} us"] = statistics.median(times)
+    return out
 
 
 def profile_call(torch, fn) -> dict:
@@ -209,6 +477,37 @@ def profile_call(torch, fn) -> dict:
                          for name, (ms, c) in top})
 
 
+def kmeans_run(torch, ops, eng, pts, k, sampler, draws, max_iters=25):
+    """One counted kmeans: counters zeroed just before, read just after."""
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.kmeans(pts, k, draws=draws, sampler=sampler,
+                     max_iters=max_iters)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, dict(ops.LAUNCHES)
+
+
+def phase_ms(torch, eng, pts, k, sampler, draws, max_iters=25):
+    """Seeding ms and Lloyd ms per iteration, the two phases apart."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seeds = eng.seed(pts, k, draws=draws, sampler=sampler)
+    torch.cuda.synchronize()
+    seed_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    fit = eng.fit(pts, seeds.centroids, max_iters=max_iters)
+    torch.cuda.synchronize()
+    lloyd_ms = (time.perf_counter() - t0) * 1e3 / max(fit.n_iters, 1)
+    return seeds, fit, seed_ms, lloyd_ms
+
+
+def same_fit(torch, a, b) -> bool:
+    return (torch.equal(a.centroids, b.centroids)
+            and torch.equal(a.assignment, b.assignment)
+            and torch.equal(a.inertia, b.inertia) and a.n_iters == b.n_iters)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement here")
@@ -223,7 +522,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.core import ClusterEngine, Draws, bounds
+    import numpy as np
+    from repro_torch.core import ClusterEngine, Draws, bounds, sampling
     from repro_torch.configs import FULL
     from repro_torch.data import blobs
     from repro_torch.kernels import _build, ops
@@ -237,6 +537,31 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     report = {"card": card}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    paper_np, labels = blobs(FULL.n_points, FULL.dim, FULL.k, seed=0)
+    paper = torch.from_numpy(paper_np).to(dev)
+    paper_sorted = torch.from_numpy(
+        paper_np[np.argsort(labels, kind="stable")]).to(dev)
+    k = FULL.k
+
+    # 0. the samplers' prefix sums, run to run: the cdf sampler's over n,
+    #    and the tiled sampler's over the n_tiles partials and one window
+    bn_full = ops.choose_block_n(FULL.n_points, FULL.dim, FULL.k)
+    report["scan_determinism"] = {}
+    for size, reps in ((FULL.n_points, 10), (-(-FULL.n_points // bn_full), 50),
+                       (bn_full, 50)):
+        w = torch.rand(size, generator=gen, device=dev)
+        det = scan_determinism(torch, sampling, w, reps)
+        report["scan_determinism"][size] = det
+        print(f"prefix sums over {size} floats, {reps} runs each: "
+              f"torch.cumsum gave {det['torch.cumsum']} distinct results "
+              f"({det['torch.cumsum us']:.1f} us per synchronised call), "
+              f"sampling.prefix_sum {det['prefix_sum']} "
+              f"({det['prefix_sum us']:.1f} us)")
+        check(det["prefix_sum"] == 1,
+              f"prefix_sum over {size} floats is not deterministic")
+    del w
 
     # 1. build
     t0 = time.perf_counter()
@@ -249,14 +574,17 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     # 2. kernels against their plain twins
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    paper_np, _ = blobs(FULL.n_points, FULL.dim, FULL.k, seed=0)
-    paper = torch.from_numpy(paper_np).to(dev)
     wide = torch.rand((100_003, 128), generator=gen, device=dev)
-    cases = {"K2": [], "K3": []}
+    cases = {"K1": [], "K2": [], "K3": [], "K5": [], "K6": []}
     for pts, k_wide in ((paper, FULL.k), (wide, 64)):
+        n, d = pts.shape
         norms = bounds.point_norms(pts)
+        c = k1_case(torch, kd, bounds, pts)
+        cases["K1"].append(c)
+        print(f"K1 n={n} d={d}: err {c['max_abs_err']:.3g} "
+              f"(tol {c['tol']:.3g}) {c['ms']:.4f} ms, plain "
+              f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+              f"({c['bound_by']})")
         for m in (1, 8):
             for resident in (True, False):
                 c = k2_case(torch, kd, ops, pts, norms, m, resident, gen)
@@ -265,133 +593,211 @@ def main() -> int:
                       f"err {c['max_abs_err']:.3g} (tol {c['tol']:.3g}) "
                       f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
                       f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
-        for k in (k_wide, 1):
-            c = k3_case(torch, la, ops, bounds, pts, norms, k, gen)
+        for kk in (k_wide, 1):
+            c = k3_case(torch, la, ops, bounds, pts, norms, kk, gen)
             cases["K3"].append(c)
-            print(f"K3 n={c['n']} d={c['d']} k={k} tps={c['tps']}: "
+            print(f"K3 n={c['n']} d={c['d']} k={kk} tps={c['tps']}: "
                   f"err {c['max_abs_err']:.3g} (tol {c['tol']:.3g}) "
                   f"label diffs {c['label_diffs']} {c['ms']:.4f} ms, "
                   f"plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} "
                   f"ms ({c['bound_by']})")
+        # the gated seeding round on a mid-seeding state: D² to 8 earlier
+        # seeds; at the paper's shape on the label-sorted copy
+        gpts = paper_sorted if pts is paper else pts
+        bn = ops.choose_block_n(n, d, 50)
+        cache = bounds.prologue(gpts, bn)
+        rows = torch.randint(n, (16,), generator=gen, device=dev)
+        md_in, _ = kd.distance_min_update_torch(
+            gpts, cache.norms, gpts[rows[8:]].contiguous(),
+            torch.full((n,), torch.inf, device=dev), block_n=bn)
+        for m in (1, 8):
+            cents = gpts[rows[:m]].contiguous()
+            for resident in (True, False):
+                for mask in ("gate", "all", "half", "none"):
+                    c = k5_case(torch, kd, bounds, ops, gpts, cache, md_in,
+                                cents, mask, resident)
+                    cases["K5"].append(c)
+                    print(f"K5 n={n} d={d} m={m} resident={resident} "
+                          f"mask={mask}: {c['active_tiles']}/{c['tiles']} "
+                          f"tiles active, {c['pruned']} rows pruned, err "
+                          f"{c['max_abs_err']:.3g} (tol {c['tol']:.3g}) "
+                          f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
+                          f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+        del md_in
+        for kk in (k_wide, 1):
+            cache = bounds.prologue(pts, ops.choose_block_n(n, d, kk))
+            for c in k6_case(torch, la, bounds, ops, pts, cache, kk, gen):
+                cases["K6"].append(c)
+                print(f"K6 n={n} d={d} k={kk} mask={c['mask']}: "
+                      f"{c['active_tiles']}/{c['tiles']} tiles active, "
+                      f"{c['pruned']} rows pruned, err "
+                      f"{c['max_abs_err']:.3g} (tol {c['tol']:.3g}) label "
+                      f"diffs {c['label_diffs']} {c['ms']:.4f} ms, plain "
+                      f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+                      f"({c['bound_by']})")
+        del cache
     report["cases"] = cases
     del wide
+    torch.cuda.empty_cache()
 
-    # 3. the main path
-    k = FULL.k
-    eng = ClusterEngine(device="cuda", bounds=False)
+    # 3. the main path: gated (the default) on shuffled and sorted blobs,
+    #    then the ungated path, each counted on its own
+    eng = ClusterEngine(device="cuda")
+    ungated = ClusterEngine(device="cuda", bounds=False)
     fused = ClusterEngine("fused", device="cuda", bounds=False)
     launches = {name: 0 for name in ops.LAUNCHES}
     runs = []
-    for sampler in ("cdf", "tiled"):
-        def gen0():
-            return torch.Generator().manual_seed(0)
-        ops.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = eng.kmeans(paper, k, generator=gen0(), sampler=sampler,
-                         max_iters=FULL.max_iters)
-        torch.cuda.synchronize()
-        total_s = time.perf_counter() - t0
-        got = dict(ops.LAUNCHES)
-        for name in launches:
-            launches[name] += got[name]
-        check(got["distance_min_update"] == k,
-              f"K2 launched {got['distance_min_update']} times, want {k}")
-        check(got["lloyd_assign_tiled"] == res.n_iters,
-              f"K3 launched {got['lloyd_assign_tiled']} times, want "
-              f"{res.n_iters}")
-        check(tuple(res.centroids.shape) == (k, FULL.dim)
-              and bool(torch.isfinite(res.centroids).all())
-              and bool(torch.isfinite(res.inertia))
-              and int(res.assignment.min()) >= 0
-              and int(res.assignment.max()) < k, "kmeans output malformed")
-
-        # the two phases apart, for the breakdown
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        seeds = eng.seed(paper, k, generator=gen0(), sampler=sampler)
-        torch.cuda.synchronize()
-        seed_ms = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        fit = eng.fit(paper, seeds.centroids, max_iters=FULL.max_iters)
-        torch.cuda.synchronize()
-        lloyd_ms = (time.perf_counter() - t0) * 1e3 / max(fit.n_iters, 1)
-
-        # the same draws through the plain twins
-        draws = Draws.sample(paper.shape[0], k, generator=gen0(),
-                             device=dev)
-        fseeds = fused.seed(paper, k, draws=draws, sampler=sampler)
-        fres = fused.kmeans(paper, k, draws=draws, sampler=sampler,
-                            max_iters=FULL.max_iters)
-        same = int((fseeds.indices == seeds.indices).sum())
-        rel = abs(float(fres.inertia) - float(res.inertia)) / float(
-            res.inertia)
-        if same < k:
-            # diverged seeds make a different fit: compare the Lloyd phase
-            # from the kernels' own seeds instead
-            fres = fused.fit(paper, seeds.centroids,
-                             max_iters=FULL.max_iters)
-            rel = abs(float(fres.inertia) - float(fit.inertia)) / float(
-                fit.inertia)
-        # 1e-4: both fits take the same Lloyd steps; they differ only in the
-        # fp32 summation order of partials and per-cluster sums
-        check(rel <= 1e-4, f"{sampler}: fused inertia differs by {rel:.3g}")
-        run = dict(sampler=sampler, n_iters=res.n_iters,
-                   inertia=float(res.inertia), kmeans_s=total_s,
-                   seed_ms=seed_ms, lloyd_ms_per_iter=lloyd_ms,
-                   launches=got, fused_seed_matches=same,
-                   fused_inertia=float(fres.inertia), inertia_rel_diff=rel,
-                   split_equals_kmeans=bool(
-                       torch.equal(fit.inertia, res.inertia)))
-        runs.append(run)
-        print(f"kmeans[{sampler}]: {total_s:.3f} s end to end, seeding "
-              f"{seed_ms:.2f} ms, Lloyd {lloyd_ms:.3f} ms/iter, n_iters "
-              f"{res.n_iters}, inertia {run['inertia']:.6g}, launches "
-              f"K2 {got['distance_min_update']} K3 "
-              f"{got['lloyd_assign_tiled']}; fused: {same}/{k} seeds match, "
-              f"inertia rel diff {rel:.3g}")
+    for layout, pts in (("shuffled", paper), ("sorted", paper_sorted)):
+        for sampler in ("cdf", "tiled"):
+            draws = Draws.sample(pts.shape[0], k,
+                                 generator=torch.Generator().manual_seed(0),
+                                 device=dev)
+            res, total_s, got = kmeans_run(torch, ops, eng, pts, k, sampler,
+                                           draws)
+            for name in launches:
+                launches[name] += got[name]
+            what = f"gated kmeans[{sampler}, {layout}]"
+            check(got["seed_prologue"] == 1
+                  and got["distance_min_update_gated"] == k
+                  and got["lloyd_assign_gated"] == res.n_iters
+                  and got["distance_min_update"] == 0
+                  and got["lloyd_assign_tiled"] == 0,
+                  f"{what}: launches {got}, want K1 1, K5 {k}, K6 "
+                  f"{res.n_iters}, K2/K3 0")
+            check(tuple(res.centroids.shape) == (k, FULL.dim)
+                  and bool(torch.isfinite(res.centroids).all())
+                  and bool(torch.isfinite(res.inertia))
+                  and int(res.assignment.min()) >= 0
+                  and int(res.assignment.max()) < k,
+                  f"{what}: output malformed")
+            off, off_s, off_got = kmeans_run(torch, ops, ungated, pts, k,
+                                             sampler, draws)
+            check(off_got["distance_min_update"] == k
+                  and off_got["lloyd_assign_tiled"] == off.n_iters
+                  and off_got["seed_prologue"] == 0
+                  and off_got["distance_min_update_gated"] == 0
+                  and off_got["lloyd_assign_gated"] == 0,
+                  f"ungated kmeans[{sampler}, {layout}]: launches {off_got}")
+            for name in ("distance_min_update", "lloyd_assign_tiled"):
+                launches[name] += off_got[name]
+            check(same_fit(torch, res, off),
+                  f"{what}: not bitwise the bounds=False kmeans")
+            seeds, fit, seed_ms, lloyd_ms = phase_ms(torch, eng, pts, k,
+                                                     sampler, draws)
+            oseeds, ofit, oseed_ms, olloyd_ms = phase_ms(
+                torch, ungated, pts, k, sampler, draws)
+            check(torch.equal(seeds.indices, oseeds.indices)
+                  and torch.equal(seeds.min_d2, oseeds.min_d2)
+                  and same_fit(torch, fit, ofit) and same_fit(torch, fit, res),
+                  f"{what}: seed/fit not bitwise the ungated ones")
+            check(int(seeds.recovered.sum()) == 0
+                  and int(fit.recovered.sum()) == 0,
+                  f"{what}: a guard healed a round")
+            run = dict(layout=layout, sampler=sampler, n_iters=res.n_iters,
+                       inertia=float(res.inertia), kmeans_s=total_s,
+                       ungated_kmeans_s=off_s, seed_ms=seed_ms,
+                       lloyd_ms_per_iter=lloyd_ms, ungated_seed_ms=oseed_ms,
+                       ungated_lloyd_ms_per_iter=olloyd_ms, launches=got,
+                       seed_skipped=int(seeds.skipped.sum()),
+                       seed_pruned=int(seeds.pruned.sum()),
+                       fit_skipped=int(res.skipped.sum()),
+                       fit_pruned=int(res.pruned.sum()),
+                       bitwise_ungated=True)
+            if layout == "sorted":
+                check(run["seed_skipped"] + run["fit_skipped"] > 0,
+                      f"{what}: nothing skipped on sorted blobs")
+            again, _, _ = kmeans_run(torch, ops, eng, pts, k, sampler, draws)
+            check(same_fit(torch, again, res), f"{what}: two runs differ")
+            run["repeat_bitwise"] = True
+            if layout == "shuffled":
+                # the plain twins from the same draws, ungated
+                fseeds = fused.seed(pts, k, draws=draws, sampler=sampler)
+                fres = fused.kmeans(pts, k, draws=draws, sampler=sampler,
+                                    max_iters=FULL.max_iters)
+                same = int((fseeds.indices == seeds.indices).sum())
+                rel = abs(float(fres.inertia) - float(res.inertia)) / float(
+                    res.inertia)
+                if same < k:
+                    # diverged seeds make a different fit: compare the
+                    # Lloyd phase from the kernels' own seeds instead
+                    fres = fused.fit(pts, seeds.centroids,
+                                     max_iters=FULL.max_iters)
+                    rel = abs(float(fres.inertia) - float(fit.inertia)) \
+                        / float(fit.inertia)
+                # 1e-4: both fits take the same Lloyd steps; they differ
+                # only in the fp32 summation order of partials and sums
+                check(rel <= 1e-4,
+                      f"{sampler}: fused inertia differs by {rel:.3g}")
+                run.update(fused_seed_matches=same, inertia_rel_diff=rel)
+            runs.append(run)
+            print(f"kmeans[{sampler}, {layout}]: gated {total_s:.3f} s, "
+                  f"ungated {off_s:.3f} s end to end (bitwise equal); "
+                  f"seeding {seed_ms:.2f} ms gated / {oseed_ms:.2f} ms "
+                  f"ungated, Lloyd {lloyd_ms:.3f} / {olloyd_ms:.3f} ms/iter; "
+                  f"n_iters {res.n_iters}, inertia {run['inertia']:.6g}; "
+                  f"seeding skipped {run['seed_skipped']} tiles, pruned "
+                  f"{run['seed_pruned']} rows; Lloyd skipped "
+                  f"{run['fit_skipped']} tiles, pruned {run['fit_pruned']} "
+                  f"rows; launches {got}"
+                  + (f"; fused: {run['fused_seed_matches']}/{k} seeds "
+                     f"match, inertia rel diff {run['inertia_rel_diff']:.3g}"
+                     if layout == "shuffled" else ""))
     report["main_path"] = runs
+    report["launches"] = launches
 
     if args.profile:
-        gen0 = torch.Generator().manual_seed(0)
-        seeds = eng.seed(paper, k, generator=gen0)
-        phases = {f"seed[{s}]": (lambda s=s: eng.seed(
-            paper, k, generator=torch.Generator().manual_seed(0), sampler=s))
-            for s in ("cdf", "tiled")}
-        phases["fit"] = lambda: eng.fit(paper, seeds.centroids,
-                                        max_iters=FULL.max_iters)
         report["profile"] = {}
-        for name, fn in phases.items():
-            fn()                                   # warm
-            p = profile_call(torch, fn)
-            report["profile"][name] = p
-            top = ", ".join(f"{kname[:48]} {v['ms']:.3f} ms x{v['count']}"
-                            for kname, v in list(p["kernels"].items())[:5])
-            print(f"profile {name}: wall {p['wall_ms']:.2f} ms, device busy "
-                  f"{p['busy_ms']:.2f} ms, idle share {p['idle_share']:.3f}; "
-                  f"{top}")
+        for tag, e, pts in (("ungated", ungated, paper),
+                            ("gated", eng, paper),
+                            ("gated sorted", eng, paper_sorted)):
+            seeds = e.seed(pts, k, generator=torch.Generator().manual_seed(0))
+            phases = {f"{tag} seed[{s}]": (lambda s=s, e=e, pts=pts: e.seed(
+                pts, k, generator=torch.Generator().manual_seed(0),
+                sampler=s)) for s in ("cdf", "tiled")}
+            phases[f"{tag} fit"] = (lambda e=e, pts=pts, c=seeds.centroids:
+                                    e.fit(pts, c, max_iters=FULL.max_iters))
+            for name, fn in phases.items():
+                fn()                                   # warm
+                p = profile_call(torch, fn)
+                report["profile"][name] = p
+                top = ", ".join(f"{kname[:48]} {v['ms']:.3f} ms x{v['count']}"
+                                for kname, v in list(p["kernels"].items())[:5])
+                print(f"profile {name}: wall {p['wall_ms']:.2f} ms, device "
+                      f"busy {p['busy_ms']:.2f} ms, idle share "
+                      f"{p['idle_share']:.3f}; {top}")
 
-    k2 = [c for c in cases["K2"] if c["n"] == FULL.n_points]
-    k3 = [c for c in cases["K3"] if c["n"] == FULL.n_points]
-    k2_main = next(c for c in k2 if c["m"] == 1 and c["resident"])
-    k3_main = next(c for c in k3 if c["k"] == FULL.k)
+    def main_case(name, pick):
+        return next(c for c in cases[name]
+                    if c["n"] == FULL.n_points and pick(c))
+
+    def entry(fn, src, replaces, case, errs):
+        return {"name": fn, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{src}",
+                "replaces": replaces, "launches": launches[fn],
+                "max_abs_err": max(c["max_abs_err"] for c in cases[errs]
+                                   if c["n"] == FULL.n_points),
+                "ms": case["ms"], "plain_ms": case["plain_ms"],
+                "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+                "library_ms": None}
+
     record = {"kernels": [
-        {"name": "distance_min_update", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/kmeans_distance.cu",
-         "replaces": "src/repro/kernels/kmeans_distance.py:99",
-         "launches": launches["distance_min_update"],
-         "max_abs_err": max(c["max_abs_err"] for c in k2),
-         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
-         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
-         "library_ms": None},
-        {"name": "lloyd_assign_tiled", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/lloyd_assign.cu",
-         "replaces": "src/repro/kernels/lloyd_assign.py:324",
-         "launches": launches["lloyd_assign_tiled"],
-         "max_abs_err": max(c["max_abs_err"] for c in k3),
-         "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
-         "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
-         "library_ms": None},
+        entry("seed_prologue", "seed_prologue.cu",
+              "src/repro/kernels/kmeans_distance.py:405",
+              main_case("K1", lambda c: True), "K1"),
+        entry("distance_min_update", "kmeans_distance.cu",
+              "src/repro/kernels/kmeans_distance.py:99",
+              main_case("K2", lambda c: c["m"] == 1 and c["resident"]), "K2"),
+        entry("lloyd_assign_tiled", "lloyd_assign.cu",
+              "src/repro/kernels/lloyd_assign.py:324",
+              main_case("K3", lambda c: c["k"] == FULL.k), "K3"),
+        entry("distance_min_update_gated", "kmeans_distance.cu",
+              "src/repro/kernels/kmeans_distance.py:192",
+              main_case("K5", lambda c: c["m"] == 1 and c["resident"]
+                        and c["mask"] == "gate"), "K5"),
+        entry("lloyd_assign_gated", "lloyd_assign.cu",
+              "src/repro/kernels/lloyd_assign.py:416",
+              main_case("K6", lambda c: c["k"] == FULL.k
+                        and c["mask"] == "gate"), "K6"),
     ]}
     report.update(record)
     if args.json:

@@ -3,7 +3,9 @@
 The JAX package's results, handed over as numpy arrays, become the port's
 result types, and the reference backend's tile geometry becomes a port
 backend's. With them a port run can start from the reference's seeds and
-tile its rows the same way, so both sides compute the same thing.
+tile its rows the same way, so both sides compute the same thing. Its
+prologue cache and carried bound state become the port's too, so a gated
+round on each side can be fed the same carries.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.bounds import BoundState, RoundCache
 from repro_torch.core.engine import Backend, KmeansppResult, LloydResult
 
 
@@ -42,3 +45,25 @@ def with_geometry(backend: Backend, block_n: int, tps: int) -> Backend:
     fan-in (its ``seed_tile`` and ``tiles_per_super`` values), so per-tile
     partials and per-super sums cover the same rows on both sides."""
     return dataclasses.replace(backend, block_n=int(block_n), tps=int(tps))
+
+
+def _fields(obj, cls, device, int_fields=()):
+    out = {}
+    for name in cls._fields:
+        v = getattr(obj, name, None)
+        if v is not None:
+            dtype = torch.int32 if name in int_fields else torch.float32
+            out[name] = _tensor(v, device, dtype)
+    return cls(**out)
+
+
+def round_cache(cache, *, device="cpu") -> RoundCache:
+    """A reference ``RoundCache`` (norms, and centers/radii/center_d when it
+    was made with bounds; arrays or numpy) as the port's."""
+    return _fields(cache, RoundCache, device)
+
+
+def bound_state(state, *, device="cpu") -> BoundState:
+    """A reference ``BoundState`` (any of its fields set, arrays or numpy)
+    as the port's: fp32 everywhere but the int32 ``assignment``."""
+    return _fields(state, BoundState, device, int_fields=("assignment",))

@@ -1,7 +1,7 @@
 """Weighted categorical sampling for k-means++ seeding (port of
 ``repro.core.sampling``: the inverse-CDF samplers).
 
-* inverse-CDF (``cdf``) — cumsum + searchsorted over all n weights.
+* inverse-CDF (``cdf``) — prefix sum + searchsorted over all n weights.
 * two-level tiled (``tiled``) — inverse-CDF over the per-tile partial sums
   the seeding round already produced, then inside the chosen tile only:
   O(n_tiles + block_n) reads per draw, the same distribution.
@@ -13,6 +13,12 @@ sampled from a ``torch.Generator`` by default, or injected (the parity
 tests replay the reference's key schedule through it).
 
 Indices stay on the device as (1,) int64 tensors: no draw syncs the host.
+
+Every prefix sum goes through :func:`prefix_sum`, which adds in one fixed
+order. A plain ``torch.cumsum`` over a long 1-D tensor on the card is a
+single-pass scan whose tiles take their carry-in from whichever predecessor
+has published first, so its float summation order, and with it the bits of
+the cdf, may change from run to run.
 """
 from __future__ import annotations
 
@@ -60,10 +66,41 @@ def _search(cdf: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return idx.clamp(0, cdf.shape[0] - 1)
 
 
+SCAN_BLOCK = 4096   # row width of prefix_sum's per-tile scans
+
+
+def _row_scan(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan along dim 1 of a 2-D tensor. A zero row is appended
+    when there is one row: a tensor whose elements all lie along the scanned
+    dim would go to the single-pass 1-D scan, while two or more rows take
+    the per-row scan, which walks each row in a fixed order."""
+    if x.shape[0] == 1:
+        return torch.cumsum(torch.cat([x, torch.zeros_like(x)]), 1)[:1]
+    return torch.cumsum(x, 1)
+
+
+def prefix_sum(w: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of a 1-D tensor in a fixed order: a scan inside
+    each ``SCAN_BLOCK``-wide tile, a prefix sum over the tile totals (by the
+    same rule), then each tile's offset added to its entries. The same
+    inputs give the same bits on every run, on the CPU and on the card."""
+    n = w.shape[0]
+    if n <= SCAN_BLOCK:
+        return _row_scan(w[None, :])[0]
+    pad = (-n) % SCAN_BLOCK
+    if pad:
+        w = torch.cat([w, w.new_zeros(pad)])
+    local = _row_scan(w.reshape(-1, SCAN_BLOCK))
+    tot = prefix_sum(local[:, -1])
+    offs = torch.cat([tot.new_zeros(1), tot[:-1]])
+    return (local + offs[:, None]).reshape(-1)[:n]
+
+
 def index_from_uniform(u: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """Map u in [0, 1) to the idx with cumsum[idx-1] <= u * total <
-    cumsum[idx] (the deterministic half of inverse-CDF sampling)."""
-    cdf = torch.cumsum(weights, 0)
+    """Map u in [0, 1) to the idx with cdf[idx-1] <= u * total < cdf[idx]
+    (the deterministic half of inverse-CDF sampling); the total is the
+    prefix sum's own last entry, as in the reference."""
+    cdf = prefix_sum(weights)
     return _search(cdf, u * cdf[-1])
 
 
@@ -87,13 +124,13 @@ def tiled_index_from_uniform(u: torch.Tensor, weights: torch.Tensor,
     residual reuses the same uniform, which conditional on tile t is uniform
     on the tile's mass, so the composite is an exact draw."""
     n = weights.shape[0]
-    tcdf = torch.cumsum(partials, 0)
+    tcdf = prefix_sum(partials)
     r = u.to(tcdf.dtype) * tcdf[-1]
     t = _search(tcdf, r)
     prev = tcdf[(t - 1).clamp(min=0)]
     r_local = r - torch.where(t > 0, prev, torch.zeros_like(prev))
 
-    lcdf = torch.cumsum(tile_window(weights, t, block_n), 0)
+    lcdf = prefix_sum(tile_window(weights, t, block_n))
     li = torch.searchsorted(lcdf, r_local, right=True).clamp(0, block_n - 1)
     # fp-underflow guard: level 1 can land on a tile whose window re-sums to
     # zero/non-finite although partials[t] > 0 (the partial came from the
@@ -110,9 +147,9 @@ def tiled_index_from_uniform(u: torch.Tensor, weights: torch.Tensor,
 
 def categorical_cdf(u: torch.Tensor, fallback: torch.Tensor,
                     weights: torch.Tensor) -> torch.Tensor:
-    """Inverse-CDF draw, idx with cumsum[idx-1] <= u·total < cumsum[idx].
+    """Inverse-CDF draw, idx with cdf[idx-1] <= u·total < cdf[idx].
     All-zero / non-finite weight mass takes the fallback index."""
-    cdf = torch.cumsum(weights, 0)
+    cdf = prefix_sum(weights)
     return _guarded(_search(cdf, u * cdf[-1]), fallback, cdf[-1])
 
 

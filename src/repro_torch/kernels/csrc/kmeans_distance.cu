@@ -1,6 +1,6 @@
-// K2: one k-means++ seeding round on Hopper.
+// K2 and K5: one k-means++ seeding round on Hopper, ungated and bound-gated.
 //
-// Replaces src/repro/kernels/kmeans_distance.py::distance_min_update_pallas
+// K2 replaces src/repro/kernels/kmeans_distance.py::distance_min_update_pallas
 // (the TPU kernel's pallas_call at line 125). It computes, for every row x
 //   new_md[x] = min(md[x], min_c max(||x||^2 - 2 x.c + ||c||^2, 0))
 // with the cached fp32 norm ||x||^2, and one partial sum of new_md per
@@ -8,11 +8,30 @@
 // tiles the two-level `tiled` sampler draws from, so their boundaries are
 // exactly those of repro_torch.core.sampling.tile_partials.
 //
-// What bounds it on the H100: bytes. At the paper's d = 2 a row moves 20 B
+// K5 replaces kmeans_distance.py::distance_min_update_gated_pallas (its
+// pallas_call at line 250). It is K2 restricted to the tiles the seeding
+// gate (repro_torch.core.bounds.seed_gate) marks active, plus the per-point
+// prune (bounds.seed_point_prune): a row of an active tile with
+//   max(dc_t - center_d[x], 0)^2 >= md[x] * (1 + 1e-6) + margin_t
+// provably cannot improve, keeps its md and skips the distance arithmetic.
+// It also writes each active tile's max of new_md (the next round's bound)
+// and its count of pruned rows. The TPU kernel visited a compacted list of
+// active tiles; here the full grid is launched and a block whose tile is
+// inactive exits at once, having read one byte. Its outputs were made copies
+// of the carried min_d2, partials and tile_max by the wrapper, so a skipped
+// tile leaves them untouched (the TPU kernel's input_output_aliases).
+//
+// Both are one template: an active tile's unpruned rows go through the same
+// code as K2's, in the same order, and a pruned row holds the value K2 would
+// write (min(md, d2) = md when d2 >= md), so an active tile's partial is
+// bitwise K2's partial.
+//
+// What bounds them on the H100: bytes. At the paper's d = 2 a row moves 20 B
 // (x 8, norm 4, md in 4, md out 4) and costs 2d + 3 flops per centroid, so
-// one round at n = 4M is 80 MB against 3.35 TB/s, about 24 us, and the
-// arithmetic is far below the fp32 rate. At d = 2 there is no product to
-// put on tensor cores, so the kernel uses fp32 FMA only (no TF32).
+// one K2 round at n = 4M is 80 MB against 3.35 TB/s, about 24 us, and the
+// arithmetic is far below the fp32 rate. K5 moves only the active tiles'
+// rows (plus center_d, 4 B a row), and a pruned row needs no x or norm. At
+// d = 2 there is no product to put on tensor cores, so fp32 FMA only.
 //
 // Design. One thread block owns one tile and loops over its rows, 256 rows
 // at a time, so reads of x, norms and md are coalesced and each is read
@@ -21,15 +40,17 @@
 // bits on every run. Resident = true stages the (m, d) centroid block and
 // its norms in shared memory once per block (the paper's constant memory);
 // Resident = false reads the centroids from global memory on every use and
-// recomputes their norms there (Fig. 2's global-memory variant); the
-// compiler may round the two differently, both within the D² tolerance.
-// min and max propagate NaN like torch.minimum / torch.maximum.
+// recomputes their norms there (Fig. 2's global-memory variant). The prune
+// test is written with explicit round-to-nearest operations, so it is the
+// same four roundings as the plain PyTorch version's. min and max propagate
+// NaN like torch.minimum / torch.maximum.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
 
 constexpr int kThreads = 256;  // mirrors repro_torch.kernels.ops.THREADS
+constexpr float kRelScale = 1.0f + 1e-6f;  // 1 + bounds._REL in fp32
 
 __device__ __forceinline__ float nan_min(float a, float b) {
   return (a != a || a < b) ? a : b;
@@ -51,7 +72,15 @@ __device__ __forceinline__ float dot(const float* x, const float* c, int d) {
   return s;
 }
 
-template <bool Resident>
+// bounds.seed_point_prune for one row
+__device__ __forceinline__ bool seed_point_prune(float md, float cd, float dc,
+                                                 float margin) {
+  const float lo = fmaxf(__fsub_rn(dc, cd), 0.f);
+  return __fmul_rn(lo, lo) >= __fadd_rn(__fmul_rn(md, kRelScale), margin);
+}
+
+// Gated = false is K2 (the gate pointers are null); Gated = true is K5.
+template <bool Resident, bool Gated>
 __global__ void __launch_bounds__(kThreads)
 distance_min_update_kernel(const float* __restrict__ points,
                            const float* __restrict__ norms,
@@ -59,10 +88,19 @@ distance_min_update_kernel(const float* __restrict__ points,
                            const float* __restrict__ md_in,
                            float* __restrict__ md_out,
                            float* __restrict__ partials,
+                           const float* __restrict__ center_d,
+                           const float* __restrict__ dc,
+                           const float* __restrict__ margin,
+                           const unsigned char* __restrict__ active,
+                           float* __restrict__ tile_max,
+                           int* __restrict__ pruned,
                            int n, int d, int m, int block_n) {
+  if (Gated && !active[blockIdx.x]) return;  // skipped: outputs keep carries
   extern __shared__ float smem[];
-  float* red = smem;                       // (kThreads,) reduction buffer
-  float* c_sh = smem + kThreads;           // (m, d) staged centroids
+  float* red = smem;                        // (kThreads,) sum tree
+  float* red_max = red + kThreads;          // (kThreads,) max tree (K5)
+  int* red_cnt = reinterpret_cast<int*>(red_max + kThreads);  // (kThreads,)
+  float* c_sh = smem + (Gated ? 3 : 1) * kThreads;  // (m, d) staged centroids
   float* cn_sh = c_sh + (size_t)m * d;     // (m,) their norms
   const int tid = threadIdx.x;
 
@@ -75,53 +113,108 @@ distance_min_update_kernel(const float* __restrict__ points,
   const float* c_src = Resident ? c_sh : cents;
 
   const long long tile0 = (long long)blockIdx.x * block_n;
+  const float dc_t = Gated ? dc[blockIdx.x] : 0.f;
+  const float margin_t = Gated ? margin[blockIdx.x] : 0.f;
   float local = 0.f;
+  float lmax = 0.f;
+  int lcnt = 0;
   for (int r = tid; r < block_n; r += kThreads) {
     const long long row = tile0 + r;
     if (row >= n) break;
-    const float* x = points + row * d;
-    const float xn = norms[row];
-    float best = CUDART_INF_F;
-    for (int c = 0; c < m; ++c) {
-      const float* cc = c_src + (size_t)c * d;
-      const float cn = Resident ? cn_sh[c] : sq_norm(cc, d);
-      const float d2 = nan_max(xn - 2.f * dot(x, cc, d) + cn, 0.f);
-      best = nan_min(best, d2);
+    const float md = md_in[row];
+    float v;
+    if (Gated && seed_point_prune(md, center_d[row], dc_t, margin_t)) {
+      v = md;
+      ++lcnt;
+    } else {
+      const float* x = points + row * d;
+      const float xn = norms[row];
+      float best = CUDART_INF_F;
+      for (int c = 0; c < m; ++c) {
+        const float* cc = c_src + (size_t)c * d;
+        const float cn = Resident ? cn_sh[c] : sq_norm(cc, d);
+        const float d2 = nan_max(xn - 2.f * dot(x, cc, d) + cn, 0.f);
+        best = nan_min(best, d2);
+      }
+      v = nan_min(md, best);
     }
-    const float v = nan_min(md_in[row], best);
     md_out[row] = v;
     local += v;
+    if (Gated) lmax = nan_max(lmax, v);
   }
 
   red[tid] = local;
+  if (Gated) {
+    red_max[tid] = lmax;
+    red_cnt[tid] = lcnt;
+  }
   __syncthreads();
   for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] += red[tid + s];
+    if (tid < s) {
+      red[tid] += red[tid + s];
+      if (Gated) {
+        red_max[tid] = nan_max(red_max[tid], red_max[tid + s]);
+        red_cnt[tid] += red_cnt[tid + s];
+      }
+    }
     __syncthreads();
   }
-  if (tid == 0) partials[blockIdx.x] = red[0];
+  if (tid == 0) {
+    partials[blockIdx.x] = red[0];
+    if (Gated) {
+      tile_max[blockIdx.x] = red_max[0];
+      pruned[blockIdx.x] = red_cnt[0];
+    }
+  }
+}
+
+template <bool Gated>
+int launch(const float* points, const float* norms, const float* cents,
+           const float* md_in, float* md_out, float* partials,
+           const float* center_d, const float* dc, const float* margin,
+           const unsigned char* active, float* tile_max, int* pruned, int n,
+           int d, int m, int block_n, int resident, cudaStream_t s) {
+  const int n_tiles = (n + block_n - 1) / block_n;
+  const size_t smem = sizeof(float) * ((Gated ? 3 : 1) * kThreads +
+                                       (resident ? (size_t)m * d + m : 0));
+  if (resident) {
+    auto kern = distance_min_update_kernel<true, Gated>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    kern<<<n_tiles, kThreads, smem, s>>>(points, norms, cents, md_in, md_out,
+                                         partials, center_d, dc, margin,
+                                         active, tile_max, pruned, n, d, m,
+                                         block_n);
+  } else {
+    distance_min_update_kernel<false, Gated><<<n_tiles, kThreads, smem, s>>>(
+        points, norms, cents, md_in, md_out, partials, center_d, dc, margin,
+        active, tile_max, pruned, n, d, m, block_n);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches one seeding round on `stream`; returns cudaGetLastError().
+// Launches one seeding round (K2) on `stream`; returns cudaGetLastError().
 extern "C" int distance_min_update_launch(
     const float* points, const float* norms, const float* cents,
     const float* md_in, float* md_out, float* partials, int n, int d, int m,
     int block_n, int resident, void* stream) {
-  const int n_tiles = (n + block_n - 1) / block_n;
-  const size_t smem =
-      sizeof(float) * (kThreads + (resident ? (size_t)m * d + m : 0));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (resident) {
-    auto kern = distance_min_update_kernel<true>;
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-    kern<<<n_tiles, kThreads, smem, s>>>(points, norms, cents, md_in, md_out,
-                                         partials, n, d, m, block_n);
-  } else {
-    distance_min_update_kernel<false><<<n_tiles, kThreads, smem, s>>>(
-        points, norms, cents, md_in, md_out, partials, n, d, m, block_n);
-  }
-  return (int)cudaGetLastError();
+  return launch<false>(points, norms, cents, md_in, md_out, partials, nullptr,
+                       nullptr, nullptr, nullptr, nullptr, nullptr, n, d, m,
+                       block_n, resident, static_cast<cudaStream_t>(stream));
+}
+
+// Launches one gated seeding round (K5) on `stream`; returns
+// cudaGetLastError(). md_out, partials and tile_max must hold the carried
+// values and pruned zeros: inactive tiles leave them as they are.
+extern "C" int distance_min_update_gated_launch(
+    const float* points, const float* norms, const float* cents,
+    const float* md_in, float* md_out, float* partials, const float* center_d,
+    const float* dc, const float* margin, const unsigned char* active,
+    float* tile_max, int* pruned, int n, int d, int m, int block_n,
+    int resident, void* stream) {
+  return launch<true>(points, norms, cents, md_in, md_out, partials, center_d,
+                      dc, margin, active, tile_max, pruned, n, d, m, block_n,
+                      resident, static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,7 @@
-// K3: one tiled Lloyd assignment round on Hopper.
+// K3 and K6: one tiled Lloyd assignment round on Hopper, ungated and
+// bound-gated.
 //
-// Replaces src/repro/kernels/lloyd_assign.py::lloyd_assign_tiled_pallas
+// K3 replaces src/repro/kernels/lloyd_assign.py::lloyd_assign_tiled_pallas
 // (the TPU kernel's pallas_call at line 346). For every row x and centroid
 // c it forms d2 = max(||x||^2 - 2 x.c + ||c||^2, 0) with the cached fp32
 // norm, and writes
@@ -44,6 +45,23 @@
 //   2. super_reduce_kernel: one block per super-tile adds its tps tiles'
 //      sums in ascending tile order, the same sequential order as the TPU
 //      kernel's resident accumulator.
+//
+// K6 replaces lloyd_assign.py::lloyd_assign_gated_pallas (its pallas_call at
+// line 484). It is K3 over the tiles the movement gate marks active (a
+// super-aligned set: repro_torch.core.bounds.expand_active_supers), with the
+// per-point Hamerly prune (bounds.assign_point_prune): a row whose carried
+// label's centroid did not move (delta == 0) and whose carried lower bound
+// clears the tile's threshold, prev_lb - sqrt(prev_md) >= thresh_t, takes its
+// label and D² from the carry and sets lb = prev_lb - absorb_t, with no
+// k-way loop; it still enters the tile's cluster sums under its label. Every
+// other row writes lb = sqrt(second best). The full grid is launched; a
+// block whose tile is inactive exits at once, and super_reduce_kernel skips
+// a super with no active tile. All outputs start as copies of the carries
+// (the wrapper makes them), so skipped tiles and supers keep their carried
+// values, which is what the TPU kernel's input_output_aliases did. K6 is the
+// same template as K3: an all-active launch in which nothing prunes is
+// bitwise K3. At d = 2 four rows share a pass over the centroids, so the
+// pass is skipped only when all four of a thread's rows prune.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -73,9 +91,23 @@ __device__ __forceinline__ void fold(float d2, int c, float& best,
   }
 }
 
+// The gated kernel's extra inputs and outputs (null for K3).
+struct Gate {
+  const float* delta;          // (k,) centroid movement
+  const float* thresh;         // (n_tiles,) prune threshold
+  const float* absorb;         // (n_tiles,) lb decay of pruned rows
+  const int* prev_a;           // (n,) carried labels
+  const float* prev_md;        // (n,) carried D²
+  const float* prev_lb;        // (n,) carried lower bounds
+  const unsigned char* active; // (n_tiles,) the super-aligned active mask
+  float* lb;                   // (n,) lower bounds out
+  int* pruned;                 // (n_tiles,) pruned rows per tile
+};
+
 // D > 0: the dimension is D, known at compile time, and R = 4 rows share
 // each pass over the centroids. D == 0: the dimension is the runtime d.
-template <int D>
+// Gated = false is K3, Gated = true is K6.
+template <int D, bool Gated>
 __global__ void __launch_bounds__(kThreads)
 assign_tile_kernel(const float* __restrict__ points,
                    const float* __restrict__ norms,
@@ -83,7 +115,8 @@ assign_tile_kernel(const float* __restrict__ points,
                    int* __restrict__ labels, float* __restrict__ md,
                    float* __restrict__ partials, float* __restrict__ gaps,
                    float* __restrict__ tile_acc,  // (n_tiles, k, d + 1)
-                   int n, int d, int k, int block_n, int cols) {
+                   Gate g, int n, int d, int k, int block_n, int cols) {
+  if (Gated && !g.active[blockIdx.x]) return;  // skipped: carries stay
   constexpr int R = D > 0 ? 4 : 1;
   constexpr int DR = D > 0 ? D : 1;
   extern __shared__ float smem[];
@@ -95,9 +128,13 @@ assign_tile_kernel(const float* __restrict__ points,
   float* acc_sh = red_gap + kThreads;                  // (kWarps, k, cols)
   int* lab_sh = reinterpret_cast<int*>(acc_sh + (size_t)kWarps * k * cols);
   //                                                      (block_n,)
+  float* delta_sh = reinterpret_cast<float*>(lab_sh + block_n);  // (k,) K6
+  int* cnt_sh = reinterpret_cast<int*>(red_gap);  // pruned tree, reuses red_gap
   const int tid = threadIdx.x;
 
   for (int i = tid; i < k * d; i += kThreads) c_sh[i] = cents[i];
+  if (Gated)
+    for (int c = tid; c < k; c += kThreads) delta_sh[c] = g.delta[c];
   __syncthreads();
   for (int c = tid; c < k; c += kThreads) {
     float s = 0.f;
@@ -109,15 +146,29 @@ assign_tile_kernel(const float* __restrict__ points,
   const long long tile0 = (long long)blockIdx.x * block_n;
   const float* tile_x = points + tile0 * d;
   const int rows = (int)min((long long)block_n, (long long)n - tile0);
+  const float thresh_t = Gated ? g.thresh[blockIdx.x] : 0.f;
+  const float absorb_t = Gated ? g.absorb[blockIdx.x] : 0.f;
   float local_sum = 0.f;
   float local_gap = CUDART_INF_F;
+  int local_pruned = 0;
   for (int base = tid; base < rows; base += R * kThreads) {
     float xr[R][DR], xn[R], best[R], second[R];
     int a[R];
+    bool prune[R];
+    bool need = !Gated;
 #pragma unroll
     for (int q = 0; q < R; ++q) {
       const int r = base + q * kThreads;
       const bool ok = r < rows;
+      prune[q] = false;
+      if (Gated && ok) {  // bounds.assign_point_prune
+        const long long row = tile0 + r;
+        const int pa = g.prev_a[row];
+        const float pmd = g.prev_md[row];
+        prune[q] = delta_sh[pa] == 0.f &&
+                   __fsub_rn(g.prev_lb[row], sqrtf(pmd)) >= thresh_t;
+        need |= !prune[q];
+      }
       if constexpr (D > 0) {
 #pragma unroll
         for (int j = 0; j < D; ++j) xr[q][j] = ok ? tile_x[(size_t)r * D + j] : 0.f;
@@ -126,7 +177,7 @@ assign_tile_kernel(const float* __restrict__ points,
       best[q] = second[q] = CUDART_INF_F;
       a[q] = 0;
     }
-    for (int c = 0; c < k; ++c) {
+    for (int c = 0; need && c < k; ++c) {
       const float* cc = c_sh + (size_t)c * d;
       const float cn = cn_sh[c];
       if constexpr (D > 0) {
@@ -153,13 +204,31 @@ assign_tile_kernel(const float* __restrict__ points,
     for (int q = 0; q < R; ++q) {
       const int r = base + q * kThreads;
       if (r < rows) {
+        float lb = sqrtf(second[q]);
+        if (Gated && prune[q]) {
+          a[q] = g.prev_a[tile0 + r];
+          best[q] = g.prev_md[tile0 + r];
+          lb = __fsub_rn(g.prev_lb[tile0 + r], absorb_t);
+          ++local_pruned;
+        }
         labels[tile0 + r] = a[q];
         md[tile0 + r] = best[q];
+        if (Gated) g.lb[tile0 + r] = lb;
         lab_sh[r] = a[q];
         local_sum += best[q];
-        local_gap = nan_min(local_gap, sqrtf(second[q]) - sqrtf(best[q]));
+        local_gap = nan_min(local_gap, lb - sqrtf(best[q]));
       }
     }
+  }
+  if (Gated) {  // the pruned count, in the buffers the sum tree uses next
+    cnt_sh[tid] = local_pruned;
+    __syncthreads();
+    for (int s = kThreads / 2; s > 0; s >>= 1) {
+      if (tid < s) cnt_sh[tid] += cnt_sh[tid + s];
+      __syncthreads();
+    }
+    if (tid == 0) g.pruned[blockIdx.x] = cnt_sh[0];
+    __syncthreads();
   }
   red_sum[tid] = local_sum;
   red_gap[tid] = local_gap;
@@ -219,13 +288,21 @@ assign_tile_kernel(const float* __restrict__ points,
   }
 }
 
+// `active` (K6) skips a super none of whose tiles computed: its carried
+// sums and counts stay.
 __global__ void __launch_bounds__(kThreads)
 super_reduce_kernel(const float* __restrict__ tile_acc, float* __restrict__ ssums,
-                    float* __restrict__ scounts, int n_tiles, int d, int k,
-                    int tps) {
+                    float* __restrict__ scounts,
+                    const unsigned char* __restrict__ active, int n_tiles,
+                    int d, int k, int tps) {
   const int width = d + 1;
   const int s = blockIdx.x;
   const int t_end = min((s + 1) * tps, n_tiles);
+  if (active != nullptr) {
+    bool any = false;
+    for (int t = s * tps; t < t_end; ++t) any |= active[t] != 0;
+    if (!any) return;
+  }
   for (int o = threadIdx.x; o < k * width; o += kThreads) {
     float acc = 0.f;
     for (int t = s * tps; t < t_end; ++t)
@@ -238,23 +315,48 @@ super_reduce_kernel(const float* __restrict__ tile_acc, float* __restrict__ ssum
   }
 }
 
-template <int D>
+template <int D, bool Gated>
 int launch_assign(const float* points, const float* norms, const float* cents,
                   int* labels, float* md, float* partials, float* gaps,
-                  float* tile_acc, int n, int d, int k, int block_n, int cols,
-                  size_t smem, cudaStream_t s) {
+                  float* tile_acc, const Gate& g, int n, int d, int k,
+                  int block_n, int cols, cudaStream_t s) {
   const int n_tiles = (n + block_n - 1) / block_n;
-  cudaFuncSetAttribute(assign_tile_kernel<D>,
+  const size_t smem = sizeof(float) * ((size_t)k * d + k + 2 * kThreads +
+                                       (size_t)kWarps * k * cols + block_n +
+                                       (Gated ? k : 0));
+  cudaFuncSetAttribute(assign_tile_kernel<D, Gated>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  assign_tile_kernel<D><<<n_tiles, kThreads, smem, s>>>(
-      points, norms, cents, labels, md, partials, gaps, tile_acc, n, d, k,
+  assign_tile_kernel<D, Gated><<<n_tiles, kThreads, smem, s>>>(
+      points, norms, cents, labels, md, partials, gaps, tile_acc, g, n, d, k,
       block_n, cols);
+  return (int)cudaGetLastError();
+}
+
+template <bool Gated>
+int launch_round(const float* points, const float* norms, const float* cents,
+                 int* labels, float* md, float* partials, float* gaps,
+                 float* tile_acc, float* ssums, float* scounts, const Gate& g,
+                 int n, int d, int k, int block_n, int tps, int cols,
+                 cudaStream_t s) {
+  const int n_tiles = (n + block_n - 1) / block_n;
+  const int n_super = (n_tiles + tps - 1) / tps;
+  const int err =
+      d == 2 ? launch_assign<2, Gated>(points, norms, cents, labels, md,
+                                       partials, gaps, tile_acc, g, n, d, k,
+                                       block_n, cols, s)
+             : launch_assign<0, Gated>(points, norms, cents, labels, md,
+                                       partials, gaps, tile_acc, g, n, d, k,
+                                       block_n, cols, s);
+  if (err != 0) return err;
+  super_reduce_kernel<<<n_super, kThreads, 0, s>>>(
+      tile_acc, ssums, scounts, Gated ? g.active : nullptr, n_tiles, d, k,
+      tps);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches both kernels of one assignment round on `stream`; returns
+// Launches both kernels of one assignment round (K3) on `stream`; returns
 // cudaGetLastError(). `cols` columns of 8 warp-private (k, cols)
 // accumulators must fit the shared memory the caller budgeted
 // (repro_torch.kernels.ops.assign_smem_bytes).
@@ -263,18 +365,27 @@ extern "C" int lloyd_assign_tiled_launch(
     float* md, float* partials, float* gaps, float* tile_acc, float* ssums,
     float* scounts, int n, int d, int k, int block_n, int tps, int cols,
     void* stream) {
-  const int n_tiles = (n + block_n - 1) / block_n;
-  const int n_super = (n_tiles + tps - 1) / tps;
-  const size_t smem = sizeof(float) * ((size_t)k * d + k + 2 * kThreads +
-                                       (size_t)kWarps * k * cols + block_n);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err =
-      d == 2 ? launch_assign<2>(points, norms, cents, labels, md, partials,
-                                gaps, tile_acc, n, d, k, block_n, cols, smem, s)
-             : launch_assign<0>(points, norms, cents, labels, md, partials,
-                                gaps, tile_acc, n, d, k, block_n, cols, smem, s);
-  if (err != 0) return err;
-  super_reduce_kernel<<<n_super, kThreads, 0, s>>>(tile_acc, ssums, scounts,
-                                                   n_tiles, d, k, tps);
-  return (int)cudaGetLastError();
+  return launch_round<false>(points, norms, cents, labels, md, partials, gaps,
+                             tile_acc, ssums, scounts, Gate{}, n, d, k,
+                             block_n, tps, cols,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// Launches both kernels of one gated assignment round (K6) on `stream`;
+// returns cudaGetLastError(). labels, md, lb, partials, gaps, ssums and
+// scounts must hold the carried values and pruned zeros: skipped tiles and
+// supers leave them as they are. `active` must be super-aligned.
+extern "C" int lloyd_assign_gated_launch(
+    const float* points, const float* norms, const float* cents,
+    const float* delta, const float* thresh, const float* absorb,
+    const int* prev_a, const float* prev_md, const float* prev_lb,
+    const unsigned char* active, int* labels, float* md, float* lb,
+    float* partials, float* gaps, float* tile_acc, float* ssums,
+    float* scounts, int* pruned, int n, int d, int k, int block_n, int tps,
+    int cols, void* stream) {
+  const Gate g{delta, thresh, absorb, prev_a, prev_md, prev_lb, active, lb,
+               pruned};
+  return launch_round<true>(points, norms, cents, labels, md, partials, gaps,
+                            tile_acc, ssums, scounts, g, n, d, k, block_n,
+                            tps, cols, static_cast<cudaStream_t>(stream));
 }

@@ -1,15 +1,26 @@
-"""K2 — the k-means++ seeding round (port of
-``repro.kernels.kmeans_distance.distance_min_update_pallas``).
+"""K1, K2 and K5 — the prologue and the k-means++ seeding round, ungated and
+bound-gated (port of ``repro.kernels.kmeans_distance``'s
+``seed_prologue_pallas``, ``distance_min_update_pallas`` and
+``distance_min_update_gated_pallas``).
 
-One round folds the newest centroid block c (m, d) into every point's D²
-and returns the per-tile partial sums the samplers draw from:
+K1 ``seed_prologue`` is the once-per-call pass: the fp32 norms every round
+streams, and the tile balls (centers, radii, each row's distance to its
+tile's center) the seeding and assignment gates read.
+
+One round (K2) folds the newest centroid block c (m, d) into every point's
+D² and returns the per-tile partial sums the samplers draw from:
 
     new_md = min(md, min_c max(||x||² − 2 x·c + ||c||², 0)),
     partials[t] = sum of new_md over tile t's rows.
 
-``distance_min_update`` launches the hand-written CUDA kernel
-(``csrc/kmeans_distance.cu``) for tensors on the card, and runs the plain
-twin ``distance_min_update_torch`` only for tensors on the CPU.
+The gated round (K5) does the same on the tiles the seeding gate marks
+active only, skips the rows the per-point bound prunes, and also returns
+each tile's max of new_md and its count of pruned rows; inactive tiles keep
+their carried values.
+
+Each wrapper launches its hand-written CUDA kernel (``csrc/seed_prologue.cu``,
+``csrc/kmeans_distance.cu``) for tensors on the card, and runs its plain
+twin (``*_torch``) only for tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -17,11 +28,16 @@ import ctypes
 
 import torch
 
+from repro_torch.core import bounds
 from repro_torch.core.guards import KernelFailureError
 from repro_torch.core.sampling import tile_partials
 from repro_torch.kernels import _build, ops
 
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+_GATED_ARGTYPES = ((ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 5
+                   + (ctypes.c_void_p,))
+_PROLOGUE_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3
+                      + (ctypes.c_void_p,))
 
 
 def tile_d2(x: torch.Tensor, c: torch.Tensor, xn: torch.Tensor) -> torch.Tensor:
@@ -39,6 +55,82 @@ def distance_min_update_torch(points: torch.Tensor, norms: torch.Tensor,
     (n_tiles,))."""
     new = torch.minimum(min_d2, tile_d2(points, centroids, norms).amin(dim=1))
     return new, tile_partials(new, block_n)
+
+
+def seed_prologue_torch(points: torch.Tensor, block_n: int):
+    """Plain PyTorch twin of K1, the arithmetic of the reference's
+    ``_prologue_kernel``: (norms (n,), centers (T, d), radii (T,),
+    center_d (n,)), all fp32."""
+    return tuple(bounds.prologue(points, block_n))
+
+
+def gate_select(new_md_full: torch.Tensor, min_d2: torch.Tensor,
+                center_d: torch.Tensor, dc: torch.Tensor,
+                margin: torch.Tensor, prev_partials: torch.Tensor,
+                prev_tile_max: torch.Tensor, active: torch.Tensor, *,
+                block_n: int):
+    """K5's per-tile selects, given every row's ungated ``new_md_full``:
+    rows of active tiles that the per-point bound does not prune take the
+    fresh value, all others keep ``min_d2``; active tiles re-sum their
+    partial and max, inactive ones keep the carried entries. Returns
+    (min_d2, partials, tile_max, pruned (T,) int32)."""
+    n = min_d2.shape[0]
+    act_pt = bounds.expand_mask(active, block_n, n)
+    prune = act_pt & bounds.seed_point_prune(
+        min_d2, center_d, bounds.expand_mask(dc, block_n, n),
+        bounds.expand_mask(margin, block_n, n))
+    md = torch.where(act_pt & ~prune, new_md_full, min_d2)
+    partials = torch.where(active, tile_partials(md, block_n), prev_partials)
+    tile_max = torch.where(active, bounds.tile_reduce_max(md, block_n),
+                           prev_tile_max)
+    return (md, partials, tile_max,
+            tile_partials(prune.int(), block_n).to(torch.int32))
+
+
+def distance_min_update_gated_torch(points, norms, centroids, min_d2,
+                                    center_d, dc, margin, prev_partials,
+                                    prev_tile_max, active, *, block_n: int):
+    """Plain PyTorch twin of K5, the reference's per-tile math: masked tiles
+    take every output from the carry, pruned rows keep their ``min_d2``.
+    Returns (min_d2 (n,), partials (T,), tile_max (T,), pruned (T,))."""
+    full = distance_min_update_torch(points, norms, centroids, min_d2,
+                                     block_n=block_n)[0]
+    return gate_select(full, min_d2, center_d, dc, margin, prev_partials,
+                       prev_tile_max, active, block_n=block_n)
+
+
+def seed_prologue(points: torch.Tensor, block_n: int):
+    """The prologue at tile height ``block_n``. Returns (norms (n,),
+    centers (T, d), radii (T,), center_d (n,)). On the card this launches
+    K1; CPU tensors take the plain twin."""
+    if points.dim() != 2 or points.shape[0] < 1 or points.shape[1] < 1:
+        raise ValueError(f"points must be (n, d), got {tuple(points.shape)}")
+    if block_n < 1:
+        raise ValueError(f"block_n must be >= 1, got {block_n}")
+    if points.device.type == "cpu":
+        return seed_prologue_torch(points, block_n)
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    ops.check_card_tensors(points=points)
+    n, d = points.shape
+    n_tiles = -(-n // block_n)
+    fn = _build.function("seed_prologue", "seed_prologue_launch",
+                         _PROLOGUE_ARGTYPES)
+    norms = torch.empty(n, dtype=torch.float32, device=points.device)
+    center_d = torch.empty_like(norms)
+    centers = torch.empty((n_tiles, d), dtype=torch.float32,
+                          device=points.device)
+    radii = torch.empty(n_tiles, dtype=torch.float32, device=points.device)
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(points.data_ptr(), norms.data_ptr(), centers.data_ptr(),
+                 radii.data_ptr(), center_d.data_ptr(), n, d, block_n,
+                 stream)
+    if err != 0:
+        raise KernelFailureError(f"seed_prologue launch failed: "
+                                 f"cudaError {err}")
+    ops.LAUNCHES["seed_prologue"] += 1
+    return norms, centers, radii, center_d
 
 
 def _check(points, norms, centroids, min_d2, block_n):
@@ -73,11 +165,8 @@ def distance_min_update(points: torch.Tensor, norms: torch.Tensor,
                                          block_n=block_n)
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
-    for name, t in (("points", points), ("norms", norms),
-                    ("centroids", centroids), ("min_d2", min_d2)):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32, got "
-                             f"{t.dtype} contiguous={t.is_contiguous()}")
+    ops.check_card_tensors(points=points, norms=norms, centroids=centroids,
+                min_d2=min_d2)
     n, d = points.shape
     m = centroids.shape[0]
     if ops.seed_smem_bytes(d, m, resident) > ops.SMEM_LIMIT:
@@ -98,3 +187,61 @@ def distance_min_update(points: torch.Tensor, norms: torch.Tensor,
                                  f"cudaError {err}")
     ops.LAUNCHES["distance_min_update"] += 1
     return out, partials
+
+
+def distance_min_update_gated(points: torch.Tensor, norms: torch.Tensor,
+                              centroids: torch.Tensor, min_d2: torch.Tensor,
+                              center_d: torch.Tensor, dc: torch.Tensor,
+                              margin: torch.Tensor,
+                              prev_partials: torch.Tensor,
+                              prev_tile_max: torch.Tensor,
+                              active: torch.Tensor, *, block_n: int,
+                              resident: bool = True):
+    """One bound-gated seeding round. ``active``/``dc``/``margin`` come from
+    ``bounds.seed_gate``, ``center_d`` from the prologue; ``prev_partials``
+    and ``prev_tile_max`` are the carried per-tile state, at the tile height
+    ``block_n``. Returns (min_d2 (n,), partials (T,), tile_max (T,),
+    pruned (T,) int32). On the card this launches K5 over the full grid of
+    tiles (inactive ones exit); the outputs start as copies of the carries,
+    so skipped tiles keep them. CPU tensors take the plain twin."""
+    _check(points, norms, centroids, min_d2, block_n)
+    n = points.shape[0]
+    n_tiles = -(-n // block_n)
+    if tuple(center_d.shape) != (n,):
+        raise ValueError(f"center_d {tuple(center_d.shape)} must be ({n},)")
+    for name, t in (("dc", dc), ("margin", margin),
+                    ("prev_partials", prev_partials),
+                    ("prev_tile_max", prev_tile_max), ("active", active)):
+        if tuple(t.shape) != (n_tiles,):
+            raise ValueError(f"{name} {tuple(t.shape)} must be ({n_tiles},)")
+    if points.device.type == "cpu":
+        return distance_min_update_gated_torch(
+            points, norms, centroids, min_d2, center_d, dc, margin,
+            prev_partials, prev_tile_max, active, block_n=block_n)
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    ops.check_card_tensors(points=points, norms=norms, centroids=centroids,
+                min_d2=min_d2, center_d=center_d, dc=dc, margin=margin)
+    m, d = centroids.shape
+    if ops.seed_smem_bytes(d, m, resident, gated=True) > ops.SMEM_LIMIT:
+        raise ValueError(f"a resident ({m}, {d}) centroid block does not fit "
+                         f"in {ops.SMEM_LIMIT} bytes of shared memory")
+    fn = _build.function("kmeans_distance",
+                         "distance_min_update_gated_launch", _GATED_ARGTYPES)
+    out = min_d2.clone()
+    partials = prev_partials.float().clone()
+    tile_max = prev_tile_max.float().clone()
+    pruned = torch.zeros(n_tiles, dtype=torch.int32, device=points.device)
+    act = active.to(torch.uint8).contiguous()
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
+                 min_d2.data_ptr(), out.data_ptr(), partials.data_ptr(),
+                 center_d.data_ptr(), dc.data_ptr(), margin.data_ptr(),
+                 act.data_ptr(), tile_max.data_ptr(), pruned.data_ptr(),
+                 n, d, m, block_n, int(resident), stream)
+    if err != 0:
+        raise KernelFailureError(f"distance_min_update_gated launch failed: "
+                                 f"cudaError {err}")
+    ops.LAUNCHES["distance_min_update_gated"] += 1
+    return out, partials, tile_max, pruned

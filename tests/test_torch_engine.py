@@ -1,10 +1,12 @@
 """The port's seeding, Lloyd and kmeans against ``repro.core.engine``.
 
-The reference runs ``ClusterEngine(<backend>, bounds=False)`` on the CPU, its
-Pallas kernels in interpret mode. The port gets the reference's random draws
-(replayed from its key schedule, see ``test_torch_jaxref``) and its tile
-geometry (``convert.with_geometry``), and its ``cuda`` backend runs the
-kernels' plain versions, since the tensors lie on the CPU.
+The reference runs ``ClusterEngine(<backend>)`` on the CPU, its Pallas
+kernels in interpret mode, ungated (``bounds=False``) or bound-gated (its
+default). The port gets the reference's random draws (replayed from its key
+schedule, see ``test_torch_jaxref``) and its tile geometry
+(``convert.with_geometry``), and its ``cuda`` backend runs the kernels'
+plain versions, since the tensors lie on the CPU. Inside the port, the
+gated loops are held bitwise to the ungated ones.
 """
 from __future__ import annotations
 
@@ -105,29 +107,32 @@ def test_seed_rounds_pick_the_reference_index(ref, sampler, port_be, ref_be):
 def test_seed_guard_heals_a_poisoned_round():
     """A round whose carried D² turns NaN is detected by the finite check on
     its total, refolded from the clean carry, and the run goes on to the
-    seeds an unpoisoned run picks; the heal is flagged in ``recovered``."""
+    seeds an unpoisoned run picks; the heal is flagged in ``recovered``.
+    The ungated loop here; ``test_torch_bounds`` heals the gated one."""
 
     @dataclasses.dataclass(frozen=True)
     class Poisoned(FusedBackend):
         calls: list = dataclasses.field(default_factory=list)
 
-        def seed_round(self, points, c_new, min_d2, *, cache):
+        def seed_round(self, points, c_new, min_d2, *, cache, state=None):
             self.calls.append(1)
             if len(self.calls) == 3:
                 min_d2 = min_d2.clone()
                 min_d2[:5] = torch.nan
-            return super().seed_round(points, c_new, min_d2, cache=cache)
+            return super().seed_round(points, c_new, min_d2, cache=cache,
+                                      state=state)
 
     pts, _ = blobs(2000, 3, 5, seed=1)
     draws = draws_for(0, 2000, 5)
-    clean = ClusterEngine("fused", device="cpu").seed(pts, 5, draws=draws)
-    healed = ClusterEngine(Poisoned(), device="cpu").seed(pts, 5,
-                                                          draws=draws)
+    clean = ClusterEngine("fused", device="cpu", bounds=False).seed(
+        pts, 5, draws=draws)
+    healed = ClusterEngine(Poisoned(), device="cpu", bounds=False).seed(
+        pts, 5, draws=draws)
     assert torch.equal(healed.indices, clean.indices)
     assert torch.equal(healed.min_d2, clean.min_d2)
     assert healed.recovered.tolist() == [0, 0, 1, 0, 0]
-    off = ClusterEngine(Poisoned(), device="cpu", validate="off").seed(
-        pts, 5, draws=draws)
+    off = ClusterEngine(Poisoned(), device="cpu", bounds=False,
+                        validate="off").seed(pts, 5, draws=draws)
     assert off.recovered is None
 
 
@@ -265,6 +270,201 @@ def test_reseed_and_empty_clusters_match_reference(ref):
                                    np.asarray(want.centroids), rtol=0,
                                    atol=1000 * EPS32 * 50)
         assert got.n_iters == int(want.n_iters)
+
+
+# ---------------------------------------------------------------------------
+# bound gating: gated == ungated inside the port, and against the reference
+# ---------------------------------------------------------------------------
+
+
+def _coherent(n=8192, d=2, k=6, seed=0, spread=0.03, offset=0.0):
+    """Label-sorted blobs: tiles become spatially coherent, so the gates
+    have something to skip."""
+    pts, labels = blobs(n, d, k, seed=seed, spread=spread)
+    return pts[np.argsort(labels, kind="stable")] + np.float32(offset)
+
+
+def _same(a, b, fields):
+    for f in fields:
+        x, y = getattr(a, f), getattr(b, f)
+        assert (x == y) if isinstance(x, int) else torch.equal(x, y), f
+
+
+@pytest.mark.parametrize("offset", [0.0, 100.0, -3000.0])
+@pytest.mark.parametrize("sampler", ["cdf", "tiled"])
+@pytest.mark.parametrize("backend", ["reference", "fused", "cuda"])
+def test_gated_seed_is_bitwise_the_ungated_seed(backend, sampler, offset):
+    """Same draws: seeds, centroids and final D² bitwise equal with and
+    without bounds, while the gated run skips tiles (near the origin) and
+    prunes points; far from the origin the margin keeps more work but the
+    bits still agree. Counters are (k,) int32 and None without bounds."""
+    pts = _coherent(offset=offset)
+    draws = draws_for(3, pts.shape[0], 12)
+    on = ClusterEngine(backend, device="cpu", block_n=512).seed(
+        pts, 12, draws=draws, sampler=sampler)
+    off = ClusterEngine(backend, device="cpu", block_n=512,
+                        bounds=False).seed(pts, 12, draws=draws,
+                                           sampler=sampler)
+    _same(on, off, ("indices", "centroids", "min_d2"))
+    assert off.skipped is None and off.pruned is None
+    assert on.skipped.shape == on.pruned.shape == (12,)
+    assert on.skipped.dtype == torch.int32
+    assert int(on.skipped[0]) == 0          # round 1 starts from +inf
+    if offset == 0.0:
+        assert int(on.skipped.sum()) > 0 and int(on.pruned.sum()) > 0
+
+
+@pytest.mark.parametrize("offset", [0.0, 100.0, -3000.0])
+@pytest.mark.parametrize("empty", ["keep", "reseed"])
+@pytest.mark.parametrize("backend", ["reference", "fused", "cuda"])
+def test_gated_fit_is_bitwise_the_ungated_fit(backend, empty, offset):
+    """From the same seeds (one far outside the data under 'reseed', so a
+    cluster empties and jumps): centroids, assignment, inertia and n_iters
+    bitwise equal with and without bounds; near the origin the gated fit
+    skips tiles and prunes points."""
+    pts = _coherent(offset=offset, seed=1)
+    init = pts[[0, 2000, 4000, 6000, 8000, 1000]].copy()
+    if empty == "reseed":
+        init[5] = pts.max(0) + 50.0
+    kw = dict(max_iters=10, tol=-1.0, empty=empty)
+    on = ClusterEngine(backend, device="cpu", block_n=512, tps=4).fit(
+        pts, init, **kw)
+    off = ClusterEngine(backend, device="cpu", block_n=512, tps=4,
+                        bounds=False).fit(pts, init, **kw)
+    _same(on, off, ("centroids", "assignment", "inertia", "n_iters"))
+    assert off.skipped is None and on.skipped.shape == (10,)
+    assert on.recovered.tolist() == [0] * 10
+    if offset == 0.0 and empty == "keep":
+        assert int(on.skipped.sum()) > 0 and int(on.pruned.sum()) > 0
+
+
+@pytest.mark.parametrize("sampler", ["cdf", "tiled"])
+def test_gated_kmeans_matches_reference_gated_kmeans(ref, sampler):
+    """The port's gated kmeans (cuda backend, plain versions on the CPU)
+    against the reference's gated Pallas kmeans, on label-sorted blobs with
+    the reference's draws and geometry: seeds equal, the fit as
+    ``test_kmeans_matches_reference_end_to_end`` holds it; skip counts per
+    round within ±1 tile (the two prologues agree only to ulps) and, in
+    every round where they are equal, the same pruned count."""
+    n, d, k, seed = 6000, 2, 8, 5
+    pts = _coherent(n, d, k, seed=seed)
+    rbe = dataclasses.replace(ref.engine.make_backend("pallas", block_n=512),
+                              tile_m=k)
+    bn = rbe.seed_tile(n, d)
+    tps = rbe.tiles_per_super(-(-n // bn))
+    reng = ref.engine.ClusterEngine(rbe)
+    want_seed = reng.seed(jax.random.PRNGKey(seed), jnp.asarray(pts), k,
+                          sampler=sampler)
+    want = reng.kmeans(jax.random.PRNGKey(seed), jnp.asarray(pts), k,
+                       sampler=sampler, max_iters=25)
+    eng = ClusterEngine(_port("cuda", bn, tps), device="cpu")
+    seeds = eng.seed(pts, k, draws=draws_for(seed, n, k), sampler=sampler)
+    np.testing.assert_array_equal(seeds.indices.numpy(),
+                                  np.asarray(want_seed.indices))
+    got = eng.kmeans(pts, k, draws=draws_for(seed, n, k), sampler=sampler,
+                     max_iters=25)
+    prev = np.asarray(reng.fit(
+        jnp.asarray(pts), want_seed.centroids,
+        max_iters=int(want.n_iters) - 1).centroids)
+    _assert_fit_matches(got, convert.lloyd_result(*want[:4]), pts, prev)
+    for mine, theirs in ((seeds, want_seed), (got, want)):
+        gs, ws = mine.skipped.numpy(), np.asarray(theirs.skipped)
+        assert gs.shape == ws.shape
+        assert (np.abs(gs - ws) <= 1).all(), (gs, ws)
+        eq = gs == ws
+        np.testing.assert_array_equal(mine.pruned.numpy()[eq],
+                                      np.asarray(theirs.pruned)[eq])
+    assert int(seeds.skipped.sum()) > 0 and int(got.pruned.sum()) > 0
+
+
+def test_gated_seed_guard_heals_a_poisoned_carry():
+    """A round whose carried partials turn NaN (a skipped tile's carry
+    reaches the total) is detected, refolded ungated from the clean carry,
+    and the run goes on bitwise the clean run; the heal is flagged."""
+
+    @dataclasses.dataclass(frozen=True)
+    class Poisoned(FusedBackend):
+        calls: list = dataclasses.field(default_factory=list)
+
+        def seed_round(self, points, c_new, min_d2, *, cache, state=None):
+            if state is not None:
+                self.calls.append(1)
+                if len(self.calls) == 3:
+                    state = state._replace(
+                        partials=torch.full_like(state.partials, torch.nan))
+            return super().seed_round(points, c_new, min_d2, cache=cache,
+                                      state=state)
+
+    pts = _coherent(seed=2)
+    draws = draws_for(1, pts.shape[0], 8)
+    clean = ClusterEngine("fused", device="cpu", block_n=512).seed(
+        pts, 8, draws=draws, sampler="tiled")
+    healed = ClusterEngine(Poisoned(block_n=512), device="cpu").seed(
+        pts, 8, draws=draws, sampler="tiled")
+    _same(healed, clean, ("indices", "centroids", "min_d2"))
+    assert healed.recovered.tolist() == [0, 0, 1, 0, 0, 0, 0, 0]
+    assert int(healed.skipped[2]) == 0 and int(clean.skipped[2]) > 0
+
+
+@pytest.mark.parametrize("fault", ["nan_state", "zero_counts"])
+def test_gated_fit_guard_heals_a_poisoned_iteration(fault):
+    """An iteration whose inertia turns NaN, or whose counts lose half
+    their mass, is re-run ungated; the fit ends bitwise the clean fit, the
+    trip is flagged in ``recovered``, and with validate='off' nothing is
+    checked."""
+
+    @dataclasses.dataclass(frozen=True)
+    class Poisoned(FusedBackend):
+        calls: list = dataclasses.field(default_factory=list)
+
+        def assign_update(self, points, centroids, *, cache, state=None,
+                          delta=None):
+            rnd = super().assign_update(points, centroids, cache=cache,
+                                        state=state, delta=delta)
+            if delta is None:
+                return rnd
+            self.calls.append(1)
+            if len(self.calls) != 3:
+                return rnd
+            if fault == "zero_counts":
+                return rnd._replace(sums=rnd.sums * 0.5,
+                                    counts=rnd.counts * 0.5)
+            parts = rnd.state.partials.clone()
+            parts[0] = torch.nan
+            return rnd._replace(state=rnd.state._replace(partials=parts))
+
+    pts = _coherent(seed=3)
+    init = pts[[0, 2000, 4000, 6000, 8000, 1000]]
+    kw = dict(max_iters=8, tol=-1.0)
+    clean = ClusterEngine("fused", device="cpu", block_n=512).fit(
+        pts, init, **kw)
+    healed = ClusterEngine(Poisoned(block_n=512), device="cpu").fit(
+        pts, init, **kw)
+    _same(healed, clean, ("centroids", "assignment", "inertia", "n_iters"))
+    assert healed.recovered.tolist() == [0, 0, 1, 0, 0, 0, 0, 0]
+    off = ClusterEngine(Poisoned(block_n=512), device="cpu",
+                        validate="off").fit(pts, init, **kw)
+    assert off.recovered is None
+
+
+def test_gated_kmeans_runs_one_prologue_with_bounds():
+    """kmeans shares one prologue with tile balls between its two phases,
+    and its gated result is seed-then-fit's, bit for bit."""
+    pts = _coherent(seed=4)
+    draws = draws_for(2, pts.shape[0], 6)
+    calls = []
+
+    @dataclasses.dataclass(frozen=True)
+    class Counting(FusedBackend):
+        def prologue(self, points, m=1, with_bounds=True):
+            calls.append(with_bounds)
+            return super().prologue(points, m, with_bounds)
+
+    got = ClusterEngine(Counting(), device="cpu").kmeans(pts, 6, draws=draws)
+    assert calls == [True]
+    two = ClusterEngine(Counting(tile_m=6), device="cpu")
+    fit = two.fit(pts, two.seed(pts, 6, draws=draws).centroids)
+    _same(got, fit, ("centroids", "assignment", "inertia", "n_iters"))
 
 
 # ---------------------------------------------------------------------------
@@ -406,8 +606,6 @@ def test_entry_points_need_a_card_or_device_cpu():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        ClusterEngine(device="cpu", bounds=True)
     pts, _ = blobs(100, 2, 3, seed=0)
     eng = ClusterEngine(device="cpu")
     for sampler in ("gumbel", "rejection"):

@@ -158,6 +158,19 @@ def test_categorical_matches_reference_draw_for_draw(ref, sampler,
             assert_same_draw(got, want, u, w, tol)
 
 
+@pytest.mark.parametrize("n", [1, 4096, 4097, 10_000, 20_000])
+def test_prefix_sum_adds_in_one_fixed_order(n):
+    """prefix_sum: per-tile scans, a prefix sum of the tile totals, each
+    tile's offset added. The same bits run after run, non-decreasing for
+    non-negative weights, and within ``cdf_tol`` of the exact prefix sum."""
+    w = _weights(n, seed=n, zeros=False)
+    got = sampling.prefix_sum(_t(w)).numpy()
+    np.testing.assert_array_equal(sampling.prefix_sum(_t(w)).numpy(), got)
+    assert (np.diff(got) >= 0).all()
+    exact = np.cumsum(w.astype(np.float64))
+    assert np.abs(got - exact).max() <= cdf_tol(w)
+
+
 def test_draws_sample_is_reproducible_and_in_range():
     g = torch.Generator().manual_seed(3)
     a = sampling.Draws.sample(1000, 8, generator=g)
