@@ -21,11 +21,15 @@ Phases, each of which exits non-zero on failure:
    the gate's mask, all tiles, half and none active, and K6 (gated
    assignment) at k = 50 or 64 and k = 1 from a carried state whose lower
    bounds make the prune fire, with every tile, half the supers and the
-   gate's mask active. Two launches must give identical bits, skipped
-   tiles must keep their carried values, and all-active K5 and K6 (the
-   latter with no carried bound) must be bitwise K2 and K3. Each kernel's
-   median time (CUDA events) is printed beside its plain twin's and its
-   bound (for the gated kernels, from the bytes of the active tiles).
+   gate's mask active, K11 (the rejection sampler's drawn-row D²) and K12
+   (its per-tile envelope caps, over K1's tile balls) against a pending
+   block of 8 centroids with count 0, 1 and 8. Two launches must give
+   identical bits, skipped tiles must keep their carried values, all-active
+   K5 and K6 (the latter with no carried bound) must be bitwise K2 and K3,
+   and K11/K12 must be bitwise their plain twins (+inf everywhere at count
+   0). Each kernel's median time (CUDA events) is printed beside its plain
+   twin's and its bound (for the gated kernels, from the bytes of the
+   active tiles).
 3. Drive the main path, ``ClusterEngine(device="cuda").kmeans`` (bound-gated)
    at the paper's size, k = 50, 25 iterations, for sampler cdf and tiled, on
    the shuffled blobs and on a label-sorted copy, with the launch counters
@@ -35,10 +39,22 @@ Phases, each of which exits non-zero on failure:
    second run to the first. The ungated path is driven the same way
    (K2 k times, K3 n_iters times) and compared with the plain
    ``FusedBackend`` on the card from the same draws.
-4. With ``--profile`` only: trace one seeding run per sampler and one Lloyd
-   fit at that shape, ungated and gated (shuffled and sorted), with
-   torch.profiler, and print the device time by kernel and the device's
-   idle share.
+4. Rejection seeding at the paper's size, ``ClusterEngine(device="cuda")
+   .seed/kmeans(sampler="rejection", refresh_block=8)`` for proposal hier
+   and flat on both layouts, counted like phase 3: K1 once, K5 once per
+   refresh (the schedule's, the exact fallbacks' and the settling one),
+   K11 once per proposal, K12 once per round under hier and never under
+   flat; ungated, K2 in K5's place and no K12. Held: two runs bitwise
+   equal; flat gated bitwise ungated (seeds, D², the kmeans fit); at
+   ``refresh_block=1`` hier, flat and the tiled sampler pick the same
+   seeds; the returned D² bitwise one K2 fold of all k seeds from +inf;
+   the counters under ``core.telemetry``'s contract; the kmeans fit
+   bitwise a fit from the seeding's seeds. Seeding ms of rejection beside
+   tiled, gated and ungated (median of 3 host-clock runs).
+5. With ``--profile`` only: trace one seeding run per sampler (rejection
+   hier and flat included) and one Lloyd fit at that shape, ungated and
+   gated (shuffled and sorted), with torch.profiler, and print the device
+   time by kernel and the device's idle share.
 
 The last three lines of stdout are the card's name and power limit, the
 kernels' JSON record, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -218,6 +234,61 @@ def k3_case(torch, la, ops, bounds, pts, norms, k, gen):
 
 def timed(torch, fn, plain):
     return gpu_ms(torch, fn), gpu_ms(torch, plain)
+
+
+def bitwise_err(torch, a, b) -> float:
+    """Largest |a − b|, with equal entries (+inf included) counting 0."""
+    return float(torch.where(a == b, 0.0, (a - b).abs()).max())
+
+
+def rejection_kernel_cases(torch, kd, pts, centers, radii, gen, p=8):
+    """K11 and K12 on one shape against a (p, d) pending block, count 0, 1
+    and p: each launch bitwise its plain twin and a second launch, +inf
+    everywhere at count 0; K11 at four drawn rows. Timed at count p."""
+    n, d = pts.shape
+    dev = pts.device
+    pend = pts[torch.randint(n, (p,), generator=gen, device=dev)].contiguous()
+    rows = torch.randint(n, (4,), generator=gen, device=dev)
+    err11 = err12 = 0.0
+    for count in (0, 1, p):
+        cnt = torch.tensor(count, dtype=torch.int32, device=dev)
+        what = f"n={n} d={d} count={count}"
+        for i in rows.unbind():
+            a = kd.row_min_d2(pts, i, pend, cnt)
+            b = kd.row_min_d2(pts, i, pend, cnt)
+            plain = kd.row_min_d2_torch(pts, i, pend, cnt)
+            check(torch.equal(a, b), f"K11 {what}: two launches differ")
+            check(torch.equal(a, plain),
+                  f"K11 {what}: {float(a)} is not the plain {float(plain)}")
+            err11 = max(err11, bitwise_err(torch, a, plain))
+            check(count > 0 or bool(torch.isinf(a)), f"K11 {what}: not +inf")
+        c1 = kd.tile_cap(centers, radii, pend, cnt)
+        c2 = kd.tile_cap(centers, radii, pend, cnt)
+        plain = kd.tile_cap_torch(centers, radii, pend, cnt)
+        check(torch.equal(c1, c2), f"K12 {what}: two launches differ")
+        check(torch.equal(c1, plain), f"K12 {what}: not bitwise the plain "
+              f"version (max err {bitwise_err(torch, c1, plain)})")
+        err12 = max(err12, bitwise_err(torch, c1, plain))
+        check(bool(torch.isinf(c1).all()) if count == 0
+              else bool(torch.isfinite(c1).all()),
+              f"K12 {what}: +inf where it should not be, or missing")
+    i = rows[0]
+    cnt = torch.tensor(p, dtype=torch.int32, device=dev)
+    t = centers.shape[0]
+    ms11, plain11 = timed(torch, lambda: kd.row_min_d2(pts, i, pend, cnt),
+                          lambda: kd.row_min_d2_torch(pts, i, pend, cnt))
+    ms12, plain12 = timed(
+        torch, lambda: kd.tile_cap(centers, radii, pend, cnt),
+        lambda: kd.tile_cap_torch(centers, radii, pend, cnt))
+    # K11 reads the row, the block, idx and count and writes one float;
+    # K12 reads the balls, the block and count and writes T caps
+    b11, by11 = bound_ms(4 * (d + p * d + 1) + 8 + 4, p * 3 * d)
+    b12, by12 = bound_ms(4 * (t * (d + 1) + p * d + t) + 4,
+                         t * (p * 3 * d + 3))
+    return (dict(n=n, d=d, p=p, max_abs_err=err11, ms=ms11, plain_ms=plain11,
+                 bound_ms=b11, bound_by=by11),
+            dict(n=n, d=d, p=p, tiles=t, max_abs_err=err12, ms=ms12,
+                 plain_ms=plain12, bound_ms=b12, bound_by=by12))
 
 
 def k1_case(torch, kd, bounds, pts):
@@ -477,15 +548,58 @@ def profile_call(torch, fn) -> dict:
                          for name, (ms, c) in top})
 
 
-def kmeans_run(torch, ops, eng, pts, k, sampler, draws, max_iters=25):
+def kmeans_run(torch, ops, eng, pts, k, sampler, draws, max_iters=25,
+               **kw):
     """One counted kmeans: counters zeroed just before, read just after."""
     ops.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = eng.kmeans(pts, k, draws=draws, sampler=sampler,
-                     max_iters=max_iters)
+                     max_iters=max_iters, **kw)
     torch.cuda.synchronize()
     return res, time.perf_counter() - t0, dict(ops.LAUNCHES)
+
+
+def seed_run(torch, ops, eng, pts, k, draws, **kw):
+    """One counted seeding: counters zeroed just before, read just after."""
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.seed(pts, k, draws=draws, **kw)
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3, dict(ops.LAUNCHES)
+
+
+def median_seed_ms(torch, eng, pts, k, draws, reps=3, **kw) -> float:
+    """Median host-clock ms of ``reps`` synchronised seedings."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.seed(pts, k, draws=draws, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def refreshes(accepts, k: int, p: int) -> int:
+    """Round-kernel launches a rejection seeding makes: the schedule's
+    (every p appended centroids, the first at round 1), one per round
+    whose attempts all rejected (the count restarts), and the settle."""
+    count, r = p - 1, 0
+    for m in range(1, k):
+        count += 1
+        if count >= p:
+            r, count = r + 1, 0
+        if not accepts[m]:
+            r, count = r + 1, 0
+    return r + 1
+
+
+def same_seeds(torch, a, b) -> bool:
+    return (torch.equal(a.indices, b.indices)
+            and torch.equal(a.centroids, b.centroids)
+            and torch.equal(a.min_d2, b.min_d2))
 
 
 def phase_ms(torch, eng, pts, k, sampler, draws, max_iters=25):
@@ -508,6 +622,134 @@ def same_fit(torch, a, b) -> bool:
             and torch.equal(a.inertia, b.inertia) and a.n_iters == b.n_iters)
 
 
+def rejection_phase(torch, ops, kd, bounds, telemetry, Draws, eng, ungated,
+                    layouts, k, dev, launches, max_iters=25):
+    """Phase 4: rejection seeding (hier, flat) and its kmeans on each
+    ``(name, points)`` of ``layouts``, gated (``eng``) and ungated, counted
+    and held to its pins; every counted run's launches are added to
+    ``launches``. Returns one record per layout and proposal."""
+    P, A = 8, 8
+    n, dim = layouts[0][1].shape
+    n_tiles = -(-n // ops.choose_block_n(n, dim, 1))
+    block_n = ops.choose_block_n(n, dim, k)
+    rej_runs = []
+    for layout, pts in layouts:
+        draws = Draws.sample(pts.shape[0], k,
+                             generator=torch.Generator().manual_seed(0),
+                             device=dev, max_attempts=A)
+        norms = bounds.point_norms(pts)
+        tiled_ms = median_seed_ms(torch, eng, pts, k, draws, sampler="tiled")
+        tiled_off_ms = median_seed_ms(torch, ungated, pts, k, draws,
+                                      sampler="tiled")
+        tiled = eng.seed(pts, k, draws=draws, sampler="tiled")
+        for prop in ("hier", "flat"):
+            hier = prop == "hier"
+            what = f"rejection[{prop}, {layout}]"
+            kw = dict(sampler="rejection", proposal=prop, refresh_block=P)
+            outs = {}
+            for tag, e in (("gated", eng), ("ungated", ungated)):
+                res, ms, got = seed_run(torch, ops, e, pts, k, draws, **kw)
+                for name in launches:
+                    launches[name] += got[name]
+                r = refreshes(res.accepts.tolist(), k, P)
+                want = {name: 0 for name in got}
+                want["row_min_d2"] = int(res.proposals.sum())
+                if tag == "gated":
+                    want.update(seed_prologue=1,
+                                distance_min_update_gated=r,
+                                tile_cap=k - 1 if hier else 0)
+                else:
+                    want["distance_min_update"] = r
+                check(got == want, f"{what} {tag}: launches {got}, want "
+                      f"{want}")
+                check(tuple(res.centroids.shape) == (k, dim)
+                      and bool(torch.isfinite(res.min_d2).all())
+                      and len(set(res.indices.tolist())) == k,
+                      f"{what} {tag}: output malformed")
+                telemetry.check_rejection_counters(
+                    res.proposals, res.accepts, k, A, res.recovered)
+                telemetry.check_hier_counters(
+                    res.tightened, res.supers, res.proposals, k,
+                    n_tiles=n_tiles, hier=hier)
+                check(int(res.recovered.sum()) == 0,
+                      f"{what} {tag}: a guard healed a round")
+                again = e.seed(pts, k, draws=draws, **kw)
+                check(same_seeds(torch, res, again)
+                      and all(torch.equal(getattr(res, f), getattr(again, f))
+                              for f in ("proposals", "accepts", "tightened",
+                                        "supers")),
+                      f"{what} {tag}: two runs differ")
+                # the settled D² is one fold of all k seeds from +inf
+                fold, _ = kd.distance_min_update(
+                    pts, norms, res.centroids.contiguous(),
+                    torch.full_like(norms, torch.inf), block_n=block_n)
+                check(torch.equal(fold, res.min_d2),
+                      f"{what} {tag}: min_d2 is not one fold of the seeds "
+                      f"(max err {bitwise_err(torch, fold, res.min_d2)})")
+                outs[tag] = dict(res=res, ms=ms, launches=got, refreshes=r)
+            on, off = outs["gated"]["res"], outs["ungated"]["res"]
+            if not hier:
+                check(same_seeds(torch, on, off)
+                      and torch.equal(on.proposals, off.proposals)
+                      and torch.equal(on.accepts, off.accepts),
+                      f"{what}: gated is not bitwise ungated")
+            # refresh_block=1: hier, flat and the tiled sampler agree
+            one = eng.seed(pts, k, draws=draws, sampler="rejection",
+                           proposal=prop, refresh_block=1)
+            check(torch.equal(one.indices, tiled.indices),
+                  f"{what}: refresh_block=1 is not the tiled seeds")
+            # the kmeans entry point: the seeding's seeds, then Lloyd
+            fit, fit_s, fgot = kmeans_run(torch, ops, eng, pts, k,
+                                          "rejection", draws, max_iters,
+                                          proposal=prop)
+            for name in launches:
+                launches[name] += fgot[name]
+            check(fgot["lloyd_assign_gated"] == fit.n_iters
+                  and fgot["seed_prologue"] == 1
+                  and fgot["row_min_d2"] == int(on.proposals.sum())
+                  and fgot["tile_cap"] == (k - 1 if hier else 0),
+                  f"{what}: kmeans launches {fgot}")
+            check(same_fit(torch, fit, eng.fit(pts, on.centroids,
+                                               max_iters=max_iters)),
+                  f"{what}: kmeans is not a fit from the seeding's seeds")
+            if not hier:
+                ofit, _, _ = kmeans_run(torch, ops, ungated, pts, k,
+                                        "rejection", draws, max_iters,
+                                        proposal=prop)
+                check(same_fit(torch, fit, ofit),
+                      f"{what}: kmeans gated is not bitwise ungated")
+            rej_ms = median_seed_ms(torch, eng, pts, k, draws, **kw)
+            rej_off_ms = median_seed_ms(torch, ungated, pts, k, draws, **kw)
+            run = dict(layout=layout, proposal=prop,
+                       proposals=int(on.proposals.sum()),
+                       accepts=int(on.accepts.sum()),
+                       fallbacks=int((on.accepts[1:] == 0).sum()),
+                       tightened=int(on.tightened.sum()),
+                       refreshes=outs["gated"]["refreshes"],
+                       ungated_refreshes=outs["ungated"]["refreshes"],
+                       seed_skipped=int(on.skipped.sum()),
+                       seed_pruned=int(on.pruned.sum()),
+                       seed_ms=rej_ms, ungated_seed_ms=rej_off_ms,
+                       tiled_seed_ms=tiled_ms,
+                       tiled_ungated_seed_ms=tiled_off_ms,
+                       kmeans_s=fit_s, n_iters=fit.n_iters,
+                       inertia=float(fit.inertia),
+                       launches=outs["gated"]["launches"],
+                       ungated_launches=outs["ungated"]["launches"])
+            rej_runs.append(run)
+            print(f"{what}: seeding {rej_ms:.2f} ms gated / {rej_off_ms:.2f} "
+                  f"ms ungated (tiled {tiled_ms:.2f} / {tiled_off_ms:.2f}); "
+                  f"proposals {run['proposals']}, accepts {run['accepts']}, "
+                  f"fallbacks {run['fallbacks']}, tightened "
+                  f"{run['tightened']}, refreshes {run['refreshes']} gated / "
+                  f"{run['ungated_refreshes']} ungated; skipped "
+                  f"{run['seed_skipped']} tiles, pruned {run['seed_pruned']} "
+                  f"rows; kmeans {fit_s:.3f} s, n_iters {fit.n_iters}, "
+                  f"inertia {run['inertia']:.6g}; launches "
+                  f"{outs['gated']['launches']}")
+    return rej_runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement here")
@@ -523,7 +765,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import numpy as np
-    from repro_torch.core import ClusterEngine, Draws, bounds, sampling
+    from repro_torch.core import (ClusterEngine, Draws, bounds, sampling,
+                                  telemetry)
     from repro_torch.configs import FULL
     from repro_torch.data import blobs
     from repro_torch.kernels import _build, ops
@@ -575,7 +818,8 @@ def main() -> int:
 
     # 2. kernels against their plain twins
     wide = torch.rand((100_003, 128), generator=gen, device=dev)
-    cases = {"K1": [], "K2": [], "K3": [], "K5": [], "K6": []}
+    cases = {"K1": [], "K2": [], "K3": [], "K5": [], "K6": [], "K11": [],
+             "K12": []}
     for pts, k_wide in ((paper, FULL.k), (wide, 64)):
         n, d = pts.shape
         norms = bounds.point_norms(pts)
@@ -636,6 +880,18 @@ def main() -> int:
                       f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
                       f"({c['bound_by']})")
         del cache
+        # the rejection kernels: K12 over K1's balls at the seeding tiles
+        _, centers, radii, _ = kd.seed_prologue(pts, ops.choose_block_n(n, d,
+                                                                        50))
+        for name, c in zip(("K11", "K12"), rejection_kernel_cases(
+                torch, kd, pts, centers, radii, gen)):
+            cases[name].append(c)
+            print(f"{name} n={n} d={d} P={c['p']}"
+                  + (f" tiles={c['tiles']}" if name == "K12" else "")
+                  + f": bitwise the plain version at count 0, 1, P; "
+                  f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, bound "
+                  f"{c['bound_ms']:.6f} ms ({c['bound_by']})")
+        del centers, radii
     report["cases"] = cases
     del wide
     torch.cuda.empty_cache()
@@ -743,6 +999,12 @@ def main() -> int:
                      f"match, inertia rel diff {run['inertia_rel_diff']:.3g}"
                      if layout == "shuffled" else ""))
     report["main_path"] = runs
+
+    # 4. rejection seeding at the paper's size: both layouts, both proposals
+    rej_runs = rejection_phase(
+        torch, ops, kd, bounds, telemetry, Draws, eng, ungated,
+        (("shuffled", paper), ("sorted", paper_sorted)), k, dev, launches)
+    report["rejection"] = rej_runs
     report["launches"] = launches
 
     if args.profile:
@@ -754,6 +1016,11 @@ def main() -> int:
             phases = {f"{tag} seed[{s}]": (lambda s=s, e=e, pts=pts: e.seed(
                 pts, k, generator=torch.Generator().manual_seed(0),
                 sampler=s)) for s in ("cdf", "tiled")}
+            for prop in ("hier", "flat"):
+                phases[f"{tag} seed[rejection {prop}]"] = (
+                    lambda prop=prop, e=e, pts=pts: e.seed(
+                        pts, k, generator=torch.Generator().manual_seed(0),
+                        sampler="rejection", proposal=prop))
             phases[f"{tag} fit"] = (lambda e=e, pts=pts, c=seeds.centroids:
                                     e.fit(pts, c, max_iters=FULL.max_iters))
             for name, fn in phases.items():
@@ -798,6 +1065,12 @@ def main() -> int:
               "src/repro/kernels/lloyd_assign.py:416",
               main_case("K6", lambda c: c["k"] == FULL.k
                         and c["mask"] == "gate"), "K6"),
+        entry("row_min_d2", "rejection.cu",
+              "src/repro/kernels/kmeans_distance.py:293",
+              main_case("K11", lambda c: True), "K11"),
+        entry("tile_cap", "rejection.cu",
+              "src/repro/kernels/kmeans_distance.py:351",
+              main_case("K12", lambda c: True), "K12"),
     ]}
     report.update(record)
     if args.json:

@@ -1,5 +1,6 @@
 """ClusterEngine — k-means++ seeding and Lloyd over a pluggable Backend
-(port of ``repro.core.engine``: the ungated and the bound-gated paths).
+(port of ``repro.core.engine``: the ungated and the bound-gated paths, and
+rejection seeding).
 
 A ``Backend`` provides the round primitives the algorithms are written
 against:
@@ -17,14 +18,19 @@ against:
       one Lloyd half-step in the tiled form (per-tile inertia partials and
       gaps, per-super-tile cluster sums); with ``state`` and the centroid
       movement ``delta`` it skips what the movement bound proves unchanged.
+  row_min_d2(points, idx, pending, count) / tile_cap(centers, radii,
+      pending, count): the rejection sampler's D² of one drawn row, and the
+      per-tile envelope caps, against the first ``count`` pending centroids.
 
 Gating is exact: the fp32 results are bitwise those of ``bounds=False``.
 
 ``CudaBackend`` runs them through the hand-written kernels (K1 prologue, K2
-and K5 seeding rounds, K3 and K6 assignment rounds); ``FusedBackend`` runs
-the kernels' plain torch twins; ``ReferenceBackend`` is the global-memory
-(two-pass) seeding semantics. Loops are Python loops over device tensors: a
-sampled index, a gate mask and a skip count never leave the device.
+and K5 seeding rounds, K3 and K6 assignment rounds, K11 and K12 for
+rejection seeding); ``FusedBackend`` runs the kernels' plain torch twins;
+``ReferenceBackend`` is the global-memory (two-pass) seeding semantics.
+Loops are Python loops over device tensors: a sampled index, a gate mask
+and a skip count never leave the device (the rejection loop reads one
+validity bit per round and one accept bit per attempt).
 """
 from __future__ import annotations
 
@@ -53,9 +59,18 @@ class KmeansppResult(NamedTuple):
     #                                           inside active tiles per round
     recovered: Optional[torch.Tensor] = None  # (k,) int32 0/1 per-round
     #                                           heal flags (None: guard off)
-    # counter contract (the reference's): fixed length (k,), one slot per
-    # round (round m in slot m-1, the final fold in slot k-1), zero where a
-    # round did not run the counted event
+    proposals: Optional[torch.Tensor] = None  # (k,) int32 envelope draws of
+    #                                           round m in slot m (rejection)
+    accepts: Optional[torch.Tensor] = None    # (k,) int32 0/1 ratio-test
+    #                                           accepts (0: exact fallback)
+    tightened: Optional[torch.Tensor] = None  # (k,) int32 tiles the cap
+    #                                           shrank (rejection, 'hier')
+    supers: Optional[torch.Tensor] = None     # (k,) int32 super windows the
+    #                                           hier draws visited
+    # counter contract (the reference's, checked by core.telemetry): fixed
+    # length (k,), one slot per round, zero where a round did not run the
+    # counted event. skipped/pruned of round m sit in slot m-1 (the final
+    # fold in slot k-1); the rejection counters of round m in slot m.
 
 
 class SeedRound(NamedTuple):
@@ -282,6 +297,18 @@ class Backend:
     def tiles_per_super(self, n_tiles: int) -> int:
         return bounds.tiles_per_super(n_tiles, self.tps or None)
 
+    def row_min_d2(self, points, idx, pending, count) -> torch.Tensor:
+        """0-d D² of row ``idx`` (a device index) to the nearest of
+        ``pending[:count]``, +inf when count is 0 — the rejection sampler's
+        exact p, O(P·d) work whatever n is."""
+        return kmeans_distance.row_min_d2_torch(points, idx, pending, count)
+
+    def tile_cap(self, centers, radii, pending, count) -> torch.Tensor:
+        """(T,) per-tile envelope caps ``(d(center_t, pending) + r_t)²``
+        against ``pending[:count]`` from the prologue's tile balls (never a
+        row); +inf everywhere when count is 0."""
+        return kmeans_distance.tile_cap_torch(centers, radii, pending, count)
+
 
 @dataclasses.dataclass(frozen=True)
 class ReferenceBackend(Backend):
@@ -322,12 +349,19 @@ class FusedBackend(Backend):
 @dataclasses.dataclass(frozen=True)
 class CudaBackend(Backend):
     """The hand-written Hopper kernels: K1 for the prologue, K2 (K5 gated)
-    for every seeding round, K3 (K6 gated) for every assignment round.
+    for every seeding round, K3 (K6 gated) for every assignment round, K11
+    and K12 for the rejection sampler's row D² and tile caps.
     ``resident=False`` re-reads the centroid block from global memory
     (Fig. 2's variant) instead of staging it in shared memory."""
 
     name: ClassVar[str] = "cuda"
     resident: bool = True
+
+    def row_min_d2(self, points, idx, pending, count) -> torch.Tensor:
+        return kmeans_distance.row_min_d2(points, idx, pending, count)
+
+    def tile_cap(self, centers, radii, pending, count) -> torch.Tensor:
+        return kmeans_distance.tile_cap(centers, radii, pending, count)
 
     def prologue(self, points, m: int = 1,
                  with_bounds: bool = True) -> RoundCache:
@@ -472,20 +506,290 @@ def _seed_loop(draws: Draws, pts, k, *, round_fn, sample_fn, init_min_d2,
             torch.tensor(rec, dtype=torch.int32))
 
 
+_REJECT_ATTEMPTS = 8   # default truncation depth of the rejection loop
+
+
+def _envelope_fault(fault, m: int, partials: torch.Tensor) -> torch.Tensor:
+    """The reference's two rejection-envelope faults at round
+    ``fault.round``: ``neg_envelope`` makes the first tile partial -1,
+    ``stale_super`` makes every partial of the last super-tile NaN (a torn
+    coarse aggregate). Other kinds and rounds leave ``partials`` as is."""
+    kind = getattr(fault, "kind", None)
+    if fault is None or m != fault.round or kind not in (
+            "neg_envelope", "stale_super"):
+        return partials
+    partials = partials.clone()
+    if kind == "neg_envelope":
+        partials[0] = -1.0
+    else:
+        n_tiles = partials.shape[0]
+        partials[max(n_tiles - bounds.tiles_per_super(n_tiles), 0):] = \
+            torch.nan
+    return partials
+
+
+def _seed_rejection_loop(draws: Draws, pts, k, *, round_fn, propose_fn,
+                         pq_fn, fallback_fn, prep_fn, n_tiles: int,
+                         refresh_block: int, max_attempts: int, init_min_d2,
+                         init_state: Optional[BoundState], tile: int,
+                         guard: bool, hier: bool, fault=None):
+    """Rejection-sampling k-means++ loop (``sampler='rejection'``).
+
+    A round does not refresh D². Chosen centroids collect in a (P, d)
+    PENDING block (P = ``refresh_block``), and the (min_d2, partials) of the
+    last refresh are the stale envelope ``q`` (``bounds.seed_envelope``),
+    which dominates the current weights because seeding only adds
+    centroids. A round draws from the envelope (``propose_fn(u, weight,
+    partials, pstate)``), prices the drawn row exactly (``pq_fn(idx,
+    weight, pending, count, pstate) -> (p, q)`` with ``p = min(q,
+    row_min_d2)``) and accepts with probability p/q. The full refresh — the
+    whole pending block folded through ``round_fn``, gated or not — runs
+    when the block fills, when all ``max_attempts`` proposals reject (the
+    round then takes an exact draw, ``fallback_fn``, from the refreshed
+    weights, so the truncated mixture stays exactly D²-distributed), and
+    once at the end, so the returned min_d2 is exact over all k seeds.
+
+    The pending block starts as P copies of centroid 0 with count P - 1, so
+    round 1's append forces the first refresh; it is never cleared (rows
+    past the count were folded already, a value-noop under min). ``count``
+    is a host integer: the refresh decision needs no sync, and the kernels
+    read it as a 0-d device view.
+
+    Uniforms: attempt 0 of round m proposes with ``draws.u[m-1]``, so with
+    ``refresh_block=1`` (p == q bitwise, the first proposal accepts) the
+    seeds are bitwise the tiled sampler's; the other attempts, the accepts
+    and the exact draw take the rejection schedule of ``draws``.
+
+    Envelope guard (always on): every round checks the partials for
+    negative or non-finite entries, one host sync. A bad envelope is
+    rebuilt BEFORE proposing by refolding, ungated from the clean +inf
+    carry, the centroids it should cover (0..m-count-1, the rest of a (k, d)
+    block padded with centroid 0); min-folds are exact, so the rebuilt
+    envelope is bitwise the clean run's and the round replays identically,
+    flagged in ``recovered[m]``. ``fault`` (``.kind``, ``.round``) injects
+    the reference's ``neg_envelope``/``stale_super`` corruption. ``guard``
+    also checks the settling refresh's total.
+
+    ``prep_fn(partials, pending, count) -> (pstate, tightened)`` builds the
+    hier proposal state once per round from the (healed) partials.
+
+    Host syncs: one per round (the envelope check), one per attempt (the
+    accept bit), one for the guard's final check.
+
+    Returns (centroids, indices, min_d2, skipped, pruned, proposals,
+    accepts, recovered, tightened, supers), all counters (k,) int32."""
+    d = pts.shape[1]
+    dev = pts.device
+    P = max(int(refresh_block), 1)
+    gated = init_state is not None
+    counts = torch.arange(P + 1, dtype=torch.int32, device=dev)
+    centroids = pts.new_zeros((k, d))
+    indices = torch.zeros(k, dtype=torch.int64, device=dev)
+    first = draws.first.reshape(1)
+    centroids[0:1] = pts.index_select(0, first)
+    indices[0:1] = first
+    skips = torch.zeros(k, dtype=torch.int32, device=dev)
+    prunes = torch.zeros(k, dtype=torch.int32, device=dev)
+    tights = torch.zeros(k, dtype=torch.int32, device=dev)
+    props, accs, sups, rec = [0] * k, [0] * k, [0] * k, [0] * k
+    pending = centroids[0:1].expand(P, d).clone()
+    count = P - 1
+    md, state = init_min_d2, init_state
+    partials = torch.zeros(n_tiles, device=dev)   # never drawn from
+
+    def refresh(md, state):
+        rnd = round_fn(pending, md, state)
+        st = BoundState(rnd.partials, rnd.tile_max) if gated else None
+        return rnd.min_d2, rnd.partials, st, rnd.skipped, rnd.pruned
+
+    def heal_stale(m, count):
+        block = centroids.clone()
+        block[m - count:] = centroids[0]
+        rnd = round_fn(block, init_min_d2, None)
+        st = (BoundState(rnd.partials,
+                         bounds.tile_reduce_max(rnd.min_d2, tile))
+              if gated else None)
+        return rnd.min_d2, rnd.partials, st
+
+    for m in range(1, k):
+        pending[count] = centroids[m - 1]
+        count += 1
+        rs, rp = n_tiles, 0          # an untouched round read no tile
+        if count >= P:
+            md, partials, state, rs, rp = refresh(md, state)
+            count = 0
+        partials = _envelope_fault(fault, m, partials)
+        env_ok = not bool((~torch.isfinite(partials) | (partials < 0)).any())
+        if not env_ok:
+            md, partials, state = heal_stale(m, count)
+        live = counts[count]
+        pstate, tightened = prep_fn(partials, pending, live)
+        weight = bounds.seed_envelope(md)
+        idx, ok, att = sampling.rejection_sample(
+            lambda u: propose_fn(u, weight, partials, pstate),
+            lambda i: pq_fn(i, weight, pending, live, pstate),
+            torch.cat([draws.u[m - 1:m], draws.propose_u[m - 1]]),
+            draws.accept_u[m - 1], max_attempts=max_attempts)
+        if not ok:
+            md, partials, state, rs, rp2 = refresh(md, state)
+            rp = rp + rp2
+            count = 0
+            idx = fallback_fn(draws.exact_u[m - 1],
+                              draws.exact_fallback[m - 1:m],
+                              bounds.seed_envelope(md), partials)
+        centroids[m:m + 1] = pts.index_select(0, idx)
+        indices[m:m + 1] = idx
+        skips[m - 1], prunes[m - 1], tights[m] = rs, rp, tightened
+        props[m], accs[m], rec[m] = att, int(ok), int(not env_ok)
+        if hier:
+            sups[m] = att + (0 if ok else 1)
+    # settle: fold the last seed and every still-pending one
+    pending[count] = centroids[k - 1]
+    rnd = round_fn(pending, md, state)
+    final_md = rnd.min_d2
+    if guard and not bool(torch.isfinite(rnd.total)):
+        final_md = round_fn(centroids, init_min_d2, None).min_d2
+        rec[k - 1] = 1
+    skips[k - 1], prunes[k - 1] = rnd.skipped, rnd.pruned
+
+    def i32(xs):
+        return torch.tensor(xs, dtype=torch.int32, device=dev)
+
+    return (centroids, indices, final_md, skips, prunes, i32(props),
+            i32(accs), i32(rec), tights, i32(sups))
+
+
+def _seed_rejection(draws: Draws, pts, k, backend: Backend,
+                    cache: RoundCache, tile: int,
+                    init_state: Optional[BoundState], *, refresh_block: int,
+                    proposal: str, max_attempts: int, guard: bool,
+                    fault=None) -> KmeansppResult:
+    """The rejection branch of :func:`seed_points`: the proposal, pricing,
+    fallback and prep functions for ``proposal`` 'hier' or 'flat', then
+    :func:`_seed_rejection_loop`."""
+    n, d = pts.shape
+    dev = pts.device
+    n_tiles = -(-n // tile)
+    tps = backend.tiles_per_super(n_tiles)
+    hier = proposal == "hier"
+    # the refresh folds P centroids at once: pin its tile height to the
+    # sampler's, so its partials cover the rows the draws' windows cover
+    be = dataclasses.replace(backend, block_n=tile)
+
+    if hier:
+        tiny = torch.finfo(torch.float32).tiny
+        # per-tile row counts (the last tile short): the unweighted tile
+        # mass the cap multiplies into a tile-level envelope bound
+        tile_w = torch.full((n_tiles,), float(tile), device=dev)
+        tile_w[-1] = float(n - (n_tiles - 1) * tile)
+
+        def prep_fn(partials, pending, count):
+            # rebuilt each round from the healed partials: cap_t bounds
+            # every row's D² to the pending block from tile summaries
+            # alone, so min(partials_t, cap_t * W_t) is a valid tile
+            # envelope mass
+            if cache.centers is not None:
+                cap = be.tile_cap(cache.centers, cache.radii, pending, count)
+            else:   # no balls without bounds: never tighten
+                cap = torch.full((n_tiles,), torch.inf, device=dev)
+            capw = cap * tile_w
+            ph = torch.where(capw < partials, capw, partials)
+            tight = ph < partials
+            tcdf = sampling.prefix_sum(ph)
+            return ((ph, tcdf, sampling.super_cdf(tcdf, tps), cap, tight),
+                    tight.sum(dtype=torch.int32))
+
+        def propose_fn(u, weight, partials, pstate):
+            ph, tcdf, scdf, cap, tight = pstate
+            return sampling.hier_index_from_uniform(
+                u, weight, ph, tcdf, scdf, block_n=tile, tps=tps, cap=cap,
+                tight=tight)
+
+        def pq_fn(idx, weight, pending, count, pstate):
+            # priced under the proposal's own association: a tightened
+            # tile drew its row ∝ the capped window with tile mass ph_t,
+            # so q = cwin[li] * ph_t / sum(cwin); other tiles keep the flat
+            # q = weight[idx] bitwise
+            ph, _, _, cap, tight = pstate
+            rd2 = be.row_min_d2(pts, idx.reshape(()), pending, count)
+            t = idx // tile
+            li = idx - t * tile
+            win = sampling.tile_window(weight, t, tile)
+            cw = cap[t]
+            cwin = torch.where(cw < win, cw, win)
+            s_t = sampling.prefix_sum(cwin)[tile - 1]
+            q = torch.where(tight[t],
+                            cwin[li] * (ph[t] / s_t.clamp_min(tiny)),
+                            weight[idx])
+            return torch.minimum(q, rd2), q
+
+        def fallback_fn(u, fb, weight, partials):
+            return sampling.categorical_hier(u, fb, weight, partials,
+                                             block_n=tile, tps=tps)
+    else:
+        def prep_fn(partials, pending, count):
+            return None, 0
+
+        def propose_fn(u, weight, partials, pstate):
+            return sampling.tiled_index_from_uniform(u, weight, partials,
+                                                     block_n=tile)
+
+        def pq_fn(idx, weight, pending, count, pstate):
+            q = weight[idx]
+            rd2 = be.row_min_d2(pts, idx.reshape(()), pending, count)
+            return torch.minimum(q, rd2), q
+
+        def fallback_fn(u, fb, weight, partials):
+            return sampling.categorical_tiled(u, fb, weight, partials,
+                                              block_n=tile)
+
+    (centroids, indices, min_d2, skips, prunes, props, accs, rec, tights,
+     sups) = _seed_rejection_loop(
+        draws, pts, k,
+        round_fn=lambda c, md, st: be.seed_round(pts, c, md, cache=cache,
+                                                 state=st),
+        propose_fn=propose_fn, pq_fn=pq_fn, fallback_fn=fallback_fn,
+        prep_fn=prep_fn, n_tiles=n_tiles, refresh_block=refresh_block,
+        max_attempts=max_attempts,
+        init_min_d2=torch.full((n,), torch.inf, device=dev),
+        init_state=init_state, tile=tile, guard=guard, hier=hier,
+        fault=fault)
+    gated = init_state is not None
+    return KmeansppResult(centroids, indices, min_d2,
+                          skips if gated else None, prunes if gated else None,
+                          recovered=rec if guard else None, proposals=props,
+                          accepts=accs, tightened=tights, supers=sups)
+
+
 def seed_points(draws: Draws, points: torch.Tensor, k: int,
                 backend: Backend, sampler: str = "cdf", *,
                 bound_gate: bool = True,
                 cache: Optional[RoundCache] = None,
-                guard: bool = False) -> KmeansppResult:
+                guard: bool = False, refresh_block: int = 8,
+                proposal: str = "hier",
+                max_attempts: int = _REJECT_ATTEMPTS,
+                fault=None) -> KmeansppResult:
     """Full k-means++ seeding through ``backend``. Samplers: 'cdf' (full
-    inverse CDF, the serial algorithm) and 'tiled' (two-level inverse CDF
+    inverse CDF, the serial algorithm), 'tiled' (two-level inverse CDF
     from the round's per-tile partials — O(n/tile + tile) reads per draw,
-    the same distribution). The prologue runs once here unless a ``cache``
-    is passed in (``kmeans_points`` shares one across both phases). With
-    ``bound_gate`` the loop carries the per-tile bound state so each round
-    skips every provably unchanged tile and prunes provably stable points
-    inside active tiles; the results are bitwise those of the ungated
-    loop."""
+    the same distribution) and 'rejection' (exact rejection sampling from
+    the stale envelope of the last refresh, which runs every
+    ``refresh_block`` seeds: a round in between touches only the drawn
+    row; ``refresh_block=1`` picks bitwise the 'tiled' seeds — see
+    :func:`_seed_rejection_loop`). ``proposal`` (rejection only) is 'hier'
+    (super-tile -> tile -> row, the per-tile envelope tightened between
+    refreshes by the caps of ``Backend.tile_cap``) or 'flat' (the tiled
+    draw); ``max_attempts`` truncates the attempts of a round, past which
+    it takes one exact draw; ``fault`` injects an envelope fault (tests).
+    The prologue runs once here unless a ``cache`` is passed in
+    (``kmeans_points`` shares one across both phases). With ``bound_gate``
+    the loop carries the per-tile bound state so each round skips every
+    provably unchanged tile and prunes provably stable points inside
+    active tiles; the results are bitwise those of the ungated loop (for
+    'hier', which tightens only with the tile balls, the draws differ)."""
+    if proposal not in ("flat", "hier"):
+        raise ValueError(f"unknown proposal {proposal!r}; "
+                         "expected 'flat' or 'hier'")
     _check_sampler(sampler)
     n, d = points.shape
     pts = points.float()
@@ -501,6 +805,16 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
         init_state = BoundState(
             torch.zeros(n_tiles, device=pts.device),
             torch.full((n_tiles,), torch.inf, device=pts.device))
+
+    if sampler == "rejection":
+        if draws.exact_u is None or draws.max_attempts < max_attempts:
+            raise ValueError(f"draws hold {draws.max_attempts} rejection "
+                             f"attempts per round, max_attempts="
+                             f"{max_attempts} needs them all")
+        return _seed_rejection(draws.to(pts.device), pts, k, backend, cache,
+                               tile, init_state, refresh_block=refresh_block,
+                               proposal=proposal, max_attempts=max_attempts,
+                               guard=guard, fault=fault)
 
     if sampler == "tiled":
         def sample_fn(u, fb, weight, partials):
@@ -526,12 +840,12 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
 
 
 def _check_sampler(sampler: str) -> None:
-    if sampler in ("gumbel", "rejection"):
-        raise NotImplementedError(f"sampler {sampler!r} is not ported yet; "
-                                  "use 'cdf' or 'tiled'")
-    if sampler not in ("cdf", "tiled"):
-        raise ValueError(f"unknown sampler {sampler!r}; expected 'cdf' or "
-                         "'tiled'")
+    if sampler == "gumbel":
+        raise NotImplementedError("sampler 'gumbel' is not ported yet; use "
+                                  "'cdf', 'tiled' or 'rejection'")
+    if sampler not in ("cdf", "tiled", "rejection"):
+        raise ValueError(f"unknown sampler {sampler!r}; expected 'cdf', "
+                         "'tiled' or 'rejection'")
 
 
 # ---------------------------------------------------------------------------
@@ -661,7 +975,9 @@ def kmeans_points(draws: Draws, points: torch.Tensor, k: int,
                   backend: Backend, sampler: str = "cdf",
                   max_iters: int = 50, tol: float = 1e-6,
                   empty: str = "keep", *, bound_gate: bool = True,
-                  guard: bool = False) -> LloydResult:
+                  guard: bool = False, refresh_block: int = 8,
+                  proposal: str = "hier",
+                  max_attempts: int = _REJECT_ATTEMPTS) -> LloydResult:
     """End-to-end k-means++ seeding + Lloyd with ONE shared prologue: the
     backend's ``tile_m`` is pinned to k so both phases agree on one tile
     geometry, and the norms (and tile balls, with ``bound_gate``) are
@@ -670,7 +986,9 @@ def kmeans_points(draws: Draws, points: torch.Tensor, k: int,
     pts = points.float()
     cache = be.prologue(pts, m=k, with_bounds=bound_gate)
     seeds = seed_points(draws, pts, k, be, sampler, bound_gate=bound_gate,
-                        cache=cache, guard=guard)
+                        cache=cache, guard=guard,
+                        refresh_block=refresh_block, proposal=proposal,
+                        max_attempts=max_attempts)
     return fit_points(pts, seeds.centroids, be, max_iters, tol, empty,
                       cache=cache, bound_gate=bound_gate, guard=guard)
 
@@ -713,6 +1031,10 @@ class ClusterEngine:
     of the seeding loop and of the gated Lloyd loop, which heal a corrupted
     round and record it in ``recovered``.
 
+    Samplers: 'cdf', 'tiled' and 'rejection' (with ``refresh_block``,
+    ``proposal`` 'hier' or 'flat' and ``max_attempts``; see
+    :func:`seed_points`).
+
     Randomness: ``generator`` seeds a :class:`Draws` source for the run;
     ``draws`` passes one in instead (to replay a run, or the reference's
     key schedule). A kernel that fails to build or launch raises
@@ -735,21 +1057,32 @@ class ClusterEngine:
                 f"points must be (n, d), got {tuple(pts.shape)}")
         return guards.guard_points(pts.contiguous(), self.validate)
 
-    def _draws(self, n, k, generator, draws) -> Draws:
+    def _draws(self, n, k, generator, draws, sampler,
+               max_attempts) -> Draws:
         if draws is None:
-            return Draws.sample(n, k, generator=generator, device=self.device)
+            return Draws.sample(
+                n, k, generator=generator, device=self.device,
+                max_attempts=(max(int(max_attempts), 1)
+                              if sampler == "rejection" else 0))
         return draws.to(self.device)
 
     def seed(self, points, k: int, *,
              generator: Optional[torch.Generator] = None,
              draws: Optional[Draws] = None,
-             sampler: str = "cdf") -> KmeansppResult:
-        """K-means++ seeding: k centroids chosen from ``points`` ∝ D²."""
+             sampler: str = "cdf", refresh_block: int = 8,
+             proposal: str = "hier",
+             max_attempts: int = _REJECT_ATTEMPTS) -> KmeansppResult:
+        """K-means++ seeding: k centroids chosen from ``points`` ∝ D².
+        ``refresh_block``, ``proposal`` and ``max_attempts`` are the
+        rejection sampler's (see :func:`seed_points`)."""
         pts = self._points(points)
         guards.check_shape(k, pts.shape[0])
-        return seed_points(self._draws(pts.shape[0], k, generator, draws),
-                           pts, k, self.backend, sampler,
-                           bound_gate=self.bounds, guard=self._guard)
+        return seed_points(
+            self._draws(pts.shape[0], k, generator, draws, sampler,
+                        max_attempts),
+            pts, k, self.backend, sampler, bound_gate=self.bounds,
+            guard=self._guard, refresh_block=int(refresh_block),
+            proposal=proposal, max_attempts=int(max_attempts))
 
     def fit(self, points, init_centroids, *, max_iters: int = 50,
             tol: float = 1e-6, empty: str = "keep") -> LloydResult:
@@ -765,12 +1098,17 @@ class ClusterEngine:
                generator: Optional[torch.Generator] = None,
                draws: Optional[Draws] = None, sampler: str = "cdf",
                max_iters: int = 50, tol: float = 1e-6,
-               empty: str = "keep") -> LloydResult:
+               empty: str = "keep", refresh_block: int = 8,
+               proposal: str = "hier",
+               max_attempts: int = _REJECT_ATTEMPTS) -> LloydResult:
         """End to end: k-means++ seeding (the paper's phase) + Lloyd, sharing
         one prologue."""
         pts = self._points(points)
         guards.check_shape(k, pts.shape[0])
-        return kmeans_points(self._draws(pts.shape[0], k, generator, draws),
-                             pts, k, self.backend, sampler, max_iters,
-                             float(tol), empty, bound_gate=self.bounds,
-                             guard=self._guard)
+        return kmeans_points(
+            self._draws(pts.shape[0], k, generator, draws, sampler,
+                        max_attempts),
+            pts, k, self.backend, sampler, max_iters, float(tol), empty,
+            bound_gate=self.bounds, guard=self._guard,
+            refresh_block=int(refresh_block), proposal=proposal,
+            max_attempts=int(max_attempts))

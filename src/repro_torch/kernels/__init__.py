@@ -2,11 +2,13 @@
 use and bound with ctypes — see ``_build``), each beside its plain torch
 twin:
 
-  kmeans_distance.py — K2, the seeding round: D² min-update + per-tile
-                       partial sums; centroids staged in shared memory
-                       (constant-memory analogue) or re-read from global
-  lloyd_assign.py    — K3, the tiled assignment round: labels, D², per-tile
-                       partials and gaps, per-super-tile cluster sums/counts
+  kmeans_distance.py — K1, the prologue (norms and tile balls); K2/K5, the
+                       seeding round ungated and bound-gated: D² min-update
+                       + per-tile partial sums; K11/K12, the rejection
+                       sampler's drawn-row D² and per-tile envelope cap
+  lloyd_assign.py    — K3/K6, the tiled assignment round ungated and
+                       bound-gated: labels, D², per-tile partials and gaps,
+                       per-super-tile cluster sums/counts
 
 ops.py — the tile-height budget and the launch counters.
 """

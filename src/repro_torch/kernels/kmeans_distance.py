@@ -1,7 +1,8 @@
-"""K1, K2 and K5 — the prologue and the k-means++ seeding round, ungated and
-bound-gated (port of ``repro.kernels.kmeans_distance``'s
-``seed_prologue_pallas``, ``distance_min_update_pallas`` and
-``distance_min_update_gated_pallas``).
+"""K1, K2, K5, K11 and K12 — the prologue, the k-means++ seeding round
+(ungated and bound-gated) and the rejection sampler's two small kernels
+(port of ``repro.kernels.kmeans_distance``'s ``seed_prologue_pallas``,
+``distance_min_update_pallas``, ``distance_min_update_gated_pallas``,
+``row_min_d2_pallas`` and ``tile_cap_pallas``).
 
 K1 ``seed_prologue`` is the once-per-call pass: the fp32 norms every round
 streams, and the tile balls (centers, radii, each row's distance to its
@@ -18,9 +19,16 @@ active only, skips the rows the per-point bound prunes, and also returns
 each tile's max of new_md and its count of pruned rows; inactive tiles keep
 their carried values.
 
+Rejection seeding (K11, K12) works between refreshes against the pending
+block of P centroids not yet folded in, of which the first ``count`` are
+live: K11 ``row_min_d2`` is the D² of the one drawn row to them (the exact
+p of a proposal), K12 ``tile_cap`` bounds every tile's current D² from its
+ball alone. Both use the diff-square form and add the columns in a fixed
+order, so the kernels and their plain twins agree bitwise.
+
 Each wrapper launches its hand-written CUDA kernel (``csrc/seed_prologue.cu``,
-``csrc/kmeans_distance.cu``) for tensors on the card, and runs its plain
-twin (``*_torch``) only for tensors on the CPU.
+``csrc/kmeans_distance.cu``, ``csrc/rejection.cu``) for tensors on the card,
+and runs its plain twin (``*_torch``) only for tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -38,6 +46,10 @@ _GATED_ARGTYPES = ((ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 5
                    + (ctypes.c_void_p,))
 _PROLOGUE_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3
                       + (ctypes.c_void_p,))
+_ROW_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_longlong,)
+                 + (ctypes.c_int,) * 2 + (ctypes.c_void_p,))
+_CAP_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (
+    ctypes.c_void_p,)
 
 
 def tile_d2(x: torch.Tensor, c: torch.Tensor, xn: torch.Tensor) -> torch.Tensor:
@@ -245,3 +257,130 @@ def distance_min_update_gated(points: torch.Tensor, norms: torch.Tensor,
                                  f"cudaError {err}")
     ops.LAUNCHES["distance_min_update_gated"] += 1
     return out, partials, tile_max, pruned
+
+
+# ---------------------------------------------------------------------------
+# K11 and K12: the rejection sampler's row distance and per-tile cap
+# ---------------------------------------------------------------------------
+
+
+def diff_sq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``sum_c (a_c - b_c)²`` over the last dim, broadcasting ``a`` against
+    ``b``: the columns added in ascending order, one rounded product and one
+    rounded add each — the order K11 and K12 use."""
+    t = a[..., 0] - b[..., 0]
+    s = t * t
+    for c in range(1, a.shape[-1]):
+        t = a[..., c] - b[..., c]
+        s = s + t * t
+    return s
+
+
+def _live(count, p: int, device) -> torch.Tensor:
+    """(p,) bool: pending slot j is live when j < count."""
+    return torch.arange(p, device=device) < count
+
+
+def row_min_d2_torch(points: torch.Tensor, idx: torch.Tensor,
+                     pending: torch.Tensor, count) -> torch.Tensor:
+    """Plain PyTorch twin of K11: 0-d fp32 D² of row ``idx`` to the nearest
+    of ``pending[:count]``, +inf when count is 0."""
+    x = points.index_select(0, idx.reshape(1).long())      # (1, d)
+    d2 = diff_sq(x, pending)
+    live = _live(count, pending.shape[0], points.device)
+    return torch.where(live, d2, torch.inf).amin()
+
+
+def tile_cap_torch(centers: torch.Tensor, radii: torch.Tensor,
+                   pending: torch.Tensor, count) -> torch.Tensor:
+    """Plain PyTorch twin of K12: (T,) fp32 ``(sqrt(min_j D²(center_t,
+    pending_j)) + r_t)²`` over ``pending[:count]``, +inf everywhere when
+    count is 0."""
+    d2 = diff_sq(centers[:, None, :], pending[None, :, :])     # (T, P)
+    live = _live(count, pending.shape[0], centers.device)
+    v = torch.where(live[None, :], d2, torch.inf).amin(dim=1).sqrt() + radii
+    cap = v * v
+    return torch.where(torch.as_tensor(count, device=centers.device) > 0,
+                       cap, torch.inf)
+
+
+def _card_count(count, device) -> torch.Tensor:
+    """``count`` as the 0-d int32 device tensor the kernels read."""
+    if isinstance(count, torch.Tensor):
+        if count.numel() != 1 or count.device != device:
+            raise ValueError(f"count must be one value on {device}")
+        return count.reshape(()).to(torch.int32)
+    return torch.full((), int(count), dtype=torch.int32, device=device)
+
+
+def _check_pending(pending: torch.Tensor, d: int) -> None:
+    if pending.dim() != 2 or pending.shape[0] < 1 or pending.shape[1] != d:
+        raise ValueError(f"pending must be (P, {d}), got "
+                         f"{tuple(pending.shape)}")
+
+
+def row_min_d2(points: torch.Tensor, idx: torch.Tensor,
+               pending: torch.Tensor, count) -> torch.Tensor:
+    """The rejection sampler's exact p: 0-d fp32 D² of row ``idx`` (a 0-d
+    or (1,) int64 device tensor, never read on the host) to the nearest of
+    ``pending[:count]``; +inf when count is 0. On the card this launches
+    K11; CPU tensors take the plain twin."""
+    if points.dim() != 2:
+        raise ValueError("points must be 2-D")
+    n, d = points.shape
+    _check_pending(pending, d)
+    if idx.numel() != 1:
+        raise ValueError(f"idx must hold one index, got {tuple(idx.shape)}")
+    if points.device.type == "cpu":
+        return row_min_d2_torch(points, idx, pending, count)
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    ops.check_card_tensors(points=points, pending=pending)
+    ops.check_card_tensors(torch.int64, idx=idx)
+    cnt = _card_count(count, points.device)
+    p = pending.shape[0]
+    fn = _build.function("rejection", "row_min_d2_launch", _ROW_ARGTYPES)
+    out = torch.empty((), dtype=torch.float32, device=points.device)
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(points.data_ptr(), idx.data_ptr(), pending.data_ptr(),
+                 cnt.data_ptr(), out.data_ptr(), n, d, p, stream)
+    if err != 0:
+        raise KernelFailureError(f"row_min_d2 launch failed: cudaError {err}")
+    ops.LAUNCHES["row_min_d2"] += 1
+    return out
+
+
+def tile_cap(centers: torch.Tensor, radii: torch.Tensor,
+             pending: torch.Tensor, count) -> torch.Tensor:
+    """(T,) per-tile envelope caps of the tile balls (``centers`` (T, d),
+    ``radii`` (T,)) against ``pending[:count]``; +inf everywhere when count
+    is 0. On the card this launches K12; CPU tensors take the plain
+    twin."""
+    if centers.dim() != 2 or centers.shape[0] < 1:
+        raise ValueError(f"centers must be (T, d), got "
+                         f"{tuple(centers.shape)}")
+    t, d = centers.shape
+    _check_pending(pending, d)
+    if tuple(radii.shape) != (t,):
+        raise ValueError(f"radii {tuple(radii.shape)} must be ({t},)")
+    if centers.device.type == "cpu":
+        return tile_cap_torch(centers, radii, pending, count)
+    if centers.device.type != "cuda":
+        raise ValueError(f"unsupported device {centers.device}")
+    ops.check_card_tensors(centers=centers, radii=radii, pending=pending)
+    p = pending.shape[0]
+    if 4 * p * d > ops.SMEM_LIMIT:
+        raise ValueError(f"a ({p}, {d}) pending block does not fit in "
+                         f"{ops.SMEM_LIMIT} bytes of shared memory")
+    cnt = _card_count(count, centers.device)
+    fn = _build.function("rejection", "tile_cap_launch", _CAP_ARGTYPES)
+    out = torch.empty(t, dtype=torch.float32, device=centers.device)
+    with torch.cuda.device(centers.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(centers.data_ptr(), radii.data_ptr(), pending.data_ptr(),
+                 cnt.data_ptr(), out.data_ptr(), t, d, p, stream)
+    if err != 0:
+        raise KernelFailureError(f"tile_cap launch failed: cudaError {err}")
+    ops.LAUNCHES["tile_cap"] += 1
+    return out

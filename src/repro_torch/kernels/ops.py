@@ -31,7 +31,9 @@ LAUNCHES: dict[str, int] = {"seed_prologue": 0,
                             "distance_min_update": 0,
                             "lloyd_assign_tiled": 0,
                             "distance_min_update_gated": 0,
-                            "lloyd_assign_gated": 0}
+                            "lloyd_assign_gated": 0,
+                            "row_min_d2": 0,
+                            "tile_cap": 0}
 
 
 def reset_launches() -> None:

@@ -17,8 +17,9 @@ file order.
 ``key_schedule`` replays the reference seeding loop's ``jax.random`` key
 schedule as the plain numbers the port's ``Draws`` takes: the first index,
 one uniform per round, and one fallback index per round (the ``_guarded``
-draw for degenerate weights). Torch cannot reproduce threefry, so parity
-tests hand the reference's draws to the port.
+draw for degenerate weights); ``rejection_schedule`` adds the rejection
+loop's per-attempt and exact-draw numbers. Torch cannot reproduce threefry,
+so parity tests hand the reference's draws to the port.
 
 JAX is imported only inside these functions, so a run of the card-only
 tests (``-m cuda``) needs no JAX on the machine with the card.
@@ -40,6 +41,8 @@ from repro_torch.core import Draws
 
 ROOT = Path(__file__).resolve().parents[1]
 GUARD_SALT = 0x0DD   # repro.core.sampling._guarded's fold_in salt
+ACCEPT_SALT = 0xACC  # repro.core.sampling._ACCEPT_SALT (accept uniforms)
+EXACT_SALT = 0xFB    # the rejection loop's exact-draw fold_in salt
 
 
 @functools.cache
@@ -87,11 +90,53 @@ def key_schedule(seed: int, n: int, k: int):
     return first, np.asarray(us, np.float32), np.asarray(fbs, np.int64)
 
 
-def draws_for(seed: int, n: int, k: int) -> Draws:
-    """The reference's key schedule as the port's ``Draws``."""
+def rejection_schedule(seed: int, n: int, k: int, max_attempts: int):
+    """The rejection loop's numbers for rounds 1..k-1 under
+    ``PRNGKey(seed)``: (propose_u (k-1, A-1), accept_u (k-1, A), exact_u
+    (k-1,), exact_fallback (k-1,)). Round key ``ks`` as in
+    :func:`key_schedule`; attempt j's key is ``ks`` itself for j = 0 (so
+    its proposal uniform is the round's ``u``) and ``fold_in(ks, j)`` after;
+    it accepts with ``uniform(fold_in(kj, 0xACC))``; the exact draw takes
+    ``kf = fold_in(ks, 0xFB)``: ``uniform(kf)`` and ``_guarded``'s
+    ``randint(fold_in(kf, 0x0DD))``."""
+    import jax
+    import jax.numpy as jnp
+
+    def uni(key):
+        return float(jax.random.uniform(key, (), jnp.float32))
+
+    def guard_idx(key):
+        return int(jax.random.randint(jax.random.fold_in(key, GUARD_SALT),
+                                      (), 0, n, dtype=jnp.int32))
+
+    key, _ = jax.random.split(jax.random.PRNGKey(seed))
+    pu, au, eu, eg = [], [], [], []
+    for _ in range(1, k):
+        key, ks = jax.random.split(key)
+        kjs = [ks] + [jax.random.fold_in(ks, j)
+                      for j in range(1, max_attempts)]
+        pu.append([uni(kj) for kj in kjs[1:]])
+        au.append([uni(jax.random.fold_in(kj, ACCEPT_SALT)) for kj in kjs])
+        kf = jax.random.fold_in(ks, EXACT_SALT)
+        eu.append(uni(kf))
+        eg.append(guard_idx(kf))
+    return (np.asarray(pu, np.float32).reshape(k - 1, max_attempts - 1),
+            np.asarray(au, np.float32).reshape(k - 1, max_attempts),
+            np.asarray(eu, np.float32), np.asarray(eg, np.int64))
+
+
+def draws_for(seed: int, n: int, k: int, max_attempts: int = 0) -> Draws:
+    """The reference's key schedule as the port's ``Draws``; with
+    ``max_attempts`` > 0 also the rejection loop's."""
     first, u, fb = key_schedule(seed, n, k)
+    rej = {}
+    if max_attempts > 0:
+        rej = dict(zip(("propose_u", "accept_u", "exact_u",
+                        "exact_fallback"),
+                       map(torch.from_numpy,
+                           rejection_schedule(seed, n, k, max_attempts))))
     return Draws(torch.tensor([first]), torch.from_numpy(u),
-                 torch.from_numpy(fb))
+                 torch.from_numpy(fb), **rej)
 
 
 def ref_geometry(ref, n: int, d: int, k: int, backend: str = "pallas"):

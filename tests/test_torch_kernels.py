@@ -18,6 +18,9 @@ through ``convert``):
   active tiles with the per-point Hamerly prune, lower bounds and pruned
   counts.
 
+K11 ``row_min_d2`` and K12 ``tile_cap`` are held against the reference in
+``test_torch_rejection``.
+
 Tests marked ``cuda`` hold the CUDA kernels against the plain versions on
 the card (and the all-active gated kernels bitwise against K2/K3) and skip
 without one.
@@ -433,9 +436,12 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
         torch.zeros(4), torch.zeros(500, dtype=torch.int32), torch.zeros(500),
         torch.full((500,), -torch.inf), torch.zeros(4), torch.zeros(4),
         torch.zeros(4, 3, 2), torch.zeros(4, 3), t, block_n=128, tps=1)
+    kd.row_min_d2(x, torch.tensor(7), x[:8].contiguous(), 3)
+    kd.tile_cap(centers, radii, x[:8].contiguous(), torch.tensor(3))
     assert set(ops.LAUNCHES) == {
         "seed_prologue", "distance_min_update", "lloyd_assign_tiled",
-        "distance_min_update_gated", "lloyd_assign_gated"}
+        "distance_min_update_gated", "lloyd_assign_gated", "row_min_d2",
+        "tile_cap"}
     assert not any(ops.LAUNCHES.values())
 
 
@@ -764,3 +770,50 @@ def test_lloyd_assign_gated_kernel_matches_plain(card, k, mask):
                             (got[6], st.tile_counts, sup_skip)):
         assert torch.equal(out[sel], carry[sel])
     assert not got[7][skip].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(10_007, 2), (5003, 33), (3001, 40)])
+@pytest.mark.parametrize("count", [0, 1, 8])
+def test_row_min_d2_kernel_matches_plain(card, n, d, count):
+    """K11 bitwise its plain version (the same roundings in the same
+    order) for several rows, +inf at count 0; two launches give the same
+    bits and each counts once. d = 40 spans more than one lane per
+    column pass when staging the row."""
+    x = torch.from_numpy(_data(n, d, seed=n)).to(card)
+    pend = (x[[7, 100, 2000, 3, 55, 900, 1500, 2500]] + 0.01).contiguous()
+    for i in (0, 1234, n - 1):
+        idx = torch.tensor(i, device=card)
+        ops.reset_launches()
+        got = kd.row_min_d2(x, idx, pend, count)
+        again = kd.row_min_d2(x, idx, pend, count)
+        assert ops.LAUNCHES["row_min_d2"] == 2
+        assert torch.equal(got, again)
+        want = kd.row_min_d2_torch(x, idx, pend, count)
+        assert torch.equal(got, want), (float(got), float(want))
+        if count == 0:
+            assert float(got) == float("inf")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(1_000_003, 2), (100_003, 33)])
+@pytest.mark.parametrize("count", [0, 1, 8])
+def test_tile_cap_kernel_matches_plain(card, n, d, count):
+    """K12 bitwise its plain version on the prologue's tile balls (more
+    tiles than one block holds), +inf everywhere at count 0; two launches
+    give the same bits and each counts once."""
+    x = torch.from_numpy(_data(n, d, seed=d)).to(card)
+    cache = bounds.prologue(x, 1024)
+    pend = (x[[7, 100, 2000, 3, 55, 900, 1500, 2500]] + 0.01).contiguous()
+    cnt = torch.tensor(count, dtype=torch.int32, device=card)
+    ops.reset_launches()
+    got = kd.tile_cap(cache.centers, cache.radii, pend, cnt)
+    again = kd.tile_cap(cache.centers, cache.radii, pend, cnt)
+    assert ops.LAUNCHES["tile_cap"] == 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, kd.tile_cap_torch(cache.centers, cache.radii,
+                                              pend, cnt))
+    if count == 0:
+        assert bool(torch.isinf(got).all())
+    else:
+        assert bool(torch.isfinite(got).all())
