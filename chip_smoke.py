@@ -9,7 +9,12 @@ Phases, each of which exits non-zero on failure:
    (the fixed-order scan the samplers use), each run repeatedly on one
    tensor of the cdf sampler's length (n) and of the tiled sampler's two
    (n_tiles and block_n at the paper's shape); ``prefix_sum`` must give one
-   bit pattern at each. The host time of one call of each is printed.
+   bit pattern at each. The host time of one call of each is printed. For
+   batched problems, one row scanned by the samplers' row scan must keep
+   its bits whatever the number of rows beside it (``torch.cumsum`` along
+   dim 1 is shown beside it, which does not), and rows 0, 1 and B−1 of a
+   (B, n) ``prefix_sum`` at the codebook sweep's shape must be the 1-D
+   calls.
 1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
    source, all at once) and print the build time and ptxas report.
 2. Hold every kernel against its plain PyTorch twin on the card, at the
@@ -51,10 +56,25 @@ Phases, each of which exits non-zero on failure:
    the counters under ``core.telemetry``'s contract; the kmeans fit
    bitwise a fit from the seeding's seeds. Seeding ms of rejection beside
    tiled, gated and ungated (median of 3 host-clock runs).
-5. With ``--profile`` only: trace one seeding run per sampler (rejection
-   hier and flat included) and one Lloyd fit at that shape, ungated and
-   gated (shuffled and sorted), with torch.profiler, and print the device
-   time by kernel and the device's idle share.
+5. Batched problems at ``kvquant-gemma2-2b`` (``configs/kvquant.py``: the
+   PQ codebook sweep of one gemma2-2b K tensor, B = 1664 problems of
+   n = 16384 rows, d = 16, k = 256, 6 Lloyd iterations; blobs made on the
+   card from a seed), bounds off: K7 (batched seeding round, m = 1 and 8)
+   and K10a (batched assignment round) against their plain twins, two
+   launches bitwise, rows 0, 1 and B−1 bitwise K2/K3 on that problem's
+   slice; then ``ClusterEngine(device="cuda", bounds=False)
+   .kmeans_batched`` for sampler cdf and tiled, counted (K7 k times, K10a
+   once per iteration of the slowest problem, nothing else), a second run
+   bitwise, rows 0, 1 and B−1 bitwise the single ``seed`` then ``fit``
+   from the same draws, every problem's inertia within 1e-4 of the plain
+   fit's from the same seeds. Printed: seeding ms, Lloyd ms per iteration,
+   kmeans_batched s and ms per problem beside a loop of single seed + fit
+   over 16 problems.
+6. With ``--profile`` only: trace one seeding run per sampler (rejection
+   hier and flat included) and one Lloyd fit at the paper's shape,
+   ungated and gated (shuffled and sorted), and the batched seeding (cdf,
+   tiled) and fit at the codebook sweep's, with torch.profiler, and print
+   the device time by kernel and the device's idle share.
 
 The last three lines of stdout are the card's name and power limit, the
 kernels' JSON record, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -162,14 +182,17 @@ def k2_case(torch, kd, ops, pts, norms, m, resident, gen):
 
 
 def super_sums_ok(torch, pts, lab, ssums, scounts, rows_per_super,
-                  supers=None) -> bool:
+                  supers=None, s_of=None) -> bool:
     """Super-tile sums and counts against a float64 segment sum over the
     KERNEL's labels ``lab``: counts exact, sums within 1e-4 of the rows'
     absolute sum (the sequential fp32 adds of up to ``rows_per_super``
-    rows). ``supers`` (n_super,) bool restricts the check to those supers."""
+    rows). ``supers`` (n_super,) bool restricts the check to those supers;
+    ``s_of`` (n,) gives each row's super when it is not row //
+    rows_per_super (batched problems flattened into one)."""
     n, d = pts.shape
     n_super, k = scounts.shape
-    s_of = torch.arange(n, device=pts.device) // rows_per_super
+    if s_of is None:
+        s_of = torch.arange(n, device=pts.device) // rows_per_super
     slot = s_of * k + lab.long()
     want_c = torch.bincount(slot, minlength=n_super * k).view(n_super, k)
     x64 = pts.double()
@@ -617,9 +640,12 @@ def phase_ms(torch, eng, pts, k, sampler, draws, max_iters=25):
 
 
 def same_fit(torch, a, b) -> bool:
+    """Bitwise equal fits; n_iters an int, or a tensor when batched."""
     return (torch.equal(a.centroids, b.centroids)
             and torch.equal(a.assignment, b.assignment)
-            and torch.equal(a.inertia, b.inertia) and a.n_iters == b.n_iters)
+            and torch.equal(a.inertia, b.inertia)
+            and torch.equal(torch.as_tensor(a.n_iters).long().cpu(),
+                            torch.as_tensor(b.n_iters).long().cpu()))
 
 
 def rejection_phase(torch, ops, kd, bounds, telemetry, Draws, eng, ungated,
@@ -750,6 +776,263 @@ def rejection_phase(torch, ops, kd, bounds, telemetry, Draws, eng, ungated,
     return rej_runs
 
 
+def scan_row_census(torch, sampling, dev, n_problems, n) -> dict:
+    """What batched sampling rests on: how many bit patterns one row's scan
+    takes over tensors of 1, 8, 64 and 6656 rows, for ``torch.cumsum``
+    along dim 1 (rows of 4096 floats, the samplers' rows before batching)
+    and for the samplers' row scan (``sampling._row_scan``, rows of
+    ``SCAN_BLOCK``); and whether rows 0, 1 and B−1 of a (B, n)
+    ``prefix_sum`` are the 1-D calls."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = {}
+    for name, width, scan in (
+            ("torch.cumsum dim 1", 4096, lambda x: torch.cumsum(
+                torch.cat([x, torch.zeros_like(x)]) if x.shape[0] == 1
+                else x, 1)),
+            ("sampling row scan", sampling.SCAN_BLOCK, sampling._row_scan)):
+        base = torch.rand((6656, width), generator=gen, device=dev)
+        rows = []
+        for count in (1, 8, 64, 6656):
+            row = scan(base[:count])[0]
+            if not any(torch.equal(row, r) for r in rows):
+                rows.append(row)
+        out[name] = len(rows)
+    w = torch.rand((n_problems, n), generator=gen, device=dev)
+    got = sampling.prefix_sum(w)
+    out["prefix_sum rows bitwise"] = all(
+        torch.equal(got[b], sampling.prefix_sum(w[b]))
+        for b in (0, 1, n_problems - 1))
+    return out
+
+
+def k7_case(torch, kd, ops, pts, norms, m, gen):
+    """K7 at the batched shape: two launches bitwise, against its plain
+    twin, rows 0, 1 and B−1 bitwise K2 on their problem; times and bound."""
+    bsz, n, d = pts.shape
+    bn = ops.choose_block_n(n, d, 1)        # the seeding rounds' tiles
+    rows = torch.randint(n, (2 * m,), generator=gen, device=pts.device)
+    cents = pts[:, rows[:m]].contiguous()
+    md_in = kd.distance_min_update_batched_torch(
+        pts, norms, pts[:, rows[m:]].contiguous(),
+        torch.full((bsz, n), torch.inf, device=pts.device), block_n=bn)[0]
+    out1 = kd.distance_min_update_batched(pts, norms, cents, md_in,
+                                          block_n=bn)
+    out2 = kd.distance_min_update_batched(pts, norms, cents, md_in,
+                                          block_n=bn)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out1, out2)),
+          f"K7 m={m}: two launches differ")
+    ref = kd.distance_min_update_batched_torch(pts, norms, cents, md_in,
+                                               block_n=bn)
+    tol = d2_tol(torch, norms, cents.reshape(-1, d))
+    err_md = float((out1[0] - ref[0]).abs().max())
+    check(err_md <= tol, f"K7 min_d2 err {err_md} > {tol}")
+    check(bool(((out1[1] - ref[1]).abs()
+                <= partial_tol(tol, bn, ref[1])).all()),
+          f"K7 partials outside tolerance (max err "
+          f"{float((out1[1] - ref[1]).abs().max())})")
+    for b in (0, 1, bsz - 1):
+        single = kd.distance_min_update(pts[b], norms[b], cents[b], md_in[b],
+                                        block_n=bn)
+        check(all(torch.equal(u[b], v) for u, v in zip(out1, single)),
+              f"K7 m={m}: problem {b} is not bitwise K2 on its slice")
+    ms = gpu_ms(torch, lambda: kd.distance_min_update_batched(
+        pts, norms, cents, md_in, block_n=bn))
+    plain = gpu_ms(torch, lambda: kd.distance_min_update_batched_torch(
+        pts, norms, cents, md_in, block_n=bn), reps=3, warmup=1)
+    t = -(-n // bn)
+    bms, by = bound_ms(4 * bsz * (n * d + 3 * n + m * d + t),
+                       bsz * n * m * (2 * d + 3))
+    return dict(batch=bsz, n=n, d=d, m=m, block_n=bn, max_abs_err=err_md,
+                tol=tol, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+
+
+def k10a_case(torch, la, kd, ops, bounds, pts, norms, k, gen):
+    """K10a at the batched shape: two launches bitwise, against its plain
+    twin (labels outside near-ties, D², partials and gaps within tolerance,
+    super counts exact and sums within tolerance over its own labels), rows
+    0, 1 and B−1 bitwise K3 on their problem; times and bound."""
+    bsz, n, d = pts.shape
+    bn = ops.choose_block_n(n, d, k)
+    t = -(-n // bn)
+    tps = bounds.tiles_per_super(t)
+    idx = torch.randint(n, (bsz, k, 1), generator=gen, device=pts.device)
+    cents = torch.take_along_dim(pts, idx, dim=1).contiguous()
+    out1 = la.lloyd_assign_tiled_batched(pts, norms, cents, block_n=bn,
+                                         tps=tps)
+    out2 = la.lloyd_assign_tiled_batched(pts, norms, cents, block_n=bn,
+                                         tps=tps)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out1, out2)),
+          f"K10a k={k}: two launches differ")
+    lab, md, part, gap, ssums, scounts = out1
+    ref = la.lloyd_assign_tiled_batched_torch(pts, norms, cents, block_n=bn,
+                                              tps=tps)
+    tol = d2_tol(torch, norms, cents.reshape(-1, d))
+    bad = torch.zeros((), dtype=torch.int64, device=pts.device)
+    n_diff = torch.zeros((), dtype=torch.int64, device=pts.device)
+    for b in range(bsz):
+        d2 = kd.tile_d2(pts[b], cents[b], norms[b])
+        diff = lab[b] != ref[0][b]
+        tie_gap = (d2.gather(1, lab[b].long()[:, None])
+                   - d2.gather(1, ref[0][b].long()[:, None])).abs()[:, 0]
+        bad += (diff & (tie_gap > tol)).sum()
+        n_diff += diff.sum()
+    check(int(bad) == 0, f"K10a k={k}: {int(bad)} labels differ beyond "
+          "near-ties")
+    err_md = float((md - ref[1]).abs().max())
+    check(err_md <= tol, f"K10a min_d2 err {err_md} > {tol}")
+    check(bool(((part - ref[2]).abs() <= partial_tol(tol, bn, ref[2])).all()),
+          "K10a partials outside tolerance")
+    gfin = torch.isfinite(ref[3])
+    check(torch.equal(torch.isfinite(gap), gfin)
+          and bool(((gap - ref[3])[gfin].abs() <= 2 * math.sqrt(tol)).all()),
+          "K10a gaps outside tolerance")
+    n_super = ssums.shape[1]
+    s_of = (torch.arange(bsz, device=pts.device)[:, None] * n_super
+            + torch.arange(n, device=pts.device)[None, :] // (bn * tps))
+    check(super_sums_ok(torch, pts.reshape(-1, d), lab.reshape(-1),
+                        ssums.reshape(-1, k, d), scounts.reshape(-1, k),
+                        bn * tps, s_of=s_of.reshape(-1)),
+          f"K10a k={k}: super sums or counts outside tolerance")
+    for b in (0, 1, bsz - 1):
+        single = la.lloyd_assign_tiled(pts[b], norms[b], cents[b],
+                                       block_n=bn, tps=tps)
+        check(all(torch.equal(u[b], v) for u, v in zip(out1, single)),
+              f"K10a k={k}: problem {b} is not bitwise K3 on its slice")
+    ms = gpu_ms(torch, lambda: la.lloyd_assign_tiled_batched(
+        pts, norms, cents, block_n=bn, tps=tps), reps=5)
+    plain = gpu_ms(torch, lambda: la.lloyd_assign_tiled_batched_torch(
+        pts, norms, cents, block_n=bn, tps=tps), reps=3, warmup=1)
+    bms, by = bound_ms(4 * bsz * (n * d + 3 * n + k * d + 2 * t
+                                  + n_super * k * (d + 1)),
+                       bsz * (n * k * (2 * d + 3) + n * d))
+    return dict(batch=bsz, n=n, d=d, k=k, block_n=bn, tps=tps,
+                label_diffs=int(n_diff), max_abs_err=err_md, tol=tol, ms=ms,
+                plain_ms=plain, bound_ms=bms, bound_by=by)
+
+
+def row(res, b):
+    """Problem b of a batched result, as the single result type."""
+    return type(res)(*(f if f is None else f[b] for f in res))
+
+
+def batched_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws, pts,
+                  cfg, dev, launches, gen, n_single=16):
+    """Phase 5: K7 and K10a at ``cfg``, then ``kmeans_batched`` with bounds
+    off for both samplers, counted (K7 once per round, K10a once per
+    iteration of the slowest problem, nothing else), repeated bitwise,
+    rows 0, 1 and B−1 bitwise the single ``seed`` then ``fit`` from the same
+    draws, and every problem's inertia within 1e-4 of the plain fit's from
+    the same seeds. Times: seeding, Lloyd per iteration, kmeans_batched,
+    and a loop of single seed + fit over ``n_single`` problems."""
+    bsz, n, d, k = cfg.batch, cfg.n_points, cfg.dim, cfg.k
+    norms = bounds.point_norms(pts)
+    cases = {"K7": [k7_case(torch, kd, ops, pts, norms, m, gen)
+                    for m in (1, 8)],
+             "K10a": [k10a_case(torch, la, kd, ops, bounds, pts, norms, k,
+                                gen)]}
+    del norms
+    for name, cs in cases.items():
+        for c in cs:
+            print(f"{name} B={c['batch']} n={c['n']} d={c['d']} "
+                  + (f"m={c['m']}" if name == "K7" else
+                     f"k={c['k']} tps={c['tps']} label diffs "
+                     f"{c['label_diffs']}")
+                  + f": err {c['max_abs_err']:.3g} (tol {c['tol']:.3g}), "
+                  f"rows 0, 1, B-1 bitwise the single kernel; "
+                  f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, bound "
+                  f"{c['bound_ms']:.4f} ms ({c['bound_by']})")
+    eng = ClusterEngine(device="cuda", bounds=False)
+    fused = ClusterEngine("fused", device="cuda", bounds=False)
+    runs = []
+    for sampler in ("cdf", "tiled"):
+        what = f"kmeans_batched[{sampler}]"
+        draws = Draws.sample_batched(
+            bsz, n, k, generator=torch.Generator().manual_seed(0), device=dev)
+        kw = dict(draws=draws, sampler=sampler, max_iters=cfg.max_iters)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.kmeans_batched(pts, k, **kw)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        got = dict(ops.LAUNCHES)
+        for name in launches:
+            launches[name] += got[name]
+        iters = int(res.n_iters.max())
+        want = {name: 0 for name in got}
+        want.update(distance_min_update_batched=k,
+                    lloyd_assign_tiled_batched=iters)
+        check(got == want, f"{what}: launches {got}, want {want}")
+        check(tuple(res.centroids.shape) == (bsz, k, d)
+              and tuple(res.assignment.shape) == (bsz, n)
+              and bool(torch.isfinite(res.centroids).all())
+              and bool(torch.isfinite(res.inertia).all())
+              and int(res.assignment.min()) >= 0
+              and int(res.assignment.max()) < k
+              and int(res.n_iters.min()) >= 1 and iters <= cfg.max_iters,
+              f"{what}: output malformed")
+        again = eng.kmeans_batched(pts, k, **kw)
+        check(same_fit(torch, again, res), f"{what}: two runs differ")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seeds = eng.seed_batched(pts, k, draws=draws, sampler=sampler)
+        torch.cuda.synchronize()
+        seed_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        fit = eng.fit_batched(pts, seeds.centroids, max_iters=cfg.max_iters)
+        torch.cuda.synchronize()
+        lloyd_ms = (time.perf_counter() - t0) * 1e3 / iters
+        check(same_fit(torch, fit, res),
+              f"{what}: not seed_batched then fit_batched")
+        for b in (0, 1, bsz - 1):
+            one = eng.seed(pts[b], k, draws=draws[b], sampler=sampler)
+            check(same_seeds(torch, one, row(seeds, b)),
+                  f"{what}: problem {b}'s seeds are not the single seeding's")
+            check(same_fit(torch, eng.fit(pts[b], one.centroids,
+                                          max_iters=cfg.max_iters),
+                           row(res, b)),
+                  f"{what}: problem {b} is not the single seed + fit")
+        # the plain twins on the card from the same seeds
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = fused.fit_batched(pts, seeds.centroids,
+                                  max_iters=cfg.max_iters)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        rel = float(((plain.inertia - res.inertia).abs()
+                     / res.inertia).max())
+        # 1e-4: both fits take the same Lloyd steps; they differ only in
+        # the fp32 summation order of partials and sums
+        check(rel <= 1e-4, f"{what}: plain fit inertia differs by {rel:.3g}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in range(n_single):
+            one = eng.seed(pts[b], k, draws=draws[b], sampler=sampler)
+            eng.fit(pts[b], one.centroids, max_iters=cfg.max_iters)
+        torch.cuda.synchronize()
+        single_ms = (time.perf_counter() - t0) * 1e3 / n_single
+        run = dict(sampler=sampler, kmeans_batched_s=total_s,
+                   seed_ms=seed_ms, lloyd_ms_per_iter=lloyd_ms,
+                   n_iters_max=iters, n_iters_min=int(res.n_iters.min()),
+                   inertia_mean=float(res.inertia.mean()),
+                   plain_fit_s=plain_s, inertia_rel_diff_max=rel,
+                   ms_per_problem=total_s * 1e3 / bsz,
+                   single_ms_per_problem=single_ms, launches=got,
+                   repeat_bitwise=True, rows_bitwise_single=True)
+        runs.append(run)
+        print(f"{what} at {cfg.name} (B={bsz}, n={n}, d={d}, k={k}): "
+              f"{total_s:.3f} s end to end, seeding {seed_ms:.1f} ms, Lloyd "
+              f"{lloyd_ms:.2f} ms/iter ({iters} iterations, min "
+              f"{run['n_iters_min']}); {run['ms_per_problem']:.4f} ms per "
+              f"problem against {single_ms:.2f} ms for a single seed + fit "
+              f"({n_single} problems); plain fit {plain_s:.2f} s, inertia "
+              f"rel diff max {rel:.3g}; launches "
+              f"{ {n: c for n, c in got.items() if c} }")
+    return cases, runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement here")
@@ -767,8 +1050,8 @@ def main() -> int:
     import numpy as np
     from repro_torch.core import (ClusterEngine, Draws, bounds, sampling,
                                   telemetry)
-    from repro_torch.configs import FULL
-    from repro_torch.data import blobs
+    from repro_torch.configs import FULL, KVQUANT_GEMMA2_2B as KVQ
+    from repro_torch.data import blobs, blobs_batched
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import kmeans_distance as kd
     from repro_torch.kernels import lloyd_assign as la
@@ -805,6 +1088,18 @@ def main() -> int:
         check(det["prefix_sum"] == 1,
               f"prefix_sum over {size} floats is not deterministic")
     del w
+    # ... and batched: row b of a (B, n) scan must be the 1-D scan's bits
+    census = scan_row_census(torch, sampling, dev, KVQ.batch, KVQ.n_points)
+    report["scan_row_census"] = census
+    print(f"one row scanned among 1, 8, 64 and 6656 rows: "
+          f"{census['torch.cumsum dim 1']} bit pattern(s) from torch.cumsum "
+          f"along dim 1 (width 4096), {census['sampling row scan']} from "
+          f"the samplers' row scan (width {sampling.SCAN_BLOCK}); "
+          f"prefix_sum rows 0, 1, B-1 of ({KVQ.batch}, {KVQ.n_points}) "
+          f"bitwise the 1-D calls: {census['prefix_sum rows bitwise']}")
+    check(census["sampling row scan"] == 1
+          and census["prefix_sum rows bitwise"],
+          "batched prefix sums are not the single ones row by row")
 
     # 1. build
     t0 = time.perf_counter()
@@ -1005,17 +1300,41 @@ def main() -> int:
         torch, ops, kd, bounds, telemetry, Draws, eng, ungated,
         (("shuffled", paper), ("sorted", paper_sorted)), k, dev, launches)
     report["rejection"] = rej_runs
+
+    # 5. batched problems: the PQ codebook sweep, bounds off
+    del paper_sorted
+    torch.cuda.empty_cache()
+    kvq_pts = blobs_batched(KVQ.batch, KVQ.n_points, KVQ.dim, KVQ.k,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(0))
+    bcases, brun = batched_phase(torch, ops, kd, la, bounds, ClusterEngine,
+                                 Draws, kvq_pts, KVQ, dev, launches, gen)
+    cases.update(bcases)
+    report["batched"] = brun
     report["launches"] = launches
 
     if args.profile:
         report["profile"] = {}
+        paper_sorted = torch.from_numpy(
+            paper_np[np.argsort(labels, kind="stable")]).to(dev)
+        bseeds = ungated.seed_batched(
+            kvq_pts, KVQ.k, generator=torch.Generator().manual_seed(0))
+        phases = {f"batched seed[{s}]": (
+            lambda s=s: ungated.seed_batched(
+                kvq_pts, KVQ.k, sampler=s,
+                generator=torch.Generator().manual_seed(0)))
+            for s in ("cdf", "tiled")}
+        phases["batched fit"] = (lambda: ungated.fit_batched(
+            kvq_pts, bseeds.centroids, max_iters=KVQ.max_iters))
         for tag, e, pts in (("ungated", ungated, paper),
                             ("gated", eng, paper),
                             ("gated sorted", eng, paper_sorted)):
             seeds = e.seed(pts, k, generator=torch.Generator().manual_seed(0))
-            phases = {f"{tag} seed[{s}]": (lambda s=s, e=e, pts=pts: e.seed(
-                pts, k, generator=torch.Generator().manual_seed(0),
-                sampler=s)) for s in ("cdf", "tiled")}
+            for s in ("cdf", "tiled"):
+                phases[f"{tag} seed[{s}]"] = (
+                    lambda s=s, e=e, pts=pts: e.seed(
+                        pts, k, generator=torch.Generator().manual_seed(0),
+                        sampler=s))
             for prop in ("hier", "flat"):
                 phases[f"{tag} seed[rejection {prop}]"] = (
                     lambda prop=prop, e=e, pts=pts: e.seed(
@@ -1023,26 +1342,27 @@ def main() -> int:
                         sampler="rejection", proposal=prop))
             phases[f"{tag} fit"] = (lambda e=e, pts=pts, c=seeds.centroids:
                                     e.fit(pts, c, max_iters=FULL.max_iters))
-            for name, fn in phases.items():
-                fn()                                   # warm
-                p = profile_call(torch, fn)
-                report["profile"][name] = p
-                top = ", ".join(f"{kname[:48]} {v['ms']:.3f} ms x{v['count']}"
-                                for kname, v in list(p["kernels"].items())[:5])
-                print(f"profile {name}: wall {p['wall_ms']:.2f} ms, device "
-                      f"busy {p['busy_ms']:.2f} ms, idle share "
-                      f"{p['idle_share']:.3f}; {top}")
+        for name, fn in phases.items():
+            fn()                                   # warm
+            p = profile_call(torch, fn)
+            report["profile"][name] = p
+            top = ", ".join(f"{kname[:48]} {v['ms']:.3f} ms x{v['count']}"
+                            for kname, v in list(p["kernels"].items())[:5])
+            print(f"profile {name}: wall {p['wall_ms']:.2f} ms, device "
+                  f"busy {p['busy_ms']:.2f} ms, idle share "
+                  f"{p['idle_share']:.3f}; {top}")
 
     def main_case(name, pick):
         return next(c for c in cases[name]
                     if c["n"] == FULL.n_points and pick(c))
 
     def entry(fn, src, replaces, case, errs):
+        # the error over the cases at the shape the main path gives it
         return {"name": fn, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{src}",
                 "replaces": replaces, "launches": launches[fn],
                 "max_abs_err": max(c["max_abs_err"] for c in cases[errs]
-                                   if c["n"] == FULL.n_points),
+                                   if c["n"] == case["n"]),
                 "ms": case["ms"], "plain_ms": case["plain_ms"],
                 "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
                 "library_ms": None}
@@ -1071,6 +1391,12 @@ def main() -> int:
         entry("tile_cap", "rejection.cu",
               "src/repro/kernels/kmeans_distance.py:351",
               main_case("K12", lambda c: True), "K12"),
+        entry("distance_min_update_batched", "kmeans_distance.cu",
+              "src/repro/kernels/kmeans_distance.py:466",
+              next(c for c in cases["K7"] if c["m"] == 1), "K7"),
+        entry("lloyd_assign_tiled_batched", "lloyd_assign.cu",
+              "src/repro/kernels/lloyd_assign.py:530", cases["K10a"][0],
+              "K10a"),
     ]}
     report.update(record)
     if args.json:

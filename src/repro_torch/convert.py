@@ -25,7 +25,8 @@ def _tensor(x, device, dtype) -> torch.Tensor:
 def kmeanspp_result(centroids, indices, min_d2, *,
                     device="cpu") -> KmeansppResult:
     """A reference seeding result (centroids (k, d), indices (k,),
-    min_d2 (n,)) as the port's ``KmeansppResult``."""
+    min_d2 (n,), each with a leading (B,) axis when batched) as the port's
+    ``KmeansppResult``."""
     return KmeansppResult(_tensor(centroids, device, torch.float32),
                           _tensor(indices, device, torch.int64),
                           _tensor(min_d2, device, torch.float32))
@@ -33,11 +34,15 @@ def kmeanspp_result(centroids, indices, min_d2, *,
 
 def lloyd_result(centroids, assignment, inertia, n_iters, *,
                  device="cpu") -> LloydResult:
-    """A reference Lloyd result as the port's ``LloydResult``."""
+    """A reference Lloyd result as the port's ``LloydResult``; a batched
+    one (leading (B,) axis, ``n_iters`` (B,)) keeps ``n_iters`` as a (B,)
+    int32 tensor, as ``fit_batched`` returns it."""
+    its = np.asarray(n_iters)
     return LloydResult(_tensor(centroids, device, torch.float32),
                        _tensor(assignment, device, torch.int32),
                        _tensor(inertia, device, torch.float32),
-                       int(np.asarray(n_iters)))
+                       int(its) if its.ndim == 0
+                       else _tensor(its, device, torch.int32))
 
 
 def with_geometry(backend: Backend, block_n: int, tps: int) -> Backend:

@@ -126,13 +126,14 @@ class BoundState(NamedTuple):
 
 
 def point_norms(points: torch.Tensor) -> torch.Tensor:
-    """fp32 ``||x||²`` per row — THE quantity the prologue caches. The
-    columns are added in ascending order, one rounded product and one
-    rounded add each, so the K1 prologue kernel reproduces it bitwise."""
+    """fp32 ``||x||²`` per row, of one problem (n, d) or a batch (B, n, d)
+    — THE quantity the prologue caches. The columns are added in ascending
+    order, one rounded product and one rounded add each, so the K1
+    prologue kernel reproduces it bitwise."""
     x = points.float()
-    s = x[:, 0] * x[:, 0]
-    for j in range(1, x.shape[1]):
-        s = s + x[:, j] * x[:, j]
+    s = x[..., 0] * x[..., 0]
+    for j in range(1, x.shape[-1]):
+        s = s + x[..., j] * x[..., j]
     return s
 
 
@@ -151,10 +152,10 @@ def prologue(points: torch.Tensor, block_n: int, *,
     bitwise — the bound geometry may differ in ulps without affecting
     results (the bound is a sufficient condition, never a value)."""
     pts = points.float()
-    n, d = pts.shape
     norms = point_norms(pts)
-    if not with_bounds:
+    if not with_bounds:   # (B, n, d) batched points take this path only
         return RoundCache(norms)
+    n, d = pts.shape
     pad = (-n) % block_n
     xp = torch.cat([pts, pts.new_zeros((pad, d))]).reshape(-1, block_n, d)
     cnt = tile_counts(n, block_n, pts.device)

@@ -1,6 +1,6 @@
 """ClusterEngine — k-means++ seeding and Lloyd over a pluggable Backend
-(port of ``repro.core.engine``: the ungated and the bound-gated paths, and
-rejection seeding).
+(port of ``repro.core.engine``: the ungated and the bound-gated paths,
+rejection seeding, and batched problems with bounds off).
 
 A ``Backend`` provides the round primitives the algorithms are written
 against:
@@ -21,13 +21,22 @@ against:
   row_min_d2(points, idx, pending, count) / tile_cap(centers, radii,
       pending, count): the rejection sampler's D² of one drawn row, and the
       per-tile envelope caps, against the first ``count`` pending centroids.
+  seed_round_batched / assign_update_batched: the ungated rounds of B
+      independent problems at once, every tensor with a leading problem
+      axis; row b is bitwise the single round on problem b.
 
 Gating is exact: the fp32 results are bitwise those of ``bounds=False``.
 
 ``CudaBackend`` runs them through the hand-written kernels (K1 prologue, K2
-and K5 seeding rounds, K3 and K6 assignment rounds, K11 and K12 for
-rejection seeding); ``FusedBackend`` runs the kernels' plain torch twins;
-``ReferenceBackend`` is the global-memory (two-pass) seeding semantics.
+and K5 seeding rounds, K3 and K6 assignment rounds, K7 and K10a for batched
+problems, K11 and K12 for rejection seeding); ``FusedBackend`` runs the
+kernels' plain torch twins; ``ReferenceBackend`` is the global-memory
+(two-pass) seeding semantics.
+
+Batched problems (``seed_batched``, ``fit_batched``, ``kmeans_batched``) run
+through the same seeding and Lloyd loops as one problem, with the leading
+problem axis on every carry; each problem stops Lloyd at its own
+convergence test and is frozen from then on.
 Loops are Python loops over device tensors: a sampled index, a gate mask
 and a skip count never leave the device (the rejection loop reads one
 validity bit per round and one accept bit per attempt).
@@ -50,6 +59,7 @@ from repro_torch.kernels import kmeans_distance, lloyd_assign, ops
 
 
 class KmeansppResult(NamedTuple):
+    # batched problems (seed_batched) put a leading (B,) axis on every field
     centroids: torch.Tensor    # (k, d)
     indices: torch.Tensor      # (k,) int64 — which data points were chosen
     min_d2: torch.Tensor       # (n,) final D² to the nearest seed
@@ -84,10 +94,11 @@ class SeedRound(NamedTuple):
 
 
 class LloydResult(NamedTuple):
+    # batched problems (fit_batched) put a leading (B,) axis on every field
     centroids: torch.Tensor    # (k, d)
     assignment: torch.Tensor   # (n,) int32
     inertia: torch.Tensor      # () sum of squared distances to assigned
-    n_iters: int
+    n_iters: Union[int, torch.Tensor]   # batched: (B,) int32, per problem
     skipped: Optional[torch.Tensor] = None    # (max_iters,) int32 tiles
     #                                           skipped per iteration
     pruned: Optional[torch.Tensor] = None     # (max_iters,) int32 points
@@ -142,10 +153,10 @@ def segment_update(points: torch.Tensor, assignment: torch.Tensor,
 def centroid_means(sums: torch.Tensor, counts: torch.Tensor,
                    prev_centroids: Optional[torch.Tensor]) -> torch.Tensor:
     """Means from per-cluster sums/counts; empty clusters keep their
-    previous centroid."""
-    means = sums / counts.clamp_min(1e-12)[:, None]
+    previous centroid. A leading problem axis passes through."""
+    means = sums / counts.clamp_min(1e-12)[..., None]
     if prev_centroids is not None:
-        means = torch.where((counts > 0)[:, None], means,
+        means = torch.where((counts > 0)[..., None], means,
                             prev_centroids.float())
     return means
 
@@ -154,13 +165,15 @@ def reseed_split_largest(means: torch.Tensor, counts: torch.Tensor, *,
                          rel: float = 1e-3) -> torch.Tensor:
     """Empty-cluster reseeding: each empty cluster jumps to a nudged copy of
     the largest cluster's centroid (the r-th empty one at a distinct
-    rank-scaled offset), so the next assignment splits the donor."""
+    rank-scaled offset), so the next assignment splits the donor. Batched
+    problems (a leading axis) reseed each from its own largest cluster."""
     empty = counts <= 0
-    target = means[counts.argmax()]
+    target = torch.take_along_dim(
+        means, counts.argmax(dim=-1, keepdim=True)[..., None], dim=-2)
     emp = empty.to(means.dtype)
-    off = (rel * (torch.cumsum(emp, 0) * emp))[:, None]
-    nudged = target[None, :] * (1.0 + off) + off
-    return torch.where(empty[:, None], nudged, means)
+    off = (rel * (torch.cumsum(emp, -1) * emp))[..., None]
+    nudged = target * (1.0 + off) + off
+    return torch.where(empty[..., None], nudged, means)
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +185,22 @@ def _gates(state: Optional[BoundState], cache: RoundCache) -> bool:
     """A round is gated when it carries bound state and the prologue made
     the tile balls."""
     return state is not None and cache.centers is not None
+
+
+def _ungated_round(a, md, part, gap, ssums, scounts) -> AssignRound:
+    """An ungated tiled round's outputs as an ``AssignRound``: the cluster
+    sums and counts are the fixed-order sums of the per-super accumulators
+    (``sampling.fixed_sum``), so a batched problem's update is bitwise the
+    single problem's."""
+    state = BoundState(part, tile_gap=gap, tile_sums=ssums,
+                       tile_counts=scounts, assignment=a, min_d2=md)
+    return AssignRound(a, md, sampling.fixed_sum(ssums, -3),
+                       sampling.fixed_sum(scounts, -2), state)
+
+
+def _problem(cache: RoundCache, b: int) -> RoundCache:
+    """Problem b's slice of a batched prologue cache."""
+    return RoundCache(*(None if f is None else f[b] for f in cache))
 
 
 def _seed_skipped(active: torch.Tensor) -> torch.Tensor:
@@ -233,12 +262,36 @@ class Backend:
         if delta is not None and _gates(state, cache):
             return self._assign_update_gated(points, centroids, cache, state,
                                              delta, tile, tps)
-        a, md, part, gap, ssums, scounts = self._assign_tiled(
-            points, cache.norms, centroids, tile, tps)
-        state = BoundState(part, tile_gap=gap, tile_sums=ssums,
-                           tile_counts=scounts, assignment=a, min_d2=md)
-        return AssignRound(a, md, ssums.sum(dim=0), scounts.sum(dim=0),
-                           state)
+        return _ungated_round(*self._assign_tiled(
+            points, cache.norms, centroids, tile, tps))
+
+    def seed_round_batched(self, points, c_new, min_d2, *,
+                           cache: RoundCache) -> SeedRound:
+        """One ungated seeding round of B independent problems: points
+        (B, n, d), c_new (B, m, d), min_d2 and ``cache.norms`` (B, n). The
+        fields of the ``SeedRound`` gain the leading axis; row b is bitwise
+        ``seed_round`` on problem b (here: that round per problem)."""
+        rounds = [self.seed_round(p, c, md, cache=_problem(cache, b))
+                  for b, (p, c, md) in enumerate(zip(points, c_new, min_d2))]
+        return SeedRound(*(torch.stack(f)
+                           for f in zip(*(r[:3] for r in rounds))))
+
+    def assign_update_batched(self, points, centroids, *,
+                              cache: RoundCache) -> AssignRound:
+        """One ungated Lloyd half-step of B independent problems: points
+        (B, n, d), centroids (B, k, d), ``cache.norms`` (B, n), at the
+        single problem's tile geometry. The fields of the ``AssignRound``
+        gain the leading axis; row b is bitwise ``assign_update`` on
+        problem b."""
+        n, d = points.shape[-2:]
+        tile = self.seed_tile(n, d, centroids.shape[-2])
+        tps = self.tiles_per_super(-(-n // tile))
+        return _ungated_round(*self._assign_tiled_batched(
+            points, cache.norms, centroids, tile, tps))
+
+    def _assign_tiled_batched(self, points, norms, centroids, tile, tps):
+        return lloyd_assign.lloyd_assign_tiled_batched_torch(
+            points, norms, centroids, block_n=tile, tps=tps)
 
     def _assign_update_gated(self, points, centroids, cache, state, delta,
                              tile, tps) -> AssignRound:
@@ -261,9 +314,10 @@ class Backend:
         new_state = BoundState(part, tile_gap=gap, tile_sums=ssums,
                                tile_counts=scounts, assignment=a, min_d2=md,
                                point_lb=lb, lb_debt=debt)
-        # the per-tile counts are int32: the sum stays exact past 2^24
-        return AssignRound(a, md, ssums.sum(dim=0), scounts.sum(dim=0),
-                           new_state, (~active).sum().to(torch.int32),
+        # the same fixed-order sums as the ungated round's
+        return AssignRound(a, md, sampling.fixed_sum(ssums, -3),
+                           sampling.fixed_sum(scounts, -2), new_state,
+                           (~active).sum().to(torch.int32),
                            pruned.sum().to(torch.int32))
 
     def _assign_tiled(self, points, norms, centroids, tile, tps):
@@ -281,8 +335,9 @@ class Backend:
     def prologue(self, points, m: int = 1,
                  with_bounds: bool = True) -> RoundCache:
         """Once-per-call pass: the cached fp32 norms every round streams,
-        plus the tile balls when bound gating is on."""
-        n, d = points.shape
+        plus the tile balls when bound gating is on. Batched points
+        (B, n, d) take the norms only (bounds off)."""
+        n, d = points.shape[-2:]
         return bounds.prologue(points, self.seed_tile(n, d, m),
                                with_bounds=with_bounds)
 
@@ -348,9 +403,10 @@ class FusedBackend(Backend):
 
 @dataclasses.dataclass(frozen=True)
 class CudaBackend(Backend):
-    """The hand-written Hopper kernels: K1 for the prologue, K2 (K5 gated)
-    for every seeding round, K3 (K6 gated) for every assignment round, K11
-    and K12 for the rejection sampler's row D² and tile caps.
+    """The hand-written Hopper kernels: K1 for the prologue, K2 (K5 gated,
+    K7 batched) for every seeding round, K3 (K6 gated, K10a batched) for
+    every assignment round, K11 and K12 for the rejection sampler's row D²
+    and tile caps.
     ``resident=False`` re-reads the centroid block from global memory
     (Fig. 2's variant) instead of staging it in shared memory."""
 
@@ -391,8 +447,21 @@ class CudaBackend(Backend):
             resident=self.resident)
         return SeedRound(new_md, partials.sum(), partials)
 
+    def seed_round_batched(self, points, c_new, min_d2, *, cache):
+        n, d = points.shape[-2:]
+        new_md, partials = kmeans_distance.distance_min_update_batched(
+            points, cache.norms, c_new.contiguous(), min_d2,
+            block_n=self.seed_tile(n, d, c_new.shape[-2]),
+            resident=self.resident)
+        # the total only feeds finite/positive tests: any order will do
+        return SeedRound(new_md, partials.sum(-1), partials)
+
     def _assign_tiled(self, points, norms, centroids, tile, tps):
         return lloyd_assign.lloyd_assign_tiled(
+            points, norms, centroids.contiguous(), block_n=tile, tps=tps)
+
+    def _assign_tiled_batched(self, points, norms, centroids, tile, tps):
+        return lloyd_assign.lloyd_assign_tiled_batched(
             points, norms, centroids.contiguous(), block_n=tile, tps=tps)
 
     def _assign_gated(self, points, norms, centroids, delta, thresh, absorb,
@@ -449,12 +518,12 @@ def _seed_parts(*, round_fn, init_min_d2, gated: bool, guard: bool,
     def heal(m, centroids) -> SeedRound:
         md, rnd = init_min_d2, None
         for j in range(m):
-            rnd = round_fn(centroids[j:j + 1], md, None)
+            rnd = round_fn(centroids[..., j:j + 1, :], md, None)
             md = rnd.min_d2
         return rnd
 
     def checked_round(m, centroids, min_d2, state):
-        rnd = round_fn(centroids[m - 1:m], min_d2, state)
+        rnd = round_fn(centroids[..., m - 1:m, :], min_d2, state)
         # one host sync per round: the guard's finite check
         if guard and not bool(torch.isfinite(rnd.total)):
             rnd = heal(m, centroids)
@@ -468,28 +537,35 @@ def _seed_parts(*, round_fn, init_min_d2, gated: bool, guard: bool,
     return checked_round
 
 
+def _take_rows(pts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` (..., r) of ``pts`` (..., n, d), problem by problem."""
+    return torch.take_along_dim(pts, idx[..., None], dim=-2)
+
+
 def _seed_loop(draws: Draws, pts, k, *, round_fn, sample_fn, init_min_d2,
                init_state: Optional[BoundState], guard: bool, tile: int):
     """Generic k-means++ loop: round m folds centroid m-1 into min_d2 and
     draws seed m with ``draws.u[m-1]``; a final round folds the last seed,
     so the returned min_d2 covers all k. The sampled index stays on the
-    device: seeds are gathered with index_select, never read on the host.
+    device: seeds are gathered on the device, never read on the host.
     ``init_state`` turns on bound gating (round 1 starts from tile_max =
     +inf, nothing skippable); the per-round skip and prune counts stay on
-    the device. Returns (centroids, indices, min_d2, skipped, pruned,
-    recovered)."""
+    the device. Batched problems carry a leading axis on ``pts`` (B, n, d),
+    the draws and every carry; one round serves all B. Returns (centroids,
+    indices, min_d2, skipped, pruned, recovered)."""
     gated = init_state is not None
     checked_round = _seed_parts(round_fn=round_fn, init_min_d2=init_min_d2,
                                 gated=gated, guard=guard, tile=tile)
     dev = pts.device
-    centroids = pts.new_zeros((k, pts.shape[1]))
-    indices = torch.zeros(k, dtype=torch.int64, device=dev)
+    lead = tuple(pts.shape[:-2])
+    centroids = pts.new_zeros(lead + (k, pts.shape[-1]))
+    indices = torch.zeros(lead + (k,), dtype=torch.int64, device=dev)
     skips = torch.zeros(k, dtype=torch.int32, device=dev) if gated else None
     prunes = torch.zeros(k, dtype=torch.int32, device=dev) if gated else None
     rec = [0] * k
-    first = draws.first.reshape(1)
-    centroids[0:1] = pts.index_select(0, first)
-    indices[0:1] = first
+    first = draws.first.reshape(lead + (1,))
+    centroids[..., 0:1, :] = _take_rows(pts, first)
+    indices[..., 0:1] = first
     min_d2, state = init_min_d2, init_state
     for m in range(1, k + 1):
         min_d2, partials, state, rs, rp, rec[m - 1] = checked_round(
@@ -498,10 +574,10 @@ def _seed_loop(draws: Draws, pts, k, *, round_fn, sample_fn, init_min_d2,
             skips[m - 1], prunes[m - 1] = rs, rp
         if m == k:
             break
-        nxt = sample_fn(draws.u[m - 1], draws.fallback[m - 1:m], min_d2,
-                        partials)
-        centroids[m:m + 1] = pts.index_select(0, nxt)
-        indices[m:m + 1] = nxt
+        nxt = sample_fn(draws.u[..., m - 1], draws.fallback[..., m - 1:m],
+                        min_d2, partials)
+        centroids[..., m:m + 1, :] = _take_rows(pts, nxt)
+        indices[..., m:m + 1] = nxt
     return (centroids, indices, min_d2, skips, prunes,
             torch.tensor(rec, dtype=torch.int32))
 
@@ -786,19 +862,34 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
     the loop carries the per-tile bound state so each round skips every
     provably unchanged tile and prunes provably stable points inside
     active tiles; the results are bitwise those of the ungated loop (for
-    'hier', which tightens only with the tile balls, the draws differ)."""
+    'hier', which tightens only with the tile balls, the draws differ).
+
+    ``points`` (B, n, d) seeds B independent problems in one loop, one
+    ``seed_round_batched`` per round, from batched ``draws``
+    (``Draws.sample_batched``): ungated, 'cdf' or 'tiled', with no in-flight
+    guard (the reference turns it off under ``vmap``). Row b of every
+    field is bitwise the single seeding of problem b with ``draws[b]``."""
     if proposal not in ("flat", "hier"):
         raise ValueError(f"unknown proposal {proposal!r}; "
                          "expected 'flat' or 'hier'")
     _check_sampler(sampler)
-    n, d = points.shape
+    lead = tuple(points.shape[:-2])
+    if lead and (bound_gate or guard or sampler == "rejection"):
+        raise NotImplementedError(
+            "batched seeding runs ungated cdf or tiled rounds without the "
+            "in-flight guard; the gated batched round (K8) and batched "
+            "rejection seeding are not ported yet")
+    n, d = points.shape[-2:]
     pts = points.float()
     if cache is None:
         cache = backend.prologue(pts, with_bounds=bound_gate)
     tile = backend.seed_tile(n, d)
-    if draws.u.shape[0] < k - 1 or draws.fallback.shape[0] < k - 1:
-        raise ValueError(f"draws hold {draws.u.shape[0]} rounds, seeding "
+    if draws.u.shape[-1] < k - 1 or draws.fallback.shape[-1] < k - 1:
+        raise ValueError(f"draws hold {draws.u.shape[-1]} rounds, seeding "
                          f"k={k} needs {k - 1}")
+    if tuple(draws.u.shape[:-1]) != lead:
+        raise ValueError(f"draws for {tuple(draws.u.shape[:-1])} problems, "
+                         f"points for {lead}")
     init_state = None
     if bound_gate and cache.centers is not None:
         n_tiles = -(-n // tile)
@@ -828,12 +919,17 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
         def sample_fn(u, fb, weight, partials):
             return sampling.categorical_cdf(u, fb, weight)
 
+    if lead:
+        def round_fn(c, md, st):
+            return backend.seed_round_batched(pts, c, md, cache=cache)
+    else:
+        def round_fn(c, md, st):
+            return backend.seed_round(pts, c, md, cache=cache, state=st)
+
     centroids, indices, min_d2, skips, prunes, rec = _seed_loop(
-        draws.to(pts.device), pts, k,
-        round_fn=lambda c, md, st: backend.seed_round(pts, c, md,
-                                                      cache=cache, state=st),
+        draws.to(pts.device), pts, k, round_fn=round_fn,
         sample_fn=sample_fn,
-        init_min_d2=torch.full((n,), torch.inf, device=pts.device),
+        init_min_d2=torch.full(lead + (n,), torch.inf, device=pts.device),
         init_state=init_state, guard=guard, tile=tile)
     return KmeansppResult(centroids, indices, min_d2, skips, prunes,
                           recovered=rec if guard else None)
@@ -876,11 +972,22 @@ def _fit_loop(pts, init_centroids, backend: Backend, max_iters: int,
     records the trip. The guard's checks and the next iteration's
     convergence test are read in one host sync.
 
+    Batched problems (``pts`` (B, n, d), ungated) run one
+    ``assign_update_batched`` per iteration for all B. Each problem takes
+    its own convergence test, and a problem that has stopped keeps its
+    centroids, assignment, inertia and ``n_iters`` from then on (what the
+    reference's vmapped ``while_loop`` selects); the loop runs until every
+    problem has stopped, one host sync per iteration reading the (B,)
+    flags. The inertia is the fixed-order sum of the per-tile partials
+    (``sampling.fixed_sum``), so row b's is bitwise the single problem's.
+
     Returns (centroids, assignment, inertia, n_iters, skipped, pruned,
     recovered); the counters are None when the loop is not gated, and
-    ``recovered`` also when the guard is off."""
-    n, d = pts.shape
-    k = init_centroids.shape[0]
+    ``recovered`` also when the guard is off. ``n_iters`` is an int, or
+    (B,) int32 when batched."""
+    n, d = pts.shape[-2:]
+    lead = tuple(pts.shape[:-2])
+    k = init_centroids.shape[-2]
     dev = pts.device
     guard = guard and gated
     bstate = skips = prunes = None
@@ -904,34 +1011,44 @@ def _fit_loop(pts, init_centroids, backend: Backend, max_iters: int,
         skips = torch.zeros(max_iters, dtype=torch.int32, device=dev)
         prunes = torch.zeros(max_iters, dtype=torch.int32, device=dev)
     cents = prev_cents = init_centroids.float()
-    inertia = torch.tensor(torch.inf, device=dev)
-    a = torch.zeros(n, dtype=torch.int32, device=dev)
+    inertia = torch.full(lead, torch.inf, device=dev)
+    a = torch.zeros(lead + (n,), dtype=torch.int32, device=dev)
     rec = [0] * max_iters
+    live = n_iters = None
+    if lead:   # the problems still iterating, and each one's count
+        live = torch.ones(lead, dtype=torch.bool, device=dev)
+        n_iters = torch.zeros(lead, dtype=torch.int32, device=dev)
 
     def improves(new_inertia) -> torch.Tensor:
         return (inertia - new_inertia) / inertia.clamp_min(1e-30) > tol
 
     i = 0
     while i < max_iters:
-        delta = bounds.centroid_movement(cents, prev_cents) if gated else None
-        rnd = backend.assign_update(pts, cents, cache=cache, state=bstate,
-                                    delta=delta)
-        new_inertia = rnd.state.partials.sum()
+        if lead:
+            rnd = backend.assign_update_batched(pts, cents, cache=cache)
+        else:
+            delta = (bounds.centroid_movement(cents, prev_cents) if gated
+                     else None)
+            rnd = backend.assign_update(pts, cents, cache=cache,
+                                        state=bstate, delta=delta)
+        new_inertia = sampling.fixed_sum(rnd.state.partials)
         flags = []
         if guard:
             flags.append(torch.isfinite(new_inertia)
                          & ((rnd.counts.sum() - n).abs() < 0.5))
         test = 2 <= i + 1 < max_iters     # does iteration i + 1 test?
         if test:
-            flags.append(improves(new_inertia))
+            go = improves(new_inertia)
+            flags.append(go if live is None else live & go)
         # one host sync per iteration: the guard's checks + convergence
-        got = torch.stack(flags).tolist() if flags else []
-        go_on = got[-1] if test else True
+        got = (torch.cat([f.reshape(-1) for f in flags]).tolist()
+               if flags else [])
+        go_on = any(got[int(guard):]) if test else True
         if guard and not got[0]:
             r2 = backend.assign_update(pts, cents, cache=cache)
             rnd = AssignRound(r2.assignment, r2.min_d2, r2.sums, r2.counts,
                               fresh_bounds(r2.state))
-            new_inertia = r2.state.partials.sum()
+            new_inertia = sampling.fixed_sum(r2.state.partials)
             go_on = bool(improves(new_inertia)) if test else True
             rec[i] = 1
         if gated:
@@ -940,12 +1057,20 @@ def _fit_loop(pts, init_centroids, backend: Backend, max_iters: int,
         new_cents = centroid_means(rnd.sums, rnd.counts, cents)
         if empty == "reseed":
             new_cents = reseed_split_largest(new_cents, rnd.counts)
-        prev_cents, cents, inertia, a = (cents, new_cents, new_inertia,
-                                         rnd.assignment)
+        if live is None:
+            prev_cents, cents, inertia, a = (cents, new_cents, new_inertia,
+                                             rnd.assignment)
+        else:   # a problem that has stopped keeps its results
+            cents = torch.where(live[..., None, None], new_cents, cents)
+            inertia = torch.where(live, new_inertia, inertia)
+            a = torch.where(live[..., None], rnd.assignment, a)
+            n_iters = n_iters + live.int()
+            if test:
+                live = flags[-1]
         i += 1
         if not go_on:
             break
-    return (cents, a, inertia, i, skips, prunes,
+    return (cents, a, inertia, i if live is None else n_iters, skips, prunes,
             torch.tensor(rec, dtype=torch.int32) if guard else None)
 
 
@@ -958,12 +1083,20 @@ def fit_points(points: torch.Tensor, init_centroids: torch.Tensor,
     empty-cluster policy: 'keep' (previous centroid survives) or 'reseed'
     (split the largest cluster). ``cache`` is an optional precomputed
     prologue. ``bound_gate`` runs the gated loop (bitwise the ungated
-    results); ``guard`` arms its in-flight corruption detector."""
+    results); ``guard`` arms its in-flight corruption detector.
+
+    ``points`` (B, n, d) and ``init_centroids`` (B, k, d) fit B independent
+    problems in one loop, ungated; every field of the result gains the
+    leading axis and ``n_iters`` is (B,) int32, each problem's own."""
     if empty not in ("keep", "reseed"):
         raise ValueError(f"unknown empty-cluster policy {empty!r}; "
                          "expected 'keep' or 'reseed'")
+    if points.dim() == 3 and bound_gate:
+        raise NotImplementedError(
+            "batched fits run ungated; the gated batched assignment round "
+            "(K10b) is not ported yet")
     pts = points.float()
-    k = init_centroids.shape[0]
+    k = init_centroids.shape[-2]
     if cache is None:
         cache = backend.prologue(pts, m=k, with_bounds=bound_gate)
     return LloydResult(*_fit_loop(
@@ -1039,6 +1172,12 @@ class ClusterEngine:
     ``draws`` passes one in instead (to replay a run, or the reference's
     key schedule). A kernel that fails to build or launch raises
     ``KernelFailureError``; there is no fallback backend.
+
+    Batched problems: ``seed_batched``, ``fit_batched`` and
+    ``kmeans_batched`` take (B, n, d) points and return results with a
+    leading (B,) axis, row b bitwise the single problem's; they need
+    ``bounds=False`` and the cdf or tiled sampler (the gated batched
+    kernels and batched rejection seeding are not ported yet).
     """
 
     def __init__(self, backend: Union[str, Backend] = "cuda", *,
@@ -1112,3 +1251,72 @@ class ClusterEngine:
             bound_gate=self.bounds, guard=self._guard,
             refresh_block=int(refresh_block), proposal=proposal,
             max_attempts=int(max_attempts))
+
+    # -- batched multi-problem clustering ---------------------------------
+
+    def _batched(self, points, sampler: str = "cdf") -> torch.Tensor:
+        """The (B, n, d) points of a batched call, after the entry guard;
+        raises for what the batched path does not run yet."""
+        _check_sampler(sampler)
+        if self.bounds:
+            raise NotImplementedError(
+                "batched problems with bounds=True need the gated batched "
+                "kernels K8 and K10b, which the next port slice brings; "
+                "pass bounds=False")
+        if sampler == "rejection":
+            raise NotImplementedError(
+                "batched rejection seeding is not ported yet (it follows "
+                "the gated batched slice); use sampler='cdf' or 'tiled'")
+        pts = torch.as_tensor(points, dtype=torch.float32, device=self.device)
+        if pts.dim() != 3:
+            raise guards.InvalidInputError(
+                f"points must be (B, n, d), got {tuple(pts.shape)}")
+        return guards.guard_points(pts.contiguous(), self.validate)
+
+    def seed_batched(self, points, k: int, *,
+                     generator: Optional[torch.Generator] = None,
+                     draws: Optional[Draws] = None,
+                     sampler: str = "cdf") -> KmeansppResult:
+        """Seed B independent (n, d) problems, one seeding round for all B
+        per round (K7 on the card). ``draws`` are batched
+        (``Draws.sample_batched``); problem b picks exactly the seeds
+        ``seed`` picks with ``draws[b]``. No in-flight guard, as in the
+        reference under ``vmap``; the entry guard covers all B."""
+        pts = self._batched(points, sampler)
+        bsz, n, _ = pts.shape
+        guards.check_shape(k, n)
+        if draws is None:
+            draws = Draws.sample_batched(bsz, n, k, generator=generator)
+        return seed_points(draws.to(self.device), pts, k, self.backend,
+                           sampler, bound_gate=False)
+
+    def fit_batched(self, points, init_centroids, *, max_iters: int = 50,
+                    tol: float = 1e-6, empty: str = "keep") -> LloydResult:
+        """Lloyd over B independent problems: points (B, n, d), inits
+        (B, k, d), one assignment round for all B per iteration (K10a on
+        the card). Each problem stops at its own convergence test and keeps
+        its results from then on; ``n_iters`` is (B,), each problem's
+        own."""
+        pts = self._batched(points)
+        cents = torch.as_tensor(init_centroids, dtype=torch.float32,
+                                device=self.device)
+        if cents.dim() != 3 or cents.shape[0] != pts.shape[0]:
+            raise guards.InvalidInputError(
+                f"init_centroids must be ({pts.shape[0]}, k, d), got "
+                f"{tuple(cents.shape)}")
+        cents = guards.guard_centroids(cents, pts.shape[-1], self.validate)
+        return fit_points(pts, cents, self.backend, max_iters, float(tol),
+                          empty, bound_gate=False)
+
+    def kmeans_batched(self, points, k: int, *,
+                       generator: Optional[torch.Generator] = None,
+                       draws: Optional[Draws] = None, max_iters: int = 50,
+                       tol: float = 1e-6, sampler: str = "cdf",
+                       empty: str = "keep") -> LloydResult:
+        """``seed_batched`` then ``fit_batched``, each with its own prologue
+        and tile geometry, as in the reference (unlike ``kmeans``, which
+        shares one prologue at the fit's tile height)."""
+        seeds = self.seed_batched(points, k, generator=generator,
+                                  draws=draws, sampler=sampler)
+        return self.fit_batched(points, seeds.centroids, max_iters=max_iters,
+                                tol=tol, empty=empty)

@@ -18,6 +18,11 @@ tests replay the reference's key schedule through it).
 
 Indices stay on the device as (1,) int64 tensors: no draw syncs the host.
 
+Batched problems: ``categorical_cdf``, ``categorical_tiled``, ``_guarded``,
+``prefix_sum`` and ``tile_partials`` also take (B, ·) rows, one problem per
+row, with ``u`` (B,) and ``fallback`` (B, 1), and return (B, 1) indices.
+Row b is bitwise the 1-D call on problem b.
+
 Every prefix sum goes through :func:`prefix_sum`, which adds in one fixed
 order. A plain ``torch.cumsum`` over a long 1-D tensor on the card is a
 single-pass scan whose tiles take their carry-in from whichever predecessor
@@ -50,6 +55,9 @@ class Draws:
     first: torch.Tensor        # (1,) int64
     u: torch.Tensor            # (k-1,) fp32 in [0, 1)
     fallback: torch.Tensor     # (k-1,) int64 in [0, n)
+    # batched draws (``sample_batched``) carry a leading problem axis on
+    # every field: first (B, 1), u and fallback (B, k-1); draws[b] is
+    # problem b's
     propose_u: Optional[torch.Tensor] = None       # (k-1, A-1) fp32
     accept_u: Optional[torch.Tensor] = None        # (k-1, A) fp32
     exact_u: Optional[torch.Tensor] = None         # (k-1,) fp32
@@ -58,7 +66,12 @@ class Draws:
     @property
     def max_attempts(self) -> int:
         """Rejection attempts per round the draws cover (0: none)."""
-        return 0 if self.accept_u is None else self.accept_u.shape[1]
+        return 0 if self.accept_u is None else self.accept_u.shape[-1]
+
+    def __getitem__(self, b: int) -> "Draws":
+        """Problem ``b`` of batched draws, as the single-problem ``Draws``."""
+        return Draws(*(None if t is None else t[b] for t in (
+            getattr(self, f.name) for f in dataclasses.fields(self))))
 
     @classmethod
     def sample(cls, n: int, k: int, *,
@@ -85,6 +98,18 @@ class Draws:
                                              device=gdev))
         return cls(first, u, fb, **rej).to(device)
 
+    @classmethod
+    def sample_batched(cls, batch: int, n: int, k: int, *,
+                       generator: Optional[torch.Generator] = None,
+                       device="cpu") -> "Draws":
+        """Draws for ``batch`` problems: problem b's are the ``sample(n, k)``
+        the generator gives after b earlier problems' draws, so a loop of
+        single runs fed ``draws[b]`` repeats the batched run problem by
+        problem."""
+        runs = [cls.sample(n, k, generator=generator) for _ in range(batch)]
+        return Draws(*(torch.stack(ts) for ts in zip(
+            *((r.first, r.u, r.fallback) for r in runs)))).to(device)
+
     def to(self, device) -> "Draws":
         def mv(t, dtype):
             return None if t is None else t.to(device=device, dtype=dtype)
@@ -98,39 +123,82 @@ class Draws:
 
 def _search(cdf: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """First index with cdf[idx] > r (searchsorted, side='right'), clipped
-    to the array; r is 0-d, the result (1,) int64."""
-    idx = torch.searchsorted(cdf, r.reshape(1).to(cdf.dtype), right=True)
-    return idx.clamp(0, cdf.shape[0] - 1)
+    to the array; r is 0-d, the result (1,) int64 (batched: cdf (B, n), r
+    (B,), the result (B, 1))."""
+    idx = torch.searchsorted(cdf, r.reshape(cdf.shape[:-1] + (1,))
+                             .to(cdf.dtype), right=True)
+    return idx.clamp(0, cdf.shape[-1] - 1)
 
 
-SCAN_BLOCK = 4096   # row width of prefix_sum's per-tile scans
+def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` along the last axis, row by row when batched."""
+    return torch.take_along_dim(x, idx, dim=-1)
+
+
+SCAN_BLOCK = 128   # length of prefix_sum's sequential row scans
 
 
 def _row_scan(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive scan along dim 1 of a 2-D tensor. A zero row is appended
-    when there is one row: a tensor whose elements all lie along the scanned
-    dim would go to the single-pass 1-D scan, while two or more rows take
-    the per-row scan, which walks each row in a fixed order."""
-    if x.shape[0] == 1:
-        return torch.cumsum(torch.cat([x, torch.zeros_like(x)]), 1)[:1]
-    return torch.cumsum(x, 1)
+    """Inclusive scan of each row of a 2-D tensor, each row added left to
+    right, as a (possibly strided) view. It runs as ``torch.cumsum`` along
+    dim 0 of the transposed rows, a scan that gives each column to one
+    thread adding its entries in order, so a row's bits depend on the row
+    alone. (Along dim 1 the card picks a per-row thread layout from the
+    tensor's shape, and a tensor with one column would go to the
+    single-pass 1-D scan, whose order may change from run to run: a lone
+    row is scanned beside a copy of itself.)"""
+    rows, width = x.shape
+    cols = x.t() if rows > 1 else x.reshape(width, 1).expand(width, 2)
+    return torch.cumsum(cols.contiguous(), 0).t()[:rows]
 
 
 def prefix_sum(w: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum of a 1-D tensor in a fixed order: a scan inside
-    each ``SCAN_BLOCK``-wide tile, a prefix sum over the tile totals (by the
-    same rule), then each tile's offset added to its entries. The same
-    inputs give the same bits on every run, on the CPU and on the card."""
-    n = w.shape[0]
+    """Inclusive prefix sum along the last axis in a fixed order: a
+    sequential scan inside each ``SCAN_BLOCK``-wide row, a prefix sum over
+    the row totals (by the same rule), then each row's offset added to its
+    entries. The same inputs give the same bits on every run, on the CPU
+    and on the card.
+
+    Leading axes are independent problems, each padded and scanned on its
+    own, and no scan's order depends on how many rows it is given, so row b
+    of a (B, n) call is bitwise the 1-D call on w[b] (``chip_smoke.py``
+    phase 0 checks it on the card)."""
+    return _prefix_sum(w).contiguous()
+
+
+def _prefix_sum(w: torch.Tensor) -> torch.Tensor:
+    n = w.shape[-1]
+    lead = w.shape[:-1]
     if n <= SCAN_BLOCK:
-        return _row_scan(w[None, :])[0]
+        return _row_scan(w.reshape(-1, n)).reshape(w.shape)
     pad = (-n) % SCAN_BLOCK
     if pad:
-        w = torch.cat([w, w.new_zeros(pad)])
-    local = _row_scan(w.reshape(-1, SCAN_BLOCK))
-    tot = prefix_sum(local[:, -1])
-    offs = torch.cat([tot.new_zeros(1), tot[:-1]])
-    return (local + offs[:, None]).reshape(-1)[:n]
+        w = torch.nn.functional.pad(w, (0, pad))
+    local = _row_scan(w.reshape(-1, SCAN_BLOCK)).reshape(
+        lead + (-1, SCAN_BLOCK))
+    tot = _prefix_sum(local[..., -1])
+    # row r's entries plus the rows before it, written in row order
+    out = torch.empty(local.shape, dtype=local.dtype, device=local.device)
+    out[..., 0, :] = local[..., 0, :]
+    torch.add(local[..., 1:, :], tot[..., :-1, None], out=out[..., 1:, :])
+    return out.reshape(lead + (-1,))[..., :n]
+
+
+def fixed_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum over ``dim`` in a fixed order: the entries added in ascending
+    order within each ``SCAN_BLOCK``-long block (the last entry of
+    :func:`_row_scan`), then the block totals by the same rule. The order
+    depends on the length of ``dim`` only, never on the other axes, so a
+    batched problem's sum is bitwise the single problem's on every device
+    (a torch reduction may split a 1-D sum across blocks and a batch of
+    rows not)."""
+    x = x.movedim(dim, -1)
+    lead, n = x.shape[:-1], x.shape[-1]
+    if n > SCAN_BLOCK and n % SCAN_BLOCK:
+        x = torch.nn.functional.pad(x, (0, SCAN_BLOCK - n % SCAN_BLOCK))
+    width = min(n, SCAN_BLOCK)
+    tot = _row_scan(x.reshape(-1, width))[:, -1].reshape(lead + (-1,))
+    return tot[..., 0] if tot.shape[-1] == 1 else fixed_sum(tot)
 
 
 def index_from_uniform(u: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -138,17 +206,18 @@ def index_from_uniform(u: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     (the deterministic half of inverse-CDF sampling); the total is the
     prefix sum's own last entry, as in the reference."""
     cdf = prefix_sum(weights)
-    return _search(cdf, u * cdf[-1])
+    return _search(cdf, u * cdf[..., -1])
 
 
 def tile_window(weights: torch.Tensor, t: torch.Tensor,
                 block_n: int) -> torch.Tensor:
     """The (block_n,) weight slice of tile t (zero past the last row) — the
     only O(block_n) read a two-level draw performs. ``t`` is a (1,) device
-    index, gathered without a host sync."""
-    n = weights.shape[0]
+    index (batched: (B, 1), one window per row), gathered without a host
+    sync."""
+    n = weights.shape[-1]
     rows = t * block_n + torch.arange(block_n, device=weights.device)
-    win = weights[rows.clamp(max=n - 1)]
+    win = _gather(weights, rows.clamp(max=n - 1))
     return torch.where(rows < n, win, torch.zeros((), dtype=weights.dtype,
                                                    device=weights.device))
 
@@ -160,15 +229,15 @@ def tiled_index_from_uniform(u: torch.Tensor, weights: torch.Tensor,
     offset inside tile t via a (block_n,)-slice of ``weights``; the level-2
     residual reuses the same uniform, which conditional on tile t is uniform
     on the tile's mass, so the composite is an exact draw."""
-    n = weights.shape[0]
+    n = weights.shape[-1]
     tcdf = prefix_sum(partials)
-    r = u.to(tcdf.dtype) * tcdf[-1]
+    r = u.to(tcdf.dtype) * tcdf[..., -1]
     t = _search(tcdf, r)
-    prev = tcdf[(t - 1).clamp(min=0)]
-    r_local = r - torch.where(t > 0, prev, torch.zeros_like(prev))
+    prev = _gather(tcdf, (t - 1).clamp(min=0))
+    r_local = r[..., None] - torch.where(t > 0, prev, torch.zeros_like(prev))
 
     lcdf = prefix_sum(tile_window(weights, t, block_n))
-    return _row_in_tile(lcdf, r_local, r_local, partials[t], t,
+    return _row_in_tile(lcdf, r_local, r_local, _gather(partials, t), t,
                         block_n=block_n, n=n)
 
 
@@ -184,7 +253,7 @@ def _row_in_tile(lcdf: torch.Tensor, r2: torch.Tensor, r_local: torch.Tensor,
     tile; conditional on t the residual r_local / part_t is uniform on
     [0, 1), so the fallback costs no extra uniform."""
     li = torch.searchsorted(lcdf, r2, right=True).clamp(0, block_n - 1)
-    wtot = lcdf[block_n - 1]
+    wtot = lcdf[..., block_n - 1:block_n]
     tiny = torch.finfo(lcdf.dtype).tiny
     frac = (r_local / part_t.clamp_min(tiny)).clamp(0.0, 1.0)
     li_fb = (frac * block_n).to(torch.int64).clamp(max=block_n - 1)
@@ -197,7 +266,7 @@ def categorical_cdf(u: torch.Tensor, fallback: torch.Tensor,
     """Inverse-CDF draw, idx with cdf[idx-1] <= u·total < cdf[idx].
     All-zero / non-finite weight mass takes the fallback index."""
     cdf = prefix_sum(weights)
-    return _guarded(_search(cdf, u * cdf[-1]), fallback, cdf[-1])
+    return _guarded(_search(cdf, u * cdf[..., -1]), fallback, cdf[..., -1])
 
 
 def categorical_tiled(u: torch.Tensor, fallback: torch.Tensor,
@@ -206,7 +275,7 @@ def categorical_tiled(u: torch.Tensor, fallback: torch.Tensor,
     """Two-level tiled draw (see `tiled_index_from_uniform`). The degenerate
     guard reads only the n_tiles partials, keeping the draw sub-O(n)."""
     idx = tiled_index_from_uniform(u, weights, partials, block_n=block_n)
-    return _guarded(idx, fallback, partials.sum())
+    return _guarded(idx, fallback, partials.sum(-1))
 
 
 def super_cdf(tcdf: torch.Tensor, tps: int) -> torch.Tensor:
@@ -325,14 +394,20 @@ def rejection_sample(propose_fn, pq_fn, propose_u: torch.Tensor,
 
 def _guarded(idx: torch.Tensor, fallback: torch.Tensor,
              total: torch.Tensor) -> torch.Tensor:
-    ok = torch.isfinite(total) & (total > 0)
+    """``idx`` where the weight mass ``total`` is finite and positive, else
+    the fallback index. Only the sign and finiteness of ``total`` matter,
+    which no summation order changes for non-negative weights (short of an
+    overflow within rounding of the fp32 maximum)."""
+    ok = (torch.isfinite(total) & (total > 0))[..., None]
     return torch.where(ok, idx, fallback.reshape(idx.shape).to(idx.dtype))
 
 
 def tile_partials(x: torch.Tensor, block_n: int) -> torch.Tensor:
-    """Per-tile sums of a (n,) array with tile height block_n (zero-padded
-    tail) — the plain twin of the seeding kernel's per-tile partials."""
-    pad = (-x.shape[0]) % block_n
+    """Per-tile sums along the last axis of a (..., n) array with tile
+    height block_n (zero-padded tail) — the plain twin of the seeding
+    kernel's per-tile partials."""
+    lead = x.shape[:-1]
+    pad = (-x.shape[-1]) % block_n
     if pad:
-        x = torch.cat([x, x.new_zeros(pad)])
-    return x.reshape(-1, block_n).sum(dim=1)
+        x = torch.cat([x, x.new_zeros(lead + (pad,))], -1)
+    return x.reshape(lead + (-1, block_n)).sum(dim=-1)

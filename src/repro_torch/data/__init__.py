@@ -1,4 +1,4 @@
 """repro_torch.data — synthetic sources."""
-from repro_torch.data.synthetic import blobs
+from repro_torch.data.synthetic import blobs, blobs_batched
 
-__all__ = ["blobs"]
+__all__ = ["blobs", "blobs_batched"]

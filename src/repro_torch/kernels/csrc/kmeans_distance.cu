@@ -1,4 +1,5 @@
-// K2 and K5: one k-means++ seeding round on Hopper, ungated and bound-gated.
+// K2, K5 and K7: one k-means++ seeding round on Hopper, ungated, bound-gated
+// and over a batch of independent problems.
 //
 // K2 replaces src/repro/kernels/kmeans_distance.py::distance_min_update_pallas
 // (the TPU kernel's pallas_call at line 125). It computes, for every row x
@@ -21,17 +22,27 @@
 // of the carried min_d2, partials and tile_max by the wrapper, so a skipped
 // tile leaves them untouched (the TPU kernel's input_output_aliases).
 //
-// Both are one template: an active tile's unpruned rows go through the same
-// code as K2's, in the same order, and a pruned row holds the value K2 would
-// write (min(md, d2) = md when d2 >= md), so an active tile's partial is
-// bitwise K2's partial.
+// K7 replaces kmeans_distance.py::distance_min_update_batched_pallas (its
+// pallas_call at line 486): K2 over B independent problems in one launch.
+// The grid is B * n_tiles blocks along x (no 65,535 limit on the problem
+// count), block i taking tile i % n_tiles of problem i / n_tiles; its
+// pointers are offset by the problem's b*n*d points, b*n norms and D², b*m*d
+// centroids and b*n_tiles partials, and then it runs K2's code unchanged, so
+// row b of a K7 launch is bitwise K2 on problem b.
+//
+// All three are one template: an active tile's unpruned rows go through the
+// same code as K2's, in the same order, and a pruned row holds the value K2
+// would write (min(md, d2) = md when d2 >= md), so an active tile's partial
+// is bitwise K2's partial. K2 and K5 are the launches with B = 1.
 //
 // What bounds them on the H100: bytes. At the paper's d = 2 a row moves 20 B
 // (x 8, norm 4, md in 4, md out 4) and costs 2d + 3 flops per centroid, so
 // one K2 round at n = 4M is 80 MB against 3.35 TB/s, about 24 us, and the
 // arithmetic is far below the fp32 rate. K5 moves only the active tiles'
 // rows (plus center_d, 4 B a row), and a pruned row needs no x or norm. At
-// d = 2 there is no product to put on tensor cores, so fp32 FMA only.
+// d = 2 there is no product to put on tensor cores, so fp32 FMA only. K7 at
+// the PQ codebook sweep (B = 1664 problems of n = 16384, d = 16, m = 1)
+// moves 76 B a row, 2.07 GB a round: 0.62 ms at 3.35 TB/s.
 //
 // Design. One thread block owns one tile and loops over its rows, 256 rows
 // at a time, so reads of x, norms and md are coalesced and each is read
@@ -79,7 +90,7 @@ __device__ __forceinline__ bool seed_point_prune(float md, float cd, float dc,
   return __fmul_rn(lo, lo) >= __fadd_rn(__fmul_rn(md, kRelScale), margin);
 }
 
-// Gated = false is K2 (the gate pointers are null); Gated = true is K5.
+// Gated = false is K2 / K7 (the gate pointers are null); Gated = true is K5.
 template <bool Resident, bool Gated>
 __global__ void __launch_bounds__(kThreads)
 distance_min_update_kernel(const float* __restrict__ points,
@@ -95,7 +106,18 @@ distance_min_update_kernel(const float* __restrict__ points,
                            float* __restrict__ tile_max,
                            int* __restrict__ pruned,
                            int n, int d, int m, int block_n) {
-  if (Gated && !active[blockIdx.x]) return;  // skipped: outputs keep carries
+  // problem b, tile t of it; its arrays are offset to problem b
+  const int n_tiles = (n + block_n - 1) / block_n;
+  const int b = blockIdx.x / n_tiles;
+  const int t = blockIdx.x - b * n_tiles;
+  points += (size_t)b * n * d;
+  norms += (size_t)b * n;
+  cents += (size_t)b * m * d;
+  md_in += (size_t)b * n;
+  md_out += (size_t)b * n;
+  partials += (size_t)b * n_tiles;
+  // the gate's arrays are not offset: K5 is launched for one problem
+  if (Gated && !active[t]) return;  // skipped: outputs keep carries
   extern __shared__ float smem[];
   float* red = smem;                        // (kThreads,) sum tree
   float* red_max = red + kThreads;          // (kThreads,) max tree (K5)
@@ -112,9 +134,9 @@ distance_min_update_kernel(const float* __restrict__ points,
   }
   const float* c_src = Resident ? c_sh : cents;
 
-  const long long tile0 = (long long)blockIdx.x * block_n;
-  const float dc_t = Gated ? dc[blockIdx.x] : 0.f;
-  const float margin_t = Gated ? margin[blockIdx.x] : 0.f;
+  const long long tile0 = (long long)t * block_n;
+  const float dc_t = Gated ? dc[t] : 0.f;
+  const float margin_t = Gated ? margin[t] : 0.f;
   float local = 0.f;
   float lmax = 0.f;
   int lcnt = 0;
@@ -160,10 +182,10 @@ distance_min_update_kernel(const float* __restrict__ points,
     __syncthreads();
   }
   if (tid == 0) {
-    partials[blockIdx.x] = red[0];
+    partials[t] = red[0];
     if (Gated) {
-      tile_max[blockIdx.x] = red_max[0];
-      pruned[blockIdx.x] = red_cnt[0];
+      tile_max[t] = red_max[0];
+      pruned[t] = red_cnt[0];
     }
   }
 }
@@ -172,21 +194,22 @@ template <bool Gated>
 int launch(const float* points, const float* norms, const float* cents,
            const float* md_in, float* md_out, float* partials,
            const float* center_d, const float* dc, const float* margin,
-           const unsigned char* active, float* tile_max, int* pruned, int n,
-           int d, int m, int block_n, int resident, cudaStream_t s) {
-  const int n_tiles = (n + block_n - 1) / block_n;
+           const unsigned char* active, float* tile_max, int* pruned, int batch,
+           int n, int d, int m, int block_n, int resident, cudaStream_t s) {
+  const long long blocks = (long long)batch * ((n + block_n - 1) / block_n);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const unsigned grid = (unsigned)blocks;
   const size_t smem = sizeof(float) * ((Gated ? 3 : 1) * kThreads +
                                        (resident ? (size_t)m * d + m : 0));
   if (resident) {
     auto kern = distance_min_update_kernel<true, Gated>;
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
-    kern<<<n_tiles, kThreads, smem, s>>>(points, norms, cents, md_in, md_out,
-                                         partials, center_d, dc, margin,
-                                         active, tile_max, pruned, n, d, m,
-                                         block_n);
+    kern<<<grid, kThreads, smem, s>>>(points, norms, cents, md_in, md_out,
+                                      partials, center_d, dc, margin, active,
+                                      tile_max, pruned, n, d, m, block_n);
   } else {
-    distance_min_update_kernel<false, Gated><<<n_tiles, kThreads, smem, s>>>(
+    distance_min_update_kernel<false, Gated><<<grid, kThreads, smem, s>>>(
         points, norms, cents, md_in, md_out, partials, center_d, dc, margin,
         active, tile_max, pruned, n, d, m, block_n);
   }
@@ -201,8 +224,22 @@ extern "C" int distance_min_update_launch(
     const float* md_in, float* md_out, float* partials, int n, int d, int m,
     int block_n, int resident, void* stream) {
   return launch<false>(points, norms, cents, md_in, md_out, partials, nullptr,
-                       nullptr, nullptr, nullptr, nullptr, nullptr, n, d, m,
-                       block_n, resident, static_cast<cudaStream_t>(stream));
+                       nullptr, nullptr, nullptr, nullptr, nullptr, 1, n, d,
+                       m, block_n, resident,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// Launches one seeding round of `batch` problems (K7) on `stream`; returns
+// cudaGetLastError(). points (batch, n, d), norms / md_in / md_out
+// (batch, n), cents (batch, m, d), partials (batch, n_tiles), contiguous.
+extern "C" int distance_min_update_batched_launch(
+    const float* points, const float* norms, const float* cents,
+    const float* md_in, float* md_out, float* partials, int batch, int n,
+    int d, int m, int block_n, int resident, void* stream) {
+  return launch<false>(points, norms, cents, md_in, md_out, partials, nullptr,
+                       nullptr, nullptr, nullptr, nullptr, nullptr, batch, n,
+                       d, m, block_n, resident,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // Launches one gated seeding round (K5) on `stream`; returns
@@ -215,6 +252,6 @@ extern "C" int distance_min_update_gated_launch(
     float* tile_max, int* pruned, int n, int d, int m, int block_n,
     int resident, void* stream) {
   return launch<true>(points, norms, cents, md_in, md_out, partials, center_d,
-                      dc, margin, active, tile_max, pruned, n, d, m, block_n,
-                      resident, static_cast<cudaStream_t>(stream));
+                      dc, margin, active, tile_max, pruned, 1, n, d, m,
+                      block_n, resident, static_cast<cudaStream_t>(stream));
 }

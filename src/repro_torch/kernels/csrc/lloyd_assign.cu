@@ -1,5 +1,5 @@
-// K3 and K6: one tiled Lloyd assignment round on Hopper, ungated and
-// bound-gated.
+// K3, K6 and K10a: one tiled Lloyd assignment round on Hopper, ungated,
+// bound-gated and over a batch of independent problems.
 //
 // K3 replaces src/repro/kernels/lloyd_assign.py::lloyd_assign_tiled_pallas
 // (the TPU kernel's pallas_call at line 346). For every row x and centroid
@@ -62,6 +62,24 @@
 // same template as K3: an all-active launch in which nothing prunes is
 // bitwise K3. At d = 2 four rows share a pass over the centroids, so the
 // pass is skipped only when all four of a thread's rows prune.
+//
+// K10a replaces lloyd_assign.py::lloyd_assign_tiled_batched_pallas (its
+// pallas_call at line 544): K3 over B independent problems in one launch of
+// each kernel. The grids are B * n_tiles and B * n_super blocks along x,
+// block i taking tile (super) i % n_tiles (n_super) of problem i / n_tiles
+// (n_super), its pointers offset to that problem's points, norms,
+// centroids, labels, D², partials, gaps, tile scratch and super sums; then
+// it runs K3's code unchanged, with the same `cols` (a function of d, k and
+// block_n only), so row b is bitwise K3 on problem b. K3 and K6 are the
+// launches with B = 1. At the PQ codebook sweep (B = 1664, n = 16384,
+// d = 16, k = 256) the distance arithmetic is 2.4e11 flops a round, 3.6 ms
+// at the fp32 rate, against 1.9 GB of traffic (0.57 ms): operation-bound.
+// There d = 16 is compiled like d = 2, the row in registers and four rows
+// to a pass over the centroids: the runtime-d loop re-reads each row from
+// memory for every centroid and took ten times as long on the H100
+// (PERF.md, the TPU kernel table).
+// The fused multiply-adds are the same, in the same order, so K3's bits at
+// d = 16 do not change.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -116,7 +134,19 @@ assign_tile_kernel(const float* __restrict__ points,
                    float* __restrict__ partials, float* __restrict__ gaps,
                    float* __restrict__ tile_acc,  // (n_tiles, k, d + 1)
                    Gate g, int n, int d, int k, int block_n, int cols) {
-  if (Gated && !g.active[blockIdx.x]) return;  // skipped: carries stay
+  // problem b, tile t of it; its arrays are offset to problem b
+  const int n_tiles = (n + block_n - 1) / block_n;
+  const int b = blockIdx.x / n_tiles;
+  const int t = blockIdx.x - b * n_tiles;
+  points += (size_t)b * n * d;
+  norms += (size_t)b * n;
+  cents += (size_t)b * k * d;
+  labels += (size_t)b * n;
+  md += (size_t)b * n;
+  partials += (size_t)b * n_tiles;
+  gaps += (size_t)b * n_tiles;
+  // the gate's arrays are not offset: K6 is launched for one problem
+  if (Gated && !g.active[t]) return;  // skipped: carries stay
   constexpr int R = D > 0 ? 4 : 1;
   constexpr int DR = D > 0 ? D : 1;
   extern __shared__ float smem[];
@@ -143,11 +173,11 @@ assign_tile_kernel(const float* __restrict__ points,
   }
   __syncthreads();
 
-  const long long tile0 = (long long)blockIdx.x * block_n;
+  const long long tile0 = (long long)t * block_n;
   const float* tile_x = points + tile0 * d;
   const int rows = (int)min((long long)block_n, (long long)n - tile0);
-  const float thresh_t = Gated ? g.thresh[blockIdx.x] : 0.f;
-  const float absorb_t = Gated ? g.absorb[blockIdx.x] : 0.f;
+  const float thresh_t = Gated ? g.thresh[t] : 0.f;
+  const float absorb_t = Gated ? g.absorb[t] : 0.f;
   float local_sum = 0.f;
   float local_gap = CUDART_INF_F;
   int local_pruned = 0;
@@ -227,7 +257,7 @@ assign_tile_kernel(const float* __restrict__ points,
       if (tid < s) cnt_sh[tid] += cnt_sh[tid + s];
       __syncthreads();
     }
-    if (tid == 0) g.pruned[blockIdx.x] = cnt_sh[0];
+    if (tid == 0) g.pruned[t] = cnt_sh[0];
     __syncthreads();
   }
   red_sum[tid] = local_sum;
@@ -241,14 +271,14 @@ assign_tile_kernel(const float* __restrict__ points,
     __syncthreads();
   }
   if (tid == 0) {
-    partials[blockIdx.x] = red_sum[0];
-    gaps[blockIdx.x] = red_gap[0];
+    partials[t] = red_sum[0];
+    gaps[t] = red_gap[0];
   }
 
   // cluster sums, `cols` columns (j0 .. j0 + cols - 1 of d + 1) at a time
   const int warp = tid / 32, lane = tid % 32;
   float* acc = acc_sh + (size_t)warp * k * cols;
-  float* out = tile_acc + (size_t)blockIdx.x * k * width;
+  float* out = tile_acc + (size_t)blockIdx.x * k * width;  // (b, t)
   for (int j0 = 0; j0 < width; j0 += cols) {
     const int nc = min(cols, width - j0);
     for (int i = tid; i < kWarps * k * cols; i += kThreads) acc_sh[i] = 0.f;
@@ -289,14 +319,20 @@ assign_tile_kernel(const float* __restrict__ points,
 }
 
 // `active` (K6) skips a super none of whose tiles computed: its carried
-// sums and counts stay.
+// sums and counts stay. Block i reduces super i % n_super of problem
+// i / n_super.
 __global__ void __launch_bounds__(kThreads)
 super_reduce_kernel(const float* __restrict__ tile_acc, float* __restrict__ ssums,
                     float* __restrict__ scounts,
                     const unsigned char* __restrict__ active, int n_tiles,
                     int d, int k, int tps) {
   const int width = d + 1;
-  const int s = blockIdx.x;
+  const int n_super = (n_tiles + tps - 1) / tps;
+  const int b = blockIdx.x / n_super;
+  const int s = blockIdx.x - b * n_super;
+  tile_acc += (size_t)b * n_tiles * k * width;
+  ssums += (size_t)b * n_super * k * d;
+  scounts += (size_t)b * n_super * k;
   const int t_end = min((s + 1) * tps, n_tiles);
   if (active != nullptr) {
     bool any = false;
@@ -318,15 +354,15 @@ super_reduce_kernel(const float* __restrict__ tile_acc, float* __restrict__ ssum
 template <int D, bool Gated>
 int launch_assign(const float* points, const float* norms, const float* cents,
                   int* labels, float* md, float* partials, float* gaps,
-                  float* tile_acc, const Gate& g, int n, int d, int k,
-                  int block_n, int cols, cudaStream_t s) {
-  const int n_tiles = (n + block_n - 1) / block_n;
+                  float* tile_acc, const Gate& g, int batch, int n, int d,
+                  int k, int block_n, int cols, cudaStream_t s) {
+  const unsigned grid = (unsigned)batch * ((n + block_n - 1) / block_n);
   const size_t smem = sizeof(float) * ((size_t)k * d + k + 2 * kThreads +
                                        (size_t)kWarps * k * cols + block_n +
                                        (Gated ? k : 0));
   cudaFuncSetAttribute(assign_tile_kernel<D, Gated>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  assign_tile_kernel<D, Gated><<<n_tiles, kThreads, smem, s>>>(
+  assign_tile_kernel<D, Gated><<<grid, kThreads, smem, s>>>(
       points, norms, cents, labels, md, partials, gaps, tile_acc, g, n, d, k,
       block_n, cols);
   return (int)cudaGetLastError();
@@ -336,19 +372,24 @@ template <bool Gated>
 int launch_round(const float* points, const float* norms, const float* cents,
                  int* labels, float* md, float* partials, float* gaps,
                  float* tile_acc, float* ssums, float* scounts, const Gate& g,
-                 int n, int d, int k, int block_n, int tps, int cols,
-                 cudaStream_t s) {
+                 int batch, int n, int d, int k, int block_n, int tps,
+                 int cols, cudaStream_t s) {
   const int n_tiles = (n + block_n - 1) / block_n;
   const int n_super = (n_tiles + tps - 1) / tps;
+  if ((long long)batch * n_tiles > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;
   const int err =
-      d == 2 ? launch_assign<2, Gated>(points, norms, cents, labels, md,
-                                       partials, gaps, tile_acc, g, n, d, k,
-                                       block_n, cols, s)
-             : launch_assign<0, Gated>(points, norms, cents, labels, md,
-                                       partials, gaps, tile_acc, g, n, d, k,
-                                       block_n, cols, s);
+      d == 2    ? launch_assign<2, Gated>(points, norms, cents, labels, md,
+                                          partials, gaps, tile_acc, g, batch,
+                                          n, d, k, block_n, cols, s)
+      : d == 16 ? launch_assign<16, Gated>(points, norms, cents, labels, md,
+                                           partials, gaps, tile_acc, g, batch,
+                                           n, d, k, block_n, cols, s)
+                : launch_assign<0, Gated>(points, norms, cents, labels, md,
+                                          partials, gaps, tile_acc, g, batch,
+                                          n, d, k, block_n, cols, s);
   if (err != 0) return err;
-  super_reduce_kernel<<<n_super, kThreads, 0, s>>>(
+  super_reduce_kernel<<<(unsigned)batch * n_super, kThreads, 0, s>>>(
       tile_acc, ssums, scounts, Gated ? g.active : nullptr, n_tiles, d, k,
       tps);
   return (int)cudaGetLastError();
@@ -366,7 +407,24 @@ extern "C" int lloyd_assign_tiled_launch(
     float* scounts, int n, int d, int k, int block_n, int tps, int cols,
     void* stream) {
   return launch_round<false>(points, norms, cents, labels, md, partials, gaps,
-                             tile_acc, ssums, scounts, Gate{}, n, d, k,
+                             tile_acc, ssums, scounts, Gate{}, 1, n, d, k,
+                             block_n, tps, cols,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// Launches both kernels of one assignment round of `batch` problems (K10a)
+// on `stream`; returns cudaGetLastError(). Every array carries a leading
+// problem axis: points (batch, n, d), cents (batch, k, d), labels / md
+// (batch, n), partials / gaps (batch, n_tiles), tile_acc
+// (batch, n_tiles, k, d + 1), ssums (batch, n_super, k, d), scounts
+// (batch, n_super, k).
+extern "C" int lloyd_assign_tiled_batched_launch(
+    const float* points, const float* norms, const float* cents, int* labels,
+    float* md, float* partials, float* gaps, float* tile_acc, float* ssums,
+    float* scounts, int batch, int n, int d, int k, int block_n, int tps,
+    int cols, void* stream) {
+  return launch_round<false>(points, norms, cents, labels, md, partials, gaps,
+                             tile_acc, ssums, scounts, Gate{}, batch, n, d, k,
                              block_n, tps, cols,
                              static_cast<cudaStream_t>(stream));
 }
@@ -386,6 +444,6 @@ extern "C" int lloyd_assign_gated_launch(
   const Gate g{delta, thresh, absorb, prev_a, prev_md, prev_lb, active, lb,
                pruned};
   return launch_round<true>(points, norms, cents, labels, md, partials, gaps,
-                            tile_acc, ssums, scounts, g, n, d, k, block_n,
+                            tile_acc, ssums, scounts, g, 1, n, d, k, block_n,
                             tps, cols, static_cast<cudaStream_t>(stream));
 }

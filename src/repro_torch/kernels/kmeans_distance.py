@@ -1,7 +1,8 @@
-"""K1, K2, K5, K11 and K12 — the prologue, the k-means++ seeding round
-(ungated and bound-gated) and the rejection sampler's two small kernels
-(port of ``repro.kernels.kmeans_distance``'s ``seed_prologue_pallas``,
-``distance_min_update_pallas``, ``distance_min_update_gated_pallas``,
+"""K1, K2, K5, K7, K11 and K12 — the prologue, the k-means++ seeding round
+(ungated, bound-gated and batched) and the rejection sampler's two small
+kernels (port of ``repro.kernels.kmeans_distance``'s
+``seed_prologue_pallas``, ``distance_min_update_pallas``,
+``distance_min_update_gated_pallas``, ``distance_min_update_batched_pallas``,
 ``row_min_d2_pallas`` and ``tile_cap_pallas``).
 
 K1 ``seed_prologue`` is the once-per-call pass: the fp32 norms every round
@@ -14,8 +15,10 @@ D² and returns the per-tile partial sums the samplers draw from:
     new_md = min(md, min_c max(||x||² − 2 x·c + ||c||², 0)),
     partials[t] = sum of new_md over tile t's rows.
 
-The gated round (K5) does the same on the tiles the seeding gate marks
-active only, skips the rows the per-point bound prunes, and also returns
+The batched round (K7) is K2 over B independent problems in one launch:
+(B, n, d) points, (B, m, d) centroids, (B, n) norms and D², (B, T)
+partials; row b is K2 on problem b. The gated round (K5) does the same as
+K2 on the tiles the seeding gate marks active only, skips the rows the per-point bound prunes, and also returns
 each tile's max of new_md and its count of pruned rows; inactive tiles keep
 their carried values.
 
@@ -42,6 +45,8 @@ from repro_torch.core.sampling import tile_partials
 from repro_torch.kernels import _build, ops
 
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6
+                     + (ctypes.c_void_p,))
 _GATED_ARGTYPES = ((ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 5
                    + (ctypes.c_void_p,))
 _PROLOGUE_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3
@@ -67,6 +72,18 @@ def distance_min_update_torch(points: torch.Tensor, norms: torch.Tensor,
     (n_tiles,))."""
     new = torch.minimum(min_d2, tile_d2(points, centroids, norms).amin(dim=1))
     return new, tile_partials(new, block_n)
+
+
+def distance_min_update_batched_torch(points: torch.Tensor,
+                                      norms: torch.Tensor,
+                                      centroids: torch.Tensor,
+                                      min_d2: torch.Tensor, *, block_n: int):
+    """Plain PyTorch twin of K7: K2's twin on each problem, stacked, so row b
+    is bitwise the single twin on problem b. Returns (new_min_d2 (B, n),
+    partials (B, n_tiles))."""
+    outs = [distance_min_update_torch(p, nr, c, md, block_n=block_n)
+            for p, nr, c, md in zip(points, norms, centroids, min_d2)]
+    return tuple(torch.stack(o) for o in zip(*outs))
 
 
 def seed_prologue_torch(points: torch.Tensor, block_n: int):
@@ -198,6 +215,61 @@ def distance_min_update(points: torch.Tensor, norms: torch.Tensor,
         raise KernelFailureError(f"distance_min_update launch failed: "
                                  f"cudaError {err}")
     ops.LAUNCHES["distance_min_update"] += 1
+    return out, partials
+
+
+def distance_min_update_batched(points: torch.Tensor, norms: torch.Tensor,
+                                centroids: torch.Tensor, min_d2: torch.Tensor,
+                                *, block_n: int, resident: bool = True):
+    """One seeding round of B independent problems: points (B, n, d), norms
+    and min_d2 (B, n), centroids (B, m, d). Returns (new_min_d2 (B, n),
+    partials (B, n_tiles)). On the card this launches K7, one launch for
+    every problem, ``resident`` as for K2; CPU tensors take the plain
+    twin."""
+    if points.dim() != 3 or centroids.dim() != 3:
+        raise ValueError("points and centroids must be 3-D (B, rows, d)")
+    bsz = points.shape[0]
+    if centroids.shape[0] != bsz or norms.shape[:1] != (bsz,) \
+            or min_d2.shape[:1] != (bsz,) or bsz < 1:
+        raise ValueError(f"problem counts differ: points "
+                         f"{tuple(points.shape)}, centroids "
+                         f"{tuple(centroids.shape)}, norms "
+                         f"{tuple(norms.shape)}, min_d2 {tuple(min_d2.shape)}")
+    _check(points[0], norms[0], centroids[0], min_d2[0], block_n)
+    devs = {t.device for t in (points, norms, centroids, min_d2)}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {devs}")
+    if points.device.type == "cpu":
+        return distance_min_update_batched_torch(points, norms, centroids,
+                                                 min_d2, block_n=block_n)
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    ops.check_card_tensors(points=points, norms=norms, centroids=centroids,
+                           min_d2=min_d2)
+    _, n, d = points.shape
+    m = centroids.shape[1]
+    if ops.seed_smem_bytes(d, m, resident) > ops.SMEM_LIMIT:
+        raise ValueError(f"a resident ({m}, {d}) centroid block does not fit "
+                         f"in {ops.SMEM_LIMIT} bytes of shared memory")
+    n_tiles = -(-n // block_n)
+    if bsz * n_tiles >= 2 ** 31:
+        raise ValueError(f"{bsz} problems of {n_tiles} tiles exceed the "
+                         "grid's 2^31 - 1 blocks")
+    fn = _build.function("kmeans_distance",
+                         "distance_min_update_batched_launch",
+                         _BATCHED_ARGTYPES)
+    out = torch.empty_like(min_d2)
+    partials = torch.empty((bsz, n_tiles), dtype=torch.float32,
+                           device=points.device)
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
+                 min_d2.data_ptr(), out.data_ptr(), partials.data_ptr(),
+                 bsz, n, d, m, block_n, int(resident), stream)
+    if err != 0:
+        raise KernelFailureError(f"distance_min_update_batched launch "
+                                 f"failed: cudaError {err}")
+    ops.LAUNCHES["distance_min_update_batched"] += 1
     return out, partials
 
 

@@ -1,6 +1,6 @@
-"""K3 and K6 — the tiled Lloyd assignment round, ungated and bound-gated
-(port of ``repro.kernels.lloyd_assign.lloyd_assign_tiled_pallas`` and
-``lloyd_assign_gated_pallas``).
+"""K3, K6 and K10a — the tiled Lloyd assignment round, ungated, bound-gated
+and batched (port of ``repro.kernels.lloyd_assign.lloyd_assign_tiled_pallas``,
+``lloyd_assign_gated_pallas`` and ``lloyd_assign_tiled_batched_pallas``).
 
 One round assigns every point to its nearest centroid and returns what the
 centroid update and the next slice's movement bound need:
@@ -18,7 +18,11 @@ also returns each row's lower bound on its second-nearest distance and each
 tile's count of pruned rows; skipped tiles and supers keep their carried
 values.
 
-``lloyd_assign_tiled`` and ``lloyd_assign_gated`` launch the hand-written
+The batched round (K10a) is K3 over B independent problems in one launch,
+every output with a leading problem axis; row b is K3 on problem b.
+
+``lloyd_assign_tiled``, ``lloyd_assign_gated`` and
+``lloyd_assign_tiled_batched`` launch the hand-written
 CUDA kernels (``csrc/lloyd_assign.cu``) for tensors on the card, and run the
 plain twins (``*_torch``) only for tensors on the CPU.
 """
@@ -39,6 +43,8 @@ _ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6
              + (ctypes.c_void_p,))
 _GATED_ARGTYPES = ((ctypes.c_void_p,) * 19 + (ctypes.c_int,) * 6
                    + (ctypes.c_void_p,))
+_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7
+                     + (ctypes.c_void_p,))
 
 
 def _tile_reduce(points, a, m, gap_pt, k, block_n, tps):
@@ -78,6 +84,19 @@ def lloyd_assign_tiled_torch(points: torch.Tensor, norms: torch.Tensor,
     second = torch.where(won, torch.inf, d2).amin(dim=1)
     gap_pt = second.sqrt() - m.sqrt()
     return (a.int(), m) + _tile_reduce(points, a, m, gap_pt, k, block_n, tps)
+
+
+def lloyd_assign_tiled_batched_torch(points: torch.Tensor,
+                                     norms: torch.Tensor,
+                                     centroids: torch.Tensor, *, block_n: int,
+                                     tps: int):
+    """Plain PyTorch twin of K10a: K3's twin on each problem, stacked, so
+    row b is bitwise the single twin on problem b. Returns (labels (B, n),
+    min_d2 (B, n), partials (B, T), gaps (B, T), super_sums (B, S, k, d),
+    super_counts (B, S, k))."""
+    outs = [lloyd_assign_tiled_torch(p, nr, c, block_n=block_n, tps=tps)
+            for p, nr, c in zip(points, norms, centroids)]
+    return tuple(torch.stack(o) for o in zip(*outs))
 
 
 def lloyd_assign_gated_torch(points, norms, centroids, delta, thresh, absorb,
@@ -177,6 +196,68 @@ def lloyd_assign_tiled(points: torch.Tensor, norms: torch.Tensor,
         raise KernelFailureError(f"lloyd_assign_tiled launch failed: "
                                  f"cudaError {err}")
     ops.LAUNCHES["lloyd_assign_tiled"] += 1
+    return labels, md, partials, gaps, ssums, scounts
+
+
+def lloyd_assign_tiled_batched(points: torch.Tensor, norms: torch.Tensor,
+                               centroids: torch.Tensor, *, block_n: int,
+                               tps: int):
+    """One tiled assignment round of B independent problems: points
+    (B, n, d), norms (B, n), centroids (B, k, d). Returns (labels (B, n),
+    min_d2 (B, n), partials (B, T), gaps (B, T), super_sums (B, S, k, d),
+    super_counts (B, S, k)). On the card this launches K10a (its two kernels
+    count as one launch) for every problem at once; CPU tensors take the
+    plain twin."""
+    if points.dim() != 3 or centroids.dim() != 3:
+        raise ValueError("points and centroids must be 3-D (B, rows, d)")
+    bsz = points.shape[0]
+    if centroids.shape[0] != bsz or norms.shape[:1] != (bsz,) or bsz < 1:
+        raise ValueError(f"problem counts differ: points "
+                         f"{tuple(points.shape)}, centroids "
+                         f"{tuple(centroids.shape)}, norms "
+                         f"{tuple(norms.shape)}")
+    _check(points[0], norms[0], centroids[0], block_n, tps)
+    devs = {t.device for t in (points, norms, centroids)}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {devs}")
+    if points.device.type == "cpu":
+        return lloyd_assign_tiled_batched_torch(points, norms, centroids,
+                                                block_n=block_n, tps=tps)
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    ops.check_card_tensors(points=points, norms=norms, centroids=centroids)
+    _, n, d = points.shape
+    k = centroids.shape[1]
+    cols = ops.assign_cols(d, k, block_n)
+    if cols < 1:
+        raise ValueError(f"({k}, {d}) centroids with block_n={block_n} do "
+                         f"not fit in {ops.SMEM_LIMIT} bytes of shared memory")
+    n_tiles = -(-n // block_n)
+    n_super = -(-n_tiles // tps)
+    if bsz * n_tiles >= 2 ** 31:
+        raise ValueError(f"{bsz} problems of {n_tiles} tiles exceed the "
+                         "grid's 2^31 - 1 blocks")
+    fn = _build.function("lloyd_assign", "lloyd_assign_tiled_batched_launch",
+                         _BATCHED_ARGTYPES)
+    dev = points.device
+    labels = torch.empty((bsz, n), dtype=torch.int32, device=dev)
+    md = torch.empty((bsz, n), dtype=torch.float32, device=dev)
+    partials = torch.empty((bsz, n_tiles), dtype=torch.float32, device=dev)
+    gaps = torch.empty((bsz, n_tiles), dtype=torch.float32, device=dev)
+    tile_acc = torch.empty((bsz, n_tiles, k, d + 1), dtype=torch.float32,
+                           device=dev)
+    ssums = torch.empty((bsz, n_super, k, d), dtype=torch.float32, device=dev)
+    scounts = torch.empty((bsz, n_super, k), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
+                 labels.data_ptr(), md.data_ptr(), partials.data_ptr(),
+                 gaps.data_ptr(), tile_acc.data_ptr(), ssums.data_ptr(),
+                 scounts.data_ptr(), bsz, n, d, k, block_n, tps, cols, stream)
+    if err != 0:
+        raise KernelFailureError(f"lloyd_assign_tiled_batched launch failed: "
+                                 f"cudaError {err}")
+    ops.LAUNCHES["lloyd_assign_tiled_batched"] += 1
     return labels, md, partials, gaps, ssums, scounts
 
 

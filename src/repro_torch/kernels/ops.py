@@ -10,7 +10,9 @@ centroid block, the (k,) centroid norms, two reduction buffers, one
 (k, cols) cluster-sum accumulator per warp with cols >= 1, and the tile's
 labels; the gated assignment kernel K6 stages the (k,) centroid movement on
 top). The height is budgeted for K6, the larger of the two, so gated and
-ungated runs share one tile geometry. The budget is Hopper's 227 KB per
+ungated runs share one tile geometry. The batched kernels (K7, K10a) run
+one such block per problem and tile, with the same staging, so a batched
+problem is tiled as the single one. The budget is Hopper's 227 KB per
 block; TPU VMEM budgets do not apply.
 
 Launch counters. Each wrapper adds one to its kernel's counter where it
@@ -33,7 +35,9 @@ LAUNCHES: dict[str, int] = {"seed_prologue": 0,
                             "distance_min_update_gated": 0,
                             "lloyd_assign_gated": 0,
                             "row_min_d2": 0,
-                            "tile_cap": 0}
+                            "tile_cap": 0,
+                            "distance_min_update_batched": 0,
+                            "lloyd_assign_tiled_batched": 0}
 
 
 def reset_launches() -> None:

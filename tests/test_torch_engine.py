@@ -27,7 +27,7 @@ from test_torch_jaxref import (EPS32, ROOT, assert_labels_match,
                                ref)  # noqa: F401  (ref is a fixture)
 from repro_torch import convert
 from repro_torch.configs import FULL, SMOKE
-from repro_torch.core import ClusterEngine, FusedBackend, make_backend
+from repro_torch.core import ClusterEngine, Draws, FusedBackend, make_backend
 from repro_torch.core import bounds, engine, sampling
 from repro_torch.core.kmeanspp import kmeanspp
 from repro_torch.core.lloyd import kmeans, lloyd
@@ -612,6 +612,26 @@ def test_unported_options_raise():
         eng.seed(pts, 3, sampler="gumbel")
     with pytest.raises(ValueError):
         make_backend("pallas")
+    # batched problems: bounds=True (the default) and rejection seeding
+    # raise instead of running ungated or elsewhere
+    many = np.stack([pts, pts])
+    for call in (lambda: eng.seed_batched(many, 3),
+                 lambda: eng.fit_batched(many, many[:, :3]),
+                 lambda: eng.kmeans_batched(many, 3)):
+        with pytest.raises(NotImplementedError, match="bounds=True"):
+            call()
+    off = ClusterEngine(device="cpu", bounds=False)
+    for call in (lambda: off.seed_batched(many, 3, sampler="rejection"),
+                 lambda: off.kmeans_batched(many, 3, sampler="rejection")):
+        with pytest.raises(NotImplementedError, match="rejection"):
+            call()
+    with pytest.raises(NotImplementedError):
+        engine.seed_points(Draws.sample_batched(2, 100, 3), torch.from_numpy(
+            many), 3, make_backend("fused"), bound_gate=True)
+    with pytest.raises(NotImplementedError):
+        engine.fit_points(torch.from_numpy(many),
+                          torch.from_numpy(many[:, :3]),
+                          make_backend("fused"), 5, 0.0, bound_gate=True)
 
 
 def test_port_imports_neither_jax_nor_repro():

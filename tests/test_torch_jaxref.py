@@ -19,7 +19,10 @@ schedule as the plain numbers the port's ``Draws`` takes: the first index,
 one uniform per round, and one fallback index per round (the ``_guarded``
 draw for degenerate weights); ``rejection_schedule`` adds the rejection
 loop's per-attempt and exact-draw numbers. Torch cannot reproduce threefry,
-so parity tests hand the reference's draws to the port.
+so parity tests hand the reference's draws to the port. ``batch=(b, B)``
+replays problem b of ``seed_batched``, which seeds problem b from
+``jax.random.split(PRNGKey(seed), B)[b]``; ``batched_draws_for`` stacks all
+B as the port's batched ``Draws``.
 
 JAX is imported only inside these functions, so a run of the card-only
 tests (``-m cuda``) needs no JAX on the machine with the card.
@@ -71,15 +74,27 @@ def ref() -> SimpleNamespace:
     return load_reference()
 
 
-def key_schedule(seed: int, n: int, k: int):
+def _root_key(seed: int, batch=None):
+    """``PRNGKey(seed)``, or problem b's key of ``split(PRNGKey(seed), B)``
+    for ``batch=(b, B)``."""
+    import jax
+    key = jax.random.PRNGKey(seed)
+    if batch is not None:
+        b, n_problems = batch
+        key = jax.random.split(key, n_problems)[b]
+    return key
+
+
+def key_schedule(seed: int, n: int, k: int, batch=None):
     """(first, u (k-1,) f32, fallback (k-1,) i64) as the reference's seeding
-    loop draws them from ``jax.random.PRNGKey(seed)``: ``split`` then
-    ``randint`` for the first seed; per round ``split``, a ``uniform`` from
-    the round key, and ``randint(fold_in(round key, 0x0DD))`` for the
+    loop draws them from ``jax.random.PRNGKey(seed)`` (or, with
+    ``batch=(b, B)``, from problem b's key of ``seed_batched``): ``split``
+    then ``randint`` for the first seed; per round ``split``, a ``uniform``
+    from the round key, and ``randint(fold_in(round key, 0x0DD))`` for the
     degenerate-weight fallback."""
     import jax
     import jax.numpy as jnp
-    key, k0 = jax.random.split(jax.random.PRNGKey(seed))
+    key, k0 = jax.random.split(_root_key(seed, batch))
     first = int(jax.random.randint(k0, (), 0, n, dtype=jnp.int32))
     us, fbs = [], []
     for _ in range(1, k):
@@ -125,10 +140,12 @@ def rejection_schedule(seed: int, n: int, k: int, max_attempts: int):
             np.asarray(eu, np.float32), np.asarray(eg, np.int64))
 
 
-def draws_for(seed: int, n: int, k: int, max_attempts: int = 0) -> Draws:
+def draws_for(seed: int, n: int, k: int, max_attempts: int = 0,
+              batch=None) -> Draws:
     """The reference's key schedule as the port's ``Draws``; with
-    ``max_attempts`` > 0 also the rejection loop's."""
-    first, u, fb = key_schedule(seed, n, k)
+    ``max_attempts`` > 0 also the rejection loop's; with ``batch=(b, B)``
+    problem b's of ``seed_batched`` (cdf and tiled only)."""
+    first, u, fb = key_schedule(seed, n, k, batch)
     rej = {}
     if max_attempts > 0:
         rej = dict(zip(("propose_u", "accept_u", "exact_u",
@@ -137,6 +154,15 @@ def draws_for(seed: int, n: int, k: int, max_attempts: int = 0) -> Draws:
                            rejection_schedule(seed, n, k, max_attempts))))
     return Draws(torch.tensor([first]), torch.from_numpy(u),
                  torch.from_numpy(fb), **rej)
+
+
+def batched_draws_for(seed: int, n_problems: int, n: int, k: int) -> Draws:
+    """``seed_batched(PRNGKey(seed), ...)``'s draws for all problems, as
+    the port's batched ``Draws`` (leading axis B)."""
+    runs = [draws_for(seed, n, k, batch=(b, n_problems))
+            for b in range(n_problems)]
+    return Draws(*(torch.stack(ts) for ts in zip(
+        *((r.first, r.u, r.fallback) for r in runs))))
 
 
 def ref_geometry(ref, n: int, d: int, k: int, backend: str = "pallas"):

@@ -438,10 +438,18 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
         torch.zeros(4, 3, 2), torch.zeros(4, 3), t, block_n=128, tps=1)
     kd.row_min_d2(x, torch.tensor(7), x[:8].contiguous(), 3)
     kd.tile_cap(centers, radii, x[:8].contiguous(), torch.tensor(3))
+    xb = torch.stack([x, x.flip(0)])
+    nb = bounds.point_norms(xb)
+    kd.distance_min_update_batched(xb, nb, xb[:, :1].contiguous(),
+                                   torch.full((2, 500), torch.inf),
+                                   block_n=128)
+    la.lloyd_assign_tiled_batched(xb, nb, xb[:, :3].contiguous(),
+                                  block_n=128, tps=1)
     assert set(ops.LAUNCHES) == {
         "seed_prologue", "distance_min_update", "lloyd_assign_tiled",
         "distance_min_update_gated", "lloyd_assign_gated", "row_min_d2",
-        "tile_cap"}
+        "tile_cap", "distance_min_update_batched",
+        "lloyd_assign_tiled_batched"}
     assert not any(ops.LAUNCHES.values())
 
 
@@ -464,6 +472,7 @@ def test_wrappers_reject_bad_shapes(bad):
 @pytest.mark.parametrize("n,d,k,block_n,cols", [
     (4_000_000, 2, 50, 4096, 3),      # the paper's FULL configuration
     (100_003, 128, 64, 4096, 88),     # wide: two passes over the columns
+    (16_384, 16, 256, 4096, 17),      # kvquant-gemma2-2b: K3's and K10a's
     (3000, 8, 5, 2048, 9),            # clamped to the largest 2^j <= n
     (50, 2, 4, 128, 3),               # floored at 128 rows
     (10_000, 512, 128, 128, 0),       # nothing fits: the wrapper raises
