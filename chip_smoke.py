@@ -70,11 +70,29 @@ Phases, each of which exits non-zero on failure:
    fit's from the same seeds. Printed: seeding ms, Lloyd ms per iteration,
    kmeans_batched s and ms per problem beside a loop of single seed + fit
    over 16 problems.
-6. With ``--profile`` only: trace one seeding run per sampler (rejection
+6. Gated batched problems (``bounds=True``, the default) at
+   ``kvquant-gemma2-2b``: the batched K1 (prologue), K8 (gated batched
+   seeding round; m = 1 and 8, each problem's gate, every tile, and a
+   mixed mask with tiles off and one problem off) and K10b (gated batched
+   assignment round, from a carried state whose lower bounds make the
+   prune fire; every tile, a mixed mask with supers off, the movement
+   gate's) against their plain twins, two launches bitwise, skipped tiles
+   keeping their carries, rows 0, 1 and B−1 bitwise K1/K5/K6 on that
+   problem's slice; then ``ClusterEngine(device="cuda").kmeans_batched``
+   for sampler cdf and tiled, on the sweep and on 16 problems of 4 blobs
+   with rows sorted by blob (the tile gate skips), counted (the batched K1
+   twice, one prologue per phase; K8 k times; K10b once per iteration of
+   the slowest problem; nothing else), bitwise the ``bounds=False`` run
+   (seeds, centroids, assignment, inertia, n_iters) and a second run, rows
+   0, 1 and B−1 bitwise the single gated ``seed`` then ``fit`` with their
+   skip and prune counters. Printed: the counters' totals, gated and
+   ungated seconds.
+7. With ``--profile`` only: trace one seeding run per sampler (rejection
    hier and flat included) and one Lloyd fit at the paper's shape,
    ungated and gated (shuffled and sorted), and the batched seeding (cdf,
-   tiled) and fit at the codebook sweep's, with torch.profiler, and print
-   the device time by kernel and the device's idle share.
+   tiled) and fit at the codebook sweep's, ungated and gated, with
+   torch.profiler, and print the device time by kernel and the device's
+   idle share.
 
 The last three lines of stdout are the card's name and power limit, the
 kernels' JSON record, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -1033,6 +1051,396 @@ def batched_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws, pts,
     return cases, runs
 
 
+def k1b_case(torch, kd, bounds, ops, pts):
+    """The batched K1 at the seeding tiles of the batched shape: two
+    launches bitwise, norms bitwise ``bounds.point_norms``, the tile balls
+    against the plain twin, rows 0, 1 and B−1 bitwise K1 on their problem;
+    times and bound."""
+    bsz, n, d = pts.shape
+    bn = ops.choose_block_n(n, d, 1)
+    out1 = kd.seed_prologue_batched(pts, bn)
+    out2 = kd.seed_prologue_batched(pts, bn)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out1, out2)),
+          "batched K1: two launches differ")
+    check(torch.equal(out1[0], bounds.point_norms(pts)),
+          "batched K1: norms are not bitwise bounds.point_norms")
+    ref = kd.seed_prologue_torch(pts, bn)
+    tol = 1e-5 * float(pts.abs().max())
+    err = max(float((a - b).abs().max()) for a, b in zip(out1[1:], ref[1:]))
+    check(err <= tol, f"batched K1: centers/radii/center_d err {err} > {tol}")
+    for b in (0, 1, bsz - 1):
+        single = kd.seed_prologue(pts[b], bn)
+        check(all(torch.equal(u[b], v) for u, v in zip(out1, single)),
+              f"batched K1: problem {b} is not bitwise K1 on its slice")
+    ms = gpu_ms(torch, lambda: kd.seed_prologue_batched(pts, bn), reps=5)
+    plain = gpu_ms(torch, lambda: kd.seed_prologue_torch(pts, bn), reps=3,
+                   warmup=1)
+    t = -(-n // bn)
+    bms, by = bound_ms(4 * bsz * (n * d + 2 * n + t * (d + 1)),
+                       bsz * (n * (3 * d + 1) + t * d))
+    return dict(batch=bsz, n=n, d=d, block_n=bn, max_abs_err=err, tol=tol,
+                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+
+
+def k8_case(torch, kd, bounds, ops, pts, cache, md_in, cents, mask):
+    """K8 on one carried state of every problem: ``mask`` is 'gate' (each
+    problem's seeding gate), 'all' or 'mixed' (the gate with tile
+    b % n_tiles of problem b forced off, and nothing active in problem 1).
+    Two launches bitwise; against the plain twin; skipped tiles keep their
+    carries; rows 0, 1 and B−1 bitwise K5 on their problem; all active,
+    bitwise K7. Times and bound (from the active tiles' bytes)."""
+    bsz, n, d = pts.shape
+    m = cents.shape[1]
+    bn = ops.choose_block_n(n, d, 1)
+    dev = pts.device
+    parts = kd.distance_min_update_batched(pts, cache.norms,
+                                           cents[:, :1].contiguous(), md_in,
+                                           block_n=bn)[1]
+    tmax = bounds.tile_reduce_max(md_in, bn)
+    act, dc, margin = bounds.seed_gate(cents, cache, tmax)
+    t = act.shape[-1]
+    if mask == "all":
+        act = torch.ones_like(act)
+    elif mask == "mixed":
+        act = act.clone()
+        ar = torch.arange(bsz, device=dev)
+        act[ar, ar % t] = False
+        act[1] = False
+    args = (pts, cache.norms, cents, md_in, cache.center_d, dc, margin,
+            parts, tmax, act)
+    out1 = kd.distance_min_update_gated_batched(*args, block_n=bn)
+    out2 = kd.distance_min_update_gated_batched(*args, block_n=bn)
+    torch.cuda.synchronize()
+    what = f"K8 m={m} mask={mask}"
+    check(all(torch.equal(a, b) for a, b in zip(out1, out2)),
+          f"{what}: two launches differ")
+    ref = kd.distance_min_update_gated_batched_torch(*args, block_n=bn)
+    tol = d2_tol(torch, cache.norms, cents.reshape(-1, d))
+    err = float((out1[0] - ref[0]).abs().max())
+    check(err <= tol, f"{what}: min_d2 err {err} > {tol}")
+    check(bool(((out1[1] - ref[1]).abs()
+                <= partial_tol(tol, bn, ref[1])).all()),
+          f"{what}: partials outside tolerance")
+    check(float((out1[2] - ref[2]).abs().max()) <= tol,
+          f"{what}: tile maxima outside tolerance")
+    check(torch.equal(out1[3], ref[3]), f"{what}: pruned counts differ")
+    skip = ~act
+    rows = bounds.expand_mask(skip, bn, n)
+    check(torch.equal(out1[0][rows], md_in[rows])
+          and torch.equal(out1[1][skip], parts[skip])
+          and torch.equal(out1[2][skip], tmax[skip])
+          and not bool(out1[3][skip].any()),
+          f"{what}: a skipped tile's outputs moved")
+    for b in (0, 1, bsz - 1):
+        single = kd.distance_min_update_gated(*(a[b] for a in args),
+                                              block_n=bn)
+        check(all(torch.equal(u[b], v) for u, v in zip(out1, single)),
+              f"{what}: problem {b} is not bitwise K5 on its slice")
+    if mask == "all":
+        k7 = kd.distance_min_update_batched(pts, cache.norms, cents, md_in,
+                                            block_n=bn)
+        check(torch.equal(out1[0], k7[0]) and torch.equal(out1[1], k7[1]),
+              f"{what}: all-active K8 is not bitwise K7")
+    ms = gpu_ms(torch, lambda: kd.distance_min_update_gated_batched(
+        *args, block_n=bn), reps=5)
+    plain = gpu_ms(torch, lambda: kd.distance_min_update_gated_batched_torch(
+        *args, block_n=bn), reps=3, warmup=1)
+    rows_act = int(bounds.expand_mask(act, bn, n).sum())
+    n_pruned = int(out1[3].sum())
+    fresh = rows_act - n_pruned
+    # an active row reads md and center_d and writes md; a fresh row also
+    # reads x and its norm; each tile's gate scalars, carries and outputs
+    bms, by = bound_ms(4 * (3 * rows_act + fresh * (d + 1) + bsz * m * d
+                            + 7 * bsz * t),
+                       fresh * m * (2 * d + 3) + rows_act * 6)
+    return dict(batch=bsz, n=n, d=d, m=m, mask=mask, block_n=bn,
+                active_tiles=int(act.sum()), tiles=bsz * t, pruned=n_pruned,
+                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
+                bound_ms=bms, bound_by=by)
+
+
+def k10b_case(torch, la, kd, bounds, ops, pts, cache, k, gen):
+    """K10b from a carried state of every problem: one all-active launch
+    with no carried bound (held bitwise to K10a) gives the state; two
+    centroids of each problem then move a little, so the rows of unmoved
+    clusters prune. Masks: every tile, mixed (problem 0 every other super,
+    problem 1 none, the others all but super b % n_super), and the movement
+    gate's. Two launches bitwise; against the plain twin; skipped tiles and
+    supers keep their carries; rows 0, 1 and B−1 bitwise K6."""
+    bsz, n, d = pts.shape
+    bn = ops.choose_block_n(n, d, k)
+    t = -(-n // bn)
+    tps = bounds.tiles_per_super(t)
+    s = -(-t // tps)
+    dev = pts.device
+    idx = torch.randint(n, (bsz, k, 1), generator=gen, device=dev)
+    c0 = (torch.take_along_dim(pts, idx, dim=1) + 0.01).contiguous()
+    all_on = torch.ones((bsz, t), dtype=torch.bool, device=dev)
+    zt = torch.zeros((bsz, t), device=dev)
+    first = la.lloyd_assign_gated_batched(
+        pts, cache.norms, c0, torch.zeros((bsz, k), device=dev), zt, zt,
+        torch.zeros((bsz, n), dtype=torch.int32, device=dev),
+        torch.zeros((bsz, n), device=dev),
+        torch.full((bsz, n), -torch.inf, device=dev), zt, zt,
+        torch.zeros((bsz, s, k, d), device=dev),
+        torch.zeros((bsz, s, k), device=dev), all_on, block_n=bn, tps=tps)
+    k10a = la.lloyd_assign_tiled_batched(pts, cache.norms, c0, block_n=bn,
+                                         tps=tps)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(
+        (first[0], first[1], first[3], first[4], first[5], first[6]), k10a))
+        and not bool(first[7].any()),
+        f"K10b k={k}: all-active K10b without a bound is not bitwise K10a")
+    del k10a
+    c1 = c0.clone()
+    c1[:, [0, k - 1]] += 0.002
+    st = bounds.BoundState(first[3], tile_gap=first[4], tile_sums=first[5],
+                           tile_counts=first[6], assignment=first[0],
+                           min_d2=first[1], point_lb=first[2], lb_debt=zt)
+    del first
+    delta = bounds.centroid_movement(c1, c0)
+    thresh, absorb = bounds.assign_point_scalars(delta, c1, st, cache)
+    sup = torch.ones((bsz, s), dtype=torch.bool, device=dev)
+    ar = torch.arange(bsz, device=dev)
+    sup[ar, ar % s] = False
+    sup[0] = torch.arange(s, device=dev) % 2 == 0
+    sup[1] = False
+    mixed = bounds.expand_mask(sup, tps, t)
+    masks = {"all": all_on, "mixed": mixed,
+             "gate": bounds.expand_active_supers(bounds.assign_active_tiles(
+                 delta, c1, st, cache, tps=tps), tps)}
+    tol = d2_tol(torch, cache.norms, c1.reshape(-1, d))
+    res = []
+    for name, act in masks.items():
+        what = f"K10b k={k} mask={name}"
+        args = (pts, cache.norms, c1, delta, thresh, absorb, st.assignment,
+                st.min_d2, st.point_lb, st.partials, st.tile_gap,
+                st.tile_sums, st.tile_counts, act)
+        out1 = la.lloyd_assign_gated_batched(*args, block_n=bn, tps=tps)
+        out2 = la.lloyd_assign_gated_batched(*args, block_n=bn, tps=tps)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(out1, out2)),
+              f"{what}: two launches differ")
+        del out2
+        ref = la.lloyd_assign_gated_batched_torch(*args, block_n=bn, tps=tps)
+        act_pt = bounds.expand_mask(act, bn, n)
+        prune = bounds.assign_point_prune(
+            st.assignment, st.min_d2, st.point_lb, delta,
+            bounds.expand_mask(thresh, bn, n), act_pt)
+        check(torch.equal(out1[7], ref[7]), f"{what}: pruned counts differ")
+        check(int(out1[7].sum()) > 0, f"{what}: the prune never fired")
+        check(all(torch.equal(o[prune], r[prune])
+                  for o, r in zip(out1[:3], ref[:3])),
+              f"{what}: pruned rows' label, D² or lb differ")
+        bad = n_diff = 0
+        for b in range(bsz):
+            diff = out1[0][b] != ref[0][b]
+            if bool(diff.any()):
+                d2 = kd.tile_d2(pts[b], c1[b], cache.norms[b])
+                gap = (d2.gather(1, out1[0][b].long()[:, None])
+                       - d2.gather(1, ref[0][b].long()[:, None])).abs()[:, 0]
+                bad += int((diff & (gap > tol)).sum())
+                n_diff += int(diff.sum())
+        check(bad == 0, f"{what}: {bad} labels differ beyond near-ties")
+        err = float((out1[1] - ref[1]).abs().max())
+        check(err <= tol, f"{what}: min_d2 err {err} > {tol}")
+        sup_act = bounds.super_any(act, tps)
+        s_of = (torch.arange(bsz, device=dev)[:, None] * s
+                + torch.arange(n, device=dev)[None, :] // (bn * tps))
+        check(super_sums_ok(torch, pts.reshape(-1, d), out1[0].reshape(-1),
+                            out1[5].reshape(-1, k, d),
+                            out1[6].reshape(-1, k), bn * tps,
+                            sup_act.reshape(-1), s_of=s_of.reshape(-1)),
+              f"{what}: super sums or counts outside tolerance")
+        skip = ~act
+        rows = bounds.expand_mask(skip, bn, n)
+        sup_skip = ~sup_act
+        kept = all(torch.equal(o[sel], c[sel]) for o, c, sel in (
+            (out1[0], st.assignment, rows), (out1[1], st.min_d2, rows),
+            (out1[2], st.point_lb, rows), (out1[3], st.partials, skip),
+            (out1[4], st.tile_gap, skip), (out1[5], st.tile_sums, sup_skip),
+            (out1[6], st.tile_counts, sup_skip)))
+        check(kept and not bool(out1[7][skip].any()),
+              f"{what}: a skipped tile's or super's outputs moved")
+        for b in (0, 1, bsz - 1):
+            single = la.lloyd_assign_gated(*(a[b] for a in args), block_n=bn,
+                                           tps=tps)
+            check(all(torch.equal(u[b], v) for u, v in zip(out1, single)),
+                  f"{what}: problem {b} is not bitwise K6 on its slice")
+        del ref
+        ms = gpu_ms(torch, lambda: la.lloyd_assign_gated_batched(
+            *args, block_n=bn, tps=tps), reps=5)
+        plain = gpu_ms(torch, lambda: la.lloyd_assign_gated_batched_torch(
+            *args, block_n=bn, tps=tps), reps=3, warmup=1) \
+            if name == "gate" else None
+        rows_act = int(act_pt.sum())
+        n_pruned = int(out1[7].sum())
+        fresh = rows_act - n_pruned
+        s_act = int(sup_act.sum())
+        bms, by = bound_ms(4 * (rows_act * (d + 6) + fresh
+                                + bsz * k * (d + 1) + 6 * bsz * t
+                                + s_act * k * (d + 1)),
+                           fresh * k * (2 * d + 3) + rows_act * (d + 4))
+        res.append(dict(batch=bsz, n=n, d=d, k=k, mask=name, block_n=bn,
+                        tps=tps, active_tiles=int(act.sum()), tiles=bsz * t,
+                        pruned=n_pruned, label_diffs=n_diff,
+                        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
+                        bound_ms=bms, bound_by=by))
+        del out1
+    return res
+
+
+def counted(torch, ops, fn):
+    """``fn()`` with the launch counters zeroed just before and read just
+    after: (result, host seconds, launches)."""
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, dict(ops.LAUNCHES)
+
+
+def gated_batched_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws,
+                        layouts, cfg, dev, launches, gen):
+    """Phase 6: the batched K1, K8 and K10b at ``cfg`` against their plain
+    twins, then the gated ``kmeans_batched`` (bounds on, the default) for
+    both samplers on every ``(name, points)`` of ``layouts``, counted (the
+    batched K1 once per phase, K8 once per round, K10b once per iteration of
+    the slowest problem, nothing else), bitwise the ``bounds=False`` run
+    and a second run, rows 0, 1 and B−1 bitwise the single gated ``seed``
+    then ``fit`` with their counters; times beside the ungated run."""
+    pts = layouts[0][1]
+    bsz, n, d = pts.shape
+    k = cfg.k
+    cases = {"K1b": [k1b_case(torch, kd, bounds, ops, pts)]}
+    cache = bounds.RoundCache(*kd.seed_prologue_batched(
+        pts, ops.choose_block_n(n, d, 1)))
+    rows = torch.randint(n, (bsz, 10, 1), generator=gen, device=dev)
+    picks = torch.take_along_dim(pts, rows, dim=1)
+    md_in = kd.distance_min_update_batched(
+        pts, cache.norms, picks[:, 8:].contiguous(),
+        torch.full((bsz, n), torch.inf, device=dev),
+        block_n=ops.choose_block_n(n, d, 1))[0]
+    cases["K8"] = [k8_case(torch, kd, bounds, ops, pts, cache, md_in,
+                           picks[:, :m].contiguous(), mask)
+                   for m in (1, 8) for mask in ("gate", "all", "mixed")]
+    del cache, md_in, picks
+    cache = bounds.RoundCache(*kd.seed_prologue_batched(
+        pts, ops.choose_block_n(n, d, k)))
+    cases["K10b"] = k10b_case(torch, la, kd, bounds, ops, pts, cache, k, gen)
+    del cache
+    torch.cuda.empty_cache()
+    for name, cs in cases.items():
+        for c in cs:
+            print(f"{name} B={c['batch']} n={c['n']} d={c['d']}"
+                  + (f" m={c['m']}" if "m" in c else "")
+                  + (f" k={c['k']} tps={c['tps']}" if "k" in c else "")
+                  + (f" mask={c['mask']}: {c['active_tiles']}/{c['tiles']} "
+                     f"tiles active, {c['pruned']} rows pruned"
+                     if "mask" in c else "")
+                  + f": err {c['max_abs_err']:.3g} (tol {c['tol']:.3g}), "
+                  "rows 0, 1, B-1 bitwise the single kernel; "
+                  f"{c['ms']:.4f} ms, plain "
+                  + (f"{c['plain_ms']:.4f} ms" if c["plain_ms"] is not None
+                     else "not timed")
+                  + f", bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+    eng = ClusterEngine(device="cuda")
+    ungated = ClusterEngine(device="cuda", bounds=False)
+    runs = []
+    for layout, pts in layouts:
+        bsz = pts.shape[0]
+        for sampler in ("cdf", "tiled"):
+            what = f"gated kmeans_batched[{sampler}, {layout}]"
+            draws = Draws.sample_batched(
+                bsz, n, k, generator=torch.Generator().manual_seed(0),
+                device=dev)
+            kw = dict(draws=draws, sampler=sampler, max_iters=cfg.max_iters)
+            res, total_s, got = counted(
+                torch, ops, lambda: eng.kmeans_batched(pts, k, **kw))
+            for name in launches:
+                launches[name] += got[name]
+            iters = int(res.n_iters.max())
+            want = {name: 0 for name in got}
+            want.update(seed_prologue_batched=2,
+                        distance_min_update_gated_batched=k,
+                        lloyd_assign_gated_batched=iters)
+            check(got == want, f"{what}: launches {got}, want {want}")
+            check(tuple(res.centroids.shape) == (bsz, k, d)
+                  and tuple(res.assignment.shape) == (bsz, n)
+                  and tuple(res.skipped.shape) == (bsz, cfg.max_iters)
+                  and bool(torch.isfinite(res.centroids).all())
+                  and bool(torch.isfinite(res.inertia).all())
+                  and int(res.assignment.min()) >= 0
+                  and int(res.assignment.max()) < k
+                  and int(res.n_iters.min()) >= 1 and iters <= cfg.max_iters,
+                  f"{what}: output malformed")
+            off, off_s, _ = counted(
+                torch, ops, lambda: ungated.kmeans_batched(pts, k, **kw))
+            check(same_fit(torch, res, off),
+                  f"{what}: not bitwise the bounds=False kmeans_batched")
+            again = eng.kmeans_batched(pts, k, **kw)
+            check(same_fit(torch, again, res)
+                  and torch.equal(again.skipped, res.skipped)
+                  and torch.equal(again.pruned, res.pruned),
+                  f"{what}: two runs differ")
+            seeds, seed_s, _ = counted(torch, ops, lambda: eng.seed_batched(
+                pts, k, draws=draws, sampler=sampler))
+            fit, fit_s, _ = counted(torch, ops, lambda: eng.fit_batched(
+                pts, seeds.centroids, max_iters=cfg.max_iters))
+            check(same_fit(torch, fit, res)
+                  and torch.equal(fit.skipped, res.skipped),
+                  f"{what}: not seed_batched then fit_batched")
+            oseeds, oseed_s, _ = counted(
+                torch, ops, lambda: ungated.seed_batched(
+                    pts, k, draws=draws, sampler=sampler))
+            check(same_seeds(torch, seeds, oseeds),
+                  f"{what}: seeds not bitwise the bounds=False seeds")
+            for b in (0, 1, bsz - 1):
+                one = eng.seed(pts[b], k, draws=draws[b], sampler=sampler)
+                check(same_seeds(torch, one, row(seeds, b))
+                      and torch.equal(one.skipped, seeds.skipped[b])
+                      and torch.equal(one.pruned, seeds.pruned[b]),
+                      f"{what}: problem {b}'s seeds or seeding counters are "
+                      "not the single gated seeding's")
+                single = eng.fit(pts[b], one.centroids,
+                                 max_iters=cfg.max_iters)
+                check(same_fit(torch, single, row(res, b))
+                      and torch.equal(single.skipped, res.skipped[b])
+                      and torch.equal(single.pruned, res.pruned[b]),
+                      f"{what}: problem {b} is not the single gated seed + "
+                      "fit, counters included")
+            run = dict(layout=layout, sampler=sampler, batch=bsz,
+                       kmeans_batched_s=total_s,
+                       ungated_kmeans_batched_s=off_s,
+                       seed_ms=seed_s * 1e3, ungated_seed_ms=oseed_s * 1e3,
+                       lloyd_ms_per_iter=fit_s * 1e3 / iters,
+                       n_iters_max=iters, n_iters_min=int(res.n_iters.min()),
+                       seed_skipped=int(seeds.skipped.sum()),
+                       seed_pruned=int(seeds.pruned.sum()),
+                       fit_skipped=int(res.skipped.sum()),
+                       fit_pruned=int(res.pruned.sum()),
+                       ms_per_problem=total_s * 1e3 / bsz, launches=got,
+                       bitwise_ungated=True, repeat_bitwise=True,
+                       rows_bitwise_single=True)
+            if layout == "sorted":
+                check(run["seed_skipped"] > 0,
+                      f"{what}: the tile gate skipped nothing on sorted rows")
+            runs.append(run)
+            print(f"{what} at {cfg.name} (B={bsz}, n={n}, d={d}, k={k}): "
+                  f"{total_s:.3f} s gated, {off_s:.3f} s ungated end to end "
+                  f"(bitwise equal); seeding {run['seed_ms']:.1f} ms gated / "
+                  f"{run['ungated_seed_ms']:.1f} ms ungated, Lloyd "
+                  f"{run['lloyd_ms_per_iter']:.2f} ms/iter ({iters} "
+                  f"iterations, min {run['n_iters_min']}); seeding skipped "
+                  f"{run['seed_skipped']} tiles, pruned {run['seed_pruned']} "
+                  f"rows; Lloyd skipped {run['fit_skipped']} tiles, pruned "
+                  f"{run['fit_pruned']} rows; launches "
+                  f"{ {n_: c for n_, c in got.items() if c} }")
+    return cases, runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement here")
@@ -1311,6 +1719,19 @@ def main() -> int:
                                  Draws, kvq_pts, KVQ, dev, launches, gen)
     cases.update(bcases)
     report["batched"] = brun
+
+    # 6. gated batched problems (bounds on, the default): the same sweep,
+    #    and 16 problems of 4 blobs each with rows sorted by blob, so each
+    #    tile holds one blob and the tile gate skips
+    kvq_sorted = blobs_batched(16, KVQ.n_points, KVQ.dim, 4, sort=True,
+                               generator=torch.Generator(device=dev)
+                               .manual_seed(1))
+    gcases, grun = gated_batched_phase(
+        torch, ops, kd, la, bounds, ClusterEngine, Draws,
+        (("shuffled", kvq_pts), ("sorted", kvq_sorted)), KVQ, dev, launches,
+        gen)
+    cases.update(gcases)
+    report["gated_batched"] = grun
     report["launches"] = launches
 
     if args.profile:
@@ -1325,6 +1746,13 @@ def main() -> int:
                 generator=torch.Generator().manual_seed(0)))
             for s in ("cdf", "tiled")}
         phases["batched fit"] = (lambda: ungated.fit_batched(
+            kvq_pts, bseeds.centroids, max_iters=KVQ.max_iters))
+        for s in ("cdf", "tiled"):
+            phases[f"gated batched seed[{s}]"] = (
+                lambda s=s: eng.seed_batched(
+                    kvq_pts, KVQ.k, sampler=s,
+                    generator=torch.Generator().manual_seed(0)))
+        phases["gated batched fit"] = (lambda: eng.fit_batched(
             kvq_pts, bseeds.centroids, max_iters=KVQ.max_iters))
         for tag, e, pts in (("ungated", ungated, paper),
                             ("gated", eng, paper),
@@ -1397,6 +1825,16 @@ def main() -> int:
         entry("lloyd_assign_tiled_batched", "lloyd_assign.cu",
               "src/repro/kernels/lloyd_assign.py:530", cases["K10a"][0],
               "K10a"),
+        entry("seed_prologue_batched", "seed_prologue.cu",
+              "src/repro/kernels/kmeans_distance.py:405", cases["K1b"][0],
+              "K1b"),
+        entry("distance_min_update_gated_batched", "kmeans_distance.cu",
+              "src/repro/kernels/kmeans_distance.py:540",
+              next(c for c in cases["K8"]
+                   if c["m"] == 1 and c["mask"] == "gate"), "K8"),
+        entry("lloyd_assign_gated_batched", "lloyd_assign.cu",
+              "src/repro/kernels/lloyd_assign.py:609",
+              next(c for c in cases["K10b"] if c["mask"] == "gate"), "K10b"),
     ]}
     report.update(record)
     if args.json:

@@ -59,12 +59,23 @@ from ever skipping a tile (or point) the exact-arithmetic bound would keep.
 
 On the card the gates are O(n_tiles) tensor ops and the gated kernels read
 the active mask from device memory: nothing here syncs the host.
+
+Batched problems. Every function takes a leading problem axis on its
+arrays ((B, n), (B, n_tiles), (B, k), ...) and reduces per problem, never
+over all B: row b of a batched call is bitwise the single call on problem
+b. Sums over d therefore go through ``sampling.fixed_sum`` (one order for
+any batch shape) and dot products through an elementwise chain of fused
+multiply-adds (:func:`_dots`), never through a matmul or ``.sum``, whose
+order may change with the tensor's shape; maxima and counts are exact in
+any order.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+
+from repro_torch.core.sampling import fixed_sum
 
 # Head-room on the skip threshold. The kernels (and the bound itself)
 # evaluate D^2 in the matmul form ||x||^2 - 2x.c + ||c||^2, whose fp32
@@ -90,7 +101,8 @@ _ABS_GAP = 4e-3
 class RoundCache(NamedTuple):
     """Per-dataset state computed ONCE per seed/fit call (the prologue).
     ``centers``/``radii``/``center_d`` are the tile balls the skip bounds
-    need; they are ``None`` when bound gating is off."""
+    need; they are ``None`` when bound gating is off. Batched problems put
+    a leading (B,) axis on every field."""
 
     norms: torch.Tensor                       # (n,) fp32 ||x||²
     centers: Optional[torch.Tensor] = None    # (n_tiles, d) fp32 tile means
@@ -112,7 +124,7 @@ class BoundState(NamedTuple):
     skipped tiles carry verbatim, the per-point Hamerly lower bound on the
     second-nearest distance, and the per-tile lazy movement debt the stored
     ``point_lb`` is stale by. The ungated assignment round fills only the
-    first six."""
+    first six. Batched problems put a leading (B,) axis on every field."""
 
     partials: torch.Tensor                         # (n_tiles,) fp32
     tile_max: Optional[torch.Tensor] = None        # (n_tiles,) fp32
@@ -150,11 +162,15 @@ def prologue(points: torch.Tensor, block_n: int, *,
     bound). Padded tail rows are excluded from center/radius. The K1 kernel
     computes the same arrays in one pass; only the *norms* must agree
     bitwise — the bound geometry may differ in ulps without affecting
-    results (the bound is a sufficient condition, never a value)."""
+    results (the bound is a sufficient condition, never a value). Batched
+    points (B, n, d) are the single prologue of each problem, stacked."""
     pts = points.float()
+    if not with_bounds:
+        return RoundCache(point_norms(pts))
+    if pts.dim() == 3:
+        return RoundCache(*(torch.stack(f) for f in zip(
+            *(prologue(p, block_n) for p in pts))))
     norms = point_norms(pts)
-    if not with_bounds:   # (B, n, d) batched points take this path only
-        return RoundCache(norms)
     n, d = pts.shape
     pad = (-n) % block_n
     xp = torch.cat([pts, pts.new_zeros((pad, d))]).reshape(-1, block_n, d)
@@ -175,17 +191,19 @@ def seed_gate(c_new: torch.Tensor, cache: RoundCache,
     r_t)^2 >= tile_max_t`` against its nearest new centroid, with the
     conservative fp32 margin); ``dc`` (n_tiles,) the distance of each tile
     center to its nearest new centroid (the per-point test's input);
-    ``margin`` (n_tiles,) the ``_ABS``-scaled absolute slack."""
+    ``margin`` (n_tiles,) the ``_ABS``-scaled absolute slack. Batched:
+    c_new (B, m, d) against (B, n_tiles) balls, each problem's own."""
     c = c_new.float()
-    cn = (c * c).sum(dim=-1)
+    cn = _sq_sum(c)                                     # (..., m)
     ctr = cache.centers
-    ctr_n2 = (ctr * ctr).sum(dim=1)
-    d2 = (ctr_n2[:, None] - 2.0 * (ctr @ c.T) + cn[None, :]).clamp_min(0.0)
-    dc = d2.amin(dim=1).sqrt()                          # nearest new centroid
+    ctr_n2 = _sq_sum(ctr)                               # (..., T)
+    dots = _dots(ctr, c)                                # (..., T, m)
+    d2 = (ctr_n2[..., None] - 2.0 * dots + cn[..., None, :]).clamp_min(0.0)
+    dc = d2.amin(dim=-1).sqrt()                         # nearest new centroid
     lo = (dc - cache.radii).clamp_min(0.0)              # min dist to tile
     # magnitude of the operands feeding the kernels' matmul-form d2 for this
     # tile: every ||x|| is within ||center|| + r, every ||c|| within cmax
-    cmax = cn.max().sqrt()
+    cmax = cn.amax(dim=-1, keepdim=True).sqrt()
     margin = _ABS * (ctr_n2.sqrt() + cache.radii + cmax) ** 2
     skip = lo * lo >= tile_max * (1.0 + _REL) + margin
     return ~skip, dc, margin
@@ -210,26 +228,46 @@ def seed_envelope(min_d2: torch.Tensor) -> torch.Tensor:
     return min_d2
 
 
+def _dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b^T`` of each problem, (..., T, d) x (..., m, d) -> (..., T, m):
+    the columns folded in ascending order by fused multiply-adds
+    (``torch.addcmul``), the rounding of the reference's XLA dot, one
+    elementwise op per column, so the bits do not depend on the other
+    axes."""
+    a, b = a[..., :, None, :], b[..., None, :, :]
+    s = a[..., 0] * b[..., 0]
+    for j in range(1, a.shape[-1]):
+        s = torch.addcmul(s, a[..., j], b[..., j])
+    return s
+
+
+def _sq_sum(x: torch.Tensor) -> torch.Tensor:
+    """``sum_j x_j²`` over the last axis in the fixed order of
+    ``sampling.fixed_sum``: the bits do not depend on the other axes."""
+    return fixed_sum(x * x, -1)
+
+
 def expand_mask(active: torch.Tensor, block_n: int, n: int) -> torch.Tensor:
-    """Per-tile values -> per-point values (first n entries)."""
-    n_tiles = active.shape[0]
-    return active[:, None].expand(n_tiles, block_n).reshape(-1)[:n]
+    """Per-tile values (..., n_tiles) -> per-point values (..., n)."""
+    lead, n_tiles = active.shape[:-1], active.shape[-1]
+    return active[..., None].expand(lead + (n_tiles, block_n)).reshape(
+        lead + (-1,))[..., :n]
 
 
 def tile_reduce_max(x: torch.Tensor, block_n: int) -> torch.Tensor:
-    """Per-tile max of a non-negative (n,) array (zero-padded tail) — the
-    bound-state twin of ``sampling.tile_partials``."""
-    pad = (-x.shape[0]) % block_n
+    """Per-tile max of a non-negative (..., n) array (zero-padded tail) —
+    the bound-state twin of ``sampling.tile_partials``."""
+    lead = x.shape[:-1]
+    pad = (-x.shape[-1]) % block_n
     if pad:
-        x = torch.cat([x, x.new_zeros(pad)])
-    return x.reshape(-1, block_n).amax(dim=1)
+        x = torch.cat([x, x.new_zeros(lead + (pad,))], -1)
+    return x.reshape(lead + (-1, block_n)).amax(dim=-1)
 
 
 def centroid_movement(new_c: torch.Tensor, old_c: torch.Tensor) -> torch.Tensor:
-    """(k,) fp32 ``delta_j = ‖c_j^{t+1} − c_j^t‖``. Exactly zero iff the
-    centroid did not move (a bitwise fixed point)."""
-    diff = new_c.float() - old_c.float()
-    return (diff * diff).sum(dim=-1).sqrt()
+    """(..., k) fp32 ``delta_j = ‖c_j^{t+1} − c_j^t‖``. Exactly zero iff
+    the centroid did not move (a bitwise fixed point)."""
+    return _sq_sum(new_c.float() - old_c.float()).sqrt()
 
 
 def tiles_per_super(n_tiles: int, tps: Optional[int] = None) -> int:
@@ -251,28 +289,39 @@ def n_supers(n_tiles: int, tps: Optional[int] = None) -> int:
 
 
 def _pad_tiles(active: torch.Tensor, tps: int) -> torch.Tensor:
-    pad = (-active.shape[0]) % tps
+    lead = active.shape[:-1]
+    pad = (-active.shape[-1]) % tps
     if pad:
-        active = torch.cat([active, active.new_zeros(pad)])
-    return active.reshape(-1, tps)
+        active = torch.cat([active, active.new_zeros(lead + (pad,))], -1)
+    return active.reshape(lead + (-1, tps))
 
 
 def expand_active_supers(active: torch.Tensor, tps: int) -> torch.Tensor:
     """Expand a per-tile active mask to whole super-tiles (floored at one
-    active super). A super's sums/counts block is carried only when ALL its
-    tiles skip, so any active tile force-activates its whole super — a
-    value-noop for the individually-skippable tiles, whose points the
-    per-point gate then prunes. The floor keeps one super computed, as
+    active super per problem). A super's sums/counts block is carried only
+    when ALL its tiles skip, so any active tile force-activates its whole
+    super — a value-noop for the individually-skippable tiles, whose points
+    the per-point gate then prunes. The floor keeps one super computed, as
     :func:`n_active` counts one tile."""
-    n_tiles = active.shape[0]
-    sup = _pad_tiles(active, tps).any(dim=1)
-    sup = torch.cat([sup[:1] | ~sup.any(), sup[1:]])
-    return sup[:, None].expand(sup.shape[0], tps).reshape(-1)[:n_tiles]
+    n_tiles = active.shape[-1]
+    sup = super_any(active, tps)
+    sup = torch.cat([sup[..., :1] | ~sup.any(dim=-1, keepdim=True),
+                     sup[..., 1:]], -1)
+    return expand_mask(sup, tps, n_tiles)
+
+
+def align_supers(active: torch.Tensor, tps: int) -> torch.Tensor:
+    """A per-tile mask widened to whole super-tiles, with no floor: a mask
+    :func:`expand_active_supers` made passes unchanged, and a problem with
+    nothing active keeps nothing active (what the gated kernels' wrappers
+    apply, so a caller may switch a whole problem off)."""
+    return expand_mask(super_any(active, tps), tps, active.shape[-1])
 
 
 def super_any(active: torch.Tensor, tps: int) -> torch.Tensor:
-    """(n_super,) bool — True where ANY tile of the super-tile is active."""
-    return _pad_tiles(active, tps).any(dim=1)
+    """(..., n_super) bool — True where ANY tile of the super-tile is
+    active."""
+    return _pad_tiles(active, tps).any(dim=-1)
 
 
 def super_reduce(tile_arr: torch.Tensor, tps: int) -> torch.Tensor:
@@ -298,12 +347,12 @@ def assign_active_tiles(delta: torch.Tensor, centroids: torch.Tensor,
     what a recompute would produce. The occupancy is tracked per super-tile
     — coarser than the true per-tile occupancy, so the check can only keep a
     tile active, never skip one whose own centroid moved."""
-    n_tiles = state.partials.shape[0]
+    n_tiles = state.partials.shape[-1]
     tps = tiles_per_super(n_tiles, tps)
-    dmax = delta.max()
-    occupied = state.tile_counts > 0.0                      # (n_super, k)
-    moved_sup = (occupied & (delta[None, :] > 0.0)).any(dim=1)
-    moved = moved_sup[torch.arange(n_tiles, device=delta.device) // tps]
+    dmax = delta.amax(dim=-1, keepdim=True)
+    occupied = state.tile_counts > 0.0                  # (..., n_super, k)
+    moved_sup = (occupied & (delta[..., None, :] > 0.0)).any(dim=-1)
+    moved = expand_mask(moved_sup, tps, n_tiles)
     skip = (state.tile_gap >= dmax * (1.0 + _REL)
             + _ABS_GAP * _distance_scale(centroids, cache)) & ~moved
     return ~skip
@@ -311,12 +360,10 @@ def assign_active_tiles(delta: torch.Tensor, centroids: torch.Tensor,
 
 def _distance_scale(centroids: torch.Tensor,
                     cache: RoundCache) -> torch.Tensor:
-    """(n_tiles,) distance-unit operand magnitude of each tile's d2 math —
-    the scale both assignment-side absolute slacks multiply."""
-    c = centroids.float()
-    cmax = (c * c).sum(dim=-1).max().sqrt()
-    return (cache.centers * cache.centers).sum(dim=1).sqrt() \
-        + cache.radii + cmax
+    """(..., n_tiles) distance-unit operand magnitude of each tile's d2
+    math — the scale both assignment-side absolute slacks multiply."""
+    cmax = _sq_sum(centroids.float()).amax(dim=-1, keepdim=True).sqrt()
+    return _sq_sum(cache.centers).sqrt() + cache.radii + cmax
 
 
 def assign_point_scalars(delta: torch.Tensor, centroids: torch.Tensor,
@@ -327,7 +374,7 @@ def assign_point_scalars(delta: torch.Tensor, centroids: torch.Tensor,
     ``point_lb[i] − sqrt(min_d2[i]) >= thresh_t``) and ``absorb``
     (``lb_debt_t + delta_max``: what a computed tile subtracts from the
     stored ``point_lb`` of its pruned points, so the debt resets to zero)."""
-    dmax = delta.max()
+    dmax = delta.amax(dim=-1, keepdim=True)
     thresh = (dmax * (1.0 + _REL)
               + _ABS_GAP * _distance_scale(centroids, cache)
               + state.lb_debt)
@@ -343,7 +390,7 @@ def assign_point_prune(prev_a: torch.Tensor, prev_md: torch.Tensor,
     recomputation short-circuits to the carried values. ``thresh`` is the
     tile's scalar broadcast per point. The K6 kernel evaluates the same
     rounded operations."""
-    own_delta = delta[prev_a.long()]
+    own_delta = torch.take_along_dim(delta, prev_a.long(), dim=-1)
     ub = prev_md.sqrt()
     return valid & (own_delta == 0.0) & (prev_lb - ub >= thresh)
 
@@ -353,15 +400,17 @@ def decay_gap(gap: torch.Tensor, active: torch.Tensor,
               ) -> torch.Tensor:
     """Next iteration's carried gap: fresh for computed tiles,
     carried-minus-movement for skipped ones (a gap refreshed at iteration r
-    stays a valid lower bound after any number of consecutive skips)."""
+    stays a valid lower bound after any number of consecutive skips).
+    Batched: ``delta_max`` (B, 1), each problem's own."""
     return torch.where(active, fresh_gap, gap - delta_max)
 
 
 def n_active(active: torch.Tensor) -> torch.Tensor:
-    """() int32 count of active tiles, floored at 1: the floor the skip
-    counters follow. The reference's ``compact_ids`` floors its compacted
-    grid at one tile, so a seeding round with nothing active still
+    """() int32 count of active tiles, floored at 1 ((B,), each problem's,
+    when batched): the floor the skip counters follow. The reference's
+    ``compact_ids`` floors its compacted grid at one tile (per problem
+    under ``vmap``), so a seeding round with nothing active still
     recomputes one skippable tile (a value-noop) and counts it as computed.
     The port's gated kernels launch the full grid and read the mask itself,
     so no compacted id map is built; only its floor is kept, here."""
-    return active.sum().clamp_min(1).to(torch.int32)
+    return active.sum(dim=-1).clamp_min(1).to(torch.int32)

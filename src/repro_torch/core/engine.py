@@ -1,6 +1,6 @@
 """ClusterEngine — k-means++ seeding and Lloyd over a pluggable Backend
 (port of ``repro.core.engine``: the ungated and the bound-gated paths,
-rejection seeding, and batched problems with bounds off).
+rejection seeding, and batched problems, gated or not).
 
 A ``Backend`` provides the round primitives the algorithms are written
 against:
@@ -21,22 +21,24 @@ against:
   row_min_d2(points, idx, pending, count) / tile_cap(centers, radii,
       pending, count): the rejection sampler's D² of one drawn row, and the
       per-tile envelope caps, against the first ``count`` pending centroids.
-  seed_round_batched / assign_update_batched: the ungated rounds of B
-      independent problems at once, every tensor with a leading problem
-      axis; row b is bitwise the single round on problem b.
+  seed_round_batched / assign_update_batched: the rounds of B independent
+      problems at once, every tensor with a leading problem axis, gated
+      like the single rounds when given a carried state (each problem by
+      its own masks); row b is bitwise the single round on problem b.
 
 Gating is exact: the fp32 results are bitwise those of ``bounds=False``.
 
 ``CudaBackend`` runs them through the hand-written kernels (K1 prologue, K2
-and K5 seeding rounds, K3 and K6 assignment rounds, K7 and K10a for batched
-problems, K11 and K12 for rejection seeding); ``FusedBackend`` runs the
-kernels' plain torch twins; ``ReferenceBackend`` is the global-memory
-(two-pass) seeding semantics.
+and K5 seeding rounds, K3 and K6 assignment rounds; for batched problems
+K1's batched form, K7 and K8, K10a and K10b; K11 and K12 for rejection
+seeding); ``FusedBackend`` runs the kernels' plain torch twins;
+``ReferenceBackend`` is the global-memory (two-pass) seeding semantics.
 
 Batched problems (``seed_batched``, ``fit_batched``, ``kmeans_batched``) run
 through the same seeding and Lloyd loops as one problem, with the leading
-problem axis on every carry; each problem stops Lloyd at its own
-convergence test and is frozen from then on.
+problem axis on every carry, the bound state and the skip/prune counters
+included; each problem stops Lloyd at its own convergence test and is
+frozen from then on.
 Loops are Python loops over device tensors: a sampled index, a gate mask
 and a skip count never leave the device (the rejection loop reads one
 validity bit per round and one accept bit per attempt).
@@ -198,15 +200,18 @@ def _ungated_round(a, md, part, gap, ssums, scounts) -> AssignRound:
                        sampling.fixed_sum(scounts, -2), state)
 
 
-def _problem(cache: RoundCache, b: int) -> RoundCache:
-    """Problem b's slice of a batched prologue cache."""
-    return RoundCache(*(None if f is None else f[b] for f in cache))
+def _problem(x, b: int):
+    """Problem b's slice of a batched ``RoundCache`` or ``BoundState``
+    (None stays None)."""
+    return None if x is None else type(x)(
+        *(None if f is None else f[b] for f in x))
 
 
 def _seed_skipped(active: torch.Tensor) -> torch.Tensor:
-    """() int32 tiles a gated seeding round skipped, with the floor of one
-    computed tile that ``bounds.n_active`` defines."""
-    return active.shape[0] - bounds.n_active(active)
+    """() int32 tiles a gated seeding round skipped ((B,) when batched),
+    with the floor of one computed tile per problem that
+    ``bounds.n_active`` defines."""
+    return active.shape[-1] - bounds.n_active(active)
 
 
 def _gate_model(new_md_full, min_d2, c_new, cache: RoundCache,
@@ -261,31 +266,47 @@ class Backend:
         tps = self.tiles_per_super(-(-n // tile))
         if delta is not None and _gates(state, cache):
             return self._assign_update_gated(points, centroids, cache, state,
-                                             delta, tile, tps)
+                                             delta, tile, tps,
+                                             self._assign_gated)
         return _ungated_round(*self._assign_tiled(
             points, cache.norms, centroids, tile, tps))
 
     def seed_round_batched(self, points, c_new, min_d2, *,
-                           cache: RoundCache) -> SeedRound:
-        """One ungated seeding round of B independent problems: points
-        (B, n, d), c_new (B, m, d), min_d2 and ``cache.norms`` (B, n). The
-        fields of the ``SeedRound`` gain the leading axis; row b is bitwise
-        ``seed_round`` on problem b (here: that round per problem)."""
-        rounds = [self.seed_round(p, c, md, cache=_problem(cache, b))
+                           cache: RoundCache,
+                           state: Optional[BoundState] = None) -> SeedRound:
+        """One seeding round of B independent problems: points (B, n, d),
+        c_new (B, m, d), min_d2 and ``cache.norms`` (B, n), and with a
+        carried ``state`` (B, T) the gated round, each problem by its own
+        masks. The fields of the ``SeedRound`` gain the leading axis; row b
+        is bitwise ``seed_round`` on problem b (here: that round per
+        problem)."""
+        rounds = [self.seed_round(p, c, md, cache=_problem(cache, b),
+                                  state=_problem(state, b))
                   for b, (p, c, md) in enumerate(zip(points, c_new, min_d2))]
+        width = 6 if _gates(state, cache) else 3
         return SeedRound(*(torch.stack(f)
-                           for f in zip(*(r[:3] for r in rounds))))
+                           for f in zip(*(r[:width] for r in rounds))))
 
-    def assign_update_batched(self, points, centroids, *,
-                              cache: RoundCache) -> AssignRound:
-        """One ungated Lloyd half-step of B independent problems: points
-        (B, n, d), centroids (B, k, d), ``cache.norms`` (B, n), at the
-        single problem's tile geometry. The fields of the ``AssignRound``
-        gain the leading axis; row b is bitwise ``assign_update`` on
-        problem b."""
+    def assign_update_batched(self, points, centroids, *, cache: RoundCache,
+                              state: Optional[BoundState] = None,
+                              delta: Optional[torch.Tensor] = None,
+                              live: Optional[torch.Tensor] = None
+                              ) -> AssignRound:
+        """One Lloyd half-step of B independent problems: points (B, n, d),
+        centroids (B, k, d), ``cache.norms`` (B, n), at the single problem's
+        tile geometry. With a carried ``state`` and the movement ``delta``
+        (B, k) it gates as ``assign_update`` does, each problem on its own
+        masks; ``live`` (B,) bool marks the problems still iterating, and a
+        problem that is not computes no tile (its carries stay). The fields
+        of the ``AssignRound`` gain the leading axis; row b of a live
+        problem is bitwise ``assign_update`` on problem b."""
         n, d = points.shape[-2:]
         tile = self.seed_tile(n, d, centroids.shape[-2])
         tps = self.tiles_per_super(-(-n // tile))
+        if delta is not None and _gates(state, cache):
+            return self._assign_update_gated(points, centroids, cache, state,
+                                             delta, tile, tps,
+                                             self._assign_gated_batched, live)
         return _ungated_round(*self._assign_tiled_batched(
             points, cache.norms, centroids, tile, tps))
 
@@ -293,17 +314,23 @@ class Backend:
         return lloyd_assign.lloyd_assign_tiled_batched_torch(
             points, norms, centroids, block_n=tile, tps=tps)
 
-    def _assign_update_gated(self, points, centroids, cache, state, delta,
-                             tile, tps) -> AssignRound:
-        dmax = delta.max()
+    @staticmethod
+    def _assign_update_gated(points, centroids, cache, state, delta, tile,
+                             tps, assign_gated, live=None) -> AssignRound:
+        """The gated round, one problem or B (every array and the movement
+        ``delta`` with a leading axis; each problem's own maximum movement,
+        masks, floor and counters). ``assign_gated`` is the kernel call."""
+        dmax = delta.amax(dim=-1, keepdim=True)
         cand = bounds.assign_active_tiles(delta, centroids, state, cache,
                                           tps=tps)
-        # expanded HERE (the kernel wrapper re-expands, idempotently) so the
+        # expanded HERE (the kernel wrapper re-aligns, idempotently) so the
         # gap decay and debt below see exactly the tiles the round rewrote
         active = bounds.expand_active_supers(cand, tps)
+        if live is not None:   # a stopped problem computes nothing
+            active = active & live[..., None]
         thresh, absorb = bounds.assign_point_scalars(delta, centroids, state,
                                                      cache)
-        a, md, lb, part, gap, ssums, scounts, pruned = self._assign_gated(
+        a, md, lb, part, gap, ssums, scounts, pruned = assign_gated(
             points, cache.norms, centroids, delta, thresh, absorb, state,
             active, tile, tps)
         # skipped tiles' gaps are the carry: decay them by this step's
@@ -317,8 +344,8 @@ class Backend:
         # the same fixed-order sums as the ungated round's
         return AssignRound(a, md, sampling.fixed_sum(ssums, -3),
                            sampling.fixed_sum(scounts, -2), new_state,
-                           (~active).sum().to(torch.int32),
-                           pruned.sum().to(torch.int32))
+                           (~active).sum(dim=-1).to(torch.int32),
+                           pruned.sum(dim=-1).to(torch.int32))
 
     def _assign_tiled(self, points, norms, centroids, tile, tps):
         return lloyd_assign.lloyd_assign_tiled_torch(
@@ -332,11 +359,19 @@ class Backend:
             state.tile_gap, state.tile_sums, state.tile_counts, active,
             block_n=tile, tps=tps)
 
+    def _assign_gated_batched(self, points, norms, centroids, delta, thresh,
+                              absorb, state, active, tile, tps):
+        return lloyd_assign.lloyd_assign_gated_batched_torch(
+            points, norms, centroids, delta, thresh, absorb,
+            state.assignment, state.min_d2, state.point_lb, state.partials,
+            state.tile_gap, state.tile_sums, state.tile_counts, active,
+            block_n=tile, tps=tps)
+
     def prologue(self, points, m: int = 1,
                  with_bounds: bool = True) -> RoundCache:
         """Once-per-call pass: the cached fp32 norms every round streams,
         plus the tile balls when bound gating is on. Batched points
-        (B, n, d) take the norms only (bounds off)."""
+        (B, n, d) give every field a leading problem axis."""
         n, d = points.shape[-2:]
         return bounds.prologue(points, self.seed_tile(n, d, m),
                                with_bounds=with_bounds)
@@ -403,8 +438,9 @@ class FusedBackend(Backend):
 
 @dataclasses.dataclass(frozen=True)
 class CudaBackend(Backend):
-    """The hand-written Hopper kernels: K1 for the prologue, K2 (K5 gated,
-    K7 batched) for every seeding round, K3 (K6 gated, K10a batched) for
+    """The hand-written Hopper kernels: K1 (and its batched form) for the
+    prologue, K2 (K5 gated, K7 batched, K8 gated and batched) for every
+    seeding round, K3 (K6 gated, K10a batched, K10b gated and batched) for
     every assignment round, K11 and K12 for the rejection sampler's row D²
     and tile caps.
     ``resident=False`` re-reads the centroid block from global memory
@@ -423,9 +459,10 @@ class CudaBackend(Backend):
                  with_bounds: bool = True) -> RoundCache:
         if not with_bounds:
             return RoundCache(bounds.point_norms(points))
-        n, d = points.shape
-        return RoundCache(*kmeans_distance.seed_prologue(
-            points, self.seed_tile(n, d, m)))
+        n, d = points.shape[-2:]
+        fn = (kmeans_distance.seed_prologue_batched if points.dim() == 3
+              else kmeans_distance.seed_prologue)
+        return RoundCache(*fn(points, self.seed_tile(n, d, m)))
 
     def seed_round(self, points, c_new, min_d2, *, cache, state=None):
         n, d = points.shape
@@ -447,13 +484,26 @@ class CudaBackend(Backend):
             resident=self.resident)
         return SeedRound(new_md, partials.sum(), partials)
 
-    def seed_round_batched(self, points, c_new, min_d2, *, cache):
+    def seed_round_batched(self, points, c_new, min_d2, *, cache,
+                           state=None):
         n, d = points.shape[-2:]
-        new_md, partials = kmeans_distance.distance_min_update_batched(
-            points, cache.norms, c_new.contiguous(), min_d2,
-            block_n=self.seed_tile(n, d, c_new.shape[-2]),
-            resident=self.resident)
+        tile = self.seed_tile(n, d, c_new.shape[-2])
+        c = c_new.contiguous()
         # the total only feeds finite/positive tests: any order will do
+        if _gates(state, cache):
+            # each problem's gate: (B, T) device ops; K8 reads the masks
+            active, dc, margin = bounds.seed_gate(c, cache, state.tile_max)
+            md, partials, tmax, pruned = \
+                kmeans_distance.distance_min_update_gated_batched(
+                    points, cache.norms, c, min_d2, cache.center_d, dc,
+                    margin, state.partials, state.tile_max, active,
+                    block_n=tile, resident=self.resident)
+            return SeedRound(md, partials.sum(-1), partials, tmax,
+                             _seed_skipped(active),
+                             pruned.sum(-1).to(torch.int32))
+        new_md, partials = kmeans_distance.distance_min_update_batched(
+            points, cache.norms, c, min_d2, block_n=tile,
+            resident=self.resident)
         return SeedRound(new_md, partials.sum(-1), partials)
 
     def _assign_tiled(self, points, norms, centroids, tile, tps):
@@ -467,6 +517,14 @@ class CudaBackend(Backend):
     def _assign_gated(self, points, norms, centroids, delta, thresh, absorb,
                       state, active, tile, tps):
         return lloyd_assign.lloyd_assign_gated(
+            points, norms, centroids.contiguous(), delta, thresh, absorb,
+            state.assignment, state.min_d2, state.point_lb, state.partials,
+            state.tile_gap, state.tile_sums, state.tile_counts, active,
+            block_n=tile, tps=tps)
+
+    def _assign_gated_batched(self, points, norms, centroids, delta, thresh,
+                              absorb, state, active, tile, tps):
+        return lloyd_assign.lloyd_assign_gated_batched(
             points, norms, centroids.contiguous(), delta, thresh, absorb,
             state.assignment, state.min_d2, state.point_lb, state.partials,
             state.tile_gap, state.tile_sums, state.tile_counts, active,
@@ -551,8 +609,8 @@ def _seed_loop(draws: Draws, pts, k, *, round_fn, sample_fn, init_min_d2,
     ``init_state`` turns on bound gating (round 1 starts from tile_max =
     +inf, nothing skippable); the per-round skip and prune counts stay on
     the device. Batched problems carry a leading axis on ``pts`` (B, n, d),
-    the draws and every carry; one round serves all B. Returns (centroids,
-    indices, min_d2, skipped, pruned, recovered)."""
+    the draws, every carry and the counters (B, k); one round serves all B.
+    Returns (centroids, indices, min_d2, skipped, pruned, recovered)."""
     gated = init_state is not None
     checked_round = _seed_parts(round_fn=round_fn, init_min_d2=init_min_d2,
                                 gated=gated, guard=guard, tile=tile)
@@ -560,8 +618,10 @@ def _seed_loop(draws: Draws, pts, k, *, round_fn, sample_fn, init_min_d2,
     lead = tuple(pts.shape[:-2])
     centroids = pts.new_zeros(lead + (k, pts.shape[-1]))
     indices = torch.zeros(lead + (k,), dtype=torch.int64, device=dev)
-    skips = torch.zeros(k, dtype=torch.int32, device=dev) if gated else None
-    prunes = torch.zeros(k, dtype=torch.int32, device=dev) if gated else None
+    skips = prunes = None
+    if gated:
+        skips = torch.zeros(lead + (k,), dtype=torch.int32, device=dev)
+        prunes = torch.zeros(lead + (k,), dtype=torch.int32, device=dev)
     rec = [0] * k
     first = draws.first.reshape(lead + (1,))
     centroids[..., 0:1, :] = _take_rows(pts, first)
@@ -571,7 +631,7 @@ def _seed_loop(draws: Draws, pts, k, *, round_fn, sample_fn, init_min_d2,
         min_d2, partials, state, rs, rp, rec[m - 1] = checked_round(
             m, centroids, min_d2, state)
         if gated:
-            skips[m - 1], prunes[m - 1] = rs, rp
+            skips[..., m - 1], prunes[..., m - 1] = rs, rp
         if m == k:
             break
         nxt = sample_fn(draws.u[..., m - 1], draws.fallback[..., m - 1:m],
@@ -866,19 +926,23 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
 
     ``points`` (B, n, d) seeds B independent problems in one loop, one
     ``seed_round_batched`` per round, from batched ``draws``
-    (``Draws.sample_batched``): ungated, 'cdf' or 'tiled', with no in-flight
-    guard (the reference turns it off under ``vmap``). Row b of every
-    field is bitwise the single seeding of problem b with ``draws[b]``."""
+    (``Draws.sample_batched``): 'cdf' or 'tiled', gated or not, with no
+    in-flight guard (the reference turns it off under ``vmap``); the
+    counters are (B, k). Row b of every field is bitwise the single seeding
+    of problem b with ``draws[b]``."""
     if proposal not in ("flat", "hier"):
         raise ValueError(f"unknown proposal {proposal!r}; "
                          "expected 'flat' or 'hier'")
     _check_sampler(sampler)
     lead = tuple(points.shape[:-2])
-    if lead and (bound_gate or guard or sampler == "rejection"):
+    if lead and sampler == "rejection":
         raise NotImplementedError(
-            "batched seeding runs ungated cdf or tiled rounds without the "
-            "in-flight guard; the gated batched round (K8) and batched "
-            "rejection seeding are not ported yet")
+            "batched rejection seeding is not ported yet (the next port "
+            "slice); use sampler='cdf' or 'tiled'")
+    if lead and guard:
+        raise NotImplementedError(
+            "batched seeding runs without the in-flight guard, as the "
+            "reference does under vmap")
     n, d = points.shape[-2:]
     pts = points.float()
     if cache is None:
@@ -892,10 +956,10 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
                          f"points for {lead}")
     init_state = None
     if bound_gate and cache.centers is not None:
-        n_tiles = -(-n // tile)
+        n_tiles = lead + (-(-n // tile),)
         init_state = BoundState(
             torch.zeros(n_tiles, device=pts.device),
-            torch.full((n_tiles,), torch.inf, device=pts.device))
+            torch.full(n_tiles, torch.inf, device=pts.device))
 
     if sampler == "rejection":
         if draws.exact_u is None or draws.max_attempts < max_attempts:
@@ -921,7 +985,8 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
 
     if lead:
         def round_fn(c, md, st):
-            return backend.seed_round_batched(pts, c, md, cache=cache)
+            return backend.seed_round_batched(pts, c, md, cache=cache,
+                                              state=st)
     else:
         def round_fn(c, md, st):
             return backend.seed_round(pts, c, md, cache=cache, state=st)
@@ -972,19 +1037,22 @@ def _fit_loop(pts, init_centroids, backend: Backend, max_iters: int,
     records the trip. The guard's checks and the next iteration's
     convergence test are read in one host sync.
 
-    Batched problems (``pts`` (B, n, d), ungated) run one
-    ``assign_update_batched`` per iteration for all B. Each problem takes
-    its own convergence test, and a problem that has stopped keeps its
-    centroids, assignment, inertia and ``n_iters`` from then on (what the
-    reference's vmapped ``while_loop`` selects); the loop runs until every
-    problem has stopped, one host sync per iteration reading the (B,)
-    flags. The inertia is the fixed-order sum of the per-tile partials
+    Batched problems (``pts`` (B, n, d)) run one ``assign_update_batched``
+    per iteration for all B, gated or not. Each problem takes its own
+    convergence test, and a problem that has stopped keeps its centroids,
+    assignment, inertia and ``n_iters`` from then on, and reads 0 in its
+    skip and prune counters (what the reference's vmapped ``while_loop``
+    selects); the loop runs until every problem has stopped, one host sync
+    per iteration reading the (B,) flags. A stopped problem's bound state
+    is frozen too: it gets zero movement and no active tile, so the gated
+    round computes none of its tiles and leaves its carries as they are.
+    The inertia is the fixed-order sum of the per-tile partials
     (``sampling.fixed_sum``), so row b's is bitwise the single problem's.
 
     Returns (centroids, assignment, inertia, n_iters, skipped, pruned,
     recovered); the counters are None when the loop is not gated, and
     ``recovered`` also when the guard is off. ``n_iters`` is an int, or
-    (B,) int32 when batched."""
+    (B,) int32 when batched (the counters (B, max_iters))."""
     n, d = pts.shape[-2:]
     lead = tuple(pts.shape[:-2])
     k = init_centroids.shape[-2]
@@ -998,18 +1066,21 @@ def _fit_loop(pts, init_centroids, backend: Backend, max_iters: int,
 
         def fresh_bounds(st: BoundState) -> BoundState:
             return st._replace(
-                point_lb=torch.full((n,), -torch.inf, device=dev),
-                lb_debt=torch.zeros(n_tiles, device=dev))
+                point_lb=torch.full(lead + (n,), -torch.inf, device=dev),
+                lb_debt=torch.zeros(lead + (n_tiles,), device=dev))
 
         bstate = fresh_bounds(BoundState(
-            torch.zeros(n_tiles, device=dev),
-            tile_gap=torch.full((n_tiles,), -torch.inf, device=dev),
-            tile_sums=torch.zeros((n_super, k, d), device=dev),
-            tile_counts=torch.zeros((n_super, k), device=dev),
-            assignment=torch.zeros(n, dtype=torch.int32, device=dev),
-            min_d2=torch.zeros(n, device=dev)))
-        skips = torch.zeros(max_iters, dtype=torch.int32, device=dev)
-        prunes = torch.zeros(max_iters, dtype=torch.int32, device=dev)
+            torch.zeros(lead + (n_tiles,), device=dev),
+            tile_gap=torch.full(lead + (n_tiles,), -torch.inf, device=dev),
+            tile_sums=torch.zeros(lead + (n_super, k, d), device=dev),
+            tile_counts=torch.zeros(lead + (n_super, k), device=dev),
+            assignment=torch.zeros(lead + (n,), dtype=torch.int32,
+                                   device=dev),
+            min_d2=torch.zeros(lead + (n,), device=dev)))
+        skips = torch.zeros(lead + (max_iters,), dtype=torch.int32,
+                            device=dev)
+        prunes = torch.zeros(lead + (max_iters,), dtype=torch.int32,
+                             device=dev)
     cents = prev_cents = init_centroids.float()
     inertia = torch.full(lead, torch.inf, device=dev)
     a = torch.zeros(lead + (n,), dtype=torch.int32, device=dev)
@@ -1024,11 +1095,15 @@ def _fit_loop(pts, init_centroids, backend: Backend, max_iters: int,
 
     i = 0
     while i < max_iters:
+        delta = (bounds.centroid_movement(cents, prev_cents) if gated
+                 else None)
         if lead:
-            rnd = backend.assign_update_batched(pts, cents, cache=cache)
+            if gated:   # a stopped problem does not move
+                delta = torch.where(live[..., None], delta, 0.0)
+            rnd = backend.assign_update_batched(pts, cents, cache=cache,
+                                                state=bstate, delta=delta,
+                                                live=live)
         else:
-            delta = (bounds.centroid_movement(cents, prev_cents) if gated
-                     else None)
             rnd = backend.assign_update(pts, cents, cache=cache,
                                         state=bstate, delta=delta)
         new_inertia = sampling.fixed_sum(rnd.state.partials)
@@ -1052,7 +1127,10 @@ def _fit_loop(pts, init_centroids, backend: Backend, max_iters: int,
             go_on = bool(improves(new_inertia)) if test else True
             rec[i] = 1
         if gated:
-            skips[i], prunes[i] = rnd.skipped, rnd.pruned
+            rs, rp = rnd.skipped, rnd.pruned
+            if live is not None:
+                rs, rp = torch.where(live, rs, 0), torch.where(live, rp, 0)
+            skips[..., i], prunes[..., i] = rs, rp
             bstate = rnd.state
         new_cents = centroid_means(rnd.sums, rnd.counts, cents)
         if empty == "reseed":
@@ -1061,6 +1139,7 @@ def _fit_loop(pts, init_centroids, backend: Backend, max_iters: int,
             prev_cents, cents, inertia, a = (cents, new_cents, new_inertia,
                                              rnd.assignment)
         else:   # a problem that has stopped keeps its results
+            prev_cents = cents
             cents = torch.where(live[..., None, None], new_cents, cents)
             inertia = torch.where(live, new_inertia, inertia)
             a = torch.where(live[..., None], rnd.assignment, a)
@@ -1086,15 +1165,16 @@ def fit_points(points: torch.Tensor, init_centroids: torch.Tensor,
     results); ``guard`` arms its in-flight corruption detector.
 
     ``points`` (B, n, d) and ``init_centroids`` (B, k, d) fit B independent
-    problems in one loop, ungated; every field of the result gains the
-    leading axis and ``n_iters`` is (B,) int32, each problem's own."""
+    problems in one loop, gated or not, without the in-flight guard (as the
+    reference under ``vmap``); every field of the result gains the leading
+    axis and ``n_iters`` is (B,) int32, each problem's own."""
     if empty not in ("keep", "reseed"):
         raise ValueError(f"unknown empty-cluster policy {empty!r}; "
                          "expected 'keep' or 'reseed'")
-    if points.dim() == 3 and bound_gate:
+    if points.dim() == 3 and guard:
         raise NotImplementedError(
-            "batched fits run ungated; the gated batched assignment round "
-            "(K10b) is not ported yet")
+            "batched fits run without the in-flight guard, as the "
+            "reference does under vmap")
     pts = points.float()
     k = init_centroids.shape[-2]
     if cache is None:
@@ -1175,9 +1255,10 @@ class ClusterEngine:
 
     Batched problems: ``seed_batched``, ``fit_batched`` and
     ``kmeans_batched`` take (B, n, d) points and return results with a
-    leading (B,) axis, row b bitwise the single problem's; they need
-    ``bounds=False`` and the cdf or tiled sampler (the gated batched
-    kernels and batched rejection seeding are not ported yet).
+    leading (B,) axis, row b bitwise the single problem's, counters
+    included; they take ``bounds`` on or off and the cdf or tiled sampler
+    (batched rejection seeding is not ported yet). They run without the
+    in-flight guards, as the reference does under ``vmap``.
     """
 
     def __init__(self, backend: Union[str, Backend] = "cuda", *,
@@ -1258,15 +1339,10 @@ class ClusterEngine:
         """The (B, n, d) points of a batched call, after the entry guard;
         raises for what the batched path does not run yet."""
         _check_sampler(sampler)
-        if self.bounds:
-            raise NotImplementedError(
-                "batched problems with bounds=True need the gated batched "
-                "kernels K8 and K10b, which the next port slice brings; "
-                "pass bounds=False")
         if sampler == "rejection":
             raise NotImplementedError(
-                "batched rejection seeding is not ported yet (it follows "
-                "the gated batched slice); use sampler='cdf' or 'tiled'")
+                "batched rejection seeding is not ported yet (the next port "
+                "slice); use sampler='cdf' or 'tiled'")
         pts = torch.as_tensor(points, dtype=torch.float32, device=self.device)
         if pts.dim() != 3:
             raise guards.InvalidInputError(
@@ -1278,7 +1354,8 @@ class ClusterEngine:
                      draws: Optional[Draws] = None,
                      sampler: str = "cdf") -> KmeansppResult:
         """Seed B independent (n, d) problems, one seeding round for all B
-        per round (K7 on the card). ``draws`` are batched
+        per round (K8 on the card, K7 with ``bounds=False``), the counters
+        (B, k). ``draws`` are batched
         (``Draws.sample_batched``); problem b picks exactly the seeds
         ``seed`` picks with ``draws[b]``. No in-flight guard, as in the
         reference under ``vmap``; the entry guard covers all B."""
@@ -1288,15 +1365,15 @@ class ClusterEngine:
         if draws is None:
             draws = Draws.sample_batched(bsz, n, k, generator=generator)
         return seed_points(draws.to(self.device), pts, k, self.backend,
-                           sampler, bound_gate=False)
+                           sampler, bound_gate=self.bounds)
 
     def fit_batched(self, points, init_centroids, *, max_iters: int = 50,
                     tol: float = 1e-6, empty: str = "keep") -> LloydResult:
         """Lloyd over B independent problems: points (B, n, d), inits
-        (B, k, d), one assignment round for all B per iteration (K10a on
-        the card). Each problem stops at its own convergence test and keeps
-        its results from then on; ``n_iters`` is (B,), each problem's
-        own."""
+        (B, k, d), one assignment round for all B per iteration (K10b on
+        the card, K10a with ``bounds=False``). Each problem stops at its own
+        convergence test and keeps its results from then on, its counters
+        reading 0; ``n_iters`` is (B,), each problem's own."""
         pts = self._batched(points)
         cents = torch.as_tensor(init_centroids, dtype=torch.float32,
                                 device=self.device)
@@ -1306,7 +1383,7 @@ class ClusterEngine:
                 f"{tuple(cents.shape)}")
         cents = guards.guard_centroids(cents, pts.shape[-1], self.validate)
         return fit_points(pts, cents, self.backend, max_iters, float(tol),
-                          empty, bound_gate=False)
+                          empty, bound_gate=self.bounds)
 
     def kmeans_batched(self, points, k: int, *,
                        generator: Optional[torch.Generator] = None,
@@ -1314,8 +1391,9 @@ class ClusterEngine:
                        tol: float = 1e-6, sampler: str = "cdf",
                        empty: str = "keep") -> LloydResult:
         """``seed_batched`` then ``fit_batched``, each with its own prologue
-        and tile geometry, as in the reference (unlike ``kmeans``, which
-        shares one prologue at the fit's tile height)."""
+        (the batched K1 on the card, with ``bounds``) and tile geometry, as
+        in the reference (unlike ``kmeans``, which shares one prologue at the
+        fit's tile height). The result carries the fit's counters."""
         seeds = self.seed_batched(points, k, generator=generator,
                                   draws=draws, sampler=sampler)
         return self.fit_batched(points, seeds.centroids, max_iters=max_iters,

@@ -18,13 +18,18 @@ def blobs(n: int, d: int, k: int, *, seed: int = 0, spread: float = 0.05,
 
 
 def blobs_batched(batch: int, n: int, d: int, k: int, *,
-                  generator: torch.Generator, spread: float = 0.05
-                  ) -> torch.Tensor:
+                  generator: torch.Generator, spread: float = 0.05,
+                  sort: bool = False) -> torch.Tensor:
     """(batch, n, d) fp32: each problem n points from its own k Gaussian
-    blobs in [0,1]^d, drawn from ``generator`` on its device."""
+    blobs in [0,1]^d, drawn from ``generator`` on its device. ``sort``
+    orders each problem's rows by blob (stable), so its tiles are
+    spatially coherent."""
     dev = generator.device
     centers = torch.rand((batch, k, d), generator=generator, device=dev)
     labels = torch.randint(k, (batch, n, 1), generator=generator, device=dev)
     pts = torch.randn((batch, n, d), generator=generator, device=dev)
     pts.mul_(spread).add_(torch.take_along_dim(centers, labels, dim=1))
+    if sort:
+        order = torch.argsort(labels, dim=1, stable=True)
+        pts = torch.take_along_dim(pts, order, dim=1)
     return pts

@@ -5,10 +5,12 @@ twin:
   kmeans_distance.py — K1, the prologue (norms and tile balls); K2/K5, the
                        seeding round ungated and bound-gated: D² min-update
                        + per-tile partial sums; K11/K12, the rejection
-                       sampler's drawn-row D² and per-tile envelope cap
+                       sampler's drawn-row D² and per-tile envelope cap;
+                       K1, K7 and K8 over a batch of problems
   lloyd_assign.py    — K3/K6, the tiled assignment round ungated and
                        bound-gated: labels, D², per-tile partials and gaps,
-                       per-super-tile cluster sums/counts
+                       per-super-tile cluster sums/counts; K10a and K10b
+                       over a batch of problems
 
 ops.py — the tile-height budget and the launch counters.
 """

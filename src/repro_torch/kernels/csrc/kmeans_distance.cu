@@ -1,5 +1,5 @@
-// K2, K5 and K7: one k-means++ seeding round on Hopper, ungated, bound-gated
-// and over a batch of independent problems.
+// K2, K5, K7 and K8: one k-means++ seeding round on Hopper, ungated,
+// bound-gated, and each over a batch of independent problems.
 //
 // K2 replaces src/repro/kernels/kmeans_distance.py::distance_min_update_pallas
 // (the TPU kernel's pallas_call at line 125). It computes, for every row x
@@ -30,7 +30,19 @@
 // centroids and b*n_tiles partials, and then it runs K2's code unchanged, so
 // row b of a K7 launch is bitwise K2 on problem b.
 //
-// All three are one template: an active tile's unpruned rows go through the
+// K8 replaces kmeans_distance.py::distance_min_update_gated_batched_pallas
+// (its pallas_call at line 587): K5 over B independent problems in one
+// launch, each with its own gate. It is K7's grid on K5's code: block i
+// takes tile i % n_tiles of problem i / n_tiles, and besides K7's pointers
+// the gate's are offset too, center_d by b*n and dc, margin, the active
+// mask, tile_max and pruned by b*n_tiles. The TPU kernel visited each
+// problem's compacted list of active tiles (a (B, n_tiles) id map and a
+// (B,) count); here the full B * n_tiles grid is launched and reads the
+// (B, n_tiles) mask, so a block whose tile is inactive in its problem exits
+// at once and its carried outputs stay. Row b of a K8 launch is then K5 on
+// problem b, bitwise.
+//
+// All four are one template: an active tile's unpruned rows go through the
 // same code as K2's, in the same order, and a pruned row holds the value K2
 // would write (min(md, d2) = md when d2 >= md), so an active tile's partial
 // is bitwise K2's partial. K2 and K5 are the launches with B = 1.
@@ -42,7 +54,9 @@
 // rows (plus center_d, 4 B a row), and a pruned row needs no x or norm. At
 // d = 2 there is no product to put on tensor cores, so fp32 FMA only. K7 at
 // the PQ codebook sweep (B = 1664 problems of n = 16384, d = 16, m = 1)
-// moves 76 B a row, 2.07 GB a round: 0.62 ms at 3.35 TB/s.
+// moves 76 B a row, 2.07 GB a round: 0.62 ms at 3.35 TB/s. K8 there, all
+// tiles active, also reads center_d: 80 B a row, 2.18 GB, 0.65 ms; a pruned
+// row reads no x or norm, so it moves 12 B.
 //
 // Design. One thread block owns one tile and loops over its rows, 256 rows
 // at a time, so reads of x, norms and md are coalesced and each is read
@@ -90,7 +104,8 @@ __device__ __forceinline__ bool seed_point_prune(float md, float cd, float dc,
   return __fmul_rn(lo, lo) >= __fadd_rn(__fmul_rn(md, kRelScale), margin);
 }
 
-// Gated = false is K2 / K7 (the gate pointers are null); Gated = true is K5.
+// Gated = false is K2 / K7 (the gate pointers are null); Gated = true is K5
+// / K8.
 template <bool Resident, bool Gated>
 __global__ void __launch_bounds__(kThreads)
 distance_min_update_kernel(const float* __restrict__ points,
@@ -116,8 +131,15 @@ distance_min_update_kernel(const float* __restrict__ points,
   md_in += (size_t)b * n;
   md_out += (size_t)b * n;
   partials += (size_t)b * n_tiles;
-  // the gate's arrays are not offset: K5 is launched for one problem
-  if (Gated && !active[t]) return;  // skipped: outputs keep carries
+  if (Gated) {
+    center_d += (size_t)b * n;
+    dc += (size_t)b * n_tiles;
+    margin += (size_t)b * n_tiles;
+    active += (size_t)b * n_tiles;
+    tile_max += (size_t)b * n_tiles;
+    pruned += (size_t)b * n_tiles;
+    if (!active[t]) return;  // skipped: outputs keep carries
+  }
   extern __shared__ float smem[];
   float* red = smem;                        // (kThreads,) sum tree
   float* red_max = red + kThreads;          // (kThreads,) max tree (K5)
@@ -253,5 +275,21 @@ extern "C" int distance_min_update_gated_launch(
     int resident, void* stream) {
   return launch<true>(points, norms, cents, md_in, md_out, partials, center_d,
                       dc, margin, active, tile_max, pruned, 1, n, d, m,
+                      block_n, resident, static_cast<cudaStream_t>(stream));
+}
+
+// Launches one gated seeding round of `batch` problems (K8) on `stream`;
+// returns cudaGetLastError(). Every array carries a leading problem axis:
+// K7's, plus center_d (batch, n) and dc, margin, active, tile_max and
+// pruned (batch, n_tiles). md_out, partials and tile_max must hold the
+// carried values and pruned zeros, as for K5.
+extern "C" int distance_min_update_gated_batched_launch(
+    const float* points, const float* norms, const float* cents,
+    const float* md_in, float* md_out, float* partials, const float* center_d,
+    const float* dc, const float* margin, const unsigned char* active,
+    float* tile_max, int* pruned, int batch, int n, int d, int m, int block_n,
+    int resident, void* stream) {
+  return launch<true>(points, norms, cents, md_in, md_out, partials, center_d,
+                      dc, margin, active, tile_max, pruned, batch, n, d, m,
                       block_n, resident, static_cast<cudaStream_t>(stream));
 }

@@ -1,5 +1,5 @@
-// K3, K6 and K10a: one tiled Lloyd assignment round on Hopper, ungated,
-// bound-gated and over a batch of independent problems.
+// K3, K6, K10a and K10b: one tiled Lloyd assignment round on Hopper,
+// ungated, bound-gated, and each over a batch of independent problems.
 //
 // K3 replaces src/repro/kernels/lloyd_assign.py::lloyd_assign_tiled_pallas
 // (the TPU kernel's pallas_call at line 346). For every row x and centroid
@@ -80,6 +80,21 @@
 // (PERF.md, the TPU kernel table).
 // The fused multiply-adds are the same, in the same order, so K3's bits at
 // d = 16 do not change.
+//
+// K10b replaces lloyd_assign.py::lloyd_assign_gated_batched_pallas (its
+// pallas_call at line 666): K6 over B independent problems in one launch of
+// each kernel, each problem with its own gate. It is K10a's grids on K6's
+// code: besides K10a's pointers every gate array is offset to its problem,
+// delta by b*k, thresh, absorb, the active mask and pruned by b*n_tiles, and
+// the carried labels, D² and lower bounds and the lower bounds out by b*n;
+// super_reduce_kernel reads its problem's mask. The TPU kernel visited
+// each problem's compacted list of super-aligned active tiles; here the full
+// grids are launched and read the (B, n_tiles) mask, so a block of a tile
+// (or a super) inactive in its problem exits at once and its carries stay.
+// Row b is then K6 on problem b, bitwise; K6 is the launch with B = 1. At
+// the PQ codebook sweep with every tile active and nothing pruned its
+// operation bound is K10a's, 3.65 ms; the d = 16 register path serves it as
+// it serves K10a.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -109,7 +124,8 @@ __device__ __forceinline__ void fold(float d2, int c, float& best,
   }
 }
 
-// The gated kernel's extra inputs and outputs (null for K3).
+// The gated kernel's extra inputs and outputs (null for K3 / K10a), each
+// with a leading problem axis when batched (K10b).
 struct Gate {
   const float* delta;          // (k,) centroid movement
   const float* thresh;         // (n_tiles,) prune threshold
@@ -124,7 +140,7 @@ struct Gate {
 
 // D > 0: the dimension is D, known at compile time, and R = 4 rows share
 // each pass over the centroids. D == 0: the dimension is the runtime d.
-// Gated = false is K3, Gated = true is K6.
+// Gated = false is K3 / K10a, Gated = true is K6 / K10b.
 template <int D, bool Gated>
 __global__ void __launch_bounds__(kThreads)
 assign_tile_kernel(const float* __restrict__ points,
@@ -145,8 +161,18 @@ assign_tile_kernel(const float* __restrict__ points,
   md += (size_t)b * n;
   partials += (size_t)b * n_tiles;
   gaps += (size_t)b * n_tiles;
-  // the gate's arrays are not offset: K6 is launched for one problem
-  if (Gated && !g.active[t]) return;  // skipped: carries stay
+  if (Gated) {
+    g.delta += (size_t)b * k;
+    g.thresh += (size_t)b * n_tiles;
+    g.absorb += (size_t)b * n_tiles;
+    g.prev_a += (size_t)b * n;
+    g.prev_md += (size_t)b * n;
+    g.prev_lb += (size_t)b * n;
+    g.active += (size_t)b * n_tiles;
+    g.lb += (size_t)b * n;
+    g.pruned += (size_t)b * n_tiles;
+    if (!g.active[t]) return;  // skipped: carries stay
+  }
   constexpr int R = D > 0 ? 4 : 1;
   constexpr int DR = D > 0 ? D : 1;
   extern __shared__ float smem[];
@@ -318,9 +344,9 @@ assign_tile_kernel(const float* __restrict__ points,
   }
 }
 
-// `active` (K6) skips a super none of whose tiles computed: its carried
-// sums and counts stay. Block i reduces super i % n_super of problem
-// i / n_super.
+// `active` (K6, K10b) skips a super none of whose tiles computed in its
+// problem: its carried sums and counts stay. Block i reduces super
+// i % n_super of problem i / n_super.
 __global__ void __launch_bounds__(kThreads)
 super_reduce_kernel(const float* __restrict__ tile_acc, float* __restrict__ ssums,
                     float* __restrict__ scounts,
@@ -335,6 +361,7 @@ super_reduce_kernel(const float* __restrict__ tile_acc, float* __restrict__ ssum
   scounts += (size_t)b * n_super * k;
   const int t_end = min((s + 1) * tps, n_tiles);
   if (active != nullptr) {
+    active += (size_t)b * n_tiles;
     bool any = false;
     for (int t = s * tps; t < t_end; ++t) any |= active[t] != 0;
     if (!any) return;
@@ -446,4 +473,26 @@ extern "C" int lloyd_assign_gated_launch(
   return launch_round<true>(points, norms, cents, labels, md, partials, gaps,
                             tile_acc, ssums, scounts, g, 1, n, d, k, block_n,
                             tps, cols, static_cast<cudaStream_t>(stream));
+}
+
+// Launches both kernels of one gated assignment round of `batch` problems
+// (K10b) on `stream`; returns cudaGetLastError(). Every array carries a
+// leading problem axis: K10a's, plus delta (batch, k), thresh / absorb /
+// active / pruned (batch, n_tiles), prev_a / prev_md / prev_lb / lb
+// (batch, n). The outputs must hold the carries and pruned zeros, and
+// `active` must be super-aligned in every problem, as for K6.
+extern "C" int lloyd_assign_gated_batched_launch(
+    const float* points, const float* norms, const float* cents,
+    const float* delta, const float* thresh, const float* absorb,
+    const int* prev_a, const float* prev_md, const float* prev_lb,
+    const unsigned char* active, int* labels, float* md, float* lb,
+    float* partials, float* gaps, float* tile_acc, float* ssums,
+    float* scounts, int* pruned, int batch, int n, int d, int k, int block_n,
+    int tps, int cols, void* stream) {
+  const Gate g{delta, thresh, absorb, prev_a, prev_md, prev_lb, active, lb,
+               pruned};
+  return launch_round<true>(points, norms, cents, labels, md, partials, gaps,
+                            tile_acc, ssums, scounts, g, batch, n, d, k,
+                            block_n, tps, cols,
+                            static_cast<cudaStream_t>(stream));
 }

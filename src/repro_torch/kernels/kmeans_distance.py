@@ -1,13 +1,17 @@
-"""K1, K2, K5, K7, K11 and K12 — the prologue, the k-means++ seeding round
-(ungated, bound-gated and batched) and the rejection sampler's two small
-kernels (port of ``repro.kernels.kmeans_distance``'s
+"""K1, K2, K5, K7, K8, K11 and K12 — the prologue, the k-means++ seeding
+round (ungated, bound-gated, and each batched) and the rejection sampler's
+two small kernels (port of ``repro.kernels.kmeans_distance``'s
 ``seed_prologue_pallas``, ``distance_min_update_pallas``,
 ``distance_min_update_gated_pallas``, ``distance_min_update_batched_pallas``,
-``row_min_d2_pallas`` and ``tile_cap_pallas``).
+``distance_min_update_gated_batched_pallas``, ``row_min_d2_pallas`` and
+``tile_cap_pallas``).
 
 K1 ``seed_prologue`` is the once-per-call pass: the fp32 norms every round
 streams, and the tile balls (centers, radii, each row's distance to its
-tile's center) the seeding and assignment gates read.
+tile's center) the seeding and assignment gates read. ``seed_prologue_batched``
+is K1 over B independent problems in one launch, row b K1 on problem b (the
+reference batches its prologue kernel through ``pallas_call``'s generic
+``vmap`` rule).
 
 One round (K2) folds the newest centroid block c (m, d) into every point's
 D² and returns the per-tile partial sums the samplers draw from:
@@ -18,9 +22,11 @@ D² and returns the per-tile partial sums the samplers draw from:
 The batched round (K7) is K2 over B independent problems in one launch:
 (B, n, d) points, (B, m, d) centroids, (B, n) norms and D², (B, T)
 partials; row b is K2 on problem b. The gated round (K5) does the same as
-K2 on the tiles the seeding gate marks active only, skips the rows the per-point bound prunes, and also returns
-each tile's max of new_md and its count of pruned rows; inactive tiles keep
-their carried values.
+K2 on the tiles the seeding gate marks active only, skips the rows the
+per-point bound prunes, and also returns each tile's max of new_md and its
+count of pruned rows; inactive tiles keep their carried values. K8 is K5
+over B problems in one launch, each with its own gate, row b K5 on problem
+b.
 
 Rejection seeding (K11, K12) works between refreshes against the pending
 block of P centroids not yet folded in, of which the first ``count`` are
@@ -49,8 +55,12 @@ _BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6
                      + (ctypes.c_void_p,))
 _GATED_ARGTYPES = ((ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 5
                    + (ctypes.c_void_p,))
+_GATED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 6
+                           + (ctypes.c_void_p,))
 _PROLOGUE_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3
                       + (ctypes.c_void_p,))
+_PROLOGUE_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4
+                              + (ctypes.c_void_p,))
 _ROW_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_longlong,)
                  + (ctypes.c_int,) * 2 + (ctypes.c_void_p,))
 _CAP_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (
@@ -89,7 +99,8 @@ def distance_min_update_batched_torch(points: torch.Tensor,
 def seed_prologue_torch(points: torch.Tensor, block_n: int):
     """Plain PyTorch twin of K1, the arithmetic of the reference's
     ``_prologue_kernel``: (norms (n,), centers (T, d), radii (T,),
-    center_d (n,)), all fp32."""
+    center_d (n,)), all fp32. Batched points (B, n, d) give each problem's,
+    stacked: the twin of the batched K1."""
     return tuple(bounds.prologue(points, block_n))
 
 
@@ -128,6 +139,16 @@ def distance_min_update_gated_torch(points, norms, centroids, min_d2,
                        prev_tile_max, active, block_n=block_n)
 
 
+def distance_min_update_gated_batched_torch(*args, block_n: int):
+    """Plain PyTorch twin of K8: K5's twin on each problem of the (B, ...)
+    arguments (those of ``distance_min_update_gated_torch``), stacked, so
+    row b is bitwise the single twin on problem b. Returns (min_d2 (B, n),
+    partials (B, T), tile_max (B, T), pruned (B, T))."""
+    outs = [distance_min_update_gated_torch(*one, block_n=block_n)
+            for one in zip(*args)]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
 def seed_prologue(points: torch.Tensor, block_n: int):
     """The prologue at tile height ``block_n``. Returns (norms (n,),
     centers (T, d), radii (T,), center_d (n,)). On the card this launches
@@ -159,6 +180,45 @@ def seed_prologue(points: torch.Tensor, block_n: int):
         raise KernelFailureError(f"seed_prologue launch failed: "
                                  f"cudaError {err}")
     ops.LAUNCHES["seed_prologue"] += 1
+    return norms, centers, radii, center_d
+
+
+def seed_prologue_batched(points: torch.Tensor, block_n: int):
+    """The prologue of B independent problems (points (B, n, d)) at tile
+    height ``block_n``. Returns (norms (B, n), centers (B, T, d), radii
+    (B, T), center_d (B, n)). On the card this launches the batched K1, one
+    launch for every problem; CPU tensors take the plain twin."""
+    if points.dim() != 3 or min(points.shape) < 1:
+        raise ValueError(f"points must be (B, n, d), got "
+                         f"{tuple(points.shape)}")
+    if block_n < 1:
+        raise ValueError(f"block_n must be >= 1, got {block_n}")
+    if points.device.type == "cpu":
+        return seed_prologue_torch(points, block_n)
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    ops.check_card_tensors(points=points)
+    bsz, n, d = points.shape
+    n_tiles = -(-n // block_n)
+    if bsz * n_tiles >= 2 ** 31:
+        raise ValueError(f"{bsz} problems of {n_tiles} tiles exceed the "
+                         "grid's 2^31 - 1 blocks")
+    fn = _build.function("seed_prologue", "seed_prologue_batched_launch",
+                         _PROLOGUE_BATCHED_ARGTYPES)
+    dev = points.device
+    norms = torch.empty((bsz, n), dtype=torch.float32, device=dev)
+    center_d = torch.empty_like(norms)
+    centers = torch.empty((bsz, n_tiles, d), dtype=torch.float32, device=dev)
+    radii = torch.empty((bsz, n_tiles), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(points.data_ptr(), norms.data_ptr(), centers.data_ptr(),
+                 radii.data_ptr(), center_d.data_ptr(), bsz, n, d, block_n,
+                 stream)
+    if err != 0:
+        raise KernelFailureError(f"seed_prologue_batched launch failed: "
+                                 f"cudaError {err}")
+    ops.LAUNCHES["seed_prologue_batched"] += 1
     return norms, centers, radii, center_d
 
 
@@ -328,6 +388,78 @@ def distance_min_update_gated(points: torch.Tensor, norms: torch.Tensor,
         raise KernelFailureError(f"distance_min_update_gated launch failed: "
                                  f"cudaError {err}")
     ops.LAUNCHES["distance_min_update_gated"] += 1
+    return out, partials, tile_max, pruned
+
+
+def distance_min_update_gated_batched(points: torch.Tensor,
+                                      norms: torch.Tensor,
+                                      centroids: torch.Tensor,
+                                      min_d2: torch.Tensor,
+                                      center_d: torch.Tensor,
+                                      dc: torch.Tensor, margin: torch.Tensor,
+                                      prev_partials: torch.Tensor,
+                                      prev_tile_max: torch.Tensor,
+                                      active: torch.Tensor, *, block_n: int,
+                                      resident: bool = True):
+    """One bound-gated seeding round of B independent problems: the
+    arguments of ``distance_min_update_gated`` with a leading problem axis
+    (points (B, n, d), centroids (B, m, d), norms, min_d2 and center_d
+    (B, n), dc, margin, the carries and ``active`` (B, T)), each problem
+    gated by its own mask. Returns (min_d2 (B, n), partials (B, T),
+    tile_max (B, T), pruned (B, T) int32). On the card this launches K8,
+    one launch over every problem's tiles (inactive ones exit); the outputs
+    start as copies of the carries. CPU tensors take the plain twin."""
+    if points.dim() != 3 or centroids.dim() != 3:
+        raise ValueError("points and centroids must be 3-D (B, rows, d)")
+    _check(points[0], norms[0], centroids[0], min_d2[0], block_n)
+    bsz, n, d = points.shape
+    m = centroids.shape[1]
+    n_tiles = -(-n // block_n)
+    args = (points, norms, centroids, min_d2, center_d, dc, margin,
+            prev_partials, prev_tile_max, active)
+    want = ((bsz, n, d), (bsz, n), (bsz, m, d), (bsz, n), (bsz, n)) \
+        + ((bsz, n_tiles),) * 5
+    for name, t, shape in zip(("points", "norms", "centroids", "min_d2",
+                               "center_d", "dc", "margin", "prev_partials",
+                               "prev_tile_max", "active"), args, want):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} {tuple(t.shape)} must be {shape}")
+    if len({t.device for t in args}) != 1:
+        raise ValueError("inputs on several devices")
+    if points.device.type == "cpu":
+        return distance_min_update_gated_batched_torch(*args,
+                                                       block_n=block_n)
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    ops.check_card_tensors(points=points, norms=norms, centroids=centroids,
+                           min_d2=min_d2, center_d=center_d, dc=dc,
+                           margin=margin)
+    if ops.seed_smem_bytes(d, m, resident, gated=True) > ops.SMEM_LIMIT:
+        raise ValueError(f"a resident ({m}, {d}) centroid block does not fit "
+                         f"in {ops.SMEM_LIMIT} bytes of shared memory")
+    if bsz * n_tiles >= 2 ** 31:
+        raise ValueError(f"{bsz} problems of {n_tiles} tiles exceed the "
+                         "grid's 2^31 - 1 blocks")
+    fn = _build.function("kmeans_distance",
+                         "distance_min_update_gated_batched_launch",
+                         _GATED_BATCHED_ARGTYPES)
+    out = min_d2.clone()
+    partials = prev_partials.float().contiguous().clone()
+    tile_max = prev_tile_max.float().contiguous().clone()
+    pruned = torch.zeros((bsz, n_tiles), dtype=torch.int32,
+                         device=points.device)
+    act = active.to(torch.uint8).contiguous()
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
+                 min_d2.data_ptr(), out.data_ptr(), partials.data_ptr(),
+                 center_d.data_ptr(), dc.data_ptr(), margin.data_ptr(),
+                 act.data_ptr(), tile_max.data_ptr(), pruned.data_ptr(),
+                 bsz, n, d, m, block_n, int(resident), stream)
+    if err != 0:
+        raise KernelFailureError(f"distance_min_update_gated_batched launch "
+                                 f"failed: cudaError {err}")
+    ops.LAUNCHES["distance_min_update_gated_batched"] += 1
     return out, partials, tile_max, pruned
 
 

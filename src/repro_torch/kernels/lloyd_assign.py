@@ -1,6 +1,8 @@
-"""K3, K6 and K10a — the tiled Lloyd assignment round, ungated, bound-gated
-and batched (port of ``repro.kernels.lloyd_assign.lloyd_assign_tiled_pallas``,
-``lloyd_assign_gated_pallas`` and ``lloyd_assign_tiled_batched_pallas``).
+"""K3, K6, K10a and K10b — the tiled Lloyd assignment round, ungated,
+bound-gated, and each batched (port of
+``repro.kernels.lloyd_assign.lloyd_assign_tiled_pallas``,
+``lloyd_assign_gated_pallas``, ``lloyd_assign_tiled_batched_pallas`` and
+``lloyd_assign_gated_batched_pallas``).
 
 One round assigns every point to its nearest centroid and returns what the
 centroid update and the next slice's movement bound need:
@@ -18,13 +20,14 @@ also returns each row's lower bound on its second-nearest distance and each
 tile's count of pruned rows; skipped tiles and supers keep their carried
 values.
 
-The batched round (K10a) is K3 over B independent problems in one launch,
-every output with a leading problem axis; row b is K3 on problem b.
+The batched rounds (K10a, K10b) are K3 and K6 over B independent problems
+in one launch, every argument and output with a leading problem axis and
+every problem gated by its own mask; row b is K3 (K6) on problem b.
 
-``lloyd_assign_tiled``, ``lloyd_assign_gated`` and
-``lloyd_assign_tiled_batched`` launch the hand-written
-CUDA kernels (``csrc/lloyd_assign.cu``) for tensors on the card, and run the
-plain twins (``*_torch``) only for tensors on the CPU.
+``lloyd_assign_tiled``, ``lloyd_assign_gated``, ``lloyd_assign_tiled_batched``
+and ``lloyd_assign_gated_batched`` launch the hand-written CUDA kernels
+(``csrc/lloyd_assign.cu``) for tensors on the card, and run the plain twins
+(``*_torch``) only for tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -45,6 +48,8 @@ _GATED_ARGTYPES = ((ctypes.c_void_p,) * 19 + (ctypes.c_int,) * 6
                    + (ctypes.c_void_p,))
 _BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7
                      + (ctypes.c_void_p,))
+_GATED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 19 + (ctypes.c_int,) * 7
+                           + (ctypes.c_void_p,))
 
 
 def _tile_reduce(points, a, m, gap_pt, k, block_n, tps):
@@ -135,6 +140,28 @@ def lloyd_assign_gated_torch(points, norms, centroids, delta, thresh, absorb,
             torch.where(sup[:, None, None], ssums, prev_super_sums),
             torch.where(sup[:, None], scounts, prev_super_counts),
             tile_partials(prune.int(), block_n).to(torch.int32))
+
+
+def lloyd_assign_gated_batched_torch(*args, block_n: int, tps: int):
+    """Plain PyTorch twin of K10b: K6's twin on each problem of the (B, ...)
+    arguments (those of ``lloyd_assign_gated_torch``), stacked, so row b is
+    bitwise the single twin on problem b. ``active`` must be super-aligned
+    in every problem."""
+    outs = [lloyd_assign_gated_torch(*one, block_n=block_n, tps=tps)
+            for one in zip(*args)]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def _gated_shapes(lead, n, d, k, block_n, tps) -> dict:
+    """The shapes ``lloyd_assign_gated(_batched)`` takes, by argument."""
+    n_tiles = -(-n // block_n)
+    n_super = -(-n_tiles // tps)
+    shapes = {"delta": (k,), "thresh": (n_tiles,), "absorb": (n_tiles,),
+              "prev_assign": (n,), "prev_min_d2": (n,), "prev_lb": (n,),
+              "prev_partials": (n_tiles,), "prev_gaps": (n_tiles,),
+              "prev_super_sums": (n_super, k, d),
+              "prev_super_counts": (n_super, k), "active": (n_tiles,)}
+    return {name: lead + s for name, s in shapes.items()}
 
 
 def _check(points, norms, centroids, block_n, tps):
@@ -269,8 +296,9 @@ def lloyd_assign_gated(points: torch.Tensor, norms: torch.Tensor,
                        prev_gaps: torch.Tensor, prev_super_sums: torch.Tensor,
                        prev_super_counts: torch.Tensor, active: torch.Tensor,
                        *, block_n: int, tps: int):
-    """One bound-gated assignment round. ``active`` (T,) is expanded here to
-    whole super-tiles (idempotent when the caller already did);
+    """One bound-gated assignment round. ``active`` (T,) is widened here to
+    whole super-tiles (``bounds.align_supers``: idempotent when the caller
+    already expanded it);
     ``delta``/``thresh``/``absorb`` come from ``bounds.assign_point_scalars``
     and the ``prev_*`` carries from the previous round, at tile height
     ``block_n`` and fan-in ``tps``. Returns (labels, min_d2, lb, partials,
@@ -282,20 +310,14 @@ def lloyd_assign_gated(points: torch.Tensor, norms: torch.Tensor,
     n, d = points.shape
     k = centroids.shape[0]
     n_tiles = -(-n // block_n)
-    n_super = -(-n_tiles // tps)
-    shapes = {"delta": (delta, (k,)), "thresh": (thresh, (n_tiles,)),
-              "absorb": (absorb, (n_tiles,)),
-              "prev_assign": (prev_assign, (n,)),
-              "prev_min_d2": (prev_min_d2, (n,)), "prev_lb": (prev_lb, (n,)),
-              "prev_partials": (prev_partials, (n_tiles,)),
-              "prev_gaps": (prev_gaps, (n_tiles,)),
-              "prev_super_sums": (prev_super_sums, (n_super, k, d)),
-              "prev_super_counts": (prev_super_counts, (n_super, k)),
-              "active": (active, (n_tiles,))}
-    for name, (t, want) in shapes.items():
+    given = (delta, thresh, absorb, prev_assign, prev_min_d2, prev_lb,
+             prev_partials, prev_gaps, prev_super_sums, prev_super_counts,
+             active)
+    for (name, want), t in zip(_gated_shapes((), n, d, k, block_n,
+                                             tps).items(), given):
         if tuple(t.shape) != want:
             raise ValueError(f"{name} {tuple(t.shape)} must be {want}")
-    active = bounds.expand_active_supers(active, tps)
+    active = bounds.align_supers(active, tps)
     if points.device.type == "cpu":
         return lloyd_assign_gated_torch(
             points, norms, centroids, delta, thresh, absorb, prev_assign,
@@ -337,4 +359,93 @@ def lloyd_assign_gated(points: torch.Tensor, norms: torch.Tensor,
         raise KernelFailureError(f"lloyd_assign_gated launch failed: "
                                  f"cudaError {err}")
     ops.LAUNCHES["lloyd_assign_gated"] += 1
+    return labels, md, lb, partials, gaps, ssums, scounts, pruned
+
+
+def lloyd_assign_gated_batched(points: torch.Tensor, norms: torch.Tensor,
+                               centroids: torch.Tensor, delta: torch.Tensor,
+                               thresh: torch.Tensor, absorb: torch.Tensor,
+                               prev_assign: torch.Tensor,
+                               prev_min_d2: torch.Tensor,
+                               prev_lb: torch.Tensor,
+                               prev_partials: torch.Tensor,
+                               prev_gaps: torch.Tensor,
+                               prev_super_sums: torch.Tensor,
+                               prev_super_counts: torch.Tensor,
+                               active: torch.Tensor, *, block_n: int,
+                               tps: int):
+    """One bound-gated assignment round of B independent problems: the
+    arguments of ``lloyd_assign_gated`` with a leading problem axis (points
+    (B, n, d), norms (B, n), centroids and the rest (B, ...)), each problem
+    gated by its own mask, widened here to whole super-tiles per problem
+    (``bounds.align_supers``: a problem with nothing active computes
+    nothing).
+    Returns (labels, min_d2, lb (B, n), partials, gaps (B, T), super_sums
+    (B, S, k, d), super_counts (B, S, k), pruned (B, T) int32). On the card
+    this launches K10b (its two kernels count as one launch) over every
+    problem's tiles; the outputs start as copies of the carries, so a
+    skipped tile or super keeps them. CPU tensors take the plain twin."""
+    if points.dim() != 3 or centroids.dim() != 3:
+        raise ValueError("points and centroids must be 3-D (B, rows, d)")
+    bsz, n, d = points.shape
+    k = centroids.shape[1]
+    _check(points[0], norms[0], centroids[0], block_n, tps)
+    given = (delta, thresh, absorb, prev_assign, prev_min_d2, prev_lb,
+             prev_partials, prev_gaps, prev_super_sums, prev_super_counts,
+             active)
+    shapes = dict(_gated_shapes((bsz,), n, d, k, block_n, tps),
+                  points=(bsz, n, d), norms=(bsz, n), centroids=(bsz, k, d))
+    for name, t in zip(shapes, given + (points, norms, centroids)):
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} {tuple(t.shape)} must be "
+                             f"{shapes[name]}")
+    if len({t.device for t in given + (points, norms, centroids)}) != 1:
+        raise ValueError("inputs on several devices")
+    active = bounds.align_supers(active, tps)
+    args = (points, norms, centroids, delta, thresh, absorb, prev_assign,
+            prev_min_d2, prev_lb, prev_partials, prev_gaps, prev_super_sums,
+            prev_super_counts, active)
+    if points.device.type == "cpu":
+        return lloyd_assign_gated_batched_torch(*args, block_n=block_n,
+                                                tps=tps)
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    ops.check_card_tensors(points=points, norms=norms, centroids=centroids,
+                           delta=delta, thresh=thresh, absorb=absorb,
+                           prev_min_d2=prev_min_d2, prev_lb=prev_lb)
+    ops.check_card_tensors(torch.int32, prev_assign=prev_assign)
+    cols = ops.assign_cols(d, k, block_n, gated=True)
+    if cols < 1:
+        raise ValueError(f"({k}, {d}) centroids with block_n={block_n} do "
+                         f"not fit in {ops.SMEM_LIMIT} bytes of shared memory")
+    n_tiles = -(-n // block_n)
+    if bsz * n_tiles >= 2 ** 31:
+        raise ValueError(f"{bsz} problems of {n_tiles} tiles exceed the "
+                         "grid's 2^31 - 1 blocks")
+    fn = _build.function("lloyd_assign", "lloyd_assign_gated_batched_launch",
+                         _GATED_BATCHED_ARGTYPES)
+    dev = points.device
+    labels, md, lb = prev_assign.clone(), prev_min_d2.clone(), prev_lb.clone()
+    partials = prev_partials.float().contiguous().clone()
+    gaps = prev_gaps.float().contiguous().clone()
+    ssums = prev_super_sums.float().contiguous().clone()
+    scounts = prev_super_counts.float().contiguous().clone()
+    pruned = torch.zeros((bsz, n_tiles), dtype=torch.int32, device=dev)
+    tile_acc = torch.empty((bsz, n_tiles, k, d + 1), dtype=torch.float32,
+                           device=dev)
+    act = active.to(torch.uint8).contiguous()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
+                 delta.data_ptr(), thresh.data_ptr(), absorb.data_ptr(),
+                 prev_assign.data_ptr(), prev_min_d2.data_ptr(),
+                 prev_lb.data_ptr(), act.data_ptr(), labels.data_ptr(),
+                 md.data_ptr(), lb.data_ptr(), partials.data_ptr(),
+                 gaps.data_ptr(), tile_acc.data_ptr(), ssums.data_ptr(),
+                 scounts.data_ptr(), pruned.data_ptr(), bsz, n, d, k,
+                 block_n, tps, cols, stream)
+    if err != 0:
+        raise KernelFailureError(f"lloyd_assign_gated_batched launch failed: "
+                                 f"cudaError {err}")
+    ops.LAUNCHES["lloyd_assign_gated_batched"] += 1
     return labels, md, lb, partials, gaps, ssums, scounts, pruned

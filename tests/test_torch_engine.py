@@ -612,26 +612,32 @@ def test_unported_options_raise():
         eng.seed(pts, 3, sampler="gumbel")
     with pytest.raises(ValueError):
         make_backend("pallas")
-    # batched problems: bounds=True (the default) and rejection seeding
-    # raise instead of running ungated or elsewhere
+    # batched problems: rejection seeding raises, with bounds on (the
+    # default) and off, instead of running elsewhere; so does the in-flight
+    # guard, which the batched loops do not run (as the reference's vmap)
     many = np.stack([pts, pts])
-    for call in (lambda: eng.seed_batched(many, 3),
-                 lambda: eng.fit_batched(many, many[:, :3]),
-                 lambda: eng.kmeans_batched(many, 3)):
-        with pytest.raises(NotImplementedError, match="bounds=True"):
-            call()
     off = ClusterEngine(device="cpu", bounds=False)
-    for call in (lambda: off.seed_batched(many, 3, sampler="rejection"),
-                 lambda: off.kmeans_batched(many, 3, sampler="rejection")):
+    for e in (eng, off):
+        for call in (lambda: e.seed_batched(many, 3, sampler="rejection"),
+                     lambda: e.kmeans_batched(many, 3, sampler="rejection")):
+            with pytest.raises(NotImplementedError, match="rejection"):
+                call()
+    for gate in (True, False):
         with pytest.raises(NotImplementedError, match="rejection"):
-            call()
-    with pytest.raises(NotImplementedError):
-        engine.seed_points(Draws.sample_batched(2, 100, 3), torch.from_numpy(
-            many), 3, make_backend("fused"), bound_gate=True)
-    with pytest.raises(NotImplementedError):
-        engine.fit_points(torch.from_numpy(many),
-                          torch.from_numpy(many[:, :3]),
-                          make_backend("fused"), 5, 0.0, bound_gate=True)
+            engine.seed_points(Draws.sample_batched(2, 100, 3),
+                               torch.from_numpy(many), 3,
+                               make_backend("fused"), "rejection",
+                               bound_gate=gate)
+        with pytest.raises(NotImplementedError, match="guard"):
+            engine.seed_points(Draws.sample_batched(2, 100, 3),
+                               torch.from_numpy(many), 3,
+                               make_backend("fused"), bound_gate=gate,
+                               guard=True)
+        with pytest.raises(NotImplementedError, match="guard"):
+            engine.fit_points(torch.from_numpy(many),
+                              torch.from_numpy(many[:, :3]),
+                              make_backend("fused"), 5, 0.0,
+                              bound_gate=gate, guard=True)
 
 
 def test_port_imports_neither_jax_nor_repro():

@@ -445,11 +445,23 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
                                    block_n=128)
     la.lloyd_assign_tiled_batched(xb, nb, xb[:, :3].contiguous(),
                                   block_n=128, tps=1)
+    nb, _, _, cdb = kd.seed_prologue_batched(xb, 128)
+    tb = torch.ones((2, 4), dtype=torch.bool)
+    zb = torch.zeros((2, 4))
+    kd.distance_min_update_gated_batched(
+        xb, nb, xb[:, :1].contiguous(), torch.full((2, 500), torch.inf), cdb,
+        zb, zb, zb, torch.full((2, 4), torch.inf), tb, block_n=128)
+    la.lloyd_assign_gated_batched(
+        xb, nb, xb[:, :3].contiguous(), torch.zeros(2, 3), zb, zb,
+        torch.zeros((2, 500), dtype=torch.int32), torch.zeros(2, 500),
+        torch.full((2, 500), -torch.inf), zb, zb, torch.zeros(2, 4, 3, 2),
+        torch.zeros(2, 4, 3), tb, block_n=128, tps=1)
     assert set(ops.LAUNCHES) == {
         "seed_prologue", "distance_min_update", "lloyd_assign_tiled",
         "distance_min_update_gated", "lloyd_assign_gated", "row_min_d2",
         "tile_cap", "distance_min_update_batched",
-        "lloyd_assign_tiled_batched"}
+        "lloyd_assign_tiled_batched", "seed_prologue_batched",
+        "distance_min_update_gated_batched", "lloyd_assign_gated_batched"}
     assert not any(ops.LAUNCHES.values())
 
 
