@@ -87,12 +87,35 @@ Phases, each of which exits non-zero on failure:
    0, 1 and B−1 bitwise the single gated ``seed`` then ``fit`` with their
    skip and prune counters. Printed: the counters' totals, gated and
    ungated seconds.
-7. With ``--profile`` only: trace one seeding run per sampler (rejection
+7. Weighted and mini-batch Lloyd. K4 (the untiled assignment round) at
+   the paper's shape, unweighted and with integer weights 1–8, and at
+   n = 100,003, d = 128, k = 64, and K9 (K4 over a batch of problems) at
+   ``kvquant-gemma2-2b``, against their plain twins (labels outside
+   near-ties, D² within tolerance, sums and counts over the kernel's own
+   labels), two launches bitwise, K4's labels and D² bitwise K3's, K9's
+   rows 0, 1 and B−1 bitwise K4; K9's path, ``ops.lloyd_assign`` on the
+   sweep's (B, n, d) points against its fitted codebooks, one counted
+   launch, codes bitwise K10a's labels. Then the weighted
+   ``ClusterEngine(device="cuda").kmeans`` at the paper's size for cdf,
+   tiled and rejection (hier, flat), counted (K1 once, K2 per round or
+   refresh, K11 per proposal, K12 per hier round, K4 per iteration, no
+   K3/K5/K6), bitwise a second run and (but for hier, which tightens its
+   envelope only with the tile balls) the ``bounds=False`` run, the kmeans
+   bitwise its seeding's seeds then a weighted fit, the inertia within
+   1e-4 of the plain twins' fit from the same seeds; and
+   ``fit_minibatch`` over the paper's 4,000,000 points streamed from the
+   host array through ``DataPipeline``, 16 batches of 262,144 rows, one
+   pass, counted (K4 per batch), bitwise a second run. Printed: seeding
+   ms (median of 3), Lloyd ms per iteration, kmeans s; ms per batch with the
+   host-to-device copies and the device busy time (profiler), and the
+   mini-batch inertia over all rows over the full-batch fit's.
+8. With ``--profile`` only: trace one seeding run per sampler (rejection
    hier and flat included) and one Lloyd fit at the paper's shape,
-   ungated and gated (shuffled and sorted), and the batched seeding (cdf,
-   tiled) and fit at the codebook sweep's, ungated and gated, with
-   torch.profiler, and print the device time by kernel and the device's
-   idle share.
+   ungated and gated (shuffled and sorted), the weighted seeding (cdf,
+   tiled), the weighted fit and the mini-batch run, and the batched
+   seeding (cdf, tiled) and fit at the codebook sweep's, ungated and
+   gated, with torch.profiler, and print the device time by kernel and
+   the device's idle share.
 
 The last three lines of stdout are the card's name and power limit, the
 kernels' JSON record, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -165,6 +188,16 @@ def partial_tol(d2tol: float, block_n: int, partials) -> "object":
     return block_n * d2tol + 2 * block_n * EPS32 * partials.abs()
 
 
+def label_diffs(torch, d2, lab, want, tol) -> tuple[int, int]:
+    """(rows whose labels differ, rows among them whose two picks' D² lie
+    more than ``tol`` apart): within the D² tolerance either label is a
+    correct argmin."""
+    diff = lab.long() != want.long()
+    gap = (d2.gather(1, lab.long()[:, None])
+           - d2.gather(1, want.long()[:, None])).abs()[:, 0]
+    return int(diff.sum()), int((diff & (gap > tol)).sum())
+
+
 def k2_case(torch, kd, ops, pts, norms, m, resident, gen):
     n, d = pts.shape
     bn = ops.choose_block_n(n, d, 50)
@@ -200,20 +233,23 @@ def k2_case(torch, kd, ops, pts, norms, m, resident, gen):
 
 
 def super_sums_ok(torch, pts, lab, ssums, scounts, rows_per_super,
-                  supers=None, s_of=None) -> bool:
+                  supers=None, s_of=None, w=None) -> bool:
     """Super-tile sums and counts against a float64 segment sum over the
     KERNEL's labels ``lab``: counts exact, sums within 1e-4 of the rows'
     absolute sum (the sequential fp32 adds of up to ``rows_per_super``
     rows). ``supers`` (n_super,) bool restricts the check to those supers;
     ``s_of`` (n,) gives each row's super when it is not row //
-    rows_per_super (batched problems flattened into one)."""
+    rows_per_super (batched problems flattened into one). ``w`` (n,)
+    weighs the rows (integer weights keep the counts exact in fp32)."""
     n, d = pts.shape
     n_super, k = scounts.shape
     if s_of is None:
         s_of = torch.arange(n, device=pts.device) // rows_per_super
     slot = s_of * k + lab.long()
-    want_c = torch.bincount(slot, minlength=n_super * k).view(n_super, k)
-    x64 = pts.double()
+    w64 = None if w is None else w.double()
+    want_c = torch.bincount(slot, weights=w64,
+                            minlength=n_super * k).view(n_super, k)
+    x64 = pts.double() if w is None else pts.double() * w64[:, None]
     want_s = torch.zeros(n_super * k, d, dtype=torch.float64,
                          device=pts.device).index_add_(0, slot, x64)
     abs_s = torch.zeros_like(want_s).index_add_(0, slot, x64.abs())
@@ -239,15 +275,9 @@ def k3_case(torch, la, ops, bounds, pts, norms, k, gen):
     lab, md, part, gap, ssums, scounts = out1
     ref = la.lloyd_assign_tiled_torch(pts, norms, cents, block_n=bn, tps=tps)
     tol = d2_tol(torch, norms, cents)
-    # labels: equal, except rows whose best and runner-up D² lie within the
-    # D² tolerance (then either is a correct argmin)
-    d2 = la.tile_d2(pts, cents, norms)
-    diff = lab.long() != ref[0].long()
-    tie_gap = (d2.gather(1, lab.long()[:, None])
-               - d2.gather(1, ref[0].long()[:, None])).abs()[:, 0]
-    n_diff = int(diff.sum())
-    check(bool((tie_gap[diff] <= tol).all()),
-          f"K3 k={k}: {n_diff} labels differ beyond near-ties")
+    n_diff, bad = label_diffs(torch, la.tile_d2(pts, cents, norms), lab,
+                              ref[0], tol)
+    check(bad == 0, f"K3 k={k}: {bad} labels differ beyond near-ties")
     err_md = float((md - ref[1]).abs().max())
     check(err_md <= tol, f"K3 min_d2 err {err_md} > {tol}")
     check(bool(((part - ref[2]).abs() <= partial_tol(tol, bn, ref[2])).all()),
@@ -887,17 +917,10 @@ def k10a_case(torch, la, kd, ops, bounds, pts, norms, k, gen):
     ref = la.lloyd_assign_tiled_batched_torch(pts, norms, cents, block_n=bn,
                                               tps=tps)
     tol = d2_tol(torch, norms, cents.reshape(-1, d))
-    bad = torch.zeros((), dtype=torch.int64, device=pts.device)
-    n_diff = torch.zeros((), dtype=torch.int64, device=pts.device)
-    for b in range(bsz):
-        d2 = kd.tile_d2(pts[b], cents[b], norms[b])
-        diff = lab[b] != ref[0][b]
-        tie_gap = (d2.gather(1, lab[b].long()[:, None])
-                   - d2.gather(1, ref[0][b].long()[:, None])).abs()[:, 0]
-        bad += (diff & (tie_gap > tol)).sum()
-        n_diff += diff.sum()
-    check(int(bad) == 0, f"K10a k={k}: {int(bad)} labels differ beyond "
-          "near-ties")
+    n_diff, bad = map(sum, zip(*(
+        label_diffs(torch, kd.tile_d2(pts[b], cents[b], norms[b]), lab[b],
+                    ref[0][b], tol) for b in range(bsz))))
+    check(bad == 0, f"K10a k={k}: {bad} labels differ beyond near-ties")
     err_md = float((md - ref[1]).abs().max())
     check(err_md <= tol, f"K10a min_d2 err {err_md} > {tol}")
     check(bool(((part - ref[2]).abs() <= partial_tol(tol, bn, ref[2])).all()),
@@ -926,7 +949,7 @@ def k10a_case(torch, la, kd, ops, bounds, pts, norms, k, gen):
                                   + n_super * k * (d + 1)),
                        bsz * (n * k * (2 * d + 3) + n * d))
     return dict(batch=bsz, n=n, d=d, k=k, block_n=bn, tps=tps,
-                label_diffs=int(n_diff), max_abs_err=err_md, tol=tol, ms=ms,
+                label_diffs=n_diff, max_abs_err=err_md, tol=tol, ms=ms,
                 plain_ms=plain, bound_ms=bms, bound_by=by)
 
 
@@ -1441,6 +1464,290 @@ def gated_batched_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws,
     return cases, runs
 
 
+def k4_case(torch, la, ops, bounds, pts, norms, k, gen, w=None):
+    """K4 on one shape, weighted or not: two launches bitwise, against its
+    plain twin (labels outside near-ties, D² within tolerance, sums and
+    counts over its own labels as ``super_sums_ok`` holds them), labels and
+    D² bitwise K3's on the same points and centroids; times and bound."""
+    n, d = pts.shape
+    bn = ops.choose_block_n(n, d, k)
+    cents = pts[torch.randint(n, (k,), generator=gen,
+                              device=pts.device)].contiguous()
+    tag = f"K4 n={n} d={d} k={k}" + ("" if w is None else " weighted")
+    out1 = la.lloyd_assign(pts, norms, cents, w, block_n=bn)
+    out2 = la.lloyd_assign(pts, norms, cents, w, block_n=bn)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out1, out2)),
+          f"{tag}: two launches differ")
+    lab, md, sums, counts = out1
+    ref = la.lloyd_assign_torch(pts, norms, cents, w)
+    tol = d2_tol(torch, norms, cents)
+    n_diff, bad = label_diffs(torch, la.tile_d2(pts, cents, norms), lab,
+                              ref[0], tol)
+    check(bad == 0, f"{tag}: {bad} labels differ beyond near-ties")
+    err_md = float((md - ref[1]).abs().max())
+    check(err_md <= tol, f"{tag}: min_d2 err {err_md} > {tol}")
+    check(super_sums_ok(torch, pts, lab, sums[None], counts[None], n, w=w),
+          f"{tag}: sums or counts outside tolerance")
+    k3 = la.lloyd_assign_tiled(pts, norms, cents, block_n=bn,
+                               tps=bounds.tiles_per_super(-(-n // bn)))
+    check(torch.equal(lab, k3[0]) and torch.equal(md, k3[1]),
+          f"{tag}: labels or D² are not bitwise K3's")
+    ms = gpu_ms(torch, lambda: la.lloyd_assign(pts, norms, cents, w,
+                                               block_n=bn))
+    plain = gpu_ms(torch, lambda: la.lloyd_assign_torch(pts, norms, cents,
+                                                        w), reps=5)
+    nw = 0 if w is None else n
+    bms, by = bound_ms(4 * (n * d + 3 * n + nw + k * d + k * (d + 1)),
+                       n * k * (2 * d + 3) + n * (d + 1) + (nw * d))
+    return dict(n=n, d=d, k=k, weighted=w is not None, block_n=bn,
+                label_diffs=n_diff, max_abs_err=err_md, tol=tol,
+                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+
+
+def k9_case(torch, la, kd, ops, pts, norms, k, gen):
+    """K9 at the batched shape: two launches bitwise, against its plain
+    twin (as K4), rows 0, 1 and B−1 bitwise K4 on their problem; times and
+    bound."""
+    bsz, n, d = pts.shape
+    bn = ops.choose_block_n(n, d, k)
+    idx = torch.randint(n, (bsz, k, 1), generator=gen, device=pts.device)
+    cents = torch.take_along_dim(pts, idx, dim=1).contiguous()
+    out1 = la.lloyd_assign_batched(pts, norms, cents, block_n=bn)
+    out2 = la.lloyd_assign_batched(pts, norms, cents, block_n=bn)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out1, out2)),
+          f"K9 k={k}: two launches differ")
+    lab, md, sums, counts = out1
+    ref = la.lloyd_assign_batched_torch(pts, norms, cents)
+    tol = d2_tol(torch, norms, cents.reshape(-1, d))
+    n_diff, bad = map(sum, zip(*(
+        label_diffs(torch, kd.tile_d2(pts[b], cents[b], norms[b]), lab[b],
+                    ref[0][b], tol) for b in range(bsz))))
+    check(bad == 0, f"K9 k={k}: {bad} labels differ beyond near-ties")
+    err_md = float((md - ref[1]).abs().max())
+    check(err_md <= tol, f"K9 min_d2 err {err_md} > {tol}")
+    s_of = torch.arange(bsz, device=pts.device).repeat_interleave(n)
+    check(super_sums_ok(torch, pts.reshape(-1, d), lab.reshape(-1), sums,
+                        counts, n, s_of=s_of),
+          f"K9 k={k}: sums or counts outside tolerance")
+    for b in (0, 1, bsz - 1):
+        single = la.lloyd_assign(pts[b], norms[b], cents[b], block_n=bn)
+        check(all(torch.equal(u[b], v) for u, v in zip(out1, single)),
+              f"K9 k={k}: problem {b} is not bitwise K4 on its slice")
+    ms = gpu_ms(torch, lambda: la.lloyd_assign_batched(
+        pts, norms, cents, block_n=bn), reps=5)
+    plain = gpu_ms(torch, lambda: la.lloyd_assign_batched_torch(
+        pts, norms, cents), reps=3, warmup=1)
+    bms, by = bound_ms(4 * bsz * (n * d + 3 * n + k * d + k * (d + 1)),
+                       bsz * (n * k * (2 * d + 3) + n * (d + 1)))
+    return dict(batch=bsz, n=n, d=d, k=k, block_n=bn,
+                label_diffs=n_diff, max_abs_err=err_md, tol=tol, ms=ms,
+                plain_ms=plain, bound_ms=bms, bound_by=by)
+
+
+def weighted_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws, paper,
+                   paper_np, wts, kvq_pts, full, kvq, dev, launches, gen,
+                   batch_rows=262_144):
+    """Phase 7: K4 (weighted and not) and K9 against their plain twins; K9's
+    path (``ops.lloyd_assign`` on the sweep's (B, n, d) points, the rows
+    coded against the fitted codebooks); the weighted ``kmeans`` at
+    ``full`` for cdf, tiled and rejection (hier, flat), counted (K1 once,
+    K2 once per round or refresh, K11/K12 as phase 4, K4 once per
+    iteration, no K3/K5/K6), bitwise a second run and, but for hier (whose
+    envelope tightens only with the tile balls), the ``bounds=False`` run,
+    and within 1e-4 of the plain twins' fit from the same seeds; then
+    ``fit_minibatch`` over ``full`` streamed from the host array in batches
+    of ``batch_rows`` rows, one pass, counted (K4 once per batch), bitwise
+    a second run, with its time per batch, its host-to-device copies and
+    device busy time from the profiler, and its inertia over all of
+    ``full`` against the full-batch (unweighted) fit's from the same
+    seeds."""
+    k, n = full.k, full.n_points
+    cases = {"K4": [], "K9": []}
+    norms = bounds.point_norms(paper)
+    for w in (None, wts):
+        cases["K4"].append(k4_case(torch, la, ops, bounds, paper, norms, k,
+                                   gen, w))
+    wide = torch.rand((100_003, 128), generator=gen, device=dev)
+    cases["K4"].append(k4_case(torch, la, ops, bounds, wide,
+                               bounds.point_norms(wide), 64, gen))
+    del wide
+    for c in cases["K4"]:
+        print(f"K4 n={c['n']} d={c['d']} k={c['k']}"
+              + (" weighted" if c["weighted"] else "")
+              + f": err {c['max_abs_err']:.3g} (tol {c['tol']:.3g}) label "
+              f"diffs {c['label_diffs']}, labels and D² bitwise K3's; "
+              f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, bound "
+              f"{c['bound_ms']:.4f} ms ({c['bound_by']})")
+    knorms = bounds.point_norms(kvq_pts)
+    c = k9_case(torch, la, kd, ops, kvq_pts, knorms, kvq.k, gen)
+    cases["K9"].append(c)
+    print(f"K9 B={c['batch']} n={c['n']} d={c['d']} k={c['k']} label diffs "
+          f"{c['label_diffs']}: err {c['max_abs_err']:.3g} (tol "
+          f"{c['tol']:.3g}), rows 0, 1, B-1 bitwise K4; {c['ms']:.4f} ms, "
+          f"plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+          f"({c['bound_by']})")
+    # K9's path: code every row of the sweep against its fitted codebook
+    eng = ClusterEngine(device="cuda")
+    book = eng.kmeans_batched(kvq_pts, kvq.k, max_iters=kvq.max_iters,
+                              generator=torch.Generator().manual_seed(0))
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    codes, cmd, _, ccounts = ops.lloyd_assign(kvq_pts, book.centroids)
+    torch.cuda.synchronize()
+    code_ms = (time.perf_counter() - t0) * 1e3
+    got = dict(ops.LAUNCHES)
+    check(got["lloyd_assign_batched"] == 1 and sum(got.values()) == 1,
+          f"ops.lloyd_assign on (B, n, d): launches {got}")
+    launches["lloyd_assign_batched"] += 1
+    bn = ops.choose_block_n(kvq.n_points, kvq.dim, kvq.k)
+    k10a = la.lloyd_assign_tiled_batched(
+        kvq_pts, knorms, book.centroids.contiguous(), block_n=bn,
+        tps=bounds.tiles_per_super(-(-kvq.n_points // bn)))
+    check(torch.equal(codes, k10a[0]) and torch.equal(cmd, k10a[1])
+          and bool((ccounts.sum(-1) == kvq.n_points).all()),
+          "K9's codes are not K10a's labels, or its counts miss rows")
+    del knorms, k10a, codes, cmd
+    print(f"ops.lloyd_assign over the {kvq.name} sweep's codebooks: one K9 "
+          f"launch, {code_ms:.2f} ms (host clock), codes bitwise K10a's "
+          "labels")
+
+    ungated = ClusterEngine(device="cuda", bounds=False)
+    fused = ClusterEngine("fused", device="cuda", bounds=False)
+    runs = []
+    for sampler, prop in (("cdf", "hier"), ("tiled", "hier"),
+                          ("rejection", "hier"), ("rejection", "flat")):
+        rej = sampler == "rejection"
+        what = f"weighted kmeans[{sampler}" + (f" {prop}]" if rej else "]")
+        draws = Draws.sample(n, k, generator=torch.Generator().manual_seed(0),
+                             device=dev, max_attempts=8 if rej else 0,
+                             weighted=True)
+        kw = dict(weights=wts, proposal=prop)
+        seeds, _, _ = seed_run(torch, ops, eng, paper, k, draws,
+                               sampler=sampler, **kw)
+        seed_ms = median_seed_ms(torch, eng, paper, k, draws,
+                                 sampler=sampler, **kw)
+        res, total_s, got = kmeans_run(torch, ops, eng, paper, k, sampler,
+                                       draws, full.max_iters, **kw)
+        for name in launches:
+            launches[name] += got[name]
+        want = {name: 0 for name in got}
+        want.update(seed_prologue=1, lloyd_assign=res.n_iters,
+                    distance_min_update=k)
+        if rej:
+            want.update(distance_min_update=refreshes(
+                seeds.accepts.tolist(), k, 8),
+                row_min_d2=int(seeds.proposals.sum()),
+                tile_cap=k - 1 if prop == "hier" else 0)
+        check(got == want, f"{what}: launches {got}, want {want}")
+        check(tuple(res.centroids.shape) == (k, full.dim)
+              and bool(torch.isfinite(res.centroids).all())
+              and bool(torch.isfinite(res.inertia))
+              and int(res.assignment.min()) >= 0
+              and int(res.assignment.max()) < k
+              and res.skipped is None and res.recovered is None
+              and int(seeds.recovered.sum()) == 0
+              and bool((wts[seeds.indices] > 0).all()),
+              f"{what}: output malformed")
+        again, _, _ = kmeans_run(torch, ops, eng, paper, k, sampler, draws,
+                                 full.max_iters, **kw)
+        check(same_fit(torch, again, res), f"{what}: two runs differ")
+        off_s = None
+        if prop == "flat" or not rej:
+            off, off_s, _ = kmeans_run(torch, ops, ungated, paper, k,
+                                       sampler, draws, full.max_iters, **kw)
+            check(same_fit(torch, off, res),
+                  f"{what}: not bitwise the bounds=False kmeans")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit = eng.fit(paper, seeds.centroids, weights=wts,
+                      max_iters=full.max_iters)
+        torch.cuda.synchronize()
+        lloyd_ms = (time.perf_counter() - t0) * 1e3 / max(fit.n_iters, 1)
+        check(same_fit(torch, fit, res),
+              f"{what}: not the seeding's seeds then a weighted fit")
+        plain = fused.fit(paper, seeds.centroids, weights=wts,
+                          max_iters=full.max_iters)
+        # 1e-4: both fits take the same Lloyd steps; they differ only in
+        # the fp32 summation order of the weighted sums and the inertia
+        rel = abs(float(plain.inertia) - float(res.inertia)) / float(
+            res.inertia)
+        check(rel <= 1e-4, f"{what}: plain fit inertia differs by {rel:.3g}")
+        run = dict(sampler=sampler, proposal=prop if rej else None,
+                   n_iters=res.n_iters, inertia=float(res.inertia),
+                   kmeans_s=total_s, ungated_kmeans_s=off_s,
+                   seed_ms=seed_ms, lloyd_ms_per_iter=lloyd_ms,
+                   inertia_rel_diff=rel, launches=got,
+                   bitwise_ungated=off_s is not None, repeat_bitwise=True)
+        if rej:
+            run.update(proposals=int(seeds.proposals.sum()),
+                       accepts=int(seeds.accepts.sum()),
+                       tightened=int(seeds.tightened.sum()))
+        runs.append(run)
+        print(f"{what} at {full.name}: {total_s:.3f} s end to end"
+              + ("" if off_s is None else
+                 f", {off_s:.3f} s with bounds=False (bitwise equal)")
+              + f"; seeding {seed_ms:.2f} ms, Lloyd {lloyd_ms:.3f} ms/iter; "
+              f"n_iters {res.n_iters}, inertia {run['inertia']:.7g}, plain "
+              f"fit rel diff {rel:.3g}; launches "
+              f"{ {n_: c for n_, c in got.items() if c} }")
+
+    # mini-batch Lloyd, streamed from the host array
+    n_batches = -(-n // batch_rows)
+    init = eng.seed(paper, k, generator=torch.Generator().manual_seed(0),
+                    sampler="tiled").centroids
+
+    def read(step):
+        return paper_np[step * batch_rows:(step + 1) * batch_rows]
+
+    def minibatch():
+        return eng.fit_minibatch(init, read, n_batches=n_batches)
+
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mb = minibatch()
+    torch.cuda.synchronize()
+    mb_s = time.perf_counter() - t0
+    got = dict(ops.LAUNCHES)
+    for name in launches:
+        launches[name] += got[name]
+    check(got["lloyd_assign"] == n_batches and sum(got.values()) == n_batches
+          and mb.n_iters == n_batches,
+          f"fit_minibatch: launches {got}, {mb.n_iters} batches, want "
+          f"{n_batches} K4 launches")
+    check(same_fit(torch, minibatch(), mb), "fit_minibatch: two runs differ")
+    prof = profile_call(torch, minibatch)
+    h2d = sum(v["ms"] for name, v in prof["kernels"].items()
+              if "HtoD" in name)
+    full_fit = eng.fit(paper, init, max_iters=full.max_iters)
+    mb_inertia = float(la.lloyd_assign_torch(paper, norms,
+                                             mb.centroids)[1].double().sum())
+    ratio = mb_inertia / float(full_fit.inertia)
+    mrun = dict(batches=n_batches, batch_rows=batch_rows, wall_s=mb_s,
+                ms_per_batch=mb_s * 1e3 / n_batches,
+                h2d_ms_per_batch=h2d / n_batches,
+                busy_ms_per_batch=prof["busy_ms"] / n_batches,
+                profiled_wall_ms=prof["wall_ms"],
+                idle_share=prof["idle_share"], inertia_full=mb_inertia,
+                full_batch_inertia=float(full_fit.inertia),
+                full_batch_n_iters=full_fit.n_iters, inertia_ratio=ratio,
+                launches=got, repeat_bitwise=True)
+    print(f"fit_minibatch at {full.name}, {n_batches} batches of "
+          f"{batch_rows} rows, one pass: {mrun['ms_per_batch']:.3f} ms per "
+          f"batch (host clock), host-to-device copies "
+          f"{mrun['h2d_ms_per_batch']:.4f} ms and device busy "
+          f"{mrun['busy_ms_per_batch']:.4f} ms per batch (profiler, idle "
+          f"share {prof['idle_share']:.3f}); inertia over all rows "
+          f"{mb_inertia:.7g}, {ratio:.5f}× the full-batch fit's "
+          f"({full_fit.n_iters} iterations); launches "
+          f"{ {n_: c for n_, c in got.items() if c} }")
+    return cases, dict(weighted_kmeans=runs, minibatch=mrun,
+                       k9_path_ms=code_ms)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement here")
@@ -1732,6 +2039,16 @@ def main() -> int:
         gen)
     cases.update(gcases)
     report["gated_batched"] = grun
+
+    # 7. weighted and mini-batch Lloyd at the paper's shape (K4), and K9 at
+    #    the codebook sweep's; the weights are integer multiplicities 1-8
+    wts = torch.randint(1, 9, (FULL.n_points,), generator=gen,
+                        device=dev).float()
+    wcases, wrun = weighted_phase(torch, ops, kd, la, bounds, ClusterEngine,
+                                  Draws, paper, paper_np, wts, kvq_pts, FULL,
+                                  KVQ, dev, launches, gen)
+    cases.update(wcases)
+    report["weighted"] = wrun
     report["launches"] = launches
 
     if args.profile:
@@ -1770,6 +2087,19 @@ def main() -> int:
                         sampler="rejection", proposal=prop))
             phases[f"{tag} fit"] = (lambda e=e, pts=pts, c=seeds.centroids:
                                     e.fit(pts, c, max_iters=FULL.max_iters))
+        wdraws = Draws.sample(FULL.n_points, k, weighted=True, device=dev,
+                              generator=torch.Generator().manual_seed(0))
+        wseeds = eng.seed(paper, k, weights=wts, draws=wdraws)
+        for s in ("cdf", "tiled"):
+            phases[f"weighted seed[{s}]"] = (
+                lambda s=s: eng.seed(paper, k, weights=wts, draws=wdraws,
+                                     sampler=s))
+        phases["weighted fit"] = (lambda: eng.fit(
+            paper, wseeds.centroids, weights=wts, max_iters=FULL.max_iters))
+        phases["fit_minibatch (16 batches)"] = (lambda: eng.fit_minibatch(
+            wseeds.centroids, lambda i: paper_np[i * 262_144:
+                                                 (i + 1) * 262_144],
+            n_batches=-(-FULL.n_points // 262_144)))
         for name, fn in phases.items():
             fn()                                   # warm
             p = profile_call(torch, fn)
@@ -1835,6 +2165,12 @@ def main() -> int:
         entry("lloyd_assign_gated_batched", "lloyd_assign.cu",
               "src/repro/kernels/lloyd_assign.py:609",
               next(c for c in cases["K10b"] if c["mask"] == "gate"), "K10b"),
+        entry("lloyd_assign", "lloyd_assign.cu",
+              "src/repro/kernels/lloyd_assign.py:98",
+              main_case("K4", lambda c: c["k"] == FULL.k and c["weighted"]),
+              "K4"),
+        entry("lloyd_assign_batched", "lloyd_assign.cu",
+              "src/repro/kernels/lloyd_assign.py:184", cases["K9"][0], "K9"),
     ]}
     report.update(record)
     if args.json:

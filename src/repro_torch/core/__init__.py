@@ -5,14 +5,15 @@ from repro_torch.core.engine import (Backend, ClusterEngine, CudaBackend,
                                      LloydResult, ReferenceBackend,
                                      make_backend, pairwise_d2, point_d2)
 from repro_torch.core.guards import (ClusteringError, InvalidInputError,
-                                     KernelFailureError)
+                                     KernelFailureError, PipelineError)
 from repro_torch.core.kmeanspp import kmeanspp
-from repro_torch.core.lloyd import kmeans, lloyd, update
+from repro_torch.core.lloyd import assign, kmeans, lloyd, update
 from repro_torch.core.sampling import Draws
 
 __all__ = [
     "Backend", "ClusterEngine", "CudaBackend", "FusedBackend",
     "KmeansppResult", "LloydResult", "ReferenceBackend", "make_backend",
     "pairwise_d2", "point_d2", "ClusteringError", "InvalidInputError",
-    "KernelFailureError", "kmeanspp", "kmeans", "lloyd", "update", "Draws",
+    "KernelFailureError", "PipelineError", "kmeanspp", "assign", "kmeans",
+    "lloyd", "update", "Draws",
 ]

@@ -219,13 +219,15 @@ def seed_point_prune(min_d2: torch.Tensor, center_d: torch.Tensor,
     return lo * lo >= min_d2 * (1.0 + _REL) + margin
 
 
-def seed_envelope(min_d2: torch.Tensor) -> torch.Tensor:
-    """The rejection sampler's stale proposal weights ``q_i`` (unweighted:
-    the stale ``min_d2`` itself). Valid because seeding only ever ADDS
-    centroids: every point's D² is non-increasing across rounds, so a stale
-    copy (and the per-tile partials summed from it) dominates the current
-    weights pointwise — ``q_i >= p_i``, the exactness precondition."""
-    return min_d2
+def seed_envelope(min_d2: torch.Tensor,
+                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The rejection sampler's stale proposal weights ``q_i = stale_min_d2_i
+    · w_i`` (unweighted: the stale ``min_d2`` itself). Valid because
+    seeding only ever ADDS centroids: every point's D² is non-increasing
+    across rounds, so a stale copy (and the per-tile partials summed from
+    it) dominates the current weights pointwise — ``q_i >= p_i``, the
+    exactness precondition."""
+    return min_d2 if weights is None else min_d2 * weights
 
 
 def _dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """ClusterEngine — k-means++ seeding and Lloyd over a pluggable Backend
 (port of ``repro.core.engine``: the ungated and the bound-gated paths,
-rejection seeding, and batched problems, gated or not).
+rejection seeding, batched problems, gated or not, and the weighted and
+mini-batch fits).
 
 A ``Backend`` provides the round primitives the algorithms are written
 against:
@@ -18,6 +19,9 @@ against:
       one Lloyd half-step in the tiled form (per-tile inertia partials and
       gaps, per-super-tile cluster sums); with ``state`` and the centroid
       movement ``delta`` it skips what the movement bound proves unchanged.
+      Without a cache it is the untiled round of the weighted and
+      mini-batch fits: labels, D², and the (weighted) cluster sums and
+      counts over all rows.
   row_min_d2(points, idx, pending, count) / tile_cap(centers, radii,
       pending, count): the rejection sampler's D² of one drawn row, and the
       per-tile envelope caps, against the first ``count`` pending centroids.
@@ -29,10 +33,18 @@ against:
 Gating is exact: the fp32 results are bitwise those of ``bounds=False``.
 
 ``CudaBackend`` runs them through the hand-written kernels (K1 prologue, K2
-and K5 seeding rounds, K3 and K6 assignment rounds; for batched problems
-K1's batched form, K7 and K8, K10a and K10b; K11 and K12 for rejection
-seeding); ``FusedBackend`` runs the kernels' plain torch twins;
-``ReferenceBackend`` is the global-memory (two-pass) seeding semantics.
+and K5 seeding rounds, K3 and K6 assignment rounds, K4 the untiled one;
+for batched problems K1's batched form, K7 and K8, K10a and K10b; K11 and
+K12 for rejection seeding); ``FusedBackend`` runs the kernels' plain torch
+twins; ``ReferenceBackend`` is the global-memory (two-pass) seeding
+semantics.
+
+Weights (``weights=`` on seeding, fit and kmeans) weigh each point's D²
+in the seeding draws, first seed included, and its entry in the Lloyd
+update. A weighted fit runs the untiled round, ungated, as the reference's
+does; a weighted seeding round on the card runs K2 ungated and skips
+nothing, as the reference's Pallas backend does, while the plain backends
+gate it through the gate model with the weights.
 
 Batched problems (``seed_batched``, ``fit_batched``, ``kmeans_batched``) run
 through the same seeding and Lloyd loops as one problem, with the leading
@@ -45,8 +57,10 @@ validity bit per round and one accept bit per attempt).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, ClassVar, NamedTuple, Optional, Union
+import itertools
+from typing import Callable, ClassVar, Iterable, NamedTuple, Optional, Union
 
 import torch
 
@@ -142,14 +156,18 @@ def _min_d2_to(points: torch.Tensor, c_new: torch.Tensor) -> torch.Tensor:
     return pairwise_d2(points, c_new).amin(dim=1)
 
 
-def segment_update(points: torch.Tensor, assignment: torch.Tensor,
-                   k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-cluster sums and counts of the rows of each label."""
-    idx = assignment.long()
+def segment_update(points: torch.Tensor, assignment: torch.Tensor, k: int,
+                   weights: Optional[torch.Tensor] = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-cluster (weighted) sums and counts of the rows of each label,
+    each cluster's rows added in one fixed order (``sampling.segment_sum``),
+    so the bits are the same on every run."""
     pts = points.float()
-    sums = pts.new_zeros((k, pts.shape[1])).index_add_(0, idx, pts)
-    counts = pts.new_zeros(k).index_add_(0, idx, pts.new_ones(idx.shape[0]))
-    return sums, counts
+    w = (pts.new_ones(pts.shape[0]) if weights is None
+         else weights.to(pts))
+    tot = sampling.segment_sum(torch.cat([pts * w[:, None], w[:, None]], 1),
+                               assignment, k)
+    return tot[:, :-1], tot[:, -1]
 
 
 def centroid_means(sums: torch.Tensor, counts: torch.Tensor,
@@ -181,6 +199,17 @@ def reseed_split_largest(means: torch.Tensor, counts: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 # backends
 # ---------------------------------------------------------------------------
+
+
+def _weigh(md: torch.Tensor, weights: Optional[torch.Tensor]):
+    """D² weighted by point (the sampling weights of a weighted run)."""
+    return md if weights is None else md * weights
+
+
+def _weighted(weights: Optional[torch.Tensor]) -> dict:
+    """The ``weights=`` keyword of a weighted round, none for an unweighted
+    one (so a backend written before weights still serves it)."""
+    return {} if weights is None else {"weights": weights}
 
 
 def _gates(state: Optional[BoundState], cache: RoundCache) -> bool:
@@ -215,18 +244,18 @@ def _seed_skipped(active: torch.Tensor) -> torch.Tensor:
 
 
 def _gate_model(new_md_full, min_d2, c_new, cache: RoundCache,
-                state: BoundState, tile: int) -> SeedRound:
+                state: BoundState, tile: int, weights=None) -> SeedRound:
     """Plain model of the gated seeding kernel, shared by the reference and
     fused backends: tiles the bound proves unchanged take their ``min_d2``
     slice and partial/tile-max entries from the CARRIED state instead of the
     fresh compute, and inside ACTIVE tiles the per-point bound keeps every
     row whose min-update provably cannot fire — what K5's carried outputs
     and in-kernel prune do. In fp32 the selects are value-noops unless the
-    bound were wrong."""
+    bound were wrong. ``weights`` weigh the partials."""
     active, dc, margin = bounds.seed_gate(c_new, cache, state.tile_max)
     md, partials, tile_max, pruned = kmeans_distance.gate_select(
         new_md_full, min_d2, cache.center_d, dc, margin, state.partials,
-        state.tile_max, active, block_n=tile)
+        state.tile_max, active, block_n=tile, weights=weights)
     return SeedRound(md, partials.sum(), partials, tile_max,
                      _seed_skipped(active), pruned.sum().to(torch.int32))
 
@@ -248,19 +277,34 @@ class Backend:
     tps: int = 0
 
     def seed_round(self, points, c_new, min_d2, *, cache: RoundCache,
-                   state: Optional[BoundState] = None) -> SeedRound:
+                   state: Optional[BoundState] = None,
+                   weights: Optional[torch.Tensor] = None) -> SeedRound:
+        """One seeding round; ``weights`` (n,) weigh the partials (and the
+        total) by point."""
         raise NotImplementedError
 
-    def assign_update(self, points, centroids, *, cache: RoundCache,
+    def assign_update(self, points, centroids, *,
+                      cache: Optional[RoundCache] = None,
                       state: Optional[BoundState] = None,
-                      delta: Optional[torch.Tensor] = None) -> AssignRound:
+                      delta: Optional[torch.Tensor] = None,
+                      weights: Optional[torch.Tensor] = None,
+                      norms: Optional[torch.Tensor] = None) -> AssignRound:
         """One Lloyd half-step in the tiled form. With ``state`` and
         ``delta`` (the per-centroid movement since the last round) it gates
         on the movement bound: the skip mask is expanded to whole super-tiles
         (the accumulators are carried at super granularity), and inside
         active tiles the per-point Hamerly bound short-circuits provably
         stable points — both value-noops, counted in ``skipped``/``pruned``.
+
+        Without a ``cache`` it is the untiled round (``_assign_plain``) of
+        the weighted and mini-batch fits, on ``norms`` (computed when
+        absent), the sums and counts over all rows weighted by ``weights``.
         """
+        if cache is None:
+            if norms is None:
+                norms = bounds.point_norms(points)
+            return AssignRound(*self._assign_plain(points, centroids,
+                                                   weights, norms))
         n = points.shape[0]
         tile = self.seed_tile(n, points.shape[1], centroids.shape[0])
         tps = self.tiles_per_super(-(-n // tile))
@@ -313,6 +357,12 @@ class Backend:
     def _assign_tiled_batched(self, points, norms, centroids, tile, tps):
         return lloyd_assign.lloyd_assign_tiled_batched_torch(
             points, norms, centroids, block_n=tile, tps=tps)
+
+    def _assign_plain(self, points, centroids, weights, norms):
+        """(labels, min_d2, sums, counts) of the untiled round: K4's plain
+        twin."""
+        return lloyd_assign.lloyd_assign_torch(points, norms, centroids,
+                                               weights)
 
     @staticmethod
     def _assign_update_gated(points, centroids, cache, state, delta, tile,
@@ -407,17 +457,25 @@ class ReferenceBackend(Backend):
 
     name: ClassVar[str] = "reference"
 
-    def seed_round(self, points, c_new, min_d2, *, cache, state=None):
+    def seed_round(self, points, c_new, min_d2, *, cache, state=None,
+                   weights=None):
         n, d = points.shape
         tile = self.seed_tile(n, d, c_new.shape[0])
         new_md = torch.minimum(min_d2, _min_d2_to(points, c_new))
         if _gates(state, cache):
-            rnd = _gate_model(new_md, min_d2, c_new, cache, state, tile)
+            rnd = _gate_model(new_md, min_d2, c_new, cache, state, tile,
+                              weights)
             # keep the two-pass total: a sum over the materialized array,
             # not over the partial tree
-            return rnd._replace(total=rnd.min_d2.sum())
-        return SeedRound(new_md, new_md.sum(),
-                         sampling.tile_partials(new_md, tile))
+            return rnd._replace(total=_weigh(rnd.min_d2, weights).sum())
+        wmd = _weigh(new_md, weights)
+        return SeedRound(new_md, wmd.sum(), sampling.tile_partials(wmd, tile))
+
+    def _assign_plain(self, points, centroids, weights, norms):
+        d2 = pairwise_d2(points.float(), centroids.float())
+        a = d2.argmin(dim=1)
+        sums, counts = segment_update(points, a, centroids.shape[0], weights)
+        return a.int(), d2.amin(dim=1), sums, counts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -426,13 +484,17 @@ class FusedBackend(Backend):
 
     name: ClassVar[str] = "fused"
 
-    def seed_round(self, points, c_new, min_d2, *, cache, state=None):
+    def seed_round(self, points, c_new, min_d2, *, cache, state=None,
+                   weights=None):
         n, d = points.shape
         tile = self.seed_tile(n, d, c_new.shape[0])
         new_md, partials = kmeans_distance.distance_min_update_torch(
             points, cache.norms, c_new, min_d2, block_n=tile)
         if _gates(state, cache):
-            return _gate_model(new_md, min_d2, c_new, cache, state, tile)
+            return _gate_model(new_md, min_d2, c_new, cache, state, tile,
+                               weights)
+        if weights is not None:
+            partials = sampling.tile_partials(new_md * weights, tile)
         return SeedRound(new_md, partials.sum(), partials)
 
 
@@ -464,10 +526,22 @@ class CudaBackend(Backend):
               else kmeans_distance.seed_prologue)
         return RoundCache(*fn(points, self.seed_tile(n, d, m)))
 
-    def seed_round(self, points, c_new, min_d2, *, cache, state=None):
+    def seed_round(self, points, c_new, min_d2, *, cache, state=None,
+                   weights=None):
         n, d = points.shape
         tile = self.seed_tile(n, d, c_new.shape[0])
         c = c_new.contiguous()
+        if weights is not None:
+            # as the reference's Pallas backend: a weighted round is K2,
+            # ungated (skipping nothing), its partials re-summed weighted;
+            # a gated caller gets the carry's tile maxima
+            new_md, _ = kmeans_distance.distance_min_update(
+                points, cache.norms, c, min_d2, block_n=tile,
+                resident=self.resident)
+            partials = sampling.tile_partials(new_md * weights, tile)
+            tmax = (None if state is None
+                    else bounds.tile_reduce_max(new_md, tile))
+            return SeedRound(new_md, partials.sum(), partials, tmax)
         if _gates(state, cache):
             # the gate is O(n_tiles) device ops; K5 reads the mask itself
             active, dc, margin = bounds.seed_gate(c, cache, state.tile_max)
@@ -509,6 +583,10 @@ class CudaBackend(Backend):
     def _assign_tiled(self, points, norms, centroids, tile, tps):
         return lloyd_assign.lloyd_assign_tiled(
             points, norms, centroids.contiguous(), block_n=tile, tps=tps)
+
+    def _assign_plain(self, points, centroids, weights, norms):
+        return ops.lloyd_assign(points, centroids.contiguous(), norms=norms,
+                                weights=weights)
 
     def _assign_tiled_batched(self, points, norms, centroids, tile, tps):
         return lloyd_assign.lloyd_assign_tiled_batched(
@@ -601,11 +679,13 @@ def _take_rows(pts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _seed_loop(draws: Draws, pts, k, *, round_fn, sample_fn, init_min_d2,
-               init_state: Optional[BoundState], guard: bool, tile: int):
-    """Generic k-means++ loop: round m folds centroid m-1 into min_d2 and
-    draws seed m with ``draws.u[m-1]``; a final round folds the last seed,
-    so the returned min_d2 covers all k. The sampled index stays on the
-    device: seeds are gathered on the device, never read on the host.
+               init_state: Optional[BoundState], guard: bool, tile: int,
+               first: torch.Tensor, w: Optional[torch.Tensor] = None):
+    """Generic k-means++ loop: seed 0 is ``first``; round m folds centroid
+    m-1 into min_d2 and draws seed m with ``draws.u[m-1]`` ∝ min_d2·``w``;
+    a final round folds the last seed, so the returned min_d2 covers all
+    k. The sampled index stays on the device: seeds are gathered on the
+    device, never read on the host.
     ``init_state`` turns on bound gating (round 1 starts from tile_max =
     +inf, nothing skippable); the per-round skip and prune counts stay on
     the device. Batched problems carry a leading axis on ``pts`` (B, n, d),
@@ -623,7 +703,7 @@ def _seed_loop(draws: Draws, pts, k, *, round_fn, sample_fn, init_min_d2,
         skips = torch.zeros(lead + (k,), dtype=torch.int32, device=dev)
         prunes = torch.zeros(lead + (k,), dtype=torch.int32, device=dev)
     rec = [0] * k
-    first = draws.first.reshape(lead + (1,))
+    first = first.reshape(lead + (1,))
     centroids[..., 0:1, :] = _take_rows(pts, first)
     indices[..., 0:1] = first
     min_d2, state = init_min_d2, init_state
@@ -635,7 +715,7 @@ def _seed_loop(draws: Draws, pts, k, *, round_fn, sample_fn, init_min_d2,
         if m == k:
             break
         nxt = sample_fn(draws.u[..., m - 1], draws.fallback[..., m - 1:m],
-                        min_d2, partials)
+                        _weigh(min_d2, w), partials)
         centroids[..., m:m + 1, :] = _take_rows(pts, nxt)
         indices[..., m:m + 1] = nxt
     return (centroids, indices, min_d2, skips, prunes,
@@ -668,7 +748,8 @@ def _seed_rejection_loop(draws: Draws, pts, k, *, round_fn, propose_fn,
                          pq_fn, fallback_fn, prep_fn, n_tiles: int,
                          refresh_block: int, max_attempts: int, init_min_d2,
                          init_state: Optional[BoundState], tile: int,
-                         guard: bool, hier: bool, fault=None):
+                         guard: bool, hier: bool, first: torch.Tensor,
+                         w: Optional[torch.Tensor] = None, fault=None):
     """Rejection-sampling k-means++ loop (``sampler='rejection'``).
 
     A round does not refresh D². Chosen centroids collect in a (P, d)
@@ -691,10 +772,12 @@ def _seed_rejection_loop(draws: Draws, pts, k, *, round_fn, propose_fn,
     is a host integer: the refresh decision needs no sync, and the kernels
     read it as a 0-d device view.
 
-    Uniforms: attempt 0 of round m proposes with ``draws.u[m-1]``, so with
-    ``refresh_block=1`` (p == q bitwise, the first proposal accepts) the
-    seeds are bitwise the tiled sampler's; the other attempts, the accepts
-    and the exact draw take the rejection schedule of ``draws``.
+    Seed 0 is ``first``; with point weights ``w`` the envelope and the
+    target are min_d2·w. Uniforms: attempt 0 of round m proposes with
+    ``draws.u[m-1]``, so with ``refresh_block=1`` (p == q bitwise, the
+    first proposal accepts) the seeds are bitwise the tiled sampler's; the
+    other attempts, the accepts and the exact draw take the rejection
+    schedule of ``draws``.
 
     Envelope guard (always on): every round checks the partials for
     negative or non-finite entries, one host sync. A bad envelope is
@@ -721,7 +804,7 @@ def _seed_rejection_loop(draws: Draws, pts, k, *, round_fn, propose_fn,
     counts = torch.arange(P + 1, dtype=torch.int32, device=dev)
     centroids = pts.new_zeros((k, d))
     indices = torch.zeros(k, dtype=torch.int64, device=dev)
-    first = draws.first.reshape(1)
+    first = first.reshape(1)
     centroids[0:1] = pts.index_select(0, first)
     indices[0:1] = first
     skips = torch.zeros(k, dtype=torch.int32, device=dev)
@@ -760,7 +843,7 @@ def _seed_rejection_loop(draws: Draws, pts, k, *, round_fn, propose_fn,
             md, partials, state = heal_stale(m, count)
         live = counts[count]
         pstate, tightened = prep_fn(partials, pending, live)
-        weight = bounds.seed_envelope(md)
+        weight = bounds.seed_envelope(md, w)
         idx, ok, att = sampling.rejection_sample(
             lambda u: propose_fn(u, weight, partials, pstate),
             lambda i: pq_fn(i, weight, pending, live, pstate),
@@ -772,7 +855,7 @@ def _seed_rejection_loop(draws: Draws, pts, k, *, round_fn, propose_fn,
             count = 0
             idx = fallback_fn(draws.exact_u[m - 1],
                               draws.exact_fallback[m - 1:m],
-                              bounds.seed_envelope(md), partials)
+                              bounds.seed_envelope(md, w), partials)
         centroids[m:m + 1] = pts.index_select(0, idx)
         indices[m:m + 1] = idx
         skips[m - 1], prunes[m - 1], tights[m] = rs, rp, tightened
@@ -799,10 +882,13 @@ def _seed_rejection(draws: Draws, pts, k, backend: Backend,
                     cache: RoundCache, tile: int,
                     init_state: Optional[BoundState], *, refresh_block: int,
                     proposal: str, max_attempts: int, guard: bool,
+                    first: torch.Tensor, w: Optional[torch.Tensor] = None,
                     fault=None) -> KmeansppResult:
     """The rejection branch of :func:`seed_points`: the proposal, pricing,
     fallback and prep functions for ``proposal`` 'hier' or 'flat', then
-    :func:`_seed_rejection_loop`."""
+    :func:`_seed_rejection_loop`. With point weights ``w`` a drawn row's
+    exact weight is ``w_i · row_min_d2`` and the hier cap bounds a tile's
+    mass through the weights' own tile sums."""
     n, d = pts.shape
     dev = pts.device
     n_tiles = -(-n // tile)
@@ -814,10 +900,10 @@ def _seed_rejection(draws: Draws, pts, k, backend: Backend,
 
     if hier:
         tiny = torch.finfo(torch.float32).tiny
-        # per-tile row counts (the last tile short): the unweighted tile
-        # mass the cap multiplies into a tile-level envelope bound
-        tile_w = torch.full((n_tiles,), float(tile), device=dev)
-        tile_w[-1] = float(n - (n_tiles - 1) * tile)
+        # the tile mass the cap multiplies into a tile-level envelope
+        # bound: the weights' tile sums (unweighted: the row counts)
+        tile_w = sampling.tile_partials(
+            pts.new_ones(n) if w is None else w, tile)
 
         def prep_fn(partials, pending, count):
             # rebuilt each round from the healed partials: cap_t bounds
@@ -828,7 +914,7 @@ def _seed_rejection(draws: Draws, pts, k, backend: Backend,
                 cap = be.tile_cap(cache.centers, cache.radii, pending, count)
             else:   # no balls without bounds: never tighten
                 cap = torch.full((n_tiles,), torch.inf, device=dev)
-            capw = cap * tile_w
+            capw = cap * tile_w   # inf·0 is NaN: loses every < below
             ph = torch.where(capw < partials, capw, partials)
             tight = ph < partials
             tcdf = sampling.prefix_sum(ph)
@@ -851,13 +937,14 @@ def _seed_rejection(draws: Draws, pts, k, backend: Backend,
             t = idx // tile
             li = idx - t * tile
             win = sampling.tile_window(weight, t, tile)
-            cw = cap[t]
+            cw = (cap[t] if w is None
+                  else cap[t] * sampling.tile_window(w, t, tile))
             cwin = torch.where(cw < win, cw, win)
             s_t = sampling.prefix_sum(cwin)[tile - 1]
             q = torch.where(tight[t],
                             cwin[li] * (ph[t] / s_t.clamp_min(tiny)),
                             weight[idx])
-            return torch.minimum(q, rd2), q
+            return torch.minimum(q, rd2 if w is None else w[idx] * rd2), q
 
         def fallback_fn(u, fb, weight, partials):
             return sampling.categorical_hier(u, fb, weight, partials,
@@ -873,7 +960,7 @@ def _seed_rejection(draws: Draws, pts, k, backend: Backend,
         def pq_fn(idx, weight, pending, count, pstate):
             q = weight[idx]
             rd2 = be.row_min_d2(pts, idx.reshape(()), pending, count)
-            return torch.minimum(q, rd2), q
+            return torch.minimum(q, rd2 if w is None else w[idx] * rd2), q
 
         def fallback_fn(u, fb, weight, partials):
             return sampling.categorical_tiled(u, fb, weight, partials,
@@ -883,13 +970,13 @@ def _seed_rejection(draws: Draws, pts, k, backend: Backend,
      sups) = _seed_rejection_loop(
         draws, pts, k,
         round_fn=lambda c, md, st: be.seed_round(pts, c, md, cache=cache,
-                                                 state=st),
+                                                 state=st, **_weighted(w)),
         propose_fn=propose_fn, pq_fn=pq_fn, fallback_fn=fallback_fn,
         prep_fn=prep_fn, n_tiles=n_tiles, refresh_block=refresh_block,
         max_attempts=max_attempts,
         init_min_d2=torch.full((n,), torch.inf, device=dev),
         init_state=init_state, tile=tile, guard=guard, hier=hier,
-        fault=fault)
+        first=first, w=w, fault=fault)
     gated = init_state is not None
     return KmeansppResult(centroids, indices, min_d2,
                           skips if gated else None, prunes if gated else None,
@@ -897,8 +984,31 @@ def _seed_rejection(draws: Draws, pts, k, backend: Backend,
                           accepts=accs, tightened=tights, supers=sups)
 
 
+def _first_seed(draws: Draws, w: Optional[torch.Tensor], sampler: str,
+                proposal: str, tile: int, tps: int) -> torch.Tensor:
+    """Seed 0: ``draws.first``, or with point weights ``w`` a draw ∝ w with
+    ``draws.first_u`` (fallback ``draws.first_fallback``), as the
+    reference's: inverse CDF for cdf, the two-level draw over the weights'
+    tile sums for tiled and rejection flat, the super -> tile -> row draw
+    for rejection hier."""
+    if w is None:
+        return draws.first
+    if draws.first_u is None:
+        raise ValueError("draws hold no weighted first-seed draws; sample "
+                         "them with Draws.sample(..., weighted=True)")
+    u, fb = draws.first_u.reshape(()), draws.first_fallback.reshape(1)
+    if sampler == "cdf":
+        return sampling.categorical_cdf(u, fb, w)
+    parts = sampling.tile_partials(w, tile)
+    if sampler == "rejection" and proposal == "hier":
+        return sampling.categorical_hier(u, fb, w, parts, block_n=tile,
+                                         tps=tps)
+    return sampling.categorical_tiled(u, fb, w, parts, block_n=tile)
+
+
 def seed_points(draws: Draws, points: torch.Tensor, k: int,
                 backend: Backend, sampler: str = "cdf", *,
+                weights: Optional[torch.Tensor] = None,
                 bound_gate: bool = True,
                 cache: Optional[RoundCache] = None,
                 guard: bool = False, refresh_block: int = 8,
@@ -917,6 +1027,8 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
     refreshes by the caps of ``Backend.tile_cap``) or 'flat' (the tiled
     draw); ``max_attempts`` truncates the attempts of a round, past which
     it takes one exact draw; ``fault`` injects an envelope fault (tests).
+    ``weights`` (n,) draw every seed ∝ D²·w, the first ∝ w (see
+    :func:`_first_seed`; the draws need ``first_u``).
     The prologue runs once here unless a ``cache`` is passed in
     (``kmeans_points`` shares one across both phases). With ``bound_gate``
     the loop carries the per-tile bound state so each round skips every
@@ -943,6 +1055,9 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
         raise NotImplementedError(
             "batched seeding runs without the in-flight guard, as the "
             "reference does under vmap")
+    if lead and weights is not None:
+        raise ValueError("batched problems take no weights, as in the "
+                         "reference")
     n, d = points.shape[-2:]
     pts = points.float()
     if cache is None:
@@ -954,6 +1069,10 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
     if tuple(draws.u.shape[:-1]) != lead:
         raise ValueError(f"draws for {tuple(draws.u.shape[:-1])} problems, "
                          f"points for {lead}")
+    draws = draws.to(pts.device)
+    w = None if weights is None else weights.to(pts)
+    first = _first_seed(draws, w, sampler, proposal, tile,
+                        backend.tiles_per_super(-(-n // tile)))
     init_state = None
     if bound_gate and cache.centers is not None:
         n_tiles = lead + (-(-n // tile),)
@@ -966,10 +1085,10 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
             raise ValueError(f"draws hold {draws.max_attempts} rejection "
                              f"attempts per round, max_attempts="
                              f"{max_attempts} needs them all")
-        return _seed_rejection(draws.to(pts.device), pts, k, backend, cache,
-                               tile, init_state, refresh_block=refresh_block,
+        return _seed_rejection(draws, pts, k, backend, cache, tile,
+                               init_state, refresh_block=refresh_block,
                                proposal=proposal, max_attempts=max_attempts,
-                               guard=guard, fault=fault)
+                               guard=guard, first=first, w=w, fault=fault)
 
     if sampler == "tiled":
         def sample_fn(u, fb, weight, partials):
@@ -989,13 +1108,13 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
                                               state=st)
     else:
         def round_fn(c, md, st):
-            return backend.seed_round(pts, c, md, cache=cache, state=st)
+            return backend.seed_round(pts, c, md, cache=cache, state=st,
+                                      **_weighted(w))
 
     centroids, indices, min_d2, skips, prunes, rec = _seed_loop(
-        draws.to(pts.device), pts, k, round_fn=round_fn,
-        sample_fn=sample_fn,
+        draws, pts, k, round_fn=round_fn, sample_fn=sample_fn,
         init_min_d2=torch.full(lead + (n,), torch.inf, device=pts.device),
-        init_state=init_state, guard=guard, tile=tile)
+        init_state=init_state, guard=guard, tile=tile, first=first, w=w)
     return KmeansppResult(centroids, indices, min_d2, skips, prunes,
                           recovered=rec if guard else None)
 
@@ -1016,11 +1135,16 @@ def _check_sampler(sampler: str) -> None:
 
 def _fit_loop(pts, init_centroids, backend: Backend, max_iters: int,
               tol: float, empty: str, cache: RoundCache, *, gated: bool,
-              guard: bool):
+              guard: bool, w: Optional[torch.Tensor] = None):
     """Lloyd iterations until the relative inertia improvement falls below
     ``tol`` or ``max_iters`` is hit. Each iteration is one tiled
     ``assign_update``; the inertia is the sum of its per-tile partials, the
     centroid update the super-axis sum of its accumulators.
+
+    With point weights ``w`` (the reference's weighted branch) each
+    iteration is instead the untiled round on ``cache.norms`` (no tiles,
+    no gate: ``gated`` must be off), its sums and counts weighted, and the
+    inertia the fixed-order sum of min_d2·w.
 
     ``gated`` (the port of ``_fit_gated_parts``) derives each iteration's
     per-centroid movement ``delta`` from the loop's own consecutive
@@ -1097,16 +1221,21 @@ def _fit_loop(pts, init_centroids, backend: Backend, max_iters: int,
     while i < max_iters:
         delta = (bounds.centroid_movement(cents, prev_cents) if gated
                  else None)
-        if lead:
-            if gated:   # a stopped problem does not move
-                delta = torch.where(live[..., None], delta, 0.0)
-            rnd = backend.assign_update_batched(pts, cents, cache=cache,
-                                                state=bstate, delta=delta,
-                                                live=live)
+        if w is not None:
+            rnd = backend.assign_update(pts, cents, weights=w,
+                                        norms=cache.norms)
+            new_inertia = sampling.fixed_sum(rnd.min_d2 * w)
         else:
-            rnd = backend.assign_update(pts, cents, cache=cache,
-                                        state=bstate, delta=delta)
-        new_inertia = sampling.fixed_sum(rnd.state.partials)
+            if lead:
+                if gated:   # a stopped problem does not move
+                    delta = torch.where(live[..., None], delta, 0.0)
+                rnd = backend.assign_update_batched(
+                    pts, cents, cache=cache, state=bstate, delta=delta,
+                    live=live)
+            else:
+                rnd = backend.assign_update(pts, cents, cache=cache,
+                                            state=bstate, delta=delta)
+            new_inertia = sampling.fixed_sum(rnd.state.partials)
         flags = []
         if guard:
             flags.append(torch.isfinite(new_inertia)
@@ -1157,12 +1286,19 @@ def fit_points(points: torch.Tensor, init_centroids: torch.Tensor,
                backend: Backend, max_iters: int, tol: float,
                empty: str = "keep",
                cache: Optional[RoundCache] = None, *,
+               weights: Optional[torch.Tensor] = None,
                bound_gate: bool = True, guard: bool = False) -> LloydResult:
     """Lloyd clustering through ``backend``. ``empty`` picks the
     empty-cluster policy: 'keep' (previous centroid survives) or 'reseed'
     (split the largest cluster). ``cache`` is an optional precomputed
     prologue. ``bound_gate`` runs the gated loop (bitwise the ungated
     results); ``guard`` arms its in-flight corruption detector.
+
+    ``weights`` (n,) weigh each point in the update and the inertia. A
+    weighted fit runs the untiled round on the cached norms (computed here,
+    without a prologue, when no ``cache`` is passed), ungated and
+    unguarded, with ``skipped``/``pruned``/``recovered`` None, as the
+    reference's.
 
     ``points`` (B, n, d) and ``init_centroids`` (B, k, d) fit B independent
     problems in one loop, gated or not, without the in-flight guard (as the
@@ -1177,6 +1313,15 @@ def fit_points(points: torch.Tensor, init_centroids: torch.Tensor,
             "reference does under vmap")
     pts = points.float()
     k = init_centroids.shape[-2]
+    if weights is not None:
+        if points.dim() == 3:
+            raise ValueError("batched problems take no weights, as in the "
+                             "reference")
+        norms = bounds.point_norms(pts) if cache is None else cache.norms
+        return LloydResult(*_fit_loop(
+            pts, init_centroids, backend, max_iters, tol, empty,
+            RoundCache(norms), gated=False, guard=False,
+            w=weights.to(pts)))
     if cache is None:
         cache = backend.prologue(pts, m=k, with_bounds=bound_gate)
     return LloydResult(*_fit_loop(
@@ -1187,23 +1332,89 @@ def fit_points(points: torch.Tensor, init_centroids: torch.Tensor,
 def kmeans_points(draws: Draws, points: torch.Tensor, k: int,
                   backend: Backend, sampler: str = "cdf",
                   max_iters: int = 50, tol: float = 1e-6,
-                  empty: str = "keep", *, bound_gate: bool = True,
+                  empty: str = "keep", *,
+                  weights: Optional[torch.Tensor] = None,
+                  bound_gate: bool = True,
                   guard: bool = False, refresh_block: int = 8,
                   proposal: str = "hier",
                   max_attempts: int = _REJECT_ATTEMPTS) -> LloydResult:
     """End-to-end k-means++ seeding + Lloyd with ONE shared prologue: the
     backend's ``tile_m`` is pinned to k so both phases agree on one tile
     geometry, and the norms (and tile balls, with ``bound_gate``) are
-    computed once."""
+    computed once. ``weights`` go to both phases."""
     be = dataclasses.replace(backend, tile_m=k)
     pts = points.float()
     cache = be.prologue(pts, m=k, with_bounds=bound_gate)
-    seeds = seed_points(draws, pts, k, be, sampler, bound_gate=bound_gate,
-                        cache=cache, guard=guard,
+    seeds = seed_points(draws, pts, k, be, sampler, weights=weights,
+                        bound_gate=bound_gate, cache=cache, guard=guard,
                         refresh_block=refresh_block, proposal=proposal,
                         max_attempts=max_attempts)
     return fit_points(pts, seeds.centroids, be, max_iters, tol, empty,
-                      cache=cache, bound_gate=bound_gate, guard=guard)
+                      cache=cache, weights=weights, bound_gate=bound_gate,
+                      guard=guard)
+
+
+# ---------------------------------------------------------------------------
+# mini-batch Lloyd (streaming)
+# ---------------------------------------------------------------------------
+
+
+def minibatch_step(cents: torch.Tensor, counts: torch.Tensor,
+                   batch: torch.Tensor, backend: Backend):
+    """One mini-batch Lloyd step (Sculley 2010, batch form): per-center
+    counts give each center a 1/t-decaying learning rate, so centers
+    converge to the running mean of every point ever assigned to them.
+
+        c_j <- c_j + eta_j * (batch_mean_j - c_j),  eta_j = m_j / (N_j + m_j)
+
+    The batch's sums and counts come from the untiled round (K4 on the
+    card) on norms computed per batch. Returns (centroids, counts, the
+    batch's inertia (fixed-order sum), the batch's labels)."""
+    pts = batch.float()
+    rnd = backend.assign_update(pts, cents, norms=bounds.point_norms(pts))
+    bcounts = rnd.counts
+    new_counts = counts + bcounts
+    eta = torch.where(new_counts > 0,
+                      bcounts / new_counts.clamp_min(1.0), 0.0)
+    bmeans = rnd.sums / bcounts.clamp_min(1e-12)[:, None]
+    new_cents = torch.where((bcounts > 0)[:, None],
+                            cents + eta[:, None] * (bmeans - cents), cents)
+    return (new_cents, new_counts, sampling.fixed_sum(rnd.min_d2),
+            rnd.assignment)
+
+
+BatchSource = Union[Iterable, Callable[[int], object]]
+
+
+def _iter_batches(batches: BatchSource, n_batches: Optional[int], device):
+    """A batch source as an iterator of fp32 tensors on ``device``: a
+    callable ``read_fn(step) -> array`` (driven through a prefetching
+    :class:`~repro_torch.data.pipeline.DataPipeline`, stopped when the
+    iterator is closed), a ``DataPipeline`` (yielding ``(step, batch)``),
+    or any iterable of arrays or ``(step, array)`` pairs; a dict batch
+    gives its ``"points"``."""
+    from repro_torch.data.pipeline import DataPipeline
+
+    pipe = None
+    if callable(batches) and not hasattr(batches, "__iter__"):
+        if n_batches is None:
+            raise ValueError("n_batches is required with a read_fn source")
+        pipe = DataPipeline(batches, device=device)
+        batches = iter(pipe)
+    elif isinstance(batches, DataPipeline) and n_batches is None:
+        # a pipeline streams forever; without a count the loop never ends
+        raise ValueError("n_batches is required with a DataPipeline source")
+    try:
+        # islice stops before reading a batch past the count
+        for item in itertools.islice(batches, n_batches):
+            if isinstance(item, tuple) and len(item) == 2:
+                item = item[1]
+            if isinstance(item, dict):
+                item = item["points"]
+            yield torch.as_tensor(item, dtype=torch.float32, device=device)
+    finally:
+        if pipe is not None:
+            pipe.stop()
 
 
 # ---------------------------------------------------------------------------
@@ -1248,6 +1459,12 @@ class ClusterEngine:
     ``proposal`` 'hier' or 'flat' and ``max_attempts``; see
     :func:`seed_points`).
 
+    Weights: ``seed``, ``fit`` and ``kmeans`` take ``weights`` (n,), one
+    non-negative weight per point (a coreset's multiplicities), checked by
+    the entry guard. A weighted fit runs the untiled round (K4 on the
+    card), ungated, its counters None. ``fit_minibatch`` streams batches
+    through the same round.
+
     Randomness: ``generator`` seeds a :class:`Draws` source for the run;
     ``draws`` passes one in instead (to replay a run, or the reference's
     key schedule). A kernel that fails to build or launch raises
@@ -1277,61 +1494,136 @@ class ClusterEngine:
                 f"points must be (n, d), got {tuple(pts.shape)}")
         return guards.guard_points(pts.contiguous(), self.validate)
 
-    def _draws(self, n, k, generator, draws, sampler,
-               max_attempts) -> Draws:
+    def _weights(self, weights, n: int) -> Optional[torch.Tensor]:
+        if weights is None:
+            return None
+        w = torch.as_tensor(weights, dtype=torch.float32, device=self.device)
+        return guards.guard_weights(w, n, self.validate)
+
+    def _draws(self, n, k, generator, draws, sampler, max_attempts,
+               weighted: bool = False) -> Draws:
         if draws is None:
             return Draws.sample(
                 n, k, generator=generator, device=self.device,
                 max_attempts=(max(int(max_attempts), 1)
-                              if sampler == "rejection" else 0))
+                              if sampler == "rejection" else 0),
+                weighted=weighted)
         return draws.to(self.device)
 
     def seed(self, points, k: int, *,
+             weights=None,
              generator: Optional[torch.Generator] = None,
              draws: Optional[Draws] = None,
              sampler: str = "cdf", refresh_block: int = 8,
              proposal: str = "hier",
              max_attempts: int = _REJECT_ATTEMPTS) -> KmeansppResult:
-        """K-means++ seeding: k centroids chosen from ``points`` ∝ D².
-        ``refresh_block``, ``proposal`` and ``max_attempts`` are the
-        rejection sampler's (see :func:`seed_points`)."""
+        """K-means++ seeding: k centroids chosen from ``points`` ∝ D² (∝
+        D²·w with ``weights``, the first ∝ w). ``refresh_block``,
+        ``proposal`` and ``max_attempts`` are the rejection sampler's (see
+        :func:`seed_points`)."""
         pts = self._points(points)
-        guards.check_shape(k, pts.shape[0])
+        n = pts.shape[0]
+        guards.check_shape(k, n)
+        w = self._weights(weights, n)
         return seed_points(
-            self._draws(pts.shape[0], k, generator, draws, sampler,
-                        max_attempts),
-            pts, k, self.backend, sampler, bound_gate=self.bounds,
-            guard=self._guard, refresh_block=int(refresh_block),
-            proposal=proposal, max_attempts=int(max_attempts))
+            self._draws(n, k, generator, draws, sampler, max_attempts,
+                        w is not None),
+            pts, k, self.backend, sampler, weights=w,
+            bound_gate=self.bounds, guard=self._guard,
+            refresh_block=int(refresh_block), proposal=proposal,
+            max_attempts=int(max_attempts))
 
     def fit(self, points, init_centroids, *, max_iters: int = 50,
-            tol: float = 1e-6, empty: str = "keep") -> LloydResult:
-        """Lloyd iterations from ``init_centroids`` until convergence."""
+            tol: float = 1e-6, weights=None,
+            empty: str = "keep") -> LloydResult:
+        """Lloyd iterations from ``init_centroids`` until convergence, each
+        point weighted by ``weights`` when given."""
         pts = self._points(points)
+        w = self._weights(weights, pts.shape[0])
         cents = torch.as_tensor(init_centroids, dtype=torch.float32,
                                 device=self.device)
         cents = guards.guard_centroids(cents, pts.shape[1], self.validate)
         return fit_points(pts, cents, self.backend, max_iters, float(tol),
-                          empty, bound_gate=self.bounds, guard=self._guard)
+                          empty, weights=w, bound_gate=self.bounds,
+                          guard=self._guard)
 
     def kmeans(self, points, k: int, *,
                generator: Optional[torch.Generator] = None,
                draws: Optional[Draws] = None, sampler: str = "cdf",
                max_iters: int = 50, tol: float = 1e-6,
-               empty: str = "keep", refresh_block: int = 8,
+               empty: str = "keep", weights=None, refresh_block: int = 8,
                proposal: str = "hier",
                max_attempts: int = _REJECT_ATTEMPTS) -> LloydResult:
         """End to end: k-means++ seeding (the paper's phase) + Lloyd, sharing
-        one prologue."""
+        one prologue; ``weights`` go to both phases."""
         pts = self._points(points)
-        guards.check_shape(k, pts.shape[0])
+        n = pts.shape[0]
+        w = self._weights(weights, n)
+        guards.check_shape(k, n)
         return kmeans_points(
-            self._draws(pts.shape[0], k, generator, draws, sampler,
-                        max_attempts),
+            self._draws(n, k, generator, draws, sampler, max_attempts,
+                        w is not None),
             pts, k, self.backend, sampler, max_iters, float(tol), empty,
-            bound_gate=self.bounds, guard=self._guard,
+            weights=w, bound_gate=self.bounds, guard=self._guard,
             refresh_block=int(refresh_block), proposal=proposal,
             max_attempts=int(max_attempts))
+
+    # -- streaming mini-batch Lloyd ---------------------------------------
+
+    def fit_minibatch(self, init_centroids, batches: BatchSource, *,
+                      n_batches: Optional[int] = None, tol: float = 0.0,
+                      patience: int = 5, order=None) -> LloydResult:
+        """Streaming mini-batch k-means over fixed-size batches (Sculley
+        2010; see :func:`minibatch_step`), one untiled round (K4 on the
+        card) per batch.
+
+        ``batches`` is a ``read_fn(step) -> (b, d) array`` (driven through a
+        prefetching :class:`~repro_torch.data.pipeline.DataPipeline` that
+        moves each batch to the engine's device once), a ``DataPipeline``,
+        or any iterable of batches. Each batch passes the engine's
+        ``validate`` guard before its step, and a read that keeps failing
+        past the pipeline's retries raises ``guards.PipelineError`` with the
+        failing step.
+
+        Early stop: with ``tol`` > 0, the run stops after ``patience``
+        consecutive batches whose smoothed per-point inertia improves by
+        less than ``tol`` (relative). The result's assignment and inertia
+        are the LAST batch's; ``n_iters`` is the number of batches used.
+        ``order`` is not ported yet and raises."""
+        if order is not None:
+            raise NotImplementedError(
+                "order= is not ported yet (ROADMAP.md queue 1, item 1)")
+        init = torch.as_tensor(init_centroids)
+        cents = guards.guard_centroids(
+            init.to(device=self.device, dtype=torch.float32),
+            init.shape[-1], self.validate)
+        counts = torch.zeros(cents.shape[0], device=self.device)
+        a = torch.zeros(0, dtype=torch.int32, device=self.device)
+        last_inertia = torch.tensor(torch.inf, device=self.device)
+        seen, stale, ema = 0, 0, None
+        with contextlib.closing(_iter_batches(batches, n_batches,
+                                              self.device)) as stream:
+            for batch in stream:
+                batch = guards.guard_points(batch, self.validate,
+                                            name=f"batch {seen}")
+                cents, counts, last_inertia, a = minibatch_step(
+                    cents, counts, batch, self.backend)
+                seen += 1
+                if tol > 0.0:
+                    per_point = float(last_inertia) / max(batch.shape[0], 1)
+                    prev = ema
+                    ema = (per_point if ema is None
+                           else 0.7 * ema + 0.3 * per_point)
+                    if (prev is not None
+                            and prev - ema <= tol * max(prev, 1e-30)):
+                        stale += 1
+                        if stale >= patience:
+                            break
+                    else:
+                        stale = 0
+        if seen == 0:
+            raise ValueError("empty batch source")
+        return LloydResult(cents.to(init.dtype), a, last_inertia, seen)
 
     # -- batched multi-problem clustering ---------------------------------
 

@@ -5,7 +5,8 @@
   ``ClusterEngine`` entry point: NaN/Inf rows and k/n/d shape abuse are
   caught before they enter a round loop;
 * the :class:`ClusteringError` hierarchy, so callers can tell a typed
-  failure from a silent wrong answer.
+  failure from a silent wrong answer (a batch source that keeps failing
+  raises :class:`PipelineError` with the step).
 
 A kernel that fails to build or launch raises :class:`KernelFailureError`.
 The port has no fallback chain: nothing catches it.
@@ -18,7 +19,7 @@ import torch
 
 __all__ = [
     "ClusteringError", "InvalidInputError", "KernelFailureError",
-    "POLICIES", "check_policy", "check_shape", "guard_points",
+    "PipelineError", "POLICIES", "check_policy", "check_shape", "guard_points",
     "guard_weights", "guard_centroids",
 ]
 
@@ -34,6 +35,15 @@ class InvalidInputError(ClusteringError, ValueError):
 
 class KernelFailureError(ClusteringError, RuntimeError):
     """A CUDA kernel failed to build or launch."""
+
+
+class PipelineError(ClusteringError, RuntimeError):
+    """The data pipeline's read path failed past its retry budget. Carries
+    the failing step index."""
+
+    def __init__(self, message: str, *, step: Optional[int] = None):
+        super().__init__(message)
+        self.step = step
 
 
 POLICIES = ("raise", "sanitize", "off")

@@ -50,7 +50,12 @@ class Draws:
     ``propose_u[m-1, j-1]``; attempt j accepts with ``accept_u[m-1, j]``.
     A round whose attempts all reject takes the exact draw with
     ``exact_u[m-1]``, and with ``exact_fallback[m-1]`` when its weights
-    are degenerate."""
+    are degenerate.
+
+    A weighted run draws its first seed by the point weights with
+    ``first_u`` in [0, 1), and takes ``first_fallback`` when the weights
+    are degenerate (None unless asked for; batched draws leave them None,
+    as batched problems take no weights)."""
 
     first: torch.Tensor        # (1,) int64
     u: torch.Tensor            # (k-1,) fp32 in [0, 1)
@@ -62,6 +67,8 @@ class Draws:
     accept_u: Optional[torch.Tensor] = None        # (k-1, A) fp32
     exact_u: Optional[torch.Tensor] = None         # (k-1,) fp32
     exact_fallback: Optional[torch.Tensor] = None  # (k-1,) int64
+    first_u: Optional[torch.Tensor] = None         # (1,) fp32
+    first_fallback: Optional[torch.Tensor] = None  # (1,) int64
 
     @property
     def max_attempts(self) -> int:
@@ -76,19 +83,22 @@ class Draws:
     @classmethod
     def sample(cls, n: int, k: int, *,
                generator: Optional[torch.Generator] = None,
-               device="cpu", max_attempts: int = 0) -> "Draws":
+               device="cpu", max_attempts: int = 0,
+               weighted: bool = False) -> "Draws":
         """All of a run's draws from ``generator`` on its device, moved to
         ``device`` once. ``max_attempts`` > 0 adds the rejection schedule
         for that many attempts per round; the first three draws are the
-        same either way, so a run's cdf/tiled draws do not depend on it."""
+        same either way, so a run's cdf/tiled draws do not depend on it.
+        ``weighted`` adds the weighted first seed's two draws after all the
+        others, so the rest do not depend on it either."""
         gdev = "cpu" if generator is None else generator.device
         r = max(k - 1, 0)
         first = torch.randint(n, (1,), generator=generator, device=gdev)
         u = torch.rand(r, generator=generator, device=gdev)
         fb = torch.randint(n, (r,), generator=generator, device=gdev)
-        rej = {}
+        extra = {}
         if max_attempts > 0:
-            rej = dict(
+            extra = dict(
                 propose_u=torch.rand((r, max_attempts - 1),
                                      generator=generator, device=gdev),
                 accept_u=torch.rand((r, max_attempts), generator=generator,
@@ -96,7 +106,12 @@ class Draws:
                 exact_u=torch.rand(r, generator=generator, device=gdev),
                 exact_fallback=torch.randint(n, (r,), generator=generator,
                                              device=gdev))
-        return cls(first, u, fb, **rej).to(device)
+        if weighted:
+            extra.update(first_u=torch.rand(1, generator=generator,
+                                          device=gdev),
+                       first_fallback=torch.randint(
+                           n, (1,), generator=generator, device=gdev))
+        return cls(first, u, fb, **extra).to(device)
 
     @classmethod
     def sample_batched(cls, batch: int, n: int, k: int, *,
@@ -118,7 +133,9 @@ class Draws:
                      mv(self.propose_u, torch.float32),
                      mv(self.accept_u, torch.float32),
                      mv(self.exact_u, torch.float32),
-                     mv(self.exact_fallback, torch.int64))
+                     mv(self.exact_fallback, torch.int64),
+                     mv(self.first_u, torch.float32),
+                     mv(self.first_fallback, torch.int64))
 
 
 def _search(cdf: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -157,7 +174,8 @@ def prefix_sum(w: torch.Tensor) -> torch.Tensor:
     sequential scan inside each ``SCAN_BLOCK``-wide row, a prefix sum over
     the row totals (by the same rule), then each row's offset added to its
     entries. The same inputs give the same bits on every run, on the CPU
-    and on the card.
+    and on the card, each device its own (the CPU's ``cumsum`` adds fp32 in
+    double precision, the card's in fp32).
 
     Leading axes are independent problems, each padded and scanned on its
     own, and no scan's order depends on how many rows it is given, so row b
@@ -199,6 +217,39 @@ def fixed_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     width = min(n, SCAN_BLOCK)
     tot = _row_scan(x.reshape(-1, width))[:, -1].reshape(lead + (-1,))
     return tot[..., 0] if tot.shape[-1] == 1 else fixed_sum(tot)
+
+
+def segment_sum(values: torch.Tensor, segments: torch.Tensor,
+                k: int) -> torch.Tensor:
+    """(k, c) sums of the rows of ``values`` (n, c) in each of k segments
+    (``segments`` (n,) in [0, k)), in a fixed order: segment s's rows, in
+    row order, added as :func:`fixed_sum` adds them (128-row blocks, then
+    the block totals by the same rule), so the bits depend on that
+    segment's rows alone. A stable sort by segment lays each segment's rows
+    out contiguously; every segment is cut into 128-row chunks (zero
+    padded), each chunk is scanned, and the chunk totals, again grouped by
+    segment, go round the same way until every segment is one chunk. No
+    float atomics, so the same inputs give the same bits on every run."""
+    seg = segments.long()
+    order = torch.argsort(seg, stable=True)
+    vals, seg = values.float()[order], seg[order]
+    c = vals.shape[1]
+    while True:
+        counts = torch.bincount(seg, minlength=k)
+        chunks = (counts + SCAN_BLOCK - 1) // SCAN_BLOCK
+        start = torch.cumsum(counts, 0) - counts
+        first_chunk = torch.cumsum(chunks, 0) - chunks
+        pos = torch.arange(seg.shape[0], device=seg.device) - start[seg]
+        n_chunks = int(chunks.sum())
+        blocks = vals.new_zeros((n_chunks, SCAN_BLOCK, c))
+        blocks[first_chunk[seg] + pos // SCAN_BLOCK, pos % SCAN_BLOCK] = vals
+        tot = _row_scan(blocks.transpose(1, 2).reshape(-1, SCAN_BLOCK))[
+            :, -1].reshape(n_chunks, c)
+        chunk_seg = torch.repeat_interleave(
+            torch.arange(k, device=seg.device), chunks)
+        if n_chunks == int((chunks > 0).sum()):   # one chunk per segment
+            return vals.new_zeros((k, c)).index_copy_(0, chunk_seg, tot)
+        vals, seg = tot, chunk_seg
 
 
 def index_from_uniform(u: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""repro_torch.data — synthetic sources."""
+"""repro_torch.data — synthetic sources and the prefetching pipeline."""
+from repro_torch.data.pipeline import DataPipeline
 from repro_torch.data.synthetic import blobs, blobs_batched
 
-__all__ = ["blobs", "blobs_batched"]
+__all__ = ["DataPipeline", "blobs", "blobs_batched"]

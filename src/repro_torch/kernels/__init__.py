@@ -10,7 +10,10 @@ twin:
   lloyd_assign.py    — K3/K6, the tiled assignment round ungated and
                        bound-gated: labels, D², per-tile partials and gaps,
                        per-super-tile cluster sums/counts; K10a and K10b
-                       over a batch of problems
+                       over a batch of problems; K4, the untiled round
+                       (labels, D², (weighted) sums/counts over all rows),
+                       and K9, K4 over a batch of problems
 
-ops.py — the tile-height budget and the launch counters.
+ops.py — the tile-height budget, the launch counters, and ``lloyd_assign``
+(K4 or K9 by the points' shape).
 """

@@ -1,5 +1,6 @@
 // K3, K6, K10a and K10b: one tiled Lloyd assignment round on Hopper,
-// ungated, bound-gated, and each over a batch of independent problems.
+// ungated, bound-gated, and each over a batch of independent problems; K4
+// and K9: the untiled round, one problem and a batch of them.
 //
 // K3 replaces src/repro/kernels/lloyd_assign.py::lloyd_assign_tiled_pallas
 // (the TPU kernel's pallas_call at line 346). For every row x and centroid
@@ -95,6 +96,31 @@
 // the PQ codebook sweep with every tile active and nothing pruned its
 // operation bound is K10a's, 3.65 ms; the d = 16 register path serves it as
 // it serves K10a.
+// K4 replaces lloyd_assign.py::lloyd_assign_pallas (its pallas_call at line
+// 111): labels and D² per row, and the cluster sums and counts over ALL rows,
+// (k, d) and (k,), with no per-tile partials or gaps. The TPU kernel folded
+// each tile's one-hot product into one resident accumulator, tile after
+// tile. Here it is K3's template with the partials and gaps compiled out
+// (Untiled = true) and one super spanning every tile: assign_tile_kernel
+// writes each tile's sums into the scratch array as for K3, and
+// super_reduce_kernel, one block, adds them in ascending tile order, the
+// TPU's order. So labels and D² are K3's bits, and no float atomics set
+// the sums. A weighted fit passes one weight per row: the row enters the
+// sums as w·x and its count as w, on the same fixed tree. This fuses the
+// reference's segment_update, which recomputes the sums with the weights
+// after the TPU kernel. What bounds it on the H100: bytes, as K3 (80 MB at
+// n = 4M, d = 2, about 24 us), the weights adding 4 bytes a row; the
+// reduce over tiles is one block's loop over n_tiles, a few tens of us at
+// the paper's shape.
+//
+// K9 replaces lloyd_assign.py::lloyd_assign_batched_pallas (its pallas_call
+// at line 201): K4 over B independent problems, as K10a is to K3. Both
+// grids are B blocks wide per tile (per problem for the reduce); block i
+// takes tile i % n_tiles of problem i / n_tiles, its pointers offset to that
+// problem, and the reduce's block b adds problem b's tiles. Row b is K4 on
+// problem b, bitwise. It takes no weights, as the reference's batched
+// problems take none. At the PQ codebook sweep (B = 1664, n = 16384,
+// d = 16, k = 256) its operation bound is K10a's, 3.65 ms.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -140,12 +166,16 @@ struct Gate {
 
 // D > 0: the dimension is D, known at compile time, and R = 4 rows share
 // each pass over the centroids. D == 0: the dimension is the runtime d.
-// Gated = false is K3 / K10a, Gated = true is K6 / K10b.
-template <int D, bool Gated>
+// Gated = false is K3 / K10a, Gated = true is K6 / K10b, Untiled = true
+// is K4 / K9: no partials or gaps (null), and non-null weights (K4) weigh
+// each row's entry in the cluster sums. The switches are compile-time, so
+// K3's and K6's instances carry none of K4's code.
+template <int D, bool Gated, bool Untiled>
 __global__ void __launch_bounds__(kThreads)
 assign_tile_kernel(const float* __restrict__ points,
                    const float* __restrict__ norms,
                    const float* __restrict__ cents,
+                   const float* __restrict__ weights,
                    int* __restrict__ labels, float* __restrict__ md,
                    float* __restrict__ partials, float* __restrict__ gaps,
                    float* __restrict__ tile_acc,  // (n_tiles, k, d + 1)
@@ -159,8 +189,12 @@ assign_tile_kernel(const float* __restrict__ points,
   cents += (size_t)b * k * d;
   labels += (size_t)b * n;
   md += (size_t)b * n;
-  partials += (size_t)b * n_tiles;
-  gaps += (size_t)b * n_tiles;
+  if (Untiled) {
+    if (weights != nullptr) weights += (size_t)b * n;
+  } else {
+    partials += (size_t)b * n_tiles;
+    gaps += (size_t)b * n_tiles;
+  }
   if (Gated) {
     g.delta += (size_t)b * k;
     g.thresh += (size_t)b * n_tiles;
@@ -286,19 +320,21 @@ assign_tile_kernel(const float* __restrict__ points,
     if (tid == 0) g.pruned[t] = cnt_sh[0];
     __syncthreads();
   }
-  red_sum[tid] = local_sum;
-  red_gap[tid] = local_gap;
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      red_sum[tid] += red_sum[tid + s];
-      red_gap[tid] = nan_min(red_gap[tid], red_gap[tid + s]);
-    }
+  if (!Untiled) {
+    red_sum[tid] = local_sum;
+    red_gap[tid] = local_gap;
     __syncthreads();
-  }
-  if (tid == 0) {
-    partials[t] = red_sum[0];
-    gaps[t] = red_gap[0];
+    for (int s = kThreads / 2; s > 0; s >>= 1) {
+      if (tid < s) {
+        red_sum[tid] += red_sum[tid + s];
+        red_gap[tid] = nan_min(red_gap[tid], red_gap[tid + s]);
+      }
+      __syncthreads();
+    }
+    if (tid == 0) {
+      partials[t] = red_sum[0];
+      gaps[t] = red_gap[0];
+    }
   }
 
   // cluster sums, `cols` columns (j0 .. j0 + cols - 1 of d + 1) at a time
@@ -315,9 +351,12 @@ assign_tile_kernel(const float* __restrict__ points,
       const unsigned peers = __match_any_sync(kFull, lab);
       const int rounds = __reduce_max_sync(kFull, __popc(peers));
       const bool lead = lab >= 0 && __ffs(peers) - 1 == lane;
+      const float wr = Untiled && weights != nullptr && lab >= 0
+                           ? weights[tile0 + r] : 1.f;
       for (int jj = 0; jj < nc; ++jj) {
         const int j = j0 + jj;
-        const float v = lab < 0 ? 0.f : (j < d ? tile_x[(size_t)r * d + j] : 1.f);
+        const float x = j < d ? tile_x[(size_t)r * d + j] : 1.f;
+        const float v = lab < 0 ? 0.f : (Untiled ? x * wr : x);
         float s = 0.f;
         unsigned rest = peers;
         for (int t = 0; t < rounds; ++t) {   // the group's lanes, ascending
@@ -378,43 +417,47 @@ super_reduce_kernel(const float* __restrict__ tile_acc, float* __restrict__ ssum
   }
 }
 
-template <int D, bool Gated>
+template <int D, bool Gated, bool Untiled>
 int launch_assign(const float* points, const float* norms, const float* cents,
-                  int* labels, float* md, float* partials, float* gaps,
-                  float* tile_acc, const Gate& g, int batch, int n, int d,
-                  int k, int block_n, int cols, cudaStream_t s) {
+                  const float* weights, int* labels, float* md,
+                  float* partials, float* gaps, float* tile_acc,
+                  const Gate& g, int batch, int n, int d, int k, int block_n,
+                  int cols, cudaStream_t s) {
   const unsigned grid = (unsigned)batch * ((n + block_n - 1) / block_n);
   const size_t smem = sizeof(float) * ((size_t)k * d + k + 2 * kThreads +
                                        (size_t)kWarps * k * cols + block_n +
                                        (Gated ? k : 0));
-  cudaFuncSetAttribute(assign_tile_kernel<D, Gated>,
+  cudaFuncSetAttribute(assign_tile_kernel<D, Gated, Untiled>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  assign_tile_kernel<D, Gated><<<grid, kThreads, smem, s>>>(
-      points, norms, cents, labels, md, partials, gaps, tile_acc, g, n, d, k,
-      block_n, cols);
+  assign_tile_kernel<D, Gated, Untiled><<<grid, kThreads, smem, s>>>(
+      points, norms, cents, weights, labels, md, partials, gaps, tile_acc, g,
+      n, d, k, block_n, cols);
   return (int)cudaGetLastError();
 }
 
-template <bool Gated>
+// Untiled (K4 / K9) takes null partials and gaps and `tps` = n_tiles: one
+// super spanning every tile.
+template <bool Gated, bool Untiled>
 int launch_round(const float* points, const float* norms, const float* cents,
-                 int* labels, float* md, float* partials, float* gaps,
-                 float* tile_acc, float* ssums, float* scounts, const Gate& g,
-                 int batch, int n, int d, int k, int block_n, int tps,
-                 int cols, cudaStream_t s) {
+                 const float* weights, int* labels, float* md,
+                 float* partials, float* gaps, float* tile_acc, float* ssums,
+                 float* scounts, const Gate& g, int batch, int n, int d,
+                 int k, int block_n, int tps, int cols, cudaStream_t s) {
   const int n_tiles = (n + block_n - 1) / block_n;
   const int n_super = (n_tiles + tps - 1) / tps;
   if ((long long)batch * n_tiles > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;
   const int err =
-      d == 2    ? launch_assign<2, Gated>(points, norms, cents, labels, md,
-                                          partials, gaps, tile_acc, g, batch,
-                                          n, d, k, block_n, cols, s)
-      : d == 16 ? launch_assign<16, Gated>(points, norms, cents, labels, md,
-                                           partials, gaps, tile_acc, g, batch,
-                                           n, d, k, block_n, cols, s)
-                : launch_assign<0, Gated>(points, norms, cents, labels, md,
-                                          partials, gaps, tile_acc, g, batch,
-                                          n, d, k, block_n, cols, s);
+      d == 2 ? launch_assign<2, Gated, Untiled>(
+                   points, norms, cents, weights, labels, md, partials, gaps,
+                   tile_acc, g, batch, n, d, k, block_n, cols, s)
+      : d == 16
+          ? launch_assign<16, Gated, Untiled>(
+                points, norms, cents, weights, labels, md, partials, gaps,
+                tile_acc, g, batch, n, d, k, block_n, cols, s)
+          : launch_assign<0, Gated, Untiled>(
+                points, norms, cents, weights, labels, md, partials, gaps,
+                tile_acc, g, batch, n, d, k, block_n, cols, s);
   if (err != 0) return err;
   super_reduce_kernel<<<(unsigned)batch * n_super, kThreads, 0, s>>>(
       tile_acc, ssums, scounts, Gated ? g.active : nullptr, n_tiles, d, k,
@@ -433,10 +476,10 @@ extern "C" int lloyd_assign_tiled_launch(
     float* md, float* partials, float* gaps, float* tile_acc, float* ssums,
     float* scounts, int n, int d, int k, int block_n, int tps, int cols,
     void* stream) {
-  return launch_round<false>(points, norms, cents, labels, md, partials, gaps,
-                             tile_acc, ssums, scounts, Gate{}, 1, n, d, k,
-                             block_n, tps, cols,
-                             static_cast<cudaStream_t>(stream));
+  return launch_round<false, false>(
+      points, norms, cents, nullptr, labels, md, partials, gaps, tile_acc,
+      ssums, scounts, Gate{}, 1, n, d, k, block_n, tps, cols,
+      static_cast<cudaStream_t>(stream));
 }
 
 // Launches both kernels of one assignment round of `batch` problems (K10a)
@@ -450,10 +493,10 @@ extern "C" int lloyd_assign_tiled_batched_launch(
     float* md, float* partials, float* gaps, float* tile_acc, float* ssums,
     float* scounts, int batch, int n, int d, int k, int block_n, int tps,
     int cols, void* stream) {
-  return launch_round<false>(points, norms, cents, labels, md, partials, gaps,
-                             tile_acc, ssums, scounts, Gate{}, batch, n, d, k,
-                             block_n, tps, cols,
-                             static_cast<cudaStream_t>(stream));
+  return launch_round<false, false>(
+      points, norms, cents, nullptr, labels, md, partials, gaps, tile_acc,
+      ssums, scounts, Gate{}, batch, n, d, k, block_n, tps, cols,
+      static_cast<cudaStream_t>(stream));
 }
 
 // Launches both kernels of one gated assignment round (K6) on `stream`;
@@ -470,9 +513,10 @@ extern "C" int lloyd_assign_gated_launch(
     int cols, void* stream) {
   const Gate g{delta, thresh, absorb, prev_a, prev_md, prev_lb, active, lb,
                pruned};
-  return launch_round<true>(points, norms, cents, labels, md, partials, gaps,
-                            tile_acc, ssums, scounts, g, 1, n, d, k, block_n,
-                            tps, cols, static_cast<cudaStream_t>(stream));
+  return launch_round<true, false>(
+      points, norms, cents, nullptr, labels, md, partials, gaps, tile_acc,
+      ssums, scounts, g, 1, n, d, k, block_n, tps, cols,
+      static_cast<cudaStream_t>(stream));
 }
 
 // Launches both kernels of one gated assignment round of `batch` problems
@@ -491,8 +535,41 @@ extern "C" int lloyd_assign_gated_batched_launch(
     int tps, int cols, void* stream) {
   const Gate g{delta, thresh, absorb, prev_a, prev_md, prev_lb, active, lb,
                pruned};
-  return launch_round<true>(points, norms, cents, labels, md, partials, gaps,
-                            tile_acc, ssums, scounts, g, batch, n, d, k,
-                            block_n, tps, cols,
-                            static_cast<cudaStream_t>(stream));
+  return launch_round<true, false>(
+      points, norms, cents, nullptr, labels, md, partials, gaps, tile_acc,
+      ssums, scounts, g, batch, n, d, k, block_n, tps, cols,
+      static_cast<cudaStream_t>(stream));
+}
+
+// Launches both kernels of one untiled assignment round (K4) on `stream`;
+// returns cudaGetLastError(). `weights` (n,) may be null (every row weighs
+// 1). sums (k, d) and counts (k,) are over all rows; tile_acc is
+// (n_tiles, k, d + 1) scratch.
+extern "C" int lloyd_assign_launch(const float* points, const float* norms,
+                                   const float* cents, const float* weights,
+                                   int* labels, float* md, float* tile_acc,
+                                   float* sums, float* counts, int n, int d,
+                                   int k, int block_n, int cols,
+                                   void* stream) {
+  const int n_tiles = (n + block_n - 1) / block_n;
+  return launch_round<false, true>(
+      points, norms, cents, weights, labels, md, nullptr, nullptr, tile_acc,
+      sums, counts, Gate{}, 1, n, d, k, block_n, n_tiles, cols,
+      static_cast<cudaStream_t>(stream));
+}
+
+// Launches both kernels of one untiled assignment round of `batch` problems
+// (K9) on `stream`; returns cudaGetLastError(). Every array carries a
+// leading problem axis: points (batch, n, d), norms / labels / md
+// (batch, n), cents and sums (batch, k, d), counts (batch, k), tile_acc
+// (batch, n_tiles, k, d + 1).
+extern "C" int lloyd_assign_batched_launch(
+    const float* points, const float* norms, const float* cents, int* labels,
+    float* md, float* tile_acc, float* sums, float* counts, int batch, int n,
+    int d, int k, int block_n, int cols, void* stream) {
+  const int n_tiles = (n + block_n - 1) / block_n;
+  return launch_round<false, true>(
+      points, norms, cents, nullptr, labels, md, nullptr, nullptr, tile_acc,
+      sums, counts, Gate{}, batch, n, d, k, block_n, n_tiles, cols,
+      static_cast<cudaStream_t>(stream));
 }

@@ -108,19 +108,21 @@ def gate_select(new_md_full: torch.Tensor, min_d2: torch.Tensor,
                 center_d: torch.Tensor, dc: torch.Tensor,
                 margin: torch.Tensor, prev_partials: torch.Tensor,
                 prev_tile_max: torch.Tensor, active: torch.Tensor, *,
-                block_n: int):
+                block_n: int, weights: torch.Tensor | None = None):
     """K5's per-tile selects, given every row's ungated ``new_md_full``:
     rows of active tiles that the per-point bound does not prune take the
     fresh value, all others keep ``min_d2``; active tiles re-sum their
-    partial and max, inactive ones keep the carried entries. Returns
-    (min_d2, partials, tile_max, pruned (T,) int32)."""
+    partial (of D²·``weights`` when given) and max, inactive ones keep the
+    carried entries. Returns (min_d2, partials, tile_max, pruned (T,)
+    int32)."""
     n = min_d2.shape[0]
     act_pt = bounds.expand_mask(active, block_n, n)
     prune = act_pt & bounds.seed_point_prune(
         min_d2, center_d, bounds.expand_mask(dc, block_n, n),
         bounds.expand_mask(margin, block_n, n))
     md = torch.where(act_pt & ~prune, new_md_full, min_d2)
-    partials = torch.where(active, tile_partials(md, block_n), prev_partials)
+    wmd = md if weights is None else md * weights
+    partials = torch.where(active, tile_partials(wmd, block_n), prev_partials)
     tile_max = torch.where(active, bounds.tile_reduce_max(md, block_n),
                            prev_tile_max)
     return (md, partials, tile_max,

@@ -1,8 +1,9 @@
 """K3, K6, K10a and K10b — the tiled Lloyd assignment round, ungated,
-bound-gated, and each batched (port of
-``repro.kernels.lloyd_assign.lloyd_assign_tiled_pallas``,
-``lloyd_assign_gated_pallas``, ``lloyd_assign_tiled_batched_pallas`` and
-``lloyd_assign_gated_batched_pallas``).
+bound-gated, and each batched; K4 and K9 — the untiled round, single and
+batched (port of ``repro.kernels.lloyd_assign.lloyd_assign_tiled_pallas``,
+``lloyd_assign_gated_pallas``, ``lloyd_assign_tiled_batched_pallas``,
+``lloyd_assign_gated_batched_pallas``, ``lloyd_assign_pallas`` and
+``lloyd_assign_batched_pallas``).
 
 One round assigns every point to its nearest centroid and returns what the
 centroid update and the next slice's movement bound need:
@@ -24,10 +25,16 @@ The batched rounds (K10a, K10b) are K3 and K6 over B independent problems
 in one launch, every argument and output with a leading problem axis and
 every problem gated by its own mask; row b is K3 (K6) on problem b.
 
-``lloyd_assign_tiled``, ``lloyd_assign_gated``, ``lloyd_assign_tiled_batched``
-and ``lloyd_assign_gated_batched`` launch the hand-written CUDA kernels
-(``csrc/lloyd_assign.cu``) for tensors on the card, and run the plain twins
-(``*_torch``) only for tensors on the CPU.
+The untiled round (K4), the weighted and mini-batch fits' round, returns
+only labels and D² per row and the cluster sums (k, d) and counts (k,)
+over all rows; with per-row weights, each row enters the sums as w·x and
+its count as w. K9 is K4 over B problems, row b K4 on problem b.
+
+``lloyd_assign_tiled``, ``lloyd_assign_gated``, ``lloyd_assign_tiled_batched``,
+``lloyd_assign_gated_batched``, ``lloyd_assign`` and ``lloyd_assign_batched``
+launch the hand-written CUDA kernels (``csrc/lloyd_assign.cu``) for tensors
+on the card, and run the plain twins (``*_torch``) only for tensors on the
+CPU.
 """
 from __future__ import annotations
 
@@ -38,7 +45,7 @@ import torch
 from repro_torch.core import bounds
 from repro_torch.core.bounds import super_reduce
 from repro_torch.core.guards import KernelFailureError
-from repro_torch.core.sampling import tile_partials
+from repro_torch.core.sampling import segment_sum, tile_partials
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.kmeans_distance import tile_d2
 
@@ -49,6 +56,10 @@ _GATED_ARGTYPES = ((ctypes.c_void_p,) * 19 + (ctypes.c_int,) * 6
 _BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7
                      + (ctypes.c_void_p,))
 _GATED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 19 + (ctypes.c_int,) * 7
+                           + (ctypes.c_void_p,))
+_PLAIN_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 5
+                   + (ctypes.c_void_p,))
+_PLAIN_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 6
                            + (ctypes.c_void_p,))
 
 
@@ -152,6 +163,33 @@ def lloyd_assign_gated_batched_torch(*args, block_n: int, tps: int):
     return tuple(torch.stack(o) for o in zip(*outs))
 
 
+def lloyd_assign_torch(points: torch.Tensor, norms: torch.Tensor,
+                       centroids: torch.Tensor,
+                       weights: torch.Tensor | None = None):
+    """Plain PyTorch twin of K4: what ``repro.kernels.ref.lloyd_assign_ref``
+    computes, on the cached norms, with the reference's weighted
+    ``segment_update`` for the sums when ``weights`` (n,) are given; the
+    sums in ``sampling.segment_sum``'s fixed order. Returns (labels (n,)
+    int32, min_d2 (n,), sums (k, d), counts (k,))."""
+    d2 = tile_d2(points, centroids, norms)
+    a = d2.argmin(dim=1)
+    w = (points.new_ones(points.shape[0]) if weights is None
+         else weights.float())
+    tot = segment_sum(torch.cat([points * w[:, None], w[:, None]], 1), a,
+                      centroids.shape[0])
+    return a.int(), d2.amin(dim=1), tot[:, :-1], tot[:, -1]
+
+
+def lloyd_assign_batched_torch(points: torch.Tensor, norms: torch.Tensor,
+                               centroids: torch.Tensor):
+    """Plain PyTorch twin of K9: K4's twin on each problem, stacked, so row
+    b is bitwise the single twin on problem b. Returns (labels (B, n),
+    min_d2 (B, n), sums (B, k, d), counts (B, k))."""
+    outs = [lloyd_assign_torch(p, nr, c)
+            for p, nr, c in zip(points, norms, centroids)]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
 def _gated_shapes(lead, n, d, k, block_n, tps) -> dict:
     """The shapes ``lloyd_assign_gated(_batched)`` takes, by argument."""
     n_tiles = -(-n // block_n)
@@ -181,6 +219,16 @@ def _check(points, norms, centroids, block_n, tps):
         raise ValueError(f"inputs on several devices: {devs}")
 
 
+def _cols(d, k, block_n, gated: bool = False) -> int:
+    """``ops.assign_cols``, raising when not one column fits the Hopper
+    shared-memory budget."""
+    cols = ops.assign_cols(d, k, block_n, gated=gated)
+    if cols < 1:
+        raise ValueError(f"({k}, {d}) centroids with block_n={block_n} do "
+                         f"not fit in {ops.SMEM_LIMIT} bytes of shared memory")
+    return cols
+
+
 def lloyd_assign_tiled(points: torch.Tensor, norms: torch.Tensor,
                        centroids: torch.Tensor, *, block_n: int, tps: int):
     """One tiled assignment round. Returns (labels, min_d2, partials, gaps,
@@ -196,10 +244,7 @@ def lloyd_assign_tiled(points: torch.Tensor, norms: torch.Tensor,
     ops.check_card_tensors(points=points, norms=norms, centroids=centroids)
     n, d = points.shape
     k = centroids.shape[0]
-    cols = ops.assign_cols(d, k, block_n)
-    if cols < 1:
-        raise ValueError(f"({k}, {d}) centroids with block_n={block_n} do "
-                         f"not fit in {ops.SMEM_LIMIT} bytes of shared memory")
+    cols = _cols(d, k, block_n)
     fn = _build.function("lloyd_assign", "lloyd_assign_tiled_launch",
                          _ARGTYPES)
     dev = points.device
@@ -255,10 +300,7 @@ def lloyd_assign_tiled_batched(points: torch.Tensor, norms: torch.Tensor,
     ops.check_card_tensors(points=points, norms=norms, centroids=centroids)
     _, n, d = points.shape
     k = centroids.shape[1]
-    cols = ops.assign_cols(d, k, block_n)
-    if cols < 1:
-        raise ValueError(f"({k}, {d}) centroids with block_n={block_n} do "
-                         f"not fit in {ops.SMEM_LIMIT} bytes of shared memory")
+    cols = _cols(d, k, block_n)
     n_tiles = -(-n // block_n)
     n_super = -(-n_tiles // tps)
     if bsz * n_tiles >= 2 ** 31:
@@ -329,10 +371,7 @@ def lloyd_assign_gated(points: torch.Tensor, norms: torch.Tensor,
                            delta=delta, thresh=thresh, absorb=absorb,
                            prev_min_d2=prev_min_d2, prev_lb=prev_lb)
     ops.check_card_tensors(torch.int32, prev_assign=prev_assign)
-    cols = ops.assign_cols(d, k, block_n, gated=True)
-    if cols < 1:
-        raise ValueError(f"({k}, {d}) centroids with block_n={block_n} do "
-                         f"not fit in {ops.SMEM_LIMIT} bytes of shared memory")
+    cols = _cols(d, k, block_n, gated=True)
     fn = _build.function("lloyd_assign", "lloyd_assign_gated_launch",
                          _GATED_ARGTYPES)
     dev = points.device
@@ -414,10 +453,7 @@ def lloyd_assign_gated_batched(points: torch.Tensor, norms: torch.Tensor,
                            delta=delta, thresh=thresh, absorb=absorb,
                            prev_min_d2=prev_min_d2, prev_lb=prev_lb)
     ops.check_card_tensors(torch.int32, prev_assign=prev_assign)
-    cols = ops.assign_cols(d, k, block_n, gated=True)
-    if cols < 1:
-        raise ValueError(f"({k}, {d}) centroids with block_n={block_n} do "
-                         f"not fit in {ops.SMEM_LIMIT} bytes of shared memory")
+    cols = _cols(d, k, block_n, gated=True)
     n_tiles = -(-n // block_n)
     if bsz * n_tiles >= 2 ** 31:
         raise ValueError(f"{bsz} problems of {n_tiles} tiles exceed the "
@@ -449,3 +485,103 @@ def lloyd_assign_gated_batched(points: torch.Tensor, norms: torch.Tensor,
                                  f"cudaError {err}")
     ops.LAUNCHES["lloyd_assign_gated_batched"] += 1
     return labels, md, lb, partials, gaps, ssums, scounts, pruned
+
+
+def lloyd_assign(points: torch.Tensor, norms: torch.Tensor,
+                 centroids: torch.Tensor,
+                 weights: torch.Tensor | None = None, *, block_n: int):
+    """One untiled assignment round. Returns (labels (n,) int32, min_d2
+    (n,), sums (k, d), counts (k,)), the sums and counts over all rows,
+    each row weighted by ``weights`` (n,) when given. On the card this
+    launches K4 (its two kernels count as one launch) with ``block_n``-row
+    tiles, which set only the order of the sums; CPU tensors take the plain
+    twin."""
+    _check(points, norms, centroids, block_n, 1)
+    n, d = points.shape
+    k = centroids.shape[0]
+    if weights is not None and (tuple(weights.shape) != (n,)
+                                or weights.device != points.device):
+        raise ValueError(f"weights {tuple(weights.shape)} on "
+                         f"{weights.device} must be ({n},) on "
+                         f"{points.device}")
+    if points.device.type == "cpu":
+        return lloyd_assign_torch(points, norms, centroids, weights)
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    ops.check_card_tensors(points=points, norms=norms, centroids=centroids)
+    if weights is not None:
+        ops.check_card_tensors(weights=weights)
+    cols = _cols(d, k, block_n)
+    fn = _build.function("lloyd_assign", "lloyd_assign_launch",
+                         _PLAIN_ARGTYPES)
+    dev = points.device
+    labels = torch.empty(n, dtype=torch.int32, device=dev)
+    md = torch.empty(n, dtype=torch.float32, device=dev)
+    tile_acc = torch.empty((-(-n // block_n), k, d + 1), dtype=torch.float32,
+                           device=dev)
+    sums = torch.empty((k, d), dtype=torch.float32, device=dev)
+    counts = torch.empty(k, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
+                 None if weights is None else weights.data_ptr(),
+                 labels.data_ptr(), md.data_ptr(), tile_acc.data_ptr(),
+                 sums.data_ptr(), counts.data_ptr(), n, d, k, block_n, cols,
+                 stream)
+    if err != 0:
+        raise KernelFailureError(f"lloyd_assign launch failed: cudaError "
+                                 f"{err}")
+    ops.LAUNCHES["lloyd_assign"] += 1
+    return labels, md, sums, counts
+
+
+def lloyd_assign_batched(points: torch.Tensor, norms: torch.Tensor,
+                         centroids: torch.Tensor, *, block_n: int):
+    """One untiled assignment round of B independent problems: points
+    (B, n, d), norms (B, n), centroids (B, k, d). Returns (labels (B, n),
+    min_d2 (B, n), sums (B, k, d), counts (B, k)). On the card this
+    launches K9 (its two kernels count as one launch) for every problem at
+    once; CPU tensors take the plain twin."""
+    if points.dim() != 3 or centroids.dim() != 3:
+        raise ValueError("points and centroids must be 3-D (B, rows, d)")
+    bsz, n, d = points.shape
+    k = centroids.shape[1]
+    if (bsz < 1 or tuple(centroids.shape[:1]) != (bsz,)
+            or tuple(norms.shape) != (bsz, n)):
+        raise ValueError(f"problem counts differ: points "
+                         f"{tuple(points.shape)}, centroids "
+                         f"{tuple(centroids.shape)}, norms "
+                         f"{tuple(norms.shape)}")
+    _check(points[0], norms[0], centroids[0], block_n, 1)
+    if len({t.device for t in (points, norms, centroids)}) != 1:
+        raise ValueError("inputs on several devices")
+    if points.device.type == "cpu":
+        return lloyd_assign_batched_torch(points, norms, centroids)
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    ops.check_card_tensors(points=points, norms=norms, centroids=centroids)
+    cols = _cols(d, k, block_n)
+    n_tiles = -(-n // block_n)
+    if bsz * n_tiles >= 2 ** 31:
+        raise ValueError(f"{bsz} problems of {n_tiles} tiles exceed the "
+                         "grid's 2^31 - 1 blocks")
+    fn = _build.function("lloyd_assign", "lloyd_assign_batched_launch",
+                         _PLAIN_BATCHED_ARGTYPES)
+    dev = points.device
+    labels = torch.empty((bsz, n), dtype=torch.int32, device=dev)
+    md = torch.empty((bsz, n), dtype=torch.float32, device=dev)
+    tile_acc = torch.empty((bsz, n_tiles, k, d + 1), dtype=torch.float32,
+                           device=dev)
+    sums = torch.empty((bsz, k, d), dtype=torch.float32, device=dev)
+    counts = torch.empty((bsz, k), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
+                 labels.data_ptr(), md.data_ptr(), tile_acc.data_ptr(),
+                 sums.data_ptr(), counts.data_ptr(), bsz, n, d, k, block_n,
+                 cols, stream)
+    if err != 0:
+        raise KernelFailureError(f"lloyd_assign_batched launch failed: "
+                                 f"cudaError {err}")
+    ops.LAUNCHES["lloyd_assign_batched"] += 1
+    return labels, md, sums, counts

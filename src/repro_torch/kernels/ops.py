@@ -1,5 +1,6 @@
-"""Shared kernel plumbing: the Hopper tile-height budget and the launch
-counters.
+"""Shared kernel plumbing: the Hopper tile-height budget, the launch
+counters, and ``lloyd_assign``, the untiled assignment round's entry (K4,
+or K9 for a batch of problems).
 
 Tile height. ``block_n`` rows form one tile: one CUDA thread block of the
 seeding and assignment kernels, one per-tile partial, and the window the
@@ -40,7 +41,9 @@ LAUNCHES: dict[str, int] = {"seed_prologue": 0,
                             "lloyd_assign_tiled_batched": 0,
                             "seed_prologue_batched": 0,
                             "distance_min_update_gated_batched": 0,
-                            "lloyd_assign_gated_batched": 0}
+                            "lloyd_assign_gated_batched": 0,
+                            "lloyd_assign": 0,
+                            "lloyd_assign_batched": 0}
 
 
 def reset_launches() -> None:
@@ -98,3 +101,30 @@ def choose_block_n(n: int, d: int, k: int) -> int:
     if n >= bn:
         return bn
     return max(128, 1 << (max(n, 1).bit_length() - 1))
+
+
+def lloyd_assign(points: torch.Tensor, centroids: torch.Tensor, *,
+                 norms: torch.Tensor | None = None,
+                 weights: torch.Tensor | None = None):
+    """The untiled assignment round: labels, D², and the cluster sums and
+    counts over all rows (each row weighted by ``weights`` (n,) when
+    given). (n, d) points go to K4, (B, n, d) points with (B, k, d)
+    centroids to K9, one launch for all B (the reference's ``custom_vmap``
+    rule); batched problems take no weights. ``norms`` are the cached fp32
+    ‖x‖², computed here when absent. The tile height is ``choose_block_n``'s
+    pick; the wrappers check that its staging fits the Hopper
+    shared-memory budget (``assign_smem_bytes``)."""
+    from repro_torch.core.bounds import point_norms
+    from repro_torch.kernels import lloyd_assign as la
+
+    n, d = points.shape[-2:]
+    block_n = choose_block_n(n, d, centroids.shape[-2])
+    if norms is None:
+        norms = point_norms(points)
+    if points.dim() == 3:
+        if weights is not None:
+            raise ValueError("batched problems take no weights")
+        return la.lloyd_assign_batched(points, norms, centroids,
+                                       block_n=block_n)
+    return la.lloyd_assign(points, norms, centroids, weights,
+                           block_n=block_n)

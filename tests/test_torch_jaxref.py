@@ -18,7 +18,8 @@ file order.
 schedule as the plain numbers the port's ``Draws`` takes: the first index,
 one uniform per round, and one fallback index per round (the ``_guarded``
 draw for degenerate weights); ``rejection_schedule`` adds the rejection
-loop's per-attempt and exact-draw numbers. Torch cannot reproduce threefry,
+loop's per-attempt and exact-draw numbers, ``weighted_first`` the uniform
+and fallback index a weighted run draws its first seed with. Torch cannot reproduce threefry,
 so parity tests hand the reference's draws to the port. ``batch=(b, B)``
 replays problem b of ``seed_batched``, which seeds problem b from
 ``jax.random.split(PRNGKey(seed), B)[b]``; ``batched_draws_for`` stacks all
@@ -140,20 +141,38 @@ def rejection_schedule(seed: int, n: int, k: int, max_attempts: int):
             np.asarray(eu, np.float32), np.asarray(eg, np.int64))
 
 
+def weighted_first(seed: int, n: int):
+    """(first_u, first_fallback) of a weighted run under
+    ``PRNGKey(seed)``: the reference draws its first seed by weight from
+    the same ``k0`` as the unweighted first index, with ``uniform(k0)`` and
+    ``_guarded``'s ``randint(fold_in(k0, 0x0DD))``."""
+    import jax
+    import jax.numpy as jnp
+    _, k0 = jax.random.split(jax.random.PRNGKey(seed))
+    return (float(jax.random.uniform(k0, (), jnp.float32)),
+            int(jax.random.randint(jax.random.fold_in(k0, GUARD_SALT), (), 0,
+                                   n, dtype=jnp.int32)))
+
+
 def draws_for(seed: int, n: int, k: int, max_attempts: int = 0,
-              batch=None) -> Draws:
+              batch=None, weighted: bool = False) -> Draws:
     """The reference's key schedule as the port's ``Draws``; with
-    ``max_attempts`` > 0 also the rejection loop's; with ``batch=(b, B)``
-    problem b's of ``seed_batched`` (cdf and tiled only)."""
+    ``max_attempts`` > 0 also the rejection loop's; with ``weighted`` the
+    weighted first seed's; with ``batch=(b, B)`` problem b's of
+    ``seed_batched`` (cdf and tiled only)."""
     first, u, fb = key_schedule(seed, n, k, batch)
-    rej = {}
+    extra = {}
     if max_attempts > 0:
-        rej = dict(zip(("propose_u", "accept_u", "exact_u",
-                        "exact_fallback"),
-                       map(torch.from_numpy,
-                           rejection_schedule(seed, n, k, max_attempts))))
+        extra = dict(zip(("propose_u", "accept_u", "exact_u",
+                          "exact_fallback"),
+                         map(torch.from_numpy,
+                             rejection_schedule(seed, n, k, max_attempts))))
+    if weighted:
+        fu, ffb = weighted_first(seed, n)
+        extra.update(first_u=torch.tensor([fu], dtype=torch.float32),
+                     first_fallback=torch.tensor([ffb]))
     return Draws(torch.tensor([first]), torch.from_numpy(u),
-                 torch.from_numpy(fb), **rej)
+                 torch.from_numpy(fb), **extra)
 
 
 def batched_draws_for(seed: int, n_problems: int, n: int, k: int) -> Draws:

@@ -456,12 +456,17 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
         torch.zeros((2, 500), dtype=torch.int32), torch.zeros(2, 500),
         torch.full((2, 500), -torch.inf), zb, zb, torch.zeros(2, 4, 3, 2),
         torch.zeros(2, 4, 3), tb, block_n=128, tps=1)
+    la.lloyd_assign(x, bounds.point_norms(x), x[:3].contiguous(),
+                    torch.ones(500), block_n=128)
+    la.lloyd_assign_batched(xb, bounds.point_norms(xb),
+                            xb[:, :3].contiguous(), block_n=128)
     assert set(ops.LAUNCHES) == {
         "seed_prologue", "distance_min_update", "lloyd_assign_tiled",
         "distance_min_update_gated", "lloyd_assign_gated", "row_min_d2",
         "tile_cap", "distance_min_update_batched",
         "lloyd_assign_tiled_batched", "seed_prologue_batched",
-        "distance_min_update_gated_batched", "lloyd_assign_gated_batched"}
+        "distance_min_update_gated_batched", "lloyd_assign_gated_batched",
+        "lloyd_assign", "lloyd_assign_batched"}
     assert not any(ops.LAUNCHES.values())
 
 
