@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--json PATH] [--profile]
+    python3 chip_smoke.py [--json PATH] [--profile] [--ivf-data CASE]
 
 Phases, each of which exits non-zero on failure:
 
@@ -109,13 +109,46 @@ Phases, each of which exits non-zero on failure:
    ms (median of 3), Lloyd ms per iteration, kmeans s; ms per batch with the
    host-to-device copies and the device busy time (profiler), and the
    mini-batch inertia over all rows over the full-batch fit's.
-8. With ``--profile`` only: trace one seeding run per sampler (rejection
+8. IVF serving and KV-cache PQ at ``IVF_SIFT1M`` (``configs/ivf.py``:
+   the shape of ANN-benchmarks' sift-128-euclidean, 1,000,000 rows of
+   d = 128 and 10,000 queries, synthetic blobs made on the card, by
+   default of an assumed low intrinsic dimension, with ``--ivf-data
+   isotropic`` drawn in all 128 dimensions; nlist 256,
+   nprobe 32, PQ with 16 sub-spaces). ``IvfIndex.build(layout="label",
+   pq_nsub=16)`` on ``ClusterEngine(device="cuda")``, timed; K13
+   (``ivf_scan``) and K14 (``ivf_adc_scan``) against their plain twins on
+   the first 256 queries' probe maps at nprobe 32 and nlist (rows equal
+   where the twin's adjacent D² clear twice the tolerance, dists within
+   it, gate_skipped equal, then dists and rows bitwise; gate on bitwise
+   gate off; two launches bitwise); ``search(nprobe=nlist)`` bitwise
+   ``exhaustive`` and ADC
+   within tolerance of decode-then-exact on 64 queries; over all 10,000
+   queries ``check_ivf_counters``, a gate that skips, and every
+   ``corrupt_list_offsets`` kind raising ``CorruptedStateError``; K13 and
+   K14 timed at Q = 10,000, nprobe 32 (CUDA events) beside their twins run
+   in chunks of 2,048 queries, whose outputs must be the kernel's bitwise,
+   and their bounds (the larger of the bytes read once, each probed row's
+   4d + 4 or n_sub + 8 bytes with the queries, tile lists and LUTs, and
+   the operations, 2d or n_sub + 4 per scored row); search ms, QPS and
+   recall@10 (1,000 queries against ``exhaustive``) at nprobe 32 and 256,
+   exact and ADC, each search counted (one K13 or K14 launch). Then
+   ``compress_transformer_cache`` on one gemma2_2b-shaped fp32 cache (26
+   layers, 4 kv heads, head_dim 256, 16,384 tokens, n_sub 16) with its
+   reconstruction error and compression, two runs bitwise; and
+   ``kmeans(order="morton")`` at the paper's size: ``reorder`` the Morton
+   permutation, the assignment the reordered fit's mapped back to the
+   caller's rows, bitwise a second run.
+9. With ``--profile`` only: trace one seeding run per sampler (rejection
    hier and flat included) and one Lloyd fit at the paper's shape,
    ungated and gated (shuffled and sorted), the weighted seeding (cdf,
-   tiled), the weighted fit and the mini-batch run, and the batched
-   seeding (cdf, tiled) and fit at the codebook sweep's, ungated and
-   gated, with torch.profiler, and print the device time by kernel and
-   the device's idle share.
+   tiled), the weighted fit and the mini-batch run, the batched seeding
+   (cdf, tiled) and fit at the codebook sweep's, ungated and gated, and
+   the IVF build and one search per mode, with torch.profiler, and print
+   the device time by kernel and the device's idle share.
+
+Kernels are timed as medians of CUDA-event readings; the plain versions
+of the batched kernels (K1's batched form, K7, K8, K9, K10a, K10b; 0.2–3 s
+a call) and the IVF twins (in chunks of queries) are timed once.
 
 The last three lines of stdout are the card's name and power limit, the
 kernels' JSON record, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -619,6 +652,13 @@ def profile_call(torch, fn) -> dict:
                          for name, (ms, c) in top})
 
 
+def print_profile(name: str, p: dict) -> None:
+    top = ", ".join(f"{kname[:48]} {v['ms']:.3f} ms x{v['count']}"
+                    for kname, v in list(p["kernels"].items())[:5])
+    print(f"profile {name}: wall {p['wall_ms']:.2f} ms, device busy "
+          f"{p['busy_ms']:.2f} ms, idle share {p['idle_share']:.3f}; {top}")
+
+
 def kmeans_run(torch, ops, eng, pts, k, sampler, draws, max_iters=25,
                **kw):
     """One counted kmeans: counters zeroed just before, read just after."""
@@ -887,7 +927,7 @@ def k7_case(torch, kd, ops, pts, norms, m, gen):
     ms = gpu_ms(torch, lambda: kd.distance_min_update_batched(
         pts, norms, cents, md_in, block_n=bn))
     plain = gpu_ms(torch, lambda: kd.distance_min_update_batched_torch(
-        pts, norms, cents, md_in, block_n=bn), reps=3, warmup=1)
+        pts, norms, cents, md_in, block_n=bn), reps=1, warmup=0)
     t = -(-n // bn)
     bms, by = bound_ms(4 * bsz * (n * d + 3 * n + m * d + t),
                        bsz * n * m * (2 * d + 3))
@@ -944,7 +984,7 @@ def k10a_case(torch, la, kd, ops, bounds, pts, norms, k, gen):
     ms = gpu_ms(torch, lambda: la.lloyd_assign_tiled_batched(
         pts, norms, cents, block_n=bn, tps=tps), reps=5)
     plain = gpu_ms(torch, lambda: la.lloyd_assign_tiled_batched_torch(
-        pts, norms, cents, block_n=bn, tps=tps), reps=3, warmup=1)
+        pts, norms, cents, block_n=bn, tps=tps), reps=1, warmup=0)
     bms, by = bound_ms(4 * bsz * (n * d + 3 * n + k * d + 2 * t
                                   + n_super * k * (d + 1)),
                        bsz * (n * k * (2 * d + 3) + n * d))
@@ -1097,8 +1137,8 @@ def k1b_case(torch, kd, bounds, ops, pts):
         check(all(torch.equal(u[b], v) for u, v in zip(out1, single)),
               f"batched K1: problem {b} is not bitwise K1 on its slice")
     ms = gpu_ms(torch, lambda: kd.seed_prologue_batched(pts, bn), reps=5)
-    plain = gpu_ms(torch, lambda: kd.seed_prologue_torch(pts, bn), reps=3,
-                   warmup=1)
+    plain = gpu_ms(torch, lambda: kd.seed_prologue_torch(pts, bn), reps=1,
+                   warmup=0)
     t = -(-n // bn)
     bms, by = bound_ms(4 * bsz * (n * d + 2 * n + t * (d + 1)),
                        bsz * (n * (3 * d + 1) + t * d))
@@ -1168,7 +1208,7 @@ def k8_case(torch, kd, bounds, ops, pts, cache, md_in, cents, mask):
     ms = gpu_ms(torch, lambda: kd.distance_min_update_gated_batched(
         *args, block_n=bn), reps=5)
     plain = gpu_ms(torch, lambda: kd.distance_min_update_gated_batched_torch(
-        *args, block_n=bn), reps=3, warmup=1)
+        *args, block_n=bn), reps=1, warmup=0)
     rows_act = int(bounds.expand_mask(act, bn, n).sum())
     n_pruned = int(out1[3].sum())
     fresh = rows_act - n_pruned
@@ -1295,7 +1335,7 @@ def k10b_case(torch, la, kd, bounds, ops, pts, cache, k, gen):
         ms = gpu_ms(torch, lambda: la.lloyd_assign_gated_batched(
             *args, block_n=bn, tps=tps), reps=5)
         plain = gpu_ms(torch, lambda: la.lloyd_assign_gated_batched_torch(
-            *args, block_n=bn, tps=tps), reps=3, warmup=1) \
+            *args, block_n=bn, tps=tps), reps=1, warmup=0) \
             if name == "gate" else None
         rows_act = int(act_pt.sum())
         n_pruned = int(out1[7].sum())
@@ -1538,7 +1578,7 @@ def k9_case(torch, la, kd, ops, pts, norms, k, gen):
     ms = gpu_ms(torch, lambda: la.lloyd_assign_batched(
         pts, norms, cents, block_n=bn), reps=5)
     plain = gpu_ms(torch, lambda: la.lloyd_assign_batched_torch(
-        pts, norms, cents), reps=3, warmup=1)
+        pts, norms, cents), reps=1, warmup=0)
     bms, by = bound_ms(4 * bsz * (n * d + 3 * n + k * d + k * (d + 1)),
                        bsz * (n * k * (2 * d + 3) + n * (d + 1)))
     return dict(batch=bsz, n=n, d=d, k=k, block_n=bn,
@@ -1748,6 +1788,340 @@ def weighted_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws, paper,
                        k9_path_ms=code_ms)
 
 
+def scan_case(torch, name, fn, twin, args, kw, tol, nprobe, chunk):
+    """One IVF scan kernel (K13 or K14) against its plain twin on ``args``
+    (the first ``chunk`` queries' maps): rows equal wherever the twin's
+    adjacent D² (k + 1 of them) lie more than 2·tol apart, dists within
+    ``tol``, gate_skipped equal, and then dists and rows bitwise the
+    twin's; gate off bitwise gate on; two launches the same bits."""
+    one = fn(*args, gate=True, **kw)
+    two = fn(*args, gate=True, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(one, two)),
+          f"{name} nprobe={nprobe}: two launches differ")
+    off = fn(*args, gate=False, **kw)
+    check(torch.equal(one[0], off[0]) and torch.equal(one[1], off[1])
+          and int(off[2].sum()) == 0,
+          f"{name} nprobe={nprobe}: gate on is not bitwise gate off")
+    plain = twin(*args, gate=True, **kw)
+    wide = twin(*args, gate=True, **dict(kw, k=kw["k"] + 1))
+    err = float((one[0] - plain[0]).abs().max())
+    clear = (wide[0].diff(dim=1) > 2 * tol).all(dim=1)
+    rows_ok = bool(((one[1] == plain[1]).all(dim=1) | ~clear).all())
+    check(err <= tol and rows_ok and torch.equal(one[2], plain[2]),
+          f"{name} nprobe={nprobe}: err {err:.3g} (tol {tol:.3g}), rows "
+          f"{rows_ok}, gate_skipped equal {torch.equal(one[2], plain[2])}")
+    # one arithmetic for kernel and twin: their bits must agree
+    check(torch.equal(one[0], plain[0]) and torch.equal(one[1], plain[1]),
+          f"{name} nprobe={nprobe}: not bitwise its twin")
+    return dict(nprobe=nprobe, queries=chunk, max_abs_err=err, tol=tol,
+                bitwise=True, clear_queries=int(clear.sum()),
+                gate_skipped=int(one[2].sum()),
+                probed_tiles=int(args[-1].sum()))
+
+
+def ivf_phase(torch, ops, bounds, telemetry, ClusterEngine, Draws, cfg, paper,
+              full, dev, launches, profile, kv_shape, data):
+    """Phase 8: IVF serving at ``cfg`` on the ``data`` case ("latent" or
+    "isotropic"), KV-cache PQ of one cache of ``kv_shape`` (layers, kv
+    heads, head_dim, tokens) and ``order=`` at ``full`` (see the module
+    docstring); with ``profile``, the build and one search per mode
+    traced."""
+    from repro_torch.data import blobs_batched
+    from repro_torch.data.ordering import inverse_permutation, morton_order
+    from repro_torch.kernels import ivf_scan as ks
+    from repro_torch.serve import IvfIndex, kvquant
+    from repro_torch.serve import ivf as ivf_mod
+    from repro_torch.testing import IVF_OFFSET_FAULTS, corrupt_list_offsets
+
+    out, cases = {"data": data}, {"K13": [], "K14": []}
+    n, d, nq, k = cfg.n_points, cfg.dim, cfg.n_queries, cfg.k
+    t8 = time.perf_counter()
+
+    def lap(what):
+        print(f"  [phase 8 +{time.perf_counter() - t8:.1f} s] {what}")
+    # The data are an assumption, not a measurement of SIFT: rows of
+    # SIFT's width whose variance lies in few directions ("latent"): 1,024
+    # blobs (spread 0.05) in a 16-dimensional latent cube, mapped to d
+    # dimensions by one Gaussian matrix, plus isotropic noise of 0.01. The
+    # latent width, blob count, spread and noise are chosen, with no
+    # published source. "isotropic" draws the 1,024 blobs in all d
+    # dimensions instead (k-means then leaves a few hub lists near the
+    # cube's centre that every query probes).
+    g = torch.Generator(device=dev).manual_seed(2)
+    if data == "latent":
+        latent = blobs_batched(1, n + nq, 16, 1024, generator=g)[0]
+        lift = torch.randn((16, d), generator=g, device=dev) / 4.0
+        allp = latent @ lift
+        allp += 0.01 * torch.randn(allp.shape, generator=g, device=dev)
+        del latent
+    else:
+        allp = blobs_batched(1, n + nq, d, 1024, generator=g)[0]
+    base, queries = allp[:n].contiguous(), allp[n:].contiguous()
+    del allp
+    eng = ClusterEngine(device="cuda")
+    idx, build_s, got = counted(torch, ops, lambda: IvfIndex.build(
+        base, cfg.nlist, engine=eng, layout="label", pq_nsub=cfg.pq_nsub,
+        max_iters=cfg.max_iters, generator=torch.Generator().manual_seed(0)))
+    out.update(build_s=build_s, block_n=idx.block_n, n_tiles=idx.n_tiles,
+               build_launches={k_: c for k_, c in got.items() if c})
+    if profile:
+        p = profile_call(torch, lambda: IvfIndex.build(
+            base, cfg.nlist, engine=eng, layout="label", pq_nsub=cfg.pq_nsub,
+            max_iters=cfg.max_iters,
+            generator=torch.Generator().manual_seed(0)))
+        out["profile_build"] = p
+        print_profile("ivf build", p)
+    print(f"IVF build n={n} d={d} nlist={cfg.nlist} pq_nsub={cfg.pq_nsub} "
+          f"(max_iters {cfg.max_iters}): {build_s:.3f} s, block_n "
+          f"{idx.block_n}, {idx.n_tiles} tiles, list sizes "
+          f"{int(idx.counts.min())}-{int(idx.counts.max())}; launches "
+          f"{out['build_launches']}")
+    del base
+
+    def maps(q, nprobe):
+        probed, qdots = ivf_mod._route(
+            q, idx.centroids, idx.centroid_norms, idx.super_centers,
+            idx.super_radii, idx.super_sizes, nprobe=nprobe)
+        tiles = (probed.float() @ idx.list_tiles.float()) > 0.0
+        ids, n_active = bounds.compact_ids(tiles)
+        return qdots, ids, n_active
+
+    pq = idx.pq
+
+    def k13_args(q, nprobe):
+        _, ids, n_active = maps(q, nprobe)
+        return (q, idx.points, idx.norms, idx.centers, idx.radii, ids,
+                n_active)
+
+    def k14_args(q, nprobe):
+        qdots, ids, n_active = maps(q, nprobe)
+        return (q, ivf_mod._adc_lut(q, pq.codebook), qdots, pq.codes,
+                idx.labels, pq.u, pq.centers, pq.radii, ids, n_active)
+
+    kw = dict(k=k, block_n=idx.block_n)
+    tol13 = d2_tol(torch, idx.norms, queries)
+    tol14 = d2_tol(torch, pq.u, queries)
+    chunk = 256
+    for nprobe in (cfg.nprobe, cfg.nlist):
+        q = queries[:chunk]
+        for name, fn, twin, args, tol in (
+                ("K13", ks.ivf_scan, ks.ivf_scan_torch, k13_args(q, nprobe),
+                 tol13),
+                ("K14", ks.ivf_adc_scan, ks.ivf_adc_scan_torch,
+                 k14_args(q, nprobe), tol14)):
+            c = scan_case(torch, name, fn, twin, args, kw, tol, nprobe, chunk)
+            c["n"] = n
+            cases[name].append(c)
+            print(f"{name} nprobe={nprobe} ({chunk} queries): err "
+                  f"{c['max_abs_err']:.3g} (tol {c['tol']:.3g}), bitwise the "
+                  f"twin: {c['bitwise']}, {c['gate_skipped']} of "
+                  f"{c['probed_tiles']} probed tiles skipped; gate on == "
+                  f"off, two launches bitwise")
+    torch.cuda.empty_cache()
+
+    lap("twins checked")
+    # exactness: full probe is the oracle; ADC is decode-then-exact
+    q64 = queries[:64]
+    r = idx.search(q64, k, nprobe=cfg.nlist)
+    ei, ev = idx.exhaustive(q64, k)
+    check(torch.equal(r.indices, ei) and torch.equal(r.dists, ev),
+          "search(nprobe=nlist) is not exhaustive bitwise")
+    xhat = (kvquant.decode(pq.codes, pq.codebook)
+            + idx.centroids[idx.labels.long()])
+    a = idx.search(q64, k, nprobe=cfg.nlist, mode="adc")
+    ad, ar = ks.ivf_bruteforce_topk(q64, xhat, bounds.point_norms(xhat), k=k)
+    adc_err = float((a.dists - ad).abs().max())
+    adc_tol = d2_tol(torch, bounds.point_norms(xhat), q64)
+    check(adc_err <= adc_tol, f"ADC differs from decode-then-exact by "
+          f"{adc_err:.3g} (tol {adc_tol:.3g})")
+    del xhat
+    out.update(full_probe_bitwise=True, adc_vs_decode_err=adc_err,
+               adc_vs_decode_tol=adc_tol)
+
+    # the whole query set: counters, gating, the offset faults
+    ops.reset_launches()
+    res = idx.search(queries, k, nprobe=cfg.nprobe)
+    check(ops.LAUNCHES["ivf_scan"] == 1, "search did not launch K13 once")
+    launches["ivf_scan"] += 1
+    telemetry.check_ivf_counters(res.probed_lists, res.probed_tiles,
+                                 res.gate_skipped, n_queries=nq,
+                                 nlist=idx.nlist, n_tiles=idx.n_tiles)
+    skipped = int(res.gate_skipped.sum())
+    check(skipped > 0, "the gate skipped nothing on the sorted layout")
+    for kind in IVF_OFFSET_FAULTS:
+        try:
+            corrupt_list_offsets(idx, kind=kind).search(queries[:4], k)
+        except ivf_mod.CorruptedStateError:
+            continue
+        raise AssertionError(f"offset fault {kind} did not raise")
+    out.update(probed_tiles=int(res.probed_tiles.sum()),
+               gate_skipped=skipped, faults_raise=list(IVF_OFFSET_FAULTS))
+    print(f"search of {nq} queries at nprobe={cfg.nprobe}: counters hold, "
+          f"{skipped} of {out['probed_tiles']} probed tiles skipped; the "
+          f"offset faults {IVF_OFFSET_FAULTS} raise CorruptedStateError")
+
+    lap("full-set checks")
+    # kernel timing at the full query set, beside the chunked twins
+    for name, fn, twin, args, per_query, row_bytes in (
+            ("K13", ks.ivf_scan, ks.ivf_scan_torch,
+             k13_args(queries, cfg.nprobe), (0, 5, 6), 4 * d + 4),
+            ("K14", ks.ivf_adc_scan, ks.ivf_adc_scan_torch,
+             k14_args(queries, cfg.nprobe), (0, 1, 2, 8, 9),
+             cfg.pq_nsub + 8)):
+        ms = gpu_ms(torch, lambda: fn(*args, **kw), reps=3, warmup=1)
+        got_full = fn(*args, **kw)
+        twin_out = []
+
+        def chunked(twin=twin, args=args, per_query=per_query):
+            twin_out.clear()
+            for i in range(0, nq, 2048):
+                twin_out.append(twin(*(a[i:i + 2048] if j in per_query
+                                       else a for j, a in enumerate(args)),
+                                     **kw))
+        plain_ms = gpu_ms(torch, chunked, reps=1, warmup=0)
+        check(all(torch.equal(a, torch.cat([o[i] for o in twin_out]))
+                  for i, a in enumerate(got_full)),
+              f"{name} Q={nq}: dists, rows or gate_skipped not bitwise the "
+              f"chunked twin's")
+        # the least the scan must do. Bytes: every probed row once (the
+        # queries share them: the union of their probed tiles), each
+        # query's tile list, query, LUT and routing dots, the tile balls,
+        # the outputs. Operations: each query scores every row of the
+        # tiles it probed and the gate let through (a skipped tile holds
+        # at most block_n rows, so this count is never above the run's).
+        ids_, act = args[-2].long(), args[-1].long()
+        tiles = torch.arange(idx.n_tiles, device=dev)
+        tile_rows = (n - tiles * idx.block_n).clamp(0, idx.block_n)
+        used = tiles[None, :] < act[:, None]
+        scored = float((tile_rows[ids_] * used).sum()) \
+            - float(got_full[2].sum()) * idx.block_n
+        touched = torch.zeros(idx.n_tiles, dtype=torch.bool, device=dev)
+        touched[ids_[used]] = True
+        once = float(tile_rows[touched].sum())
+        del ids_, used
+        n_bytes = (once * row_bytes + 4 * (float(act.sum()) + nq)
+                   + nq * (4 * d + 8 * k + 4)
+                   + idx.n_tiles * 4 * (d + 1))
+        if name == "K14":
+            n_bytes += args[1].numel() * 4 + args[2].numel() * 4
+        flops = scored * (2 * d if name == "K13" else cfg.pq_nsub + 4)
+        bms, by = bound_ms(n_bytes, flops)
+        cases[name][0].update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                              bound_by=by, timed_queries=nq,
+                              scored_rows=scored, rows_read_once=once,
+                              bitwise_full_set=True)
+        print(f"{name} Q={nq} nprobe={cfg.nprobe}: {ms:.4f} ms, plain "
+              f"(chunks of 2048 queries) {plain_ms:.4f} ms, bitwise the "
+              f"kernel; bound {bms:.4f} ms ({by}; {scored:.6g} rows scored, "
+              f"{once:.6g} rows read once)")
+        del got_full, twin_out
+    torch.cuda.empty_cache()
+
+    lap("kernels timed")
+    # end to end: search time and QPS, recall@10 against exhaustive
+    truth = idx.exhaustive(queries[:1000], k)[0]
+    e2e = []
+    for mode in ("exact", "adc"):
+        for nprobe in (cfg.nprobe, cfg.nlist):
+            idx.search(queries[:256], k, nprobe=nprobe, mode=mode)   # warm
+            name = "ivf_scan" if mode == "exact" else "ivf_adc_scan"
+            r, sec, got = counted(torch, ops, lambda: idx.search(
+                queries, k, nprobe=nprobe, mode=mode))
+            check(got[name] == 1, f"search[{mode}] launches {got}")
+            launches[name] += 1
+            hits = (r.indices[:1000, :, None] == truth[:, None, :]).any(
+                dim=2).sum()
+            recall = float(hits) / (1000 * k)
+            e2e.append(dict(mode=mode, nprobe=nprobe, search_ms=sec * 1e3,
+                            qps=nq / sec, recall_at_10=recall))
+            print(f"search[{mode}] nprobe={nprobe}: {sec * 1e3:.2f} ms for "
+                  f"{nq} queries, {nq / sec:.1f} QPS, recall@{k} "
+                  f"{recall:.4f} (1000 queries against exhaustive)")
+    out["search"] = e2e
+    if profile:
+        out["profile"] = {}
+        for mode in ("exact", "adc"):
+            p = profile_call(torch, lambda: idx.search(
+                queries, k, nprobe=cfg.nprobe, mode=mode))
+            out["profile"][f"ivf search[{mode}], nprobe {cfg.nprobe}"] = p
+            print_profile(f"ivf search[{mode}], nprobe {cfg.nprobe}", p)
+    del idx, pq, queries, truth, res
+    torch.cuda.empty_cache()
+
+    lap("searches")
+    # KV cache: one cache through compress_transformer_cache
+    (layers, kvh, hd, seq), n_sub = kv_shape, 16
+    g = torch.Generator(device=dev).manual_seed(3)
+    cache = {name: torch.randn((layers, 1, seq, kvh, hd), generator=g,
+                               device=dev) for name in ("k", "v")}
+    cache["pos"] = torch.tensor(seq, device=dev)
+    runs = []
+    for _ in range(2):
+        pqc, sec, got = counted(torch, ops, lambda: (
+            kvquant.compress_transformer_cache(
+                cache, n_sub=n_sub, generator=torch.Generator()
+                .manual_seed(0))))
+        runs.append((pqc, sec, got))
+    first = runs[0][0]
+    check(all(torch.equal(first[f], runs[1][0][f])
+              for f in ("k_codes", "v_codes", "k_cb", "v_cb")),
+          "compress_transformer_cache: two runs differ")
+    sq = err = 0.0
+    for name in ("k", "v"):
+        for li in range(layers):
+            for h in range(kvh):
+                x = cache[name][li, :, :, h]
+                rec = kvquant.decode(first[f"{name}_codes"][li, :, :, h],
+                                     kvquant.PQCodebook(
+                                         first[f"{name}_cb"][li, h]))
+                err += float(((rec - x).double() ** 2).sum())
+                sq += float((x.double() ** 2).sum())
+    raw = sum(cache[nm].numel() * cache[nm].element_size()
+              for nm in ("k", "v"))
+    comp = sum(first[f].numel() * first[f].element_size()
+               for f in ("k_codes", "v_codes", "k_cb", "v_cb"))
+    got = runs[0][2]
+    out["kv_cache"] = dict(seconds=[r[1] for r in runs], rel_error=err / sq,
+                           compression=raw / comp, bitwise_repeat=True,
+                           launches={k_: c for k_, c in got.items() if c})
+    print(f"compress_transformer_cache ({layers} layers, {kvh} kv heads, "
+          f"head_dim {hd}, {seq} tokens, n_sub {n_sub}, fp32): "
+          f"{runs[0][1]:.3f} / {runs[1][1]:.3f} s, two runs bitwise; "
+          f"relative reconstruction error {err / sq:.5f}, compression "
+          f"{raw / comp:.2f}x; launches {out['kv_cache']['launches']}")
+    del cache, runs, first
+    torch.cuda.empty_cache()
+
+    lap("KV cache")
+    # order= at the paper's size
+    draws = Draws.sample(full.n_points, full.k, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+    km = [counted(torch, ops, lambda: eng.kmeans(
+        paper, full.k, draws=draws, max_iters=full.max_iters,
+        order="morton")) for _ in range(2)]
+    res = km[0][0]
+    perm = morton_order(paper)[0]
+    direct = eng.kmeans(paper[perm.long()], full.k, draws=draws,
+                        max_iters=full.max_iters)
+    inv = inverse_permutation(perm).long()
+    check(res.reorder is not None and torch.equal(res.reorder, perm)
+          and torch.equal(res.assignment, direct.assignment[inv])
+          and same_fit(torch, res, km[1][0])
+          and torch.equal(res.reorder, km[1][0].reorder),
+          "kmeans(order='morton'): not the reordered fit mapped back, or "
+          "two runs differ")
+    lap("kmeans(order='morton')")
+    out["kmeans_morton"] = dict(
+        seconds=[r[1] for r in km], n_iters=res.n_iters,
+        fit_skipped=int(res.skipped.sum()), fit_pruned=int(res.pruned.sum()))
+    print(f"kmeans(order='morton') at the paper's size: "
+          f"{km[0][1]:.3f} / {km[1][1]:.3f} s, assignment in the caller's "
+          f"order (the reordered fit mapped back), reorder set, bitwise a "
+          f"second run; Lloyd skipped {out['kmeans_morton']['fit_skipped']} "
+          f"tiles, pruned {out['kmeans_morton']['fit_pruned']} rows")
+    return cases, out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement here")
@@ -1755,7 +2129,13 @@ def main() -> int:
                     help="also trace seeding and Lloyd at the paper's shape "
                          "with torch.profiler: device time by kernel and "
                          "the device's idle share")
+    ap.add_argument("--ivf-data", choices=("latent", "isotropic"),
+                    default="latent",
+                    help="phase 8's data: blobs in a 16-dimensional latent "
+                         "space lifted to d (default), or blobs in all d "
+                         "dimensions")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -1765,7 +2145,8 @@ def main() -> int:
     import numpy as np
     from repro_torch.core import (ClusterEngine, Draws, bounds, sampling,
                                   telemetry)
-    from repro_torch.configs import FULL, KVQUANT_GEMMA2_2B as KVQ
+    from repro_torch.configs import FULL, IVF_SIFT1M as IVF
+    from repro_torch.configs import KVQUANT_GEMMA2_2B as KVQ
     from repro_torch.data import blobs, blobs_batched
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import kmeans_distance as kd
@@ -1786,6 +2167,7 @@ def main() -> int:
         paper_np[np.argsort(labels, kind="stable")]).to(dev)
     k = FULL.k
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 0")
     # 0. the samplers' prefix sums, run to run: the cdf sampler's over n,
     #    and the tiled sampler's over the n_tiles partials and one window
     bn_full = ops.choose_block_n(FULL.n_points, FULL.dim, FULL.k)
@@ -1816,6 +2198,7 @@ def main() -> int:
           and census["prefix_sum rows bitwise"],
           "batched prefix sums are not the single ones row by row")
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 1")
     # 1. build
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -1826,6 +2209,7 @@ def main() -> int:
             if "ptxas info" in line and ("Used" in line or "Compiling" in line):
                 print(f"  {name}: {line.strip()}")
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 2")
     # 2. kernels against their plain twins
     wide = torch.rand((100_003, 128), generator=gen, device=dev)
     cases = {"K1": [], "K2": [], "K3": [], "K5": [], "K6": [], "K11": [],
@@ -1906,6 +2290,7 @@ def main() -> int:
     del wide
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 3")
     # 3. the main path: gated (the default) on shuffled and sorted blobs,
     #    then the ungated path, each counted on its own
     eng = ClusterEngine(device="cuda")
@@ -2010,12 +2395,14 @@ def main() -> int:
                      if layout == "shuffled" else ""))
     report["main_path"] = runs
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 4")
     # 4. rejection seeding at the paper's size: both layouts, both proposals
     rej_runs = rejection_phase(
         torch, ops, kd, bounds, telemetry, Draws, eng, ungated,
         (("shuffled", paper), ("sorted", paper_sorted)), k, dev, launches)
     report["rejection"] = rej_runs
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 5")
     # 5. batched problems: the PQ codebook sweep, bounds off
     del paper_sorted
     torch.cuda.empty_cache()
@@ -2027,6 +2414,7 @@ def main() -> int:
     cases.update(bcases)
     report["batched"] = brun
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 6")
     # 6. gated batched problems (bounds on, the default): the same sweep,
     #    and 16 problems of 4 blobs each with rows sorted by blob, so each
     #    tile holds one blob and the tile gate skips
@@ -2040,6 +2428,7 @@ def main() -> int:
     cases.update(gcases)
     report["gated_batched"] = grun
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 7")
     # 7. weighted and mini-batch Lloyd at the paper's shape (K4), and K9 at
     #    the codebook sweep's; the weights are integer multiplicities 1-8
     wts = torch.randint(1, 9, (FULL.n_points,), generator=gen,
@@ -2049,7 +2438,21 @@ def main() -> int:
                                   KVQ, dev, launches, gen)
     cases.update(wcases)
     report["weighted"] = wrun
+
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 8")
+    # 8. IVF serving and KV-cache PQ at IVF_SIFT1M's shape, and order= at
+    #    the paper's
+    # (the KV cache is gemma2_2b's: 26 layers, 4 kv heads, head_dim 256, at
+    #  the codebook sweep's 16,384 tokens)
+    icases, irun = ivf_phase(torch, ops, bounds, telemetry, ClusterEngine,
+                             Draws, IVF, paper, FULL, dev, launches,
+                             args.profile, (26, 4, 256, KVQ.n_points),
+                             args.ivf_data)
+    cases.update(icases)
+    report["ivf"] = irun
     report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t_start
+    print(f"[{report['seconds']:.1f} s] phases 0-8 done")
 
     if args.profile:
         report["profile"] = {}
@@ -2104,11 +2507,7 @@ def main() -> int:
             fn()                                   # warm
             p = profile_call(torch, fn)
             report["profile"][name] = p
-            top = ", ".join(f"{kname[:48]} {v['ms']:.3f} ms x{v['count']}"
-                            for kname, v in list(p["kernels"].items())[:5])
-            print(f"profile {name}: wall {p['wall_ms']:.2f} ms, device "
-                  f"busy {p['busy_ms']:.2f} ms, idle share "
-                  f"{p['idle_share']:.3f}; {top}")
+            print_profile(name, p)
 
     def main_case(name, pick):
         return next(c for c in cases[name]
@@ -2171,6 +2570,10 @@ def main() -> int:
               "K4"),
         entry("lloyd_assign_batched", "lloyd_assign.cu",
               "src/repro/kernels/lloyd_assign.py:184", cases["K9"][0], "K9"),
+        entry("ivf_scan", "ivf_scan.cu", "src/repro/kernels/ivf_scan.py:122",
+              cases["K13"][0], "K13"),
+        entry("ivf_adc_scan", "ivf_scan.cu",
+              "src/repro/kernels/ivf_scan.py:249", cases["K14"][0], "K14"),
     ]}
     report.update(record)
     if args.json:

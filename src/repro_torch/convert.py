@@ -5,7 +5,8 @@ result types, and the reference backend's tile geometry becomes a port
 backend's. With them a port run can start from the reference's seeds and
 tile its rows the same way, so both sides compute the same thing. Its
 prologue cache and carried bound state become the port's too, so a gated
-round on each side can be fed the same carries.
+round on each side can be fed the same carries. A reference IVF index (and
+a PQ codebook) becomes the port's, so both sides search one index.
 """
 from __future__ import annotations
 
@@ -72,3 +73,42 @@ def bound_state(state, *, device="cpu") -> BoundState:
     """A reference ``BoundState`` (any of its fields set, arrays or numpy)
     as the port's: fp32 everywhere but the int32 ``assignment``."""
     return _fields(state, BoundState, device, int_fields=("assignment",))
+
+
+def pq_codebook(centroids, *, device="cpu"):
+    """A reference ``PQCodebook`` (its (n_sub, n_codes, d_sub) centroids) as
+    the port's."""
+    from repro_torch.serve.kvquant import PQCodebook
+    return PQCodebook(_tensor(centroids, device, torch.float32))
+
+
+def ivf_index(index, *, backend: str = "cuda", device="cpu"):
+    """A reference ``IvfIndex`` (with its ``IvfPq`` when built with PQ;
+    arrays or numpy) as the port's, so one index can be searched on both
+    sides. ``backend`` is the port index's scan backend ('cuda': K13/K14,
+    whose wrappers take the plain twins on CPU tensors)."""
+    from repro_torch.serve.ivf import IvfIndex, IvfPq
+
+    def f32(x):
+        return _tensor(x, device, torch.float32)
+
+    def i32(x):
+        return _tensor(x, device, torch.int32)
+
+    pq = None
+    if index.pq is not None:
+        p = index.pq
+        pq = IvfPq(_tensor(p.codes, device, torch.uint8),
+                   pq_codebook(p.codebook.centroids, device=device),
+                   f32(p.u), f32(p.centers), f32(p.radii))
+    return IvfIndex(
+        points=f32(index.points), norms=f32(index.norms),
+        centers=f32(index.centers), radii=f32(index.radii),
+        labels=i32(index.labels), perm=i32(index.perm),
+        starts=i32(index.starts), counts=i32(index.counts),
+        centroids=f32(index.centroids),
+        centroid_norms=f32(index.centroid_norms),
+        super_centers=f32(index.super_centers),
+        super_radii=f32(index.super_radii), super_sizes=i32(index.super_sizes),
+        list_tiles=_tensor(index.list_tiles, device, torch.bool),
+        block_n=int(index.block_n), backend=backend, pq=pq)

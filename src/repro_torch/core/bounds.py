@@ -416,3 +416,41 @@ def n_active(active: torch.Tensor) -> torch.Tensor:
     The port's gated kernels launch the full grid and read the mask itself,
     so no compacted id map is built; only its floor is kept, here."""
     return active.sum(dim=-1).clamp_min(1).to(torch.int32)
+
+
+def ivf_gate_skip(dc: torch.Tensor, radius: torch.Tensor,
+                  center_norm: torch.Tensor, q_norm: torch.Tensor,
+                  tau: torch.Tensor) -> torch.Tensor:
+    """The IVF scan's per-tile kth-distance gate: True where tile t
+    provably cannot beat the carried kth-best distance ``tau``.
+
+    ``dc = d(q, center_t)``; every row of the tile has ``d(q, x) >= dc -
+    r_t``, so when ``max(dc - r_t, 0)² >= tau`` (with the fp32 slack of
+    :func:`seed_gate`: relative ``_REL`` and ``_ABS`` times the operand
+    magnitude ``(‖center‖ + r + ‖q‖)²``) every candidate's own fp32 D²
+    exceeds ``tau`` strictly and the tile cannot enter the top-k: gated and
+    ungated scans return the same bits. ``tau = +inf`` never skips. The
+    K13/K14 kernels evaluate the same rounded operations."""
+    lo = (dc - radius).clamp_min(0.0)
+    mag = center_norm + radius + q_norm.sqrt()
+    margin = _ABS * (mag * mag)
+    return lo * lo >= tau * (1.0 + _REL) + margin
+
+
+def compact_ids(active: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The IVF scan's per-query probed-tile map: ``(ids (..., n_tiles)
+    int32, n_active (...,) int32)`` from an active mask (..., n_tiles).
+
+    ``ids[i]`` is the i-th active tile id (ascending) for ``i < n_active``
+    and the last active tile id after that. ``n_active`` is floored at 1:
+    a query whose probed lists are all empty still visits tile 0, a
+    value-noop the reference's kernel needs and its counters report
+    (``probed_tiles = 1``). The seeding and Lloyd kernels do not use this
+    map: they launch the full grid and read the mask (:func:`n_active`)."""
+    n_tiles = active.shape[-1]
+    order = torch.argsort((~active).to(torch.uint8), dim=-1, stable=True)
+    n_act = active.sum(dim=-1).clamp_min(1).to(torch.int32)
+    clamp = torch.minimum(
+        torch.arange(n_tiles, device=active.device),
+        n_act[..., None].long() - 1)
+    return order.gather(-1, clamp).to(torch.int32), n_act

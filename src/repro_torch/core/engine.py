@@ -67,6 +67,7 @@ import torch
 from repro_torch.core import bounds, guards, sampling
 from repro_torch.core.bounds import BoundState, RoundCache
 from repro_torch.core.sampling import Draws
+from repro_torch.data import ordering
 from repro_torch.kernels import kmeans_distance, lloyd_assign, ops
 
 # ---------------------------------------------------------------------------
@@ -121,8 +122,12 @@ class LloydResult(NamedTuple):
     #                                           pruned per iteration
     recovered: Optional[torch.Tensor] = None  # (max_iters,) int32 0/1 heal
     #                                           flags (None: guard off)
+    reorder: Optional[torch.Tensor] = None    # (n,) int32 row permutation
+    #                                           the kernels saw (None:
+    #                                           natural order)
     # same contract as KmeansppResult: slots past n_iters are zero, and all
-    # three are None when gating is off
+    # three counters are None when gating is off; ``assignment`` is always
+    # in the caller's row order
 
 
 class AssignRound(NamedTuple):
@@ -1465,6 +1470,12 @@ class ClusterEngine:
     card), ungated, its counters None. ``fit_minibatch`` streams batches
     through the same round.
 
+    Order: ``fit``, ``kmeans``, ``fit_batched``, ``kmeans_batched`` and
+    ``fit_minibatch`` take ``order`` ('morton' or a precomputed
+    permutation): the kernels see that row layout, the assignment comes
+    back in the caller's order and ``LloydResult.reorder`` holds the
+    permutation.
+
     Randomness: ``generator`` seeds a :class:`Draws` source for the run;
     ``draws`` passes one in instead (to replay a run, or the reference's
     key schedule). A kernel that fails to build or launch raises
@@ -1510,6 +1521,47 @@ class ClusterEngine:
                 weighted=weighted)
         return draws.to(self.device)
 
+    # -- row ordering (order=) -------------------------------------------
+
+    def _resolve_order(self, points: torch.Tensor, order, *,
+                       batched: bool = False):
+        """order: None (natural), 'auto' (natural: the port has no tuner),
+        an ordering name ('morton', see ``data.ordering``), or a
+        precomputed permutation ((n,), or (B, n) for batched problems).
+        Returns (perm, inv) int32 or (None, None)."""
+        if order is None or (isinstance(order, str) and order == "auto"):
+            return None, None
+        if isinstance(order, str):
+            return ordering.spatial_order(points, method=order)
+        perm = torch.as_tensor(order, device=points.device).to(torch.int32)
+        want = tuple(points.shape[:-1]) if batched else (points.shape[0],)
+        if tuple(perm.shape) != want:
+            raise guards.InvalidInputError(
+                f"order permutation shape {tuple(perm.shape)} != {want}")
+        return perm, ordering.inverse_permutation(perm)
+
+    def _order_in(self, points, order, weights=None, *, batched=False):
+        """Permute on entry: (points', weights', perm, inv)."""
+        perm, inv = self._resolve_order(points, order, batched=batched)
+        if perm is not None:
+            idx = perm.long()
+            if batched:
+                points = torch.take_along_dim(points, idx[..., None], dim=1)
+            else:
+                points = points[idx]
+                if weights is not None:
+                    weights = weights[idx]
+        return points, weights, perm, inv
+
+    @staticmethod
+    def _order_out(res: LloydResult, perm, inv) -> LloydResult:
+        """Invert on exit: the assignment back in the caller's row order,
+        the permutation recorded in ``reorder``."""
+        if perm is None:
+            return res
+        a = torch.take_along_dim(res.assignment, inv.long(), dim=-1)
+        return res._replace(assignment=a, reorder=perm)
+
     def seed(self, points, k: int, *,
              weights=None,
              generator: Optional[torch.Generator] = None,
@@ -1534,39 +1586,47 @@ class ClusterEngine:
             max_attempts=int(max_attempts))
 
     def fit(self, points, init_centroids, *, max_iters: int = 50,
-            tol: float = 1e-6, weights=None,
-            empty: str = "keep") -> LloydResult:
+            tol: float = 1e-6, weights=None, empty: str = "keep",
+            order=None) -> LloydResult:
         """Lloyd iterations from ``init_centroids`` until convergence, each
-        point weighted by ``weights`` when given."""
+        point weighted by ``weights`` when given. ``order`` feeds the
+        kernels a tile-coherent row layout ('morton', or a precomputed (n,)
+        permutation; None and 'auto' keep the caller's order): applied on
+        the way in and inverted on the way out, so ``assignment`` is in the
+        caller's row order, with the permutation in ``reorder``."""
         pts = self._points(points)
         w = self._weights(weights, pts.shape[0])
         cents = torch.as_tensor(init_centroids, dtype=torch.float32,
                                 device=self.device)
         cents = guards.guard_centroids(cents, pts.shape[1], self.validate)
-        return fit_points(pts, cents, self.backend, max_iters, float(tol),
-                          empty, weights=w, bound_gate=self.bounds,
-                          guard=self._guard)
+        pts, w, perm, inv = self._order_in(pts, order, w)
+        return self._order_out(fit_points(
+            pts, cents, self.backend, max_iters, float(tol), empty,
+            weights=w, bound_gate=self.bounds, guard=self._guard), perm, inv)
 
     def kmeans(self, points, k: int, *,
                generator: Optional[torch.Generator] = None,
                draws: Optional[Draws] = None, sampler: str = "cdf",
                max_iters: int = 50, tol: float = 1e-6,
                empty: str = "keep", weights=None, refresh_block: int = 8,
-               proposal: str = "hier",
-               max_attempts: int = _REJECT_ATTEMPTS) -> LloydResult:
+               proposal: str = "hier", max_attempts: int = _REJECT_ATTEMPTS,
+               order=None) -> LloydResult:
         """End to end: k-means++ seeding (the paper's phase) + Lloyd, sharing
-        one prologue; ``weights`` go to both phases."""
+        one prologue; ``weights`` go to both phases. ``order`` reorders the
+        rows once up front (see :meth:`fit`), so both phases see that
+        layout; the draws index the reordered rows."""
         pts = self._points(points)
         n = pts.shape[0]
         w = self._weights(weights, n)
         guards.check_shape(k, n)
-        return kmeans_points(
+        pts, w, perm, inv = self._order_in(pts, order, w)
+        return self._order_out(kmeans_points(
             self._draws(n, k, generator, draws, sampler, max_attempts,
                         w is not None),
             pts, k, self.backend, sampler, max_iters, float(tol), empty,
             weights=w, bound_gate=self.bounds, guard=self._guard,
             refresh_block=int(refresh_block), proposal=proposal,
-            max_attempts=int(max_attempts))
+            max_attempts=int(max_attempts)), perm, inv)
 
     # -- streaming mini-batch Lloyd ---------------------------------------
 
@@ -1589,10 +1649,9 @@ class ClusterEngine:
         consecutive batches whose smoothed per-point inertia improves by
         less than ``tol`` (relative). The result's assignment and inertia
         are the LAST batch's; ``n_iters`` is the number of batches used.
-        ``order`` is not ported yet and raises."""
-        if order is not None:
-            raise NotImplementedError(
-                "order= is not ported yet (ROADMAP.md queue 1, item 1)")
+        ``order`` ('morton') reorders each batch before its step, and the
+        last batch's assignment comes back in that batch's own row order
+        (the step carries no bound state, so this is layout only)."""
         init = torch.as_tensor(init_centroids)
         cents = guards.guard_centroids(
             init.to(device=self.device, dtype=torch.float32),
@@ -1600,12 +1659,13 @@ class ClusterEngine:
         counts = torch.zeros(cents.shape[0], device=self.device)
         a = torch.zeros(0, dtype=torch.int32, device=self.device)
         last_inertia = torch.tensor(torch.inf, device=self.device)
-        seen, stale, ema = 0, 0, None
+        seen, stale, ema, inv = 0, 0, None, None
         with contextlib.closing(_iter_batches(batches, n_batches,
                                               self.device)) as stream:
             for batch in stream:
                 batch = guards.guard_points(batch, self.validate,
                                             name=f"batch {seen}")
+                batch, _, _, inv = self._order_in(batch, order)
                 cents, counts, last_inertia, a = minibatch_step(
                     cents, counts, batch, self.backend)
                 seen += 1
@@ -1623,6 +1683,8 @@ class ClusterEngine:
                         stale = 0
         if seen == 0:
             raise ValueError("empty batch source")
+        if inv is not None:
+            a = a[inv.long()]
         return LloydResult(cents.to(init.dtype), a, last_inertia, seen)
 
     # -- batched multi-problem clustering ---------------------------------
@@ -1660,13 +1722,17 @@ class ClusterEngine:
                            sampler, bound_gate=self.bounds)
 
     def fit_batched(self, points, init_centroids, *, max_iters: int = 50,
-                    tol: float = 1e-6, empty: str = "keep") -> LloydResult:
+                    tol: float = 1e-6, empty: str = "keep",
+                    order=None) -> LloydResult:
         """Lloyd over B independent problems: points (B, n, d), inits
         (B, k, d), one assignment round for all B per iteration (K10b on
         the card, K10a with ``bounds=False``). Each problem stops at its own
         convergence test and keeps its results from then on, its counters
-        reading 0; ``n_iters`` is (B,), each problem's own."""
+        reading 0; ``n_iters`` is (B,), each problem's own. ``order``
+        reorders each problem's rows on its own (see :meth:`fit`); the
+        (B, n) permutations come back in ``reorder``."""
         pts = self._batched(points)
+        pts, _, perm, inv = self._order_in(pts, order, batched=True)
         cents = torch.as_tensor(init_centroids, dtype=torch.float32,
                                 device=self.device)
         if cents.dim() != 3 or cents.shape[0] != pts.shape[0]:
@@ -1674,19 +1740,25 @@ class ClusterEngine:
                 f"init_centroids must be ({pts.shape[0]}, k, d), got "
                 f"{tuple(cents.shape)}")
         cents = guards.guard_centroids(cents, pts.shape[-1], self.validate)
-        return fit_points(pts, cents, self.backend, max_iters, float(tol),
-                          empty, bound_gate=self.bounds)
+        return self._order_out(fit_points(
+            pts, cents, self.backend, max_iters, float(tol), empty,
+            bound_gate=self.bounds), perm, inv)
 
     def kmeans_batched(self, points, k: int, *,
                        generator: Optional[torch.Generator] = None,
                        draws: Optional[Draws] = None, max_iters: int = 50,
                        tol: float = 1e-6, sampler: str = "cdf",
-                       empty: str = "keep") -> LloydResult:
+                       empty: str = "keep", order=None) -> LloydResult:
         """``seed_batched`` then ``fit_batched``, each with its own prologue
         (the batched K1 on the card, with ``bounds``) and tile geometry, as
         in the reference (unlike ``kmeans``, which shares one prologue at the
-        fit's tile height). The result carries the fit's counters."""
-        seeds = self.seed_batched(points, k, generator=generator,
+        fit's tile height). The result carries the fit's counters.
+        ``order`` reorders each problem once up front, so both phases see
+        that layout; assignments map back to the caller's rows."""
+        pts = self._batched(points, sampler)
+        pts, _, perm, inv = self._order_in(pts, order, batched=True)
+        seeds = self.seed_batched(pts, k, generator=generator,
                                   draws=draws, sampler=sampler)
-        return self.fit_batched(points, seeds.centroids, max_iters=max_iters,
-                                tol=tol, empty=empty)
+        return self._order_out(self.fit_batched(
+            pts, seeds.centroids, max_iters=max_iters, tol=tol, empty=empty),
+            perm, inv)

@@ -18,9 +18,9 @@ from typing import Optional
 import torch
 
 __all__ = [
-    "ClusteringError", "InvalidInputError", "KernelFailureError",
-    "PipelineError", "POLICIES", "check_policy", "check_shape", "guard_points",
-    "guard_weights", "guard_centroids",
+    "ClusteringError", "CorruptedStateError", "InvalidInputError",
+    "KernelFailureError", "PipelineError", "POLICIES", "check_policy",
+    "check_shape", "guard_points", "guard_weights", "guard_centroids",
 ]
 
 
@@ -31,6 +31,12 @@ class ClusteringError(Exception):
 class InvalidInputError(ClusteringError, ValueError):
     """Malformed caller input: NaN/Inf rows under validate='raise',
     negative/degenerate weights, k/n/d shape abuse."""
+
+
+class CorruptedStateError(ClusteringError, RuntimeError):
+    """Stored or loop-carried state found poisoned where no in-loop
+    recovery is available (an IVF index whose list offsets disagree with
+    its layout)."""
 
 
 class KernelFailureError(ClusteringError, RuntimeError):

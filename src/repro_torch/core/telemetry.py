@@ -1,5 +1,5 @@
 """The seeding loop's round-counter contract, stated and checked in one place
-(the port's copy of ``repro.core.telemetry``'s seeding checks).
+(the port's copy of ``repro.core.telemetry``'s seeding and IVF checks).
 
 Every counter on :class:`~repro_torch.core.engine.KmeansppResult`
 (``skipped``, ``pruned``, ``proposals``, ``accepts``, ``recovered``,
@@ -22,6 +22,8 @@ one super-tile window and the exact fallback, when taken, one more, so
 (tiles whose cap shrank the stale partial) is at most the tile count;
 under ``proposal='flat'`` both are identically zero.
 
+IVF search counters (one slot per query): see :func:`check_ivf_counters`.
+
 The checks take torch tensors or arrays and raise ``AssertionError``.
 """
 from __future__ import annotations
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 
 __all__ = ["check_counter", "check_rejection_counters", "check_hier_counters",
-           "check_recovered"]
+           "check_ivf_counters", "check_recovered"]
 
 
 def _host(arr) -> np.ndarray:
@@ -102,3 +104,21 @@ def check_hier_counters(tightened, supers, proposals, k: int, *,
     if n_tiles is not None:
         assert np.all(t <= int(n_tiles)), \
             f"tightened exceeds the tile count {n_tiles}: {t}"
+
+
+def check_ivf_counters(probed_lists, probed_tiles, gate_skipped, *,
+                       n_queries: int, nlist: int, n_tiles: int) -> None:
+    """The IVF search counters of a ``serve.ivf.SearchResult``, one slot
+    per query: ``probed_lists <= nlist``; ``1 <= probed_tiles <= n_tiles``
+    (the probe map's floor of one tile); ``0 <= gate_skipped <=
+    probed_tiles``."""
+    pl_ = check_counter(probed_lists, n_queries, "probed_lists")
+    pt = check_counter(probed_tiles, n_queries, "probed_tiles")
+    gs = check_counter(gate_skipped, n_queries, "gate_skipped")
+    assert np.all(pl_ <= nlist), \
+        f"probed_lists exceeds nlist={nlist}: {pl_}"
+    assert np.all(pt >= 1), f"probed_tiles below the probe map's floor: {pt}"
+    assert np.all(pt <= n_tiles), \
+        f"probed_tiles exceeds n_tiles={n_tiles}: {pt}"
+    assert np.all(gs <= pt), \
+        f"gate skipped more tiles than were probed: {gs} vs {pt}"

@@ -13,6 +13,9 @@ twin:
                        over a batch of problems; K4, the untiled round
                        (labels, D², (weighted) sums/counts over all rows),
                        and K9, K4 over a batch of problems
+  ivf_scan.py        — K13/K14, the IVF scan, exact and PQ/ADC: per query,
+                       its probed tiles in order behind the kth-distance
+                       ball gate, merged into a lexicographic top-k
 
 ops.py — the tile-height budget, the launch counters, and ``lloyd_assign``
 (K4 or K9 by the points' shape).

@@ -16,6 +16,10 @@ form, K7, K8, K10a, K10b) run one such block per problem and tile, with the
 same staging, so a batched problem is tiled as the single one. The budget is Hopper's 227 KB per
 block; TPU VMEM budgets do not apply.
 
+The IVF scan (K13, K14; ``ivf_scan.py``) runs one block per query and
+budgets its own shared memory (``ivf_scan.max_k``); its tile height is the
+index's.
+
 Launch counters. Each wrapper adds one to its kernel's counter where it
 launches the kernel on the card, and nowhere else (the CPU path, which runs
 the plain twin, does not count), so a run can prove its main path went
@@ -43,7 +47,9 @@ LAUNCHES: dict[str, int] = {"seed_prologue": 0,
                             "distance_min_update_gated_batched": 0,
                             "lloyd_assign_gated_batched": 0,
                             "lloyd_assign": 0,
-                            "lloyd_assign_batched": 0}
+                            "lloyd_assign_batched": 0,
+                            "ivf_scan": 0,
+                            "ivf_adc_scan": 0}
 
 
 def reset_launches() -> None:

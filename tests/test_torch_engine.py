@@ -612,9 +612,10 @@ def test_unported_options_raise():
         eng.seed(pts, 3, sampler="gumbel")
     with pytest.raises(ValueError):
         make_backend("pallas")
-    # mini-batch Lloyd: order= (data/ordering.py) is not ported yet
-    with pytest.raises(NotImplementedError, match="order"):
-        eng.fit_minibatch(pts[:3], [pts], order="morton")
+    # order= is ported (tests/test_torch_ordering.py); an unknown ordering
+    # name raises instead of running in the natural order
+    with pytest.raises(ValueError, match="ordering"):
+        eng.fit_minibatch(pts[:3], [pts], order="zorder")
     # batched problems: rejection seeding raises, with bounds on (the
     # default) and off, instead of running elsewhere; so does the in-flight
     # guard, which the batched loops do not run (as the reference's vmap)

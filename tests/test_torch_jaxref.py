@@ -23,7 +23,8 @@ and fallback index a weighted run draws its first seed with. Torch cannot reprod
 so parity tests hand the reference's draws to the port. ``batch=(b, B)``
 replays problem b of ``seed_batched``, which seeds problem b from
 ``jax.random.split(PRNGKey(seed), B)[b]``; ``batched_draws_for`` stacks all
-B as the port's batched ``Draws``.
+B as the port's batched ``Draws``, and ``key_draws`` does so for any
+(B,) keys.
 
 JAX is imported only inside these functions, so a run of the card-only
 tests (``-m cuda``) needs no JAX on the machine with the card.
@@ -93,9 +94,14 @@ def key_schedule(seed: int, n: int, k: int, batch=None):
     then ``randint`` for the first seed; per round ``split``, a ``uniform``
     from the round key, and ``randint(fold_in(round key, 0x0DD))`` for the
     degenerate-weight fallback."""
+    return _schedule(_root_key(seed, batch), n, k)
+
+
+def _schedule(key, n: int, k: int):
+    """:func:`key_schedule` from one jax key."""
     import jax
     import jax.numpy as jnp
-    key, k0 = jax.random.split(_root_key(seed, batch))
+    key, k0 = jax.random.split(key)
     first = int(jax.random.randint(k0, (), 0, n, dtype=jnp.int32))
     us, fbs = [], []
     for _ in range(1, k):
@@ -182,6 +188,16 @@ def batched_draws_for(seed: int, n_problems: int, n: int, k: int) -> Draws:
             for b in range(n_problems)]
     return Draws(*(torch.stack(ts) for ts in zip(
         *((r.first, r.u, r.fallback) for r in runs))))
+
+
+def key_draws(keys, n: int, k: int) -> Draws:
+    """Batched ``Draws`` for problems the reference seeds from the given
+    (B,) jax keys (``seed_batched`` with batched keys, as
+    ``serve.kvquant`` calls it), problem b's from ``keys[b]``."""
+    runs = [_schedule(key, n, k) for key in keys]
+    return Draws(torch.tensor([[r[0]] for r in runs]),
+                 torch.from_numpy(np.stack([r[1] for r in runs])),
+                 torch.from_numpy(np.stack([r[2] for r in runs])))
 
 
 def ref_geometry(ref, n: int, d: int, k: int, backend: str = "pallas"):

@@ -36,6 +36,7 @@ from test_torch_jaxref import (EPS32, assert_labels_match, d2_tol, exact_d2,
 from repro_torch import convert
 from repro_torch.core import bounds
 from repro_torch.data import blobs
+from repro_torch.kernels import ivf_scan
 from repro_torch.kernels import kmeans_distance as kd
 from repro_torch.kernels import lloyd_assign as la
 from repro_torch.kernels import ops
@@ -460,13 +461,21 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
                     torch.ones(500), block_n=128)
     la.lloyd_assign_batched(xb, bounds.point_norms(xb),
                             xb[:, :3].contiguous(), block_n=128)
+    ids, nact = bounds.compact_ids(torch.ones((3, 4), dtype=torch.bool))
+    q = x[:3].contiguous()
+    ivf_scan.ivf_scan(q, x, norms, centers, radii, ids, nact, k=5,
+                      block_n=128)
+    ivf_scan.ivf_adc_scan(q, torch.zeros(3, 2, 256), torch.zeros(3, 4),
+                          torch.zeros((500, 2), dtype=torch.uint8),
+                          torch.zeros(500, dtype=torch.int32), norms,
+                          centers, radii, ids, nact, k=5, block_n=128)
     assert set(ops.LAUNCHES) == {
         "seed_prologue", "distance_min_update", "lloyd_assign_tiled",
         "distance_min_update_gated", "lloyd_assign_gated", "row_min_d2",
         "tile_cap", "distance_min_update_batched",
         "lloyd_assign_tiled_batched", "seed_prologue_batched",
         "distance_min_update_gated_batched", "lloyd_assign_gated_batched",
-        "lloyd_assign", "lloyd_assign_batched"}
+        "lloyd_assign", "lloyd_assign_batched", "ivf_scan", "ivf_adc_scan"}
     assert not any(ops.LAUNCHES.values())
 
 
