@@ -137,18 +137,43 @@ Phases, each of which exits non-zero on failure:
    reconstruction error and compression, two runs bitwise; and
    ``kmeans(order="morton")`` at the paper's size: ``reorder`` the Morton
    permutation, the assignment the reordered fit's mapped back to the
-   caller's rows, bitwise a second run.
-9. With ``--profile`` only: trace one seeding run per sampler (rejection
+   caller's rows, bitwise a second run. The cache and its PQ form go on
+   to phase 9.
+9. Attention at gemma2-2b's width (``GEMMA2``: 8 query heads over 4 kv
+   heads, head_dim 256, window 4,096, softcap 50, context 8,192), inputs
+   made on the card from the script's seed. A decode step over phase 8's
+   compressed cache: one query per layer through K16
+   (``pq_decode_attention``), 26 counted launches, at ``cache_len`` 8,192
+   (an int) and 8,191 (a 0-d int32 tensor on the card); per layer K16
+   within 2e-4 of its twin and of K15 over the reconstructed cache
+   (decode form: Sq 1, ``causal=False``, keys cut at ``cache_len``), two
+   launches bitwise, and its relative error against K15 over the
+   uncompressed cache printed (Gaussian data: not a gate). Prefill,
+   Sq = Skv = 8,192, cap 50: a global (causal) and a local (window) layer
+   in fp32 and bf16 through K15 (``flash_attention``), 4 counted
+   launches, each against its twin (blocked, so no score matrix is
+   materialized; fp32 within 2e-5, bf16 within one bf16 ulp) and a second
+   launch bitwise. K16's one-layer and K15's times (CUDA events) beside
+   their twins' and their bounds (K16: the valid codes and both codebooks
+   read once, bytes; K15: 4·hd flops per valid pair at fp32's rate, or
+   bf16's for bf16 inputs), and at cap 0 K15 beside one
+   ``torch.nn.functional.scaled_dot_product_attention(is_causal=True,
+   enable_gqa=True)`` call on the global layer (the yardstick only: SDPA
+   has no softcap, and the port never calls it). The prefill's host wall
+   is printed beside its kernel time (the device's idle share).
+10. With ``--profile`` only: trace one seeding run per sampler (rejection
    hier and flat included) and one Lloyd fit at the paper's shape,
    ungated and gated (shuffled and sorted), the weighted seeding (cdf,
    tiled), the weighted fit and the mini-batch run, the batched seeding
-   (cdf, tiled) and fit at the codebook sweep's, ungated and gated, and
-   the IVF build and one search per mode, with torch.profiler, and print
-   the device time by kernel and the device's idle share.
+   (cdf, tiled) and fit at the codebook sweep's, ungated and gated, the
+   IVF build and one search per mode and the K16 decode step, with
+   torch.profiler, and print the device time by kernel and the device's
+   idle share.
 
 Kernels are timed as medians of CUDA-event readings; the plain versions
 of the batched kernels (K1's batched form, K7, K8, K9, K10a, K10b; 0.2–3 s
-a call) and the IVF twins (in chunks of queries) are timed once.
+a call), the IVF twins (in chunks of queries) and K15's twin are timed
+once.
 
 The last three lines of stdout are the card's name and power limit, the
 kernels' JSON record, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -167,7 +192,14 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12      # H100 SXM fp32 rate outside the tensor cores
+BF16_FLOP_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
 EPS32 = 2.0 ** -23
+# gemma2-2b's attention (src/repro/configs/gemma2_2b.py:8-11, Google's
+# gemma-2-2b config): 26 layers, 8 query heads over 4 kv heads of head_dim
+# 256, a 4,096-position window on alternate layers, scores softcapped at
+# 50, an 8,192-token context
+GEMMA2 = dict(layers=26, heads=8, kv_heads=4, head_dim=256, window=4096,
+              softcap=50.0, context=8192)
 
 
 def card_line() -> str:
@@ -195,8 +227,9 @@ def gpu_ms(torch, fn, reps: int = 15, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
-    t_b, t_f = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound_ms(n_bytes: float, flops: float,
+             flop_rate: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+    t_b, t_f = n_bytes / HBM_BYTES_PER_S, flops / flop_rate
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
@@ -1825,7 +1858,7 @@ def ivf_phase(torch, ops, bounds, telemetry, ClusterEngine, Draws, cfg, paper,
     "isotropic"), KV-cache PQ of one cache of ``kv_shape`` (layers, kv
     heads, head_dim, tokens) and ``order=`` at ``full`` (see the module
     docstring); with ``profile``, the build and one search per mode
-    traced."""
+    traced. Returns (cases, report, the dense cache, its PQ form)."""
     from repro_torch.data import blobs_batched
     from repro_torch.data.ordering import inverse_permutation, morton_order
     from repro_torch.kernels import ivf_scan as ks
@@ -2089,7 +2122,7 @@ def ivf_phase(torch, ops, bounds, telemetry, ClusterEngine, Draws, cfg, paper,
           f"{runs[0][1]:.3f} / {runs[1][1]:.3f} s, two runs bitwise; "
           f"relative reconstruction error {err / sq:.5f}, compression "
           f"{raw / comp:.2f}x; launches {out['kv_cache']['launches']}")
-    del cache, runs, first
+    del runs   # the dense cache and its PQ form go on to phase 9
     torch.cuda.empty_cache()
 
     lap("KV cache")
@@ -2119,6 +2152,198 @@ def ivf_phase(torch, ops, bounds, telemetry, ClusterEngine, Draws, cfg, paper,
           f"order (the reordered fit mapped back), reorder set, bitwise a "
           f"second run; Lloyd skipped {out['kmeans_morton']['fit_skipped']} "
           f"tiles, pruned {out['kmeans_morton']['fit_pruned']} rows")
+    return cases, out, cache, first
+
+
+def attention_phase(torch, ops, dense, pqc, dev, launches, profile):
+    """Phase 9: gemma2-2b attention (``GEMMA2``) over phase 8's cache: one
+    K16 decode step per ``cache_len`` over its PQ form ``pqc`` and K15
+    prefill at the full context (see the module docstring); with
+    ``profile``, one decode step traced."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import pq_decode as pqd
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    L, H, KH, hd = (GEMMA2[k] for k in ("layers", "heads", "kv_heads",
+                                        "head_dim"))
+    ctx, window, cap = GEMMA2["context"], GEMMA2["window"], GEMMA2["softcap"]
+    n_sub = pqc["k_codes"].shape[-1]
+    out, cases = {}, {"K15": [], "K16": []}
+    g = torch.Generator(device=dev).manual_seed(4)
+    t9 = time.perf_counter()
+
+    def lap(what):
+        print(f"  [phase 9 +{time.perf_counter() - t9:.1f} s] {what}")
+
+    def layer(li):
+        return [pqc[f][li] for f in ("k_codes", "v_codes", "k_cb", "v_cb")]
+
+    # K16: one decode step, a query per layer, at Gemma 2's context (an int)
+    # and one short of it (a ragged last chunk; a 0-d tensor on the card, as
+    # a server keeps it); 2e-4 is the reference's tolerance
+    # (tests/test_pq_decode.py:63)
+    qs = torch.randn((L, 1, 1, H, hd), generator=g, device=dev)
+    pqd.pq_decode_attention(qs[0], *layer(0), ctx)   # load the library
+    for cache_len, arg in ((ctx, ctx), (ctx - 1, torch.tensor(
+            ctx - 1, dtype=torch.int32, device=dev))):
+        outs, step_s, got = counted(torch, ops, lambda: [
+            pqd.pq_decode_attention(qs[li], *layer(li), arg)
+            for li in range(L)])
+        check(got["pq_decode_attention"] == L and sum(got.values()) == L,
+              f"decode step at cache_len {cache_len}: launches {got}, want "
+              f"{L} K16")
+        launches["pq_decode_attention"] += L
+        err = err_k15 = sq = num = 0.0
+        for li in range(L):
+            o = outs[li]
+            check(o.shape == (1, 1, H, hd) and bool(torch.isfinite(o).all()),
+                  f"K16 layer {li}: output malformed")
+            check(torch.equal(o, pqd.pq_decode_attention(
+                qs[li], *layer(li), arg)),
+                f"K16 layer {li}: two launches differ")
+            twin = pqd.pq_decode_attention_torch(qs[li], *layer(li), arg)
+            err = max(err, float((o - twin).abs().max()))
+            kc, vc, kcb, vcb = layer(li)
+            rec = fa.flash_attention(
+                qs[li], pqd.reconstruct(kc[:, :cache_len], kcb),
+                pqd.reconstruct(vc[:, :cache_len], vcb), causal=False)
+            err_k15 = max(err_k15, float((o - rec).abs().max()))
+            full = fa.flash_attention(
+                qs[li], dense["k"][li][:, :cache_len].contiguous(),
+                dense["v"][li][:, :cache_len].contiguous(), causal=False)
+            num += float(((o - full).double() ** 2).sum())
+            sq += float((full.double() ** 2).sum())
+        check(err <= 2e-4 and err_k15 <= 2e-4,
+              f"K16 at cache_len {cache_len}: |K16 - twin| {err:.3g}, "
+              f"|K16 - K15 over the reconstruction| {err_k15:.3g} (tol 2e-4)")
+        rel = math.sqrt(num / sq)
+        cases["K16"].append(dict(n=ctx, cache_len=cache_len,
+                                 step_ms=step_s * 1e3,
+                                 max_abs_err=err, err_vs_k15=err_k15,
+                                 rel_err_vs_dense=rel, bitwise_repeat=True))
+        print(f"K16 decode step, {L} layers at cache_len {cache_len}: "
+              f"{step_s * 1e3:.3f} ms host clock, launches "
+              f"{ {k: c for k, c in got.items() if c} }; |K16 - "
+              f"twin| {err:.3g}, |K16 - K15 over the reconstructed cache| "
+              f"{err_k15:.3g} (tol 2e-4), two launches bitwise; relative "
+              f"error against K15 over the uncompressed cache {rel:.5f}")
+    # one layer's launch beside its bound: the codes of the valid positions
+    # and both codebooks read once, q read and the output written; the LUT,
+    # the scores' lookups and P.V
+    c16 = cases["K16"][0]
+    ms = gpu_ms(torch, lambda: pqd.pq_decode_attention(qs[0], *layer(0),
+                                                       ctx))
+    plain_ms = gpu_ms(torch, lambda: pqd.pq_decode_attention_torch(
+        qs[0], *layer(0), ctx), reps=3, warmup=1)
+    n_bytes = (2 * ctx * KH * n_sub + 2 * pqc["k_cb"][0].numel() * 4
+               + 2 * H * hd * 4)
+    flops = 2 * H * 256 * hd + H * ctx * n_sub + 2 * H * ctx * hd
+    bms, by = bound_ms(n_bytes, flops)
+    c16.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               library_ms=None)
+    print(f"K16 one layer at cache_len {ctx}: {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bms:.6f} ms ({by}; {n_bytes} bytes, "
+          f"{flops} flops)")
+    lap("decode")
+
+    # K15 prefill over the full context: a global (causal) and a local
+    # (window) layer, fp32 and bf16, counted; then each against its twin
+    # and a second launch
+    q32 = torch.randn((1, ctx, H, hd), generator=g, device=dev)
+    k32, v32 = (torch.randn((1, ctx, KH, hd), generator=g, device=dev)
+                for _ in range(2))
+    runs = [(kind, w, dt) for kind, w in (("global", 0), ("local", window))
+            for dt in (torch.float32, torch.bfloat16)]
+    inputs = {dt: tuple(x.to(dt) for x in (q32, k32, v32))
+              for dt in (torch.float32, torch.bfloat16)}
+    prefill, pre_s, got = counted(torch, ops, lambda: [
+        fa.flash_attention(*inputs[dt], window=w, cap=cap)
+        for _, w, dt in runs])
+    check(got["flash_attention"] == len(runs)
+          and sum(got.values()) == len(runs),
+          f"prefill: launches {got}, want {len(runs)} K15")
+    launches["flash_attention"] += len(runs)
+    for (kind, w, dt), o in zip(runs, prefill):
+        kw = dict(window=w, cap=cap)
+        check(o.shape == q32.shape and o.dtype == dt
+              and bool(torch.isfinite(o).all()),
+              f"K15 {kind} {dt}: output malformed")
+        check(torch.equal(o, fa.flash_attention(*inputs[dt], **kw)),
+              f"K15 {kind} {dt}: two launches differ")
+        twin = fa.flash_attention_torch(*inputs[dt], **kw).float()
+        diff = (o.float() - twin).abs()
+        err = float(diff.max())
+        # fp32: two summation orders of the same fp32 work; bf16: both round
+        # fp32 results once, so one bf16 ulp (2^-7 relative) apart at most
+        ok = diff <= (2e-5 if dt == torch.float32
+                      else 1e-5 + 8e-3 * twin.abs())
+        check(bool(ok.all()),
+              f"K15 {kind} {dt}: |kernel - twin| {err:.3g} past tolerance")
+        del twin, diff, ok
+        ms = gpu_ms(torch, lambda: fa.flash_attention(*inputs[dt], **kw),
+                    reps=3, warmup=1)
+        # pairs a query row attends: causal, within the window when local
+        per_row = [min(i + 1, w) if w else i + 1 for i in range(ctx)]
+        pairs = H * sum(per_row)
+        itemsize = 4 if dt == torch.float32 else 2
+        n_bytes = itemsize * (2 * ctx * H * hd + 2 * ctx * KH * hd)
+        bms, by = bound_ms(n_bytes, 4 * hd * pairs,
+                           FP32_FLOP_PER_S if dt == torch.float32
+                           else BF16_FLOP_PER_S)
+        c = dict(n=ctx, layer=kind, window=w, dtype=str(dt).split(".")[-1],
+                 cap=cap, max_abs_err=err, ms=ms, bound_ms=bms, bound_by=by,
+                 pairs=pairs, bitwise_repeat=True, library_ms=None)
+        if kind == "global" and dt == torch.float32:
+            c["plain_ms"] = gpu_ms(torch, lambda: fa.flash_attention_torch(
+                *inputs[dt], **kw), reps=1, warmup=0)
+        cases["K15"].append(c)
+        print(f"K15 prefill {kind} {c['dtype']} (Sq = Skv = {ctx}, window "
+              f"{w}, cap {cap}): {ms:.4f} ms, bound {bms:.4f} ms ({by}; "
+              f"{pairs} pairs), |kernel - twin| {err:.3g}, two launches "
+              f"bitwise" + (f"; plain {c['plain_ms']:.4f} ms"
+                            if "plain_ms" in c else ""))
+    lap("prefill")
+    # the yardstick, cap 0 only (SDPA has no softcap): K15 at cap 0 beside
+    # one SDPA call on the global layer
+    for dt, c in ((torch.float32, cases["K15"][0]),
+                  (torch.bfloat16, cases["K15"][1])):
+        qq, kk, vv = inputs[dt]
+        mine = fa.flash_attention(qq, kk, vv, cap=0.0)
+        lib = sdpa(qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+                   is_causal=True, enable_gqa=True).transpose(1, 2)
+        diff = float((mine.float() - lib.float()).abs().max())
+        c["ms_cap0"] = gpu_ms(torch, lambda: fa.flash_attention(
+            qq, kk, vv, cap=0.0), reps=3, warmup=1)
+        c["library_ms"] = gpu_ms(torch, lambda: sdpa(
+            qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+            is_causal=True, enable_gqa=True), reps=3, warmup=1)
+        c["library_max_abs_diff"] = diff
+        if dt == torch.float32:
+            check(diff <= 1e-4, f"SDPA computes another function: |K15 - "
+                  f"SDPA| {diff:.3g} at cap 0")
+        print(f"cap 0, global, {c['dtype']}: K15 {c['ms_cap0']:.4f} ms, "
+              f"scaled_dot_product_attention {c['library_ms']:.4f} ms, "
+              f"|K15 - SDPA| {diff:.3g}")
+        del mine, lib
+    lap("library")
+    # the prefill's four launches: host wall against their device time
+    busy = sum(c["ms"] for c in cases["K15"])
+    out["prefill"] = dict(wall_ms=pre_s * 1e3, device_ms=busy,
+                          idle_share=1 - busy / (pre_s * 1e3))
+    print(f"prefill, {len(runs)} launches: {pre_s * 1e3:.3f} ms host clock, "
+          f"{busy:.3f} ms of kernel time (CUDA events), idle share "
+          f"{out['prefill']['idle_share']:.3f}")
+    if profile:
+        name = f"K16 decode step ({L} layers)"
+
+        def step():
+            return [pqd.pq_decode_attention(qs[li], *layer(li), ctx)
+                    for li in range(L)]
+        step()
+        out["profile"] = {name: profile_call(torch, step)}
+        print_profile(name, out["profile"][name])
+    del prefill, inputs
+    torch.cuda.empty_cache()
     return cases, out
 
 
@@ -2444,15 +2669,25 @@ def main() -> int:
     #    the paper's
     # (the KV cache is gemma2_2b's: 26 layers, 4 kv heads, head_dim 256, at
     #  the codebook sweep's 16,384 tokens)
-    icases, irun = ivf_phase(torch, ops, bounds, telemetry, ClusterEngine,
-                             Draws, IVF, paper, FULL, dev, launches,
-                             args.profile, (26, 4, 256, KVQ.n_points),
-                             args.ivf_data)
+    icases, irun, kv_dense, kv_pq = ivf_phase(
+        torch, ops, bounds, telemetry, ClusterEngine, Draws, IVF, paper,
+        FULL, dev, launches, args.profile,
+        (GEMMA2["layers"], GEMMA2["kv_heads"], GEMMA2["head_dim"],
+         KVQ.n_points), args.ivf_data)
     cases.update(icases)
     report["ivf"] = irun
+
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 9")
+    # 9. gemma2-2b attention: a decode step over phase 8's PQ cache (K16)
+    #    and prefill over the full context (K15)
+    acases, arun = attention_phase(torch, ops, kv_dense, kv_pq, dev,
+                                   launches, args.profile)
+    del kv_dense, kv_pq
+    cases.update(acases)
+    report["attention"] = arun
     report["launches"] = launches
     report["seconds"] = time.perf_counter() - t_start
-    print(f"[{report['seconds']:.1f} s] phases 0-8 done")
+    print(f"[{report['seconds']:.1f} s] phases 0-9 done")
 
     if args.profile:
         report["profile"] = {}
@@ -2574,6 +2809,16 @@ def main() -> int:
               cases["K13"][0], "K13"),
         entry("ivf_adc_scan", "ivf_scan.cu",
               "src/repro/kernels/ivf_scan.py:249", cases["K14"][0], "K14"),
+        entry("pq_decode_attention", "pq_decode.cu",
+              "src/repro/kernels/pq_decode.py:89", cases["K16"][0], "K16"),
+        # K15's error over the fp32 runs (bf16's, one ulp of the store,
+        # are in the report), its yardstick SDPA at cap 0
+        dict(entry("flash_attention", "flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:87",
+                   cases["K15"][0], "K15"),
+             max_abs_err=max(c["max_abs_err"] for c in cases["K15"]
+                             if c["dtype"] == "float32"),
+             library_ms=cases["K15"][0]["library_ms"]),
     ]}
     report.update(record)
     if args.json:

@@ -6,7 +6,9 @@ backend's. With them a port run can start from the reference's seeds and
 tile its rows the same way, so both sides compute the same thing. Its
 prologue cache and carried bound state become the port's too, so a gated
 round on each side can be fed the same carries. A reference IVF index (and
-a PQ codebook) becomes the port's, so both sides search one index.
+a PQ codebook) becomes the port's, so both sides search one index, and a
+reference PQ-compressed KV cache the port's, so both sides decode one
+cache.
 """
 from __future__ import annotations
 
@@ -80,6 +82,19 @@ def pq_codebook(centroids, *, device="cpu"):
     the port's."""
     from repro_torch.serve.kvquant import PQCodebook
     return PQCodebook(_tensor(centroids, device, torch.float32))
+
+
+def pq_cache(cache, *, device="cpu") -> dict:
+    """A reference ``compress_transformer_cache`` dict (arrays or numpy:
+    ``k_codes``/``v_codes`` (L, B, S, KH, n_sub), ``k_cb``/``v_cb`` (L, KH,
+    n_sub, 256, dsub), ``pos``) as the port's: codes uint8, codebooks fp32,
+    ``pos`` a 0-d int32 tensor (a ``cache_len`` K16 takes)."""
+    out = {f"{n}_codes": _tensor(cache[f"{n}_codes"], device, torch.uint8)
+           for n in ("k", "v")}
+    out.update({f"{n}_cb": _tensor(cache[f"{n}_cb"], device, torch.float32)
+                for n in ("k", "v")})
+    out["pos"] = _tensor(cache["pos"], device, torch.int32)
+    return out
 
 
 def ivf_index(index, *, backend: str = "cuda", device="cpu"):

@@ -16,7 +16,13 @@ twin:
   ivf_scan.py        — K13/K14, the IVF scan, exact and PQ/ADC: per query,
                        its probed tiles in order behind the kth-distance
                        ball gate, merged into a lexicographic top-k
+  pq_decode.py       — K16, single-token decode attention over a PQ-coded
+                       KV cache: K scored through a per-query LUT, the
+                       sequence split over blocks and merged in order
+  flash_attention.py — K15, online-softmax attention (GQA, causal, sliding
+                       window, softcap, q_offset), and its exact oracle
 
-ops.py — the tile-height budget, the launch counters, and ``lloyd_assign``
-(K4 or K9 by the points' shape).
+ops.py — the tile-height budget, the launch counters, the attention
+wrappers' input check, and ``lloyd_assign`` (K4 or K9 by the points'
+shape).
 """

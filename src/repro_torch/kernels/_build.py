@@ -24,7 +24,7 @@ from repro_torch.core.guards import KernelFailureError
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("seed_prologue", "kmeans_distance", "lloyd_assign",
-           "rejection", "ivf_scan")
+           "rejection", "ivf_scan", "pq_decode", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

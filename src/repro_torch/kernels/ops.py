@@ -18,7 +18,9 @@ block; TPU VMEM budgets do not apply.
 
 The IVF scan (K13, K14; ``ivf_scan.py``) runs one block per query and
 budgets its own shared memory (``ivf_scan.max_k``); its tile height is the
-index's.
+index's. The attention kernels (K15, K16; ``flash_attention.py``,
+``pq_decode.py``) take their tiles from their own sources and check their
+inputs with :func:`check_inputs`.
 
 Launch counters. Each wrapper adds one to its kernel's counter where it
 launches the kernel on the card, and nowhere else (the CPU path, which runs
@@ -28,6 +30,8 @@ through the kernels.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.guards import InvalidInputError
 
 THREADS = 256            # threads per block of both kernels (csrc/*.cu)
 SMEM_LIMIT = 232_448     # bytes of shared memory one Hopper block can use
@@ -49,12 +53,26 @@ LAUNCHES: dict[str, int] = {"seed_prologue": 0,
                             "lloyd_assign": 0,
                             "lloyd_assign_batched": 0,
                             "ivf_scan": 0,
-                            "ivf_adc_scan": 0}
+                            "ivf_adc_scan": 0,
+                            "pq_decode_attention": 0,
+                            "flash_attention": 0}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def check_inputs(device, **tensors) -> None:
+    """What the attention wrappers (K15, K16) take on either device: every
+    tensor on ``device`` and contiguous; raises ``InvalidInputError``
+    naming the first that is not."""
+    for name, t in tensors.items():
+        if t.device != device:
+            raise InvalidInputError(f"{name} is on {t.device}, not on "
+                                    f"{device} with the query")
+        if not t.is_contiguous():
+            raise InvalidInputError(f"{name} must be contiguous")
 
 
 def check_card_tensors(dtype=None, **tensors) -> None:

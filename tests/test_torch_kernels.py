@@ -36,10 +36,11 @@ from test_torch_jaxref import (EPS32, assert_labels_match, d2_tol, exact_d2,
 from repro_torch import convert
 from repro_torch.core import bounds
 from repro_torch.data import blobs
-from repro_torch.kernels import ivf_scan
+from repro_torch.kernels import flash_attention, ivf_scan
 from repro_torch.kernels import kmeans_distance as kd
 from repro_torch.kernels import lloyd_assign as la
 from repro_torch.kernels import ops
+from repro_torch.kernels import pq_decode
 
 
 def _data(n, d, seed):
@@ -469,13 +470,21 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
                           torch.zeros((500, 2), dtype=torch.uint8),
                           torch.zeros(500, dtype=torch.int32), norms,
                           centers, radii, ids, nact, k=5, block_n=128)
+    qa = torch.zeros(1, 4, 2, 8)
+    flash_attention.flash_attention(qa, qa[:, :, :1].contiguous(),
+                                    qa[:, :, :1].contiguous())
+    codes = torch.zeros((1, 16, 1, 2), dtype=torch.uint8)
+    cb = torch.zeros(1, 2, 256, 4)
+    pq_decode.pq_decode_attention(qa[:, :1].contiguous(), codes, codes, cb,
+                                  cb, 16)
     assert set(ops.LAUNCHES) == {
         "seed_prologue", "distance_min_update", "lloyd_assign_tiled",
         "distance_min_update_gated", "lloyd_assign_gated", "row_min_d2",
         "tile_cap", "distance_min_update_batched",
         "lloyd_assign_tiled_batched", "seed_prologue_batched",
         "distance_min_update_gated_batched", "lloyd_assign_gated_batched",
-        "lloyd_assign", "lloyd_assign_batched", "ivf_scan", "ivf_adc_scan"}
+        "lloyd_assign", "lloyd_assign_batched", "ivf_scan", "ivf_adc_scan",
+        "pq_decode_attention", "flash_attention"}
     assert not any(ops.LAUNCHES.values())
 
 
