@@ -16,7 +16,10 @@ Phases, each of which exits non-zero on failure:
    (B, n) ``prefix_sum`` at the codebook sweep's shape must be the 1-D
    calls.
 1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
-   source, all at once) and print the build time and ptxas report.
+   source, all at once) and print the build time and ptxas report. K15's
+   bf16 kernel (``flash_bf16_kernel<1|2|4>``) must report no spill and hold
+   HGMMA (``wgmma``) and UTMALDG (TMA load) instructions in its SASS
+   (``cuobjdump -sass``); its registers and spills are printed.
 2. Hold every kernel against its plain PyTorch twin on the card, at the
    paper's shape (n = 4,000,000, d = 2; label-sorted for the gated seeding
    round, so its gate skips) and a ragged wide one (n = 100,003, d = 128):
@@ -150,16 +153,17 @@ Phases, each of which exits non-zero on failure:
    launches bitwise, and its relative error against K15 over the
    uncompressed cache printed (Gaussian data: not a gate). Prefill,
    Sq = Skv = 8,192, cap 50: a global (causal) and a local (window) layer
-   in fp32 and bf16 through K15 (``flash_attention``), 4 counted
-   launches, each against its twin (blocked, so no score matrix is
-   materialized; fp32 within 2e-5, bf16 within one bf16 ulp) and a second
-   launch bitwise. K16's one-layer and K15's times (CUDA events) beside
-   their twins' and their bounds (K16: the valid codes and both codebooks
-   read once, bytes; K15: 4·hd flops per valid pair at fp32's rate, or
-   bf16's for bf16 inputs), and at cap 0 K15 beside one
-   ``torch.nn.functional.scaled_dot_product_attention(is_causal=True,
-   enable_gqa=True)`` call on the global layer (the yardstick only: SDPA
-   has no softcap, and the port never calls it). The prefill's host wall
+   in fp32 and bf16 through K15 (``flash_attention``: fp32 on the CUDA
+   cores, bf16 on ``wgmma`` tensor cores fed by TMA), 4 counted launches
+   (2 of each kernel), each against its twin (blocked, so no score matrix
+   is materialized; fp32 within 2e-5, bf16 within one bf16 ulp) and a
+   second launch bitwise. K16's one-layer and K15's times (CUDA events)
+   beside their twins' and their bounds (K16: the valid codes and both
+   codebooks read once, bytes; K15: 4·hd flops per valid pair at fp32's
+   rate, or bf16's for bf16 inputs), and at cap 0 K15 in each dtype beside
+   one ``torch.nn.functional.scaled_dot_product_attention(is_causal=True,
+   enable_gqa=True)`` call on the global layer in the same dtype (the
+   yardstick only: SDPA has no softcap, and the port never calls it). The prefill's host wall
    is printed beside its kernel time (the device's idle share).
 10. With ``--profile`` only: trace one seeding run per sampler (rejection
    hier and flat included) and one Lloyd fit at the paper's shape,
@@ -184,6 +188,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -236,6 +241,40 @@ def bound_ms(n_bytes: float, flops: float,
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def k15_bf16_build(_build, log: str | None) -> dict:
+    """The bf16 K15 instances (``flash_bf16_kernel<chunks>``): registers and
+    spill bytes from this run's ptxas log (None when the library was not
+    built in this run), and the count of tensor-core (HGMMA) and TMA load
+    (UTMALDG) instructions in each one's SASS."""
+    out: dict = {}
+    fn = None
+    for line in (log or "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"flash_bf16_kernelILi(\d+)E", m.group(1))
+            fn = f"flash_bf16_kernel<{k.group(1)}>" if k else None
+            continue
+        m = fn and re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                             r"loads", line)
+        if m:
+            out.setdefault(fn, {}).setdefault(
+                "spill_bytes", int(m.group(1)) + int(m.group(2)))
+        m = fn and re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(fn, {}).setdefault("registers", int(m.group(1)))
+    sass = subprocess.run(
+        [_build.toolkit_bin("cuobjdump"), "-sass",
+         str(_build.library_path("flash_attention"))],
+        check=True, capture_output=True, text=True).stdout
+    for part in sass.split("Function : ")[1:]:
+        k = re.search(r"flash_bf16_kernelILi(\d+)E", part.split("\n", 1)[0])
+        if k:
+            c = out.setdefault(f"flash_bf16_kernel<{k.group(1)}>", {})
+            c["HGMMA"] = part.count("HGMMA")
+            c["UTMALDG"] = part.count("UTMALDG")
+    return out
 
 
 def d2_tol(torch, norms, cents) -> float:
@@ -2259,10 +2298,11 @@ def attention_phase(torch, ops, dense, pqc, dev, launches, profile):
     prefill, pre_s, got = counted(torch, ops, lambda: [
         fa.flash_attention(*inputs[dt], window=w, cap=cap)
         for _, w, dt in runs])
-    check(got["flash_attention"] == len(runs)
+    check(got["flash_attention"] == 2 and got["flash_attention_bf16"] == 2
           and sum(got.values()) == len(runs),
-          f"prefill: launches {got}, want {len(runs)} K15")
-    launches["flash_attention"] += len(runs)
+          f"prefill: launches {got}, want K15 2 fp32 and 2 bf16")
+    for name in ("flash_attention", "flash_attention_bf16"):
+        launches[name] += got[name]
     for (kind, w, dt), o in zip(runs, prefill):
         kw = dict(window=w, cap=cap)
         check(o.shape == q32.shape and o.dtype == dt
@@ -2293,7 +2333,7 @@ def attention_phase(torch, ops, dense, pqc, dev, launches, profile):
         c = dict(n=ctx, layer=kind, window=w, dtype=str(dt).split(".")[-1],
                  cap=cap, max_abs_err=err, ms=ms, bound_ms=bms, bound_by=by,
                  pairs=pairs, bitwise_repeat=True, library_ms=None)
-        if kind == "global" and dt == torch.float32:
+        if kind == "global":
             c["plain_ms"] = gpu_ms(torch, lambda: fa.flash_attention_torch(
                 *inputs[dt], **kw), reps=1, warmup=0)
         cases["K15"].append(c)
@@ -2433,6 +2473,18 @@ def main() -> int:
         for line in log.splitlines():
             if "ptxas info" in line and ("Used" in line or "Compiling" in line):
                 print(f"  {name}: {line.strip()}")
+    # K15's bf16 kernel: no spill, and on the tensor cores fed by TMA
+    report["k15_bf16_build"] = k15_bf16_build(_build,
+                                              logs.get("flash_attention"))
+    for fn, c in report["k15_bf16_build"].items():
+        ptxas = (f"{c['registers']} registers at entry, "
+                 f"{c['spill_bytes']} spill bytes" if "registers" in c
+                 else "not rebuilt in this run")
+        print(f"K15 bf16 {fn}: {ptxas}; SASS: {c['HGMMA']} HGMMA, "
+              f"{c['UTMALDG']} UTMALDG")
+        check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
+              f"K15 bf16 {fn}: no HGMMA or UTMALDG in its SASS")
+        check(c.get("spill_bytes", 0) == 0, f"K15 bf16 {fn} spills")
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 2")
     # 2. kernels against their plain twins
@@ -2811,14 +2863,16 @@ def main() -> int:
               "src/repro/kernels/ivf_scan.py:249", cases["K14"][0], "K14"),
         entry("pq_decode_attention", "pq_decode.cu",
               "src/repro/kernels/pq_decode.py:89", cases["K16"][0], "K16"),
-        # K15's error over the fp32 runs (bf16's, one ulp of the store,
-        # are in the report), its yardstick SDPA at cap 0
-        dict(entry("flash_attention", "flash_attention.cu",
-                   "src/repro/kernels/flash_attention.py:87",
-                   cases["K15"][0], "K15"),
-             max_abs_err=max(c["max_abs_err"] for c in cases["K15"]
-                             if c["dtype"] == "float32"),
-             library_ms=cases["K15"][0]["library_ms"]),
+        # K15's two kernels, each with its error over its dtype's runs and
+        # its yardstick, SDPA at cap 0 in the same dtype
+        *(dict(entry(fn, "flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:87",
+                     cases["K15"][i], "K15"),
+               max_abs_err=max(c["max_abs_err"] for c in cases["K15"]
+                               if c["dtype"] == dt),
+               library_ms=cases["K15"][i]["library_ms"])
+          for fn, i, dt in (("flash_attention", 0, "float32"),
+                            ("flash_attention_bf16", 1, "bfloat16"))),
     ]}
     report.update(record)
     if args.json:

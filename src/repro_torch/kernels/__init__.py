@@ -20,7 +20,8 @@ twin:
                        KV cache: K scored through a per-query LUT, the
                        sequence split over blocks and merged in order
   flash_attention.py — K15, online-softmax attention (GQA, causal, sliding
-                       window, softcap, q_offset), and its exact oracle
+                       window, softcap, q_offset; fp32 on the CUDA cores,
+                       bf16 on the tensor cores), and its exact oracle
 
 ops.py — the tile-height budget, the launch counters, the attention
 wrappers' input check, and ``lloyd_assign`` (K4 or K9 by the points'

@@ -29,15 +29,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def toolkit_bin(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): on PATH,
+    else under $CUDA_HOME/bin or /usr/local/cuda/bin."""
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(home) / "bin" / "nvcc"
+    cand = Path(home) / "bin" / name
     if cand.exists():
         return str(cand)
-    raise KernelFailureError("nvcc not found (PATH, $CUDA_HOME/bin, "
+    raise KernelFailureError(f"{name} not found (PATH, $CUDA_HOME/bin, "
                              "/usr/local/cuda/bin)")
 
 
@@ -55,7 +57,7 @@ def build_all(names=SOURCES) -> dict[str, str]:
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
-    nvcc = _nvcc()
+    nvcc = toolkit_bin()
     procs = {}
     for name in todo:
         tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")

@@ -14,17 +14,25 @@ once, at the store.
 
 The twin repeats the TPU kernel's blocking: ``block_q`` × ``block_k``
 tiles, the kv axis innermost, tiles with no valid pair skipped. The
-kernel (``csrc/flash_attention.cu``) tiles by its own constants (64 query
-rows, 32 keys: the TPU default of 512 rows at hd 256 is a 512 KiB fp32
-accumulator, far past Hopper's 227 KB of shared memory and 255 registers
-a thread), and visits only the key tiles that meet its query tile's band,
-the work the TPU kernel's skip leaves. Its sums run in another order than
-the twin's matmuls, so the two agree to a stated tolerance; two launches
-give the same bits.
+kernels (``csrc/flash_attention.cu``) tile by their own constants (the TPU
+default of 512 rows at hd 256 is a 512 KiB fp32 accumulator, far past
+Hopper's 227 KB of shared memory and 255 registers a thread) and visit
+only the key tiles that meet their query tile's band, the work the TPU
+kernel's skip leaves. fp32 runs on the CUDA cores (64 query rows × 32
+keys); bf16 on the tensor cores (``wgmma``, 128 query rows × 64 keys, TMA
+loads), with P·V as bf16(p)·V + bf16(p − bf16(p))·V so that p keeps about
+16 bits, as the fp32 reference's tolerance needs. The sums run in another
+order than the twin's matmuls, so kernel and twin agree to a stated
+tolerance; two launches give the same bits.
 
-The wrapper launches the kernel for tensors on the card and runs the twin
+The wrapper launches a kernel for tensors on the card and runs the twin
 only for tensors on the CPU; both take head_dim up to
-:data:`MAX_HEAD_DIM`, the kernel's register budget.
+:data:`MAX_HEAD_DIM`. TMA needs 16-byte strides and addresses: for a bf16
+head_dim that is no multiple of 8 (or a misaligned tensor) the wrapper
+zero-pads the head dim into a copy, which changes nothing (zero columns
+add nothing to q·k, and the output columns they make are dropped).
+Launches count under ``flash_attention`` (fp32) and
+``flash_attention_bf16``.
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ from repro_torch.core.guards import InvalidInputError, KernelFailureError
 from repro_torch.kernels import _build, ops
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 256   # the kernel's 32 lanes × at most 8 output dims a lane
+MAX_HEAD_DIM = 256   # fp32: 32 lanes × 8 dims a lane; bf16: wgmma's widest N
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = (_P,) * 4 + (_I,) * 7 + (ctypes.c_float,) * 2 + (_I,) * 3 + (_P,)
@@ -174,8 +182,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0) -> torch.Tensor:
     """q (B, Sq, H, hd); k/v (B, Skv, KH, hd), H = KH·G, all fp32 or all
     bf16. Returns (B, Sq, H, hd) in q's dtype. ``block_q``/``block_k``
-    tile the twin; the kernel's tile is its own. On the card this launches
-    K15; CPU tensors take the plain twin."""
+    tile the twin; the kernels' tiles are their own. On the card this
+    launches K15 (the fp32 or the bf16 kernel); CPU tensors take the plain
+    twin."""
     _check(q, k, v, block_q, block_k)
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, causal=causal, window=window,
@@ -185,22 +194,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"unsupported device {q.device}")
     B, Sq, H, hd = q.shape
     Skv, KH = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
+    bf16 = q.dtype == torch.bfloat16
+    if B * Sq * H * hd == 0:
+        return torch.empty_like(q)
+    width = hd
+    if bf16 and (hd % 8 or any(t.data_ptr() % 16 for t in (q, k, v))):
+        width = -(-hd // 8) * 8
+        q, k, v = (torch.nn.functional.pad(t, (0, width - hd))
+                   for t in (q, k, v))
+    out = torch.empty((B, Sq, H, width), dtype=q.dtype, device=q.device)
     fn = _build.function("flash_attention", "flash_attention_launch",
                          _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-                 Sq, Skv, H, KH, hd, int(causal), float(cap), hd ** -0.5,
-                 int(window), int(q_offset), int(q.dtype == torch.bfloat16),
-                 stream)
+                 Sq, Skv, H, KH, width, int(causal), float(cap), hd ** -0.5,
+                 int(window), int(q_offset), int(bf16), stream)
     if err != 0:
         raise KernelFailureError(
             f"flash_attention launch failed: cudaError {err}")
-    ops.LAUNCHES["flash_attention"] += 1
-    return out
+    ops.LAUNCHES["flash_attention_bf16" if bf16 else "flash_attention"] += 1
+    return out if width == hd else out[..., :hd].contiguous()
 
 
 def hbm_bytes_model(B: int, Sq: int, Skv: int, H: int, KH: int, hd: int,

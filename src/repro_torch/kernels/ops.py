@@ -55,7 +55,8 @@ LAUNCHES: dict[str, int] = {"seed_prologue": 0,
                             "ivf_scan": 0,
                             "ivf_adc_scan": 0,
                             "pq_decode_attention": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0,
+                            "flash_attention_bf16": 0}
 
 
 def reset_launches() -> None:

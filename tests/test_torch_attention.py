@@ -8,8 +8,11 @@ the port's plain twins, which the wrappers take for CPU tensors. Held:
 * K15's twin against the interpreted ``flash_attention`` on every case of
   ``tests/test_kernels.py``'s ``FLASH_CASES`` in fp32 and bf16, the
   ``q_offset`` case, rows with no valid key (0 on both sides), one
-  gemma2-2b-width case, a window without causality and head_dim 80; the twin's result for other tiles; the port's
-  copy of the oracle ``flash_attention_ref`` against the reference's;
+  gemma2-2b-width case, a window without causality and head_dim 80; the
+  twin's result for other tiles; the port's copy of the oracle
+  ``flash_attention_ref`` against the reference's; the bf16 kernel's
+  arithmetic (p split in two bf16 halves before P·V), emulated here,
+  against the interpreted reference;
 * K16's twin against the interpreted ``pq_decode_attention`` on every
   case of ``tests/test_pq_decode.py``'s ``CASES``, at hd 256 with 16
   sub-spaces, at ``cache_len`` 0 (zeros) and at a ``cache_len`` that is
@@ -54,6 +57,25 @@ GEMMA_FLASH = (1, 320, 320, 8, 4, 256, True, 128, 50.0, 128, 128)
 MORE_FLASH = [GEMMA_FLASH,
               (1, 128, 160, 4, 2, 32, False, 48, 0.0, 64, 64),
               (1, 70, 70, 2, 1, 80, True, 0, 20.0, 32, 32)]
+# the bf16 kernel's edges (card only), the same fields then q_offset:
+# Sq and Skv no multiple of its 128-row or 64-key tiles; head_dim 36 (no
+# multiple of 8: the wrapper's zero pad); G = 1 and G = 4; a window without
+# causality; Sq = Skv = 1,024, so that the two-stage K/V ring wraps many
+# times; q_offset -40 (rows without keys); one query row (decode's form);
+# no keys at all (zeros)
+BF16_EDGE = [
+    (2, 203, 333, 4, 2, 64, False, 0, 0.0, 64, 64, 0),
+    (1, 190, 250, 4, 2, 128, True, 0, 30.0, 64, 64, 0),
+    (1, 150, 150, 4, 2, 36, True, 0, 0.0, 64, 64, 0),
+    (1, 256, 256, 4, 4, 64, True, 0, 0.0, 64, 64, 0),
+    (2, 160, 160, 8, 2, 128, True, 0, 50.0, 64, 64, 0),
+    (1, 300, 300, 2, 1, 256, False, 100, 50.0, 64, 64, 0),
+    (1, 1024, 1024, 2, 1, 256, True, 0, 50.0, 128, 128, 0),
+    (1, 1024, 1024, 2, 1, 256, True, 300, 50.0, 128, 128, 0),
+    (1, 96, 128, 2, 2, 32, True, 0, 0.0, 32, 32, -40),
+    (2, 1, 300, 8, 4, 256, False, 0, 0.0, 64, 64, 0),
+    (1, 16, 0, 2, 1, 64, False, 0, 0.0, 64, 64, 0),
+]
 
 # (B, S, KH, G, hd, n_sub, block_k, cache_len): the reference's CASES
 # (tests/test_pq_decode.py:36), then hd 256 with 16 sub-spaces at G = 2
@@ -130,6 +152,63 @@ def test_flash_twin_matches_reference(ref, case, dtype):
                              _port(v, dtype), **kw)
     assert got.dtype == dtype and got.shape == q.shape
     _assert_close(got, want, dtype)
+
+
+def _split_p_flash(q, k, v, *, causal, window, cap, q_offset=0,
+                   block_k=64):
+    """The bf16 kernel's arithmetic, emulated in fp32 on the CPU: bf16 q,
+    k and v; fp32 scores (products of bf16 values are exact in fp32); the
+    online softmax over 64-key tiles with m and l in fp32 and l from the
+    fp32 p; P·V as bf16(p)·V + bf16(p − bf16(p))·V; one rounding to bf16
+    at the store."""
+    B, Sq, H, hd = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    qf = q.float().reshape(B, Sq, KH, G, hd).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    q_pos = q_offset + torch.arange(Sq)[:, None]
+    m = torch.full((B, KH, G, Sq), fa.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, KH, G, Sq, hd))
+    for k0 in range(0, Skv, block_k):
+        k1 = min(k0 + block_k, Skv)
+        k_pos = torch.arange(k0, k1)[None, :]
+        mask = torch.ones((Sq, k1 - k0), dtype=torch.bool)
+        if causal:
+            mask &= k_pos <= q_pos
+        if window > 0:
+            mask &= k_pos > q_pos - window
+        s = (qf @ kf[..., k0:k1, :].transpose(-1, -2)) * hd ** -0.5
+        if cap > 0:
+            s = cap * torch.tanh(s / cap)
+        s = torch.where(mask, s, fa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        p_hi = p.bfloat16().float()
+        p_lo = (p - p_hi).bfloat16().float()
+        vt = vf[..., k0:k1, :]
+        acc = acc * corr[..., None] + p_hi @ vt + p_lo @ vt
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).bfloat16()
+
+
+@pytest.mark.parametrize("case", FLASH_CASES + [GEMMA_FLASH])
+def test_split_p_arithmetic_matches_reference(ref, case):
+    """The numerical design of the bf16 kernel: scores in fp32 from bf16
+    inputs and p split into two bf16 halves before P·V stay within the
+    bf16 tolerance of the interpreted reference, which computes P·V in
+    fp32."""
+    causal, window, cap, bq, bk = case[6:]
+    q, k, v = (_port(x, torch.bfloat16) for x in _qkv(case))
+    want = _ref_flash(ref, *(x.float().numpy() for x in (q, k, v)),
+                      torch.bfloat16, causal=causal, window=window, cap=cap,
+                      block_q=bq, block_k=bk)
+    got = _split_p_flash(q, k, v, causal=causal, window=window, cap=cap)
+    _assert_close(got, want, torch.bfloat16)
 
 
 @pytest.mark.parametrize("q_offset", [64, -40])
@@ -434,20 +513,29 @@ def _counted(name, fn):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", FLASH_CASES + MORE_FLASH)
+@pytest.mark.parametrize("case,dtype", [
+    (c, d) for c in FLASH_CASES + MORE_FLASH
+    for d in (torch.float32, torch.bfloat16)] + [
+    (c, torch.bfloat16) for c in BF16_EDGE])
 def test_flash_kernel_matches_twin_on_the_card(card, case, dtype):
     """K15 against its twin on the same card inputs, one counted launch
-    each, two launches the same bits."""
-    causal, window, cap, bq, bk = case[6:]
+    each (the fp32 or the bf16 kernel), two launches the same bits; at a
+    negative ``q_offset`` the rows without a key are 0."""
+    causal, window, cap, bq, bk = case[6:11]
+    q_offset = case[11] if len(case) > 11 else 0
     q, k, v = (_port(x, dtype).to(card) for x in _qkv(case))
-    kw = dict(causal=causal, window=window, cap=cap, block_q=bq, block_k=bk)
-    got = _counted("flash_attention", lambda: fa.flash_attention(q, k, v,
-                                                                 **kw))
+    kw = dict(causal=causal, window=window, cap=cap, block_q=bq, block_k=bk,
+              q_offset=q_offset)
+    name = ("flash_attention" if dtype == torch.float32
+            else "flash_attention_bf16")
+    got = _counted(name, lambda: fa.flash_attention(q, k, v, **kw))
     again = fa.flash_attention(q, k, v, **kw)
     assert torch.equal(got, again) and got.dtype == dtype
+    assert got.shape == q.shape
     want = fa.flash_attention_torch(q, k, v, **kw)
     _assert_close(got.cpu(), want.float().cpu().numpy(), dtype)
+    if q_offset < 0:
+        assert not got[:, :-q_offset].any()
 
 
 @pytest.mark.cuda

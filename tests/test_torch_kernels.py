@@ -484,7 +484,7 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
         "lloyd_assign_tiled_batched", "seed_prologue_batched",
         "distance_min_update_gated_batched", "lloyd_assign_gated_batched",
         "lloyd_assign", "lloyd_assign_batched", "ivf_scan", "ivf_adc_scan",
-        "pq_decode_attention", "flash_attention"}
+        "pq_decode_attention", "flash_attention", "flash_attention_bf16"}
     assert not any(ops.LAUNCHES.values())
 
 
