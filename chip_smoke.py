@@ -17,9 +17,13 @@ Phases, each of which exits non-zero on failure:
    calls.
 1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
    source, all at once) and print the build time and ptxas report. K15's
-   bf16 kernel (``flash_bf16_kernel<1|2|4>``) must report no spill and hold
-   HGMMA (``wgmma``) and UTMALDG (TMA load) instructions in its SASS
-   (``cuobjdump -sass``); its registers and spills are printed.
+   kernels, bf16 (``flash_bf16_kernel<1|2|4>``) and fp32
+   (``flash_tf32_kernel<1|2|4>``), must report no spill, at least 168
+   registers at entry (what ``setmaxnreg`` hands to the two consumer
+   warpgroups at 232, taken from the producer's 40), and hold HGMMA
+   (``wgmma``) and UTMALDG (TMA load) instructions in their SASS
+   (``cuobjdump -sass``); their registers, spills, dynamic shared memory
+   and instruction counts are printed, before any of them is launched.
 2. Hold every kernel against its plain PyTorch twin on the card, at the
    paper's shape (n = 4,000,000, d = 2; label-sorted for the gated seeding
    round, so its gate skips) and a ragged wide one (n = 100,003, d = 128):
@@ -128,7 +132,10 @@ Phases, each of which exits non-zero on failure:
    within tolerance of decode-then-exact on 64 queries; over all 10,000
    queries ``check_ivf_counters``, a gate that skips, and every
    ``corrupt_list_offsets`` kind raising ``CorruptedStateError``; K13 and
-   K14 timed at Q = 10,000, nprobe 32 (CUDA events) beside their twins run
+   K14 timed at Q = 10,000, nprobe 32 (CUDA events, median of 3; K13's
+   time is all of ``ivf_scan``: its glue, the tile top-k part and the
+   replay; the tile top-k part with its glue is also timed alone, not
+   counted) beside their twins run
    in chunks of 2,048 queries, whose outputs must be the kernel's bitwise,
    and their bounds (the larger of the bytes read once, each probed row's
    4d + 4 or n_sub + 8 bytes with the queries, tile lists and LUTs, and
@@ -153,14 +160,17 @@ Phases, each of which exits non-zero on failure:
    launches bitwise, and its relative error against K15 over the
    uncompressed cache printed (Gaussian data: not a gate). Prefill,
    Sq = Skv = 8,192, cap 50: a global (causal) and a local (window) layer
-   in fp32 and bf16 through K15 (``flash_attention``: fp32 on the CUDA
-   cores, bf16 on ``wgmma`` tensor cores fed by TMA), 4 counted launches
+   in fp32 and bf16 through K15 (``flash_attention``: both on ``wgmma``
+   tensor cores fed by TMA, fp32 in split TF32), 4 counted launches
    (2 of each kernel), each against its twin (blocked, so no score matrix
    is materialized; fp32 within 2e-5, bf16 within one bf16 ulp) and a
    second launch bitwise. K16's one-layer and K15's times (CUDA events)
    beside their twins' and their bounds (K16: the valid codes and both
-   codebooks read once, bytes; K15: 4·hd flops per valid pair at fp32's
-   rate, or bf16's for bf16 inputs), and at cap 0 K15 in each dtype beside
+   codebooks read once, bytes; K15: for bf16 inputs 4·hd flops per valid
+   pair at bf16's rate; for fp32 the three TF32 products of 3xTF32, the
+   fastest arithmetic that holds 2e-5, 12·hd flops a pair at TF32's rate,
+   with 4·hd flops a pair at fp32's rate printed beside it), and at cap 0
+   K15 in each dtype beside
    one ``torch.nn.functional.scaled_dot_product_attention(is_causal=True,
    enable_gqa=True)`` call on the global layer in the same dtype (the
    yardstick only: SDPA has no softcap, and the port never calls it). The prefill's host wall
@@ -198,6 +208,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12      # H100 SXM fp32 rate outside the tensor cores
 BF16_FLOP_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
+TF32_FLOP_PER_S = 495e12     # H100 SXM dense TF32 tensor-core rate
 EPS32 = 2.0 ** -23
 # gemma2-2b's attention (src/repro/configs/gemma2_2b.py:8-11, Google's
 # gemma-2-2b config): 26 layers, 8 query heads over 4 kv heads of head_dim
@@ -243,18 +254,23 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def k15_bf16_build(_build, log: str | None) -> dict:
-    """The bf16 K15 instances (``flash_bf16_kernel<chunks>``): registers and
-    spill bytes from this run's ptxas log (None when the library was not
-    built in this run), and the count of tensor-core (HGMMA) and TMA load
-    (UTMALDG) instructions in each one's SASS."""
+def k15_build(_build, log: str) -> dict:
+    """K15's instances, bf16 (``flash_bf16_kernel<chunks>``) and fp32
+    (``flash_tf32_kernel<chunks>``): registers and spill bytes from the
+    library's ptxas log (this run's, or the one kept beside a reused
+    build), and the count of tensor-core (HGMMA) and TMA load (UTMALDG) instructions in
+    each one's SASS."""
     out: dict = {}
+    pat = r"flash_(bf16|tf32)_kernelILi(\d+)E"
+
+    def name(m):
+        return f"flash_{m.group(1)}_kernel<{m.group(2)}>"
     fn = None
-    for line in (log or "").splitlines():
+    for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"flash_bf16_kernelILi(\d+)E", m.group(1))
-            fn = f"flash_bf16_kernel<{k.group(1)}>" if k else None
+            k = re.search(pat, m.group(1))
+            fn = name(k) if k else None
             continue
         m = fn and re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                              r"loads", line)
@@ -269,9 +285,9 @@ def k15_bf16_build(_build, log: str | None) -> dict:
          str(_build.library_path("flash_attention"))],
         check=True, capture_output=True, text=True).stdout
     for part in sass.split("Function : ")[1:]:
-        k = re.search(r"flash_bf16_kernelILi(\d+)E", part.split("\n", 1)[0])
+        k = re.search(pat, part.split("\n", 1)[0])
         if k:
-            c = out.setdefault(f"flash_bf16_kernel<{k.group(1)}>", {})
+            c = out.setdefault(name(k), {})
             c["HGMMA"] = part.count("HGMMA")
             c["UTMALDG"] = part.count("UTMALDG")
     return out
@@ -2041,6 +2057,10 @@ def ivf_phase(torch, ops, bounds, telemetry, ClusterEngine, Draws, cfg, paper,
              k14_args(queries, cfg.nprobe), (0, 1, 2, 8, 9),
              cfg.pq_nsub + 8)):
         ms = gpu_ms(torch, lambda: fn(*args, **kw), reps=3, warmup=1)
+        if name == "K13":   # the tile top-k part with its glue alone
+            part_ms = gpu_ms(torch, lambda: ks._launch_topk(
+                *args[:5], ks._pair_maps(*args[5:]), k, idx.block_n, True),
+                reps=3, warmup=1)
         got_full = fn(*args, **kw)
         twin_out = []
 
@@ -2082,10 +2102,16 @@ def ivf_phase(torch, ops, bounds, telemetry, ClusterEngine, Draws, cfg, paper,
                               bound_by=by, timed_queries=nq,
                               scored_rows=scored, rows_read_once=once,
                               bitwise_full_set=True)
-        print(f"{name} Q={nq} nprobe={cfg.nprobe}: {ms:.4f} ms, plain "
-              f"(chunks of 2048 queries) {plain_ms:.4f} ms, bitwise the "
-              f"kernel; bound {bms:.4f} ms ({by}; {scored:.6g} rows scored, "
-              f"{once:.6g} rows read once)")
+        if name == "K13":
+            cases[name][0].update(tile_topk_ms=part_ms,
+                                  pairs=float(act.sum()))
+        print(f"{name} Q={nq} nprobe={cfg.nprobe}: {ms:.4f} ms"
+              + (f" (the tile top-k part with its glue {part_ms:.4f} ms, "
+                 f"{float(act.sum()):.6g} (query, tile) pairs)"
+                 if name == "K13" else "")
+              + f", plain (chunks of 2048 queries) {plain_ms:.4f} ms, "
+              f"bitwise the kernel; bound {bms:.4f} ms ({by}; {scored:.6g} "
+              f"rows scored, {once:.6g} rows read once)")
         del got_full, twin_out
     torch.cuda.empty_cache()
 
@@ -2327,21 +2353,30 @@ def attention_phase(torch, ops, dense, pqc, dev, launches, profile):
         pairs = H * sum(per_row)
         itemsize = 4 if dt == torch.float32 else 2
         n_bytes = itemsize * (2 * ctx * H * hd + 2 * ctx * KH * hd)
-        bms, by = bound_ms(n_bytes, 4 * hd * pairs,
-                           FP32_FLOP_PER_S if dt == torch.float32
-                           else BF16_FLOP_PER_S)
+        # fp32: the fastest arithmetic that holds 2e-5 is 3xTF32 (one TF32
+        # product misses it), three TF32 products for each fp32 one at
+        # TF32's rate; the fp32 rate's figure is printed beside it
+        if dt == torch.float32:
+            bms, by = bound_ms(n_bytes, 3 * 4 * hd * pairs, TF32_FLOP_PER_S)
+        else:
+            bms, by = bound_ms(n_bytes, 4 * hd * pairs, BF16_FLOP_PER_S)
         c = dict(n=ctx, layer=kind, window=w, dtype=str(dt).split(".")[-1],
                  cap=cap, max_abs_err=err, ms=ms, bound_ms=bms, bound_by=by,
                  pairs=pairs, bitwise_repeat=True, library_ms=None)
+        runs_at = ""
+        if dt == torch.float32:
+            c["bound_fp32_ms"] = bound_ms(n_bytes, 4 * hd * pairs)[0]
+            runs_at = (f", the 3xTF32 products at TF32's rate; at fp32's "
+                       f"rate {c['bound_fp32_ms']:.4f} ms")
         if kind == "global":
             c["plain_ms"] = gpu_ms(torch, lambda: fa.flash_attention_torch(
                 *inputs[dt], **kw), reps=1, warmup=0)
         cases["K15"].append(c)
         print(f"K15 prefill {kind} {c['dtype']} (Sq = Skv = {ctx}, window "
               f"{w}, cap {cap}): {ms:.4f} ms, bound {bms:.4f} ms ({by}; "
-              f"{pairs} pairs), |kernel - twin| {err:.3g}, two launches "
-              f"bitwise" + (f"; plain {c['plain_ms']:.4f} ms"
-                            if "plain_ms" in c else ""))
+              f"{pairs} pairs){runs_at}, |kernel - twin| {err:.3g}, two "
+              f"launches bitwise" + (f"; plain {c['plain_ms']:.4f} ms"
+                                     if "plain_ms" in c else ""))
     lap("prefill")
     # the yardstick, cap 0 only (SDPA has no softcap): K15 at cap 0 beside
     # one SDPA call on the global layer
@@ -2361,9 +2396,12 @@ def attention_phase(torch, ops, dense, pqc, dev, launches, profile):
         if dt == torch.float32:
             check(diff <= 1e-4, f"SDPA computes another function: |K15 - "
                   f"SDPA| {diff:.3g} at cap 0")
+        bounds_ = (f"; bounds {c['bound_ms']:.4f} ms for the 3xTF32 "
+                   f"products, {c['bound_fp32_ms']:.4f} ms at fp32's rate"
+                   if dt == torch.float32 else "")
         print(f"cap 0, global, {c['dtype']}: K15 {c['ms_cap0']:.4f} ms, "
               f"scaled_dot_product_attention {c['library_ms']:.4f} ms, "
-              f"|K15 - SDPA| {diff:.3g}")
+              f"|K15 - SDPA| {diff:.3g}{bounds_}")
         del mine, lib
     lap("library")
     # the prefill's four launches: host wall against their device time
@@ -2471,20 +2509,33 @@ def main() -> int:
     print(f"build: {report['build_s']:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "ptxas info" in line and ("Used" in line or "Compiling" in line):
+            if "ptxas info" in line and ("Used" in line or "Compiling" in line
+                                         or "Performance Loss" in line):
                 print(f"  {name}: {line.strip()}")
-    # K15's bf16 kernel: no spill, and on the tensor cores fed by TMA
-    report["k15_bf16_build"] = k15_bf16_build(_build,
-                                              logs.get("flash_attention"))
-    for fn, c in report["k15_bf16_build"].items():
+    # K15's kernels: no spill, registers at entry for setmaxnreg (two
+    # consumer warpgroups raised to 232 from the producer's 40), and on the
+    # tensor cores fed by TMA; checked before any launch
+    from repro_torch.kernels import flash_attention as fa
+    report["k15_build"] = k15_build(_build, logs["flash_attention"])
+    check(sum(fn.startswith("flash_tf32") for fn in report["k15_build"])
+          == 3 and len(report["k15_build"]) == 6,
+          f"K15 instances in the SASS: {sorted(report['k15_build'])}")
+    for fn, c in sorted(report["k15_build"].items()):
+        check("registers" in c and "spill_bytes" in c,
+              f"K15 {fn}: no registers or spills in the ptxas log")
         ptxas = (f"{c['registers']} registers at entry, "
-                 f"{c['spill_bytes']} spill bytes" if "registers" in c
-                 else "not rebuilt in this run")
-        print(f"K15 bf16 {fn}: {ptxas}; SASS: {c['HGMMA']} HGMMA, "
+                 f"{c['spill_bytes']} spill bytes")
+        if fn.startswith("flash_tf32"):
+            c["smem_bytes"] = fa.tf32_smem_bytes(int(fn[-2]))
+            ptxas += f", {c['smem_bytes']} bytes of dynamic shared memory"
+        print(f"K15 {fn}: {ptxas}; SASS: {c['HGMMA']} HGMMA, "
               f"{c['UTMALDG']} UTMALDG")
         check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
-              f"K15 bf16 {fn}: no HGMMA or UTMALDG in its SASS")
-        check(c.get("spill_bytes", 0) == 0, f"K15 bf16 {fn} spills")
+              f"K15 {fn}: no HGMMA or UTMALDG in its SASS")
+        check(c["spill_bytes"] == 0, f"K15 {fn} spills")
+        check(c["registers"] >= 168,
+              f"K15 {fn}: {c['registers']} registers at entry, too few "
+              f"for setmaxnreg to raise two warpgroups to 232")
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 2")
     # 2. kernels against their plain twins

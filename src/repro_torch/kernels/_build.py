@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with nvcc for
 ``sm_90a`` into its own shared library under ``build/`` (listed in
 ``.gitignore``). The library's file name carries a hash of the source, so
-an edited kernel is rebuilt and a built one is reused. All sources compile
-at once, one nvcc process each.
+an edited kernel is rebuilt and a built one is reused. The compiler's
+output (the ptxas report) is kept beside the library, so a reused build
+reports as a fresh one; a library without it is rebuilt. All sources
+compile at once, one nvcc process each.
 
 A missing nvcc, a failed compile or a missing symbol raises
 ``KernelFailureError``.
@@ -49,14 +51,22 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def log_path(name: str) -> Path:
+    """The compiler output of the build at :func:`library_path`."""
+    return library_path(name).with_suffix(".log")
+
+
 def build_all(names=SOURCES) -> dict[str, str]:
-    """Compile every source whose library is missing, all nvcc processes
-    started together. Returns {name: compiler output} for the sources that
-    were compiled (ptxas register/shared-memory report included)."""
+    """Compile every source whose library or log is missing, all nvcc
+    processes started together. Returns {name: compiler output} for every
+    source in ``names`` (ptxas register/shared-memory report included),
+    read back from the log of an earlier build where there is one."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = [n for n in names if not library_path(n).exists()]
+    todo = [n for n in names
+            if not (library_path(n).exists() and log_path(n).exists())]
+    logs = {n: log_path(n).read_text() for n in names if n not in todo}
     if not todo:
-        return {}
+        return logs
     nvcc = toolkit_bin()
     procs = {}
     for name in todo:
@@ -65,10 +75,13 @@ def build_all(names=SOURCES) -> dict[str, str]:
         procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT,
                                              text=True))
-    logs, failed = {}, []
+    failed = []
     for name, (tmp, proc) in procs.items():
         logs[name], _ = proc.communicate()
         if proc.returncode == 0:
+            tmp_log = log_path(name).with_suffix(f".{os.getpid()}.logtmp")
+            tmp_log.write_text(logs[name])
+            os.replace(tmp_log, log_path(name))
             os.replace(tmp, library_path(name))
         else:
             tmp.unlink(missing_ok=True)

@@ -26,12 +26,42 @@
 // a tile skipped would change nothing. No atomics: two launches give the
 // same bits.
 //
-// fp32 (flash_kernel): on the CUDA cores. One block of 256 threads takes
-// 64 query rows of one (b, h), warp w rows 8w .. 8w+7, keys in tiles of
-// 32, one per lane; the accumulator in registers (lane l of warp w holds
-// dims l, l+32, ..); the query, key (odd row stride), value and p tiles in
-// shared memory (139,392 bytes at hd 256). A lane's score is an fmaf chain
-// over d; row max and sum are xor-butterfly shuffles.
+// fp32 (tf32k::flash_tf32_kernel): on the tensor cores in split TF32
+// (3xTF32). Every fp32 operand x is split into hi = tf32(x) and lo =
+// tf32(x - hi) (cvt.rna: round to nearest, ties away), so hi + lo keeps
+// about 22 of x's 24 bits, and a product runs as three TF32 wgmma
+// products into one fp32 accumulator:
+//   S = Qh Kh^T + Qh Kl^T + Ql Kh^T,   O += Ph Vh + Ph Vl + Pl Vh
+// (the lo.lo term is below fp32's rounding of the sum). That executes
+// 3 * 4*hd flops a pair at TF32's 495 TFLOP/s: 1.67 ms on the global
+// layer at peak. TF32 wgmma takes both operands K-major, and for P.V the
+// K dimension is the keys, so V must reach shared memory keys-contiguous,
+// which TMA cannot do for 4-byte elements. A pre-pass (split_rows,
+// split_vt) therefore writes the hi and lo planes of q and k, zero-padded
+// to 64, 128 or 256 columns, and of V transposed to (hd, keys), into
+// scratch the wrapper allocates; within each group of 8 keys the V copy
+// stores key 2s at slot s and key 2s + 1 at slot s + 4, so that P's
+// TF32 A fragment (rows g, g + 8; k-slots t, t + 4) is S's accumulator
+// fragment (columns 2t, 2t + 1) with no shuffle. A block of 384 threads
+// takes 64 query rows of one (b, h) (the hi and lo Q planes take 128 KB
+// at hd 256, so one 64-row tile is all that fits): warpgroup 2 loads
+// (one thread issues TMA), warpgroups 0 and 1 compute, each over every
+// other key tile of 64 keys with its own m, l and O, so one warpgroup's
+// softmax runs while the other's products keep the tensor cores busy;
+// at the end they merge (m, l, O) through shared memory in a fixed order.
+// Each consumer has a ring of its own (3 stages of 16 KB at hd 256: Q 128
+// KB + 96 KB), each stage the hi and lo planes of one 64 x 32 fp32
+// sub-tile with a "full" and an "empty" mbarrier: a tile's K in sub-tiles
+// of 32 head dims, then its V in sub-tiles of 64 output dims x 32 keys.
+// One ring shared by both consumers would not do: a consumer could wait on
+// a stage by parity while the previous lap's load into it, for the other
+// consumer, is still in flight (TMA completions are not ordered), and
+// pass early. S(64 x 64) is hd / 8 x 3 m64n64k8 products from shared
+// memory; O += P V is 8 x 3 m64n64k8 products a chunk of 64 output
+// columns, A (P's halves) in registers. The softmax is the fp32 one above
+// (accurate tanhf, the mask only on tiles that straddle the band's edge,
+// p as e^x computed as ex2(x log2 e)). setmaxnreg gives the producer's
+// registers to the consumers (40 / 232).
 //
 // bf16 (flash_bf16_kernel): on the tensor cores, fed by TMA. P.V runs as
 // P_hi.V + P_lo.V with p_hi = bf16(p), p_lo = bf16(p - p_hi): one bf16 p
@@ -70,28 +100,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 8;                 // query rows per warp
-constexpr int kBQ = kWarps * kRows;      // 64 query rows per block
-constexpr int kBK = 32;                  // keys per tile, one per lane
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 struct Args {
   const void* q;
   const void* k;
@@ -101,152 +109,7 @@ struct Args {
   float cap, scale;
 };
 
-// dynamic shared memory of one block, in floats
-__host__ __device__ inline int smem_floats(int hd) {
-  return kBQ * hd + kBK * (hd | 1) + kBK * hd + kWarps * kBK * kRows;
-}
-
-template <typename T, int kDpt>
-__global__ void __launch_bounds__(kThreads) flash_kernel(Args a) {
-  extern __shared__ float smem[];
-  const int hd = a.hd, ks = hd | 1;
-  float* qs = smem;                // (kBQ, hd)
-  float* kt = qs + kBQ * hd;       // (kBK, ks)
-  float* vs = kt + kBK * ks;       // (kBK, hd)
-  float* ps = vs + kBK * hd;       // (kWarps, kBK, kRows)
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  T* o = static_cast<T*>(a.o);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (a.H / a.KH);
-  const int q0 = blockIdx.x * kBQ;
-
-  for (int i = tid; i < kBQ * hd; i += kThreads) {
-    const int r = i / hd, d = i % hd;
-    qs[i] = q0 + r < a.Sq
-                ? load_f(q + (((size_t)b * a.Sq + q0 + r) * a.H + h) * hd + d)
-                : 0.f;
-  }
-  float m[kRows], l[kRows], acc[kRows][kDpt];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kDpt; ++j) acc[i][j] = 0.f;
-  }
-
-  // the key tiles that meet this query tile's band
-  const int qp0 = a.q_offset + q0;
-  const int qp1 = a.q_offset + min(q0 + kBQ, a.Sq) - 1;
-  int lo = 0, hi = a.Skv;
-  if (a.window > 0) lo = max(lo, qp0 - a.window + 1);
-  if (a.causal) hi = min(hi, qp1 + 1);
-  const int t0 = lo / kBK;
-  const int t1 = hi > lo ? (hi + kBK - 1) / kBK : t0;
-
-  float* pw = ps + warp * kBK * kRows;
-  for (int t = t0; t < t1; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();  // the previous tile is read (and the query staged)
-    for (int i = tid; i < kBK * hd; i += kThreads) {
-      const int r = i / hd, d = i % hd;
-      const bool in = k0 + r < a.Skv;
-      const size_t at = (((size_t)b * a.Skv + k0 + r) * a.KH + kvh) * hd + d;
-      kt[r * ks + d] = in ? load_f(k + at) : 0.f;
-      vs[r * hd + d] = in ? load_f(v + at) : 0.f;
-    }
-    __syncthreads();
-
-    float s[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) s[i] = 0.f;
-    const float* krow = kt + lane * ks;
-    const float* qrow = qs + warp * kRows * hd;
-    for (int d = 0; d < hd; ++d) {
-      const float kv = krow[d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) s[i] = fmaf(qrow[i * hd + d], kv, s[i]);
-    }
-
-    const int kp = k0 + lane;
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = q0 + warp * kRows + i;
-      const int qp = a.q_offset + r;
-      bool valid = kp < a.Skv && r < a.Sq;
-      if (a.causal) valid = valid && kp <= qp;
-      if (a.window > 0) valid = valid && kp > qp - a.window;
-      float x = s[i] * a.scale;
-      if (a.cap > 0.f) x = a.cap * tanhf(x / a.cap);
-      x = valid ? x : kNegInf;
-      const float m_new = fmaxf(m[i], warp_max(x));
-      const float p = valid ? expf(x - m_new) : 0.f;
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + warp_sum(p);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kDpt; ++j) acc[i][j] *= corr;
-      pw[lane * kRows + i] = p;
-    }
-    __syncwarp();
-
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pv[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = pw[kk * kRows + i];
-#pragma unroll
-      for (int j = 0; j < kDpt; ++j) {
-        const int d = lane + 32 * j;
-        const float vv = d < hd ? vs[kk * hd + d] : 0.f;
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-      }
-    }
-    __syncwarp();  // the p tile is read before the next tile rewrites it
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = q0 + warp * kRows + i;
-    if (r >= a.Sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < kDpt; ++j) {
-      const int d = lane + 32 * j;
-      if (d < hd)
-        store_f(o + (((size_t)b * a.Sq + r) * a.H + h) * hd + d,
-                acc[i][j] / den);
-    }
-  }
-}
-
-template <typename T, int kDpt>
-cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(a.hd);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, kDpt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, B);
-  flash_kernel<T, kDpt><<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(const Args& a, int B, cudaStream_t stream) {
-  const int dpt = (a.hd + 31) / 32;
-  if (dpt <= 1) return launch<T, 1>(a, B, stream);
-  if (dpt <= 2) return launch<T, 2>(a, B, stream);
-  if (dpt <= 4) return launch<T, 4>(a, B, stream);
-  if (dpt <= 8) return launch<T, 8>(a, B, stream);
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
-
 
 namespace bf16k {
 
@@ -778,17 +641,551 @@ cudaError_t dispatch(const Args& a, int B, cudaStream_t stream) {
 
 }  // namespace bf16k
 
+
+namespace tf32k {
+
+using bf16k::bar_arrive;
+using bf16k::bar_expect_tx;
+using bf16k::bar_init;
+using bf16k::bar_wait;
+using bf16k::encoder;
+using bf16k::EncodeTiled;
+using bf16k::ex2;
+using bf16k::fence_regs;
+using bf16k::sw128_desc;
+using bf16k::tma_load;
+using bf16k::wg_commit;
+using bf16k::wg_fence;
+using bf16k::wg_wait;
+
+constexpr int kBQ = 64;           // query rows a block, both consumers'
+constexpr int kBK = 64;           // keys a tile
+constexpr int kThreads = 384;     // warpgroups 0, 1 compute, 2 loads
+constexpr int kConsumer = 128;    // threads of a consumer warpgroup
+constexpr int kCols = 32;         // fp32 columns of one 128-byte swizzled row
+constexpr int kSub = 64 * 128;    // 64 rows x 128 bytes
+constexpr int kStage = 2 * kSub;  // a ring stage: a sub-tile's hi and lo
+constexpr int kSmemMax = 232448;
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// shared memory, byte offsets from a 1024-aligned base: the Q tile (hi
+// plane, then lo plane, 2 kC sub-tiles of 32 columns each), two rings of R
+// stages (one per consumer warpgroup), then the barriers: q_full, full[2R],
+// empty[2R]
+template <int kC>
+struct Smem {
+  static constexpr int q_bytes = 2 * 2 * kC * kSub;
+  static constexpr int ring_off = q_bytes;
+  static constexpr int R = (kSmemMax - 1280 - q_bytes) / (2 * kStage);
+  static constexpr int bar_off = ring_off + 2 * R * kStage;
+  static constexpr int bytes = bar_off + 8 * (1 + 4 * R) + 1024;
+  static_assert(R >= 2 && bytes <= kSmemMax, "shared memory");
+};
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// S = A B (the first product of a tile: the accumulator is only written),
+// m64n64k8, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[32], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+        "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]),
+        "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// S += A B, m64n64k8, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// O += A B, m64n64k8, A in registers, B K-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// hi and lo planes of rows (rows, hd) into out (2, rows, hdp), zeros past hd
+__global__ void split_rows(const float* x, float* out, size_t rows, int hd,
+                           int hdp) {
+  const size_t n = rows * hdp;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t r = i / hdp;
+    const int c = static_cast<int>(i - r * hdp);
+    const float v = c < hd ? x[r * hd + c] : 0.f;
+    const uint32_t hi = to_tf32(v);
+    out[i] = __uint_as_float(hi);
+    out[n + i] = __uint_as_float(to_tf32(v - __uint_as_float(hi)));
+  }
+}
+
+// V (B, Skv, KH, hd) into hi and lo planes (2, B, KH, hdp, Sp): the key
+// axis contiguous, key 8g + 2s at slot 8g + s and 8g + 2s + 1 at slot
+// 8g + s + 4 (s < 4), zeros past Skv and hd. A block transposes 32 keys x
+// 32 dims through shared memory.
+__global__ void split_vt(const float* v, float* out, int B, int Skv, int KH,
+                         int hd, int hdp, int Sp) {
+  __shared__ float tile[32][33];
+  const int k0 = blockIdx.x * 32, d0 = blockIdx.y * 32;
+  const int b = blockIdx.z / KH, kvh = blockIdx.z % KH;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  for (int r = ty; r < 32; r += 8) {
+    const int key = k0 + r, d = d0 + tx;
+    tile[r][tx] = key < Skv && d < hd
+                      ? v[((static_cast<size_t>(b) * Skv + key) * KH + kvh)
+                          * hd + d]
+                      : 0.f;
+  }
+  __syncthreads();
+  const int s = tx & 7;
+  const int key = (tx & ~7) + (s < 4 ? 2 * s : 2 * (s - 4) + 1);
+  const size_t plane = static_cast<size_t>(B) * KH * hdp * Sp;
+  for (int r = ty; r < 32; r += 8) {
+    const float x = tile[key][r];
+    const size_t at =
+        ((static_cast<size_t>(b) * KH + kvh) * hdp + d0 + r) * Sp + k0 + tx;
+    const uint32_t hi = to_tf32(x);
+    out[at] = __uint_as_float(hi);
+    out[plane + at] = __uint_as_float(to_tf32(x - __uint_as_float(hi)));
+  }
+}
+
+// kC = hdp / 64 chunks of 64 head dims
+template <int kC>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_tf32_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap, Args a) {
+  using L = Smem<kC>;
+  constexpr int R = L::R;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t q_s = base, ring = base + L::ring_off;
+  const uint32_t q_full = base + L::bar_off;
+  const uint32_t full = q_full + 8, empty = full + 8 * 2 * R;
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  // the grid is (head, batch, query tile), the query tiles in reverse:
+  // under causality every head's heaviest tiles start first
+  const int h = blockIdx.x, b = blockIdx.y, B = gridDim.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;
+  const int kvh = h / (a.H / a.KH);
+  // the key tiles that meet this query tile's band
+  const int qp0 = a.q_offset + q0;
+  const int qp1 = a.q_offset + min(q0 + kBQ, a.Sq) - 1;
+  int lo = 0, hi = a.Skv;
+  if (a.window > 0) lo = max(lo, qp0 - a.window + 1);
+  if (a.causal) hi = min(hi, qp1 + 1);
+  const int t0 = lo / kBK;
+  const int n = hi > lo ? (hi + kBK - 1) / kBK - t0 : 0;
+
+  if (tid == 0) {
+    bar_init(q_full, 1);
+    for (int s = 0; s < 2 * R; ++s) {
+      bar_init(full + 8 * s, 1);
+      bar_init(empty + 8 * s, kConsumer);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // the producer: one thread keeps the ring full, in stream order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (tid == 2 * 128) {
+      bar_expect_tx(q_full, L::q_bytes);
+      for (int p = 0; p < 2; ++p)
+        for (int j = 0; j < 2 * kC; ++j)
+          tma_load(q_s + (p * 2 * kC + j) * kSub, &qmap, q_full, j * kCols,
+                   h, q0, p * B + b);
+      // tile i goes to ring i % 2; a tile's stages: K sub-tiles of 32
+      // columns j < 2 kC, then V stage j - 2 kC = (64-column chunk c, half
+      // of the keys h) as 2c + h; the two tiles of a pair alternate
+      int pos[2] = {0, 0};
+      for (int i = 0; i < n; i += 2)
+        for (int j = 0; j < 4 * kC; ++j)
+          for (int ii = i; ii < min(i + 2, n); ++ii) {
+            const int w = ii & 1, s = w * R + pos[w] % R;
+            bar_wait(empty + 8 * s, ((pos[w] / R) & 1) ^ 1);
+            ++pos[w];
+            bar_expect_tx(full + 8 * s, kStage);
+            const uint32_t dst = ring + s * kStage;
+            const int t = t0 + ii;
+            for (int p = 0; p < 2; ++p) {
+              if (j < 2 * kC)
+                tma_load(dst + p * kSub, &kmap, full + 8 * s, j * kCols, kvh,
+                         t * kBK, p * B + b);
+              else
+                tma_load(dst + p * kSub, &vmap, full + 8 * s,
+                         t * kBK + ((j - 2 * kC) & 1) * kCols,
+                         64 * ((j - 2 * kC) >> 1), kvh, p * B + b);
+            }
+          }
+    }
+  } else {
+    // a consumer warpgroup: the block's 64 rows over key tiles wg, wg + 2,
+    // ... Thread (warp w, lane) holds rows 16w + lane/4 and 16w + lane/4 +
+    // 8, and of each 8-column block n columns 8n + 2(lane%4) + {0, 1}:
+    // element i of a fragment is row half (i >> 1) & 1, column 8(i / 4) +
+    // 2(lane%4) + (i & 1) (wgmma's accumulator layout).
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+    const int warp = (tid % 128) / 32, lane = tid % 32, tq = lane % 4;
+    const int row0 = q0 + warp * 16 + lane / 4;   // and row0 + 8
+    const int qpos0 = a.q_offset + row0;
+    const int wq0 = a.q_offset + q0, wq1 = wq0 + kBQ - 1;
+    const float pre = a.cap > 0.f ? a.scale / a.cap : a.scale;
+    float o[kC][32];
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) o[c][e] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    float sc[32];
+    uint32_t ph[32], pl[32];
+
+    // S (+)= Q K^T over sub-tile j, 32 head dims: 4 steps of 8 columns.
+    // The Q tile's address comes through an opaque move each call, so that
+    // nvcc does not hoist the Q descriptors out of the loop and hold them
+    // in registers (which serializes the wgmma pipeline)
+    const auto issue_s = [&](uint32_t st, int j) {
+      uint32_t qb;
+      asm volatile("mov.b32 %0, %1;" : "=r"(qb) : "r"(q_s));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t qa = qb + j * kSub + kk * 32;
+        const uint64_t qh = sw128_desc(qa, 16, 1024);
+        const uint64_t ql = sw128_desc(qa + 2 * kC * kSub, 16, 1024);
+        const uint64_t kh = sw128_desc(st + kk * 32, 16, 1024);
+        const uint64_t kl = sw128_desc(st + kSub + kk * 32, 16, 1024);
+        if (j == 0 && kk == 0) wgmma_ss_first(sc, qh, kh);
+        else wgmma_ss(sc, qh, kh);
+        wgmma_ss(sc, qh, kl);
+        wgmma_ss(sc, ql, kh);
+      }
+    };
+    // O[:, 64c .. 64c + 63] += P V over the keys' half h: 4 steps of 8
+    const auto issue_pv = [&](uint32_t st, int h, float (&oc)[32]) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t vh = sw128_desc(st + kk * 32, 16, 1024);
+        const uint64_t vl = sw128_desc(st + kSub + kk * 32, 16, 1024);
+        wgmma_rs(oc, ph + 4 * (4 * h + kk), vh);
+        wgmma_rs(oc, ph + 4 * (4 * h + kk), vl);
+        wgmma_rs(oc, pl + 4 * (4 * h + kk), vh);
+      }
+    };
+    // the tile's scores to p (in place, fp32), the row max over the quad's
+    // 4 lanes, the rescale factor and this thread's share of the row sums
+    const auto softmax = [&](int k0, float (&corr)[2], float (&sum)[2]) {
+      if (a.cap > 0.f) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) sc[e] = a.cap * tanhf(sc[e] * pre);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) sc[e] *= pre;
+      }
+      uint32_t valid = 0xffffffffu;   // bit e for element e
+      if (k0 + kBK > a.Skv || (a.causal && k0 + kBK - 1 > wq0)
+          || (a.window > 0 && k0 <= wq1 - a.window)) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int kp = k0 + (e / 4) * 8 + 2 * tq + (e & 1);
+          const int qp = qpos0 + ((e >> 1) & 1) * 8;
+          bool ok = kp < a.Skv;
+          if (a.causal) ok = ok && kp <= qp;
+          if (a.window > 0) ok = ok && kp > qp - a.window;
+          if (!ok) {
+            valid &= ~(1u << e);
+            sc[e] = kNegInf;
+          }
+        }
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = ex2((m[r] - mx[r]) * kLog2e);
+        m[r] = mx[r];
+        sum[r] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        sc[e] = (valid >> e) & 1 ? ex2((sc[e] - m[(e >> 1) & 1]) * kLog2e)
+                                 : 0.f;
+        sum[(e >> 1) & 1] += sc[e];
+      }
+    };
+    // rescale O (a warp skips it when no row's max moved: o * 1 == o)
+    const auto rescale = [&](const float (&corr)[2], const float (&sum)[2]) {
+      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+        for (int c = 0; c < kC; ++c)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) o[c][e] *= corr[(e >> 1) & 1];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+    };
+    // p's TF32 halves in the A fragment layout: register 4kk + {0, 1, 2,
+    // 3} of k-step kk is elements 4kk + {0, 2, 1, 3} of S's fragment (the
+    // V copy's slot order)
+    const auto split = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int from[4] = {4 * kk, 4 * kk + 2, 4 * kk + 1, 4 * kk + 3};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t h_ = to_tf32(sc[from[e]]);
+          ph[4 * kk + e] = h_;
+          pl[4 * kk + e] = to_tf32(sc[from[e]] - __uint_as_float(h_));
+        }
+      }
+    };
+
+    // this warpgroup's ring, consumed in order: stage x at slot x % R
+    const uint32_t ring_w = ring + wg * R * kStage;
+    const uint32_t full_w = full + 8 * wg * R, empty_w = empty + 8 * wg * R;
+    int x = 0;
+    const auto acquire = [&]() {
+      bar_wait(full_w + 8 * (x % R), (x / R) & 1);
+      return ring_w + (x % R) * kStage;
+    };
+    const auto release = [&](int y) { bar_arrive(empty_w + 8 * (y % R)); };
+    bar_wait(q_full, 0);
+    for (int i = wg; i < n; i += 2) {
+      // S over the 2 kC sub-tiles of K, one group each; a stage is released
+      // once the group after it is issued and it is complete
+#pragma unroll
+      for (int j = 0; j < 2 * kC; ++j, ++x) {
+        const uint32_t st = acquire();
+        wg_fence();
+        issue_s(st, j);
+        wg_commit();
+        if (j > 0) {
+          wg_wait<1>();
+          release(x - 1);
+        }
+      }
+      wg_wait<0>();
+      fence_regs(sc);
+      release(x - 1);
+      float corr[2], sum[2];
+      softmax((t0 + i) * kBK, corr, sum);
+      rescale(corr, sum);
+      split();
+#pragma unroll
+      for (int j = 0; j < 2 * kC; ++j, ++x) {
+        const uint32_t st = acquire();
+        wg_fence();
+        issue_pv(st, j & 1, o[j >> 1]);
+        wg_commit();
+        if (j > 0) {
+          wg_wait<1>();
+          release(x - 1);
+        }
+      }
+      wg_wait<0>();
+#pragma unroll
+      for (int c = 0; c < kC; ++c) fence_regs(o[c]);
+      release(x - 1);
+    }
+
+    // l over the quad (every lane the same bits); then warpgroup 1 hands
+    // (m, l, O) to warpgroup 0 through the Q tile's space, fragment by
+    // fragment, and warpgroup 0 merges and stores
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    float* xo = reinterpret_cast<float*>(smem_raw + (base - raw));
+    const int ct = tid % 128;
+    asm volatile("bar.sync 1, 256;" ::: "memory");   // Q and the ring read
+    if (wg == 1) {
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) xo[(c * 32 + e) * kConsumer + ct] = o[c][e];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        xo[(kC * 32 + r) * kConsumer + ct] = m[r];
+        xo[(kC * 32 + 2 + r) * kConsumer + ct] = l[r];
+      }
+    }
+    asm volatile("bar.sync 1, 256;" ::: "memory");
+    if (wg == 0) {
+      float* out = static_cast<float*>(a.o);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m1 = xo[(kC * 32 + r) * kConsumer + ct];
+        const float l1 = xo[(kC * 32 + 2 + r) * kConsumer + ct];
+        const float mm = fmaxf(m[r], m1);
+        const float c0 = ex2((m[r] - mm) * kLog2e);
+        const float c1 = ex2((m1 - mm) * kLog2e);
+        const float den = fmaxf(l[r] * c0 + l1 * c1, 1e-30f);
+        const int row = row0 + 8 * r;
+        if (row >= a.Sq) continue;
+        float* orow =
+            out + ((static_cast<size_t>(b) * a.Sq + row) * a.H + h) * a.hd;
+#pragma unroll
+        for (int c = 0; c < kC; ++c)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              const int e = 4 * j + 2 * r + x;
+              const int col = 64 * c + 8 * j + 2 * tq + x;
+              if (col < a.hd)
+                orow[col] = (o[c][e] * c0
+                             + xo[(c * 32 + e) * kConsumer + ct] * c1) / den;
+            }
+      }
+    }
+  }
+}
+
+// a 4-D fp32 tensor of extents dims (innermost first), boxes of 32 x box1
+// x box2 x 1 elements, 128-byte swizzle, zeros outside the tensor
+bool encode(EncodeTiled enc, CUtensorMap* map, const void* p,
+            const cuuint64_t (&dims)[4], cuuint32_t box1, cuuint32_t box2) {
+  const cuuint64_t strides[3] = {4 * dims[0], 4 * dims[0] * dims[1],
+                                 4 * dims[0] * dims[1] * dims[2]};
+  const cuuint32_t box[4] = {kCols, box1, box2, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(p),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int kC>
+cudaError_t launch(const Args& a, int B, const float* qs, const float* ks,
+                   const float* vs, int hdp, int Sp, cudaStream_t stream) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+  // with no keys no K/V tile is loaded (and a map cannot have a 0 extent)
+  CUtensorMap qm, km = {}, vm = {};
+  const cuuint64_t qd[4] = {static_cast<cuuint64_t>(hdp),
+                            static_cast<cuuint64_t>(a.H),
+                            static_cast<cuuint64_t>(a.Sq),
+                            static_cast<cuuint64_t>(2 * B)};
+  const cuuint64_t kd[4] = {static_cast<cuuint64_t>(hdp),
+                            static_cast<cuuint64_t>(a.KH),
+                            static_cast<cuuint64_t>(a.Skv),
+                            static_cast<cuuint64_t>(2 * B)};
+  const cuuint64_t vd[4] = {static_cast<cuuint64_t>(Sp),
+                            static_cast<cuuint64_t>(hdp),
+                            static_cast<cuuint64_t>(a.KH),
+                            static_cast<cuuint64_t>(2 * B)};
+  if (!encode(enc, &qm, qs, qd, 1, kBQ)
+      || (a.Skv > 0 && (!encode(enc, &km, ks, kd, 1, kBK)
+                        || !encode(enc, &vm, vs, vd, 64, 1))))
+    return cudaErrorInvalidValue;
+  const int smem = Smem<kC>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_tf32_kernel<kC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.H, B, (a.Sq + kBQ - 1) / kBQ);
+  flash_tf32_kernel<kC><<<grid, kThreads, smem, stream>>>(qm, km, vm, a);
+  return cudaGetLastError();
+}
+
+// the hi/lo pre-pass into `scratch` (2 (B Sq H + B Skv KH) hdp + 2 B KH hdp
+// Sp floats; hdp 64, 128 or 256, Sp rounded up to 64), then the kernel. A
+// head dim past 128 takes the 4-chunk kernel: the 3-chunk one spilled
+cudaError_t dispatch(const Args& a, int B, float* scratch,
+                     size_t scratch_bytes, cudaStream_t stream) {
+  const int hdp = a.hd <= 64 ? 64 : a.hd <= 128 ? 128 : 256;
+  const int Sp = (a.Skv + 63) / 64 * 64;
+  const size_t nq = static_cast<size_t>(B) * a.Sq * a.H * hdp;
+  const size_t nk = static_cast<size_t>(B) * a.Skv * a.KH * hdp;
+  const size_t nv = static_cast<size_t>(B) * a.KH * hdp * Sp;
+  if (a.hd > 256 || scratch == nullptr
+      || scratch_bytes < 2 * sizeof(float) * (nq + nk + nv))
+    return cudaErrorInvalidValue;
+  float* qs = scratch;
+  float* ks = qs + 2 * nq;
+  float* vs = ks + 2 * nk;
+  split_rows<<<1024, 256, 0, stream>>>(static_cast<const float*>(a.q), qs,
+                                       static_cast<size_t>(B) * a.Sq * a.H,
+                                       a.hd, hdp);
+  if (a.Skv > 0) {
+    split_rows<<<1024, 256, 0, stream>>>(static_cast<const float*>(a.k), ks,
+                                         static_cast<size_t>(B) * a.Skv * a.KH,
+                                         a.hd, hdp);
+    split_vt<<<dim3(Sp / 32, hdp / 32, B * a.KH), dim3(32, 8), 0, stream>>>(
+        static_cast<const float*>(a.v), vs, B, a.Skv, a.KH, a.hd, hdp, Sp);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (hdp == 64) return launch<1>(a, B, qs, ks, vs, hdp, Sp, stream);
+  if (hdp == 128) return launch<2>(a, B, qs, ks, vs, hdp, Sp, stream);
+  return launch<4>(a, B, qs, ks, vs, hdp, Sp, stream);
+}
+
+}  // namespace tf32k
+
 // q/o (B, Sq, H, hd), k/v (B, Skv, KH, hd), all fp32 or all bf16
 // (bf16 != 0), contiguous; hd <= 256, and for bf16 a multiple of 8 with
-// 16-byte aligned pointers. Returns the launch's CUDA error.
+// 16-byte aligned pointers; fp32 takes `scratch` for its hi/lo pre-pass
+// (tf32k::dispatch gives its size). Returns the launch's CUDA error.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
                                       int Skv, int H, int KH, int hd,
                                       int causal, float cap, float scale,
                                       int window, int q_offset, int bf16,
+                                      void* scratch, size_t scratch_bytes,
                                       void* stream) {
   Args a{q, k, v, o, Sq, Skv, H, KH, hd, causal, window, q_offset, cap, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(bf16 ? bf16k::dispatch(a, B, st)
-                               : dispatch<float>(a, B, st));
+  return static_cast<int>(
+      bf16 ? bf16k::dispatch(a, B, st)
+           : tf32k::dispatch(a, B, static_cast<float*>(scratch),
+                             scratch_bytes, st));
 }

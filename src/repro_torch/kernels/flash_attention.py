@@ -18,19 +18,26 @@ kernels (``csrc/flash_attention.cu``) tile by their own constants (the TPU
 default of 512 rows at hd 256 is a 512 KiB fp32 accumulator, far past
 Hopper's 227 KB of shared memory and 255 registers a thread) and visit
 only the key tiles that meet their query tile's band, the work the TPU
-kernel's skip leaves. fp32 runs on the CUDA cores (64 query rows × 32
-keys); bf16 on the tensor cores (``wgmma``, 128 query rows × 64 keys, TMA
-loads), with P·V as bf16(p)·V + bf16(p − bf16(p))·V so that p keeps about
-16 bits, as the fp32 reference's tolerance needs. The sums run in another
-order than the twin's matmuls, so kernel and twin agree to a stated
-tolerance; two launches give the same bits.
+kernel's skip leaves. Both run on the tensor cores (``wgmma`` fed by a
+TMA ring). bf16 takes 128 query rows × 64 keys, with P·V as bf16(p)·V +
+bf16(p − bf16(p))·V so that p keeps about 16 bits, as the fp32
+reference's tolerance needs. fp32 takes 64 query rows × 64 keys in split
+TF32 (3xTF32): each operand x as tf32(x) + tf32(x − tf32(x)), each
+product as three TF32 products (hi·hi + hi·lo + lo·hi) into an fp32
+accumulator, which keeps about 22 of fp32's 24 bits. The sums run in
+another order than the twin's matmuls, so kernel and twin agree to a
+stated tolerance; two launches give the same bits.
 
 The wrapper launches a kernel for tensors on the card and runs the twin
 only for tensors on the CPU; both take head_dim up to
 :data:`MAX_HEAD_DIM`. TMA needs 16-byte strides and addresses: for a bf16
 head_dim that is no multiple of 8 (or a misaligned tensor) the wrapper
 zero-pads the head dim into a copy, which changes nothing (zero columns
-add nothing to q·k, and the output columns they make are dropped).
+add nothing to q·k, and the output columns they make are dropped). The
+fp32 kernel's pre-pass writes such a copy itself: the hi and lo planes of
+q, k and of V transposed (TF32 ``wgmma`` takes both operands K-major, so
+V's keys must be contiguous), the head dim zero-padded to 64, 128 or
+256, into scratch the wrapper allocates (:func:`tf32_scratch_floats`).
 Launches count under ``flash_attention`` (fp32) and
 ``flash_attention_bf16``.
 """
@@ -44,10 +51,11 @@ from repro_torch.core.guards import InvalidInputError, KernelFailureError
 from repro_torch.kernels import _build, ops
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 256   # fp32: 32 lanes × 8 dims a lane; bf16: wgmma's widest N
+MAX_HEAD_DIM = 256   # wgmma's widest N (bf16); four 64-column chunks (fp32)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_P,) * 4 + (_I,) * 7 + (ctypes.c_float,) * 2 + (_I,) * 3 + (_P,)
+_ARGTYPES = ((_P,) * 4 + (_I,) * 7 + (ctypes.c_float,) * 2 + (_I,) * 3
+             + (_P, ctypes.c_size_t, _P))
 
 
 # ---------------------------------------------------------------------------
@@ -203,18 +211,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q, k, v = (torch.nn.functional.pad(t, (0, width - hd))
                    for t in (q, k, v))
     out = torch.empty((B, Sq, H, width), dtype=q.dtype, device=q.device)
+    scratch = (None if bf16 else torch.empty(
+        tf32_scratch_floats(B, Sq, Skv, H, KH, hd), device=q.device))
     fn = _build.function("flash_attention", "flash_attention_launch",
                          _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
                  Sq, Skv, H, KH, width, int(causal), float(cap), hd ** -0.5,
-                 int(window), int(q_offset), int(bf16), stream)
+                 int(window), int(q_offset), int(bf16),
+                 None if bf16 else scratch.data_ptr(),
+                 0 if bf16 else 4 * scratch.numel(), stream)
     if err != 0:
         raise KernelFailureError(
             f"flash_attention launch failed: cudaError {err}")
     ops.LAUNCHES["flash_attention_bf16" if bf16 else "flash_attention"] += 1
     return out if width == hd else out[..., :hd].contiguous()
+
+
+def tf32_scratch_floats(B: int, Sq: int, Skv: int, H: int, KH: int,
+                        hd: int) -> int:
+    """fp32 scratch of the fp32 kernel's pre-pass: hi and lo planes of q
+    (B, Sq, H, hdp), k (B, Skv, KH, hdp) and V transposed (B, KH, hdp, Sp),
+    hdp the head dim rounded up to 64, 128 or 256 and Sp the keys rounded
+    up to 64 (``tf32k::dispatch``)."""
+    hdp = 64 if hd <= 64 else 128 if hd <= 128 else 256
+    sp = -(-Skv // 64) * 64
+    return 2 * hdp * (B * Sq * H + B * Skv * KH + B * KH * sp)
+
+
+def tf32_smem_bytes(chunks: int) -> int:
+    """Dynamic shared memory of one block of the fp32 kernel at ``chunks``
+    = hdp / 64 (``tf32k::Smem``): the hi and lo planes of the 64-row Q
+    tile, two rings (one per consumer warpgroup) of as many 16 KB stages
+    as fit Hopper's 232,448 bytes, the mbarriers, and 1 KB of slack for
+    the 1024-byte alignment."""
+    q_bytes = 2 * 2 * chunks * 8192
+    ring = (232_448 - 1280 - q_bytes) // 32_768
+    return q_bytes + 2 * ring * 16_384 + 8 * (1 + 4 * ring) + 1024
 
 
 def hbm_bytes_model(B: int, Sq: int, Skv: int, H: int, KH: int, hd: int,

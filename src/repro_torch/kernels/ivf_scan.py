@@ -27,10 +27,21 @@ sum adds in ascending sub-space order. So the scan at ``nprobe == nlist``
 is the oracle bitwise, and the twins follow the kernels' bits wherever
 the card's ``addcmul`` rounds as ``fmaf``.
 
-Each wrapper launches its CUDA kernel (``csrc/ivf_scan.cu``) for tensors on
-the card and runs its twin (``*_torch``) only for tensors on the CPU. Both
-take at most the k that one block's shared memory holds
-(:func:`max_k`) and raise ``InvalidInputError`` naming that limit above it.
+Each wrapper launches its CUDA kernels (``csrc/ivf_scan.cu``) for tensors
+on the card and runs its twin (``*_torch``) only for tensors on the CPU.
+K14 runs one block per query. K13 runs tile-major, in two parts that
+together give the walk's bits: (a) every (query, step) pair's top-k of its
+tile, the pairs grouped by tile so that a block reads a tile's rows once
+for up to 64 queries (plain :func:`tile_topk_torch`), then (b) each
+query's walk over its steps, the gate against the carried k-th key and
+the merge of the step's top-k (plain :func:`replay_torch`). A tile's
+top-k merged gives the same top-k as all its rows. Part (a)'s output
+takes 8k bytes a pair; when the card has not the memory for every
+query's pairs, K13 runs over consecutive groups of queries that fit
+(:func:`query_groups`), which gives the same bits, since queries are
+independent. Both wrappers take at most the k that a block's shared
+memory holds (:func:`max_k`) and raise ``InvalidInputError`` naming that
+limit above it.
 """
 from __future__ import annotations
 
@@ -48,29 +59,49 @@ from repro_torch.kernels import _build, ops
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_SCAN_ARGTYPES = (_P,) * 10 + (_I,) * 7 + (_F,) * 2 + (_P,)
+_TOPK_ARGTYPES = (_P,) * 14 + (_I,) * 7 + (_F, _I, _P)
+_REPLAY_ARGTYPES = (_P,) * 9 + (_I,) * 3 + (_F, _P)
 _ADC_ARGTYPES = (_P,) * 13 + (_I,) * 10 + (_F,) * 2 + (_P,)
+# pairs a block of K13's part (a) takes (csrc/ivf_scan.cu: kPairs)
+CHUNK = 64
+# device bytes a (query, step) pair takes in K13 beside its top-k: its two
+# gate terms and the glue's maps (the pair's int64 indices, tile and
+# stable sort, its int32 copies)
+PAIR_BYTES = 96
 # the gate's fp32 constants, as the reference rounds them
 _REL1 = float(np.float32(1.0 + bounds._REL))
 _ABS = float(np.float32(bounds._ABS))
-# the kernel's static shared memory: its three __shared__ scalars (n_cand,
+# K14's static shared memory: its three __shared__ scalars (n_cand,
 # skip_flag, qn_s), which ptxas rounds to 16 bytes
 STATIC_SMEM = 16
 
 
 def smem_bytes(d: int, k: int, block_n: int, n_sub: int = 0,
                n_codes: int = 0, nlist: int = 0) -> int:
-    """Dynamic shared memory of one scan block: the query (d), the carried
-    and the merged top-k (4k), the tile's candidate buffer (2 block_n), and
-    for K14 the LUT (n_sub·n_codes) and the routing dots (nlist); 4 bytes
-    each. The block also holds :data:`STATIC_SMEM`."""
+    """Dynamic shared memory of one K14 block: the query (d), the carried
+    and the merged top-k (4k), the tile's candidate buffer (2 block_n), the
+    LUT (n_sub·n_codes) and the routing dots (nlist); 4 bytes each. The
+    block also holds :data:`STATIC_SMEM`."""
     return 4 * (d + 4 * k + 2 * block_n + n_sub * n_codes + nlist)
+
+
+def replay_smem_bytes(k: int) -> int:
+    """Dynamic shared memory of one block of K13's part (b): the carried
+    and the merged top-k, 8 bytes an entry each (the step's top-k is read
+    from part (a)'s output in device memory)."""
+    return 16 * k
 
 
 def max_k(d: int, block_n: int, n_sub: int = 0, n_codes: int = 0,
           nlist: int = 0) -> int:
-    """The largest k whose scan block, static shared memory included, fits
-    Hopper's shared memory."""
+    """The largest k the scan takes: for K14 (``n_sub > 0``) the k whose
+    block, static shared memory included, fits Hopper's shared memory; for
+    K13 (``n_sub == 0``) the k whose part-(b) block does (part (a) keeps a
+    tile's top-k in registers up to k = 128 and ranks the tile's rows past
+    it, in shared memory that does not grow with k; neither part has
+    static shared memory)."""
+    if n_sub == 0:
+        return max(0, ops.SMEM_LIMIT // replay_smem_bytes(1))
     free = (ops.SMEM_LIMIT - STATIC_SMEM
             - smem_bytes(d, 0, block_n, n_sub, n_codes, nlist))
     return max(0, free // 16)
@@ -122,15 +153,16 @@ def adc_scores(queries: torch.Tensor, lut: torch.Tensor, qdots: torch.Tensor,
                            + u.float()[None, :], 0.0)
 
 
-def _walk(scores: torch.Tensor, queries: torch.Tensor, centers: torch.Tensor,
+def _walk(cands, queries: torch.Tensor, centers: torch.Tensor,
           radii: torch.Tensor, ids: torch.Tensor, n_active: torch.Tensor, *,
-          k: int, block_n: int, gate: bool):
-    """The scan's walk over precomputed (Q, n) scores, all queries a step
-    at a time: the gate against each query's carried k-th D², then the
-    tile's rows merged into its top-k (:func:`core.topk.merge_topk`).
-    Returns (dists (Q, k), rows (Q, k), gate_skipped (Q,))."""
-    nq, n = scores.shape
-    dev = scores.device
+          k: int, gate: bool):
+    """The scan's walk, all queries a step at a time: the gate against each
+    query's carried k-th D², then step i's candidates ``cands(i, t)`` ((Q,
+    m) D² and rows of the tiles t = ids[:, i]) merged into its top-k
+    (:func:`core.topk.merge_topk`). Returns (dists (Q, k), rows (Q, k),
+    gate_skipped (Q,))."""
+    nq = queries.shape[0]
+    dev = queries.device
     q = queries.float()
     qn = bounds.point_norms(q)
     ctr, rad = centers.float(), radii.float()
@@ -140,7 +172,6 @@ def _walk(scores: torch.Tensor, queries: torch.Tensor, centers: torch.Tensor,
     ids, n_active = ids.long(), n_active.long()
     tv, ti = init_topk(k, (nq,), dev)
     skipped = torch.zeros(nq, dtype=torch.int32, device=dev)
-    iota = torch.arange(block_n, device=dev)
     steps = int(n_active.max()) if nq else 0
     for i in range(steps):
         t = ids[:, i]
@@ -151,23 +182,80 @@ def _walk(scores: torch.Tensor, queries: torch.Tensor, centers: torch.Tensor,
         else:
             skip = torch.zeros_like(visit)
         skipped += (visit & skip).to(torch.int32)
-        rows = t[:, None] * block_n + iota[None, :]
-        valid = rows < n
-        cv = torch.where(valid, scores.gather(1, rows.clamp_max(n - 1)),
-                         torch.inf)
-        mv, mi = merge_topk(tv, ti, cv, torch.where(valid, rows,
-                                                    IDX_SENTINEL), k)
+        cv, ci = cands(i, t)
+        mv, mi = merge_topk(tv, ti, cv, ci, k)
         keep = (visit & ~skip)[:, None]
         tv, ti = torch.where(keep, mv, tv), torch.where(keep, mi, ti)
     return tv, ti, skipped
+
+
+def _tile_rows(scores: torch.Tensor, block_n: int):
+    """``cands`` for :func:`_walk`: every row of each query's tile, from
+    precomputed (Q, n) scores; rows past n are (+inf, INT32_MAX)."""
+    n = scores.shape[1]
+    iota = torch.arange(block_n, device=scores.device)
+
+    def cands(i, t):
+        rows = t[:, None] * block_n + iota[None, :]
+        valid = rows < n
+        return (torch.where(valid, scores.gather(1, rows.clamp_max(n - 1)),
+                            torch.inf),
+                torch.where(valid, rows, IDX_SENTINEL))
+    return cands
+
+
+def _pairs(n_active: torch.Tensor, n_tiles: int):
+    """The (query, step) pairs of the probe maps, query-major, steps
+    ascending: (query (P,), step (P,)) int64."""
+    steps = torch.arange(n_tiles, device=n_active.device)
+    return (steps[None, :] < n_active.long()[:, None]).nonzero(as_tuple=True)
+
+
+def tile_topk_torch(queries, points, norms, ids, n_active, *, k: int,
+                    block_n: int):
+    """Plain version of K13's part (a): for every (query, step) pair with
+    step < n_active (query-major, :func:`_pairs`), the lexicographic top-k
+    (D², row) of the rows of tile ``ids[query, step]``, skipped tiles
+    included, in :func:`exact_scores`' arithmetic; unfilled slots (+inf,
+    INT32_MAX). Returns (dists (P, k), rows (P, k) int32)."""
+    n = points.shape[0]
+    pq, ps = _pairs(n_active, ids.shape[1])
+    scores = exact_scores(queries, points, norms)
+    t = ids.long()[pq, ps]
+    rows = t[:, None] * block_n + torch.arange(block_n, device=t.device)
+    valid = rows < n
+    cv = torch.where(valid, scores[pq[:, None], rows.clamp_max(n - 1)],
+                     torch.inf)
+    tv, ti = lex_topk(cv, torch.where(valid, rows, IDX_SENTINEL), k)
+    if tv.shape[1] < k:
+        pad_v, pad_i = init_topk(k - tv.shape[1], (tv.shape[0],), tv.device)
+        tv, ti = torch.cat([tv, pad_v], 1), torch.cat([ti, pad_i], 1)
+    return tv, ti
+
+
+def replay_torch(cand_d, cand_r, queries, centers, radii, ids, n_active, *,
+                 k: int, gate: bool = True):
+    """Plain version of K13's part (b): the walk of :func:`_walk` with each
+    step's candidates the pair's tile top-k (``cand_d``/``cand_r`` (P, k),
+    :func:`tile_topk_torch`'s order). Returns the :func:`ivf_scan`
+    triple."""
+    act = n_active.long()
+    start = torch.cumsum(act, 0) - act
+    last = max(cand_d.shape[0] - 1, 0)
+
+    def cands(i, t):
+        p = (start + i).clamp_max(last)
+        return cand_d[p], cand_r[p]
+    return _walk(cands, queries, centers, radii, ids, n_active, k=k,
+                 gate=gate)
 
 
 def ivf_scan_torch(queries, points, norms, centers, radii, ids, n_active, *,
                    k: int, block_n: int, gate: bool = True):
     """Plain twin of K13 (``repro.kernels.ref.ivf_scan_ref``): same
     arguments and returns as :func:`ivf_scan`."""
-    return _walk(exact_scores(queries, points, norms), queries, centers,
-                 radii, ids, n_active, k=k, block_n=block_n, gate=gate)
+    return _walk(_tile_rows(exact_scores(queries, points, norms), block_n),
+                 queries, centers, radii, ids, n_active, k=k, gate=gate)
 
 
 def ivf_adc_scan_torch(queries, lut, qdots, codes, labels, u, centers, radii,
@@ -175,9 +263,9 @@ def ivf_adc_scan_torch(queries, lut, qdots, codes, labels, u, centers, radii,
                        gate: bool = True):
     """Plain twin of K14 (``repro.kernels.ref.ivf_adc_scan_ref``): same
     arguments and returns as :func:`ivf_adc_scan`."""
-    return _walk(adc_scores(queries, lut, qdots, codes, labels, u), queries,
-                 centers, radii, ids, n_active, k=k, block_n=block_n,
-                 gate=gate)
+    return _walk(_tile_rows(adc_scores(queries, lut, qdots, codes, labels, u),
+                            block_n),
+                 queries, centers, radii, ids, n_active, k=k, gate=gate)
 
 
 def ivf_bruteforce_topk(queries: torch.Tensor, points: torch.Tensor,
@@ -216,6 +304,98 @@ def _outputs(nq: int, k: int, device):
             torch.empty(nq, dtype=torch.int32, device=device))
 
 
+def _pair_maps(ids: torch.Tensor, n_active: torch.Tensor) -> dict:
+    """K13's glue on the device: the probe maps inverted into (query, step)
+    pairs (query-major, :func:`_pairs`), their tiles, the pairs sorted by
+    tile (a stable sort, so a tile's pairs keep query order) and cut into
+    chunks of at most :data:`CHUNK` pairs of one tile, and each query's
+    first pair. Integer sums only (exact)."""
+    nq, n_tiles = ids.shape
+    dev = ids.device
+    act = n_active.long()
+    pq, ps = _pairs(n_active, n_tiles)
+    tiles = ids.long()[pq, ps]
+    order = torch.sort(tiles, stable=True).indices
+    counts = torch.bincount(tiles, minlength=n_tiles)
+    n_chunks = -(-counts // CHUNK)
+    chunk_tile = torch.repeat_interleave(
+        torch.arange(n_tiles, device=dev), n_chunks)
+    first = (torch.cumsum(n_chunks, 0) - n_chunks)[chunk_tile]
+    within = torch.arange(chunk_tile.shape[0], device=dev) - first
+    tile_start = torch.cumsum(counts, 0) - counts
+    i32 = torch.int32
+    return dict(
+        pair_query=pq.to(i32), pair_tile=tiles.to(i32), order=order.to(i32),
+        chunk_start=(tile_start[chunk_tile] + CHUNK * within).to(i32),
+        chunk_count=torch.clamp_max(counts[chunk_tile] - CHUNK * within,
+                                    CHUNK).to(i32),
+        pair_start=(torch.cumsum(act, 0) - act).to(i32))
+
+
+def query_groups(n_active: torch.Tensor, max_pairs: int) -> list:
+    """Consecutive query ranges [a, b), each with at most ``max_pairs``
+    (query, step) pairs (Σ n_active), the first as long as it can be; one
+    range [0, Q) when all fit. Raises ``InvalidInputError`` when one query
+    alone has more."""
+    cum = torch.cumsum(n_active.long().cpu(), 0)
+    groups, a, base = [], 0, 0
+    while a < cum.shape[0]:
+        b = int(torch.searchsorted(cum, base + max_pairs, right=True))
+        if b == a:
+            raise InvalidInputError(
+                f"query {a} probes {int(cum[a]) - base} tiles, but the card "
+                f"has memory for K13's scratch of {max_pairs} at this k; "
+                f"search with a smaller k or nprobe")
+        groups.append((a, b))
+        a, base = b, int(cum[b - 1])
+    return groups or [(0, 0)]
+
+
+def _free_bytes(device) -> int:
+    """Device memory K13's scratch can take: the card's free memory and
+    what the caching allocator holds reserved but unused."""
+    return (torch.cuda.mem_get_info(device)[0]
+            + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
+def _scratch(n_pairs: int, k: int, device) -> tuple:
+    """Part (a)'s outputs: each pair's top-k and its two gate terms."""
+    return (torch.empty((n_pairs, k), dtype=torch.float32, device=device),
+            torch.empty((n_pairs, k), dtype=torch.int32, device=device),
+            torch.empty(n_pairs, dtype=torch.float32, device=device),
+            torch.empty(n_pairs, dtype=torch.float32, device=device))
+
+
+def _launch_topk(queries, points, norms, centers, radii, maps, k, block_n,
+                 gate):
+    """Part (a) on the card: (cand_d, cand_r, gate_lo2, gate_margin)."""
+    n, d = points.shape
+    n_pairs = maps["order"].shape[0]
+    out = _scratch(n_pairs, k, queries.device)
+    fn = _build.function("ivf_scan", "ivf_tile_topk_launch", _TOPK_ARGTYPES)
+    with torch.cuda.device(queries.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(queries.data_ptr(), points.data_ptr(), norms.data_ptr(),
+                 centers.data_ptr(), radii.data_ptr(),
+                 *(maps[f].data_ptr() for f in (
+                     "pair_query", "pair_tile", "order", "chunk_start",
+                     "chunk_count")),
+                 *(o.data_ptr() for o in out), n_pairs,
+                 maps["chunk_start"].shape[0], n, d, block_n, k, int(gate),
+                 _ABS, ops.SMEM_LIMIT, stream)
+    if err != 0:
+        raise KernelFailureError(
+            f"ivf_scan (tile top-k) launch failed: cudaError {err}")
+    return out
+
+
+def _check_card(queries, points, norms, centers, radii, ids, n_active):
+    ops.check_card_tensors(queries=queries, points=points, norms=norms,
+                           centers=centers, radii=radii)
+    ops.check_card_tensors(torch.int32, ids=ids, n_active=n_active)
+
+
 def ivf_scan(queries: torch.Tensor, points: torch.Tensor, norms: torch.Tensor,
              centers: torch.Tensor, radii: torch.Tensor, ids: torch.Tensor,
              n_active: torch.Tensor, *, k: int, block_n: int,
@@ -225,7 +405,9 @@ def ivf_scan(queries: torch.Tensor, points: torch.Tensor, norms: torch.Tensor,
     at ``block_n``; ids (Q, T) / n_active (Q,) int32 the probed-tile maps.
     Returns ``(dists (Q, k) fp32, rows (Q, k) int32 into the sorted rows,
     gate_skipped (Q,) int32)``; unfilled slots hold ``(+inf, INT32_MAX)``.
-    On the card this launches K13; CPU tensors take the plain twin."""
+    On the card this launches K13 (its glue, part (a) and part (b), one
+    counted launch for each group of queries, :func:`query_groups`); CPU
+    tensors take the plain twin."""
     n, d = points.shape
     _check_maps(queries, centers, radii, ids, n_active, block_n, n)
     _check_k(k, max_k(d, block_n))
@@ -234,22 +416,26 @@ def ivf_scan(queries: torch.Tensor, points: torch.Tensor, norms: torch.Tensor,
                               n_active, k=k, block_n=block_n, gate=gate)
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
-    ops.check_card_tensors(queries=queries, points=points, norms=norms,
-                           centers=centers, radii=radii)
-    ops.check_card_tensors(torch.int32, ids=ids, n_active=n_active)
-    nq = queries.shape[0]
-    out = _outputs(nq, k, queries.device)
-    fn = _build.function("ivf_scan", "ivf_scan_launch", _SCAN_ARGTYPES)
-    with torch.cuda.device(queries.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(queries.data_ptr(), points.data_ptr(), norms.data_ptr(),
-                 centers.data_ptr(), radii.data_ptr(), ids.data_ptr(),
-                 n_active.data_ptr(), *(o.data_ptr() for o in out), nq, n, d,
-                 centers.shape[0], block_n, k, int(gate), _REL1, _ABS,
-                 stream)
-    if err != 0:
-        raise KernelFailureError(f"ivf_scan launch failed: cudaError {err}")
-    ops.LAUNCHES["ivf_scan"] += 1
+    _check_card(queries, points, norms, centers, radii, ids, n_active)
+    out = _outputs(queries.shape[0], k, queries.device)
+    fn = _build.function("ivf_scan", "ivf_replay_launch", _REPLAY_ARGTYPES)
+    budget = _free_bytes(queries.device) // (8 * k + PAIR_BYTES)
+    for a, b in query_groups(n_active, budget):
+        act = n_active[a:b]
+        maps = _pair_maps(ids[a:b], act)
+        cand = _launch_topk(queries[a:b], points, norms, centers, radii,
+                            maps, k, block_n, gate)
+        with torch.cuda.device(queries.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(*(c.data_ptr() for c in cand),
+                     maps["pair_start"].data_ptr(), act.data_ptr(),
+                     *(o[a:b].data_ptr() for o in out), b - a, k, int(gate),
+                     _REL1, stream)
+        if err != 0:
+            raise KernelFailureError(
+                f"ivf_scan (replay) launch failed: cudaError {err}")
+        ops.LAUNCHES["ivf_scan"] += 1
+        del maps, cand
     return out
 
 

@@ -57,13 +57,15 @@ GEMMA_FLASH = (1, 320, 320, 8, 4, 256, True, 128, 50.0, 128, 128)
 MORE_FLASH = [GEMMA_FLASH,
               (1, 128, 160, 4, 2, 32, False, 48, 0.0, 64, 64),
               (1, 70, 70, 2, 1, 80, True, 0, 20.0, 32, 32)]
-# the bf16 kernel's edges (card only), the same fields then q_offset:
-# Sq and Skv no multiple of its 128-row or 64-key tiles; head_dim 36 (no
-# multiple of 8: the wrapper's zero pad); G = 1 and G = 4; a window without
-# causality; Sq = Skv = 1,024, so that the two-stage K/V ring wraps many
-# times; q_offset -40 (rows without keys); one query row (decode's form);
-# no keys at all (zeros)
-BF16_EDGE = [
+# the kernels' edges (card only, both dtypes), the same fields then
+# q_offset: Sq and Skv no multiple of the 128- or 64-row or 64-key tiles;
+# head_dim 36 (no multiple of 8: the bf16 wrapper's zero pad; the fp32
+# pre-pass pads to 64); G = 1 and G = 4; a window without causality; Sq =
+# Skv = 1,024, so that the K/V rings wrap many times; q_offset -40 (rows
+# without keys); one query row (decode's form); no keys at all (zeros);
+# then q_offset 64 and head_dim 160 (which the fp32 pre-pass pads to
+# 256)
+KERNEL_EDGE = [
     (2, 203, 333, 4, 2, 64, False, 0, 0.0, 64, 64, 0),
     (1, 190, 250, 4, 2, 128, True, 0, 30.0, 64, 64, 0),
     (1, 150, 150, 4, 2, 36, True, 0, 0.0, 64, 64, 0),
@@ -75,6 +77,8 @@ BF16_EDGE = [
     (1, 96, 128, 2, 2, 32, True, 0, 0.0, 32, 32, -40),
     (2, 1, 300, 8, 4, 256, False, 0, 0.0, 64, 64, 0),
     (1, 16, 0, 2, 1, 64, False, 0, 0.0, 64, 64, 0),
+    (1, 32, 128, 2, 2, 32, True, 0, 0.0, 32, 32, 64),
+    (1, 130, 200, 4, 2, 160, True, 0, 50.0, 64, 64, 0),
 ]
 
 # (B, S, KH, G, hd, n_sub, block_k, cache_len): the reference's CASES
@@ -209,6 +213,90 @@ def test_split_p_arithmetic_matches_reference(ref, case):
                       block_q=bq, block_k=bk)
     got = _split_p_flash(q, k, v, causal=causal, window=window, cap=cap)
     _assert_close(got, want, torch.bfloat16)
+
+
+def _tf32(x):
+    """fp32 → TF32 as ``cvt.rna.tf32.f32`` rounds: to nearest on the low 13
+    mantissa bits, ties away from zero (finite values)."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm3(a, b):
+    """a @ b as the fp32 kernel's three TF32 products: a and b split into
+    hi = tf32(x) and lo = tf32(x − hi), hi·hi + hi·lo + lo·hi summed in
+    fp32 (lo·lo dropped)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def _tf32_flash(q, k, v, *, causal, window, cap, q_offset=0, block_k=64):
+    """The fp32 kernel's arithmetic, emulated on the CPU: S = Q·Kᵀ and
+    P·V each as three TF32 products (:func:`_mm3`), the online softmax
+    over 64-key tiles with m and l in fp32 and p = 2^((s − m)·log2 e), the
+    softcap as cap·tanh(s·(scale / cap))."""
+    B, Sq, H, hd = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = hd ** -0.5
+    pre = scale / cap if cap > 0 else scale
+    log2e = 1.4426950408889634
+    qf = q.float().reshape(B, Sq, KH, G, hd).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    q_pos = q_offset + torch.arange(Sq)[:, None]
+    m = torch.full((B, KH, G, Sq), fa.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, KH, G, Sq, hd))
+    for k0 in range(0, Skv, block_k):
+        k1 = min(k0 + block_k, Skv)
+        k_pos = torch.arange(k0, k1)[None, :]
+        mask = torch.ones((Sq, k1 - k0), dtype=torch.bool)
+        if causal:
+            mask &= k_pos <= q_pos
+        if window > 0:
+            mask &= k_pos > q_pos - window
+        s = _mm3(qf, kf[..., k0:k1, :].transpose(-1, -2))
+        s = cap * torch.tanh(s * pre) if cap > 0 else s * pre
+        s = torch.where(mask, s, fa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(mask, torch.exp2((s - m_new[..., None]) * log2e),
+                        0.0)
+        corr = torch.exp2((m - m_new) * log2e)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + _mm3(p, vf[..., k0:k1, :])
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+
+
+def test_tf32_rounding_is_round_to_nearest_away():
+    """``_tf32`` keeps 10 explicit mantissa bits, rounds halfway cases away
+    from zero, and hi + lo holds x to about 2^-22 relative."""
+    one = 1.0 + 2.0 ** -10
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -12, one + 2.0 ** -11, 3.0])
+    want = torch.tensor([one, -one, 1.0, one + 2.0 ** -10, 3.0])
+    assert torch.equal(_tf32(x), want)
+    r = torch.from_numpy(np.random.default_rng(0).normal(size=4096)
+                         .astype(np.float32))
+    hi = _tf32(r)
+    assert ((_tf32(r - hi) + hi - r).abs() <= 2.0 ** -21 * r.abs()).all()
+
+
+@pytest.mark.parametrize("case", FLASH_CASES + [GEMMA_FLASH])
+def test_3xtf32_arithmetic_matches_reference(ref, case):
+    """The numerical design of the fp32 kernel: scores and P·V as three
+    TF32 products each (the lo·lo term dropped) stay within ``TOL32`` of
+    the interpreted reference, which computes both in fp32."""
+    causal, window, cap, bq, bk = case[6:]
+    q, k, v = (_port(x) for x in _qkv(case))
+    want = _ref_flash(ref, *(x.numpy() for x in (q, k, v)), torch.float32,
+                      causal=causal, window=window, cap=cap, block_q=bq,
+                      block_k=bk)
+    got = _tf32_flash(q, k, v, causal=causal, window=window, cap=cap)
+    _assert_close(got, want, torch.float32)
 
 
 @pytest.mark.parametrize("q_offset", [64, -40])
@@ -516,7 +604,9 @@ def _counted(name, fn):
 @pytest.mark.parametrize("case,dtype", [
     (c, d) for c in FLASH_CASES + MORE_FLASH
     for d in (torch.float32, torch.bfloat16)] + [
-    (c, torch.bfloat16) for c in BF16_EDGE])
+    (c, torch.bfloat16) for c in KERNEL_EDGE[:11]] + [
+    (c, torch.float32) for c in KERNEL_EDGE] + [
+    (c, torch.bfloat16) for c in KERNEL_EDGE[11:]])
 def test_flash_kernel_matches_twin_on_the_card(card, case, dtype):
     """K15 against its twin on the same card inputs, one counted launch
     each (the fp32 or the bf16 kernel), two launches the same bits; at a

@@ -324,6 +324,85 @@ def test_exact_scores_are_the_dots_chain():
     assert torch.equal(ks.exact_scores(q, x, xn), want)
 
 
+def _port_maps(index, q, nprobe):
+    """The port's own probe maps (``search``'s routing) at ``nprobe``."""
+    probed, _ = ivf_mod._route(
+        q, index.centroids, index.centroid_norms, index.super_centers,
+        index.super_radii, index.super_sizes, nprobe=nprobe)
+    tiles = (probed.float() @ index.list_tiles.float()) > 0.0
+    return bounds.compact_ids(tiles)
+
+
+@pytest.mark.parametrize("gate", [True, False])
+@pytest.mark.parametrize("maps", [4, 8, 32, "random"])
+def test_two_part_k13_is_the_walk_bitwise(pair, maps, gate):
+    """K13's two parts in plain torch, every (query, step) pair's top-k of
+    its tile (:func:`tile_topk_torch`) and then each query's walk over
+    them (:func:`replay_torch`), are the one-pass walk ``ivf_scan_torch``
+    bitwise: dists, rows and gate_skipped, at nprobe 4, 8 and 32 (= nlist,
+    full probe) on the fixture and on random maps, gate on and off."""
+    _, pidx, qs = pair
+    q = torch.from_numpy(qs)
+    if maps == "random":
+        ids, nact = _random_maps(np.random.default_rng(8), len(qs),
+                                 pidx.n_tiles)
+    else:
+        ids, nact = _port_maps(pidx, q, maps)
+    kw = dict(k=CFG.k, block_n=CFG.block_n)
+    want = ks.ivf_scan_torch(q, pidx.points, pidx.norms, pidx.centers,
+                             pidx.radii, ids, nact, gate=gate, **kw)
+    cd, cr = ks.tile_topk_torch(q, pidx.points, pidx.norms, ids, nact, **kw)
+    assert cd.shape == cr.shape == (int(nact.sum()), CFG.k)
+    assert cr.dtype == torch.int32
+    got = ks.replay_torch(cd, cr, q, pidx.centers, pidx.radii, ids, nact,
+                          k=CFG.k, gate=gate)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if not gate:
+        assert int(got[2].sum()) == 0
+    elif maps != 4:
+        assert int(got[2].sum()) > 0
+
+
+def test_two_part_k13_pads_past_a_tile(pair):
+    """At k past a tile's rows the tile top-k is every row then (+inf,
+    INT32_MAX) pads, and the two parts are still the walk bitwise."""
+    _, pidx, qs = pair
+    q = torch.from_numpy(qs[:9])
+    ids, nact = _port_maps(pidx, q, 4)
+    k = CFG.block_n + 72
+    cd, cr = ks.tile_topk_torch(q, pidx.points, pidx.norms, ids, nact,
+                                k=k, block_n=CFG.block_n)
+    assert torch.isinf(cd[:, CFG.block_n:]).all()
+    assert (cr[:, CFG.block_n:] == IDX_SENTINEL).all()
+    assert torch.isfinite(cd[:, :CFG.block_n - 1]).all()
+    got = ks.replay_torch(cd, cr, q, pidx.centers, pidx.radii, ids, nact,
+                          k=k)
+    want = ks.ivf_scan_torch(q, pidx.points, pidx.norms, pidx.centers,
+                             pidx.radii, ids, nact, k=k,
+                             block_n=CFG.block_n)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_query_groups_cut_the_pairs_to_the_budget():
+    """K13's query groups: consecutive, covering every query once, each at
+    most the budget's pairs and as long as it can be; one group when all
+    fit, [(0, 0)] for no queries; a query alone past the budget raises."""
+    act = torch.tensor([3, 0, 5, 2, 2, 7, 1, 0], dtype=torch.int32)
+    assert ks.query_groups(act, 20) == [(0, 8)]
+    assert ks.query_groups(act, 8) == [(0, 3), (3, 5), (5, 8)]
+    assert ks.query_groups(act, 7) == [(0, 2), (2, 4), (4, 5), (5, 6),
+                                       (6, 8)]
+    groups = ks.query_groups(act, 9)
+    assert groups[0][0] == 0 and groups[-1][1] == len(act)
+    assert all(b0 == a1 for (_, b0), (a1, _) in zip(groups, groups[1:]))
+    sums = [int(act[a:b].sum()) for a, b in groups]
+    assert max(sums) <= 9 and all(
+        s + int(act[b]) > 9 for s, (_, b) in zip(sums, groups[:-1]))
+    assert ks.query_groups(act[:0], 5) == [(0, 0)]
+    with pytest.raises(InvalidInputError, match="query 5"):
+        ks.query_groups(act, 6)
+
+
 def test_lex_topk_breaks_ties_by_index():
     v = torch.tensor([1.0, 0.5, 1.0, 0.5, torch.inf])
     i = torch.tensor([9, 4, 2, 3, 0], dtype=torch.int32)
@@ -455,9 +534,14 @@ def test_guards_and_k_limit(pair):
         IvfIndex.build(pts, 4, engine=eng, layout="random")
     with pytest.raises(InvalidInputError, match="nlist"):
         IvfIndex.build(pts, 201, engine=eng)
+    # K13's limit: its part-(b) block (the carried and merged lists) fits
+    # and one more k does not; it is no lower than the one-block-per-query
+    # kernel's, whose block also held the query and the tile's candidates
     limit = ks.max_k(CFG.dim, CFG.block_n)
-    assert limit * 16 + ks.smem_bytes(CFG.dim, 0, CFG.block_n) \
-        + ks.STATIC_SMEM <= ops.SMEM_LIMIT
+    assert ks.replay_smem_bytes(limit) <= ops.SMEM_LIMIT \
+        < ks.replay_smem_bytes(limit + 1)
+    assert limit >= (ops.SMEM_LIMIT - ks.STATIC_SMEM
+                     - ks.smem_bytes(CFG.dim, 0, CFG.block_n)) // 16
     ids, nact = bounds.compact_ids(torch.ones((2, pidx.n_tiles),
                                               dtype=torch.bool))
     with pytest.raises(InvalidInputError, match=str(limit)):
@@ -591,3 +675,77 @@ def test_scan_kernels_take_max_k_on_the_card(card, mode):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     with pytest.raises(InvalidInputError, match=str(limit)):
         fn(*args, k=limit + 1, block_n=idx.block_n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 33, 100, 200])
+def test_k13_tile_topk_matches_plain_on_the_card(card, k):
+    """K13's part (a) against its plain version on the same card inputs,
+    bitwise, at k in each of its register-list widths (k <= 32, 64, 128)
+    and past them (the rank path), at nprobe 8 and full probe; no launch
+    counted (a part is no whole K13)."""
+    idx, q = _card_index(card)
+    for nprobe in (8, idx.nlist):
+        ids, nact = _port_maps(idx, q, nprobe)
+        ops.reset_launches()
+        got = ks._launch_topk(q, idx.points, idx.norms, idx.centers,
+                              idx.radii, ks._pair_maps(ids, nact), k,
+                              idx.block_n, False)[:2]
+        assert not any(ops.LAUNCHES.values())
+        want = ks.tile_topk_torch(q, idx.points, idx.norms, ids, nact, k=k,
+                                  block_n=idx.block_n)
+        assert got[0].shape == (int(nact.sum()), k)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nprobe", [4, 40])
+def test_k13_is_its_twin_bitwise_on_the_card(card, nprobe):
+    """The whole K13 (glue, part (a), part (b)) bitwise ``ivf_scan_torch``
+    with 150 queries (a tile's pairs in chunks of 64, 64 and 22 at full
+    probe; at nprobe 4 some tile no query probes), gate on and off, and on
+    random maps; two launches the same bits."""
+    idx, q = _card_index(card)
+    q = torch.cat([q, q, q[:22]]).contiguous()
+    for maps in ("route", "random"):
+        if maps == "route":
+            ids, nact = _port_maps(idx, q, nprobe)
+        else:
+            ids, nact = (t.to(card) for t in _random_maps(
+                np.random.default_rng(nprobe), len(q), idx.n_tiles))
+        used = torch.arange(idx.n_tiles, device=card)[None, :] \
+            < nact[:, None].long()
+        probes = torch.bincount(ids.long()[used], minlength=idx.n_tiles)
+        if maps == "route" and nprobe == 4:
+            assert int((probes == 0).sum()) > 0
+        if maps == "route" and nprobe == idx.nlist:
+            assert int(probes.max()) == len(q) and len(q) % ks.CHUNK
+        args = (q, idx.points, idx.norms, idx.centers, idx.radii, ids, nact)
+        for gate in (True, False):
+            got = ks.ivf_scan(*args, k=10, block_n=idx.block_n, gate=gate)
+            again = ks.ivf_scan(*args, k=10, block_n=idx.block_n, gate=gate)
+            want = ks.ivf_scan_torch(*args, k=10, block_n=idx.block_n,
+                                     gate=gate)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_k13_runs_in_query_groups_on_the_card(card, monkeypatch):
+    """With the card's memory for only some queries' scratch, K13 runs in
+    query groups, one counted launch each, and gives the one-group bits."""
+    idx, q = _card_index(card)
+    ids, nact = _port_maps(idx, q, 8)
+    args = (q, idx.points, idx.norms, idx.centers, idx.radii, ids, nact)
+    want = ks.ivf_scan(*args, k=10, block_n=idx.block_n)
+    budget = 3 * int(nact.max())
+    groups = ks.query_groups(nact, budget)
+    assert len(groups) > 2
+    monkeypatch.setattr(ks, "_free_bytes",
+                        lambda device: budget * (80 + ks.PAIR_BYTES))
+    ops.reset_launches()
+    got = ks.ivf_scan(*args, k=10, block_n=idx.block_n)
+    assert ops.LAUNCHES["ivf_scan"] == len(groups)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, ks.ivf_scan_torch(*args, k=10, block_n=idx.block_n)))
