@@ -41,7 +41,16 @@ Phases, each of which exits non-zero on failure:
    and K11/K12 must be bitwise their plain twins (+inf everywhere at count
    0). Each kernel's median time (CUDA events) is printed beside its plain
    twin's and its bound (for the gated kernels, from the bytes of the
-   active tiles).
+   active tiles). The bf16 stream (``precision="bf16"``): K2 (m = 1,
+   resident and not), K3, K5 (m = 1; the gate's mask resident and not, all
+   active) and K6 on the points rounded to bf16, with the fp32 points'
+   norms, each held three ways: against its twin at the fp32 case's
+   tolerance, bitwise against the fp32 instance on the bf16 values widened
+   back (the conversion is exact, the arithmetic the same), and bitwise
+   against a second launch; its time beside the fp32 instance's there and
+   its bound from the bf16 bytes, its dot products counted at the bf16
+   tensor-core rate and the rest at fp32's. (All-active K5 is K2 but on
+   the rows the bound prunes, which keep their D²: bitwise K2 in fp32.)
 3. Drive the main path, ``ClusterEngine(device="cuda").kmeans`` (bound-gated)
    at the paper's size, k = 50, 25 iterations, for sampler cdf and tiled, on
    the shuffled blobs and on a label-sorted copy, with the launch counters
@@ -50,7 +59,14 @@ Phases, each of which exits non-zero on failure:
    ``bounds=False`` (seeds, centroids, assignment, inertia, n_iters), and a
    second run to the first. The ungated path is driven the same way
    (K2 k times, K3 n_iters times) and compared with the plain
-   ``FusedBackend`` on the card from the same draws.
+   ``FusedBackend`` on the card from the same draws. Then the main path
+   under ``precision="bf16"`` (shuffled blobs, cdf and tiled, gated and
+   ungated), counted (gated: K1 once, bf16 K5 k, bf16 K6 n_iters; ungated:
+   bf16 K2 k, bf16 K3 n_iters; no fp32 round), each bitwise a second run
+   and its own seed then fit, its inertia within 15% of an fp32 fit from
+   the same seeds (the reference's pin); the seeds and labels where gated
+   and ungated bf16 differ are printed, not held (under bf16 the gate
+   suppresses bf16-noise updates its bound proves spurious).
 4. Rejection seeding at the paper's size, ``ClusterEngine(device="cuda")
    .seed/kmeans(sampler="rejection", refresh_block=8)`` for proposal hier
    and flat on both layouts, counted like phase 3: K1 once, K5 once per
@@ -76,7 +92,8 @@ Phases, each of which exits non-zero on failure:
    from the same draws, every problem's inertia within 1e-4 of the plain
    fit's from the same seeds. Printed: seeding ms, Lloyd ms per iteration,
    kmeans_batched s and ms per problem beside a loop of single seed + fit
-   over 16 problems.
+   over 16 problems. K7 (m = 1) and K10a on the bf16 stream are held as
+   phase 2's bf16 cases, rows 0, 1 and B−1 bitwise the single bf16 launch.
 6. Gated batched problems (``bounds=True``, the default) at
    ``kvquant-gemma2-2b``: the batched K1 (prologue), K8 (gated batched
    seeding round; m = 1 and 8, each problem's gate, every tile, and a
@@ -93,7 +110,8 @@ Phases, each of which exits non-zero on failure:
    (seeds, centroids, assignment, inertia, n_iters) and a second run, rows
    0, 1 and B−1 bitwise the single gated ``seed`` then ``fit`` with their
    skip and prune counters. Printed: the counters' totals, gated and
-   ungated seconds.
+   ungated seconds. K8 (m = 1, the gate's mask and all active) and K10b
+   (the gate's mask) on the bf16 stream, held as phase 5's.
 7. Weighted and mini-batch Lloyd. K4 (the untiled assignment round) at
    the paper's shape, unweighted and with integer weights 1–8, and at
    n = 100,003, d = 128, k = 64, and K9 (K4 over a batch of problems) at
@@ -115,7 +133,13 @@ Phases, each of which exits non-zero on failure:
    pass, counted (K4 per batch), bitwise a second run. Printed: seeding
    ms (median of 3), Lloyd ms per iteration, kmeans s; ms per batch with the
    host-to-device copies and the device busy time (profiler), and the
-   mini-batch inertia over all rows over the full-batch fit's.
+   mini-batch inertia over all rows over the full-batch fit's. K4 (weighted
+   and not) and K9 on the bf16 stream, held as phase 2's. Then the other
+   entry points under ``precision="bf16"``, each counted and bitwise a
+   second run: the weighted kmeans (cdf; K1, bf16 K2, bf16 K4),
+   ``fit_minibatch`` (bf16 K4 per batch), ``kmeans_batched`` at
+   ``kvquant-gemma2-2b`` gated (the batched K1, bf16 K8, bf16 K10b) and
+   ungated (bf16 K7, bf16 K10a), and K9's path on the bf16 rows (bf16 K9).
 8. IVF serving and KV-cache PQ at ``IVF_SIFT1M`` (``configs/ivf.py``:
    the shape of ANN-benchmarks' sift-128-euclidean, 1,000,000 rows of
    d = 128 and 10,000 queries, synthetic blobs made on the card, by
@@ -180,9 +204,9 @@ Phases, each of which exits non-zero on failure:
    ungated and gated (shuffled and sorted), the weighted seeding (cdf,
    tiled), the weighted fit and the mini-batch run, the batched seeding
    (cdf, tiled) and fit at the codebook sweep's, ungated and gated, the
-   IVF build and one search per mode and the K16 decode step, with
-   torch.profiler, and print the device time by kernel and the device's
-   idle share.
+   IVF build and one search per mode and the K16 decode step, and the
+   bf16 gated seeding (cdf) and fit, with torch.profiler, and print the
+   device time by kernel and the device's idle share.
 
 Kernels are timed as medians of CUDA-event readings; the plain versions
 of the batched kernels (K1's batched form, K7, K8, K9, K10a, K10b; 0.2–3 s
@@ -190,7 +214,9 @@ a call), the IVF twins (in chunks of queries) and K15's twin are timed
 once.
 
 The last three lines of stdout are the card's name and power limit, the
-kernels' JSON record, and ``{"ok": true, "device": {...}}``. Without a CUDA
+kernels' JSON record (the rounds' bf16 instances under ``<name>_bf16``;
+every kernel must have launched on a driven path), and ``{"ok": true,
+"device": {...}}``. Without a CUDA
 device, or outside the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -249,6 +275,18 @@ def bound_ms(n_bytes: float, flops: float,
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
+def round_bound_ms(torch, pts, n_bytes: float, dot_flops: float,
+                   flops: float) -> tuple[float, str]:
+    """A round kernel's bound: the point-centroid dot products (``dot_flops``,
+    2d a pair) at the rate of the stream's type (bf16 inputs with fp32
+    accumulation run on the tensor cores at ``BF16_FLOP_PER_S``), plus the
+    remaining per-pair and per-row operations (``flops``) at the fp32 rate;
+    the larger of that time and the bytes' time."""
+    dot_rate = (BF16_FLOP_PER_S if pts.dtype == torch.bfloat16
+                else FP32_FLOP_PER_S)
+    return bound_ms(n_bytes, flops + dot_flops * FP32_FLOP_PER_S / dot_rate)
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -299,7 +337,8 @@ def d2_tol(torch, norms, cents) -> float:
     product plus the two add/subtracts; the two sides can err in opposite
     directions."""
     d = cents.shape[1]
-    cmax = float((cents * cents).sum(dim=1).max())
+    c = cents.float()
+    cmax = float((c * c).sum(dim=1).max())
     return 2 * (d + 4) * EPS32 * (float(norms.max()) + cmax)
 
 
@@ -317,6 +356,45 @@ def label_diffs(torch, d2, lab, want, tol) -> tuple[int, int]:
     gap = (d2.gather(1, lab.long()[:, None])
            - d2.gather(1, want.long()[:, None])).abs()[:, 0]
     return int(diff.sum()), int((diff & (gap > tol)).sum())
+
+
+def widened(torch, what, call, pts, cents, out, reps=15):
+    """A bf16 launch's outputs ``out`` against the fp32 instance of its
+    kernel, ``call(points, centroids)``, on the bf16 points and centroids
+    widened back: bitwise (the conversion is exact and every later
+    operation the same). Returns the fp32 instance's median time on the
+    widened copy; None (nothing run) for an fp32 case."""
+    if pts.dtype != torch.bfloat16:
+        return None
+    pu, cu = pts.float(), cents.float()
+    full = call(pu, cu)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out, full)),
+          f"{what} bf16: not bitwise the fp32 kernel on the widened copy")
+    del full
+    return gpu_ms(torch, lambda: call(pu, cu), reps=reps)
+
+
+def stream_tag(torch, pts) -> str:
+    return "bf16" if pts.dtype == torch.bfloat16 else "fp32"
+
+
+def print_bf16(name: str, c: dict) -> None:
+    """One bf16 kernel case: its error against the twin, its time beside
+    the fp32 instance's on the widened copy (bitwise the same outputs) and
+    its bound from the bf16 stream's bytes (``round_bound_ms``)."""
+    shape = (f"B={c['batch']} " if "batch" in c else "") \
+        + f"n={c['n']} d={c['d']}" \
+        + "".join(f" {key}={c[key]}" for key in ("m", "k", "resident", "mask")
+                  if key in c)
+    fp32 = ("not timed" if c["fp32_ms"] is None
+            else f"{c['fp32_ms']:.4f} ms")
+    print(f"{name} bf16 {shape}: err {c['max_abs_err']:.3g} (tol "
+          f"{c['tol']:.3g}), bitwise the fp32 kernel on the widened copy "
+          f"and a second launch; {c['ms']:.4f} ms (fp32 instance {fp32}), "
+          f"plain " + ("not timed" if c["plain_ms"] is None
+                       else f"{c['plain_ms']:.4f} ms")
+          + f", bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
 
 
 def k2_case(torch, kd, ops, pts, norms, m, resident, gen):
@@ -342,15 +420,23 @@ def k2_case(torch, kd, ops, pts, norms, m, resident, gen):
     check(bool(((out1[1] - ref[1]).abs() <= ptol).all()),
           f"K2 partials outside tolerance (max err "
           f"{float((out1[1] - ref[1]).abs().max())})")
+    fp32_ms = widened(torch, f"K2 m={m} resident={resident}",
+                      lambda p, c: kd.distance_min_update(
+                          p, norms, c, md_in, block_n=bn, resident=resident),
+                      pts, cents, out1)
     ms = gpu_ms(torch, lambda: kd.distance_min_update(
         pts, norms, cents, md_in, block_n=bn, resident=resident))
     plain = gpu_ms(torch, lambda: kd.distance_min_update_torch(
         pts, norms, cents, md_in, block_n=bn))
     t = -(-n // bn)
-    bms, by = bound_ms(4 * (n * d + 3 * n + m * d + t), n * m * (2 * d + 3))
+    xb = pts.element_size()
+    bms, by = round_bound_ms(torch, pts,
+                             xb * (n * d + m * d) + 4 * (3 * n + t),
+                             n * m * 2 * d, n * m * 3)
     return dict(n=n, d=d, m=m, resident=resident, block_n=bn,
-                max_abs_err=err_md, tol=tol, ms=ms, plain_ms=plain,
-                bound_ms=bms, bound_by=by)
+                stream=stream_tag(torch, pts), max_abs_err=err_md, tol=tol,
+                ms=ms, plain_ms=plain, fp32_ms=fp32_ms, bound_ms=bms,
+                bound_by=by)
 
 
 def super_sums_ok(torch, pts, lab, ssums, scounts, rows_per_super,
@@ -411,17 +497,22 @@ def k3_case(torch, la, ops, bounds, pts, norms, k, gen):
     check(super_sums_ok(torch, pts, lab, ssums, scounts, bn * tps),
           f"K3 k={k}: super sums or counts outside tolerance")
     n_super = ssums.shape[0]
+    fp32_ms = widened(torch, f"K3 k={k}", lambda p, c: la.lloyd_assign_tiled(
+        p, norms, c, block_n=bn, tps=tps), pts, cents, out1)
     ms = gpu_ms(torch, lambda: la.lloyd_assign_tiled(
         pts, norms, cents, block_n=bn, tps=tps))
     plain = gpu_ms(torch, lambda: la.lloyd_assign_tiled_torch(
         pts, norms, cents, block_n=bn, tps=tps))
     t = -(-n // bn)
-    bms, by = bound_ms(4 * (n * d + 3 * n + k * d + 2 * t
-                            + n_super * k * (d + 1)),
-                       n * k * (2 * d + 3) + n * d)
-    return dict(n=n, d=d, k=k, block_n=bn, tps=tps, label_diffs=n_diff,
+    xb = pts.element_size()
+    bms, by = round_bound_ms(
+        torch, pts, xb * (n * d + k * d)
+        + 4 * (3 * n + 2 * t + n_super * k * (d + 1)),
+        n * k * 2 * d, n * k * 3 + n * d)
+    return dict(n=n, d=d, k=k, block_n=bn, tps=tps,
+                stream=stream_tag(torch, pts), label_diffs=n_diff,
                 max_abs_err=err_md, tol=tol, ms=ms, plain_ms=plain,
-                bound_ms=bms, bound_by=by)
+                fp32_ms=fp32_ms, bound_ms=bms, bound_by=by)
 
 
 def timed(torch, fn, plain):
@@ -549,10 +640,23 @@ def k5_case(torch, kd, bounds, ops, pts, cache, md_in, cents, mask, resident):
           and not bool(out1[3][skip].any()),
           f"{what}: a skipped tile's outputs moved")
     if mask == "all":
+        # every row K2 computes, but for the rows the bound prunes, which
+        # keep md: in fp32 those are the same bits (all-active K5 is K2);
+        # a bf16 K2 may lower a pruned row's D² by bf16 noise the bound
+        # proves spurious
         k2 = kd.distance_min_update(pts, cache.norms, cents, md_in,
                                     block_n=bn, resident=resident)
-        check(torch.equal(out1[0], k2[0]) and torch.equal(out1[1], k2[1]),
-              f"{what}: all-active K5 is not bitwise K2")
+        prune = bounds.seed_point_prune(
+            md_in, cache.center_d, bounds.expand_mask(dc, bn, n),
+            bounds.expand_mask(margin, bn, n))
+        check(torch.equal(out1[0], torch.where(prune, md_in, k2[0]))
+              and (pts.dtype != torch.float32
+                   or (torch.equal(out1[0], k2[0])
+                       and torch.equal(out1[1], k2[1]))),
+              f"{what}: all-active K5 is not K2 but on its pruned rows")
+    fp32_ms = widened(torch, what, lambda p, c: kd.distance_min_update_gated(
+        p, *args[1:2], c, *args[3:], block_n=bn, resident=resident),
+        pts, cents, out1)
     ms, plain = timed(
         torch, lambda: kd.distance_min_update_gated(*args, block_n=bn,
                                                     resident=resident),
@@ -560,12 +664,14 @@ def k5_case(torch, kd, bounds, ops, pts, cache, md_in, cents, mask, resident):
     rows_act = int(bounds.expand_mask(act, bn, n).sum())
     n_pruned = int(out1[3].sum())
     fresh = rows_act - n_pruned
-    bms, by = bound_ms(4 * (3 * rows_act + fresh * (d + 1) + m * d + 7 * t),
-                       fresh * m * (2 * d + 3) + rows_act * 6)
+    xb = pts.element_size()
+    bms, by = round_bound_ms(torch, pts, xb * (fresh * d + m * d)
+                             + 4 * (3 * rows_act + fresh + 7 * t),
+                             fresh * m * 2 * d, fresh * m * 3 + rows_act * 6)
     return dict(n=n, d=d, m=m, resident=resident, mask=mask, block_n=bn,
-                active_tiles=int(act.sum()), tiles=t, pruned=n_pruned,
-                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
-                bound_ms=bms, bound_by=by)
+                stream=stream_tag(torch, pts), active_tiles=int(act.sum()),
+                tiles=t, pruned=n_pruned, max_abs_err=err, tol=tol, ms=ms,
+                plain_ms=plain, fp32_ms=fp32_ms, bound_ms=bms, bound_by=by)
 
 
 def k6_case(torch, la, bounds, ops, pts, cache, k, gen):
@@ -579,17 +685,19 @@ def k6_case(torch, la, bounds, ops, pts, cache, k, gen):
     tps = bounds.tiles_per_super(t)
     s = -(-t // tps)
     dev = pts.device
-    c0 = (pts[torch.randint(n, (k,), generator=gen, device=dev)]
+    # the centroid carry is fp32, the kernel gets it in the stream's dtype
+    c0 = (pts[torch.randint(n, (k,), generator=gen, device=dev)].float()
           + 0.01).contiguous()
+    c0k = c0.to(pts.dtype)
     all_on = torch.ones(t, dtype=torch.bool, device=dev)
     zero_t = torch.zeros(t, device=dev)
     first = la.lloyd_assign_gated(
-        pts, cache.norms, c0, torch.zeros(k, device=dev), zero_t, zero_t,
+        pts, cache.norms, c0k, torch.zeros(k, device=dev), zero_t, zero_t,
         torch.zeros(n, dtype=torch.int32, device=dev),
         torch.zeros(n, device=dev), torch.full((n,), -torch.inf, device=dev),
         zero_t, zero_t, torch.zeros((s, k, d), device=dev),
         torch.zeros((s, k), device=dev), all_on, block_n=bn, tps=tps)
-    k3 = la.lloyd_assign_tiled(pts, cache.norms, c0, block_n=bn, tps=tps)
+    k3 = la.lloyd_assign_tiled(pts, cache.norms, c0k, block_n=bn, tps=tps)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(
         (first[0], first[1], first[3], first[4], first[5], first[6]), k3))
@@ -603,6 +711,7 @@ def k6_case(torch, la, bounds, ops, pts, cache, k, gen):
                            min_d2=first[1], point_lb=first[2],
                            lb_debt=zero_t)
     delta = bounds.centroid_movement(c1, c0)
+    c1 = c1.to(pts.dtype)
     thresh, absorb = bounds.assign_point_scalars(delta, c1, st, cache)
     masks = {"all": all_on,
              "half": (torch.arange(t, device=dev) // tps) % 2 == 0,
@@ -674,6 +783,9 @@ def k6_case(torch, la, bounds, ops, pts, cache, k, gen):
             (out1[6], st.tile_counts, sup_skip)))
         check(kept and not bool(out1[7][skip].any()),
               f"{what}: a skipped tile's or super's outputs moved")
+        fp32_ms = widened(torch, what, lambda p, c, args=args: (
+            la.lloyd_assign_gated(p, args[1], c, *args[3:], block_n=bn,
+                                  tps=tps)), pts, c1, out1)
         ms, plain = timed(
             torch, lambda: la.lloyd_assign_gated(*args, block_n=bn, tps=tps),
             lambda: la.lloyd_assign_gated_torch(*args, block_n=bn, tps=tps))
@@ -683,14 +795,17 @@ def k6_case(torch, la, bounds, ops, pts, cache, k, gen):
         s_act = int(sup_act.sum())
         # an active row reads x and its three carries and writes label, D²
         # and lb; only a fresh row also reads its norm
-        bms, by = bound_ms(4 * (rows_act * (d + 6) + fresh + k * (d + 1)
-                                + 6 * t + s_act * k * (d + 1)),
-                           fresh * k * (2 * d + 3) + rows_act * (d + 4))
+        xb = pts.element_size()
+        bms, by = round_bound_ms(
+            torch, pts, xb * (rows_act * d + k * d)
+            + 4 * (rows_act * 6 + fresh + k + 6 * t + s_act * k * (d + 1)),
+            fresh * k * 2 * d, fresh * k * 3 + rows_act * (d + 4))
         res.append(dict(n=n, d=d, k=k, mask=name, block_n=bn, tps=tps,
+                        stream=stream_tag(torch, pts),
                         active_tiles=int(act.sum()), tiles=t,
                         pruned=n_pruned, label_diffs=int(diff.sum()),
                         max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
-                        bound_ms=bms, bound_by=by))
+                        fp32_ms=fp32_ms, bound_ms=bms, bound_by=by))
     return res
 
 
@@ -822,6 +937,183 @@ def same_fit(torch, a, b) -> bool:
             and torch.equal(a.inertia, b.inertia)
             and torch.equal(torch.as_tensor(a.n_iters).long().cpu(),
                             torch.as_tensor(b.n_iters).long().cpu()))
+
+
+def counted_as(what, got, want_nonzero) -> None:
+    """Every launch counter is 0 but those named, which hold their counts."""
+    want = {name: 0 for name in got}
+    want.update(want_nonzero)
+    check(got == want, f"{what}: launches "
+          f"{ {n: c for n, c in got.items() if c} }, want {want_nonzero}")
+
+
+def bf16_main_path(torch, ops, ClusterEngine, Draws, pts, full, dev,
+                   launches) -> list:
+    """The main path under ``precision="bf16"`` at ``full``: ``kmeans`` for
+    cdf and tiled, gated and ungated, counted (gated: K1 once, bf16 K5 k
+    times, bf16 K6 n_iters times; ungated: bf16 K2 k, bf16 K3 n_iters; no
+    fp32 round), each bitwise a second run and a bf16 seed then fit from
+    the same draws; the Lloyd inertia within 15% of an fp32 fit from the
+    same seeds (the reference's pin, ``tests/test_engine.py:527-545``);
+    gated against ungated, the seeds and labels that differ are printed
+    (not a gate: under bf16 the gate suppresses bf16-noise updates that
+    its bound proves spurious, as the reference's does)."""
+    k = full.k
+    eng32 = ClusterEngine(device="cuda")
+    runs = []
+    for sampler in ("cdf", "tiled"):
+        draws = Draws.sample(pts.shape[0], k,
+                             generator=torch.Generator().manual_seed(0),
+                             device=dev)
+        out = {}
+        for tag, on in (("gated", True), ("ungated", False)):
+            eng = ClusterEngine(device="cuda", precision="bf16", bounds=on)
+            what = f"bf16 kmeans[{sampler}, {tag}]"
+            res, total_s, got = kmeans_run(torch, ops, eng, pts, k, sampler,
+                                           draws, max_iters=full.max_iters)
+            for name in launches:
+                launches[name] += got[name]
+            counted_as(what, got, dict(
+                seed_prologue=1, distance_min_update_gated_bf16=k,
+                lloyd_assign_gated_bf16=res.n_iters) if on else dict(
+                distance_min_update_bf16=k,
+                lloyd_assign_tiled_bf16=res.n_iters))
+            check(tuple(res.centroids.shape) == (k, full.dim)
+                  and res.centroids.dtype == torch.float32
+                  and bool(torch.isfinite(res.centroids).all())
+                  and bool(torch.isfinite(res.inertia))
+                  and int(res.assignment.min()) >= 0
+                  and int(res.assignment.max()) < k,
+                  f"{what}: output malformed")
+            again = kmeans_run(torch, ops, eng, pts, k, sampler, draws,
+                               max_iters=full.max_iters)[0]
+            check(same_fit(torch, again, res), f"{what}: two runs differ")
+            # kmeans seeds at the fit's tile geometry: an engine whose
+            # backend budgets for k centroids seeds the same way
+            eng_k = ClusterEngine(eng.backend.__class__(tile_m=k),
+                                  device="cuda", precision="bf16", bounds=on)
+            seeds = eng_k.seed(pts, k, draws=draws, sampler=sampler)
+            fit = eng_k.fit(pts, seeds.centroids, max_iters=full.max_iters)
+            check(same_fit(torch, fit, res),
+                  f"{what}: not its seeding then its fit")
+            fit32 = eng32.fit(pts, seeds.centroids, max_iters=full.max_iters)
+            rel = abs(float(res.inertia) - float(fit32.inertia)) \
+                / float(fit32.inertia)
+            check(rel < 0.15, f"{what}: inertia {float(res.inertia)} is "
+                  f"{rel:.3g} off the fp32 fit's {float(fit32.inertia)}")
+            out[tag] = (res, seeds)
+            runs.append(dict(sampler=sampler, gated=on, n_iters=res.n_iters,
+                             inertia=float(res.inertia),
+                             fp32_fit_inertia=float(fit32.inertia),
+                             inertia_rel_diff=rel, kmeans_s=total_s,
+                             launches={n: c for n, c in got.items() if c},
+                             repeat_bitwise=True))
+            print(f"{what} at {full.name}: {total_s:.3f} s, n_iters "
+                  f"{res.n_iters}, inertia {float(res.inertia):.6g} against "
+                  f"the fp32 fit's {float(fit32.inertia):.6g} from the same "
+                  f"seeds (rel {rel:.3g}); two runs bitwise; launches "
+                  f"{runs[-1]['launches']}")
+        (g, gs), (u, us) = out["gated"], out["ungated"]
+        seed_diff = int((gs.indices != us.indices).sum())
+        label_diff = int((g.assignment != u.assignment).sum())
+        runs[-1].update(gated_vs_ungated_seeds=seed_diff,
+                        gated_vs_ungated_labels=label_diff)
+        print(f"bf16 kmeans[{sampler}]: gated against ungated, {seed_diff} "
+              f"of {k} seeds and {label_diff} of {pts.shape[0]} labels "
+              "differ (not a gate)")
+    return runs
+
+
+def bf16_entry_points(torch, ops, bounds, ClusterEngine, Draws, paper,
+                      paper_np, wts, kvq_pts, full, kvq, dev, launches,
+                      batch_rows=262_144) -> dict:
+    """The other entry points under ``precision="bf16"``, each counted and
+    each run twice, bitwise: the weighted ``kmeans`` at ``full`` (cdf; K1
+    once, bf16 K2 k times, bf16 K4 n_iters times), ``fit_minibatch`` over
+    ``full`` from host memory (bf16 K4 once per batch), ``kmeans_batched``
+    at ``kvq`` gated (the batched K1 twice, bf16 K8 k times, bf16 K10b per
+    iteration of the slowest problem) and ungated (bf16 K7, bf16 K10a), and
+    K9's path, ``ops.lloyd_assign`` on the sweep's bf16 rows against the
+    gated run's codebooks rounded to bf16, on the fp32 rows' norms (bf16
+    K9 once)."""
+    k = full.k
+    eng = ClusterEngine(device="cuda", precision="bf16")
+    out = {}
+
+    def twice(what, fn, want):
+        res, secs, got = counted(torch, ops, fn)
+        for name in launches:
+            launches[name] += got[name]
+        counted_as(what, got, want(res))
+        check(same_fit(torch, fn(), res), f"{what}: two runs differ")
+        return res, secs, got
+
+    wdraws = Draws.sample(full.n_points, k, weighted=True, device=dev,
+                          generator=torch.Generator().manual_seed(0))
+    res, secs, _ = twice(
+        "bf16 weighted kmeans[cdf]",
+        lambda: eng.kmeans(paper, k, weights=wts, draws=wdraws,
+                           max_iters=full.max_iters),
+        lambda r: dict(seed_prologue=1, distance_min_update_bf16=k,
+                       lloyd_assign_bf16=r.n_iters))
+    out["weighted_kmeans"] = dict(s=secs, n_iters=res.n_iters,
+                                  inertia=float(res.inertia))
+    print(f"bf16 weighted kmeans[cdf] at {full.name}: {secs:.3f} s, n_iters "
+          f"{res.n_iters}, inertia {float(res.inertia):.6g}; counted, two "
+          "runs bitwise")
+    n_b = -(-full.n_points // batch_rows)
+    init = paper[:k].clone()
+    res, secs, _ = twice(
+        "bf16 fit_minibatch",
+        lambda: eng.fit_minibatch(
+            init, lambda i: paper_np[i * batch_rows:(i + 1) * batch_rows],
+            n_batches=n_b),
+        lambda r: dict(lloyd_assign_bf16=n_b))
+    out["fit_minibatch"] = dict(s=secs, ms_per_batch=secs * 1e3 / n_b)
+    print(f"bf16 fit_minibatch over {full.name}, {n_b} batches: "
+          f"{secs * 1e3 / n_b:.3f} ms per batch; counted, two runs bitwise")
+    for tag, on in (("gated", True), ("ungated", False)):
+        e = ClusterEngine(device="cuda", precision="bf16", bounds=on)
+        draws = Draws.sample_batched(kvq.batch, kvq.n_points, kvq.k,
+                                     generator=torch.Generator()
+                                     .manual_seed(0), device=dev)
+        res, secs, _ = twice(
+            f"bf16 kmeans_batched[cdf, {tag}]",
+            lambda e=e, draws=draws: e.kmeans_batched(
+                kvq_pts, kvq.k, draws=draws, max_iters=kvq.max_iters),
+            lambda r, on=on: dict(
+                seed_prologue_batched=2,
+                distance_min_update_gated_batched_bf16=kvq.k,
+                lloyd_assign_gated_batched_bf16=int(r.n_iters.max()))
+            if on else dict(distance_min_update_batched_bf16=kvq.k,
+                            lloyd_assign_tiled_batched_bf16=int(
+                                r.n_iters.max())))
+        check(bool(torch.isfinite(res.inertia).all())
+              and res.centroids.dtype == torch.float32,
+              f"bf16 kmeans_batched[{tag}]: output malformed")
+        out[f"kmeans_batched_{tag}"] = dict(
+            s=secs, n_iters_max=int(res.n_iters.max()),
+            inertia_mean=float(res.inertia.mean()))
+        if on:
+            book = res.centroids
+        print(f"bf16 kmeans_batched[cdf, {tag}] at {kvq.name}: {secs:.3f} s, "
+              f"n_iters max {int(res.n_iters.max())}, mean inertia "
+              f"{float(res.inertia.mean()):.6g}; counted, two runs bitwise")
+    knorms = bounds.point_norms(kvq_pts)
+    kvq16, book16 = kvq_pts.bfloat16(), book.bfloat16()
+    del book
+    codes, secs, got = counted(torch, ops, lambda: ops.lloyd_assign(
+        kvq16, book16, norms=knorms))
+    for name in launches:
+        launches[name] += got[name]
+    counted_as("bf16 K9 path", got, dict(lloyd_assign_batched_bf16=1))
+    again = ops.lloyd_assign(kvq16, book16, norms=knorms)
+    check(all(torch.equal(a, b) for a, b in zip(codes, again)),
+          "bf16 K9 path: two runs differ")
+    out["k9_path_ms"] = secs * 1e3
+    print(f"bf16 K9 path (ops.lloyd_assign, B={kvq.batch}): "
+          f"{secs * 1e3:.2f} ms, one bf16 K9 launch, two runs bitwise")
+    return out
 
 
 def rejection_phase(torch, ops, kd, bounds, telemetry, Draws, eng, ungated,
@@ -1012,15 +1304,22 @@ def k7_case(torch, kd, ops, pts, norms, m, gen):
                                         block_n=bn)
         check(all(torch.equal(u[b], v) for u, v in zip(out1, single)),
               f"K7 m={m}: problem {b} is not bitwise K2 on its slice")
+    fp32_ms = widened(torch, f"K7 m={m}", lambda p, c: (
+        kd.distance_min_update_batched(p, norms, c, md_in, block_n=bn)),
+        pts, cents, out1)
     ms = gpu_ms(torch, lambda: kd.distance_min_update_batched(
         pts, norms, cents, md_in, block_n=bn))
     plain = gpu_ms(torch, lambda: kd.distance_min_update_batched_torch(
         pts, norms, cents, md_in, block_n=bn), reps=1, warmup=0)
     t = -(-n // bn)
-    bms, by = bound_ms(4 * bsz * (n * d + 3 * n + m * d + t),
-                       bsz * n * m * (2 * d + 3))
-    return dict(batch=bsz, n=n, d=d, m=m, block_n=bn, max_abs_err=err_md,
-                tol=tol, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+    xb = pts.element_size()
+    bms, by = round_bound_ms(
+        torch, pts, bsz * (xb * (n * d + m * d) + 4 * (3 * n + t)),
+        bsz * n * m * 2 * d, bsz * n * m * 3)
+    return dict(batch=bsz, n=n, d=d, m=m, block_n=bn,
+                stream=stream_tag(torch, pts), max_abs_err=err_md, tol=tol,
+                ms=ms, plain_ms=plain, fp32_ms=fp32_ms, bound_ms=bms,
+                bound_by=by)
 
 
 def k10a_case(torch, la, kd, ops, bounds, pts, norms, k, gen):
@@ -1069,16 +1368,22 @@ def k10a_case(torch, la, kd, ops, bounds, pts, norms, k, gen):
                                        block_n=bn, tps=tps)
         check(all(torch.equal(u[b], v) for u, v in zip(out1, single)),
               f"K10a k={k}: problem {b} is not bitwise K3 on its slice")
+    fp32_ms = widened(torch, f"K10a k={k}", lambda p, c: (
+        la.lloyd_assign_tiled_batched(p, norms, c, block_n=bn, tps=tps)),
+        pts, cents, out1, reps=5)
     ms = gpu_ms(torch, lambda: la.lloyd_assign_tiled_batched(
         pts, norms, cents, block_n=bn, tps=tps), reps=5)
     plain = gpu_ms(torch, lambda: la.lloyd_assign_tiled_batched_torch(
         pts, norms, cents, block_n=bn, tps=tps), reps=1, warmup=0)
-    bms, by = bound_ms(4 * bsz * (n * d + 3 * n + k * d + 2 * t
-                                  + n_super * k * (d + 1)),
-                       bsz * (n * k * (2 * d + 3) + n * d))
+    xb = pts.element_size()
+    bms, by = round_bound_ms(
+        torch, pts, bsz * (xb * (n * d + k * d)
+                           + 4 * (3 * n + 2 * t + n_super * k * (d + 1))),
+        bsz * n * k * 2 * d, bsz * (n * k * 3 + n * d))
     return dict(batch=bsz, n=n, d=d, k=k, block_n=bn, tps=tps,
-                label_diffs=n_diff, max_abs_err=err_md, tol=tol, ms=ms,
-                plain_ms=plain, bound_ms=bms, bound_by=by)
+                stream=stream_tag(torch, pts), label_diffs=n_diff,
+                max_abs_err=err_md, tol=tol, ms=ms, plain_ms=plain,
+                fp32_ms=fp32_ms, bound_ms=bms, bound_by=by)
 
 
 def row(res, b):
@@ -1101,8 +1406,17 @@ def batched_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws, pts,
                     for m in (1, 8)],
              "K10a": [k10a_case(torch, la, kd, ops, bounds, pts, norms, k,
                                 gen)]}
-    del norms
+    # the bf16 stream: m = 1 (a seeding round's), the norms the fp32 points'
+    pts16 = pts.bfloat16()
+    cases["K7 bf16"] = [k7_case(torch, kd, ops, pts16, norms, 1, gen)]
+    cases["K10a bf16"] = [k10a_case(torch, la, kd, ops, bounds, pts16, norms,
+                                    k, gen)]
+    del norms, pts16
     for name, cs in cases.items():
+        if name.endswith("bf16"):
+            for c in cs:
+                print_bf16(name.split()[0], c)
+            continue
         for c in cs:
             print(f"{name} B={c['batch']} n={c['n']} d={c['d']} "
                   + (f"m={c['m']}" if name == "K7" else
@@ -1289,10 +1603,21 @@ def k8_case(torch, kd, bounds, ops, pts, cache, md_in, cents, mask):
         check(all(torch.equal(u[b], v) for u, v in zip(out1, single)),
               f"{what}: problem {b} is not bitwise K5 on its slice")
     if mask == "all":
+        # as K5 against K2: K7's bits but on the pruned rows (fp32: all)
         k7 = kd.distance_min_update_batched(pts, cache.norms, cents, md_in,
                                             block_n=bn)
-        check(torch.equal(out1[0], k7[0]) and torch.equal(out1[1], k7[1]),
-              f"{what}: all-active K8 is not bitwise K7")
+        prune = bounds.seed_point_prune(
+            md_in, cache.center_d, bounds.expand_mask(dc, bn, n),
+            bounds.expand_mask(margin, bn, n))
+        check(torch.equal(out1[0], torch.where(prune, md_in, k7[0]))
+              and (pts.dtype != torch.float32
+                   or (torch.equal(out1[0], k7[0])
+                       and torch.equal(out1[1], k7[1]))),
+              f"{what}: all-active K8 is not K7 but on its pruned rows")
+    fp32_ms = widened(torch, what, lambda p, c: (
+        kd.distance_min_update_gated_batched(p, args[1], c, *args[3:],
+                                             block_n=bn)),
+        pts, cents, out1, reps=5)
     ms = gpu_ms(torch, lambda: kd.distance_min_update_gated_batched(
         *args, block_n=bn), reps=5)
     plain = gpu_ms(torch, lambda: kd.distance_min_update_gated_batched_torch(
@@ -1302,23 +1627,26 @@ def k8_case(torch, kd, bounds, ops, pts, cache, md_in, cents, mask):
     fresh = rows_act - n_pruned
     # an active row reads md and center_d and writes md; a fresh row also
     # reads x and its norm; each tile's gate scalars, carries and outputs
-    bms, by = bound_ms(4 * (3 * rows_act + fresh * (d + 1) + bsz * m * d
-                            + 7 * bsz * t),
-                       fresh * m * (2 * d + 3) + rows_act * 6)
+    xb = pts.element_size()
+    bms, by = round_bound_ms(torch, pts, xb * (fresh * d + bsz * m * d)
+                             + 4 * (3 * rows_act + fresh + 7 * bsz * t),
+                             fresh * m * 2 * d, fresh * m * 3 + rows_act * 6)
     return dict(batch=bsz, n=n, d=d, m=m, mask=mask, block_n=bn,
-                active_tiles=int(act.sum()), tiles=bsz * t, pruned=n_pruned,
-                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
-                bound_ms=bms, bound_by=by)
+                stream=stream_tag(torch, pts), active_tiles=int(act.sum()),
+                tiles=bsz * t, pruned=n_pruned, max_abs_err=err, tol=tol,
+                ms=ms, plain_ms=plain, fp32_ms=fp32_ms, bound_ms=bms,
+                bound_by=by)
 
 
-def k10b_case(torch, la, kd, bounds, ops, pts, cache, k, gen):
+def k10b_case(torch, la, kd, bounds, ops, pts, cache, k, gen, only=None):
     """K10b from a carried state of every problem: one all-active launch
     with no carried bound (held bitwise to K10a) gives the state; two
     centroids of each problem then move a little, so the rows of unmoved
     clusters prune. Masks: every tile, mixed (problem 0 every other super,
     problem 1 none, the others all but super b % n_super), and the movement
-    gate's. Two launches bitwise; against the plain twin; skipped tiles and
-    supers keep their carries; rows 0, 1 and B−1 bitwise K6."""
+    gate's (``only`` names a subset). Two launches bitwise; against the
+    plain twin; skipped tiles and supers keep their carries; rows 0, 1 and
+    B−1 bitwise K6."""
     bsz, n, d = pts.shape
     bn = ops.choose_block_n(n, d, k)
     t = -(-n // bn)
@@ -1326,17 +1654,19 @@ def k10b_case(torch, la, kd, bounds, ops, pts, cache, k, gen):
     s = -(-t // tps)
     dev = pts.device
     idx = torch.randint(n, (bsz, k, 1), generator=gen, device=dev)
-    c0 = (torch.take_along_dim(pts, idx, dim=1) + 0.01).contiguous()
+    # the centroid carry is fp32, the kernel gets it in the stream's dtype
+    c0 = (torch.take_along_dim(pts, idx, dim=1).float() + 0.01).contiguous()
+    c0k = c0.to(pts.dtype)
     all_on = torch.ones((bsz, t), dtype=torch.bool, device=dev)
     zt = torch.zeros((bsz, t), device=dev)
     first = la.lloyd_assign_gated_batched(
-        pts, cache.norms, c0, torch.zeros((bsz, k), device=dev), zt, zt,
+        pts, cache.norms, c0k, torch.zeros((bsz, k), device=dev), zt, zt,
         torch.zeros((bsz, n), dtype=torch.int32, device=dev),
         torch.zeros((bsz, n), device=dev),
         torch.full((bsz, n), -torch.inf, device=dev), zt, zt,
         torch.zeros((bsz, s, k, d), device=dev),
         torch.zeros((bsz, s, k), device=dev), all_on, block_n=bn, tps=tps)
-    k10a = la.lloyd_assign_tiled_batched(pts, cache.norms, c0, block_n=bn,
+    k10a = la.lloyd_assign_tiled_batched(pts, cache.norms, c0k, block_n=bn,
                                          tps=tps)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(
@@ -1351,6 +1681,7 @@ def k10b_case(torch, la, kd, bounds, ops, pts, cache, k, gen):
                            min_d2=first[1], point_lb=first[2], lb_debt=zt)
     del first
     delta = bounds.centroid_movement(c1, c0)
+    c1 = c1.to(pts.dtype)
     thresh, absorb = bounds.assign_point_scalars(delta, c1, st, cache)
     sup = torch.ones((bsz, s), dtype=torch.bool, device=dev)
     ar = torch.arange(bsz, device=dev)
@@ -1364,6 +1695,8 @@ def k10b_case(torch, la, kd, bounds, ops, pts, cache, k, gen):
     tol = d2_tol(torch, cache.norms, c1.reshape(-1, d))
     res = []
     for name, act in masks.items():
+        if only is not None and name not in only:
+            continue
         what = f"K10b k={k} mask={name}"
         args = (pts, cache.norms, c1, delta, thresh, absorb, st.assignment,
                 st.min_d2, st.point_lb, st.partials, st.tile_gap,
@@ -1420,6 +1753,10 @@ def k10b_case(torch, la, kd, bounds, ops, pts, cache, k, gen):
             check(all(torch.equal(u[b], v) for u, v in zip(out1, single)),
                   f"{what}: problem {b} is not bitwise K6 on its slice")
         del ref
+        fp32_ms = widened(torch, what, lambda p, c, args=args: (
+            la.lloyd_assign_gated_batched(p, args[1], c, *args[3:],
+                                          block_n=bn, tps=tps)),
+            pts, c1, out1, reps=5) if name == "gate" else None
         ms = gpu_ms(torch, lambda: la.lloyd_assign_gated_batched(
             *args, block_n=bn, tps=tps), reps=5)
         plain = gpu_ms(torch, lambda: la.lloyd_assign_gated_batched_torch(
@@ -1429,15 +1766,18 @@ def k10b_case(torch, la, kd, bounds, ops, pts, cache, k, gen):
         n_pruned = int(out1[7].sum())
         fresh = rows_act - n_pruned
         s_act = int(sup_act.sum())
-        bms, by = bound_ms(4 * (rows_act * (d + 6) + fresh
-                                + bsz * k * (d + 1) + 6 * bsz * t
-                                + s_act * k * (d + 1)),
-                           fresh * k * (2 * d + 3) + rows_act * (d + 4))
+        xb = pts.element_size()
+        bms, by = round_bound_ms(
+            torch, pts, xb * (rows_act * d + bsz * k * d)
+            + 4 * (rows_act * 6 + fresh + bsz * k + 6 * bsz * t
+                   + s_act * k * (d + 1)),
+            fresh * k * 2 * d, fresh * k * 3 + rows_act * (d + 4))
         res.append(dict(batch=bsz, n=n, d=d, k=k, mask=name, block_n=bn,
-                        tps=tps, active_tiles=int(act.sum()), tiles=bsz * t,
+                        tps=tps, stream=stream_tag(torch, pts),
+                        active_tiles=int(act.sum()), tiles=bsz * t,
                         pruned=n_pruned, label_diffs=n_diff,
                         max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
-                        bound_ms=bms, bound_by=by))
+                        fp32_ms=fp32_ms, bound_ms=bms, bound_by=by))
         del out1
     return res
 
@@ -1477,13 +1817,23 @@ def gated_batched_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws,
     cases["K8"] = [k8_case(torch, kd, bounds, ops, pts, cache, md_in,
                            picks[:, :m].contiguous(), mask)
                    for m in (1, 8) for mask in ("gate", "all", "mixed")]
+    pts16 = pts.bfloat16()
+    cases["K8 bf16"] = [k8_case(torch, kd, bounds, ops, pts16, cache, md_in,
+                                picks[:, :1].bfloat16(), mask)
+                        for mask in ("gate", "all")]
     del cache, md_in, picks
     cache = bounds.RoundCache(*kd.seed_prologue_batched(
         pts, ops.choose_block_n(n, d, k)))
     cases["K10b"] = k10b_case(torch, la, kd, bounds, ops, pts, cache, k, gen)
-    del cache
+    cases["K10b bf16"] = k10b_case(torch, la, kd, bounds, ops, pts16, cache,
+                                   k, gen, only=("gate",))
+    del cache, pts16
     torch.cuda.empty_cache()
     for name, cs in cases.items():
+        if name.endswith("bf16"):
+            for c in cs:
+                print_bf16(name.split()[0], c)
+            continue
         for c in cs:
             print(f"{name} B={c['batch']} n={c['n']} d={c['d']}"
                   + (f" m={c['m']}" if "m" in c else "")
@@ -1621,16 +1971,21 @@ def k4_case(torch, la, ops, bounds, pts, norms, k, gen, w=None):
                                tps=bounds.tiles_per_super(-(-n // bn)))
     check(torch.equal(lab, k3[0]) and torch.equal(md, k3[1]),
           f"{tag}: labels or D² are not bitwise K3's")
+    fp32_ms = widened(torch, tag, lambda p, c: la.lloyd_assign(
+        p, norms, c, w, block_n=bn), pts, cents, out1)
     ms = gpu_ms(torch, lambda: la.lloyd_assign(pts, norms, cents, w,
                                                block_n=bn))
     plain = gpu_ms(torch, lambda: la.lloyd_assign_torch(pts, norms, cents,
                                                         w), reps=5)
     nw = 0 if w is None else n
-    bms, by = bound_ms(4 * (n * d + 3 * n + nw + k * d + k * (d + 1)),
-                       n * k * (2 * d + 3) + n * (d + 1) + (nw * d))
+    xb = pts.element_size()
+    bms, by = round_bound_ms(torch, pts, xb * (n * d + k * d)
+                             + 4 * (3 * n + nw + k * (d + 1)),
+                             n * k * 2 * d, n * k * 3 + n * (d + 1) + nw * d)
     return dict(n=n, d=d, k=k, weighted=w is not None, block_n=bn,
-                label_diffs=n_diff, max_abs_err=err_md, tol=tol,
-                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+                stream=stream_tag(torch, pts), label_diffs=n_diff,
+                max_abs_err=err_md, tol=tol, ms=ms, plain_ms=plain,
+                fp32_ms=fp32_ms, bound_ms=bms, bound_by=by)
 
 
 def k9_case(torch, la, kd, ops, pts, norms, k, gen):
@@ -1663,15 +2018,21 @@ def k9_case(torch, la, kd, ops, pts, norms, k, gen):
         single = la.lloyd_assign(pts[b], norms[b], cents[b], block_n=bn)
         check(all(torch.equal(u[b], v) for u, v in zip(out1, single)),
               f"K9 k={k}: problem {b} is not bitwise K4 on its slice")
+    fp32_ms = widened(torch, f"K9 k={k}", lambda p, c: (
+        la.lloyd_assign_batched(p, norms, c, block_n=bn)), pts, cents, out1,
+        reps=5)
     ms = gpu_ms(torch, lambda: la.lloyd_assign_batched(
         pts, norms, cents, block_n=bn), reps=5)
     plain = gpu_ms(torch, lambda: la.lloyd_assign_batched_torch(
         pts, norms, cents), reps=1, warmup=0)
-    bms, by = bound_ms(4 * bsz * (n * d + 3 * n + k * d + k * (d + 1)),
-                       bsz * (n * k * (2 * d + 3) + n * (d + 1)))
+    xb = pts.element_size()
+    bms, by = round_bound_ms(
+        torch, pts, bsz * (xb * (n * d + k * d) + 4 * (3 * n + k * (d + 1))),
+        bsz * n * k * 2 * d, bsz * (n * k * 3 + n * (d + 1)))
     return dict(batch=bsz, n=n, d=d, k=k, block_n=bn,
-                label_diffs=n_diff, max_abs_err=err_md, tol=tol, ms=ms,
-                plain_ms=plain, bound_ms=bms, bound_by=by)
+                stream=stream_tag(torch, pts), label_diffs=n_diff,
+                max_abs_err=err_md, tol=tol, ms=ms, plain_ms=plain,
+                fp32_ms=fp32_ms, bound_ms=bms, bound_by=by)
 
 
 def weighted_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws, paper,
@@ -1701,6 +2062,11 @@ def weighted_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws, paper,
     cases["K4"].append(k4_case(torch, la, ops, bounds, wide,
                                bounds.point_norms(wide), 64, gen))
     del wide
+    # the bf16 stream: the weighted fit's round and the mini-batch one
+    cases["K4 bf16"] = [k4_case(torch, la, ops, bounds, paper.bfloat16(),
+                                norms, k, gen, w) for w in (wts, None)]
+    for c in cases["K4 bf16"]:
+        print_bf16("K4" + (" weighted" if c["weighted"] else ""), c)
     for c in cases["K4"]:
         print(f"K4 n={c['n']} d={c['d']} k={c['k']}"
               + (" weighted" if c["weighted"] else "")
@@ -1709,6 +2075,9 @@ def weighted_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws, paper,
               f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, bound "
               f"{c['bound_ms']:.4f} ms ({c['bound_by']})")
     knorms = bounds.point_norms(kvq_pts)
+    cases["K9 bf16"] = [k9_case(torch, la, kd, ops, kvq_pts.bfloat16(),
+                                knorms, kvq.k, gen)]
+    print_bf16("K9", cases["K9 bf16"][0])
     c = k9_case(torch, la, kd, ops, kvq_pts, knorms, kvq.k, gen)
     cases["K9"].append(c)
     print(f"K9 B={c['batch']} n={c['n']} d={c['d']} k={c['k']} label diffs "
@@ -2541,7 +2910,8 @@ def main() -> int:
     # 2. kernels against their plain twins
     wide = torch.rand((100_003, 128), generator=gen, device=dev)
     cases = {"K1": [], "K2": [], "K3": [], "K5": [], "K6": [], "K11": [],
-             "K12": []}
+             "K12": [], "K2 bf16": [], "K3 bf16": [], "K5 bf16": [],
+             "K6 bf16": []}
     for pts, k_wide in ((paper, FULL.k), (wide, 64)):
         n, d = pts.shape
         norms = bounds.point_norms(pts)
@@ -2567,6 +2937,17 @@ def main() -> int:
                   f"label diffs {c['label_diffs']} {c['ms']:.4f} ms, "
                   f"plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} "
                   f"ms ({c['bound_by']})")
+        # the bf16 stream (precision="bf16"): the points rounded to bf16,
+        # their norms the fp32 points'; K2 at m = 1, resident and not, K3
+        pts16 = pts.bfloat16()
+        for resident in (True, False):
+            cases["K2 bf16"].append(k2_case(torch, kd, ops, pts16, norms, 1,
+                                            resident, gen))
+            print_bf16("K2", cases["K2 bf16"][-1])
+        for kk in (k_wide, 1):
+            cases["K3 bf16"].append(k3_case(torch, la, ops, bounds, pts16,
+                                            norms, kk, gen))
+            print_bf16("K3", cases["K3 bf16"][-1])
         # the gated seeding round on a mid-seeding state: D² to 8 earlier
         # seeds; at the paper's shape on the label-sorted copy
         gpts = paper_sorted if pts is paper else pts
@@ -2589,6 +2970,14 @@ def main() -> int:
                           f"{c['max_abs_err']:.3g} (tol {c['tol']:.3g}) "
                           f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
                           f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+        # bf16: m = 1, the gate's mask and all active (bitwise bf16 K2),
+        # resident, and the gate's mask not resident
+        for resident, mask in ((True, "gate"), (True, "all"),
+                               (False, "gate")):
+            cases["K5 bf16"].append(k5_case(
+                torch, kd, bounds, ops, gpts.bfloat16(), cache, md_in,
+                gpts[rows[:1]].bfloat16(), mask, resident))
+            print_bf16("K5", cases["K5 bf16"][-1])
         del md_in
         for kk in (k_wide, 1):
             cache = bounds.prologue(pts, ops.choose_block_n(n, d, kk))
@@ -2601,7 +2990,11 @@ def main() -> int:
                       f"diffs {c['label_diffs']} {c['ms']:.4f} ms, plain "
                       f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
                       f"({c['bound_by']})")
-        del cache
+            # bf16: the centroid carry fp32, the kernel's centroids bf16
+            for c in k6_case(torch, la, bounds, ops, pts16, cache, kk, gen):
+                cases["K6 bf16"].append(c)
+                print_bf16("K6", c)
+        del cache, pts16
         # the rejection kernels: K12 over K1's balls at the seeding tiles
         _, centers, radii, _ = kd.seed_prologue(pts, ops.choose_block_n(n, d,
                                                                         50))
@@ -2722,6 +3115,10 @@ def main() -> int:
                      f"match, inertia rel diff {run['inertia_rel_diff']:.3g}"
                      if layout == "shuffled" else ""))
     report["main_path"] = runs
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 3 (bf16)")
+    report["main_path_bf16"] = bf16_main_path(torch, ops, ClusterEngine,
+                                              Draws, paper, FULL, dev,
+                                              launches)
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 4")
     # 4. rejection seeding at the paper's size: both layouts, both proposals
@@ -2766,6 +3163,10 @@ def main() -> int:
                                   KVQ, dev, launches, gen)
     cases.update(wcases)
     report["weighted"] = wrun
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 7 (bf16)")
+    report["bf16_entry_points"] = bf16_entry_points(
+        torch, ops, bounds, ClusterEngine, Draws, paper, paper_np, wts,
+        kvq_pts, FULL, KVQ, dev, launches)
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 8")
     # 8. IVF serving and KV-cache PQ at IVF_SIFT1M's shape, and order= at
@@ -2841,6 +3242,13 @@ def main() -> int:
             wseeds.centroids, lambda i: paper_np[i * 262_144:
                                                  (i + 1) * 262_144],
             n_batches=-(-FULL.n_points // 262_144)))
+        # the bf16 stream: one cast of the points per call, none per round
+        e16 = ClusterEngine(device="cuda", precision="bf16")
+        s16 = e16.seed(paper, k, generator=torch.Generator().manual_seed(0))
+        phases["bf16 gated seed[cdf]"] = (lambda: e16.seed(
+            paper, k, generator=torch.Generator().manual_seed(0)))
+        phases["bf16 gated fit"] = (lambda: e16.fit(
+            paper, s16.centroids, max_iters=FULL.max_iters))
         for name, fn in phases.items():
             fn()                                   # warm
             p = profile_call(torch, fn)
@@ -2914,6 +3322,43 @@ def main() -> int:
               "src/repro/kernels/ivf_scan.py:249", cases["K14"][0], "K14"),
         entry("pq_decode_attention", "pq_decode.cu",
               "src/repro/kernels/pq_decode.py:89", cases["K16"][0], "K16"),
+        # the rounds' bf16 instances (precision="bf16"): the same template
+        # on the bf16 stream, each in the shape and case its fp32 one is
+        *(entry(f"{fn}_bf16", src, replaces, case, errs) for fn, src,
+          replaces, case, errs in (
+            ("distance_min_update", "kmeans_distance.cu",
+             "src/repro/kernels/kmeans_distance.py:99",
+             main_case("K2 bf16", lambda c: c["resident"]), "K2 bf16"),
+            ("lloyd_assign_tiled", "lloyd_assign.cu",
+             "src/repro/kernels/lloyd_assign.py:324",
+             main_case("K3 bf16", lambda c: c["k"] == FULL.k), "K3 bf16"),
+            ("distance_min_update_gated", "kmeans_distance.cu",
+             "src/repro/kernels/kmeans_distance.py:192",
+             main_case("K5 bf16", lambda c: c["resident"]
+                       and c["mask"] == "gate"), "K5 bf16"),
+            ("lloyd_assign_gated", "lloyd_assign.cu",
+             "src/repro/kernels/lloyd_assign.py:416",
+             main_case("K6 bf16", lambda c: c["k"] == FULL.k
+                       and c["mask"] == "gate"), "K6 bf16"),
+            ("distance_min_update_batched", "kmeans_distance.cu",
+             "src/repro/kernels/kmeans_distance.py:466",
+             cases["K7 bf16"][0], "K7 bf16"),
+            ("lloyd_assign_tiled_batched", "lloyd_assign.cu",
+             "src/repro/kernels/lloyd_assign.py:530",
+             cases["K10a bf16"][0], "K10a bf16"),
+            ("distance_min_update_gated_batched", "kmeans_distance.cu",
+             "src/repro/kernels/kmeans_distance.py:540",
+             next(c for c in cases["K8 bf16"] if c["mask"] == "gate"),
+             "K8 bf16"),
+            ("lloyd_assign_gated_batched", "lloyd_assign.cu",
+             "src/repro/kernels/lloyd_assign.py:609",
+             cases["K10b bf16"][0], "K10b bf16"),
+            ("lloyd_assign", "lloyd_assign.cu",
+             "src/repro/kernels/lloyd_assign.py:98",
+             main_case("K4 bf16", lambda c: c["weighted"]), "K4 bf16"),
+            ("lloyd_assign_batched", "lloyd_assign.cu",
+             "src/repro/kernels/lloyd_assign.py:184", cases["K9 bf16"][0],
+             "K9 bf16"))),
         # K15's two kernels, each with its error over its dtype's runs and
         # its yardstick, SDPA at cap 0 in the same dtype
         *(dict(entry(fn, "flash_attention.cu",
@@ -2925,6 +3370,10 @@ def main() -> int:
           for fn, i, dt in (("flash_attention", 0, "float32"),
                             ("flash_attention_bf16", 1, "bfloat16"))),
     ]}
+    check(all(e["launches"] > 0 for e in record["kernels"]),
+          "kernels the run never launched: "
+          + ", ".join(e["name"] for e in record["kernels"]
+                      if not e["launches"]))
     report.update(record)
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)

@@ -32,6 +32,17 @@ against:
 
 Gating is exact: the fp32 results are bitwise those of ``bounds=False``.
 
+Precision: ``precision="bf16"`` streams a bf16 copy of the points, made
+once per call (``_stream_of``), through every seeding and assignment round,
+each round's centroids rounded to bf16 with it; the kernels widen both
+exactly and keep fp32 arithmetic. The norms (from the prologue, over the
+fp32 points), D², the bound state, the accumulators and the centroid carry
+stay fp32, seeds are taken from the fp32 points, the rejection sampler's
+row D² reads them, and the centroids come back fp32, as in the reference.
+Under bf16 the gate suppresses bf16-noise updates that its bound proves
+spurious, so gated and ungated results may differ there, as the
+reference's do; the bitwise gated == ungated guarantee is fp32's.
+
 ``CudaBackend`` runs them through the hand-written kernels (K1 prologue, K2
 and K5 seeding rounds, K3 and K6 assignment rounds, K4 the untiled one;
 for batched problems K1's batched form, K7 and K8, K10a and K10b; K11 and
@@ -887,13 +898,15 @@ def _seed_rejection(draws: Draws, pts, k, backend: Backend,
                     cache: RoundCache, tile: int,
                     init_state: Optional[BoundState], *, refresh_block: int,
                     proposal: str, max_attempts: int, guard: bool,
-                    first: torch.Tensor, w: Optional[torch.Tensor] = None,
+                    first: torch.Tensor, stream: torch.Tensor,
+                    w: Optional[torch.Tensor] = None,
                     fault=None) -> KmeansppResult:
     """The rejection branch of :func:`seed_points`: the proposal, pricing,
     fallback and prep functions for ``proposal`` 'hier' or 'flat', then
     :func:`_seed_rejection_loop`. With point weights ``w`` a drawn row's
     exact weight is ``w_i · row_min_d2`` and the hier cap bounds a tile's
-    mass through the weights' own tile sums."""
+    mass through the weights' own tile sums. The refreshes fold through
+    ``stream`` (the rounds' points); the drawn row's D² reads ``pts``."""
     n, d = pts.shape
     dev = pts.device
     n_tiles = -(-n // tile)
@@ -974,8 +987,9 @@ def _seed_rejection(draws: Draws, pts, k, backend: Backend,
     (centroids, indices, min_d2, skips, prunes, props, accs, rec, tights,
      sups) = _seed_rejection_loop(
         draws, pts, k,
-        round_fn=lambda c, md, st: be.seed_round(pts, c, md, cache=cache,
-                                                 state=st, **_weighted(w)),
+        round_fn=lambda c, md, st: be.seed_round(
+            stream, c.to(stream.dtype), md, cache=cache, state=st,
+            **_weighted(w)),
         propose_fn=propose_fn, pq_fn=pq_fn, fallback_fn=fallback_fn,
         prep_fn=prep_fn, n_tiles=n_tiles, refresh_block=refresh_block,
         max_attempts=max_attempts,
@@ -1011,6 +1025,20 @@ def _first_seed(draws: Draws, w: Optional[torch.Tensor], sampler: str,
     return sampling.categorical_tiled(u, fb, w, parts, block_n=tile)
 
 
+def _check_precision(precision: str) -> None:
+    if precision not in ("fp32", "bf16"):
+        raise ValueError(f"unknown precision {precision!r}; "
+                         "expected 'fp32' or 'bf16'")
+
+
+def _stream_of(pts: torch.Tensor, precision: str) -> torch.Tensor:
+    """The points the seeding and assignment rounds stream: a bf16 copy
+    under ``precision='bf16'`` (norms, D², accumulators and the bound state
+    stay fp32), the fp32 points themselves under 'fp32'."""
+    _check_precision(precision)
+    return pts.to(torch.bfloat16) if precision == "bf16" else pts
+
+
 def seed_points(draws: Draws, points: torch.Tensor, k: int,
                 backend: Backend, sampler: str = "cdf", *,
                 weights: Optional[torch.Tensor] = None,
@@ -1019,7 +1047,8 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
                 guard: bool = False, refresh_block: int = 8,
                 proposal: str = "hier",
                 max_attempts: int = _REJECT_ATTEMPTS,
-                fault=None) -> KmeansppResult:
+                fault=None,
+                stream: Optional[torch.Tensor] = None) -> KmeansppResult:
     """Full k-means++ seeding through ``backend``. Samplers: 'cdf' (full
     inverse CDF, the serial algorithm), 'tiled' (two-level inverse CDF
     from the round's per-tile partials — O(n/tile + tile) reads per draw,
@@ -1034,6 +1063,10 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
     it takes one exact draw; ``fault`` injects an envelope fault (tests).
     ``weights`` (n,) draw every seed ∝ D²·w, the first ∝ w (see
     :func:`_first_seed`; the draws need ``first_u``).
+    ``stream`` is the points the rounds read, the fp32 points by default;
+    :func:`_stream_of`'s bf16 copy under ``precision='bf16'``, each round's
+    centroids then rounded to bf16 (see the module's Precision note).
+    Seeds are taken from the fp32 points and the centroids come back fp32.
     The prologue runs once here unless a ``cache`` is passed in
     (``kmeans_points`` shares one across both phases). With ``bound_gate``
     the loop carries the per-tile bound state so each round skips every
@@ -1065,6 +1098,8 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
                          "reference")
     n, d = points.shape[-2:]
     pts = points.float()
+    if stream is None:
+        stream = pts
     if cache is None:
         cache = backend.prologue(pts, with_bounds=bound_gate)
     tile = backend.seed_tile(n, d)
@@ -1093,7 +1128,8 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
         return _seed_rejection(draws, pts, k, backend, cache, tile,
                                init_state, refresh_block=refresh_block,
                                proposal=proposal, max_attempts=max_attempts,
-                               guard=guard, first=first, w=w, fault=fault)
+                               guard=guard, first=first, stream=stream, w=w,
+                               fault=fault)
 
     if sampler == "tiled":
         def sample_fn(u, fb, weight, partials):
@@ -1109,12 +1145,12 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
 
     if lead:
         def round_fn(c, md, st):
-            return backend.seed_round_batched(pts, c, md, cache=cache,
-                                              state=st)
+            return backend.seed_round_batched(stream, c.to(stream.dtype), md,
+                                              cache=cache, state=st)
     else:
         def round_fn(c, md, st):
-            return backend.seed_round(pts, c, md, cache=cache, state=st,
-                                      **_weighted(w))
+            return backend.seed_round(stream, c.to(stream.dtype), md,
+                                      cache=cache, state=st, **_weighted(w))
 
     centroids, indices, min_d2, skips, prunes, rec = _seed_loop(
         draws, pts, k, round_fn=round_fn, sample_fn=sample_fn,
@@ -1140,7 +1176,8 @@ def _check_sampler(sampler: str) -> None:
 
 def _fit_loop(pts, init_centroids, backend: Backend, max_iters: int,
               tol: float, empty: str, cache: RoundCache, *, gated: bool,
-              guard: bool, w: Optional[torch.Tensor] = None):
+              guard: bool, stream: torch.Tensor,
+              w: Optional[torch.Tensor] = None):
     """Lloyd iterations until the relative inertia improvement falls below
     ``tol`` or ``max_iters`` is hit. Each iteration is one tiled
     ``assign_update``; the inertia is the sum of its per-tile partials, the
@@ -1150,6 +1187,10 @@ def _fit_loop(pts, init_centroids, backend: Backend, max_iters: int,
     iteration is instead the untiled round on ``cache.norms`` (no tiles,
     no gate: ``gated`` must be off), its sums and counts weighted, and the
     inertia the fixed-order sum of min_d2·w.
+
+    Every round streams ``stream`` (``pts`` itself, or its bf16 copy) with
+    the fp32 centroid carry rounded to its dtype; the movement ``delta``,
+    the norms and the update stay fp32.
 
     ``gated`` (the port of ``_fit_gated_parts``) derives each iteration's
     per-centroid movement ``delta`` from the loop's own consecutive
@@ -1226,8 +1267,9 @@ def _fit_loop(pts, init_centroids, backend: Backend, max_iters: int,
     while i < max_iters:
         delta = (bounds.centroid_movement(cents, prev_cents) if gated
                  else None)
+        c_round = cents.to(stream.dtype)
         if w is not None:
-            rnd = backend.assign_update(pts, cents, weights=w,
+            rnd = backend.assign_update(stream, c_round, weights=w,
                                         norms=cache.norms)
             new_inertia = sampling.fixed_sum(rnd.min_d2 * w)
         else:
@@ -1235,10 +1277,10 @@ def _fit_loop(pts, init_centroids, backend: Backend, max_iters: int,
                 if gated:   # a stopped problem does not move
                     delta = torch.where(live[..., None], delta, 0.0)
                 rnd = backend.assign_update_batched(
-                    pts, cents, cache=cache, state=bstate, delta=delta,
+                    stream, c_round, cache=cache, state=bstate, delta=delta,
                     live=live)
             else:
-                rnd = backend.assign_update(pts, cents, cache=cache,
+                rnd = backend.assign_update(stream, c_round, cache=cache,
                                             state=bstate, delta=delta)
             new_inertia = sampling.fixed_sum(rnd.state.partials)
         flags = []
@@ -1254,7 +1296,7 @@ def _fit_loop(pts, init_centroids, backend: Backend, max_iters: int,
                if flags else [])
         go_on = any(got[int(guard):]) if test else True
         if guard and not got[0]:
-            r2 = backend.assign_update(pts, cents, cache=cache)
+            r2 = backend.assign_update(stream, c_round, cache=cache)
             rnd = AssignRound(r2.assignment, r2.min_d2, r2.sums, r2.counts,
                               fresh_bounds(r2.state))
             new_inertia = sampling.fixed_sum(r2.state.partials)
@@ -1292,7 +1334,8 @@ def fit_points(points: torch.Tensor, init_centroids: torch.Tensor,
                empty: str = "keep",
                cache: Optional[RoundCache] = None, *,
                weights: Optional[torch.Tensor] = None,
-               bound_gate: bool = True, guard: bool = False) -> LloydResult:
+               bound_gate: bool = True, guard: bool = False,
+               stream: Optional[torch.Tensor] = None) -> LloydResult:
     """Lloyd clustering through ``backend``. ``empty`` picks the
     empty-cluster policy: 'keep' (previous centroid survives) or 'reseed'
     (split the largest cluster). ``cache`` is an optional precomputed
@@ -1304,6 +1347,11 @@ def fit_points(points: torch.Tensor, init_centroids: torch.Tensor,
     without a prologue, when no ``cache`` is passed), ungated and
     unguarded, with ``skipped``/``pruned``/``recovered`` None, as the
     reference's.
+
+    ``stream`` is the points every round reads, the fp32 points by
+    default (:func:`_stream_of`'s bf16 copy under ``precision='bf16'``);
+    the norms, the accumulators, the bound state and the centroids stay
+    fp32.
 
     ``points`` (B, n, d) and ``init_centroids`` (B, k, d) fit B independent
     problems in one loop, gated or not, without the in-flight guard (as the
@@ -1317,6 +1365,8 @@ def fit_points(points: torch.Tensor, init_centroids: torch.Tensor,
             "batched fits run without the in-flight guard, as the "
             "reference does under vmap")
     pts = points.float()
+    if stream is None:
+        stream = pts
     k = init_centroids.shape[-2]
     if weights is not None:
         if points.dim() == 3:
@@ -1325,13 +1375,14 @@ def fit_points(points: torch.Tensor, init_centroids: torch.Tensor,
         norms = bounds.point_norms(pts) if cache is None else cache.norms
         return LloydResult(*_fit_loop(
             pts, init_centroids, backend, max_iters, tol, empty,
-            RoundCache(norms), gated=False, guard=False,
+            RoundCache(norms), gated=False, guard=False, stream=stream,
             w=weights.to(pts)))
     if cache is None:
         cache = backend.prologue(pts, m=k, with_bounds=bound_gate)
     return LloydResult(*_fit_loop(
         pts, init_centroids, backend, max_iters, tol, empty, cache,
-        gated=bound_gate and cache.centers is not None, guard=guard))
+        gated=bound_gate and cache.centers is not None, guard=guard,
+        stream=stream))
 
 
 def kmeans_points(draws: Draws, points: torch.Tensor, k: int,
@@ -1342,21 +1393,24 @@ def kmeans_points(draws: Draws, points: torch.Tensor, k: int,
                   bound_gate: bool = True,
                   guard: bool = False, refresh_block: int = 8,
                   proposal: str = "hier",
-                  max_attempts: int = _REJECT_ATTEMPTS) -> LloydResult:
+                  max_attempts: int = _REJECT_ATTEMPTS,
+                  precision: str = "fp32") -> LloydResult:
     """End-to-end k-means++ seeding + Lloyd with ONE shared prologue: the
     backend's ``tile_m`` is pinned to k so both phases agree on one tile
     geometry, and the norms (and tile balls, with ``bound_gate``) are
-    computed once. ``weights`` go to both phases."""
+    computed once, as is the rounds' stream (a bf16 copy under
+    ``precision='bf16'``). ``weights`` go to both phases."""
     be = dataclasses.replace(backend, tile_m=k)
     pts = points.float()
+    stream = _stream_of(pts, precision)
     cache = be.prologue(pts, m=k, with_bounds=bound_gate)
     seeds = seed_points(draws, pts, k, be, sampler, weights=weights,
                         bound_gate=bound_gate, cache=cache, guard=guard,
                         refresh_block=refresh_block, proposal=proposal,
-                        max_attempts=max_attempts)
+                        max_attempts=max_attempts, stream=stream)
     return fit_points(pts, seeds.centroids, be, max_iters, tol, empty,
                       cache=cache, weights=weights, bound_gate=bound_gate,
-                      guard=guard)
+                      guard=guard, stream=stream)
 
 
 # ---------------------------------------------------------------------------
@@ -1365,7 +1419,8 @@ def kmeans_points(draws: Draws, points: torch.Tensor, k: int,
 
 
 def minibatch_step(cents: torch.Tensor, counts: torch.Tensor,
-                   batch: torch.Tensor, backend: Backend):
+                   batch: torch.Tensor, backend: Backend,
+                   precision: str = "fp32"):
     """One mini-batch Lloyd step (Sculley 2010, batch form): per-center
     counts give each center a 1/t-decaying learning rate, so centers
     converge to the running mean of every point ever assigned to them.
@@ -1373,10 +1428,14 @@ def minibatch_step(cents: torch.Tensor, counts: torch.Tensor,
         c_j <- c_j + eta_j * (batch_mean_j - c_j),  eta_j = m_j / (N_j + m_j)
 
     The batch's sums and counts come from the untiled round (K4 on the
-    card) on norms computed per batch. Returns (centroids, counts, the
-    batch's inertia (fixed-order sum), the batch's labels)."""
+    card) on norms computed per batch from the fp32 rows; under
+    ``precision='bf16'`` the round streams the batch's bf16 copy, made
+    once per batch, and the centroids rounded to bf16. Returns (centroids,
+    counts, the batch's inertia (fixed-order sum), the batch's labels)."""
     pts = batch.float()
-    rnd = backend.assign_update(pts, cents, norms=bounds.point_norms(pts))
+    stream = _stream_of(pts, precision)
+    rnd = backend.assign_update(stream, cents.to(stream.dtype),
+                                norms=bounds.point_norms(pts))
     bcounts = rnd.counts
     new_counts = counts + bcounts
     eta = torch.where(new_counts > 0,
@@ -1464,6 +1523,16 @@ class ClusterEngine:
     ``proposal`` 'hier' or 'flat' and ``max_attempts``; see
     :func:`seed_points`).
 
+    Precision: ``precision`` 'fp32' (the default) or 'bf16'. Under 'bf16'
+    every seeding and assignment round, on every entry point (batched,
+    weighted and mini-batch included), streams a bf16 copy of the points
+    made once per call (per batch in ``fit_minibatch``), and the round's
+    centroids rounded to bf16: the kernels' bf16 instances on the card.
+    The norms, D², the bound state, the accumulators and the centroid carry
+    stay fp32; seeds are taken from the fp32 points and the centroids come
+    back fp32. IVF serving and KV-cache PQ build their own engines and stay
+    fp32.
+
     Weights: ``seed``, ``fit`` and ``kmeans`` take ``weights`` (n,), one
     non-negative weight per point (a coreset's multiplicities), checked by
     the entry guard. A weighted fit runs the untiled round (K4 on the
@@ -1490,8 +1559,10 @@ class ClusterEngine:
     """
 
     def __init__(self, backend: Union[str, Backend] = "cuda", *,
-                 device=None, bounds: bool = True, validate: str = "raise",
-                 **backend_opts):
+                 device=None, precision: str = "fp32", bounds: bool = True,
+                 validate: str = "raise", **backend_opts):
+        _check_precision(precision)
+        self.precision = precision
         self.backend = make_backend(backend, **backend_opts)
         self.bounds = bool(bounds)
         self.device = resolve_device(device)
@@ -1583,7 +1654,8 @@ class ClusterEngine:
             pts, k, self.backend, sampler, weights=w,
             bound_gate=self.bounds, guard=self._guard,
             refresh_block=int(refresh_block), proposal=proposal,
-            max_attempts=int(max_attempts))
+            max_attempts=int(max_attempts),
+            stream=_stream_of(pts, self.precision))
 
     def fit(self, points, init_centroids, *, max_iters: int = 50,
             tol: float = 1e-6, weights=None, empty: str = "keep",
@@ -1602,7 +1674,8 @@ class ClusterEngine:
         pts, w, perm, inv = self._order_in(pts, order, w)
         return self._order_out(fit_points(
             pts, cents, self.backend, max_iters, float(tol), empty,
-            weights=w, bound_gate=self.bounds, guard=self._guard), perm, inv)
+            weights=w, bound_gate=self.bounds, guard=self._guard,
+            stream=_stream_of(pts, self.precision)), perm, inv)
 
     def kmeans(self, points, k: int, *,
                generator: Optional[torch.Generator] = None,
@@ -1626,7 +1699,8 @@ class ClusterEngine:
             pts, k, self.backend, sampler, max_iters, float(tol), empty,
             weights=w, bound_gate=self.bounds, guard=self._guard,
             refresh_block=int(refresh_block), proposal=proposal,
-            max_attempts=int(max_attempts)), perm, inv)
+            max_attempts=int(max_attempts), precision=self.precision),
+            perm, inv)
 
     # -- streaming mini-batch Lloyd ---------------------------------------
 
@@ -1667,7 +1741,7 @@ class ClusterEngine:
                                             name=f"batch {seen}")
                 batch, _, _, inv = self._order_in(batch, order)
                 cents, counts, last_inertia, a = minibatch_step(
-                    cents, counts, batch, self.backend)
+                    cents, counts, batch, self.backend, self.precision)
                 seen += 1
                 if tol > 0.0:
                     per_point = float(last_inertia) / max(batch.shape[0], 1)
@@ -1719,7 +1793,8 @@ class ClusterEngine:
         if draws is None:
             draws = Draws.sample_batched(bsz, n, k, generator=generator)
         return seed_points(draws.to(self.device), pts, k, self.backend,
-                           sampler, bound_gate=self.bounds)
+                           sampler, bound_gate=self.bounds,
+                           stream=_stream_of(pts, self.precision))
 
     def fit_batched(self, points, init_centroids, *, max_iters: int = 50,
                     tol: float = 1e-6, empty: str = "keep",
@@ -1742,7 +1817,8 @@ class ClusterEngine:
         cents = guards.guard_centroids(cents, pts.shape[-1], self.validate)
         return self._order_out(fit_points(
             pts, cents, self.backend, max_iters, float(tol), empty,
-            bound_gate=self.bounds), perm, inv)
+            bound_gate=self.bounds,
+            stream=_stream_of(pts, self.precision)), perm, inv)
 
     def kmeans_batched(self, points, k: int, *,
                        generator: Optional[torch.Generator] = None,

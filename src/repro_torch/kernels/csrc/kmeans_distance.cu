@@ -47,6 +47,19 @@
 // would write (min(md, d2) = md when d2 >= md), so an active tile's partial
 // is bitwise K2's partial. K2 and K5 are the launches with B = 1.
 //
+// Each of the four also takes a bf16 point stream (the engine's
+// precision="bf16", the TPU kernels' bf16 tiles into the MXU): the template
+// is instantiated on the stream type T of `points` and `cents`, float or
+// __nv_bfloat16. A bf16 value converts to float exactly, and every operation
+// after the conversion is the fp32 instance's, in the same order: the cached
+// norms, md, the partials and the gate stay fp32. So a bf16 launch is
+// bitwise the fp32 launch on the points and centroids rounded to bf16 and
+// widened back. Resident, the (m, d) centroid block is widened once into the
+// fp32 staging (the same shared memory as fp32's); non-resident, every read
+// of a centroid converts. The stream halves only x's bytes: a K2 row at
+// d = 2 moves 16 B instead of 20, a K7 row at the sweep's d = 16 44 B
+// instead of 76, a K8 row 48 B instead of 80.
+//
 // What bounds them on the H100: bytes. At the paper's d = 2 a row moves 20 B
 // (x 8, norm 4, md in 4, md out 4) and costs 2d + 3 flops per centroid, so
 // one K2 round at n = 4M is 80 MB against 3.35 TB/s, about 24 us, and the
@@ -69,6 +82,7 @@
 // test is written with explicit round-to-nearest operations, so it is the
 // same four roundings as the plain PyTorch version's. min and max propagate
 // NaN like torch.minimum / torch.maximum.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -85,15 +99,26 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || a > b) ? a : b;
 }
 
-__device__ __forceinline__ float sq_norm(const float* c, int d) {
+// a stream value as fp32 (exact for bf16)
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename C>
+__device__ __forceinline__ float sq_norm(const C* c, int d) {
   float s = 0.f;
-  for (int j = 0; j < d; ++j) s = fmaf(c[j], c[j], s);
+  for (int j = 0; j < d; ++j) {
+    const float v = widen(c[j]);
+    s = fmaf(v, v, s);
+  }
   return s;
 }
 
-__device__ __forceinline__ float dot(const float* x, const float* c, int d) {
+template <typename X, typename C>
+__device__ __forceinline__ float dot(const X* x, const C* c, int d) {
   float s = 0.f;
-  for (int j = 0; j < d; ++j) s = fmaf(x[j], c[j], s);
+  for (int j = 0; j < d; ++j) s = fmaf(widen(x[j]), widen(c[j]), s);
   return s;
 }
 
@@ -105,12 +130,12 @@ __device__ __forceinline__ bool seed_point_prune(float md, float cd, float dc,
 }
 
 // Gated = false is K2 / K7 (the gate pointers are null); Gated = true is K5
-// / K8.
-template <bool Resident, bool Gated>
+// / K8. T is the stream type of points and cents (float or bf16).
+template <typename T, bool Resident, bool Gated>
 __global__ void __launch_bounds__(kThreads)
-distance_min_update_kernel(const float* __restrict__ points,
+distance_min_update_kernel(const T* __restrict__ points,
                            const float* __restrict__ norms,
-                           const float* __restrict__ cents,
+                           const T* __restrict__ cents,
                            const float* __restrict__ md_in,
                            float* __restrict__ md_out,
                            float* __restrict__ partials,
@@ -149,12 +174,11 @@ distance_min_update_kernel(const float* __restrict__ points,
   const int tid = threadIdx.x;
 
   if (Resident) {
-    for (int i = tid; i < m * d; i += kThreads) c_sh[i] = cents[i];
+    for (int i = tid; i < m * d; i += kThreads) c_sh[i] = widen(cents[i]);
     __syncthreads();
     for (int c = tid; c < m; c += kThreads) cn_sh[c] = sq_norm(c_sh + (size_t)c * d, d);
     __syncthreads();
   }
-  const float* c_src = Resident ? c_sh : cents;
 
   const long long tile0 = (long long)t * block_n;
   const float dc_t = Gated ? dc[t] : 0.f;
@@ -171,13 +195,18 @@ distance_min_update_kernel(const float* __restrict__ points,
       v = md;
       ++lcnt;
     } else {
-      const float* x = points + row * d;
+      const T* x = points + row * d;
       const float xn = norms[row];
       float best = CUDART_INF_F;
       for (int c = 0; c < m; ++c) {
-        const float* cc = c_src + (size_t)c * d;
-        const float cn = Resident ? cn_sh[c] : sq_norm(cc, d);
-        const float d2 = nan_max(xn - 2.f * dot(x, cc, d) + cn, 0.f);
+        float d2;
+        if (Resident) {
+          const float* cc = c_sh + (size_t)c * d;
+          d2 = nan_max(xn - 2.f * dot(x, cc, d) + cn_sh[c], 0.f);
+        } else {
+          const T* cc = cents + (size_t)c * d;
+          d2 = nan_max(xn - 2.f * dot(x, cc, d) + sq_norm(cc, d), 0.f);
+        }
         best = nan_min(best, d2);
       }
       v = nan_min(md, best);
@@ -212,8 +241,8 @@ distance_min_update_kernel(const float* __restrict__ points,
   }
 }
 
-template <bool Gated>
-int launch(const float* points, const float* norms, const float* cents,
+template <typename T, bool Gated>
+int launch(const T* points, const float* norms, const T* cents,
            const float* md_in, float* md_out, float* partials,
            const float* center_d, const float* dc, const float* margin,
            const unsigned char* active, float* tile_max, int* pruned, int batch,
@@ -224,58 +253,81 @@ int launch(const float* points, const float* norms, const float* cents,
   const size_t smem = sizeof(float) * ((Gated ? 3 : 1) * kThreads +
                                        (resident ? (size_t)m * d + m : 0));
   if (resident) {
-    auto kern = distance_min_update_kernel<true, Gated>;
+    auto kern = distance_min_update_kernel<T, true, Gated>;
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
     kern<<<grid, kThreads, smem, s>>>(points, norms, cents, md_in, md_out,
                                       partials, center_d, dc, margin, active,
                                       tile_max, pruned, n, d, m, block_n);
   } else {
-    distance_min_update_kernel<false, Gated><<<grid, kThreads, smem, s>>>(
+    distance_min_update_kernel<T, false, Gated><<<grid, kThreads, smem, s>>>(
         points, norms, cents, md_in, md_out, partials, center_d, dc, margin,
         active, tile_max, pruned, n, d, m, block_n);
   }
   return (int)cudaGetLastError();
 }
 
+// The stream type is the caller's: bf16 != 0 reads points and cents as
+// __nv_bfloat16, else as float.
+template <bool Gated>
+int dispatch(const void* points, const float* norms, const void* cents,
+             const float* md_in, float* md_out, float* partials,
+             const float* center_d, const float* dc, const float* margin,
+             const unsigned char* active, float* tile_max, int* pruned,
+             int batch, int n, int d, int m, int block_n, int resident,
+             int bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch<__nv_bfloat16, Gated>(
+        static_cast<const __nv_bfloat16*>(points), norms,
+        static_cast<const __nv_bfloat16*>(cents), md_in, md_out, partials,
+        center_d, dc, margin, active, tile_max, pruned, batch, n, d, m,
+        block_n, resident, s);
+  return launch<float, Gated>(
+      static_cast<const float*>(points), norms,
+      static_cast<const float*>(cents), md_in, md_out, partials, center_d, dc,
+      margin, active, tile_max, pruned, batch, n, d, m, block_n, resident, s);
+}
+
 }  // namespace
+
+// Every entry point takes `bf16`: 0 for fp32 points and cents, 1 for the
+// bf16 stream (both of one type; norms and all else fp32).
 
 // Launches one seeding round (K2) on `stream`; returns cudaGetLastError().
 extern "C" int distance_min_update_launch(
-    const float* points, const float* norms, const float* cents,
+    const void* points, const float* norms, const void* cents,
     const float* md_in, float* md_out, float* partials, int n, int d, int m,
-    int block_n, int resident, void* stream) {
-  return launch<false>(points, norms, cents, md_in, md_out, partials, nullptr,
-                       nullptr, nullptr, nullptr, nullptr, nullptr, 1, n, d,
-                       m, block_n, resident,
-                       static_cast<cudaStream_t>(stream));
+    int block_n, int resident, int bf16, void* stream) {
+  return dispatch<false>(points, norms, cents, md_in, md_out, partials,
+                         nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                         1, n, d, m, block_n, resident, bf16, stream);
 }
 
 // Launches one seeding round of `batch` problems (K7) on `stream`; returns
 // cudaGetLastError(). points (batch, n, d), norms / md_in / md_out
 // (batch, n), cents (batch, m, d), partials (batch, n_tiles), contiguous.
 extern "C" int distance_min_update_batched_launch(
-    const float* points, const float* norms, const float* cents,
+    const void* points, const float* norms, const void* cents,
     const float* md_in, float* md_out, float* partials, int batch, int n,
-    int d, int m, int block_n, int resident, void* stream) {
-  return launch<false>(points, norms, cents, md_in, md_out, partials, nullptr,
-                       nullptr, nullptr, nullptr, nullptr, nullptr, batch, n,
-                       d, m, block_n, resident,
-                       static_cast<cudaStream_t>(stream));
+    int d, int m, int block_n, int resident, int bf16, void* stream) {
+  return dispatch<false>(points, norms, cents, md_in, md_out, partials,
+                         nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                         batch, n, d, m, block_n, resident, bf16, stream);
 }
 
 // Launches one gated seeding round (K5) on `stream`; returns
 // cudaGetLastError(). md_out, partials and tile_max must hold the carried
 // values and pruned zeros: inactive tiles leave them as they are.
 extern "C" int distance_min_update_gated_launch(
-    const float* points, const float* norms, const float* cents,
+    const void* points, const float* norms, const void* cents,
     const float* md_in, float* md_out, float* partials, const float* center_d,
     const float* dc, const float* margin, const unsigned char* active,
     float* tile_max, int* pruned, int n, int d, int m, int block_n,
-    int resident, void* stream) {
-  return launch<true>(points, norms, cents, md_in, md_out, partials, center_d,
-                      dc, margin, active, tile_max, pruned, 1, n, d, m,
-                      block_n, resident, static_cast<cudaStream_t>(stream));
+    int resident, int bf16, void* stream) {
+  return dispatch<true>(points, norms, cents, md_in, md_out, partials,
+                        center_d, dc, margin, active, tile_max, pruned, 1, n,
+                        d, m, block_n, resident, bf16, stream);
 }
 
 // Launches one gated seeding round of `batch` problems (K8) on `stream`;
@@ -284,12 +336,12 @@ extern "C" int distance_min_update_gated_launch(
 // pruned (batch, n_tiles). md_out, partials and tile_max must hold the
 // carried values and pruned zeros, as for K5.
 extern "C" int distance_min_update_gated_batched_launch(
-    const float* points, const float* norms, const float* cents,
+    const void* points, const float* norms, const void* cents,
     const float* md_in, float* md_out, float* partials, const float* center_d,
     const float* dc, const float* margin, const unsigned char* active,
     float* tile_max, int* pruned, int batch, int n, int d, int m, int block_n,
-    int resident, void* stream) {
-  return launch<true>(points, norms, cents, md_in, md_out, partials, center_d,
-                      dc, margin, active, tile_max, pruned, batch, n, d, m,
-                      block_n, resident, static_cast<cudaStream_t>(stream));
+    int resident, int bf16, void* stream) {
+  return dispatch<true>(points, norms, cents, md_in, md_out, partials,
+                        center_d, dc, margin, active, tile_max, pruned, batch,
+                        n, d, m, block_n, resident, bf16, stream);
 }

@@ -121,6 +121,23 @@
 // problem b, bitwise. It takes no weights, as the reference's batched
 // problems take none. At the PQ codebook sweep (B = 1664, n = 16384,
 // d = 16, k = 256) its operation bound is K10a's, 3.65 ms.
+//
+// All six also take a bf16 point stream (the engine's precision="bf16", the
+// TPU kernels' bf16 tiles into the MXU): assign_tile_kernel is instantiated
+// on the stream type T of `points` and `cents`, float or __nv_bfloat16. The
+// centroids are widened into the fp32 staging once per block (the same
+// shared memory as fp32's, so ops.assign_smem_bytes and ops.assign_cols do
+// not change), and every row read (the d = 2 and d = 16 register paths, the
+// runtime-d loop, the cluster-sum pass) widens its values. A bf16 value
+// converts to float exactly and every later operation is the fp32
+// instance's, in the same order, so a bf16 launch is bitwise the fp32
+// launch on the points and centroids rounded to bf16 and widened back: the
+// cluster sums add the rounded rows, as the TPU kernel's do. Norms, D²,
+// partials, gaps, sums, counts and the gate stay fp32; super_reduce_kernel
+// reads only fp32 and is shared. The stream halves x's bytes (a row at
+// d = 2 moves 16 B instead of 20); K10a and K10b at the sweep stay bound by
+// their fp32 arithmetic.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -136,6 +153,12 @@ __device__ __forceinline__ float nan_min(float a, float b) {
 
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || a > b) ? a : b;
+}
+
+// a stream value as fp32 (exact for bf16)
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 
 // Folds centroid c's d2 into a row's (best, second, label).
@@ -169,12 +192,13 @@ struct Gate {
 // Gated = false is K3 / K10a, Gated = true is K6 / K10b, Untiled = true
 // is K4 / K9: no partials or gaps (null), and non-null weights (K4) weigh
 // each row's entry in the cluster sums. The switches are compile-time, so
-// K3's and K6's instances carry none of K4's code.
-template <int D, bool Gated, bool Untiled>
+// K3's and K6's instances carry none of K4's code. T is the stream type of
+// points and cents (float or bf16).
+template <typename T, int D, bool Gated, bool Untiled>
 __global__ void __launch_bounds__(kThreads)
-assign_tile_kernel(const float* __restrict__ points,
+assign_tile_kernel(const T* __restrict__ points,
                    const float* __restrict__ norms,
-                   const float* __restrict__ cents,
+                   const T* __restrict__ cents,
                    const float* __restrict__ weights,
                    int* __restrict__ labels, float* __restrict__ md,
                    float* __restrict__ partials, float* __restrict__ gaps,
@@ -222,7 +246,7 @@ assign_tile_kernel(const float* __restrict__ points,
   int* cnt_sh = reinterpret_cast<int*>(red_gap);  // pruned tree, reuses red_gap
   const int tid = threadIdx.x;
 
-  for (int i = tid; i < k * d; i += kThreads) c_sh[i] = cents[i];
+  for (int i = tid; i < k * d; i += kThreads) c_sh[i] = widen(cents[i]);
   if (Gated)
     for (int c = tid; c < k; c += kThreads) delta_sh[c] = g.delta[c];
   __syncthreads();
@@ -234,7 +258,7 @@ assign_tile_kernel(const float* __restrict__ points,
   __syncthreads();
 
   const long long tile0 = (long long)t * block_n;
-  const float* tile_x = points + tile0 * d;
+  const T* tile_x = points + tile0 * d;
   const int rows = (int)min((long long)block_n, (long long)n - tile0);
   const float thresh_t = Gated ? g.thresh[t] : 0.f;
   const float absorb_t = Gated ? g.absorb[t] : 0.f;
@@ -261,7 +285,8 @@ assign_tile_kernel(const float* __restrict__ points,
       }
       if constexpr (D > 0) {
 #pragma unroll
-        for (int j = 0; j < D; ++j) xr[q][j] = ok ? tile_x[(size_t)r * D + j] : 0.f;
+        for (int j = 0; j < D; ++j)
+          xr[q][j] = ok ? widen(tile_x[(size_t)r * D + j]) : 0.f;
       }
       xn[q] = ok ? norms[tile0 + r] : 0.f;
       best[q] = second[q] = CUDART_INF_F;
@@ -283,9 +308,9 @@ assign_tile_kernel(const float* __restrict__ points,
                a[q]);
         }
       } else {
-        const float* x = tile_x + (size_t)base * d;
+        const T* x = tile_x + (size_t)base * d;
         float dt = 0.f;
-        for (int j = 0; j < d; ++j) dt = fmaf(x[j], cc[j], dt);
+        for (int j = 0; j < d; ++j) dt = fmaf(widen(x[j]), cc[j], dt);
         fold(nan_max(xn[0] - 2.f * dt + cn, 0.f), c, best[0], second[0],
              a[0]);
       }
@@ -355,8 +380,10 @@ assign_tile_kernel(const float* __restrict__ points,
                            ? weights[tile0 + r] : 1.f;
       for (int jj = 0; jj < nc; ++jj) {
         const int j = j0 + jj;
-        const float x = j < d ? tile_x[(size_t)r * d + j] : 1.f;
-        const float v = lab < 0 ? 0.f : (Untiled ? x * wr : x);
+        // a lane past the tile's rows (lab < 0) reads nothing and adds 0
+        const float x =
+            lab < 0 ? 0.f : (j < d ? widen(tile_x[(size_t)r * d + j]) : 1.f);
+        const float v = Untiled ? x * wr : x;
         float s = 0.f;
         unsigned rest = peers;
         for (int t = 0; t < rounds; ++t) {   // the group's lanes, ascending
@@ -417,8 +444,8 @@ super_reduce_kernel(const float* __restrict__ tile_acc, float* __restrict__ ssum
   }
 }
 
-template <int D, bool Gated, bool Untiled>
-int launch_assign(const float* points, const float* norms, const float* cents,
+template <typename T, int D, bool Gated, bool Untiled>
+int launch_assign(const T* points, const float* norms, const T* cents,
                   const float* weights, int* labels, float* md,
                   float* partials, float* gaps, float* tile_acc,
                   const Gate& g, int batch, int n, int d, int k, int block_n,
@@ -427,9 +454,9 @@ int launch_assign(const float* points, const float* norms, const float* cents,
   const size_t smem = sizeof(float) * ((size_t)k * d + k + 2 * kThreads +
                                        (size_t)kWarps * k * cols + block_n +
                                        (Gated ? k : 0));
-  cudaFuncSetAttribute(assign_tile_kernel<D, Gated, Untiled>,
+  cudaFuncSetAttribute(assign_tile_kernel<T, D, Gated, Untiled>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  assign_tile_kernel<D, Gated, Untiled><<<grid, kThreads, smem, s>>>(
+  assign_tile_kernel<T, D, Gated, Untiled><<<grid, kThreads, smem, s>>>(
       points, norms, cents, weights, labels, md, partials, gaps, tile_acc, g,
       n, d, k, block_n, cols);
   return (int)cudaGetLastError();
@@ -437,8 +464,8 @@ int launch_assign(const float* points, const float* norms, const float* cents,
 
 // Untiled (K4 / K9) takes null partials and gaps and `tps` = n_tiles: one
 // super spanning every tile.
-template <bool Gated, bool Untiled>
-int launch_round(const float* points, const float* norms, const float* cents,
+template <typename T, bool Gated, bool Untiled>
+int launch_round(const T* points, const float* norms, const T* cents,
                  const float* weights, int* labels, float* md,
                  float* partials, float* gaps, float* tile_acc, float* ssums,
                  float* scounts, const Gate& g, int batch, int n, int d,
@@ -448,14 +475,14 @@ int launch_round(const float* points, const float* norms, const float* cents,
   if ((long long)batch * n_tiles > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;
   const int err =
-      d == 2 ? launch_assign<2, Gated, Untiled>(
+      d == 2 ? launch_assign<T, 2, Gated, Untiled>(
                    points, norms, cents, weights, labels, md, partials, gaps,
                    tile_acc, g, batch, n, d, k, block_n, cols, s)
       : d == 16
-          ? launch_assign<16, Gated, Untiled>(
+          ? launch_assign<T, 16, Gated, Untiled>(
                 points, norms, cents, weights, labels, md, partials, gaps,
                 tile_acc, g, batch, n, d, k, block_n, cols, s)
-          : launch_assign<0, Gated, Untiled>(
+          : launch_assign<T, 0, Gated, Untiled>(
                 points, norms, cents, weights, labels, md, partials, gaps,
                 tile_acc, g, batch, n, d, k, block_n, cols, s);
   if (err != 0) return err;
@@ -465,21 +492,45 @@ int launch_round(const float* points, const float* norms, const float* cents,
   return (int)cudaGetLastError();
 }
 
+// The stream type is the caller's: bf16 != 0 reads points and cents as
+// __nv_bfloat16, else as float.
+template <bool Gated, bool Untiled>
+int dispatch(const void* points, const float* norms, const void* cents,
+             const float* weights, int* labels, float* md, float* partials,
+             float* gaps, float* tile_acc, float* ssums, float* scounts,
+             const Gate& g, int batch, int n, int d, int k, int block_n,
+             int tps, int cols, int bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_round<__nv_bfloat16, Gated, Untiled>(
+        static_cast<const __nv_bfloat16*>(points), norms,
+        static_cast<const __nv_bfloat16*>(cents), weights, labels, md,
+        partials, gaps, tile_acc, ssums, scounts, g, batch, n, d, k, block_n,
+        tps, cols, s);
+  return launch_round<float, Gated, Untiled>(
+      static_cast<const float*>(points), norms,
+      static_cast<const float*>(cents), weights, labels, md, partials, gaps,
+      tile_acc, ssums, scounts, g, batch, n, d, k, block_n, tps, cols, s);
+}
+
 }  // namespace
+
+// Every entry point takes `bf16`: 0 for fp32 points and cents, 1 for the
+// bf16 stream (both of one type; norms, weights and all else fp32).
 
 // Launches both kernels of one assignment round (K3) on `stream`; returns
 // cudaGetLastError(). `cols` columns of 8 warp-private (k, cols)
 // accumulators must fit the shared memory the caller budgeted
 // (repro_torch.kernels.ops.assign_smem_bytes).
 extern "C" int lloyd_assign_tiled_launch(
-    const float* points, const float* norms, const float* cents, int* labels,
+    const void* points, const float* norms, const void* cents, int* labels,
     float* md, float* partials, float* gaps, float* tile_acc, float* ssums,
     float* scounts, int n, int d, int k, int block_n, int tps, int cols,
-    void* stream) {
-  return launch_round<false, false>(
-      points, norms, cents, nullptr, labels, md, partials, gaps, tile_acc,
-      ssums, scounts, Gate{}, 1, n, d, k, block_n, tps, cols,
-      static_cast<cudaStream_t>(stream));
+    int bf16, void* stream) {
+  return dispatch<false, false>(points, norms, cents, nullptr, labels, md,
+                                partials, gaps, tile_acc, ssums, scounts,
+                                Gate{}, 1, n, d, k, block_n, tps, cols, bf16,
+                                stream);
 }
 
 // Launches both kernels of one assignment round of `batch` problems (K10a)
@@ -489,14 +540,14 @@ extern "C" int lloyd_assign_tiled_launch(
 // (batch, n_tiles, k, d + 1), ssums (batch, n_super, k, d), scounts
 // (batch, n_super, k).
 extern "C" int lloyd_assign_tiled_batched_launch(
-    const float* points, const float* norms, const float* cents, int* labels,
+    const void* points, const float* norms, const void* cents, int* labels,
     float* md, float* partials, float* gaps, float* tile_acc, float* ssums,
     float* scounts, int batch, int n, int d, int k, int block_n, int tps,
-    int cols, void* stream) {
-  return launch_round<false, false>(
-      points, norms, cents, nullptr, labels, md, partials, gaps, tile_acc,
-      ssums, scounts, Gate{}, batch, n, d, k, block_n, tps, cols,
-      static_cast<cudaStream_t>(stream));
+    int cols, int bf16, void* stream) {
+  return dispatch<false, false>(points, norms, cents, nullptr, labels, md,
+                                partials, gaps, tile_acc, ssums, scounts,
+                                Gate{}, batch, n, d, k, block_n, tps, cols,
+                                bf16, stream);
 }
 
 // Launches both kernels of one gated assignment round (K6) on `stream`;
@@ -504,19 +555,18 @@ extern "C" int lloyd_assign_tiled_batched_launch(
 // scounts must hold the carried values and pruned zeros: skipped tiles and
 // supers leave them as they are. `active` must be super-aligned.
 extern "C" int lloyd_assign_gated_launch(
-    const float* points, const float* norms, const float* cents,
+    const void* points, const float* norms, const void* cents,
     const float* delta, const float* thresh, const float* absorb,
     const int* prev_a, const float* prev_md, const float* prev_lb,
     const unsigned char* active, int* labels, float* md, float* lb,
     float* partials, float* gaps, float* tile_acc, float* ssums,
     float* scounts, int* pruned, int n, int d, int k, int block_n, int tps,
-    int cols, void* stream) {
+    int cols, int bf16, void* stream) {
   const Gate g{delta, thresh, absorb, prev_a, prev_md, prev_lb, active, lb,
                pruned};
-  return launch_round<true, false>(
-      points, norms, cents, nullptr, labels, md, partials, gaps, tile_acc,
-      ssums, scounts, g, 1, n, d, k, block_n, tps, cols,
-      static_cast<cudaStream_t>(stream));
+  return dispatch<true, false>(points, norms, cents, nullptr, labels, md,
+                               partials, gaps, tile_acc, ssums, scounts, g, 1,
+                               n, d, k, block_n, tps, cols, bf16, stream);
 }
 
 // Launches both kernels of one gated assignment round of `batch` problems
@@ -526,36 +576,36 @@ extern "C" int lloyd_assign_gated_launch(
 // (batch, n). The outputs must hold the carries and pruned zeros, and
 // `active` must be super-aligned in every problem, as for K6.
 extern "C" int lloyd_assign_gated_batched_launch(
-    const float* points, const float* norms, const float* cents,
+    const void* points, const float* norms, const void* cents,
     const float* delta, const float* thresh, const float* absorb,
     const int* prev_a, const float* prev_md, const float* prev_lb,
     const unsigned char* active, int* labels, float* md, float* lb,
     float* partials, float* gaps, float* tile_acc, float* ssums,
     float* scounts, int* pruned, int batch, int n, int d, int k, int block_n,
-    int tps, int cols, void* stream) {
+    int tps, int cols, int bf16, void* stream) {
   const Gate g{delta, thresh, absorb, prev_a, prev_md, prev_lb, active, lb,
                pruned};
-  return launch_round<true, false>(
-      points, norms, cents, nullptr, labels, md, partials, gaps, tile_acc,
-      ssums, scounts, g, batch, n, d, k, block_n, tps, cols,
-      static_cast<cudaStream_t>(stream));
+  return dispatch<true, false>(points, norms, cents, nullptr, labels, md,
+                               partials, gaps, tile_acc, ssums, scounts, g,
+                               batch, n, d, k, block_n, tps, cols, bf16,
+                               stream);
 }
 
 // Launches both kernels of one untiled assignment round (K4) on `stream`;
 // returns cudaGetLastError(). `weights` (n,) may be null (every row weighs
 // 1). sums (k, d) and counts (k,) are over all rows; tile_acc is
 // (n_tiles, k, d + 1) scratch.
-extern "C" int lloyd_assign_launch(const float* points, const float* norms,
-                                   const float* cents, const float* weights,
+extern "C" int lloyd_assign_launch(const void* points, const float* norms,
+                                   const void* cents, const float* weights,
                                    int* labels, float* md, float* tile_acc,
                                    float* sums, float* counts, int n, int d,
-                                   int k, int block_n, int cols,
+                                   int k, int block_n, int cols, int bf16,
                                    void* stream) {
   const int n_tiles = (n + block_n - 1) / block_n;
-  return launch_round<false, true>(
-      points, norms, cents, weights, labels, md, nullptr, nullptr, tile_acc,
-      sums, counts, Gate{}, 1, n, d, k, block_n, n_tiles, cols,
-      static_cast<cudaStream_t>(stream));
+  return dispatch<false, true>(points, norms, cents, weights, labels, md,
+                               nullptr, nullptr, tile_acc, sums, counts,
+                               Gate{}, 1, n, d, k, block_n, n_tiles, cols,
+                               bf16, stream);
 }
 
 // Launches both kernels of one untiled assignment round of `batch` problems
@@ -564,12 +614,12 @@ extern "C" int lloyd_assign_launch(const float* points, const float* norms,
 // (batch, n), cents and sums (batch, k, d), counts (batch, k), tile_acc
 // (batch, n_tiles, k, d + 1).
 extern "C" int lloyd_assign_batched_launch(
-    const float* points, const float* norms, const float* cents, int* labels,
+    const void* points, const float* norms, const void* cents, int* labels,
     float* md, float* tile_acc, float* sums, float* counts, int batch, int n,
-    int d, int k, int block_n, int cols, void* stream) {
+    int d, int k, int block_n, int cols, int bf16, void* stream) {
   const int n_tiles = (n + block_n - 1) / block_n;
-  return launch_round<false, true>(
-      points, norms, cents, nullptr, labels, md, nullptr, nullptr, tile_acc,
-      sums, counts, Gate{}, batch, n, d, k, block_n, n_tiles, cols,
-      static_cast<cudaStream_t>(stream));
+  return dispatch<false, true>(points, norms, cents, nullptr, labels, md,
+                               nullptr, nullptr, tile_acc, sums, counts,
+                               Gate{}, batch, n, d, k, block_n, n_tiles, cols,
+                               bf16, stream);
 }

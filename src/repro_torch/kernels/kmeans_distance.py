@@ -35,6 +35,14 @@ p of a proposal), K12 ``tile_cap`` bounds every tile's current D² from its
 ball alone. Both use the diff-square form and add the columns in a fixed
 order, so the kernels and their plain twins agree bitwise.
 
+The rounds (K2, K5, K7, K8) read points and centroids as fp32 or as a
+bf16 stream, both of one dtype: the bf16 instance widens each value
+exactly and then does the fp32 instance's arithmetic, so its results are
+the fp32 kernel's on the bf16-rounded inputs. Norms, D², partials and the
+gate stay fp32, and the norms are the full-precision points' (the engine's
+``precision="bf16"``). The plain twins widen the same way. K1, K11 and K12
+read fp32 only.
+
 Each wrapper launches its hand-written CUDA kernel (``csrc/seed_prologue.cu``,
 ``csrc/kmeans_distance.cu``, ``csrc/rejection.cu``) for tensors on the card,
 and runs its plain twin (``*_torch``) only for tensors on the CPU.
@@ -50,12 +58,13 @@ from repro_torch.core.guards import KernelFailureError
 from repro_torch.core.sampling import tile_partials
 from repro_torch.kernels import _build, ops
 
-_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
-_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6
+# the rounds' last int is the stream flag (1: bf16 points and centroids)
+_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7
                      + (ctypes.c_void_p,))
-_GATED_ARGTYPES = ((ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 5
+_GATED_ARGTYPES = ((ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 6
                    + (ctypes.c_void_p,))
-_GATED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 6
+_GATED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 7
                            + (ctypes.c_void_p,))
 _PROLOGUE_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3
                       + (ctypes.c_void_p,))
@@ -69,9 +78,13 @@ _CAP_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (
 
 def tile_d2(x: torch.Tensor, c: torch.Tensor, xn: torch.Tensor) -> torch.Tensor:
     """(rows, m) matmul-form D² with the cached fp32 norms ``xn`` — THE
-    shared round math of the plain twins."""
+    shared round math of the plain twins. A bf16 stream (``x`` and ``c``)
+    is widened to fp32 first, exactly, and the norms ``cn`` are the rounded
+    centroids': the product is an fp32 one, as the kernels' and the
+    reference's (a bf16 ``@`` would round the dots to bf16)."""
+    c = c.float()
     cn = (c * c).sum(dim=1)
-    dots = x @ c.T
+    dots = x.float() @ c.T
     return torch.clamp_min(xn[:, None] - 2.0 * dots + cn[None, :], 0.0)
 
 
@@ -239,6 +252,7 @@ def _check(points, norms, centroids, min_d2, block_n):
     devs = {t.device for t in (points, norms, centroids, min_d2)}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
+    ops.stream_is_bf16(points, centroids)
 
 
 def distance_min_update(points: torch.Tensor, norms: torch.Tensor,
@@ -256,8 +270,8 @@ def distance_min_update(points: torch.Tensor, norms: torch.Tensor,
                                          block_n=block_n)
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
-    ops.check_card_tensors(points=points, norms=norms, centroids=centroids,
-                min_d2=min_d2)
+    bf16 = ops.check_round_tensors(points, centroids, norms=norms,
+                                   min_d2=min_d2)
     n, d = points.shape
     m = centroids.shape[0]
     if ops.seed_smem_bytes(d, m, resident) > ops.SMEM_LIMIT:
@@ -272,11 +286,11 @@ def distance_min_update(points: torch.Tensor, norms: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
                  min_d2.data_ptr(), out.data_ptr(), partials.data_ptr(),
-                 n, d, m, block_n, int(resident), stream)
+                 n, d, m, block_n, int(resident), int(bf16), stream)
     if err != 0:
         raise KernelFailureError(f"distance_min_update launch failed: "
                                  f"cudaError {err}")
-    ops.LAUNCHES["distance_min_update"] += 1
+    ops.count_launch("distance_min_update", bf16)
     return out, partials
 
 
@@ -306,8 +320,8 @@ def distance_min_update_batched(points: torch.Tensor, norms: torch.Tensor,
                                                  min_d2, block_n=block_n)
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
-    ops.check_card_tensors(points=points, norms=norms, centroids=centroids,
-                           min_d2=min_d2)
+    bf16 = ops.check_round_tensors(points, centroids, norms=norms,
+                                   min_d2=min_d2)
     _, n, d = points.shape
     m = centroids.shape[1]
     if ops.seed_smem_bytes(d, m, resident) > ops.SMEM_LIMIT:
@@ -327,11 +341,11 @@ def distance_min_update_batched(points: torch.Tensor, norms: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
                  min_d2.data_ptr(), out.data_ptr(), partials.data_ptr(),
-                 bsz, n, d, m, block_n, int(resident), stream)
+                 bsz, n, d, m, block_n, int(resident), int(bf16), stream)
     if err != 0:
         raise KernelFailureError(f"distance_min_update_batched launch "
                                  f"failed: cudaError {err}")
-    ops.LAUNCHES["distance_min_update_batched"] += 1
+    ops.count_launch("distance_min_update_batched", bf16)
     return out, partials
 
 
@@ -366,8 +380,9 @@ def distance_min_update_gated(points: torch.Tensor, norms: torch.Tensor,
             prev_partials, prev_tile_max, active, block_n=block_n)
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
-    ops.check_card_tensors(points=points, norms=norms, centroids=centroids,
-                min_d2=min_d2, center_d=center_d, dc=dc, margin=margin)
+    bf16 = ops.check_round_tensors(points, centroids, norms=norms,
+                                   min_d2=min_d2, center_d=center_d, dc=dc,
+                                   margin=margin)
     m, d = centroids.shape
     if ops.seed_smem_bytes(d, m, resident, gated=True) > ops.SMEM_LIMIT:
         raise ValueError(f"a resident ({m}, {d}) centroid block does not fit "
@@ -385,11 +400,11 @@ def distance_min_update_gated(points: torch.Tensor, norms: torch.Tensor,
                  min_d2.data_ptr(), out.data_ptr(), partials.data_ptr(),
                  center_d.data_ptr(), dc.data_ptr(), margin.data_ptr(),
                  act.data_ptr(), tile_max.data_ptr(), pruned.data_ptr(),
-                 n, d, m, block_n, int(resident), stream)
+                 n, d, m, block_n, int(resident), int(bf16), stream)
     if err != 0:
         raise KernelFailureError(f"distance_min_update_gated launch failed: "
                                  f"cudaError {err}")
-    ops.LAUNCHES["distance_min_update_gated"] += 1
+    ops.count_launch("distance_min_update_gated", bf16)
     return out, partials, tile_max, pruned
 
 
@@ -433,9 +448,9 @@ def distance_min_update_gated_batched(points: torch.Tensor,
                                                        block_n=block_n)
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
-    ops.check_card_tensors(points=points, norms=norms, centroids=centroids,
-                           min_d2=min_d2, center_d=center_d, dc=dc,
-                           margin=margin)
+    bf16 = ops.check_round_tensors(points, centroids, norms=norms,
+                                   min_d2=min_d2, center_d=center_d, dc=dc,
+                                   margin=margin)
     if ops.seed_smem_bytes(d, m, resident, gated=True) > ops.SMEM_LIMIT:
         raise ValueError(f"a resident ({m}, {d}) centroid block does not fit "
                          f"in {ops.SMEM_LIMIT} bytes of shared memory")
@@ -457,11 +472,11 @@ def distance_min_update_gated_batched(points: torch.Tensor,
                  min_d2.data_ptr(), out.data_ptr(), partials.data_ptr(),
                  center_d.data_ptr(), dc.data_ptr(), margin.data_ptr(),
                  act.data_ptr(), tile_max.data_ptr(), pruned.data_ptr(),
-                 bsz, n, d, m, block_n, int(resident), stream)
+                 bsz, n, d, m, block_n, int(resident), int(bf16), stream)
     if err != 0:
         raise KernelFailureError(f"distance_min_update_gated_batched launch "
                                  f"failed: cudaError {err}")
-    ops.LAUNCHES["distance_min_update_gated_batched"] += 1
+    ops.count_launch("distance_min_update_gated_batched", bf16)
     return out, partials, tile_max, pruned
 
 

@@ -30,6 +30,12 @@ only labels and D² per row and the cluster sums (k, d) and counts (k,)
 over all rows; with per-row weights, each row enters the sums as w·x and
 its count as w. K9 is K4 over B problems, row b K4 on problem b.
 
+All six read points and centroids as fp32 or as a bf16 stream, both of
+one dtype; the bf16 instances widen each value exactly and then do the
+fp32 instances' arithmetic, so the cluster sums add the bf16-rounded rows,
+as the reference's do. Norms, D², partials, gaps, sums, counts, weights
+and the gate stay fp32. The plain twins widen the same way.
+
 ``lloyd_assign_tiled``, ``lloyd_assign_gated``, ``lloyd_assign_tiled_batched``,
 ``lloyd_assign_gated_batched``, ``lloyd_assign`` and ``lloyd_assign_batched``
 launch the hand-written CUDA kernels (``csrc/lloyd_assign.cu``) for tensors
@@ -49,17 +55,18 @@ from repro_torch.core.sampling import segment_sum, tile_partials
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.kmeans_distance import tile_d2
 
-_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6
+# the last int is the stream flag (1: bf16 points and centroids)
+_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7
              + (ctypes.c_void_p,))
-_GATED_ARGTYPES = ((ctypes.c_void_p,) * 19 + (ctypes.c_int,) * 6
+_GATED_ARGTYPES = ((ctypes.c_void_p,) * 19 + (ctypes.c_int,) * 7
                    + (ctypes.c_void_p,))
-_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7
+_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 8
                      + (ctypes.c_void_p,))
-_GATED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 19 + (ctypes.c_int,) * 7
+_GATED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 19 + (ctypes.c_int,) * 8
                            + (ctypes.c_void_p,))
-_PLAIN_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 5
+_PLAIN_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6
                    + (ctypes.c_void_p,))
-_PLAIN_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 6
+_PLAIN_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 7
                            + (ctypes.c_void_p,))
 
 
@@ -67,7 +74,8 @@ def _tile_reduce(points, a, m, gap_pt, k, block_n, tps):
     """Per-tile partials and gaps, and per-super cluster sums and counts,
     of per-row labels ``a``, D² ``m`` and gaps ``gap_pt`` — one reduction
     for both twins, so an active super's sums are the same bits gated or
-    not."""
+    not. The sums add the stream's rows widened to fp32."""
+    points = points.float()
     n, d = points.shape
     pad = (-n) % block_n
     n_tiles = (n + pad) // block_n
@@ -173,9 +181,9 @@ def lloyd_assign_torch(points: torch.Tensor, norms: torch.Tensor,
     int32, min_d2 (n,), sums (k, d), counts (k,))."""
     d2 = tile_d2(points, centroids, norms)
     a = d2.argmin(dim=1)
-    w = (points.new_ones(points.shape[0]) if weights is None
-         else weights.float())
-    tot = segment_sum(torch.cat([points * w[:, None], w[:, None]], 1), a,
+    x = points.float()
+    w = x.new_ones(x.shape[0]) if weights is None else weights.float()
+    tot = segment_sum(torch.cat([x * w[:, None], w[:, None]], 1), a,
                       centroids.shape[0])
     return a.int(), d2.amin(dim=1), tot[:, :-1], tot[:, -1]
 
@@ -217,6 +225,7 @@ def _check(points, norms, centroids, block_n, tps):
     devs = {t.device for t in (points, norms, centroids)}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
+    ops.stream_is_bf16(points, centroids)
 
 
 def _cols(d, k, block_n, gated: bool = False) -> int:
@@ -241,7 +250,7 @@ def lloyd_assign_tiled(points: torch.Tensor, norms: torch.Tensor,
                                         block_n=block_n, tps=tps)
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
-    ops.check_card_tensors(points=points, norms=norms, centroids=centroids)
+    bf16 = ops.check_round_tensors(points, centroids, norms=norms)
     n, d = points.shape
     k = centroids.shape[0]
     cols = _cols(d, k, block_n)
@@ -263,11 +272,12 @@ def lloyd_assign_tiled(points: torch.Tensor, norms: torch.Tensor,
         err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
                  labels.data_ptr(), md.data_ptr(), partials.data_ptr(),
                  gaps.data_ptr(), tile_acc.data_ptr(), ssums.data_ptr(),
-                 scounts.data_ptr(), n, d, k, block_n, tps, cols, stream)
+                 scounts.data_ptr(), n, d, k, block_n, tps, cols, int(bf16),
+                 stream)
     if err != 0:
         raise KernelFailureError(f"lloyd_assign_tiled launch failed: "
                                  f"cudaError {err}")
-    ops.LAUNCHES["lloyd_assign_tiled"] += 1
+    ops.count_launch("lloyd_assign_tiled", bf16)
     return labels, md, partials, gaps, ssums, scounts
 
 
@@ -297,7 +307,7 @@ def lloyd_assign_tiled_batched(points: torch.Tensor, norms: torch.Tensor,
                                                 block_n=block_n, tps=tps)
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
-    ops.check_card_tensors(points=points, norms=norms, centroids=centroids)
+    bf16 = ops.check_round_tensors(points, centroids, norms=norms)
     _, n, d = points.shape
     k = centroids.shape[1]
     cols = _cols(d, k, block_n)
@@ -322,11 +332,12 @@ def lloyd_assign_tiled_batched(points: torch.Tensor, norms: torch.Tensor,
         err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
                  labels.data_ptr(), md.data_ptr(), partials.data_ptr(),
                  gaps.data_ptr(), tile_acc.data_ptr(), ssums.data_ptr(),
-                 scounts.data_ptr(), bsz, n, d, k, block_n, tps, cols, stream)
+                 scounts.data_ptr(), bsz, n, d, k, block_n, tps, cols,
+                 int(bf16), stream)
     if err != 0:
         raise KernelFailureError(f"lloyd_assign_tiled_batched launch failed: "
                                  f"cudaError {err}")
-    ops.LAUNCHES["lloyd_assign_tiled_batched"] += 1
+    ops.count_launch("lloyd_assign_tiled_batched", bf16)
     return labels, md, partials, gaps, ssums, scounts
 
 
@@ -367,9 +378,9 @@ def lloyd_assign_gated(points: torch.Tensor, norms: torch.Tensor,
             prev_super_counts, active, block_n=block_n, tps=tps)
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
-    ops.check_card_tensors(points=points, norms=norms, centroids=centroids,
-                           delta=delta, thresh=thresh, absorb=absorb,
-                           prev_min_d2=prev_min_d2, prev_lb=prev_lb)
+    bf16 = ops.check_round_tensors(points, centroids, norms=norms,
+                                   delta=delta, thresh=thresh, absorb=absorb,
+                                   prev_min_d2=prev_min_d2, prev_lb=prev_lb)
     ops.check_card_tensors(torch.int32, prev_assign=prev_assign)
     cols = _cols(d, k, block_n, gated=True)
     fn = _build.function("lloyd_assign", "lloyd_assign_gated_launch",
@@ -393,11 +404,11 @@ def lloyd_assign_gated(points: torch.Tensor, norms: torch.Tensor,
                  md.data_ptr(), lb.data_ptr(), partials.data_ptr(),
                  gaps.data_ptr(), tile_acc.data_ptr(), ssums.data_ptr(),
                  scounts.data_ptr(), pruned.data_ptr(), n, d, k, block_n,
-                 tps, cols, stream)
+                 tps, cols, int(bf16), stream)
     if err != 0:
         raise KernelFailureError(f"lloyd_assign_gated launch failed: "
                                  f"cudaError {err}")
-    ops.LAUNCHES["lloyd_assign_gated"] += 1
+    ops.count_launch("lloyd_assign_gated", bf16)
     return labels, md, lb, partials, gaps, ssums, scounts, pruned
 
 
@@ -449,9 +460,9 @@ def lloyd_assign_gated_batched(points: torch.Tensor, norms: torch.Tensor,
                                                 tps=tps)
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
-    ops.check_card_tensors(points=points, norms=norms, centroids=centroids,
-                           delta=delta, thresh=thresh, absorb=absorb,
-                           prev_min_d2=prev_min_d2, prev_lb=prev_lb)
+    bf16 = ops.check_round_tensors(points, centroids, norms=norms,
+                                   delta=delta, thresh=thresh, absorb=absorb,
+                                   prev_min_d2=prev_min_d2, prev_lb=prev_lb)
     ops.check_card_tensors(torch.int32, prev_assign=prev_assign)
     cols = _cols(d, k, block_n, gated=True)
     n_tiles = -(-n // block_n)
@@ -479,11 +490,11 @@ def lloyd_assign_gated_batched(points: torch.Tensor, norms: torch.Tensor,
                  md.data_ptr(), lb.data_ptr(), partials.data_ptr(),
                  gaps.data_ptr(), tile_acc.data_ptr(), ssums.data_ptr(),
                  scounts.data_ptr(), pruned.data_ptr(), bsz, n, d, k,
-                 block_n, tps, cols, stream)
+                 block_n, tps, cols, int(bf16), stream)
     if err != 0:
         raise KernelFailureError(f"lloyd_assign_gated_batched launch failed: "
                                  f"cudaError {err}")
-    ops.LAUNCHES["lloyd_assign_gated_batched"] += 1
+    ops.count_launch("lloyd_assign_gated_batched", bf16)
     return labels, md, lb, partials, gaps, ssums, scounts, pruned
 
 
@@ -508,7 +519,7 @@ def lloyd_assign(points: torch.Tensor, norms: torch.Tensor,
         return lloyd_assign_torch(points, norms, centroids, weights)
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
-    ops.check_card_tensors(points=points, norms=norms, centroids=centroids)
+    bf16 = ops.check_round_tensors(points, centroids, norms=norms)
     if weights is not None:
         ops.check_card_tensors(weights=weights)
     cols = _cols(d, k, block_n)
@@ -527,11 +538,11 @@ def lloyd_assign(points: torch.Tensor, norms: torch.Tensor,
                  None if weights is None else weights.data_ptr(),
                  labels.data_ptr(), md.data_ptr(), tile_acc.data_ptr(),
                  sums.data_ptr(), counts.data_ptr(), n, d, k, block_n, cols,
-                 stream)
+                 int(bf16), stream)
     if err != 0:
         raise KernelFailureError(f"lloyd_assign launch failed: cudaError "
                                  f"{err}")
-    ops.LAUNCHES["lloyd_assign"] += 1
+    ops.count_launch("lloyd_assign", bf16)
     return labels, md, sums, counts
 
 
@@ -559,7 +570,7 @@ def lloyd_assign_batched(points: torch.Tensor, norms: torch.Tensor,
         return lloyd_assign_batched_torch(points, norms, centroids)
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
-    ops.check_card_tensors(points=points, norms=norms, centroids=centroids)
+    bf16 = ops.check_round_tensors(points, centroids, norms=norms)
     cols = _cols(d, k, block_n)
     n_tiles = -(-n // block_n)
     if bsz * n_tiles >= 2 ** 31:
@@ -579,9 +590,9 @@ def lloyd_assign_batched(points: torch.Tensor, norms: torch.Tensor,
         err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
                  labels.data_ptr(), md.data_ptr(), tile_acc.data_ptr(),
                  sums.data_ptr(), counts.data_ptr(), bsz, n, d, k, block_n,
-                 cols, stream)
+                 cols, int(bf16), stream)
     if err != 0:
         raise KernelFailureError(f"lloyd_assign_batched launch failed: "
                                  f"cudaError {err}")
-    ops.LAUNCHES["lloyd_assign_batched"] += 1
+    ops.count_launch("lloyd_assign_batched", bf16)
     return labels, md, sums, counts

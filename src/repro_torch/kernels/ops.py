@@ -25,7 +25,14 @@ inputs with :func:`check_inputs`.
 Launch counters. Each wrapper adds one to its kernel's counter where it
 launches the kernel on the card, and nowhere else (the CPU path, which runs
 the plain twin, does not count), so a run can prove its main path went
-through the kernels.
+through the kernels. The seeding and assignment rounds (K2–K10b) count a
+launch on a bf16 point stream under their name with ``_bf16`` appended.
+
+Point streams. The seeding and assignment kernels read points and
+centroids as fp32 or as bf16 (the engine's ``precision="bf16"``), both of
+one dtype (:func:`stream_is_bf16`); everything else they read or write
+(norms, D², partials, gates, sums) is fp32. :func:`check_round_tensors`
+is a round wrapper's check of both before a launch.
 """
 from __future__ import annotations
 
@@ -57,6 +64,14 @@ LAUNCHES: dict[str, int] = {"seed_prologue": 0,
                             "pq_decode_attention": 0,
                             "flash_attention": 0,
                             "flash_attention_bf16": 0}
+# the seeding and assignment rounds' bf16 instances
+ROUND_KERNELS = ("distance_min_update", "distance_min_update_gated",
+                 "distance_min_update_batched",
+                 "distance_min_update_gated_batched", "lloyd_assign_tiled",
+                 "lloyd_assign_gated", "lloyd_assign_tiled_batched",
+                 "lloyd_assign_gated_batched", "lloyd_assign",
+                 "lloyd_assign_batched")
+LAUNCHES.update({f"{name}_bf16": 0 for name in ROUND_KERNELS})
 
 
 def reset_launches() -> None:
@@ -78,12 +93,45 @@ def check_inputs(device, **tensors) -> None:
 
 def check_card_tensors(dtype=None, **tensors) -> None:
     """What a kernel takes: contiguous tensors of ``dtype`` (float32 unless
-    given); raises ValueError naming the first that is not."""
+    given: norms, D², weights and every gate array are fp32 whatever the
+    point stream); raises ValueError naming the first that is not."""
     want = torch.float32 if dtype is None else dtype
     for name, t in tensors.items():
         if t.dtype != want or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous {want}, got "
                              f"{t.dtype} contiguous={t.is_contiguous()}")
+
+
+def stream_is_bf16(points: torch.Tensor, centroids: torch.Tensor) -> bool:
+    """Whether a seeding or assignment round reads a bf16 point stream:
+    ``points`` and ``centroids`` must share one dtype, float32 or bfloat16
+    on the card (any one dtype on the CPU, where the plain twins widen
+    it). Raises ValueError for mixed dtypes or another dtype on the card."""
+    if points.dtype != centroids.dtype:
+        raise ValueError(f"points ({points.dtype}) and centroids "
+                         f"({centroids.dtype}) must share one dtype")
+    if points.device.type == "cuda" and points.dtype not in (
+            torch.float32, torch.bfloat16):
+        raise ValueError(f"the kernels read float32 or bfloat16 points, "
+                         f"got {points.dtype}")
+    return points.dtype == torch.bfloat16
+
+
+def check_round_tensors(points: torch.Tensor, centroids: torch.Tensor,
+                        **fp32) -> bool:
+    """The card's checks of a seeding or assignment round: the stream
+    (points and centroids, one dtype, contiguous) and the fp32 arrays
+    ``fp32``. Returns whether the stream is bf16."""
+    bf16 = stream_is_bf16(points, centroids)
+    check_card_tensors(points.dtype, points=points, centroids=centroids)
+    check_card_tensors(**fp32)
+    return bf16
+
+
+def count_launch(name: str, bf16: bool) -> None:
+    """Adds one to the counter of round kernel ``name``'s fp32 or bf16
+    instance."""
+    LAUNCHES[f"{name}_bf16" if bf16 else name] += 1
 
 
 def seed_smem_bytes(d: int, m: int, resident: bool,

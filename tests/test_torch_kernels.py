@@ -477,14 +477,22 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
     cb = torch.zeros(1, 2, 256, 4)
     pq_decode.pq_decode_attention(qa[:, :1].contiguous(), codes, codes, cb,
                                   cb, 16)
-    assert set(ops.LAUNCHES) == {
-        "seed_prologue", "distance_min_update", "lloyd_assign_tiled",
-        "distance_min_update_gated", "lloyd_assign_gated", "row_min_d2",
-        "tile_cap", "distance_min_update_batched",
-        "lloyd_assign_tiled_batched", "seed_prologue_batched",
-        "distance_min_update_gated_batched", "lloyd_assign_gated_batched",
-        "lloyd_assign", "lloyd_assign_batched", "ivf_scan", "ivf_adc_scan",
-        "pq_decode_attention", "flash_attention", "flash_attention_bf16"}
+    # the rounds' bf16 stream takes the twins on the CPU too
+    x16 = x.bfloat16()
+    kd.distance_min_update(x16, bounds.point_norms(x), x16[:1].contiguous(),
+                           torch.full((500,), torch.inf), block_n=128)
+    la.lloyd_assign_tiled(x16, bounds.point_norms(x), x16[:3].contiguous(),
+                          block_n=128, tps=1)
+    rounds = {"distance_min_update", "lloyd_assign_tiled",
+              "distance_min_update_gated", "lloyd_assign_gated",
+              "distance_min_update_batched", "lloyd_assign_tiled_batched",
+              "distance_min_update_gated_batched",
+              "lloyd_assign_gated_batched", "lloyd_assign",
+              "lloyd_assign_batched"}
+    assert set(ops.LAUNCHES) == rounds | {f"{r}_bf16" for r in rounds} | {
+        "seed_prologue", "row_min_d2", "tile_cap", "seed_prologue_batched",
+        "ivf_scan", "ivf_adc_scan", "pq_decode_attention", "flash_attention",
+        "flash_attention_bf16"}
     assert not any(ops.LAUNCHES.values())
 
 
