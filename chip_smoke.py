@@ -24,6 +24,9 @@ Phases, each of which exits non-zero on failure:
    (``wgmma``) and UTMALDG (TMA load) instructions in their SASS
    (``cuobjdump -sass``); their registers, spills, dynamic shared memory
    and instruction counts are printed, before any of them is launched.
+   The screened K10a/K10b's 16 kernels (pass A ``screen_kernel<stream, D,
+   gated>``, pass B ``reduce_kernel<stream, gated>``) must report no spill
+   and pass A HGMMA in its SASS; their registers are printed.
 2. Hold every kernel against its plain PyTorch twin on the card, at the
    paper's shape (n = 4,000,000, d = 2; label-sorted for the gated seeding
    round, so its gate skips) and a ragged wide one (n = 100,003, d = 128):
@@ -84,8 +87,9 @@ Phases, each of which exits non-zero on failure:
    n = 16384 rows, d = 16, k = 256, 6 Lloyd iterations; blobs made on the
    card from a seed), bounds off: K7 (batched seeding round, m = 1 and 8)
    and K10a (batched assignment round) against their plain twins, two
-   launches bitwise, rows 0, 1 and B−1 bitwise K2/K3 on that problem's
-   slice; then ``ClusterEngine(device="cuda", bounds=False)
+   launches bitwise, rows 0, 1 and B−1 bitwise K2 (K7) and every problem
+   bitwise K3 (K10a) on that problem's slice, and K10a's screened-route
+   counters (candidates per row, rows on the full scan); then ``ClusterEngine(device="cuda", bounds=False)
    .kmeans_batched`` for sampler cdf and tiled, counted (K7 k times, K10a
    once per iteration of the slowest problem, nothing else), a second run
    bitwise, rows 0, 1 and B−1 bitwise the single ``seed`` then ``fit``
@@ -101,8 +105,8 @@ Phases, each of which exits non-zero on failure:
    assignment round, from a carried state whose lower bounds make the
    prune fire; every tile, a mixed mask with supers off, the movement
    gate's) against their plain twins, two launches bitwise, skipped tiles
-   keeping their carries, rows 0, 1 and B−1 bitwise K1/K5/K6 on that
-   problem's slice; then ``ClusterEngine(device="cuda").kmeans_batched``
+   keeping their carries, rows 0, 1 and B−1 bitwise K1/K5 and every
+   problem bitwise K6 (K10b) on that problem's slice; then ``ClusterEngine(device="cuda").kmeans_batched``
    for sampler cdf and tiled, on the sweep and on 16 problems of 4 blobs
    with rows sorted by blob (the tile gate skips), counted (the batched K1
    twice, one prologue per phase; K8 k times; K10b once per iteration of
@@ -111,7 +115,16 @@ Phases, each of which exits non-zero on failure:
    0, 1 and B−1 bitwise the single gated ``seed`` then ``fit`` with their
    skip and prune counters. Printed: the counters' totals, gated and
    ungated seconds. K8 (m = 1, the gate's mask and all active) and K10b
-   (the gate's mask) on the bf16 stream, held as phase 5's.
+   (the gate's mask) on the bf16 stream, held as phase 5's. Then
+   (phase 6 (screen)) K10a and K10b's screened route (d >= 8: a
+   tensor-core screen with an exact recheck) on adversarial problems
+   (B = 64, n = 16384, d in {8, 13, 16}, k in {250, 256}, fp32 and bf16:
+   duplicated centroids, rows between two centroids and on one, a zero
+   row, a NaN row, every other problem shifted by 1e3), each problem
+   bitwise K3/K6 on its slice (compared as bit patterns, NaN equal to
+   NaN), all-active K10b bitwise K10a, K10b screening exactly the rows that
+   do not prune, the counters printed; and K10b at the IVF build's PQ
+   sweep shape (16 problems, d = 8, k = 256) on its own.
 7. Weighted and mini-batch Lloyd. K4 (the untiled assignment round) at
    the paper's shape, unweighted and with integer weights 1–8, and at
    n = 100,003, d = 128, k = 64, and K9 (K4 over a batch of problems) at
@@ -276,15 +289,58 @@ def bound_ms(n_bytes: float, flops: float,
 
 
 def round_bound_ms(torch, pts, n_bytes: float, dot_flops: float,
-                   flops: float) -> tuple[float, str]:
+                   flops: float, tf32: bool = False) -> tuple[float, str]:
     """A round kernel's bound: the point-centroid dot products (``dot_flops``,
     2d a pair) at the rate of the stream's type (bf16 inputs with fp32
-    accumulation run on the tensor cores at ``BF16_FLOP_PER_S``), plus the
-    remaining per-pair and per-row operations (``flops``) at the fp32 rate;
-    the larger of that time and the bytes' time."""
+    accumulation run on the tensor cores at ``BF16_FLOP_PER_S``; fp32 at
+    ``FP32_FLOP_PER_S``, or at TF32's ``TF32_FLOP_PER_S`` for the screened
+    rounds, ``tf32``, whose exact recheck is counted with the rest), plus
+    the remaining per-pair and per-row operations (``flops``) at the fp32
+    rate; the larger of that time and the bytes' time."""
     dot_rate = (BF16_FLOP_PER_S if pts.dtype == torch.bfloat16
-                else FP32_FLOP_PER_S)
+                else TF32_FLOP_PER_S if tf32 else FP32_FLOP_PER_S)
     return bound_ms(n_bytes, flops + dot_flops * FP32_FLOP_PER_S / dot_rate)
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Bitwise equality; fp32 tensors compared as their int32 bit patterns,
+    so that NaN equals NaN."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def every_problem(torch, what, out, single, bsz) -> None:
+    """Every problem b of a batched round's outputs ``out`` bitwise the
+    single-problem round ``single(b)`` on its slice."""
+    for b in range(bsz):
+        one = single(b)
+        check(all(bits_equal(torch, u[b], v) for u, v in zip(out, one)),
+              f"{what}: problem {b} is not bitwise the single kernel on its "
+              "slice")
+
+
+def screen_record(la, name, pts, torch) -> dict:
+    """The screened route's counters of the last launch of ``name``, as
+    shares: candidates per screened row (mean, most) and the share of
+    screened rows on the full exact scan; {} off the route."""
+    if not la.screened(pts.shape[-1], pts.dtype == torch.bfloat16):
+        return {}
+    st = la.screen_stats(name)
+    rows = max(st["rows"], 1)
+    return {"screened_rows": st["rows"],
+            "candidates_per_row": st["candidates"] / rows,
+            "max_candidates": st["max_candidates"],
+            "full_scan_share": st["full_scan_rows"] / rows}
+
+
+def screen_text(c: dict) -> str:
+    if "screened_rows" not in c:
+        return ""
+    return (f"; screen: {c['screened_rows']} rows, "
+            f"{c['candidates_per_row']:.3f} candidates a row (most "
+            f"{c['max_candidates']}), {c['full_scan_share']:.4f} on the full "
+            f"scan; fp32-FMA bound {c['fma_bound_ms']:.4f} ms")
 
 
 def check(cond: bool, what: str) -> None:
@@ -292,17 +348,13 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def k15_build(_build, log: str) -> dict:
-    """K15's instances, bf16 (``flash_bf16_kernel<chunks>``) and fp32
-    (``flash_tf32_kernel<chunks>``): registers and spill bytes from the
-    library's ptxas log (this run's, or the one kept beside a reused
-    build), and the count of tensor-core (HGMMA) and TMA load (UTMALDG) instructions in
-    each one's SASS."""
+def kernel_build(_build, lib: str, log: str, pat: str, name) -> dict:
+    """The kernels of library ``lib`` whose mangled names match ``pat``,
+    named by ``name(match)``: registers and spill bytes from the ptxas log
+    (this run's, or the one kept beside a reused build), and the count of
+    tensor-core (HGMMA) and TMA load (UTMALDG) instructions in each one's
+    SASS."""
     out: dict = {}
-    pat = r"flash_(bf16|tf32)_kernelILi(\d+)E"
-
-    def name(m):
-        return f"flash_{m.group(1)}_kernel<{m.group(2)}>"
     fn = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -320,7 +372,7 @@ def k15_build(_build, log: str) -> dict:
             out.setdefault(fn, {}).setdefault("registers", int(m.group(1)))
     sass = subprocess.run(
         [_build.toolkit_bin("cuobjdump"), "-sass",
-         str(_build.library_path("flash_attention"))],
+         str(_build.library_path(lib))],
         check=True, capture_output=True, text=True).stdout
     for part in sass.split("Function : ")[1:]:
         k = re.search(pat, part.split("\n", 1)[0])
@@ -329,6 +381,28 @@ def k15_build(_build, log: str) -> dict:
             c["HGMMA"] = part.count("HGMMA")
             c["UTMALDG"] = part.count("UTMALDG")
     return out
+
+
+def k15_build(_build, log: str) -> dict:
+    """K15's instances, bf16 (``flash_bf16_kernel<chunks>``) and fp32
+    (``flash_tf32_kernel<chunks>``), as ``kernel_build`` reads them."""
+    return kernel_build(
+        _build, "flash_attention", log, r"flash_(bf16|tf32)_kernelILi(\d+)E",
+        lambda m: f"flash_{m.group(1)}_kernel<{m.group(2)}>")
+
+
+def screen_build(_build, log: str) -> dict:
+    """The screened route's kernels (K10a and K10b at d >= 8): pass A
+    (``screen_kernel<stream, D, gated>``, D the compiled width or 0) and
+    pass B (``reduce_kernel<stream, gated>``), as ``kernel_build`` reads
+    them."""
+    return kernel_build(
+        _build, "lloyd_assign", log,
+        r"(screen_kernel|reduce_kernel)I(f|13__nv_bfloat16)(?:Li(\d+)E)?"
+        r"Lb([01])E",
+        lambda m: (f"{m.group(1)}<{'fp32' if m.group(2) == 'f' else 'bf16'}"
+                   + (f", {m.group(3)}" if m.group(3) else "")
+                   + (", gated>" if m.group(4) == "1" else ">")))
 
 
 def d2_tol(torch, norms, cents) -> float:
@@ -394,7 +468,8 @@ def print_bf16(name: str, c: dict) -> None:
           f"and a second launch; {c['ms']:.4f} ms (fp32 instance {fp32}), "
           f"plain " + ("not timed" if c["plain_ms"] is None
                        else f"{c['plain_ms']:.4f} ms")
-          + f", bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+          + f", bound {c['bound_ms']:.4f} ms ({c['bound_by']})"
+          + screen_text(c))
 
 
 def k2_case(torch, kd, ops, pts, norms, m, resident, gen):
@@ -1325,8 +1400,10 @@ def k7_case(torch, kd, ops, pts, norms, m, gen):
 def k10a_case(torch, la, kd, ops, bounds, pts, norms, k, gen):
     """K10a at the batched shape: two launches bitwise, against its plain
     twin (labels outside near-ties, D², partials and gaps within tolerance,
-    super counts exact and sums within tolerance over its own labels), rows
-    0, 1 and B−1 bitwise K3 on their problem; times and bound."""
+    super counts exact and sums within tolerance over its own labels), every
+    problem bitwise K3 on its slice; the screened route's counters, times
+    and bounds (at d >= 8 the record's is the screen's, the dots at TF32's
+    or bf16's tensor-core rate, with the fp32-FMA bound beside it)."""
     bsz, n, d = pts.shape
     bn = ops.choose_block_n(n, d, k)
     t = -(-n // bn)
@@ -1335,6 +1412,7 @@ def k10a_case(torch, la, kd, ops, bounds, pts, norms, k, gen):
     cents = torch.take_along_dim(pts, idx, dim=1).contiguous()
     out1 = la.lloyd_assign_tiled_batched(pts, norms, cents, block_n=bn,
                                          tps=tps)
+    scr = screen_record(la, "lloyd_assign_tiled_batched", pts, torch)
     out2 = la.lloyd_assign_tiled_batched(pts, norms, cents, block_n=bn,
                                          tps=tps)
     torch.cuda.synchronize()
@@ -1363,11 +1441,8 @@ def k10a_case(torch, la, kd, ops, bounds, pts, norms, k, gen):
                         ssums.reshape(-1, k, d), scounts.reshape(-1, k),
                         bn * tps, s_of=s_of.reshape(-1)),
           f"K10a k={k}: super sums or counts outside tolerance")
-    for b in (0, 1, bsz - 1):
-        single = la.lloyd_assign_tiled(pts[b], norms[b], cents[b],
-                                       block_n=bn, tps=tps)
-        check(all(torch.equal(u[b], v) for u, v in zip(out1, single)),
-              f"K10a k={k}: problem {b} is not bitwise K3 on its slice")
+    every_problem(torch, f"K10a k={k}", out1, lambda b: la.lloyd_assign_tiled(
+        pts[b], norms[b], cents[b], block_n=bn, tps=tps), bsz)
     fp32_ms = widened(torch, f"K10a k={k}", lambda p, c: (
         la.lloyd_assign_tiled_batched(p, norms, c, block_n=bn, tps=tps)),
         pts, cents, out1, reps=5)
@@ -1376,14 +1451,16 @@ def k10a_case(torch, la, kd, ops, bounds, pts, norms, k, gen):
     plain = gpu_ms(torch, lambda: la.lloyd_assign_tiled_batched_torch(
         pts, norms, cents, block_n=bn, tps=tps), reps=1, warmup=0)
     xb = pts.element_size()
-    bms, by = round_bound_ms(
-        torch, pts, bsz * (xb * (n * d + k * d)
-                           + 4 * (3 * n + 2 * t + n_super * k * (d + 1))),
-        bsz * n * k * 2 * d, bsz * (n * k * 3 + n * d))
+    work = (bsz * (xb * (n * d + k * d)
+                   + 4 * (3 * n + 2 * t + n_super * k * (d + 1))),
+            bsz * n * k * 2 * d, bsz * (n * k * 3 + n * d))
+    fma_ms, _ = round_bound_ms(torch, pts, *work)
+    bms, by = round_bound_ms(torch, pts, *work, tf32=bool(scr))
     return dict(batch=bsz, n=n, d=d, k=k, block_n=bn, tps=tps,
                 stream=stream_tag(torch, pts), label_diffs=n_diff,
                 max_abs_err=err_md, tol=tol, ms=ms, plain_ms=plain,
-                fp32_ms=fp32_ms, bound_ms=bms, bound_by=by)
+                fp32_ms=fp32_ms, bound_ms=bms, bound_by=by,
+                fma_bound_ms=fma_ms, **scr)
 
 
 def row(res, b):
@@ -1423,9 +1500,11 @@ def batched_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws, pts,
                      f"k={c['k']} tps={c['tps']} label diffs "
                      f"{c['label_diffs']}")
                   + f": err {c['max_abs_err']:.3g} (tol {c['tol']:.3g}), "
-                  f"rows 0, 1, B-1 bitwise the single kernel; "
+                  + ("every problem" if name == "K10a" else "rows 0, 1, B-1")
+                  + " bitwise the single kernel; "
                   f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, bound "
-                  f"{c['bound_ms']:.4f} ms ({c['bound_by']})")
+                  f"{c['bound_ms']:.4f} ms ({c['bound_by']})"
+                  + screen_text(c))
     eng = ClusterEngine(device="cuda", bounds=False)
     fused = ClusterEngine("fused", device="cuda", bounds=False)
     runs = []
@@ -1645,8 +1724,9 @@ def k10b_case(torch, la, kd, bounds, ops, pts, cache, k, gen, only=None):
     clusters prune. Masks: every tile, mixed (problem 0 every other super,
     problem 1 none, the others all but super b % n_super), and the movement
     gate's (``only`` names a subset). Two launches bitwise; against the
-    plain twin; skipped tiles and supers keep their carries; rows 0, 1 and
-    B−1 bitwise K6."""
+    plain twin; skipped tiles and supers keep their carries; every problem
+    bitwise K6 on its slice; the screened route's counters and both bounds
+    as K10a's."""
     bsz, n, d = pts.shape
     bn = ops.choose_block_n(n, d, k)
     t = -(-n // bn)
@@ -1702,6 +1782,7 @@ def k10b_case(torch, la, kd, bounds, ops, pts, cache, k, gen, only=None):
                 st.min_d2, st.point_lb, st.partials, st.tile_gap,
                 st.tile_sums, st.tile_counts, act)
         out1 = la.lloyd_assign_gated_batched(*args, block_n=bn, tps=tps)
+        scr = screen_record(la, "lloyd_assign_gated_batched", pts, torch)
         out2 = la.lloyd_assign_gated_batched(*args, block_n=bn, tps=tps)
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for a, b in zip(out1, out2)),
@@ -1747,11 +1828,9 @@ def k10b_case(torch, la, kd, bounds, ops, pts, cache, k, gen, only=None):
             (out1[6], st.tile_counts, sup_skip)))
         check(kept and not bool(out1[7][skip].any()),
               f"{what}: a skipped tile's or super's outputs moved")
-        for b in (0, 1, bsz - 1):
-            single = la.lloyd_assign_gated(*(a[b] for a in args), block_n=bn,
-                                           tps=tps)
-            check(all(torch.equal(u[b], v) for u, v in zip(out1, single)),
-                  f"{what}: problem {b} is not bitwise K6 on its slice")
+        every_problem(torch, what, out1, lambda b, args=args: (
+            la.lloyd_assign_gated(*(a[b] for a in args), block_n=bn,
+                                  tps=tps)), bsz)
         del ref
         fp32_ms = widened(torch, what, lambda p, c, args=args: (
             la.lloyd_assign_gated_batched(p, args[1], c, *args[3:],
@@ -1767,19 +1846,143 @@ def k10b_case(torch, la, kd, bounds, ops, pts, cache, k, gen, only=None):
         fresh = rows_act - n_pruned
         s_act = int(sup_act.sum())
         xb = pts.element_size()
-        bms, by = round_bound_ms(
-            torch, pts, xb * (rows_act * d + bsz * k * d)
-            + 4 * (rows_act * 6 + fresh + bsz * k + 6 * bsz * t
-                   + s_act * k * (d + 1)),
-            fresh * k * 2 * d, fresh * k * 3 + rows_act * (d + 4))
+        work = (xb * (rows_act * d + bsz * k * d)
+                + 4 * (rows_act * 6 + fresh + bsz * k + 6 * bsz * t
+                       + s_act * k * (d + 1)),
+                fresh * k * 2 * d, fresh * k * 3 + rows_act * (d + 4))
+        fma_ms, _ = round_bound_ms(torch, pts, *work)
+        bms, by = round_bound_ms(torch, pts, *work, tf32=bool(scr))
         res.append(dict(batch=bsz, n=n, d=d, k=k, mask=name, block_n=bn,
                         tps=tps, stream=stream_tag(torch, pts),
                         active_tiles=int(act.sum()), tiles=bsz * t,
                         pruned=n_pruned, label_diffs=n_diff,
                         max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
-                        fp32_ms=fp32_ms, bound_ms=bms, bound_by=by))
+                        fp32_ms=fp32_ms, bound_ms=bms, bound_by=by,
+                        fma_bound_ms=fma_ms, **scr))
         del out1
     return res
+
+
+def adversarial_problems(torch, blobs_batched, bsz, n, d, k, dev, seed):
+    """(points (B, n, d), centroids (B, k, d)), fp32, with the screen's hard
+    cases: duplicated centroids (1 = 0, k - 1 = 2), a row halfway between
+    two centroids (row 2) and a row on one (row 3), every other problem
+    shifted by 1e3 in every coordinate (norms far above the distances), a
+    zero row (row 0) and a NaN row (row 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pts = blobs_batched(bsz, n, d, 64, generator=g)
+    idx = torch.randint(n, (bsz, k, 1), generator=g, device=dev)
+    cents = torch.take_along_dim(pts, idx, dim=1) + 0.01
+    cents[:, 1] = cents[:, 0]
+    cents[:, k - 1] = cents[:, 2]
+    pts[:, 2] = 0.5 * (cents[:, 0] + cents[:, k // 2])
+    pts[:, 3] = cents[:, 5]
+    shift = (torch.arange(bsz, device=dev) % 2 == 0).float() * 1e3
+    pts += shift[:, None, None]
+    cents += shift[:, None, None]
+    pts[:, 0] = 0.0
+    pts[:, 1] = float("nan")
+    return pts.contiguous(), cents.contiguous()
+
+
+def screen_case(torch, la, kd, ops, bounds, pts, cents, dtype):
+    """K10a and K10b on the screened route on adversarial problems (fp32
+    ``pts`` and ``cents``, run in ``dtype``; norms from the fp32 points):
+    K10a every problem bitwise K3; K10b all active with no carried bound
+    bitwise K10a; then a gated K10b from that state with two centroids
+    moved, every problem bitwise K6, screening exactly the rows that do
+    not prune. Returns the screened route's counters of both."""
+    bsz, n, d = pts.shape
+    k = cents.shape[1]
+    dev = pts.device
+    norms = bounds.point_norms(pts)
+    bn = ops.choose_block_n(n, d, k)
+    t = -(-n // bn)
+    tps = bounds.tiles_per_super(t)
+    s = -(-t // tps)
+    p, c = pts.to(dtype), cents.to(dtype)
+    what = f"screen d={d} k={k} {stream_tag(torch, p)}"
+    out = la.lloyd_assign_tiled_batched(p, norms, c, block_n=bn, tps=tps)
+    a_st = screen_record(la, "lloyd_assign_tiled_batched", p, torch)
+    check(a_st.get("screened_rows") == bsz * n,
+          f"{what}: K10a did not take the screened route on every row")
+    every_problem(torch, f"{what} K10a", out, lambda b: la.lloyd_assign_tiled(
+        p[b], norms[b], c[b], block_n=bn, tps=tps), bsz)
+    zt = torch.zeros((bsz, t), device=dev)
+    all_on = torch.ones((bsz, t), dtype=torch.bool, device=dev)
+    first = la.lloyd_assign_gated_batched(
+        p, norms, c, torch.zeros((bsz, k), device=dev), zt, zt,
+        torch.zeros((bsz, n), dtype=torch.int32, device=dev),
+        torch.zeros((bsz, n), device=dev),
+        torch.full((bsz, n), -torch.inf, device=dev), zt, zt,
+        torch.zeros((bsz, s, k, d), device=dev),
+        torch.zeros((bsz, s, k), device=dev), all_on, block_n=bn, tps=tps)
+    check(all(bits_equal(torch, u, v) for u, v in zip(
+        (first[0], first[1], first[3], first[4], first[5], first[6]), out))
+        and not bool(first[7].any()),
+        f"{what}: all-active K10b without a bound is not bitwise K10a")
+    del out
+    c1 = cents.clone()
+    c1[:, [0, k - 1]] += 0.002
+    st = bounds.BoundState(first[3], tile_gap=first[4], tile_sums=first[5],
+                           tile_counts=first[6], assignment=first[0],
+                           min_d2=first[1], point_lb=first[2], lb_debt=zt)
+    delta = bounds.centroid_movement(c1, cents)
+    c1 = c1.to(dtype)
+    cache = bounds.RoundCache(*kd.seed_prologue_batched(pts, bn))
+    thresh, absorb = bounds.assign_point_scalars(delta, c1, st, cache)
+    args = (p, norms, c1, delta, thresh, absorb, st.assignment, st.min_d2,
+            st.point_lb, st.partials, st.tile_gap, st.tile_sums,
+            st.tile_counts, all_on)
+    gated = la.lloyd_assign_gated_batched(*args, block_n=bn, tps=tps)
+    b_st = screen_record(la, "lloyd_assign_gated_batched", p, torch)
+    pruned = int(gated[7].sum())
+    check(pruned > 0 and b_st.get("screened_rows") == bsz * n - pruned,
+          f"{what}: K10b screened {b_st.get('screened_rows')} rows, "
+          f"{bsz * n - pruned} did not prune")
+    every_problem(torch, f"{what} K10b", gated, lambda b: la.lloyd_assign_gated(
+        *(a[b] for a in args), block_n=bn, tps=tps), bsz)
+    return dict(batch=bsz, n=n, d=d, k=k, stream=stream_tag(torch, p),
+                pruned=pruned, k10a=a_st, k10b=b_st)
+
+
+def screen_phase(torch, ops, kd, la, bounds, blobs_batched, dev, gen):
+    """Phase 6 (screen): K10a and K10b on adversarial problems (B = 64,
+    n = 16384) for d in {8, 13, 16} and k in {250, 256}, fp32 and bf16,
+    each held bitwise to K3/K6 problem by problem (``screen_case``), with
+    the screened route's counters; then K10b alone at the IVF build's PQ
+    sweep shape (16 problems of 16384 rows, d = 8, k = 256; the gate's
+    mask), as phase 6 holds it."""
+    cases = []
+    for d in (8, 13, 16):
+        for k in (250, 256):
+            pts, cents = adversarial_problems(torch, blobs_batched, 64, 16384,
+                                              d, k, dev, 100 * d + k)
+            for dtype in (torch.float32, torch.bfloat16):
+                c = screen_case(torch, la, kd, ops, bounds, pts, cents, dtype)
+                cases.append(c)
+                print(f"screen B=64 n=16384 d={d} k={k} {c['stream']}: every "
+                      f"problem bitwise K3 (K10a) and K6 (K10b, {c['pruned']}"
+                      " rows pruned), all-active K10b bitwise K10a; K10a "
+                      f"{c['k10a']['candidates_per_row']:.3f} candidates a "
+                      f"row (most {c['k10a']['max_candidates']}), "
+                      f"{c['k10a']['full_scan_share']:.4f} on the full scan; "
+                      f"K10b {c['k10b']['candidates_per_row']:.3f} (most "
+                      f"{c['k10b']['max_candidates']}), "
+                      f"{c['k10b']['full_scan_share']:.4f}")
+            del pts, cents
+    ivf = blobs_batched(16, 16384, 8, 256, generator=torch.Generator(
+        device=dev).manual_seed(3))
+    cache = bounds.RoundCache(*kd.seed_prologue_batched(
+        ivf, ops.choose_block_n(16384, 8, 256)))
+    ivf_case = k10b_case(torch, la, kd, bounds, ops, ivf, cache, 256, gen,
+                         only=("gate",))[0]
+    print(f"K10b at the IVF build's PQ sweep shape (B=16 n=16384 d=8 k=256, "
+          f"the gate's mask, {ivf_case['pruned']} rows pruned): every "
+          f"problem bitwise K6; {ivf_case['ms']:.4f} ms, bound "
+          f"{ivf_case['bound_ms']:.4f} ms ({ivf_case['bound_by']})"
+          + screen_text(ivf_case))
+    return cases, ivf_case
 
 
 def counted(torch, ops, fn):
@@ -1842,11 +2045,13 @@ def gated_batched_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws,
                      f"tiles active, {c['pruned']} rows pruned"
                      if "mask" in c else "")
                   + f": err {c['max_abs_err']:.3g} (tol {c['tol']:.3g}), "
-                  "rows 0, 1, B-1 bitwise the single kernel; "
+                  + ("every problem" if name == "K10b" else "rows 0, 1, B-1")
+                  + " bitwise the single kernel; "
                   f"{c['ms']:.4f} ms, plain "
                   + (f"{c['plain_ms']:.4f} ms" if c["plain_ms"] is not None
                      else "not timed")
-                  + f", bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+                  + f", bound {c['bound_ms']:.4f} ms ({c['bound_by']})"
+                  + screen_text(c))
     eng = ClusterEngine(device="cuda")
     ungated = ClusterEngine(device="cuda", bounds=False)
     runs = []
@@ -2905,6 +3110,18 @@ def main() -> int:
         check(c["registers"] >= 168,
               f"K15 {fn}: {c['registers']} registers at entry, too few "
               f"for setmaxnreg to raise two warpgroups to 232")
+    # the screened K10a/K10b: no spill, pass A on the tensor cores
+    report["screen_build"] = screen_build(_build, logs["lloyd_assign"])
+    check(len(report["screen_build"]) == 16,
+          f"screen kernels in the SASS: {sorted(report['screen_build'])}")
+    for fn, c in sorted(report["screen_build"].items()):
+        check("registers" in c and "spill_bytes" in c,
+              f"{fn}: no registers or spills in the ptxas log")
+        print(f"screen {fn}: {c['registers']} registers, {c['spill_bytes']} "
+              f"spill bytes; SASS: {c['HGMMA']} HGMMA")
+        check(c["spill_bytes"] == 0, f"{fn} spills")
+        check(c["HGMMA"] > 0 or fn.startswith("reduce"),
+              f"{fn}: no HGMMA in its SASS")
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 2")
     # 2. kernels against their plain twins
@@ -3152,6 +3369,13 @@ def main() -> int:
         gen)
     cases.update(gcases)
     report["gated_batched"] = grun
+    del kvq_sorted
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 6 (screen)")
+    # 6 (screen). K10a/K10b's screened route on adversarial problems, and
+    #    K10b at the IVF build's PQ sweep shape
+    report["screen"], ivf_case = screen_phase(
+        torch, ops, kd, la, bounds, blobs_batched, dev, gen)
+    cases["K10b ivf"] = [ivf_case]
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 7")
     # 7. weighted and mini-batch Lloyd at the paper's shape (K4), and K9 at

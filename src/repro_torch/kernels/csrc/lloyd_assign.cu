@@ -65,37 +65,93 @@
 // pass is skipped only when all four of a thread's rows prune.
 //
 // K10a replaces lloyd_assign.py::lloyd_assign_tiled_batched_pallas (its
-// pallas_call at line 544): K3 over B independent problems in one launch of
-// each kernel. The grids are B * n_tiles and B * n_super blocks along x,
-// block i taking tile (super) i % n_tiles (n_super) of problem i / n_tiles
-// (n_super), its pointers offset to that problem's points, norms,
-// centroids, labels, D², partials, gaps, tile scratch and super sums; then
-// it runs K3's code unchanged, with the same `cols` (a function of d, k and
-// block_n only), so row b is bitwise K3 on problem b. K3 and K6 are the
-// launches with B = 1. At the PQ codebook sweep (B = 1664, n = 16384,
-// d = 16, k = 256) the distance arithmetic is 2.4e11 flops a round, 3.6 ms
-// at the fp32 rate, against 1.9 GB of traffic (0.57 ms): operation-bound.
-// There d = 16 is compiled like d = 2, the row in registers and four rows
-// to a pass over the centroids: the runtime-d loop re-reads each row from
-// memory for every centroid and took ten times as long on the H100
-// (PERF.md, the TPU kernel table).
-// The fused multiply-adds are the same, in the same order, so K3's bits at
-// d = 16 do not change.
-//
+// pallas_call at line 544): K3 over B independent problems in one launch;
 // K10b replaces lloyd_assign.py::lloyd_assign_gated_batched_pallas (its
-// pallas_call at line 666): K6 over B independent problems in one launch of
-// each kernel, each problem with its own gate. It is K10a's grids on K6's
-// code: besides K10a's pointers every gate array is offset to its problem,
-// delta by b*k, thresh, absorb, the active mask and pruned by b*n_tiles, and
-// the carried labels, D² and lower bounds and the lower bounds out by b*n;
-// super_reduce_kernel reads its problem's mask. The TPU kernel visited
-// each problem's compacted list of super-aligned active tiles; here the full
-// grids are launched and read the (B, n_tiles) mask, so a block of a tile
-// (or a super) inactive in its problem exits at once and its carries stay.
-// Row b is then K6 on problem b, bitwise; K6 is the launch with B = 1. At
-// the PQ codebook sweep with every tile active and nothing pruned its
-// operation bound is K10a's, 3.65 ms; the d = 16 register path serves it as
-// it serves K10a.
+// pallas_call at line 666): K6 over B problems, each with its own gate (the
+// (B, n_tiles) mask read on the device, the full grid launched). Row b of
+// either is bitwise K3 (K6) on problem b, and an all-active K10b with no
+// carried bound is bitwise K10a. At d < 8, and past the widths below, both
+// run this file's template (assign_tile_kernel over B * n_tiles blocks,
+// block i taking tile i % n_tiles of problem i / n_tiles, every pointer
+// offset to its problem), as K3, K6, K4 and K9 always do.
+//
+// At d >= 8 (the row padded to the tensor cores' depth, 8 fp32 or 16 bf16
+// values, at most 512 bytes: screen::screened) they take the screened
+// route, which writes the template's bits. What bounds the template at the
+// PQ codebook sweep (B = 1664, n = 16384, d = 16, k = 256; 6.98e9 row and
+// centroid pairs a round) is its fp32 fused multiply-adds, 2.4e11 flops,
+// 3.65 ms at 67 TFLOP/s; one block of 256 threads per SM held the 8 warps'
+// cluster-sum accumulators (175 KB) through its centroid loop. The screened
+// route is two passes and the super reduce:
+//
+//   Pass A (screen::screen_kernel): one warpgroup per CTA, four CTAs an SM,
+//   each CTA cta_rows rows of one tile. It stages the problem's centroids
+//   (256 at a time, zero-padded) and their norms cn, computed as the
+//   template does (+inf past k), in the 128-byte swizzle wgmma reads. K10b
+//   first applies the template's prune to every row (pruned rows write the
+//   carried label and D² and lb = prev_lb - absorb) and lists the rest in
+//   shared memory, so only those are screened. Rows go in batches of 64,
+//   loaded one batch ahead by cp.async. For each 128 centroids one wgmma
+//   chain forms acc = x . c on the tensor cores (m64n128k8 TF32 for fp32
+//   streams, which reads each operand's top 19 bits; m64n128k16 bf16 for
+//   bf16 streams, whose products are exact in fp32), and the epilogue forms
+//   A' = fmaf(-2, acc, cn) (A = A' + xn screens D² = xn - 2 x.c + cn), the
+//   minimum of each group of 8 values of a row in one thread, the row's two
+//   smallest group minima so far over the quad that shares it (a2 the
+//   second), T' = min(max(a2, -xn) + 2 eps, FLT_MAX), and the candidates
+//   A' <= T' (from the sign bit of T' - A'), at most 16 kept a row. The
+//   recheck computes each candidate's D² with exact_d2, the template's
+//   arithmetic, and merges on (value, index): the least value, the first
+//   index that attains it, and the second smallest value (multiset sense),
+//   which is what the template's ascending fold gives over all k. A row
+//   whose xn, x or A' may not be finite (S + 2 eps below is not under 1e37),
+//   or that has more than 16 candidates, takes the template's full scan
+//   with fold. Pass A writes labels, md and lbo = sqrt(second) (K10b: its
+//   lb; K10a: a (B, n) scratch), counts its pruned rows into `pruned` with
+//   integer atomics, and adds its counters to `stats`.
+//
+//   Pass B (screen::reduce_kernel): the template's code after its row loop,
+//   on pass A's labels, md and lb: per tile the partial and the gap in the
+//   template's thread order and tree, and the cluster sums in its warp,
+//   chunk and lane order. A tile's d + 1 columns go in slices of at most 8
+//   to adjacent blocks (a column's sums do not depend on the slicing), so
+//   three blocks share an SM and the tile's rows are read from device
+//   memory about once; a chunk's values of the slice are loaded together.
+//   Then super_reduce_kernel as before.
+//
+// Why the recheck is exact. Let E_c be the D² the template computes for
+// centroid c and A_c = A'_c + xn the screened value, |A_c - E_c| <= eps
+// (below; both clamped at 0, which is 1-Lipschitz). The two centroids with
+// the smallest A have E <= A + eps, so E(2) <= A(2) + eps. A centroid that
+// can be the template's best or second has E_c <= E(2), so
+// A_c <= E_c + eps <= A(2) + 2 eps <= T' + xn: it is a candidate, because
+// a2 is the second smallest of a subset of the A' (group minima, of the
+// wgmmas done so far), so a2 >= A'(2). Every other centroid has E_c > E(2)
+// and cannot change the best, its first index or the second.
+//
+// Deriving eps, per row, in fp32 with margin. u = 2^-24. P = sqrt(xx)
+// sqrt(cnmax) (1 + 2^-9) bounds sum_j |x_j c_j| for every centroid (xx the
+// row's fmaf sum of squares, cnmax the largest cn; the 2^-9 covers their
+// rounding and the square roots for d < 2^13). S = |xn| + cnmax + 3 P
+// bounds every magnitude in both combinations. The terms:
+//   TF32 operands, truncated (2^-10 relative each; truncation is the worst
+//     case): each product within (2^-9 + 2^-20) |x_j c_j|, times 2 for
+//     -2 acc: 2 (2^-9 + 2^-20) P; bf16 products are exact: 0;
+//   the tensor cores' fp32 accumulation, which has no IEEE guarantee: a
+//     generous 2^-20 (8 fp32 ulps) per add relative to the sum of
+//     magnitudes, d + 1 adds: 2 (d + 1) 2^-20 (1 + 2^-8) P;
+//   the template's fmaf chain: gamma_d = d u / (1 - d u), times 2:
+//     2 gamma_d P;
+//   the roundings of A' = fmaf(-2, acc, cn) (one), of xn - 2 dt and + cn
+//     (two) and of T' itself (one): 4 u S;
+//   underflow and flushed denormals: d 2^-124 (1 + sqrt(xx) + sqrt(cnmax)).
+// eps = (1 + 2^-7) (rel P + 4 u S + d 2^-124 (1 + sqrt(xx) + sqrt(cnmax))),
+// rel = 2 (rho + (d + 1) 2^-20 (1 + 2^-8)) + 2 gamma_d, rho = 2^-9 + 2^-20
+// (TF32) or 0 (bf16): screen_eps. tests/test_torch_screen.py holds a copy
+// of the candidate rule and checks it on adversarial data.
+//
+// The route's work depends on the data: candidates per row and rows on the
+// full scan are counted into `stats` (lloyd_assign.screen_stats).
 // K4 replaces lloyd_assign.py::lloyd_assign_pallas (its pallas_call at line
 // 111): labels and D² per row, and the cluster sums and counts over ALL rows,
 // (k, d) and (k,), with no per-tile partials or gaps. The TPU kernel folded
@@ -114,7 +170,8 @@
 // the paper's shape.
 //
 // K9 replaces lloyd_assign.py::lloyd_assign_batched_pallas (its pallas_call
-// at line 201): K4 over B independent problems, as K10a is to K3. Both
+// at line 201): K4 over B independent problems, as the template's K10a is
+// to K3. Both
 // grids are B blocks wide per tile (per problem for the reduce); block i
 // takes tile i % n_tiles of problem i / n_tiles, its pointers offset to that
 // problem, and the reduce's block b adds problem b's tiles. Row b is K4 on
@@ -135,11 +192,16 @@
 // cluster sums add the rounded rows, as the TPU kernel's do. Norms, D²,
 // partials, gaps, sums, counts and the gate stay fp32; super_reduce_kernel
 // reads only fp32 and is shared. The stream halves x's bytes (a row at
-// d = 2 moves 16 B instead of 20); K10a and K10b at the sweep stay bound by
-// their fp32 arithmetic.
+// d = 2 moves 16 B instead of 20). The screened route (K10a, K10b at
+// d >= 8) is templated on the stream type the same way and runs bf16
+// streams on the bf16 tensor cores.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <cfloat>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -161,6 +223,27 @@ __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+// D² of one row and one centroid, the round's arithmetic: the dot product
+// as fused multiply-adds in ascending j from 0, x(j) and c(j) the widened
+// stream values, then max(xn - 2 dt + cn, 0). nvcc 12.9 compiled the
+// template's earlier `xn - 2.f * dt + cn` to three FADDs (2dt as dt + dt,
+// then xn - 2dt, then + cn; read from the SASS of every instance), so the
+// three adds are pinned in that form here: the single-problem rounds keep
+// their bits, and the screen's recheck (below) reproduces them. D > 0
+// unrolls the loop.
+template <int D, typename XF, typename CF>
+__device__ __forceinline__ float exact_d2(XF x, CF c, int d, float xn,
+                                          float cn) {
+  float dt = 0.f;
+  if constexpr (D > 0) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) dt = fmaf(x(j), c(j), dt);
+  } else {
+    for (int j = 0; j < d; ++j) dt = fmaf(x(j), c(j), dt);
+  }
+  return nan_max(__fadd_rn(__fsub_rn(xn, __fadd_rn(dt, dt)), cn), 0.f);
+}
+
 // Folds centroid c's d2 into a row's (best, second, label).
 __device__ __forceinline__ void fold(float d2, int c, float& best,
                                      float& second, int& a) {
@@ -170,6 +253,104 @@ __device__ __forceinline__ void fold(float d2, int c, float& best,
     a = c;
   } else if (d2 < second) {
     second = d2;
+  }
+}
+
+// The tile's partial (the sum of md) and gap (nan_min of lb - sqrt(md))
+// from each thread's share, in a fixed tree; thread 0 writes both.
+__device__ __forceinline__ void tile_partial_gap(float* red_sum,
+                                                 float* red_gap,
+                                                 float local_sum,
+                                                 float local_gap,
+                                                 float* partial, float* gap) {
+  const int tid = threadIdx.x;
+  red_sum[tid] = local_sum;
+  red_gap[tid] = local_gap;
+  __syncthreads();
+  for (int s = kThreads / 2; s > 0; s >>= 1) {
+    if (tid < s) {
+      red_sum[tid] += red_sum[tid + s];
+      red_gap[tid] = nan_min(red_gap[tid], red_gap[tid + s]);
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    *partial = red_sum[0];
+    *gap = red_gap[0];
+  }
+}
+
+// The tile's cluster sums and counts into out (k, d + 1) from the labels in
+// lab_sh, columns j_begin .. j_end - 1 (default all d + 1), `cols` columns
+// (j0 .. j0 + cols - 1) at a time: warp w
+// takes its 32-row chunks in ascending order, the lanes of one label add
+// their rows in lane order, and the 8 warps' accumulators are added in warp
+// order. Each column's sums are the same bits whatever `cols` is. `weights`
+// (Untiled only; may be null) are offset to the problem. kCols > 0 (the
+// screened route's pass B, cols <= kCols): a chunk's values of all its
+// columns are loaded before its sums, so they wait on memory together.
+template <typename T, bool Untiled, int kCols = 0>
+__device__ __forceinline__ void tile_cluster_sums(
+    const T* tile_x, const float* weights, long long tile0,
+    const int* lab_sh, float* acc_sh, float* out, int rows, int d, int k,
+    int cols, int j_begin = 0, int j_end = -1) {
+  const int tid = threadIdx.x;
+  const int width = j_end < 0 ? d + 1 : j_end;
+  const int warp = tid / 32, lane = tid % 32;
+  float* acc = acc_sh + (size_t)warp * k * cols;
+  for (int j0 = j_begin; j0 < width; j0 += cols) {
+    const int nc = min(cols, width - j0);
+    for (int i = tid; i < kWarps * k * cols; i += kThreads) acc_sh[i] = 0.f;
+    __syncthreads();
+    for (int chunk = warp * 32; chunk < rows; chunk += kThreads) {
+      const int r = chunk + lane;
+      const int lab = r < rows ? lab_sh[r] : -1;
+      const unsigned peers = __match_any_sync(kFull, lab);
+      const int rounds = __reduce_max_sync(kFull, __popc(peers));
+      const bool lead = lab >= 0 && __ffs(peers) - 1 == lane;
+      const float wr = Untiled && weights != nullptr && lab >= 0
+                           ? weights[tile0 + r] : 1.f;
+      // a lane past the tile's rows (lab < 0) reads nothing and adds 0
+      const auto value = [&](int jj) {
+        const int j = j0 + jj;
+        return lab < 0 ? 0.f
+                       : (j < d ? widen(tile_x[(size_t)r * d + j]) : 1.f);
+      };
+      const auto add = [&](int jj, float x) {
+        const float v = Untiled ? x * wr : x;
+        float s = 0.f;
+        unsigned rest = peers;
+        for (int t = 0; t < rounds; ++t) {   // the group's lanes, ascending
+          const int src = rest ? __ffs(rest) - 1 : lane;
+          const float got = __shfl_sync(kFull, v, src);
+          if (rest) {
+            s += got;
+            rest &= rest - 1;
+          }
+        }
+        if (lead) acc[(size_t)lab * cols + jj] += s;
+      };
+      if constexpr (kCols > 0) {
+        float xv[kCols];
+#pragma unroll
+        for (int jj = 0; jj < kCols; ++jj) xv[jj] = jj < nc ? value(jj) : 0.f;
+#pragma unroll
+        for (int jj = 0; jj < kCols; ++jj)
+          if (jj < nc) add(jj, xv[jj]);
+      } else {
+        for (int jj = 0; jj < nc; ++jj) add(jj, value(jj));
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+    for (int o = tid; o < k * nc; o += kThreads) {
+      const int c = o / nc, jj = o % nc;
+      float s = 0.f;
+      for (int w = 0; w < kWarps; ++w)
+        s += acc_sh[((size_t)w * k + c) * cols + jj];
+      out[(size_t)c * (d + 1) + j0 + jj] = s;
+    }
+    __syncthreads();
   }
 }
 
@@ -300,19 +481,15 @@ assign_tile_kernel(const T* __restrict__ points,
 #pragma unroll
         for (int j = 0; j < D; ++j) cr[j] = cc[j];
 #pragma unroll
-        for (int q = 0; q < R; ++q) {
-          float dt = 0.f;
-#pragma unroll
-          for (int j = 0; j < D; ++j) dt = fmaf(xr[q][j], cr[j], dt);
-          fold(nan_max(xn[q] - 2.f * dt + cn, 0.f), c, best[q], second[q],
-               a[q]);
-        }
+        for (int q = 0; q < R; ++q)
+          fold(exact_d2<D>([&](int j) { return xr[q][j]; },
+                           [&](int j) { return cr[j]; }, d, xn[q], cn),
+               c, best[q], second[q], a[q]);
       } else {
         const T* x = tile_x + (size_t)base * d;
-        float dt = 0.f;
-        for (int j = 0; j < d; ++j) dt = fmaf(widen(x[j]), cc[j], dt);
-        fold(nan_max(xn[0] - 2.f * dt + cn, 0.f), c, best[0], second[0],
-             a[0]);
+        fold(exact_d2<0>([&](int j) { return widen(x[j]); },
+                         [&](int j) { return cc[j]; }, d, xn[0], cn),
+             c, best[0], second[0], a[0]);
       }
     }
 #pragma unroll
@@ -345,69 +522,12 @@ assign_tile_kernel(const T* __restrict__ points,
     if (tid == 0) g.pruned[t] = cnt_sh[0];
     __syncthreads();
   }
-  if (!Untiled) {
-    red_sum[tid] = local_sum;
-    red_gap[tid] = local_gap;
-    __syncthreads();
-    for (int s = kThreads / 2; s > 0; s >>= 1) {
-      if (tid < s) {
-        red_sum[tid] += red_sum[tid + s];
-        red_gap[tid] = nan_min(red_gap[tid], red_gap[tid + s]);
-      }
-      __syncthreads();
-    }
-    if (tid == 0) {
-      partials[t] = red_sum[0];
-      gaps[t] = red_gap[0];
-    }
-  }
-
-  // cluster sums, `cols` columns (j0 .. j0 + cols - 1 of d + 1) at a time
-  const int warp = tid / 32, lane = tid % 32;
-  float* acc = acc_sh + (size_t)warp * k * cols;
-  float* out = tile_acc + (size_t)blockIdx.x * k * width;  // (b, t)
-  for (int j0 = 0; j0 < width; j0 += cols) {
-    const int nc = min(cols, width - j0);
-    for (int i = tid; i < kWarps * k * cols; i += kThreads) acc_sh[i] = 0.f;
-    __syncthreads();
-    for (int chunk = warp * 32; chunk < rows; chunk += kThreads) {
-      const int r = chunk + lane;
-      const int lab = r < rows ? lab_sh[r] : -1;
-      const unsigned peers = __match_any_sync(kFull, lab);
-      const int rounds = __reduce_max_sync(kFull, __popc(peers));
-      const bool lead = lab >= 0 && __ffs(peers) - 1 == lane;
-      const float wr = Untiled && weights != nullptr && lab >= 0
-                           ? weights[tile0 + r] : 1.f;
-      for (int jj = 0; jj < nc; ++jj) {
-        const int j = j0 + jj;
-        // a lane past the tile's rows (lab < 0) reads nothing and adds 0
-        const float x =
-            lab < 0 ? 0.f : (j < d ? widen(tile_x[(size_t)r * d + j]) : 1.f);
-        const float v = Untiled ? x * wr : x;
-        float s = 0.f;
-        unsigned rest = peers;
-        for (int t = 0; t < rounds; ++t) {   // the group's lanes, ascending
-          const int src = rest ? __ffs(rest) - 1 : lane;
-          const float got = __shfl_sync(kFull, v, src);
-          if (rest) {
-            s += got;
-            rest &= rest - 1;
-          }
-        }
-        if (lead) acc[(size_t)lab * cols + jj] += s;
-      }
-      __syncwarp();
-    }
-    __syncthreads();
-    for (int o = tid; o < k * nc; o += kThreads) {
-      const int c = o / nc, jj = o % nc;
-      float s = 0.f;
-      for (int w = 0; w < kWarps; ++w)
-        s += acc_sh[((size_t)w * k + c) * cols + jj];
-      out[(size_t)c * width + j0 + jj] = s;
-    }
-    __syncthreads();
-  }
+  if (!Untiled)
+    tile_partial_gap(red_sum, red_gap, local_sum, local_gap, partials + t,
+                     gaps + t);
+  tile_cluster_sums<T, Untiled>(tile_x, weights, tile0, lab_sh, acc_sh,
+                                tile_acc + (size_t)blockIdx.x * k * width,
+                                rows, d, k, cols);
 }
 
 // `active` (K6, K10b) skips a super none of whose tiles computed in its
@@ -443,6 +563,815 @@ super_reduce_kernel(const float* __restrict__ tile_acc, float* __restrict__ ssum
       ssums[((size_t)s * k + c) * d + j] = acc;
   }
 }
+
+// ---------------------------------------------------------------------------
+// K10a and K10b at d >= 8: the screened route (see the header).
+
+namespace screen {
+
+constexpr int kThreadsA = 128;   // pass A: one warpgroup
+constexpr int kRows = 64;        // rows of one wgmma tile (a batch)
+constexpr int kN = 256;          // centroids staged at once (a chunk)
+constexpr int kNH = 128;         // centroids of one wgmma (half a chunk)
+constexpr int kMaxCand = 16;     // candidates kept per row
+constexpr int kMaxChunks = 4;    // 128-byte column chunks: d * bytes <= 512
+constexpr int kCChunk = kN * 128;     // one column chunk of a centroid tile
+constexpr int kXChunk = kRows * 128;  // one column chunk of a row tile
+constexpr int kTargetCtas = 4096;     // pass A's grid is cut finer below this
+constexpr size_t kReduceBudget = 72 * 1024;   // pass B: three blocks an SM
+constexpr int kSliceCols = 8;    // pass B: the most columns a slice
+constexpr int kCandStride = kMaxCand + 1;     // a row's list: distinct banks
+using Cand = unsigned short;     // a candidate's index (k < 65536)
+// the recheck's merge: a row's best, second and label from its second
+// thread
+constexpr int kMergeBytes = 3 * 4 * kRows;
+
+// columns d padded to the wgmma depth: 8 (TF32) or 16 (bf16) values
+__host__ __device__ inline int padded_d(int d, bool bf16) {
+  const int q = bf16 ? 16 : 8;
+  return (d + q - 1) / q * q;
+}
+
+// whether K10a and K10b take the screened route at width d
+__host__ __device__ inline bool screened(int d, bool bf16) {
+  return d >= 8 && padded_d(d, bf16) * (bf16 ? 2 : 4) <= kMaxChunks * 128;
+}
+
+// pass A's shared memory, byte offsets from a 1024-aligned base: the
+// centroid tile (chunks of 256 rows x 128 B), two row tiles (chunks of 64
+// rows x 128 B each: one computed on, one loading), cn (n_chunks * 256),
+// the candidate lists (64 x 17), their counts, xn and eps (64 each), the
+// recheck's merge (3 x 64), the two row tiles' norms (2 x 64), the row
+// list (K10b only, cta_rows), counters
+struct Layout {
+  int c_off, x_off, cn_off, cand_off, cnt_off, xn_off, eps_off, merge_off,
+      xnb_off, list_off, misc_off, bytes;
+  __host__ __device__ Layout(int d, int k, bool bf16, int cta_rows,
+                             bool gated) {
+    const int chunks = (padded_d(d, bf16) * (bf16 ? 2 : 4) + 127) / 128;
+    const int n_chunks = (k + kN - 1) / kN;
+    c_off = 0;
+    x_off = c_off + chunks * kCChunk;
+    cn_off = x_off + 2 * chunks * kXChunk;
+    cand_off = cn_off + 4 * n_chunks * kN;
+    cnt_off = cand_off + (2 * kRows * kCandStride + 3) / 4 * 4;
+    xn_off = cnt_off + 4 * kRows;
+    eps_off = xn_off + 4 * kRows;
+    merge_off = eps_off + 4 * kRows;
+    xnb_off = merge_off + kMergeBytes;
+    list_off = xnb_off + 2 * 4 * kRows;
+    misc_off = list_off + (gated ? (2 * cta_rows + 7) / 8 * 8 : 0);
+    bytes = misc_off + 64 + 1024;   // + the base's alignment
+  }
+};
+
+// byte offset of (row r, byte b) in a tile of 128-byte rows under the
+// 128-byte swizzle (16-byte unit u of row r at unit u ^ (r % 8)), the layout
+// the wgmma descriptors below read
+__device__ __forceinline__ int swz(int r, int b) {
+  return r * 128 + ((((b >> 4) ^ r) & 7) << 4) + (b & 15);
+}
+
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | static_cast<uint64_t>(16 >> 4) << 16
+         | static_cast<uint64_t>(1024 >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// makes shared-memory stores of this thread visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+// keeps the compiler from reading wgmma's registers before the wait
+__device__ __forceinline__ void fence_regs(float (&r)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define WG_D64                                                                \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "    \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "    \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "    \
+  "%58, %59, %60, %61, %62, %63"
+#define WG_R8(i)                                                              \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),                \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// acc (+)= A B over one 32-byte depth step: m64n128k8 in TF32 (the
+// hardware reads each fp32 operand's top 19 bits) or m64n128k16 in bf16,
+// A (rows) and B (128 centroids) K-major in shared memory, fp32
+// accumulate; `accumulate` 0 overwrites acc
+template <bool Bf16>
+__device__ __forceinline__ void wgmma_step(float (&d)[64], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  if constexpr (Bf16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_D64
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : WG_R8(0), WG_R8(8), WG_R8(16), WG_R8(24), WG_R8(32), WG_R8(40),
+          WG_R8(48), WG_R8(56)
+        : "l"(da), "l"(db), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {" WG_D64
+        "}, %64, %65, p, 1, 1;\n}\n"
+        : WG_R8(0), WG_R8(8), WG_R8(16), WG_R8(24), WG_R8(32), WG_R8(40),
+          WG_R8(48), WG_R8(56)
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+}
+#undef WG_R8
+#undef WG_D64
+
+// the stream's values as raw bits (staged as they are) and widened
+template <typename T>
+using Bits = std::conditional_t<std::is_same<T, float>::value, unsigned int,
+                                unsigned short>;
+__device__ __forceinline__ float widen_bits(unsigned int v) {
+  return __uint_as_float(v);
+}
+__device__ __forceinline__ float widen_bits(unsigned short v) {
+  return __bfloat162float(__ushort_as_bfloat16(v));
+}
+
+// the screen's margin eps for one row (the header's derivation): P bounds
+// sum_j |x_j c_j| for every centroid, S every magnitude in the two
+// combinations; `rel` is the per-problem relative term. Returns -1 (the
+// row takes the full scan) unless S + 2 eps < 1e37, false for inf and NaN
+__device__ __forceinline__ float screen_eps(float xx, float xn, float cnmax,
+                                            float rel, int d) {
+  const float sx = sqrtf(xx), sc = sqrtf(cnmax);
+  const float P = sx * sc * (1.f + 0x1p-9f);
+  const float S = fabsf(xn) + cnmax + 3.f * P;
+  const float eps = (1.f + 0x1p-7f) * (rel * P + 4.f * 0x1p-24f * S
+                                       + (float)d * 0x1p-124f
+                                             * (1.f + sx + sc));
+  return S + 2.f * eps < 1e37f ? eps : -1.f;
+}
+
+// 16-byte asynchronous copy global -> shared; src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(src_bytes) : "memory");
+}
+// 4-byte asynchronous copy global -> shared; src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
+               "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+// the D (> 0) values of row r of a staged tile, read as 16-byte units
+template <int D, typename B>
+__device__ __forceinline__ void load_row(const unsigned char* tile, int r,
+                                         float (&out)[D]) {
+  constexpr int kPer = 16 / sizeof(B);
+#pragma unroll
+  for (int u = 0; u < (D + kPer - 1) / kPer; ++u) {
+    const uint4 w = *reinterpret_cast<const uint4*>(tile + swz(r, 16 * u));
+    const B* v = reinterpret_cast<const B*>(&w);
+#pragma unroll
+    for (int e = 0; e < kPer; ++e)
+      if (u * kPer + e < D) out[u * kPer + e] = widen_bits(v[e]);
+  }
+}
+
+// Pass A: one CTA (one warpgroup) takes cta_rows rows of one tile of one
+// problem. K10b (Gated) first writes the pruned rows from their carries and
+// lists the others; then the rows (K10a: all; K10b: the listed ones) go in
+// batches of 64 through the screen and the recheck, which write labels, md
+// and lbo = sqrt(second) (K10b: g.lb). D > 0: d == D and 16-byte aligned
+// rows, staged by cp.async one batch ahead; D == 0: any d, staged in place.
+// stats (4): rows screened, their candidates, the most candidates of one
+// row, rows on the full scan.
+// Registers for four CTAs an SM (three for K10b, whose row list takes
+// shared memory)
+template <typename T, int D, bool Gated>
+__global__ void __launch_bounds__(kThreadsA, Gated ? 3 : 4)
+screen_kernel(const T* __restrict__ points, const float* __restrict__ norms,
+              const T* __restrict__ cents, int* __restrict__ labels,
+              float* __restrict__ md, float* __restrict__ lbo, Gate g,
+              unsigned long long* __restrict__ stats, int n, int d, int k,
+              int block_n, int cta_rows) {
+  constexpr bool kBf16 = !std::is_same<T, float>::value;
+  constexpr int kEs = sizeof(T);
+  using B = Bits<T>;
+  const int n_tiles = (n + block_n - 1) / block_n;
+  const int spt = (block_n + cta_rows - 1) / cta_rows;
+  const int b = blockIdx.x / (n_tiles * spt);
+  const int rem = blockIdx.x - b * n_tiles * spt;
+  const int t = rem / spt;
+  const int sub = rem - t * spt;
+  const B* xb = reinterpret_cast<const B*>(points) + (size_t)b * n * d;
+  const B* cb = reinterpret_cast<const B*>(cents) + (size_t)b * k * d;
+  norms += (size_t)b * n;
+  labels += (size_t)b * n;
+  md += (size_t)b * n;
+  if (Gated) {
+    lbo = g.lb;
+    if (!g.active[(size_t)b * n_tiles + t]) return;  // skipped: carries stay
+  }
+  lbo += (size_t)b * n;
+  const long long r0 = (long long)t * block_n + (long long)sub * cta_rows;
+  const long long r1 = min(min(r0 + cta_rows, (long long)(t + 1) * block_n),
+                           (long long)n);
+  if (r0 >= r1) return;
+  const int nrows = (int)(r1 - r0);
+
+  const int dpad = padded_d(d, kBf16);
+  const int steps = dpad * kEs / 32;          // 32-byte wgmma depth steps
+  const int kc = (steps + 3) / 4;             // 128-byte column chunks
+  const int n_chunks = (k + kN - 1) / kN;
+  const bool resident = n_chunks == 1;
+  const Layout L(d, k, kBf16, cta_rows, Gated);
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t pad = ((raw + 1023) & ~1023u) - raw;
+  unsigned char* base = smem_raw + pad;
+  const uint32_t sbase = raw + pad;
+  unsigned char* c_s = base + L.c_off;
+  float* cn_s = reinterpret_cast<float*>(base + L.cn_off);
+  Cand* cand_s = reinterpret_cast<Cand*>(base + L.cand_off);
+  int* cnt_s = reinterpret_cast<int*>(base + L.cnt_off);
+  float* xn_s = reinterpret_cast<float*>(base + L.xn_off);
+  float* eps_s = reinterpret_cast<float*>(base + L.eps_off);
+  float* mb_s = reinterpret_cast<float*>(base + L.merge_off);  // (64) x 3
+  float* ms_s = mb_s + kRows;
+  int* mi_s = reinterpret_cast<int*>(ms_s + kRows);
+  float* xnb_s = reinterpret_cast<float*>(base + L.xnb_off);   // (2, 64)
+  Cand* list_s = reinterpret_cast<Cand*>(base + L.list_off);
+  unsigned long long* st_s =
+      reinterpret_cast<unsigned long long*>(base + L.misc_off);  // (4)
+  int* list_n_s = reinterpret_cast<int*>(base + L.misc_off + 32);
+  int* pruned_s = list_n_s + 1;
+  float* cnmax_s = reinterpret_cast<float*>(list_n_s + 2);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int xbuf_bytes = kc * kXChunk;
+  // the row tile of buffer `buf`
+  const auto x_tile = [&](int buf) { return base + L.x_off + buf * xbuf_bytes; };
+
+  // element (r, j) of a staged tile of rows_per_chunk rows a chunk
+  const auto at = [&](unsigned char* tile, int rows_per_chunk, int r,
+                      int j) {
+    const int bb = j * kEs;
+    return tile + (bb >> 7) * rows_per_chunk * 128 + swz(r, bb & 127);
+  };
+  const auto stage_c = [&](int nc) {   // centroids nc*256 .. +255, zeros past
+    for (int i = tid; i < kN * dpad; i += kThreadsA) {
+      const int r = i / dpad, j = i - r * dpad, c = nc * kN + r;
+      const B v = (c < k && j < d) ? cb[(size_t)c * d + j] : B(0);
+      *reinterpret_cast<B*>(at(c_s, kN, r, j)) = v;
+    }
+    fence_async_smem();
+  };
+
+  // cn exactly as the template stages it, +inf past k; the largest, NaN
+  // and inf kept
+  float cmax = 0.f;
+  for (int c = tid; c < n_chunks * kN; c += kThreadsA) {
+    float s = CUDART_INF_F;
+    if (c < k) {
+      s = 0.f;
+      for (int j = 0; j < d; ++j) {
+        const float v = widen_bits(cb[(size_t)c * d + j]);
+        s = fmaf(v, v, s);
+      }
+      cmax = nan_max(cmax, s);
+    }
+    cn_s[c] = s;
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    cmax = nan_max(cmax, __shfl_xor_sync(kFull, cmax, o));
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i) st_s[i] = 0ull;
+    *list_n_s = 0;
+    *pruned_s = 0;
+  }
+  if (lane == 0) mb_s[warp] = cmax;
+  if (resident) stage_c(0);
+  __syncthreads();
+  if (tid == 0) {
+    float m = 0.f;
+    for (int w = 0; w < kThreadsA / 32; ++w) m = nan_max(m, mb_s[w]);
+    *cnmax_s = m;
+  }
+
+  // K10b: the prune (bounds.assign_point_prune) and the list of the rest
+  int total = nrows;
+  if (Gated) {
+    const size_t bt = (size_t)b * n_tiles + t;
+    const float thresh_t = g.thresh[bt], absorb_t = g.absorb[bt];
+    const int* prev_a = g.prev_a + (size_t)b * n;
+    const float* prev_md = g.prev_md + (size_t)b * n;
+    const float* prev_lb = g.prev_lb + (size_t)b * n;
+    const float* delta = g.delta + (size_t)b * k;
+    int local_pruned = 0;
+    for (int i0 = 0; i0 < nrows; i0 += kThreadsA) {
+      const int i = i0 + tid;
+      bool keep = false;
+      if (i < nrows) {
+        const long long row = r0 + i;
+        const int pa = prev_a[row];
+        const float pmd = prev_md[row];
+        const float plb = prev_lb[row];
+        const bool prune = delta[pa] == 0.f &&
+                           __fsub_rn(plb, sqrtf(pmd)) >= thresh_t;
+        if (prune) {
+          labels[row] = pa;
+          md[row] = pmd;
+          lbo[row] = __fsub_rn(plb, absorb_t);
+          ++local_pruned;
+        }
+        keep = !prune;
+      }
+      const unsigned ballot = __ballot_sync(kFull, keep);
+      int at0 = 0;
+      if (lane == 0 && ballot) at0 = atomicAdd(list_n_s, __popc(ballot));
+      at0 = __shfl_sync(kFull, at0, 0);
+      if (keep)
+        list_s[at0 + __popc(ballot & ((1u << lane) - 1u))] = (Cand)i;
+    }
+    if (local_pruned) atomicAdd(pruned_s, local_pruned);
+    __syncthreads();
+    total = *list_n_s;
+    if (tid == 0 && *pruned_s) atomicAdd(&g.pruned[bt], *pruned_s);
+  }
+  __syncthreads();
+  const float cnmax = *cnmax_s;
+  const float du = (float)d * 0x1p-24f;
+  const float rel =
+      2.f * ((kBf16 ? 0.f : 0x1p-9f + 0x1p-20f)
+             + (float)(d + 1) * 0x1p-20f * (1.f + 0x1p-8f))
+      + 2.f * (du / (1.f - du));
+  const auto row_of = [&](int i) -> long long {   // i-th row of the CTA's
+    return r0 + (Gated ? list_s[i] : i);
+  };
+
+  // D > 0: batch `first`'s rows into buffer `buf` by cp.async (zeros past
+  // d and past the rows), one group per call
+  constexpr int kPer = 16 / kEs;                         // values a unit
+  constexpr int kUnits = D > 0 ? (D + kPer - 1) / kPer : 1;
+  constexpr int kUnitsPad = D > 0 ? (D * kEs + 31) / 32 * 2 : 1;
+  const auto load_rows = [&](int first, int buf) {
+    if (D > 0 && first < total) {
+      const int cnt = min(kRows, total - first);
+      unsigned char* tile = x_tile(buf);
+      for (int i = tid; i < kRows * kUnitsPad; i += kThreadsA) {
+        const int r = i / kUnitsPad, u = i - r * kUnitsPad;
+        const bool live = r < cnt && u < kUnits;
+        const B* src = live ? xb + (size_t)row_of(first + r) * D + u * kPer
+                            : xb;
+        cp_async16(static_cast<uint32_t>(__cvta_generic_to_shared(
+                       tile + swz(r, 16 * u))),
+                   src, live ? 16 : 0);
+      }
+      if (tid < kRows)   // and their norms
+        cp_async4(static_cast<uint32_t>(__cvta_generic_to_shared(
+                      xnb_s + buf * kRows + tid)),
+                  tid < cnt ? norms + row_of(first + tid) : norms,
+                  tid < cnt ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+
+  const int q = lane & 3;
+  const int row0 = warp * 16 + (lane >> 2);   // and row0 + 8
+  // the wgmmas a staged chunk takes: 128 centroids each
+  const auto halves = [&](int nc) { return k - nc * kN > kNH ? 2 : 1; };
+  unsigned long long n_rows = 0, n_cand = 0, max_cand = 0, n_full = 0;
+  float acc[64];
+  // acc = row tile x centroids hh*128 .. +127 of the staged chunk: started,
+  // then awaited
+  const auto mma_start = [&](uint32_t xoff, int hh) {
+    wg_fence();
+    for (int st = 0; st < steps; ++st) {
+      const uint32_t off = (st & 3) * 32;
+      const uint64_t da =
+          sw128_desc(sbase + xoff + (st >> 2) * kXChunk + off);
+      const uint64_t db = sw128_desc(sbase + L.c_off + (st >> 2) * kCChunk
+                                     + hh * kNH * 128 + off);
+      wgmma_step<kBf16>(acc, da, db, st > 0);
+    }
+    wg_commit();
+  };
+  const auto mma_wait = [&]() {
+    wg_wait0();
+    fence_regs(acc);
+  };
+  // acc becomes A' = cn - 2 acc (one rounding), column by column
+  const auto shift = [&](int nc, int hh) {
+    const float* cnc = cn_s + nc * kN + hh * kNH;
+#pragma unroll
+    for (int g4 = 0; g4 < 16; ++g4) {
+      const float2 cv =
+          *reinterpret_cast<const float2*>(cnc + 8 * g4 + 2 * q);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[4 * g4 + e] = fmaf(-2.f, acc[4 * g4 + e], (e & 1) ? cv.y : cv.x);
+    }
+  };
+  // the candidates A' <= T' of the wgmma's 128 centroids: per row half a
+  // 32-bit mask (bit 2 g4 + p: column 8 g4 + 2 q + p) from the sign bits of
+  // T' - A' (negative exactly when A' > T'), the quad's lanes writing in
+  // lane order after the counts before them; base[h] counts the row's
+  // earlier candidates (the same in the quad's four lanes)
+  const auto collect = [&](int c0, const float (&T2)[2], int (&base)[2]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      unsigned out[2] = {0u, 0u};   // bits of the rejected, two halves
+#pragma unroll
+      for (int e = 15; e >= 0; --e)
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          const int g4 = (16 * w + e) >> 1, p = e & 1;
+          out[w] = (out[w] << 1)
+                   | (__float_as_uint(__fsub_rn(T2[h], acc[4 * g4 + 2 * h + p]))
+                      >> 31);
+        }
+      unsigned m = ~((out[1] << 16) | out[0]);
+      const int mine = __popc(m);
+      int before = 0, total = 0;
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        const int c = __shfl_sync(kFull, mine, (lane & ~3) | l);
+        before += l < q ? c : 0;
+        total += c;
+      }
+      const int r = row0 + 8 * h;
+      int at0 = base[h] + before;
+      while (m) {
+        const int bit = __ffs(m) - 1;
+        m &= m - 1;
+        if (at0 < kMaxCand)
+          cand_s[r * kCandStride + at0] =
+              (Cand)(c0 + 8 * (bit >> 1) + 2 * q + (bit & 1));
+        ++at0;
+      }
+      base[h] += total;
+      if (q == 0) cnt_s[r] = base[h];
+    }
+  };
+
+  load_rows(0, 0);
+  for (int first = 0, it = 0; first < total; first += kRows, ++it) {
+    const int count = min(kRows, total - first);
+    const int buf = D > 0 ? it & 1 : 0;
+    unsigned char* xt = x_tile(buf);
+    float xn = 0.f;
+    if constexpr (D > 0) {
+      load_rows(first + kRows, buf ^ 1);   // the next batch, in flight
+      cp_async_wait1();
+    } else {
+      // the row tile in place, zeros past d and past count
+      for (int i = tid; i < kRows * dpad; i += kThreadsA) {
+        const int r = i / dpad, j = i - r * dpad;
+        const B v = (r < count && j < d) ? xb[(size_t)row_of(first + r) * d + j]
+                                         : B(0);
+        *reinterpret_cast<B*>(at(xt, kRows, r, j)) = v;
+      }
+      if (tid < count) xn = norms[row_of(first + tid)];
+    }
+    fence_async_smem();
+    __syncthreads();
+    const uint32_t xoff = L.x_off + buf * xbuf_bytes;
+    if (resident) mma_start(xoff, 0);   // runs while the margins are computed
+    if (tid < kRows) {
+      float eps = -1.f;   // eps < 0: no screen (past count, or the full scan)
+      if (tid < count) {
+        float xx = 0.f;
+        if constexpr (D > 0) {
+          xn = xnb_s[buf * kRows + tid];
+          float xr[D];
+          load_row<D, B>(xt, tid, xr);
+#pragma unroll
+          for (int j = 0; j < D; ++j) xx = fmaf(xr[j], xr[j], xx);
+        } else {
+          for (int j = 0; j < d; ++j) {
+            const float v =
+                widen_bits(*reinterpret_cast<const B*>(at(xt, kRows, tid, j)));
+            xx = fmaf(v, v, xx);
+          }
+        }
+        eps = screen_eps(xx, xn, cnmax, rel, d);
+      }
+      xn_s[tid] = xn;
+      eps_s[tid] = eps;
+    }
+
+    __syncthreads();   // xn_s, eps_s
+    float xn_r[2], eps_r[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      xn_r[h] = xn_s[row0 + 8 * h];
+      eps_r[h] = eps_s[row0 + 8 * h];
+    }
+    // one pass over the centroids, 128 a wgmma: each row's smallest and
+    // second smallest group minimum so far (a1, a2; a group is 8 values of
+    // the row in one thread: 4 per thread and wgmma, 16 in the quad that
+    // shares the row, merged into the running pair), the threshold
+    // T' = max(a2, -xn) + 2 eps from them, and the wgmma's candidates
+    // A' <= T'. a2 is the second smallest of some of the row's A', so it is
+    // never below A'(2), and the exactness argument needs only that; T' is
+    // kept finite so that padded centroids (cn = +inf) are never candidates
+    // (a row without a screen takes none)
+    float a1[2] = {CUDART_INF_F, CUDART_INF_F};
+    float a2[2] = {CUDART_INF_F, CUDART_INF_F};
+    int base[2] = {0, 0};
+    for (int nc = 0; nc < n_chunks; ++nc) {
+      if (!resident) {
+        __syncthreads();
+        stage_c(nc);
+        __syncthreads();
+      }
+      for (int hh = 0; hh < halves(nc); ++hh) {
+        if (!resident || hh > 0) mma_start(xoff, hh);
+        mma_wait();
+        shift(nc, hh);
+        float gm[2][4];   // [row half][group of 8]
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int G = 0; G < 4; ++G) gm[h][G] = CUDART_INF_F;
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          gm[(i >> 1) & 1][i >> 4] = fminf(gm[(i >> 1) & 1][i >> 4], acc[i]);
+        float T2[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float lo0 = fminf(gm[h][0], gm[h][1]);
+          const float lo1 = fminf(gm[h][2], gm[h][3]);
+          float b1 = fminf(lo0, lo1);
+          float b2 = fminf(fmaxf(lo0, lo1),
+                           fminf(fmaxf(gm[h][0], gm[h][1]),
+                                 fmaxf(gm[h][2], gm[h][3])));
+#pragma unroll
+          for (int o = 1; o <= 2; o <<= 1) {
+            const float c1 = __shfl_xor_sync(kFull, b1, o);
+            const float c2 = __shfl_xor_sync(kFull, b2, o);
+            b2 = fminf(fmaxf(b1, c1), fminf(b2, c2));
+            b1 = fminf(b1, c1);
+          }
+          a2[h] = fminf(fmaxf(a1[h], b1), fminf(a2[h], b2));
+          a1[h] = fminf(a1[h], b1);
+          T2[h] = eps_r[h] < 0.f
+                      ? -CUDART_INF_F
+                      : fminf(fmaxf(a2[h], -xn_r[h]) + 2.f * eps_r[h],
+                              FLT_MAX);
+        }
+        collect(nc * kN + hh * kNH, T2, base);
+      }
+    }
+    __syncthreads();
+
+    // the recheck: each candidate's D² by the template's arithmetic, merged
+    // on (value, index); a row without a screen takes every centroid. The
+    // two threads of a row (tid, tid + 64) take alternate ones, then merge.
+    const int r = tid & (kRows - 1), half = tid / kRows;
+    float best = CUDART_INF_F, second = CUDART_INF_F;
+    int a = 0;
+    const bool full = r < count && (eps_s[r] < 0.f || cnt_s[r] > kMaxCand);
+    if (r < count) {
+      const float xnr = xn_s[r];
+      const auto take = [&](int c, float v) {
+        if (v < best || (v == best && c < a)) {
+          second = best;
+          best = v;
+          a = c;
+        } else if (v < second) {
+          second = v;
+        }
+      };
+      const auto d2_of = [&](int c, auto&& xr) {
+        if constexpr (D > 0) {
+          if (resident) {
+            float cr[D];
+            load_row<D, B>(c_s, c, cr);
+            return exact_d2<D>([&](int j) { return xr[j]; },
+                               [&](int j) { return cr[j]; }, d, xnr, cn_s[c]);
+          }
+          const B* cc = cb + (size_t)c * d;
+          return exact_d2<D>([&](int j) { return xr[j]; },
+                             [&](int j) { return widen_bits(cc[j]); }, d,
+                             xnr, cn_s[c]);
+        } else {
+          const auto xf = [&](int j) {
+            return widen_bits(*reinterpret_cast<const B*>(at(xt, kRows, r, j)));
+          };
+          if (resident)
+            return exact_d2<0>(xf, [&](int j) {
+              return widen_bits(*reinterpret_cast<const B*>(at(c_s, kN, c, j)));
+            }, d, xnr, cn_s[c]);
+          const B* cc = cb + (size_t)c * d;
+          return exact_d2<0>(xf, [&](int j) { return widen_bits(cc[j]); }, d,
+                             xnr, cn_s[c]);
+        }
+      };
+      float xr[D > 0 ? D : 1];
+      if constexpr (D > 0) load_row<D, B>(xt, r, xr);
+      if (full) {
+        for (int c = half; c < k; c += 2) take(c, d2_of(c, xr));
+      } else {
+        const int cnt = cnt_s[r];
+        int i = half;
+        for (; i + 2 < cnt; i += 4) {   // two independent chains
+          const int c0 = cand_s[r * kCandStride + i];
+          const int c1 = cand_s[r * kCandStride + i + 2];
+          const float v0 = d2_of(c0, xr), v1 = d2_of(c1, xr);
+          take(c0, v0);
+          take(c1, v1);
+        }
+        if (i < cnt) {
+          const int c = cand_s[r * kCandStride + i];
+          take(c, d2_of(c, xr));
+        }
+      }
+      if (half) {
+        mb_s[r] = best;
+        ms_s[r] = second;
+        mi_s[r] = a;
+      }
+    }
+    __syncthreads();
+    if (!half && r < count) {
+      const float b2 = mb_s[r], s2 = ms_s[r];
+      const int a2 = mi_s[r];
+      second = fminf(fmaxf(best, b2), fminf(second, s2));
+      if (b2 < best || (b2 == best && a2 < a)) {
+        best = b2;
+        a = a2;
+      }
+      const long long row = row_of(first + r);
+      labels[row] = a;
+      md[row] = best;
+      lbo[row] = sqrtf(second);
+      const int cnt = cnt_s[r];
+      if (eps_s[r] >= 0.f) {
+        n_cand += cnt;
+        max_cand = max(max_cand, (unsigned long long)cnt);
+      }
+      n_full += full;
+      ++n_rows;
+    }
+    __syncthreads();
+  }
+  if (n_rows) {
+    atomicAdd(&st_s[0], n_rows);
+    atomicAdd(&st_s[1], n_cand);
+    atomicMax(&st_s[2], max_cand);
+    atomicAdd(&st_s[3], n_full);
+  }
+  __syncthreads();
+  if (tid == 0 && st_s[0]) {
+    atomicAdd(&stats[0], st_s[0]);
+    atomicAdd(&stats[1], st_s[1]);
+    atomicMax(&stats[2], st_s[2]);
+    atomicAdd(&stats[3], st_s[3]);
+  }
+}
+
+// Pass B: the template's code after its row loop, on pass A's labels, md
+// and lb: the partial and the gap, then the cluster sums. A tile's columns
+// go in slices of `cols` to n_slices adjacent blocks (so the tile's rows
+// are read from device memory about once and then from L2); slice 0 also
+// writes the partial and the gap. Each column's sums are the template's
+// bits whatever the slicing. K10b's pruned count came from pass A.
+template <typename T, bool Gated>
+__global__ void __launch_bounds__(kThreads)
+reduce_kernel(const T* __restrict__ points, const int* __restrict__ labels,
+              const float* __restrict__ md, const float* __restrict__ lbo,
+              const unsigned char* __restrict__ active,
+              float* __restrict__ partials, float* __restrict__ gaps,
+              float* __restrict__ tile_acc, int n, int d, int k, int block_n,
+              int cols, int n_slices) {
+  const int n_tiles = (n + block_n - 1) / block_n;
+  const int tile = blockIdx.x / n_slices;
+  const int slice = blockIdx.x - tile * n_slices;
+  const int b = tile / n_tiles;
+  const int t = tile - b * n_tiles;
+  if (Gated && !active[tile]) return;
+  points += (size_t)b * n * d;
+  labels += (size_t)b * n;
+  md += (size_t)b * n;
+  lbo += (size_t)b * n;
+  extern __shared__ float smem[];
+  float* red_sum = smem;                               // (kThreads,)
+  float* red_gap = red_sum + kThreads;                 // (kThreads,)
+  float* acc_sh = red_gap + kThreads;                  // (kWarps, k, cols)
+  int* lab_sh = reinterpret_cast<int*>(acc_sh + (size_t)kWarps * k * cols);
+  const int tid = threadIdx.x;
+  const long long tile0 = (long long)t * block_n;
+  const int rows = (int)min((long long)block_n, (long long)n - tile0);
+  float local_sum = 0.f;
+  float local_gap = CUDART_INF_F;
+  for (int r = tid; r < rows; r += kThreads) {
+    lab_sh[r] = labels[tile0 + r];
+    if (slice == 0) {
+      const float m = md[tile0 + r];
+      local_sum += m;
+      local_gap = nan_min(local_gap, lbo[tile0 + r] - sqrtf(m));
+    }
+  }
+  if (slice == 0)
+    tile_partial_gap(red_sum, red_gap, local_sum, local_gap,
+                     partials + tile, gaps + tile);
+  const int j0 = slice * cols;
+  tile_cluster_sums<T, false, kSliceCols>(
+      points + tile0 * d, nullptr, tile0, lab_sh, acc_sh,
+      tile_acc + (size_t)tile * k * (d + 1), rows, d, k, cols, j0,
+      min(j0 + cols, d + 1));
+}
+
+// pass B's shared memory at `cols` columns a pass: the template's, less the
+// centroid staging
+inline size_t reduce_smem_bytes(int k, int block_n, int cols) {
+  return sizeof(float) * (2 * kThreads + (size_t)kWarps * k * cols + block_n);
+}
+
+// Both passes and the super reduce of one screened round; lbo is K10a's
+// (batch, n) scratch (K10b writes g.lb). Returns the first CUDA error.
+template <typename T, bool Gated>
+int launch(const T* points, const float* norms, const T* cents, int* labels,
+           float* md, float* lbo, float* partials, float* gaps,
+           float* tile_acc, float* ssums, float* scounts, const Gate& g,
+           unsigned long long* stats, int batch, int n, int d, int k,
+           int block_n, int tps, cudaStream_t s) {
+  constexpr bool kBf16 = !std::is_same<T, float>::value;
+  const int n_tiles = (n + block_n - 1) / block_n;
+  const int n_super = (n_tiles + tps - 1) / tps;
+  const long long tiles = (long long)batch * n_tiles;
+  int cta_rows = 4096;
+  while (cta_rows > kRows
+         && tiles * ((block_n + cta_rows - 1) / cta_rows) < kTargetCtas)
+    cta_rows /= 2;
+  const long long grid_a = tiles * ((block_n + cta_rows - 1) / cta_rows);
+  if (grid_a > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const Layout L(d, k, kBf16, cta_rows, Gated);
+  // the row loads as 16-byte copies where d is 8 or 16 and rows aligned
+  const bool vec = reinterpret_cast<uintptr_t>(points) % 16 == 0;
+  const auto run = [&](auto kernel) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         L.bytes);
+    kernel<<<(unsigned)grid_a, kThreadsA, L.bytes, s>>>(
+        points, norms, cents, labels, md, lbo, g, stats, n, d, k, block_n,
+        cta_rows);
+  };
+  if (vec && d == 16)
+    run(screen_kernel<T, 16, Gated>);
+  else if (vec && d == 8)
+    run(screen_kernel<T, 8, Gated>);
+  else
+    run(screen_kernel<T, 0, Gated>);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  // pass B's columns a pass (the bits do not depend on it): the most, up to
+  // kSliceCols, that let three blocks share an SM, else that fit one
+  const auto fits = [&](int c, size_t budget) {
+    return reduce_smem_bytes(k, block_n, c) <= budget;
+  };
+  int cols_b = min(d + 1, kSliceCols);
+  while (cols_b > 1 && !fits(cols_b, kReduceBudget)) --cols_b;
+  if (!fits(cols_b, kReduceBudget))
+    while (cols_b > 1 && !fits(cols_b, 232448)) --cols_b;
+  const size_t smem_b = reduce_smem_bytes(k, block_n, cols_b);
+  cudaFuncSetAttribute(reduce_kernel<T, Gated>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem_b);
+  const int n_slices = (d + 1 + cols_b - 1) / cols_b;
+  if (tiles * n_slices > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;
+  reduce_kernel<T, Gated>
+      <<<(unsigned)(tiles * n_slices), kThreads, smem_b, s>>>(
+          points, labels, md, Gated ? g.lb : lbo, Gated ? g.active : nullptr,
+          partials, gaps, tile_acc, n, d, k, block_n, cols_b, n_slices);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  super_reduce_kernel<<<(unsigned)batch * n_super, kThreads, 0, s>>>(
+      tile_acc, ssums, scounts, Gated ? g.active : nullptr, n_tiles, d, k,
+      tps);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace screen
 
 template <typename T, int D, bool Gated, bool Untiled>
 int launch_assign(const T* points, const float* norms, const T* cents,
@@ -513,6 +1442,36 @@ int dispatch(const void* points, const float* norms, const void* cents,
       tile_acc, ssums, scounts, g, batch, n, d, k, block_n, tps, cols, s);
 }
 
+// The batched rounds (K10a, K10b): the screened route where
+// screen::screened(d, bf16), else the template, as dispatch.
+template <bool Gated>
+int dispatch_batched(const void* points, const float* norms,
+                     const void* cents, int* labels, float* md, float* lbo,
+                     float* partials, float* gaps, float* tile_acc,
+                     float* ssums, float* scounts, const Gate& g,
+                     unsigned long long* stats, int batch, int n, int d,
+                     int k, int block_n, int tps, int cols, int bf16,
+                     void* stream) {
+  if (!screen::screened(d, bf16 != 0))
+    return dispatch<Gated, false>(points, norms, cents, nullptr, labels, md,
+                                  partials, gaps, tile_acc, ssums, scounts, g,
+                                  batch, n, d, k, block_n, tps, cols, bf16,
+                                  stream);
+  if ((!Gated && lbo == nullptr) || stats == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return screen::launch<__nv_bfloat16, Gated>(
+        static_cast<const __nv_bfloat16*>(points), norms,
+        static_cast<const __nv_bfloat16*>(cents), labels, md, lbo, partials,
+        gaps, tile_acc, ssums, scounts, g, stats, batch, n, d, k, block_n,
+        tps, s);
+  return screen::launch<float, Gated>(
+      static_cast<const float*>(points), norms,
+      static_cast<const float*>(cents), labels, md, lbo, partials, gaps,
+      tile_acc, ssums, scounts, g, stats, batch, n, d, k, block_n, tps, s);
+}
+
 }  // namespace
 
 // Every entry point takes `bf16`: 0 for fp32 points and cents, 1 for the
@@ -538,16 +1497,26 @@ extern "C" int lloyd_assign_tiled_launch(
 // problem axis: points (batch, n, d), cents (batch, k, d), labels / md
 // (batch, n), partials / gaps (batch, n_tiles), tile_acc
 // (batch, n_tiles, k, d + 1), ssums (batch, n_super, k, d), scounts
-// (batch, n_super, k).
+// (batch, n_super, k). Where lloyd_assign_screened(d, bf16), lb_scratch
+// (batch, n) floats and stats (4) unsigned 64-bit counters (screened rows,
+// their candidates, the most of one row, rows on the full scan; added to,
+// the caller zeroes them) are required; elsewhere they are not read.
 extern "C" int lloyd_assign_tiled_batched_launch(
     const void* points, const float* norms, const void* cents, int* labels,
     float* md, float* partials, float* gaps, float* tile_acc, float* ssums,
-    float* scounts, int batch, int n, int d, int k, int block_n, int tps,
-    int cols, int bf16, void* stream) {
-  return dispatch<false, false>(points, norms, cents, nullptr, labels, md,
-                                partials, gaps, tile_acc, ssums, scounts,
-                                Gate{}, batch, n, d, k, block_n, tps, cols,
-                                bf16, stream);
+    float* scounts, float* lb_scratch, unsigned long long* stats, int batch,
+    int n, int d, int k, int block_n, int tps, int cols, int bf16,
+    void* stream) {
+  return dispatch_batched<false>(points, norms, cents, labels, md,
+                                 lb_scratch, partials, gaps, tile_acc, ssums,
+                                 scounts, Gate{}, stats, batch, n, d, k,
+                                 block_n, tps, cols, bf16, stream);
+}
+
+// 1 where the batched rounds (K10a, K10b) take the screened route for
+// width d and the stream (bf16 != 0: bf16), else 0.
+extern "C" int lloyd_assign_screened(int d, int bf16) {
+  return screen::screened(d, bf16 != 0) ? 1 : 0;
 }
 
 // Launches both kernels of one gated assignment round (K6) on `stream`;
@@ -574,21 +1543,22 @@ extern "C" int lloyd_assign_gated_launch(
 // leading problem axis: K10a's, plus delta (batch, k), thresh / absorb /
 // active / pruned (batch, n_tiles), prev_a / prev_md / prev_lb / lb
 // (batch, n). The outputs must hold the carries and pruned zeros, and
-// `active` must be super-aligned in every problem, as for K6.
+// `active` must be super-aligned in every problem, as for K6. stats as
+// K10a's (required where lloyd_assign_screened(d, bf16)).
 extern "C" int lloyd_assign_gated_batched_launch(
     const void* points, const float* norms, const void* cents,
     const float* delta, const float* thresh, const float* absorb,
     const int* prev_a, const float* prev_md, const float* prev_lb,
     const unsigned char* active, int* labels, float* md, float* lb,
     float* partials, float* gaps, float* tile_acc, float* ssums,
-    float* scounts, int* pruned, int batch, int n, int d, int k, int block_n,
-    int tps, int cols, int bf16, void* stream) {
+    float* scounts, int* pruned, unsigned long long* stats, int batch, int n,
+    int d, int k, int block_n, int tps, int cols, int bf16, void* stream) {
   const Gate g{delta, thresh, absorb, prev_a, prev_md, prev_lb, active, lb,
                pruned};
-  return dispatch<true, false>(points, norms, cents, nullptr, labels, md,
-                               partials, gaps, tile_acc, ssums, scounts, g,
-                               batch, n, d, k, block_n, tps, cols, bf16,
-                               stream);
+  return dispatch_batched<true>(points, norms, cents, labels, md, nullptr,
+                                partials, gaps, tile_acc, ssums, scounts, g,
+                                stats, batch, n, d, k, block_n, tps, cols,
+                                bf16, stream);
 }
 
 // Launches both kernels of one untiled assignment round (K4) on `stream`;

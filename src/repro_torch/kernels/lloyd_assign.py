@@ -23,7 +23,11 @@ values.
 
 The batched rounds (K10a, K10b) are K3 and K6 over B independent problems
 in one launch, every argument and output with a leading problem axis and
-every problem gated by its own mask; row b is K3 (K6) on problem b.
+every problem gated by its own mask; row b is K3 (K6) on problem b,
+bitwise. At d >= 8 (``screened``) the card runs them on a tensor-core
+screen with an exact recheck, which writes K3's (K6's) bits; its counters
+(candidates per row, rows on the full scan) are read with
+``screen_stats``.
 
 The untiled round (K4), the weighted and mini-batch fits' round, returns
 only labels and D² per row and the cluster sums (k, d) and counts (k,)
@@ -60,10 +64,13 @@ _ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7
              + (ctypes.c_void_p,))
 _GATED_ARGTYPES = ((ctypes.c_void_p,) * 19 + (ctypes.c_int,) * 7
                    + (ctypes.c_void_p,))
-_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 8
+_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 8
                      + (ctypes.c_void_p,))
-_GATED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 19 + (ctypes.c_int,) * 8
+_GATED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 20 + (ctypes.c_int,) * 8
                            + (ctypes.c_void_p,))
+# the screened route's counters of the last card launch of K10a and K10b:
+# (4,) int64 on the card, read with ``screen_stats``
+SCREEN_STATS: dict[str, torch.Tensor] = {}
 _PLAIN_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6
                    + (ctypes.c_void_p,))
 _PLAIN_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 7
@@ -238,6 +245,33 @@ def _cols(d, k, block_n, gated: bool = False) -> int:
     return cols
 
 
+def screened(d: int, bf16: bool) -> bool:
+    """Whether the batched rounds (K10a, K10b) take the screened route on
+    the card for width ``d`` and the stream: d >= 8 and the row, padded to
+    the tensor cores' depth (8 fp32 or 16 bf16 values), at most 512 bytes.
+    The rule is the CUDA source's (``lloyd_assign_screened``)."""
+    fn = _build.function("lloyd_assign", "lloyd_assign_screened",
+                         (ctypes.c_int, ctypes.c_int))
+    return bool(fn(d, int(bf16)))
+
+
+def screen_stats(name: str) -> dict:
+    """The screened route's counters of the last card launch of ``name``
+    (``"lloyd_assign_tiled_batched"`` or ``"lloyd_assign_gated_batched"``,
+    either stream): rows screened, their candidates, the most candidates of
+    one row, and rows that took the full exact scan (a non-finite row or
+    more than 16 candidates). Reading them synchronises the card."""
+    rows, cand, most, full = (int(v) for v in SCREEN_STATS[name].tolist())
+    return {"rows": rows, "candidates": cand, "max_candidates": most,
+            "full_scan_rows": full}
+
+
+def _stats(name: str, dev) -> torch.Tensor:
+    st = torch.zeros(4, dtype=torch.int64, device=dev)
+    SCREEN_STATS[name] = st
+    return st
+
+
 def lloyd_assign_tiled(points: torch.Tensor, norms: torch.Tensor,
                        centroids: torch.Tensor, *, block_n: int, tps: int):
     """One tiled assignment round. Returns (labels, min_d2, partials, gaps,
@@ -287,9 +321,9 @@ def lloyd_assign_tiled_batched(points: torch.Tensor, norms: torch.Tensor,
     """One tiled assignment round of B independent problems: points
     (B, n, d), norms (B, n), centroids (B, k, d). Returns (labels (B, n),
     min_d2 (B, n), partials (B, T), gaps (B, T), super_sums (B, S, k, d),
-    super_counts (B, S, k)). On the card this launches K10a (its two kernels
-    count as one launch) for every problem at once; CPU tensors take the
-    plain twin."""
+    super_counts (B, S, k)). On the card this launches K10a (its kernels
+    count as one launch) for every problem at once, on the screened route
+    where ``screened(d, bf16)``; CPU tensors take the plain twin."""
     if points.dim() != 3 or centroids.dim() != 3:
         raise ValueError("points and centroids must be 3-D (B, rows, d)")
     bsz = points.shape[0]
@@ -327,13 +361,19 @@ def lloyd_assign_tiled_batched(points: torch.Tensor, norms: torch.Tensor,
                            device=dev)
     ssums = torch.empty((bsz, n_super, k, d), dtype=torch.float32, device=dev)
     scounts = torch.empty((bsz, n_super, k), dtype=torch.float32, device=dev)
+    # the screened route's lb = sqrt(second) per row, read by its pass B
+    scr = screened(d, bf16)
+    lb = torch.empty((bsz, n), dtype=torch.float32, device=dev) if scr \
+        else None
+    stats = _stats("lloyd_assign_tiled_batched", dev) if scr else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
                  labels.data_ptr(), md.data_ptr(), partials.data_ptr(),
                  gaps.data_ptr(), tile_acc.data_ptr(), ssums.data_ptr(),
-                 scounts.data_ptr(), bsz, n, d, k, block_n, tps, cols,
-                 int(bf16), stream)
+                 scounts.data_ptr(), lb.data_ptr() if scr else None,
+                 stats.data_ptr() if scr else None, bsz, n, d, k, block_n,
+                 tps, cols, int(bf16), stream)
     if err != 0:
         raise KernelFailureError(f"lloyd_assign_tiled_batched launch failed: "
                                  f"cudaError {err}")
@@ -432,9 +472,10 @@ def lloyd_assign_gated_batched(points: torch.Tensor, norms: torch.Tensor,
     nothing).
     Returns (labels, min_d2, lb (B, n), partials, gaps (B, T), super_sums
     (B, S, k, d), super_counts (B, S, k), pruned (B, T) int32). On the card
-    this launches K10b (its two kernels count as one launch) over every
-    problem's tiles; the outputs start as copies of the carries, so a
-    skipped tile or super keeps them. CPU tensors take the plain twin."""
+    this launches K10b (its kernels count as one launch) over every
+    problem's tiles, on the screened route where ``screened(d, bf16)``;
+    the outputs start as copies of the carries, so a skipped tile or super
+    keeps them. CPU tensors take the plain twin."""
     if points.dim() != 3 or centroids.dim() != 3:
         raise ValueError("points and centroids must be 3-D (B, rows, d)")
     bsz, n, d = points.shape
@@ -481,6 +522,8 @@ def lloyd_assign_gated_batched(points: torch.Tensor, norms: torch.Tensor,
     tile_acc = torch.empty((bsz, n_tiles, k, d + 1), dtype=torch.float32,
                            device=dev)
     act = active.to(torch.uint8).contiguous()
+    stats = _stats("lloyd_assign_gated_batched", dev) \
+        if screened(d, bf16) else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
@@ -489,7 +532,8 @@ def lloyd_assign_gated_batched(points: torch.Tensor, norms: torch.Tensor,
                  prev_lb.data_ptr(), act.data_ptr(), labels.data_ptr(),
                  md.data_ptr(), lb.data_ptr(), partials.data_ptr(),
                  gaps.data_ptr(), tile_acc.data_ptr(), ssums.data_ptr(),
-                 scounts.data_ptr(), pruned.data_ptr(), bsz, n, d, k,
+                 scounts.data_ptr(), pruned.data_ptr(),
+                 None if stats is None else stats.data_ptr(), bsz, n, d, k,
                  block_n, tps, cols, int(bf16), stream)
     if err != 0:
         raise KernelFailureError(f"lloyd_assign_gated_batched launch failed: "

@@ -13,8 +13,10 @@ labels; the gated assignment kernel K6 stages the (k,) centroid movement on
 top). The height is budgeted for K6, the larger of the two, so gated and
 ungated runs share one tile geometry. The batched kernels (K1's batched
 form, K7, K8, K10a, K10b) run one such block per problem and tile, with the
-same staging, so a batched problem is tiled as the single one. The budget is Hopper's 227 KB per
-block; TPU VMEM budgets do not apply.
+same staging, so a batched problem is tiled as the single one; K10a and
+K10b at d >= 8 (their screened route) keep these tiles and this ``cols``
+for their sums and budget their own staging. The budget is Hopper's 227 KB
+per block; TPU VMEM budgets do not apply.
 
 The IVF scan (K13, K14; ``ivf_scan.py``) runs one block per query and
 budgets its own shared memory (``ivf_scan.max_k``); its tile height is the

@@ -1,0 +1,365 @@
+"""The screened route of the batched assignment rounds (K10a, K10b at d >= 8).
+
+On the card, ``csrc/lloyd_assign.cu`` screens every (row, centroid) pair on
+the tensor cores (TF32 for fp32 streams, bf16 for bf16 streams), keeps the
+centroids whose screened value A' = cn - 2 x.c is at most T' = max(a2,
+-xn) + 2 eps, a2 the second smallest of the row's group minima seen so far
+(never below the second smallest A'), and rechecks only those with the
+round's exact arithmetic; a row with a non-finite value or more than 16
+candidates takes the full scan. This file holds a plain PyTorch copy of
+that candidate rule, used only here, with the margin ``screen_eps`` copied
+from the source's header (its constants: 2^-9 + 2^-20 for TF32 operands,
+(d + 1) 2^-20 (1 + 2^-8) for the accumulation, gamma_d = d 2^-24 /
+(1 - d 2^-24) for the exact chain, 4 2^-24 for the two combinations, d
+2^-124 (1 + sqrt(xx) + sqrt(cnmax)) for underflow, 1 + 2^-9 on P and
+1 + 2^-7 on the whole), and checks on adversarial data that:
+
+- the candidates always hold the exact best and second of ``tile_d2`` (the
+  twins' D²), with TF32 emulated by clearing the low 13 mantissa bits
+  (truncation, the hardware's worst case), bf16 products exact, and every
+  screened dot product moved by the whole accumulation term in the
+  direction that hurts: up for the true best and second, down for the
+  rest;
+- the merge over the candidates on (value, index) gives labels, D² and
+  second bitwise equal to ``argmin``, ``amin`` and the second of
+  ``tile_d2`` over all k;
+- a row with a non-finite value is sent to the full scan.
+
+Tests marked ``cuda`` hold the kernels themselves bitwise to K3/K6 row by
+row on such data, on the card.
+"""
+from __future__ import annotations
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
+
+from repro_torch.core import bounds
+from repro_torch.kernels import lloyd_assign as la
+from repro_torch.kernels import ops
+from repro_torch.kernels.kmeans_distance import tile_d2
+
+CSRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+        / "kernels" / "csrc" / "lloyd_assign.cu")
+MAX_CAND = 16
+F32_MAX = float(np.finfo(np.float32).max)
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 values as the TF32 tensor cores read them: the low 13 mantissa
+    bits cleared (truncation toward zero)."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def screen_eps(xx, xn, cnmax, d: int, bf16: bool) -> torch.Tensor:
+    """The screen's margin per row, fp32 in the source's order (its header
+    derives it); -1 where S + 2 eps is not below 1e37 (the row takes the
+    full scan; false for inf and NaN)."""
+    f = torch.float32
+    xx, xn = xx.to(f), xn.to(f)
+    cnmax = torch.as_tensor(cnmax, dtype=f)
+    du = torch.tensor(d, dtype=f) * 2.0 ** -24
+    rel = (2.0 * ((0.0 if bf16 else 2.0 ** -9 + 2.0 ** -20)
+                  + torch.tensor(d + 1, dtype=f) * 2.0 ** -20
+                  * (1.0 + 2.0 ** -8))
+           + 2.0 * (du / (1.0 - du)))
+    sx, sc = xx.sqrt(), cnmax.sqrt()
+    P = sx * sc * (1.0 + 2.0 ** -9)
+    S = xn.abs() + cnmax + 3.0 * P
+    eps = (1.0 + 2.0 ** -7) * (rel * P + 4.0 * 2.0 ** -24 * S
+                               + torch.tensor(d, dtype=f) * 2.0 ** -124
+                               * (1.0 + sx + sc))
+    return torch.where(S + 2.0 * eps < 1e37, eps, torch.full_like(eps, -1.0))
+
+
+def exact_parts(x, c, xn):
+    """tile_d2's D² (n, k) and per row its argmin, amin and second (the
+    smallest over the other centroids: the multiset second)."""
+    e = tile_d2(x, c, xn)
+    lab = e.argmin(dim=1)
+    won = lab[:, None] == torch.arange(c.shape[0])
+    return e, lab, e.amin(dim=1), torch.where(won, torch.inf, e).amin(dim=1)
+
+
+def group_of(k: int) -> torch.Tensor:
+    """The kernel's groups of a row's centroids (k,): centroid c lies in
+    wgmma w = c // 128 (128 centroids each, in order), in quad lane
+    q = (c % 8) // 2 of it and in group G = (c % 128) // 32 of that lane
+    (the lane's 8 values of the row with 8 g4 + 2 q + p, g4 // 4 = G)."""
+    c = torch.arange(k)
+    w, col = c // 128, c % 128
+    return (w * 4 + (col % 8) // 2) * 4 + col // 32
+
+
+def screen(x, c, xn, *, bf16: bool, adverse=None):
+    """The candidate rule on fp32 rows ``x`` (n, d) and centroids ``c``
+    (k, d) (a bf16 stream's values widened): (candidates (n, k) bool, eps
+    (n,)). ``adverse`` (n, k) bool marks the pairs whose screened value is
+    pushed up by the whole accumulation term; the rest are pushed down.
+    As the kernel: one pass over the wgmmas of 128 centroids; after each,
+    the row's two smallest group minima so far (a2 the second), the
+    threshold T' = min(max(a2, -xn) + 2 eps, FLT_MAX), and that wgmma's
+    candidates A' <= T'."""
+    n, d = x.shape
+    k = c.shape[0]
+    xo, co = (x, c) if bf16 else (tf32(x), tf32(c))
+    dots = xo.double() @ co.double().T              # exact products, fp64
+    absdots = xo.double().abs() @ co.double().abs().T
+    err = (d + 1) * 2.0 ** -20 * absdots
+    if adverse is not None:
+        dots = dots + torch.where(adverse, -err, err)
+    acc = dots.float()
+    cn = (c * c).sum(dim=1)                          # tile_d2's cn
+    a = (cn.double()[None, :] - 2.0 * acc.double()).float()   # one rounding
+    cnmax = cn.max() if bool(torch.isfinite(cn).all()) \
+        else torch.tensor(float("nan"))
+    eps = screen_eps((x * x).sum(dim=1), xn, cnmax, d, bf16)
+    grp = group_of(k)
+    n_groups = 16 * -(-k // 128)            # 4 lanes x 4 groups a wgmma
+    gmin = torch.full((n, n_groups), torch.inf)
+    gmin = gmin.scatter_reduce(1, grp.expand(n, k),
+                               torch.where(torch.isnan(a), torch.inf, a),
+                               "amin")
+    cand = torch.zeros((n, k), dtype=torch.bool)
+    for w in range(-(-k // 128)):
+        seen = gmin[:, :4 * 4 * (w + 1)]
+        two = seen.topk(2, dim=1, largest=False).values
+        thr = torch.clamp(torch.maximum(two[:, 1], -xn) + 2.0 * eps,
+                          max=F32_MAX)
+        cols = slice(128 * w, min(k, 128 * (w + 1)))
+        cand[:, cols] = a[:, cols] <= thr[:, None]
+    return cand & (eps[:, None] >= 0), eps
+
+
+def merged(e, cand):
+    """The recheck's merge on (value, index) over the candidates: label,
+    D² and second per row."""
+    m = torch.where(cand, e, torch.inf)
+    lab = m.argmin(dim=1)
+    won = lab[:, None] == torch.arange(e.shape[1])
+    return lab, m.amin(dim=1), torch.where(won, torch.inf, m).amin(dim=1)
+
+
+def adversarial(seed: int, n: int, d: int, k: int, shift: float,
+                nan_row: bool):
+    """Rows and centroids with duplicated centroids, rows exactly between
+    two centroids and on one, a zero row, optionally a NaN row, everything
+    shifted by ``shift`` (norms far above the distances)."""
+    rng = np.random.default_rng(seed)
+    c = rng.normal(size=(k, d)).astype(np.float32)
+    if k >= 4:
+        c[1] = c[0]
+        c[k - 1] = c[2]
+    lab = rng.integers(0, k, size=n)
+    x = (c[lab] + 0.05 * rng.normal(size=(n, d))).astype(np.float32)
+    if k >= 2:
+        x[2] = 0.5 * (c[0] + c[k - 1])
+        x[3] = 0.5 * (c[2] + c[k // 2])
+    x[4] = c[k - 1]
+    x += np.float32(shift)
+    c += np.float32(shift)
+    x[0] = 0.0
+    if nan_row:
+        x[1] = np.nan
+    return torch.from_numpy(x), torch.from_numpy(c)
+
+
+def _stream(x, c, bf16):
+    """The round's inputs: the stream (rounded to bf16 and widened, or
+    fp32) and the fp32 points' norms, as the engine passes them."""
+    xn = bounds.point_norms(x)
+    if bf16:
+        x, c = x.bfloat16().float(), c.bfloat16().float()
+    return x, c, xn
+
+
+CASES = st.tuples(st.sampled_from([8, 13, 16, 128]),
+                  st.sampled_from([1, 8, 250, 256]),
+                  st.integers(0, 2 ** 31 - 1))
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["tf32", "bf16"])
+@pytest.mark.parametrize("shift", [0.0, 1e3], ids=["centred", "shifted"])
+@settings(max_examples=12, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow])
+@given(case=CASES)
+def test_candidates_hold_the_exact_best_and_second(bf16, shift, case):
+    """Every screened row's candidates hold tile_d2's best (the first index
+    of the minimum) and a centroid other than it at the second's value,
+    under the adversarial push of every screened dot product."""
+    d, k, seed = case
+    x, c, xn = _stream(*adversarial(seed, 96, d, k, shift, nan_row=False),
+                       bf16)
+    e, lab, best, second = exact_parts(x, c, xn)
+    want = torch.zeros_like(e, dtype=torch.bool)
+    want[torch.arange(e.shape[0]), lab] = True
+    want |= (e == second[:, None]) & torch.isfinite(second)[:, None]
+    cand, eps = screen(x, c, xn, bf16=bf16, adverse=want)
+    rows = eps >= 0
+    assert bool(rows.any())
+    assert bool(cand[rows, lab[rows]].all())
+    has2 = torch.isfinite(second) & rows
+    other = cand & (e == second[:, None])
+    other[torch.arange(e.shape[0]), lab] = False
+    assert bool(other[has2].any(dim=1).all())
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["tf32", "bf16"])
+@pytest.mark.parametrize("shift", [0.0, 1e3], ids=["centred", "shifted"])
+@settings(max_examples=12, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow])
+@given(case=CASES)
+def test_merge_over_candidates_is_the_full_argmin(bf16, shift, case):
+    """On every row the recheck screens (at most 16 candidates), the merge
+    over the candidates gives labels, D² and second bitwise equal to the
+    argmin, amin and second of tile_d2 over all k; the other rows take the
+    full scan, which is the same merge over every centroid."""
+    d, k, seed = case
+    x, c, xn = _stream(*adversarial(seed, 96, d, k, shift, nan_row=True),
+                       bf16)
+    e, lab, best, second = exact_parts(x, c, xn)
+    want = torch.zeros_like(e, dtype=torch.bool)
+    want[torch.arange(e.shape[0]), lab] = True
+    want |= e == second[:, None]
+    cand, eps = screen(x, c, xn, bf16=bf16, adverse=want)
+    full = (eps < 0) | (cand.sum(dim=1) > MAX_CAND)
+    assert bool(full[1])                       # the NaN row
+    got = merged(e, cand | full[:, None])
+    ref = merged(e, torch.ones_like(cand))
+    keep = ~full
+    assert torch.equal(got[0][keep], lab[keep])
+    for g_, w_ in ((got[1], best), (got[2], second)):
+        assert torch.equal(g_[keep].view(torch.int32),
+                           w_[keep].view(torch.int32))
+    for g_, r_ in zip(got, ref):
+        assert torch.equal(g_.view(torch.int32) if g_.is_floating_point()
+                           else g_, r_.view(torch.int32)
+                           if r_.is_floating_point() else r_)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["tf32", "bf16"])
+def test_nonfinite_rows_and_centroids_take_the_full_scan(bf16):
+    """eps < 0 (no screen, the full scan) for a NaN or inf row, for a row
+    whose values overflow, and for every row when a centroid is not
+    finite; a zero row is screened, with a positive margin."""
+    x, c = adversarial(5, 16, 16, 8, 0.0, nan_row=True)
+    x[2, 3] = torch.inf
+    x[3] = 3e19                                   # x² overflows
+    x_, c_, xn = _stream(x, c, bf16)
+    _, eps = screen(x_, c_, xn, bf16=bf16)
+    assert bool((eps[1:4] < 0).all())
+    assert float(eps[0]) > 0 and bool((eps[4:] > 0).all())
+    c[5, 0] = torch.nan
+    x_, c_, xn = _stream(x, c, bf16)
+    _, eps = screen(x_, c_, xn, bf16=bf16)
+    assert bool((eps < 0).all())
+
+
+def test_tf32_truncation_bound():
+    """The TF32 emulation truncates: each value moves toward zero by less
+    than 2^-10 of itself, the operand term the margin assumes."""
+    v = torch.randn(10_000) * 10.0 ** torch.randint(-30, 30, (10_000,))
+    t = tf32(v)
+    assert bool((t.abs() <= v.abs()).all())
+    assert bool(((v - t).abs() <= v.abs() * 2.0 ** -10).all())
+    assert torch.equal(tf32(t), t)
+
+
+def test_eps_copy_names_the_source_constants():
+    """The Python copy of the margin and the CUDA source's ``screen_eps``
+    and per-problem ``rel`` use the same constants."""
+    src = CSRC.read_text()
+    body = src[src.index("float screen_eps("):]
+    body = body[:body.index("\n}\n")]
+    for const in ("0x1p-9f", "0x1p-7f", "0x1p-24f", "0x1p-124f", "3.f * P",
+                  "1e37f"):
+        assert const in body, const
+    rel = re.search(r"const float rel =(.*?);", src, re.S).group(1)
+    for const in ("0x1p-9f + 0x1p-20f", "0x1p-20f * (1.f + 0x1p-8f)",
+                  "du / (1.f - du)"):
+        assert const in rel, const
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+WIDTHS = [(2, False, False), (7, True, False), (8, False, True),
+          (13, True, True), (16, False, True), (128, False, True),
+          (129, False, False), (256, True, True), (257, True, False)]
+
+
+@pytest.mark.cuda
+def test_screened_widths_on_card(card):
+    """The route's widths as the CUDA source decides them: d >= 8 and the
+    row padded to 8 fp32 or 16 bf16 values at most 512 bytes."""
+    for d, bf16, want in WIDTHS:
+        assert la.screened(d, bf16) == want, (d, bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k", [(8, 256), (13, 250), (16, 256), (16, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_screened_rounds_are_k3_and_k6_row_by_row(card, d, k, dtype):
+    """K10a and K10b on the screened route, on adversarial rows (duplicated
+    centroids, rows between two centroids, a zero row, a NaN row, half the
+    problems shifted by 1e3; k = 300 takes two centroid chunks): every
+    problem bitwise K3 (K6) on its slice, an all-active K10b with no
+    carried bound bitwise K10a, and the route taken."""
+    assert la.screened(d, dtype == torch.bfloat16)
+    xs, cs = zip(*(adversarial(7 + b, 3_000, d, k, 1e3 * (b % 2), True)
+                   for b in range(4)))
+    x = torch.stack(xs).to(card)
+    c = torch.stack(cs).to(card)
+    norms = bounds.point_norms(x)
+    x, c = x.to(dtype), c.to(dtype)
+    bn = ops.choose_block_n(x.shape[1], d, k)
+    t = -(-x.shape[1] // bn)
+    tps = bounds.tiles_per_super(t)
+    s = -(-t // tps)
+    out = la.lloyd_assign_tiled_batched(x, norms, c, block_n=bn, tps=tps)
+    assert la.screen_stats("lloyd_assign_tiled_batched")["rows"] \
+        == x.shape[0] * x.shape[1]
+    for b in range(x.shape[0]):
+        one = la.lloyd_assign_tiled(x[b], norms[b], c[b], block_n=bn,
+                                    tps=tps)
+        for u, v in zip(out, one):
+            assert torch.equal(u[b].view(torch.int32), v.view(torch.int32))
+    bsz, n = x.shape[:2]
+    zt = torch.zeros((bsz, t), device=card)
+    gated = la.lloyd_assign_gated_batched(
+        x, norms, c, torch.zeros((bsz, k), device=card), zt, zt,
+        torch.zeros((bsz, n), dtype=torch.int32, device=card),
+        torch.zeros((bsz, n), device=card),
+        torch.full((bsz, n), -torch.inf, device=card), zt, zt,
+        torch.zeros((bsz, s, k, d), device=card),
+        torch.zeros((bsz, s, k), device=card),
+        torch.ones((bsz, t), dtype=torch.bool, device=card), block_n=bn,
+        tps=tps)
+    for u, v in zip((gated[0], gated[1], gated[3], gated[4], gated[5],
+                     gated[6]), out):
+        assert torch.equal(u.view(torch.int32), v.view(torch.int32))
+    args = (x, norms, c, torch.zeros((bsz, k), device=card),
+            torch.full((bsz, t), -1.0, device=card), zt, gated[0], gated[1],
+            gated[2], gated[3], gated[4], gated[5], gated[6],
+            torch.ones((bsz, t), dtype=torch.bool, device=card))
+    again = la.lloyd_assign_gated_batched(*args, block_n=bn, tps=tps)
+    assert int(again[7].sum()) > 0
+    for b in range(bsz):
+        one = la.lloyd_assign_gated(*(a[b] for a in args), block_n=bn,
+                                    tps=tps)
+        for u, v in zip(again, one):
+            assert torch.equal(u[b].view(torch.int32), v.view(torch.int32))
