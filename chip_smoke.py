@@ -24,9 +24,13 @@ Phases, each of which exits non-zero on failure:
    (``wgmma``) and UTMALDG (TMA load) instructions in their SASS
    (``cuobjdump -sass``); their registers, spills, dynamic shared memory
    and instruction counts are printed, before any of them is launched.
-   The screened K10a/K10b's 16 kernels (pass A ``screen_kernel<stream, D,
-   gated>``, pass B ``reduce_kernel<stream, gated>``) must report no spill
-   and pass A HGMMA in its SASS; their registers are printed.
+   The screened route's 20 kernels (K6, K10a, K10b: pass A
+   ``screen_kernel<stream, D, gated>``, D 0, 8, 16 or 128, pass B
+   ``reduce_kernel<stream, gated>``) must report no spill and pass A HGMMA
+   in its SASS (K6's d = 128 instances among them); K6's split row pass
+   (``row_kernel<stream, D>``) and K14's part (a)
+   (``adc_pair_topk_kernel<kR>``, ``adc_tile_sort_kernel``) no spill;
+   their registers are printed.
 2. Hold every kernel against its plain PyTorch twin on the card, at the
    paper's shape (n = 4,000,000, d = 2; label-sorted for the gated seeding
    round, so its gate skips) and a ragged wide one (n = 100,003, d = 128):
@@ -41,8 +45,12 @@ Phases, each of which exits non-zero on failure:
    block of 8 centroids with count 0, 1 and 8. Two launches must give
    identical bits, skipped tiles must keep their carried values, all-active
    K5 and K6 (the latter with no carried bound) must be bitwise K2 and K3,
-   and K11/K12 must be bitwise their plain twins (+inf everywhere at count
-   0). Each kernel's median time (CUDA events) is printed beside its plain
+   every K6 launch (its screened route at d = 128, its split row pass at
+   d = 2) bitwise the template kernel's entry
+   (``lloyd_assign_gated_template``) in all eight outputs, with the
+   template entry's time printed beside K6's, and K11/K12 must be bitwise
+   their plain twins (+inf everywhere at count 0). Each kernel's median
+   time (CUDA events) is printed beside its plain
    twin's and its bound (for the gated kernels, from the bytes of the
    active tiles). The bf16 stream (``precision="bf16"``): K2 (m = 1,
    resident and not), K3, K5 (m = 1; the gate's mask resident and not, all
@@ -106,7 +114,8 @@ Phases, each of which exits non-zero on failure:
    prune fire; every tile, a mixed mask with supers off, the movement
    gate's) against their plain twins, two launches bitwise, skipped tiles
    keeping their carries, rows 0, 1 and B−1 bitwise K1/K5 and every
-   problem bitwise K6 (K10b) on that problem's slice; then ``ClusterEngine(device="cuda").kmeans_batched``
+   problem bitwise the template's K6 (``lloyd_assign_gated_template``,
+   for K10b) on that problem's slice; then ``ClusterEngine(device="cuda").kmeans_batched``
    for sampler cdf and tiled, on the sweep and on 16 problems of 4 blobs
    with rows sorted by blob (the tile gate skips), counted (the batched K1
    twice, one prologue per phase; K8 k times; K10b once per iteration of
@@ -121,7 +130,7 @@ Phases, each of which exits non-zero on failure:
    (B = 64, n = 16384, d in {8, 13, 16}, k in {250, 256}, fp32 and bf16:
    duplicated centroids, rows between two centroids and on one, a zero
    row, a NaN row, every other problem shifted by 1e3), each problem
-   bitwise K3/K6 on its slice (compared as bit patterns, NaN equal to
+   bitwise K3 / the template's K6 on its slice (compared as bit patterns, NaN equal to
    NaN), all-active K10b bitwise K10a, K10b screening exactly the rows that
    do not prune, the counters printed; and K10b at the IVF build's PQ
    sweep shape (16 problems, d = 8, k = 256) on its own.
@@ -159,7 +168,12 @@ Phases, each of which exits non-zero on failure:
    default of an assumed low intrinsic dimension, with ``--ivf-data
    isotropic`` drawn in all 128 dimensions; nlist 256,
    nprobe 32, PQ with 16 sub-spaces). ``IvfIndex.build(layout="label",
-   pq_nsub=16)`` on ``ClusterEngine(device="cuda")``, timed; K13
+   pq_nsub=16)`` on ``ClusterEngine(device="cuda")``, timed, the arguments
+   of its K6 launches recorded; K6 again on each (bitwise the build's
+   launch, the first, middle and last bitwise the template entry, the
+   first's rows and centroids all-active without a bound bitwise K3),
+   timed (their sum the build's K6 device time) with the screen's
+   counters, the template entry timed on the middle one; K13
    (``ivf_scan``) and K14 (``ivf_adc_scan``) against their plain twins on
    the first 256 queries' probe maps at nprobe 32 and nlist (rows equal
    where the twin's adjacent D² clear twice the tolerance, dists within
@@ -171,12 +185,14 @@ Phases, each of which exits non-zero on failure:
    ``corrupt_list_offsets`` kind raising ``CorruptedStateError``; K13 and
    K14 timed at Q = 10,000, nprobe 32 (CUDA events, median of 3; K13's
    time is all of ``ivf_scan``: its glue, the tile top-k part and the
-   replay; the tile top-k part with its glue is also timed alone, not
-   counted) beside their twins run
+   replay, and K14's likewise; each tile top-k part with its glue is also
+   timed alone, not counted) beside their twins run
    in chunks of 2,048 queries, whose outputs must be the kernel's bitwise,
    and their bounds (the larger of the bytes read once, each probed row's
    4d + 4 or n_sub + 8 bytes with the queries, tile lists and LUTs, and
-   the operations, 2d or n_sub + 4 per scored row); search ms, QPS and
+   the operations, 2d or n_sub + 4 per scored row; for K14 also its LUT
+   gathers' bound, n_sub a scored row, 32 a warp-wide shared-memory load,
+   one an SM a clock at the card's highest SM clock); search ms, QPS and
    recall@10 (1,000 queries against ``exhaustive``) at nprobe 32 and 256,
    exact and ADC, each search counted (one K13 or K14 launch). Then
    ``compress_transformer_cache`` on one gemma2_2b-shaped fp32 cache (26
@@ -262,6 +278,14 @@ def card_line() -> str:
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout
     return out.strip().splitlines()[0]
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi's clocks.max.sm), in Hz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], check=True,
+                         capture_output=True, text=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
 
 
 def gpu_ms(torch, fn, reps: int = 15, warmup: int = 3) -> float:
@@ -392,7 +416,7 @@ def k15_build(_build, log: str) -> dict:
 
 
 def screen_build(_build, log: str) -> dict:
-    """The screened route's kernels (K10a and K10b at d >= 8): pass A
+    """The screened route's kernels (K6, K10a and K10b at d >= 8): pass A
     (``screen_kernel<stream, D, gated>``, D the compiled width or 0) and
     pass B (``reduce_kernel<stream, gated>``), as ``kernel_build`` reads
     them."""
@@ -403,6 +427,23 @@ def screen_build(_build, log: str) -> dict:
         lambda m: (f"{m.group(1)}<{'fp32' if m.group(2) == 'f' else 'bf16'}"
                    + (f", {m.group(3)}" if m.group(3) else "")
                    + (", gated>" if m.group(4) == "1" else ">")))
+
+
+def split_build(_build, logs: dict) -> dict:
+    """K6's split row pass (``row_kernel<stream, D>``, D 2 or 0) and K14's
+    part (a) (``adc_pair_topk_kernel<kR>``, ``adc_tile_sort_kernel``), as
+    ``kernel_build`` reads them."""
+    out = kernel_build(
+        _build, "lloyd_assign", logs["lloyd_assign"],
+        r"row_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+        lambda m: (f"row_kernel<{'fp32' if m.group(1) == 'f' else 'bf16'}, "
+                   f"{m.group(2)}>"))
+    out.update(kernel_build(
+        _build, "ivf_scan", logs["ivf_scan"],
+        r"adc_(pair_topk_kernelILi(\d)E|tile_sort_kernel)",
+        lambda m: (f"adc_pair_topk_kernel<{m.group(2)}>" if m.group(2)
+                   else "adc_tile_sort_kernel")))
+    return out
 
 
 def d2_tol(torch, norms, cents) -> float:
@@ -749,11 +790,35 @@ def k5_case(torch, kd, bounds, ops, pts, cache, md_in, cents, mask, resident):
                 plain_ms=plain, fp32_ms=fp32_ms, bound_ms=bms, bound_by=by)
 
 
+def k6_bound(torch, pts, k, rows_act, fresh, t, s_act, screened):
+    """K6's bound: an active row reads x and its three carries and writes
+    label, D² and lb, a fresh row also reads its norm; the tile and super
+    outputs; the dots of the fresh rows (at TF32's or bf16's tensor-core
+    rate on the screened route, whose exact recheck counts with the rest).
+    Returns (bound, by, fp32-FMA bound)."""
+    d = pts.shape[1]
+    xb = pts.element_size()
+    work = (xb * (rows_act * d + k * d)
+            + 4 * (rows_act * 6 + fresh + k + 6 * t + s_act * k * (d + 1)),
+            fresh * k * 2 * d, fresh * k * 3 + rows_act * (d + 4))
+    bms, by = round_bound_ms(torch, pts, *work, tf32=screened)
+    return bms, by, round_bound_ms(torch, pts, *work)[0]
+
+
+def same_bits(torch, what, got, want) -> None:
+    """Every output bitwise (fp32 as int32 patterns)."""
+    check(len(got) == len(want)
+          and all(bits_equal(torch, u, v) for u, v in zip(got, want)),
+          f"{what}: not bitwise")
+
+
 def k6_case(torch, la, bounds, ops, pts, cache, k, gen):
     """K6 from a carried state: one all-active launch with no carried bound
-    (held bitwise to K3) gives the state; two centroids then move a little
-    (none at k = 1), so the rows of unmoved clusters prune. Masks: every
-    tile, half the supers, the movement gate's."""
+    (held bitwise to K3 and to the template entry) gives the state; two
+    centroids then move a little (none at k = 1), so the rows of unmoved
+    clusters prune. Masks: every tile, half the supers, the movement gate's;
+    each launch bitwise the template entry (all eight outputs), whose time
+    is measured beside K6's."""
     n, d = pts.shape
     bn = ops.choose_block_n(n, d, k)
     t = -(-n // bn)
@@ -773,11 +838,20 @@ def k6_case(torch, la, bounds, ops, pts, cache, k, gen):
         zero_t, zero_t, torch.zeros((s, k, d), device=dev),
         torch.zeros((s, k), device=dev), all_on, block_n=bn, tps=tps)
     k3 = la.lloyd_assign_tiled(pts, cache.norms, c0k, block_n=bn, tps=tps)
+    tmpl = la.lloyd_assign_gated_template(
+        pts, cache.norms, c0k, torch.zeros(k, device=dev), zero_t, zero_t,
+        torch.zeros(n, dtype=torch.int32, device=dev),
+        torch.zeros(n, device=dev), torch.full((n,), -torch.inf, device=dev),
+        zero_t, zero_t, torch.zeros((s, k, d), device=dev),
+        torch.zeros((s, k), device=dev), all_on, block_n=bn, tps=tps)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(
         (first[0], first[1], first[3], first[4], first[5], first[6]), k3))
         and not bool(first[7].any()),
         f"K6 d={d} k={k}: all-active K6 without a bound is not bitwise K3")
+    same_bits(torch, f"K6 d={d} k={k} all-active vs the template entry",
+              first, tmpl)
+    scr = la.screened(d, pts.dtype == torch.bfloat16)
     c1 = c0.clone()
     if k > 1:
         c1[[0, k - 1]] += 0.002
@@ -801,10 +875,13 @@ def k6_case(torch, la, bounds, ops, pts, cache, k, gen):
                 st.min_d2, st.point_lb, st.partials, st.tile_gap,
                 st.tile_sums, st.tile_counts, act)
         out1 = la.lloyd_assign_gated(*args, block_n=bn, tps=tps)
+        stats = screen_record(la, "lloyd_assign_gated", pts, torch)
         out2 = la.lloyd_assign_gated(*args, block_n=bn, tps=tps)
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for a, b in zip(out1, out2)),
               f"{what}: two launches differ")
+        same_bits(torch, f"{what} vs the template entry", out1,
+                  la.lloyd_assign_gated_template(*args, block_n=bn, tps=tps))
         ref = la.lloyd_assign_gated_torch(*args, block_n=bn, tps=tps)
         act_pt = bounds.expand_mask(act, bn, n)
         prune = bounds.assign_point_prune(
@@ -864,23 +941,21 @@ def k6_case(torch, la, bounds, ops, pts, cache, k, gen):
         ms, plain = timed(
             torch, lambda: la.lloyd_assign_gated(*args, block_n=bn, tps=tps),
             lambda: la.lloyd_assign_gated_torch(*args, block_n=bn, tps=tps))
+        tmpl_ms = gpu_ms(torch, lambda: la.lloyd_assign_gated_template(
+            *args, block_n=bn, tps=tps), reps=5)
         rows_act = int(act_pt.sum())
         n_pruned = int(out1[7].sum())
-        fresh = rows_act - n_pruned
-        s_act = int(sup_act.sum())
-        # an active row reads x and its three carries and writes label, D²
-        # and lb; only a fresh row also reads its norm
-        xb = pts.element_size()
-        bms, by = round_bound_ms(
-            torch, pts, xb * (rows_act * d + k * d)
-            + 4 * (rows_act * 6 + fresh + k + 6 * t + s_act * k * (d + 1)),
-            fresh * k * 2 * d, fresh * k * 3 + rows_act * (d + 4))
+        bms, by, fma_ms = k6_bound(torch, pts, k, rows_act,
+                                   rows_act - n_pruned, t,
+                                   int(sup_act.sum()), scr)
         res.append(dict(n=n, d=d, k=k, mask=name, block_n=bn, tps=tps,
                         stream=stream_tag(torch, pts),
+                        route="screened" if scr else "split",
                         active_tiles=int(act.sum()), tiles=t,
                         pruned=n_pruned, label_diffs=int(diff.sum()),
                         max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
-                        fp32_ms=fp32_ms, bound_ms=bms, bound_by=by))
+                        fp32_ms=fp32_ms, template_ms=tmpl_ms, bound_ms=bms,
+                        bound_by=by, fma_bound_ms=fma_ms, **stats))
     return res
 
 
@@ -1725,7 +1800,8 @@ def k10b_case(torch, la, kd, bounds, ops, pts, cache, k, gen, only=None):
     problem 1 none, the others all but super b % n_super), and the movement
     gate's (``only`` names a subset). Two launches bitwise; against the
     plain twin; skipped tiles and supers keep their carries; every problem
-    bitwise K6 on its slice; the screened route's counters and both bounds
+    bitwise the template's K6 (``lloyd_assign_gated_template``) on its
+    slice; the screened route's counters and both bounds
     as K10a's."""
     bsz, n, d = pts.shape
     bn = ops.choose_block_n(n, d, k)
@@ -1829,8 +1905,8 @@ def k10b_case(torch, la, kd, bounds, ops, pts, cache, k, gen, only=None):
         check(kept and not bool(out1[7][skip].any()),
               f"{what}: a skipped tile's or super's outputs moved")
         every_problem(torch, what, out1, lambda b, args=args: (
-            la.lloyd_assign_gated(*(a[b] for a in args), block_n=bn,
-                                  tps=tps)), bsz)
+            la.lloyd_assign_gated_template(*(a[b] for a in args),
+                                           block_n=bn, tps=tps)), bsz)
         del ref
         fp32_ms = widened(torch, what, lambda p, c, args=args: (
             la.lloyd_assign_gated_batched(p, args[1], c, *args[3:],
@@ -1890,7 +1966,8 @@ def screen_case(torch, la, kd, ops, bounds, pts, cents, dtype):
     ``pts`` and ``cents``, run in ``dtype``; norms from the fp32 points):
     K10a every problem bitwise K3; K10b all active with no carried bound
     bitwise K10a; then a gated K10b from that state with two centroids
-    moved, every problem bitwise K6, screening exactly the rows that do
+    moved, every problem bitwise the template's K6
+    (``lloyd_assign_gated_template``), screening exactly the rows that do
     not prune. Returns the screened route's counters of both."""
     bsz, n, d = pts.shape
     k = cents.shape[1]
@@ -1940,8 +2017,9 @@ def screen_case(torch, la, kd, ops, bounds, pts, cents, dtype):
     check(pruned > 0 and b_st.get("screened_rows") == bsz * n - pruned,
           f"{what}: K10b screened {b_st.get('screened_rows')} rows, "
           f"{bsz * n - pruned} did not prune")
-    every_problem(torch, f"{what} K10b", gated, lambda b: la.lloyd_assign_gated(
-        *(a[b] for a in args), block_n=bn, tps=tps), bsz)
+    every_problem(torch, f"{what} K10b", gated,
+                  lambda b: la.lloyd_assign_gated_template(
+                      *(a[b] for a in args), block_n=bn, tps=tps), bsz)
     return dict(batch=bsz, n=n, d=d, k=k, stream=stream_tag(torch, p),
                 pruned=pruned, k10a=a_st, k10b=b_st)
 
@@ -1949,7 +2027,8 @@ def screen_case(torch, la, kd, ops, bounds, pts, cents, dtype):
 def screen_phase(torch, ops, kd, la, bounds, blobs_batched, dev, gen):
     """Phase 6 (screen): K10a and K10b on adversarial problems (B = 64,
     n = 16384) for d in {8, 13, 16} and k in {250, 256}, fp32 and bf16,
-    each held bitwise to K3/K6 problem by problem (``screen_case``), with
+    each held bitwise to K3 / the template's K6 problem by problem
+    (``screen_case``), with
     the screened route's counters; then K10b alone at the IVF build's PQ
     sweep shape (16 problems of 16384 rows, d = 8, k = 256; the gate's
     mask), as phase 6 holds it."""
@@ -1962,8 +2041,8 @@ def screen_phase(torch, ops, kd, la, bounds, blobs_batched, dev, gen):
                 c = screen_case(torch, la, kd, ops, bounds, pts, cents, dtype)
                 cases.append(c)
                 print(f"screen B=64 n=16384 d={d} k={k} {c['stream']}: every "
-                      f"problem bitwise K3 (K10a) and K6 (K10b, {c['pruned']}"
-                      " rows pruned), all-active K10b bitwise K10a; K10a "
+                      f"problem bitwise K3 (K10a) and the template's K6 "
+                      f"(K10b, {c['pruned']} rows pruned), all-active K10b bitwise K10a; K10a "
                       f"{c['k10a']['candidates_per_row']:.3f} candidates a "
                       f"row (most {c['k10a']['max_candidates']}), "
                       f"{c['k10a']['full_scan_share']:.4f} on the full scan; "
@@ -1979,7 +2058,7 @@ def screen_phase(torch, ops, kd, la, bounds, blobs_batched, dev, gen):
                          only=("gate",))[0]
     print(f"K10b at the IVF build's PQ sweep shape (B=16 n=16384 d=8 k=256, "
           f"the gate's mask, {ivf_case['pruned']} rows pruned): every "
-          f"problem bitwise K6; {ivf_case['ms']:.4f} ms, bound "
+          f"problem bitwise the template's K6; {ivf_case['ms']:.4f} ms, bound "
           f"{ivf_case['bound_ms']:.4f} ms ({ivf_case['bound_by']})"
           + screen_text(ivf_case))
     return cases, ivf_case
@@ -2481,6 +2560,80 @@ def scan_case(torch, name, fn, twin, args, kw, tol, nprobe, chunk):
                 probed_tiles=int(args[-1].sum()))
 
 
+def k6_build_case(torch, la, bounds, calls) -> list:
+    """K6 at the IVF build's shape, on the arguments of the build's own
+    launches (``calls``; the build's masks and carries): each launch again,
+    bitwise the build's and, on the first, middle and last launch, the
+    template entry's, all eight outputs; all-active K6 without a carried
+    bound on the build's rows and first centroids bitwise K3; each launch
+    timed (the sum is the build's K6 device time) beside the template
+    entry's time on the middle one; the screen's counters. Each call is
+    taken out of ``calls`` as it is replayed, so its tensors are freed."""
+    res = []
+    n_calls = len(calls)
+    picks = {0, n_calls // 2, n_calls - 1}
+    for i in range(n_calls):
+        a, kw = calls.pop(0)
+        pts, k = a[0], a[2].shape[0]
+        n, d = pts.shape
+        bn, tps = kw["block_n"], kw["tps"]
+        what = f"K6 at the IVF build's launch {i} (n={n} d={d} k={k})"
+        out1 = la.lloyd_assign_gated(*a, **kw)
+        stats = screen_record(la, "lloyd_assign_gated", pts, torch)
+        same_bits(torch, f"{what}: two launches", out1,
+                  la.lloyd_assign_gated(*a, **kw))
+        act = bounds.align_supers(a[13], tps)
+        t = act.shape[0]
+        c = dict(launch=i, n=n, d=d, k=k, block_n=bn, tps=tps,
+                 active_tiles=int(act.sum()), tiles=t,
+                 pruned=int(out1[7].sum()),
+                 ms=gpu_ms(torch, lambda: la.lloyd_assign_gated(*a, **kw),
+                           reps=5), **stats)
+        if i in picks:
+            same_bits(torch, f"{what} vs the template entry", out1,
+                      la.lloyd_assign_gated_template(*a, **kw))
+            c["template_bitwise"] = True
+        if i == n_calls // 2:
+            c["template_ms"] = gpu_ms(
+                torch, lambda: la.lloyd_assign_gated_template(*a, **kw),
+                reps=3, warmup=1)
+        if i == 0:
+            s = -(-t // tps)
+            dev = pts.device
+            zt = torch.zeros(t, device=dev)
+            on = la.lloyd_assign_gated(
+                pts, a[1], a[2], torch.zeros(k, device=dev), zt, zt,
+                torch.zeros(n, dtype=torch.int32, device=dev),
+                torch.zeros(n, device=dev),
+                torch.full((n,), -torch.inf, device=dev), zt, zt,
+                torch.zeros((s, k, d), device=dev),
+                torch.zeros((s, k), device=dev),
+                torch.ones(t, dtype=torch.bool, device=dev), **kw)
+            same_bits(torch, f"{what}: all-active without a bound vs K3",
+                      (on[0], on[1], on[3], on[4], on[5], on[6]),
+                      la.lloyd_assign_tiled(pts, a[1], a[2], **kw))
+            c["all_active_bitwise_k3"] = True
+        rows_act = int(bounds.expand_mask(act, bn, n).sum())
+        c["bound_ms"], c["bound_by"], c["fma_bound_ms"] = k6_bound(
+            torch, pts, k, rows_act, rows_act - c["pruned"], t,
+            int(bounds.super_any(act, tps).sum()),
+            la.screened(d, pts.dtype == torch.bfloat16))
+        res.append(c)
+        print(f"{what}: {c['active_tiles']}/{t} tiles active, {c['pruned']} "
+              f"rows pruned; {c['ms']:.4f} ms"
+              + (f" (template entry {c['template_ms']:.4f} ms)"
+                 if "template_ms" in c else "")
+              + f", bound {c['bound_ms']:.4f} ms ({c['bound_by']})"
+              + ("; bitwise the template entry" if i in picks else "")
+              + ("; all-active bitwise K3" if i == 0 else "")
+              + screen_text(c))
+        del a, kw, out1
+    total = sum(c["ms"] for c in res)
+    print(f"K6 at the IVF build: {len(res)} launches, {total:.4f} ms of "
+          f"device time in all (medians of 5 each)")
+    return res
+
+
 def ivf_phase(torch, ops, bounds, telemetry, ClusterEngine, Draws, cfg, paper,
               full, dev, launches, profile, kv_shape, data):
     """Phase 8: IVF serving at ``cfg`` on the ``data`` case ("latent" or
@@ -2491,6 +2644,7 @@ def ivf_phase(torch, ops, bounds, telemetry, ClusterEngine, Draws, cfg, paper,
     from repro_torch.data import blobs_batched
     from repro_torch.data.ordering import inverse_permutation, morton_order
     from repro_torch.kernels import ivf_scan as ks
+    from repro_torch.kernels import lloyd_assign as la
     from repro_torch.serve import IvfIndex, kvquant
     from repro_torch.serve import ivf as ivf_mod
     from repro_torch.testing import IVF_OFFSET_FAULTS, corrupt_list_offsets
@@ -2521,11 +2675,27 @@ def ivf_phase(torch, ops, bounds, telemetry, ClusterEngine, Draws, cfg, paper,
     base, queries = allp[:n].contiguous(), allp[n:].contiguous()
     del allp
     eng = ClusterEngine(device="cuda")
-    idx, build_s, got = counted(torch, ops, lambda: IvfIndex.build(
-        base, cfg.nlist, engine=eng, layout="label", pq_nsub=cfg.pq_nsub,
-        max_iters=cfg.max_iters, generator=torch.Generator().manual_seed(0)))
+    # the build's K6 launches are recorded (their arguments) for the K6
+    # case below
+    k6_calls = []
+    k6 = la.lloyd_assign_gated
+
+    def recorded(*a, **kw):
+        k6_calls.append((a, kw))
+        return k6(*a, **kw)
+    la.lloyd_assign_gated = recorded
+    try:
+        idx, build_s, got = counted(torch, ops, lambda: IvfIndex.build(
+            base, cfg.nlist, engine=eng, layout="label",
+            pq_nsub=cfg.pq_nsub, max_iters=cfg.max_iters,
+            generator=torch.Generator().manual_seed(0)))
+    finally:
+        la.lloyd_assign_gated = k6
     out.update(build_s=build_s, block_n=idx.block_n, n_tiles=idx.n_tiles,
                build_launches={k_: c for k_, c in got.items() if c})
+    check(len(k6_calls) == got["lloyd_assign_gated"] > 0,
+          f"the build's K6 calls: {len(k6_calls)} recorded, "
+          f"{got['lloyd_assign_gated']} counted")
     if profile:
         p = profile_call(torch, lambda: IvfIndex.build(
             base, cfg.nlist, engine=eng, layout="label", pq_nsub=cfg.pq_nsub,
@@ -2539,6 +2709,9 @@ def ivf_phase(torch, ops, bounds, telemetry, ClusterEngine, Draws, cfg, paper,
           f"{int(idx.counts.min())}-{int(idx.counts.max())}; launches "
           f"{out['build_launches']}")
     del base
+    cases["K6 ivf"] = k6_build_case(torch, la, bounds, k6_calls)
+    del k6_calls
+    lap("K6 at the build's shape")
 
     def maps(q, nprobe):
         probed, qdots = ivf_mod._route(
@@ -2635,6 +2808,10 @@ def ivf_phase(torch, ops, bounds, telemetry, ClusterEngine, Draws, cfg, paper,
             part_ms = gpu_ms(torch, lambda: ks._launch_topk(
                 *args[:5], ks._pair_maps(*args[5:]), k, idx.block_n, True),
                 reps=3, warmup=1)
+        else:   # K14's part (a) with its glue alone
+            part_ms = gpu_ms(torch, lambda: ks._launch_adc_topk(
+                *args, ks._pair_start(args[-1]), k, idx.block_n, True),
+                reps=3, warmup=1)
         got_full = fn(*args, **kw)
         twin_out = []
 
@@ -2672,20 +2849,28 @@ def ivf_phase(torch, ops, bounds, telemetry, ClusterEngine, Draws, cfg, paper,
             n_bytes += args[1].numel() * 4 + args[2].numel() * 4
         flops = scored * (2 * d if name == "K13" else cfg.pq_nsub + 4)
         bms, by = bound_ms(n_bytes, flops)
+        if name == "K14":
+            # the LUT gathers: n_sub a scored row, 32 to one warp-wide
+            # shared-memory load, one load an SM a clock at the card's
+            # highest SM clock
+            props = torch.cuda.get_device_properties(0)
+            cases[name][0]["gather_bound_ms"] = (
+                scored * cfg.pq_nsub / 32
+                / (props.multi_processor_count * sm_clock_hz()) * 1e3)
         cases[name][0].update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                               bound_by=by, timed_queries=nq,
                               scored_rows=scored, rows_read_once=once,
                               bitwise_full_set=True)
-        if name == "K13":
-            cases[name][0].update(tile_topk_ms=part_ms,
-                                  pairs=float(act.sum()))
+        cases[name][0].update(tile_topk_ms=part_ms, pairs=float(act.sum()))
         print(f"{name} Q={nq} nprobe={cfg.nprobe}: {ms:.4f} ms"
-              + (f" (the tile top-k part with its glue {part_ms:.4f} ms, "
-                 f"{float(act.sum()):.6g} (query, tile) pairs)"
-                 if name == "K13" else "")
+              + f" (the tile top-k part with its glue {part_ms:.4f} ms, "
+              f"{float(act.sum()):.6g} (query, tile) pairs)"
               + f", plain (chunks of 2048 queries) {plain_ms:.4f} ms, "
               f"bitwise the kernel; bound {bms:.4f} ms ({by}; {scored:.6g} "
-              f"rows scored, {once:.6g} rows read once)")
+              f"rows scored, {once:.6g} rows read once)"
+              + (f"; the LUT gathers' bound "
+                 f"{cases[name][0]['gather_bound_ms']:.4f} ms"
+                 if name == "K14" else ""))
         del got_full, twin_out
     torch.cuda.empty_cache()
 
@@ -3110,10 +3295,14 @@ def main() -> int:
         check(c["registers"] >= 168,
               f"K15 {fn}: {c['registers']} registers at entry, too few "
               f"for setmaxnreg to raise two warpgroups to 232")
-    # the screened K10a/K10b: no spill, pass A on the tensor cores
+    # the screened K6/K10a/K10b: no spill, pass A on the tensor cores (K6's
+    # d = 128 instances, the IVF build's, among them)
     report["screen_build"] = screen_build(_build, logs["lloyd_assign"])
-    check(len(report["screen_build"]) == 16,
+    check(len(report["screen_build"]) == 20,
           f"screen kernels in the SASS: {sorted(report['screen_build'])}")
+    check(all(f"screen_kernel<{t}, 128, gated>" in report["screen_build"]
+              for t in ("fp32", "bf16")),
+          "no d = 128 instance of K6's pass A")
     for fn, c in sorted(report["screen_build"].items()):
         check("registers" in c and "spill_bytes" in c,
               f"{fn}: no registers or spills in the ptxas log")
@@ -3122,6 +3311,16 @@ def main() -> int:
         check(c["spill_bytes"] == 0, f"{fn} spills")
         check(c["HGMMA"] > 0 or fn.startswith("reduce"),
               f"{fn}: no HGMMA in its SASS")
+    # K6's split row pass and K14's part (a): no spill
+    report["split_build"] = split_build(_build, logs)
+    check(len(report["split_build"]) == 8,
+          f"row and ADC kernels in the SASS: {sorted(report['split_build'])}")
+    for fn, c in sorted(report["split_build"].items()):
+        check("registers" in c and "spill_bytes" in c,
+              f"{fn}: no registers or spills in the ptxas log")
+        print(f"{fn}: {c['registers']} registers, {c['spill_bytes']} spill "
+              f"bytes")
+        check(c["spill_bytes"] == 0, f"{fn} spills")
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 2")
     # 2. kernels against their plain twins
@@ -3200,17 +3399,22 @@ def main() -> int:
             cache = bounds.prologue(pts, ops.choose_block_n(n, d, kk))
             for c in k6_case(torch, la, bounds, ops, pts, cache, kk, gen):
                 cases["K6"].append(c)
-                print(f"K6 n={n} d={d} k={kk} mask={c['mask']}: "
+                print(f"K6 n={n} d={d} k={kk} mask={c['mask']} "
+                      f"({c['route']} route): "
                       f"{c['active_tiles']}/{c['tiles']} tiles active, "
                       f"{c['pruned']} rows pruned, err "
                       f"{c['max_abs_err']:.3g} (tol {c['tol']:.3g}) label "
-                      f"diffs {c['label_diffs']} {c['ms']:.4f} ms, plain "
+                      f"diffs {c['label_diffs']}, bitwise the template "
+                      f"entry; {c['ms']:.4f} ms (template entry "
+                      f"{c['template_ms']:.4f} ms), plain "
                       f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
-                      f"({c['bound_by']})")
+                      f"({c['bound_by']})" + screen_text(c))
             # bf16: the centroid carry fp32, the kernel's centroids bf16
             for c in k6_case(torch, la, bounds, ops, pts16, cache, kk, gen):
                 cases["K6 bf16"].append(c)
                 print_bf16("K6", c)
+                print(f"  K6 bf16 ({c['route']} route) bitwise the template "
+                      f"entry; template entry {c['template_ms']:.4f} ms")
         del cache, pts16
         # the rejection kernels: K12 over K1's balls at the seeding tiles
         _, centers, radii, _ = kd.seed_prologue(pts, ops.choose_block_n(n, d,

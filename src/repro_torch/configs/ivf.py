@@ -28,7 +28,7 @@ class IvfConfig:
 
 IVF_SIFT1M = IvfConfig(
     name="ivf-sift1m", n_points=1_000_000, dim=128, n_queries=10_000, k=10,
-    nlist=256, nprobe=256 // 8, pq_nsub=16, max_iters=10,
+    nlist=256, nprobe=256 // 8, pq_nsub=16, max_iters=25,
     source="ANN-benchmarks sift-128-euclidean (SIFT1M, Jegou et al. 2011): "
            "1M base vectors, d=128, 10k queries, recall@10",
     reduced=(
@@ -36,10 +36,6 @@ IVF_SIFT1M = IvfConfig(
         "gives 4,000-16,000 for 1M rows: the port's tiled assignment "
         "kernels (K3/K6) stage the whole (k, d) centroid block in one "
         "block's shared memory, which at d = 128 holds k <= 384",
-        "max_iters 10 in the build's Lloyd (the reference's default is "
-        "25): at d = 128, k = 256 the gated assignment kernel covers 9 of "
-        "129 sum columns per pass, and the smoke script's time limit "
-        "holds the whole build",
     ))
 IVF_SMOKE = IvfConfig(
     name="ivf-smoke", n_points=4000, dim=16, n_queries=48, k=10, nlist=32,

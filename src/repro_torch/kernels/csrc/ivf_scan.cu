@@ -56,18 +56,29 @@
 //      bits.
 // No float atomics: a pair's list does not depend on its chunk.
 //
-// K14 (ivf_adc_scan_kernel): one thread block per query walks that
-// query's tiles in the order of ids. Thread 0 evaluates the gate; each
-// thread scores rows tid, tid + 256, ... of the tile; rows that beat the
-// carried k-th key go to a shared-memory buffer, a slot taken with a
-// shared-memory integer atomic. The buffer and the carried (sorted) top-k
-// are merged by rank: an element's rank is the number of elements whose
-// key is smaller (binary search in the carried list, a scan over the
-// buffer that stops at k). The key is a total order (rows are unique), so
-// the ranks are a permutation and the merged top-k does not depend on the
-// slot order. No float atomics. It stages the query's LUT (n_sub x n_codes
-// floats) and its routing dots (nlist floats) in shared memory and gathers
-// from them. What bounds it: bytes, n_sub + 8 bytes a row and the LUT.
+// K14 in the same two parts, part (b) K13's replay_kernel. What bounds it:
+// its LUT gathers. Each scored row gathers n_sub LUT values (1.16e9 rows of
+// the probed tiles at IVF_SIFT1M, nprobe 32: 5.8e8 warp-wide shared-memory
+// loads, about 2 ms at one an SM a clock if no bank conflicts); the
+// operations (n_sub + 4 a row) and the bytes (the codes, 16 MB, shared by
+// about 1,250 queries a list) are below that.
+//  (a) adc_pair_topk_kernel: one block a query stages the query's LUT
+//      (16 KB at n_sub 16, n_codes 256), routing dots and vector once; its
+//      warps take the query's (query, step) pairs in turn, each on its own:
+//      a lane scores rows of the step's tile with the walk's arithmetic
+//      (the codes read from device memory as 16-byte rows, L2 serving the
+//      tiles the queries share) and the warp keeps the tile's top-k in
+//      registers (K13's offer and sort64). A ninth warp computes the gate's
+//      tau-free terms. Small blocks, several an SM, hide the gathers' and
+//      the offers' latency. (A tile-major form, the pairs sorted by tile
+//      and 8 queries' LUTs staged in a block along runs of tiles, was
+//      slower than the walk it replaced: its 128 KB of LUTs left one block
+//      an SM, whose barriers and serial phases the latency then set.)
+//      Past k = 128 adc_tile_sort_kernel takes one block per pair and
+//      ranks the tile's rows.
+//  (b) replay_kernel, as K13's, with the gate over the balls of the
+//      reconstructed rows: dists, rows and gate_skipped are the walk's
+//      bits.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -82,6 +93,38 @@ __device__ __forceinline__ bool lex_less(float av, int ai, float bv, int bi) {
 }
 
 __device__ __forceinline__ float clamp0(float v) { return v < 0.f ? 0.f : v; }
+
+// how many of the sorted (v, i)[0 .. k) lie below (x, xi); `or_equal`
+// counts equal keys too
+__device__ __forceinline__ int count_below(const float* v, const int* i,
+                                           int k, float x, int xi,
+                                           bool or_equal) {
+  int lo = 0, hi = k;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const bool below = or_equal ? !lex_less(x, xi, v[mid], i[mid])
+                                : lex_less(v[mid], i[mid], x, xi);
+    if (below) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// asynchronous copies global -> shared (16 and 4 bytes), their groups
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+               "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
+               "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
 
 // sum_j x_j^2 in ascending order, every operation rounded
 __device__ __forceinline__ float sq_sum(const float* x, int d) {
@@ -110,154 +153,6 @@ __device__ void gate_terms(const float* q, float qn, const float* c, float r,
 __device__ __forceinline__ bool gate_says_skip(float lo2, float margin,
                                                float tau, float rel1) {
   return lo2 >= __fadd_rn(__fmul_rn(tau, rel1), margin);
-}
-
-// bounds.ivf_gate_skip for tile ball (c, r) against query q
-__device__ bool gate_skip(const float* q, float qn, const float* c, float r,
-                          int d, float tau, float rel1, float abs_) {
-  float lo2, margin;
-  gate_terms(q, qn, c, r, d, abs_, &lo2, &margin);
-  return gate_says_skip(lo2, margin, tau, rel1);
-}
-
-// ---------------------------------------------------------------------------
-// K14
-// ---------------------------------------------------------------------------
-
-struct AdcArgs {
-  const float* queries;   // (Q, d)
-  const float* lut;       // (Q, n_sub, n_codes)
-  const float* qdots;     // (Q, nlist)
-  const uint8_t* codes;   // (n, n_sub)
-  const int* labels;      // (n,)
-  const float* u;         // (n,) |x_hat|^2
-  const float* centers;   // (n_tiles, d) tile balls
-  const float* radii;     // (n_tiles,)
-  const int* ids;         // (Q, n_tiles) compacted probed tiles
-  const int* n_active;    // (Q,)
-  float* dists;           // (Q, k)
-  int* rows;              // (Q, k)
-  int* skipped;           // (Q,)
-  int n, d, n_tiles, block_n, k, gate, n_sub, n_codes, nlist;
-  float rel1, abs_;
-};
-
-__global__ void __launch_bounds__(kThreads) ivf_adc_scan_kernel(AdcArgs a) {
-  extern __shared__ float smem[];
-  const int d = a.d, k = a.k, bn = a.block_n;
-  float* qs = smem;                        // (d,) the query
-  float* tv = qs + d;                      // (k,) carried D²
-  int* ti = reinterpret_cast<int*>(tv + k);        // (k,) carried rows
-  float* nv = reinterpret_cast<float*>(ti + k);    // (k,) merged D²
-  int* ni = reinterpret_cast<int*>(nv + k);        // (k,) merged rows
-  float* cv = reinterpret_cast<float*>(ni + k);    // (block_n,) candidates
-  int* ci = reinterpret_cast<int*>(cv + bn);       // (block_n,)
-  float* lut = reinterpret_cast<float*>(ci + bn);  // (n_sub, n_codes)
-  float* qd = lut + a.n_sub * a.n_codes;           // (nlist,)
-  __shared__ int n_cand;
-  __shared__ int skip_flag;
-  __shared__ float qn_s;
-
-  const int qi = blockIdx.x;
-  const int tid = threadIdx.x;
-  for (int j = tid; j < d; j += kThreads) qs[j] = a.queries[(size_t)qi * d + j];
-  for (int i = tid; i < k; i += kThreads) {
-    tv[i] = CUDART_INF_F;
-    ti[i] = kSentinel;
-  }
-  {
-    const int nl = a.n_sub * a.n_codes;
-    for (int i = tid; i < nl; i += kThreads) lut[i] = a.lut[(size_t)qi * nl + i];
-    for (int i = tid; i < a.nlist; i += kThreads)
-      qd[i] = a.qdots[(size_t)qi * a.nlist + i];
-  }
-  __syncthreads();
-  if (tid == 0) qn_s = sq_sum(qs, d);
-  const int nact = a.n_active[qi];
-  int nskip = 0;  // thread 0's count
-  for (int step = 0; step < nact; ++step) {
-    __syncthreads();  // the previous step's shared state is settled
-    const int t = a.ids[(size_t)qi * a.n_tiles + step];
-    if (tid == 0) {
-      const bool s = a.gate && gate_skip(qs, qn_s, a.centers + (size_t)t * d,
-                                         a.radii[t], d, tv[k - 1], a.rel1,
-                                         a.abs_);
-      skip_flag = s;
-      nskip += s;
-      n_cand = 0;
-    }
-    __syncthreads();
-    if (skip_flag) continue;
-    const float qn = qn_s;
-    const float tau_v = tv[k - 1];
-    const int tau_i = ti[k - 1];
-    for (int r = tid; r < bn; r += kThreads) {
-      const int row = t * bn + r;
-      if (row >= a.n) break;
-      float d2;
-      {
-        const uint8_t* code = a.codes + (size_t)row * a.n_sub;
-        float qr = lut[code[0]];
-        for (int s = 1; s < a.n_sub; ++s)
-          qr = __fadd_rn(qr, lut[s * a.n_codes + code[s]]);
-        const float qc = qd[a.labels[row]];
-        d2 = __fadd_rn(__fsub_rn(qn, __fmul_rn(2.f, __fadd_rn(qr, qc))),
-                       a.u[row]);
-      }
-      d2 = clamp0(d2);
-      if (lex_less(d2, row, tau_v, tau_i)) {
-        const int slot = atomicAdd(&n_cand, 1);
-        cv[slot] = d2;
-        ci[slot] = row;
-      }
-    }
-    __syncthreads();
-    const int m = n_cand;
-    if (m == 0) continue;
-    // rank of every carried entry and candidate among all k + m keys
-    for (int e = tid; e < k + m; e += kThreads) {
-      float v;
-      int id, rank;
-      if (e < k) {
-        v = tv[e];
-        id = ti[e];
-        rank = e;
-      } else {
-        v = cv[e - k];
-        id = ci[e - k];
-        int lo = 0, hi = k;  // carried keys below (v, id): binary search
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (lex_less(tv[mid], ti[mid], v, id)) lo = mid + 1;
-          else hi = mid;
-        }
-        rank = lo;
-      }
-      for (int j = 0; j < m && rank < k; ++j)
-        rank += lex_less(cv[j], ci[j], v, id);
-      if (rank < k) {
-        nv[rank] = v;
-        ni[rank] = id;
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < k; i += kThreads) {
-      tv[i] = nv[i];
-      ti[i] = ni[i];
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < k; i += kThreads) {
-    a.dists[(size_t)qi * k + i] = tv[i];
-    a.rows[(size_t)qi * k + i] = ti[i];
-  }
-  if (tid == 0) a.skipped[qi] = nskip;
-}
-
-size_t adc_smem_bytes(const AdcArgs& a) {
-  return sizeof(float) * ((size_t)a.d + 4 * (size_t)a.k
-                          + 2 * (size_t)a.block_n
-                          + (size_t)a.n_sub * a.n_codes + a.nlist);
 }
 
 int set_smem(const void* kernel, size_t smem) {
@@ -596,6 +491,279 @@ __global__ void __launch_bounds__(kThreads) tile_sort_kernel(TopkArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// K14 part (a): each (query, step) pair's ADC top-k of its tile
+// ---------------------------------------------------------------------------
+
+constexpr int kAdcWarps = 8;     // scoring warps a block
+// the scoring warps, and one that computes the gate's terms
+constexpr int kAdcThreads = 32 * (kAdcWarps + 1);
+
+struct AdcTopkArgs {
+  const float* queries;    // (Q, d)
+  const float* lut;        // (Q, n_sub, n_codes)
+  const float* qdots;      // (Q, nlist)
+  const uint8_t* codes;    // (n, n_sub)
+  const int* labels;       // (n,)
+  const float* u;          // (n,) |x_hat|^2
+  const float* centers;    // (n_tiles, d) tile balls over the x_hat
+  const float* radii;      // (n_tiles,)
+  const int* ids;          // (Q, n_tiles) compacted probed tiles
+  const int* n_active;     // (Q,)
+  const int* pair_start;   // (Q,) the query's first pair
+  const int* pair_query;   // (P,) pair -> query (the rank path)
+  const int* pair_tile;    // (P,) pair -> tile (the rank path)
+  float* cand_d;           // (P, k) each pair's top-k D², ascending
+  int* cand_r;             // (P, k) and rows
+  float* gate_lo2;         // (P,)
+  float* gate_margin;      // (P,)
+  int n, d, n_tiles, block_n, k, gate, n_sub, n_codes, nlist;
+  float abs_;
+};
+
+// One block of 288 threads takes one query's pairs (its steps, in the
+// query-major order of part (b)): it stages the query's LUT (as (s, code)),
+// routing dots and vector in shared memory by cp.async, once. Warp w then
+// takes steps w, w + 8, ... on its own, with no block barrier: it reads the
+// step's tile from device memory (each lane a row's 16 code bytes as one
+// 16-byte load, its label and u; L2 holds the codes, which about 1,250
+// queries a list share), scores every row with the walk's arithmetic (two
+// rows a lane on interleaved chains, the LUT values gathered from shared
+// memory), keeps the tile's top-k in registers (K13's sort64 and offer,
+// the offers of 64 rows skipped when none beats the k-th key) and writes
+// it. A ninth warp computes the gate's tau-free terms of the
+// query's pairs meanwhile, a lane a pair. Small blocks (about 18 KB of
+// shared memory; registers for three an SM) keep many warps an SM, which
+// hide the latency of the gathers, loads and offers.
+template <int kR>
+__global__ void __launch_bounds__(kAdcThreads, 3)
+adc_pair_topk_kernel(AdcTopkArgs a) {
+  extern __shared__ float4 smem4[];
+  const int d = a.d, nl = a.n_sub * a.n_codes, n_codes = a.n_codes;
+  float* lut_s = reinterpret_cast<float*>(smem4);          // (nl,)
+  float* qd_s = lut_s + (nl + 3) / 4 * 4;                  // (nlist,)
+  float* qv_s = qd_s + (a.nlist + 3) / 4 * 4;              // (d,)
+  __shared__ float qn_s;
+  const int q = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nact = a.n_active[q];
+  const size_t p0 = a.pair_start[q];
+  const auto sh = [](const void* ptr) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+  };
+  for (int i = tid; i < nl / 4; i += kAdcThreads)
+    cp_async16(sh(lut_s + 4 * i), a.lut + (size_t)q * nl + 4 * i);
+  for (int i = tid; i < a.nlist; i += kAdcThreads)
+    cp_async4(sh(qd_s + i), a.qdots + (size_t)q * a.nlist + i);
+  for (int j = tid; j < d; j += kAdcThreads)
+    cp_async4(sh(qv_s + j), a.queries + (size_t)q * d + j);
+  cp_async_commit();
+  cp_async_wait0();
+  __syncthreads();
+  if (tid == 0) qn_s = sq_sum(qv_s, d);
+  __syncthreads();
+  const int* qids = a.ids + (size_t)q * a.n_tiles;
+  if (warp == kAdcWarps) {
+    // the gate's tau-free terms, a lane a pair, while the others score:
+    // gate_terms' two rounded chains (|c - q|^2 and |c|^2) side by side,
+    // the ball's columns loaded eight ahead
+    if (a.gate)
+      for (int st = lane; st < nact; st += 32) {
+        const int t = qids[st];
+        const float* c = a.centers + (size_t)t * d;
+        float dc2 = 0.f, cs = 0.f;
+        for (int j0 = 0; j0 < d; j0 += 8) {
+          float cv[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            cv[e] = j0 + e < d ? __ldg(c + j0 + e) : 0.f;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const int j = j0 + e;
+            if (j < d) {
+              const float tq = __fsub_rn(cv[e], qv_s[j]);
+              dc2 = j == 0 ? __fmul_rn(tq, tq)
+                           : __fadd_rn(dc2, __fmul_rn(tq, tq));
+              cs = j == 0 ? __fmul_rn(cv[e], cv[e])
+                          : __fadd_rn(cs, __fmul_rn(cv[e], cv[e]));
+            }
+          }
+        }
+        const float r = a.radii[t];
+        const float lo = clamp0(__fsub_rn(__fsqrt_rn(dc2), r));
+        const float mag = __fadd_rn(__fadd_rn(__fsqrt_rn(cs), r),
+                                    __fsqrt_rn(qn_s));
+        a.gate_margin[p0 + st] = __fmul_rn(a.abs_, __fmul_rn(mag, mag));
+        a.gate_lo2[p0 + st] = __fmul_rn(lo, lo);
+      }
+    return;
+  }
+  const float qn = qn_s;
+  // rows row[0], row[1]: their D², the LUT values added in ascending s on
+  // two interleaved chains, then qn - 2 (qr + qc) + u, clamped
+  constexpr int kL = 2;   // rows a lane a sub-tile
+  const auto score = [&](const int (&row)[kL], float (&out)[kL]) {
+    float qr[kL];
+    if (a.n_sub == 16 && n_codes == 256) {
+      // IVF_SIFT1M's: one 16-byte load a row, each sub-space's table at a
+      // constant offset
+      unsigned wd[kL][4];
+#pragma unroll
+      for (int r = 0; r < kL; ++r) {
+        const uint4 w =
+            __ldg(reinterpret_cast<const uint4*>(a.codes) + row[r]);
+        wd[r][0] = w.x, wd[r][1] = w.y, wd[r][2] = w.z, wd[r][3] = w.w;
+      }
+#pragma unroll
+      for (int s = 0; s < 16; ++s)
+#pragma unroll
+        for (int r = 0; r < kL; ++r) {
+          const float v =
+              lut_s[s * 256 + ((wd[r][s >> 2] >> (8 * (s & 3))) & 255)];
+          qr[r] = s == 0 ? v : __fadd_rn(qr[r], v);
+        }
+    } else {
+      for (int s = 0; s < a.n_sub; ++s)
+#pragma unroll
+        for (int r = 0; r < kL; ++r) {
+          const float v = lut_s[s * n_codes
+                                + __ldg(a.codes + (size_t)row[r] * a.n_sub
+                                        + s)];
+          qr[r] = s == 0 ? v : __fadd_rn(qr[r], v);
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < kL; ++r) {
+      const float qc = qd_s[__ldg(a.labels + row[r])];
+      out[r] = clamp0(__fadd_rn(
+          __fsub_rn(qn, __fmul_rn(2.f, __fadd_rn(qr[r], qc))),
+          __ldg(a.u + row[r])));
+    }
+  };
+  float lv[kR];
+  int li[kR];
+  for (int st = warp; st < nact; st += kAdcWarps) {
+    const int row0 = qids[st] * a.block_n;
+    const int nrows = min(a.block_n, a.n - row0);
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      lv[r] = CUDART_INF_F;
+      li[r] = kSentinel;
+    }
+    for (int sb = 0; sb < nrows; sb += 32 * kL) {
+      int row[kL];
+      float v[kL];
+      int id[kL];
+#pragma unroll
+      for (int i = 0; i < kL; ++i) {
+        const int r = sb + lane + 32 * i;
+        row[i] = row0 + (r < nrows ? r : 0);
+      }
+      score(row, v);
+#pragma unroll
+      for (int i = 0; i < kL; ++i) {
+        id[i] = row0 + sb + lane + 32 * i;
+        if (sb + lane + 32 * i >= nrows) {   // a pad, which sorts last
+          v[i] = CUDART_INF_F;
+          id[i] = kSentinel;
+        }
+      }
+      if (sb == 0) {
+        // the first 64 rows fill the empty list at once: sorted, they are
+        // its first 64 positions
+        sort64(v, id, lane);
+#pragma unroll
+        for (int r = 0; r < kR && r < 2; ++r) {
+          lv[r] = v[r];
+          li[r] = id[r];
+        }
+        continue;
+      }
+      // the rows offered, once any of them beats the k-th key
+      float tv;
+      int ti;
+      kth_key(lv, li, a.k, tv, ti);
+      bool any = false;
+#pragma unroll
+      for (int i = 0; i < kL; ++i)
+        any |= id[i] != kSentinel && lex_less(v[i], id[i], tv, ti);
+      if (__any_sync(kAll, any)) {
+        offer(lv, li, v[0], id[0], id[0] != kSentinel, a.k, lane);
+        offer(lv, li, v[1], id[1], id[1] != kSentinel, a.k, lane);
+      }
+    }
+    const size_t p = p0 + st;
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int pos = 32 * r + lane;
+      if (pos < a.k) {
+        a.cand_d[p * a.k + pos] = lv[r];
+        a.cand_r[p * a.k + pos] = li[r];
+      }
+    }
+  }
+}
+
+// one block per pair: the query's LUT (as (s, code)), routing dots and
+// vector staged, every row of the tile scored (thread r rows r, r + 256,
+// ...), then ranked by the key; positions past the tile's rows are (+inf,
+// INT32_MAX). For k past the register lists, or a chunk's staging past
+// shared memory.
+__global__ void __launch_bounds__(kThreads)
+adc_tile_sort_kernel(AdcTopkArgs a) {
+  extern __shared__ float smem[];
+  const int d = a.d, k = a.k, nl = a.n_sub * a.n_codes;
+  float* lut_s = smem;                               // (nl,)
+  float* qd_s = lut_s + nl;                          // (nlist,)
+  float* qv_s = qd_s + a.nlist;                      // (d,)
+  float* sv = qv_s + d;                              // (block_n,)
+  int* si = reinterpret_cast<int*>(sv + a.block_n);  // (block_n,)
+  __shared__ float qn_s;
+  const int p = blockIdx.x, tid = threadIdx.x;
+  const int qq = a.pair_query[p], t = a.pair_tile[p];
+  for (int i = tid; i < nl; i += kThreads)
+    lut_s[i] = a.lut[(size_t)qq * nl + i];
+  for (int i = tid; i < a.nlist; i += kThreads)
+    qd_s[i] = a.qdots[(size_t)qq * a.nlist + i];
+  for (int j = tid; j < d; j += kThreads)
+    qv_s[j] = a.queries[(size_t)qq * d + j];
+  __syncthreads();
+  if (tid == 0) {
+    qn_s = sq_sum(qv_s, d);
+    if (a.gate)
+      gate_terms(qv_s, qn_s, a.centers + (size_t)t * d, a.radii[t], d, a.abs_,
+                 a.gate_lo2 + p, a.gate_margin + p);
+  }
+  __syncthreads();
+  const int row0 = t * a.block_n;
+  const int nrows = min(a.block_n, a.n - row0);
+  for (int r = tid; r < nrows; r += kThreads) {
+    const int row = row0 + r;
+    const uint8_t* code = a.codes + (size_t)row * a.n_sub;
+    float qr = lut_s[code[0]];
+    for (int s = 1; s < a.n_sub; ++s)
+      qr = __fadd_rn(qr, lut_s[s * a.n_codes + code[s]]);
+    const float qc = qd_s[a.labels[row]];
+    sv[r] = clamp0(__fadd_rn(__fsub_rn(qn_s, __fmul_rn(2.f, __fadd_rn(qr, qc))),
+                             a.u[row]));
+    si[r] = row;
+  }
+  __syncthreads();
+  for (int r = tid; r < nrows; r += kThreads) {
+    int rank = 0;
+    for (int j = 0; j < nrows && rank < k; ++j)
+      rank += lex_less(sv[j], si[j], sv[r], si[r]);
+    if (rank < k) {
+      a.cand_d[(size_t)p * k + rank] = sv[r];
+      a.cand_r[(size_t)p * k + rank] = si[r];
+    }
+  }
+  for (int pos = nrows + tid; pos < k; pos += kThreads) {
+    a.cand_d[(size_t)p * k + pos] = CUDART_INF_F;
+    a.cand_r[(size_t)p * k + pos] = kSentinel;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K13 part (b): each query's walk over its steps' top-k lists
 // ---------------------------------------------------------------------------
 
@@ -612,22 +780,6 @@ struct ReplayArgs {
   int k, gate;
   float rel1;
 };
-
-// how many of the sorted (v, i)[0 .. k) lie below (x, xi); `or_equal`
-// counts equal keys too
-__device__ __forceinline__ int count_below(const float* v, const int* i,
-                                           int k, float x, int xi,
-                                           bool or_equal) {
-  int lo = 0, hi = k;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    const bool below = or_equal ? !lex_less(x, xi, v[mid], i[mid])
-                                : lex_less(v[mid], i[mid], x, xi);
-    if (below) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
-}
 
 // one warp (a block of 32) per query; shared memory: the carried and the
 // merged lists, k each; the step's list is read where part (a) wrote it
@@ -738,26 +890,51 @@ extern "C" int ivf_replay_launch(const float* cand_d, const int* cand_r,
   return (int)cudaGetLastError();
 }
 
-// Launches K14 on `stream`: one block per query. Returns cudaGetLastError().
-extern "C" int ivf_adc_scan_launch(const float* queries, const float* lut,
-                                   const float* qdots, const uint8_t* codes,
-                                   const int* labels, const float* u,
-                                   const float* centers, const float* radii,
-                                   const int* ids, const int* n_active,
-                                   float* dists, int* rows, int* skipped,
-                                   int n_queries, int n, int d, int n_tiles,
-                                   int block_n, int k, int gate, int n_sub,
-                                   int n_codes, int nlist, float rel1,
-                                   float abs_, void* stream) {
-  AdcArgs a{queries, lut,     qdots,   codes, labels,   u,       centers,
-            radii,   ids,     n_active, dists, rows,    skipped, n,
-            d,       n_tiles, block_n, k,     gate,     n_sub,   n_codes,
-            nlist,   rel1,    abs_};
-  if (n_queries == 0) return 0;
-  const size_t smem = adc_smem_bytes(a);
-  const int err = set_smem((const void*)ivf_adc_scan_kernel, smem);
+// Launches K14's part (a) on `stream`: adc_pair_topk_kernel, one block per
+// query, for k <= 128 when the LUT rows are whole 16-byte units and its
+// staging fits `smem_limit` bytes; else adc_tile_sort_kernel, one block per
+// pair (pair_query / pair_tile required). Returns cudaGetLastError().
+extern "C" int ivf_adc_tile_topk_launch(
+    const float* queries, const float* lut, const float* qdots,
+    const uint8_t* codes, const int* labels, const float* u,
+    const float* centers, const float* radii, const int* ids,
+    const int* n_active, const int* pair_start, const int* pair_query,
+    const int* pair_tile, float* cand_d, int* cand_r, float* gate_lo2,
+    float* gate_margin, int n_queries, int n_pairs, int n, int d,
+    int n_tiles, int block_n, int k, int gate, int n_sub, int n_codes,
+    int nlist, float abs_, int smem_limit, void* stream) {
+  if (n_pairs == 0) return 0;
+  AdcTopkArgs a{queries,   lut,        qdots,      codes,    labels,
+                u,         centers,    radii,      ids,      n_active,
+                pair_start, pair_query, pair_tile, cand_d,   cand_r,
+                gate_lo2,  gate_margin, n,         d,        n_tiles,
+                block_n,   k,          gate,       n_sub,    n_codes,
+                nlist,     abs_};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nl = n_sub * n_codes;
+  const size_t smem = sizeof(float) * ((size_t)(nl + 3) / 4 * 4
+                                       + (nlist + 3) / 4 * 4 + d);
+  const bool aligned = reinterpret_cast<uintptr_t>(lut) % 16 == 0
+                       && (n_sub != 16
+                           || reinterpret_cast<uintptr_t>(codes) % 16 == 0);
+  if (k <= kListMax && nl % 4 == 0 && aligned
+      && smem + 512 <= (size_t)smem_limit) {
+    const auto run = [&](auto kernel) -> int {
+      const int err = set_smem((const void*)kernel, smem);
+      if (err) return err;
+      kernel<<<n_queries, kAdcThreads, smem, st>>>(a);
+      return (int)cudaGetLastError();
+    };
+    return k <= 32   ? run(adc_pair_topk_kernel<1>)
+           : k <= 64 ? run(adc_pair_topk_kernel<2>)
+                     : run(adc_pair_topk_kernel<4>);
+  }
+  if (pair_query == nullptr || pair_tile == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem2 = sizeof(float) * ((size_t)nl + nlist + d
+                                        + 2 * (size_t)block_n);
+  const int err = set_smem((const void*)adc_tile_sort_kernel, smem2);
   if (err) return err;
-  ivf_adc_scan_kernel<<<n_queries, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(a);
+  adc_tile_sort_kernel<<<n_pairs, kThreads, smem2, st>>>(a);
   return (int)cudaGetLastError();
 }

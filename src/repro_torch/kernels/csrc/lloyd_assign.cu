@@ -55,14 +55,29 @@
 // clears the tile's threshold, prev_lb - sqrt(prev_md) >= thresh_t, takes its
 // label and D² from the carry and sets lb = prev_lb - absorb_t, with no
 // k-way loop; it still enters the tile's cluster sums under its label. Every
-// other row writes lb = sqrt(second best). The full grid is launched; a
-// block whose tile is inactive exits at once, and super_reduce_kernel skips
-// a super with no active tile. All outputs start as copies of the carries
-// (the wrapper makes them), so skipped tiles and supers keep their carried
-// values, which is what the TPU kernel's input_output_aliases did. K6 is the
-// same template as K3: an all-active launch in which nothing prunes is
-// bitwise K3. At d = 2 four rows share a pass over the centroids, so the
-// pass is skipped only when all four of a thread's rows prune.
+// other row writes lb = sqrt(second best). The kernels write every output:
+// a skipped tile copies its rows' carried labels, D² and lb and its carried
+// partial and gap, and super_reduce_kernel copies a skipped super's carried
+// sums and counts, which is what the TPU kernel's input_output_aliases did
+// (the outputs start empty; the pruned counts start at zero). An all-active
+// launch in which nothing prunes is bitwise K3. K6 takes one of two routes,
+// by width only:
+//   - d >= 8 within the screened widths (screen::screened): the screened
+//     route below, as K10b's with one problem, on a persistent grid (one
+//     warpgroup a CTA, the centroids staged once a CTA, items of rows
+//     walked in turn), and at d = 128 (the IVF build's width) rows of
+//     several 128-byte chunks staged by 16-byte cp.async copies;
+//   - otherwise (d < 8, the paper's d = 2, or rows past 512 bytes) the split
+//     row pass: row_kernel, the template's row arithmetic (the prune, then
+//     exact_d2 and fold for the rows it keeps, listed in shared memory and
+//     taken up to four a thread at d = 2) in blocks of 512 rows, which
+//     writes labels, D² and lb, then the screened route's pass B and super
+//     reduce for the partials, gaps and sums.
+// Both give the template's bits, which the template's own gated instance
+// (assign_tile_kernel, K6's route before; lloyd_assign_gated_template_launch,
+// called only by the card tests and the smoke script) checks bit for bit. At
+// d = 2 the template pass skips the centroid loop only when all four of a
+// thread's rows prune; its bits do not depend on that.
 //
 // K10a replaces lloyd_assign.py::lloyd_assign_tiled_batched_pallas (its
 // pallas_call at line 544): K3 over B independent problems in one launch;
@@ -76,22 +91,23 @@
 // offset to its problem), as K3, K6, K4 and K9 always do.
 //
 // At d >= 8 (the row padded to the tensor cores' depth, 8 fp32 or 16 bf16
-// values, at most 512 bytes: screen::screened) they take the screened
-// route, which writes the template's bits. What bounds the template at the
-// PQ codebook sweep (B = 1664, n = 16384, d = 16, k = 256; 6.98e9 row and
-// centroid pairs a round) is its fp32 fused multiply-adds, 2.4e11 flops,
-// 3.65 ms at 67 TFLOP/s; one block of 256 threads per SM held the 8 warps'
-// cluster-sum accumulators (175 KB) through its centroid loop. The screened
-// route is two passes and the super reduce:
+// values, at most 512 bytes: screen::screened) they and K6 take the
+// screened route, which writes the template's bits. What bounds the
+// template at the PQ codebook sweep (B = 1664, n = 16384, d = 16, k = 256;
+// 6.98e9 row and centroid pairs a round) is its fp32 fused multiply-adds,
+// 2.4e11 flops, 3.65 ms at 67 TFLOP/s; one block of 256 threads per SM
+// held the 8 warps' cluster-sum accumulators (175 KB) through its centroid
+// loop. The screened route is two passes and the super reduce:
 //
 //   Pass A (screen::screen_kernel): one warpgroup per CTA, four CTAs an SM,
-//   each CTA cta_rows rows of one tile. It stages the problem's centroids
-//   (256 at a time, zero-padded) and their norms cn, computed as the
-//   template does (+inf past k), in the 128-byte swizzle wgmma reads. K10b
-//   first applies the template's prune to every row (pruned rows write the
-//   carried label and D² and lb = prev_lb - absorb) and lists the rest in
-//   shared memory, so only those are screened. Rows go in batches of 64,
-//   loaded one batch ahead by cp.async. For each 128 centroids one wgmma
+//   each CTA cta_rows rows of one tile (K6: a persistent grid whose CTAs
+//   walk such items, staging the centroids once). It stages the problem's
+//   centroids (256 at a time, zero-padded) and their norms cn, computed as
+//   the template does (+inf past k), in the 128-byte swizzle wgmma reads.
+//   K10b and K6 first apply the template's prune to every row (pruned rows
+//   write the carried label and D² and lb = prev_lb - absorb) and list the
+//   rest in shared memory, so only those are screened. Rows go in batches
+//   of 64, loaded one batch ahead by cp.async. For each 128 centroids one wgmma
 //   chain forms acc = x . c on the tensor cores (m64n128k8 TF32 for fp32
 //   streams, which reads each operand's top 19 bits; m64n128k16 bf16 for
 //   bf16 streams, whose products are exact in fp32), and the epilogue forms
@@ -288,7 +304,8 @@ __device__ __forceinline__ void tile_partial_gap(float* red_sum,
 // order. Each column's sums are the same bits whatever `cols` is. `weights`
 // (Untiled only; may be null) are offset to the problem. kCols > 0 (the
 // screened route's pass B, cols <= kCols): a chunk's values of all its
-// columns are loaded before its sums, so they wait on memory together.
+// columns are loaded one chunk ahead, and its columns' group sums go in one
+// pass over each group's lanes.
 template <typename T, bool Untiled, int kCols = 0>
 __device__ __forceinline__ void tile_cluster_sums(
     const T* tile_x, const float* weights, long long tile0,
@@ -302,6 +319,18 @@ __device__ __forceinline__ void tile_cluster_sums(
     const int nc = min(cols, width - j0);
     for (int i = tid; i < kWarps * k * cols; i += kThreads) acc_sh[i] = 0.f;
     __syncthreads();
+    // kCols > 0: a chunk's values are loaded one chunk ahead
+    float nx[kCols > 0 ? kCols : 1];
+    const auto load_vals = [&](int chunk) {
+      const int r = chunk + lane;
+#pragma unroll
+      for (int jj = 0; jj < (kCols > 0 ? kCols : 1); ++jj)
+        nx[jj] = jj < nc && r < rows
+                     ? (j0 + jj < d ? widen(tile_x[(size_t)r * d + j0 + jj])
+                                    : 1.f)
+                     : 0.f;
+    };
+    if constexpr (kCols > 0) load_vals(warp * 32);
     for (int chunk = warp * 32; chunk < rows; chunk += kThreads) {
       const int r = chunk + lane;
       const int lab = r < rows ? lab_sh[r] : -1;
@@ -331,12 +360,30 @@ __device__ __forceinline__ void tile_cluster_sums(
         if (lead) acc[(size_t)lab * cols + jj] += s;
       };
       if constexpr (kCols > 0) {
-        float xv[kCols];
+        // the columns' group sums in one pass over the group's lanes: each
+        // column's adds are add()'s, in the same order
+        float xv[kCols], sv[kCols];
 #pragma unroll
-        for (int jj = 0; jj < kCols; ++jj) xv[jj] = jj < nc ? value(jj) : 0.f;
+        for (int jj = 0; jj < kCols; ++jj) {
+          xv[jj] = Untiled ? nx[jj] * wr : nx[jj];
+          sv[jj] = 0.f;
+        }
+        if (chunk + kThreads < rows) load_vals(chunk + kThreads);
+        unsigned rest = peers;
+        for (int t = 0; t < rounds; ++t) {   // the group's lanes, ascending
+          const int src = rest ? __ffs(rest) - 1 : lane;
 #pragma unroll
-        for (int jj = 0; jj < kCols; ++jj)
-          if (jj < nc) add(jj, xv[jj]);
+          for (int jj = 0; jj < kCols; ++jj)
+            if (jj < nc) {
+              const float got = __shfl_sync(kFull, xv[jj], src);
+              if (rest) sv[jj] += got;
+            }
+          if (rest) rest &= rest - 1;
+        }
+        if (lead)
+#pragma unroll
+          for (int jj = 0; jj < kCols; ++jj)
+            if (jj < nc) acc[(size_t)lab * cols + jj] += sv[jj];
       } else {
         for (int jj = 0; jj < nc; ++jj) add(jj, value(jj));
       }
@@ -366,7 +413,28 @@ struct Gate {
   const unsigned char* active; // (n_tiles,) the super-aligned active mask
   float* lb;                   // (n,) lower bounds out
   int* pruned;                 // (n_tiles,) pruned rows per tile
+  // The carried tile and super outputs. The kernels write every output, a
+  // skipped tile copying its rows' labels, D² and lb and its partial and
+  // gap from the carries, a skipped super its sums and counts (the TPU
+  // kernel's input_output_aliases).
+  const float* prev_partials;  // (n_tiles,)
+  const float* prev_gaps;      // (n_tiles,)
+  const float* prev_ssums;     // (n_super, k, d)
+  const float* prev_scounts;   // (n_super, k)
 };
+
+// A skipped tile's carried rows [r0, r1) into labels, md and lb (the gated
+// rounds' outputs start empty), `threads` threads from thread `tid`.
+__device__ __forceinline__ void copy_row_carries(const Gate& g, int* labels,
+                                                 float* md, float* lb,
+                                                 long long r0, long long r1,
+                                                 int tid, int threads) {
+  for (long long row = r0 + tid; row < r1; row += threads) {
+    labels[row] = g.prev_a[row];
+    md[row] = g.prev_md[row];
+    lb[row] = g.prev_lb[row];
+  }
+}
 
 // D > 0: the dimension is D, known at compile time, and R = 4 rows share
 // each pass over the centroids. D == 0: the dimension is the runtime d.
@@ -410,7 +478,18 @@ assign_tile_kernel(const T* __restrict__ points,
     g.active += (size_t)b * n_tiles;
     g.lb += (size_t)b * n;
     g.pruned += (size_t)b * n_tiles;
-    if (!g.active[t]) return;  // skipped: carries stay
+    if (!g.active[t]) {  // skipped: the carries are copied
+      const long long r0 = (long long)t * block_n;
+      copy_row_carries(g, labels, md, g.lb, r0,
+                       min(r0 + block_n, (long long)n), threadIdx.x,
+                       kThreads);
+      if (threadIdx.x == 0) {
+        partials[t] = g.prev_partials[(size_t)b * n_tiles + t];
+        gaps[t] = g.prev_gaps[(size_t)b * n_tiles + t];
+        g.pruned[t] = 0;
+      }
+      return;
+    }
   }
   constexpr int R = D > 0 ? 4 : 1;
   constexpr int DR = D > 0 ? D : 1;
@@ -530,13 +609,18 @@ assign_tile_kernel(const T* __restrict__ points,
                                 rows, d, k, cols);
 }
 
-// `active` (K6, K10b) skips a super none of whose tiles computed in its
-// problem: its carried sums and counts stay. Block i reduces super
-// i % n_super of problem i / n_super.
+// `active` (K6, K10b; null for the ungated rounds) skips a super none of
+// whose tiles computed in its problem: its sums and counts are copied from
+// prev_ssums / prev_scounts. Block (i, y)
+// reduces super i % n_super of problem i / n_super, its outputs
+// y, y + gridDim.y, ... in units of kThreads (each output's tiles added in
+// ascending order, whatever the split).
 __global__ void __launch_bounds__(kThreads)
 super_reduce_kernel(const float* __restrict__ tile_acc, float* __restrict__ ssums,
                     float* __restrict__ scounts,
-                    const unsigned char* __restrict__ active, int n_tiles,
+                    const unsigned char* __restrict__ active,
+                    const float* __restrict__ prev_ssums,
+                    const float* __restrict__ prev_scounts, int n_tiles,
                     int d, int k, int tps) {
   const int width = d + 1;
   const int n_super = (n_tiles + tps - 1) / tps;
@@ -546,13 +630,22 @@ super_reduce_kernel(const float* __restrict__ tile_acc, float* __restrict__ ssum
   ssums += (size_t)b * n_super * k * d;
   scounts += (size_t)b * n_super * k;
   const int t_end = min((s + 1) * tps, n_tiles);
+  const int first = blockIdx.y * kThreads + threadIdx.x;
+  const int step = gridDim.y * kThreads;
   if (active != nullptr) {
     active += (size_t)b * n_tiles;
     bool any = false;
     for (int t = s * tps; t < t_end; ++t) any |= active[t] != 0;
-    if (!any) return;
+    if (!any) {
+      const size_t o = ((size_t)b * n_super + s) * k;
+      for (int i = first; i < k * d; i += step)
+        ssums[(size_t)s * k * d + i] = prev_ssums[o * d + i];
+      for (int c = first; c < k; c += step)
+        scounts[(size_t)s * k + c] = prev_scounts[o + c];
+      return;
+    }
   }
-  for (int o = threadIdx.x; o < k * width; o += kThreads) {
+  for (int o = first; o < k * width; o += step) {
     float acc = 0.f;
     for (int t = s * tps; t < t_end; ++t)
       acc += tile_acc[(size_t)t * k * width + o];
@@ -562,6 +655,21 @@ super_reduce_kernel(const float* __restrict__ tile_acc, float* __restrict__ ssum
     else
       ssums[((size_t)s * k + c) * d + j] = acc;
   }
+}
+
+// super_reduce_kernel over batch problems of n_super supers, the outputs of a
+// super split over blocks so that each thread takes at least four
+int launch_super_reduce(const float* tile_acc, float* ssums, float* scounts,
+                        const unsigned char* active, const float* prev_ssums,
+                        const float* prev_scounts, int batch, int n_tiles,
+                        int d, int k, int tps, cudaStream_t s) {
+  const int n_super = (n_tiles + tps - 1) / tps;
+  const int per = 4 * kThreads;
+  const int splits = min((k * (d + 1) + per - 1) / per, 64);
+  super_reduce_kernel<<<dim3((unsigned)batch * n_super, splits), kThreads, 0,
+                        s>>>(tile_acc, ssums, scounts, active, prev_ssums,
+                             prev_scounts, n_tiles, d, k, tps);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -592,7 +700,7 @@ __host__ __device__ inline int padded_d(int d, bool bf16) {
   return (d + q - 1) / q * q;
 }
 
-// whether K10a and K10b take the screened route at width d
+// whether K6, K10a and K10b take the screened route at width d
 __host__ __device__ inline bool screened(int d, bool bf16) {
   return d >= 8 && padded_d(d, bf16) * (bf16 ? 2 : 4) <= kMaxChunks * 128;
 }
@@ -740,7 +848,8 @@ __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;" ::: "memory");
 }
 
-// the D (> 0) values of row r of a staged tile, read as 16-byte units
+// the D (> 0) values of row r of a staged tile of one 128-byte chunk (D
+// values of at most 64 bytes), read as 16-byte units
 template <int D, typename B>
 __device__ __forceinline__ void load_row(const unsigned char* tile, int r,
                                          float (&out)[D]) {
@@ -755,47 +864,98 @@ __device__ __forceinline__ void load_row(const unsigned char* tile, int r,
   }
 }
 
-// Pass A: one CTA (one warpgroup) takes cta_rows rows of one tile of one
-// problem. K10b (Gated) first writes the pruned rows from their carries and
-// lists the others; then the rows (K10a: all; K10b: the listed ones) go in
-// batches of 64 through the screen and the recheck, which write labels, md
-// and lbo = sqrt(second) (K10b: g.lb). D > 0: d == D and 16-byte aligned
-// rows, staged by cp.async one batch ahead; D == 0: any d, staged in place.
-// stats (4): rows screened, their candidates, the most candidates of one
-// row, rows on the full scan.
-// Registers for four CTAs an SM (three for K10b, whose row list takes
-// shared memory)
+// byte offset of 16-byte unit u of row r in a staged tile of
+// rows_per_chunk rows a 128-byte column chunk (unit u lies in chunk u / 8)
+__device__ __forceinline__ int unit_off(int rows_per_chunk, int r, int u) {
+  return (u >> 3) * rows_per_chunk * 128 + swz(r, 16 * (u & 7));
+}
+
+// Wide rows (D values over 64 bytes: d = 128), which registers cannot hold
+// next to the accumulators: the row's sum of squares, and exact_d2's
+// arithmetic (ascending fused multiply-adds, then the three adds) against
+// centroid c, read unit by unit from the staged row tile and from the
+// staged centroid chunk (cc null) or the problem's centroids in device
+// memory.
+template <int D, typename B>
+__device__ __forceinline__ float wide_sumsq(const unsigned char* xt, int r) {
+  constexpr int kPer = 16 / sizeof(B);
+  float xx = 0.f;
+#pragma unroll 4
+  for (int u = 0; u < D / kPer; ++u) {
+    const uint4 w =
+        *reinterpret_cast<const uint4*>(xt + unit_off(kRows, r, u));
+    const B* v = reinterpret_cast<const B*>(&w);
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const float f = widen_bits(v[e]);
+      xx = fmaf(f, f, xx);
+    }
+  }
+  return xx;
+}
+
+template <int D, typename B>
+__device__ __forceinline__ float wide_d2(const unsigned char* xt, int r,
+                                         const unsigned char* c_s,
+                                         const B* cc, int c, float xn,
+                                         float cn) {
+  constexpr int kPer = 16 / sizeof(B);
+  float dt = 0.f;
+#pragma unroll 4
+  for (int u = 0; u < D / kPer; ++u) {
+    const uint4 wx =
+        *reinterpret_cast<const uint4*>(xt + unit_off(kRows, r, u));
+    const B* vx = reinterpret_cast<const B*>(&wx);
+    if (cc == nullptr) {
+      const uint4 wc =
+          *reinterpret_cast<const uint4*>(c_s + unit_off(kN, c, u));
+      const B* vc = reinterpret_cast<const B*>(&wc);
+#pragma unroll
+      for (int e = 0; e < kPer; ++e)
+        dt = fmaf(widen_bits(vx[e]), widen_bits(vc[e]), dt);
+    } else {
+      const B* cr = cc + (size_t)c * D + u * kPer;
+#pragma unroll
+      for (int e = 0; e < kPer; ++e)
+        dt = fmaf(widen_bits(vx[e]), widen_bits(cr[e]), dt);
+    }
+  }
+  return nan_max(__fadd_rn(__fsub_rn(xn, __fadd_rn(dt, dt)), cn), 0.f);
+}
+
+// Pass A. Items of cta_rows rows of one tile of one problem go to CTAs (one
+// warpgroup each): item blockIdx.x for K10a and K10b (one item a CTA);
+// items blockIdx.x, blockIdx.x + gridDim.x, ... for one problem of the
+// gated round (K6), a persistent grid of the CTAs that fit the card, which
+// stages the centroids once and walks many items. The gated rounds (K10b,
+// K6) first write an item's pruned rows from their carries and list the
+// others; then the rows (K10a: all; the gated rounds: the listed ones) go
+// in batches of 64 through the screen and the recheck, which write labels,
+// md and lbo = sqrt(second) (gated: g.lb). A skipped tile's rows are copied
+// from the carries. D > 0: d == D and 16-byte aligned rows, staged by
+// cp.async one batch ahead (D = 128: rows of several 128-byte chunks, read
+// unit by unit); D == 0: any d, staged in place. stats (4): rows screened,
+// their candidates, the most candidates of one row, rows on the full scan.
+// Registers for four CTAs an SM (three for the gated rounds, whose row list
+// takes shared memory; one for wide rows, whose centroid tile takes up to
+// 128 KB)
 template <typename T, int D, bool Gated>
-__global__ void __launch_bounds__(kThreadsA, Gated ? 3 : 4)
+__global__ void __launch_bounds__(kThreadsA,
+                                  D * (int)sizeof(T) > 64 ? 1
+                                                          : (Gated ? 3 : 4))
 screen_kernel(const T* __restrict__ points, const float* __restrict__ norms,
               const T* __restrict__ cents, int* __restrict__ labels,
               float* __restrict__ md, float* __restrict__ lbo, Gate g,
-              unsigned long long* __restrict__ stats, int n, int d, int k,
-              int block_n, int cta_rows) {
+              unsigned long long* __restrict__ stats, int batch, int n,
+              int d, int k, int block_n, int cta_rows) {
   constexpr bool kBf16 = !std::is_same<T, float>::value;
   constexpr int kEs = sizeof(T);
+  constexpr bool kWide = D * kEs > 64;
   using B = Bits<T>;
   const int n_tiles = (n + block_n - 1) / block_n;
   const int spt = (block_n + cta_rows - 1) / cta_rows;
-  const int b = blockIdx.x / (n_tiles * spt);
-  const int rem = blockIdx.x - b * n_tiles * spt;
-  const int t = rem / spt;
-  const int sub = rem - t * spt;
-  const B* xb = reinterpret_cast<const B*>(points) + (size_t)b * n * d;
-  const B* cb = reinterpret_cast<const B*>(cents) + (size_t)b * k * d;
-  norms += (size_t)b * n;
-  labels += (size_t)b * n;
-  md += (size_t)b * n;
-  if (Gated) {
-    lbo = g.lb;
-    if (!g.active[(size_t)b * n_tiles + t]) return;  // skipped: carries stay
-  }
-  lbo += (size_t)b * n;
-  const long long r0 = (long long)t * block_n + (long long)sub * cta_rows;
-  const long long r1 = min(min(r0 + cta_rows, (long long)(t + 1) * block_n),
-                           (long long)n);
-  if (r0 >= r1) return;
-  const int nrows = (int)(r1 - r0);
+  const long long n_items = (long long)batch * n_tiles * spt;
+  if (Gated) lbo = g.lb;
 
   const int dpad = padded_d(d, kBf16);
   const int steps = dpad * kEs / 32;          // 32-byte wgmma depth steps
@@ -830,6 +990,14 @@ screen_kernel(const T* __restrict__ points, const float* __restrict__ norms,
   // the row tile of buffer `buf`
   const auto x_tile = [&](int buf) { return base + L.x_off + buf * xbuf_bytes; };
 
+  // the current item's problem: its rows, norms, centroids and outputs
+  const B* xb = nullptr;
+  const B* cb = nullptr;
+  const float* nrm = nullptr;
+  int* lab_o = nullptr;
+  float* md_o = nullptr;
+  float* lb_o = nullptr;
+
   // element (r, j) of a staged tile of rows_per_chunk rows a chunk
   const auto at = [&](unsigned char* tile, int rows_per_chunk, int r,
                       int j) {
@@ -845,395 +1013,448 @@ screen_kernel(const T* __restrict__ points, const float* __restrict__ norms,
     fence_async_smem();
   };
 
-  // cn exactly as the template stages it, +inf past k; the largest, NaN
-  // and inf kept
-  float cmax = 0.f;
-  for (int c = tid; c < n_chunks * kN; c += kThreadsA) {
-    float s = CUDART_INF_F;
-    if (c < k) {
-      s = 0.f;
-      for (int j = 0; j < d; ++j) {
-        const float v = widen_bits(cb[(size_t)c * d + j]);
-        s = fmaf(v, v, s);
-      }
-      cmax = nan_max(cmax, s);
-    }
-    cn_s[c] = s;
-  }
-  for (int o = 16; o > 0; o >>= 1)
-    cmax = nan_max(cmax, __shfl_xor_sync(kFull, cmax, o));
-  if (tid == 0) {
+  if (tid == 0)
     for (int i = 0; i < 4; ++i) st_s[i] = 0ull;
-    *list_n_s = 0;
-    *pruned_s = 0;
-  }
-  if (lane == 0) mb_s[warp] = cmax;
-  if (resident) stage_c(0);
-  __syncthreads();
-  if (tid == 0) {
-    float m = 0.f;
-    for (int w = 0; w < kThreadsA / 32; ++w) m = nan_max(m, mb_s[w]);
-    *cnmax_s = m;
-  }
-
-  // K10b: the prune (bounds.assign_point_prune) and the list of the rest
-  int total = nrows;
-  if (Gated) {
-    const size_t bt = (size_t)b * n_tiles + t;
-    const float thresh_t = g.thresh[bt], absorb_t = g.absorb[bt];
-    const int* prev_a = g.prev_a + (size_t)b * n;
-    const float* prev_md = g.prev_md + (size_t)b * n;
-    const float* prev_lb = g.prev_lb + (size_t)b * n;
-    const float* delta = g.delta + (size_t)b * k;
-    int local_pruned = 0;
-    for (int i0 = 0; i0 < nrows; i0 += kThreadsA) {
-      const int i = i0 + tid;
-      bool keep = false;
-      if (i < nrows) {
-        const long long row = r0 + i;
-        const int pa = prev_a[row];
-        const float pmd = prev_md[row];
-        const float plb = prev_lb[row];
-        const bool prune = delta[pa] == 0.f &&
-                           __fsub_rn(plb, sqrtf(pmd)) >= thresh_t;
-        if (prune) {
-          labels[row] = pa;
-          md[row] = pmd;
-          lbo[row] = __fsub_rn(plb, absorb_t);
-          ++local_pruned;
-        }
-        keep = !prune;
-      }
-      const unsigned ballot = __ballot_sync(kFull, keep);
-      int at0 = 0;
-      if (lane == 0 && ballot) at0 = atomicAdd(list_n_s, __popc(ballot));
-      at0 = __shfl_sync(kFull, at0, 0);
-      if (keep)
-        list_s[at0 + __popc(ballot & ((1u << lane) - 1u))] = (Cand)i;
-    }
-    if (local_pruned) atomicAdd(pruned_s, local_pruned);
-    __syncthreads();
-    total = *list_n_s;
-    if (tid == 0 && *pruned_s) atomicAdd(&g.pruned[bt], *pruned_s);
-  }
-  __syncthreads();
-  const float cnmax = *cnmax_s;
   const float du = (float)d * 0x1p-24f;
   const float rel =
       2.f * ((kBf16 ? 0.f : 0x1p-9f + 0x1p-20f)
              + (float)(d + 1) * 0x1p-20f * (1.f + 0x1p-8f))
       + 2.f * (du / (1.f - du));
-  const auto row_of = [&](int i) -> long long {   // i-th row of the CTA's
-    return r0 + (Gated ? list_s[i] : i);
-  };
-
-  // D > 0: batch `first`'s rows into buffer `buf` by cp.async (zeros past
-  // d and past the rows), one group per call
-  constexpr int kPer = 16 / kEs;                         // values a unit
-  constexpr int kUnits = D > 0 ? (D + kPer - 1) / kPer : 1;
-  constexpr int kUnitsPad = D > 0 ? (D * kEs + 31) / 32 * 2 : 1;
-  const auto load_rows = [&](int first, int buf) {
-    if (D > 0 && first < total) {
-      const int cnt = min(kRows, total - first);
-      unsigned char* tile = x_tile(buf);
-      for (int i = tid; i < kRows * kUnitsPad; i += kThreadsA) {
-        const int r = i / kUnitsPad, u = i - r * kUnitsPad;
-        const bool live = r < cnt && u < kUnits;
-        const B* src = live ? xb + (size_t)row_of(first + r) * D + u * kPer
-                            : xb;
-        cp_async16(static_cast<uint32_t>(__cvta_generic_to_shared(
-                       tile + swz(r, 16 * u))),
-                   src, live ? 16 : 0);
-      }
-      if (tid < kRows)   // and their norms
-        cp_async4(static_cast<uint32_t>(__cvta_generic_to_shared(
-                      xnb_s + buf * kRows + tid)),
-                  tid < cnt ? norms + row_of(first + tid) : norms,
-                  tid < cnt ? 4 : 0);
-    }
-    cp_async_commit();
-  };
-
-  const int q = lane & 3;
-  const int row0 = warp * 16 + (lane >> 2);   // and row0 + 8
-  // the wgmmas a staged chunk takes: 128 centroids each
-  const auto halves = [&](int nc) { return k - nc * kN > kNH ? 2 : 1; };
+  int cur_b = -1;
   unsigned long long n_rows = 0, n_cand = 0, max_cand = 0, n_full = 0;
   float acc[64];
-  // acc = row tile x centroids hh*128 .. +127 of the staged chunk: started,
-  // then awaited
-  const auto mma_start = [&](uint32_t xoff, int hh) {
-    wg_fence();
-    for (int st = 0; st < steps; ++st) {
-      const uint32_t off = (st & 3) * 32;
-      const uint64_t da =
-          sw128_desc(sbase + xoff + (st >> 2) * kXChunk + off);
-      const uint64_t db = sw128_desc(sbase + L.c_off + (st >> 2) * kCChunk
-                                     + hh * kNH * 128 + off);
-      wgmma_step<kBf16>(acc, da, db, st > 0);
-    }
-    wg_commit();
-  };
-  const auto mma_wait = [&]() {
-    wg_wait0();
-    fence_regs(acc);
-  };
-  // acc becomes A' = cn - 2 acc (one rounding), column by column
-  const auto shift = [&](int nc, int hh) {
-    const float* cnc = cn_s + nc * kN + hh * kNH;
-#pragma unroll
-    for (int g4 = 0; g4 < 16; ++g4) {
-      const float2 cv =
-          *reinterpret_cast<const float2*>(cnc + 8 * g4 + 2 * q);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[4 * g4 + e] = fmaf(-2.f, acc[4 * g4 + e], (e & 1) ? cv.y : cv.x);
-    }
-  };
-  // the candidates A' <= T' of the wgmma's 128 centroids: per row half a
-  // 32-bit mask (bit 2 g4 + p: column 8 g4 + 2 q + p) from the sign bits of
-  // T' - A' (negative exactly when A' > T'), the quad's lanes writing in
-  // lane order after the counts before them; base[h] counts the row's
-  // earlier candidates (the same in the quad's four lanes)
-  const auto collect = [&](int c0, const float (&T2)[2], int (&base)[2]) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      unsigned out[2] = {0u, 0u};   // bits of the rejected, two halves
-#pragma unroll
-      for (int e = 15; e >= 0; --e)
-#pragma unroll
-        for (int w = 0; w < 2; ++w) {
-          const int g4 = (16 * w + e) >> 1, p = e & 1;
-          out[w] = (out[w] << 1)
-                   | (__float_as_uint(__fsub_rn(T2[h], acc[4 * g4 + 2 * h + p]))
-                      >> 31);
-        }
-      unsigned m = ~((out[1] << 16) | out[0]);
-      const int mine = __popc(m);
-      int before = 0, total = 0;
-#pragma unroll
-      for (int l = 0; l < 4; ++l) {
-        const int c = __shfl_sync(kFull, mine, (lane & ~3) | l);
-        before += l < q ? c : 0;
-        total += c;
-      }
-      const int r = row0 + 8 * h;
-      int at0 = base[h] + before;
-      while (m) {
-        const int bit = __ffs(m) - 1;
-        m &= m - 1;
-        if (at0 < kMaxCand)
-          cand_s[r * kCandStride + at0] =
-              (Cand)(c0 + 8 * (bit >> 1) + 2 * q + (bit & 1));
-        ++at0;
-      }
-      base[h] += total;
-      if (q == 0) cnt_s[r] = base[h];
-    }
-  };
 
-  load_rows(0, 0);
-  for (int first = 0, it = 0; first < total; first += kRows, ++it) {
-    const int count = min(kRows, total - first);
-    const int buf = D > 0 ? it & 1 : 0;
-    unsigned char* xt = x_tile(buf);
-    float xn = 0.f;
-    if constexpr (D > 0) {
-      load_rows(first + kRows, buf ^ 1);   // the next batch, in flight
-      cp_async_wait1();
-    } else {
-      // the row tile in place, zeros past d and past count
-      for (int i = tid; i < kRows * dpad; i += kThreadsA) {
-        const int r = i / dpad, j = i - r * dpad;
-        const B v = (r < count && j < d) ? xb[(size_t)row_of(first + r) * d + j]
-                                         : B(0);
-        *reinterpret_cast<B*>(at(xt, kRows, r, j)) = v;
-      }
-      if (tid < count) xn = norms[row_of(first + tid)];
+  // one item: its rows' outputs (K10a's grid has one item a CTA; the gated
+  // rounds' CTAs loop over theirs)
+  const auto run_item = [&](long long item) {
+    const int b = (int)(item / ((long long)n_tiles * spt));
+    const int rem = (int)(item - (long long)b * n_tiles * spt);
+    const int t = rem / spt;
+    const int sub = rem - t * spt;
+    const long long r0 = (long long)t * block_n + (long long)sub * cta_rows;
+    const long long r1 = min(min(r0 + cta_rows, (long long)(t + 1) * block_n),
+                             (long long)n);
+    if (r0 >= r1) return;
+    const size_t nb = (size_t)b * n;
+    if (Gated && !g.active[(size_t)b * n_tiles + t]) {
+      // skipped: the carries are copied
+      copy_row_carries(g, labels, md, lbo, (long long)nb + r0,
+                       (long long)nb + r1, tid, kThreadsA);
+      return;
     }
-    fence_async_smem();
-    __syncthreads();
-    const uint32_t xoff = L.x_off + buf * xbuf_bytes;
-    if (resident) mma_start(xoff, 0);   // runs while the margins are computed
-    if (tid < kRows) {
-      float eps = -1.f;   // eps < 0: no screen (past count, or the full scan)
-      if (tid < count) {
-        float xx = 0.f;
-        if constexpr (D > 0) {
-          xn = xnb_s[buf * kRows + tid];
-          float xr[D];
-          load_row<D, B>(xt, tid, xr);
-#pragma unroll
-          for (int j = 0; j < D; ++j) xx = fmaf(xr[j], xr[j], xx);
-        } else {
+    const int nrows = (int)(r1 - r0);
+    xb = reinterpret_cast<const B*>(points) + nb * d;
+    nrm = norms + nb;
+    lab_o = labels + nb;
+    md_o = md + nb;
+    lb_o = lbo + nb;
+
+    if (b != cur_b) {
+      // the problem's centroids: cn exactly as the template stages it, +inf
+      // past k, and the largest (NaN and inf kept); staged once where one
+      // chunk holds them
+      __syncthreads();   // the previous problem's reads are done
+      cb = reinterpret_cast<const B*>(cents) + (size_t)b * k * d;
+      float cmax = 0.f;
+      for (int c = tid; c < n_chunks * kN; c += kThreadsA) {
+        float s = CUDART_INF_F;
+        if (c < k) {
+          s = 0.f;
           for (int j = 0; j < d; ++j) {
-            const float v =
-                widen_bits(*reinterpret_cast<const B*>(at(xt, kRows, tid, j)));
-            xx = fmaf(v, v, xx);
+            const float v = widen_bits(cb[(size_t)c * d + j]);
+            s = fmaf(v, v, s);
           }
+          cmax = nan_max(cmax, s);
         }
-        eps = screen_eps(xx, xn, cnmax, rel, d);
+        cn_s[c] = s;
       }
-      xn_s[tid] = xn;
-      eps_s[tid] = eps;
+      for (int o = 16; o > 0; o >>= 1)
+        cmax = nan_max(cmax, __shfl_xor_sync(kFull, cmax, o));
+      if (lane == 0) mb_s[warp] = cmax;
+      if (resident) stage_c(0);
+      __syncthreads();
+      if (tid == 0) {
+        float m = 0.f;
+        for (int w = 0; w < kThreadsA / 32; ++w) m = nan_max(m, mb_s[w]);
+        *cnmax_s = m;
+      }
+      cur_b = b;
     }
-
-    __syncthreads();   // xn_s, eps_s
-    float xn_r[2], eps_r[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      xn_r[h] = xn_s[row0 + 8 * h];
-      eps_r[h] = eps_s[row0 + 8 * h];
-    }
-    // one pass over the centroids, 128 a wgmma: each row's smallest and
-    // second smallest group minimum so far (a1, a2; a group is 8 values of
-    // the row in one thread: 4 per thread and wgmma, 16 in the quad that
-    // shares the row, merged into the running pair), the threshold
-    // T' = max(a2, -xn) + 2 eps from them, and the wgmma's candidates
-    // A' <= T'. a2 is the second smallest of some of the row's A', so it is
-    // never below A'(2), and the exactness argument needs only that; T' is
-    // kept finite so that padded centroids (cn = +inf) are never candidates
-    // (a row without a screen takes none)
-    float a1[2] = {CUDART_INF_F, CUDART_INF_F};
-    float a2[2] = {CUDART_INF_F, CUDART_INF_F};
-    int base[2] = {0, 0};
-    for (int nc = 0; nc < n_chunks; ++nc) {
-      if (!resident) {
-        __syncthreads();
-        stage_c(nc);
-        __syncthreads();
-      }
-      for (int hh = 0; hh < halves(nc); ++hh) {
-        if (!resident || hh > 0) mma_start(xoff, hh);
-        mma_wait();
-        shift(nc, hh);
-        float gm[2][4];   // [row half][group of 8]
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int G = 0; G < 4; ++G) gm[h][G] = CUDART_INF_F;
-#pragma unroll
-        for (int i = 0; i < 64; ++i)
-          gm[(i >> 1) & 1][i >> 4] = fminf(gm[(i >> 1) & 1][i >> 4], acc[i]);
-        float T2[2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float lo0 = fminf(gm[h][0], gm[h][1]);
-          const float lo1 = fminf(gm[h][2], gm[h][3]);
-          float b1 = fminf(lo0, lo1);
-          float b2 = fminf(fmaxf(lo0, lo1),
-                           fminf(fmaxf(gm[h][0], gm[h][1]),
-                                 fmaxf(gm[h][2], gm[h][3])));
-#pragma unroll
-          for (int o = 1; o <= 2; o <<= 1) {
-            const float c1 = __shfl_xor_sync(kFull, b1, o);
-            const float c2 = __shfl_xor_sync(kFull, b2, o);
-            b2 = fminf(fmaxf(b1, c1), fminf(b2, c2));
-            b1 = fminf(b1, c1);
-          }
-          a2[h] = fminf(fmaxf(a1[h], b1), fminf(a2[h], b2));
-          a1[h] = fminf(a1[h], b1);
-          T2[h] = eps_r[h] < 0.f
-                      ? -CUDART_INF_F
-                      : fminf(fmaxf(a2[h], -xn_r[h]) + 2.f * eps_r[h],
-                              FLT_MAX);
-        }
-        collect(nc * kN + hh * kNH, T2, base);
-      }
+    if (tid == 0) {
+      *list_n_s = 0;
+      *pruned_s = 0;
     }
     __syncthreads();
 
-    // the recheck: each candidate's D² by the template's arithmetic, merged
-    // on (value, index); a row without a screen takes every centroid. The
-    // two threads of a row (tid, tid + 64) take alternate ones, then merge.
-    const int r = tid & (kRows - 1), half = tid / kRows;
-    float best = CUDART_INF_F, second = CUDART_INF_F;
-    int a = 0;
-    const bool full = r < count && (eps_s[r] < 0.f || cnt_s[r] > kMaxCand);
-    if (r < count) {
-      const float xnr = xn_s[r];
-      const auto take = [&](int c, float v) {
-        if (v < best || (v == best && c < a)) {
-          second = best;
-          best = v;
-          a = c;
-        } else if (v < second) {
-          second = v;
-        }
-      };
-      const auto d2_of = [&](int c, auto&& xr) {
-        if constexpr (D > 0) {
-          if (resident) {
-            float cr[D];
-            load_row<D, B>(c_s, c, cr);
-            return exact_d2<D>([&](int j) { return xr[j]; },
-                               [&](int j) { return cr[j]; }, d, xnr, cn_s[c]);
+    // the gated rounds: the prune (bounds.assign_point_prune) and the list
+    // of the rest
+    int total = nrows;
+    if (Gated) {
+      const size_t bt = (size_t)b * n_tiles + t;
+      const float thresh_t = g.thresh[bt], absorb_t = g.absorb[bt];
+      const int* prev_a = g.prev_a + nb;
+      const float* prev_md = g.prev_md + nb;
+      const float* prev_lb = g.prev_lb + nb;
+      const float* delta = g.delta + (size_t)b * k;
+      int local_pruned = 0;
+      for (int i0 = 0; i0 < nrows; i0 += kThreadsA) {
+        const int i = i0 + tid;
+        bool keep = false;
+        if (i < nrows) {
+          const long long row = r0 + i;
+          const int pa = prev_a[row];
+          const float pmd = prev_md[row];
+          const float plb = prev_lb[row];
+          const bool prune = delta[pa] == 0.f &&
+                             __fsub_rn(plb, sqrtf(pmd)) >= thresh_t;
+          if (prune) {
+            lab_o[row] = pa;
+            md_o[row] = pmd;
+            lb_o[row] = __fsub_rn(plb, absorb_t);
+            ++local_pruned;
           }
-          const B* cc = cb + (size_t)c * d;
-          return exact_d2<D>([&](int j) { return xr[j]; },
-                             [&](int j) { return widen_bits(cc[j]); }, d,
-                             xnr, cn_s[c]);
-        } else {
-          const auto xf = [&](int j) {
-            return widen_bits(*reinterpret_cast<const B*>(at(xt, kRows, r, j)));
-          };
-          if (resident)
-            return exact_d2<0>(xf, [&](int j) {
-              return widen_bits(*reinterpret_cast<const B*>(at(c_s, kN, c, j)));
-            }, d, xnr, cn_s[c]);
-          const B* cc = cb + (size_t)c * d;
-          return exact_d2<0>(xf, [&](int j) { return widen_bits(cc[j]); }, d,
-                             xnr, cn_s[c]);
+          keep = !prune;
         }
-      };
-      float xr[D > 0 ? D : 1];
-      if constexpr (D > 0) load_row<D, B>(xt, r, xr);
-      if (full) {
-        for (int c = half; c < k; c += 2) take(c, d2_of(c, xr));
+        const unsigned ballot = __ballot_sync(kFull, keep);
+        int at0 = 0;
+        if (lane == 0 && ballot) at0 = atomicAdd(list_n_s, __popc(ballot));
+        at0 = __shfl_sync(kFull, at0, 0);
+        if (keep)
+          list_s[at0 + __popc(ballot & ((1u << lane) - 1u))] = (Cand)i;
+      }
+      if (local_pruned) atomicAdd(pruned_s, local_pruned);
+      __syncthreads();
+      total = *list_n_s;
+      if (tid == 0 && *pruned_s) atomicAdd(&g.pruned[bt], *pruned_s);
+    }
+    __syncthreads();
+    const float cnmax = *cnmax_s;
+    const auto row_of = [&](int i) -> long long {   // i-th row of the item's
+      return r0 + (Gated ? list_s[i] : i);
+    };
+
+    // D > 0: batch `first`'s rows into buffer `buf` by cp.async (zeros past
+    // d and past the rows), one group per call
+    constexpr int kPer = 16 / kEs;                         // values a unit
+    constexpr int kUnits = D > 0 ? (D + kPer - 1) / kPer : 1;
+    constexpr int kUnitsPad = D > 0 ? (D * kEs + 31) / 32 * 2 : 1;
+    const auto load_rows = [&](int first, int buf) {
+      if (D > 0 && first < total) {
+        const int cnt = min(kRows, total - first);
+        unsigned char* tile = x_tile(buf);
+        for (int i = tid; i < kRows * kUnitsPad; i += kThreadsA) {
+          const int r = i / kUnitsPad, u = i - r * kUnitsPad;
+          const bool live = r < cnt && u < kUnits;
+          const B* src = live ? xb + (size_t)row_of(first + r) * D + u * kPer
+                              : xb;
+          cp_async16(static_cast<uint32_t>(__cvta_generic_to_shared(
+                         tile + unit_off(kRows, r, u))),
+                     src, live ? 16 : 0);
+        }
+        if (tid < kRows)   // and their norms
+          cp_async4(static_cast<uint32_t>(__cvta_generic_to_shared(
+                        xnb_s + buf * kRows + tid)),
+                    tid < cnt ? nrm + row_of(first + tid) : nrm,
+                    tid < cnt ? 4 : 0);
+      }
+      cp_async_commit();
+    };
+
+    const int q = lane & 3;
+    const int row0 = warp * 16 + (lane >> 2);   // and row0 + 8
+    // the wgmmas a staged chunk takes: 128 centroids each
+    const auto halves = [&](int nc) { return k - nc * kN > kNH ? 2 : 1; };
+    // acc = row tile x centroids hh*128 .. +127 of the staged chunk: started,
+    // then awaited
+    const auto mma_start = [&](uint32_t xoff, int hh) {
+      wg_fence();
+      for (int st = 0; st < steps; ++st) {
+        const uint32_t off = (st & 3) * 32;
+        const uint64_t da =
+            sw128_desc(sbase + xoff + (st >> 2) * kXChunk + off);
+        const uint64_t db = sw128_desc(sbase + L.c_off + (st >> 2) * kCChunk
+                                       + hh * kNH * 128 + off);
+        wgmma_step<kBf16>(acc, da, db, st > 0);
+      }
+      wg_commit();
+    };
+    const auto mma_wait = [&]() {
+      wg_wait0();
+      fence_regs(acc);
+    };
+    // acc becomes A' = cn - 2 acc (one rounding), column by column
+    const auto shift = [&](int nc, int hh) {
+      const float* cnc = cn_s + nc * kN + hh * kNH;
+#pragma unroll
+      for (int g4 = 0; g4 < 16; ++g4) {
+        const float2 cv =
+            *reinterpret_cast<const float2*>(cnc + 8 * g4 + 2 * q);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[4 * g4 + e] = fmaf(-2.f, acc[4 * g4 + e], (e & 1) ? cv.y : cv.x);
+      }
+    };
+    // the candidates A' <= T' of the wgmma's 128 centroids: per row half a
+    // 32-bit mask (bit 2 g4 + p: column 8 g4 + 2 q + p) from the sign bits of
+    // T' - A' (negative exactly when A' > T'), the quad's lanes writing in
+    // lane order after the counts before them; base[h] counts the row's
+    // earlier candidates (the same in the quad's four lanes)
+    const auto collect = [&](int c0, const float (&T2)[2], int (&base)[2]) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        unsigned out[2] = {0u, 0u};   // bits of the rejected, two halves
+#pragma unroll
+        for (int e = 15; e >= 0; --e)
+#pragma unroll
+          for (int w = 0; w < 2; ++w) {
+            const int g4 = (16 * w + e) >> 1, p = e & 1;
+            out[w] = (out[w] << 1)
+                     | (__float_as_uint(__fsub_rn(T2[h], acc[4 * g4 + 2 * h + p]))
+                        >> 31);
+          }
+        unsigned m = ~((out[1] << 16) | out[0]);
+        const int mine = __popc(m);
+        int before = 0, total = 0;
+#pragma unroll
+        for (int l = 0; l < 4; ++l) {
+          const int c = __shfl_sync(kFull, mine, (lane & ~3) | l);
+          before += l < q ? c : 0;
+          total += c;
+        }
+        const int r = row0 + 8 * h;
+        int at0 = base[h] + before;
+        while (m) {
+          const int bit = __ffs(m) - 1;
+          m &= m - 1;
+          if (at0 < kMaxCand)
+            cand_s[r * kCandStride + at0] =
+                (Cand)(c0 + 8 * (bit >> 1) + 2 * q + (bit & 1));
+          ++at0;
+        }
+        base[h] += total;
+        if (q == 0) cnt_s[r] = base[h];
+      }
+    };
+
+    load_rows(0, 0);
+    for (int first = 0, it = 0; first < total; first += kRows, ++it) {
+      const int count = min(kRows, total - first);
+      const int buf = D > 0 ? it & 1 : 0;
+      unsigned char* xt = x_tile(buf);
+      float xn = 0.f;
+      if constexpr (D > 0) {
+        load_rows(first + kRows, buf ^ 1);   // the next batch, in flight
+        cp_async_wait1();
       } else {
+        // the row tile in place, zeros past d and past count
+        for (int i = tid; i < kRows * dpad; i += kThreadsA) {
+          const int r = i / dpad, j = i - r * dpad;
+          const B v = (r < count && j < d)
+                          ? xb[(size_t)row_of(first + r) * d + j] : B(0);
+          *reinterpret_cast<B*>(at(xt, kRows, r, j)) = v;
+        }
+        if (tid < count) xn = nrm[row_of(first + tid)];
+      }
+      fence_async_smem();
+      __syncthreads();
+      const uint32_t xoff = L.x_off + buf * xbuf_bytes;
+      if (resident) mma_start(xoff, 0);   // runs while the margins are computed
+      if (tid < kRows) {
+        float eps = -1.f;   // eps < 0: no screen (past count, or the full scan)
+        if (tid < count) {
+          float xx = 0.f;
+          if constexpr (kWide) {
+            xn = xnb_s[buf * kRows + tid];
+            xx = wide_sumsq<D, B>(xt, tid);
+          } else if constexpr (D > 0) {
+            xn = xnb_s[buf * kRows + tid];
+            float xr[D];
+            load_row<D, B>(xt, tid, xr);
+#pragma unroll
+            for (int j = 0; j < D; ++j) xx = fmaf(xr[j], xr[j], xx);
+          } else {
+            for (int j = 0; j < d; ++j) {
+              const float v =
+                  widen_bits(*reinterpret_cast<const B*>(at(xt, kRows, tid, j)));
+              xx = fmaf(v, v, xx);
+            }
+          }
+          eps = screen_eps(xx, xn, cnmax, rel, d);
+        }
+        xn_s[tid] = xn;
+        eps_s[tid] = eps;
+      }
+
+      __syncthreads();   // xn_s, eps_s
+      float xn_r[2], eps_r[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        xn_r[h] = xn_s[row0 + 8 * h];
+        eps_r[h] = eps_s[row0 + 8 * h];
+      }
+      // one pass over the centroids, 128 a wgmma: each row's smallest and
+      // second smallest group minimum so far (a1, a2; a group is 8 values of
+      // the row in one thread: 4 per thread and wgmma, 16 in the quad that
+      // shares the row, merged into the running pair), the threshold
+      // T' = max(a2, -xn) + 2 eps from them, and the wgmma's candidates
+      // A' <= T'. a2 is the second smallest of some of the row's A', so it is
+      // never below A'(2), and the exactness argument needs only that; T' is
+      // kept finite so that padded centroids (cn = +inf) are never candidates
+      // (a row without a screen takes none)
+      float a1[2] = {CUDART_INF_F, CUDART_INF_F};
+      float a2[2] = {CUDART_INF_F, CUDART_INF_F};
+      int base[2] = {0, 0};
+      for (int nc = 0; nc < n_chunks; ++nc) {
+        if (!resident) {
+          __syncthreads();
+          stage_c(nc);
+          __syncthreads();
+        }
+        for (int hh = 0; hh < halves(nc); ++hh) {
+          if (!resident || hh > 0) mma_start(xoff, hh);
+          mma_wait();
+          shift(nc, hh);
+          float gm[2][4];   // [row half][group of 8]
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int G = 0; G < 4; ++G) gm[h][G] = CUDART_INF_F;
+#pragma unroll
+          for (int i = 0; i < 64; ++i)
+            gm[(i >> 1) & 1][i >> 4] = fminf(gm[(i >> 1) & 1][i >> 4], acc[i]);
+          float T2[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float lo0 = fminf(gm[h][0], gm[h][1]);
+            const float lo1 = fminf(gm[h][2], gm[h][3]);
+            float b1 = fminf(lo0, lo1);
+            float b2 = fminf(fmaxf(lo0, lo1),
+                             fminf(fmaxf(gm[h][0], gm[h][1]),
+                                   fmaxf(gm[h][2], gm[h][3])));
+#pragma unroll
+            for (int o = 1; o <= 2; o <<= 1) {
+              const float c1 = __shfl_xor_sync(kFull, b1, o);
+              const float c2 = __shfl_xor_sync(kFull, b2, o);
+              b2 = fminf(fmaxf(b1, c1), fminf(b2, c2));
+              b1 = fminf(b1, c1);
+            }
+            a2[h] = fminf(fmaxf(a1[h], b1), fminf(a2[h], b2));
+            a1[h] = fminf(a1[h], b1);
+            T2[h] = eps_r[h] < 0.f
+                        ? -CUDART_INF_F
+                        : fminf(fmaxf(a2[h], -xn_r[h]) + 2.f * eps_r[h],
+                                FLT_MAX);
+          }
+          collect(nc * kN + hh * kNH, T2, base);
+        }
+      }
+      __syncthreads();
+
+      // the recheck: each candidate's D² by the template's arithmetic, merged
+      // on (value, index); a row without a screen takes every centroid. The
+      // two threads of a row (tid, tid + 64) take alternate ones, then merge.
+      const int r = tid & (kRows - 1), half = tid / kRows;
+      float best = CUDART_INF_F, second = CUDART_INF_F;
+      int a = 0;
+      const bool full = r < count && (eps_s[r] < 0.f || cnt_s[r] > kMaxCand);
+      if (r < count) {
+        const float xnr = xn_s[r];
+        const auto take = [&](int c, float v) {
+          if (v < best || (v == best && c < a)) {
+            second = best;
+            best = v;
+            a = c;
+          } else if (v < second) {
+            second = v;
+          }
+        };
+        const auto d2_of = [&](int c, auto&& xr) {
+          if constexpr (kWide) {
+            return wide_d2<D, B>(xt, r, c_s, resident ? nullptr : cb, c, xnr,
+                                 cn_s[c]);
+          } else if constexpr (D > 0) {
+            if (resident) {
+              float cr[D];
+              load_row<D, B>(c_s, c, cr);
+              return exact_d2<D>([&](int j) { return xr[j]; },
+                                 [&](int j) { return cr[j]; }, d, xnr,
+                                 cn_s[c]);
+            }
+            const B* cc = cb + (size_t)c * d;
+            return exact_d2<D>([&](int j) { return xr[j]; },
+                               [&](int j) { return widen_bits(cc[j]); }, d,
+                               xnr, cn_s[c]);
+          } else {
+            const auto xf = [&](int j) {
+              return widen_bits(
+                  *reinterpret_cast<const B*>(at(xt, kRows, r, j)));
+            };
+            if (resident)
+              return exact_d2<0>(xf, [&](int j) {
+                return widen_bits(
+                    *reinterpret_cast<const B*>(at(c_s, kN, c, j)));
+              }, d, xnr, cn_s[c]);
+            const B* cc = cb + (size_t)c * d;
+            return exact_d2<0>(xf, [&](int j) { return widen_bits(cc[j]); },
+                               d, xnr, cn_s[c]);
+          }
+        };
+        float xr[D > 0 && !kWide ? D : 1];
+        if constexpr (D > 0 && !kWide) load_row<D, B>(xt, r, xr);
+        if (full) {
+          for (int c = half; c < k; c += 2) take(c, d2_of(c, xr));
+        } else {
+          const int cnt = cnt_s[r];
+          int i = half;
+          for (; i + 2 < cnt; i += 4) {   // two independent chains
+            const int c0 = cand_s[r * kCandStride + i];
+            const int c1 = cand_s[r * kCandStride + i + 2];
+            const float v0 = d2_of(c0, xr), v1 = d2_of(c1, xr);
+            take(c0, v0);
+            take(c1, v1);
+          }
+          if (i < cnt) {
+            const int c = cand_s[r * kCandStride + i];
+            take(c, d2_of(c, xr));
+          }
+        }
+        if (half) {
+          mb_s[r] = best;
+          ms_s[r] = second;
+          mi_s[r] = a;
+        }
+      }
+      __syncthreads();
+      if (!half && r < count) {
+        const float b2 = mb_s[r], s2 = ms_s[r];
+        const int a2 = mi_s[r];
+        second = fminf(fmaxf(best, b2), fminf(second, s2));
+        if (b2 < best || (b2 == best && a2 < a)) {
+          best = b2;
+          a = a2;
+        }
+        const long long row = row_of(first + r);
+        lab_o[row] = a;
+        md_o[row] = best;
+        lb_o[row] = sqrtf(second);
         const int cnt = cnt_s[r];
-        int i = half;
-        for (; i + 2 < cnt; i += 4) {   // two independent chains
-          const int c0 = cand_s[r * kCandStride + i];
-          const int c1 = cand_s[r * kCandStride + i + 2];
-          const float v0 = d2_of(c0, xr), v1 = d2_of(c1, xr);
-          take(c0, v0);
-          take(c1, v1);
+        if (eps_s[r] >= 0.f) {
+          n_cand += cnt;
+          max_cand = max(max_cand, (unsigned long long)cnt);
         }
-        if (i < cnt) {
-          const int c = cand_s[r * kCandStride + i];
-          take(c, d2_of(c, xr));
-        }
+        n_full += full;
+        ++n_rows;
       }
-      if (half) {
-        mb_s[r] = best;
-        ms_s[r] = second;
-        mi_s[r] = a;
-      }
+      __syncthreads();
     }
-    __syncthreads();
-    if (!half && r < count) {
-      const float b2 = mb_s[r], s2 = ms_s[r];
-      const int a2 = mi_s[r];
-      second = fminf(fmaxf(best, b2), fminf(second, s2));
-      if (b2 < best || (b2 == best && a2 < a)) {
-        best = b2;
-        a = a2;
-      }
-      const long long row = row_of(first + r);
-      labels[row] = a;
-      md[row] = best;
-      lbo[row] = sqrtf(second);
-      const int cnt = cnt_s[r];
-      if (eps_s[r] >= 0.f) {
-        n_cand += cnt;
-        max_cand = max(max_cand, (unsigned long long)cnt);
-      }
-      n_full += full;
-      ++n_rows;
-    }
-    __syncthreads();
+  };
+  if constexpr (Gated) {
+    for (long long item = blockIdx.x; item < n_items; item += gridDim.x)
+      run_item(item);
+  } else {
+    run_item(blockIdx.x);
   }
+  __syncthreads();
   if (n_rows) {
     atomicAdd(&st_s[0], n_rows);
     atomicAdd(&st_s[1], n_cand);
@@ -1253,13 +1474,17 @@ screen_kernel(const T* __restrict__ points, const float* __restrict__ norms,
 // and lb: the partial and the gap, then the cluster sums. A tile's columns
 // go in slices of `cols` to n_slices adjacent blocks (so the tile's rows
 // are read from device memory about once and then from L2); slice 0 also
-// writes the partial and the gap. Each column's sums are the template's
-// bits whatever the slicing. K10b's pruned count came from pass A.
+// writes the partial and the gap, or for a skipped tile (the gated rounds)
+// copies them from prev_partials / prev_gaps. Each column's sums
+// are the template's bits whatever the slicing. The gated rounds' pruned
+// counts came from pass A.
 template <typename T, bool Gated>
 __global__ void __launch_bounds__(kThreads)
 reduce_kernel(const T* __restrict__ points, const int* __restrict__ labels,
               const float* __restrict__ md, const float* __restrict__ lbo,
               const unsigned char* __restrict__ active,
+              const float* __restrict__ prev_partials,
+              const float* __restrict__ prev_gaps,
               float* __restrict__ partials, float* __restrict__ gaps,
               float* __restrict__ tile_acc, int n, int d, int k, int block_n,
               int cols, int n_slices) {
@@ -1268,7 +1493,13 @@ reduce_kernel(const T* __restrict__ points, const int* __restrict__ labels,
   const int slice = blockIdx.x - tile * n_slices;
   const int b = tile / n_tiles;
   const int t = tile - b * n_tiles;
-  if (Gated && !active[tile]) return;
+  if (Gated && !active[tile]) {
+    if (slice == 0 && threadIdx.x == 0) {
+      partials[tile] = prev_partials[tile];
+      gaps[tile] = prev_gaps[tile];
+    }
+    return;
+  }
   points += (size_t)b * n * d;
   labels += (size_t)b * n;
   md += (size_t)b * n;
@@ -1283,12 +1514,30 @@ reduce_kernel(const T* __restrict__ points, const int* __restrict__ labels,
   const int rows = (int)min((long long)block_n, (long long)n - tile0);
   float local_sum = 0.f;
   float local_gap = CUDART_INF_F;
-  for (int r = tid; r < rows; r += kThreads) {
-    lab_sh[r] = labels[tile0 + r];
-    if (slice == 0) {
-      const float m = md[tile0 + r];
-      local_sum += m;
-      local_gap = nan_min(local_gap, lbo[tile0 + r] - sqrtf(m));
+  // rows tid, tid + 256, ... as the template's thread takes them, their
+  // loads issued eight at a time
+  constexpr int kU = 8;
+  for (int r0 = tid; r0 < rows; r0 += kU * kThreads) {
+    int lab[kU];
+    float m[kU], lb[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int r = r0 + u * kThreads;
+      const bool ok = r < rows;
+      lab[u] = ok ? labels[tile0 + r] : 0;
+      m[u] = ok && slice == 0 ? md[tile0 + r] : 0.f;
+      lb[u] = ok && slice == 0 ? lbo[tile0 + r] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int r = r0 + u * kThreads;
+      if (r < rows) {
+        lab_sh[r] = lab[u];
+        if (slice == 0) {
+          local_sum += m[u];
+          local_gap = nan_min(local_gap, lb[u] - sqrtf(m[u]));
+        }
+      }
     }
   }
   if (slice == 0)
@@ -1307,43 +1556,18 @@ inline size_t reduce_smem_bytes(int k, int block_n, int cols) {
   return sizeof(float) * (2 * kThreads + (size_t)kWarps * k * cols + block_n);
 }
 
-// Both passes and the super reduce of one screened round; lbo is K10a's
-// (batch, n) scratch (K10b writes g.lb). Returns the first CUDA error.
+// Pass B and the super reduce on the row pass's labels, md and lbo (the
+// gated rounds: g.lb); the carries as `g` gives them. Returns the first
+// CUDA error.
 template <typename T, bool Gated>
-int launch(const T* points, const float* norms, const T* cents, int* labels,
-           float* md, float* lbo, float* partials, float* gaps,
-           float* tile_acc, float* ssums, float* scounts, const Gate& g,
-           unsigned long long* stats, int batch, int n, int d, int k,
-           int block_n, int tps, cudaStream_t s) {
-  constexpr bool kBf16 = !std::is_same<T, float>::value;
+int launch_reduce(const T* points, const int* labels, const float* md,
+                  const float* lbo, const Gate& g, float* partials,
+                  float* gaps, float* tile_acc, float* ssums, float* scounts,
+                  int batch, int n, int d, int k, int block_n, int tps,
+                  cudaStream_t s) {
   const int n_tiles = (n + block_n - 1) / block_n;
-  const int n_super = (n_tiles + tps - 1) / tps;
   const long long tiles = (long long)batch * n_tiles;
-  int cta_rows = 4096;
-  while (cta_rows > kRows
-         && tiles * ((block_n + cta_rows - 1) / cta_rows) < kTargetCtas)
-    cta_rows /= 2;
-  const long long grid_a = tiles * ((block_n + cta_rows - 1) / cta_rows);
-  if (grid_a > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const Layout L(d, k, kBf16, cta_rows, Gated);
-  // the row loads as 16-byte copies where d is 8 or 16 and rows aligned
-  const bool vec = reinterpret_cast<uintptr_t>(points) % 16 == 0;
-  const auto run = [&](auto kernel) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         L.bytes);
-    kernel<<<(unsigned)grid_a, kThreadsA, L.bytes, s>>>(
-        points, norms, cents, labels, md, lbo, g, stats, n, d, k, block_n,
-        cta_rows);
-  };
-  if (vec && d == 16)
-    run(screen_kernel<T, 16, Gated>);
-  else if (vec && d == 8)
-    run(screen_kernel<T, 8, Gated>);
-  else
-    run(screen_kernel<T, 0, Gated>);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  // pass B's columns a pass (the bits do not depend on it): the most, up to
+  // the columns a pass (the bits do not depend on it): the most, up to
   // kSliceCols, that let three blocks share an SM, else that fit one
   const auto fits = [&](int c, size_t budget) {
     return reduce_smem_bytes(k, block_n, c) <= budget;
@@ -1362,16 +1586,307 @@ int launch(const T* points, const float* norms, const T* cents, int* labels,
   reduce_kernel<T, Gated>
       <<<(unsigned)(tiles * n_slices), kThreads, smem_b, s>>>(
           points, labels, md, Gated ? g.lb : lbo, Gated ? g.active : nullptr,
+          Gated ? g.prev_partials : nullptr, Gated ? g.prev_gaps : nullptr,
           partials, gaps, tile_acc, n, d, k, block_n, cols_b, n_slices);
-  err = (int)cudaGetLastError();
+  int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  super_reduce_kernel<<<(unsigned)batch * n_super, kThreads, 0, s>>>(
-      tile_acc, ssums, scounts, Gated ? g.active : nullptr, n_tiles, d, k,
-      tps);
-  return (int)cudaGetLastError();
+  return launch_super_reduce(tile_acc, ssums, scounts,
+                             Gated ? g.active : nullptr,
+                             Gated ? g.prev_ssums : nullptr,
+                             Gated ? g.prev_scounts : nullptr, batch, n_tiles,
+                             d, k, tps, s);
+}
+
+// Both passes and the super reduce of one screened round; lbo is K10a's
+// (batch, n) scratch (the gated rounds write g.lb). Pass A's grid: for
+// K10a and K10b one item a CTA, items cut finer until there are
+// kTargetCtas; for one gated problem (K6) a persistent grid of the CTAs
+// the card holds at once, items cut until there are 8 a CTA. Returns the
+// first CUDA error.
+template <typename T, bool Gated>
+int launch(const T* points, const float* norms, const T* cents, int* labels,
+           float* md, float* lbo, float* partials, float* gaps,
+           float* tile_acc, float* ssums, float* scounts, const Gate& g,
+           unsigned long long* stats, int batch, int n, int d, int k,
+           int block_n, int tps, cudaStream_t s) {
+  constexpr bool kBf16 = !std::is_same<T, float>::value;
+  const int n_tiles = (n + block_n - 1) / block_n;
+  const long long tiles = (long long)batch * n_tiles;
+  const auto items = [&](int rows) {
+    return tiles * ((block_n + rows - 1) / rows);
+  };
+  // the row loads as 16-byte copies where d is 8, 16 or 128 and rows aligned
+  const bool vec = reinterpret_cast<uintptr_t>(points) % 16 == 0;
+  const auto run = [&](auto kernel) -> int {
+    int cta_rows = 4096;
+    long long grid_a = 0;
+    if (Gated && batch == 1) {
+      const Layout most(d, k, kBf16, cta_rows, Gated);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           most.bytes);
+      int dev = 0, sms = 0, per = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, kThreadsA,
+                                                    most.bytes);
+      const long long slots = (long long)max(per, 1) * sms;
+      while (cta_rows > kRows && items(cta_rows) < 8 * slots) cta_rows /= 2;
+      grid_a = items(cta_rows) < slots ? items(cta_rows) : slots;
+    } else {
+      while (cta_rows > kRows && items(cta_rows) < kTargetCtas)
+        cta_rows /= 2;
+      grid_a = items(cta_rows);
+    }
+    if (grid_a > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    const Layout L(d, k, kBf16, cta_rows, Gated);
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         L.bytes);
+    kernel<<<(unsigned)grid_a, kThreadsA, L.bytes, s>>>(
+        points, norms, cents, labels, md, lbo, g, stats, batch, n, d, k,
+        block_n, cta_rows);
+    return (int)cudaGetLastError();
+  };
+  const int err = vec && d == 16  ? run(screen_kernel<T, 16, Gated>)
+                  : vec && d == 8 ? run(screen_kernel<T, 8, Gated>)
+                  : vec && d == 128
+                      ? run(screen_kernel<T, 128, Gated>)
+                      : run(screen_kernel<T, 0, Gated>);
+  if (err != 0) return err;
+  return launch_reduce<T, Gated>(points, labels, md, lbo, g, partials, gaps,
+                                 tile_acc, ssums, scounts, batch, n, d, k,
+                                 block_n, tps, s);
 }
 
 }  // namespace screen
+
+// ---------------------------------------------------------------------------
+// K6 off the screened widths (d < 8, or rows past 512 bytes): the split row
+// pass (see the header).
+
+// the row pass's blocks: small, so that blocks in their prune and in their
+// fold share an SM
+constexpr int kRowThreads = 128;
+
+// The fold of listed rows list_s[i0 .. i0 + RR) (block-relative; rows past
+// `total` are not folded): exact_d2 and fold over every staged centroid,
+// the RR rows sharing each pass over the centroids, as the template's rows
+// of one thread do; writes labels, D² and lb = sqrt(second).
+template <typename T, int D, int RR>
+__device__ __forceinline__ void fold_listed(
+    const T* __restrict__ points, const float* __restrict__ norms,
+    const float* c_sh, const float* cn_sh, const int* list_s, int i0,
+    int total, int blk0, int d, int k, int* __restrict__ labels,
+    float* __restrict__ md, float* __restrict__ lb) {
+  constexpr int DR = D > 0 ? D : 1;
+  float xr[RR][DR], xn[RR], best[RR], second[RR];
+  int a[RR], row[RR];
+#pragma unroll
+  for (int q = 0; q < RR; ++q) {
+    const bool ok = i0 + q < total;
+    row[q] = ok ? blk0 + list_s[i0 + q] : -1;
+    if constexpr (D > 0) {
+#pragma unroll
+      for (int j = 0; j < D; ++j)
+        xr[q][j] = ok ? widen(points[(size_t)row[q] * D + j]) : 0.f;
+    }
+    xn[q] = ok ? norms[row[q]] : 0.f;
+    best[q] = second[q] = CUDART_INF_F;
+    a[q] = 0;
+  }
+  for (int c = 0; c < k; ++c) {
+    const float* cc = c_sh + (size_t)c * d;
+    const float cn = cn_sh[c];
+    if constexpr (D > 0) {
+      float cr[D];
+#pragma unroll
+      for (int j = 0; j < D; ++j) cr[j] = cc[j];
+#pragma unroll
+      for (int q = 0; q < RR; ++q)
+        fold(exact_d2<D>([&](int j) { return xr[q][j]; },
+                         [&](int j) { return cr[j]; }, d, xn[q], cn),
+             c, best[q], second[q], a[q]);
+    } else {
+      const T* x = points + (size_t)row[0] * d;
+      fold(exact_d2<0>([&](int j) { return widen(x[j]); },
+                       [&](int j) { return cc[j]; }, d, xn[0], cn),
+           c, best[0], second[0], a[0]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < RR; ++q) {
+    if (row[q] < 0) continue;
+    labels[row[q]] = a[q];
+    md[row[q]] = best[q];
+    lb[row[q]] = sqrtf(second[q]);
+  }
+}
+
+// Pass A: the template's row arithmetic on blocks of kRowThreads * R rows
+// (R = 4 at D = 2) that need not lie in one tile. First each thread's R
+// consecutive rows (16-byte loads of the carries where `vec`): a skipped
+// tile's row copies its carries, and an active row takes the prune
+// (bounds.assign_point_prune): a pruned row writes its carried label and
+// D² and lb = prev_lb - absorb, the others are listed in shared memory.
+// Then the listed rows go through exact_d2 and fold over every centroid
+// (fold_listed), 1, 2 or 4 to a thread (at D = 2; one at other d) as
+// their count asks, so that only the rows the prune keeps pay
+// for the fold and as many warps as can take part. Each tile's pruned rows
+// are added into g.pruned (zeroed by the caller) with integer atomics.
+template <typename T, int D>
+__global__ void __launch_bounds__(kRowThreads, 4)
+row_kernel(const T* __restrict__ points, const float* __restrict__ norms,
+           const T* __restrict__ cents, int* __restrict__ labels,
+           float* __restrict__ md, Gate g, int n, int d, int k,
+           int block_n, int vec) {
+  constexpr int R = D > 0 ? 4 : 1;
+  extern __shared__ float smem[];
+  float* c_sh = smem;                                   // (k, d)
+  float* cn_sh = c_sh + (size_t)k * d;                  // (k,)
+  float* delta_sh = cn_sh + k;                          // (k,)
+  int* cnt_sh = reinterpret_cast<int*>(delta_sh + k);   // (R * 128,)
+  int* list_s = cnt_sh + R * kRowThreads;               // (R * 128,)
+  __shared__ int list_n;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int blk0 = blockIdx.x * R * kRowThreads;   // n < 2^31 rows
+  const int t0 = blk0 / block_n;
+  for (int i = tid; i < k * d; i += kRowThreads) c_sh[i] = widen(cents[i]);
+  for (int c = tid; c < k; c += kRowThreads) delta_sh[c] = g.delta[c];
+  for (int i = tid; i < R * kRowThreads; i += kRowThreads) cnt_sh[i] = 0;
+  if (tid == 0) list_n = 0;
+  __syncthreads();
+  for (int c = tid; c < k; c += kRowThreads) {
+    float s = 0.f;
+    for (int j = 0; j < d; ++j) s = fmaf(c_sh[c * d + j], c_sh[c * d + j], s);
+    cn_sh[c] = s;
+  }
+  // the thread's R rows: every load first, so they are in flight together
+  const int row0 = blk0 + R * tid;
+  int pa[R];
+  float pmd[R], plb[R];
+  bool loaded = false;
+  if constexpr (R == 4) {
+    if (vec && row0 + R <= n) {
+      const int4 va = *reinterpret_cast<const int4*>(g.prev_a + row0);
+      const float4 vm = *reinterpret_cast<const float4*>(g.prev_md + row0);
+      const float4 vl = *reinterpret_cast<const float4*>(g.prev_lb + row0);
+      pa[0] = va.x, pa[1] = va.y, pa[2] = va.z, pa[3] = va.w;
+      pmd[0] = vm.x, pmd[1] = vm.y, pmd[2] = vm.z, pmd[3] = vm.w;
+      plb[0] = vl.x, plb[1] = vl.y, plb[2] = vl.z, plb[3] = vl.w;
+      loaded = true;
+    }
+  }
+  if (!loaded) {
+#pragma unroll
+    for (int e = 0; e < R; ++e) {
+      const bool ok = row0 + e < n;
+      pa[e] = ok ? g.prev_a[row0 + e] : 0;
+      pmd[e] = ok ? g.prev_md[row0 + e] : 0.f;
+      plb[e] = ok ? g.prev_lb[row0 + e] : 0.f;
+    }
+  }
+  bool live[R];
+  float th[R], ab[R];
+#pragma unroll
+  for (int e = 0; e < R; ++e) {
+    const int row = row0 + e;
+    const bool ok = row < n;
+    const int t = ok ? row / block_n : 0;
+    live[e] = ok && g.active[t];
+    th[e] = g.thresh[t];
+    ab[e] = g.absorb[t];
+    if (ok && !live[e]) {   // skipped: its carries
+      labels[row] = pa[e];
+      md[row] = pmd[e];
+      g.lb[row] = plb[e];
+    }
+  }
+  // the prune, and the list of the rows it keeps (block-relative)
+#pragma unroll
+  for (int e = 0; e < R; ++e) {
+    const int row = row0 + e;
+    bool keep = false, prune = false;
+    if (live[e]) {
+      prune = delta_sh[pa[e]] == 0.f &&
+              __fsub_rn(plb[e], sqrtf(pmd[e])) >= th[e];
+      if (prune) {
+        labels[row] = pa[e];
+        md[row] = pmd[e];
+        g.lb[row] = __fsub_rn(plb[e], ab[e]);
+      }
+      keep = !prune;
+    }
+    // a warp's rows (32 R consecutive) lie in one tile when block_n is a
+    // multiple of 32 R
+    const unsigned pr = __ballot_sync(kFull, prune);
+    if (block_n % (32 * R) == 0) {
+      if (lane == 0 && pr)
+        atomicAdd(&cnt_sh[row / block_n - t0], __popc(pr));
+    } else if (prune) {
+      atomicAdd(&cnt_sh[row / block_n - t0], 1);
+    }
+    const unsigned ballot = __ballot_sync(kFull, keep);
+    int at0 = 0;
+    if (lane == 0 && ballot) at0 = atomicAdd(&list_n, __popc(ballot));
+    at0 = __shfl_sync(kFull, at0, 0);
+    if (keep)
+      list_s[at0 + __popc(ballot & ((1u << lane) - 1u))] = row - blk0;
+  }
+  __syncthreads();
+  const int total = list_n;
+  // rows a thread: as few as let every listed row into one pass
+  const int rr = R == 1 || total <= kRowThreads ? 1
+                 : total <= 2 * kRowThreads ? 2 : 4;
+  for (int i0 = tid * rr; i0 < total; i0 += kRowThreads * rr) {
+    if (rr == 1)
+      fold_listed<T, D, 1>(points, norms, c_sh, cn_sh, list_s, i0, total,
+                           blk0, d, k, labels, md, g.lb);
+    else if (rr == 2)
+      fold_listed<T, D, R == 1 ? 1 : 2>(points, norms, c_sh, cn_sh, list_s,
+                                        i0, total, blk0, d, k, labels, md,
+                                        g.lb);
+    else
+      fold_listed<T, D, R>(points, norms, c_sh, cn_sh, list_s, i0, total,
+                           blk0, d, k, labels, md, g.lb);
+  }
+  __syncthreads();
+  for (int i = tid; i < R * kRowThreads; i += kRowThreads)
+    if (cnt_sh[i]) atomicAdd(&g.pruned[t0 + i], cnt_sh[i]);
+}
+
+// K6's split round: the row pass, then screen::launch_reduce (the
+// template's partials, gaps and sums, and the super reduce). Returns the
+// first CUDA error.
+template <typename T>
+int launch_split(const T* points, const float* norms, const T* cents,
+                 int* labels, float* md, float* partials, float* gaps,
+                 float* tile_acc, float* ssums, float* scounts, const Gate& g,
+                 int n, int d, int k, int block_n, int tps, cudaStream_t s) {
+  const int R = d == 2 ? 4 : 1;
+  const long long grid =
+      ((long long)n + R * kRowThreads - 1) / (R * kRowThreads);
+  const size_t smem = sizeof(float) * ((size_t)k * d + 2 * k)
+                      + 2 * sizeof(int) * R * kRowThreads;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  // the carries read as 16-byte vectors where they are aligned
+  const int vec = reinterpret_cast<uintptr_t>(g.prev_a) % 16 == 0
+                  && reinterpret_cast<uintptr_t>(g.prev_md) % 16 == 0
+                  && reinterpret_cast<uintptr_t>(g.prev_lb) % 16 == 0;
+  const auto run = [&](auto kernel) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    kernel<<<(unsigned)grid, kRowThreads, smem, s>>>(
+        points, norms, cents, labels, md, g, n, d, k, block_n, vec);
+  };
+  if (d == 2)
+    run(row_kernel<T, 2>);
+  else
+    run(row_kernel<T, 0>);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return screen::launch_reduce<T, true>(points, labels, md, g.lb, g, partials,
+                                        gaps, tile_acc, ssums, scounts, 1, n,
+                                        d, k, block_n, tps, s);
+}
 
 template <typename T, int D, bool Gated, bool Untiled>
 int launch_assign(const T* points, const float* norms, const T* cents,
@@ -1400,7 +1915,6 @@ int launch_round(const T* points, const float* norms, const T* cents,
                  float* scounts, const Gate& g, int batch, int n, int d,
                  int k, int block_n, int tps, int cols, cudaStream_t s) {
   const int n_tiles = (n + block_n - 1) / block_n;
-  const int n_super = (n_tiles + tps - 1) / tps;
   if ((long long)batch * n_tiles > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;
   const int err =
@@ -1415,10 +1929,11 @@ int launch_round(const T* points, const float* norms, const T* cents,
                 points, norms, cents, weights, labels, md, partials, gaps,
                 tile_acc, g, batch, n, d, k, block_n, cols, s);
   if (err != 0) return err;
-  super_reduce_kernel<<<(unsigned)batch * n_super, kThreads, 0, s>>>(
-      tile_acc, ssums, scounts, Gated ? g.active : nullptr, n_tiles, d, k,
-      tps);
-  return (int)cudaGetLastError();
+  return launch_super_reduce(tile_acc, ssums, scounts,
+                             Gated ? g.active : nullptr,
+                             Gated ? g.prev_ssums : nullptr,
+                             Gated ? g.prev_scounts : nullptr, batch, n_tiles,
+                             d, k, tps, s);
 }
 
 // The stream type is the caller's: bf16 != 0 reads points and cents as
@@ -1513,26 +2028,76 @@ extern "C" int lloyd_assign_tiled_batched_launch(
                                  block_n, tps, cols, bf16, stream);
 }
 
-// 1 where the batched rounds (K10a, K10b) take the screened route for
-// width d and the stream (bf16 != 0: bf16), else 0.
+// 1 where K6, K10a and K10b take the screened route for width d and the
+// stream (bf16 != 0: bf16), else 0.
 extern "C" int lloyd_assign_screened(int d, int bf16) {
   return screen::screened(d, bf16 != 0) ? 1 : 0;
 }
 
-// Launches both kernels of one gated assignment round (K6) on `stream`;
-// returns cudaGetLastError(). labels, md, lb, partials, gaps, ssums and
-// scounts must hold the carried values and pruned zeros: skipped tiles and
-// supers leave them as they are. `active` must be super-aligned.
+// One gated assignment round (K6) on `stream`: the screened route where
+// lloyd_assign_screened(d, bf16) (stats (4) as K10a's, required there),
+// else the split row pass. Returns the first CUDA error. Every output is
+// written: labels, md and lb (n,), partials, gaps and pruned (n_tiles,),
+// ssums and scounts as K3's, a skipped tile or super copying the carries
+// prev_* (the inputs of the same shapes); pruned must be zeros. `active`
+// must be super-aligned.
 extern "C" int lloyd_assign_gated_launch(
     const void* points, const float* norms, const void* cents,
     const float* delta, const float* thresh, const float* absorb,
     const int* prev_a, const float* prev_md, const float* prev_lb,
+    const float* prev_partials, const float* prev_gaps,
+    const float* prev_ssums, const float* prev_scounts,
     const unsigned char* active, int* labels, float* md, float* lb,
     float* partials, float* gaps, float* tile_acc, float* ssums,
-    float* scounts, int* pruned, int n, int d, int k, int block_n, int tps,
-    int cols, int bf16, void* stream) {
-  const Gate g{delta, thresh, absorb, prev_a, prev_md, prev_lb, active, lb,
-               pruned};
+    float* scounts, int* pruned, unsigned long long* stats, int n, int d,
+    int k, int block_n, int tps, int cols, int bf16, void* stream) {
+  const Gate g{delta,  thresh, absorb,        prev_a,    prev_md,
+               prev_lb, active, lb,           pruned,    prev_partials,
+               prev_gaps, prev_ssums, prev_scounts};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  (void)cols;
+  if (screen::screened(d, bf16 != 0)) {
+    if (stats == nullptr) return (int)cudaErrorInvalidValue;
+    if (bf16)
+      return screen::launch<__nv_bfloat16, true>(
+          static_cast<const __nv_bfloat16*>(points), norms,
+          static_cast<const __nv_bfloat16*>(cents), labels, md, nullptr,
+          partials, gaps, tile_acc, ssums, scounts, g, stats, 1, n, d, k,
+          block_n, tps, s);
+    return screen::launch<float, true>(
+        static_cast<const float*>(points), norms,
+        static_cast<const float*>(cents), labels, md, nullptr, partials, gaps,
+        tile_acc, ssums, scounts, g, stats, 1, n, d, k, block_n, tps, s);
+  }
+  if (bf16)
+    return launch_split<__nv_bfloat16>(
+        static_cast<const __nv_bfloat16*>(points), norms,
+        static_cast<const __nv_bfloat16*>(cents), labels, md, partials, gaps,
+        tile_acc, ssums, scounts, g, n, d, k, block_n, tps, s);
+  return launch_split<float>(static_cast<const float*>(points), norms,
+                             static_cast<const float*>(cents), labels, md,
+                             partials, gaps, tile_acc, ssums, scounts, g, n,
+                             d, k, block_n, tps, s);
+}
+
+// The template's gated instance (assign_tile_kernel, as K6 ran before the
+// screened and split routes), at any d whose staging fits `cols`: the
+// reference the card tests and the smoke script hold K6 to, bit for bit.
+// The engine never calls it. The arguments are K6's; stats is not read.
+extern "C" int lloyd_assign_gated_template_launch(
+    const void* points, const float* norms, const void* cents,
+    const float* delta, const float* thresh, const float* absorb,
+    const int* prev_a, const float* prev_md, const float* prev_lb,
+    const float* prev_partials, const float* prev_gaps,
+    const float* prev_ssums, const float* prev_scounts,
+    const unsigned char* active, int* labels, float* md, float* lb,
+    float* partials, float* gaps, float* tile_acc, float* ssums,
+    float* scounts, int* pruned, unsigned long long* stats, int n, int d,
+    int k, int block_n, int tps, int cols, int bf16, void* stream) {
+  const Gate g{delta,  thresh, absorb,        prev_a,    prev_md,
+               prev_lb, active, lb,           pruned,    prev_partials,
+               prev_gaps, prev_ssums, prev_scounts};
+  (void)stats;
   return dispatch<true, false>(points, norms, cents, nullptr, labels, md,
                                partials, gaps, tile_acc, ssums, scounts, g, 1,
                                n, d, k, block_n, tps, cols, bf16, stream);
@@ -1542,19 +2107,24 @@ extern "C" int lloyd_assign_gated_launch(
 // (K10b) on `stream`; returns cudaGetLastError(). Every array carries a
 // leading problem axis: K10a's, plus delta (batch, k), thresh / absorb /
 // active / pruned (batch, n_tiles), prev_a / prev_md / prev_lb / lb
-// (batch, n). The outputs must hold the carries and pruned zeros, and
-// `active` must be super-aligned in every problem, as for K6. stats as
-// K10a's (required where lloyd_assign_screened(d, bf16)).
+// (batch, n), and the carries prev_partials / prev_gaps / prev_ssums /
+// prev_scounts of the outputs' shapes. As for K6, every output is written
+// (a skipped tile or super copying the carries), pruned must be zeros and
+// `active` must be super-aligned in every problem. stats as K10a's
+// (required where lloyd_assign_screened(d, bf16)).
 extern "C" int lloyd_assign_gated_batched_launch(
     const void* points, const float* norms, const void* cents,
     const float* delta, const float* thresh, const float* absorb,
     const int* prev_a, const float* prev_md, const float* prev_lb,
+    const float* prev_partials, const float* prev_gaps,
+    const float* prev_ssums, const float* prev_scounts,
     const unsigned char* active, int* labels, float* md, float* lb,
     float* partials, float* gaps, float* tile_acc, float* ssums,
     float* scounts, int* pruned, unsigned long long* stats, int batch, int n,
     int d, int k, int block_n, int tps, int cols, int bf16, void* stream) {
-  const Gate g{delta, thresh, absorb, prev_a, prev_md, prev_lb, active, lb,
-               pruned};
+  const Gate g{delta,  thresh, absorb,        prev_a,    prev_md,
+               prev_lb, active, lb,           pruned,    prev_partials,
+               prev_gaps, prev_ssums, prev_scounts};
   return dispatch_batched<true>(points, norms, cents, labels, md, nullptr,
                                 partials, gaps, tile_acc, ssums, scounts, g,
                                 stats, batch, n, d, k, block_n, tps, cols,

@@ -29,19 +29,21 @@ the card's ``addcmul`` rounds as ``fmaf``.
 
 Each wrapper launches its CUDA kernels (``csrc/ivf_scan.cu``) for tensors
 on the card and runs its twin (``*_torch``) only for tensors on the CPU.
-K14 runs one block per query. K13 runs tile-major, in two parts that
-together give the walk's bits: (a) every (query, step) pair's top-k of its
-tile, the pairs grouped by tile so that a block reads a tile's rows once
-for up to 64 queries (plain :func:`tile_topk_torch`), then (b) each
-query's walk over its steps, the gate against the carried k-th key and
-the merge of the step's top-k (plain :func:`replay_torch`). A tile's
-top-k merged gives the same top-k as all its rows. Part (a)'s output
+Both run in two parts that together give the walk's bits: (a) every
+(query, step) pair's top-k of its tile (K13: the pairs grouped by tile, so
+that a block reads a tile's rows once for up to 64 queries, plain
+:func:`tile_topk_torch`; K14: a block per query, its LUT staged once and
+its warps taking its pairs in turn, plain :func:`adc_tile_topk_torch`),
+then (b) each query's walk over its steps, the gate against the carried
+k-th key and the merge of the step's top-k (one kernel for both, plain
+:func:`replay_torch`). A tile's top-k merged gives the same top-k as all
+its rows. Part (a)'s output
 takes 8k bytes a pair; when the card has not the memory for every
-query's pairs, K13 runs over consecutive groups of queries that fit
+query's pairs, the scan runs over consecutive groups of queries that fit
 (:func:`query_groups`), which gives the same bits, since queries are
-independent. Both wrappers take at most the k that a block's shared
-memory holds (:func:`max_k`) and raise ``InvalidInputError`` naming that
-limit above it.
+independent. Both wrappers take at most the k that part (b)'s block holds
+(:func:`max_k`) and raise ``InvalidInputError`` naming that limit above
+it.
 """
 from __future__ import annotations
 
@@ -61,50 +63,37 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _TOPK_ARGTYPES = (_P,) * 14 + (_I,) * 7 + (_F, _I, _P)
 _REPLAY_ARGTYPES = (_P,) * 9 + (_I,) * 3 + (_F, _P)
-_ADC_ARGTYPES = (_P,) * 13 + (_I,) * 10 + (_F,) * 2 + (_P,)
+_ADC_ARGTYPES = (_P,) * 17 + (_I,) * 11 + (_F, _I, _P)
 # pairs a block of K13's part (a) takes (csrc/ivf_scan.cu: kPairs)
 CHUNK = 64
-# device bytes a (query, step) pair takes in K13 beside its top-k: its two
-# gate terms and the glue's maps (the pair's int64 indices, tile and
-# stable sort, its int32 copies)
+# device bytes a (query, step) pair takes beside its top-k: its two gate
+# terms and the glue's maps (the pair's int64 indices, tile and stable
+# sort, its int32 copies)
 PAIR_BYTES = 96
 # the gate's fp32 constants, as the reference rounds them
 _REL1 = float(np.float32(1.0 + bounds._REL))
 _ABS = float(np.float32(bounds._ABS))
-# K14's static shared memory: its three __shared__ scalars (n_cand,
-# skip_flag, qn_s), which ptxas rounds to 16 bytes
-STATIC_SMEM = 16
-
-
-def smem_bytes(d: int, k: int, block_n: int, n_sub: int = 0,
-               n_codes: int = 0, nlist: int = 0) -> int:
-    """Dynamic shared memory of one K14 block: the query (d), the carried
-    and the merged top-k (4k), the tile's candidate buffer (2 block_n), the
-    LUT (n_sub·n_codes) and the routing dots (nlist); 4 bytes each. The
-    block also holds :data:`STATIC_SMEM`."""
-    return 4 * (d + 4 * k + 2 * block_n + n_sub * n_codes + nlist)
 
 
 def replay_smem_bytes(k: int) -> int:
-    """Dynamic shared memory of one block of K13's part (b): the carried
-    and the merged top-k, 8 bytes an entry each (the step's top-k is read
-    from part (a)'s output in device memory)."""
+    """Dynamic shared memory of one block of the scans' part (b): the
+    carried and the merged top-k, 8 bytes an entry each (the step's top-k
+    is read from part (a)'s output in device memory)."""
     return 16 * k
 
 
 def max_k(d: int, block_n: int, n_sub: int = 0, n_codes: int = 0,
           nlist: int = 0) -> int:
-    """The largest k the scan takes: for K14 (``n_sub > 0``) the k whose
-    block, static shared memory included, fits Hopper's shared memory; for
-    K13 (``n_sub == 0``) the k whose part-(b) block does (part (a) keeps a
-    tile's top-k in registers up to k = 128 and ranks the tile's rows past
-    it, in shared memory that does not grow with k; neither part has
-    static shared memory)."""
-    if n_sub == 0:
-        return max(0, ops.SMEM_LIMIT // replay_smem_bytes(1))
-    free = (ops.SMEM_LIMIT - STATIC_SMEM
-            - smem_bytes(d, 0, block_n, n_sub, n_codes, nlist))
-    return max(0, free // 16)
+    """The largest k the scan takes: the k whose part-(b) block fits
+    Hopper's shared memory (part (a) keeps a tile's top-k in registers up to
+    k = 128 and ranks the tile's rows past it, in shared memory that does
+    not grow with k; neither part has static shared memory). For K14
+    (``n_sub > 0``) 0 when not even its one-query block (the LUT, the
+    routing dots, the query and the tile's scores) fits."""
+    if n_sub and 4 * (n_sub * n_codes + nlist + d + 2 * block_n) \
+            > ops.SMEM_LIMIT:
+        return 0
+    return max(0, ops.SMEM_LIMIT // replay_smem_bytes(1))
 
 
 def _check_k(k: int, limit: int) -> None:
@@ -218,9 +207,15 @@ def tile_topk_torch(queries, points, norms, ids, n_active, *, k: int,
     (D², row) of the rows of tile ``ids[query, step]``, skipped tiles
     included, in :func:`exact_scores`' arithmetic; unfilled slots (+inf,
     INT32_MAX). Returns (dists (P, k), rows (P, k) int32)."""
-    n = points.shape[0]
+    return _pair_topk(exact_scores(queries, points, norms), ids, n_active,
+                      k=k, block_n=block_n)
+
+
+def _pair_topk(scores, ids, n_active, *, k: int, block_n: int):
+    """Every (query, step) pair's lexicographic top-k (D², row) of its
+    tile's rows, from (Q, n) ``scores``; unfilled slots (+inf, INT32_MAX)."""
+    n = scores.shape[1]
     pq, ps = _pairs(n_active, ids.shape[1])
-    scores = exact_scores(queries, points, norms)
     t = ids.long()[pq, ps]
     rows = t[:, None] * block_n + torch.arange(block_n, device=t.device)
     valid = rows < n
@@ -233,12 +228,22 @@ def tile_topk_torch(queries, points, norms, ids, n_active, *, k: int,
     return tv, ti
 
 
+def adc_tile_topk_torch(queries, lut, qdots, codes, labels, u, ids,
+                        n_active, *, k: int, block_n: int):
+    """Plain version of K14's part (a): :func:`tile_topk_torch` with
+    :func:`adc_scores` for the rows' D². Returns (dists (P, k), rows (P, k)
+    int32), the pairs query-major (:func:`_pairs`)."""
+    return _pair_topk(adc_scores(queries, lut, qdots, codes, labels, u), ids,
+                      n_active, k=k, block_n=block_n)
+
+
 def replay_torch(cand_d, cand_r, queries, centers, radii, ids, n_active, *,
                  k: int, gate: bool = True):
-    """Plain version of K13's part (b): the walk of :func:`_walk` with each
-    step's candidates the pair's tile top-k (``cand_d``/``cand_r`` (P, k),
-    :func:`tile_topk_torch`'s order). Returns the :func:`ivf_scan`
-    triple."""
+    """Plain version of the scans' part (b), K13's and K14's: the walk of
+    :func:`_walk` with each step's candidates the pair's tile top-k
+    (``cand_d``/``cand_r`` (P, k), :func:`tile_topk_torch`'s order) and the
+    gate over ``centers``/``radii`` (K14: the balls over the reconstructed
+    rows). Returns the :func:`ivf_scan` triple."""
     act = n_active.long()
     start = torch.cumsum(act, 0) - act
     last = max(cand_d.shape[0] - 1, 0)
@@ -312,7 +317,6 @@ def _pair_maps(ids: torch.Tensor, n_active: torch.Tensor) -> dict:
     first pair. Integer sums only (exact)."""
     nq, n_tiles = ids.shape
     dev = ids.device
-    act = n_active.long()
     pq, ps = _pairs(n_active, n_tiles)
     tiles = ids.long()[pq, ps]
     order = torch.sort(tiles, stable=True).indices
@@ -329,7 +333,13 @@ def _pair_maps(ids: torch.Tensor, n_active: torch.Tensor) -> dict:
         chunk_start=(tile_start[chunk_tile] + CHUNK * within).to(i32),
         chunk_count=torch.clamp_max(counts[chunk_tile] - CHUNK * within,
                                     CHUNK).to(i32),
-        pair_start=(torch.cumsum(act, 0) - act).to(i32))
+        pair_start=_pair_start(n_active))
+
+
+def _pair_start(n_active: torch.Tensor) -> torch.Tensor:
+    """Each query's first (query, step) pair, query-major (int32)."""
+    act = n_active.long()
+    return (torch.cumsum(act, 0) - act).to(torch.int32)
 
 
 def query_groups(n_active: torch.Tensor, max_pairs: int) -> list:
@@ -344,16 +354,16 @@ def query_groups(n_active: torch.Tensor, max_pairs: int) -> list:
         if b == a:
             raise InvalidInputError(
                 f"query {a} probes {int(cum[a]) - base} tiles, but the card "
-                f"has memory for K13's scratch of {max_pairs} at this k; "
-                f"search with a smaller k or nprobe")
+                f"has memory for the scan's scratch of {max_pairs} at this "
+                f"k; search with a smaller k or nprobe")
         groups.append((a, b))
         a, base = b, int(cum[b - 1])
     return groups or [(0, 0)]
 
 
 def _free_bytes(device) -> int:
-    """Device memory K13's scratch can take: the card's free memory and
-    what the caching allocator holds reserved but unused."""
+    """Device memory the scans' scratch can take: the card's free memory
+    and what the caching allocator holds reserved but unused."""
     return (torch.cuda.mem_get_info(device)[0]
             + torch.cuda.memory_reserved(device)
             - torch.cuda.memory_allocated(device))
@@ -369,7 +379,8 @@ def _scratch(n_pairs: int, k: int, device) -> tuple:
 
 def _launch_topk(queries, points, norms, centers, radii, maps, k, block_n,
                  gate):
-    """Part (a) on the card: (cand_d, cand_r, gate_lo2, gate_margin)."""
+    """K13's part (a) on the card: (cand_d, cand_r, gate_lo2,
+    gate_margin)."""
     n, d = points.shape
     n_pairs = maps["order"].shape[0]
     out = _scratch(n_pairs, k, queries.device)
@@ -387,6 +398,64 @@ def _launch_topk(queries, points, norms, centers, radii, maps, k, block_n,
     if err != 0:
         raise KernelFailureError(
             f"ivf_scan (tile top-k) launch failed: cudaError {err}")
+    return out
+
+
+def _launch_adc_topk(queries, lut, qdots, codes, labels, u, centers, radii,
+                     ids, n_active, pair_start, k, block_n, gate):
+    """K14's part (a) on the card, one block per query: (cand_d, cand_r,
+    gate_lo2, gate_margin), the pairs query-major (``pair_start``)."""
+    n, n_sub = codes.shape
+    nq, d = queries.shape
+    n_pairs = int(n_active.sum())
+    out = _scratch(n_pairs, k, queries.device)
+    # the rank path (k past the register lists) takes one block per pair
+    rank = k > 128 or (n_sub * lut.shape[2]) % 4 != 0
+    pq, ps = _pairs(n_active, ids.shape[1]) if rank else (None, None)
+    pair_query = None if pq is None else pq.to(torch.int32)
+    pair_tile = None if pq is None else ids.long()[pq, ps].to(torch.int32)
+    fn = _build.function("ivf_scan", "ivf_adc_tile_topk_launch",
+                         _ADC_ARGTYPES)
+    with torch.cuda.device(queries.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(queries.data_ptr(), lut.data_ptr(), qdots.data_ptr(),
+                 codes.data_ptr(), labels.data_ptr(), u.data_ptr(),
+                 centers.data_ptr(), radii.data_ptr(), ids.data_ptr(),
+                 n_active.data_ptr(), pair_start.data_ptr(),
+                 None if pair_query is None else pair_query.data_ptr(),
+                 None if pair_tile is None else pair_tile.data_ptr(),
+                 *(o.data_ptr() for o in out), nq, n_pairs, n, d,
+                 ids.shape[1], block_n, k, int(gate), n_sub, lut.shape[2],
+                 qdots.shape[1], _ABS, ops.SMEM_LIMIT, stream)
+    if err != 0:
+        raise KernelFailureError(
+            f"ivf_adc_scan (tile top-k) launch failed: cudaError {err}")
+    return out
+
+
+def _two_part(name, glue, part_a, queries, ids, n_active, k, gate):
+    """The scans on the card: for each group of queries whose scratch fits
+    (:func:`query_groups`), the glue (``glue(ids, n_active)``, a dict with
+    each query's ``pair_start``), part (a) (``part_a(a, b, maps)``, the
+    group's queries [a, b)) and part (b), counted once under ``name``."""
+    out = _outputs(queries.shape[0], k, queries.device)
+    fn = _build.function("ivf_scan", "ivf_replay_launch", _REPLAY_ARGTYPES)
+    budget = _free_bytes(queries.device) // (8 * k + PAIR_BYTES)
+    for a, b in query_groups(n_active, budget):
+        act = n_active[a:b]
+        maps = glue(ids[a:b], act)
+        cand = part_a(a, b, maps)
+        with torch.cuda.device(queries.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(*(c.data_ptr() for c in cand),
+                     maps["pair_start"].data_ptr(), act.data_ptr(),
+                     *(o[a:b].data_ptr() for o in out), b - a, k, int(gate),
+                     _REL1, stream)
+        if err != 0:
+            raise KernelFailureError(
+                f"{name} (replay) launch failed: cudaError {err}")
+        ops.LAUNCHES[name] += 1
+        del maps, cand
     return out
 
 
@@ -417,26 +486,10 @@ def ivf_scan(queries: torch.Tensor, points: torch.Tensor, norms: torch.Tensor,
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
     _check_card(queries, points, norms, centers, radii, ids, n_active)
-    out = _outputs(queries.shape[0], k, queries.device)
-    fn = _build.function("ivf_scan", "ivf_replay_launch", _REPLAY_ARGTYPES)
-    budget = _free_bytes(queries.device) // (8 * k + PAIR_BYTES)
-    for a, b in query_groups(n_active, budget):
-        act = n_active[a:b]
-        maps = _pair_maps(ids[a:b], act)
-        cand = _launch_topk(queries[a:b], points, norms, centers, radii,
-                            maps, k, block_n, gate)
-        with torch.cuda.device(queries.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = fn(*(c.data_ptr() for c in cand),
-                     maps["pair_start"].data_ptr(), act.data_ptr(),
-                     *(o[a:b].data_ptr() for o in out), b - a, k, int(gate),
-                     _REL1, stream)
-        if err != 0:
-            raise KernelFailureError(
-                f"ivf_scan (replay) launch failed: cudaError {err}")
-        ops.LAUNCHES["ivf_scan"] += 1
-        del maps, cand
-    return out
+    return _two_part(
+        "ivf_scan", _pair_maps, lambda a, b, maps: _launch_topk(
+            queries[a:b], points, norms, centers, radii, maps, k, block_n,
+            gate), queries, ids, n_active, k, gate)
 
 
 def ivf_adc_scan(queries: torch.Tensor, lut: torch.Tensor,
@@ -449,8 +502,9 @@ def ivf_adc_scan(queries: torch.Tensor, lut: torch.Tensor,
     q_s · codebook[s, c]``; qdots (Q, nlist) the routing dots; codes (n,
     n_sub) uint8; labels (n,) int32 list per sorted row; u (n,) fp32
     ‖x̂‖²; centers/radii the balls over the reconstructed rows. Returns the
-    :func:`ivf_scan` triple. On the card this launches K14; CPU tensors
-    take the plain twin."""
+    :func:`ivf_scan` triple. On the card this launches K14 (its glue, part
+    (a) and part (b), one counted launch for each group of queries); CPU
+    tensors take the plain twin."""
     n, n_sub = codes.shape
     nq, d = queries.shape
     n_codes, nlist = lut.shape[2], qdots.shape[1]
@@ -473,18 +527,9 @@ def ivf_adc_scan(queries: torch.Tensor, lut: torch.Tensor,
     ops.check_card_tensors(torch.uint8, codes=codes)
     ops.check_card_tensors(torch.int32, labels=labels, ids=ids,
                            n_active=n_active)
-    out = _outputs(nq, k, queries.device)
-    fn = _build.function("ivf_scan", "ivf_adc_scan_launch", _ADC_ARGTYPES)
-    with torch.cuda.device(queries.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(queries.data_ptr(), lut.data_ptr(), qdots.data_ptr(),
-                 codes.data_ptr(), labels.data_ptr(), u.data_ptr(),
-                 centers.data_ptr(), radii.data_ptr(), ids.data_ptr(),
-                 n_active.data_ptr(), *(o.data_ptr() for o in out), nq, n, d,
-                 centers.shape[0], block_n, k, int(gate), n_sub, n_codes,
-                 nlist, _REL1, _ABS, stream)
-    if err != 0:
-        raise KernelFailureError(
-            f"ivf_adc_scan launch failed: cudaError {err}")
-    ops.LAUNCHES["ivf_adc_scan"] += 1
-    return out
+    return _two_part(
+        "ivf_adc_scan", lambda i, act: {"pair_start": _pair_start(act)},
+        lambda a, b, maps: _launch_adc_topk(
+            queries[a:b], lut[a:b], qdots[a:b], codes, labels, u, centers,
+            radii, ids[a:b], n_active[a:b], maps["pair_start"], k, block_n,
+            gate), queries, ids, n_active, k, gate)

@@ -19,15 +19,19 @@ The gated round (K6) computes the same on a super-aligned set of active
 tiles only, short-circuits the rows the per-point Hamerly bound prunes, and
 also returns each row's lower bound on its second-nearest distance and each
 tile's count of pruned rows; skipped tiles and supers keep their carried
-values.
+values. On the card K6 runs, by width, on a tensor-core screen with an
+exact recheck (d >= 8, ``screened``) or on a split row pass (the row
+arithmetic in blocks at full occupancy, then the sums), and its kernels
+write the carries of skipped tiles and supers themselves; both give the
+template kernel's bits, which ``lloyd_assign_gated_template`` computes for
+the card tests and the smoke script.
 
 The batched rounds (K10a, K10b) are K3 and K6 over B independent problems
 in one launch, every argument and output with a leading problem axis and
 every problem gated by its own mask; row b is K3 (K6) on problem b,
-bitwise. At d >= 8 (``screened``) the card runs them on a tensor-core
-screen with an exact recheck, which writes K3's (K6's) bits; its counters
-(candidates per row, rows on the full scan) are read with
-``screen_stats``.
+bitwise. At d >= 8 (``screened``) the card runs them on the same screen,
+which writes K3's (K6's) bits; its counters (candidates per row, rows on
+the full scan) are read with ``screen_stats``.
 
 The untiled round (K4), the weighted and mini-batch fits' round, returns
 only labels and D² per row and the cluster sums (k, d) and counts (k,)
@@ -41,10 +45,10 @@ as the reference's do. Norms, D², partials, gaps, sums, counts, weights
 and the gate stay fp32. The plain twins widen the same way.
 
 ``lloyd_assign_tiled``, ``lloyd_assign_gated``, ``lloyd_assign_tiled_batched``,
-``lloyd_assign_gated_batched``, ``lloyd_assign`` and ``lloyd_assign_batched``
-launch the hand-written CUDA kernels (``csrc/lloyd_assign.cu``) for tensors
-on the card, and run the plain twins (``*_torch``) only for tensors on the
-CPU.
+``lloyd_assign_gated_batched``, ``lloyd_assign``, ``lloyd_assign_batched``
+and ``lloyd_assign_gated_template`` launch the hand-written CUDA kernels
+(``csrc/lloyd_assign.cu``) for tensors on the card, and run the plain twins
+(``*_torch``) only for tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -62,14 +66,14 @@ from repro_torch.kernels.kmeans_distance import tile_d2
 # the last int is the stream flag (1: bf16 points and centroids)
 _ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7
              + (ctypes.c_void_p,))
-_GATED_ARGTYPES = ((ctypes.c_void_p,) * 19 + (ctypes.c_int,) * 7
+_GATED_ARGTYPES = ((ctypes.c_void_p,) * 24 + (ctypes.c_int,) * 7
                    + (ctypes.c_void_p,))
 _BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 8
                      + (ctypes.c_void_p,))
-_GATED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 20 + (ctypes.c_int,) * 8
+_GATED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 24 + (ctypes.c_int,) * 8
                            + (ctypes.c_void_p,))
-# the screened route's counters of the last card launch of K10a and K10b:
-# (4,) int64 on the card, read with ``screen_stats``
+# the screened route's counters of the last card launch of K6, K10a and
+# K10b: (4,) int64 on the card, read with ``screen_stats``
 SCREEN_STATS: dict[str, torch.Tensor] = {}
 _PLAIN_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6
                    + (ctypes.c_void_p,))
@@ -246,7 +250,7 @@ def _cols(d, k, block_n, gated: bool = False) -> int:
 
 
 def screened(d: int, bf16: bool) -> bool:
-    """Whether the batched rounds (K10a, K10b) take the screened route on
+    """Whether K6, K10a and K10b take the screened route on
     the card for width ``d`` and the stream: d >= 8 and the row, padded to
     the tensor cores' depth (8 fp32 or 16 bf16 values), at most 512 bytes.
     The rule is the CUDA source's (``lloyd_assign_screened``)."""
@@ -257,8 +261,8 @@ def screened(d: int, bf16: bool) -> bool:
 
 def screen_stats(name: str) -> dict:
     """The screened route's counters of the last card launch of ``name``
-    (``"lloyd_assign_tiled_batched"`` or ``"lloyd_assign_gated_batched"``,
-    either stream): rows screened, their candidates, the most candidates of
+    (``"lloyd_assign_gated"``, ``"lloyd_assign_tiled_batched"`` or
+    ``"lloyd_assign_gated_batched"``, either stream): rows screened, their candidates, the most candidates of
     one row, and rows that took the full exact scan (a non-finite row or
     more than 16 candidates). Reading them synchronises the card."""
     rows, cand, most, full = (int(v) for v in SCREEN_STATS[name].tolist())
@@ -396,9 +400,30 @@ def lloyd_assign_gated(points: torch.Tensor, norms: torch.Tensor,
     and the ``prev_*`` carries from the previous round, at tile height
     ``block_n`` and fan-in ``tps``. Returns (labels, min_d2, lb, partials,
     gaps, super_sums, super_counts, pruned (T,) int32). On the card this
-    launches K6 (its two kernels count as one launch) over the full grid;
-    the outputs start as copies of the carries, so skipped tiles and supers
-    keep them. CPU tensors take the plain twin."""
+    launches K6 (its kernels count as one launch): on the screened route
+    where ``screened(d, bf16)`` (its counters read with ``screen_stats``),
+    else the split row pass; the kernels write every output, a skipped tile
+    or super copying its carries. CPU tensors take the plain twin."""
+    return _gated(points, norms, centroids, delta, thresh, absorb,
+                  prev_assign, prev_min_d2, prev_lb, prev_partials,
+                  prev_gaps, prev_super_sums, prev_super_counts, active,
+                  block_n=block_n, tps=tps, template=False)
+
+
+def lloyd_assign_gated_template(*args, block_n: int, tps: int):
+    """K6 as the template kernel computes it (``assign_tile_kernel``, the
+    route K6 took before the screened and split routes), at any width whose
+    staging fits: the arguments and returns of :func:`lloyd_assign_gated`.
+    The reference the card tests and the smoke script hold K6 to, bit for
+    bit; the engine never calls it, and it counts no launch. CPU tensors
+    take the plain twin."""
+    return _gated(*args, block_n=block_n, tps=tps, template=True)
+
+
+def _gated(points, norms, centroids, delta, thresh, absorb, prev_assign,
+           prev_min_d2, prev_lb, prev_partials, prev_gaps, prev_super_sums,
+           prev_super_counts, active, *, block_n: int, tps: int,
+           template: bool):
     _check(points, norms, centroids, block_n, tps)
     n, d = points.shape
     k = centroids.shape[0]
@@ -421,34 +446,49 @@ def lloyd_assign_gated(points: torch.Tensor, norms: torch.Tensor,
     bf16 = ops.check_round_tensors(points, centroids, norms=norms,
                                    delta=delta, thresh=thresh, absorb=absorb,
                                    prev_min_d2=prev_min_d2, prev_lb=prev_lb)
+    # the tile and super carries are read where a tile or super is skipped
+    prev_partials, prev_gaps, prev_super_sums, prev_super_counts = (
+        t.float().contiguous() for t in (prev_partials, prev_gaps,
+                                         prev_super_sums, prev_super_counts))
     ops.check_card_tensors(torch.int32, prev_assign=prev_assign)
     cols = _cols(d, k, block_n, gated=True)
-    fn = _build.function("lloyd_assign", "lloyd_assign_gated_launch",
-                         _GATED_ARGTYPES)
+    name = ("lloyd_assign_gated_template_launch" if template
+            else "lloyd_assign_gated_launch")
+    fn = _build.function("lloyd_assign", name, _GATED_ARGTYPES)
     dev = points.device
-    labels, md, lb = prev_assign.clone(), prev_min_d2.clone(), prev_lb.clone()
-    partials = prev_partials.float().clone()
-    gaps = prev_gaps.float().clone()
-    ssums = prev_super_sums.float().contiguous().clone()
-    scounts = prev_super_counts.float().contiguous().clone()
+    n_super = -(-n_tiles // tps)
+    labels = torch.empty(n, dtype=torch.int32, device=dev)
+    md = torch.empty(n, dtype=torch.float32, device=dev)
+    lb = torch.empty(n, dtype=torch.float32, device=dev)
+    partials = torch.empty(n_tiles, dtype=torch.float32, device=dev)
+    gaps = torch.empty(n_tiles, dtype=torch.float32, device=dev)
+    ssums = torch.empty((n_super, k, d), dtype=torch.float32, device=dev)
+    scounts = torch.empty((n_super, k), dtype=torch.float32, device=dev)
     pruned = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
     tile_acc = torch.empty((n_tiles, k, d + 1), dtype=torch.float32,
                            device=dev)
     act = active.to(torch.uint8).contiguous()
+    stats = (_stats("lloyd_assign_gated", dev)
+             if not template and screened(d, bf16) else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
                  delta.data_ptr(), thresh.data_ptr(), absorb.data_ptr(),
                  prev_assign.data_ptr(), prev_min_d2.data_ptr(),
-                 prev_lb.data_ptr(), act.data_ptr(), labels.data_ptr(),
-                 md.data_ptr(), lb.data_ptr(), partials.data_ptr(),
-                 gaps.data_ptr(), tile_acc.data_ptr(), ssums.data_ptr(),
-                 scounts.data_ptr(), pruned.data_ptr(), n, d, k, block_n,
-                 tps, cols, int(bf16), stream)
+                 prev_lb.data_ptr(), prev_partials.data_ptr(),
+                 prev_gaps.data_ptr(), prev_super_sums.data_ptr(),
+                 prev_super_counts.data_ptr(), act.data_ptr(),
+                 labels.data_ptr(), md.data_ptr(), lb.data_ptr(),
+                 partials.data_ptr(), gaps.data_ptr(), tile_acc.data_ptr(),
+                 ssums.data_ptr(), scounts.data_ptr(), pruned.data_ptr(),
+                 None if stats is None else stats.data_ptr(), n, d, k,
+                 block_n, tps, cols, int(bf16), stream)
     if err != 0:
-        raise KernelFailureError(f"lloyd_assign_gated launch failed: "
-                                 f"cudaError {err}")
-    ops.count_launch("lloyd_assign_gated", bf16)
+        raise KernelFailureError(f"lloyd_assign_gated"
+                                 f"{'_template' if template else ''} launch "
+                                 f"failed: cudaError {err}")
+    if not template:
+        ops.count_launch("lloyd_assign_gated", bf16)
     return labels, md, lb, partials, gaps, ssums, scounts, pruned
 
 
@@ -474,8 +514,8 @@ def lloyd_assign_gated_batched(points: torch.Tensor, norms: torch.Tensor,
     (B, S, k, d), super_counts (B, S, k), pruned (B, T) int32). On the card
     this launches K10b (its kernels count as one launch) over every
     problem's tiles, on the screened route where ``screened(d, bf16)``;
-    the outputs start as copies of the carries, so a skipped tile or super
-    keeps them. CPU tensors take the plain twin."""
+    the kernels write every output, a skipped tile or super copying its
+    carries. CPU tensors take the plain twin."""
     if points.dim() != 3 or centroids.dim() != 3:
         raise ValueError("points and centroids must be 3-D (B, rows, d)")
     bsz, n, d = points.shape
@@ -504,20 +544,28 @@ def lloyd_assign_gated_batched(points: torch.Tensor, norms: torch.Tensor,
     bf16 = ops.check_round_tensors(points, centroids, norms=norms,
                                    delta=delta, thresh=thresh, absorb=absorb,
                                    prev_min_d2=prev_min_d2, prev_lb=prev_lb)
+    # the tile and super carries are read where a tile or super is skipped
+    prev_partials, prev_gaps, prev_super_sums, prev_super_counts = (
+        t.float().contiguous() for t in (prev_partials, prev_gaps,
+                                         prev_super_sums, prev_super_counts))
     ops.check_card_tensors(torch.int32, prev_assign=prev_assign)
     cols = _cols(d, k, block_n, gated=True)
     n_tiles = -(-n // block_n)
+    n_super = -(-n_tiles // tps)
     if bsz * n_tiles >= 2 ** 31:
         raise ValueError(f"{bsz} problems of {n_tiles} tiles exceed the "
                          "grid's 2^31 - 1 blocks")
     fn = _build.function("lloyd_assign", "lloyd_assign_gated_batched_launch",
                          _GATED_BATCHED_ARGTYPES)
     dev = points.device
-    labels, md, lb = prev_assign.clone(), prev_min_d2.clone(), prev_lb.clone()
-    partials = prev_partials.float().contiguous().clone()
-    gaps = prev_gaps.float().contiguous().clone()
-    ssums = prev_super_sums.float().contiguous().clone()
-    scounts = prev_super_counts.float().contiguous().clone()
+    labels = torch.empty((bsz, n), dtype=torch.int32, device=dev)
+    md = torch.empty((bsz, n), dtype=torch.float32, device=dev)
+    lb = torch.empty((bsz, n), dtype=torch.float32, device=dev)
+    partials = torch.empty((bsz, n_tiles), dtype=torch.float32, device=dev)
+    gaps = torch.empty((bsz, n_tiles), dtype=torch.float32, device=dev)
+    ssums = torch.empty((bsz, n_super, k, d), dtype=torch.float32,
+                        device=dev)
+    scounts = torch.empty((bsz, n_super, k), dtype=torch.float32, device=dev)
     pruned = torch.zeros((bsz, n_tiles), dtype=torch.int32, device=dev)
     tile_acc = torch.empty((bsz, n_tiles, k, d + 1), dtype=torch.float32,
                            device=dev)
@@ -529,10 +577,12 @@ def lloyd_assign_gated_batched(points: torch.Tensor, norms: torch.Tensor,
         err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
                  delta.data_ptr(), thresh.data_ptr(), absorb.data_ptr(),
                  prev_assign.data_ptr(), prev_min_d2.data_ptr(),
-                 prev_lb.data_ptr(), act.data_ptr(), labels.data_ptr(),
-                 md.data_ptr(), lb.data_ptr(), partials.data_ptr(),
-                 gaps.data_ptr(), tile_acc.data_ptr(), ssums.data_ptr(),
-                 scounts.data_ptr(), pruned.data_ptr(),
+                 prev_lb.data_ptr(), prev_partials.data_ptr(),
+                 prev_gaps.data_ptr(), prev_super_sums.data_ptr(),
+                 prev_super_counts.data_ptr(), act.data_ptr(),
+                 labels.data_ptr(), md.data_ptr(), lb.data_ptr(),
+                 partials.data_ptr(), gaps.data_ptr(), tile_acc.data_ptr(),
+                 ssums.data_ptr(), scounts.data_ptr(), pruned.data_ptr(),
                  None if stats is None else stats.data_ptr(), bsz, n, d, k,
                  block_n, tps, cols, int(bf16), stream)
     if err != 0:

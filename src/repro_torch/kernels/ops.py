@@ -18,9 +18,12 @@ K10b at d >= 8 (their screened route) keep these tiles and this ``cols``
 for their sums and budget their own staging. The budget is Hopper's 227 KB
 per block; TPU VMEM budgets do not apply.
 
-The IVF scan (K13, K14; ``ivf_scan.py``) runs one block per query and
-budgets its own shared memory (``ivf_scan.max_k``); its tile height is the
-index's. The attention kernels (K15, K16; ``flash_attention.py``,
+K6 (one problem) runs the screened route at d >= 8 and a split row pass
+below, both on these tiles and this ``cols`` for the sums' bits.
+
+The IVF scan (K13, K14; ``ivf_scan.py``) runs in two parts and budgets its
+own shared memory (``ivf_scan.max_k``); its tile height is the index's.
+The attention kernels (K15, K16; ``flash_attention.py``,
 ``pq_decode.py``) take their tiles from their own sources and check their
 inputs with :func:`check_inputs`.
 

@@ -564,8 +564,9 @@ def test_k10b_matches_plain_keeps_carries_and_is_k6_row_by_row_on_the_card(
     pruned counts equal the plain twin's and some rows prune; pruned rows'
     label, D² and lb bitwise the twin's; D² within tolerance; skipped
     tiles and supers bitwise their carries; two launches the same bits;
-    rows 0, 1 and B−1 bitwise K6 on their problem (d = 2 and 16 take the
-    register-tiled path, d = 33 the runtime-d loop)."""
+    rows 0, 1 and B−1 bitwise the template's K6 on their problem
+    (``lloyd_assign_gated_template``; d = 2 takes K10b's template path,
+    d = 16 and 33 its screened route)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     bsz, n = 4, 20_011
     bn = ops.choose_block_n(n, d, k)
@@ -604,8 +605,8 @@ def test_k10b_matches_plain_keeps_carries_and_is_k6_row_by_row_on_the_card(
         assert torch.equal(out[sel], carry[sel])
     assert not got[7][skip].any()
     for b in (0, 1, bsz - 1):
-        k6 = la.lloyd_assign_gated(*(a[b] for a in args), block_n=bn,
-                                   tps=tps)
+        k6 = la.lloyd_assign_gated_template(*(a[b] for a in args),
+                                            block_n=bn, tps=tps)
         assert all(torch.equal(u[b], v) for u, v in zip(got, k6))
 
 

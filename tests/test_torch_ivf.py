@@ -363,6 +363,48 @@ def test_two_part_k13_is_the_walk_bitwise(pair, maps, gate):
         assert int(got[2].sum()) > 0
 
 
+def _adc_args(index, q, nprobe):
+    """K14's inputs from the port's routing at ``nprobe``: (lut, qdots,
+    codes, labels, u, pq centers, pq radii), ids, n_active."""
+    probed, qdots = ivf_mod._route(
+        q, index.centroids, index.centroid_norms, index.super_centers,
+        index.super_radii, index.super_sizes, nprobe=nprobe)
+    tiles = (probed.float() @ index.list_tiles.float()) > 0.0
+    ids, nact = bounds.compact_ids(tiles)
+    pq = index.pq
+    return ((ivf_mod._adc_lut(q, pq.codebook), qdots, pq.codes,
+             index.labels, pq.u, pq.centers, pq.radii), ids, nact)
+
+
+@pytest.mark.parametrize("gate", [True, False])
+@pytest.mark.parametrize("maps", [4, 8, 32, "random"])
+def test_two_part_k14_is_the_walk_bitwise(pair, maps, gate):
+    """K14's two parts in plain torch, every (query, step) pair's ADC top-k
+    of its tile (:func:`adc_tile_topk_torch`) and then each query's walk
+    over them (:func:`replay_torch`, the gate over the reconstruction's
+    balls), are the one-pass walk ``ivf_adc_scan_torch`` bitwise: dists,
+    rows and gate_skipped, at nprobe 4, 8 and 32 (= nlist, full probe) and
+    on random maps, gate on and off."""
+    _, pidx, qs = pair
+    q = torch.from_numpy(qs)
+    args, ids, nact = _adc_args(pidx, q, 8 if maps == "random" else maps)
+    if maps == "random":
+        ids, nact = _random_maps(np.random.default_rng(9), len(qs),
+                                 pidx.n_tiles)
+    kw = dict(k=CFG.k, block_n=CFG.block_n)
+    want = ks.ivf_adc_scan_torch(q, *args, ids, nact, gate=gate, **kw)
+    cd, cr = ks.adc_tile_topk_torch(q, *args[:5], ids, nact, **kw)
+    assert cd.shape == cr.shape == (int(nact.sum()), CFG.k)
+    assert cr.dtype == torch.int32
+    got = ks.replay_torch(cd, cr, q, args[5], args[6], ids, nact, k=CFG.k,
+                          gate=gate)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if not gate:
+        assert int(got[2].sum()) == 0
+    elif maps != 4:
+        assert int(got[2].sum()) > 0
+
+
 def test_two_part_k13_pads_past_a_tile(pair):
     """At k past a tile's rows the tile top-k is every row then (+inf,
     INT32_MAX) pads, and the two parts are still the walk bitwise."""
@@ -534,14 +576,20 @@ def test_guards_and_k_limit(pair):
         IvfIndex.build(pts, 4, engine=eng, layout="random")
     with pytest.raises(InvalidInputError, match="nlist"):
         IvfIndex.build(pts, 201, engine=eng)
-    # K13's limit: its part-(b) block (the carried and merged lists) fits
-    # and one more k does not; it is no lower than the one-block-per-query
-    # kernel's, whose block also held the query and the tile's candidates
+    # the scans' limit: their part-(b) block (the carried and merged lists)
+    # fits and one more k does not; it is no lower than the
+    # one-block-per-query kernels', whose block (16 bytes of static shared
+    # memory beside it) also held the query and the tile's candidates, and
+    # for K14 the LUT and the routing dots
     limit = ks.max_k(CFG.dim, CFG.block_n)
     assert ks.replay_smem_bytes(limit) <= ops.SMEM_LIMIT \
         < ks.replay_smem_bytes(limit + 1)
-    assert limit >= (ops.SMEM_LIMIT - ks.STATIC_SMEM
-                     - ks.smem_bytes(CFG.dim, 0, CFG.block_n)) // 16
+    assert limit >= (ops.SMEM_LIMIT - 16
+                     - 4 * (CFG.dim + 2 * CFG.block_n)) // 16
+    n_sub, n_codes = pidx.pq.codebook.centroids.shape[:2]
+    assert ks.max_k(CFG.dim, CFG.block_n, n_sub, n_codes, CFG.nlist) \
+        == limit >= (ops.SMEM_LIMIT - 16 - 4 * (
+            CFG.dim + 2 * CFG.block_n + n_sub * n_codes + CFG.nlist)) // 16
     ids, nact = bounds.compact_ids(torch.ones((2, pidx.n_tiles),
                                               dtype=torch.bool))
     with pytest.raises(InvalidInputError, match=str(limit)):
@@ -749,3 +797,43 @@ def test_k13_runs_in_query_groups_on_the_card(card, monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert all(torch.equal(a, b) for a, b in zip(
         got, ks.ivf_scan_torch(*args, k=10, block_n=idx.block_n)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 33, 100, 200, "max_k"])
+def test_k14_is_its_twin_bitwise_on_the_card(card, k):
+    """K14 on the card (part (a), a block per query, then K13's replay)
+    bitwise ``ivf_adc_scan_torch`` at k in each of part (a)'s register-list
+    widths and past them (the rank path), with 150 queries, and at
+    ``max_k`` with 4 queries, at nprobe 8 and full probe and on random
+    maps, gate on and off; part (a) bitwise its plain version; two launches
+    the same bits, each counted once."""
+    idx, q = _card_index(card)
+    if k == "max_k":
+        n_sub, n_codes = idx.pq.codebook.centroids.shape[:2]
+        q = q[:4].contiguous()
+        k = ks.max_k(q.shape[1], idx.block_n, n_sub, n_codes, idx.nlist)
+    else:
+        q = torch.cat([q, q, q[:22]]).contiguous()
+    for maps in (8, idx.nlist, "random"):
+        args, ids, nact = _adc_args(idx, q, 8 if maps == "random" else maps)
+        if maps == "random":
+            ids, nact = (t.to(card) for t in _random_maps(
+                np.random.default_rng(k), len(q), idx.n_tiles))
+        want_a = ks.adc_tile_topk_torch(q, *args[:5], ids, nact, k=k,
+                                        block_n=idx.block_n)
+        got_a = ks._launch_adc_topk(q, *args, ids, nact,
+                                    ks._pair_start(nact), k, idx.block_n,
+                                    True)
+        assert all(torch.equal(a, b) for a, b in zip(got_a, want_a))
+        for gate in (True, False):
+            ops.reset_launches()
+            got = ks.ivf_adc_scan(q, *args, ids, nact, k=k,
+                                  block_n=idx.block_n, gate=gate)
+            again = ks.ivf_adc_scan(q, *args, ids, nact, k=k,
+                                    block_n=idx.block_n, gate=gate)
+            assert ops.LAUNCHES["ivf_adc_scan"] == 2
+            want = ks.ivf_adc_scan_torch(q, *args, ids, nact, k=k,
+                                         block_n=idx.block_n, gate=gate)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+            assert all(torch.equal(a, b) for a, b in zip(got, again))

@@ -298,14 +298,14 @@ def test_distance_min_update_gated_all_active_is_k2():
 # ---------------------------------------------------------------------------
 
 
-def _k6_inputs(ref, k, mask, n=2400, block_n=128, tps=4):
+def _k6_inputs(ref, k, mask, n=2400, block_n=128, tps=4, d=2):
     """A carried state from one round of the reference's tiled kernel on
-    label-sorted blobs, its centroids moved slightly for two clusters (or
-    none at k = 1), the per-point lower bound sqrt(second best) − 1e-3 of
-    the previous round, and the mask: the reference's gate, all tiles, or
-    half the supers."""
+    label-sorted blobs of width ``d``, its centroids moved slightly for two
+    clusters (or none at k = 1), the per-point lower bound sqrt(second
+    best) − 1e-3 of the previous round, and the mask: the reference's gate,
+    all tiles, or half the supers."""
     jnp = ref.jnp
-    x = _sorted_blobs(n, 2, max(k, 2), seed=k)
+    x = _sorted_blobs(n, d, max(k, 2), seed=k)
     cache = ref.bounds.prologue(jnp.asarray(x), block_n)
     rng = np.random.default_rng(k)
     c0 = (x[rng.choice(n, k, replace=False)] + 0.01).astype(np.float32)
@@ -346,8 +346,25 @@ def test_lloyd_assign_gated_matches_reference(ref, k, mask):
     lower bounds within tolerance; pruned counts equal; every output of a
     skipped tile and super bitwise its carry; counts exact and sums within
     1e-5 of the rows' absolute sum where the labels agree."""
+    _check_k6_against_reference(ref, k, mask)
+
+
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("k", [1, 6])
+@pytest.mark.parametrize("mask", ["gate", "all", "half"])
+def test_lloyd_assign_gated_matches_reference_wide(ref, d, k, mask):
+    """The plain K6 against the reference's interpreted kernel at the widths
+    of the card's screened route, d = 16 (the PQ sweep's) and d = 128 (the
+    IVF build's), as at d = 2: labels outside near-ties, D² and lower
+    bounds within tolerance, pruned counts equal, skipped tiles and supers
+    bitwise their carries."""
+    _check_k6_against_reference(ref, k, mask, n=1200, d=d)
+
+
+def _check_k6_against_reference(ref, k, mask, n=2400, d=2):
     bn, tps = 128, 4
-    x, cache, c1, st, delta, thresh, absorb, act = _k6_inputs(ref, k, mask)
+    x, cache, c1, st, delta, thresh, absorb, act = _k6_inputs(ref, k, mask,
+                                                              n=n, d=d)
     jnp = ref.jnp
     want = [np.asarray(v) for v in ref.ops.lloyd_assign_gated(
         jnp.asarray(x), jnp.asarray(c1), cache.norms, jnp.asarray(delta),

@@ -285,6 +285,93 @@ def test_eps_copy_names_the_source_constants():
         assert const in rel, const
 
 
+def screened_gated(x, xn, c, delta, thresh, absorb, prev_a, prev_md,
+                   prev_lb, active, *, block_n: int, bf16: bool):
+    """A plain copy of K6's screened route (d >= 8), its labels, D² and lb:
+    the twin's prune (``bounds.assign_point_prune``), then on the rows it
+    keeps the candidate rule (every screened dot product pushed
+    adversarially) and the recheck's merge over the candidates, or over
+    every centroid for a row on the full scan; a pruned row keeps its
+    carried label and D² and takes lb = prev_lb - absorb; a skipped tile
+    keeps its carries. ``x`` and ``c`` are the stream's values widened."""
+    n = x.shape[0]
+    act_pt = bounds.expand_mask(active, block_n, n)
+    prune = bounds.assign_point_prune(
+        prev_a, prev_md, prev_lb, delta,
+        bounds.expand_mask(thresh, block_n, n), act_pt)
+    e, lab, _, second = exact_parts(x, c, xn)
+    want = torch.zeros_like(e, dtype=torch.bool)
+    want[torch.arange(n), lab] = True
+    want |= e == second[:, None]
+    cand, eps = screen(x, c, xn, bf16=bf16, adverse=want)
+    full = (eps < 0) | (cand.sum(dim=1) > MAX_CAND)
+    a, md, sec = merged(e, cand | full[:, None])
+    a = torch.where(prune, prev_a.long(), a)
+    md = torch.where(prune, prev_md, md)
+    lb = torch.where(prune,
+                     prev_lb - bounds.expand_mask(absorb, block_n, n),
+                     sec.sqrt())
+    return (torch.where(act_pt, a.int(), prev_a),
+            torch.where(act_pt, md, prev_md),
+            torch.where(act_pt, lb, prev_lb))
+
+
+@pytest.mark.parametrize("d", [8, 16, 128])
+@pytest.mark.parametrize("k", [1, 64, 256, 300])
+@pytest.mark.parametrize("bf16", [False, True], ids=["tf32", "bf16"])
+@pytest.mark.parametrize("shift", [0.0, 1e3], ids=["centred", "shifted"])
+def test_k6_screened_route_is_the_twin(d, k, bf16, shift):
+    """K6's screened route in plain torch (:func:`screened_gated`) from a
+    carried state (one all-active round without a bound, then two
+    centroids moved), bitwise ``lloyd_assign_gated_torch`` in labels, D²
+    and lb for the masks all, half the supers and the movement gate's,
+    both streams, on adversarial rows (k = 300 takes three wgmma groups)."""
+    bn, tps = 128, 2
+    x, c = adversarial(3 * d + k, 600, d, k, shift, nan_row=False)
+    n = x.shape[0]
+    cache = bounds.prologue(x, bn)
+    xs, cs, xn = _stream(x, c, bf16)   # the stream widened, fp32 norms
+    xk = x.bfloat16() if bf16 else x   # the stream as the round reads it
+    t = -(-n // bn)
+    s_ = -(-t // tps)
+    zt = torch.zeros(t)
+    first = la.lloyd_assign_gated_torch(
+        xk, xn, cs.to(xk.dtype), torch.zeros(k), zt, zt,
+        torch.zeros(n, dtype=torch.int32), torch.zeros(n),
+        torch.full((n,), -torch.inf), zt, zt, torch.zeros((s_, k, d)),
+        torch.zeros((s_, k)), torch.ones(t, dtype=torch.bool), block_n=bn,
+        tps=tps)
+    st = bounds.BoundState(first[3], tile_gap=first[4], tile_sums=first[5],
+                           tile_counts=first[6], assignment=first[0],
+                           min_d2=first[1], point_lb=first[2], lb_debt=zt)
+    c0 = cs
+    c1 = c0.clone()
+    if k > 1:
+        c1[[0, k - 1]] += 0.002
+    delta = bounds.centroid_movement(c1, c0)
+    c1 = _stream(x, c1, bf16)[1]
+    thresh, absorb = bounds.assign_point_scalars(delta, c1, st, cache)
+    masks = {"all": torch.ones(t, dtype=torch.bool),
+             "half": (torch.arange(t) // tps) % 2 == 0,
+             "gate": bounds.expand_active_supers(bounds.assign_active_tiles(
+                 delta, c1, st, cache, tps=tps), tps)}
+    pruned = 0
+    for name, act in masks.items():
+        carry = (st.assignment, st.min_d2, st.point_lb)
+        want = la.lloyd_assign_gated_torch(
+            xk, xn, c1.to(xk.dtype), delta, thresh, absorb, *carry,
+            st.partials, st.tile_gap, st.tile_sums, st.tile_counts, act,
+            block_n=bn, tps=tps)
+        got = screened_gated(xs, xn, c1, delta, thresh, absorb, *carry, act,
+                             block_n=bn, bf16=bf16)
+        assert torch.equal(got[0], want[0]), name
+        for g_, w_ in zip(got[1:], want[1:3]):
+            assert torch.equal(g_.view(torch.int32), w_.view(torch.int32)), \
+                name
+        pruned += int(want[7].sum())
+    assert pruned > 0 or k == 1 or shift > 0
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -317,7 +404,9 @@ def test_screened_rounds_are_k3_and_k6_row_by_row(card, d, k, dtype):
     """K10a and K10b on the screened route, on adversarial rows (duplicated
     centroids, rows between two centroids, a zero row, a NaN row, half the
     problems shifted by 1e3; k = 300 takes two centroid chunks): every
-    problem bitwise K3 (K6) on its slice, an all-active K10b with no
+    problem bitwise K3 (K10a) and the template's K6
+    (``lloyd_assign_gated_template``, K10b) on its slice, an all-active
+    K10b with no
     carried bound bitwise K10a, and the route taken."""
     assert la.screened(d, dtype == torch.bfloat16)
     xs, cs = zip(*(adversarial(7 + b, 3_000, d, k, 1e3 * (b % 2), True)
@@ -359,7 +448,85 @@ def test_screened_rounds_are_k3_and_k6_row_by_row(card, d, k, dtype):
     again = la.lloyd_assign_gated_batched(*args, block_n=bn, tps=tps)
     assert int(again[7].sum()) > 0
     for b in range(bsz):
-        one = la.lloyd_assign_gated(*(a[b] for a in args), block_n=bn,
-                                    tps=tps)
+        one = la.lloyd_assign_gated_template(*(a[b] for a in args),
+                                             block_n=bn, tps=tps)
         for u, v in zip(again, one):
             assert torch.equal(u[b].view(torch.int32), v.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 8, 13, 16, 128])
+@pytest.mark.parametrize("k", [1, 64, 256, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_routes_are_the_template_bitwise(card, d, k, dtype):
+    """K6 on its routes (the screened route at d >= 8, the split row pass
+    below) against the template kernel's entry on the same inputs, all eight
+    outputs bitwise (int32 views), for the masks all, half the supers and
+    the movement gate's, from a carried state on adversarial rows; with no
+    carried bound and every tile active bitwise K3; two launches the same
+    bits."""
+    x, c = adversarial(11 + d + k, 20_000, d, k, 0.0, False)
+    x, c = x.to(card), c.to(card)
+    n = x.shape[0]
+    bn = ops.choose_block_n(n, d, k)
+    t = -(-n // bn)
+    tps = bounds.tiles_per_super(t)
+    cache = bounds.prologue(x, bn)   # the fp32 points' norms and balls
+    norms = cache.norms
+    x = x.to(dtype)
+    c0 = c.float().contiguous()
+    zt = torch.zeros(t, device=card)
+    s = -(-t // tps)
+    args0 = (x, norms, c0.to(dtype), torch.zeros(k, device=card), zt, zt,
+             torch.zeros(n, dtype=torch.int32, device=card),
+             torch.zeros(n, device=card),
+             torch.full((n,), -torch.inf, device=card), zt, zt,
+             torch.zeros((s, k, d), device=card),
+             torch.zeros((s, k), device=card),
+             torch.ones(t, dtype=torch.bool, device=card))
+    first = la.lloyd_assign_gated(*args0, block_n=bn, tps=tps)
+    tmpl = la.lloyd_assign_gated_template(*args0, block_n=bn, tps=tps)
+    k3 = la.lloyd_assign_tiled(x, norms, c0.to(dtype), block_n=bn, tps=tps)
+    _bitwise(first, tmpl)
+    _bitwise((first[0], first[1], first[3], first[4], first[5], first[6]),
+             k3)
+    assert int(first[7].sum()) == 0
+    c1 = c0.clone()
+    if k > 1:
+        c1[[0, k - 1]] += 0.002
+    st = bounds.BoundState(first[3], tile_gap=first[4], tile_sums=first[5],
+                           tile_counts=first[6], assignment=first[0],
+                           min_d2=first[1], point_lb=first[2], lb_debt=zt)
+    delta = bounds.centroid_movement(c1, c0)
+    thresh, absorb = bounds.assign_point_scalars(delta, c1, st, cache)
+    masks = {"all": torch.ones(t, dtype=torch.bool, device=card),
+             "half": (torch.arange(t, device=card) // tps) % 2 == 0,
+             "gate": bounds.expand_active_supers(bounds.assign_active_tiles(
+                 delta, c1, st, cache, tps=tps), tps)}
+    for name, act in masks.items():
+        args = (x, norms, c1.to(dtype), delta, thresh, absorb,
+                st.assignment, st.min_d2, st.point_lb, st.partials,
+                st.tile_gap, st.tile_sums, st.tile_counts, act)
+        ops.reset_launches()
+        got = la.lloyd_assign_gated(*args, block_n=bn, tps=tps)
+        again = la.lloyd_assign_gated(*args, block_n=bn, tps=tps)
+        want = la.lloyd_assign_gated_template(*args, block_n=bn, tps=tps)
+        counted = "lloyd_assign_gated" + ("_bf16" if dtype == torch.bfloat16
+                                          else "")
+        assert ops.LAUNCHES[counted] == 2, name
+        assert sum(ops.LAUNCHES.values()) == 2, name
+        _bitwise(got, again)
+        _bitwise(got, want)
+        if la.screened(d, dtype == torch.bfloat16):
+            st_ = la.screen_stats("lloyd_assign_gated")
+            pruned = int(got[7].sum())
+            active_rows = int(bounds.expand_mask(act, bn, n).sum())
+            assert st_["rows"] == active_rows - pruned, name
+
+
+def _bitwise(got, want):
+    for u, v in zip(got, want):
+        assert u.dtype == v.dtype
+        if u.dtype == torch.float32:
+            u, v = u.view(torch.int32), v.view(torch.int32)
+        assert torch.equal(u, v)
