@@ -24,11 +24,13 @@ Phases, each of which exits non-zero on failure:
    (``wgmma``) and UTMALDG (TMA load) instructions in their SASS
    (``cuobjdump -sass``); their registers, spills, dynamic shared memory
    and instruction counts are printed, before any of them is launched.
-   The screened route's 20 kernels (K6, K10a, K10b: pass A
+   The screened route's 28 kernels (K6, K10a, K10b, K4, K9: pass A
    ``screen_kernel<stream, D, gated>``, D 0, 8, 16 or 128, pass B
-   ``reduce_kernel<stream, gated>``) must report no spill and pass A HGMMA
-   in its SASS (K6's d = 128 instances among them); K6's split row pass
-   (``row_kernel<stream, D>``) and K14's part (a)
+   ``reduce_kernel<stream, [gated | untiled], 8 or 4 columns>``) must
+   report no spill and pass A HGMMA in its SASS (K6's d = 128 instances
+   among them); K6's split row pass (``row_kernel<stream, D>``), K4's row
+   pass (``untiled_row_kernel<stream, R>``), the super reduces
+   (``super_reduce_kernel``, ``chain_reduce_kernel``) and K14's part (a)
    (``adc_pair_topk_kernel<kR>``, ``adc_tile_sort_kernel``) no spill;
    their registers are printed.
 2. Hold every kernel against its plain PyTorch twin on the card, at the
@@ -139,8 +141,13 @@ Phases, each of which exits non-zero on failure:
    n = 100,003, d = 128, k = 64, and K9 (K4 over a batch of problems) at
    ``kvquant-gemma2-2b``, against their plain twins (labels outside
    near-ties, D² within tolerance, sums and counts over the kernel's own
-   labels), two launches bitwise, K4's labels and D² bitwise K3's, K9's
-   rows 0, 1 and B−1 bitwise K4; K9's path, ``ops.lloyd_assign`` on the
+   labels), two launches bitwise, every launch bitwise the template entry
+   (``lloyd_assign_template``, ``lloyd_assign_batched_template``: K9 on
+   every problem) in all four outputs, K4's labels and D² bitwise K3's,
+   K9's rows 0, 1 and B−1 bitwise K4; each timed beside the template entry
+   and kernel by kernel (torch.profiler over the route's launches: pass A
+   or the row pass, pass B, the all-tile reduce), the screen's counters
+   printed where it is screened; K9's path, ``ops.lloyd_assign`` on the
    sweep's (B, n, d) points against its fitted codebooks, one counted
    launch, codes bitwise K10a's labels. Then the weighted
    ``ClusterEngine(device="cuda").kmeans`` at the paper's size for cdf,
@@ -416,28 +423,42 @@ def k15_build(_build, log: str) -> dict:
 
 
 def screen_build(_build, log: str) -> dict:
-    """The screened route's kernels (K6, K10a and K10b at d >= 8): pass A
-    (``screen_kernel<stream, D, gated>``, D the compiled width or 0) and
-    pass B (``reduce_kernel<stream, gated>``), as ``kernel_build`` reads
-    them."""
+    """The screened route's kernels (K6, K10a, K10b, K4 and K9 at d >= 8):
+    pass A (``screen_kernel<stream, D, gated>``, D the compiled width or 0)
+    and pass B (``reduce_kernel<stream, [gated | untiled], columns>``, the
+    tiled, gated and untiled instances at 8 and at 4 columns a slice), as
+    ``kernel_build`` reads them."""
     return kernel_build(
         _build, "lloyd_assign", log,
         r"(screen_kernel|reduce_kernel)I(f|13__nv_bfloat16)(?:Li(\d+)E)?"
-        r"Lb([01])E",
+        r"Lb([01])E(?:Lb([01])ELi(\d+)E)?",
         lambda m: (f"{m.group(1)}<{'fp32' if m.group(2) == 'f' else 'bf16'}"
                    + (f", {m.group(3)}" if m.group(3) else "")
-                   + (", gated>" if m.group(4) == "1" else ">")))
+                   + (", gated" if m.group(4) == "1" else "")
+                   + (", untiled" if m.group(5) == "1" else "")
+                   + (f", {m.group(6)} cols" if m.group(6) else "") + ">"))
 
 
 def split_build(_build, logs: dict) -> dict:
-    """K6's split row pass (``row_kernel<stream, D>``, D 2 or 0) and K14's
-    part (a) (``adc_pair_topk_kernel<kR>``, ``adc_tile_sort_kernel``), as
-    ``kernel_build`` reads them."""
+    """K6's split row pass (``row_kernel<stream, D>``, D 2 or 0), K4's row
+    pass (``untiled_row_kernel<stream, R>``, R rows a thread), the super
+    reduces (``super_reduce_kernel``,
+    ``chain_reduce_kernel``) and K14's part (a) (``adc_pair_topk_kernel
+    <kR>``, ``adc_tile_sort_kernel``), as ``kernel_build`` reads them."""
     out = kernel_build(
         _build, "lloyd_assign", logs["lloyd_assign"],
-        r"row_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+        r"(?<!untiled_)row_kernelI(f|13__nv_bfloat16)Li(\d+)E",
         lambda m: (f"row_kernel<{'fp32' if m.group(1) == 'f' else 'bf16'}, "
                    f"{m.group(2)}>"))
+    out.update(kernel_build(
+        _build, "lloyd_assign", logs["lloyd_assign"],
+        r"untiled_row_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+        lambda m: (f"untiled_row_kernel<"
+                   f"{'fp32' if m.group(1) == 'f' else 'bf16'}, "
+                   f"{m.group(2)}>")))
+    out.update(kernel_build(
+        _build, "lloyd_assign", logs["lloyd_assign"],
+        r"\d((?:super|chain)_reduce_kernel)E", lambda m: m.group(1)))
     out.update(kernel_build(
         _build, "ivf_scan", logs["ivf_scan"],
         r"adc_(pair_topk_kernelILi(\d)E|tile_sort_kernel)",
@@ -2226,11 +2247,43 @@ def gated_batched_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws,
     return cases, runs
 
 
+def untiled_times(torch, launch, template, args, kw, reps) -> dict:
+    """K4's or K9's route beside the template entry: each launch's median
+    time (CUDA events), and the route's device time by kernel, a launch's
+    mean over ``reps`` launches traced by torch.profiler (pass A or the row
+    pass, pass B and the all-tile reduce; the template's two kernels where
+    the route is the template)."""
+    out = {"ms": gpu_ms(torch, lambda: launch(*args, **kw), reps=reps),
+           "template_ms": gpu_ms(torch, lambda: template(*args, **kw),
+                                 reps=min(reps, 5))}
+    prof = profile_call(torch, lambda: [launch(*args, **kw)
+                                        for _ in range(reps)])
+    out["parts_ms"] = {}
+    for name, v in prof["kernels"].items():
+        m = re.search(r"((?:untiled_row|screen|reduce|super_reduce|"
+                      r"chain_reduce|assign_tile)_kernel)(<[^()]*>)?", name)
+        if m:
+            part = m.group(1) + (m.group(2) or "")
+            out["parts_ms"][part] = v["ms"] / reps
+    return out
+
+
+def untiled_text(c: dict) -> str:
+    parts = ", ".join(f"{name} {ms:.4f}" for name, ms in
+                      c["parts_ms"].items())
+    return (f"{c['route']}, bitwise the template entry; {c['ms']:.4f} ms "
+            f"(template entry {c['template_ms']:.4f} ms; by kernel, "
+            f"profiler: {parts})")
+
+
 def k4_case(torch, la, ops, bounds, pts, norms, k, gen, w=None):
-    """K4 on one shape, weighted or not: two launches bitwise, against its
-    plain twin (labels outside near-ties, D² within tolerance, sums and
-    counts over its own labels as ``super_sums_ok`` holds them), labels and
-    D² bitwise K3's on the same points and centroids; times and bound."""
+    """K4 on one shape, weighted or not: two launches bitwise, and bitwise
+    the template entry (``lloyd_assign_template``) in all four outputs;
+    against its plain twin (labels outside near-ties, D² within tolerance,
+    sums and counts over its own labels as ``super_sums_ok`` holds them),
+    labels and D² bitwise K3's on the same points and centroids; times
+    (the route, the template entry, the route's kernels by the profiler),
+    the screen's counters where it is screened, and the bound."""
     n, d = pts.shape
     bn = ops.choose_block_n(n, d, k)
     cents = pts[torch.randint(n, (k,), generator=gen,
@@ -2238,9 +2291,12 @@ def k4_case(torch, la, ops, bounds, pts, norms, k, gen, w=None):
     tag = f"K4 n={n} d={d} k={k}" + ("" if w is None else " weighted")
     out1 = la.lloyd_assign(pts, norms, cents, w, block_n=bn)
     out2 = la.lloyd_assign(pts, norms, cents, w, block_n=bn)
+    stats = screen_record(la, "lloyd_assign", pts, torch)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(out1, out2)),
           f"{tag}: two launches differ")
+    same_bits(torch, f"{tag} vs the template entry", out1,
+              la.lloyd_assign_template(pts, norms, cents, w, block_n=bn))
     lab, md, sums, counts = out1
     ref = la.lloyd_assign_torch(pts, norms, cents, w)
     tol = d2_tol(torch, norms, cents)
@@ -2257,24 +2313,34 @@ def k4_case(torch, la, ops, bounds, pts, norms, k, gen, w=None):
           f"{tag}: labels or D² are not bitwise K3's")
     fp32_ms = widened(torch, tag, lambda p, c: la.lloyd_assign(
         p, norms, c, w, block_n=bn), pts, cents, out1)
-    ms = gpu_ms(torch, lambda: la.lloyd_assign(pts, norms, cents, w,
-                                               block_n=bn))
+    scr = la.screened(d, pts.dtype == torch.bfloat16)
+    times = untiled_times(torch, la.lloyd_assign,
+                          la.lloyd_assign_template, (pts, norms, cents, w),
+                          dict(block_n=bn), 15)
     plain = gpu_ms(torch, lambda: la.lloyd_assign_torch(pts, norms, cents,
                                                         w), reps=5)
     nw = 0 if w is None else n
     xb = pts.element_size()
-    bms, by = round_bound_ms(torch, pts, xb * (n * d + k * d)
-                             + 4 * (3 * n + nw + k * (d + 1)),
-                             n * k * 2 * d, n * k * 3 + n * (d + 1) + nw * d)
+    work = (xb * (n * d + k * d) + 4 * (3 * n + nw + k * (d + 1)),
+            n * k * 2 * d, n * k * 3 + n * (d + 1) + nw * d)
+    bms, by = round_bound_ms(torch, pts, *work, tf32=scr)
+    if scr:
+        stats["fma_bound_ms"] = round_bound_ms(torch, pts, *work)[0]
     return dict(n=n, d=d, k=k, weighted=w is not None, block_n=bn,
-                stream=stream_tag(torch, pts), label_diffs=n_diff,
-                max_abs_err=err_md, tol=tol, ms=ms, plain_ms=plain,
-                fp32_ms=fp32_ms, bound_ms=bms, bound_by=by)
+                stream=stream_tag(torch, pts),
+                route=("screened" if scr else "row pass" if d == 2
+                       else "template"),
+                label_diffs=n_diff, max_abs_err=err_md, tol=tol,
+                plain_ms=plain, fp32_ms=fp32_ms, bound_ms=bms, bound_by=by,
+                **times, **stats)
 
 
 def k9_case(torch, la, kd, ops, pts, norms, k, gen):
-    """K9 at the batched shape: two launches bitwise, against its plain
-    twin (as K4), rows 0, 1 and B−1 bitwise K4 on their problem; times and
+    """K9 at the batched shape: two launches bitwise, and bitwise the
+    template entry (``lloyd_assign_batched_template``) in all four outputs,
+    so on every problem; against its plain twin (as K4), rows 0, 1 and B−1
+    bitwise K4 on their problem; times (the route, the template entry, the
+    route's kernels by the profiler), the screen's counters and the
     bound."""
     bsz, n, d = pts.shape
     bn = ops.choose_block_n(n, d, k)
@@ -2282,9 +2348,13 @@ def k9_case(torch, la, kd, ops, pts, norms, k, gen):
     cents = torch.take_along_dim(pts, idx, dim=1).contiguous()
     out1 = la.lloyd_assign_batched(pts, norms, cents, block_n=bn)
     out2 = la.lloyd_assign_batched(pts, norms, cents, block_n=bn)
+    stats = screen_record(la, "lloyd_assign_batched", pts, torch)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(out1, out2)),
           f"K9 k={k}: two launches differ")
+    same_bits(torch, f"K9 k={k} vs the template entry (every problem)",
+              out1, la.lloyd_assign_batched_template(pts, norms, cents,
+                                                     block_n=bn))
     lab, md, sums, counts = out1
     ref = la.lloyd_assign_batched_torch(pts, norms, cents)
     tol = d2_tol(torch, norms, cents.reshape(-1, d))
@@ -2305,18 +2375,24 @@ def k9_case(torch, la, kd, ops, pts, norms, k, gen):
     fp32_ms = widened(torch, f"K9 k={k}", lambda p, c: (
         la.lloyd_assign_batched(p, norms, c, block_n=bn)), pts, cents, out1,
         reps=5)
-    ms = gpu_ms(torch, lambda: la.lloyd_assign_batched(
-        pts, norms, cents, block_n=bn), reps=5)
+    scr = la.screened(d, pts.dtype == torch.bfloat16)
+    times = untiled_times(torch, la.lloyd_assign_batched,
+                          la.lloyd_assign_batched_template,
+                          (pts, norms, cents), dict(block_n=bn), 5)
     plain = gpu_ms(torch, lambda: la.lloyd_assign_batched_torch(
         pts, norms, cents), reps=1, warmup=0)
     xb = pts.element_size()
-    bms, by = round_bound_ms(
-        torch, pts, bsz * (xb * (n * d + k * d) + 4 * (3 * n + k * (d + 1))),
-        bsz * n * k * 2 * d, bsz * (n * k * 3 + n * (d + 1)))
+    work = (bsz * (xb * (n * d + k * d) + 4 * (3 * n + k * (d + 1))),
+            bsz * n * k * 2 * d, bsz * (n * k * 3 + n * (d + 1)))
+    bms, by = round_bound_ms(torch, pts, *work, tf32=scr)
+    if scr:
+        stats["fma_bound_ms"] = round_bound_ms(torch, pts, *work)[0]
     return dict(batch=bsz, n=n, d=d, k=k, block_n=bn,
-                stream=stream_tag(torch, pts), label_diffs=n_diff,
-                max_abs_err=err_md, tol=tol, ms=ms, plain_ms=plain,
-                fp32_ms=fp32_ms, bound_ms=bms, bound_by=by)
+                stream=stream_tag(torch, pts),
+                route="screened" if scr else "template",
+                label_diffs=n_diff, max_abs_err=err_md, tol=tol,
+                plain_ms=plain, fp32_ms=fp32_ms, bound_ms=bms, bound_by=by,
+                **times, **stats)
 
 
 def weighted_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws, paper,
@@ -2351,24 +2427,26 @@ def weighted_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws, paper,
                                 norms, k, gen, w) for w in (wts, None)]
     for c in cases["K4 bf16"]:
         print_bf16("K4" + (" weighted" if c["weighted"] else ""), c)
+        print(f"  K4 bf16 d={c['d']}: {untiled_text(c)}")
     for c in cases["K4"]:
         print(f"K4 n={c['n']} d={c['d']} k={c['k']}"
               + (" weighted" if c["weighted"] else "")
               + f": err {c['max_abs_err']:.3g} (tol {c['tol']:.3g}) label "
               f"diffs {c['label_diffs']}, labels and D² bitwise K3's; "
-              f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, bound "
-              f"{c['bound_ms']:.4f} ms ({c['bound_by']})")
+              f"{untiled_text(c)}, plain {c['plain_ms']:.4f} ms, bound "
+              f"{c['bound_ms']:.4f} ms ({c['bound_by']})" + screen_text(c))
     knorms = bounds.point_norms(kvq_pts)
     cases["K9 bf16"] = [k9_case(torch, la, kd, ops, kvq_pts.bfloat16(),
                                 knorms, kvq.k, gen)]
     print_bf16("K9", cases["K9 bf16"][0])
+    print(f"  K9 bf16: {untiled_text(cases['K9 bf16'][0])}")
     c = k9_case(torch, la, kd, ops, kvq_pts, knorms, kvq.k, gen)
     cases["K9"].append(c)
     print(f"K9 B={c['batch']} n={c['n']} d={c['d']} k={c['k']} label diffs "
           f"{c['label_diffs']}: err {c['max_abs_err']:.3g} (tol "
-          f"{c['tol']:.3g}), rows 0, 1, B-1 bitwise K4; {c['ms']:.4f} ms, "
+          f"{c['tol']:.3g}), rows 0, 1, B-1 bitwise K4; {untiled_text(c)}, "
           f"plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
-          f"({c['bound_by']})")
+          f"({c['bound_by']})" + screen_text(c))
     # K9's path: code every row of the sweep against its fitted codebook
     eng = ClusterEngine(device="cuda")
     book = eng.kmeans_batched(kvq_pts, kvq.k, max_iters=kvq.max_iters,
@@ -3295,10 +3373,10 @@ def main() -> int:
         check(c["registers"] >= 168,
               f"K15 {fn}: {c['registers']} registers at entry, too few "
               f"for setmaxnreg to raise two warpgroups to 232")
-    # the screened K6/K10a/K10b: no spill, pass A on the tensor cores (K6's
-    # d = 128 instances, the IVF build's, among them)
+    # the screened K6/K10a/K10b/K4/K9: no spill, pass A on the tensor cores
+    # (K6's d = 128 instances, the IVF build's, among them)
     report["screen_build"] = screen_build(_build, logs["lloyd_assign"])
-    check(len(report["screen_build"]) == 20,
+    check(len(report["screen_build"]) == 28,
           f"screen kernels in the SASS: {sorted(report['screen_build'])}")
     check(all(f"screen_kernel<{t}, 128, gated>" in report["screen_build"]
               for t in ("fp32", "bf16")),
@@ -3311,9 +3389,10 @@ def main() -> int:
         check(c["spill_bytes"] == 0, f"{fn} spills")
         check(c["HGMMA"] > 0 or fn.startswith("reduce"),
               f"{fn}: no HGMMA in its SASS")
-    # K6's split row pass and K14's part (a): no spill
+    # K6's split row pass, K4's row pass, the super reduces and K14's part
+    # (a): no spill
     report["split_build"] = split_build(_build, logs)
-    check(len(report["split_build"]) == 8,
+    check(len(report["split_build"]) == 14,
           f"row and ADC kernels in the SASS: {sorted(report['split_build'])}")
     for fn, c in sorted(report["split_build"].items()):
         check("registers" in c and "spill_bytes" in c,

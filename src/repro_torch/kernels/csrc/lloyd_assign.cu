@@ -88,10 +88,10 @@
 // carried bound is bitwise K10a. At d < 8, and past the widths below, both
 // run this file's template (assign_tile_kernel over B * n_tiles blocks,
 // block i taking tile i % n_tiles of problem i / n_tiles, every pointer
-// offset to its problem), as K3, K6, K4 and K9 always do.
+// offset to its problem), as K3 always does and K9 does there.
 //
 // At d >= 8 (the row padded to the tensor cores' depth, 8 fp32 or 16 bf16
-// values, at most 512 bytes: screen::screened) they and K6 take the
+// values, at most 512 bytes: screen::screened) they, K6, K4 and K9 take the
 // screened route, which writes the template's bits. What bounds the
 // template at the PQ codebook sweep (B = 1664, n = 16384, d = 16, k = 256;
 // 6.98e9 row and centroid pairs a round) is its fp32 fused multiply-adds,
@@ -100,8 +100,9 @@
 // loop. The screened route is two passes and the super reduce:
 //
 //   Pass A (screen::screen_kernel): one warpgroup per CTA, four CTAs an SM,
-//   each CTA cta_rows rows of one tile (K6: a persistent grid whose CTAs
-//   walk such items, staging the centroids once). It stages the problem's
+//   each CTA cta_rows rows of one tile (K6 and K4, one problem: a
+//   persistent grid whose CTAs walk such items, staging the centroids
+//   once). It stages the problem's
 //   centroids (256 at a time, zero-padded) and their norms cn, computed as
 //   the template does (+inf past k), in the 128-byte swizzle wgmma reads.
 //   K10b and K6 first apply the template's prune to every row (pruned rows
@@ -123,8 +124,9 @@
 //   whose xn, x or A' may not be finite (S + 2 eps below is not under 1e37),
 //   or that has more than 16 candidates, takes the template's full scan
 //   with fold. Pass A writes labels, md and lbo = sqrt(second) (K10b: its
-//   lb; K10a: a (B, n) scratch), counts its pruned rows into `pruned` with
-//   integer atomics, and adds its counters to `stats`.
+//   lb; K10a: a (B, n) scratch; K4 and K9, which keep no bound: none),
+//   counts its pruned rows into `pruned` with integer atomics, and adds its
+//   counters to `stats`.
 //
 //   Pass B (screen::reduce_kernel): the template's code after its row loop,
 //   on pass A's labels, md and lb: per tile the partial and the gap in the
@@ -133,7 +135,9 @@
 //   to adjacent blocks (a column's sums do not depend on the slicing), so
 //   three blocks share an SM and the tile's rows are read from device
 //   memory about once; a chunk's values of the slice are loaded together.
-//   Then super_reduce_kernel as before.
+//   Its untiled instance (K4, K9) writes no partial or gap and weighs the
+//   rows as the template's untiled instance does. Then super_reduce_kernel
+//   as before (one super a problem for K4 and K9).
 //
 // Why the recheck is exact. Let E_c be the D² the template computes for
 // centroid c and A_c = A'_c + xn the screened value, |A_c - E_c| <= eps
@@ -172,28 +176,53 @@
 // 111): labels and D² per row, and the cluster sums and counts over ALL rows,
 // (k, d) and (k,), with no per-tile partials or gaps. The TPU kernel folded
 // each tile's one-hot product into one resident accumulator, tile after
-// tile. Here it is K3's template with the partials and gaps compiled out
-// (Untiled = true) and one super spanning every tile: assign_tile_kernel
-// writes each tile's sums into the scratch array as for K3, and
-// super_reduce_kernel, one block, adds them in ascending tile order, the
-// TPU's order. So labels and D² are K3's bits, and no float atomics set
-// the sums. A weighted fit passes one weight per row: the row enters the
-// sums as w·x and its count as w, on the same fixed tree. This fuses the
-// reference's segment_update, which recomputes the sums with the weights
-// after the TPU kernel. What bounds it on the H100: bytes, as K3 (80 MB at
-// n = 4M, d = 2, about 24 us), the weights adding 4 bytes a row; the
-// reduce over tiles is one block's loop over n_tiles, a few tens of us at
-// the paper's shape.
+// tile. Here the sums keep the order of K3's template with one super
+// spanning every tile (the template's untiled instance, assign_tile_kernel
+// with Untiled = true): each block_n-row tile's sums in the template's warp,
+// chunk and lane order into a (n_tiles, k, d + 1) scratch array, then every
+// tile added in ascending order, the TPU's order. So labels and D² are K3's
+// bits, and no float atomics set the sums. A weighted fit passes one weight
+// per row: the row enters the sums as w·x and its count as w, on the same
+// fixed tree. This fuses the reference's segment_update, which recomputes
+// the sums with the weights after the TPU kernel. K4 takes one of three
+// routes, by width only:
+//   - d >= 8 within the screened widths (screen::screened): the screened
+//     route's pass A below (K10a's, with one problem) on K6's persistent
+//     grid, which writes labels and D²;
+//   - d = 2 (the paper's): the row pass, untiled_row_kernel: R consecutive
+//     rows a thread (R = 4 or 8, held in registers and loaded as 16-byte
+//     vectors), exact_d2 and the fold's best and first label over the
+//     centroids staged once a block, in blocks of 128 threads;
+//   both then run pass B's untiled instance (screen::reduce_kernel: the
+//   template's sums with the weights, in column slices, no partial or gap)
+//   and the all-tile reduce (chain_reduce_kernel: a block takes 8 outputs,
+//   stages their values of every tile in shared memory with every copy in
+//   flight, and one thread an output adds them in ascending tile order);
+//   - every other width (d = 1, 3..7, rows past the screened widths): the
+//     template's untiled instance, as K9 below d = 8.
+// What bounds it on the H100 at the paper's shape: bytes, as K3 (80 MB at
+// n = 4M, d = 2, about 24 us), the weights adding 4 bytes a row; the fold
+// is about 10 issued instructions a (row, centroid) pair (2 FFMA, the
+// three pinned adds, the clamp, a compare and two selects; 8 on fp32
+// streams, which clamp after the fold), about 0.06 ms of issue for 2e8
+// pairs on 132 SMs, and pass B's shuffle chains come next.
 //
 // K9 replaces lloyd_assign.py::lloyd_assign_batched_pallas (its pallas_call
-// at line 201): K4 over B independent problems, as the template's K10a is
-// to K3. Both
-// grids are B blocks wide per tile (per problem for the reduce); block i
-// takes tile i % n_tiles of problem i / n_tiles, its pointers offset to that
-// problem, and the reduce's block b adds problem b's tiles. Row b is K4 on
-// problem b, bitwise. It takes no weights, as the reference's batched
-// problems take none. At the PQ codebook sweep (B = 1664, n = 16384,
-// d = 16, k = 256) its operation bound is K10a's, 3.65 ms.
+// at line 201): K4 over B independent problems, as K10a is to K3. At d >= 8
+// (screen::screened) it takes the screened route's pass A with B problems
+// (K10a's grid), then pass B's untiled instance and the all-tile reduce,
+// one super a problem; below, the template (assign_tile_kernel over
+// B * n_tiles blocks, block i taking tile i % n_tiles of problem
+// i / n_tiles, then super_reduce_kernel). Row b is K4 on problem b,
+// bitwise. It takes no weights, as the reference's batched problems take
+// none. At the PQ codebook sweep (B = 1664, n = 16384, d = 16, k = 256) its
+// fp32-FMA bound is K10a's, 3.65 ms; the screen's, 0.77 ms.
+//
+// Both routes of K4 and K9 write the template's bits in all four outputs;
+// the template's untiled instance stays reachable
+// (lloyd_assign_template_launch, lloyd_assign_batched_template_launch),
+// called only by the card tests and the smoke script, which hold K4 and K9
+// to it bit for bit.
 //
 // All six also take a bf16 point stream (the engine's precision="bf16", the
 // TPU kernels' bf16 tiles into the MXU): assign_tile_kernel is instantiated
@@ -246,10 +275,10 @@ __device__ __forceinline__ float widen(__nv_bfloat16 v) {
 // then xn - 2dt, then + cn; read from the SASS of every instance), so the
 // three adds are pinned in that form here: the single-problem rounds keep
 // their bits, and the screen's recheck (below) reproduces them. D > 0
-// unrolls the loop.
+// unrolls the loop. raw_d2 is the value before the clamp.
 template <int D, typename XF, typename CF>
-__device__ __forceinline__ float exact_d2(XF x, CF c, int d, float xn,
-                                          float cn) {
+__device__ __forceinline__ float raw_d2(XF x, CF c, int d, float xn,
+                                        float cn) {
   float dt = 0.f;
   if constexpr (D > 0) {
 #pragma unroll
@@ -257,7 +286,12 @@ __device__ __forceinline__ float exact_d2(XF x, CF c, int d, float xn,
   } else {
     for (int j = 0; j < d; ++j) dt = fmaf(x(j), c(j), dt);
   }
-  return nan_max(__fadd_rn(__fsub_rn(xn, __fadd_rn(dt, dt)), cn), 0.f);
+  return __fadd_rn(__fsub_rn(xn, __fadd_rn(dt, dt)), cn);
+}
+template <int D, typename XF, typename CF>
+__device__ __forceinline__ float exact_d2(XF x, CF c, int d, float xn,
+                                          float cn) {
+  return nan_max(raw_d2<D>(x, c, d, xn, cn), 0.f);
 }
 
 // Folds centroid c's d2 into a row's (best, second, label).
@@ -609,12 +643,44 @@ assign_tile_kernel(const T* __restrict__ points,
                                 rows, d, k, cols);
 }
 
+// 16-byte asynchronous copy global -> shared; src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(src_bytes) : "memory");
+}
+// 4-byte asynchronous copy global -> shared; src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
+               "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// chain_reduce_kernel reads this many staged values of an output together
+constexpr int kAhead = 16;
+// supers of at least kLongChain tiles take chain_reduce_kernel: a block
+// takes kChainOuts outputs (one 32-byte sector of each tile's values) and
+// stages them kChainTiles tiles at a time
+constexpr int kLongChain = 64;
+constexpr int kChainOuts = 8;
+constexpr int kChainTiles = 1024;
+
 // `active` (K6, K10b; null for the ungated rounds) skips a super none of
 // whose tiles computed in its problem: its sums and counts are copied from
 // prev_ssums / prev_scounts. Block (i, y)
 // reduces super i % n_super of problem i / n_super, its outputs
-// y, y + gridDim.y, ... in units of kThreads (each output's tiles added in
-// ascending order, whatever the split).
+// y, y + gridDim.y, ... in units of blockDim.x (each output's tiles added
+// in ascending order, whatever the split). Ungated supers of kLongChain
+// tiles or more (K4's one super) take chain_reduce_kernel instead.
 __global__ void __launch_bounds__(kThreads)
 super_reduce_kernel(const float* __restrict__ tile_acc, float* __restrict__ ssums,
                     float* __restrict__ scounts,
@@ -630,8 +696,8 @@ super_reduce_kernel(const float* __restrict__ tile_acc, float* __restrict__ ssum
   ssums += (size_t)b * n_super * k * d;
   scounts += (size_t)b * n_super * k;
   const int t_end = min((s + 1) * tps, n_tiles);
-  const int first = blockIdx.y * kThreads + threadIdx.x;
-  const int step = gridDim.y * kThreads;
+  const int first = blockIdx.y * blockDim.x + threadIdx.x;
+  const int step = gridDim.y * blockDim.x;
   if (active != nullptr) {
     active += (size_t)b * n_tiles;
     bool any = false;
@@ -657,18 +723,106 @@ super_reduce_kernel(const float* __restrict__ tile_acc, float* __restrict__ ssum
   }
 }
 
-// super_reduce_kernel over batch problems of n_super supers, the outputs of a
-// super split over blocks so that each thread takes at least four
+// The super reduce of supers spanning many tiles (K4's one super: 977 at
+// the paper's shape), where one thread's chain of loads, however far ahead,
+// holds few bytes in flight: block (i, y) takes outputs y * kChainOuts ..
+// + kChainOuts - 1 of super i % n_super of problem i / n_super, all 256
+// threads stage their values of up to kChainTiles tiles into shared memory
+// with cp.async (every copy in flight at once), and one thread an output
+// adds them in ascending tile order from 0, super_reduce_kernel's chain.
+// Ungated only (no `active`).
+__global__ void __launch_bounds__(kThreads)
+chain_reduce_kernel(const float* __restrict__ tile_acc,
+                    float* __restrict__ ssums, float* __restrict__ scounts,
+                    int n_tiles, int d, int k, int tps) {
+  __shared__ float vals[kChainTiles * kChainOuts];   // (tile, output)
+  const int width = d + 1;
+  const int n_super = (n_tiles + tps - 1) / tps;
+  const int b = blockIdx.x / n_super;
+  const int s = blockIdx.x - b * n_super;
+  tile_acc += (size_t)b * n_tiles * k * width;
+  ssums += (size_t)b * n_super * k * d;
+  scounts += (size_t)b * n_super * k;
+  const int t0 = s * tps;
+  const int nt = min(t0 + tps, n_tiles) - t0;
+  const int o0 = blockIdx.y * kChainOuts;
+  const int no = min(kChainOuts, k * width - o0);
+  const size_t stride = (size_t)k * width;
+  const float* p = tile_acc + (size_t)t0 * stride + o0;
+  const int tid = threadIdx.x;
+  const uint32_t vals_s =
+      static_cast<uint32_t>(__cvta_generic_to_shared(vals));
+  float acc = 0.f;
+  for (int c0 = 0; c0 < nt; c0 += kChainTiles) {
+    const int ct = min(kChainTiles, nt - c0);
+    for (int i = tid; i < ct * kChainOuts; i += kThreads) {
+      const int t = i / kChainOuts, g = i - t * kChainOuts;
+      if (g < no)
+        cp_async4(vals_s + 4 * i, p + (size_t)(c0 + t) * stride + g, 4);
+    }
+    cp_async_commit();
+    cp_async_wait0();
+    __syncthreads();
+    if (tid < no) {
+      // kAhead values read together, then added in order
+      int t = 0;
+      for (; t + kAhead <= ct; t += kAhead) {
+        float v[kAhead];
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u)
+          v[u] = vals[(t + u) * kChainOuts + tid];
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u) acc += v[u];
+      }
+      for (; t < ct; ++t) acc += vals[t * kChainOuts + tid];
+    }
+    __syncthreads();
+  }
+  if (tid < no) {
+    const int o = o0 + tid, c = o / width, j = o - c * width;
+    if (j == d)
+      scounts[(size_t)s * k + c] = acc;
+    else
+      ssums[((size_t)s * k + c) * d + j] = acc;
+  }
+}
+
+// the card's SM count
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return max(sms, 1);
+}
+
+// The super reduce over batch problems of n_super supers: ungated supers of
+// kLongChain tiles or more by chain_reduce_kernel; otherwise
+// super_reduce_kernel, the outputs of a super split over blocks, four a
+// thread of kThreads, or, where that grid would leave most SMs idle, halved
+// down to one warp's 32 a block, so that the chains run on many SMs
 int launch_super_reduce(const float* tile_acc, float* ssums, float* scounts,
                         const unsigned char* active, const float* prev_ssums,
                         const float* prev_scounts, int batch, int n_tiles,
                         int d, int k, int tps, cudaStream_t s) {
   const int n_super = (n_tiles + tps - 1) / tps;
-  const int per = 4 * kThreads;
-  const int splits = min((k * (d + 1) + per - 1) / per, 64);
-  super_reduce_kernel<<<dim3((unsigned)batch * n_super, splits), kThreads, 0,
-                        s>>>(tile_acc, ssums, scounts, active, prev_ssums,
-                             prev_scounts, n_tiles, d, k, tps);
+  const int outs = k * (d + 1);
+  const int groups = (outs + kChainOuts - 1) / kChainOuts;
+  if (active == nullptr && tps >= kLongChain && groups <= 65535) {
+    chain_reduce_kernel<<<dim3((unsigned)batch * n_super, (unsigned)groups),
+                          kThreads, 0, s>>>(tile_acc, ssums, scounts,
+                                            n_tiles, d, k, tps);
+    return (int)cudaGetLastError();
+  }
+  const auto splits = [&](int per) { return (outs + per - 1) / per; };
+  int per = 4 * kThreads;
+  const long long want = 2LL * sm_count();
+  while (per > 32 && (long long)batch * n_super * splits(per) < want)
+    per /= 2;
+  super_reduce_kernel<<<dim3((unsigned)batch * n_super,
+                             (unsigned)min(splits(per), 65535)),
+                        min(per, kThreads), 0, s>>>(
+      tile_acc, ssums, scounts, active, prev_ssums, prev_scounts, n_tiles, d,
+      k, tps);
   return (int)cudaGetLastError();
 }
 
@@ -700,7 +854,7 @@ __host__ __device__ inline int padded_d(int d, bool bf16) {
   return (d + q - 1) / q * q;
 }
 
-// whether K6, K10a and K10b take the screened route at width d
+// whether K6, K10a, K10b, K4 and K9 take the screened route at width d
 __host__ __device__ inline bool screened(int d, bool bf16) {
   return d >= 8 && padded_d(d, bf16) * (bf16 ? 2 : 4) <= kMaxChunks * 128;
 }
@@ -829,25 +983,6 @@ __device__ __forceinline__ float screen_eps(float xx, float xn, float cnmax,
   return S + 2.f * eps < 1e37f ? eps : -1.f;
 }
 
-// 16-byte asynchronous copy global -> shared; src_bytes 0 writes zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
-               "l"(src), "r"(src_bytes) : "memory");
-}
-// 4-byte asynchronous copy global -> shared; src_bytes 0 writes zeros
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
-               "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
-}
-
 // the D (> 0) values of row r of a staged tile of one 128-byte chunk (D
 // values of at most 64 bytes), read as 16-byte units
 template <int D, typename B>
@@ -924,15 +1059,15 @@ __device__ __forceinline__ float wide_d2(const unsigned char* xt, int r,
 }
 
 // Pass A. Items of cta_rows rows of one tile of one problem go to CTAs (one
-// warpgroup each): item blockIdx.x for K10a and K10b (one item a CTA);
-// items blockIdx.x, blockIdx.x + gridDim.x, ... for one problem of the
-// gated round (K6), a persistent grid of the CTAs that fit the card, which
-// stages the centroids once and walks many items. The gated rounds (K10b,
-// K6) first write an item's pruned rows from their carries and list the
-// others; then the rows (K10a: all; the gated rounds: the listed ones) go
-// in batches of 64 through the screen and the recheck, which write labels,
-// md and lbo = sqrt(second) (gated: g.lb). A skipped tile's rows are copied
-// from the carries. D > 0: d == D and 16-byte aligned rows, staged by
+// warpgroup each), CTA i taking items i, i + gridDim.x, ...: for K10a, K10b
+// and K9 one item a CTA; for one problem (K6, K4) a persistent grid of the
+// CTAs that fit the card, which stages the centroids once and walks many
+// items. The gated rounds (K10b, K6) first write an item's pruned rows from
+// their carries and list the others; then the rows (K10a, K4, K9: all; the
+// gated rounds: the listed ones) go in batches of 64 through the screen and
+// the recheck, which write labels, md and, where lbo is not null,
+// lbo = sqrt(second) (gated: g.lb). A skipped tile's rows are copied from
+// the carries. D > 0: d == D and 16-byte aligned rows, staged by
 // cp.async one batch ahead (D = 128: rows of several 128-byte chunks, read
 // unit by unit); D == 0: any d, staged in place. stats (4): rows screened,
 // their candidates, the most candidates of one row, rows on the full scan.
@@ -1024,8 +1159,8 @@ screen_kernel(const T* __restrict__ points, const float* __restrict__ norms,
   unsigned long long n_rows = 0, n_cand = 0, max_cand = 0, n_full = 0;
   float acc[64];
 
-  // one item: its rows' outputs (K10a's grid has one item a CTA; the gated
-  // rounds' CTAs loop over theirs)
+  // one item: its rows' outputs (a batched grid has one item a CTA; a
+  // persistent one's CTAs loop over theirs)
   const auto run_item = [&](long long item) {
     const int b = (int)(item / ((long long)n_tiles * spt));
     const int rem = (int)(item - (long long)b * n_tiles * spt);
@@ -1047,7 +1182,7 @@ screen_kernel(const T* __restrict__ points, const float* __restrict__ norms,
     nrm = norms + nb;
     lab_o = labels + nb;
     md_o = md + nb;
-    lb_o = lbo + nb;
+    lb_o = lbo == nullptr ? nullptr : lbo + nb;
 
     if (b != cur_b) {
       // the problem's centroids: cn exactly as the template stages it, +inf
@@ -1436,7 +1571,7 @@ screen_kernel(const T* __restrict__ points, const float* __restrict__ norms,
         const long long row = row_of(first + r);
         lab_o[row] = a;
         md_o[row] = best;
-        lb_o[row] = sqrtf(second);
+        if (lb_o != nullptr) lb_o[row] = sqrtf(second);
         const int cnt = cnt_s[r];
         if (eps_s[r] >= 0.f) {
           n_cand += cnt;
@@ -1448,12 +1583,8 @@ screen_kernel(const T* __restrict__ points, const float* __restrict__ norms,
       __syncthreads();
     }
   };
-  if constexpr (Gated) {
-    for (long long item = blockIdx.x; item < n_items; item += gridDim.x)
-      run_item(item);
-  } else {
-    run_item(blockIdx.x);
-  }
+  for (long long item = blockIdx.x; item < n_items; item += gridDim.x)
+    run_item(item);
   __syncthreads();
   if (n_rows) {
     atomicAdd(&st_s[0], n_rows);
@@ -1477,10 +1608,17 @@ screen_kernel(const T* __restrict__ points, const float* __restrict__ norms,
 // writes the partial and the gap, or for a skipped tile (the gated rounds)
 // copies them from prev_partials / prev_gaps. Each column's sums
 // are the template's bits whatever the slicing. The gated rounds' pruned
-// counts came from pass A.
-template <typename T, bool Gated>
-__global__ void __launch_bounds__(kThreads)
-reduce_kernel(const T* __restrict__ points, const int* __restrict__ labels,
+// counts came from pass A. Untiled (K4, K9): the template's untiled
+// instance, the labels alone read, no partial or gap, and each row weighed
+// by `weights` (K4; null: 1). kC: the most columns a slice (4 for narrow
+// slices, fewer registers). The launch bounds name the three blocks an SM
+// it is sized for, so that ptxas does not trim registers into spills to
+// fit a fourth.
+template <typename T, bool Gated, bool Untiled = false,
+          int kC = kSliceCols>
+__global__ void __launch_bounds__(kThreads, 3)
+reduce_kernel(const T* __restrict__ points, const float* __restrict__ weights,
+              const int* __restrict__ labels,
               const float* __restrict__ md, const float* __restrict__ lbo,
               const unsigned char* __restrict__ active,
               const float* __restrict__ prev_partials,
@@ -1502,8 +1640,12 @@ reduce_kernel(const T* __restrict__ points, const int* __restrict__ labels,
   }
   points += (size_t)b * n * d;
   labels += (size_t)b * n;
-  md += (size_t)b * n;
-  lbo += (size_t)b * n;
+  if (Untiled) {
+    if (weights != nullptr) weights += (size_t)b * n;
+  } else {
+    md += (size_t)b * n;
+    lbo += (size_t)b * n;
+  }
   extern __shared__ float smem[];
   float* red_sum = smem;                               // (kThreads,)
   float* red_gap = red_sum + kThreads;                 // (kThreads,)
@@ -1514,6 +1656,8 @@ reduce_kernel(const T* __restrict__ points, const int* __restrict__ labels,
   const int rows = (int)min((long long)block_n, (long long)n - tile0);
   float local_sum = 0.f;
   float local_gap = CUDART_INF_F;
+  // the partial and the gap (slice 0 of a tiled round)
+  const bool tail = !Untiled && slice == 0;
   // rows tid, tid + 256, ... as the template's thread takes them, their
   // loads issued eight at a time
   constexpr int kU = 8;
@@ -1525,27 +1669,27 @@ reduce_kernel(const T* __restrict__ points, const int* __restrict__ labels,
       const int r = r0 + u * kThreads;
       const bool ok = r < rows;
       lab[u] = ok ? labels[tile0 + r] : 0;
-      m[u] = ok && slice == 0 ? md[tile0 + r] : 0.f;
-      lb[u] = ok && slice == 0 ? lbo[tile0 + r] : 0.f;
+      m[u] = ok && tail ? md[tile0 + r] : 0.f;
+      lb[u] = ok && tail ? lbo[tile0 + r] : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
       const int r = r0 + u * kThreads;
       if (r < rows) {
         lab_sh[r] = lab[u];
-        if (slice == 0) {
+        if (tail) {
           local_sum += m[u];
           local_gap = nan_min(local_gap, lb[u] - sqrtf(m[u]));
         }
       }
     }
   }
-  if (slice == 0)
+  if (tail)
     tile_partial_gap(red_sum, red_gap, local_sum, local_gap,
                      partials + tile, gaps + tile);
   const int j0 = slice * cols;
-  tile_cluster_sums<T, false, kSliceCols>(
-      points + tile0 * d, nullptr, tile0, lab_sh, acc_sh,
+  tile_cluster_sums<T, Untiled, kC>(
+      points + tile0 * d, Untiled ? weights : nullptr, tile0, lab_sh, acc_sh,
       tile_acc + (size_t)tile * k * (d + 1), rows, d, k, cols, j0,
       min(j0 + cols, d + 1));
 }
@@ -1557,14 +1701,15 @@ inline size_t reduce_smem_bytes(int k, int block_n, int cols) {
 }
 
 // Pass B and the super reduce on the row pass's labels, md and lbo (the
-// gated rounds: g.lb); the carries as `g` gives them. Returns the first
-// CUDA error.
-template <typename T, bool Gated>
-int launch_reduce(const T* points, const int* labels, const float* md,
-                  const float* lbo, const Gate& g, float* partials,
-                  float* gaps, float* tile_acc, float* ssums, float* scounts,
-                  int batch, int n, int d, int k, int block_n, int tps,
-                  cudaStream_t s) {
+// gated rounds: g.lb); the carries as `g` gives them. Untiled (K4, K9,
+// which pass tps = n_tiles: one super a problem): pass B's untiled
+// instance with `weights` (may be null). Returns the first CUDA error.
+template <typename T, bool Gated, bool Untiled = false>
+int launch_reduce(const T* points, const float* weights, const int* labels,
+                  const float* md, const float* lbo, const Gate& g,
+                  float* partials, float* gaps, float* tile_acc, float* ssums,
+                  float* scounts, int batch, int n, int d, int k,
+                  int block_n, int tps, cudaStream_t s) {
   const int n_tiles = (n + block_n - 1) / block_n;
   const long long tiles = (long long)batch * n_tiles;
   // the columns a pass (the bits do not depend on it): the most, up to
@@ -1577,18 +1722,25 @@ int launch_reduce(const T* points, const int* labels, const float* md,
   if (!fits(cols_b, kReduceBudget))
     while (cols_b > 1 && !fits(cols_b, 232448)) --cols_b;
   const size_t smem_b = reduce_smem_bytes(k, block_n, cols_b);
-  cudaFuncSetAttribute(reduce_kernel<T, Gated>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem_b);
   const int n_slices = (d + 1 + cols_b - 1) / cols_b;
   if (tiles * n_slices > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;
-  reduce_kernel<T, Gated>
-      <<<(unsigned)(tiles * n_slices), kThreads, smem_b, s>>>(
-          points, labels, md, Gated ? g.lb : lbo, Gated ? g.active : nullptr,
-          Gated ? g.prev_partials : nullptr, Gated ? g.prev_gaps : nullptr,
-          partials, gaps, tile_acc, n, d, k, block_n, cols_b, n_slices);
-  int err = (int)cudaGetLastError();
+  // slices of at most four columns (d <= 3: the paper's d = 2) take the
+  // instance with four columns' registers
+  const auto run = [&](auto kernel) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem_b);
+    kernel<<<(unsigned)(tiles * n_slices), kThreads, smem_b, s>>>(
+        points, weights, labels, md, Gated ? g.lb : lbo,
+        Gated ? g.active : nullptr, Gated ? g.prev_partials : nullptr,
+        Gated ? g.prev_gaps : nullptr, partials, gaps, tile_acc, n, d, k,
+        block_n, cols_b, n_slices);
+  };
+  if (cols_b <= 4)
+    run(reduce_kernel<T, Gated, Untiled, 4>);
+  else
+    run(reduce_kernel<T, Gated, Untiled>);
+  const int err = (int)cudaGetLastError();
   if (err != 0) return err;
   return launch_super_reduce(tile_acc, ssums, scounts,
                              Gated ? g.active : nullptr,
@@ -1598,17 +1750,20 @@ int launch_reduce(const T* points, const int* labels, const float* md,
 }
 
 // Both passes and the super reduce of one screened round; lbo is K10a's
-// (batch, n) scratch (the gated rounds write g.lb). Pass A's grid: for
-// K10a and K10b one item a CTA, items cut finer until there are
-// kTargetCtas; for one gated problem (K6) a persistent grid of the CTAs
-// the card holds at once, items cut until there are 8 a CTA. Returns the
-// first CUDA error.
-template <typename T, bool Gated>
-int launch(const T* points, const float* norms, const T* cents, int* labels,
-           float* md, float* lbo, float* partials, float* gaps,
-           float* tile_acc, float* ssums, float* scounts, const Gate& g,
-           unsigned long long* stats, int batch, int n, int d, int k,
-           int block_n, int tps, cudaStream_t s) {
+// (batch, n) scratch (the gated rounds write g.lb; K4 and K9 pass null:
+// nothing reads it). Pass A's grid: for a batch (K10a, K10b, K9) one item a
+// CTA, items cut finer until there are kTargetCtas; for one problem (K6,
+// K4) a persistent grid of the CTAs the card holds at once, items cut
+// until there are 8 a CTA, so that each stages the centroids once. Untiled
+// (K4, K9) runs pass A's ungated instance and pass B's untiled one with
+// `weights` (may be null). Returns the first CUDA error.
+template <typename T, bool Gated, bool Untiled = false>
+int launch(const T* points, const float* norms, const T* cents,
+           const float* weights, int* labels, float* md, float* lbo,
+           float* partials, float* gaps, float* tile_acc, float* ssums,
+           float* scounts, const Gate& g, unsigned long long* stats,
+           int batch, int n, int d, int k, int block_n, int tps,
+           cudaStream_t s) {
   constexpr bool kBf16 = !std::is_same<T, float>::value;
   const int n_tiles = (n + block_n - 1) / block_n;
   const long long tiles = (long long)batch * n_tiles;
@@ -1620,16 +1775,14 @@ int launch(const T* points, const float* norms, const T* cents, int* labels,
   const auto run = [&](auto kernel) -> int {
     int cta_rows = 4096;
     long long grid_a = 0;
-    if (Gated && batch == 1) {
+    if (batch == 1) {
       const Layout most(d, k, kBf16, cta_rows, Gated);
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            most.bytes);
-      int dev = 0, sms = 0, per = 0;
-      cudaGetDevice(&dev);
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      int per = 0;
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, kThreadsA,
                                                     most.bytes);
-      const long long slots = (long long)max(per, 1) * sms;
+      const long long slots = (long long)max(per, 1) * sm_count();
       while (cta_rows > kRows && items(cta_rows) < 8 * slots) cta_rows /= 2;
       grid_a = items(cta_rows) < slots ? items(cta_rows) : slots;
     } else {
@@ -1652,9 +1805,10 @@ int launch(const T* points, const float* norms, const T* cents, int* labels,
                       ? run(screen_kernel<T, 128, Gated>)
                       : run(screen_kernel<T, 0, Gated>);
   if (err != 0) return err;
-  return launch_reduce<T, Gated>(points, labels, md, lbo, g, partials, gaps,
-                                 tile_acc, ssums, scounts, batch, n, d, k,
-                                 block_n, tps, s);
+  return launch_reduce<T, Gated, Untiled>(points, weights, labels, md, lbo,
+                                          g, partials, gaps, tile_acc, ssums,
+                                          scounts, batch, n, d, k, block_n,
+                                          tps, s);
 }
 
 }  // namespace screen
@@ -1883,9 +2037,168 @@ int launch_split(const T* points, const float* norms, const T* cents,
     run(row_kernel<T, 0>);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  return screen::launch_reduce<T, true>(points, labels, md, g.lb, g, partials,
-                                        gaps, tile_acc, ssums, scounts, 1, n,
-                                        d, k, block_n, tps, s);
+  return screen::launch_reduce<T, true>(points, nullptr, labels, md, g.lb, g,
+                                        partials, gaps, tile_acc, ssums,
+                                        scounts, 1, n, d, k, block_n, tps, s);
+}
+
+// ---------------------------------------------------------------------------
+// K4 at d = 2: the row pass (see the header), then the screened route's
+// pass B and super reduce.
+
+// The row pass: labels and D² of R consecutive rows a thread (from
+// R * (blockIdx.x * kRowThreads + tid)) by the template's arithmetic,
+// exact_d2 over every centroid in ascending order, and the fold's best and
+// first label, which is all K4 keeps: a centroid takes the row where its D²
+// is below the best so far (strict <, so the first minimum wins and NaN
+// never does, as in fold). On fp32 streams the clamp at 0 is applied after
+// the fold, which saves two of about ten instructions a (row, centroid)
+// pair and keeps the bits (the comment at the clamp). The rows are held in
+// registers, read as 16-byte vectors where `vec` (points, norms, labels
+// and md 16-byte aligned) and all of the thread's rows lie below n, and
+// each centroid is staged as (c0, c1, cn, 0), one 16-byte broadcast.
+template <typename T, int R>
+__global__ void __launch_bounds__(kRowThreads, 4)
+untiled_row_kernel(const T* __restrict__ points,
+                   const float* __restrict__ norms,
+                   const T* __restrict__ cents, int* __restrict__ labels,
+                   float* __restrict__ md, int n, int k, int vec) {
+  static_assert(R % 4 == 0, "R a multiple of 4");
+  extern __shared__ float smem[];
+  float4* c4 = reinterpret_cast<float4*>(smem);   // (k,): c0, c1, cn, 0
+  const int tid = threadIdx.x;
+  const long long row0 = ((long long)blockIdx.x * kRowThreads + tid) * R;
+  for (int c = tid; c < k; c += kRowThreads) {
+    const float c0 = widen(cents[2 * c]), c1 = widen(cents[2 * c + 1]);
+    c4[c] = make_float4(c0, c1, fmaf(c1, c1, fmaf(c0, c0, 0.f)), 0.f);
+  }
+  float x[R][2], xn[R], best[R];
+  int a[R];
+  const bool whole = vec && row0 + R <= n;
+  if (whole) {
+    const uint4* src = reinterpret_cast<const uint4*>(points + row0 * 2);
+    if constexpr (std::is_same<T, float>::value) {   // two rows a unit
+#pragma unroll
+      for (int i = 0; i < R / 2; ++i) {
+        const uint4 w = src[i];
+        x[2 * i][0] = __uint_as_float(w.x);
+        x[2 * i][1] = __uint_as_float(w.y);
+        x[2 * i + 1][0] = __uint_as_float(w.z);
+        x[2 * i + 1][1] = __uint_as_float(w.w);
+      }
+    } else {   // four rows a unit; a bf16 value widens as its bits << 16
+#pragma unroll
+      for (int i = 0; i < R / 4; ++i) {
+        const uint4 w = src[i];
+        const unsigned h[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          x[4 * i + e][0] = __uint_as_float(h[e] << 16);
+          x[4 * i + e][1] = __uint_as_float(h[e] & 0xffff0000u);
+        }
+      }
+    }
+    const float4* nsrc = reinterpret_cast<const float4*>(norms + row0);
+#pragma unroll
+    for (int i = 0; i < R / 4; ++i) {
+      const float4 w = nsrc[i];
+      xn[4 * i] = w.x, xn[4 * i + 1] = w.y, xn[4 * i + 2] = w.z,
+      xn[4 * i + 3] = w.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const bool ok = row0 + q < n;
+      x[q][0] = ok ? widen(points[(row0 + q) * 2]) : 0.f;
+      x[q][1] = ok ? widen(points[(row0 + q) * 2 + 1]) : 0.f;
+      xn[q] = ok ? norms[row0 + q] : 0.f;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    best[q] = CUDART_INF_F;
+    a[q] = 0;
+  }
+  __syncthreads();   // the staged centroids
+  // fp32 streams fold the values before the clamp at 0 and clamp after
+  // (below); bf16 streams, whose rows' fp32 norms leave many values at or
+  // below 0, clamp each value as the template does
+  constexpr bool kLate = std::is_same<T, float>::value;
+  const auto d2 = [&](int q, const float4& cc) {
+    return raw_d2<2>([&](int j) { return x[q][j]; },
+                     [&](int j) { return j ? cc.y : cc.x; }, 2, xn[q], cc.z);
+  };
+  for (int c = 0; c < k; ++c) {
+    const float4 cc = c4[c];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const float v = kLate ? d2(q, cc) : nan_max(d2(q, cc), 0.f);
+      if (v < best[q]) {
+        best[q] = v;
+        a[q] = c;
+      }
+    }
+  }
+  // The clamp at 0, after the fold (fp32). Where the least value is above
+  // 0, every value is (or NaN), the clamp changes none, and the fold on the
+  // unclamped values picked the template's label and D². Otherwise the
+  // template's D² is +0 and its label the first centroid whose value is at
+  // most 0 (clamped to +0, which no later value beats), found again (rare
+  // with the stream's own norms: a row on a centroid).
+  if constexpr (kLate) {
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+      if (best[q] <= 0.f) {
+        int c = 0;
+        while (!(d2(q, c4[c]) <= 0.f)) ++c;
+        a[q] = c;
+        best[q] = 0.f;
+      }
+  }
+  if (whole) {
+#pragma unroll
+    for (int i = 0; i < R / 4; ++i) {
+      reinterpret_cast<int4*>(labels + row0)[i] =
+          make_int4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
+      reinterpret_cast<float4*>(md + row0)[i] = make_float4(
+          best[4 * i], best[4 * i + 1], best[4 * i + 2], best[4 * i + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+      if (row0 + q < n) {
+        labels[row0 + q] = a[q];
+        md[row0 + q] = best[q];
+      }
+  }
+}
+
+// K4's row pass over n rows at d = 2: 8 rows a thread where that still
+// gives every SM four blocks, else 4 (fit_minibatch's 262,144-row batches:
+// 512 blocks). Returns the first CUDA error.
+template <typename T>
+int launch_untiled_rows(const T* points, const float* norms, const T* cents,
+                        int* labels, float* md, int n, int k,
+                        cudaStream_t s) {
+  const bool vec = (reinterpret_cast<uintptr_t>(points)
+                    | reinterpret_cast<uintptr_t>(norms)
+                    | reinterpret_cast<uintptr_t>(labels)
+                    | reinterpret_cast<uintptr_t>(md)) % 16 == 0;
+  const size_t smem = sizeof(float4) * k;
+  const auto run = [&](auto kernel, int rows) -> int {
+    const long long per = (long long)rows * kRowThreads;
+    const long long grid = ((long long)n + per - 1) / per;
+    if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    kernel<<<(unsigned)grid, kRowThreads, smem, s>>>(points, norms, cents,
+                                                     labels, md, n, k,
+                                                     (int)vec);
+    return (int)cudaGetLastError();
+  };
+  if ((long long)n >= 4LL * sm_count() * 8 * kRowThreads)
+    return run(untiled_row_kernel<T, 8>, 8);
+  return run(untiled_row_kernel<T, 4>, 4);
 }
 
 template <typename T, int D, bool Gated, bool Untiled>
@@ -1978,13 +2291,67 @@ int dispatch_batched(const void* points, const float* norms,
   if (bf16)
     return screen::launch<__nv_bfloat16, Gated>(
         static_cast<const __nv_bfloat16*>(points), norms,
-        static_cast<const __nv_bfloat16*>(cents), labels, md, lbo, partials,
-        gaps, tile_acc, ssums, scounts, g, stats, batch, n, d, k, block_n,
-        tps, s);
+        static_cast<const __nv_bfloat16*>(cents), nullptr, labels, md, lbo,
+        partials, gaps, tile_acc, ssums, scounts, g, stats, batch, n, d, k,
+        block_n, tps, s);
   return screen::launch<float, Gated>(
       static_cast<const float*>(points), norms,
-      static_cast<const float*>(cents), labels, md, lbo, partials, gaps,
-      tile_acc, ssums, scounts, g, stats, batch, n, d, k, block_n, tps, s);
+      static_cast<const float*>(cents), nullptr, labels, md, lbo, partials,
+      gaps, tile_acc, ssums, scounts, g, stats, batch, n, d, k, block_n, tps,
+      s);
+}
+
+// K4 (batch 1; weights may be null) and K9 (batch B, no weights): the
+// screened route where screen::screened(d, bf16) (stats required), then
+// pass B's untiled instance and the all-tile reduce; else K4's row pass at
+// d = 2, then the same; else the template. Returns the first CUDA error.
+template <typename T>
+int launch_untiled(const T* points, const float* norms, const T* cents,
+                   const float* weights, int* labels, float* md,
+                   float* tile_acc, float* sums, float* counts,
+                   unsigned long long* stats, int batch, int n, int d, int k,
+                   int block_n, int cols, cudaStream_t s) {
+  constexpr bool kBf16 = !std::is_same<T, float>::value;
+  const int n_tiles = (n + block_n - 1) / block_n;
+  if ((long long)batch * n_tiles > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;
+  if (screen::screened(d, kBf16)) {
+    if (stats == nullptr) return (int)cudaErrorInvalidValue;
+    return screen::launch<T, false, true>(
+        points, norms, cents, weights, labels, md, nullptr, nullptr, nullptr,
+        tile_acc, sums, counts, Gate{}, stats, batch, n, d, k, block_n,
+        n_tiles, s);
+  }
+  if (batch == 1 && d == 2) {
+    const int err =
+        launch_untiled_rows<T>(points, norms, cents, labels, md, n, k, s);
+    if (err != 0) return err;
+    return screen::launch_reduce<T, false, true>(
+        points, weights, labels, md, nullptr, Gate{}, nullptr, nullptr,
+        tile_acc, sums, counts, 1, n, d, k, block_n, n_tiles, s);
+  }
+  return launch_round<T, false, true>(points, norms, cents, weights, labels,
+                                      md, nullptr, nullptr, tile_acc, sums,
+                                      counts, Gate{}, batch, n, d, k, block_n,
+                                      n_tiles, cols, s);
+}
+
+// K4 and K9 on the caller's stream type, as dispatch
+int dispatch_untiled(const void* points, const float* norms,
+                     const void* cents, const float* weights, int* labels,
+                     float* md, float* tile_acc, float* sums, float* counts,
+                     unsigned long long* stats, int batch, int n, int d,
+                     int k, int block_n, int cols, int bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_untiled<__nv_bfloat16>(
+        static_cast<const __nv_bfloat16*>(points), norms,
+        static_cast<const __nv_bfloat16*>(cents), weights, labels, md,
+        tile_acc, sums, counts, stats, batch, n, d, k, block_n, cols, s);
+  return launch_untiled<float>(static_cast<const float*>(points), norms,
+                               static_cast<const float*>(cents), weights,
+                               labels, md, tile_acc, sums, counts, stats,
+                               batch, n, d, k, block_n, cols, s);
 }
 
 }  // namespace
@@ -2028,8 +2395,8 @@ extern "C" int lloyd_assign_tiled_batched_launch(
                                  block_n, tps, cols, bf16, stream);
 }
 
-// 1 where K6, K10a and K10b take the screened route for width d and the
-// stream (bf16 != 0: bf16), else 0.
+// 1 where K6, K10a, K10b, K4 and K9 take the screened route for width d
+// and the stream (bf16 != 0: bf16), else 0.
 extern "C" int lloyd_assign_screened(int d, int bf16) {
   return screen::screened(d, bf16 != 0) ? 1 : 0;
 }
@@ -2061,13 +2428,14 @@ extern "C" int lloyd_assign_gated_launch(
     if (bf16)
       return screen::launch<__nv_bfloat16, true>(
           static_cast<const __nv_bfloat16*>(points), norms,
-          static_cast<const __nv_bfloat16*>(cents), labels, md, nullptr,
-          partials, gaps, tile_acc, ssums, scounts, g, stats, 1, n, d, k,
-          block_n, tps, s);
+          static_cast<const __nv_bfloat16*>(cents), nullptr, labels, md,
+          nullptr, partials, gaps, tile_acc, ssums, scounts, g, stats, 1, n,
+          d, k, block_n, tps, s);
     return screen::launch<float, true>(
         static_cast<const float*>(points), norms,
-        static_cast<const float*>(cents), labels, md, nullptr, partials, gaps,
-        tile_acc, ssums, scounts, g, stats, 1, n, d, k, block_n, tps, s);
+        static_cast<const float*>(cents), nullptr, labels, md, nullptr,
+        partials, gaps, tile_acc, ssums, scounts, g, stats, 1, n, d, k,
+        block_n, tps, s);
   }
   if (bf16)
     return launch_split<__nv_bfloat16>(
@@ -2131,16 +2499,50 @@ extern "C" int lloyd_assign_gated_batched_launch(
                                 bf16, stream);
 }
 
-// Launches both kernels of one untiled assignment round (K4) on `stream`;
-// returns cudaGetLastError(). `weights` (n,) may be null (every row weighs
-// 1). sums (k, d) and counts (k,) are over all rows; tile_acc is
-// (n_tiles, k, d + 1) scratch.
+// One untiled assignment round (K4) on `stream`: the screened route where
+// lloyd_assign_screened(d, bf16) (stats (4) as K10a's, required there),
+// else the row pass at d = 2, each then pass B and the all-tile reduce;
+// else the template. Returns the first CUDA error. `weights` (n,) may be
+// null (every row weighs 1). sums (k, d) and counts (k,) are over all
+// rows; tile_acc is (n_tiles, k, d + 1) scratch.
 extern "C" int lloyd_assign_launch(const void* points, const float* norms,
                                    const void* cents, const float* weights,
                                    int* labels, float* md, float* tile_acc,
-                                   float* sums, float* counts, int n, int d,
+                                   float* sums, float* counts,
+                                   unsigned long long* stats, int n, int d,
                                    int k, int block_n, int cols, int bf16,
                                    void* stream) {
+  return dispatch_untiled(points, norms, cents, weights, labels, md,
+                          tile_acc, sums, counts, stats, 1, n, d, k, block_n,
+                          cols, bf16, stream);
+}
+
+// One untiled assignment round of `batch` problems (K9) on `stream`: the
+// screened route where lloyd_assign_screened(d, bf16) (stats required),
+// else the template. Returns the first CUDA error. Every array carries a
+// leading problem axis: points (batch, n, d), norms / labels / md
+// (batch, n), cents and sums (batch, k, d), counts (batch, k), tile_acc
+// (batch, n_tiles, k, d + 1).
+extern "C" int lloyd_assign_batched_launch(
+    const void* points, const float* norms, const void* cents, int* labels,
+    float* md, float* tile_acc, float* sums, float* counts,
+    unsigned long long* stats, int batch, int n, int d, int k, int block_n,
+    int cols, int bf16, void* stream) {
+  return dispatch_untiled(points, norms, cents, nullptr, labels, md,
+                          tile_acc, sums, counts, stats, batch, n, d, k,
+                          block_n, cols, bf16, stream);
+}
+
+// The template's untiled instance (assign_tile_kernel with Untiled = true,
+// then super_reduce_kernel with one super: K4's route before the screened
+// route and the row pass), at any d whose staging fits `cols`: the
+// reference the card tests and the smoke script hold K4 to, bit for bit.
+// The engine never calls it. The arguments are K4's, without stats.
+extern "C" int lloyd_assign_template_launch(
+    const void* points, const float* norms, const void* cents,
+    const float* weights, int* labels, float* md, float* tile_acc,
+    float* sums, float* counts, int n, int d, int k, int block_n, int cols,
+    int bf16, void* stream) {
   const int n_tiles = (n + block_n - 1) / block_n;
   return dispatch<false, true>(points, norms, cents, weights, labels, md,
                                nullptr, nullptr, tile_acc, sums, counts,
@@ -2148,12 +2550,10 @@ extern "C" int lloyd_assign_launch(const void* points, const float* norms,
                                bf16, stream);
 }
 
-// Launches both kernels of one untiled assignment round of `batch` problems
-// (K9) on `stream`; returns cudaGetLastError(). Every array carries a
-// leading problem axis: points (batch, n, d), norms / labels / md
-// (batch, n), cents and sums (batch, k, d), counts (batch, k), tile_acc
-// (batch, n_tiles, k, d + 1).
-extern "C" int lloyd_assign_batched_launch(
+// The template's untiled instance over `batch` problems (K9's route before
+// the screened route), as lloyd_assign_template_launch is to K4: the
+// arguments of lloyd_assign_batched_launch without stats.
+extern "C" int lloyd_assign_batched_template_launch(
     const void* points, const float* norms, const void* cents, int* labels,
     float* md, float* tile_acc, float* sums, float* counts, int batch, int n,
     int d, int k, int block_n, int cols, int bf16, void* stream) {

@@ -36,7 +36,14 @@ the full scan) are read with ``screen_stats``.
 The untiled round (K4), the weighted and mini-batch fits' round, returns
 only labels and D² per row and the cluster sums (k, d) and counts (k,)
 over all rows; with per-row weights, each row enters the sums as w·x and
-its count as w. K9 is K4 over B problems, row b K4 on problem b.
+its count as w. K9 is K4 over B problems, row b K4 on problem b. On the
+card K4 and K9 run, by width, on the same screen (d >= 8, ``screened``),
+K4 at d = 2 on a row pass (the labels and D² of a few consecutive rows a
+thread), each then the tiles' sums in the template's order and the
+all-tile reduce; every other width takes the template. Both give the
+template kernel's bits, which ``lloyd_assign_template`` and
+``lloyd_assign_batched_template`` compute for the card tests and the
+smoke script.
 
 All six read points and centroids as fp32 or as a bf16 stream, both of
 one dtype; the bf16 instances widen each value exactly and then do the
@@ -46,9 +53,10 @@ and the gate stay fp32. The plain twins widen the same way.
 
 ``lloyd_assign_tiled``, ``lloyd_assign_gated``, ``lloyd_assign_tiled_batched``,
 ``lloyd_assign_gated_batched``, ``lloyd_assign``, ``lloyd_assign_batched``
-and ``lloyd_assign_gated_template`` launch the hand-written CUDA kernels
-(``csrc/lloyd_assign.cu``) for tensors on the card, and run the plain twins
-(``*_torch``) only for tensors on the CPU.
+and the template entries (``lloyd_assign_gated_template``,
+``lloyd_assign_template``, ``lloyd_assign_batched_template``) launch the
+hand-written CUDA kernels (``csrc/lloyd_assign.cu``) for tensors on the
+card, and run the plain twins (``*_torch``) only for tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -72,9 +80,14 @@ _BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 8
                      + (ctypes.c_void_p,))
 _GATED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 24 + (ctypes.c_int,) * 8
                            + (ctypes.c_void_p,))
-# the screened route's counters of the last card launch of K6, K10a and
-# K10b: (4,) int64 on the card, read with ``screen_stats``
+# the screened route's counters of the last card launch of K6, K10a,
+# K10b, K4 and K9: (4,) int64 on the card, read with ``screen_stats``
 SCREEN_STATS: dict[str, torch.Tensor] = {}
+# K4 and K9 (the template entries take no stats)
+_UNTILED_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6
+                     + (ctypes.c_void_p,))
+_UNTILED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 7
+                             + (ctypes.c_void_p,))
 _PLAIN_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6
                    + (ctypes.c_void_p,))
 _PLAIN_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 7
@@ -250,7 +263,7 @@ def _cols(d, k, block_n, gated: bool = False) -> int:
 
 
 def screened(d: int, bf16: bool) -> bool:
-    """Whether K6, K10a and K10b take the screened route on
+    """Whether K6, K10a, K10b, K4 and K9 take the screened route on
     the card for width ``d`` and the stream: d >= 8 and the row, padded to
     the tensor cores' depth (8 fp32 or 16 bf16 values), at most 512 bytes.
     The rule is the CUDA source's (``lloyd_assign_screened``)."""
@@ -261,10 +274,12 @@ def screened(d: int, bf16: bool) -> bool:
 
 def screen_stats(name: str) -> dict:
     """The screened route's counters of the last card launch of ``name``
-    (``"lloyd_assign_gated"``, ``"lloyd_assign_tiled_batched"`` or
-    ``"lloyd_assign_gated_batched"``, either stream): rows screened, their candidates, the most candidates of
-    one row, and rows that took the full exact scan (a non-finite row or
-    more than 16 candidates). Reading them synchronises the card."""
+    (``"lloyd_assign_gated"``, ``"lloyd_assign_tiled_batched"``,
+    ``"lloyd_assign_gated_batched"``, ``"lloyd_assign"`` or
+    ``"lloyd_assign_batched"``, either stream): rows screened, their
+    candidates, the most candidates of one row, and rows that took the
+    full exact scan (a non-finite row or more than 16 candidates). Reading
+    them synchronises the card."""
     rows, cand, most, full = (int(v) for v in SCREEN_STATS[name].tolist())
     return {"rows": rows, "candidates": cand, "max_candidates": most,
             "full_scan_rows": full}
@@ -592,52 +607,111 @@ def lloyd_assign_gated_batched(points: torch.Tensor, norms: torch.Tensor,
     return labels, md, lb, partials, gaps, ssums, scounts, pruned
 
 
-def lloyd_assign(points: torch.Tensor, norms: torch.Tensor,
-                 centroids: torch.Tensor,
-                 weights: torch.Tensor | None = None, *, block_n: int):
-    """One untiled assignment round. Returns (labels (n,) int32, min_d2
-    (n,), sums (k, d), counts (k,)), the sums and counts over all rows,
-    each row weighted by ``weights`` (n,) when given. On the card this
-    launches K4 (its two kernels count as one launch) with ``block_n``-row
-    tiles, which set only the order of the sums; CPU tensors take the plain
-    twin."""
+def _check_untiled(points, norms, centroids, weights, block_n) -> None:
+    """The untiled rounds' argument checks, on (n, d) points (K4) or
+    (B, n, d) points with (B, k, d) centroids (K9, no weights)."""
+    if points.dim() == 3 or centroids.dim() == 3:
+        if points.dim() != 3 or centroids.dim() != 3:
+            raise ValueError("points and centroids must be 3-D (B, rows, d)")
+        bsz, n, _ = points.shape
+        if (bsz < 1 or tuple(centroids.shape[:1]) != (bsz,)
+                or tuple(norms.shape) != (bsz, n)):
+            raise ValueError(f"problem counts differ: points "
+                             f"{tuple(points.shape)}, centroids "
+                             f"{tuple(centroids.shape)}, norms "
+                             f"{tuple(norms.shape)}")
+        _check(points[0], norms[0], centroids[0], block_n, 1)
+        if len({t.device for t in (points, norms, centroids)}) != 1:
+            raise ValueError("inputs on several devices")
+        if weights is not None:
+            raise ValueError("batched problems take no weights")
+        return
     _check(points, norms, centroids, block_n, 1)
-    n, d = points.shape
-    k = centroids.shape[0]
+    n = points.shape[0]
     if weights is not None and (tuple(weights.shape) != (n,)
                                 or weights.device != points.device):
         raise ValueError(f"weights {tuple(weights.shape)} on "
                          f"{weights.device} must be ({n},) on "
                          f"{points.device}")
+
+
+def _untiled(points, norms, centroids, weights, *, block_n: int,
+             template: bool):
+    """K4 (K9 on (B, n, d) points), or with ``template`` the template's
+    untiled instance, which counts no launch and keeps no screen counters;
+    CPU tensors take the plain twin."""
+    _check_untiled(points, norms, centroids, weights, block_n)
+    batched = points.dim() == 3
     if points.device.type == "cpu":
+        if batched:
+            return lloyd_assign_batched_torch(points, norms, centroids)
         return lloyd_assign_torch(points, norms, centroids, weights)
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
     bf16 = ops.check_round_tensors(points, centroids, norms=norms)
     if weights is not None:
         ops.check_card_tensors(weights=weights)
+    n, d = points.shape[-2:]
+    k = centroids.shape[-2]
+    bsz = points.shape[0] if batched else 1
     cols = _cols(d, k, block_n)
-    fn = _build.function("lloyd_assign", "lloyd_assign_launch",
-                         _PLAIN_ARGTYPES)
+    n_tiles = -(-n // block_n)
+    if bsz * n_tiles >= 2 ** 31:
+        raise ValueError(f"{bsz} problems of {n_tiles} tiles exceed the "
+                         "grid's 2^31 - 1 blocks")
+    if template:
+        name, argtypes = (("lloyd_assign_batched_template_launch",
+                           _PLAIN_BATCHED_ARGTYPES) if batched else
+                          ("lloyd_assign_template_launch", _PLAIN_ARGTYPES))
+    else:
+        name, argtypes = (("lloyd_assign_batched_launch",
+                           _UNTILED_BATCHED_ARGTYPES) if batched else
+                          ("lloyd_assign_launch", _UNTILED_ARGTYPES))
+    fn = _build.function("lloyd_assign", name, argtypes)
+    round_name = "lloyd_assign_batched" if batched else "lloyd_assign"
+    stats = (_stats(round_name, points.device)
+             if not template and screened(d, bf16) else None)
     dev = points.device
-    labels = torch.empty(n, dtype=torch.int32, device=dev)
-    md = torch.empty(n, dtype=torch.float32, device=dev)
-    tile_acc = torch.empty((-(-n // block_n), k, d + 1), dtype=torch.float32,
+    lead = (bsz,) if batched else ()
+    labels = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
+    md = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+    tile_acc = torch.empty(lead + (n_tiles, k, d + 1), dtype=torch.float32,
                            device=dev)
-    sums = torch.empty((k, d), dtype=torch.float32, device=dev)
-    counts = torch.empty(k, dtype=torch.float32, device=dev)
+    sums = torch.empty(lead + (k, d), dtype=torch.float32, device=dev)
+    counts = torch.empty(lead + (k,), dtype=torch.float32, device=dev)
+    st = () if template else (None if stats is None else stats.data_ptr(),)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
-                 None if weights is None else weights.data_ptr(),
+                 *(() if batched else
+                   (None if weights is None else weights.data_ptr(),)),
                  labels.data_ptr(), md.data_ptr(), tile_acc.data_ptr(),
-                 sums.data_ptr(), counts.data_ptr(), n, d, k, block_n, cols,
-                 int(bf16), stream)
+                 sums.data_ptr(), counts.data_ptr(), *st, *lead, n, d, k,
+                 block_n, cols, int(bf16), stream)
     if err != 0:
-        raise KernelFailureError(f"lloyd_assign launch failed: cudaError "
-                                 f"{err}")
-    ops.count_launch("lloyd_assign", bf16)
+        raise KernelFailureError(f"{name.removesuffix('_launch')} launch "
+                                 f"failed: cudaError {err}")
+    if not template:
+        ops.count_launch(round_name, bf16)
     return labels, md, sums, counts
+
+
+def lloyd_assign(points: torch.Tensor, norms: torch.Tensor,
+                 centroids: torch.Tensor,
+                 weights: torch.Tensor | None = None, *, block_n: int):
+    """One untiled assignment round. Returns (labels (n,) int32, min_d2
+    (n,), sums (k, d), counts (k,)), the sums and counts over all rows,
+    each row weighted by ``weights`` (n,) when given. On the card this
+    launches K4 (its kernels count as one launch) with ``block_n``-row
+    tiles, which set only the order of the sums: on the screened route
+    where ``screened(d, bf16)`` (its counters read with
+    ``screen_stats("lloyd_assign")``) or at d = 2 on the row pass, each
+    then the tiles' sums and the all-tile reduce; at other widths the
+    template. CPU tensors take the plain twin."""
+    if points.dim() != 2 or centroids.dim() != 2:
+        raise ValueError("points and centroids must be 2-D")
+    return _untiled(points, norms, centroids, weights, block_n=block_n,
+                    template=False)
 
 
 def lloyd_assign_batched(points: torch.Tensor, norms: torch.Tensor,
@@ -645,48 +719,39 @@ def lloyd_assign_batched(points: torch.Tensor, norms: torch.Tensor,
     """One untiled assignment round of B independent problems: points
     (B, n, d), norms (B, n), centroids (B, k, d). Returns (labels (B, n),
     min_d2 (B, n), sums (B, k, d), counts (B, k)). On the card this
-    launches K9 (its two kernels count as one launch) for every problem at
-    once; CPU tensors take the plain twin."""
+    launches K9 (its kernels count as one launch) for every problem at
+    once, on the screened route where ``screened(d, bf16)`` (counters:
+    ``screen_stats("lloyd_assign_batched")``), else the template; CPU
+    tensors take the plain twin."""
     if points.dim() != 3 or centroids.dim() != 3:
         raise ValueError("points and centroids must be 3-D (B, rows, d)")
-    bsz, n, d = points.shape
-    k = centroids.shape[1]
-    if (bsz < 1 or tuple(centroids.shape[:1]) != (bsz,)
-            or tuple(norms.shape) != (bsz, n)):
-        raise ValueError(f"problem counts differ: points "
-                         f"{tuple(points.shape)}, centroids "
-                         f"{tuple(centroids.shape)}, norms "
-                         f"{tuple(norms.shape)}")
-    _check(points[0], norms[0], centroids[0], block_n, 1)
-    if len({t.device for t in (points, norms, centroids)}) != 1:
-        raise ValueError("inputs on several devices")
-    if points.device.type == "cpu":
-        return lloyd_assign_batched_torch(points, norms, centroids)
-    if points.device.type != "cuda":
-        raise ValueError(f"unsupported device {points.device}")
-    bf16 = ops.check_round_tensors(points, centroids, norms=norms)
-    cols = _cols(d, k, block_n)
-    n_tiles = -(-n // block_n)
-    if bsz * n_tiles >= 2 ** 31:
-        raise ValueError(f"{bsz} problems of {n_tiles} tiles exceed the "
-                         "grid's 2^31 - 1 blocks")
-    fn = _build.function("lloyd_assign", "lloyd_assign_batched_launch",
-                         _PLAIN_BATCHED_ARGTYPES)
-    dev = points.device
-    labels = torch.empty((bsz, n), dtype=torch.int32, device=dev)
-    md = torch.empty((bsz, n), dtype=torch.float32, device=dev)
-    tile_acc = torch.empty((bsz, n_tiles, k, d + 1), dtype=torch.float32,
-                           device=dev)
-    sums = torch.empty((bsz, k, d), dtype=torch.float32, device=dev)
-    counts = torch.empty((bsz, k), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
-                 labels.data_ptr(), md.data_ptr(), tile_acc.data_ptr(),
-                 sums.data_ptr(), counts.data_ptr(), bsz, n, d, k, block_n,
-                 cols, int(bf16), stream)
-    if err != 0:
-        raise KernelFailureError(f"lloyd_assign_batched launch failed: "
-                                 f"cudaError {err}")
-    ops.count_launch("lloyd_assign_batched", bf16)
-    return labels, md, sums, counts
+    return _untiled(points, norms, centroids, None, block_n=block_n,
+                    template=False)
+
+
+def lloyd_assign_template(points: torch.Tensor, norms: torch.Tensor,
+                          centroids: torch.Tensor,
+                          weights: torch.Tensor | None = None, *,
+                          block_n: int):
+    """K4 as the template kernel computes it (``assign_tile_kernel``'s
+    untiled instance, then the one-super reduce: K4's route before the
+    screened route and the row pass), at any width whose staging fits: the
+    arguments and returns of :func:`lloyd_assign`. The reference the card
+    tests and the smoke script hold K4 to, bit for bit; the engine never
+    calls it, and it counts no launch. CPU tensors take the plain twin."""
+    if points.dim() != 2 or centroids.dim() != 2:
+        raise ValueError("points and centroids must be 2-D")
+    return _untiled(points, norms, centroids, weights, block_n=block_n,
+                    template=True)
+
+
+def lloyd_assign_batched_template(points: torch.Tensor, norms: torch.Tensor,
+                                  centroids: torch.Tensor, *, block_n: int):
+    """K9 as the template kernel computes it, as
+    :func:`lloyd_assign_template` is to K4: the arguments and returns of
+    :func:`lloyd_assign_batched`. Counts no launch; CPU tensors take the
+    plain twin."""
+    if points.dim() != 3 or centroids.dim() != 3:
+        raise ValueError("points and centroids must be 3-D (B, rows, d)")
+    return _untiled(points, norms, centroids, None, block_n=block_n,
+                    template=True)

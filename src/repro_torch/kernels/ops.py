@@ -19,7 +19,8 @@ for their sums and budget their own staging. The budget is Hopper's 227 KB
 per block; TPU VMEM budgets do not apply.
 
 K6 (one problem) runs the screened route at d >= 8 and a split row pass
-below, both on these tiles and this ``cols`` for the sums' bits.
+below, both on these tiles and this ``cols`` for the sums' bits; so do K4
+and, at d >= 8, K9.
 
 The IVF scan (K13, K14; ``ivf_scan.py``) runs in two parts and budgets its
 own shared memory (``ivf_scan.max_k``); its tile height is the index's.

@@ -214,22 +214,18 @@ def test_fit_minibatch_matches_reference(ref, pair, source):
         len(xb) * tol + len(xb) * EPS32 * float(want.inertia))
 
 
-@pytest.mark.parametrize("d", [2, 5])
-@pytest.mark.parametrize("weighted", [False, True])
-def test_lloyd_assign_matches_reference(ref, d, weighted):
-    """K4's twin against the interpreted ``lloyd_assign_pallas`` (ragged n,
-    several tiles): labels outside near-ties, D² within ``d2_tol``, counts
-    exact and sums within n·eps of the rows' absolute sum; weighted, the
-    sums against the reference's ``segment_update`` over its own labels,
-    which is what its backend computes after K4."""
+def _k4_against_reference(ref, d, k, weighted):
+    """K4's twin against the interpreted ``lloyd_assign_pallas`` on
+    ``_data(d)`` (1000 rows: ragged, several tiles) and its first k rows
+    moved by 0.01 as centroids."""
     jnp = ref.jnp
     x = _data(d, n=1000, seed=7)
-    c = x[:K] + np.float32(0.01)
+    c = x[:k] + np.float32(0.01)
     w = _weights("cont", n=1000) if weighted else None
     a, md, sums, counts = ref.ops.lloyd_assign(jnp.asarray(x), jnp.asarray(c),
                                                block_n=BN, interpret=True)
     if weighted:
-        sums, counts = ref.engine.segment_update(jnp.asarray(x), a, K,
+        sums, counts = ref.engine.segment_update(jnp.asarray(x), a, k,
                                                  jnp.asarray(w))
     xt = torch.from_numpy(x)
     got = la.lloyd_assign(xt, bounds.point_norms(xt), torch.from_numpy(c),
@@ -244,7 +240,7 @@ def test_lloyd_assign_matches_reference(ref, d, weighted):
     np.testing.assert_allclose(got[1].numpy(), np.asarray(md), rtol=0,
                                atol=tol)
     wa = np.ones(1000, np.float32) if w is None else w
-    scale = np.zeros((K, d))
+    scale = np.zeros((k, d))
     np.add.at(scale, np.asarray(a), np.abs(x * wa[:, None]))
     np.testing.assert_allclose(got[2].numpy(), np.asarray(sums), rtol=0,
                                atol=1000 * EPS32 * scale.max() + 1e-6)
@@ -252,12 +248,32 @@ def test_lloyd_assign_matches_reference(ref, d, weighted):
                                rtol=1000 * EPS32)
 
 
-def test_lloyd_assign_batched_matches_reference(ref):
+@pytest.mark.parametrize("d", [2, 5, 128])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_lloyd_assign_matches_reference(ref, d, weighted):
+    """K4's twin against the interpreted ``lloyd_assign_pallas`` (ragged n,
+    several tiles; d = 128 is the screened route's widest): labels outside
+    near-ties, D² within ``d2_tol``, counts exact and sums within n·eps of
+    the rows' absolute sum; weighted, the sums against the reference's
+    ``segment_update`` over its own labels, which is what its backend
+    computes after K4."""
+    _k4_against_reference(ref, d, K, weighted)
+
+
+@pytest.mark.parametrize("d", [2, 128])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_lloyd_assign_one_centroid_matches_reference(ref, d, weighted):
+    """K4's twin at k = 1 (every row labelled 0, the sums over all rows)
+    against the interpreted kernel, held as at k = 6."""
+    _k4_against_reference(ref, d, 1, weighted)
+
+
+def _k9_against_reference(ref, d, k):
     """K9's twin against the interpreted ``lloyd_assign_batched_pallas``
-    (B = 3 problems, ragged n), held as K4's."""
+    (B = 3 problems of 700 rows, ragged n), held as K4's."""
     jnp = ref.jnp
-    xs = np.stack([_data(5, n=700, seed=s) for s in range(3)])
-    cs = xs[:, :K] + np.float32(0.02)
+    xs = np.stack([_data(d, n=700, seed=s) for s in range(3)])
+    cs = xs[:, :k] + np.float32(0.02)
     a, md, sums, counts = ref.ops.lloyd_assign_batched(
         jnp.asarray(xs), jnp.asarray(cs), block_n=BN, interpret=True)
     xt = torch.from_numpy(xs)
@@ -272,6 +288,42 @@ def test_lloyd_assign_batched_matches_reference(ref):
             atol=700 * EPS32 * float(np.abs(xs[b]).max()))
         np.testing.assert_array_equal(got[3][b].numpy(),
                                       np.asarray(counts[b]))
+
+
+def test_lloyd_assign_batched_matches_reference(ref):
+    """K9's twin against the interpreted ``lloyd_assign_batched_pallas``
+    (B = 3 problems, ragged n), held as K4's."""
+    _k9_against_reference(ref, 5, K)
+
+
+@pytest.mark.parametrize("d,k", [(128, K), (5, 1)])
+def test_lloyd_assign_batched_matches_reference_at(ref, d, k):
+    """K9's twin against the interpreted kernel at d = 128 (the screened
+    route's widest) and at k = 1, held as at d = 5."""
+    _k9_against_reference(ref, d, k)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_template_entries_take_the_twins_on_the_cpu(weighted):
+    """``lloyd_assign_template`` and ``lloyd_assign_batched_template`` on
+    CPU tensors are the plain twins, bitwise, and count no launch."""
+    x = torch.from_numpy(_data(5, n=900, seed=3))
+    c = x[:K] + 0.01
+    norms = bounds.point_norms(x)
+    w = torch.from_numpy(_weights("int", n=900)) if weighted else None
+    ops.reset_launches()
+    got = la.lloyd_assign_template(x, norms, c, w, block_n=BN)
+    want = la.lloyd_assign_torch(x, norms, c, w)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+    xs = torch.stack([x, x.flip(0), 2 * x])
+    cs = xs[:, :K] + 0.01
+    ns = bounds.point_norms(xs)
+    got = la.lloyd_assign_batched_template(xs, ns, cs, block_n=BN)
+    want = la.lloyd_assign_batched_torch(xs, ns, cs)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+    assert sum(ops.LAUNCHES.values()) == 0
+    with pytest.raises(ValueError):
+        la.lloyd_assign_batched_template(xs, ns, cs[0], block_n=BN)
 
 
 def test_segment_update_and_shims_match_reference(ref):
@@ -504,8 +556,9 @@ def _assert_k4(got, want, x, c, w=None):
                                    (5003, 33, 4)])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_lloyd_assign_kernel_matches_plain_and_k3(card, n, d, k, weighted):
-    """K4 against its twin; two launches the same bits, each counted once;
-    labels and D² bitwise K3's on the same points and centroids."""
+    """K4 against its twin; two launches the same bits, each counted once,
+    and bitwise the template entry; labels and D² bitwise K3's on the same
+    points and centroids."""
     x = torch.from_numpy(_data(d, n=n, seed=n)).to(card)
     norms = bounds.point_norms(x)
     c = (x[:k] + 0.01).contiguous()
@@ -516,6 +569,7 @@ def test_lloyd_assign_kernel_matches_plain_and_k3(card, n, d, k, weighted):
     again = la.lloyd_assign(x, norms, c, w, block_n=1024)
     assert ops.LAUNCHES["lloyd_assign"] == 2
     assert all(torch.equal(p, q) for p, q in zip(got, again))
+    _same_bits(got, la.lloyd_assign_template(x, norms, c, w, block_n=1024))
     _assert_k4(got, la.lloyd_assign_torch(x, norms, c, w), x, c, w)
     k3 = la.lloyd_assign_tiled(x, norms, c, block_n=1024, tps=2)
     assert torch.equal(got[0], k3[0]) and torch.equal(got[1], k3[1])
@@ -524,7 +578,7 @@ def test_lloyd_assign_kernel_matches_plain_and_k3(card, n, d, k, weighted):
 @pytest.mark.cuda
 def test_lloyd_assign_batched_kernel_is_k4_row_by_row(card):
     """K9 against its twin, rows 0, 1 and B−1 bitwise K4, two launches the
-    same bits."""
+    same bits and bitwise the template entry."""
     g = torch.Generator(device=card).manual_seed(0)
     xs = torch.randn((7, 4100, 16), generator=g, device=card)
     cs = xs[:, :40].contiguous()
@@ -534,11 +588,147 @@ def test_lloyd_assign_batched_kernel_is_k4_row_by_row(card):
     again = la.lloyd_assign_batched(xs, norms, cs, block_n=1024)
     assert ops.LAUNCHES["lloyd_assign_batched"] == 2
     assert all(torch.equal(p, q) for p, q in zip(got, again))
+    _same_bits(got, la.lloyd_assign_batched_template(xs, norms, cs,
+                                                     block_n=1024))
     want = la.lloyd_assign_batched_torch(xs, norms, cs)
     for b in (0, 1, 6):
         _assert_k4([o[b] for o in got], [o[b] for o in want], xs[b], cs[b])
         one = la.lloyd_assign(xs[b], norms[b], cs[b], block_n=1024)
         assert all(torch.equal(o[b], p) for o, p in zip(got, one))
+
+
+def _same_bits(got, want):
+    """Every output bitwise (fp32 compared as int32 patterns, so that NaN
+    sums compare too)."""
+    assert len(got) == len(want)
+    for u, v in zip(got, want):
+        assert u.dtype == v.dtype and u.shape == v.shape
+        if u.dtype == torch.float32:
+            u, v = u.view(torch.int32), v.view(torch.int32)
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 5, 8, 16, 33, 128, 160])
+@pytest.mark.parametrize("k", [1, 50, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_lloyd_assign_routes_are_the_template_bitwise(card, d, k, dtype,
+                                                      weighted):
+    """K4 on its routes (the screened route at d >= 8 within its widths,
+    the row pass at d = 2, the template at d = 5 and at fp32 d = 160)
+    against the template entry, all four outputs bitwise (int32 views), on
+    adversarial rows (duplicated centroids, rows between two centroids and
+    on one, a zero row, a NaN row; 5003 rows: a ragged last tile), weighted
+    (multiplicities 1-8) or not, on both streams; two launches the same
+    bits, each counted once under the stream's name; labels and D² bitwise
+    K3's; on the screen, every row screened."""
+    from test_torch_screen import adversarial
+    x, c = adversarial(5 * d + k, 5003, d, k, 0.0, True)
+    x, c = x.to(card), c.to(card)
+    norms = bounds.point_norms(x)
+    x, c = x.to(dtype), c.to(dtype)
+    w = (torch.from_numpy(_weights("int", n=5003)).to(card) if weighted
+         else None)
+    bn = ops.choose_block_n(5003, d, k)
+    ops.reset_launches()
+    got = la.lloyd_assign(x, norms, c, w, block_n=bn)
+    again = la.lloyd_assign(x, norms, c, w, block_n=bn)
+    name = "lloyd_assign" + ("_bf16" if dtype == torch.bfloat16 else "")
+    assert ops.LAUNCHES[name] == 2 and sum(ops.LAUNCHES.values()) == 2
+    _same_bits(got, again)
+    _same_bits(got, la.lloyd_assign_template(x, norms, c, w, block_n=bn))
+    assert sum(ops.LAUNCHES.values()) == 2
+    k3 = la.lloyd_assign_tiled(x, norms, c, block_n=bn, tps=1)
+    _same_bits(got[:2], k3[:2])
+    if la.screened(d, dtype == torch.bfloat16):
+        assert la.screen_stats("lloyd_assign")["rows"] == 5003
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 8, 13, 16, 128])
+@pytest.mark.parametrize("k", [1, 50, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lloyd_assign_batched_routes_are_the_template_bitwise(card, d, k,
+                                                              dtype):
+    """K9 (the screened route at d >= 8, the template below) on
+    ``test_torch_screen``'s adversarial problems (four of 3000 rows, a NaN
+    row in each, two shifted by 1e3): all four outputs bitwise the template
+    entry, every problem, and each problem bitwise K4 on its slice; two
+    launches the same bits, counted once each."""
+    from test_torch_screen import adversarial
+    xs, cs = zip(*(adversarial(3 * d + k + b, 3000, d, k, 1e3 * (b % 2),
+                               True) for b in range(4)))
+    x = torch.stack(xs).to(card)
+    c = torch.stack(cs).to(card)
+    norms = bounds.point_norms(x)
+    x, c = x.to(dtype), c.to(dtype)
+    bn = ops.choose_block_n(3000, d, k)
+    ops.reset_launches()
+    got = la.lloyd_assign_batched(x, norms, c, block_n=bn)
+    again = la.lloyd_assign_batched(x, norms, c, block_n=bn)
+    name = ("lloyd_assign_batched"
+            + ("_bf16" if dtype == torch.bfloat16 else ""))
+    assert ops.LAUNCHES[name] == 2 and sum(ops.LAUNCHES.values()) == 2
+    _same_bits(got, again)
+    _same_bits(got, la.lloyd_assign_batched_template(x, norms, c,
+                                                     block_n=bn))
+    if la.screened(d, dtype == torch.bfloat16):
+        assert la.screen_stats("lloyd_assign_batched")["rows"] == 4 * 3000
+    for b in range(4):
+        _same_bits([o[b] for o in got],
+                   la.lloyd_assign(x[b], norms[b], c[b], block_n=bn))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lloyd_assign_row_pass_clamp_is_the_template_bitwise(card, dtype):
+    """K4's row pass at d = 2 (fp32 streams clamp D² at 0 after the fold
+    and find a clamped row's label again; bf16 streams clamp each value)
+    with the norms lowered by up to 1e-3 of themselves, so that many rows'
+    values fall at or below 0 against several centroids: all four outputs
+    bitwise the template entry, the clamped rows' D² +0."""
+    g = torch.Generator(device=card).manual_seed(7)
+    x = torch.rand((100_003, 2), generator=g, device=card)
+    c = x[torch.randint(100_003, (64,), generator=g, device=card)]
+    c = torch.cat([c, c[:8] + 1e-4]).contiguous()   # near-duplicates
+    norms = bounds.point_norms(x) * (
+        1 - 1e-3 * torch.rand(100_003, generator=g, device=card))
+    x, c = x.to(dtype), c.to(dtype)
+    bn = ops.choose_block_n(100_003, 2, c.shape[0])
+    got = la.lloyd_assign(x, norms, c, block_n=bn)
+    _same_bits(got, la.lloyd_assign_template(x, norms, c, block_n=bn))
+    zero = got[1] == 0
+    assert int(zero.sum()) > 1000
+    assert not bool(torch.signbit(got[1][zero]).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [20_000, 300_001])
+@pytest.mark.parametrize("d", [2, 16])
+def test_untiled_sums_are_the_tiles_added_in_order(card, n, d):
+    """The all-tile reduce's order, held independently of it: K3 with one
+    tile a super gives each tile's cluster sums and counts (0 + the tile's
+    own), and adding them in ascending tile order on the card, one
+    elementwise fp32 add at a time, is bitwise K4's unweighted sums and
+    counts and the template entry's (5 tiles: the short chain; 74 tiles:
+    the long chain's staged reduce)."""
+    g = torch.Generator(device=card).manual_seed(n + d)
+    x = torch.rand((n, d), generator=g, device=card)
+    c = x[torch.randint(n, (50,), generator=g, device=card)].contiguous()
+    norms = bounds.point_norms(x)
+    bn = 4096
+    k3 = la.lloyd_assign_tiled(x, norms, c, block_n=bn, tps=1)
+    sums = torch.zeros_like(k3[4][0])
+    counts = torch.zeros_like(k3[5][0])
+    for t in range(k3[4].shape[0]):
+        sums = sums + k3[4][t]
+        counts = counts + k3[5][t]
+    got = la.lloyd_assign(x, norms, c, block_n=bn)
+    _same_bits(got[2:], (sums, counts))
+    _same_bits(la.lloyd_assign_template(x, norms, c, block_n=bn)[2:],
+               (sums, counts))
+    _same_bits(got[:2], k3[:2])
 
 
 @pytest.mark.cuda
