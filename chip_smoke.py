@@ -24,12 +24,16 @@ Phases, each of which exits non-zero on failure:
    (``wgmma``) and UTMALDG (TMA load) instructions in their SASS
    (``cuobjdump -sass``); their registers, spills, dynamic shared memory
    and instruction counts are printed, before any of them is launched.
-   The screened route's 28 kernels (K6, K10a, K10b, K4, K9: pass A
-   ``screen_kernel<stream, D, gated>``, D 0, 8, 16 or 128, pass B
+   The screened route's 44 kernels (K3, K6, K10a, K10b, K4, K9: pass A
+   ``screen_kernel<stream, D, [gated], [chunked]>``, D 0, 8, 16 or 128,
+   chunked past 256 centroids, pass B
    ``reduce_kernel<stream, [gated | untiled], 8 or 4 columns>``) must
    report no spill and pass A HGMMA in its SASS (K6's d = 128 instances
-   among them); K6's split row pass (``row_kernel<stream, D>``), K4's row
-   pass (``untiled_row_kernel<stream, R>``), the super reduces
+   among them), and pass A's ungated D = 16 instances for k <= 256 (the
+   codebook sweep's) at most 128 registers (four CTAs an SM); K6's split row pass (``row_kernel<stream, D>``), K4's and
+   K3's row pass (``untiled_row_kernel<stream, D, R[, second]>``: at d = 2
+   with 4 or 8 rows a thread, K3's keeping the second best, and K3's below
+   d = 8), the super reduces
    (``super_reduce_kernel``, ``chain_reduce_kernel``) and K14's part (a)
    (``adc_pair_topk_kernel<kR>``, ``adc_tile_sort_kernel``) no spill;
    their registers are printed.
@@ -42,7 +46,11 @@ Phases, each of which exits non-zero on failure:
    the gate's mask, all tiles, half and none active, and K6 (gated
    assignment) at k = 50 or 64 and k = 1 from a carried state whose lower
    bounds make the prune fire, with every tile, half the supers and the
-   gate's mask active, K11 (the rejection sampler's drawn-row D²) and K12
+   gate's mask active, every K3 launch (its screened route at d = 128, its
+   row pass at d = 2) bitwise the template kernel's entry
+   (``lloyd_assign_tiled_template``) in all six outputs and timed beside
+   it and kernel by kernel (torch.profiler: pass A or the row pass, pass
+   B, the super reduce), K11 (the rejection sampler's drawn-row D²) and K12
    (its per-tile envelope caps, over K1's tile balls) against a pending
    block of 8 centroids with count 0, 1 and 8. Two launches must give
    identical bits, skipped tiles must keep their carried values, all-active
@@ -64,6 +72,14 @@ Phases, each of which exits non-zero on failure:
    its bound from the bf16 bytes, its dot products counted at the bf16
    tensor-core rate and the rest at fp32's. (All-active K5 is K2 but on
    the rows the bound prunes, which keep their D²: bitwise K2 in fp32.)
+   Then (phase 2 (large k)) d = 128, k = 8,192 on 50,000 rows, past the
+   template's staging (k <= 390 at 4,096-row tiles), pass A's old
+   all-chunk norm staging and pass B's one-block limit (6,688 centroids):
+   K3, K6 (all active, then a round from that state), K4 and K10a (two
+   problems), each bitwise a second launch, labels and counts bitwise the
+   plain twin's, D² within tolerance, sums over the kernel's labels, K3
+   bitwise K10a problem by problem and all-active K6 bitwise K3; each
+   launch timed beside its twin.
 3. Drive the main path, ``ClusterEngine(device="cuda").kmeans`` (bound-gated)
    at the paper's size, k = 50, 25 iterations, for sampler cdf and tiled, on
    the shuffled blobs and on a label-sorted copy, with the launch counters
@@ -173,16 +189,21 @@ Phases, each of which exits non-zero on failure:
    the shape of ANN-benchmarks' sift-128-euclidean, 1,000,000 rows of
    d = 128 and 10,000 queries, synthetic blobs made on the card, by
    default of an assumed low intrinsic dimension, with ``--ivf-data
-   isotropic`` drawn in all 128 dimensions; nlist 256,
-   nprobe 32, PQ with 16 sub-spaces). ``IvfIndex.build(layout="label",
+   isotropic`` drawn in all 128 dimensions; nlist 1,024,
+   nprobe 128, PQ with 16 sub-spaces). ``IvfIndex.build(layout="label",
    pq_nsub=16)`` on ``ClusterEngine(device="cuda")``, timed, the arguments
    of its K6 launches recorded; K6 again on each (bitwise the build's
-   launch, the first, middle and last bitwise the template entry, the
-   first's rows and centroids all-active without a bound bitwise K3),
-   timed (their sum the build's K6 device time) with the screen's
-   counters, the template entry timed on the middle one; K13
+   launch; the first, middle and last bitwise the template entry where
+   its (k, d) staging fits, else bitwise K6 with pass B in 64-centroid
+   chunks and all eight outputs held to the plain twin: pruned counts and
+   pruned rows bitwise, labels outside near-ties, D², lb, partials and gaps
+   within tolerance, sums and counts over the kernel's labels, skipped
+   tiles' and supers' carries kept; the first's rows and
+   centroids all-active without a bound bitwise K3), timed (their sum the
+   build's K6 device time) with the screen's counters, the template entry
+   timed on the middle one where it fits; K13
    (``ivf_scan``) and K14 (``ivf_adc_scan``) against their plain twins on
-   the first 256 queries' probe maps at nprobe 32 and nlist (rows equal
+   the first 256 queries' probe maps at nprobe 128 and nlist (rows equal
    where the twin's adjacent D² clear twice the tolerance, dists within
    it, gate_skipped equal, then dists and rows bitwise; gate on bitwise
    gate off; two launches bitwise); ``search(nprobe=nlist)`` bitwise
@@ -190,7 +211,7 @@ Phases, each of which exits non-zero on failure:
    within tolerance of decode-then-exact on 64 queries; over all 10,000
    queries ``check_ivf_counters``, a gate that skips, and every
    ``corrupt_list_offsets`` kind raising ``CorruptedStateError``; K13 and
-   K14 timed at Q = 10,000, nprobe 32 (CUDA events, median of 3; K13's
+   K14 timed at Q = 10,000, nprobe 128 (CUDA events, median of 3; K13's
    time is all of ``ivf_scan``: its glue, the tile top-k part and the
    replay, and K14's likewise; each tile top-k part with its glue is also
    timed alone, not counted) beside their twins run
@@ -200,7 +221,8 @@ Phases, each of which exits non-zero on failure:
    the operations, 2d or n_sub + 4 per scored row; for K14 also its LUT
    gathers' bound, n_sub a scored row, 32 a warp-wide shared-memory load,
    one an SM a clock at the card's highest SM clock); search ms, QPS and
-   recall@10 (1,000 queries against ``exhaustive``) at nprobe 32 and 256,
+   recall@10 (1,000 queries against ``exhaustive``) at nprobe 128 and
+   1,024,
    exact and ADC, each search counted (one K13 or K14 launch). Then
    ``compress_transformer_cache`` on one gemma2_2b-shaped fp32 cache (26
    layers, 4 kv heads, head_dim 256, 16,384 tokens, n_sub 16) with its
@@ -423,25 +445,28 @@ def k15_build(_build, log: str) -> dict:
 
 
 def screen_build(_build, log: str) -> dict:
-    """The screened route's kernels (K6, K10a, K10b, K4 and K9 at d >= 8):
-    pass A (``screen_kernel<stream, D, gated>``, D the compiled width or 0)
-    and pass B (``reduce_kernel<stream, [gated | untiled], columns>``, the
-    tiled, gated and untiled instances at 8 and at 4 columns a slice), as
+    """The screened route's kernels (K3, K6, K10a, K10b, K4 and K9 at
+    d >= 8): pass A (``screen_kernel<stream, D, [gated], [chunked]>``, D the
+    compiled width or 0, chunked the instance past 256 centroids) and pass
+    B (``reduce_kernel<stream, [gated | untiled], columns>``, the tiled,
+    gated and untiled instances at 8 and at 4 columns a slice), as
     ``kernel_build`` reads them."""
     return kernel_build(
         _build, "lloyd_assign", log,
         r"(screen_kernel|reduce_kernel)I(f|13__nv_bfloat16)(?:Li(\d+)E)?"
-        r"Lb([01])E(?:Lb([01])ELi(\d+)E)?",
+        r"Lb([01])ELb([01])E(?:Li(\d+)E)?",
         lambda m: (f"{m.group(1)}<{'fp32' if m.group(2) == 'f' else 'bf16'}"
                    + (f", {m.group(3)}" if m.group(3) else "")
                    + (", gated" if m.group(4) == "1" else "")
-                   + (", untiled" if m.group(5) == "1" else "")
+                   + ((", chunked" if m.group(1) == "screen_kernel"
+                       else ", untiled") if m.group(5) == "1" else "")
                    + (f", {m.group(6)} cols" if m.group(6) else "") + ">"))
 
 
 def split_build(_build, logs: dict) -> dict:
-    """K6's split row pass (``row_kernel<stream, D>``, D 2 or 0), K4's row
-    pass (``untiled_row_kernel<stream, R>``, R rows a thread), the super
+    """K6's split row pass (``row_kernel<stream, D>``, D 2 or 0), K4's and
+    K3's row pass (``untiled_row_kernel<stream, D, R[, second]>``, D 2 or 0,
+    R rows a thread, K3's instances keeping the second best), the super
     reduces (``super_reduce_kernel``,
     ``chain_reduce_kernel``) and K14's part (a) (``adc_pair_topk_kernel
     <kR>``, ``adc_tile_sort_kernel``), as ``kernel_build`` reads them."""
@@ -452,10 +477,11 @@ def split_build(_build, logs: dict) -> dict:
                    f"{m.group(2)}>"))
     out.update(kernel_build(
         _build, "lloyd_assign", logs["lloyd_assign"],
-        r"untiled_row_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+        r"untiled_row_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELb([01])E",
         lambda m: (f"untiled_row_kernel<"
                    f"{'fp32' if m.group(1) == 'f' else 'bf16'}, "
-                   f"{m.group(2)}>")))
+                   f"{m.group(2)}, {m.group(3)}"
+                   f"{', second' if m.group(4) == '1' else ''}>")))
     out.update(kernel_build(
         _build, "lloyd_assign", logs["lloyd_assign"],
         r"\d((?:super|chain)_reduce_kernel)E", lambda m: m.group(1)))
@@ -606,16 +632,27 @@ def super_sums_ok(torch, pts, lab, ssums, scounts, rows_per_super,
 
 
 def k3_case(torch, la, ops, bounds, pts, norms, k, gen):
+    """K3 on one shape: two launches bitwise, and bitwise the template entry
+    (``lloyd_assign_tiled_template``) in all six outputs; against its plain
+    twin (labels outside near-ties, D², partials and gaps within
+    tolerance, sums and counts over its own labels); times (the route, the
+    template entry, the route's kernels by the profiler), the screen's
+    counters where it is screened, and the bound (the screened route's
+    dots at TF32's rate on fp32 streams)."""
     n, d = pts.shape
     bn = ops.choose_block_n(n, d, k)
     tps = bounds.tiles_per_super(-(-n // bn))
     cents = pts[torch.randint(n, (k,), generator=gen,
                               device=pts.device)].contiguous()
     out1 = la.lloyd_assign_tiled(pts, norms, cents, block_n=bn, tps=tps)
+    stats = screen_record(la, "lloyd_assign_tiled", pts, torch)
     out2 = la.lloyd_assign_tiled(pts, norms, cents, block_n=bn, tps=tps)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(out1, out2)),
           f"K3 k={k}: two launches differ")
+    same_bits(torch, f"K3 n={n} d={d} k={k} vs the template entry", out1,
+              la.lloyd_assign_tiled_template(pts, norms, cents, block_n=bn,
+                                             tps=tps))
     lab, md, part, gap, ssums, scounts = out1
     ref = la.lloyd_assign_tiled_torch(pts, norms, cents, block_n=bn, tps=tps)
     tol = d2_tol(torch, norms, cents)
@@ -636,20 +673,27 @@ def k3_case(torch, la, ops, bounds, pts, norms, k, gen):
     n_super = ssums.shape[0]
     fp32_ms = widened(torch, f"K3 k={k}", lambda p, c: la.lloyd_assign_tiled(
         p, norms, c, block_n=bn, tps=tps), pts, cents, out1)
-    ms = gpu_ms(torch, lambda: la.lloyd_assign_tiled(
-        pts, norms, cents, block_n=bn, tps=tps))
+    scr = la.screened(d, pts.dtype == torch.bfloat16)
+    times = untiled_times(torch, la.lloyd_assign_tiled,
+                          la.lloyd_assign_tiled_template,
+                          (pts, norms, cents), dict(block_n=bn, tps=tps), 15)
     plain = gpu_ms(torch, lambda: la.lloyd_assign_tiled_torch(
         pts, norms, cents, block_n=bn, tps=tps))
     t = -(-n // bn)
     xb = pts.element_size()
-    bms, by = round_bound_ms(
-        torch, pts, xb * (n * d + k * d)
-        + 4 * (3 * n + 2 * t + n_super * k * (d + 1)),
-        n * k * 2 * d, n * k * 3 + n * d)
+    work = (xb * (n * d + k * d)
+            + 4 * (3 * n + 2 * t + n_super * k * (d + 1)),
+            n * k * 2 * d, n * k * 3 + n * d)
+    bms, by = round_bound_ms(torch, pts, *work, tf32=scr)
+    if scr:
+        stats["fma_bound_ms"] = round_bound_ms(torch, pts, *work)[0]
     return dict(n=n, d=d, k=k, block_n=bn, tps=tps,
-                stream=stream_tag(torch, pts), label_diffs=n_diff,
-                max_abs_err=err_md, tol=tol, ms=ms, plain_ms=plain,
-                fp32_ms=fp32_ms, bound_ms=bms, bound_by=by)
+                stream=stream_tag(torch, pts),
+                route=("screened" if scr else "row pass" if d < 8
+                       else "template"),
+                label_diffs=n_diff, max_abs_err=err_md, tol=tol,
+                plain_ms=plain, fp32_ms=fp32_ms, bound_ms=bms, bound_by=by,
+                **times, **stats)
 
 
 def timed(torch, fn, plain):
@@ -833,6 +877,67 @@ def same_bits(torch, what, got, want) -> None:
           f"{what}: not bitwise")
 
 
+def k6_held(torch, la, bounds, what, args, bn, tps, out1) -> dict:
+    """All eight outputs of K6's launch ``out1`` on ``args`` (K6's
+    arguments: the carries and the mask among them) against the plain
+    twin: the pruned counts, and the pruned rows' label, D² and lb (the
+    carried label and D², lb = prev_lb − absorb: one fp32 subtraction on
+    the same inputs), bitwise; labels outside near-ties; D² within the
+    matmul tolerance; fresh rows' lb = √second and active tiles' gaps
+    within 2·√tol (sqrt turns a D² error δ into at most √δ); active
+    tiles' partials within ``partial_tol``; active supers' sums and counts
+    over the kernel's own labels, pruned rows under their carried label
+    included (``super_sums_ok``: counts exact); skipped tiles' and supers'
+    outputs their carries, bitwise, and their pruned counts 0. Returns the
+    label differences, the D² error and the tolerance."""
+    pts, norms, cents, delta, thresh = args[:5]
+    n = pts.shape[0]
+    act = bounds.align_supers(args[13], tps)
+    ref = la.lloyd_assign_gated_torch(*args[:13], act, block_n=bn, tps=tps)
+    act_pt = bounds.expand_mask(act, bn, n)
+    prune = bounds.assign_point_prune(args[6], args[7], args[8], delta,
+                                      bounds.expand_mask(thresh, bn, n),
+                                      act_pt)
+    check(torch.equal(out1[7], ref[7]), f"{what}: pruned counts differ")
+    check(all(torch.equal(o[prune], r[prune])
+              for o, r in zip(out1[:3], ref[:3])),
+          f"{what}: pruned rows' label, D² or lb differ")
+    tol = d2_tol(torch, norms, cents)
+    n_diff, bad = label_diffs(torch, la.tile_d2(pts, cents, norms), out1[0],
+                              ref[0], tol)
+    check(bad == 0, f"{what}: {bad} labels differ beyond near-ties")
+    err = float((out1[1] - ref[1]).abs().max())
+    check(err <= tol, f"{what}: min_d2 err {err} > {tol}")
+    fin = torch.isfinite(ref[2])
+    fresh_pt = act_pt & ~prune & fin
+    check(torch.equal(torch.isfinite(out1[2]), fin)
+          and bool(((out1[2] - ref[2])[fresh_pt].abs()
+                    <= 2 * math.sqrt(tol)).all()),
+          f"{what}: lower bounds outside tolerance")
+    check(bool(((out1[3] - ref[3])[act].abs()
+                <= partial_tol(tol, bn, ref[3])[act]).all()),
+          f"{what}: partials outside tolerance")
+    gfin = torch.isfinite(ref[4])
+    check(torch.equal(torch.isfinite(out1[4]), gfin)
+          and bool(((out1[4] - ref[4])[gfin & act].abs()
+                    <= 2 * math.sqrt(tol)).all()),
+          f"{what}: gaps outside tolerance")
+    sup_act = bounds.super_any(act, tps)
+    check(super_sums_ok(torch, pts, out1[0], out1[5], out1[6], bn * tps,
+                        sup_act),
+          f"{what}: super sums or counts outside tolerance")
+    skip, sup_skip = ~act, ~sup_act
+    rows = bounds.expand_mask(skip, bn, n)
+    kept = all(torch.equal(o[sel], c[sel]) for o, c, sel in (
+        (out1[0], args[6], rows), (out1[1], args[7], rows),
+        (out1[2], args[8], rows), (out1[3], args[9], skip),
+        (out1[4], args[10], skip), (out1[5], args[11], sup_skip),
+        (out1[6], args[12], sup_skip)))
+    check(kept and not bool(out1[7][skip].any()),
+          f"{what}: a skipped tile's or super's outputs moved")
+    return dict(label_diffs=n_diff, max_abs_err=err, tol=tol)
+
+
 def k6_case(torch, la, bounds, ops, pts, cache, k, gen):
     """K6 from a carried state: one all-active launch with no carried bound
     (held bitwise to K3 and to the template entry) gives the state; two
@@ -887,8 +992,6 @@ def k6_case(torch, la, bounds, ops, pts, cache, k, gen):
              "half": (torch.arange(t, device=dev) // tps) % 2 == 0,
              "gate": bounds.expand_active_supers(bounds.assign_active_tiles(
                  delta, c1, st, cache, tps=tps), tps)}
-    tol = d2_tol(torch, cache.norms, c1)
-    d2 = la.tile_d2(pts, c1, cache.norms)
     res = []
     for name, act in masks.items():
         what = f"K6 d={d} k={k} mask={name}"
@@ -903,59 +1006,11 @@ def k6_case(torch, la, bounds, ops, pts, cache, k, gen):
               f"{what}: two launches differ")
         same_bits(torch, f"{what} vs the template entry", out1,
                   la.lloyd_assign_gated_template(*args, block_n=bn, tps=tps))
-        ref = la.lloyd_assign_gated_torch(*args, block_n=bn, tps=tps)
-        act_pt = bounds.expand_mask(act, bn, n)
-        prune = bounds.assign_point_prune(
-            st.assignment, st.min_d2, st.point_lb, delta,
-            bounds.expand_mask(thresh, bn, n), act_pt)
-        check(torch.equal(out1[7], ref[7]), f"{what}: pruned counts differ")
+        held = k6_held(torch, la, bounds, what, args, bn, tps, out1)
         if name != "half":
             check(int(out1[7].sum()) > 0, f"{what}: the prune never fired")
-        # a pruned row takes its carried label and D² and lb = prev_lb −
-        # absorb, one fp32 subtraction on the same inputs: bitwise
-        check(all(torch.equal(o[prune], r[prune])
-                  for o, r in zip(out1[:3], ref[:3])),
-              f"{what}: pruned rows' label, D² or lb differ")
-        lab = out1[0].long()
-        diff = lab != ref[0].long()
-        tie_gap = (d2.gather(1, lab[:, None])
-                   - d2.gather(1, ref[0].long()[:, None])).abs()[:, 0]
-        check(bool((tie_gap[diff] <= tol).all()),
-              f"{what}: labels differ beyond near-ties")
-        err = float((out1[1] - ref[1]).abs().max())
-        check(err <= tol, f"{what}: min_d2 err {err} > {tol}")
-        # fresh rows' lb = √second: sqrt turns a D² error δ into at most √δ
-        fin = torch.isfinite(ref[2])
-        fresh_pt = act_pt & ~prune & fin
-        check(torch.equal(torch.isfinite(out1[2]), fin)
-              and bool(((out1[2] - ref[2])[fresh_pt].abs()
-                        <= 2 * math.sqrt(tol)).all()),
-              f"{what}: lower bounds outside tolerance")
-        # active tiles' partials and gaps as K3's; active supers' sums and
-        # counts over the kernel's labels, pruned rows under their carried
-        # label included
-        check(bool(((out1[3] - ref[3])[act].abs()
-                    <= partial_tol(tol, bn, ref[3])[act]).all()),
-              f"{what}: partials outside tolerance")
-        gfin = torch.isfinite(ref[4])
-        check(torch.equal(torch.isfinite(out1[4]), gfin)
-              and bool(((out1[4] - ref[4])[gfin & act].abs()
-                        <= 2 * math.sqrt(tol)).all()),
-              f"{what}: gaps outside tolerance")
+        act_pt = bounds.expand_mask(act, bn, n)
         sup_act = bounds.super_any(act, tps)
-        check(super_sums_ok(torch, pts, lab, out1[5], out1[6], bn * tps,
-                            sup_act),
-              f"{what}: super sums or counts outside tolerance")
-        skip = ~act
-        rows = bounds.expand_mask(skip, bn, n)
-        sup_skip = ~sup_act
-        kept = all(torch.equal(o[sel], c[sel]) for o, c, sel in (
-            (out1[0], st.assignment, rows), (out1[1], st.min_d2, rows),
-            (out1[2], st.point_lb, rows), (out1[3], st.partials, skip),
-            (out1[4], st.tile_gap, skip), (out1[5], st.tile_sums, sup_skip),
-            (out1[6], st.tile_counts, sup_skip)))
-        check(kept and not bool(out1[7][skip].any()),
-              f"{what}: a skipped tile's or super's outputs moved")
         fp32_ms = widened(torch, what, lambda p, c, args=args: (
             la.lloyd_assign_gated(p, args[1], c, *args[3:], block_n=bn,
                                   tps=tps)), pts, c1, out1)
@@ -973,8 +1028,9 @@ def k6_case(torch, la, bounds, ops, pts, cache, k, gen):
                         stream=stream_tag(torch, pts),
                         route="screened" if scr else "split",
                         active_tiles=int(act.sum()), tiles=t,
-                        pruned=n_pruned, label_diffs=int(diff.sum()),
-                        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
+                        pruned=n_pruned, label_diffs=held["label_diffs"],
+                        max_abs_err=held["max_abs_err"], tol=held["tol"],
+                        ms=ms, plain_ms=plain,
                         fp32_ms=fp32_ms, template_ms=tmpl_ms, bound_ms=bms,
                         bound_by=by, fma_bound_ms=fma_ms, **stats))
     return res
@@ -2261,7 +2317,8 @@ def untiled_times(torch, launch, template, args, kw, reps) -> dict:
     out["parts_ms"] = {}
     for name, v in prof["kernels"].items():
         m = re.search(r"((?:untiled_row|screen|reduce|super_reduce|"
-                      r"chain_reduce|assign_tile)_kernel)(<[^()]*>)?", name)
+                      r"chain_reduce|assign_tile|centroid_norms)_kernel)"
+                      r"(<[^()]*>)?", name)
         if m:
             part = m.group(1) + (m.group(2) or "")
             out["parts_ms"][part] = v["ms"] / reps
@@ -2638,11 +2695,13 @@ def scan_case(torch, name, fn, twin, args, kw, tol, nprobe, chunk):
                 probed_tiles=int(args[-1].sum()))
 
 
-def k6_build_case(torch, la, bounds, calls) -> list:
+def k6_build_case(torch, la, ops, bounds, calls) -> list:
     """K6 at the IVF build's shape, on the arguments of the build's own
     launches (``calls``; the build's masks and carries): each launch again,
     bitwise the build's and, on the first, middle and last launch, the
-    template entry's, all eight outputs; all-active K6 without a carried
+    template entry's, all eight outputs (past the template's staging:
+    bitwise K6 with pass B in 64-centroid chunks, and all eight outputs
+    held to the plain twin as ``k6_held`` holds them); all-active K6 without a carried
     bound on the build's rows and first centroids bitwise K3; each launch
     timed (the sum is the build's K6 device time) beside the template
     entry's time on the middle one; the screen's counters. Each call is
@@ -2667,11 +2726,22 @@ def k6_build_case(torch, la, bounds, calls) -> list:
                  pruned=int(out1[7].sum()),
                  ms=gpu_ms(torch, lambda: la.lloyd_assign_gated(*a, **kw),
                            reps=5), **stats)
-        if i in picks:
+        # the template entry where its whole (k, d) staging fits; past it
+        # (nlist 1,024) pass B in chunks of 64 centroids, bitwise, and all
+        # eight outputs against the plain twin (``k6_held``)
+        fits = k <= ops.template_max_k(d, bn, gated=True)
+        if i in picks and fits:
             same_bits(torch, f"{what} vs the template entry", out1,
                       la.lloyd_assign_gated_template(*a, **kw))
             c["template_bitwise"] = True
-        if i == n_calls // 2:
+        elif i in picks:
+            same_bits(torch, f"{what} vs pass B in 64-centroid chunks", out1,
+                      la.lloyd_assign_gated(*a, **kw, k_chunk=64))
+            held = k6_held(torch, la, bounds, what, a, bn, tps, out1)
+            c.update(k_chunk_bitwise=True, twin_held=True,
+                     twin_label_diffs=held["label_diffs"],
+                     max_abs_err=held["max_abs_err"])
+        if i == n_calls // 2 and fits:
             c["template_ms"] = gpu_ms(
                 torch, lambda: la.lloyd_assign_gated_template(*a, **kw),
                 reps=3, warmup=1)
@@ -2702,7 +2772,9 @@ def k6_build_case(torch, la, bounds, calls) -> list:
               + (f" (template entry {c['template_ms']:.4f} ms)"
                  if "template_ms" in c else "")
               + f", bound {c['bound_ms']:.4f} ms ({c['bound_by']})"
-              + ("; bitwise the template entry" if i in picks else "")
+              + ("; bitwise the template entry" if "template_bitwise" in c
+                 else "; bitwise pass B in chunks, all eight outputs held "
+                      "to the twin" if "k_chunk_bitwise" in c else "")
               + ("; all-active bitwise K3" if i == 0 else "")
               + screen_text(c))
         del a, kw, out1
@@ -2710,6 +2782,129 @@ def k6_build_case(torch, la, bounds, calls) -> list:
     print(f"K6 at the IVF build: {len(res)} launches, {total:.4f} ms of "
           f"device time in all (medians of 5 each)")
     return res
+
+
+def large_k_phase(torch, la, ops, bounds, dev, gen) -> dict:
+    """Past the old staging caps: d = 128, k = 8,192 on 50,000 rows (fp32),
+    0.01 from one of k well-separated centroids (no near-ties). Pass A
+    stages 32 centroid chunks in turn, their norms with each; pass B takes
+    k in two chunks (one block holds at most 6,688 centroids' sums at
+    4,096-row tiles). K3, K6 (all active without a carried bound, then a
+    round from that state with two centroids moved), K4 and K10a (two
+    problems of 20,000 rows): each bitwise a second launch, labels and
+    counts bitwise the plain twin's, D² within tolerance, sums as
+    ``super_sums_ok`` holds them; K3 bitwise K10a problem by problem and
+    K6's first round bitwise K3; each launch's median time (CUDA events)
+    beside the twin's."""
+    n, d, k = 50_000, 128, 8192
+    c = torch.randn((k, d), generator=gen, device=dev)
+    lab = torch.randint(k, (n,), generator=gen, device=dev)
+    x = c[lab] + 0.01 * torch.randn((n, d), generator=gen, device=dev)
+    norms = bounds.point_norms(x)
+    bn = ops.choose_block_n(n, d, k)
+    t = -(-n // bn)
+    tps = bounds.tiles_per_super(t)
+    s_ = -(-t // tps)
+    tol = d2_tol(torch, norms, c)
+    out = dict(n=n, d=d, k=k, block_n=bn, tps=tps,
+               template_max_k=ops.template_max_k(d, bn))
+    check(k > out["template_max_k"],
+          "the large-k case is not past the template's cap")
+
+    def held(name, call, twin, rows_per_super, sums_i, counts_i, lab_i=0,
+             md_i=1):
+        got = call()
+        same_bits(torch, f"{name} (large k): two launches", got, call())
+        want = twin()
+        check(torch.equal(got[lab_i], want[lab_i])
+              and torch.equal(got[counts_i], want[counts_i]),
+              f"{name} (large k): labels or counts are not the twin's")
+        err = float((got[md_i] - want[md_i]).abs().max())
+        check(err <= tol, f"{name} (large k): D² err {err} > {tol}")
+        if got[lab_i].dim() == 1:   # a batch's problems are held below
+            sums, counts = got[sums_i], got[counts_i]
+            if sums.dim() == 2:     # K4's (k, d): one super
+                sums, counts = sums[None], counts[None]
+            check(super_sums_ok(torch, x, got[lab_i], sums, counts,
+                                rows_per_super),
+                  f"{name} (large k): sums outside tolerance")
+        prof = profile_call(torch, lambda: [call() for _ in range(3)])
+        parts = {}
+        for kname, v in prof["kernels"].items():
+            m = re.search(r"(\w+_kernel)(<[^()]*>)?", kname)
+            if m:
+                parts[m.group(0)] = v["ms"] / 3
+        out[name] = dict(max_abs_err=err,
+                         ms=gpu_ms(torch, call, reps=5, warmup=1),
+                         plain_ms=gpu_ms(torch, twin, reps=3, warmup=1),
+                         parts_ms=parts)
+        print(f"{name} n={n} d={d} k={k}: labels and counts bitwise the "
+              f"twin's, D² err {err:.3g} (tol {tol:.3g}), two launches "
+              f"bitwise; {out[name]['ms']:.4f} ms (by kernel, profiler: "
+              + ", ".join(f"{p_} {ms:.4f}" for p_, ms in parts.items())
+              + f"), plain {out[name]['plain_ms']:.4f} ms")
+        return got
+
+    k3 = held("K3", lambda: la.lloyd_assign_tiled(x, norms, c, block_n=bn,
+                                                  tps=tps),
+              lambda: la.lloyd_assign_tiled_torch(x, norms, c, block_n=bn,
+                                                  tps=tps),
+              bn * tps, sums_i=4, counts_i=5)
+    out["K3"]["screen"] = screen_record(la, "lloyd_assign_tiled", x, torch)
+    zt = torch.zeros(t, device=dev)
+    args0 = (x, norms, c, torch.zeros(k, device=dev), zt, zt,
+             torch.zeros(n, dtype=torch.int32, device=dev),
+             torch.zeros(n, device=dev),
+             torch.full((n,), -torch.inf, device=dev), zt, zt,
+             torch.zeros((s_, k, d), device=dev),
+             torch.zeros((s_, k), device=dev),
+             torch.ones(t, dtype=torch.bool, device=dev))
+    first = la.lloyd_assign_gated(*args0, block_n=bn, tps=tps)
+    same_bits(torch, "K6 (large k): all active without a bound vs K3",
+              (first[0], first[1], first[3], first[4], first[5], first[6]),
+              k3)
+    st = bounds.BoundState(first[3], tile_gap=first[4], tile_sums=first[5],
+                           tile_counts=first[6], assignment=first[0],
+                           min_d2=first[1], point_lb=first[2], lb_debt=zt)
+    c1 = c.clone()
+    c1[[0, k - 1]] += 0.002
+    delta = bounds.centroid_movement(c1, c)
+    cache = bounds.prologue(x, bn)
+    thresh, absorb = bounds.assign_point_scalars(delta, c1, st, cache)
+    act = bounds.expand_active_supers(bounds.assign_active_tiles(
+        delta, c1, st, cache, tps=tps), tps)
+    gargs = (x, norms, c1, delta, thresh, absorb, st.assignment, st.min_d2,
+             st.point_lb, st.partials, st.tile_gap, st.tile_sums,
+             st.tile_counts, act)
+    g = held("K6", lambda: la.lloyd_assign_gated(*gargs, block_n=bn,
+                                                 tps=tps),
+             lambda: la.lloyd_assign_gated_torch(*gargs, block_n=bn,
+                                                 tps=tps),
+             bn * tps, sums_i=5, counts_i=6)
+    out["K6"]["pruned"] = int(g[7].sum())
+    del first, g, st, cache
+    held("K4", lambda: la.lloyd_assign(x, norms, c, block_n=bn),
+         lambda: la.lloyd_assign_torch(x, norms, c), n, sums_i=2,
+         counts_i=3)
+    m = 20_000
+    xb = torch.stack([x[:m], x[m:2 * m]])
+    nb = torch.stack([norms[:m], norms[m:2 * m]])
+    cb = torch.stack([c, c.flip(0)]).contiguous()
+    bnb = ops.choose_block_n(m, d, k)
+    tpb = bounds.tiles_per_super(-(-m // bnb))
+    k10a = held("K10a", lambda: la.lloyd_assign_tiled_batched(
+        xb, nb, cb, block_n=bnb, tps=tpb),
+        lambda: la.lloyd_assign_tiled_batched_torch(xb, nb, cb, block_n=bnb,
+                                                    tps=tpb),
+        bnb * tpb, sums_i=4, counts_i=5)
+    every_problem(torch, "K10a (large k)", k10a,
+                  lambda b: la.lloyd_assign_tiled(xb[b], nb[b], cb[b],
+                                                  block_n=bnb, tps=tpb), 2)
+    for b in range(2):
+        check(super_sums_ok(torch, xb[b], k10a[0][b], k10a[4][b],
+                            k10a[5][b], bnb * tpb),
+              f"K10a (large k): problem {b}'s sums outside tolerance")
+    return out
 
 
 def ivf_phase(torch, ops, bounds, telemetry, ClusterEngine, Draws, cfg, paper,
@@ -2787,7 +2982,7 @@ def ivf_phase(torch, ops, bounds, telemetry, ClusterEngine, Draws, cfg, paper,
           f"{int(idx.counts.min())}-{int(idx.counts.max())}; launches "
           f"{out['build_launches']}")
     del base
-    cases["K6 ivf"] = k6_build_case(torch, la, bounds, k6_calls)
+    cases["K6 ivf"] = k6_build_case(torch, la, ops, bounds, k6_calls)
     del k6_calls
     lap("K6 at the build's shape")
 
@@ -3373,14 +3568,19 @@ def main() -> int:
         check(c["registers"] >= 168,
               f"K15 {fn}: {c['registers']} registers at entry, too few "
               f"for setmaxnreg to raise two warpgroups to 232")
-    # the screened K6/K10a/K10b/K4/K9: no spill, pass A on the tensor cores
-    # (K6's d = 128 instances, the IVF build's, among them)
+    # the screened K3/K6/K10a/K10b/K4/K9: no spill, pass A on the tensor
+    # cores (K6's d = 128 instances, the IVF build's, among them), and its
+    # ungated d = 16 instances for k <= 256 within four CTAs' registers
     report["screen_build"] = screen_build(_build, logs["lloyd_assign"])
-    check(len(report["screen_build"]) == 28,
+    check(len(report["screen_build"]) == 44,
           f"screen kernels in the SASS: {sorted(report['screen_build'])}")
-    check(all(f"screen_kernel<{t}, 128, gated>" in report["screen_build"]
-              for t in ("fp32", "bf16")),
+    check(all(f"screen_kernel<{t}, 128, gated{c}>" in report["screen_build"]
+              for t in ("fp32", "bf16") for c in ("", ", chunked")),
           "no d = 128 instance of K6's pass A")
+    for t in ("fp32", "bf16"):
+        regs = report["screen_build"][f"screen_kernel<{t}, 16>"]["registers"]
+        check(regs <= 128, f"screen_kernel<{t}, 16>: {regs} registers, more "
+                           "than four CTAs an SM hold")
     for fn, c in sorted(report["screen_build"].items()):
         check("registers" in c and "spill_bytes" in c,
               f"{fn}: no registers or spills in the ptxas log")
@@ -3389,10 +3589,10 @@ def main() -> int:
         check(c["spill_bytes"] == 0, f"{fn} spills")
         check(c["HGMMA"] > 0 or fn.startswith("reduce"),
               f"{fn}: no HGMMA in its SASS")
-    # K6's split row pass, K4's row pass, the super reduces and K14's part
-    # (a): no spill
+    # K6's split row pass, K4's and K3's row pass, the super reduces and
+    # K14's part (a): no spill
     report["split_build"] = split_build(_build, logs)
-    check(len(report["split_build"]) == 14,
+    check(len(report["split_build"]) == 20,
           f"row and ADC kernels in the SASS: {sorted(report['split_build'])}")
     for fn, c in sorted(report["split_build"].items()):
         check("registers" in c and "spill_bytes" in c,
@@ -3429,9 +3629,9 @@ def main() -> int:
             cases["K3"].append(c)
             print(f"K3 n={c['n']} d={c['d']} k={kk} tps={c['tps']}: "
                   f"err {c['max_abs_err']:.3g} (tol {c['tol']:.3g}) "
-                  f"label diffs {c['label_diffs']} {c['ms']:.4f} ms, "
+                  f"label diffs {c['label_diffs']}; {untiled_text(c)}, "
                   f"plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} "
-                  f"ms ({c['bound_by']})")
+                  f"ms ({c['bound_by']})" + screen_text(c))
         # the bf16 stream (precision="bf16"): the points rounded to bf16,
         # their norms the fp32 points'; K2 at m = 1, resident and not, K3
         pts16 = pts.bfloat16()
@@ -3443,6 +3643,7 @@ def main() -> int:
             cases["K3 bf16"].append(k3_case(torch, la, ops, bounds, pts16,
                                             norms, kk, gen))
             print_bf16("K3", cases["K3 bf16"][-1])
+            print(f"  K3 bf16: {untiled_text(cases['K3 bf16'][-1])}")
         # the gated seeding round on a mid-seeding state: D² to 8 earlier
         # seeds; at the paper's shape on the label-sorted copy
         gpts = paper_sorted if pts is paper else pts
@@ -3509,6 +3710,11 @@ def main() -> int:
         del centers, radii
     report["cases"] = cases
     del wide
+    torch.cuda.empty_cache()
+
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 2 (large k)")
+    # 2 (large k). K3, K6, K4 and K10a past the old staging caps
+    report["large_k"] = large_k_phase(torch, la, ops, bounds, dev, gen)
     torch.cuda.empty_cache()
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 3")

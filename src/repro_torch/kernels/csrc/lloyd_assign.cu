@@ -25,7 +25,19 @@
 //
 // Design. The sums must come out the same bits on every run (the movement
 // bound of the next slice compares rounds bitwise), so there are no float
-// atomics anywhere. Two kernels, launched back to back on one stream:
+// atomics anywhere. K3 takes one of three routes, by width only, each
+// writing the template's bits (below), which the template entry
+// (lloyd_assign_tiled_template_launch, called only by the card tests and the
+// smoke script) computes:
+//   - d >= 8 within the screened widths (screen::screened): the screened
+//     route below (K10a's with one problem, on K6's persistent grid), its
+//     sqrt(second) into the caller's (n,) scratch;
+//   - d < 8 (the paper's d = 2): the row pass (untiled_row_kernel with the
+//     second best: labels, D² and sqrt(second) of R rows a thread, the
+//     centroids staged in chunks), then pass B's tiled instance and the
+//     super reduce, as K6's split route;
+//   - rows past the screened widths: the template.
+// The template is two kernels, launched back to back on one stream:
 //   1. assign_tile_kernel: one block per tile, thread t owning rows
 //      t, t + 256, t + 512, ... The (k, d) centroid block and its norms are
 //      staged in shared memory once. At d = 2 (the paper's) the row stays in
@@ -99,12 +111,19 @@
 // held the 8 warps' cluster-sum accumulators (175 KB) through its centroid
 // loop. The screened route is two passes and the super reduce:
 //
-//   Pass A (screen::screen_kernel): one warpgroup per CTA, four CTAs an SM,
-//   each CTA cta_rows rows of one tile (K6 and K4, one problem: a
+//   Pass A (screen::screen_kernel): one warpgroup per CTA, three CTAs an SM
+//   (four for the ungated d = 16 instance at k <= 256), each CTA cta_rows
+//   rows of one tile (K6 and K4, one problem: a
 //   persistent grid whose CTAs walk such items, staging the centroids
 //   once). It stages the problem's
-//   centroids (256 at a time, zero-padded) and their norms cn, computed as
-//   the template does (+inf past k), in the 128-byte swizzle wgmma reads.
+//   centroids (256 at a time, zero-padded) and the chunk's norms cn,
+//   computed as the template does (+inf past k), in the 128-byte swizzle
+//   wgmma reads; nothing it stages grows with k, so k is bounded only by
+//   the 16-bit candidate index (kMaxK). Past one chunk (k > 256) a
+//   pre-pass (centroid_norms_kernel) writes every cn into the caller's
+//   (B, k) scratch, where the problem's largest, each chunk's and the
+//   recheck's are read; that instance (Chunked) is compiled apart, so the
+//   resident one keeps its registers.
 //   K10b and K6 first apply the template's prune to every row (pruned rows
 //   write the carried label and D² and lb = prev_lb - absorb) and list the
 //   rest in shared memory, so only those are screened. Rows go in batches
@@ -135,6 +154,9 @@
 //   to adjacent blocks (a column's sums do not depend on the slicing), so
 //   three blocks share an SM and the tile's rows are read from device
 //   memory about once; a chunk's values of the slice are loaded together.
+//   Where one block cannot hold (k, 1) accumulators a warp, the centroids
+//   go in equal chunks to adjacent blocks too (reduce_k_chunk), each adding
+//   the rows whose label lies in its chunk, in the same order.
 //   Its untiled instance (K4, K9) writes no partial or gap and weighs the
 //   rows as the template's untiled instance does. Then super_reduce_kernel
 //   as before (one super a problem for K4 and K9).
@@ -192,7 +214,8 @@
 //   - d = 2 (the paper's): the row pass, untiled_row_kernel: R consecutive
 //     rows a thread (R = 4 or 8, held in registers and loaded as 16-byte
 //     vectors), exact_d2 and the fold's best and first label over the
-//     centroids staged once a block, in blocks of 128 threads;
+//     centroids staged a block (in chunks past kRowBudget), in blocks of
+//     128 threads;
 //   both then run pass B's untiled instance (screen::reduce_kernel: the
 //   template's sums with the weights, in column slices, no partial or gap)
 //   and the all-tile reduce (chain_reduce_kernel: a block takes 8 outputs,
@@ -294,16 +317,15 @@ __device__ __forceinline__ float exact_d2(XF x, CF c, int d, float xn,
   return nan_max(raw_d2<D>(x, c, d, xn, cn), 0.f);
 }
 
-// Folds centroid c's d2 into a row's (best, second, label).
+// Folds centroid c's d2 into a row's (best, second, label): where d2 <
+// best it becomes the best and the old best the second, else where d2 <
+// second it becomes the second (NaN never does), by selects, not branches.
 __device__ __forceinline__ void fold(float d2, int c, float& best,
                                      float& second, int& a) {
-  if (d2 < best) {
-    second = best;
-    best = d2;
-    a = c;
-  } else if (d2 < second) {
-    second = d2;
-  }
+  const bool lt_best = d2 < best, lt_second = d2 < second;
+  second = lt_best ? best : (lt_second ? d2 : second);
+  best = lt_best ? d2 : best;
+  a = lt_best ? c : a;
 }
 
 // The tile's partial (the sum of md) and gap (nan_min of lb - sqrt(md))
@@ -843,7 +865,8 @@ constexpr int kTargetCtas = 4096;     // pass A's grid is cut finer below this
 constexpr size_t kReduceBudget = 72 * 1024;   // pass B: three blocks an SM
 constexpr int kSliceCols = 8;    // pass B: the most columns a slice
 constexpr int kCandStride = kMaxCand + 1;     // a row's list: distinct banks
-using Cand = unsigned short;     // a candidate's index (k < 65536)
+using Cand = unsigned short;     // a candidate's index
+constexpr int kMaxK = 65535;     // the most centroids a Cand indexes
 // the recheck's merge: a row's best, second and label from its second
 // thread
 constexpr int kMergeBytes = 3 * 4 * kRows;
@@ -861,21 +884,21 @@ __host__ __device__ inline bool screened(int d, bool bf16) {
 
 // pass A's shared memory, byte offsets from a 1024-aligned base: the
 // centroid tile (chunks of 256 rows x 128 B), two row tiles (chunks of 64
-// rows x 128 B each: one computed on, one loading), cn (n_chunks * 256),
-// the candidate lists (64 x 17), their counts, xn and eps (64 each), the
-// recheck's merge (3 x 64), the two row tiles' norms (2 x 64), the row
-// list (K10b only, cta_rows), counters
+// rows x 128 B each: one computed on, one loading), the staged centroids'
+// cn (256), the candidate lists (64 x 17), their counts, xn and eps (64
+// each), the recheck's merge (3 x 64), the two row tiles' norms (2 x 64),
+// the row list (K10b only, cta_rows), counters. Nothing in it grows with
+// k: a chunk's norms are staged with the chunk, so k is bounded only by the
+// 16-bit candidate index (kMaxK).
 struct Layout {
   int c_off, x_off, cn_off, cand_off, cnt_off, xn_off, eps_off, merge_off,
       xnb_off, list_off, misc_off, bytes;
-  __host__ __device__ Layout(int d, int k, bool bf16, int cta_rows,
-                             bool gated) {
+  __host__ __device__ Layout(int d, bool bf16, int cta_rows, bool gated) {
     const int chunks = (padded_d(d, bf16) * (bf16 ? 2 : 4) + 127) / 128;
-    const int n_chunks = (k + kN - 1) / kN;
     c_off = 0;
     x_off = c_off + chunks * kCChunk;
     cn_off = x_off + 2 * chunks * kXChunk;
-    cand_off = cn_off + 4 * n_chunks * kN;
+    cand_off = cn_off + 4 * kN;
     cnt_off = cand_off + (2 * kRows * kCandStride + 3) / 4 * 4;
     xn_off = cnt_off + 4 * kRows;
     eps_off = xn_off + 4 * kRows;
@@ -1058,6 +1081,24 @@ __device__ __forceinline__ float wide_d2(const unsigned char* xt, int r,
   return nan_max(__fadd_rn(__fsub_rn(xn, __fadd_rn(dt, dt)), cn), 0.f);
 }
 
+// The centroids' cn, exactly as the template stages it (ascending fmaf
+// from 0), `count` of them, one a thread: what pass A reads past one staged
+// chunk (k > 256), where it holds only the staged chunk's.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+centroid_norms_kernel(const T* __restrict__ cents, float* __restrict__ cn,
+                      long long count, int d) {
+  const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (c >= count) return;
+  const Bits<T>* cc = reinterpret_cast<const Bits<T>*>(cents) + c * d;
+  float s = 0.f;
+  for (int j = 0; j < d; ++j) {
+    const float v = widen_bits(cc[j]);
+    s = fmaf(v, v, s);
+  }
+  cn[c] = s;
+}
+
 // Pass A. Items of cta_rows rows of one tile of one problem go to CTAs (one
 // warpgroup each), CTA i taking items i, i + gridDim.x, ...: for K10a, K10b
 // and K9 one item a CTA; for one problem (K6, K4) a persistent grid of the
@@ -1071,15 +1112,21 @@ __device__ __forceinline__ float wide_d2(const unsigned char* xt, int r,
 // cp.async one batch ahead (D = 128: rows of several 128-byte chunks, read
 // unit by unit); D == 0: any d, staged in place. stats (4): rows screened,
 // their candidates, the most candidates of one row, rows on the full scan.
-// Registers for four CTAs an SM (three for the gated rounds, whose row list
-// takes shared memory; one for wide rows, whose centroid tile takes up to
-// 128 KB)
-template <typename T, int D, bool Gated>
+// Chunked (k > 256): the centroids go through the staged chunk in turn, and
+// cn_g holds every centroid's cn; else (k <= 256) they are staged once and
+// cn_g is not read. Registers for four CTAs an SM for the ungated D = 16
+// instance with the centroids staged once (the PQ codebook sweep's), three
+// for the rest (at four CTAs' 128 registers ptxas spills the others: the
+// gated row list, the chunk loop, the D = 0 and D = 8 rechecks), one for
+// wide rows (whose centroid tile takes up to 128 KB)
+template <typename T, int D, bool Gated, bool Chunked>
 __global__ void __launch_bounds__(kThreadsA,
-                                  D * (int)sizeof(T) > 64 ? 1
-                                                          : (Gated ? 3 : 4))
+                                  D * (int)sizeof(T) > 64
+                                      ? 1
+                                      : (Gated || Chunked || D != 16 ? 3 : 4))
 screen_kernel(const T* __restrict__ points, const float* __restrict__ norms,
-              const T* __restrict__ cents, int* __restrict__ labels,
+              const T* __restrict__ cents, const float* __restrict__ cn_g,
+              int* __restrict__ labels,
               float* __restrict__ md, float* __restrict__ lbo, Gate g,
               unsigned long long* __restrict__ stats, int batch, int n,
               int d, int k, int block_n, int cta_rows) {
@@ -1095,9 +1142,9 @@ screen_kernel(const T* __restrict__ points, const float* __restrict__ norms,
   const int dpad = padded_d(d, kBf16);
   const int steps = dpad * kEs / 32;          // 32-byte wgmma depth steps
   const int kc = (steps + 3) / 4;             // 128-byte column chunks
-  const int n_chunks = (k + kN - 1) / kN;
-  const bool resident = n_chunks == 1;
-  const Layout L(d, k, kBf16, cta_rows, Gated);
+  const int n_chunks = Chunked ? (k + kN - 1) / kN : 1;
+  constexpr bool resident = !Chunked;
+  const Layout L(d, kBf16, cta_rows, Gated);
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw =
       static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -1128,6 +1175,7 @@ screen_kernel(const T* __restrict__ points, const float* __restrict__ norms,
   // the current item's problem: its rows, norms, centroids and outputs
   const B* xb = nullptr;
   const B* cb = nullptr;
+  const float* cng = nullptr;   // the problem's cn in device memory (k > 256)
   const float* nrm = nullptr;
   int* lab_o = nullptr;
   float* md_o = nullptr;
@@ -1139,11 +1187,33 @@ screen_kernel(const T* __restrict__ points, const float* __restrict__ norms,
     const int bb = j * kEs;
     return tile + (bb >> 7) * rows_per_chunk * 128 + swz(r, bb & 127);
   };
-  const auto stage_c = [&](int nc) {   // centroids nc*256 .. +255, zeros past
-    for (int i = tid; i < kN * dpad; i += kThreadsA) {
-      const int r = i / dpad, j = i - r * dpad, c = nc * kN + r;
-      const B v = (c < k && j < d) ? cb[(size_t)c * d + j] : B(0);
-      *reinterpret_cast<B*>(at(c_s, kN, r, j)) = v;
+  // centroids nc*256 .. +255 into the chunk, zeros past k and past d: at
+  // D > 0 with 16-byte aligned centroids as 16-byte cp.async copies, all
+  // in flight at once (then awaited, with the rows in flight); else value
+  // by value
+  constexpr int kCPer = 16 / kEs;                              // a unit's
+  constexpr int kCUnits = D > 0 ? (D + kCPer - 1) / kCPer : 1;
+  constexpr int kCUnitsPad = D > 0 ? (D * kEs + 31) / 32 * 2 : 1;
+  const bool cvec = reinterpret_cast<uintptr_t>(cents) % 16 == 0;
+  const auto stage_c = [&](int nc) {
+    if (D > 0 && cvec) {
+      for (int i = tid; i < kN * kCUnitsPad; i += kThreadsA) {
+        const int r = i / kCUnitsPad, u = i - r * kCUnitsPad,
+                  c = nc * kN + r;
+        const bool live = c < k && u < kCUnits;
+        cp_async16(static_cast<uint32_t>(__cvta_generic_to_shared(
+                       c_s + unit_off(kN, r, u))),
+                   live ? cb + (size_t)c * D + u * kCPer : cb,
+                   live ? 16 : 0);
+      }
+      cp_async_commit();
+      cp_async_wait0();
+    } else {
+      for (int i = tid; i < kN * dpad; i += kThreadsA) {
+        const int r = i / dpad, j = i - r * dpad, c = nc * kN + r;
+        const B v = (c < k && j < d) ? cb[(size_t)c * d + j] : B(0);
+        *reinterpret_cast<B*>(at(c_s, kN, r, j)) = v;
+      }
     }
     fence_async_smem();
   };
@@ -1185,23 +1255,29 @@ screen_kernel(const T* __restrict__ points, const float* __restrict__ norms,
     lb_o = lbo == nullptr ? nullptr : lbo + nb;
 
     if (b != cur_b) {
-      // the problem's centroids: cn exactly as the template stages it, +inf
-      // past k, and the largest (NaN and inf kept); staged once where one
-      // chunk holds them
+      // the problem's centroids' largest cn (NaN and inf kept); where one
+      // chunk holds them, they and their cn, exactly as the template stages
+      // it (+inf past k), are staged once; else cn is read from cn_g,
+      // which centroid_norms_kernel wrote by the same arithmetic
       __syncthreads();   // the previous problem's reads are done
       cb = reinterpret_cast<const B*>(cents) + (size_t)b * k * d;
+      if (!resident) cng = cn_g + (size_t)b * k;
       float cmax = 0.f;
-      for (int c = tid; c < n_chunks * kN; c += kThreadsA) {
+      for (int c = tid; c < (resident ? kN : k); c += kThreadsA) {
         float s = CUDART_INF_F;
         if (c < k) {
-          s = 0.f;
-          for (int j = 0; j < d; ++j) {
-            const float v = widen_bits(cb[(size_t)c * d + j]);
-            s = fmaf(v, v, s);
+          if (resident) {
+            s = 0.f;
+            for (int j = 0; j < d; ++j) {
+              const float v = widen_bits(cb[(size_t)c * d + j]);
+              s = fmaf(v, v, s);
+            }
+          } else {
+            s = cng[c];
           }
           cmax = nan_max(cmax, s);
         }
-        cn_s[c] = s;
+        if (resident) cn_s[c] = s;
       }
       for (int o = 16; o > 0; o >>= 1)
         cmax = nan_max(cmax, __shfl_xor_sync(kFull, cmax, o));
@@ -1317,9 +1393,10 @@ screen_kernel(const T* __restrict__ points, const float* __restrict__ norms,
       wg_wait0();
       fence_regs(acc);
     };
-    // acc becomes A' = cn - 2 acc (one rounding), column by column
-    const auto shift = [&](int nc, int hh) {
-      const float* cnc = cn_s + nc * kN + hh * kNH;
+    // acc becomes A' = cn - 2 acc (one rounding), column by column, cn the
+    // staged chunk's
+    const auto shift = [&](int hh) {
+      const float* cnc = cn_s + hh * kNH;
 #pragma unroll
       for (int g4 = 0; g4 < 16; ++g4) {
         const float2 cv =
@@ -1440,15 +1517,17 @@ screen_kernel(const T* __restrict__ points, const float* __restrict__ norms,
       float a2[2] = {CUDART_INF_F, CUDART_INF_F};
       int base[2] = {0, 0};
       for (int nc = 0; nc < n_chunks; ++nc) {
-        if (!resident) {
+        if (!resident) {   // the chunk and its cn (+inf past k)
           __syncthreads();
           stage_c(nc);
+          for (int r = tid; r < kN; r += kThreadsA)
+            cn_s[r] = nc * kN + r < k ? cng[nc * kN + r] : CUDART_INF_F;
           __syncthreads();
         }
         for (int hh = 0; hh < halves(nc); ++hh) {
           if (!resident || hh > 0) mma_start(xoff, hh);
           mma_wait();
-          shift(nc, hh);
+          shift(hh);
           float gm[2][4];   // [row half][group of 8]
 #pragma unroll
           for (int h = 0; h < 2; ++h)
@@ -1506,7 +1585,7 @@ screen_kernel(const T* __restrict__ points, const float* __restrict__ norms,
         const auto d2_of = [&](int c, auto&& xr) {
           if constexpr (kWide) {
             return wide_d2<D, B>(xt, r, c_s, resident ? nullptr : cb, c, xnr,
-                                 cn_s[c]);
+                                 resident ? cn_s[c] : cng[c]);
           } else if constexpr (D > 0) {
             if (resident) {
               float cr[D];
@@ -1518,7 +1597,7 @@ screen_kernel(const T* __restrict__ points, const float* __restrict__ norms,
             const B* cc = cb + (size_t)c * d;
             return exact_d2<D>([&](int j) { return xr[j]; },
                                [&](int j) { return widen_bits(cc[j]); }, d,
-                               xnr, cn_s[c]);
+                               xnr, cng[c]);
           } else {
             const auto xf = [&](int j) {
               return widen_bits(
@@ -1531,7 +1610,7 @@ screen_kernel(const T* __restrict__ points, const float* __restrict__ norms,
               }, d, xnr, cn_s[c]);
             const B* cc = cb + (size_t)c * d;
             return exact_d2<0>(xf, [&](int j) { return widen_bits(cc[j]); },
-                               d, xnr, cn_s[c]);
+                               d, xnr, cng[c]);
           }
         };
         float xr[D > 0 && !kWide ? D : 1];
@@ -1604,10 +1683,14 @@ screen_kernel(const T* __restrict__ points, const float* __restrict__ norms,
 // Pass B: the template's code after its row loop, on pass A's labels, md
 // and lb: the partial and the gap, then the cluster sums. A tile's columns
 // go in slices of `cols` to n_slices adjacent blocks (so the tile's rows
-// are read from device memory about once and then from L2); slice 0 also
+// are read from device memory about once and then from L2), and where one
+// block cannot hold (k, cols) accumulators a warp, its centroids in
+// n_kc chunks of kw: block (tile, chunk, slice) adds only the rows whose
+// label falls in its chunk (the others take label -1, which adds nothing,
+// and a cluster's group of lanes is the same). Slice 0 of chunk 0 also
 // writes the partial and the gap, or for a skipped tile (the gated rounds)
 // copies them from prev_partials / prev_gaps. Each column's sums
-// are the template's bits whatever the slicing. The gated rounds' pruned
+// are the template's bits whatever the slicing and the chunks. The gated rounds' pruned
 // counts came from pass A. Untiled (K4, K9): the template's untiled
 // instance, the labels alone read, no partial or gap, and each row weighed
 // by `weights` (K4; null: 1). kC: the most columns a slice (4 for narrow
@@ -1625,14 +1708,17 @@ reduce_kernel(const T* __restrict__ points, const float* __restrict__ weights,
               const float* __restrict__ prev_gaps,
               float* __restrict__ partials, float* __restrict__ gaps,
               float* __restrict__ tile_acc, int n, int d, int k, int block_n,
-              int cols, int n_slices) {
+              int cols, int n_slices, int kw, int n_kc) {
   const int n_tiles = (n + block_n - 1) / block_n;
-  const int tile = blockIdx.x / n_slices;
-  const int slice = blockIdx.x - tile * n_slices;
+  const int per_tile = n_kc * n_slices;
+  const int tile = blockIdx.x / per_tile;
+  const int kci = (blockIdx.x - tile * per_tile) / n_slices;
+  const int slice = blockIdx.x - tile * per_tile - kci * n_slices;
   const int b = tile / n_tiles;
   const int t = tile - b * n_tiles;
+  const int k0 = kci * kw, kn = min(kw, k - k0);   // the chunk's centroids
   if (Gated && !active[tile]) {
-    if (slice == 0 && threadIdx.x == 0) {
+    if (slice == 0 && kci == 0 && threadIdx.x == 0) {
       partials[tile] = prev_partials[tile];
       gaps[tile] = prev_gaps[tile];
     }
@@ -1649,15 +1735,15 @@ reduce_kernel(const T* __restrict__ points, const float* __restrict__ weights,
   extern __shared__ float smem[];
   float* red_sum = smem;                               // (kThreads,)
   float* red_gap = red_sum + kThreads;                 // (kThreads,)
-  float* acc_sh = red_gap + kThreads;                  // (kWarps, k, cols)
-  int* lab_sh = reinterpret_cast<int*>(acc_sh + (size_t)kWarps * k * cols);
+  float* acc_sh = red_gap + kThreads;                  // (kWarps, kn, cols)
+  int* lab_sh = reinterpret_cast<int*>(acc_sh + (size_t)kWarps * kn * cols);
   const int tid = threadIdx.x;
   const long long tile0 = (long long)t * block_n;
   const int rows = (int)min((long long)block_n, (long long)n - tile0);
   float local_sum = 0.f;
   float local_gap = CUDART_INF_F;
-  // the partial and the gap (slice 0 of a tiled round)
-  const bool tail = !Untiled && slice == 0;
+  // the partial and the gap (slice 0 of chunk 0 of a tiled round)
+  const bool tail = !Untiled && slice == 0 && kci == 0;
   // rows tid, tid + 256, ... as the template's thread takes them, their
   // loads issued eight at a time
   constexpr int kU = 8;
@@ -1676,7 +1762,7 @@ reduce_kernel(const T* __restrict__ points, const float* __restrict__ weights,
     for (int u = 0; u < kU; ++u) {
       const int r = r0 + u * kThreads;
       if (r < rows) {
-        lab_sh[r] = lab[u];
+        lab_sh[r] = lab[u] >= k0 && lab[u] < k0 + kn ? lab[u] - k0 : -1;
         if (tail) {
           local_sum += m[u];
           local_gap = nan_min(local_gap, lb[u] - sqrtf(m[u]));
@@ -1690,14 +1776,26 @@ reduce_kernel(const T* __restrict__ points, const float* __restrict__ weights,
   const int j0 = slice * cols;
   tile_cluster_sums<T, Untiled, kC>(
       points + tile0 * d, Untiled ? weights : nullptr, tile0, lab_sh, acc_sh,
-      tile_acc + (size_t)tile * k * (d + 1), rows, d, k, cols, j0,
+      tile_acc + ((size_t)tile * k + k0) * (d + 1), rows, d, kn, cols, j0,
       min(j0 + cols, d + 1));
 }
 
-// pass B's shared memory at `cols` columns a pass: the template's, less the
-// centroid staging
+// pass B's shared memory at `cols` columns a pass over k centroids: the
+// template's, less the centroid staging
 inline size_t reduce_smem_bytes(int k, int block_n, int cols) {
   return sizeof(float) * (2 * kThreads + (size_t)kWarps * k * cols + block_n);
+}
+
+// pass B's centroids a block: all k where one column of (k,) accumulators a
+// warp fits the block's shared memory, else the fewest equal chunks that
+// do; a caller's `kchunk` > 0 takes chunks of at most that many (the bits
+// do not depend on it).
+inline int reduce_k_chunk(int k, int block_n, int kchunk) {
+  const int most =
+      (int)((232448 / sizeof(float) - 2 * kThreads - block_n) / kWarps);
+  const int parts = (k + most - 1) / most;
+  const int kw = (k + parts - 1) / parts;
+  return kchunk > 0 ? min(kchunk, kw) : kw;
 }
 
 // Pass B and the super reduce on the row pass's labels, md and lbo (the
@@ -1709,32 +1807,34 @@ int launch_reduce(const T* points, const float* weights, const int* labels,
                   const float* md, const float* lbo, const Gate& g,
                   float* partials, float* gaps, float* tile_acc, float* ssums,
                   float* scounts, int batch, int n, int d, int k,
-                  int block_n, int tps, cudaStream_t s) {
+                  int block_n, int tps, int kchunk, cudaStream_t s) {
   const int n_tiles = (n + block_n - 1) / block_n;
   const long long tiles = (long long)batch * n_tiles;
+  const int kw = reduce_k_chunk(k, block_n, kchunk);
+  const int n_kc = (k + kw - 1) / kw;
   // the columns a pass (the bits do not depend on it): the most, up to
   // kSliceCols, that let three blocks share an SM, else that fit one
   const auto fits = [&](int c, size_t budget) {
-    return reduce_smem_bytes(k, block_n, c) <= budget;
+    return reduce_smem_bytes(kw, block_n, c) <= budget;
   };
   int cols_b = min(d + 1, kSliceCols);
   while (cols_b > 1 && !fits(cols_b, kReduceBudget)) --cols_b;
   if (!fits(cols_b, kReduceBudget))
     while (cols_b > 1 && !fits(cols_b, 232448)) --cols_b;
-  const size_t smem_b = reduce_smem_bytes(k, block_n, cols_b);
+  const size_t smem_b = reduce_smem_bytes(kw, block_n, cols_b);
   const int n_slices = (d + 1 + cols_b - 1) / cols_b;
-  if (tiles * n_slices > 0x7fffffffLL)
+  if (tiles * n_kc * n_slices > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;
   // slices of at most four columns (d <= 3: the paper's d = 2) take the
   // instance with four columns' registers
   const auto run = [&](auto kernel) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem_b);
-    kernel<<<(unsigned)(tiles * n_slices), kThreads, smem_b, s>>>(
+    kernel<<<(unsigned)(tiles * n_kc * n_slices), kThreads, smem_b, s>>>(
         points, weights, labels, md, Gated ? g.lb : lbo,
         Gated ? g.active : nullptr, Gated ? g.prev_partials : nullptr,
         Gated ? g.prev_gaps : nullptr, partials, gaps, tile_acc, n, d, k,
-        block_n, cols_b, n_slices);
+        block_n, cols_b, n_slices, kw, n_kc);
   };
   if (cols_b <= 4)
     run(reduce_kernel<T, Gated, Untiled, 4>);
@@ -1754,16 +1854,19 @@ int launch_reduce(const T* points, const float* weights, const int* labels,
 // nothing reads it). Pass A's grid: for a batch (K10a, K10b, K9) one item a
 // CTA, items cut finer until there are kTargetCtas; for one problem (K6,
 // K4) a persistent grid of the CTAs the card holds at once, items cut
-// until there are 8 a CTA, so that each stages the centroids once. Untiled
-// (K4, K9) runs pass A's ungated instance and pass B's untiled one with
-// `weights` (may be null). Returns the first CUDA error.
+// until there are 8 a CTA, so that each stages the centroids once. Past one
+// chunk (k > 256) centroid_norms_kernel first writes every centroid's cn
+// into the caller's (batch, k) scratch cn_g, which pass A reads (required
+// there; not read at k <= 256). Untiled (K4, K9) runs pass A's ungated
+// instance and pass B's untiled one with `weights` (may be null); kchunk
+// caps pass B's centroids a block. Returns the first CUDA error.
 template <typename T, bool Gated, bool Untiled = false>
 int launch(const T* points, const float* norms, const T* cents,
            const float* weights, int* labels, float* md, float* lbo,
            float* partials, float* gaps, float* tile_acc, float* ssums,
            float* scounts, const Gate& g, unsigned long long* stats,
-           int batch, int n, int d, int k, int block_n, int tps,
-           cudaStream_t s) {
+           float* cn_g, int batch, int n, int d, int k, int block_n, int tps,
+           int kchunk, cudaStream_t s) {
   constexpr bool kBf16 = !std::is_same<T, float>::value;
   const int n_tiles = (n + block_n - 1) / block_n;
   const long long tiles = (long long)batch * n_tiles;
@@ -1772,11 +1875,20 @@ int launch(const T* points, const float* norms, const T* cents,
   };
   // the row loads as 16-byte copies where d is 8, 16 or 128 and rows aligned
   const bool vec = reinterpret_cast<uintptr_t>(points) % 16 == 0;
+  // past one chunk, every centroid's cn in device memory for pass A
+  const bool chunked = k > kN;
+  if (chunked) {
+    if (cn_g == nullptr) return (int)cudaErrorInvalidValue;
+    const long long count = (long long)batch * k;
+    centroid_norms_kernel<T>
+        <<<(unsigned)((count + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+            cents, cn_g, count, d);
+  }
   const auto run = [&](auto kernel) -> int {
     int cta_rows = 4096;
     long long grid_a = 0;
     if (batch == 1) {
-      const Layout most(d, k, kBf16, cta_rows, Gated);
+      const Layout most(d, kBf16, cta_rows, Gated);
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            most.bytes);
       int per = 0;
@@ -1791,46 +1903,78 @@ int launch(const T* points, const float* norms, const T* cents,
       grid_a = items(cta_rows);
     }
     if (grid_a > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-    const Layout L(d, k, kBf16, cta_rows, Gated);
+    const Layout L(d, kBf16, cta_rows, Gated);
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          L.bytes);
     kernel<<<(unsigned)grid_a, kThreadsA, L.bytes, s>>>(
-        points, norms, cents, labels, md, lbo, g, stats, batch, n, d, k,
-        block_n, cta_rows);
+        points, norms, cents, cn_g, labels, md, lbo, g, stats, batch, n, d,
+        k, block_n, cta_rows);
     return (int)cudaGetLastError();
   };
-  const int err = vec && d == 16  ? run(screen_kernel<T, 16, Gated>)
-                  : vec && d == 8 ? run(screen_kernel<T, 8, Gated>)
-                  : vec && d == 128
-                      ? run(screen_kernel<T, 128, Gated>)
-                      : run(screen_kernel<T, 0, Gated>);
+  const auto by_width = [&](auto chunk) -> int {
+    constexpr bool kChunked = decltype(chunk)::value;
+    return vec && d == 16  ? run(screen_kernel<T, 16, Gated, kChunked>)
+           : vec && d == 8 ? run(screen_kernel<T, 8, Gated, kChunked>)
+           : vec && d == 128
+               ? run(screen_kernel<T, 128, Gated, kChunked>)
+               : run(screen_kernel<T, 0, Gated, kChunked>);
+  };
+  const int err = chunked ? by_width(std::true_type{})
+                          : by_width(std::false_type{});
   if (err != 0) return err;
   return launch_reduce<T, Gated, Untiled>(points, weights, labels, md, lbo,
                                           g, partials, gaps, tile_acc, ssums,
                                           scounts, batch, n, d, k, block_n,
-                                          tps, s);
+                                          tps, kchunk, s);
 }
 
 }  // namespace screen
 
-// ---------------------------------------------------------------------------
-// K6 off the screened widths (d < 8, or rows past 512 bytes): the split row
-// pass (see the header).
 
-// the row pass's blocks: small, so that blocks in their prune and in their
+// ---------------------------------------------------------------------------
+// The row passes: K6 off the screened widths (d < 8, or rows past 512 bytes:
+// the split row pass), K4 at d = 2 and K3 below d = 8 (see the header).
+
+// the row passes' blocks: small, so that blocks in their prune and in their
 // fold share an SM
 constexpr int kRowThreads = 128;
+// a row pass's block stages at most this many bytes of centroids and lists,
+// so that four blocks share an SM (their launch bounds); past it the
+// centroids go in chunks, each row's best, second and label held in
+// registers from chunk to chunk
+constexpr int kRowBudget = 232448 / 4;
+
+// Centroids c0 .. c0 + nc - 1 widened into c_sh (nc, d) and their cn (the
+// template's ascending fmaf) into cn_sh, by the block's threads; the caller
+// syncs before the fold reads them.
+template <typename T>
+__device__ __forceinline__ void stage_centroids(const T* __restrict__ cents,
+                                                float* c_sh, float* cn_sh,
+                                                int c0, int nc, int d) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < nc * d; i += blockDim.x)
+    c_sh[i] = widen(cents[(size_t)c0 * d + i]);
+  __syncthreads();
+  for (int c = tid; c < nc; c += blockDim.x) {
+    float s = 0.f;
+    for (int j = 0; j < d; ++j) s = fmaf(c_sh[c * d + j], c_sh[c * d + j], s);
+    cn_sh[c] = s;
+  }
+}
 
 // The fold of listed rows list_s[i0 .. i0 + RR) (block-relative; rows past
-// `total` are not folded): exact_d2 and fold over every staged centroid,
-// the RR rows sharing each pass over the centroids, as the template's rows
-// of one thread do; writes labels, D² and lb = sqrt(second).
+// `total` are not folded): exact_d2 and fold over every centroid in
+// ascending order, the RR rows sharing each pass over the staged centroids,
+// as the template's rows of one thread do; writes labels, D² and
+// lb = sqrt(second). Every thread of the block calls it (with i0 past
+// `total` where it has no row): where kc < k, chunk 0 is staged by the
+// caller and each later chunk here.
 template <typename T, int D, int RR>
 __device__ __forceinline__ void fold_listed(
     const T* __restrict__ points, const float* __restrict__ norms,
-    const float* c_sh, const float* cn_sh, const int* list_s, int i0,
-    int total, int blk0, int d, int k, int* __restrict__ labels,
-    float* __restrict__ md, float* __restrict__ lb) {
+    const T* __restrict__ cents, float* c_sh, float* cn_sh,
+    const int* list_s, int i0, int total, int blk0, int d, int k, int kc,
+    int* __restrict__ labels, float* __restrict__ md, float* __restrict__ lb) {
   constexpr int DR = D > 0 ? D : 1;
   float xr[RR][DR], xn[RR], best[RR], second[RR];
   int a[RR], row[RR];
@@ -1847,23 +1991,31 @@ __device__ __forceinline__ void fold_listed(
     best[q] = second[q] = CUDART_INF_F;
     a[q] = 0;
   }
-  for (int c = 0; c < k; ++c) {
-    const float* cc = c_sh + (size_t)c * d;
-    const float cn = cn_sh[c];
-    if constexpr (D > 0) {
-      float cr[D];
+  for (int c0 = 0; c0 < k; c0 += kc) {
+    if (c0 > 0) {
+      __syncthreads();   // the last chunk's reads are done
+      stage_centroids(cents, c_sh, cn_sh, c0, min(kc, k - c0), d);
+      __syncthreads();
+    }
+    const int nc = row[0] < 0 ? 0 : min(kc, k - c0);
+    for (int c = 0; c < nc; ++c) {
+      const float* cc = c_sh + (size_t)c * d;
+      const float cn = cn_sh[c];
+      if constexpr (D > 0) {
+        float cr[D];
 #pragma unroll
-      for (int j = 0; j < D; ++j) cr[j] = cc[j];
+        for (int j = 0; j < D; ++j) cr[j] = cc[j];
 #pragma unroll
-      for (int q = 0; q < RR; ++q)
-        fold(exact_d2<D>([&](int j) { return xr[q][j]; },
-                         [&](int j) { return cr[j]; }, d, xn[q], cn),
-             c, best[q], second[q], a[q]);
-    } else {
-      const T* x = points + (size_t)row[0] * d;
-      fold(exact_d2<0>([&](int j) { return widen(x[j]); },
-                       [&](int j) { return cc[j]; }, d, xn[0], cn),
-           c, best[0], second[0], a[0]);
+        for (int q = 0; q < RR; ++q)
+          fold(exact_d2<D>([&](int j) { return xr[q][j]; },
+                           [&](int j) { return cr[j]; }, d, xn[q], cn),
+               c0 + c, best[q], second[q], a[q]);
+      } else {
+        const T* x = points + (size_t)row[0] * d;
+        fold(exact_d2<0>([&](int j) { return widen(x[j]); },
+                         [&](int j) { return cc[j]; }, d, xn[0], cn),
+             c0 + c, best[0], second[0], a[0]);
+      }
     }
   }
 #pragma unroll
@@ -1875,44 +2027,37 @@ __device__ __forceinline__ void fold_listed(
   }
 }
 
-// Pass A: the template's row arithmetic on blocks of kRowThreads * R rows
-// (R = 4 at D = 2) that need not lie in one tile. First each thread's R
+// K6's row pass: the template's row arithmetic on blocks of kRowThreads * R
+// rows (R = 4 at D = 2) that need not lie in one tile. First each thread's R
 // consecutive rows (16-byte loads of the carries where `vec`): a skipped
 // tile's row copies its carries, and an active row takes the prune
-// (bounds.assign_point_prune): a pruned row writes its carried label and
-// D² and lb = prev_lb - absorb, the others are listed in shared memory.
-// Then the listed rows go through exact_d2 and fold over every centroid
-// (fold_listed), 1, 2 or 4 to a thread (at D = 2; one at other d) as
-// their count asks, so that only the rows the prune keeps pay
-// for the fold and as many warps as can take part. Each tile's pruned rows
-// are added into g.pruned (zeroed by the caller) with integer atomics.
+// (bounds.assign_point_prune, delta read from device memory): a pruned row
+// writes its carried label and D² and lb = prev_lb - absorb, the others are
+// listed in shared memory. Then the listed rows go through exact_d2 and fold
+// over every centroid (fold_listed, kc staged at a time), 1, 2 or 4 to a
+// thread (at D = 2; one at other d) as their count asks, so that only the
+// rows the prune keeps pay for the fold and as many warps as can take part.
+// Each tile's pruned rows are added into g.pruned (zeroed by the caller)
+// with integer atomics.
 template <typename T, int D>
 __global__ void __launch_bounds__(kRowThreads, 4)
 row_kernel(const T* __restrict__ points, const float* __restrict__ norms,
            const T* __restrict__ cents, int* __restrict__ labels,
-           float* __restrict__ md, Gate g, int n, int d, int k,
+           float* __restrict__ md, Gate g, int n, int d, int k, int kc,
            int block_n, int vec) {
   constexpr int R = D > 0 ? 4 : 1;
   extern __shared__ float smem[];
-  float* c_sh = smem;                                   // (k, d)
-  float* cn_sh = c_sh + (size_t)k * d;                  // (k,)
-  float* delta_sh = cn_sh + k;                          // (k,)
-  int* cnt_sh = reinterpret_cast<int*>(delta_sh + k);   // (R * 128,)
+  float* c_sh = smem;                                   // (kc, d)
+  float* cn_sh = c_sh + (size_t)kc * d;                 // (kc,)
+  int* cnt_sh = reinterpret_cast<int*>(cn_sh + kc);     // (R * 128,)
   int* list_s = cnt_sh + R * kRowThreads;               // (R * 128,)
   __shared__ int list_n;
   const int tid = threadIdx.x, lane = tid & 31;
   const int blk0 = blockIdx.x * R * kRowThreads;   // n < 2^31 rows
   const int t0 = blk0 / block_n;
-  for (int i = tid; i < k * d; i += kRowThreads) c_sh[i] = widen(cents[i]);
-  for (int c = tid; c < k; c += kRowThreads) delta_sh[c] = g.delta[c];
   for (int i = tid; i < R * kRowThreads; i += kRowThreads) cnt_sh[i] = 0;
   if (tid == 0) list_n = 0;
-  __syncthreads();
-  for (int c = tid; c < k; c += kRowThreads) {
-    float s = 0.f;
-    for (int j = 0; j < d; ++j) s = fmaf(c_sh[c * d + j], c_sh[c * d + j], s);
-    cn_sh[c] = s;
-  }
+  stage_centroids(cents, c_sh, cn_sh, 0, min(kc, k), d);   // chunk 0
   // the thread's R rows: every load first, so they are in flight together
   const int row0 = blk0 + R * tid;
   int pa[R];
@@ -1960,7 +2105,7 @@ row_kernel(const T* __restrict__ points, const float* __restrict__ norms,
     const int row = row0 + e;
     bool keep = false, prune = false;
     if (live[e]) {
-      prune = delta_sh[pa[e]] == 0.f &&
+      prune = g.delta[pa[e]] == 0.f &&
               __fsub_rn(plb[e], sqrtf(pmd[e])) >= th[e];
       if (prune) {
         labels[row] = pa[e];
@@ -1987,24 +2132,34 @@ row_kernel(const T* __restrict__ points, const float* __restrict__ norms,
   }
   __syncthreads();
   const int total = list_n;
-  // rows a thread: as few as let every listed row into one pass
+  // rows a thread: as few as let every listed row into one pass (a block
+  // lists at most R * kRowThreads rows)
   const int rr = R == 1 || total <= kRowThreads ? 1
                  : total <= 2 * kRowThreads ? 2 : 4;
-  for (int i0 = tid * rr; i0 < total; i0 += kRowThreads * rr) {
-    if (rr == 1)
-      fold_listed<T, D, 1>(points, norms, c_sh, cn_sh, list_s, i0, total,
-                           blk0, d, k, labels, md, g.lb);
-    else if (rr == 2)
-      fold_listed<T, D, R == 1 ? 1 : 2>(points, norms, c_sh, cn_sh, list_s,
-                                        i0, total, blk0, d, k, labels, md,
-                                        g.lb);
-    else
-      fold_listed<T, D, R>(points, norms, c_sh, cn_sh, list_s, i0, total,
-                           blk0, d, k, labels, md, g.lb);
-  }
+  const int i0 = tid * rr;
+  if (rr == 1)
+    fold_listed<T, D, 1>(points, norms, cents, c_sh, cn_sh, list_s, i0,
+                         total, blk0, d, k, kc, labels, md, g.lb);
+  else if (rr == 2)
+    fold_listed<T, D, R == 1 ? 1 : 2>(points, norms, cents, c_sh, cn_sh,
+                                      list_s, i0, total, blk0, d, k, kc,
+                                      labels, md, g.lb);
+  else
+    fold_listed<T, D, R>(points, norms, cents, c_sh, cn_sh, list_s, i0,
+                         total, blk0, d, k, kc, labels, md, g.lb);
   __syncthreads();
   for (int i = tid; i < R * kRowThreads; i += kRowThreads)
     if (cnt_sh[i]) atomicAdd(&g.pruned[t0 + i], cnt_sh[i]);
+}
+
+// K6's row pass stages kc centroids at a time: all k where they and the
+// lists fit kRowBudget, else the most that do (wide rows: the most that
+// fit a block); 0 where not one fits.
+inline int split_k_chunk(int d, int k) {
+  const int lists = 2 * 4 * (d == 2 ? 4 : 1) * kRowThreads;
+  const int per = 4 * (d + 1);
+  const int kc = (kRowBudget - lists) / per;
+  return min(k, kc >= 1 ? kc : (232448 - lists) / per);
 }
 
 // K6's split round: the row pass, then screen::launch_reduce (the
@@ -2014,11 +2169,14 @@ template <typename T>
 int launch_split(const T* points, const float* norms, const T* cents,
                  int* labels, float* md, float* partials, float* gaps,
                  float* tile_acc, float* ssums, float* scounts, const Gate& g,
-                 int n, int d, int k, int block_n, int tps, cudaStream_t s) {
+                 int n, int d, int k, int block_n, int tps, int kchunk,
+                 cudaStream_t s) {
   const int R = d == 2 ? 4 : 1;
   const long long grid =
       ((long long)n + R * kRowThreads - 1) / (R * kRowThreads);
-  const size_t smem = sizeof(float) * ((size_t)k * d + 2 * k)
+  const int kc = split_k_chunk(d, k);
+  if (kc < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (size_t)kc * (d + 1)
                       + 2 * sizeof(int) * R * kRowThreads;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   // the carries read as 16-byte vectors where they are aligned
@@ -2029,7 +2187,7 @@ int launch_split(const T* points, const float* norms, const T* cents,
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
     kernel<<<(unsigned)grid, kRowThreads, smem, s>>>(
-        points, norms, cents, labels, md, g, n, d, k, block_n, vec);
+        points, norms, cents, labels, md, g, n, d, k, kc, block_n, vec);
   };
   if (d == 2)
     run(row_kernel<T, 2>);
@@ -2039,121 +2197,204 @@ int launch_split(const T* points, const float* norms, const T* cents,
   if (err != 0) return err;
   return screen::launch_reduce<T, true>(points, nullptr, labels, md, g.lb, g,
                                         partials, gaps, tile_acc, ssums,
-                                        scounts, 1, n, d, k, block_n, tps, s);
+                                        scounts, 1, n, d, k, block_n, tps,
+                                        kchunk, s);
 }
 
 // ---------------------------------------------------------------------------
-// K4 at d = 2: the row pass (see the header), then the screened route's
-// pass B and super reduce.
+// K4 at d = 2 and K3 below d = 8: the row pass (see the header), then the
+// screened route's pass B and super reduce.
+
+// the widest row of the row pass's narrow instance (D = 0)
+constexpr int kNarrow = 7;
+
+// raw_d2 of a row of d <= kNarrow values in registers and a centroid staged
+// as (c0 .. c6, cn): the fmaf chain in ascending j stopping at d, then the
+// three pinned adds
+__device__ __forceinline__ float narrow_raw_d2(const float (&x)[kNarrow],
+                                               const float4& lo,
+                                               const float4& hi, int d,
+                                               float xn) {
+  const float c[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  float dt = 0.f;
+#pragma unroll
+  for (int j = 0; j < kNarrow; ++j)
+    if (j < d) dt = fmaf(x[j], c[j], dt);
+  return __fadd_rn(__fsub_rn(xn, __fadd_rn(dt, dt)), c[7]);
+}
 
 // The row pass: labels and D² of R consecutive rows a thread (from
 // R * (blockIdx.x * kRowThreads + tid)) by the template's arithmetic,
 // exact_d2 over every centroid in ascending order, and the fold's best and
 // first label, which is all K4 keeps: a centroid takes the row where its D²
 // is below the best so far (strict <, so the first minimum wins and NaN
-// never does, as in fold). On fp32 streams the clamp at 0 is applied after
-// the fold, which saves two of about ten instructions a (row, centroid)
-// pair and keeps the bits (the comment at the clamp). The rows are held in
-// registers, read as 16-byte vectors where `vec` (points, norms, labels
-// and md 16-byte aligned) and all of the thread's rows lie below n, and
-// each centroid is staged as (c0, c1, cn, 0), one 16-byte broadcast.
-template <typename T, int R>
+// never does, as in fold). Second (K3): the fold also keeps the second
+// best, and lbo = sqrt(second) is written. On fp32 streams the clamp at 0
+// is applied after the fold, which saves two of about ten instructions a
+// (row, centroid) pair and keeps the bits (the comment at the clamp). The
+// rows are held in registers, read as 16-byte vectors at D = 2 where `vec`
+// (points, norms, labels, md and lbo 16-byte aligned) and all of the
+// thread's rows lie below n. D = 2: each centroid staged as (c0, c1, cn, 0),
+// one 16-byte broadcast; D = 0 (d < 8): as (c0 .. c6, cn), two. The
+// centroids are staged kc at a time (row_k_chunk); a row's best, second and
+// label stay in registers from chunk to chunk.
+template <typename T, int D, int R, bool Second>
 __global__ void __launch_bounds__(kRowThreads, 4)
 untiled_row_kernel(const T* __restrict__ points,
                    const float* __restrict__ norms,
                    const T* __restrict__ cents, int* __restrict__ labels,
-                   float* __restrict__ md, int n, int k, int vec) {
+                   float* __restrict__ md, float* __restrict__ lbo, int n,
+                   int d, int k, int kc, int vec) {
   static_assert(R % 4 == 0, "R a multiple of 4");
-  extern __shared__ float smem[];
-  float4* c4 = reinterpret_cast<float4*>(smem);   // (k,): c0, c1, cn, 0
+  constexpr int kV = D == 2 ? 1 : 2;           // float4s a staged centroid
+  constexpr int DX = D == 2 ? 2 : kNarrow;     // a row's values held
+  extern __shared__ float4 c4[];               // (kc, kV)
   const int tid = threadIdx.x;
   const long long row0 = ((long long)blockIdx.x * kRowThreads + tid) * R;
-  for (int c = tid; c < k; c += kRowThreads) {
-    const float c0 = widen(cents[2 * c]), c1 = widen(cents[2 * c + 1]);
-    c4[c] = make_float4(c0, c1, fmaf(c1, c1, fmaf(c0, c0, 0.f)), 0.f);
-  }
-  float x[R][2], xn[R], best[R];
-  int a[R];
-  const bool whole = vec && row0 + R <= n;
-  if (whole) {
-    const uint4* src = reinterpret_cast<const uint4*>(points + row0 * 2);
-    if constexpr (std::is_same<T, float>::value) {   // two rows a unit
+  const auto stage = [&](int c0) {   // centroids c0 .. c0 + kc - 1
+    const int nc = min(kc, k - c0);
+    for (int c = tid; c < nc; c += kRowThreads) {
+      const T* src = cents + (size_t)(c0 + c) * d;
+      if constexpr (D == 2) {
+        const float u = widen(src[0]), v = widen(src[1]);
+        c4[c] = make_float4(u, v, fmaf(v, v, fmaf(u, u, 0.f)), 0.f);
+      } else {
+        float v[8];
+        float s = 0.f;
 #pragma unroll
-      for (int i = 0; i < R / 2; ++i) {
-        const uint4 w = src[i];
-        x[2 * i][0] = __uint_as_float(w.x);
-        x[2 * i][1] = __uint_as_float(w.y);
-        x[2 * i + 1][0] = __uint_as_float(w.z);
-        x[2 * i + 1][1] = __uint_as_float(w.w);
+        for (int j = 0; j < kNarrow; ++j) {
+          v[j] = j < d ? widen(src[j]) : 0.f;
+          if (j < d) s = fmaf(v[j], v[j], s);
+        }
+        v[7] = s;
+        c4[2 * c] = make_float4(v[0], v[1], v[2], v[3]);
+        c4[2 * c + 1] = make_float4(v[4], v[5], v[6], v[7]);
       }
-    } else {   // four rows a unit; a bf16 value widens as its bits << 16
+    }
+  };
+  stage(0);
+  float x[R][DX], xn[R], best[R], second[R];
+  int a[R], z[R];
+  const bool whole = vec && row0 + R <= n;
+  bool loaded = false;
+  if constexpr (D == 2) {
+    if (whole) {
+      const uint4* src = reinterpret_cast<const uint4*>(points + row0 * 2);
+      if constexpr (std::is_same<T, float>::value) {   // two rows a unit
 #pragma unroll
-      for (int i = 0; i < R / 4; ++i) {
-        const uint4 w = src[i];
-        const unsigned h[4] = {w.x, w.y, w.z, w.w};
+        for (int i = 0; i < R / 2; ++i) {
+          const uint4 w = src[i];
+          x[2 * i][0] = __uint_as_float(w.x);
+          x[2 * i][1] = __uint_as_float(w.y);
+          x[2 * i + 1][0] = __uint_as_float(w.z);
+          x[2 * i + 1][1] = __uint_as_float(w.w);
+        }
+      } else {   // four rows a unit; a bf16 value widens as its bits << 16
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          x[4 * i + e][0] = __uint_as_float(h[e] << 16);
-          x[4 * i + e][1] = __uint_as_float(h[e] & 0xffff0000u);
+        for (int i = 0; i < R / 4; ++i) {
+          const uint4 w = src[i];
+          const unsigned h[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            x[4 * i + e][0] = __uint_as_float(h[e] << 16);
+            x[4 * i + e][1] = __uint_as_float(h[e] & 0xffff0000u);
+          }
         }
       }
-    }
-    const float4* nsrc = reinterpret_cast<const float4*>(norms + row0);
+      const float4* nsrc = reinterpret_cast<const float4*>(norms + row0);
 #pragma unroll
-    for (int i = 0; i < R / 4; ++i) {
-      const float4 w = nsrc[i];
-      xn[4 * i] = w.x, xn[4 * i + 1] = w.y, xn[4 * i + 2] = w.z,
-      xn[4 * i + 3] = w.w;
+      for (int i = 0; i < R / 4; ++i) {
+        const float4 w = nsrc[i];
+        xn[4 * i] = w.x, xn[4 * i + 1] = w.y, xn[4 * i + 2] = w.z,
+        xn[4 * i + 3] = w.w;
+      }
+      loaded = true;
     }
-  } else {
+  }
+  if (!loaded) {
 #pragma unroll
     for (int q = 0; q < R; ++q) {
       const bool ok = row0 + q < n;
-      x[q][0] = ok ? widen(points[(row0 + q) * 2]) : 0.f;
-      x[q][1] = ok ? widen(points[(row0 + q) * 2 + 1]) : 0.f;
+#pragma unroll
+      for (int j = 0; j < DX; ++j)
+        x[q][j] = ok && j < d ? widen(points[(row0 + q) * d + j]) : 0.f;
       xn[q] = ok ? norms[row0 + q] : 0.f;
     }
   }
 #pragma unroll
   for (int q = 0; q < R; ++q) {
-    best[q] = CUDART_INF_F;
+    best[q] = second[q] = CUDART_INF_F;
     a[q] = 0;
+    z[q] = -1;
   }
-  __syncthreads();   // the staged centroids
   // fp32 streams fold the values before the clamp at 0 and clamp after
   // (below); bf16 streams, whose rows' fp32 norms leave many values at or
   // below 0, clamp each value as the template does
   constexpr bool kLate = std::is_same<T, float>::value;
-  const auto d2 = [&](int q, const float4& cc) {
-    return raw_d2<2>([&](int j) { return x[q][j]; },
-                     [&](int j) { return j ? cc.y : cc.x; }, 2, xn[q], cc.z);
+  const auto d2 = [&](int q, const float4& lo, const float4& hi) {
+    if constexpr (D == 2)
+      return raw_d2<2>([&](int j) { return x[q][j]; },
+                       [&](int j) { return j ? lo.y : lo.x; }, 2, xn[q],
+                       lo.z);
+    else
+      return narrow_raw_d2(x[q], lo, hi, d, xn[q]);
   };
-  for (int c = 0; c < k; ++c) {
-    const float4 cc = c4[c];
+  const auto cent = [&](int c, float4& lo, float4& hi) {
+    lo = c4[kV * c];
+    hi = kV == 2 ? c4[kV * c + 1] : lo;
+  };
+  for (int c0 = 0; c0 < k; c0 += kc) {
+    if (c0 > 0) {
+      __syncthreads();   // the last chunk's reads are done
+      stage(c0);
+    }
+    __syncthreads();     // the staged chunk
+    const int nc = min(kc, k - c0);
+    for (int c = 0; c < nc; ++c) {
+      float4 lo, hi;
+      cent(c, lo, hi);
 #pragma unroll
-    for (int q = 0; q < R; ++q) {
-      const float v = kLate ? d2(q, cc) : nan_max(d2(q, cc), 0.f);
-      if (v < best[q]) {
-        best[q] = v;
-        a[q] = c;
+      for (int q = 0; q < R; ++q) {
+        const float v = kLate ? d2(q, lo, hi) : nan_max(d2(q, lo, hi), 0.f);
+        if constexpr (Second) {
+          fold(v, c0 + c, best[q], second[q], a[q]);
+        } else if (v < best[q]) {
+          best[q] = v;
+          a[q] = c0 + c;
+        }
       }
     }
+    // The clamp at 0, after the fold (fp32). Where the least value is
+    // above 0, every value is (or NaN), the clamp changes none, and the
+    // fold on the unclamped values picked the template's label and D².
+    // Otherwise the template's D² is +0 and its label the first centroid
+    // whose value is at most 0 (clamped to +0, which no later value
+    // beats): it lies in the chunk where the best first fell to 0 or
+    // below, and is found again there (rare with the stream's own norms: a
+    // row on a centroid). The template's second is the clamped second.
+    if constexpr (kLate) {
+#pragma unroll
+      for (int q = 0; q < R; ++q)
+        if (z[q] < 0 && best[q] <= 0.f) {
+          int c = 0;
+          float4 lo, hi;
+          for (;; ++c) {
+            cent(c, lo, hi);
+            if (d2(q, lo, hi) <= 0.f) break;
+          }
+          z[q] = c0 + c;
+        }
+    }
   }
-  // The clamp at 0, after the fold (fp32). Where the least value is above
-  // 0, every value is (or NaN), the clamp changes none, and the fold on the
-  // unclamped values picked the template's label and D². Otherwise the
-  // template's D² is +0 and its label the first centroid whose value is at
-  // most 0 (clamped to +0, which no later value beats), found again (rare
-  // with the stream's own norms: a row on a centroid).
   if constexpr (kLate) {
 #pragma unroll
-    for (int q = 0; q < R; ++q)
-      if (best[q] <= 0.f) {
-        int c = 0;
-        while (!(d2(q, c4[c]) <= 0.f)) ++c;
-        a[q] = c;
+    for (int q = 0; q < R; ++q) {
+      if (z[q] >= 0) {
+        a[q] = z[q];
         best[q] = 0.f;
       }
+      if (Second && !(second[q] > 0.f)) second[q] = 0.f;
+    }
   }
   if (whole) {
 #pragma unroll
@@ -2162,6 +2403,10 @@ untiled_row_kernel(const T* __restrict__ points,
           make_int4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
       reinterpret_cast<float4*>(md + row0)[i] = make_float4(
           best[4 * i], best[4 * i + 1], best[4 * i + 2], best[4 * i + 3]);
+      if constexpr (Second)
+        reinterpret_cast<float4*>(lbo + row0)[i] = make_float4(
+            sqrtf(second[4 * i]), sqrtf(second[4 * i + 1]),
+            sqrtf(second[4 * i + 2]), sqrtf(second[4 * i + 3]));
     }
   } else {
 #pragma unroll
@@ -2169,36 +2414,52 @@ untiled_row_kernel(const T* __restrict__ points,
       if (row0 + q < n) {
         labels[row0 + q] = a[q];
         md[row0 + q] = best[q];
+        if constexpr (Second) lbo[row0 + q] = sqrtf(second[q]);
       }
   }
 }
 
-// K4's row pass over n rows at d = 2: 8 rows a thread where that still
-// gives every SM four blocks, else 4 (fit_minibatch's 262,144-row batches:
-// 512 blocks). Returns the first CUDA error.
-template <typename T>
-int launch_untiled_rows(const T* points, const float* norms, const T* cents,
-                        int* labels, float* md, int n, int k,
-                        cudaStream_t s) {
+// the row pass's centroids a chunk: all k where their staging (16 bytes a
+// centroid at d = 2, 32 below d = 8) fits kRowBudget, else the most that do.
+inline int row_k_chunk(int d, int k) {
+  return min(k, kRowBudget / (d == 2 ? 16 : 32));
+}
+
+// The row pass over n rows: K4 at d = 2 (Second false) and K3 below d = 8
+// (Second: lbo too). At d = 2 8 rows a thread where that still gives every
+// SM four blocks, else 4 (fit_minibatch's 262,144-row batches: 512 blocks);
+// below d = 8 otherwise, 4. Returns the first CUDA error.
+template <typename T, bool Second>
+int launch_rows(const T* points, const float* norms, const T* cents,
+                int* labels, float* md, float* lbo, int n, int d, int k,
+                cudaStream_t s) {
   const bool vec = (reinterpret_cast<uintptr_t>(points)
                     | reinterpret_cast<uintptr_t>(norms)
                     | reinterpret_cast<uintptr_t>(labels)
-                    | reinterpret_cast<uintptr_t>(md)) % 16 == 0;
-  const size_t smem = sizeof(float4) * k;
+                    | reinterpret_cast<uintptr_t>(md)
+                    | reinterpret_cast<uintptr_t>(lbo)) % 16 == 0;
+  const int kc = row_k_chunk(d, k);
+  const size_t smem = (size_t)(d == 2 ? 16 : 32) * kc;
   const auto run = [&](auto kernel, int rows) -> int {
     const long long per = (long long)rows * kRowThreads;
     const long long grid = ((long long)n + per - 1) / per;
     if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
-    kernel<<<(unsigned)grid, kRowThreads, smem, s>>>(points, norms, cents,
-                                                     labels, md, n, k,
-                                                     (int)vec);
+    kernel<<<(unsigned)grid, kRowThreads, smem, s>>>(
+        points, norms, cents, labels, md, lbo, n, d, k, kc, (int)vec);
     return (int)cudaGetLastError();
   };
-  if ((long long)n >= 4LL * sm_count() * 8 * kRowThreads)
-    return run(untiled_row_kernel<T, 8>, 8);
-  return run(untiled_row_kernel<T, 4>, 4);
+  if (d == 2) {
+    if ((long long)n >= 4LL * sm_count() * 8 * kRowThreads)
+      return run(untiled_row_kernel<T, 2, 8, Second>, 8);
+    return run(untiled_row_kernel<T, 2, 4, Second>, 4);
+  }
+  if constexpr (Second) {
+    if (d >= 1 && d <= kNarrow)
+      return run(untiled_row_kernel<T, 0, 4, true>, 4);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, int D, bool Gated, bool Untiled>
@@ -2219,8 +2480,11 @@ int launch_assign(const T* points, const float* norms, const T* cents,
   return (int)cudaGetLastError();
 }
 
-// Untiled (K4 / K9) takes null partials and gaps and `tps` = n_tiles: one
-// super spanning every tile.
+// The template: assign_tile_kernel, then the super reduce. Untiled (K4 / K9)
+// takes null partials and gaps and `tps` = n_tiles: one super spanning every
+// tile. `cols` columns of 8 warp-private (k, cols) accumulators must fit the
+// shared memory next to the whole (k, d) centroid block
+// (ops.assign_smem_bytes).
 template <typename T, bool Gated, bool Untiled>
 int launch_round(const T* points, const float* norms, const T* cents,
                  const float* weights, int* labels, float* md,
@@ -2270,17 +2534,46 @@ int dispatch(const void* points, const float* norms, const void* cents,
       tile_acc, ssums, scounts, g, batch, n, d, k, block_n, tps, cols, s);
 }
 
-// The batched rounds (K10a, K10b): the screened route where
-// screen::screened(d, bf16), else the template, as dispatch.
+// The assignment rounds, and their routes on the card: the one rule, read
+// by the launches below and, through lloyd_assign_route, by the wrappers.
+enum Round { kK3 = 0, kK6 = 1, kK4 = 2, kK10a = 3, kK10b = 4, kK9 = 5 };
+enum Route { kTemplate = 0, kScreened = 1, kRowPass = 2, kSplit = 3 };
+
+// The screened route where screen::screened(d, bf16); else K3's row pass
+// below d = 8, K4's at d = 2 and K6's split row pass at every other width;
+// else (K9, K10a, K10b below d = 8, and K3, K4 past the screened widths)
+// the template.
+inline Route route_of(int round, int d, bool bf16) {
+  if (screen::screened(d, bf16)) return kScreened;
+  if ((round == kK3 && d < 8) || (round == kK4 && d == 2)) return kRowPass;
+  if (round == kK6) return kSplit;
+  return kTemplate;
+}
+
+// The most centroids a route takes at width d: the screened route's 16-bit
+// candidate index; the row pass any; the split row pass any where one
+// centroid row fits a block, else none; the template -1: what its whole
+// (k, d) block fits beside the columns the caller passes.
+inline int route_max_k(Route r, int d) {
+  switch (r) {
+    case kScreened: return screen::kMaxK;
+    case kRowPass: return 0x7fffffff;
+    case kSplit: return split_k_chunk(d, 1) >= 1 ? 0x7fffffff : 0;
+    default: return -1;
+  }
+}
+
+// The batched rounds (K10a, K10b): the screened route or the template, by
+// route_of, as dispatch; cn_g as screen::launch's.
 template <bool Gated>
 int dispatch_batched(const void* points, const float* norms,
                      const void* cents, int* labels, float* md, float* lbo,
                      float* partials, float* gaps, float* tile_acc,
                      float* ssums, float* scounts, const Gate& g,
-                     unsigned long long* stats, int batch, int n, int d,
-                     int k, int block_n, int tps, int cols, int bf16,
-                     void* stream) {
-  if (!screen::screened(d, bf16 != 0))
+                     unsigned long long* stats, float* cn_g, int batch, int n,
+                     int d, int k, int block_n, int tps, int cols, int kchunk,
+                     int bf16, void* stream) {
+  if (route_of(Gated ? kK10b : kK10a, d, bf16 != 0) != kScreened)
     return dispatch<Gated, false>(points, norms, cents, nullptr, labels, md,
                                   partials, gaps, tile_acc, ssums, scounts, g,
                                   batch, n, d, k, block_n, tps, cols, bf16,
@@ -2292,43 +2585,81 @@ int dispatch_batched(const void* points, const float* norms,
     return screen::launch<__nv_bfloat16, Gated>(
         static_cast<const __nv_bfloat16*>(points), norms,
         static_cast<const __nv_bfloat16*>(cents), nullptr, labels, md, lbo,
-        partials, gaps, tile_acc, ssums, scounts, g, stats, batch, n, d, k,
-        block_n, tps, s);
+        partials, gaps, tile_acc, ssums, scounts, g, stats, cn_g, batch, n,
+        d, k, block_n, tps, kchunk, s);
   return screen::launch<float, Gated>(
       static_cast<const float*>(points), norms,
       static_cast<const float*>(cents), nullptr, labels, md, lbo, partials,
-      gaps, tile_acc, ssums, scounts, g, stats, batch, n, d, k, block_n, tps,
-      s);
+      gaps, tile_acc, ssums, scounts, g, stats, cn_g, batch, n, d, k,
+      block_n, tps, kchunk, s);
 }
 
-// K4 (batch 1; weights may be null) and K9 (batch B, no weights): the
-// screened route where screen::screened(d, bf16) (stats required), then
-// pass B's untiled instance and the all-tile reduce; else K4's row pass at
-// d = 2, then the same; else the template. Returns the first CUDA error.
+// K3 by route_of: the screened route (pass A on K6's persistent grid, lbo
+// the caller's (n,) scratch for sqrt(second), stats required, cn_g as
+// screen::launch's); the row pass with the second best into lbo; each then
+// pass B's tiled instance and the super reduce; else the template. Returns
+// the first CUDA error.
 template <typename T>
-int launch_untiled(const T* points, const float* norms, const T* cents,
-                   const float* weights, int* labels, float* md,
-                   float* tile_acc, float* sums, float* counts,
-                   unsigned long long* stats, int batch, int n, int d, int k,
-                   int block_n, int cols, cudaStream_t s) {
+int launch_tiled(const T* points, const float* norms, const T* cents,
+                 int* labels, float* md, float* lbo, float* partials,
+                 float* gaps, float* tile_acc, float* ssums, float* scounts,
+                 unsigned long long* stats, float* cn_g, int n, int d, int k,
+                 int block_n, int tps, int cols, int kchunk, cudaStream_t s) {
+  constexpr bool kBf16 = !std::is_same<T, float>::value;
+  const Route r = route_of(kK3, d, kBf16);
+  if (r == kScreened) {
+    if (lbo == nullptr || stats == nullptr) return (int)cudaErrorInvalidValue;
+    return screen::launch<T, false>(points, norms, cents, nullptr, labels,
+                                    md, lbo, partials, gaps, tile_acc, ssums,
+                                    scounts, Gate{}, stats, cn_g, 1, n, d, k,
+                                    block_n, tps, kchunk, s);
+  }
+  if (r == kRowPass) {
+    if (lbo == nullptr) return (int)cudaErrorInvalidValue;
+    const int err = launch_rows<T, true>(points, norms, cents, labels, md,
+                                         lbo, n, d, k, s);
+    if (err != 0) return err;
+    return screen::launch_reduce<T, false>(points, nullptr, labels, md, lbo,
+                                           Gate{}, partials, gaps, tile_acc,
+                                           ssums, scounts, 1, n, d, k,
+                                           block_n, tps, kchunk, s);
+  }
+  return launch_round<T, false, false>(points, norms, cents, nullptr, labels,
+                                       md, partials, gaps, tile_acc, ssums,
+                                       scounts, Gate{}, 1, n, d, k, block_n,
+                                       tps, cols, s);
+}
+
+// K4 (round kK4, batch 1; weights may be null) and K9 (kK9, batch B, no
+// weights) by route_of: the screened route (stats required, cn_g as
+// screen::launch's) or K4's row pass, each then pass B's untiled instance
+// and the all-tile reduce; else the template. Returns the first CUDA error.
+template <typename T>
+int launch_untiled(int round, const T* points, const float* norms,
+                   const T* cents, const float* weights, int* labels,
+                   float* md, float* tile_acc, float* sums, float* counts,
+                   unsigned long long* stats, float* cn_g, int batch, int n,
+                   int d, int k, int block_n, int cols, int kchunk,
+                   cudaStream_t s) {
   constexpr bool kBf16 = !std::is_same<T, float>::value;
   const int n_tiles = (n + block_n - 1) / block_n;
   if ((long long)batch * n_tiles > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;
-  if (screen::screened(d, kBf16)) {
+  const Route r = route_of(round, d, kBf16);
+  if (r == kScreened) {
     if (stats == nullptr) return (int)cudaErrorInvalidValue;
     return screen::launch<T, false, true>(
         points, norms, cents, weights, labels, md, nullptr, nullptr, nullptr,
-        tile_acc, sums, counts, Gate{}, stats, batch, n, d, k, block_n,
-        n_tiles, s);
+        tile_acc, sums, counts, Gate{}, stats, cn_g, batch, n, d, k, block_n,
+        n_tiles, kchunk, s);
   }
-  if (batch == 1 && d == 2) {
-    const int err =
-        launch_untiled_rows<T>(points, norms, cents, labels, md, n, k, s);
+  if (r == kRowPass) {
+    const int err = launch_rows<T, false>(points, norms, cents, labels, md,
+                                          nullptr, n, d, k, s);
     if (err != 0) return err;
     return screen::launch_reduce<T, false, true>(
         points, weights, labels, md, nullptr, Gate{}, nullptr, nullptr,
-        tile_acc, sums, counts, 1, n, d, k, block_n, n_tiles, s);
+        tile_acc, sums, counts, 1, n, d, k, block_n, n_tiles, kchunk, s);
   }
   return launch_round<T, false, true>(points, norms, cents, weights, labels,
                                       md, nullptr, nullptr, tile_acc, sums,
@@ -2337,33 +2668,78 @@ int launch_untiled(const T* points, const float* norms, const T* cents,
 }
 
 // K4 and K9 on the caller's stream type, as dispatch
-int dispatch_untiled(const void* points, const float* norms,
+int dispatch_untiled(int round, const void* points, const float* norms,
                      const void* cents, const float* weights, int* labels,
                      float* md, float* tile_acc, float* sums, float* counts,
-                     unsigned long long* stats, int batch, int n, int d,
-                     int k, int block_n, int cols, int bf16, void* stream) {
+                     unsigned long long* stats, float* cn_g, int batch, int n,
+                     int d, int k, int block_n, int cols, int kchunk,
+                     int bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch_untiled<__nv_bfloat16>(
-        static_cast<const __nv_bfloat16*>(points), norms,
+        round, static_cast<const __nv_bfloat16*>(points), norms,
         static_cast<const __nv_bfloat16*>(cents), weights, labels, md,
-        tile_acc, sums, counts, stats, batch, n, d, k, block_n, cols, s);
-  return launch_untiled<float>(static_cast<const float*>(points), norms,
-                               static_cast<const float*>(cents), weights,
-                               labels, md, tile_acc, sums, counts, stats,
-                               batch, n, d, k, block_n, cols, s);
+        tile_acc, sums, counts, stats, cn_g, batch, n, d, k, block_n, cols,
+        kchunk, s);
+  return launch_untiled<float>(round, static_cast<const float*>(points),
+                               norms, static_cast<const float*>(cents),
+                               weights, labels, md, tile_acc, sums, counts,
+                               stats, cn_g, batch, n, d, k, block_n, cols,
+                               kchunk, s);
 }
 
 }  // namespace
 
 // Every entry point takes `bf16`: 0 for fp32 points and cents, 1 for the
-// bf16 stream (both of one type; norms, weights and all else fp32).
+// bf16 stream (both of one type; norms, weights and all else fp32). The
+// rounds' entries take `kchunk` after `cols`: kchunk > 0 caps pass B's
+// centroids a block (a test hook: the bits do not depend on it; 0, which
+// the engine passes, is pass B's own choice, screen::reduce_k_chunk);
+// `cols` is the template's columns a pass, read only where the route is
+// the template. On the screened route they take cn_scratch, (B, k) floats
+// (B = 1 for one problem), where pass A writes every centroid's norm past
+// k = 256 (not read at k <= 256).
 
-// Launches both kernels of one assignment round (K3) on `stream`; returns
-// cudaGetLastError(). `cols` columns of 8 warp-private (k, cols)
-// accumulators must fit the shared memory the caller budgeted
-// (repro_torch.kernels.ops.assign_smem_bytes).
+// The card route of assignment round `round` (0 K3, 1 K6, 2 K4, 3 K10a,
+// 4 K10b, 5 K9) at width d on the stream (bf16 != 0: bf16): 0 the
+// template, 1 the screened route, 2 the row pass (K3, K4), 3 K6's split row
+// pass. *max_k gets the most centroids the route takes, -1 for the
+// template (what its whole (k, d) block fits beside the caller's `cols`).
+extern "C" int lloyd_assign_route(int round, int d, int bf16, int* max_k) {
+  const Route r = route_of(round, d, bf16 != 0);
+  *max_k = route_max_k(r, d);
+  return (int)r;
+}
+
+// One tiled assignment round (K3) on `stream`, by lloyd_assign_route;
+// returns the first CUDA error. lb_scratch (n,) floats is required off the
+// template, stats (4) as K10a's on the screened route.
 extern "C" int lloyd_assign_tiled_launch(
+    const void* points, const float* norms, const void* cents, int* labels,
+    float* md, float* partials, float* gaps, float* tile_acc, float* ssums,
+    float* scounts, float* lb_scratch, unsigned long long* stats,
+    float* cn_scratch, int n, int d, int k, int block_n, int tps, int cols,
+    int kchunk, int bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_tiled<__nv_bfloat16>(
+        static_cast<const __nv_bfloat16*>(points), norms,
+        static_cast<const __nv_bfloat16*>(cents), labels, md, lb_scratch,
+        partials, gaps, tile_acc, ssums, scounts, stats, cn_scratch, n, d, k,
+        block_n, tps, cols, kchunk, s);
+  return launch_tiled<float>(static_cast<const float*>(points), norms,
+                             static_cast<const float*>(cents), labels, md,
+                             lb_scratch, partials, gaps, tile_acc, ssums,
+                             scounts, stats, cn_scratch, n, d, k, block_n,
+                             tps, cols, kchunk, s);
+}
+
+// The template's ungated instance (assign_tile_kernel, then
+// super_reduce_kernel: K3's route before the screened route and the row
+// pass), at any d whose staging fits `cols`: the reference the card tests
+// and the smoke script hold K3 to, bit for bit. The engine never calls it.
+// The arguments are K3's without lb_scratch, stats, cn_scratch and kchunk.
+extern "C" int lloyd_assign_tiled_template_launch(
     const void* points, const float* norms, const void* cents, int* labels,
     float* md, float* partials, float* gaps, float* tile_acc, float* ssums,
     float* scounts, int n, int d, int k, int block_n, int tps, int cols,
@@ -2379,30 +2755,32 @@ extern "C" int lloyd_assign_tiled_launch(
 // problem axis: points (batch, n, d), cents (batch, k, d), labels / md
 // (batch, n), partials / gaps (batch, n_tiles), tile_acc
 // (batch, n_tiles, k, d + 1), ssums (batch, n_super, k, d), scounts
-// (batch, n_super, k). Where lloyd_assign_screened(d, bf16), lb_scratch
-// (batch, n) floats and stats (4) unsigned 64-bit counters (screened rows,
-// their candidates, the most of one row, rows on the full scan; added to,
-// the caller zeroes them) are required; elsewhere they are not read.
+// (batch, n_super, k). On the screened route lb_scratch (batch, n) floats,
+// cn_scratch (batch, k) floats and stats (4) unsigned 64-bit counters
+// (screened rows, their candidates, the most of one row, rows on the full
+// scan; added to, the caller zeroes them) are required; elsewhere they are
+// not read.
 extern "C" int lloyd_assign_tiled_batched_launch(
     const void* points, const float* norms, const void* cents, int* labels,
     float* md, float* partials, float* gaps, float* tile_acc, float* ssums,
-    float* scounts, float* lb_scratch, unsigned long long* stats, int batch,
-    int n, int d, int k, int block_n, int tps, int cols, int bf16,
-    void* stream) {
+    float* scounts, float* lb_scratch, unsigned long long* stats,
+    float* cn_scratch, int batch, int n, int d, int k, int block_n, int tps,
+    int cols, int kchunk, int bf16, void* stream) {
   return dispatch_batched<false>(points, norms, cents, labels, md,
                                  lb_scratch, partials, gaps, tile_acc, ssums,
-                                 scounts, Gate{}, stats, batch, n, d, k,
-                                 block_n, tps, cols, bf16, stream);
+                                 scounts, Gate{}, stats, cn_scratch, batch, n,
+                                 d, k, block_n, tps, cols, kchunk, bf16,
+                                 stream);
 }
 
-// 1 where K6, K10a, K10b, K4 and K9 take the screened route for width d
+// 1 where K6, K10a, K10b, K3, K4 and K9 take the screened route for width d
 // and the stream (bf16 != 0: bf16), else 0.
 extern "C" int lloyd_assign_screened(int d, int bf16) {
   return screen::screened(d, bf16 != 0) ? 1 : 0;
 }
 
-// One gated assignment round (K6) on `stream`: the screened route where
-// lloyd_assign_screened(d, bf16) (stats (4) as K10a's, required there),
+// One gated assignment round (K6) on `stream`, by lloyd_assign_route: the
+// screened route (stats (4) as K10a's and cn_scratch (k,) required there),
 // else the split row pass. Returns the first CUDA error. Every output is
 // written: labels, md and lb (n,), partials, gaps and pruned (n_tiles,),
 // ssums and scounts as K3's, a skipped tile or super copying the carries
@@ -2416,42 +2794,43 @@ extern "C" int lloyd_assign_gated_launch(
     const float* prev_ssums, const float* prev_scounts,
     const unsigned char* active, int* labels, float* md, float* lb,
     float* partials, float* gaps, float* tile_acc, float* ssums,
-    float* scounts, int* pruned, unsigned long long* stats, int n, int d,
-    int k, int block_n, int tps, int cols, int bf16, void* stream) {
+    float* scounts, int* pruned, unsigned long long* stats,
+    float* cn_scratch, int n, int d, int k, int block_n, int tps, int kchunk,
+    int bf16, void* stream) {
   const Gate g{delta,  thresh, absorb,        prev_a,    prev_md,
                prev_lb, active, lb,           pruned,    prev_partials,
                prev_gaps, prev_ssums, prev_scounts};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  (void)cols;
-  if (screen::screened(d, bf16 != 0)) {
+  if (route_of(kK6, d, bf16 != 0) == kScreened) {
     if (stats == nullptr) return (int)cudaErrorInvalidValue;
     if (bf16)
       return screen::launch<__nv_bfloat16, true>(
           static_cast<const __nv_bfloat16*>(points), norms,
           static_cast<const __nv_bfloat16*>(cents), nullptr, labels, md,
-          nullptr, partials, gaps, tile_acc, ssums, scounts, g, stats, 1, n,
-          d, k, block_n, tps, s);
+          nullptr, partials, gaps, tile_acc, ssums, scounts, g, stats,
+          cn_scratch, 1, n, d, k, block_n, tps, kchunk, s);
     return screen::launch<float, true>(
         static_cast<const float*>(points), norms,
         static_cast<const float*>(cents), nullptr, labels, md, nullptr,
-        partials, gaps, tile_acc, ssums, scounts, g, stats, 1, n, d, k,
-        block_n, tps, s);
+        partials, gaps, tile_acc, ssums, scounts, g, stats, cn_scratch, 1, n,
+        d, k, block_n, tps, kchunk, s);
   }
   if (bf16)
     return launch_split<__nv_bfloat16>(
         static_cast<const __nv_bfloat16*>(points), norms,
         static_cast<const __nv_bfloat16*>(cents), labels, md, partials, gaps,
-        tile_acc, ssums, scounts, g, n, d, k, block_n, tps, s);
+        tile_acc, ssums, scounts, g, n, d, k, block_n, tps, kchunk, s);
   return launch_split<float>(static_cast<const float*>(points), norms,
                              static_cast<const float*>(cents), labels, md,
                              partials, gaps, tile_acc, ssums, scounts, g, n,
-                             d, k, block_n, tps, s);
+                             d, k, block_n, tps, kchunk, s);
 }
 
 // The template's gated instance (assign_tile_kernel, as K6 ran before the
 // screened and split routes), at any d whose staging fits `cols`: the
 // reference the card tests and the smoke script hold K6 to, bit for bit.
-// The engine never calls it. The arguments are K6's; stats is not read.
+// The engine never calls it. The arguments are K6's without stats,
+// cn_scratch and kchunk, with `cols`.
 extern "C" int lloyd_assign_gated_template_launch(
     const void* points, const float* norms, const void* cents,
     const float* delta, const float* thresh, const float* absorb,
@@ -2460,12 +2839,11 @@ extern "C" int lloyd_assign_gated_template_launch(
     const float* prev_ssums, const float* prev_scounts,
     const unsigned char* active, int* labels, float* md, float* lb,
     float* partials, float* gaps, float* tile_acc, float* ssums,
-    float* scounts, int* pruned, unsigned long long* stats, int n, int d,
-    int k, int block_n, int tps, int cols, int bf16, void* stream) {
+    float* scounts, int* pruned, int n, int d, int k, int block_n, int tps,
+    int cols, int bf16, void* stream) {
   const Gate g{delta,  thresh, absorb,        prev_a,    prev_md,
                prev_lb, active, lb,           pruned,    prev_partials,
                prev_gaps, prev_ssums, prev_scounts};
-  (void)stats;
   return dispatch<true, false>(points, norms, cents, nullptr, labels, md,
                                partials, gaps, tile_acc, ssums, scounts, g, 1,
                                n, d, k, block_n, tps, cols, bf16, stream);
@@ -2478,8 +2856,8 @@ extern "C" int lloyd_assign_gated_template_launch(
 // (batch, n), and the carries prev_partials / prev_gaps / prev_ssums /
 // prev_scounts of the outputs' shapes. As for K6, every output is written
 // (a skipped tile or super copying the carries), pruned must be zeros and
-// `active` must be super-aligned in every problem. stats as K10a's
-// (required where lloyd_assign_screened(d, bf16)).
+// `active` must be super-aligned in every problem. stats and cn_scratch as
+// K10a's (required on the screened route).
 extern "C" int lloyd_assign_gated_batched_launch(
     const void* points, const float* norms, const void* cents,
     const float* delta, const float* thresh, const float* absorb,
@@ -2488,56 +2866,59 @@ extern "C" int lloyd_assign_gated_batched_launch(
     const float* prev_ssums, const float* prev_scounts,
     const unsigned char* active, int* labels, float* md, float* lb,
     float* partials, float* gaps, float* tile_acc, float* ssums,
-    float* scounts, int* pruned, unsigned long long* stats, int batch, int n,
-    int d, int k, int block_n, int tps, int cols, int bf16, void* stream) {
+    float* scounts, int* pruned, unsigned long long* stats,
+    float* cn_scratch, int batch, int n, int d, int k, int block_n, int tps,
+    int cols, int kchunk, int bf16, void* stream) {
   const Gate g{delta,  thresh, absorb,        prev_a,    prev_md,
                prev_lb, active, lb,           pruned,    prev_partials,
                prev_gaps, prev_ssums, prev_scounts};
   return dispatch_batched<true>(points, norms, cents, labels, md, nullptr,
                                 partials, gaps, tile_acc, ssums, scounts, g,
-                                stats, batch, n, d, k, block_n, tps, cols,
-                                bf16, stream);
+                                stats, cn_scratch, batch, n, d, k, block_n,
+                                tps, cols, kchunk, bf16, stream);
 }
 
-// One untiled assignment round (K4) on `stream`: the screened route where
-// lloyd_assign_screened(d, bf16) (stats (4) as K10a's, required there),
-// else the row pass at d = 2, each then pass B and the all-tile reduce;
-// else the template. Returns the first CUDA error. `weights` (n,) may be
-// null (every row weighs 1). sums (k, d) and counts (k,) are over all
-// rows; tile_acc is (n_tiles, k, d + 1) scratch.
+// One untiled assignment round (K4) on `stream`, by lloyd_assign_route: the
+// screened route (stats (4) as K10a's and cn_scratch (k,) required there)
+// or the row pass, each then pass B and the all-tile reduce; else the
+// template. Returns the first CUDA error. `weights` (n,) may be null
+// (every row weighs 1). sums (k, d) and counts (k,) are over all rows;
+// tile_acc is (n_tiles, k, d + 1) scratch.
 extern "C" int lloyd_assign_launch(const void* points, const float* norms,
                                    const void* cents, const float* weights,
                                    int* labels, float* md, float* tile_acc,
                                    float* sums, float* counts,
-                                   unsigned long long* stats, int n, int d,
-                                   int k, int block_n, int cols, int bf16,
-                                   void* stream) {
-  return dispatch_untiled(points, norms, cents, weights, labels, md,
-                          tile_acc, sums, counts, stats, 1, n, d, k, block_n,
-                          cols, bf16, stream);
+                                   unsigned long long* stats,
+                                   float* cn_scratch, int n, int d, int k,
+                                   int block_n, int cols, int kchunk,
+                                   int bf16, void* stream) {
+  return dispatch_untiled(kK4, points, norms, cents, weights, labels, md,
+                          tile_acc, sums, counts, stats, cn_scratch, 1, n, d,
+                          k, block_n, cols, kchunk, bf16, stream);
 }
 
-// One untiled assignment round of `batch` problems (K9) on `stream`: the
-// screened route where lloyd_assign_screened(d, bf16) (stats required),
-// else the template. Returns the first CUDA error. Every array carries a
-// leading problem axis: points (batch, n, d), norms / labels / md
-// (batch, n), cents and sums (batch, k, d), counts (batch, k), tile_acc
+// One untiled assignment round of `batch` problems (K9) on `stream`, by
+// lloyd_assign_route: the screened route (stats and cn_scratch (batch, k)
+// required), else the template. Returns the first CUDA error. Every array
+// carries a leading problem axis: points (batch, n, d), norms / labels /
+// md (batch, n), cents and sums (batch, k, d), counts (batch, k), tile_acc
 // (batch, n_tiles, k, d + 1).
 extern "C" int lloyd_assign_batched_launch(
     const void* points, const float* norms, const void* cents, int* labels,
     float* md, float* tile_acc, float* sums, float* counts,
-    unsigned long long* stats, int batch, int n, int d, int k, int block_n,
-    int cols, int bf16, void* stream) {
-  return dispatch_untiled(points, norms, cents, nullptr, labels, md,
-                          tile_acc, sums, counts, stats, batch, n, d, k,
-                          block_n, cols, bf16, stream);
+    unsigned long long* stats, float* cn_scratch, int batch, int n, int d,
+    int k, int block_n, int cols, int kchunk, int bf16, void* stream) {
+  return dispatch_untiled(kK9, points, norms, cents, nullptr, labels, md,
+                          tile_acc, sums, counts, stats, cn_scratch, batch, n,
+                          d, k, block_n, cols, kchunk, bf16, stream);
 }
 
 // The template's untiled instance (assign_tile_kernel with Untiled = true,
 // then super_reduce_kernel with one super: K4's route before the screened
 // route and the row pass), at any d whose staging fits `cols`: the
 // reference the card tests and the smoke script hold K4 to, bit for bit.
-// The engine never calls it. The arguments are K4's, without stats.
+// The engine never calls it. The arguments are K4's, without stats,
+// cn_scratch and kchunk.
 extern "C" int lloyd_assign_template_launch(
     const void* points, const float* norms, const void* cents,
     const float* weights, int* labels, float* md, float* tile_acc,
@@ -2552,7 +2933,8 @@ extern "C" int lloyd_assign_template_launch(
 
 // The template's untiled instance over `batch` problems (K9's route before
 // the screened route), as lloyd_assign_template_launch is to K4: the
-// arguments of lloyd_assign_batched_launch without stats.
+// arguments of lloyd_assign_batched_launch without stats, cn_scratch and
+// kchunk.
 extern "C" int lloyd_assign_batched_template_launch(
     const void* points, const float* norms, const void* cents, int* labels,
     float* md, float* tile_acc, float* sums, float* counts, int batch, int n,

@@ -15,6 +15,14 @@ centroid update and the next slice's movement bound need:
     ssums (S, k, d)     per-super-tile cluster sums, S = ceil(T / tps)
     scounts (S, k)      per-super-tile cluster counts
 
+On the card K3 runs, by width, on a tensor-core screen with an exact
+recheck (d >= 8, ``screened``) or below d = 8 on a row pass (labels, D² and
+the second best of a few consecutive rows a thread), each then the tiles'
+partials, gaps and sums in the template's order; past the screened widths
+it keeps the template kernel, whose bits the other routes give and which
+``lloyd_assign_tiled_template`` computes for the card tests and the smoke
+script.
+
 The gated round (K6) computes the same on a super-aligned set of active
 tiles only, short-circuits the rows the per-point Hamerly bound prunes, and
 also returns each row's lower bound on its second-nearest distance and each
@@ -53,10 +61,16 @@ and the gate stay fp32. The plain twins widen the same way.
 
 ``lloyd_assign_tiled``, ``lloyd_assign_gated``, ``lloyd_assign_tiled_batched``,
 ``lloyd_assign_gated_batched``, ``lloyd_assign``, ``lloyd_assign_batched``
-and the template entries (``lloyd_assign_gated_template``,
+and the template entries (``lloyd_assign_tiled_template``,
+``lloyd_assign_gated_template``,
 ``lloyd_assign_template``, ``lloyd_assign_batched_template``) launch the
 hand-written CUDA kernels (``csrc/lloyd_assign.cu``) for tensors on the
 card, and run the plain twins (``*_torch``) only for tensors on the CPU.
+Before a launch they ask the CUDA source for their route and its largest k
+(``lloyd_assign_route``: the screened route up to 65,535 centroids, the row
+passes any k, the template what its whole (k, d) staging fits,
+``ops.template_max_k``) and raise ValueError naming the route's largest k
+where it does not take k.
 """
 from __future__ import annotations
 
@@ -71,22 +85,30 @@ from repro_torch.core.sampling import segment_sum, tile_partials
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.kmeans_distance import tile_d2
 
-# the last int is the stream flag (1: bf16 points and centroids)
-_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7
-             + (ctypes.c_void_p,))
-_GATED_ARGTYPES = ((ctypes.c_void_p,) * 24 + (ctypes.c_int,) * 7
+# the last int is the stream flag (1: bf16 points and centroids); the
+# rounds' entries take pass B's k-chunk cap (``k_chunk``) before it, and on
+# the screened route an (n,) lb scratch (K3, K10a), the screen's counters
+# and a (B, k) scratch for the centroids' norms; the template entries take
+# the template's columns a pass (``cols``) there instead
+_PLAIN_TILED_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7
+                         + (ctypes.c_void_p,))
+_TILED_ARGTYPES = ((ctypes.c_void_p,) * 13 + (ctypes.c_int,) * 8
                    + (ctypes.c_void_p,))
-_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 8
+_GATED_ARGTYPES = ((ctypes.c_void_p,) * 25 + (ctypes.c_int,) * 7
+                   + (ctypes.c_void_p,))
+_PLAIN_GATED_ARGTYPES = ((ctypes.c_void_p,) * 23 + (ctypes.c_int,) * 7
+                         + (ctypes.c_void_p,))
+_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 13 + (ctypes.c_int,) * 9
                      + (ctypes.c_void_p,))
-_GATED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 24 + (ctypes.c_int,) * 8
+_GATED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 25 + (ctypes.c_int,) * 9
                            + (ctypes.c_void_p,))
-# the screened route's counters of the last card launch of K6, K10a,
+# the screened route's counters of the last card launch of K3, K6, K10a,
 # K10b, K4 and K9: (4,) int64 on the card, read with ``screen_stats``
 SCREEN_STATS: dict[str, torch.Tensor] = {}
 # K4 and K9 (the template entries take no stats)
-_UNTILED_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6
+_UNTILED_ARGTYPES = ((ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 7
                      + (ctypes.c_void_p,))
-_UNTILED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 7
+_UNTILED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 8
                              + (ctypes.c_void_p,))
 _PLAIN_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6
                    + (ctypes.c_void_p,))
@@ -252,18 +274,51 @@ def _check(points, norms, centroids, block_n, tps):
     ops.stream_is_bf16(points, centroids)
 
 
-def _cols(d, k, block_n, gated: bool = False) -> int:
-    """``ops.assign_cols``, raising when not one column fits the Hopper
-    shared-memory budget."""
-    cols = ops.assign_cols(d, k, block_n, gated=gated)
-    if cols < 1:
-        raise ValueError(f"({k}, {d}) centroids with block_n={block_n} do "
-                         f"not fit in {ops.SMEM_LIMIT} bytes of shared memory")
-    return cols
+# the CUDA source's round ids and route names (``lloyd_assign_route``)
+_ROUNDS = {"lloyd_assign_tiled": 0, "lloyd_assign_gated": 1,
+           "lloyd_assign": 2, "lloyd_assign_tiled_batched": 3,
+           "lloyd_assign_gated_batched": 4, "lloyd_assign_batched": 5}
+_ROUTES = ("template", "screened", "row pass", "split")
+
+
+def _route(name: str, d: int, k: int, block_n: int, bf16: bool,
+           k_chunk: int, template: bool = False,
+           gated: bool = False) -> tuple[str, int]:
+    """Round ``name``'s card route (the template where ``template``) as the
+    CUDA source gives it (``lloyd_assign_route``), and the template's
+    columns a pass (0 off the template). Raises ValueError where the route
+    cannot take k, naming its largest k: the source's for the chunked
+    routes, ``ops.template_max_k`` for the template. ``k_chunk`` (>= 0)
+    caps pass B's centroids a block."""
+    if k_chunk < 0:
+        raise ValueError(f"k_chunk must be >= 0, got {k_chunk}")
+    route, most = "template", -1
+    if not template:
+        fn = _build.function("lloyd_assign", "lloyd_assign_route",
+                             (ctypes.c_int,) * 3
+                             + (ctypes.POINTER(ctypes.c_int),))
+        out = ctypes.c_int()
+        route = _ROUTES[fn(_ROUNDS[name], d, int(bf16), ctypes.byref(out))]
+        most = out.value
+    if most < 0:
+        most = ops.template_max_k(d, block_n, gated)
+    if k > most:
+        raise ValueError(
+            f"{name} at d={d}, block_n={block_n} takes the {route} route on "
+            f"the card, which holds k <= {most}; got k={k}")
+    return route, (ops.assign_cols(d, k, block_n, gated)
+                   if route == "template" else 0)
+
+
+def _cn_scratch(route: str, bsz: int, k: int, dev) -> torch.Tensor | None:
+    """The screened route's (B, k) scratch, where pass A writes every
+    centroid's norm past one staged chunk of 256."""
+    return (torch.empty(bsz * k, dtype=torch.float32, device=dev)
+            if route == "screened" else None)
 
 
 def screened(d: int, bf16: bool) -> bool:
-    """Whether K6, K10a, K10b, K4 and K9 take the screened route on
+    """Whether K3, K6, K10a, K10b, K4 and K9 take the screened route on
     the card for width ``d`` and the stream: d >= 8 and the row, padded to
     the tensor cores' depth (8 fp32 or 16 bf16 values), at most 512 bytes.
     The rule is the CUDA source's (``lloyd_assign_screened``)."""
@@ -274,7 +329,8 @@ def screened(d: int, bf16: bool) -> bool:
 
 def screen_stats(name: str) -> dict:
     """The screened route's counters of the last card launch of ``name``
-    (``"lloyd_assign_gated"``, ``"lloyd_assign_tiled_batched"``,
+    (``"lloyd_assign_tiled"``, ``"lloyd_assign_gated"``,
+    ``"lloyd_assign_tiled_batched"``,
     ``"lloyd_assign_gated_batched"``, ``"lloyd_assign"`` or
     ``"lloyd_assign_batched"``, either stream): rows screened, their
     candidates, the most candidates of one row, and rows that took the
@@ -292,11 +348,37 @@ def _stats(name: str, dev) -> torch.Tensor:
 
 
 def lloyd_assign_tiled(points: torch.Tensor, norms: torch.Tensor,
-                       centroids: torch.Tensor, *, block_n: int, tps: int):
+                       centroids: torch.Tensor, *, block_n: int, tps: int,
+                       k_chunk: int = 0):
     """One tiled assignment round. Returns (labels, min_d2, partials, gaps,
     super_sums, super_counts); ``tps`` consecutive tiles share one super-tile
-    accumulator slot. On the card this launches K3 (its two kernels count
-    as one launch); CPU tensors take the plain twin."""
+    accumulator slot. On the card this launches K3 (its kernels count as
+    one launch): on the screened route where ``screened(d, bf16)`` (its
+    counters read with ``screen_stats("lloyd_assign_tiled")``), below d = 8
+    on the row pass, each then pass B and the super reduce, else on the
+    template. ``k_chunk`` is a test hook, which the engine never sets: > 0
+    caps pass B's centroids a block, so that a card test can force its
+    k-chunks (the bits do not depend on it). CPU tensors take the plain
+    twin."""
+    return _tiled(points, norms, centroids, block_n=block_n, tps=tps,
+                  k_chunk=k_chunk, template=False)
+
+
+def lloyd_assign_tiled_template(points: torch.Tensor, norms: torch.Tensor,
+                                centroids: torch.Tensor, *, block_n: int,
+                                tps: int):
+    """K3 as the template kernel computes it (``assign_tile_kernel``, then
+    the super reduce: K3's route before the screened route and the row
+    pass), at any width whose staging fits: the arguments and returns of
+    :func:`lloyd_assign_tiled`. The reference the card tests and the smoke
+    script hold K3 to, bit for bit; the engine never calls it, and it
+    counts no launch. CPU tensors take the plain twin."""
+    return _tiled(points, norms, centroids, block_n=block_n, tps=tps,
+                  k_chunk=0, template=True)
+
+
+def _tiled(points, norms, centroids, *, block_n: int, tps: int, k_chunk: int,
+           template: bool):
     _check(points, norms, centroids, block_n, tps)
     if points.device.type == "cpu":
         return lloyd_assign_tiled_torch(points, norms, centroids,
@@ -306,9 +388,8 @@ def lloyd_assign_tiled(points: torch.Tensor, norms: torch.Tensor,
     bf16 = ops.check_round_tensors(points, centroids, norms=norms)
     n, d = points.shape
     k = centroids.shape[0]
-    cols = _cols(d, k, block_n)
-    fn = _build.function("lloyd_assign", "lloyd_assign_tiled_launch",
-                         _ARGTYPES)
+    route, cols = _route("lloyd_assign_tiled", d, k, block_n, bf16, k_chunk,
+                         template)
     dev = points.device
     n_tiles = -(-n // block_n)
     n_super = -(-n_tiles // tps)
@@ -320,29 +401,49 @@ def lloyd_assign_tiled(points: torch.Tensor, norms: torch.Tensor,
                            device=dev)
     ssums = torch.empty((n_super, k, d), dtype=torch.float32, device=dev)
     scounts = torch.empty((n_super, k), dtype=torch.float32, device=dev)
+    outs = (labels.data_ptr(), md.data_ptr(), partials.data_ptr(),
+            gaps.data_ptr(), tile_acc.data_ptr(), ssums.data_ptr(),
+            scounts.data_ptr())
+    if template:
+        fn = _build.function("lloyd_assign",
+                             "lloyd_assign_tiled_template_launch",
+                             _PLAIN_TILED_ARGTYPES)
+        extra, ints = (), (n, d, k, block_n, tps, cols, int(bf16))
+    else:
+        fn = _build.function("lloyd_assign", "lloyd_assign_tiled_launch",
+                             _TILED_ARGTYPES)
+        # sqrt(second) per row, read by pass B, off the template
+        lb = (torch.empty(n, dtype=torch.float32, device=dev)
+              if route != "template" else None)
+        stats = (_stats("lloyd_assign_tiled", dev) if route == "screened"
+                 else None)
+        cn = _cn_scratch(route, 1, k, dev)
+        extra = tuple(None if t is None else t.data_ptr()
+                      for t in (lb, stats, cn))
+        ints = (n, d, k, block_n, tps, cols, k_chunk, int(bf16))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
-                 labels.data_ptr(), md.data_ptr(), partials.data_ptr(),
-                 gaps.data_ptr(), tile_acc.data_ptr(), ssums.data_ptr(),
-                 scounts.data_ptr(), n, d, k, block_n, tps, cols, int(bf16),
-                 stream)
+                 *outs, *extra, *ints, stream)
     if err != 0:
-        raise KernelFailureError(f"lloyd_assign_tiled launch failed: "
-                                 f"cudaError {err}")
-    ops.count_launch("lloyd_assign_tiled", bf16)
+        raise KernelFailureError(f"lloyd_assign_tiled"
+                                 f"{'_template' if template else ''} launch "
+                                 f"failed: cudaError {err}")
+    if not template:
+        ops.count_launch("lloyd_assign_tiled", bf16)
     return labels, md, partials, gaps, ssums, scounts
 
 
 def lloyd_assign_tiled_batched(points: torch.Tensor, norms: torch.Tensor,
                                centroids: torch.Tensor, *, block_n: int,
-                               tps: int):
+                               tps: int, k_chunk: int = 0):
     """One tiled assignment round of B independent problems: points
     (B, n, d), norms (B, n), centroids (B, k, d). Returns (labels (B, n),
     min_d2 (B, n), partials (B, T), gaps (B, T), super_sums (B, S, k, d),
     super_counts (B, S, k)). On the card this launches K10a (its kernels
     count as one launch) for every problem at once, on the screened route
-    where ``screened(d, bf16)``; CPU tensors take the plain twin."""
+    where ``screened(d, bf16)`` (``k_chunk`` as K3's), else the template;
+    CPU tensors take the plain twin."""
     if points.dim() != 3 or centroids.dim() != 3:
         raise ValueError("points and centroids must be 3-D (B, rows, d)")
     bsz = points.shape[0]
@@ -363,7 +464,8 @@ def lloyd_assign_tiled_batched(points: torch.Tensor, norms: torch.Tensor,
     bf16 = ops.check_round_tensors(points, centroids, norms=norms)
     _, n, d = points.shape
     k = centroids.shape[1]
-    cols = _cols(d, k, block_n)
+    route, cols = _route("lloyd_assign_tiled_batched", d, k, block_n, bf16,
+                         k_chunk)
     n_tiles = -(-n // block_n)
     n_super = -(-n_tiles // tps)
     if bsz * n_tiles >= 2 ** 31:
@@ -381,18 +483,20 @@ def lloyd_assign_tiled_batched(points: torch.Tensor, norms: torch.Tensor,
     ssums = torch.empty((bsz, n_super, k, d), dtype=torch.float32, device=dev)
     scounts = torch.empty((bsz, n_super, k), dtype=torch.float32, device=dev)
     # the screened route's lb = sqrt(second) per row, read by its pass B
-    scr = screened(d, bf16)
+    scr = route == "screened"
     lb = torch.empty((bsz, n), dtype=torch.float32, device=dev) if scr \
         else None
     stats = _stats("lloyd_assign_tiled_batched", dev) if scr else None
+    cn = _cn_scratch(route, bsz, k, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
                  labels.data_ptr(), md.data_ptr(), partials.data_ptr(),
                  gaps.data_ptr(), tile_acc.data_ptr(), ssums.data_ptr(),
                  scounts.data_ptr(), lb.data_ptr() if scr else None,
-                 stats.data_ptr() if scr else None, bsz, n, d, k, block_n,
-                 tps, cols, int(bf16), stream)
+                 stats.data_ptr() if scr else None,
+                 cn.data_ptr() if scr else None, bsz, n, d, k, block_n,
+                 tps, cols, k_chunk, int(bf16), stream)
     if err != 0:
         raise KernelFailureError(f"lloyd_assign_tiled_batched launch failed: "
                                  f"cudaError {err}")
@@ -407,7 +511,7 @@ def lloyd_assign_gated(points: torch.Tensor, norms: torch.Tensor,
                        prev_lb: torch.Tensor, prev_partials: torch.Tensor,
                        prev_gaps: torch.Tensor, prev_super_sums: torch.Tensor,
                        prev_super_counts: torch.Tensor, active: torch.Tensor,
-                       *, block_n: int, tps: int):
+                       *, block_n: int, tps: int, k_chunk: int = 0):
     """One bound-gated assignment round. ``active`` (T,) is widened here to
     whole super-tiles (``bounds.align_supers``: idempotent when the caller
     already expanded it);
@@ -417,12 +521,13 @@ def lloyd_assign_gated(points: torch.Tensor, norms: torch.Tensor,
     gaps, super_sums, super_counts, pruned (T,) int32). On the card this
     launches K6 (its kernels count as one launch): on the screened route
     where ``screened(d, bf16)`` (its counters read with ``screen_stats``),
-    else the split row pass; the kernels write every output, a skipped tile
-    or super copying its carries. CPU tensors take the plain twin."""
+    else the split row pass, each then pass B (``k_chunk`` as K3's); the
+    kernels write every output, a skipped tile or super copying its
+    carries. CPU tensors take the plain twin."""
     return _gated(points, norms, centroids, delta, thresh, absorb,
                   prev_assign, prev_min_d2, prev_lb, prev_partials,
                   prev_gaps, prev_super_sums, prev_super_counts, active,
-                  block_n=block_n, tps=tps, template=False)
+                  block_n=block_n, tps=tps, template=False, k_chunk=k_chunk)
 
 
 def lloyd_assign_gated_template(*args, block_n: int, tps: int):
@@ -432,13 +537,13 @@ def lloyd_assign_gated_template(*args, block_n: int, tps: int):
     The reference the card tests and the smoke script hold K6 to, bit for
     bit; the engine never calls it, and it counts no launch. CPU tensors
     take the plain twin."""
-    return _gated(*args, block_n=block_n, tps=tps, template=True)
+    return _gated(*args, block_n=block_n, tps=tps, template=True, k_chunk=0)
 
 
 def _gated(points, norms, centroids, delta, thresh, absorb, prev_assign,
            prev_min_d2, prev_lb, prev_partials, prev_gaps, prev_super_sums,
            prev_super_counts, active, *, block_n: int, tps: int,
-           template: bool):
+           template: bool, k_chunk: int):
     _check(points, norms, centroids, block_n, tps)
     n, d = points.shape
     k = centroids.shape[0]
@@ -466,10 +571,15 @@ def _gated(points, norms, centroids, delta, thresh, absorb, prev_assign,
         t.float().contiguous() for t in (prev_partials, prev_gaps,
                                          prev_super_sums, prev_super_counts))
     ops.check_card_tensors(torch.int32, prev_assign=prev_assign)
-    cols = _cols(d, k, block_n, gated=True)
-    name = ("lloyd_assign_gated_template_launch" if template
-            else "lloyd_assign_gated_launch")
-    fn = _build.function("lloyd_assign", name, _GATED_ARGTYPES)
+    route, cols = _route("lloyd_assign_gated", d, k, block_n, bf16, k_chunk,
+                         template, gated=True)
+    if template:
+        fn = _build.function("lloyd_assign",
+                             "lloyd_assign_gated_template_launch",
+                             _PLAIN_GATED_ARGTYPES)
+    else:
+        fn = _build.function("lloyd_assign", "lloyd_assign_gated_launch",
+                             _GATED_ARGTYPES)
     dev = points.device
     n_super = -(-n_tiles // tps)
     labels = torch.empty(n, dtype=torch.int32, device=dev)
@@ -483,8 +593,15 @@ def _gated(points, norms, centroids, delta, thresh, absorb, prev_assign,
     tile_acc = torch.empty((n_tiles, k, d + 1), dtype=torch.float32,
                            device=dev)
     act = active.to(torch.uint8).contiguous()
-    stats = (_stats("lloyd_assign_gated", dev)
-             if not template and screened(d, bf16) else None)
+    if template:   # the template's columns a pass
+        extra, ints = (), (n, d, k, block_n, tps, cols, int(bf16))
+    else:          # the counters and cn scratch, pass B's k-chunk cap
+        stats = (_stats("lloyd_assign_gated", dev) if route == "screened"
+                 else None)
+        cn = _cn_scratch(route, 1, k, dev)
+        extra = tuple(None if t is None else t.data_ptr()
+                      for t in (stats, cn))
+        ints = (n, d, k, block_n, tps, k_chunk, int(bf16))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
@@ -496,8 +613,7 @@ def _gated(points, norms, centroids, delta, thresh, absorb, prev_assign,
                  labels.data_ptr(), md.data_ptr(), lb.data_ptr(),
                  partials.data_ptr(), gaps.data_ptr(), tile_acc.data_ptr(),
                  ssums.data_ptr(), scounts.data_ptr(), pruned.data_ptr(),
-                 None if stats is None else stats.data_ptr(), n, d, k,
-                 block_n, tps, cols, int(bf16), stream)
+                 *extra, *ints, stream)
     if err != 0:
         raise KernelFailureError(f"lloyd_assign_gated"
                                  f"{'_template' if template else ''} launch "
@@ -518,7 +634,7 @@ def lloyd_assign_gated_batched(points: torch.Tensor, norms: torch.Tensor,
                                prev_super_sums: torch.Tensor,
                                prev_super_counts: torch.Tensor,
                                active: torch.Tensor, *, block_n: int,
-                               tps: int):
+                               tps: int, k_chunk: int = 0):
     """One bound-gated assignment round of B independent problems: the
     arguments of ``lloyd_assign_gated`` with a leading problem axis (points
     (B, n, d), norms (B, n), centroids and the rest (B, ...)), each problem
@@ -528,8 +644,8 @@ def lloyd_assign_gated_batched(points: torch.Tensor, norms: torch.Tensor,
     Returns (labels, min_d2, lb (B, n), partials, gaps (B, T), super_sums
     (B, S, k, d), super_counts (B, S, k), pruned (B, T) int32). On the card
     this launches K10b (its kernels count as one launch) over every
-    problem's tiles, on the screened route where ``screened(d, bf16)``;
-    the kernels write every output, a skipped tile or super copying its
+    problem's tiles, on the screened route where ``screened(d, bf16)``
+    (``k_chunk`` as K3's), else the template; the kernels write every output, a skipped tile or super copying its
     carries. CPU tensors take the plain twin."""
     if points.dim() != 3 or centroids.dim() != 3:
         raise ValueError("points and centroids must be 3-D (B, rows, d)")
@@ -564,7 +680,8 @@ def lloyd_assign_gated_batched(points: torch.Tensor, norms: torch.Tensor,
         t.float().contiguous() for t in (prev_partials, prev_gaps,
                                          prev_super_sums, prev_super_counts))
     ops.check_card_tensors(torch.int32, prev_assign=prev_assign)
-    cols = _cols(d, k, block_n, gated=True)
+    route, cols = _route("lloyd_assign_gated_batched", d, k, block_n, bf16,
+                         k_chunk, gated=True)
     n_tiles = -(-n // block_n)
     n_super = -(-n_tiles // tps)
     if bsz * n_tiles >= 2 ** 31:
@@ -586,7 +703,8 @@ def lloyd_assign_gated_batched(points: torch.Tensor, norms: torch.Tensor,
                            device=dev)
     act = active.to(torch.uint8).contiguous()
     stats = _stats("lloyd_assign_gated_batched", dev) \
-        if screened(d, bf16) else None
+        if route == "screened" else None
+    cn = _cn_scratch(route, bsz, k, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
@@ -598,8 +716,9 @@ def lloyd_assign_gated_batched(points: torch.Tensor, norms: torch.Tensor,
                  labels.data_ptr(), md.data_ptr(), lb.data_ptr(),
                  partials.data_ptr(), gaps.data_ptr(), tile_acc.data_ptr(),
                  ssums.data_ptr(), scounts.data_ptr(), pruned.data_ptr(),
-                 None if stats is None else stats.data_ptr(), bsz, n, d, k,
-                 block_n, tps, cols, int(bf16), stream)
+                 None if stats is None else stats.data_ptr(),
+                 None if cn is None else cn.data_ptr(), bsz, n, d, k,
+                 block_n, tps, cols, k_chunk, int(bf16), stream)
     if err != 0:
         raise KernelFailureError(f"lloyd_assign_gated_batched launch failed: "
                                  f"cudaError {err}")
@@ -636,7 +755,7 @@ def _check_untiled(points, norms, centroids, weights, block_n) -> None:
 
 
 def _untiled(points, norms, centroids, weights, *, block_n: int,
-             template: bool):
+             template: bool, k_chunk: int = 0):
     """K4 (K9 on (B, n, d) points), or with ``template`` the template's
     untiled instance, which counts no launch and keeps no screen counters;
     CPU tensors take the plain twin."""
@@ -654,7 +773,8 @@ def _untiled(points, norms, centroids, weights, *, block_n: int,
     n, d = points.shape[-2:]
     k = centroids.shape[-2]
     bsz = points.shape[0] if batched else 1
-    cols = _cols(d, k, block_n)
+    round_name = "lloyd_assign_batched" if batched else "lloyd_assign"
+    route, cols = _route(round_name, d, k, block_n, bf16, k_chunk, template)
     n_tiles = -(-n // block_n)
     if bsz * n_tiles >= 2 ** 31:
         raise ValueError(f"{bsz} problems of {n_tiles} tiles exceed the "
@@ -668,9 +788,8 @@ def _untiled(points, norms, centroids, weights, *, block_n: int,
                            _UNTILED_BATCHED_ARGTYPES) if batched else
                           ("lloyd_assign_launch", _UNTILED_ARGTYPES))
     fn = _build.function("lloyd_assign", name, argtypes)
-    round_name = "lloyd_assign_batched" if batched else "lloyd_assign"
-    stats = (_stats(round_name, points.device)
-             if not template and screened(d, bf16) else None)
+    stats = (_stats(round_name, points.device) if route == "screened"
+             else None)
     dev = points.device
     lead = (bsz,) if batched else ()
     labels = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
@@ -679,7 +798,10 @@ def _untiled(points, norms, centroids, weights, *, block_n: int,
                            device=dev)
     sums = torch.empty(lead + (k, d), dtype=torch.float32, device=dev)
     counts = torch.empty(lead + (k,), dtype=torch.float32, device=dev)
-    st = () if template else (None if stats is None else stats.data_ptr(),)
+    cn = _cn_scratch(route, bsz, k, dev)
+    st = () if template else tuple(None if t is None else t.data_ptr()
+                                   for t in (stats, cn))
+    chunk = () if template else (k_chunk,)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
@@ -687,7 +809,7 @@ def _untiled(points, norms, centroids, weights, *, block_n: int,
                    (None if weights is None else weights.data_ptr(),)),
                  labels.data_ptr(), md.data_ptr(), tile_acc.data_ptr(),
                  sums.data_ptr(), counts.data_ptr(), *st, *lead, n, d, k,
-                 block_n, cols, int(bf16), stream)
+                 block_n, cols, *chunk, int(bf16), stream)
     if err != 0:
         raise KernelFailureError(f"{name.removesuffix('_launch')} launch "
                                  f"failed: cudaError {err}")
@@ -698,7 +820,8 @@ def _untiled(points, norms, centroids, weights, *, block_n: int,
 
 def lloyd_assign(points: torch.Tensor, norms: torch.Tensor,
                  centroids: torch.Tensor,
-                 weights: torch.Tensor | None = None, *, block_n: int):
+                 weights: torch.Tensor | None = None, *, block_n: int,
+                 k_chunk: int = 0):
     """One untiled assignment round. Returns (labels (n,) int32, min_d2
     (n,), sums (k, d), counts (k,)), the sums and counts over all rows,
     each row weighted by ``weights`` (n,) when given. On the card this
@@ -706,12 +829,12 @@ def lloyd_assign(points: torch.Tensor, norms: torch.Tensor,
     tiles, which set only the order of the sums: on the screened route
     where ``screened(d, bf16)`` (its counters read with
     ``screen_stats("lloyd_assign")``) or at d = 2 on the row pass, each
-    then the tiles' sums and the all-tile reduce; at other widths the
-    template. CPU tensors take the plain twin."""
+    then the tiles' sums and the all-tile reduce (``k_chunk`` as K3's); at
+    other widths the template. CPU tensors take the plain twin."""
     if points.dim() != 2 or centroids.dim() != 2:
         raise ValueError("points and centroids must be 2-D")
     return _untiled(points, norms, centroids, weights, block_n=block_n,
-                    template=False)
+                    template=False, k_chunk=k_chunk)
 
 
 def lloyd_assign_batched(points: torch.Tensor, norms: torch.Tensor,

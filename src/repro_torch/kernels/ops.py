@@ -16,11 +16,14 @@ form, K7, K8, K10a, K10b) run one such block per problem and tile, with the
 same staging, so a batched problem is tiled as the single one; K10a and
 K10b at d >= 8 (their screened route) keep these tiles and this ``cols``
 for their sums and budget their own staging. The budget is Hopper's 227 KB
-per block; TPU VMEM budgets do not apply.
+per block; TPU VMEM budgets do not apply. Past the point where K6's
+template fits at 128 rows, the height is the largest (the chunked routes
+fit it; ``choose_block_n``), and each wrapper asks the CUDA source for its
+route and that route's largest k (``lloyd_assign._route``).
 
 K6 (one problem) runs the screened route at d >= 8 and a split row pass
-below, both on these tiles and this ``cols`` for the sums' bits; so do K4
-and, at d >= 8, K9.
+below, both on these tiles for the sums' bits; so do K3 (a row pass below
+d = 8), K4 and, at d >= 8, K9.
 
 The IVF scan (K13, K14; ``ivf_scan.py``) runs in two parts and budgets its
 own shared memory (``ivf_scan.max_k``); its tile height is the index's.
@@ -168,15 +171,29 @@ def assign_cols(d: int, k: int, block_n: int, gated: bool = False) -> int:
     return max(0, min(d + 1, (SMEM_LIMIT - fixed) // (4 * WARPS * k)))
 
 
+def template_max_k(d: int, block_n: int, gated: bool = False) -> int:
+    """The most centroids the template (``assign_smem_bytes`` at one
+    column) stages at width ``d`` and height ``block_n``: the limit of the
+    rounds that stay on the template, which their wrappers raise past."""
+    return max(0, (SMEM_LIMIT // 4 - 2 * THREADS - block_n)
+               // (d + 1 + WARPS + int(gated)))
+
+
 def choose_block_n(n: int, d: int, k: int) -> int:
     """Point-tile height for an (n, d) x (k, d) problem: the largest power of
-    two up to ``MAX_BLOCK`` whose gated assignment-kernel staging (K6, a
-    superset of K3's) fits the Hopper shared-memory budget, clamped down to
-    the largest power of two <= n and floored at 128 (ragged tails are
-    masked in the kernels)."""
+    two up to ``MAX_BLOCK`` whose gated assignment-kernel staging (K6's
+    template, a superset of K3's) fits the Hopper shared-memory budget;
+    where not even 128 rows fit, ``MAX_BLOCK`` at d <= 128, where the
+    rounds' routes on either stream (the screen, the row passes) stage
+    centroids in chunks and fit every height up to it (pass B holds one
+    tile's labels beside one k-chunk). Then clamped down to the largest
+    power of two <= n and floored at 128 (ragged tails are masked in the
+    kernels)."""
     bn = MAX_BLOCK
     while bn > 128 and assign_cols(d, k, bn, gated=True) < 1:
         bn //= 2
+    if assign_cols(d, k, bn, gated=True) < 1 and d <= 128:
+        bn = MAX_BLOCK
     if n >= bn:
         return bn
     return max(128, 1 << (max(n, 1).bit_length() - 1))
@@ -191,8 +208,7 @@ def lloyd_assign(points: torch.Tensor, centroids: torch.Tensor, *,
     centroids to K9, one launch for all B (the reference's ``custom_vmap``
     rule); batched problems take no weights. ``norms`` are the cached fp32
     ‖x‖², computed here when absent. The tile height is ``choose_block_n``'s
-    pick; the wrappers check that its staging fits the Hopper
-    shared-memory budget (``assign_smem_bytes``)."""
+    pick; the wrappers check that their route takes k."""
     from repro_torch.core.bounds import point_norms
     from repro_torch.kernels import lloyd_assign as la
 

@@ -162,6 +162,51 @@ def test_lloyd_assign_tiled_matches_reference(ref, n, d, block_n, tps, k):
         assert (np.abs(ssums.numpy() - wsums) <= 1e-5 * abs_sum + 1e-6).all()
 
 
+@pytest.mark.parametrize("n,d,k,block_n,tps", [(300, 128, 512, 128, 2),
+                                               (260, 2, 6000, 128, 1)])
+def test_lloyd_assign_tiled_past_the_old_cap_matches_reference(
+        ref, n, d, k, block_n, tps):
+    """K3's twin against the reference's interpreted kernel at k past the
+    template's staging at this height (``ops.template_max_k``: 419 at
+    d = 128, 5,224 at d = 2), the k the card's chunked routes now take:
+    labels outside near-ties, D² and partials within tolerance, gaps
+    within 2·√tol, counts exact where the labels agree."""
+    assert k > ops.template_max_k(d, block_n)
+    rng = np.random.default_rng(k)
+    x = _data(n, d, seed=d)
+    c = rng.normal(size=(k, d)).astype(np.float32)
+    norms = (x ** 2).sum(1, dtype=np.float32)
+    jnp = ref.jnp
+    want = ref.ops.lloyd_assign_tiled(jnp.asarray(x), jnp.asarray(c),
+                                      norms=jnp.asarray(norms),
+                                      block_n=block_n, tps=tps,
+                                      interpret=True)
+    a, md, part, gap, ssums, scounts = la.lloyd_assign_tiled(
+        torch.from_numpy(x), bounds.point_norms(torch.from_numpy(x)),
+        torch.from_numpy(c), block_n=block_n, tps=tps)
+    wa, wmd, wpart, wgap, _, wcounts = (np.asarray(v) for v in want)
+    tol = d2_tol(x, c)
+    assert_labels_match(a.numpy(), wa, exact_d2(x, c), tol)
+    np.testing.assert_allclose(md.numpy(), wmd, rtol=0, atol=tol)
+    assert (np.abs(part.numpy() - wpart)
+            <= _partial_tol(tol, block_n, wpart)).all()
+    np.testing.assert_allclose(gap.numpy(), wgap, rtol=0,
+                               atol=2 * np.sqrt(tol))
+    if (a.numpy() == wa).all():
+        np.testing.assert_array_equal(scounts.numpy(), wcounts)
+
+
+def test_lloyd_assign_tiled_template_entry_takes_the_twin_on_cpu():
+    """On CPU tensors the template entry is the plain twin, as K3 is."""
+    x = torch.from_numpy(_data(700, 5, seed=3))
+    c = x[:9].contiguous() + 0.01
+    nr = bounds.point_norms(x)
+    got = la.lloyd_assign_tiled_template(x, nr, c, block_n=128, tps=2)
+    for u, v in zip(got, la.lloyd_assign_tiled(x, nr, c, block_n=128,
+                                               tps=2)):
+        assert torch.equal(u, v)
+
+
 def test_lloyd_assign_tiled_first_index_wins_ties():
     """Two identical centroids: every row takes the first, and the gap is
     zero."""

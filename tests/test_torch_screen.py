@@ -404,8 +404,9 @@ def test_screened_rounds_are_k3_and_k6_row_by_row(card, d, k, dtype):
     """K10a and K10b on the screened route, on adversarial rows (duplicated
     centroids, rows between two centroids, a zero row, a NaN row, half the
     problems shifted by 1e3; k = 300 takes two centroid chunks): every
-    problem bitwise K3 (K10a) and the template's K6
-    (``lloyd_assign_gated_template``, K10b) on its slice, an all-active
+    problem bitwise the templates' K3 and K6
+    (``lloyd_assign_tiled_template``, K10a;
+    ``lloyd_assign_gated_template``, K10b) on its slice, an all-active
     K10b with no
     carried bound bitwise K10a, and the route taken."""
     assert la.screened(d, dtype == torch.bfloat16)
@@ -423,8 +424,8 @@ def test_screened_rounds_are_k3_and_k6_row_by_row(card, d, k, dtype):
     assert la.screen_stats("lloyd_assign_tiled_batched")["rows"] \
         == x.shape[0] * x.shape[1]
     for b in range(x.shape[0]):
-        one = la.lloyd_assign_tiled(x[b], norms[b], c[b], block_n=bn,
-                                    tps=tps)
+        one = la.lloyd_assign_tiled_template(x[b], norms[b], c[b],
+                                             block_n=bn, tps=tps)
         for u, v in zip(out, one):
             assert torch.equal(u[b].view(torch.int32), v.view(torch.int32))
     bsz, n = x.shape[:2]
@@ -530,3 +531,185 @@ def _bitwise(got, want):
         if u.dtype == torch.float32:
             u, v = u.view(torch.int32), v.view(torch.int32)
         assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 8, 16, 128])
+@pytest.mark.parametrize("k", [1, 50, 64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shift", [0.0, 1e3], ids=["centred", "shifted"])
+def test_k3_routes_are_the_template_bitwise(card, d, k, dtype, shift):
+    """K3 on its routes (the screened route at d >= 8, the row pass below)
+    against the template entry (``lloyd_assign_tiled_template``) on
+    adversarial rows (duplicated centroids, rows between two centroids and
+    on one, a zero row, a NaN row; shifted, most values of the fp32 row
+    pass fall to 0 or below before the clamp), 20,011 rows in tiles of
+    1,024 and ragged supers: all six outputs bitwise (int32 views), two
+    launches the same bits, one counted launch, and the screen's counters
+    on the screened route."""
+    x, c = adversarial(5 + d + k, 20_011, d, k, shift, True)
+    x, c = x.to(card), c.to(card)
+    norms = bounds.point_norms(x)
+    x, c = x.to(dtype), c.to(dtype)
+    bn = 1024
+    tps = bounds.tiles_per_super(-(-x.shape[0] // bn))
+    ops.reset_launches()
+    got = la.lloyd_assign_tiled(x, norms, c, block_n=bn, tps=tps)
+    again = la.lloyd_assign_tiled(x, norms, c, block_n=bn, tps=tps)
+    want = la.lloyd_assign_tiled_template(x, norms, c, block_n=bn, tps=tps)
+    counted = "lloyd_assign_tiled" + ("_bf16" if dtype == torch.bfloat16
+                                      else "")
+    assert ops.LAUNCHES[counted] == 2 and sum(ops.LAUNCHES.values()) == 2
+    _bitwise(got, again)
+    _bitwise(got, want)
+    if la.screened(d, dtype == torch.bfloat16):
+        assert la.screen_stats("lloyd_assign_tiled")["rows"] == x.shape[0]
+
+
+def _blobs(seed: int, n: int, d: int, k: int, dev):
+    """Rows 0.01 from one of k well-separated centroids (no near-ties), on
+    the card: the twins' matmul-form labels are the kernels' labels."""
+    rng = np.random.default_rng(seed)
+    c = rng.normal(size=(k, d)).astype(np.float32)
+    lab = rng.integers(0, k, size=n)
+    x = (c[lab] + 0.01 * rng.normal(size=(n, d))).astype(np.float32)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(c).to(dev)
+
+
+def _near(got, want, tol, rel=0.0):
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    err = (got - want)[fin].abs()
+    assert bool((err <= tol + rel * want[fin].abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_k6_k4_past_the_old_cap(card, dtype):
+    """d = 128, k = 1,024: past the template's staging (k <= 419 at 128-row
+    tiles) and pass A's old all-chunk norm staging, the screened K3, K6
+    (all active, no carried bound) and K4 run, labels and counts bitwise
+    their plain twins', D², partials, gaps and sums within tolerance; K3
+    bitwise K10a on one problem, K6's outputs bitwise K3's, and two
+    launches the same bits."""
+    n, d, k = 30_001, 128, 1024
+    x, c = _blobs(3, n, d, k, card)
+    norms = bounds.point_norms(x)
+    x, c = x.to(dtype), c.to(dtype)
+    bn = ops.choose_block_n(n, d, k)
+    assert bn == 4096 and ops.template_max_k(d, 128) < k
+    t = -(-n // bn)
+    tps = bounds.tiles_per_super(t)
+    got = la.lloyd_assign_tiled(x, norms, c, block_n=bn, tps=tps)
+    _bitwise(got, la.lloyd_assign_tiled(x, norms, c, block_n=bn, tps=tps))
+    twin = la.lloyd_assign_tiled_torch(x, norms, c, block_n=bn, tps=tps)
+    assert torch.equal(got[0], twin[0])
+    assert torch.equal(got[5], twin[5])
+    cf = c.float()
+    tol = 2 * (d + 4) * 2.0 ** -23 * (float(norms.max())
+                                      + float((cf * cf).sum(1).max()))
+    _near(got[1], twin[1], tol)
+    _near(got[2], twin[2], tol * bn, rel=1e-5)
+    _near(got[3], twin[3], 2 * tol ** 0.5)
+    # the sums within 1e-4 of the rows' absolute sums under the labels
+    slot = (torch.arange(n, device=card) // (bn * tps)) * k + got[0].long()
+    absum = torch.zeros((got[4].shape[0] * k, d), device=card).index_add_(
+        0, slot, x.float().abs()).view(got[4].shape)
+    assert bool(((got[4] - twin[4]).abs() <= 1e-4 * absum + 1e-6).all())
+    one = la.lloyd_assign_tiled_batched(x[None], norms[None], c[None],
+                                        block_n=bn, tps=tps)
+    _bitwise((o[0] for o in one), got)
+    zt = torch.zeros(t, device=card)
+    s = -(-t // tps)
+    gated = la.lloyd_assign_gated(
+        x, norms, c, torch.zeros(k, device=card), zt, zt,
+        torch.zeros(n, dtype=torch.int32, device=card),
+        torch.zeros(n, device=card),
+        torch.full((n,), -torch.inf, device=card), zt, zt,
+        torch.zeros((s, k, d), device=card), torch.zeros((s, k), device=card),
+        torch.ones(t, dtype=torch.bool, device=card), block_n=bn, tps=tps)
+    _bitwise((gated[0], gated[1], gated[3], gated[4], gated[5], gated[6]),
+             got)
+    lab, md, sums, counts = la.lloyd_assign(x, norms, c, block_n=bn)
+    k4 = la.lloyd_assign_torch(x, norms, c)
+    assert torch.equal(lab, k4[0]) and torch.equal(counts, k4[3])
+    assert torch.equal(lab, got[0]) and torch.equal(md, got[1])
+    _near(sums, k4[2], 1e-4 * float(x.float().abs().sum(0).max()) + 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 5, 16, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pass_b_k_chunks_are_one_block_bitwise(card, d, dtype):
+    """Pass B with a forced small k-chunk (16 and 100 centroids a block,
+    k = 300) bitwise the one-block pass B in every output of K3, K6 (a
+    gated round from a carried state), K4 (weighted) and K10a (two
+    problems, screened widths)."""
+    n, k = 9_000, 300
+    x, c = adversarial(d, n, d, k, 0.0, False)
+    x, c = x.to(card), c.to(card)
+    norms = bounds.point_norms(x)
+    x, c = x.to(dtype), c.to(dtype)
+    bn = 1024
+    t = -(-n // bn)
+    tps = bounds.tiles_per_super(t)
+    w = torch.rand(n, device=card)
+    zt = torch.zeros(t, device=card)
+    s_ = -(-t // tps)
+    first = la.lloyd_assign_gated(
+        x, norms, c, torch.zeros(k, device=card), zt, zt,
+        torch.zeros(n, dtype=torch.int32, device=card),
+        torch.zeros(n, device=card),
+        torch.full((n,), -torch.inf, device=card), zt, zt,
+        torch.zeros((s_, k, d), device=card),
+        torch.zeros((s_, k), device=card),
+        torch.ones(t, dtype=torch.bool, device=card), block_n=bn, tps=tps)
+    st = bounds.BoundState(first[3], tile_gap=first[4], tile_sums=first[5],
+                           tile_counts=first[6], assignment=first[0],
+                           min_d2=first[1], point_lb=first[2], lb_debt=zt)
+    c1 = c.float().clone()
+    c1[[0, k - 1]] += 0.002
+    delta = bounds.centroid_movement(c1, c.float())
+    cache = bounds.prologue(x.float(), bn)
+    thresh, absorb = bounds.assign_point_scalars(delta, c1, st, cache)
+    gargs = (x, norms, c1.to(dtype), delta, thresh, absorb, st.assignment,
+             st.min_d2, st.point_lb, st.partials, st.tile_gap, st.tile_sums,
+             st.tile_counts, torch.ones(t, dtype=torch.bool, device=card))
+    calls = {
+        "K3": lambda kc: la.lloyd_assign_tiled(x, norms, c, block_n=bn,
+                                               tps=tps, k_chunk=kc),
+        "K6": lambda kc: la.lloyd_assign_gated(*gargs, block_n=bn, tps=tps,
+                                               k_chunk=kc),
+        "K4": lambda kc: la.lloyd_assign(x, norms, c, w, block_n=bn,
+                                         k_chunk=kc)}
+    if la.screened(d, dtype == torch.bfloat16):
+        xb, nb, cb = (torch.stack([v, v.flip(0)]) for v in (x, norms, c))
+        calls["K10a"] = lambda kc: la.lloyd_assign_tiled_batched(
+            xb, nb, cb, block_n=bn, tps=tps, k_chunk=kc)
+    for name, call in calls.items():
+        whole = call(0)
+        for kc in (16, 100):
+            _bitwise(call(kc), whole)
+
+
+@pytest.mark.cuda
+def test_template_routes_raise_at_their_limit(card):
+    """The routes that still stage the whole (k, d) block (K4 at d = 5, K10a
+    below d = 8, K3 on fp32 rows past 128 values) raise a ValueError naming
+    the route and its largest k one centroid past it, and run at it."""
+    bn = 1024
+    for name, d, call in (
+            ("lloyd_assign", 5, lambda x, nr, c: la.lloyd_assign(
+                x, nr, c, block_n=bn)),
+            ("lloyd_assign_tiled_batched", 4,
+             lambda x, nr, c: la.lloyd_assign_tiled_batched(
+                 x[None], nr[None], c[None], block_n=bn, tps=1)),
+            ("lloyd_assign_tiled", 160, lambda x, nr, c: la.lloyd_assign_tiled(
+                x, nr, c, block_n=bn, tps=1))):
+        most = ops.template_max_k(d, bn)
+        x, c = _blobs(d, 2 * bn, d, most + 1, card)
+        nr = bounds.point_norms(x)
+        with pytest.raises(ValueError, match=f"template route.*k <= {most}"):
+            call(x, nr, c)
+        call(x, nr, c[:most].contiguous())
+
