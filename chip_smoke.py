@@ -30,20 +30,31 @@ Phases, each of which exits non-zero on failure:
    ``reduce_kernel<stream, [gated | untiled], 8 or 4 columns>``) must
    report no spill and pass A HGMMA in its SASS (K6's d = 128 instances
    among them), and pass A's ungated D = 16 instances for k <= 256 (the
-   codebook sweep's) at most 128 registers (four CTAs an SM); K6's split row pass (``row_kernel<stream, D>``), K4's and
-   K3's row pass (``untiled_row_kernel<stream, D, R[, second]>``: at d = 2
-   with 4 or 8 rows a thread, K3's keeping the second best, and K3's below
-   d = 8), the super reduces
+   codebook sweep's) at most 128 registers (four CTAs an SM); K6's and
+   K10b's split row pass (``row_kernel<stream, D>``), the row pass of K3,
+   K4, K9 and K10a (``untiled_row_kernel<stream, D, R[, second]>``: at
+   d = 2 with 4 or 8 rows a thread, below d = 8 with 4, the instances
+   keeping the second best K3's and K10a's; past the screened widths
+   ``wide_row_kernel<stream[, second]>``), K5 and K8
+   (``gated_round_kernel<stream, resident | global, regs2 | regs | vec4 |
+   vec8>``, and at wider rows ``wide_rows_kernel<stream, resident |
+   global, staged | unstaged>`` then ``wide_tile_kernel``; K2 and K7 at
+   d >= 8 their ungated vec4, vec8 and wide instances), the super reduces
    (``super_reduce_kernel``, ``chain_reduce_kernel``) and K14's part (a)
-   (``adc_pair_topk_kernel<kR>``, ``adc_tile_sort_kernel``) no spill;
-   their registers are printed.
+   (``adc_pair_topk_kernel<kR>``, ``adc_tile_sort_kernel``), 68 kernels,
+   no spill; their registers are printed.
 2. Hold every kernel against its plain PyTorch twin on the card, at the
    paper's shape (n = 4,000,000, d = 2; label-sorted for the gated seeding
    round, so its gate skips) and a ragged wide one (n = 100,003, d = 128):
    K1 (prologue), K2 (seeding round) with resident centroids on and off at
-   m = 1 and m = 8, K3 (tiled assignment) at k = 50 or 64 (tps > 1) and at
+   m = 1 and m = 8, every K2 and K7 launch bitwise its template entry
+   (``distance_min_update_template``, their body at every width before
+   d >= 8 took K5's row loop) and timed beside it, K5's row loop on K2's
+   work at ``FULL`` (every tile active, no row pruned) timed beside K2, K3 (tiled assignment) at k = 50 or 64 (tps > 1) and at
    k = 1, K5 (gated seeding round) at m = 1 and 8, resident on and off, with
-   the gate's mask, all tiles, half and none active, and K6 (gated
+   the gate's mask, all tiles, half and none active, every K5 launch
+   bitwise its template entry (``distance_min_update_gated_template``, K5's
+   kernel before) in all four outputs and timed beside it, and K6 (gated
    assignment) at k = 50 or 64 and k = 1 from a carried state whose lower
    bounds make the prune fire, with every tile, half the supers and the
    gate's mask active, every K3 launch (its screened route at d = 128, its
@@ -72,6 +83,9 @@ Phases, each of which exits non-zero on failure:
    its bound from the bf16 bytes, its dot products counted at the bf16
    tensor-core rate and the rest at fp32's. (All-active K5 is K2 but on
    the rows the bound prunes, which keep their D²: bitwise K2 in fp32.)
+   K5 also on rows too wide for 32 staged a block (fp32 d = 1,024, bf16
+   d = 2,048, 100,003 label-sorted rows, m = 1 and 8, resident and not,
+   the gate's mask), bitwise and timed beside its template entry.
    Then (phase 2 (large k)) d = 128, k = 8,192 on 50,000 rows, past the
    template's staging (k <= 390 at 4,096-row tiles), pass A's old
    all-chunk norm staging and pass B's one-block limit (6,688 centroids):
@@ -79,7 +93,18 @@ Phases, each of which exits non-zero on failure:
    problems), each bitwise a second launch, labels and counts bitwise the
    plain twin's, D² within tolerance, sums over the kernel's labels, K3
    bitwise K10a problem by problem and all-active K6 bitwise K3; each
-   launch timed beside its twin.
+   launch timed beside its twin. Then (phase 2 (refused)) the shapes the
+   template's whole-(k, d) staging refused, through the engine, counted,
+   each round's kernel at that shape held to its twin (labels and counts
+   bitwise on lattice data, D² within tolerance): a weighted ``fit`` at
+   d = 5, k = 4,096 (K4); ``kmeans_batched`` at d = 4, k = 4,200, two
+   problems of 20,000 rows, gated (K8, K10b) bitwise ungated (K7, K10a), and
+   ``ops.lloyd_assign`` on them (K9); ``kmeans(bounds=False)`` at fp32
+   d = 200, k = 300 (K3), weighted (K4), and bf16 d = 300 (K3); and the
+   seeding round folding 1,024 centroids at d = 64 (K2, the guard heal's
+   fold), resident bitwise not. Each of those assignment rounds' new
+   routes (K4, K9, K10a, K10b, K3) also runs at the old cap on the same
+   points, bitwise its template entry and timed beside it.
 3. Drive the main path, ``ClusterEngine(device="cuda").kmeans`` (bound-gated)
    at the paper's size, k = 50, 25 iterations, for sampler cdf and tiled, on
    the shuffled blobs and on a label-sorted copy, with the launch counters
@@ -464,10 +489,13 @@ def screen_build(_build, log: str) -> dict:
 
 
 def split_build(_build, logs: dict) -> dict:
-    """K6's split row pass (``row_kernel<stream, D>``, D 2 or 0), K4's and
-    K3's row pass (``untiled_row_kernel<stream, D, R[, second]>``, D 2 or 0,
-    R rows a thread, K3's instances keeping the second best), the super
-    reduces (``super_reduce_kernel``,
+    """K6's split row pass (``row_kernel<stream, D>``, D 2 or 0), the row
+    pass of K3, K4, K9 and K10a (``untiled_row_kernel<stream, D, R[,
+    second]>``, D 2 or 0, R rows a thread, and past the screened widths
+    ``wide_row_kernel<stream[, second]>``; the instances keeping the second
+    best are K3's and K10a's), K5 and K8 (``gated_round_kernel<stream,
+    resident, path>``, ``wide_rows_kernel<stream, resident, staged>`` and
+    ``wide_tile_kernel``), the super reduces (``super_reduce_kernel``,
     ``chain_reduce_kernel``) and K14's part (a) (``adc_pair_topk_kernel
     <kR>``, ``adc_tile_sort_kernel``), as ``kernel_build`` reads them."""
     out = kernel_build(
@@ -482,6 +510,31 @@ def split_build(_build, logs: dict) -> dict:
                    f"{'fp32' if m.group(1) == 'f' else 'bf16'}, "
                    f"{m.group(2)}, {m.group(3)}"
                    f"{', second' if m.group(4) == '1' else ''}>")))
+    out.update(kernel_build(
+        _build, "lloyd_assign", logs["lloyd_assign"],
+        r"wide_row_kernelI(f|13__nv_bfloat16)Lb([01])E",
+        lambda m: (f"wide_row_kernel<"
+                   f"{'fp32' if m.group(1) == 'f' else 'bf16'}"
+                   f"{', second' if m.group(2) == '1' else ''}>")))
+    out.update(kernel_build(
+        _build, "kmeans_distance", logs["kmeans_distance"],
+        r"gated_round_kernelI(f|13__nv_bfloat16)Lb([01])ELi(\d)ELb([01])E",
+        lambda m: (f"gated_round_kernel<"
+                   f"{'fp32' if m.group(1) == 'f' else 'bf16'}, "
+                   f"{'resident' if m.group(2) == '1' else 'global'}, "
+                   f"{('regs2', 'regs', 'vec4', 'vec8')[int(m.group(3))]}"
+                   f"{'' if m.group(4) == '1' else ', ungated'}>")))
+    out.update(kernel_build(
+        _build, "kmeans_distance", logs["kmeans_distance"],
+        r"wide_(rows_kernelI(f|13__nv_bfloat16)Lb([01])ELb([01])ELb([01])E|"
+        r"tile_kernelILb([01])E)",
+        lambda m: (f"wide_rows_kernel<"
+                   f"{'fp32' if m.group(2) == 'f' else 'bf16'}, "
+                   f"{'resident' if m.group(3) == '1' else 'global'}, "
+                   f"{'staged' if m.group(4) == '1' else 'unstaged'}"
+                   f"{'' if m.group(5) == '1' else ', ungated'}>"
+                   if m.group(2) else "wide_tile_kernel"
+                   + ("" if m.group(6) == "1" else "<ungated>"))))
     out.update(kernel_build(
         _build, "lloyd_assign", logs["lloyd_assign"],
         r"\d((?:super|chain)_reduce_kernel)E", lambda m: m.group(1)))
@@ -589,6 +642,16 @@ def k2_case(torch, kd, ops, pts, norms, m, resident, gen):
                       pts, cents, out1)
     ms = gpu_ms(torch, lambda: kd.distance_min_update(
         pts, norms, cents, md_in, block_n=bn, resident=resident))
+    # the template entry (K2's kernel at every width before d >= 8 took
+    # K5's row loop): bitwise, and timed beside it
+    what = f"K2 {stream_tag(torch, pts)} d={d} m={m} resident={resident}"
+    same_bits(torch, f"{what} vs the template entry", out1,
+              kd.distance_min_update_template(pts, norms, cents, md_in,
+                                              block_n=bn, resident=resident))
+    template_ms = gpu_ms(torch, lambda: kd.distance_min_update_template(
+        pts, norms, cents, md_in, block_n=bn, resident=resident))
+    print(f"  {what}: bitwise the template entry; template entry "
+          f"{template_ms:.4f} ms")
     plain = gpu_ms(torch, lambda: kd.distance_min_update_torch(
         pts, norms, cents, md_in, block_n=bn))
     t = -(-n // bn)
@@ -598,8 +661,8 @@ def k2_case(torch, kd, ops, pts, norms, m, resident, gen):
                              n * m * 2 * d, n * m * 3)
     return dict(n=n, d=d, m=m, resident=resident, block_n=bn,
                 stream=stream_tag(torch, pts), max_abs_err=err_md, tol=tol,
-                ms=ms, plain_ms=plain, fp32_ms=fp32_ms, bound_ms=bms,
-                bound_by=by)
+                ms=ms, template_ms=template_ms, plain_ms=plain,
+                fp32_ms=fp32_ms, bound_ms=bms, bound_by=by)
 
 
 def super_sums_ok(torch, pts, lab, ssums, scounts, rows_per_super,
@@ -802,6 +865,10 @@ def k5_case(torch, kd, bounds, ops, pts, cache, md_in, cents, mask, resident):
     what = f"K5 d={d} m={m} resident={resident} mask={mask}"
     check(all(torch.equal(a, b) for a, b in zip(out1, out2)),
           f"{what}: two launches differ")
+    # the template entry (K5's kernel before): every output bitwise
+    same_bits(torch, f"{what} vs the template entry", out1,
+              kd.distance_min_update_gated_template(*args, block_n=bn,
+                                                    resident=resident))
     ref = kd.distance_min_update_gated_torch(*args, block_n=bn)
     tol = d2_tol(torch, cache.norms, cents)
     err = float((out1[0] - ref[0]).abs().max())
@@ -838,10 +905,29 @@ def k5_case(torch, kd, bounds, ops, pts, cache, md_in, cents, mask, resident):
     fp32_ms = widened(torch, what, lambda p, c: kd.distance_min_update_gated(
         p, *args[1:2], c, *args[3:], block_n=bn, resident=resident),
         pts, cents, out1)
-    ms, plain = timed(
-        torch, lambda: kd.distance_min_update_gated(*args, block_n=bn,
-                                                    resident=resident),
-        lambda: kd.distance_min_update_gated_torch(*args, block_n=bn))
+    # the kernel and its template entry side by side (the entry's time
+    # includes the carry copies its contract asks of the caller)
+    ms = gpu_ms(torch, lambda: kd.distance_min_update_gated(
+        *args, block_n=bn, resident=resident))
+    template_ms = gpu_ms(torch, lambda: kd.distance_min_update_gated_template(
+        *args, block_n=bn, resident=resident))
+    ms2 = gpu_ms(torch, lambda: kd.distance_min_update_gated(
+        *args, block_n=bn, resident=resident))
+    # in place (the seeding loop's rounds after the first): a scratch carry,
+    # whose later launches see the same prune (an updated row's D² is its
+    # fresh value, which the bound cannot prune) and bitwise the same outputs
+    carry = md_in.clone()
+    inpl = kd.distance_min_update_gated(*args[:3], carry, *args[4:],
+                                        block_n=bn, resident=resident,
+                                        inplace=True)
+    same_bits(torch, f"{what} in place", inpl, out1)
+    inplace_ms = gpu_ms(torch, lambda: kd.distance_min_update_gated(
+        *args[:3], carry, *args[4:], block_n=bn, resident=resident,
+        inplace=True))
+    same_bits(torch, f"{what} in place, repeated", (carry,), (out1[0],))
+    del carry, inpl
+    plain = gpu_ms(torch, lambda: kd.distance_min_update_gated_torch(
+        *args, block_n=bn))
     rows_act = int(bounds.expand_mask(act, bn, n).sum())
     n_pruned = int(out1[3].sum())
     fresh = rows_act - n_pruned
@@ -852,7 +938,40 @@ def k5_case(torch, kd, bounds, ops, pts, cache, md_in, cents, mask, resident):
     return dict(n=n, d=d, m=m, resident=resident, mask=mask, block_n=bn,
                 stream=stream_tag(torch, pts), active_tiles=int(act.sum()),
                 tiles=t, pruned=n_pruned, max_abs_err=err, tol=tol, ms=ms,
-                plain_ms=plain, fp32_ms=fp32_ms, bound_ms=bms, bound_by=by)
+                ms_again=ms2, inplace_ms=inplace_ms,
+                template_ms=template_ms, plain_ms=plain,
+                fp32_ms=fp32_ms, bound_ms=bms, bound_by=by)
+
+
+def row_loop_beside_k2(torch, kd, bounds, pts, cache, cents, bn) -> dict:
+    """K5's row loop on K2's work at a width where K2 keeps the template
+    body (d < 8), both timed side by side: every tile active on an
+    all-+inf carry, where the bound prunes no row, so K5's D² are K2's bit
+    for bit (and in fp32 its partials). Why K2 and K7 take the row loop at
+    d >= 8 only."""
+    k2, k5 = kd.distance_min_update, kd.distance_min_update_gated
+    inf = torch.full(pts.shape[:-1], torch.inf, device=pts.device)
+    tmax = bounds.tile_reduce_max(inf, bn)
+    _, dc, margin = bounds.seed_gate(cents, cache, tmax)
+    args = (pts, cache.norms, cents, inf, cache.center_d, dc, margin,
+            torch.zeros_like(tmax), tmax,
+            torch.ones_like(tmax, dtype=torch.bool))
+    got = k5(*args, block_n=bn)
+    want = k2(pts, cache.norms, cents, inf, block_n=bn)
+    what = (f"K5 {stream_tag(torch, pts)} d={pts.shape[-1]} "
+            f"m={cents.shape[-2]} on K2's work")
+    check(not bool(got[3].any()), f"{what}: a row was pruned")
+    check(bits_equal(torch, got[0], want[0])
+          and (pts.dtype != torch.float32
+               or bits_equal(torch, got[1], want[1])),
+          f"{what}: not bitwise K2")
+    ms = gpu_ms(torch, lambda: k5(*args, block_n=bn))
+    k2_ms = gpu_ms(torch, lambda: k2(pts, cache.norms, cents, inf,
+                                     block_n=bn))
+    ms2 = gpu_ms(torch, lambda: k5(*args, block_n=bn))
+    print(f"{what}: bitwise; {ms:.4f} ms (again {ms2:.4f}), K2 "
+          f"{k2_ms:.4f} ms")
+    return dict(what=what, ms=ms, ms_again=ms2, k2_ms=k2_ms)
 
 
 def k6_bound(torch, pts, k, rows_act, fresh, t, s_act, screened):
@@ -1536,6 +1655,14 @@ def k7_case(torch, kd, ops, pts, norms, m, gen):
         pts, cents, out1)
     ms = gpu_ms(torch, lambda: kd.distance_min_update_batched(
         pts, norms, cents, md_in, block_n=bn))
+    what = f"K7 {stream_tag(torch, pts)} d={d} m={m}"
+    same_bits(torch, f"{what} vs the template entry", out1,
+              kd.distance_min_update_template(pts, norms, cents, md_in,
+                                              block_n=bn))
+    template_ms = gpu_ms(torch, lambda: kd.distance_min_update_template(
+        pts, norms, cents, md_in, block_n=bn), reps=5)
+    print(f"  {what}: bitwise the template entry; template entry "
+          f"{template_ms:.4f} ms")
     plain = gpu_ms(torch, lambda: kd.distance_min_update_batched_torch(
         pts, norms, cents, md_in, block_n=bn), reps=1, warmup=0)
     t = -(-n // bn)
@@ -1545,8 +1672,8 @@ def k7_case(torch, kd, ops, pts, norms, m, gen):
         bsz * n * m * 2 * d, bsz * n * m * 3)
     return dict(batch=bsz, n=n, d=d, m=m, block_n=bn,
                 stream=stream_tag(torch, pts), max_abs_err=err_md, tol=tol,
-                ms=ms, plain_ms=plain, fp32_ms=fp32_ms, bound_ms=bms,
-                bound_by=by)
+                ms=ms, template_ms=template_ms, plain_ms=plain,
+                fp32_ms=fp32_ms, bound_ms=bms, bound_by=by)
 
 
 def k10a_case(torch, la, kd, ops, bounds, pts, norms, k, gen):
@@ -2907,6 +3034,257 @@ def large_k_phase(torch, la, ops, bounds, dev, gen) -> dict:
     return out
 
 
+def lattice(torch, gen, dev, n: int, d: int, k: int):
+    """k distinct centroids on the integer lattice (at least 1 apart, so no
+    near-ties at any k) and n rows 0.01 from one of them, drawn on the
+    card."""
+    side = max(2, math.ceil((4 * k) ** (1.0 / d)))
+    c = torch.empty((0, d), device=dev)
+    while c.shape[0] < k:
+        more = torch.randint(side, (2 * k, d), generator=gen, device=dev)
+        c = torch.unique(torch.cat([c, more.float()]), dim=0)
+    c = c[torch.randperm(c.shape[0], generator=gen, device=dev)[:k]]
+    c = (c - side / 2).contiguous()
+    lab = torch.randint(k, (n,), generator=gen, device=dev)
+    return c[lab] + 0.01 * torch.randn((n, d), generator=gen, device=dev), c
+
+
+def refused_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws, dev,
+                  gen) -> dict:
+    """The (round, width, k) shapes the template's whole-(k, d) staging
+    refused, each through the engine on the card and counted, and each
+    round's kernel at the engine's shape held to its plain twin (labels and
+    counts bitwise on lattice data, D² within ``d2_tol``, sums as
+    ``super_sums_ok`` holds them): a weighted ``fit`` at d = 5, k = 4,096,
+    n = 100,000 (K4); ``kmeans_batched`` at d = 4, k = 4,200, B = 2 x
+    n = 20,000, gated and ungated, bitwise each other (K10b, K10a; their
+    seeding K8 and K7 at k = 4,200) and ``ops.lloyd_assign`` on the same
+    points (K9); ``kmeans(bounds=False)`` at fp32 d = 200, k = 300 (K3),
+    weighted (K4), and at bf16 d = 300 (K3); the backend's seeding round
+    folding 1,024 centroids at d = 64 (K2: the guard heal's fold), resident
+    bitwise not. Each assignment round's new route is also run at the old
+    cap (the largest k the template staged) on the same points, bitwise
+    its template entry there, and timed beside it."""
+    out: dict = {}
+
+    def beside(what, k, route, templates, rows=lambda got, b: got):
+        """the route at the old cap k bitwise its template entry (one
+        launch a problem, ``rows`` picking problem b's outputs), and both
+        timed"""
+        got = route()
+        for b, tmpl in enumerate(templates):
+            same_bits(torch, f"{what} k={k}: problem {b} vs the template "
+                      f"entry", rows(got, b), tmpl())
+        del got
+        ms = gpu_ms(torch, route)
+        template_ms = gpu_ms(torch, lambda: [tmpl() for tmpl in templates])
+        ms2 = gpu_ms(torch, route)
+        out.setdefault("at_the_old_cap", {})[what] = dict(
+            k=k, ms=ms, ms_again=ms2, template_ms=template_ms)
+        print(f"{what} at the old cap k={k}: bitwise the template entry; "
+              f"{ms:.4f} ms (again {ms2:.4f}), template entry "
+              f"{template_ms:.4f} ms")
+
+    def counted(what, want, fn):
+        ops.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        got = {name: v for name, v in ops.LAUNCHES.items() if v}
+        check(all(got.get(name, 0) >= 1 for name in want),
+              f"{what}: launches {got}, want {want} each at least once")
+        out.setdefault("launches", {})[what] = got
+        return res
+
+    def held(what, got, want, x, tol, bn=None, w=None):
+        """labels (0), D² (1) and, untiled, sums (2) / counts (3) or tiled
+        sums (4) / counts (5) against the twin"""
+        check(torch.equal(got[0], want[0]),
+              f"{what}: labels are not the twin's")
+        err = float((got[1] - want[1]).abs().max())
+        check(err <= tol, f"{what}: D² err {err} > {tol}")
+        tiled = len(got) == 6
+        s_i, c_i = (4, 5) if tiled else (2, 3)
+        check(torch.equal(got[c_i], want[c_i]),
+              f"{what}: counts are not the twin's")
+        if got[0].dim() == 1:
+            sums, cnts = got[s_i], got[c_i]
+            if not tiled:
+                sums, cnts = sums[None], cnts[None]
+            rps = x.shape[0] if not tiled else bn * bounds.tiles_per_super(
+                -(-x.shape[0] // bn))
+            check(super_sums_ok(torch, x.float(), got[0], sums, cnts, rps,
+                                w=w), f"{what}: sums outside tolerance")
+        out[what] = dict(max_abs_err=err, tol=tol)
+        print(f"{what}: labels and counts bitwise the twin's, D² err "
+              f"{err:.3g} (tol {tol:.3g})")
+
+    # K4: a weighted fit at d = 5, k = 4,096 (template cap 4,041)
+    n, d, k = 100_000, 5, 4096
+    x, c = lattice(torch, gen, dev, n, d, k)
+    w = torch.randint(1, 4, (n,), generator=gen, device=dev).float()
+    eng = ClusterEngine(device="cuda")
+    res = counted("weighted fit d=5 k=4096", ["lloyd_assign"],
+                  lambda: eng.fit(x, c, weights=w, max_iters=3))
+    check(bool(torch.isfinite(res.centroids).all()),
+          "weighted fit d=5: centroids not finite")
+    nr = bounds.point_norms(x)
+    bn = ops.choose_block_n(n, d, k)
+    check(k > ops.template_max_k(d, bn), "K4 d=5: not past the old cap")
+    held("K4 d=5 k=4096 weighted", la.lloyd_assign(x, nr, c, w, block_n=bn),
+         la.lloyd_assign_torch(x, nr, c, w), x, d2_tol(torch, nr, c), w=w)
+    most = ops.template_max_k(d, bn)
+    cm = c[:most].contiguous()
+    beside("K4 d=5 weighted", most,
+           lambda: la.lloyd_assign(x, nr, cm, w, block_n=bn),
+           [lambda: la.lloyd_assign_template(x, nr, cm, w, block_n=bn)])
+
+    # K10a, K10b, K9 (and K7, K8 seeding): B = 2 problems at d = 4, k = 4,200
+    bsz, n, d, k = 2, 20_000, 4, 4200
+    pr = [lattice(torch, gen, dev, n, d, k) for _ in range(bsz)]
+    xb = torch.stack([p[0] for p in pr])
+    cb = torch.stack([p[1] for p in pr])
+    draws = Draws.sample_batched(bsz, n, k, device=dev,
+                                 generator=torch.Generator().manual_seed(1))
+    rg = counted("kmeans_batched gated d=4 k=4200",
+                 ["distance_min_update_gated_batched",
+                  "lloyd_assign_gated_batched"],
+                 lambda: eng.kmeans_batched(xb, k, draws=draws, max_iters=3))
+    ung = ClusterEngine(device="cuda", bounds=False)
+    ru = counted("kmeans_batched ungated d=4 k=4200",
+                 ["distance_min_update_batched", "lloyd_assign_tiled_batched"],
+                 lambda: ung.kmeans_batched(xb, k, draws=draws, max_iters=3))
+    check(all(bits_equal(torch, a, b) for a, b in
+              zip((rg.centroids, rg.assignment), (ru.centroids,
+                                                  ru.assignment))),
+          "kmeans_batched d=4 k=4200: gated is not bitwise ungated")
+    nb = bounds.point_norms(xb)
+    bn = ops.choose_block_n(n, d, k)
+    tps = bounds.tiles_per_super(-(-n // bn))
+    check(k > ops.template_max_k(d, bn, gated=True),
+          "K10b d=4: not past the old cap")
+    tol = d2_tol(torch, nb, cb.reshape(-1, d))
+    held("K10a d=4 k=4200", la.lloyd_assign_tiled_batched(
+        xb, nb, cb, block_n=bn, tps=tps), la.lloyd_assign_tiled_batched_torch(
+        xb, nb, cb, block_n=bn, tps=tps), xb, tol)
+    t = -(-n // bn)
+    s_ = -(-t // tps)
+    zt = torch.zeros((bsz, t), device=dev)
+    gargs = (xb, nb, cb, torch.zeros((bsz, k), device=dev), zt, zt,
+             torch.zeros((bsz, n), dtype=torch.int32, device=dev),
+             torch.zeros((bsz, n), device=dev),
+             torch.full((bsz, n), -torch.inf, device=dev), zt, zt,
+             torch.zeros((bsz, s_, k, d), device=dev),
+             torch.zeros((bsz, s_, k), device=dev),
+             torch.ones((bsz, t), dtype=torch.bool, device=dev))
+    g = la.lloyd_assign_gated_batched(*gargs, block_n=bn, tps=tps)
+    gw = la.lloyd_assign_gated_batched_torch(*gargs, block_n=bn, tps=tps)
+    held("K10b d=4 k=4200", (g[0], g[1], g[3], g[4], g[5], g[6]),
+         (gw[0], gw[1], gw[3], gw[4], gw[5], gw[6]), xb, tol)
+    k9 = counted("ops.lloyd_assign (2, 20000, 4) k=4200",
+                 ["lloyd_assign_batched"],
+                 lambda: ops.lloyd_assign(xb, cb, norms=nb))
+    held("K9 d=4 k=4200", k9, la.lloyd_assign_batched_torch(xb, nb, cb), xb,
+         tol)
+    # at the old caps: K10a and K9 ungated, K10b gated (one template launch
+    # a problem for the batched rounds)
+    by_problem = lambda got, b: tuple(o[b] for o in got)   # noqa: E731
+    most = ops.template_max_k(d, bn)
+    cm = cb[:, :most].contiguous()
+    beside("K10a d=4", most, lambda: la.lloyd_assign_tiled_batched(
+        xb, nb, cm, block_n=bn, tps=tps),
+        [lambda b=b: la.lloyd_assign_tiled_template(
+            xb[b], nb[b], cm[b], block_n=bn, tps=tps) for b in range(bsz)],
+        by_problem)
+    beside("K9 d=4", most, lambda: la.lloyd_assign_batched(
+        xb, nb, cm, block_n=bn),
+        [lambda: la.lloyd_assign_batched_template(xb, nb, cm, block_n=bn)])
+    most = ops.template_max_k(d, bn, gated=True)
+    gm = (xb, nb, cb[:, :most].contiguous(),
+          gargs[3][:, :most].contiguous(), *gargs[4:11],
+          gargs[11][:, :, :most].contiguous(),
+          gargs[12][:, :, :most].contiguous(), gargs[13])
+    beside("K10b d=4", most, lambda: la.lloyd_assign_gated_batched(
+        *gm, block_n=bn, tps=tps),
+        [lambda b=b: la.lloyd_assign_gated_template(
+            *(a[b] for a in gm), block_n=bn, tps=tps) for b in range(bsz)],
+        by_problem)
+    del gm
+    del xb, cb, nb, gargs, g, gw, rg, ru
+
+    # K3 and K4 past the screened widths: fp32 d = 200 and bf16 d = 300,
+    # k = 300 (template caps 274 and 186 at their 128-row tiles)
+    n, k = 20_000, 300
+    for d, prec in ((200, "fp32"), (300, "bf16")):
+        x, c = lattice(torch, gen, dev, n, d, k)
+        e = ClusterEngine(device="cuda", bounds=False, precision=prec)
+        sfx = "_bf16" if prec == "bf16" else ""
+        res = counted(f"kmeans(bounds=False) {prec} d={d} k={k}",
+                      ["distance_min_update" + sfx, "lloyd_assign_tiled" + sfx],
+                      lambda: e.kmeans(x, k, max_iters=3,
+                                       generator=torch.Generator()
+                                       .manual_seed(2)))
+        check(bool(torch.isfinite(res.centroids).all()),
+              f"kmeans d={d}: centroids not finite")
+        nr = bounds.point_norms(x)
+        bn = ops.choose_block_n(n, d, k)
+        tps = bounds.tiles_per_super(-(-n // bn))
+        check(k > ops.template_max_k(d, bn), f"K3 d={d}: not past the cap")
+        xs, cs = (x, c) if prec == "fp32" else (x.bfloat16(), c.bfloat16())
+        tol = d2_tol(torch, nr, cs.float())
+        held(f"K3 {prec} d={d} k={k}", la.lloyd_assign_tiled(
+            xs, nr, cs, block_n=bn, tps=tps), la.lloyd_assign_tiled_torch(
+            xs, nr, cs, block_n=bn, tps=tps), xs, tol, bn=bn)
+        most = ops.template_max_k(d, bn)
+        cm = cs[:most].contiguous()
+        beside(f"K3 {prec} d={d}", most, lambda: la.lloyd_assign_tiled(
+            xs, nr, cm, block_n=bn, tps=tps),
+            [lambda: la.lloyd_assign_tiled_template(xs, nr, cm, block_n=bn,
+                                                    tps=tps)])
+        if prec == "fp32":
+            w = torch.randint(1, 4, (n,), generator=gen, device=dev).float()
+            res = counted(f"weighted kmeans(bounds=False) d={d} k={k}",
+                          ["distance_min_update", "lloyd_assign"],
+                          lambda: e.kmeans(x, k, weights=w, max_iters=3,
+                                           generator=torch.Generator()
+                                           .manual_seed(3)))
+            check(bool(torch.isfinite(res.centroids).all()),
+                  f"weighted kmeans d={d}: centroids not finite")
+            held(f"K4 d={d} k={k} weighted", la.lloyd_assign(
+                x, nr, c, w, block_n=bn), la.lloyd_assign_torch(x, nr, c, w),
+                x, tol, w=w)
+            beside(f"K4 d={d} weighted", most, lambda: la.lloyd_assign(
+                x, nr, cm, w, block_n=bn),
+                [lambda: la.lloyd_assign_template(x, nr, cm, w,
+                                                  block_n=bn)])
+
+    # K2: the guard heal's fold of all k = 1,024 centroids at d = 64 in one
+    # round of the backend (a resident block of 65,536 floats)
+    n, d, k = 100_000, 64, 1024
+    x, c = lattice(torch, gen, dev, n, d, k)
+    cache = eng.backend.prologue(x, k)
+    tile = eng.backend.seed_tile(n, d, k)
+    inf = torch.full((n,), torch.inf, device=dev)
+    rnd = counted("seed_round folding 1024 centroids d=64",
+                  ["distance_min_update"],
+                  lambda: eng.backend.seed_round(x, c, inf, cache=cache))
+    md, parts = kd.distance_min_update_torch(x, cache.norms, c, inf,
+                                             block_n=tile)
+    tol = d2_tol(torch, cache.norms, c)
+    err = float((rnd.min_d2 - md).abs().max())
+    check(err <= tol, f"K2 fold m=1024 d=64: D² err {err} > {tol}")
+    check(bool(((rnd.partials - parts).abs()
+                <= partial_tol(tol, tile, parts)).all()),
+          "K2 fold m=1024 d=64: partials outside tolerance")
+    same_bits(torch, "K2 fold m=1024 d=64: resident vs not",
+              kd.distance_min_update(x, cache.norms, c, inf, block_n=tile),
+              kd.distance_min_update(x, cache.norms, c, inf, block_n=tile,
+                                     resident=False))
+    out["K2 fold m=1024 d=64"] = dict(max_abs_err=err, tol=tol)
+    print(f"K2 fold m={k} d={d}: D² err {err:.3g} (tol {tol:.3g}), "
+          f"partials within tolerance, resident bitwise not")
+    return out
+
+
 def ivf_phase(torch, ops, bounds, telemetry, ClusterEngine, Draws, cfg, paper,
               full, dev, launches, profile, kv_shape, data):
     """Phase 8: IVF serving at ``cfg`` on the ``data`` case ("latent" or
@@ -3589,11 +3967,12 @@ def main() -> int:
         check(c["spill_bytes"] == 0, f"{fn} spills")
         check(c["HGMMA"] > 0 or fn.startswith("reduce"),
               f"{fn}: no HGMMA in its SASS")
-    # K6's split row pass, K4's and K3's row pass, the super reduces and
-    # K14's part (a): no spill
+    # the row passes, K5/K8, the super reduces and K14's part (a): no
+    # spill
     report["split_build"] = split_build(_build, logs)
-    check(len(report["split_build"]) == 20,
-          f"row and ADC kernels in the SASS: {sorted(report['split_build'])}")
+    check(len(report["split_build"]) == 68,
+          f"row, seeding and ADC kernels in the SASS: "
+          f"{sorted(report['split_build'])}")
     for fn, c in sorted(report["split_build"].items()):
         check("registers" in c and "spill_bytes" in c,
               f"{fn}: no registers or spills in the ptxas log")
@@ -3606,7 +3985,7 @@ def main() -> int:
     wide = torch.rand((100_003, 128), generator=gen, device=dev)
     cases = {"K1": [], "K2": [], "K3": [], "K5": [], "K6": [], "K11": [],
              "K12": [], "K2 bf16": [], "K3 bf16": [], "K5 bf16": [],
-             "K6 bf16": []}
+             "K6 bf16": [], "K5 on K2's work": []}
     for pts, k_wide in ((paper, FULL.k), (wide, 64)):
         n, d = pts.shape
         norms = bounds.point_norms(pts)
@@ -3663,9 +4042,13 @@ def main() -> int:
                     print(f"K5 n={n} d={d} m={m} resident={resident} "
                           f"mask={mask}: {c['active_tiles']}/{c['tiles']} "
                           f"tiles active, {c['pruned']} rows pruned, err "
-                          f"{c['max_abs_err']:.3g} (tol {c['tol']:.3g}) "
-                          f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
-                          f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+                          f"{c['max_abs_err']:.3g} (tol {c['tol']:.3g}), "
+                          f"bitwise the template entry; {c['ms']:.4f} ms "
+                          f"(again {c['ms_again']:.4f}; in place "
+                          f"{c['inplace_ms']:.4f}; template entry "
+                          f"{c['template_ms']:.4f} ms), plain "
+                          f"{c['plain_ms']:.4f} ms, bound "
+                          f"{c['bound_ms']:.4f} ms ({c['bound_by']})")
         # bf16: m = 1, the gate's mask and all active (bitwise bf16 K2),
         # resident, and the gate's mask not resident
         for resident, mask in ((True, "gate"), (True, "all"),
@@ -3674,6 +4057,13 @@ def main() -> int:
                 torch, kd, bounds, ops, gpts.bfloat16(), cache, md_in,
                 gpts[rows[:1]].bfloat16(), mask, resident))
             print_bf16("K5", cases["K5 bf16"][-1])
+            print(f"  K5 bf16 bitwise the template entry; template entry "
+                  f"{cases['K5 bf16'][-1]['template_ms']:.4f} ms")
+        # K5's row loop on K2's work at FULL (m = 1, both streams)
+        for p_ in ((gpts, gpts.bfloat16()) if pts is paper else ()):
+            cases["K5 on K2's work"].append(row_loop_beside_k2(
+                torch, kd, bounds, p_, cache, p_[rows[:1]].contiguous(),
+                bn))
         del md_in
         for kk in (k_wide, 1):
             cache = bounds.prologue(pts, ops.choose_block_n(n, d, kk))
@@ -3708,6 +4098,39 @@ def main() -> int:
                   f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, bound "
                   f"{c['bound_ms']:.6f} ms ({c['bound_by']})")
         del centers, radii
+    # K5 on rows too wide for 32 staged a block, read from device memory by
+    # the wide path's threads: fp32 d = 1,024 and bf16 d = 2,048 on
+    # 100,003 label-sorted rows (eight blobs), m = 1 and 8, the gate's
+    # mask, resident and not, each bitwise and timed beside its template
+    # entry
+    cases["K5 wide"] = []
+    nw = 100_003
+    for dw, dtype in ((1024, torch.float32), (2048, torch.bfloat16)):
+        centers = 3 * torch.randn((8, dw), generator=gen, device=dev)
+        lab = torch.randint(8, (nw,), generator=gen, device=dev).sort().values
+        xw = centers[lab] + torch.randn((nw, dw), generator=gen, device=dev)
+        cache = bounds.prologue(xw, ops.choose_block_n(nw, dw, 50))
+        rows = torch.randint(nw, (16,), generator=gen, device=dev)
+        md_in, _ = kd.distance_min_update_torch(
+            xw, cache.norms, xw[rows[8:]].contiguous(),
+            torch.full((nw,), torch.inf, device=dev),
+            block_n=ops.choose_block_n(nw, dw, 50))
+        for m in (1, 8):
+            for resident in (True, False):
+                c = k5_case(torch, kd, bounds, ops, xw.to(dtype), cache,
+                            md_in, xw[rows[:m]].to(dtype), "gate", resident)
+                cases["K5 wide"].append(c)
+                print(f"K5 {c['stream']} n={nw} d={dw} m={m} "
+                      f"resident={resident} mask=gate: "
+                      f"{c['active_tiles']}/{c['tiles']} tiles active, err "
+                      f"{c['max_abs_err']:.3g} (tol {c['tol']:.3g}), "
+                      f"bitwise the template entry; {c['ms']:.4f} ms "
+                      f"(again {c['ms_again']:.4f}; in place "
+                      f"{c['inplace_ms']:.4f}; template entry "
+                      f"{c['template_ms']:.4f} ms), plain "
+                      f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} "
+                      f"ms ({c['bound_by']})")
+        del xw, cache, md_in, centers, lab
     report["cases"] = cases
     del wide
     torch.cuda.empty_cache()
@@ -3715,6 +4138,13 @@ def main() -> int:
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 2 (large k)")
     # 2 (large k). K3, K6, K4 and K10a past the old staging caps
     report["large_k"] = large_k_phase(torch, la, ops, bounds, dev, gen)
+    torch.cuda.empty_cache()
+
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 2 (refused)")
+    # 2 (refused). the shapes the template's staging refused, through the
+    # engine
+    report["refused"] = refused_phase(torch, ops, kd, la, bounds,
+                                      ClusterEngine, Draws, dev, gen)
     torch.cuda.empty_cache()
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 3")

@@ -8,12 +8,15 @@ against:
 
   prologue(points, m, with_bounds) -> RoundCache: the once-per-call pass
       (cached norms, plus the tile balls the gates read).
-  seed_round(points, c_new, min_d2, cache=, state=) -> SeedRound(min_d2',
-      total, partials, tile_max, skipped, pruned): fold the new centroid
-      block into every point's D² and return the sum (the paper's
-      min-update kernel + thrust::reduce) plus the per-tile partial sums the
-      ``tiled`` sampler draws from; with a carried ``state`` the round skips
-      every tile (and point) the triangle-inequality bound proves unchanged.
+  seed_round(points, c_new, min_d2, cache=, state=, consume=) ->
+      SeedRound(min_d2', total, partials, tile_max, skipped, pruned): fold
+      the new centroid block into every point's D² and return the sum (the
+      paper's min-update kernel + thrust::reduce) plus the per-tile partial
+      sums the ``tiled`` sampler draws from; with a carried ``state`` the
+      round skips every tile (and point) the triangle-inequality bound
+      proves unchanged. ``consume`` says the caller never reads ``min_d2``
+      again, so the round may write the new D² into it (the card's gated
+      rounds do: the TPU kernel's aliasing).
   assign_update(points, centroids, cache=, state=, delta=) ->
       AssignRound(assignment, min_d2, sums, counts, state, skipped, pruned):
       one Lloyd half-step in the tiled form (per-tile inertia partials and
@@ -294,9 +297,11 @@ class Backend:
 
     def seed_round(self, points, c_new, min_d2, *, cache: RoundCache,
                    state: Optional[BoundState] = None,
-                   weights: Optional[torch.Tensor] = None) -> SeedRound:
+                   weights: Optional[torch.Tensor] = None,
+                   consume: bool = False) -> SeedRound:
         """One seeding round; ``weights`` (n,) weigh the partials (and the
-        total) by point."""
+        total) by point; ``consume``: the caller never reads ``min_d2``
+        again, so the round may overwrite it."""
         raise NotImplementedError
 
     def assign_update(self, points, centroids, *,
@@ -333,7 +338,8 @@ class Backend:
 
     def seed_round_batched(self, points, c_new, min_d2, *,
                            cache: RoundCache,
-                           state: Optional[BoundState] = None) -> SeedRound:
+                           state: Optional[BoundState] = None,
+                           consume: bool = False) -> SeedRound:
         """One seeding round of B independent problems: points (B, n, d),
         c_new (B, m, d), min_d2 and ``cache.norms`` (B, n), and with a
         carried ``state`` (B, T) the gated round, each problem by its own
@@ -341,7 +347,7 @@ class Backend:
         is bitwise ``seed_round`` on problem b (here: that round per
         problem)."""
         rounds = [self.seed_round(p, c, md, cache=_problem(cache, b),
-                                  state=_problem(state, b))
+                                  state=_problem(state, b), consume=consume)
                   for b, (p, c, md) in enumerate(zip(points, c_new, min_d2))]
         width = 6 if _gates(state, cache) else 3
         return SeedRound(*(torch.stack(f)
@@ -474,7 +480,7 @@ class ReferenceBackend(Backend):
     name: ClassVar[str] = "reference"
 
     def seed_round(self, points, c_new, min_d2, *, cache, state=None,
-                   weights=None):
+                   weights=None, consume=False):
         n, d = points.shape
         tile = self.seed_tile(n, d, c_new.shape[0])
         new_md = torch.minimum(min_d2, _min_d2_to(points, c_new))
@@ -501,7 +507,7 @@ class FusedBackend(Backend):
     name: ClassVar[str] = "fused"
 
     def seed_round(self, points, c_new, min_d2, *, cache, state=None,
-                   weights=None):
+                   weights=None, consume=False):
         n, d = points.shape
         tile = self.seed_tile(n, d, c_new.shape[0])
         new_md, partials = kmeans_distance.distance_min_update_torch(
@@ -543,7 +549,7 @@ class CudaBackend(Backend):
         return RoundCache(*fn(points, self.seed_tile(n, d, m)))
 
     def seed_round(self, points, c_new, min_d2, *, cache, state=None,
-                   weights=None):
+                   weights=None, consume=False):
         n, d = points.shape
         tile = self.seed_tile(n, d, c_new.shape[0])
         c = c_new.contiguous()
@@ -565,7 +571,7 @@ class CudaBackend(Backend):
                 kmeans_distance.distance_min_update_gated(
                     points, cache.norms, c, min_d2, cache.center_d, dc,
                     margin, state.partials, state.tile_max, active,
-                    block_n=tile, resident=self.resident)
+                    block_n=tile, resident=self.resident, inplace=consume)
             return SeedRound(md, partials.sum(), partials, tmax,
                              _seed_skipped(active),
                              pruned.sum().to(torch.int32))
@@ -575,7 +581,7 @@ class CudaBackend(Backend):
         return SeedRound(new_md, partials.sum(), partials)
 
     def seed_round_batched(self, points, c_new, min_d2, *, cache,
-                           state=None):
+                           state=None, consume=False):
         n, d = points.shape[-2:]
         tile = self.seed_tile(n, d, c_new.shape[-2])
         c = c_new.contiguous()
@@ -587,7 +593,7 @@ class CudaBackend(Backend):
                 kmeans_distance.distance_min_update_gated_batched(
                     points, cache.norms, c, min_d2, cache.center_d, dc,
                     margin, state.partials, state.tile_max, active,
-                    block_n=tile, resident=self.resident)
+                    block_n=tile, resident=self.resident, inplace=consume)
             return SeedRound(md, partials.sum(-1), partials, tmax,
                              _seed_skipped(active),
                              pruned.sum(-1).to(torch.int32))
@@ -655,8 +661,9 @@ def _seed_parts(*, round_fn, init_min_d2, gated: bool, guard: bool,
                 tile: int):
     """The round step of the k-means++ loop, ``checked_round(m, centroids,
     min_d2, state) -> (min_d2, partials, state, skipped, pruned,
-    recovered)``: fold centroid m-1 in. ``round_fn(c, md, state)`` is one
-    backend round; ``gated`` carries ``BoundState(partials, tile_max)``.
+    recovered)``: fold centroid m-1 in. ``round_fn(c, md, state,
+    consume=)`` is one backend round (``consume``: ``md`` may be
+    overwritten); ``gated`` carries ``BoundState(partials, tile_max)``.
 
     ``guard`` arms in-flight corruption detection: every round's ``total``
     doubles as the finite flag. A non-finite total means the carry is
@@ -675,7 +682,11 @@ def _seed_parts(*, round_fn, init_min_d2, gated: bool, guard: bool,
         return rnd
 
     def checked_round(m, centroids, min_d2, state):
-        rnd = round_fn(centroids[..., m - 1:m, :], min_d2, state)
+        # the loop never reads a round's min_d2 again after the next round,
+        # so every carry but the clean one (which heal refolds from) may be
+        # overwritten in place
+        rnd = round_fn(centroids[..., m - 1:m, :], min_d2, state,
+                       consume=min_d2 is not init_min_d2)
         # one host sync per round: the guard's finite check
         if guard and not bool(torch.isfinite(rnd.total)):
             rnd = heal(m, centroids)
@@ -1144,13 +1155,15 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
             return sampling.categorical_cdf(u, fb, weight)
 
     if lead:
-        def round_fn(c, md, st):
-            return backend.seed_round_batched(stream, c.to(stream.dtype), md,
-                                              cache=cache, state=st)
+        def round_fn(c, md, st, consume=False):
+            return backend.seed_round_batched(
+                stream, c.to(stream.dtype), md, cache=cache, state=st,
+                consume=consume)
     else:
-        def round_fn(c, md, st):
-            return backend.seed_round(stream, c.to(stream.dtype), md,
-                                      cache=cache, state=st, **_weighted(w))
+        def round_fn(c, md, st, consume=False):
+            return backend.seed_round(
+                stream, c.to(stream.dtype), md, cache=cache, state=st,
+                consume=consume, **_weighted(w))
 
     centroids, indices, min_d2, skips, prunes, rec = _seed_loop(
         draws, pts, k, round_fn=round_fn, sample_fn=sample_fn,

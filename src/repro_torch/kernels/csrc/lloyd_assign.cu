@@ -32,12 +32,14 @@
 //   - d >= 8 within the screened widths (screen::screened): the screened
 //     route below (K10a's with one problem, on K6's persistent grid), its
 //     sqrt(second) into the caller's (n,) scratch;
-//   - d < 8 (the paper's d = 2): the row pass (untiled_row_kernel with the
-//     second best: labels, D² and sqrt(second) of R rows a thread, the
-//     centroids staged in chunks), then pass B's tiled instance and the
-//     super reduce, as K6's split route;
-//   - rows past the screened widths: the template.
-// The template is two kernels, launched back to back on one stream:
+//   - every other width: the row pass (the second best kept: labels, D² and
+//     sqrt(second); below d = 8 untiled_row_kernel, R rows a thread in
+//     registers; past the screened widths wide_row_kernel, one row a
+//     thread read from device memory), its centroids staged in chunks, then
+//     pass B's tiled instance and the super reduce, as K6's split route.
+// No round stages the whole (k, d) block any more, so none has a k that
+// shared memory caps. The template is two kernels, launched back to back on
+// one stream:
 //   1. assign_tile_kernel: one block per tile, thread t owning rows
 //      t, t + 256, t + 512, ... The (k, d) centroid block and its norms are
 //      staged in shared memory once. At d = 2 (the paper's) the row stays in
@@ -97,10 +99,10 @@
 // pallas_call at line 666): K6 over B problems, each with its own gate (the
 // (B, n_tiles) mask read on the device, the full grid launched). Row b of
 // either is bitwise K3 (K6) on problem b, and an all-active K10b with no
-// carried bound is bitwise K10a. At d < 8, and past the widths below, both
-// run this file's template (assign_tile_kernel over B * n_tiles blocks,
-// block i taking tile i % n_tiles of problem i / n_tiles, every pointer
-// offset to its problem), as K3 always does and K9 does there.
+// carried bound is bitwise K10a. At d < 8, and past the widths below, K10a
+// runs K3's row pass and K10b K6's split row pass with a problem index
+// (blocks of one problem's rows, every pointer offset to the problem), then
+// pass B over every problem's tiles.
 //
 // At d >= 8 (the row padded to the tensor cores' depth, 8 fp32 or 16 bf16
 // values, at most 512 bytes: screen::screened) they, K6, K4 and K9 take the
@@ -222,7 +224,9 @@
 //   stages their values of every tile in shared memory with every copy in
 //   flight, and one thread an output adds them in ascending tile order);
 //   - every other width (d = 1, 3..7, rows past the screened widths): the
-//     template's untiled instance, as K9 below d = 8.
+//     row pass without the second best (untiled_row_kernel's D = 0 instance
+//     below d = 8, wide_row_kernel past the screened widths), then the same
+//     pass B and all-tile reduce.
 // What bounds it on the H100 at the paper's shape: bytes, as K3 (80 MB at
 // n = 4M, d = 2, about 24 us), the weights adding 4 bytes a row; the fold
 // is about 10 issued instructions a (row, centroid) pair (2 FFMA, the
@@ -234,10 +238,8 @@
 // at line 201): K4 over B independent problems, as K10a is to K3. At d >= 8
 // (screen::screened) it takes the screened route's pass A with B problems
 // (K10a's grid), then pass B's untiled instance and the all-tile reduce,
-// one super a problem; below, the template (assign_tile_kernel over
-// B * n_tiles blocks, block i taking tile i % n_tiles of problem
-// i / n_tiles, then super_reduce_kernel). Row b is K4 on problem b,
-// bitwise. It takes no weights, as the reference's batched problems take
+// one super a problem; at every other width K4's row pass with a problem
+// index, then the same. Row b is K4 on problem b, bitwise. It takes no weights, as the reference's batched problems take
 // none. At the PQ codebook sweep (B = 1664, n = 16384, d = 16, k = 256) its
 // fp32-FMA bound is K10a's, 3.65 ms; the screen's, 0.77 ms.
 //
@@ -1932,8 +1934,9 @@ int launch(const T* points, const float* norms, const T* cents,
 
 
 // ---------------------------------------------------------------------------
-// The row passes: K6 off the screened widths (d < 8, or rows past 512 bytes:
-// the split row pass), K4 at d = 2 and K3 below d = 8 (see the header).
+// The row passes, at every width the screen does not take (d < 8, or rows
+// past 512 bytes): the split row pass for K6 and K10b, the row pass for
+// K3, K4, K9 and K10a (see the header).
 
 // the row passes' blocks: small, so that blocks in their prune and in their
 // fold share an SM
@@ -2038,13 +2041,15 @@ __device__ __forceinline__ void fold_listed(
 // thread (at D = 2; one at other d) as their count asks, so that only the
 // rows the prune keeps pay for the fold and as many warps as can take part.
 // Each tile's pruned rows are added into g.pruned (zeroed by the caller)
-// with integer atomics.
+// with integer atomics. A batch (K10b) runs bpp blocks a problem: block i
+// takes row block i % bpp of problem i / bpp, every pointer offset to the
+// problem (as assign_tile_kernel's), so problem b's rows are K6's on b.
 template <typename T, int D>
 __global__ void __launch_bounds__(kRowThreads, 4)
 row_kernel(const T* __restrict__ points, const float* __restrict__ norms,
            const T* __restrict__ cents, int* __restrict__ labels,
            float* __restrict__ md, Gate g, int n, int d, int k, int kc,
-           int block_n, int vec) {
+           int block_n, int vec, int bpp) {
   constexpr int R = D > 0 ? 4 : 1;
   extern __shared__ float smem[];
   float* c_sh = smem;                                   // (kc, d)
@@ -2053,7 +2058,26 @@ row_kernel(const T* __restrict__ points, const float* __restrict__ norms,
   int* list_s = cnt_sh + R * kRowThreads;               // (R * 128,)
   __shared__ int list_n;
   const int tid = threadIdx.x, lane = tid & 31;
-  const int blk0 = blockIdx.x * R * kRowThreads;   // n < 2^31 rows
+  const int b = blockIdx.x / bpp;
+  const int n_tiles = (n + block_n - 1) / block_n;
+  points += (size_t)b * n * d;
+  norms += (size_t)b * n;
+  cents += (size_t)b * k * d;
+  labels += (size_t)b * n;
+  md += (size_t)b * n;
+  g.delta += (size_t)b * k;
+  g.thresh += (size_t)b * n_tiles;
+  g.absorb += (size_t)b * n_tiles;
+  g.prev_a += (size_t)b * n;
+  g.prev_md += (size_t)b * n;
+  g.prev_lb += (size_t)b * n;
+  g.active += (size_t)b * n_tiles;
+  g.lb += (size_t)b * n;
+  g.pruned += (size_t)b * n_tiles;
+  vec = vec && ((reinterpret_cast<uintptr_t>(g.prev_a)
+                 | reinterpret_cast<uintptr_t>(g.prev_md)
+                 | reinterpret_cast<uintptr_t>(g.prev_lb)) % 16 == 0);
+  const int blk0 = (blockIdx.x - b * bpp) * R * kRowThreads;  // n < 2^31
   const int t0 = blk0 / block_n;
   for (int i = tid; i < R * kRowThreads; i += kRowThreads) cnt_sh[i] = 0;
   if (tid == 0) list_n = 0;
@@ -2162,18 +2186,19 @@ inline int split_k_chunk(int d, int k) {
   return min(k, kc >= 1 ? kc : (232448 - lists) / per);
 }
 
-// K6's split round: the row pass, then screen::launch_reduce (the
-// template's partials, gaps and sums, and the super reduce). Returns the
-// first CUDA error.
+// K6's split round (K10b's with `batch` problems): the row pass, then
+// screen::launch_reduce (the template's partials, gaps and sums, and the
+// super reduce). Returns the first CUDA error.
 template <typename T>
 int launch_split(const T* points, const float* norms, const T* cents,
                  int* labels, float* md, float* partials, float* gaps,
                  float* tile_acc, float* ssums, float* scounts, const Gate& g,
-                 int n, int d, int k, int block_n, int tps, int kchunk,
-                 cudaStream_t s) {
+                 int batch, int n, int d, int k, int block_n, int tps,
+                 int kchunk, cudaStream_t s) {
   const int R = d == 2 ? 4 : 1;
-  const long long grid =
+  const long long bpp =
       ((long long)n + R * kRowThreads - 1) / (R * kRowThreads);
+  const long long grid = bpp * batch;
   const int kc = split_k_chunk(d, k);
   if (kc < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (size_t)kc * (d + 1)
@@ -2187,7 +2212,8 @@ int launch_split(const T* points, const float* norms, const T* cents,
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
     kernel<<<(unsigned)grid, kRowThreads, smem, s>>>(
-        points, norms, cents, labels, md, g, n, d, k, kc, block_n, vec);
+        points, norms, cents, labels, md, g, n, d, k, kc, block_n, vec,
+        (int)bpp);
   };
   if (d == 2)
     run(row_kernel<T, 2>);
@@ -2197,13 +2223,13 @@ int launch_split(const T* points, const float* norms, const T* cents,
   if (err != 0) return err;
   return screen::launch_reduce<T, true>(points, nullptr, labels, md, g.lb, g,
                                         partials, gaps, tile_acc, ssums,
-                                        scounts, 1, n, d, k, block_n, tps,
+                                        scounts, batch, n, d, k, block_n, tps,
                                         kchunk, s);
 }
 
 // ---------------------------------------------------------------------------
-// K4 at d = 2 and K3 below d = 8: the row pass (see the header), then the
-// screened route's pass B and super reduce.
+// K3, K4, K9 and K10a off the screened widths: the row pass (see the
+// header), then the screened route's pass B and super reduce.
 
 // the widest row of the row pass's narrow instance (D = 0)
 constexpr int kNarrow = 7;
@@ -2237,20 +2263,36 @@ __device__ __forceinline__ float narrow_raw_d2(const float (&x)[kNarrow],
 // thread's rows lie below n. D = 2: each centroid staged as (c0, c1, cn, 0),
 // one 16-byte broadcast; D = 0 (d < 8): as (c0 .. c6, cn), two. The
 // centroids are staged kc at a time (row_k_chunk); a row's best, second and
-// label stay in registers from chunk to chunk.
+// label stay in registers from chunk to chunk. A batch (K9, K10a) runs bpp
+// blocks a problem, block i taking row block i % bpp of problem i / bpp
+// with every pointer offset to the problem, so problem b's rows are the
+// single pass's on b (`vec` is rechecked on the offset pointers).
 template <typename T, int D, int R, bool Second>
 __global__ void __launch_bounds__(kRowThreads, 4)
 untiled_row_kernel(const T* __restrict__ points,
                    const float* __restrict__ norms,
                    const T* __restrict__ cents, int* __restrict__ labels,
                    float* __restrict__ md, float* __restrict__ lbo, int n,
-                   int d, int k, int kc, int vec) {
+                   int d, int k, int kc, int vec, int bpp) {
   static_assert(R % 4 == 0, "R a multiple of 4");
   constexpr int kV = D == 2 ? 1 : 2;           // float4s a staged centroid
   constexpr int DX = D == 2 ? 2 : kNarrow;     // a row's values held
   extern __shared__ float4 c4[];               // (kc, kV)
   const int tid = threadIdx.x;
-  const long long row0 = ((long long)blockIdx.x * kRowThreads + tid) * R;
+  const int b = blockIdx.x / bpp;
+  points += (size_t)b * n * d;
+  norms += (size_t)b * n;
+  cents += (size_t)b * k * d;
+  labels += (size_t)b * n;
+  md += (size_t)b * n;
+  if constexpr (Second) lbo += (size_t)b * n;
+  vec = vec && ((reinterpret_cast<uintptr_t>(points)
+                 | reinterpret_cast<uintptr_t>(norms)
+                 | reinterpret_cast<uintptr_t>(labels)
+                 | reinterpret_cast<uintptr_t>(md)
+                 | reinterpret_cast<uintptr_t>(lbo)) % 16 == 0);
+  const long long row0 =
+      ((long long)(blockIdx.x - b * bpp) * kRowThreads + tid) * R;
   const auto stage = [&](int c0) {   // centroids c0 .. c0 + kc - 1
     const int nc = min(kc, k - c0);
     for (int c = tid; c < nc; c += kRowThreads) {
@@ -2419,47 +2461,108 @@ untiled_row_kernel(const T* __restrict__ points,
   }
 }
 
-// the row pass's centroids a chunk: all k where their staging (16 bytes a
-// centroid at d = 2, 32 below d = 8) fits kRowBudget, else the most that do.
-inline int row_k_chunk(int d, int k) {
-  return min(k, kRowBudget / (d == 2 ? 16 : 32));
+// The row pass past the narrow widths (rows the screen does not take and
+// wider than kNarrow: fp32 d > 128, bf16 d > 256): one row a thread,
+// exact_d2 and fold over every centroid in ascending order with the row read
+// from device memory, the template's runtime-d loop; the centroids and their
+// cn staged kc at a time (stage_centroids, the template's arithmetic), the
+// row's best, second and label held in registers from chunk to chunk.
+// Writes labels, D² and (Second) lbo = sqrt(second); the problem index as
+// untiled_row_kernel's.
+template <typename T, bool Second>
+__global__ void __launch_bounds__(kRowThreads, 4)
+wide_row_kernel(const T* __restrict__ points, const float* __restrict__ norms,
+                const T* __restrict__ cents, int* __restrict__ labels,
+                float* __restrict__ md, float* __restrict__ lbo, int n,
+                int d, int k, int kc, int bpp) {
+  extern __shared__ float smem[];
+  float* c_sh = smem;                                   // (kc, d)
+  float* cn_sh = c_sh + (size_t)kc * d;                 // (kc,)
+  const int b = blockIdx.x / bpp;
+  points += (size_t)b * n * d;
+  norms += (size_t)b * n;
+  cents += (size_t)b * k * d;
+  const long long row =
+      (long long)(blockIdx.x - b * bpp) * kRowThreads + threadIdx.x;
+  const bool ok = row < n;
+  const T* x = points + (ok ? row : 0) * d;
+  const float xn = ok ? norms[row] : 0.f;
+  float best = CUDART_INF_F, second = CUDART_INF_F;
+  int a = 0;
+  for (int c0 = 0; c0 < k; c0 += kc) {
+    if (c0 > 0) __syncthreads();   // the last chunk's reads are done
+    const int nc = min(kc, k - c0);
+    stage_centroids(cents, c_sh, cn_sh, c0, nc, d);
+    __syncthreads();
+    if (!ok) continue;
+    for (int c = 0; c < nc; ++c) {
+      const float* cc = c_sh + (size_t)c * d;
+      fold(exact_d2<0>([&](int j) { return widen(x[j]); },
+                       [&](int j) { return cc[j]; }, d, xn, cn_sh[c]),
+           c0 + c, best, second, a);
+    }
+  }
+  if (!ok) return;
+  labels[(size_t)b * n + row] = a;
+  md[(size_t)b * n + row] = best;
+  if constexpr (Second) lbo[(size_t)b * n + row] = sqrtf(second);
 }
 
-// The row pass over n rows: K4 at d = 2 (Second false) and K3 below d = 8
-// (Second: lbo too). At d = 2 8 rows a thread where that still gives every
-// SM four blocks, else 4 (fit_minibatch's 262,144-row batches: 512 blocks);
-// below d = 8 otherwise, 4. Returns the first CUDA error.
+// the row pass's centroids a chunk: all k where their staging (16 bytes a
+// centroid at d = 2, 32 below d = 8, 4 (d + 1) past) fits kRowBudget, else
+// the most that do (one at least: a wide row's block takes what it needs).
+inline int row_k_chunk(int d, int k) {
+  const int per = d == 2 ? 16 : d <= kNarrow ? 32 : 4 * (d + 1);
+  return min(k, max(1, kRowBudget / per));
+}
+
+// The row pass over `batch` problems of n rows: K4 and K9 (Second false),
+// K3 and K10a (Second: lbo too), at every width the screen does not take.
+// At d = 2 8 rows a thread where that still gives every SM four blocks, else
+// 4 (fit_minibatch's 262,144-row batches: 512 blocks); other d < 8, 4; past
+// kNarrow, one (wide_row_kernel). Returns the first CUDA error.
 template <typename T, bool Second>
 int launch_rows(const T* points, const float* norms, const T* cents,
-                int* labels, float* md, float* lbo, int n, int d, int k,
-                cudaStream_t s) {
+                int* labels, float* md, float* lbo, int batch, int n, int d,
+                int k, cudaStream_t s) {
   const bool vec = (reinterpret_cast<uintptr_t>(points)
                     | reinterpret_cast<uintptr_t>(norms)
                     | reinterpret_cast<uintptr_t>(labels)
                     | reinterpret_cast<uintptr_t>(md)
                     | reinterpret_cast<uintptr_t>(lbo)) % 16 == 0;
   const int kc = row_k_chunk(d, k);
-  const size_t smem = (size_t)(d == 2 ? 16 : 32) * kc;
-  const auto run = [&](auto kernel, int rows) -> int {
+  const size_t smem =
+      (size_t)(d == 2 ? 16 : d <= kNarrow ? 32 : 4 * (d + 1)) * kc;
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  const auto blocks = [&](int rows) {
     const long long per = (long long)rows * kRowThreads;
-    const long long grid = ((long long)n + per - 1) / per;
-    if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    return ((long long)n + per - 1) / per;
+  };
+  const auto run = [&](auto kernel, int rows) -> int {
+    const long long bpp = blocks(rows);
+    if (bpp * batch > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
-    kernel<<<(unsigned)grid, kRowThreads, smem, s>>>(
-        points, norms, cents, labels, md, lbo, n, d, k, kc, (int)vec);
+    kernel<<<(unsigned)(bpp * batch), kRowThreads, smem, s>>>(
+        points, norms, cents, labels, md, lbo, n, d, k, kc, (int)vec,
+        (int)bpp);
     return (int)cudaGetLastError();
   };
   if (d == 2) {
-    if ((long long)n >= 4LL * sm_count() * 8 * kRowThreads)
+    if (blocks(8) * batch >= 4LL * sm_count())
       return run(untiled_row_kernel<T, 2, 8, Second>, 8);
     return run(untiled_row_kernel<T, 2, 4, Second>, 4);
   }
-  if constexpr (Second) {
-    if (d >= 1 && d <= kNarrow)
-      return run(untiled_row_kernel<T, 0, 4, true>, 4);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (d >= 1 && d <= kNarrow)
+    return run(untiled_row_kernel<T, 0, 4, Second>, 4);
+  const long long bpp = blocks(1);
+  if (bpp * batch > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cudaFuncSetAttribute(wide_row_kernel<T, Second>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  wide_row_kernel<T, Second><<<(unsigned)(bpp * batch), kRowThreads, smem,
+                               s>>>(points, norms, cents, labels, md, lbo, n,
+                                    d, k, kc, (int)bpp);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int D, bool Gated, bool Untiled>
@@ -2539,132 +2642,136 @@ int dispatch(const void* points, const float* norms, const void* cents,
 enum Round { kK3 = 0, kK6 = 1, kK4 = 2, kK10a = 3, kK10b = 4, kK9 = 5 };
 enum Route { kTemplate = 0, kScreened = 1, kRowPass = 2, kSplit = 3 };
 
-// The screened route where screen::screened(d, bf16); else K3's row pass
-// below d = 8, K4's at d = 2 and K6's split row pass at every other width;
-// else (K9, K10a, K10b below d = 8, and K3, K4 past the screened widths)
-// the template.
+// The screened route where screen::screened(d, bf16); at every other width
+// (d < 8, and rows past the screened widths) the split row pass for the
+// gated rounds (K6, K10b) and the row pass for the others (K3, K4, K9,
+// K10a). No round takes the template: it stays reachable through the
+// *_template entries alone.
 inline Route route_of(int round, int d, bool bf16) {
   if (screen::screened(d, bf16)) return kScreened;
-  if ((round == kK3 && d < 8) || (round == kK4 && d == 2)) return kRowPass;
-  if (round == kK6) return kSplit;
-  return kTemplate;
+  return round == kK6 || round == kK10b ? kSplit : kRowPass;
 }
 
 // The most centroids a route takes at width d: the screened route's 16-bit
-// candidate index; the row pass any; the split row pass any where one
-// centroid row fits a block, else none; the template -1: what its whole
-// (k, d) block fits beside the columns the caller passes.
+// candidate index; the row passes any where one centroid row fits a block,
+// else none (both stage their centroids in chunks).
 inline int route_max_k(Route r, int d) {
   switch (r) {
     case kScreened: return screen::kMaxK;
-    case kRowPass: return 0x7fffffff;
+    case kRowPass: return 4LL * (d + 1) <= 232448 ? 0x7fffffff : 0;
     case kSplit: return split_k_chunk(d, 1) >= 1 ? 0x7fffffff : 0;
     default: return -1;
   }
 }
 
-// The batched rounds (K10a, K10b): the screened route or the template, by
-// route_of, as dispatch; cn_g as screen::launch's.
+// The row pass with the second best into lbo (K3, K10a), then pass B's
+// tiled instance and the super reduce, over `batch` problems. Returns the
+// first CUDA error.
+template <typename T>
+int launch_rows_tiled(const T* points, const float* norms, const T* cents,
+                      int* labels, float* md, float* lbo, float* partials,
+                      float* gaps, float* tile_acc, float* ssums,
+                      float* scounts, int batch, int n, int d, int k,
+                      int block_n, int tps, int kchunk, cudaStream_t s) {
+  if (lbo == nullptr) return (int)cudaErrorInvalidValue;
+  const int err = launch_rows<T, true>(points, norms, cents, labels, md, lbo,
+                                       batch, n, d, k, s);
+  if (err != 0) return err;
+  return screen::launch_reduce<T, false>(points, nullptr, labels, md, lbo,
+                                         Gate{}, partials, gaps, tile_acc,
+                                         ssums, scounts, batch, n, d, k,
+                                         block_n, tps, kchunk, s);
+}
+
+// The batched rounds (K10a, K10b) by route_of: the screened route, else
+// the row pass (K10a: lbo, the caller's (batch, n) scratch, required) or
+// the split row pass (K10b); cn_g as screen::launch's.
 template <bool Gated>
 int dispatch_batched(const void* points, const float* norms,
                      const void* cents, int* labels, float* md, float* lbo,
                      float* partials, float* gaps, float* tile_acc,
                      float* ssums, float* scounts, const Gate& g,
                      unsigned long long* stats, float* cn_g, int batch, int n,
-                     int d, int k, int block_n, int tps, int cols, int kchunk,
+                     int d, int k, int block_n, int tps, int kchunk,
                      int bf16, void* stream) {
-  if (route_of(Gated ? kK10b : kK10a, d, bf16 != 0) != kScreened)
-    return dispatch<Gated, false>(points, norms, cents, nullptr, labels, md,
-                                  partials, gaps, tile_acc, ssums, scounts, g,
-                                  batch, n, d, k, block_n, tps, cols, bf16,
-                                  stream);
-  if ((!Gated && lbo == nullptr) || stats == nullptr)
-    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto go = [&](auto* p, auto* c) -> int {
+    using T = std::remove_const_t<std::remove_pointer_t<decltype(p)>>;
+    if (route_of(Gated ? kK10b : kK10a, d, bf16 != 0) != kScreened) {
+      if constexpr (Gated)
+        return launch_split<T>(p, norms, c, labels, md, partials, gaps,
+                               tile_acc, ssums, scounts, g, batch, n, d, k,
+                               block_n, tps, kchunk, s);
+      else
+        return launch_rows_tiled<T>(p, norms, c, labels, md, lbo, partials,
+                                    gaps, tile_acc, ssums, scounts, batch, n,
+                                    d, k, block_n, tps, kchunk, s);
+    }
+    if ((!Gated && lbo == nullptr) || stats == nullptr)
+      return (int)cudaErrorInvalidValue;
+    return screen::launch<T, Gated>(p, norms, c, nullptr, labels, md, lbo,
+                                    partials, gaps, tile_acc, ssums, scounts,
+                                    g, stats, cn_g, batch, n, d, k, block_n,
+                                    tps, kchunk, s);
+  };
   if (bf16)
-    return screen::launch<__nv_bfloat16, Gated>(
-        static_cast<const __nv_bfloat16*>(points), norms,
-        static_cast<const __nv_bfloat16*>(cents), nullptr, labels, md, lbo,
-        partials, gaps, tile_acc, ssums, scounts, g, stats, cn_g, batch, n,
-        d, k, block_n, tps, kchunk, s);
-  return screen::launch<float, Gated>(
-      static_cast<const float*>(points), norms,
-      static_cast<const float*>(cents), nullptr, labels, md, lbo, partials,
-      gaps, tile_acc, ssums, scounts, g, stats, cn_g, batch, n, d, k,
-      block_n, tps, kchunk, s);
+    return go(static_cast<const __nv_bfloat16*>(points),
+              static_cast<const __nv_bfloat16*>(cents));
+  return go(static_cast<const float*>(points),
+            static_cast<const float*>(cents));
 }
 
 // K3 by route_of: the screened route (pass A on K6's persistent grid, lbo
 // the caller's (n,) scratch for sqrt(second), stats required, cn_g as
-// screen::launch's); the row pass with the second best into lbo; each then
-// pass B's tiled instance and the super reduce; else the template. Returns
-// the first CUDA error.
+// screen::launch's), else the row pass with the second best into lbo; each
+// then pass B's tiled instance and the super reduce. Returns the first CUDA
+// error.
 template <typename T>
 int launch_tiled(const T* points, const float* norms, const T* cents,
                  int* labels, float* md, float* lbo, float* partials,
                  float* gaps, float* tile_acc, float* ssums, float* scounts,
                  unsigned long long* stats, float* cn_g, int n, int d, int k,
-                 int block_n, int tps, int cols, int kchunk, cudaStream_t s) {
+                 int block_n, int tps, int kchunk, cudaStream_t s) {
   constexpr bool kBf16 = !std::is_same<T, float>::value;
-  const Route r = route_of(kK3, d, kBf16);
-  if (r == kScreened) {
+  if (route_of(kK3, d, kBf16) == kScreened) {
     if (lbo == nullptr || stats == nullptr) return (int)cudaErrorInvalidValue;
     return screen::launch<T, false>(points, norms, cents, nullptr, labels,
                                     md, lbo, partials, gaps, tile_acc, ssums,
                                     scounts, Gate{}, stats, cn_g, 1, n, d, k,
                                     block_n, tps, kchunk, s);
   }
-  if (r == kRowPass) {
-    if (lbo == nullptr) return (int)cudaErrorInvalidValue;
-    const int err = launch_rows<T, true>(points, norms, cents, labels, md,
-                                         lbo, n, d, k, s);
-    if (err != 0) return err;
-    return screen::launch_reduce<T, false>(points, nullptr, labels, md, lbo,
-                                           Gate{}, partials, gaps, tile_acc,
-                                           ssums, scounts, 1, n, d, k,
-                                           block_n, tps, kchunk, s);
-  }
-  return launch_round<T, false, false>(points, norms, cents, nullptr, labels,
-                                       md, partials, gaps, tile_acc, ssums,
-                                       scounts, Gate{}, 1, n, d, k, block_n,
-                                       tps, cols, s);
+  return launch_rows_tiled<T>(points, norms, cents, labels, md, lbo, partials,
+                              gaps, tile_acc, ssums, scounts, 1, n, d, k,
+                              block_n, tps, kchunk, s);
 }
 
 // K4 (round kK4, batch 1; weights may be null) and K9 (kK9, batch B, no
 // weights) by route_of: the screened route (stats required, cn_g as
-// screen::launch's) or K4's row pass, each then pass B's untiled instance
-// and the all-tile reduce; else the template. Returns the first CUDA error.
+// screen::launch's) or the row pass, each then pass B's untiled instance
+// and the all-tile reduce. Returns the first CUDA error.
 template <typename T>
 int launch_untiled(int round, const T* points, const float* norms,
                    const T* cents, const float* weights, int* labels,
                    float* md, float* tile_acc, float* sums, float* counts,
                    unsigned long long* stats, float* cn_g, int batch, int n,
-                   int d, int k, int block_n, int cols, int kchunk,
-                   cudaStream_t s) {
+                   int d, int k, int block_n, int kchunk, cudaStream_t s) {
   constexpr bool kBf16 = !std::is_same<T, float>::value;
   const int n_tiles = (n + block_n - 1) / block_n;
   if ((long long)batch * n_tiles > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;
-  const Route r = route_of(round, d, kBf16);
-  if (r == kScreened) {
+  if (route_of(round, d, kBf16) == kScreened) {
     if (stats == nullptr) return (int)cudaErrorInvalidValue;
     return screen::launch<T, false, true>(
         points, norms, cents, weights, labels, md, nullptr, nullptr, nullptr,
         tile_acc, sums, counts, Gate{}, stats, cn_g, batch, n, d, k, block_n,
         n_tiles, kchunk, s);
   }
-  if (r == kRowPass) {
-    const int err = launch_rows<T, false>(points, norms, cents, labels, md,
-                                          nullptr, n, d, k, s);
-    if (err != 0) return err;
-    return screen::launch_reduce<T, false, true>(
-        points, weights, labels, md, nullptr, Gate{}, nullptr, nullptr,
-        tile_acc, sums, counts, 1, n, d, k, block_n, n_tiles, kchunk, s);
-  }
-  return launch_round<T, false, true>(points, norms, cents, weights, labels,
-                                      md, nullptr, nullptr, tile_acc, sums,
-                                      counts, Gate{}, batch, n, d, k, block_n,
-                                      n_tiles, cols, s);
+  const int err = launch_rows<T, false>(points, norms, cents, labels, md,
+                                        nullptr, batch, n, d, k, s);
+  if (err != 0) return err;
+  return screen::launch_reduce<T, false, true>(
+      points, weights, labels, md, nullptr, Gate{}, nullptr, nullptr,
+      tile_acc, sums, counts, batch, n, d, k, block_n, n_tiles, kchunk, s);
 }
 
 // K4 and K9 on the caller's stream type, as dispatch
@@ -2672,39 +2779,39 @@ int dispatch_untiled(int round, const void* points, const float* norms,
                      const void* cents, const float* weights, int* labels,
                      float* md, float* tile_acc, float* sums, float* counts,
                      unsigned long long* stats, float* cn_g, int batch, int n,
-                     int d, int k, int block_n, int cols, int kchunk,
-                     int bf16, void* stream) {
+                     int d, int k, int block_n, int kchunk, int bf16,
+                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch_untiled<__nv_bfloat16>(
         round, static_cast<const __nv_bfloat16*>(points), norms,
         static_cast<const __nv_bfloat16*>(cents), weights, labels, md,
-        tile_acc, sums, counts, stats, cn_g, batch, n, d, k, block_n, cols,
-        kchunk, s);
+        tile_acc, sums, counts, stats, cn_g, batch, n, d, k, block_n, kchunk,
+        s);
   return launch_untiled<float>(round, static_cast<const float*>(points),
                                norms, static_cast<const float*>(cents),
                                weights, labels, md, tile_acc, sums, counts,
-                               stats, cn_g, batch, n, d, k, block_n, cols,
-                               kchunk, s);
+                               stats, cn_g, batch, n, d, k, block_n, kchunk,
+                               s);
 }
 
 }  // namespace
 
 // Every entry point takes `bf16`: 0 for fp32 points and cents, 1 for the
 // bf16 stream (both of one type; norms, weights and all else fp32). The
-// rounds' entries take `kchunk` after `cols`: kchunk > 0 caps pass B's
-// centroids a block (a test hook: the bits do not depend on it; 0, which
-// the engine passes, is pass B's own choice, screen::reduce_k_chunk);
-// `cols` is the template's columns a pass, read only where the route is
-// the template. On the screened route they take cn_scratch, (B, k) floats
-// (B = 1 for one problem), where pass A writes every centroid's norm past
-// k = 256 (not read at k <= 256).
+// rounds' entries take `kchunk`: kchunk > 0 caps pass B's centroids a block
+// (a test hook: the bits do not depend on it; 0, which the engine passes,
+// is pass B's own choice, screen::reduce_k_chunk); the template entries
+// take `cols`, the template's columns a pass, instead. On the screened
+// route the rounds take cn_scratch, (B, k) floats (B = 1 for one problem),
+// where pass A writes every centroid's norm past k = 256 (not read at
+// k <= 256).
 
 // The card route of assignment round `round` (0 K3, 1 K6, 2 K4, 3 K10a,
-// 4 K10b, 5 K9) at width d on the stream (bf16 != 0: bf16): 0 the
-// template, 1 the screened route, 2 the row pass (K3, K4), 3 K6's split row
-// pass. *max_k gets the most centroids the route takes, -1 for the
-// template (what its whole (k, d) block fits beside the caller's `cols`).
+// 4 K10b, 5 K9) at width d on the stream (bf16 != 0: bf16): 1 the screened
+// route, 2 the row pass (K3, K4, K9, K10a), 3 the split row pass (K6,
+// K10b); 0, the template, is no round's. *max_k gets the most centroids
+// the route takes.
 extern "C" int lloyd_assign_route(int round, int d, int bf16, int* max_k) {
   const Route r = route_of(round, d, bf16 != 0);
   *max_k = route_max_k(r, d);
@@ -2712,26 +2819,26 @@ extern "C" int lloyd_assign_route(int round, int d, int bf16, int* max_k) {
 }
 
 // One tiled assignment round (K3) on `stream`, by lloyd_assign_route;
-// returns the first CUDA error. lb_scratch (n,) floats is required off the
-// template, stats (4) as K10a's on the screened route.
+// returns the first CUDA error. lb_scratch (n,) floats is required, stats
+// (4) as K10a's on the screened route.
 extern "C" int lloyd_assign_tiled_launch(
     const void* points, const float* norms, const void* cents, int* labels,
     float* md, float* partials, float* gaps, float* tile_acc, float* ssums,
     float* scounts, float* lb_scratch, unsigned long long* stats,
-    float* cn_scratch, int n, int d, int k, int block_n, int tps, int cols,
-    int kchunk, int bf16, void* stream) {
+    float* cn_scratch, int n, int d, int k, int block_n, int tps, int kchunk,
+    int bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch_tiled<__nv_bfloat16>(
         static_cast<const __nv_bfloat16*>(points), norms,
         static_cast<const __nv_bfloat16*>(cents), labels, md, lb_scratch,
         partials, gaps, tile_acc, ssums, scounts, stats, cn_scratch, n, d, k,
-        block_n, tps, cols, kchunk, s);
+        block_n, tps, kchunk, s);
   return launch_tiled<float>(static_cast<const float*>(points), norms,
                              static_cast<const float*>(cents), labels, md,
                              lb_scratch, partials, gaps, tile_acc, ssums,
                              scounts, stats, cn_scratch, n, d, k, block_n,
-                             tps, cols, kchunk, s);
+                             tps, kchunk, s);
 }
 
 // The template's ungated instance (assign_tile_kernel, then
@@ -2755,22 +2862,21 @@ extern "C" int lloyd_assign_tiled_template_launch(
 // problem axis: points (batch, n, d), cents (batch, k, d), labels / md
 // (batch, n), partials / gaps (batch, n_tiles), tile_acc
 // (batch, n_tiles, k, d + 1), ssums (batch, n_super, k, d), scounts
-// (batch, n_super, k). On the screened route lb_scratch (batch, n) floats,
-// cn_scratch (batch, k) floats and stats (4) unsigned 64-bit counters
-// (screened rows, their candidates, the most of one row, rows on the full
-// scan; added to, the caller zeroes them) are required; elsewhere they are
-// not read.
+// (batch, n_super, k). lb_scratch (batch, n) floats is required; on the
+// screened route cn_scratch (batch, k) floats and stats (4) unsigned 64-bit
+// counters (screened rows, their candidates, the most of one row, rows on
+// the full scan; added to, the caller zeroes them) are too; elsewhere they
+// are not read.
 extern "C" int lloyd_assign_tiled_batched_launch(
     const void* points, const float* norms, const void* cents, int* labels,
     float* md, float* partials, float* gaps, float* tile_acc, float* ssums,
     float* scounts, float* lb_scratch, unsigned long long* stats,
     float* cn_scratch, int batch, int n, int d, int k, int block_n, int tps,
-    int cols, int kchunk, int bf16, void* stream) {
+    int kchunk, int bf16, void* stream) {
   return dispatch_batched<false>(points, norms, cents, labels, md,
                                  lb_scratch, partials, gaps, tile_acc, ssums,
                                  scounts, Gate{}, stats, cn_scratch, batch, n,
-                                 d, k, block_n, tps, cols, kchunk, bf16,
-                                 stream);
+                                 d, k, block_n, tps, kchunk, bf16, stream);
 }
 
 // 1 where K6, K10a, K10b, K3, K4 and K9 take the screened route for width d
@@ -2819,11 +2925,11 @@ extern "C" int lloyd_assign_gated_launch(
     return launch_split<__nv_bfloat16>(
         static_cast<const __nv_bfloat16*>(points), norms,
         static_cast<const __nv_bfloat16*>(cents), labels, md, partials, gaps,
-        tile_acc, ssums, scounts, g, n, d, k, block_n, tps, kchunk, s);
+        tile_acc, ssums, scounts, g, 1, n, d, k, block_n, tps, kchunk, s);
   return launch_split<float>(static_cast<const float*>(points), norms,
                              static_cast<const float*>(cents), labels, md,
-                             partials, gaps, tile_acc, ssums, scounts, g, n,
-                             d, k, block_n, tps, kchunk, s);
+                             partials, gaps, tile_acc, ssums, scounts, g, 1,
+                             n, d, k, block_n, tps, kchunk, s);
 }
 
 // The template's gated instance (assign_tile_kernel, as K6 ran before the
@@ -2857,7 +2963,8 @@ extern "C" int lloyd_assign_gated_template_launch(
 // prev_scounts of the outputs' shapes. As for K6, every output is written
 // (a skipped tile or super copying the carries), pruned must be zeros and
 // `active` must be super-aligned in every problem. stats and cn_scratch as
-// K10a's (required on the screened route).
+// K10a's (required on the screened route). Off it, K6's split row pass with
+// a problem index.
 extern "C" int lloyd_assign_gated_batched_launch(
     const void* points, const float* norms, const void* cents,
     const float* delta, const float* thresh, const float* absorb,
@@ -2868,20 +2975,20 @@ extern "C" int lloyd_assign_gated_batched_launch(
     float* partials, float* gaps, float* tile_acc, float* ssums,
     float* scounts, int* pruned, unsigned long long* stats,
     float* cn_scratch, int batch, int n, int d, int k, int block_n, int tps,
-    int cols, int kchunk, int bf16, void* stream) {
+    int kchunk, int bf16, void* stream) {
   const Gate g{delta,  thresh, absorb,        prev_a,    prev_md,
                prev_lb, active, lb,           pruned,    prev_partials,
                prev_gaps, prev_ssums, prev_scounts};
   return dispatch_batched<true>(points, norms, cents, labels, md, nullptr,
                                 partials, gaps, tile_acc, ssums, scounts, g,
                                 stats, cn_scratch, batch, n, d, k, block_n,
-                                tps, cols, kchunk, bf16, stream);
+                                tps, kchunk, bf16, stream);
 }
 
 // One untiled assignment round (K4) on `stream`, by lloyd_assign_route: the
 // screened route (stats (4) as K10a's and cn_scratch (k,) required there)
-// or the row pass, each then pass B and the all-tile reduce; else the
-// template. Returns the first CUDA error. `weights` (n,) may be null
+// or the row pass, each then pass B and the all-tile reduce. Returns the
+// first CUDA error. `weights` (n,) may be null
 // (every row weighs 1). sums (k, d) and counts (k,) are over all rows;
 // tile_acc is (n_tiles, k, d + 1) scratch.
 extern "C" int lloyd_assign_launch(const void* points, const float* norms,
@@ -2890,16 +2997,17 @@ extern "C" int lloyd_assign_launch(const void* points, const float* norms,
                                    float* sums, float* counts,
                                    unsigned long long* stats,
                                    float* cn_scratch, int n, int d, int k,
-                                   int block_n, int cols, int kchunk,
-                                   int bf16, void* stream) {
+                                   int block_n, int kchunk, int bf16,
+                                   void* stream) {
   return dispatch_untiled(kK4, points, norms, cents, weights, labels, md,
                           tile_acc, sums, counts, stats, cn_scratch, 1, n, d,
-                          k, block_n, cols, kchunk, bf16, stream);
+                          k, block_n, kchunk, bf16, stream);
 }
 
 // One untiled assignment round of `batch` problems (K9) on `stream`, by
 // lloyd_assign_route: the screened route (stats and cn_scratch (batch, k)
-// required), else the template. Returns the first CUDA error. Every array
+// required), else the row pass with a problem index; each then pass B and
+// the all-tile reduce. Returns the first CUDA error. Every array
 // carries a leading problem axis: points (batch, n, d), norms / labels /
 // md (batch, n), cents and sums (batch, k, d), counts (batch, k), tile_acc
 // (batch, n_tiles, k, d + 1).
@@ -2907,10 +3015,10 @@ extern "C" int lloyd_assign_batched_launch(
     const void* points, const float* norms, const void* cents, int* labels,
     float* md, float* tile_acc, float* sums, float* counts,
     unsigned long long* stats, float* cn_scratch, int batch, int n, int d,
-    int k, int block_n, int cols, int kchunk, int bf16, void* stream) {
+    int k, int block_n, int kchunk, int bf16, void* stream) {
   return dispatch_untiled(kK9, points, norms, cents, nullptr, labels, md,
                           tile_acc, sums, counts, stats, cn_scratch, batch, n,
-                          d, k, block_n, cols, kchunk, bf16, stream);
+                          d, k, block_n, kchunk, bf16, stream);
 }
 
 // The template's untiled instance (assign_tile_kernel with Untiled = true,

@@ -26,7 +26,9 @@ K2 on the tiles the seeding gate marks active only, skips the rows the
 per-point bound prunes, and also returns each tile's max of new_md and its
 count of pruned rows; inactive tiles keep their carried values. K8 is K5
 over B problems in one launch, each with its own gate, row b K5 on problem
-b.
+b. At d >= 8, K2 and K7 run K5's row loop with every tile active and no
+prune (the same bits as their template body, which ``*_template`` keeps
+reachable for the card tests).
 
 Rejection seeding (K11, K12) works between refreshes against the pending
 block of P centroids not yet folded in, of which the first ``count`` are
@@ -62,10 +64,14 @@ from repro_torch.kernels import _build, ops
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 _BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7
                      + (ctypes.c_void_p,))
-_GATED_ARGTYPES = ((ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 6
+# K5 and K8 take the carried partials and tile maxima; the template entry
+# (outputs pre-filled with the carries) does not
+_GATED_ARGTYPES = ((ctypes.c_void_p,) * 14 + (ctypes.c_int,) * 6
                    + (ctypes.c_void_p,))
-_GATED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 7
+_GATED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 14 + (ctypes.c_int,) * 7
                            + (ctypes.c_void_p,))
+_GATED_TEMPLATE_ARGTYPES = ((ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 6
+                            + (ctypes.c_void_p,))
 _PROLOGUE_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3
                       + (ctypes.c_void_p,))
 _PROLOGUE_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4
@@ -255,15 +261,34 @@ def _check(points, norms, centroids, min_d2, block_n):
     ops.stream_is_bf16(points, centroids)
 
 
+def _check_batched(points, norms, centroids, min_d2, block_n):
+    if points.dim() != 3 or centroids.dim() != 3:
+        raise ValueError("points and centroids must be 3-D (B, rows, d)")
+    bsz = points.shape[0]
+    if centroids.shape[0] != bsz or norms.shape[:1] != (bsz,) \
+            or min_d2.shape[:1] != (bsz,) or bsz < 1:
+        raise ValueError(f"problem counts differ: points "
+                         f"{tuple(points.shape)}, centroids "
+                         f"{tuple(centroids.shape)}, norms "
+                         f"{tuple(norms.shape)}, min_d2 {tuple(min_d2.shape)}")
+    _check(points[0], norms[0], centroids[0], min_d2[0], block_n)
+    devs = {t.device for t in (points, norms, centroids, min_d2)}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {devs}")
+
+
 def distance_min_update(points: torch.Tensor, norms: torch.Tensor,
                         centroids: torch.Tensor, min_d2: torch.Tensor, *,
                         block_n: int, resident: bool = True):
     """One seeding round. Returns (new_min_d2 (n,), partials (n_tiles,)).
 
     On the card this launches K2: ``resident`` stages the centroid block in
-    shared memory (the paper's constant memory), ``resident=False`` re-reads
-    it from global memory on every use (Fig. 2's global-memory variant).
-    CPU tensors take the plain twin."""
+    shared memory (the paper's constant memory; in chunks of what fits, so
+    any m), ``resident=False`` re-reads it from global memory on every use
+    (Fig. 2's global-memory variant); both give the same bits. At d >= 8 it
+    is K5's row loop, ungated, below the template body: bitwise
+    :func:`distance_min_update_template` either way. CPU tensors take the
+    plain twin."""
     _check(points, norms, centroids, min_d2, block_n)
     if points.device.type == "cpu":
         return distance_min_update_torch(points, norms, centroids, min_d2,
@@ -274,9 +299,6 @@ def distance_min_update(points: torch.Tensor, norms: torch.Tensor,
                                    min_d2=min_d2)
     n, d = points.shape
     m = centroids.shape[0]
-    if ops.seed_smem_bytes(d, m, resident) > ops.SMEM_LIMIT:
-        raise ValueError(f"a resident ({m}, {d}) centroid block does not fit "
-                         f"in {ops.SMEM_LIMIT} bytes of shared memory")
     fn = _build.function("kmeans_distance", "distance_min_update_launch",
                          _ARGTYPES)
     out = torch.empty_like(min_d2)
@@ -302,19 +324,8 @@ def distance_min_update_batched(points: torch.Tensor, norms: torch.Tensor,
     partials (B, n_tiles)). On the card this launches K7, one launch for
     every problem, ``resident`` as for K2; CPU tensors take the plain
     twin."""
-    if points.dim() != 3 or centroids.dim() != 3:
-        raise ValueError("points and centroids must be 3-D (B, rows, d)")
+    _check_batched(points, norms, centroids, min_d2, block_n)
     bsz = points.shape[0]
-    if centroids.shape[0] != bsz or norms.shape[:1] != (bsz,) \
-            or min_d2.shape[:1] != (bsz,) or bsz < 1:
-        raise ValueError(f"problem counts differ: points "
-                         f"{tuple(points.shape)}, centroids "
-                         f"{tuple(centroids.shape)}, norms "
-                         f"{tuple(norms.shape)}, min_d2 {tuple(min_d2.shape)}")
-    _check(points[0], norms[0], centroids[0], min_d2[0], block_n)
-    devs = {t.device for t in (points, norms, centroids, min_d2)}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on several devices: {devs}")
     if points.device.type == "cpu":
         return distance_min_update_batched_torch(points, norms, centroids,
                                                  min_d2, block_n=block_n)
@@ -324,9 +335,6 @@ def distance_min_update_batched(points: torch.Tensor, norms: torch.Tensor,
                                    min_d2=min_d2)
     _, n, d = points.shape
     m = centroids.shape[1]
-    if ops.seed_smem_bytes(d, m, resident) > ops.SMEM_LIMIT:
-        raise ValueError(f"a resident ({m}, {d}) centroid block does not fit "
-                         f"in {ops.SMEM_LIMIT} bytes of shared memory")
     n_tiles = -(-n // block_n)
     if bsz * n_tiles >= 2 ** 31:
         raise ValueError(f"{bsz} problems of {n_tiles} tiles exceed the "
@@ -349,6 +357,83 @@ def distance_min_update_batched(points: torch.Tensor, norms: torch.Tensor,
     return out, partials
 
 
+def distance_min_update_template(points: torch.Tensor, norms: torch.Tensor,
+                                 centroids: torch.Tensor,
+                                 min_d2: torch.Tensor, *, block_n: int,
+                                 resident: bool = True):
+    """K2 ((n, d) points) or K7 ((B, n, d)) as the template body computes
+    them at every width (their kernel before K5's row loop took d >= 8):
+    the arguments and returns of :func:`distance_min_update` and
+    :func:`distance_min_update_batched`. The reference the card tests and
+    the smoke script hold K2 and K7 to, bit for bit; the engine never calls
+    it. Counts no launch; CPU tensors take the plain twin."""
+    batched = points.dim() == 3
+    if batched:
+        _check_batched(points, norms, centroids, min_d2, block_n)
+    else:
+        _check(points, norms, centroids, min_d2, block_n)
+    if points.device.type == "cpu":
+        plain = (distance_min_update_batched_torch if batched
+                 else distance_min_update_torch)
+        return plain(points, norms, centroids, min_d2, block_n=block_n)
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    bf16 = ops.check_round_tensors(points, centroids, norms=norms,
+                                   min_d2=min_d2)
+    n, d = points.shape[-2:]
+    fn = _build.function("kmeans_distance",
+                         "distance_min_update_template_launch",
+                         _BATCHED_ARGTYPES)
+    out = torch.empty_like(min_d2)
+    partials = torch.empty(points.shape[:-2] + (-(-n // block_n),),
+                           dtype=torch.float32, device=points.device)
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
+                 min_d2.data_ptr(), out.data_ptr(), partials.data_ptr(),
+                 points.shape[0] if batched else 1, n, d,
+                 centroids.shape[-2], block_n, int(resident), int(bf16),
+                 stream)
+    if err != 0:
+        raise KernelFailureError(f"distance_min_update_template launch "
+                                 f"failed: cudaError {err}")
+    return out, partials
+
+
+def _check_gated(points, norms, centroids, min_d2, center_d, dc, margin,
+                 prev_partials, prev_tile_max, active, block_n):
+    """The gated rounds' shape checks, on (n, d) points (K5) or (B, n, d)
+    points with (B, m, d) centroids (K8)."""
+    if points.dim() != centroids.dim() or points.dim() not in (2, 3):
+        raise ValueError("points and centroids must both be 2-D (K5) or "
+                         "3-D (B, rows, d) (K8)")
+    lead = tuple(points.shape[:-2])
+    one = (lambda t: t) if not lead else (lambda t: t[0])
+    _check(one(points), one(norms), one(centroids), one(min_d2), block_n)
+    n, d = points.shape[-2:]
+    m = centroids.shape[-2]
+    n_tiles = -(-n // block_n)
+    args = (points, norms, centroids, min_d2, center_d, dc, margin,
+            prev_partials, prev_tile_max, active)
+    want = ((n, d), (n,), (m, d), (n,), (n,)) + ((n_tiles,),) * 5
+    for name, t, shape in zip(("points", "norms", "centroids", "min_d2",
+                               "center_d", "dc", "margin", "prev_partials",
+                               "prev_tile_max", "active"), args, want):
+        if tuple(t.shape) != lead + shape:
+            raise ValueError(f"{name} {tuple(t.shape)} must be "
+                             f"{lead + shape}")
+    if len({t.device for t in args}) != 1:
+        raise ValueError("inputs on several devices")
+
+
+def _mask_bytes(active: torch.Tensor) -> torch.Tensor:
+    """The mask as the kernels read it, one byte a tile: a contiguous bool
+    mask's own bytes (no copy), any other mask converted."""
+    if active.dtype == torch.bool and active.is_contiguous():
+        return active.view(torch.uint8)
+    return active.to(torch.uint8).contiguous()
+
+
 def distance_min_update_gated(points: torch.Tensor, norms: torch.Tensor,
                               centroids: torch.Tensor, min_d2: torch.Tensor,
                               center_d: torch.Tensor, dc: torch.Tensor,
@@ -356,56 +441,28 @@ def distance_min_update_gated(points: torch.Tensor, norms: torch.Tensor,
                               prev_partials: torch.Tensor,
                               prev_tile_max: torch.Tensor,
                               active: torch.Tensor, *, block_n: int,
-                              resident: bool = True):
+                              resident: bool = True, inplace: bool = False):
     """One bound-gated seeding round. ``active``/``dc``/``margin`` come from
     ``bounds.seed_gate``, ``center_d`` from the prologue; ``prev_partials``
     and ``prev_tile_max`` are the carried per-tile state, at the tile height
     ``block_n``. Returns (min_d2 (n,), partials (T,), tile_max (T,),
     pruned (T,) int32). On the card this launches K5 over the full grid of
-    tiles (inactive ones exit); the outputs start as copies of the carries,
-    so skipped tiles keep them. CPU tensors take the plain twin."""
-    _check(points, norms, centroids, min_d2, block_n)
-    n = points.shape[0]
-    n_tiles = -(-n // block_n)
-    if tuple(center_d.shape) != (n,):
-        raise ValueError(f"center_d {tuple(center_d.shape)} must be ({n},)")
-    for name, t in (("dc", dc), ("margin", margin),
-                    ("prev_partials", prev_partials),
-                    ("prev_tile_max", prev_tile_max), ("active", active)):
-        if tuple(t.shape) != (n_tiles,):
-            raise ValueError(f"{name} {tuple(t.shape)} must be ({n_tiles},)")
+    tiles, which writes every output (a skipped tile its carries), so no
+    carry is copied here; ``inplace`` writes the new D² into ``min_d2``
+    itself (the TPU kernel's aliasing), for a caller that never reads the
+    old carry again. CPU tensors take the plain twin (a new tensor either
+    way)."""
+    _check_gated(points, norms, centroids, min_d2, center_d, dc, margin,
+                 prev_partials, prev_tile_max, active, block_n)
+    if points.dim() != 2:
+        raise ValueError("points and centroids must be 2-D")
     if points.device.type == "cpu":
         return distance_min_update_gated_torch(
             points, norms, centroids, min_d2, center_d, dc, margin,
             prev_partials, prev_tile_max, active, block_n=block_n)
-    if points.device.type != "cuda":
-        raise ValueError(f"unsupported device {points.device}")
-    bf16 = ops.check_round_tensors(points, centroids, norms=norms,
-                                   min_d2=min_d2, center_d=center_d, dc=dc,
-                                   margin=margin)
-    m, d = centroids.shape
-    if ops.seed_smem_bytes(d, m, resident, gated=True) > ops.SMEM_LIMIT:
-        raise ValueError(f"a resident ({m}, {d}) centroid block does not fit "
-                         f"in {ops.SMEM_LIMIT} bytes of shared memory")
-    fn = _build.function("kmeans_distance",
-                         "distance_min_update_gated_launch", _GATED_ARGTYPES)
-    out = min_d2.clone()
-    partials = prev_partials.float().clone()
-    tile_max = prev_tile_max.float().clone()
-    pruned = torch.zeros(n_tiles, dtype=torch.int32, device=points.device)
-    act = active.to(torch.uint8).contiguous()
-    with torch.cuda.device(points.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
-                 min_d2.data_ptr(), out.data_ptr(), partials.data_ptr(),
-                 center_d.data_ptr(), dc.data_ptr(), margin.data_ptr(),
-                 act.data_ptr(), tile_max.data_ptr(), pruned.data_ptr(),
-                 n, d, m, block_n, int(resident), int(bf16), stream)
-    if err != 0:
-        raise KernelFailureError(f"distance_min_update_gated launch failed: "
-                                 f"cudaError {err}")
-    ops.count_launch("distance_min_update_gated", bf16)
-    return out, partials, tile_max, pruned
+    return _gated_launch(points, norms, centroids, min_d2, center_d, dc,
+                         margin, prev_partials, prev_tile_max, active,
+                         block_n=block_n, resident=resident, inplace=inplace)
 
 
 def distance_min_update_gated_batched(points: torch.Tensor,
@@ -417,53 +474,113 @@ def distance_min_update_gated_batched(points: torch.Tensor,
                                       prev_partials: torch.Tensor,
                                       prev_tile_max: torch.Tensor,
                                       active: torch.Tensor, *, block_n: int,
-                                      resident: bool = True):
+                                      resident: bool = True,
+                                      inplace: bool = False):
     """One bound-gated seeding round of B independent problems: the
     arguments of ``distance_min_update_gated`` with a leading problem axis
     (points (B, n, d), centroids (B, m, d), norms, min_d2 and center_d
     (B, n), dc, margin, the carries and ``active`` (B, T)), each problem
     gated by its own mask. Returns (min_d2 (B, n), partials (B, T),
     tile_max (B, T), pruned (B, T) int32). On the card this launches K8,
-    one launch over every problem's tiles (inactive ones exit); the outputs
-    start as copies of the carries. CPU tensors take the plain twin."""
-    if points.dim() != 3 or centroids.dim() != 3:
+    one launch over every problem's tiles, which writes every output as K5
+    does (``inplace`` as K5's); row b is K5 on problem b, bitwise. CPU
+    tensors take the plain twin."""
+    _check_gated(points, norms, centroids, min_d2, center_d, dc, margin,
+                 prev_partials, prev_tile_max, active, block_n)
+    if points.dim() != 3:
         raise ValueError("points and centroids must be 3-D (B, rows, d)")
-    _check(points[0], norms[0], centroids[0], min_d2[0], block_n)
-    bsz, n, d = points.shape
-    m = centroids.shape[1]
-    n_tiles = -(-n // block_n)
-    args = (points, norms, centroids, min_d2, center_d, dc, margin,
-            prev_partials, prev_tile_max, active)
-    want = ((bsz, n, d), (bsz, n), (bsz, m, d), (bsz, n), (bsz, n)) \
-        + ((bsz, n_tiles),) * 5
-    for name, t, shape in zip(("points", "norms", "centroids", "min_d2",
-                               "center_d", "dc", "margin", "prev_partials",
-                               "prev_tile_max", "active"), args, want):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} {tuple(t.shape)} must be {shape}")
-    if len({t.device for t in args}) != 1:
-        raise ValueError("inputs on several devices")
     if points.device.type == "cpu":
-        return distance_min_update_gated_batched_torch(*args,
-                                                       block_n=block_n)
+        return distance_min_update_gated_batched_torch(
+            points, norms, centroids, min_d2, center_d, dc, margin,
+            prev_partials, prev_tile_max, active, block_n=block_n)
+    bsz = points.shape[0]
+    if bsz * -(-points.shape[1] // block_n) >= 2 ** 31:
+        raise ValueError(f"{bsz} problems of {-(-points.shape[1] // block_n)}"
+                         " tiles exceed the grid's 2^31 - 1 blocks")
+    return _gated_launch(points, norms, centroids, min_d2, center_d, dc,
+                         margin, prev_partials, prev_tile_max, active,
+                         block_n=block_n, resident=resident, inplace=inplace)
+
+
+def _gated_launch(points, norms, centroids, min_d2, center_d, dc, margin,
+                  prev_partials, prev_tile_max, active, *, block_n: int,
+                  resident: bool, inplace: bool):
+    """K5 ((n, d) points) or K8 ((B, n, d)) on the card: the outputs
+    allocated empty (``min_d2`` itself where ``inplace``), the carries and
+    the mask's bytes passed as they are."""
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    prev_partials, prev_tile_max = (t.float().contiguous()
+                                    for t in (prev_partials, prev_tile_max))
+    bf16 = ops.check_round_tensors(points, centroids, norms=norms,
+                                   min_d2=min_d2, center_d=center_d, dc=dc,
+                                   margin=margin)
+    batched = points.dim() == 3
+    n, d = points.shape[-2:]
+    m = centroids.shape[-2]
+    name = ("distance_min_update_gated_batched" if batched
+            else "distance_min_update_gated")
+    fn = _build.function("kmeans_distance", f"{name}_launch",
+                         _GATED_BATCHED_ARGTYPES if batched
+                         else _GATED_ARGTYPES)
+    out = min_d2 if inplace else torch.empty_like(min_d2)
+    partials = torch.empty_like(prev_partials)
+    tile_max = torch.empty_like(prev_tile_max)
+    pruned = torch.empty(prev_partials.shape, dtype=torch.int32,
+                         device=points.device)
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
+                 min_d2.data_ptr(), out.data_ptr(), partials.data_ptr(),
+                 center_d.data_ptr(), dc.data_ptr(), margin.data_ptr(),
+                 _mask_bytes(active).data_ptr(), prev_partials.data_ptr(),
+                 prev_tile_max.data_ptr(), tile_max.data_ptr(),
+                 pruned.data_ptr(), *points.shape[:-2], n, d, m, block_n,
+                 int(resident), int(bf16), stream)
+    if err != 0:
+        raise KernelFailureError(f"{name} launch failed: cudaError {err}")
+    ops.count_launch(name, bf16)
+    return out, partials, tile_max, pruned
+
+
+def distance_min_update_gated_template(points: torch.Tensor,
+                                       norms: torch.Tensor,
+                                       centroids: torch.Tensor,
+                                       min_d2: torch.Tensor,
+                                       center_d: torch.Tensor,
+                                       dc: torch.Tensor, margin: torch.Tensor,
+                                       prev_partials: torch.Tensor,
+                                       prev_tile_max: torch.Tensor,
+                                       active: torch.Tensor, *, block_n: int,
+                                       resident: bool = True):
+    """K5 as the template kernel computes it (``distance_min_update_kernel``'s
+    gated instance, K5's kernel before this redesign: its outputs start as
+    copies of the carries, which a skipped tile leaves): the arguments and
+    returns of :func:`distance_min_update_gated`. The reference the card
+    tests and the smoke script hold K5 to, bit for bit; the engine never
+    calls it, and it counts no launch. CPU tensors take the plain twin."""
+    _check_gated(points, norms, centroids, min_d2, center_d, dc, margin,
+                 prev_partials, prev_tile_max, active, block_n)
+    if points.dim() != 2:
+        raise ValueError("points and centroids must be 2-D")
+    if points.device.type == "cpu":
+        return distance_min_update_gated_torch(
+            points, norms, centroids, min_d2, center_d, dc, margin,
+            prev_partials, prev_tile_max, active, block_n=block_n)
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
     bf16 = ops.check_round_tensors(points, centroids, norms=norms,
                                    min_d2=min_d2, center_d=center_d, dc=dc,
                                    margin=margin)
-    if ops.seed_smem_bytes(d, m, resident, gated=True) > ops.SMEM_LIMIT:
-        raise ValueError(f"a resident ({m}, {d}) centroid block does not fit "
-                         f"in {ops.SMEM_LIMIT} bytes of shared memory")
-    if bsz * n_tiles >= 2 ** 31:
-        raise ValueError(f"{bsz} problems of {n_tiles} tiles exceed the "
-                         "grid's 2^31 - 1 blocks")
+    n, d = points.shape
+    m = centroids.shape[0]
     fn = _build.function("kmeans_distance",
-                         "distance_min_update_gated_batched_launch",
-                         _GATED_BATCHED_ARGTYPES)
+                         "distance_min_update_gated_template_launch",
+                         _GATED_TEMPLATE_ARGTYPES)
     out = min_d2.clone()
-    partials = prev_partials.float().contiguous().clone()
-    tile_max = prev_tile_max.float().contiguous().clone()
-    pruned = torch.zeros((bsz, n_tiles), dtype=torch.int32,
+    partials = prev_partials.float().clone()
+    tile_max = prev_tile_max.float().clone()
+    pruned = torch.zeros(partials.shape, dtype=torch.int32,
                          device=points.device)
     act = active.to(torch.uint8).contiguous()
     with torch.cuda.device(points.device):
@@ -472,11 +589,10 @@ def distance_min_update_gated_batched(points: torch.Tensor,
                  min_d2.data_ptr(), out.data_ptr(), partials.data_ptr(),
                  center_d.data_ptr(), dc.data_ptr(), margin.data_ptr(),
                  act.data_ptr(), tile_max.data_ptr(), pruned.data_ptr(),
-                 bsz, n, d, m, block_n, int(resident), int(bf16), stream)
+                 n, d, m, block_n, int(resident), int(bf16), stream)
     if err != 0:
-        raise KernelFailureError(f"distance_min_update_gated_batched launch "
+        raise KernelFailureError(f"distance_min_update_gated_template launch "
                                  f"failed: cudaError {err}")
-    ops.count_launch("distance_min_update_gated_batched", bf16)
     return out, partials, tile_max, pruned
 
 

@@ -16,12 +16,12 @@ centroid update and the next slice's movement bound need:
     scounts (S, k)      per-super-tile cluster counts
 
 On the card K3 runs, by width, on a tensor-core screen with an exact
-recheck (d >= 8, ``screened``) or below d = 8 on a row pass (labels, D² and
-the second best of a few consecutive rows a thread), each then the tiles'
-partials, gaps and sums in the template's order; past the screened widths
-it keeps the template kernel, whose bits the other routes give and which
-``lloyd_assign_tiled_template`` computes for the card tests and the smoke
-script.
+recheck (d >= 8, ``screened``) or at every other width on a row pass
+(labels, D² and the second best: a few consecutive rows a thread below
+d = 8, one a thread past the screened widths), each then the tiles'
+partials, gaps and sums in the template's order. Both give the template
+kernel's bits, which ``lloyd_assign_tiled_template`` computes for the card
+tests and the smoke script.
 
 The gated round (K6) computes the same on a super-aligned set of active
 tiles only, short-circuits the rows the per-point Hamerly bound prunes, and
@@ -39,17 +39,17 @@ in one launch, every argument and output with a leading problem axis and
 every problem gated by its own mask; row b is K3 (K6) on problem b,
 bitwise. At d >= 8 (``screened``) the card runs them on the same screen,
 which writes K3's (K6's) bits; its counters (candidates per row, rows on
-the full scan) are read with ``screen_stats``.
+the full scan) are read with ``screen_stats``. At every other width they
+take K3's row pass (K6's split row pass) with a problem index.
 
 The untiled round (K4), the weighted and mini-batch fits' round, returns
 only labels and D² per row and the cluster sums (k, d) and counts (k,)
 over all rows; with per-row weights, each row enters the sums as w·x and
 its count as w. K9 is K4 over B problems, row b K4 on problem b. On the
-card K4 and K9 run, by width, on the same screen (d >= 8, ``screened``),
-K4 at d = 2 on a row pass (the labels and D² of a few consecutive rows a
-thread), each then the tiles' sums in the template's order and the
-all-tile reduce; every other width takes the template. Both give the
-template kernel's bits, which ``lloyd_assign_template`` and
+card K4 and K9 run, by width, on the same screen (d >= 8, ``screened``)
+or at every other width on K3's row pass without the second best, each
+then the tiles' sums in the template's order and the all-tile reduce. Both
+give the template kernel's bits, which ``lloyd_assign_template`` and
 ``lloyd_assign_batched_template`` compute for the card tests and the
 smoke script.
 
@@ -68,9 +68,10 @@ hand-written CUDA kernels (``csrc/lloyd_assign.cu``) for tensors on the
 card, and run the plain twins (``*_torch``) only for tensors on the CPU.
 Before a launch they ask the CUDA source for their route and its largest k
 (``lloyd_assign_route``: the screened route up to 65,535 centroids, the row
-passes any k, the template what its whole (k, d) staging fits,
-``ops.template_max_k``) and raise ValueError naming the route's largest k
-where it does not take k.
+passes any k) and raise ValueError naming the route's largest k where it
+does not take k. No round takes the template; its entries, which stage the
+whole (k, d) block, raise past what that staging fits
+(``ops.template_max_k``).
 """
 from __future__ import annotations
 
@@ -86,29 +87,29 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels.kmeans_distance import tile_d2
 
 # the last int is the stream flag (1: bf16 points and centroids); the
-# rounds' entries take pass B's k-chunk cap (``k_chunk``) before it, and on
-# the screened route an (n,) lb scratch (K3, K10a), the screen's counters
-# and a (B, k) scratch for the centroids' norms; the template entries take
-# the template's columns a pass (``cols``) there instead
+# rounds' entries take pass B's k-chunk cap (``k_chunk``) before it, an
+# (n,) lb scratch (K3, K10a), and on the screened route the screen's
+# counters and a (B, k) scratch for the centroids' norms; the template
+# entries take the template's columns a pass (``cols``) there instead
 _PLAIN_TILED_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7
                          + (ctypes.c_void_p,))
-_TILED_ARGTYPES = ((ctypes.c_void_p,) * 13 + (ctypes.c_int,) * 8
+_TILED_ARGTYPES = ((ctypes.c_void_p,) * 13 + (ctypes.c_int,) * 7
                    + (ctypes.c_void_p,))
 _GATED_ARGTYPES = ((ctypes.c_void_p,) * 25 + (ctypes.c_int,) * 7
                    + (ctypes.c_void_p,))
 _PLAIN_GATED_ARGTYPES = ((ctypes.c_void_p,) * 23 + (ctypes.c_int,) * 7
                          + (ctypes.c_void_p,))
-_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 13 + (ctypes.c_int,) * 9
+_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 13 + (ctypes.c_int,) * 8
                      + (ctypes.c_void_p,))
-_GATED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 25 + (ctypes.c_int,) * 9
+_GATED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 25 + (ctypes.c_int,) * 8
                            + (ctypes.c_void_p,))
 # the screened route's counters of the last card launch of K3, K6, K10a,
 # K10b, K4 and K9: (4,) int64 on the card, read with ``screen_stats``
 SCREEN_STATS: dict[str, torch.Tensor] = {}
 # K4 and K9 (the template entries take no stats)
-_UNTILED_ARGTYPES = ((ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 7
+_UNTILED_ARGTYPES = ((ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 6
                      + (ctypes.c_void_p,))
-_UNTILED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 8
+_UNTILED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7
                              + (ctypes.c_void_p,))
 _PLAIN_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6
                    + (ctypes.c_void_p,))
@@ -284,12 +285,12 @@ _ROUTES = ("template", "screened", "row pass", "split")
 def _route(name: str, d: int, k: int, block_n: int, bf16: bool,
            k_chunk: int, template: bool = False,
            gated: bool = False) -> tuple[str, int]:
-    """Round ``name``'s card route (the template where ``template``) as the
-    CUDA source gives it (``lloyd_assign_route``), and the template's
-    columns a pass (0 off the template). Raises ValueError where the route
-    cannot take k, naming its largest k: the source's for the chunked
-    routes, ``ops.template_max_k`` for the template. ``k_chunk`` (>= 0)
-    caps pass B's centroids a block."""
+    """Round ``name``'s card route (the template where ``template``: the
+    template entries) as the CUDA source gives it (``lloyd_assign_route``),
+    and the template's columns a pass (0 off the template). Raises
+    ValueError where the route cannot take k, naming its largest k: the
+    source's for the rounds' routes, ``ops.template_max_k`` for the
+    template. ``k_chunk`` (>= 0) caps pass B's centroids a block."""
     if k_chunk < 0:
         raise ValueError(f"k_chunk must be >= 0, got {k_chunk}")
     route, most = "template", -1
@@ -354,9 +355,9 @@ def lloyd_assign_tiled(points: torch.Tensor, norms: torch.Tensor,
     super_sums, super_counts); ``tps`` consecutive tiles share one super-tile
     accumulator slot. On the card this launches K3 (its kernels count as
     one launch): on the screened route where ``screened(d, bf16)`` (its
-    counters read with ``screen_stats("lloyd_assign_tiled")``), below d = 8
-    on the row pass, each then pass B and the super reduce, else on the
-    template. ``k_chunk`` is a test hook, which the engine never sets: > 0
+    counters read with ``screen_stats("lloyd_assign_tiled")``), else on the
+    row pass, each then pass B and the super reduce, at any k up to the
+    route's. ``k_chunk`` is a test hook, which the engine never sets: > 0
     caps pass B's centroids a block, so that a card test can force its
     k-chunks (the bits do not depend on it). CPU tensors take the plain
     twin."""
@@ -412,15 +413,14 @@ def _tiled(points, norms, centroids, *, block_n: int, tps: int, k_chunk: int,
     else:
         fn = _build.function("lloyd_assign", "lloyd_assign_tiled_launch",
                              _TILED_ARGTYPES)
-        # sqrt(second) per row, read by pass B, off the template
-        lb = (torch.empty(n, dtype=torch.float32, device=dev)
-              if route != "template" else None)
+        # sqrt(second) per row, read by pass B
+        lb = torch.empty(n, dtype=torch.float32, device=dev)
         stats = (_stats("lloyd_assign_tiled", dev) if route == "screened"
                  else None)
         cn = _cn_scratch(route, 1, k, dev)
         extra = tuple(None if t is None else t.data_ptr()
                       for t in (lb, stats, cn))
-        ints = (n, d, k, block_n, tps, cols, k_chunk, int(bf16))
+        ints = (n, d, k, block_n, tps, k_chunk, int(bf16))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
@@ -442,8 +442,8 @@ def lloyd_assign_tiled_batched(points: torch.Tensor, norms: torch.Tensor,
     min_d2 (B, n), partials (B, T), gaps (B, T), super_sums (B, S, k, d),
     super_counts (B, S, k)). On the card this launches K10a (its kernels
     count as one launch) for every problem at once, on the screened route
-    where ``screened(d, bf16)`` (``k_chunk`` as K3's), else the template;
-    CPU tensors take the plain twin."""
+    where ``screened(d, bf16)``, else on K3's row pass with a problem index
+    (``k_chunk`` as K3's); CPU tensors take the plain twin."""
     if points.dim() != 3 or centroids.dim() != 3:
         raise ValueError("points and centroids must be 3-D (B, rows, d)")
     bsz = points.shape[0]
@@ -464,8 +464,8 @@ def lloyd_assign_tiled_batched(points: torch.Tensor, norms: torch.Tensor,
     bf16 = ops.check_round_tensors(points, centroids, norms=norms)
     _, n, d = points.shape
     k = centroids.shape[1]
-    route, cols = _route("lloyd_assign_tiled_batched", d, k, block_n, bf16,
-                         k_chunk)
+    route, _ = _route("lloyd_assign_tiled_batched", d, k, block_n, bf16,
+                      k_chunk)
     n_tiles = -(-n // block_n)
     n_super = -(-n_tiles // tps)
     if bsz * n_tiles >= 2 ** 31:
@@ -482,10 +482,9 @@ def lloyd_assign_tiled_batched(points: torch.Tensor, norms: torch.Tensor,
                            device=dev)
     ssums = torch.empty((bsz, n_super, k, d), dtype=torch.float32, device=dev)
     scounts = torch.empty((bsz, n_super, k), dtype=torch.float32, device=dev)
-    # the screened route's lb = sqrt(second) per row, read by its pass B
+    # lb = sqrt(second) per row, read by pass B
+    lb = torch.empty((bsz, n), dtype=torch.float32, device=dev)
     scr = route == "screened"
-    lb = torch.empty((bsz, n), dtype=torch.float32, device=dev) if scr \
-        else None
     stats = _stats("lloyd_assign_tiled_batched", dev) if scr else None
     cn = _cn_scratch(route, bsz, k, dev)
     with torch.cuda.device(dev):
@@ -493,10 +492,10 @@ def lloyd_assign_tiled_batched(points: torch.Tensor, norms: torch.Tensor,
         err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
                  labels.data_ptr(), md.data_ptr(), partials.data_ptr(),
                  gaps.data_ptr(), tile_acc.data_ptr(), ssums.data_ptr(),
-                 scounts.data_ptr(), lb.data_ptr() if scr else None,
+                 scounts.data_ptr(), lb.data_ptr(),
                  stats.data_ptr() if scr else None,
                  cn.data_ptr() if scr else None, bsz, n, d, k, block_n,
-                 tps, cols, k_chunk, int(bf16), stream)
+                 tps, k_chunk, int(bf16), stream)
     if err != 0:
         raise KernelFailureError(f"lloyd_assign_tiled_batched launch failed: "
                                  f"cudaError {err}")
@@ -644,9 +643,10 @@ def lloyd_assign_gated_batched(points: torch.Tensor, norms: torch.Tensor,
     Returns (labels, min_d2, lb (B, n), partials, gaps (B, T), super_sums
     (B, S, k, d), super_counts (B, S, k), pruned (B, T) int32). On the card
     this launches K10b (its kernels count as one launch) over every
-    problem's tiles, on the screened route where ``screened(d, bf16)``
-    (``k_chunk`` as K3's), else the template; the kernels write every output, a skipped tile or super copying its
-    carries. CPU tensors take the plain twin."""
+    problem's tiles, on the screened route where ``screened(d, bf16)``,
+    else on K6's split row pass with a problem index (``k_chunk`` as
+    K3's); the kernels write every output, a skipped tile or super copying
+    its carries. CPU tensors take the plain twin."""
     if points.dim() != 3 or centroids.dim() != 3:
         raise ValueError("points and centroids must be 3-D (B, rows, d)")
     bsz, n, d = points.shape
@@ -680,8 +680,8 @@ def lloyd_assign_gated_batched(points: torch.Tensor, norms: torch.Tensor,
         t.float().contiguous() for t in (prev_partials, prev_gaps,
                                          prev_super_sums, prev_super_counts))
     ops.check_card_tensors(torch.int32, prev_assign=prev_assign)
-    route, cols = _route("lloyd_assign_gated_batched", d, k, block_n, bf16,
-                         k_chunk, gated=True)
+    route, _ = _route("lloyd_assign_gated_batched", d, k, block_n, bf16,
+                      k_chunk, gated=True)
     n_tiles = -(-n // block_n)
     n_super = -(-n_tiles // tps)
     if bsz * n_tiles >= 2 ** 31:
@@ -718,7 +718,7 @@ def lloyd_assign_gated_batched(points: torch.Tensor, norms: torch.Tensor,
                  ssums.data_ptr(), scounts.data_ptr(), pruned.data_ptr(),
                  None if stats is None else stats.data_ptr(),
                  None if cn is None else cn.data_ptr(), bsz, n, d, k,
-                 block_n, tps, cols, k_chunk, int(bf16), stream)
+                 block_n, tps, k_chunk, int(bf16), stream)
     if err != 0:
         raise KernelFailureError(f"lloyd_assign_gated_batched launch failed: "
                                  f"cudaError {err}")
@@ -801,7 +801,8 @@ def _untiled(points, norms, centroids, weights, *, block_n: int,
     cn = _cn_scratch(route, bsz, k, dev)
     st = () if template else tuple(None if t is None else t.data_ptr()
                                    for t in (stats, cn))
-    chunk = () if template else (k_chunk,)
+    # the template's columns a pass, or the rounds' pass B k-chunk cap
+    last = (cols,) if template else (k_chunk,)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
@@ -809,7 +810,7 @@ def _untiled(points, norms, centroids, weights, *, block_n: int,
                    (None if weights is None else weights.data_ptr(),)),
                  labels.data_ptr(), md.data_ptr(), tile_acc.data_ptr(),
                  sums.data_ptr(), counts.data_ptr(), *st, *lead, n, d, k,
-                 block_n, cols, *chunk, int(bf16), stream)
+                 block_n, *last, int(bf16), stream)
     if err != 0:
         raise KernelFailureError(f"{name.removesuffix('_launch')} launch "
                                  f"failed: cudaError {err}")
@@ -828,9 +829,9 @@ def lloyd_assign(points: torch.Tensor, norms: torch.Tensor,
     launches K4 (its kernels count as one launch) with ``block_n``-row
     tiles, which set only the order of the sums: on the screened route
     where ``screened(d, bf16)`` (its counters read with
-    ``screen_stats("lloyd_assign")``) or at d = 2 on the row pass, each
-    then the tiles' sums and the all-tile reduce (``k_chunk`` as K3's); at
-    other widths the template. CPU tensors take the plain twin."""
+    ``screen_stats("lloyd_assign")``) or else on the row pass, each then
+    the tiles' sums and the all-tile reduce (``k_chunk`` as K3's). CPU
+    tensors take the plain twin."""
     if points.dim() != 2 or centroids.dim() != 2:
         raise ValueError("points and centroids must be 2-D")
     return _untiled(points, norms, centroids, weights, block_n=block_n,
@@ -844,8 +845,8 @@ def lloyd_assign_batched(points: torch.Tensor, norms: torch.Tensor,
     min_d2 (B, n), sums (B, k, d), counts (B, k)). On the card this
     launches K9 (its kernels count as one launch) for every problem at
     once, on the screened route where ``screened(d, bf16)`` (counters:
-    ``screen_stats("lloyd_assign_batched")``), else the template; CPU
-    tensors take the plain twin."""
+    ``screen_stats("lloyd_assign_batched")``), else on K4's row pass with a
+    problem index; CPU tensors take the plain twin."""
     if points.dim() != 3 or centroids.dim() != 3:
         raise ValueError("points and centroids must be 3-D (B, rows, d)")
     return _untiled(points, norms, centroids, None, block_n=block_n,

@@ -21,9 +21,9 @@ template fits at 128 rows, the height is the largest (the chunked routes
 fit it; ``choose_block_n``), and each wrapper asks the CUDA source for its
 route and that route's largest k (``lloyd_assign._route``).
 
-K6 (one problem) runs the screened route at d >= 8 and a split row pass
-below, both on these tiles for the sums' bits; so do K3 (a row pass below
-d = 8), K4 and, at d >= 8, K9.
+The rounds run the screened route at d >= 8 within the screened widths
+and row passes at every other width (K6 and K10b the split row pass), all
+on these tiles for the sums' bits; none stages the whole (k, d) block.
 
 The IVF scan (K13, K14; ``ivf_scan.py``) runs in two parts and budgets its
 own shared memory (``ivf_scan.max_k``); its tile height is the index's.
@@ -143,15 +143,6 @@ def count_launch(name: str, bf16: bool) -> None:
     LAUNCHES[f"{name}_bf16" if bf16 else name] += 1
 
 
-def seed_smem_bytes(d: int, m: int, resident: bool,
-                    gated: bool = False) -> int:
-    """Shared memory of the seeding kernel: the reduction buffer (three for
-    the gated K5: sum, max, pruned count), plus the staged (m, d) centroid
-    block and its (m,) norms when resident."""
-    return 4 * ((3 if gated else 1) * THREADS
-                + ((m * d + m) if resident else 0))
-
-
 def assign_smem_bytes(d: int, k: int, block_n: int, cols: int = 1,
                       gated: bool = False) -> int:
     """Shared memory of the assignment kernel: (k, d) centroids, (k,) norms,
@@ -174,7 +165,8 @@ def assign_cols(d: int, k: int, block_n: int, gated: bool = False) -> int:
 def template_max_k(d: int, block_n: int, gated: bool = False) -> int:
     """The most centroids the template (``assign_smem_bytes`` at one
     column) stages at width ``d`` and height ``block_n``: the limit of the
-    rounds that stay on the template, which their wrappers raise past."""
+    template entries (``lloyd_assign.*_template``), which raise past it. No
+    round takes the template."""
     return max(0, (SMEM_LIMIT // 4 - 2 * THREADS - block_n)
                // (d + 1 + WARPS + int(gated)))
 

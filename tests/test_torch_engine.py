@@ -114,13 +114,14 @@ def test_seed_guard_heals_a_poisoned_round():
     class Poisoned(FusedBackend):
         calls: list = dataclasses.field(default_factory=list)
 
-        def seed_round(self, points, c_new, min_d2, *, cache, state=None):
+        def seed_round(self, points, c_new, min_d2, *, cache, state=None,
+                       consume=False):
             self.calls.append(1)
             if len(self.calls) == 3:
                 min_d2 = min_d2.clone()
                 min_d2[:5] = torch.nan
             return super().seed_round(points, c_new, min_d2, cache=cache,
-                                      state=state)
+                                      state=state, consume=consume)
 
     pts, _ = blobs(2000, 3, 5, seed=1)
     draws = draws_for(0, 2000, 5)
@@ -386,14 +387,15 @@ def test_gated_seed_guard_heals_a_poisoned_carry():
     class Poisoned(FusedBackend):
         calls: list = dataclasses.field(default_factory=list)
 
-        def seed_round(self, points, c_new, min_d2, *, cache, state=None):
+        def seed_round(self, points, c_new, min_d2, *, cache, state=None,
+                       consume=False):
             if state is not None:
                 self.calls.append(1)
                 if len(self.calls) == 3:
                     state = state._replace(
                         partials=torch.full_like(state.partials, torch.nan))
             return super().seed_round(points, c_new, min_d2, cache=cache,
-                                      state=state)
+                                      state=state, consume=consume)
 
     pts = _coherent(seed=2)
     draws = draws_for(1, pts.shape[0], 8)

@@ -35,6 +35,7 @@ from test_torch_jaxref import (EPS32, assert_labels_match, d2_tol, exact_d2,
                                np32, ref)  # noqa: F401  (ref is a fixture)
 from repro_torch import convert
 from repro_torch.core import bounds
+from repro_torch.core.sampling import tile_partials
 from repro_torch.data import blobs
 from repro_torch.kernels import flash_attention, ivf_scan
 from repro_torch.kernels import kmeans_distance as kd
@@ -482,6 +483,60 @@ def test_lloyd_assign_gated_all_active_without_prune_is_k3():
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("mask", ["gate", "half"])
+def test_k5_template_entry_and_inplace_take_the_twin_on_cpu(mask):
+    """On the CPU, K5's template entry and its in-place call take the plain
+    twin: the same outputs as ``distance_min_update_gated_torch``, the
+    carry left as it was (in place is the card's), and no launch
+    counted; K8's in-place call likewise row by row."""
+    x = torch.from_numpy(_sorted_blobs(3000, 2, 5, seed=4))
+    bn = 256
+    cache = bounds.prologue(x, bn)
+    md = torch.from_numpy(exact_d2(x.numpy(), x[[3, 1500]].numpy())
+                          .min(1).astype(np.float32))
+    tmax = bounds.tile_reduce_max(md, bn)
+    c = x[[2000]].contiguous()
+    act, dc, margin = bounds.seed_gate(c, cache, tmax)
+    if mask == "half":
+        act = torch.arange(act.shape[0]) % 2 == 0
+    args = (x, cache.norms, c, md, cache.center_d, dc, margin,
+            tile_partials(md, bn), tmax, act)
+    want = kd.distance_min_update_gated_torch(*args, block_n=bn)
+    before = md.clone()
+    ops.reset_launches()
+    for got in (kd.distance_min_update_gated_template(*args, block_n=bn),
+                kd.distance_min_update_gated(*args, block_n=bn,
+                                             inplace=True)):
+        assert all(torch.equal(u, v) for u, v in zip(got, want))
+    assert torch.equal(md, before)
+    two = tuple(torch.stack([a, a]) for a in args)
+    got = kd.distance_min_update_gated_batched(*two, block_n=bn, inplace=True)
+    assert all(torch.equal(u[1], v) for u, v in zip(got, want))
+    assert sum(ops.LAUNCHES.values()) == 0
+    with pytest.raises(ValueError, match="center_d"):
+        kd.distance_min_update_gated(*args[:4], args[4][1:], *args[5:],
+                                     block_n=bn)
+
+
+def test_k2_k7_template_entry_takes_the_twin_on_cpu():
+    """On the CPU, K2/K7's template entry takes the plain twins, the same
+    outputs as ``distance_min_update(_batched)_torch``, and counts no
+    launch."""
+    x = torch.from_numpy(_data(700, 16, seed=5))
+    md = torch.full((700,), torch.inf)
+    c = x[[3, 300]].contiguous()
+    norms = bounds.point_norms(x)
+    ops.reset_launches()
+    got = kd.distance_min_update_template(x, norms, c, md, block_n=256)
+    want = kd.distance_min_update_torch(x, norms, c, md, block_n=256)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+    xb, nb, cb, mb = (torch.stack([v, v.flip(0)]) for v in (x, norms, c, md))
+    got = kd.distance_min_update_template(xb, nb, cb, mb, block_n=256)
+    want = kd.distance_min_update_batched_torch(xb, nb, cb, mb, block_n=256)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+    assert sum(ops.LAUNCHES.values()) == 0
+
+
 def test_cpu_calls_take_the_plain_version_and_count_no_launch():
     x = torch.from_numpy(_data(500, 2, seed=3))
     ops.reset_launches()
@@ -785,6 +840,194 @@ def test_distance_min_update_gated_kernel_matches_plain(card, m, resident,
         k2 = kd.distance_min_update(x, cache.norms, c, md, block_n=bn,
                                     resident=resident)
         assert torch.equal(got[0], k2[0]) and torch.equal(got[1], k2[1])
+
+
+def _bits(got, want):
+    """Every output bitwise (fp32 compared as int32 bit patterns, so that
+    NaN equals NaN)."""
+    for u, v in zip(got, want):
+        assert u.dtype == v.dtype and u.shape == v.shape
+        if u.dtype == torch.float32:
+            u, v = u.view(torch.int32), v.view(torch.int32)
+        assert torch.equal(u, v)
+
+
+def _k5_args(card, n, d, m, mask, dtype, seed, bn):
+    """K5's arguments on adversarial rows: label-sorted blobs (the gate
+    skips tiles and the bound prunes rows), a carried D² with +inf rows and
+    a NaN, rows on a centroid and duplicated centroids (ties), a NaN row;
+    the fp32 points' prologue and norms, the stream in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(_sorted_blobs(n, d, 8, seed)).to(card)
+    rows = torch.from_numpy(rng.choice(n, m + 3, replace=False)).to(card)
+    c = x[rows[:m]].clone()
+    if m >= 2:
+        c[1] = c[0]
+    md = torch.from_numpy(exact_d2(x.cpu().numpy(), x[rows[m:]].cpu()
+                                   .numpy()).min(1).astype(np.float32))
+    md = md.to(card)
+    md[5::997] = torch.inf
+    md[7] = torch.nan
+    x[11] = torch.nan
+    cache = bounds.prologue(x, bn)
+    tmax = bounds.tile_reduce_max(md, bn)
+    parts = tile_partials(md, bn)
+    act, dc, margin = bounds.seed_gate(c, cache, tmax)
+    t = act.shape[0]
+    act = {"gate": act, "all": torch.ones_like(act),
+           "half": torch.arange(t, device=card) % 2 == 0,
+           "none": torch.zeros_like(act)}[mask]
+    return (x.to(dtype), cache.norms, c.to(dtype), md, cache.center_d, dc,
+            margin, parts, tmax, act)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 8, 16, 128, 129])
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("mask", ["gate", "all", "half", "none"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_is_the_template_bitwise(card, d, m, mask, dtype):
+    """K5 (``distance_min_update_gated``) against its template entry
+    (``distance_min_update_gated_template``, K5's kernel before) on
+    adversarial rows, 20,011 rows in tiles of 1,000 or 4,096 (ragged): all
+    four outputs bitwise, resident and not (the same bits), in place too;
+    one counted launch each; skipped tiles' outputs bitwise their carries;
+    all active on fp32, bitwise K2."""
+    _k5_held_to_the_template(card, 20_011, d, m, mask, dtype,
+                             4096 if (d + m) % 2 else 1000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(600, torch.float32),
+                                     (1024, torch.float32),
+                                     (2048, torch.bfloat16),
+                                     (16_384, torch.float32)])
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("mask", ["gate", "all", "half"])
+def test_k5_wide_rows_are_the_template_bitwise(card, d, m, mask, dtype):
+    """Rows too wide for 32 staged rows a block (fp32 d above about 590,
+    bf16 about 1,180): the wide path's threads read their listed rows from
+    device memory; every output bitwise the template entry as above, on
+    3,001 rows in tiles of 1,000."""
+    _k5_held_to_the_template(card, 3_001, d, m, mask, dtype, 1000)
+
+
+def _k5_held_to_the_template(card, n, d, m, mask, dtype, bn):
+    """The checks of ``test_k5_is_the_template_bitwise`` at one shape."""
+    args = _k5_args(card, n, d, m, mask, dtype, 10 * d + m, bn)
+    md, parts, tmax, act = args[3], args[7], args[8], args[9]
+    want = kd.distance_min_update_gated_template(*args, block_n=bn)
+    for resident in (True, False):
+        ops.reset_launches()
+        got = kd.distance_min_update_gated(*args, block_n=bn,
+                                           resident=resident)
+        counted = "distance_min_update_gated" + (
+            "_bf16" if dtype == torch.bfloat16 else "")
+        assert ops.LAUNCHES[counted] == 1 and sum(ops.LAUNCHES.values()) == 1
+        _bits(got, want)
+        _bits(kd.distance_min_update_gated_template(
+            *args, block_n=bn, resident=resident), want)
+        carry = md.clone()
+        inplace = kd.distance_min_update_gated(
+            *args[:3], carry, *args[4:], block_n=bn, resident=resident,
+            inplace=True)
+        assert inplace[0].data_ptr() == carry.data_ptr()
+        _bits(inplace, want)
+    skip = ~act
+    rows = bounds.expand_mask(skip, bn, n)
+    _bits((got[0][rows], got[1][skip], got[2][skip]),
+          (md[rows], parts[skip], tmax[skip]))
+    assert not got[3][skip].any()
+    if mask == "all" and dtype == torch.float32:
+        k2 = kd.distance_min_update(*args[:4], block_n=bn)
+        _bits(got[:2], k2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 7, 8, 13, 16, 64, 128, 129, 1024])
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_k7_are_the_template_bitwise(card, d, m, dtype):
+    """K2 (K5's row loop ungated at d >= 8, the template body below) against
+    its template entry (``distance_min_update_template``) on adversarial
+    rows (+inf and NaN carries, a NaN row, duplicated centroids), 9,001
+    rows in tiles of 1,024: both outputs bitwise, resident and not; K7
+    over three problems bitwise its template entry and row b bitwise K2;
+    one counted launch each."""
+    n, bn = 9_001, 1024
+    x, nr, c, md = _k5_args(card, n, d, m, "all", dtype, 3 * d + m, bn)[:4]
+    want = kd.distance_min_update_template(x, nr, c, md, block_n=bn)
+    counted = "distance_min_update" + (
+        "_bf16" if dtype == torch.bfloat16 else "")
+    for resident in (True, False):
+        ops.reset_launches()
+        got = kd.distance_min_update(x, nr, c, md, block_n=bn,
+                                     resident=resident)
+        assert ops.LAUNCHES[counted] == 1 and sum(ops.LAUNCHES.values()) == 1
+        _bits(got, want)
+    xb, nb, cb, mb = (torch.stack([v, v.flip(0), v]) for v in (x, nr, c, md))
+    ops.reset_launches()
+    k7 = kd.distance_min_update_batched(xb, nb, cb, mb, block_n=bn)
+    assert sum(ops.LAUNCHES.values()) == 1
+    _bits(k7, kd.distance_min_update_template(xb, nb, cb, mb, block_n=bn))
+    for b in range(3):
+        _bits((k7[0][b], k7[1][b]), kd.distance_min_update(
+            xb[b], nb[b], cb[b], mb[b], block_n=bn))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["gate", "all"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_and_k2_take_a_block_past_shared_memory(card, mask, dtype):
+    """m = 1,024 centroids at d = 64 (the guard heal's fold of all k), whose
+    resident block the old staging refused: K5 bitwise its template entry,
+    resident and not; K2 and K7 (two problems) resident bitwise
+    non-resident, K7's rows bitwise K2."""
+    n, d, m, bn = 9_001, 64, 1024, 1024
+    args = _k5_args(card, n, d, m, mask, dtype, 64, bn)
+    want = kd.distance_min_update_gated_template(*args, block_n=bn,
+                                                 resident=False)
+    for resident in (True, False):
+        _bits(kd.distance_min_update_gated(*args, block_n=bn,
+                                           resident=resident), want)
+        _bits(kd.distance_min_update_gated_template(
+            *args, block_n=bn, resident=resident), want)
+    x, nr, c, md = args[:4]
+    k2 = kd.distance_min_update(x, nr, c, md, block_n=bn)
+    _bits(k2, kd.distance_min_update(x, nr, c, md, block_n=bn,
+                                     resident=False))
+    _bits(k2, kd.distance_min_update_template(x, nr, c, md, block_n=bn))
+    xb, nb, cb, mb = (torch.stack([v, v.flip(0)]) for v in (x, nr, c, md))
+    k7 = kd.distance_min_update_batched(xb, nb, cb, mb, block_n=bn)
+    _bits(k7, kd.distance_min_update_batched(xb, nb, cb, mb, block_n=bn,
+                                             resident=False))
+    _bits((k7[0][0], k7[1][0]), k2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 5, 16, 128, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8_rows_are_k5(card, d, dtype):
+    """K8 over three problems, each with its own state and mask (the
+    gate's, all, half): row b bitwise K5 on problem b, in place too, and
+    one counted launch."""
+    n, m, bn = 9_001, 8, 1024
+    probs = [_k5_args(card, n, d, m, mask, dtype, 7 * d + i, bn)
+             for i, mask in enumerate(("gate", "all", "half"))]
+    args = tuple(torch.stack(v) for v in zip(*probs))
+    ops.reset_launches()
+    got = kd.distance_min_update_gated_batched(*args, block_n=bn)
+    counted = "distance_min_update_gated_batched" + (
+        "_bf16" if dtype == torch.bfloat16 else "")
+    assert ops.LAUNCHES[counted] == 1 and sum(ops.LAUNCHES.values()) == 1
+    for b, one in enumerate(probs):
+        _bits(tuple(o[b] for o in got),
+              kd.distance_min_update_gated(*one, block_n=bn))
+    carry = args[3].clone()
+    inplace = kd.distance_min_update_gated_batched(
+        *args[:3], carry, *args[4:], block_n=bn, inplace=True)
+    assert inplace[0].data_ptr() == carry.data_ptr()
+    _bits(inplace, got)
 
 
 @pytest.mark.cuda

@@ -517,10 +517,11 @@ def test_rejection_refreshes_fewer_times_than_rounds():
     class Counting(FusedBackend):
         calls: list = dataclasses.field(default_factory=list)
 
-        def seed_round(self, points, c_new, min_d2, *, cache, state=None):
+        def seed_round(self, points, c_new, min_d2, *, cache, state=None,
+                       consume=False):
             self.calls.append(c_new.shape[0])
             return super().seed_round(points, c_new, min_d2, cache=cache,
-                                      state=state)
+                                      state=state, consume=consume)
 
     k = 24
     pts = _sorted_blobs(4096, 2, 8, seed=2)

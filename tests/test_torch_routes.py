@@ -1,18 +1,20 @@
-"""The assignment rounds' tile height and the limits their wrappers raise.
+"""The assignment rounds' tile height, routes and the limits they raise.
 
 The template kernel stages the whole (k, d) centroid block in one block's
 shared memory; the screened route and the row passes stage their centroids
 in chunks, so only the template has a k that a width and a tile height
 cap (``ops.template_max_k``), and the screened route only its 16-bit
-candidate index. The CUDA source owns each round's route and that route's
-largest k (``lloyd_assign_route``); the wrapper raises a ValueError naming
-them. This file checks that ``choose_block_n`` keeps the heights it gave
-where the template fits, gives the largest past it, that
-``template_max_k`` is the largest k the template's columns fit, and how
-the wrappers turn the source's answer into that ValueError. On the CPU
-the wrappers take the plain twins; the card tests (``test_torch_screen.py``)
-run the routes at and past each limit and hold the kernels bitwise to the
-template entries.
+candidate index. No round takes the template any more: it is reachable
+through its ``*_template`` entries alone. The CUDA source owns each round's
+route and that route's largest k (``lloyd_assign_route``); the wrapper
+raises a ValueError naming them. This file checks that ``choose_block_n``
+keeps the heights it gave where the template fits, gives the largest past
+it, that ``template_max_k`` is the largest k the template's columns fit,
+which route each formerly templated round now takes, and how the wrappers
+turn the source's answer into that ValueError. On the CPU the wrappers take
+the plain twins; the card tests (``test_torch_screen.py``) run the routes at
+and past each old limit and hold the kernels bitwise to the template
+entries.
 """
 from __future__ import annotations
 
@@ -83,28 +85,37 @@ class _Source:
         return route
 
 
-@pytest.mark.parametrize("name,d,gated", [
-    ("lloyd_assign", 5, False), ("lloyd_assign_batched", 3, False),
-    ("lloyd_assign_tiled_batched", 7, False),
-    ("lloyd_assign_gated_batched", 1, True),
-    ("lloyd_assign_tiled", 200, False), ("lloyd_assign", 160, False)])
+@pytest.mark.parametrize("name,d,gated,route", [
+    ("lloyd_assign", 5, False, "row pass"),
+    ("lloyd_assign_batched", 3, False, "row pass"),
+    ("lloyd_assign_tiled_batched", 7, False, "row pass"),
+    ("lloyd_assign_gated_batched", 1, True, "split"),
+    ("lloyd_assign_tiled", 200, False, "row pass"),
+    ("lloyd_assign", 160, False, "row pass")])
 @pytest.mark.parametrize("block_n", [128, 4096])
 def test_template_routes_raise_with_their_limit(monkeypatch, name, d, gated,
-                                                block_n):
-    """Where the source answers the template (largest k -1: what its
-    staging fits), the wrapper runs ``template_max_k`` centroids with the
-    template's columns and raises one past it, naming the route and k."""
-    src = _Source(0, -1)
+                                                route, block_n):
+    """The (round, width) pairs the template served, and raised past its
+    staging for, now take a chunked route (the row pass, or for the gated
+    batched round the split row pass), which the source answers with no
+    k limit: the wrapper passes no template columns and takes k past
+    ``template_max_k`` (and at 65,535) without a raise. The template
+    entries keep the old limit."""
+    src = _Source(la._ROUTES.index(route), 0x7fffffff)
     monkeypatch.setattr(la, "_build", src)
-    most = ops.template_max_k(d, block_n, gated)
-    route, cols = la._route(name, d, most, block_n, False, 0, gated=gated)
-    assert (route, cols) == ("template",
-                             ops.assign_cols(d, most, block_n, gated))
-    assert cols >= 1 and src.asked == [(la._ROUNDS[name], d, 0)]
+    old = ops.template_max_k(d, block_n, gated)
+    for k in (old, old + 1, 65_535):
+        assert la._route(name, d, k, block_n, False, 0,
+                         gated=gated) == (route, 0)
+    assert src.asked == [(la._ROUNDS[name], d, 0)] * 3
     with pytest.raises(ValueError,
                        match=rf"{name} at d={d}.*template route.*"
-                             rf"k <= {most}; got k={most + 1}"):
-        la._route(name, d, most + 1, block_n, False, 0, gated=gated)
+                             rf"k <= {old}; got k={old + 1}"):
+        la._route(name, d, old + 1, block_n, False, 0, template=True,
+                  gated=gated)
+    assert la._route(name, d, old, block_n, False, 0, template=True,
+                     gated=gated) == ("template",
+                                      ops.assign_cols(d, old, block_n, gated))
 
 
 @pytest.mark.parametrize("code,route", [(1, "screened"), (2, "row pass"),

@@ -692,24 +692,158 @@ def test_pass_b_k_chunks_are_one_block_bitwise(card, d, dtype):
             _bitwise(call(kc), whole)
 
 
-@pytest.mark.cuda
-def test_template_routes_raise_at_their_limit(card):
-    """The routes that still stage the whole (k, d) block (K4 at d = 5, K10a
-    below d = 8, K3 on fp32 rows past 128 values) raise a ValueError naming
-    the route and its largest k one centroid past it, and run at it."""
-    bn = 1024
-    for name, d, call in (
-            ("lloyd_assign", 5, lambda x, nr, c: la.lloyd_assign(
-                x, nr, c, block_n=bn)),
-            ("lloyd_assign_tiled_batched", 4,
-             lambda x, nr, c: la.lloyd_assign_tiled_batched(
-                 x[None], nr[None], c[None], block_n=bn, tps=1)),
-            ("lloyd_assign_tiled", 160, lambda x, nr, c: la.lloyd_assign_tiled(
-                x, nr, c, block_n=bn, tps=1))):
-        most = ops.template_max_k(d, bn)
-        x, c = _blobs(d, 2 * bn, d, most + 1, card)
-        nr = bounds.point_norms(x)
-        with pytest.raises(ValueError, match=f"template route.*k <= {most}"):
-            call(x, nr, c)
-        call(x, nr, c[:most].contiguous())
+def _lattice(seed: int, n: int, d: int, k: int, dev):
+    """k distinct centroids on the integer lattice (at least 1 apart) and
+    rows 0.01 from one of them, on the card: well separated at any k."""
+    rng = np.random.default_rng(seed)
+    side = max(2, int(np.ceil((4 * k) ** (1.0 / d))))
+    picked: set = set()
+    c = np.empty((k, d), np.float32)
+    while len(picked) < k:
+        v = tuple(rng.integers(0, side, size=d).tolist())
+        if v not in picked:
+            c[len(picked)] = v
+            picked.add(v)
+    c -= np.float32(side / 2)
+    lab = rng.integers(0, k, size=n)
+    x = (c[lab] + 0.01 * rng.normal(size=(n, d))).astype(np.float32)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(c).to(dev)
 
+
+def _near_twin(x, norms, c, lab, md, counts, lb=None):
+    """Labels, D² and counts against the plain twins past the old cap, to
+    the screen tests' D² tolerance: D² within it, a label that differs only
+    between two centroids whose twin D² lie within it (narrow rows with
+    thousands of centroids: 1-D lattices), counts off by no more than the
+    rows whose labels differ, and lb = sqrt(second) within the tolerance's
+    root."""
+    d2 = tile_d2(x, c, norms)
+    want = d2.argmin(dim=1)
+    cf = c.float()
+    tol = 2 * (x.shape[1] + 4) * 2.0 ** -23 * (
+        float(norms.max()) + float((cf * cf).sum(1).max()))
+    _near(md, d2.amin(dim=1), tol)
+    diff = lab.long() != want
+    gap = (d2.gather(1, lab.long()[:, None])
+           - d2.gather(1, want[:, None]))[:, 0].abs()
+    assert not bool((diff & (gap > tol)).any())
+    wc = torch.bincount(want, minlength=c.shape[0]).float()
+    assert float((counts - wc).abs().sum()) <= 2 * int(diff.sum())
+    if lb is not None:
+        won = lab.long()[:, None] == torch.arange(c.shape[0], device=x.device)
+        second = torch.where(won, torch.inf, d2).amin(dim=1)
+        _near(lb, second.sqrt(), 2 * tol ** 0.5)
+
+
+# the (round, width) pairs the template served and refused past its staging,
+# with the stream and tile height: K4 at d = 1 and 3..7, K9, K10a and K10b
+# below d = 8, and the rounds past the screened widths
+REFUSED = [("K4", 1, torch.float32, 1024), ("K4", 5, torch.float32, 1024),
+           ("K4", 200, torch.float32, 128), ("K4", 300, torch.bfloat16, 128),
+           ("K9", 3, torch.float32, 1024), ("K9", 200, torch.float32, 128),
+           ("K10a", 4, torch.float32, 1024),
+           ("K10a", 7, torch.bfloat16, 1024),
+           ("K10a", 200, torch.float32, 128),
+           ("K10b", 4, torch.float32, 1024),
+           ("K10b", 200, torch.float32, 128),
+           ("K3", 200, torch.float32, 128), ("K3", 300, torch.bfloat16, 128)]
+
+
+def _gated_first(x, norms, c, bn, tps, batch: bool):
+    """K6 (K10b with ``batch``) on a first round's carries (no bound, half
+    the supers active): every row of an active super recomputed."""
+    lead = x.shape[:-2]
+    n, d = x.shape[-2:]
+    k = c.shape[-2]
+    t = -(-n // bn)
+    s_ = -(-t // tps)
+    dev = x.device
+    zt = torch.zeros(lead + (t,), device=dev)
+    act = (torch.arange(t, device=dev) // tps % 2 == 0).expand(lead + (t,))
+    args = (x, norms, c, torch.zeros(lead + (k,), device=dev), zt, zt,
+            torch.zeros(lead + (n,), dtype=torch.int32, device=dev),
+            torch.zeros(lead + (n,), device=dev),
+            torch.full(lead + (n,), -torch.inf, device=dev), zt, zt,
+            torch.zeros(lead + (s_, k, d), device=dev),
+            torch.zeros(lead + (s_, k), device=dev), act.contiguous())
+    fn = la.lloyd_assign_gated_batched if batch else la.lloyd_assign_gated
+    return fn(*args, block_n=bn, tps=tps), args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rnd,d,dtype,bn", REFUSED)
+def test_formerly_refused_routes_match_twins(card, rnd, d, dtype, bn):
+    """The rounds the template served past the screened widths and below
+    d = 8 take chunked routes now: one centroid past the old limit
+    (``ops.template_max_k``) the round runs and its labels, D² and counts
+    match the plain twin; the template entries still raise there, naming
+    their limit; at the limit every output is bitwise the template entry
+    (K10a and K10b problem by problem bitwise K3 and K6, which are)."""
+    gated = rnd == "K10b"
+    most = ops.template_max_k(d, bn, gated)
+    n = 2 * bn + 17
+    x, c = _lattice(d, n, d, most + 1, card)
+    norms = bounds.point_norms(x)
+    x, c = x.to(dtype), c.to(dtype)
+    t = -(-n // bn)
+    tps = bounds.tiles_per_super(t)
+    w = torch.rand(n, device=card)
+    two = lambda v: torch.stack([v, v.flip(0)])   # noqa: E731
+    for k in (most + 1, most):
+        ck = c[:k].contiguous()
+        if rnd == "K4":
+            got = la.lloyd_assign(x, norms, ck, w, block_n=bn)
+            plain = la.lloyd_assign(x, norms, ck, block_n=bn)
+            tmpl = (lambda: la.lloyd_assign_template(x, norms, ck, w,
+                                                     block_n=bn))
+            check = (plain[0], plain[1], plain[3], None)
+        elif rnd == "K9":
+            got = la.lloyd_assign_batched(two(x), two(norms), two(ck),
+                                          block_n=bn)
+            tmpl = (lambda: la.lloyd_assign_batched_template(
+                two(x), two(norms), two(ck), block_n=bn))
+            check = (got[0][0], got[1][0], got[3][0], None)
+        elif rnd == "K3":
+            got = la.lloyd_assign_tiled(x, norms, ck, block_n=bn, tps=tps)
+            tmpl = (lambda: la.lloyd_assign_tiled_template(
+                x, norms, ck, block_n=bn, tps=tps))
+            check = (got[0], got[1], got[5].sum(0), None)
+        elif rnd == "K10a":
+            got = la.lloyd_assign_tiled_batched(two(x), two(norms), two(ck),
+                                                block_n=bn, tps=tps)
+            tmpl = (lambda: la.lloyd_assign_tiled_template(
+                x, norms, ck, block_n=bn, tps=tps))
+            check = (got[0][0], got[1][0], got[5][0].sum(0), None)
+        else:
+            got, gargs = _gated_first(two(x), two(norms), two(ck), bn, tps,
+                                      True)
+            tmpl = (lambda: la.lloyd_assign_gated_template(
+                *(a[0] for a in gargs), block_n=bn, tps=tps))
+            act = bounds.expand_mask(gargs[-1][0], bn, n)
+            check = (got[0][0][act], got[1][0][act], None, got[2][0][act])
+        if k > most:
+            lab, md, counts, lb = check
+            rows = slice(None) if rnd != "K10b" else act
+            _near_twin(x[rows], norms[rows], ck, lab, md,
+                       counts if counts is not None
+                       else torch.bincount(lab.long(), minlength=k).float(),
+                       lb)
+            with pytest.raises(ValueError,
+                               match=f"template route.*k <= {most}"):
+                tmpl()
+            continue
+        want = tmpl()
+        if rnd in ("K4", "K3"):
+            _bitwise(got, want)
+        elif rnd == "K9":
+            _bitwise(got, want)
+            _bitwise((o[0] for o in got),
+                     la.lloyd_assign(x, norms, ck, block_n=bn))
+        elif rnd == "K10a":
+            _bitwise((o[0] for o in got), want)
+            _bitwise((o[1] for o in got), la.lloyd_assign_tiled(
+                x.flip(0), norms.flip(0), ck.flip(0), block_n=bn, tps=tps))
+        else:
+            _bitwise((o[0] for o in got), want)
+            one, _ = _gated_first(x, norms, ck, bn, tps, False)
+            _bitwise((o[0] for o in got), one)
