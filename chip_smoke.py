@@ -42,11 +42,17 @@ Phases, each of which exits non-zero on failure:
    d >= 8 their ungated vec4, vec8 and wide instances), the super reduces
    (``super_reduce_kernel``, ``chain_reduce_kernel``) and K14's part (a)
    (``adc_pair_topk_kernel<kR>``, ``adc_tile_sort_kernel``), 68 kernels,
-   no spill; their registers are printed.
+   no spill; their registers are printed. So are K1's 14 (the lone route
+   ``lone_kernel<V, G, all | part>`` and the template's kernel
+   ``seed_prologue_kernel<wide>``, the wide route at ``wide`` and the
+   template entry's kernel otherwise) and K11's and K12's, no spill.
 2. Hold every kernel against its plain PyTorch twin on the card, at the
    paper's shape (n = 4,000,000, d = 2; label-sorted for the gated seeding
    round, so its gate skips) and a ragged wide one (n = 100,003, d = 128):
-   K1 (prologue), K2 (seeding round) with resident centroids on and off at
+   K1 (prologue; every output bitwise its template entry,
+   ``seed_prologue_template``, and timed beside it, also at the IVF
+   build's shape, 1,000,000 rows of d = 128 in 4,096-row tiles), K2
+   (seeding round) with resident centroids on and off at
    m = 1 and m = 8, every K2 and K7 launch bitwise its template entry
    (``distance_min_update_template``, their body at every width before
    d >= 8 took K5's row loop) and timed beside it, K5's row loop on K2's
@@ -61,9 +67,11 @@ Phases, each of which exits non-zero on failure:
    row pass at d = 2) bitwise the template kernel's entry
    (``lloyd_assign_tiled_template``) in all six outputs and timed beside
    it and kernel by kernel (torch.profiler: pass A or the row pass, pass
-   B, the super reduce), K11 (the rejection sampler's drawn-row D²) and K12
-   (its per-tile envelope caps, over K1's tile balls) against a pending
-   block of 8 centroids with count 0, 1 and 8. Two launches must give
+   B, the super reduce), K11 (the rejection sampler's drawn-row D², row by
+   row and for a round's 8 attempts in one launch, each entry bitwise the
+   one-row launch; timed at 8) and K12 (its per-tile envelope caps, over
+   K1's tile balls) against a pending block of 8 centroids with count 0, 1
+   and 8. Two launches must give
    identical bits, skipped tiles must keep their carried values, all-active
    K5 and K6 (the latter with no carried bound) must be bitwise K2 and K3,
    every K6 launch (its screened route at d = 128, its split row pass at
@@ -104,7 +112,20 @@ Phases, each of which exits non-zero on failure:
    seeding round folding 1,024 centroids at d = 64 (K2, the guard heal's
    fold), resident bitwise not. Each of those assignment rounds' new
    routes (K4, K9, K10a, K10b, K3) also runs at the old cap on the same
-   points, bitwise its template entry and timed beside it.
+   points, bitwise its template entry and timed beside it. Since slice 17
+   also: a gated ``kmeans`` at d = 60,000 (K1 on its wide route, the
+   template entry refusing; K5 and K6 reading the centroids from device
+   memory where not one stages), K1 at the engine's tiles held to its twin
+   (norms bitwise), K6 and K3 at that width held to theirs, a flat rejection
+   seeding at d = 60,000 (K11 once a round, and on 8 rows bitwise its twin)
+   and a hier rejection seeding at d = 8,000 with ``refresh_block`` 8 (K12
+   on the (8, 8,000) block bitwise its twin and timed), each counted and
+   held to its plain paths: the gated kmeans and the flat seeding bitwise
+   the ungated card engine's, and all three against
+   ``ClusterEngine(device="cpu")`` (the plain twins) from the same draws:
+   seeds and the rejection counters equal, min_d2 within the D² tolerance,
+   the kmeans's labels and n_iters equal, its centroids and inertia within
+   fp32 roundings.
 3. Drive the main path, ``ClusterEngine(device="cuda").kmeans`` (bound-gated)
    at the paper's size, k = 50, 25 iterations, for sampler cdf and tiled, on
    the shuffled blobs and on a label-sorted copy, with the launch counters
@@ -125,7 +146,8 @@ Phases, each of which exits non-zero on failure:
    .seed/kmeans(sampler="rejection", refresh_block=8)`` for proposal hier
    and flat on both layouts, counted like phase 3: K1 once, K5 once per
    refresh (the schedule's, the exact fallbacks' and the settling one),
-   K11 once per proposal, K12 once per round under hier and never under
+   K11 once per round that proposes (one launch prices every attempt of
+   the round), K12 once per round under hier and never under
    flat; ungated, K2 in K5's place and no K12. Held: two runs bitwise
    equal; flat gated bitwise ungated (seeds, D², the kmeans fit); at
    ``refresh_block=1`` hier, flat and the tiled sampler pick the same
@@ -150,7 +172,8 @@ Phases, each of which exits non-zero on failure:
    over 16 problems. K7 (m = 1) and K10a on the bf16 stream are held as
    phase 2's bf16 cases, rows 0, 1 and B−1 bitwise the single bf16 launch.
 6. Gated batched problems (``bounds=True``, the default) at
-   ``kvquant-gemma2-2b``: the batched K1 (prologue), K8 (gated batched
+   ``kvquant-gemma2-2b``: the batched K1 (prologue; bitwise its template
+   entry and timed beside it), K8 (gated batched
    seeding round; m = 1 and 8, each problem's gate, every tile, and a
    mixed mask with tiles off and one problem off) and K10b (gated batched
    assignment round, from a carried state whose lower bounds make the
@@ -193,7 +216,8 @@ Phases, each of which exits non-zero on failure:
    launch, codes bitwise K10a's labels. Then the weighted
    ``ClusterEngine(device="cuda").kmeans`` at the paper's size for cdf,
    tiled and rejection (hier, flat), counted (K1 once, K2 per round or
-   refresh, K11 per proposal, K12 per hier round, K4 per iteration, no
+   refresh, K11 per proposing round, K12 per hier round, K4 per
+   iteration, no
    K3/K5/K6), bitwise a second run and (but for hier, which tightens its
    envelope only with the tile balls) the ``bounds=False`` run, the kmeans
    bitwise its seeding's seeds then a weighted fit, the inertia within
@@ -546,6 +570,24 @@ def split_build(_build, logs: dict) -> dict:
     return out
 
 
+def k1_build(_build, logs: dict) -> dict:
+    """K1's kernels (the lone route ``lone_kernel<V, G, all | part>``, and
+    the template's kernel ``seed_prologue_kernel<wide>``: the wide route
+    at ``wide``, the template entry's kernel otherwise) and K11's and
+    K12's, as ``kernel_build`` reads them."""
+    out = kernel_build(
+        _build, "seed_prologue", logs["seed_prologue"],
+        r"lone_kernelILi(\d)ELi(\d)ELb([01])E|seed_prologue_kernelILb([01])E",
+        lambda m: (f"lone_kernel<{m.group(1)}, {m.group(2)}, "
+                   f"{'all' if m.group(3) == '1' else 'part'}>" if m.group(1)
+                   else "seed_prologue_kernel<"
+                   f"{'wide' if m.group(4) == '1' else 'template'}>"))
+    out.update(kernel_build(
+        _build, "rejection", logs["rejection"],
+        r"(row_min_d2_kernel|tile_cap_kernel)", lambda m: m.group(1)))
+    return out
+
+
 def d2_tol(torch, norms, cents) -> float:
     """Largest |kernel − plain| allowed on a matmul-form D². Each side's
     error is at most (d + 4)·eps·(‖x‖² + ‖c‖²): d roundings in the dot
@@ -768,14 +810,19 @@ def bitwise_err(torch, a, b) -> float:
     return float(torch.where(a == b, 0.0, (a - b).abs()).max())
 
 
-def rejection_kernel_cases(torch, kd, pts, centers, radii, gen, p=8):
+def rejection_kernel_cases(torch, kd, pts, centers, radii, gen, p=8,
+                           attempts=8):
     """K11 and K12 on one shape against a (p, d) pending block, count 0, 1
     and p: each launch bitwise its plain twin and a second launch, +inf
-    everywhere at count 0; K11 at four drawn rows. Timed at count p."""
+    everywhere at count 0; K11 at four drawn rows one by one and at the
+    ``attempts`` of a round in one launch (the rejection loop's form), each
+    entry bitwise the one-row launch. Timed at count p (K11 at ``attempts``
+    rows, and at one beside)."""
     n, d = pts.shape
     dev = pts.device
     pend = pts[torch.randint(n, (p,), generator=gen, device=dev)].contiguous()
     rows = torch.randint(n, (4,), generator=gen, device=dev)
+    many = torch.randint(n, (attempts,), generator=gen, device=dev)
     err11 = err12 = 0.0
     for count in (0, 1, p):
         cnt = torch.tensor(count, dtype=torch.int32, device=dev)
@@ -789,6 +836,16 @@ def rejection_kernel_cases(torch, kd, pts, centers, radii, gen, p=8):
                   f"K11 {what}: {float(a)} is not the plain {float(plain)}")
             err11 = max(err11, bitwise_err(torch, a, plain))
             check(count > 0 or bool(torch.isinf(a)), f"K11 {what}: not +inf")
+        got = kd.row_min_d2(pts, many, pend, cnt)
+        check(bits_equal(torch, got, kd.row_min_d2(pts, many, pend, cnt))
+              and bits_equal(torch, got, kd.row_min_d2_torch(pts, many, pend,
+                                                             cnt))
+              and all(bits_equal(torch, got[j], kd.row_min_d2(
+                  pts, many[j], pend, cnt)) for j in range(attempts)),
+              f"K11 {what}: {attempts} rows in one launch are not the plain "
+              "version's, a second launch's or the one-row launches'")
+        err11 = max(err11, bitwise_err(torch, got, kd.row_min_d2_torch(
+            pts, many, pend, cnt)))
         c1 = kd.tile_cap(centers, radii, pend, cnt)
         c2 = kd.tile_cap(centers, radii, pend, cnt)
         plain = kd.tile_cap_torch(centers, radii, pend, cnt)
@@ -802,30 +859,42 @@ def rejection_kernel_cases(torch, kd, pts, centers, radii, gen, p=8):
     i = rows[0]
     cnt = torch.tensor(p, dtype=torch.int32, device=dev)
     t = centers.shape[0]
-    ms11, plain11 = timed(torch, lambda: kd.row_min_d2(pts, i, pend, cnt),
-                          lambda: kd.row_min_d2_torch(pts, i, pend, cnt))
+    ms11, plain11 = timed(torch, lambda: kd.row_min_d2(pts, many, pend, cnt),
+                          lambda: kd.row_min_d2_torch(pts, many, pend, cnt))
+    ms11_one = gpu_ms(torch, lambda: kd.row_min_d2(pts, i, pend, cnt))
     ms12, plain12 = timed(
         torch, lambda: kd.tile_cap(centers, radii, pend, cnt),
         lambda: kd.tile_cap_torch(centers, radii, pend, cnt))
-    # K11 reads the row, the block, idx and count and writes one float;
-    # K12 reads the balls, the block and count and writes T caps
-    b11, by11 = bound_ms(4 * (d + p * d + 1) + 8 + 4, p * 3 * d)
+    # K11 reads the drawn rows, the block, idx and count and writes a float
+    # a row; K12 reads the balls, the block and count and writes T caps
+    b11, by11 = bound_ms(4 * (attempts * (d + 1) + p * d) + 8 * attempts + 4,
+                         attempts * p * 3 * d)
     b12, by12 = bound_ms(4 * (t * (d + 1) + p * d + t) + 4,
                          t * (p * 3 * d + 3))
-    return (dict(n=n, d=d, p=p, max_abs_err=err11, ms=ms11, plain_ms=plain11,
-                 bound_ms=b11, bound_by=by11),
+    return (dict(n=n, d=d, p=p, a=attempts, max_abs_err=err11, ms=ms11,
+                 one_row_ms=ms11_one, plain_ms=plain11, bound_ms=b11,
+                 bound_by=by11),
             dict(n=n, d=d, p=p, tiles=t, max_abs_err=err12, ms=ms12,
                  plain_ms=plain12, bound_ms=b12, bound_by=by12))
 
 
-def k1_case(torch, kd, bounds, pts):
+def k1_case(torch, kd, bounds, pts, bn=None):
+    """K1 at tile height ``bn`` (4096 where n allows, else 128): two
+    launches bitwise, all four outputs bitwise the template entry
+    (``seed_prologue_template``, K1's kernel before its redesign), norms
+    bitwise ``bounds.point_norms``, the balls within tolerance of the plain
+    twin (sums in another order); K1, the template entry and the twin
+    timed; the bound; the route the source picks."""
     n, d = pts.shape
-    bn = 4096 if n >= 4096 else 128
+    bn = bn or (4096 if n >= 4096 else 128)
     out1 = kd.seed_prologue(pts, bn)
     out2 = kd.seed_prologue(pts, bn)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(out1, out2)),
           f"K1 d={d}: two launches differ")
+    check(all(bits_equal(torch, a, b) for a, b in
+              zip(out1, kd.seed_prologue_template(pts, bn))),
+          f"K1 d={d}: not bitwise the template entry")
     check(torch.equal(out1[0], bounds.point_norms(pts)),
           f"K1 d={d}: norms are not bitwise bounds.point_norms")
     ref = kd.seed_prologue_torch(pts, bn)
@@ -836,11 +905,24 @@ def k1_case(torch, kd, bounds, pts):
     check(err <= tol, f"K1 d={d}: centers/radii/center_d err {err} > {tol}")
     ms, plain = timed(torch, lambda: kd.seed_prologue(pts, bn),
                       lambda: kd.seed_prologue_torch(pts, bn))
+    template_ms = gpu_ms(torch, lambda: kd.seed_prologue_template(pts, bn))
+    ms_again = gpu_ms(torch, lambda: kd.seed_prologue(pts, bn))
     t = -(-n // bn)
     bms, by = bound_ms(4 * (n * d + 2 * n + t * (d + 1)),
                        n * (3 * d + 1) + t * d)
     return dict(n=n, d=d, block_n=bn, max_abs_err=err, tol=tol, ms=ms,
-                plain_ms=plain, bound_ms=bms, bound_by=by)
+                ms_again=ms_again, template_ms=template_ms, plain_ms=plain,
+                bound_ms=bms, bound_by=by,
+                route=("lone", "wide")[kd.prologue_route(d, bn) == 0])
+
+
+def k1_text(c: dict) -> str:
+    return (f"K1 n={c['n']} d={c['d']} block_n={c['block_n']} ({c['route']} "
+            f"route): bitwise the template entry, err {c['max_abs_err']:.3g} "
+            f"(tol {c['tol']:.3g}); {c['ms']:.4f} ms (again "
+            f"{c['ms_again']:.4f}; template entry {c['template_ms']:.4f} ms), "
+            f"plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+            f"({c['bound_by']})")
 
 
 def k5_case(torch, kd, bounds, ops, pts, cache, md_in, cents, mask, resident):
@@ -1493,7 +1575,8 @@ def rejection_phase(torch, ops, kd, bounds, telemetry, Draws, eng, ungated,
                     launches[name] += got[name]
                 r = refreshes(res.accepts.tolist(), k, P)
                 want = {name: 0 for name in got}
-                want["row_min_d2"] = int(res.proposals.sum())
+                # one K11 launch prices every attempt of a round
+                want["row_min_d2"] = int((res.proposals > 0).sum())
                 if tag == "gated":
                     want.update(seed_prologue=1,
                                 distance_min_update_gated=r,
@@ -1546,7 +1629,7 @@ def rejection_phase(torch, ops, kd, bounds, telemetry, Draws, eng, ungated,
                 launches[name] += fgot[name]
             check(fgot["lloyd_assign_gated"] == fit.n_iters
                   and fgot["seed_prologue"] == 1
-                  and fgot["row_min_d2"] == int(on.proposals.sum())
+                  and fgot["row_min_d2"] == int((on.proposals > 0).sum())
                   and fgot["tile_cap"] == (k - 1 if hier else 0),
                   f"{what}: kmeans launches {fgot}")
             check(same_fit(torch, fit, eng.fit(pts, on.centroids,
@@ -1876,9 +1959,11 @@ def batched_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws, pts,
 
 def k1b_case(torch, kd, bounds, ops, pts):
     """The batched K1 at the seeding tiles of the batched shape: two
-    launches bitwise, norms bitwise ``bounds.point_norms``, the tile balls
-    against the plain twin, rows 0, 1 and B−1 bitwise K1 on their problem;
-    times and bound."""
+    launches bitwise, all four outputs bitwise the batched template entry
+    (``seed_prologue_template``), norms bitwise ``bounds.point_norms``, the
+    tile balls against the plain twin, rows 0, 1 and B−1 bitwise K1 on
+    their problem; times of K1 and the template entry beside the
+    bound."""
     bsz, n, d = pts.shape
     bn = ops.choose_block_n(n, d, 1)
     out1 = kd.seed_prologue_batched(pts, bn)
@@ -1886,6 +1971,9 @@ def k1b_case(torch, kd, bounds, ops, pts):
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(out1, out2)),
           "batched K1: two launches differ")
+    check(all(bits_equal(torch, a, b) for a, b in
+              zip(out1, kd.seed_prologue_template(pts, bn))),
+          "batched K1: not bitwise the template entry")
     check(torch.equal(out1[0], bounds.point_norms(pts)),
           "batched K1: norms are not bitwise bounds.point_norms")
     ref = kd.seed_prologue_torch(pts, bn)
@@ -1897,13 +1985,20 @@ def k1b_case(torch, kd, bounds, ops, pts):
         check(all(torch.equal(u[b], v) for u, v in zip(out1, single)),
               f"batched K1: problem {b} is not bitwise K1 on its slice")
     ms = gpu_ms(torch, lambda: kd.seed_prologue_batched(pts, bn), reps=5)
+    template_ms = gpu_ms(torch, lambda: kd.seed_prologue_template(pts, bn),
+                         reps=5)
+    ms_again = gpu_ms(torch, lambda: kd.seed_prologue_batched(pts, bn),
+                      reps=5)
     plain = gpu_ms(torch, lambda: kd.seed_prologue_torch(pts, bn), reps=1,
                    warmup=0)
     t = -(-n // bn)
     bms, by = bound_ms(4 * bsz * (n * d + 2 * n + t * (d + 1)),
                        bsz * (n * (3 * d + 1) + t * d))
     return dict(batch=bsz, n=n, d=d, block_n=bn, max_abs_err=err, tol=tol,
-                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+                ms=ms, ms_again=ms_again, template_ms=template_ms,
+                plain_ms=plain, bound_ms=bms,
+                bound_by=by,
+                route=("lone", "wide")[kd.prologue_route(d, bn) == 0])
 
 
 def k8_case(torch, kd, bounds, ops, pts, cache, md_in, cents, mask):
@@ -2335,6 +2430,10 @@ def gated_batched_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws,
                      else "not timed")
                   + f", bound {c['bound_ms']:.4f} ms ({c['bound_by']})"
                   + screen_text(c))
+    c = cases["K1b"][0]
+    print(f"  K1b ({c['route']} route) bitwise the batched template entry; "
+          f"{c['ms']:.4f} ms (again {c['ms_again']:.4f}; template entry "
+          f"{c['template_ms']:.4f} ms)")
     eng = ClusterEngine(device="cuda")
     ungated = ClusterEngine(device="cuda", bounds=False)
     runs = []
@@ -2682,7 +2781,7 @@ def weighted_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws, paper,
         if rej:
             want.update(distance_min_update=refreshes(
                 seeds.accepts.tolist(), k, 8),
-                row_min_d2=int(seeds.proposals.sum()),
+                row_min_d2=int((seeds.proposals > 0).sum()),
                 tile_cap=k - 1 if prop == "hier" else 0)
         check(got == want, f"{what}: launches {got}, want {want}")
         check(tuple(res.centroids.shape) == (k, full.dim)
@@ -3064,7 +3163,11 @@ def refused_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws, dev,
     folding 1,024 centroids at d = 64 (K2: the guard heal's fold), resident
     bitwise not. Each assignment round's new route is also run at the old
     cap (the largest k the template staged) on the same points, bitwise
-    its template entry there, and timed beside it."""
+    its template entry there, and timed beside it. At d = 60,000 a gated
+    ``kmeans`` (K1's wide route) and a flat rejection seeding (K11), at
+    d = 8,000 a hier one with ``refresh_block`` 8 (K12's (8, 8,000)
+    block), each counted and held to the ungated card engine (bitwise, but
+    hier) and to the CPU engine's run from the same draws."""
     out: dict = {}
 
     def beside(what, k, route, templates, rows=lambda got, b: got):
@@ -3117,6 +3220,48 @@ def refused_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws, dev,
         out[what] = dict(max_abs_err=err, tol=tol)
         print(f"{what}: labels and counts bitwise the twin's, D² err "
               f"{err:.3g} (tol {tol:.3g})")
+
+    def plain_seeds(what, got, want, nr, rejection=True):
+        """a card seeding against the CPU engine's from the same draws:
+        indices (and the rejection counters) equal, min_d2 within the D²
+        tolerance"""
+        diff = (got.indices.cpu() != want.indices).nonzero()
+        check(diff.numel() == 0, f"{what}: seeds are not the CPU engine's "
+              f"(first at seed {int(diff[0, 0]) if diff.numel() else -1}: "
+              f"{got.indices.tolist()} against {want.indices.tolist()})")
+        for f in ("proposals", "accepts") if rejection else ():
+            check(torch.equal(getattr(got, f).cpu(), getattr(want, f)),
+                  f"{what}: {f} are not the CPU engine's")
+        tol = d2_tol(torch, nr, got.centroids)
+        err = float((got.min_d2.cpu() - want.min_d2).abs().max())
+        check(err <= tol, f"{what}: min_d2 err {err} > {tol} against the "
+              "CPU engine")
+        out[what + " vs the CPU engine"] = dict(max_abs_err=err, tol=tol)
+        print(f"{what}: seeds{' and counters' if rejection else ''} the CPU "
+              f"engine's, min_d2 err {err:.3g} (tol {tol:.3g})")
+
+    def plain_fit(what, got, want, x, nr):
+        """a card fit against the CPU engine's from the same draws: labels
+        and n_iters equal, centroids within n roundings of the largest
+        coordinate (means of up to n rows in two orders), inertia within n
+        rows of the D² tolerance"""
+        check(torch.equal(got.assignment.cpu().long(), want.assignment.long())
+              and int(got.n_iters) == int(want.n_iters),
+              f"{what}: labels or n_iters are not the CPU engine's")
+        n_ = x.shape[0]
+        ctol = n_ * EPS32 * float(x.abs().max())
+        cerr = float((got.centroids.cpu() - want.centroids).abs().max())
+        itol = n_ * d2_tol(torch, nr, got.centroids)
+        ierr = abs(float(got.inertia) - float(want.inertia))
+        check(cerr <= ctol and ierr <= itol, f"{what}: centroids err {cerr} "
+              f"(tol {ctol}) or inertia err {ierr} (tol {itol}) against the "
+              "CPU engine")
+        out[what + " vs the CPU engine"] = dict(
+            centroids_err=cerr, centroids_tol=ctol, inertia_err=ierr,
+            inertia_tol=itol)
+        print(f"{what}: labels and n_iters the CPU engine's, centroids err "
+              f"{cerr:.3g} (tol {ctol:.3g}), inertia err {ierr:.3g} (tol "
+              f"{itol:.3g})")
 
     # K4: a weighted fit at d = 5, k = 4,096 (template cap 4,041)
     n, d, k = 100_000, 5, 4096
@@ -3282,6 +3427,160 @@ def refused_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws, dev,
     out["K2 fold m=1024 d=64"] = dict(max_abs_err=err, tol=tol)
     print(f"K2 fold m={k} d={d}: D² err {err:.3g} (tol {tol:.3g}), "
           f"partials within tolerance, resident bitwise not")
+    del x, c, cache, inf, rnd, md, parts
+    torch.cuda.empty_cache()
+
+    # K1 and K11 at d = 60,000 (the template K1 stages its center beside
+    # 256 floats, 57,856 at most; K11 staged its row, 58,112 at most): a
+    # gated kmeans (K1 on the wide route; K5 and K6 reading the centroids
+    # from device memory, where not one stages) and a flat rejection
+    # seeding, counted, each held to its plain paths: bitwise the ungated
+    # card engine, and the CPU engine's (the plain twins) from the same
+    # draws; K1 at the engine's tiles held to its twin, the template entry
+    # refusing; K6 and K3 at that width held to their twins; K11 on a
+    # round's 8 attempts bitwise its twin
+    from repro_torch.core.guards import KernelFailureError
+    cpu = ClusterEngine(device="cpu")
+    n, d, k = 1000, 60_000, 4
+    x, c = lattice(torch, gen, dev, n, d, k)
+    xc = x.cpu()
+
+    def km(e, pts):
+        return e.kmeans(pts, k, max_iters=3,
+                        generator=torch.Generator().manual_seed(4))
+
+    res = counted("gated kmeans d=60000 k=4", ["seed_prologue",
+                                               "distance_min_update_gated",
+                                               "lloyd_assign_gated"],
+                  lambda: km(eng, x))
+    check(bool(torch.isfinite(res.centroids).all()),
+          "kmeans d=60000: centroids not finite")
+    check(same_fit(torch, res, km(ung, x)),
+          "kmeans d=60000: gated is not bitwise ungated")
+    nr = bounds.point_norms(x)
+    plain_fit("gated kmeans d=60000 k=4", res, km(cpu, xc), x, nr)
+    plain_seeds("gated cdf seeding d=60000 k=4",
+                eng.seed(x, k, generator=torch.Generator().manual_seed(4)),
+                cpu.seed(xc, k, generator=torch.Generator().manual_seed(4)),
+                nr, rejection=False)
+    bn = ops.choose_block_n(n, d, k)
+    tps = bounds.tiles_per_super(-(-n // bn))
+    t = -(-n // bn)
+    zt = torch.zeros(t, device=dev)
+    gargs = (x, nr, c, torch.zeros(k, device=dev), zt, zt,
+             torch.zeros(n, dtype=torch.int32, device=dev),
+             torch.zeros(n, device=dev),
+             torch.full((n,), -torch.inf, device=dev), zt, zt,
+             torch.zeros((-(-t // tps), k, d), device=dev),
+             torch.zeros((-(-t // tps), k), device=dev),
+             torch.ones(t, dtype=torch.bool, device=dev))
+    g = la.lloyd_assign_gated(*gargs, block_n=bn, tps=tps)
+    gw = la.lloyd_assign_gated_torch(*gargs, block_n=bn, tps=tps)
+    tol = d2_tol(torch, nr, c)
+    held("K6 d=60000 k=4", (g[0], g[1], g[3], g[4], g[5], g[6]),
+         (gw[0], gw[1], gw[3], gw[4], gw[5], gw[6]), x, tol, bn=bn)
+    held("K3 d=60000 k=4", la.lloyd_assign_tiled(x, nr, c, block_n=bn,
+                                                 tps=tps),
+         la.lloyd_assign_tiled_torch(x, nr, c, block_n=bn, tps=tps), x, tol,
+         bn=bn)
+    del g, gw, gargs
+    bn = eng.backend.seed_tile(n, d, k)
+    check(kd.prologue_route(d, bn) == 0, "K1 d=60000: not the wide route")
+    try:
+        kd.seed_prologue_template(x, bn)
+        torch.cuda.synchronize()
+        refused = False
+    except KernelFailureError:
+        refused = True
+    check(refused, "K1 d=60000: the template entry did not refuse")
+    got = kd.seed_prologue(x, bn)
+    check(all(bits_equal(torch, a, b) for a, b in
+              zip(got, kd.seed_prologue(x, bn))), "K1 d=60000: two launches "
+          "differ")
+    check(torch.equal(got[0], bounds.point_norms(x)),
+          "K1 d=60000: norms are not bitwise bounds.point_norms")
+    want = kd.seed_prologue_torch(x, bn)
+    scale = float(x.abs().max())
+    err = float((got[1] - want[1]).abs().max())
+    check(err <= bn * EPS32 * scale, f"K1 d=60000: centers err {err}")
+    for g_, w_, what in zip(got[2:], want[2:], ("radii", "center_d")):
+        check(bool(((g_ - w_).abs() <= d * EPS32 * w_.abs() + 1e-6).all()),
+              f"K1 d=60000: {what} past d roundings of the twin")
+    ms = gpu_ms(torch, lambda: kd.seed_prologue(x, bn))
+    out["K1 d=60000"] = dict(block_n=bn, route="wide", max_abs_err=err,
+                             ms=ms)
+    print(f"K1 d={d} block_n={bn} (wide route): the template entry refuses; "
+          f"norms bitwise, centers err {err:.3g}, radii and center_d within "
+          f"d roundings of the twin; {ms:.4f} ms")
+    # the flat seeding on 8 clusters, one a seed: past the clusters, seeds
+    # would be drawn among within-cluster D² of about 12 that the card's
+    # and the CPU's matmul forms give a few units apart (D² tolerance 864)
+    del x, xc, c, got, want, res
+    x, _ = lattice(torch, gen, dev, n, d, 8)
+    xc = x.cpu()
+    nr = bounds.point_norms(x)
+    draws = Draws.sample(n, 8, generator=torch.Generator().manual_seed(5),
+                         device=dev, max_attempts=8)
+    kw = dict(sampler="rejection", proposal="flat", refresh_block=8)
+    rej = counted("flat rejection seeding d=60000 k=8", ["row_min_d2"],
+                  lambda: eng.seed(x, 8, draws=draws, **kw))
+    off = ung.seed(x, 8, draws=draws, **kw)
+    check(same_seeds(torch, rej, off)
+          and torch.equal(rej.proposals, off.proposals)
+          and torch.equal(rej.accepts, off.accepts),
+          "flat rejection d=60000: gated is not bitwise ungated")
+    plain_seeds("flat rejection seeding d=60000 k=8", rej,
+                cpu.seed(xc, 8, draws=draws.to("cpu"), **kw), nr)
+    check(out["launches"]["flat rejection seeding d=60000 k=8"]["row_min_d2"]
+          == int((rej.proposals > 0).sum()),
+          "flat rejection d=60000: not one K11 launch a round")
+    check(len(set(rej.indices.tolist())) == 8
+          and bool(torch.isfinite(rej.min_d2).all()),
+          "flat rejection d=60000: seeds malformed")
+    idx = torch.randint(n, (8,), generator=gen, device=dev)
+    pend = rej.centroids.contiguous()
+    for cnt in (0, 1, 8):
+        same_bits(torch, f"K11 d=60000 count={cnt}",
+                  (kd.row_min_d2(x, idx, pend, cnt),),
+                  (kd.row_min_d2_torch(x, idx, pend, cnt),))
+    print(f"flat rejection seeding d={d} k=8: {len(set(rej.indices.tolist()))}"
+          f" distinct seeds, K11 launches "
+          f"{out['launches']['flat rejection seeding d=60000 k=8']['row_min_d2']}"
+          f" (one a round); K11 on 8 rows bitwise the twin at count 0, 1, 8")
+    del x, xc, pend, nr, off
+    torch.cuda.empty_cache()
+
+    # K12 past its staging: hier rejection seeding at d = 8,000 with
+    # refresh_block 8 (a (8, 8,000) pending block, 64,000 floats past the
+    # old 58,112), counted; K12 on that block bitwise its twin
+    n, d, k = 20_000, 8000, 16
+    x, _ = lattice(torch, gen, dev, n, d, k)
+    draws = Draws.sample(n, k, generator=torch.Generator().manual_seed(6),
+                         device=dev, max_attempts=8)
+    kw = dict(sampler="rejection", proposal="hier", refresh_block=8)
+    rej = counted("hier rejection seeding d=8000 k=16",
+                  ["seed_prologue", "tile_cap", "row_min_d2"],
+                  lambda: eng.seed(x, k, draws=draws, **kw))
+    check(len(set(rej.indices.tolist())) == k
+          and bool(torch.isfinite(rej.min_d2).all()),
+          "hier rejection d=8000: seeds malformed")
+    plain_seeds("hier rejection seeding d=8000 k=16", rej,
+                cpu.seed(x.cpu(), k, draws=draws.to("cpu"), **kw),
+                bounds.point_norms(x))
+    check(4 * 8 * d > ops.SMEM_LIMIT, "K12 d=8000: not past the old cap")
+    _, centers, radii, _ = kd.seed_prologue(x, eng.backend.seed_tile(n, d, 1))
+    pend = rej.centroids[:8].contiguous()
+    for cnt in (0, 1, 8):
+        same_bits(torch, f"K12 (8, {d}) count={cnt}",
+                  (kd.tile_cap(centers, radii, pend, cnt),),
+                  (kd.tile_cap_torch(centers, radii, pend, cnt),))
+    out["K12 (8, 8000)"] = dict(
+        ms=gpu_ms(torch, lambda: kd.tile_cap(centers, radii, pend, 8)))
+    print(f"hier rejection seeding d={d} k={k}, refresh_block 8: {k} distinct "
+          f"seeds, launches "
+          f"{out['launches']['hier rejection seeding d=8000 k=16']}; K12 on "
+          f"the (8, {d}) block bitwise the twin at count 0, 1, 8, "
+          f"{out['K12 (8, 8000)']['ms']:.4f} ms")
     return out
 
 
@@ -3979,6 +4278,17 @@ def main() -> int:
         print(f"{fn}: {c['registers']} registers, {c['spill_bytes']} spill "
               f"bytes")
         check(c["spill_bytes"] == 0, f"{fn} spills")
+    # K1's routes and the template entry, K11 and K12: no spill
+    report["k1_build"] = k1_build(_build, logs)
+    check(len(report["k1_build"]) == 16,
+          f"K1, K11 and K12 kernels in the SASS: "
+          f"{sorted(report['k1_build'])}")
+    for fn, c in sorted(report["k1_build"].items()):
+        check("registers" in c and "spill_bytes" in c,
+              f"{fn}: no registers or spills in the ptxas log")
+        print(f"{fn}: {c['registers']} registers, {c['spill_bytes']} spill "
+              f"bytes")
+        check(c["spill_bytes"] == 0, f"{fn} spills")
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 2")
     # 2. kernels against their plain twins
@@ -3991,10 +4301,7 @@ def main() -> int:
         norms = bounds.point_norms(pts)
         c = k1_case(torch, kd, bounds, pts)
         cases["K1"].append(c)
-        print(f"K1 n={n} d={d}: err {c['max_abs_err']:.3g} "
-              f"(tol {c['tol']:.3g}) {c['ms']:.4f} ms, plain "
-              f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
-              f"({c['bound_by']})")
+        print(k1_text(c))
         for m in (1, 8):
             for resident in (True, False):
                 c = k2_case(torch, kd, ops, pts, norms, m, resident, gen)
@@ -4093,9 +4400,13 @@ def main() -> int:
                 torch, kd, pts, centers, radii, gen)):
             cases[name].append(c)
             print(f"{name} n={n} d={d} P={c['p']}"
-                  + (f" tiles={c['tiles']}" if name == "K12" else "")
+                  + (f" tiles={c['tiles']}" if name == "K12"
+                     else f" A={c['a']}")
                   + f": bitwise the plain version at count 0, 1, P; "
-                  f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, bound "
+                  f"{c['ms']:.4f} ms"
+                  + (f" (one row {c['one_row_ms']:.4f} ms)" if name == "K11"
+                     else "")
+                  + f", plain {c['plain_ms']:.4f} ms, bound "
                   f"{c['bound_ms']:.6f} ms ({c['bound_by']})")
         del centers, radii
     # K5 on rows too wide for 32 staged a block, read from device memory by
@@ -4131,6 +4442,14 @@ def main() -> int:
                       f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} "
                       f"ms ({c['bound_by']})")
         del xw, cache, md_in, centers, lab
+    # K1 at the IVF build's shape (IVF_SIFT1M's 1M rows of d = 128 in
+    # 4,096-row tiles of 2 MB: the lone route stages each tile's first rows
+    # and reads the rest from device memory)
+    xi = torch.rand((IVF.n_points, IVF.dim), generator=gen, device=dev)
+    cases["K1"].append(k1_case(torch, kd, bounds, xi, ops.choose_block_n(
+        IVF.n_points, IVF.dim, IVF.nlist)))
+    print(k1_text(cases["K1"][-1]))
+    del xi
     report["cases"] = cases
     del wide
     torch.cuda.empty_cache()

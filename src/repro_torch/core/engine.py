@@ -26,8 +26,9 @@ against:
       mini-batch fits: labels, D², and the (weighted) cluster sums and
       counts over all rows.
   row_min_d2(points, idx, pending, count) / tile_cap(centers, radii,
-      pending, count): the rejection sampler's D² of one drawn row, and the
-      per-tile envelope caps, against the first ``count`` pending centroids.
+      pending, count): the rejection sampler's D² of the drawn rows (every
+      attempt of a round at once), and the per-tile envelope caps, against
+      the first ``count`` pending centroids.
   seed_round_batched / assign_update_batched: the rounds of B independent
       problems at once, every tensor with a leading problem axis, gated
       like the single rounds when given a carried state (each problem by
@@ -67,7 +68,7 @@ included; each problem stops Lloyd at its own convergence test and is
 frozen from then on.
 Loops are Python loops over device tensors: a sampled index, a gate mask
 and a skip count never leave the device (the rejection loop reads one
-validity bit per round and one accept bit per attempt).
+validity bit and one first accepting attempt per round).
 """
 from __future__ import annotations
 
@@ -460,9 +461,10 @@ class Backend:
         return bounds.tiles_per_super(n_tiles, self.tps or None)
 
     def row_min_d2(self, points, idx, pending, count) -> torch.Tensor:
-        """0-d D² of row ``idx`` (a device index) to the nearest of
-        ``pending[:count]``, +inf when count is 0 — the rejection sampler's
-        exact p, O(P·d) work whatever n is."""
+        """D² of each row ``idx`` (device indices, 0-d or (A,), the result
+        the same shape) to the nearest of ``pending[:count]``, +inf when
+        count is 0 — the rejection sampler's exact p, O(A·P·d) work
+        whatever n is."""
         return kmeans_distance.row_min_d2_torch(points, idx, pending, count)
 
     def tile_cap(self, centers, radii, pending, count) -> torch.Tensor:
@@ -786,7 +788,10 @@ def _seed_rejection_loop(draws: Draws, pts, k, *, round_fn, propose_fn,
     centroids. A round draws from the envelope (``propose_fn(u, weight,
     partials, pstate)``), prices the drawn row exactly (``pq_fn(idx,
     weight, pending, count, pstate) -> (p, q)`` with ``p = min(q,
-    row_min_d2)``) and accepts with probability p/q. The full refresh — the
+    row_min_d2)``) and accepts with probability p/q; every attempt of the
+    round is proposed and priced at once (``u`` and ``idx`` (A,), one K11
+    launch on the card), since nothing an attempt reads depends on an
+    earlier one. The full refresh — the
     whole pending block folded through ``round_fn``, gated or not — runs
     when the block fills, when all ``max_attempts`` proposals reject (the
     round then takes an exact draw, ``fallback_fn``, from the refreshed
@@ -819,8 +824,8 @@ def _seed_rejection_loop(draws: Draws, pts, k, *, round_fn, propose_fn,
     ``prep_fn(partials, pending, count) -> (pstate, tightened)`` builds the
     hier proposal state once per round from the (healed) partials.
 
-    Host syncs: one per round (the envelope check), one per attempt (the
-    accept bit), one for the guard's final check.
+    Host syncs: two per round (the envelope check, the first accepting
+    attempt), one for the guard's final check.
 
     Returns (centroids, indices, min_d2, skipped, pruned, proposals,
     accepts, recovered, tightened, supers), all counters (k,) int32."""
@@ -960,19 +965,20 @@ def _seed_rejection(draws: Draws, pts, k, backend: Backend,
             # priced under the proposal's own association: a tightened
             # tile drew its row ∝ the capped window with tile mass ph_t,
             # so q = cwin[li] * ph_t / sum(cwin); other tiles keep the flat
-            # q = weight[idx] bitwise
+            # q = weight[idx] bitwise. idx (A,): every attempt at once,
+            # each window a row
             ph, _, _, cap, tight = pstate
-            rd2 = be.row_min_d2(pts, idx.reshape(()), pending, count)
-            t = idx // tile
-            li = idx - t * tile
+            rd2 = be.row_min_d2(pts, idx, pending, count)
+            t = (idx // tile)[:, None]
+            li = idx[:, None] - t * tile
             win = sampling.tile_window(weight, t, tile)
             cw = (cap[t] if w is None
                   else cap[t] * sampling.tile_window(w, t, tile))
             cwin = torch.where(cw < win, cw, win)
-            s_t = sampling.prefix_sum(cwin)[tile - 1]
-            q = torch.where(tight[t],
-                            cwin[li] * (ph[t] / s_t.clamp_min(tiny)),
-                            weight[idx])
+            s_t = sampling.prefix_sum(cwin)[:, tile - 1:tile]
+            q = torch.where(tight[t], torch.take_along_dim(cwin, li, dim=1)
+                            * (ph[t] / s_t.clamp_min(tiny)),
+                            weight[idx][:, None])[:, 0]
             return torch.minimum(q, rd2 if w is None else w[idx] * rd2), q
 
         def fallback_fn(u, fb, weight, partials):
@@ -988,7 +994,7 @@ def _seed_rejection(draws: Draws, pts, k, backend: Backend,
 
         def pq_fn(idx, weight, pending, count, pstate):
             q = weight[idx]
-            rd2 = be.row_min_d2(pts, idx.reshape(()), pending, count)
+            rd2 = be.row_min_d2(pts, idx, pending, count)
             return torch.minimum(q, rd2 if w is None else w[idx] * rd2), q
 
         def fallback_fn(u, fb, weight, partials):

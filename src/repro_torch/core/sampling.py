@@ -18,6 +18,11 @@ tests replay the reference's key schedule through it).
 
 Indices stay on the device as (1,) int64 tensors: no draw syncs the host.
 
+Many draws from one distribution: ``tiled_index_from_uniform`` and
+``hier_index_from_uniform`` also take (A,) uniforms against 1-D weights
+and return (A, 1) indices, row a bitwise the call on ``u[a]`` (the
+rejection sampler proposes every attempt of a round at once).
+
 Batched problems: ``categorical_cdf``, ``categorical_tiled``, ``_guarded``,
 ``prefix_sum`` and ``tile_partials`` also take (B, ·) rows, one problem per
 row, with ``u`` (B,) and ``fallback`` (B, 1), and return (B, 1) indices.
@@ -141,15 +146,18 @@ class Draws:
 def _search(cdf: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """First index with cdf[idx] > r (searchsorted, side='right'), clipped
     to the array; r is 0-d, the result (1,) int64 (batched: cdf (B, n), r
-    (B,), the result (B, 1))."""
-    idx = torch.searchsorted(cdf, r.reshape(cdf.shape[:-1] + (1,))
-                             .to(cdf.dtype), right=True)
+    (B,), the result (B, 1); one cdf, many draws: r (A,), the result
+    (A, 1))."""
+    lead = cdf.shape[:-1] if cdf.dim() > 1 else r.shape
+    idx = torch.searchsorted(cdf, r.reshape(lead + (1,)).to(cdf.dtype),
+                             right=True)
     return idx.clamp(0, cdf.shape[-1] - 1)
 
 
 def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x[idx]`` along the last axis, row by row when batched."""
-    return torch.take_along_dim(x, idx, dim=-1)
+    """``x[idx]`` along the last axis, row by row when batched (1-D ``x``:
+    any shape of ``idx``)."""
+    return x[idx] if x.dim() == 1 else torch.take_along_dim(x, idx, dim=-1)
 
 
 SCAN_BLOCK = 128   # length of prefix_sum's sequential row scans
@@ -264,8 +272,8 @@ def tile_window(weights: torch.Tensor, t: torch.Tensor,
                 block_n: int) -> torch.Tensor:
     """The (block_n,) weight slice of tile t (zero past the last row) — the
     only O(block_n) read a two-level draw performs. ``t`` is a (1,) device
-    index (batched: (B, 1), one window per row), gathered without a host
-    sync."""
+    index (batched, or many draws from 1-D weights: (B, 1), one window per
+    row), gathered without a host sync."""
     n = weights.shape[-1]
     rows = t * block_n + torch.arange(block_n, device=weights.device)
     win = _gather(weights, rows.clamp(max=n - 1))
@@ -358,6 +366,9 @@ def hier_index_from_uniform(u: torch.Tensor, weights: torch.Tensor,
     tile mass ``partials[t]``. Untightened tiles run the flat row level
     bitwise.
 
+    ``u`` may be (A,): A draws from these weights, (A, 1) indices, row a
+    bitwise the call on ``u[a]``.
+
     Super-level degenerate guard: a zero or non-finite coarse mass
     telescopes the one uniform through uniform super -> tile -> row picks
     instead of letting a clipped search steer the draw."""
@@ -373,10 +384,11 @@ def hier_index_from_uniform(u: torch.Tensor, weights: torch.Tensor,
     wid = s * tps + torch.arange(tps, device=tcdf.device)
     twin = torch.where(wid < n_tiles, tcdf[wid.clamp(max=n_tiles - 1)],
                        torch.inf)
-    t = (s * tps + torch.searchsorted(twin, r.reshape(1), right=True)
+    t = (s * tps + torch.searchsorted(twin, r.reshape(s.shape), right=True)
          ).clamp(0, n_tiles - 1)
     prev = tcdf[(t - 1).clamp(min=0)]
-    r_local = r - torch.where(t > 0, prev, torch.zeros_like(prev))
+    r_local = r.reshape(t.shape) - torch.where(t > 0, prev,
+                                               torch.zeros_like(prev))
 
     win = tile_window(weights, t, block_n)
     ph_t = partials[t]
@@ -388,9 +400,8 @@ def hier_index_from_uniform(u: torch.Tensor, weights: torch.Tensor,
     lcdf = prefix_sum(use)
     if cap is not None:
         tiny = torch.finfo(tcdf.dtype).tiny
-        r2 = torch.where(tight_t,
-                         (r_local / ph_t.clamp_min(tiny)) * lcdf[block_n - 1],
-                         r_local)
+        r2 = torch.where(tight_t, (r_local / ph_t.clamp_min(tiny))
+                         * lcdf[..., block_n - 1:block_n], r_local)
     idx = _row_in_tile(lcdf, r2, r_local, ph_t, t, block_n=block_n, n=n)
 
     # super-level guard: uniform super -> tile -> row from the one uniform
@@ -423,24 +434,30 @@ def rejection_sample(propose_fn, pq_fn, propose_u: torch.Tensor,
                      valid: bool = True):
     """Truncated rejection draw from a target p via a dominating envelope q.
 
-    ``propose_fn(u) -> idx`` draws an index from the envelope with uniform
-    ``u``; ``pq_fn(idx) -> (p, q)`` returns the drawn row's exact weight and
-    its envelope weight (exactness needs 0 <= p <= q). Attempt j proposes
-    with ``propose_u[j]`` and accepts iff ``accept_u[j] * q < p`` — the
-    strict test, so p = q = 0 rejects. One host sync per attempt reads the
-    accept bit. Returns ``(idx, accepted, attempts)``; when no attempt
-    accepts the caller MUST take an exact draw with independent uniforms
-    (the truncated mixture stays exactly p). ``valid`` False skips the
-    attempts outright (``attempts == 0``)."""
-    idx = None
-    if not valid:
-        return idx, False, 0
-    for j in range(max_attempts):
-        idx = propose_fn(propose_u[j])
-        p, q = pq_fn(idx)
-        if bool(accept_u[j] * q < p):
-            return idx, True, j + 1
-    return idx, False, max_attempts
+    Attempt j proposes with ``propose_u[j]`` and accepts iff ``accept_u[j]
+    * q < p`` — the strict test, so p = q = 0 rejects; the draw is the
+    first accepting attempt's. Nothing an attempt reads depends on an
+    earlier one, so all ``max_attempts`` are computed at once:
+    ``propose_fn(u) -> idx`` draws an index from the envelope for each of
+    the (A,) uniforms ``u`` (entry j bitwise a draw with ``u[j]`` alone),
+    and ``pq_fn(idx) -> (p, q)`` returns every drawn row's exact weight and
+    its envelope weight (exactness needs 0 <= p <= q). One host sync reads
+    the first accepting attempt. Returns ``(idx, accepted, attempts)``:
+    the (1,) index of the first accepting attempt (the last attempt's when
+    none accepts) and the attempts that took, j + 1 or ``max_attempts``;
+    when no attempt accepts the caller MUST take an exact draw with
+    independent uniforms (the truncated mixture stays exactly p).
+    ``valid`` False skips the attempts outright (``attempts == 0``)."""
+    if not valid or max_attempts < 1:
+        return None, False, max_attempts if valid else 0
+    u = propose_u[:max_attempts]
+    idx = propose_fn(u).reshape(max_attempts)
+    p, q = pq_fn(idx)
+    ok = accept_u[:max_attempts] * q.reshape(-1) < p.reshape(-1)
+    order = torch.arange(max_attempts, device=ok.device)
+    first = int(torch.where(ok, order, max_attempts).amin())   # one sync
+    j = min(first, max_attempts - 1)
+    return idx[j:j + 1], first < max_attempts, min(first + 1, max_attempts)
 
 
 def _guarded(idx: torch.Tensor, fallback: torch.Tensor,

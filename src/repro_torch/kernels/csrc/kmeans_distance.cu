@@ -1042,11 +1042,15 @@ int launch_gated(const T* points, const float* norms, const T* cents,
     // d = 600 to 16,384 measured faster than stages of fewer rows)
     const size_t rb16 = (rb + 15) / 16;
     int stride = (int)(16 * (rb16 % 2 ? rb16 : rb16 + 1));
+    const size_t base = sizeof(float) * 2 * kSeg
+                        + sizeof(int) * (kSegU * kWarps + 2) + 16;
+    // resident where one centroid stages beside the rest; past that width
+    // (fp32 d of about 57,000) the centroids are read from device memory,
+    // the same bits
+    if (base + sizeof(float) * ((size_t)d + 1) > (size_t)kSmem) resident = 0;
     const int mc = resident ? min(m, max(1, kWideCents / (d + 1))) : m;
-    const size_t fixed = sizeof(float) * ((resident ? (size_t)mc * (d + 1)
-                                                    : 0) + 2 * kSeg)
-                         + sizeof(int) * (kSegU * kWarps + 2) + 16;
-    if (fixed > (size_t)kSmem) return (int)cudaErrorInvalidValue;
+    const size_t fixed = base + (resident ? sizeof(float) * (size_t)mc
+                                                * (d + 1) : 0);
     int kB = 0;
     for (size_t budget : {kWideHalf, (size_t)kSmem}) {
       for (kB = kThreads; kB >= 32; kB /= 2)

@@ -1965,6 +1965,21 @@ __device__ __forceinline__ void stage_centroids(const T* __restrict__ cents,
   }
 }
 
+// Where not one centroid row stages in a block (kc == 0: d past about
+// 58,000), the row passes read the centroids from device memory and stage
+// only their k norms, formed here by stage_centroids' arithmetic (the same
+// bits).
+template <typename T>
+__device__ __forceinline__ void centroid_norms(const T* __restrict__ cents,
+                                               float* cn_sh, int k, int d) {
+  for (int c = threadIdx.x; c < k; c += blockDim.x) {
+    const T* cc = cents + (size_t)c * d;
+    float s = 0.f;
+    for (int j = 0; j < d; ++j) s = fmaf(widen(cc[j]), widen(cc[j]), s);
+    cn_sh[c] = s;
+  }
+}
+
 // The fold of listed rows list_s[i0 .. i0 + RR) (block-relative; rows past
 // `total` are not folded): exact_d2 and fold over every centroid in
 // ascending order, the RR rows sharing each pass over the staged centroids,
@@ -1994,13 +2009,14 @@ __device__ __forceinline__ void fold_listed(
     best[q] = second[q] = CUDART_INF_F;
     a[q] = 0;
   }
-  for (int c0 = 0; c0 < k; c0 += kc) {
+  const int step = kc > 0 ? kc : k;   // kc == 0: from device memory
+  for (int c0 = 0; c0 < k; c0 += step) {
     if (c0 > 0) {
       __syncthreads();   // the last chunk's reads are done
       stage_centroids(cents, c_sh, cn_sh, c0, min(kc, k - c0), d);
       __syncthreads();
     }
-    const int nc = row[0] < 0 ? 0 : min(kc, k - c0);
+    const int nc = row[0] < 0 ? 0 : min(step, k - c0);
     for (int c = 0; c < nc; ++c) {
       const float* cc = c_sh + (size_t)c * d;
       const float cn = cn_sh[c];
@@ -2013,11 +2029,17 @@ __device__ __forceinline__ void fold_listed(
           fold(exact_d2<D>([&](int j) { return xr[q][j]; },
                            [&](int j) { return cr[j]; }, d, xn[q], cn),
                c0 + c, best[q], second[q], a[q]);
-      } else {
+      } else if (kc > 0) {
         const T* x = points + (size_t)row[0] * d;
         fold(exact_d2<0>([&](int j) { return widen(x[j]); },
                          [&](int j) { return cc[j]; }, d, xn[0], cn),
              c0 + c, best[0], second[0], a[0]);
+      } else {
+        const T* x = points + (size_t)row[0] * d;
+        const T* cg = cents + (size_t)c * d;
+        fold(exact_d2<0>([&](int j) { return widen(x[j]); },
+                         [&](int j) { return widen(cg[j]); }, d, xn[0], cn),
+             c, best[0], second[0], a[0]);
       }
     }
   }
@@ -2053,8 +2075,8 @@ row_kernel(const T* __restrict__ points, const float* __restrict__ norms,
   constexpr int R = D > 0 ? 4 : 1;
   extern __shared__ float smem[];
   float* c_sh = smem;                                   // (kc, d)
-  float* cn_sh = c_sh + (size_t)kc * d;                 // (kc,)
-  int* cnt_sh = reinterpret_cast<int*>(cn_sh + kc);     // (R * 128,)
+  float* cn_sh = c_sh + (size_t)kc * d;                 // (kc,), or (k,)
+  int* cnt_sh = reinterpret_cast<int*>(cn_sh + (kc > 0 ? kc : k));
   int* list_s = cnt_sh + R * kRowThreads;               // (R * 128,)
   __shared__ int list_n;
   const int tid = threadIdx.x, lane = tid & 31;
@@ -2081,7 +2103,10 @@ row_kernel(const T* __restrict__ points, const float* __restrict__ norms,
   const int t0 = blk0 / block_n;
   for (int i = tid; i < R * kRowThreads; i += kRowThreads) cnt_sh[i] = 0;
   if (tid == 0) list_n = 0;
-  stage_centroids(cents, c_sh, cn_sh, 0, min(kc, k), d);   // chunk 0
+  if (kc > 0)
+    stage_centroids(cents, c_sh, cn_sh, 0, min(kc, k), d);   // chunk 0
+  else
+    centroid_norms(cents, cn_sh, k, d);
   // the thread's R rows: every load first, so they are in flight together
   const int row0 = blk0 + R * tid;
   int pa[R];
@@ -2178,7 +2203,8 @@ row_kernel(const T* __restrict__ points, const float* __restrict__ norms,
 
 // K6's row pass stages kc centroids at a time: all k where they and the
 // lists fit kRowBudget, else the most that do (wide rows: the most that
-// fit a block); 0 where not one fits.
+// fit a block); 0 where not one fits (the centroids then read from device
+// memory, their k norms staged).
 inline int split_k_chunk(int d, int k) {
   const int lists = 2 * 4 * (d == 2 ? 4 : 1) * kRowThreads;
   const int per = 4 * (d + 1);
@@ -2200,9 +2226,9 @@ int launch_split(const T* points, const float* norms, const T* cents,
       ((long long)n + R * kRowThreads - 1) / (R * kRowThreads);
   const long long grid = bpp * batch;
   const int kc = split_k_chunk(d, k);
-  if (kc < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)kc * (d + 1)
+  const size_t smem = sizeof(float) * (kc > 0 ? (size_t)kc * (d + 1) : k)
                       + 2 * sizeof(int) * R * kRowThreads;
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   // the carries read as 16-byte vectors where they are aligned
   const int vec = reinterpret_cast<uintptr_t>(g.prev_a) % 16 == 0
@@ -2477,7 +2503,7 @@ wide_row_kernel(const T* __restrict__ points, const float* __restrict__ norms,
                 int d, int k, int kc, int bpp) {
   extern __shared__ float smem[];
   float* c_sh = smem;                                   // (kc, d)
-  float* cn_sh = c_sh + (size_t)kc * d;                 // (kc,)
+  float* cn_sh = c_sh + (size_t)kc * d;                 // (kc,), or (k,)
   const int b = blockIdx.x / bpp;
   points += (size_t)b * n * d;
   norms += (size_t)b * n;
@@ -2489,7 +2515,17 @@ wide_row_kernel(const T* __restrict__ points, const float* __restrict__ norms,
   const float xn = ok ? norms[row] : 0.f;
   float best = CUDART_INF_F, second = CUDART_INF_F;
   int a = 0;
-  for (int c0 = 0; c0 < k; c0 += kc) {
+  if (kc == 0) {   // the centroids from device memory, their norms staged
+    centroid_norms(cents, cn_sh, k, d);
+    __syncthreads();
+    for (int c = 0; ok && c < k; ++c) {
+      const T* cg = cents + (size_t)c * d;
+      fold(exact_d2<0>([&](int j) { return widen(x[j]); },
+                       [&](int j) { return widen(cg[j]); }, d, xn, cn_sh[c]),
+           c, best, second, a);
+    }
+  }
+  for (int c0 = 0; c0 < (kc > 0 ? k : 0); c0 += kc) {
     if (c0 > 0) __syncthreads();   // the last chunk's reads are done
     const int nc = min(kc, k - c0);
     stage_centroids(cents, c_sh, cn_sh, c0, nc, d);
@@ -2510,10 +2546,13 @@ wide_row_kernel(const T* __restrict__ points, const float* __restrict__ norms,
 
 // the row pass's centroids a chunk: all k where their staging (16 bytes a
 // centroid at d = 2, 32 below d = 8, 4 (d + 1) past) fits kRowBudget, else
-// the most that do (one at least: a wide row's block takes what it needs).
+// the most that do (one at least where one fits a block: a wide row's block
+// takes what it needs); 0 where not one does (the centroids then read from
+// device memory, their k norms staged).
 inline int row_k_chunk(int d, int k) {
-  const int per = d == 2 ? 16 : d <= kNarrow ? 32 : 4 * (d + 1);
-  return min(k, max(1, kRowBudget / per));
+  const long long per = d == 2 ? 16 : d <= kNarrow ? 32 : 4LL * (d + 1);
+  if (per > 232448) return 0;
+  return min(k, max(1, (int)(kRowBudget / per)));
 }
 
 // The row pass over `batch` problems of n rows: K4 and K9 (Second false),
@@ -2532,7 +2571,8 @@ int launch_rows(const T* points, const float* norms, const T* cents,
                     | reinterpret_cast<uintptr_t>(lbo)) % 16 == 0;
   const int kc = row_k_chunk(d, k);
   const size_t smem =
-      (size_t)(d == 2 ? 16 : d <= kNarrow ? 32 : 4 * (d + 1)) * kc;
+      kc > 0 ? (size_t)(d == 2 ? 16 : d <= kNarrow ? 32 : 4 * (d + 1)) * kc
+             : sizeof(float) * (size_t)k;
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   const auto blocks = [&](int rows) {
     const long long per = (long long)rows * kRowThreads;
@@ -2653,13 +2693,17 @@ inline Route route_of(int round, int d, bool bf16) {
 }
 
 // The most centroids a route takes at width d: the screened route's 16-bit
-// candidate index; the row passes any where one centroid row fits a block,
-// else none (both stage their centroids in chunks).
+// candidate index; the row passes any where one centroid row fits a block
+// (both stage their centroids in chunks), else as many as their norms fit
+// (the centroids read from device memory).
 inline int route_max_k(Route r, int d) {
   switch (r) {
     case kScreened: return screen::kMaxK;
-    case kRowPass: return 4LL * (d + 1) <= 232448 ? 0x7fffffff : 0;
-    case kSplit: return split_k_chunk(d, 1) >= 1 ? 0x7fffffff : 0;
+    case kRowPass: return 4LL * (d + 1) <= 232448 ? 0x7fffffff : 232448 / 4;
+    case kSplit:
+      return split_k_chunk(d, 1) >= 1
+                 ? 0x7fffffff
+                 : (232448 - 2 * 4 * kRowThreads * 4) / 4;
     default: return -1;
   }
 }

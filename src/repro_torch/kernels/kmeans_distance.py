@@ -12,6 +12,10 @@ tile's center) the seeding and assignment gates read. ``seed_prologue_batched``
 is K1 over B independent problems in one launch, row b K1 on problem b (the
 reference batches its prologue kernel through ``pallas_call``'s generic
 ``vmap`` rule).
+K1 reads a tile once where it fits its CTA's shared memory (the lone
+route; past the widths it holds, the wide route), every output bitwise
+``seed_prologue_template``'s, the kernel before its redesign, which the
+card tests hold it to.
 
 One round (K2) folds the newest centroid block c (m, d) into every point's
 D² and returns the per-tile partial sums the samplers draw from:
@@ -32,10 +36,11 @@ reachable for the card tests).
 
 Rejection seeding (K11, K12) works between refreshes against the pending
 block of P centroids not yet folded in, of which the first ``count`` are
-live: K11 ``row_min_d2`` is the D² of the one drawn row to them (the exact
-p of a proposal), K12 ``tile_cap`` bounds every tile's current D² from its
-ball alone. Both use the diff-square form and add the columns in a fixed
-order, so the kernels and their plain twins agree bitwise.
+live: K11 ``row_min_d2`` is the D² of each drawn row to them (the exact
+p of every proposal of a round, one launch), K12 ``tile_cap`` bounds every
+tile's current D² from its ball alone. Both use the diff-square form and
+add the columns in a fixed order, so the kernels and their plain twins
+agree bitwise; both take any (P, d).
 
 The rounds (K2, K5, K7, K8) read points and centroids as fp32 or as a
 bf16 stream, both of one dtype: the bf16 instance widens each value
@@ -72,12 +77,11 @@ _GATED_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 14 + (ctypes.c_int,) * 7
                            + (ctypes.c_void_p,))
 _GATED_TEMPLATE_ARGTYPES = ((ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 6
                             + (ctypes.c_void_p,))
-_PROLOGUE_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3
+# K1 and its template entry
+_PROLOGUE_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4
                       + (ctypes.c_void_p,))
-_PROLOGUE_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4
-                              + (ctypes.c_void_p,))
 _ROW_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_longlong,)
-                 + (ctypes.c_int,) * 2 + (ctypes.c_void_p,))
+                 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
 _CAP_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (
     ctypes.c_void_p,)
 
@@ -170,62 +174,27 @@ def distance_min_update_gated_batched_torch(*args, block_n: int):
     return tuple(torch.stack(o) for o in zip(*outs))
 
 
-def seed_prologue(points: torch.Tensor, block_n: int):
-    """The prologue at tile height ``block_n``. Returns (norms (n,),
-    centers (T, d), radii (T,), center_d (n,)). On the card this launches
-    K1; CPU tensors take the plain twin."""
-    if points.dim() != 2 or points.shape[0] < 1 or points.shape[1] < 1:
-        raise ValueError(f"points must be (n, d), got {tuple(points.shape)}")
+def _check_prologue(points: torch.Tensor, block_n: int, dims: int) -> None:
+    if points.dim() != dims or min(points.shape) < 1:
+        want = "(n, d)" if dims == 2 else "(B, n, d)"
+        raise ValueError(f"points must be {want}, got {tuple(points.shape)}")
     if block_n < 1:
         raise ValueError(f"block_n must be >= 1, got {block_n}")
-    if points.device.type == "cpu":
-        return seed_prologue_torch(points, block_n)
-    if points.device.type != "cuda":
+    if points.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {points.device}")
-    ops.check_card_tensors(points=points)
-    n, d = points.shape
-    n_tiles = -(-n // block_n)
-    fn = _build.function("seed_prologue", "seed_prologue_launch",
-                         _PROLOGUE_ARGTYPES)
-    norms = torch.empty(n, dtype=torch.float32, device=points.device)
-    center_d = torch.empty_like(norms)
-    centers = torch.empty((n_tiles, d), dtype=torch.float32,
-                          device=points.device)
-    radii = torch.empty(n_tiles, dtype=torch.float32, device=points.device)
-    with torch.cuda.device(points.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(points.data_ptr(), norms.data_ptr(), centers.data_ptr(),
-                 radii.data_ptr(), center_d.data_ptr(), n, d, block_n,
-                 stream)
-    if err != 0:
-        raise KernelFailureError(f"seed_prologue launch failed: "
-                                 f"cudaError {err}")
-    ops.LAUNCHES["seed_prologue"] += 1
-    return norms, centers, radii, center_d
 
 
-def seed_prologue_batched(points: torch.Tensor, block_n: int):
-    """The prologue of B independent problems (points (B, n, d)) at tile
-    height ``block_n``. Returns (norms (B, n), centers (B, T, d), radii
-    (B, T), center_d (B, n)). On the card this launches the batched K1, one
-    launch for every problem; CPU tensors take the plain twin."""
-    if points.dim() != 3 or min(points.shape) < 1:
-        raise ValueError(f"points must be (B, n, d), got "
-                         f"{tuple(points.shape)}")
-    if block_n < 1:
-        raise ValueError(f"block_n must be >= 1, got {block_n}")
-    if points.device.type == "cpu":
-        return seed_prologue_torch(points, block_n)
-    if points.device.type != "cuda":
-        raise ValueError(f"unsupported device {points.device}")
-    ops.check_card_tensors(points=points)
+def _prologue_launch(points: torch.Tensor, block_n: int, symbol: str):
+    """One launch over the (B, n, d) points (B = 1 for the single K1) of
+    K1's source entry ``symbol``: K1 or its template. Returns the outputs
+    with the leading axis."""
     bsz, n, d = points.shape
     n_tiles = -(-n // block_n)
     if bsz * n_tiles >= 2 ** 31:
         raise ValueError(f"{bsz} problems of {n_tiles} tiles exceed the "
                          "grid's 2^31 - 1 blocks")
-    fn = _build.function("seed_prologue", "seed_prologue_batched_launch",
-                         _PROLOGUE_BATCHED_ARGTYPES)
+    ops.check_card_tensors(points=points)
+    fn = _build.function("seed_prologue", symbol, _PROLOGUE_ARGTYPES)
     dev = points.device
     norms = torch.empty((bsz, n), dtype=torch.float32, device=dev)
     center_d = torch.empty_like(norms)
@@ -237,10 +206,61 @@ def seed_prologue_batched(points: torch.Tensor, block_n: int):
                  radii.data_ptr(), center_d.data_ptr(), bsz, n, d, block_n,
                  stream)
     if err != 0:
-        raise KernelFailureError(f"seed_prologue_batched launch failed: "
-                                 f"cudaError {err}")
-    ops.LAUNCHES["seed_prologue_batched"] += 1
+        raise KernelFailureError(f"{symbol} failed: cudaError {err}")
     return norms, centers, radii, center_d
+
+
+def prologue_route(d: int, block_n: int) -> int:
+    """The route K1 takes for (d, block_n) tiles on the card, as its source
+    decides: 1, the lone route (a CTA a tile, its first rows staged in
+    shared memory, all of a tile that fits), or 0, the wide route (past
+    the widths whose center and chains fit a CTA). Builds the source."""
+    fn = _build.function("seed_prologue", "seed_prologue_route",
+                         (ctypes.c_int, ctypes.c_int))
+    return int(fn(d, block_n))
+
+
+def seed_prologue(points: torch.Tensor, block_n: int):
+    """The prologue at tile height ``block_n``. Returns (norms (n,),
+    centers (T, d), radii (T,), center_d (n,)). On the card this launches
+    K1 (on the route :func:`prologue_route` names; every output bitwise
+    :func:`seed_prologue_template`'s). CPU tensors take the plain twin."""
+    _check_prologue(points, block_n, 2)
+    if points.device.type == "cpu":
+        return seed_prologue_torch(points, block_n)
+    out = _prologue_launch(points[None], block_n,
+                           "seed_prologue_batched_launch")
+    ops.LAUNCHES["seed_prologue"] += 1
+    return tuple(o[0] for o in out)
+
+
+def seed_prologue_batched(points: torch.Tensor, block_n: int):
+    """The prologue of B independent problems (points (B, n, d)) at tile
+    height ``block_n``. Returns (norms (B, n), centers (B, T, d), radii
+    (B, T), center_d (B, n)). On the card this launches the batched K1, one
+    launch for every problem, row b bitwise K1 on problem b; CPU tensors
+    take the plain twin."""
+    _check_prologue(points, block_n, 3)
+    if points.device.type == "cpu":
+        return seed_prologue_torch(points, block_n)
+    out = _prologue_launch(points, block_n, "seed_prologue_batched_launch")
+    ops.LAUNCHES["seed_prologue_batched"] += 1
+    return out
+
+
+def seed_prologue_template(points: torch.Tensor, block_n: int):
+    """K1's template kernel (its kernel before the redesign) on (n, d) or
+    (B, n, d) points: the bits K1 is held to on the card. It stages the
+    (d,) center beside 256 floats and refuses (``KernelFailureError``) past
+    d = 57,856. Counts no launch; the engine never calls it. CPU tensors
+    take the plain twin."""
+    batched = points.dim() == 3
+    _check_prologue(points, block_n, 3 if batched else 2)
+    if points.device.type == "cpu":
+        return seed_prologue_torch(points, block_n)
+    out = _prologue_launch(points if batched else points[None], block_n,
+                           "seed_prologue_template_launch")
+    return out if batched else tuple(o[0] for o in out)
 
 
 def _check(points, norms, centroids, min_d2, block_n):
@@ -620,12 +640,18 @@ def _live(count, p: int, device) -> torch.Tensor:
 
 def row_min_d2_torch(points: torch.Tensor, idx: torch.Tensor,
                      pending: torch.Tensor, count) -> torch.Tensor:
-    """Plain PyTorch twin of K11: 0-d fp32 D² of row ``idx`` to the nearest
-    of ``pending[:count]``, +inf when count is 0."""
-    x = points.index_select(0, idx.reshape(1).long())      # (1, d)
-    d2 = diff_sq(x, pending)
+    """Plain PyTorch twin of K11: fp32 D² of each row ``idx`` (0-d or
+    (A,), the result the same shape) to the nearest of
+    ``pending[:count]``, +inf when count is 0, NaN for an index outside
+    [0, n). Entry a is bitwise the 0-d call on ``idx[a]``."""
+    n = points.shape[0]
+    flat = idx.reshape(-1).long()
+    inside = (flat >= 0) & (flat < n)
+    x = points.index_select(0, torch.where(inside, flat, 0))     # (A, d)
+    d2 = diff_sq(x[:, None, :], pending[None, :, :])            # (A, P)
     live = _live(count, pending.shape[0], points.device)
-    return torch.where(live, d2, torch.inf).amin()
+    best = torch.where(live[None, :], d2, torch.inf).amin(dim=1)
+    return torch.where(inside, best, torch.nan).reshape(idx.shape)
 
 
 def tile_cap_torch(centers: torch.Tensor, radii: torch.Tensor,
@@ -658,16 +684,18 @@ def _check_pending(pending: torch.Tensor, d: int) -> None:
 
 def row_min_d2(points: torch.Tensor, idx: torch.Tensor,
                pending: torch.Tensor, count) -> torch.Tensor:
-    """The rejection sampler's exact p: 0-d fp32 D² of row ``idx`` (a 0-d
-    or (1,) int64 device tensor, never read on the host) to the nearest of
-    ``pending[:count]``; +inf when count is 0. On the card this launches
-    K11; CPU tensors take the plain twin."""
+    """The rejection sampler's exact p for every proposal of a round: fp32
+    D² of each row ``idx`` (a 0-d or (A,) int64 device tensor, never read
+    on the host; the result the same shape) to the nearest of
+    ``pending[:count]``; +inf when count is 0, NaN for an index outside
+    [0, n). On the card this is one K11 launch for all A rows; CPU tensors
+    take the plain twin."""
     if points.dim() != 2:
         raise ValueError("points must be 2-D")
     n, d = points.shape
     _check_pending(pending, d)
-    if idx.numel() != 1:
-        raise ValueError(f"idx must hold one index, got {tuple(idx.shape)}")
+    if idx.dim() > 1 or idx.numel() < 1:
+        raise ValueError(f"idx must be 0-d or (A,), got {tuple(idx.shape)}")
     if points.device.type == "cpu":
         return row_min_d2_torch(points, idx, pending, count)
     if points.device.type != "cuda":
@@ -677,11 +705,11 @@ def row_min_d2(points: torch.Tensor, idx: torch.Tensor,
     cnt = _card_count(count, points.device)
     p = pending.shape[0]
     fn = _build.function("rejection", "row_min_d2_launch", _ROW_ARGTYPES)
-    out = torch.empty((), dtype=torch.float32, device=points.device)
+    out = torch.empty(idx.shape, dtype=torch.float32, device=points.device)
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(points.data_ptr(), idx.data_ptr(), pending.data_ptr(),
-                 cnt.data_ptr(), out.data_ptr(), n, d, p, stream)
+                 cnt.data_ptr(), out.data_ptr(), n, d, p, idx.numel(), stream)
     if err != 0:
         raise KernelFailureError(f"row_min_d2 launch failed: cudaError {err}")
     ops.LAUNCHES["row_min_d2"] += 1
@@ -707,9 +735,6 @@ def tile_cap(centers: torch.Tensor, radii: torch.Tensor,
         raise ValueError(f"unsupported device {centers.device}")
     ops.check_card_tensors(centers=centers, radii=radii, pending=pending)
     p = pending.shape[0]
-    if 4 * p * d > ops.SMEM_LIMIT:
-        raise ValueError(f"a ({p}, {d}) pending block does not fit in "
-                         f"{ops.SMEM_LIMIT} bytes of shared memory")
     cnt = _card_count(count, centers.device)
     fn = _build.function("rejection", "tile_cap_launch", _CAP_ARGTYPES)
     out = torch.empty(t, dtype=torch.float32, device=centers.device)

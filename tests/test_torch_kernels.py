@@ -225,6 +225,21 @@ def test_lloyd_assign_tiled_first_index_wins_ties():
 # ---------------------------------------------------------------------------
 
 
+def test_seed_prologue_template_entry_takes_the_twin_on_cpu():
+    """On the CPU the template entries take the plain twin, single and
+    batched, and count no launch."""
+    x = torch.from_numpy(_data(700, 3, seed=7))
+    ops.reset_launches()
+    for pts in (x, torch.stack([x, x.flip(0)])):
+        got = kd.seed_prologue_template(pts, 128)
+        want = kd.seed_prologue_torch(pts, 128)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        got = (kd.seed_prologue(pts, 128) if pts.dim() == 2
+               else kd.seed_prologue_batched(pts, 128))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert not any(ops.LAUNCHES.values())
+
+
 @pytest.mark.parametrize("n,d,block_n", [(1000, 2, 128), (777, 9, 256)])
 def test_seed_prologue_matches_reference(ref, n, d, block_n):
     """Norms within d roundings (the interpreted kernel may fuse a product
@@ -912,6 +927,68 @@ def test_k5_wide_rows_are_the_template_bitwise(card, d, m, mask, dtype):
     _k5_held_to_the_template(card, 3_001, d, m, mask, dtype, 1000)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["gate", "all"])
+def test_k5_takes_any_width(card, mask):
+    """d = 60,000: not one centroid stages beside the wide path's rows, so
+    K5 reads its centroids from device memory whether asked to stage them
+    or not; every output bitwise the template entry reading them from
+    device memory, and all active, K2 (its ungated row loop) bitwise
+    too."""
+    n, d, m, bn = 600, 60_000, 2, 128
+    args = _k5_args(card, n, d, m, mask, torch.float32, 7, bn)
+    want = kd.distance_min_update_gated_template(*args, block_n=bn,
+                                                 resident=False)
+    for resident in (True, False):
+        got = kd.distance_min_update_gated(*args, block_n=bn,
+                                           resident=resident)
+        _bits(got, want)
+    if mask == "all":
+        for resident in (True, False):
+            _bits(got[:2], kd.distance_min_update(*args[:4], block_n=bn,
+                                                  resident=resident))
+
+
+@pytest.mark.cuda
+def test_row_passes_take_any_width(card):
+    """d = 60,000: not one centroid row stages in a block, so the row pass
+    (K3, K4) and the split row pass (K6) read the centroids from device
+    memory and stage only their norms; labels and counts equal to the
+    plain twins', D² within tolerance, two launches the same bits."""
+    n, d, k, bn, tps = 600, 60_000, 4, 128, 2
+    rng = np.random.default_rng(60)
+    cents = rng.normal(size=(k, d)).astype(np.float32) * 3
+    lab = rng.integers(0, k, n)
+    x = torch.from_numpy(cents[lab] + rng.normal(size=(n, d))
+                         .astype(np.float32)).to(card)
+    c = torch.from_numpy(cents).to(card)
+    nr = bounds.point_norms(x)
+    t = -(-n // bn)
+    s = -(-t // tps)
+    zt = torch.zeros(t, device=card)
+    gargs = (x, nr, c, torch.zeros(k, device=card), zt, zt,
+             torch.zeros(n, dtype=torch.int32, device=card),
+             torch.zeros(n, device=card),
+             torch.full((n,), -torch.inf, device=card), zt, zt,
+             torch.zeros(s, k, d, device=card), torch.zeros(s, k, device=card),
+             torch.ones(t, dtype=torch.bool, device=card))
+    tol = d2_tol(x.cpu().numpy(), cents)
+    for got, again, want in (
+            (la.lloyd_assign_gated(*gargs, block_n=bn, tps=tps),
+             la.lloyd_assign_gated(*gargs, block_n=bn, tps=tps),
+             la.lloyd_assign_gated_torch(*gargs, block_n=bn, tps=tps)),
+            (la.lloyd_assign_tiled(x, nr, c, block_n=bn, tps=tps),
+             la.lloyd_assign_tiled(x, nr, c, block_n=bn, tps=tps),
+             la.lloyd_assign_tiled_torch(x, nr, c, block_n=bn, tps=tps)),
+            (la.lloyd_assign(x, nr, c, None, block_n=bn),
+             la.lloyd_assign(x, nr, c, None, block_n=bn),
+             la.lloyd_assign_torch(x, nr, c, None))):
+        assert all(_same_bits(p, q) for p, q in zip(got, again))
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[0].cpu(), torch.from_numpy(lab).int())
+        assert float((got[1] - want[1]).abs().max()) <= tol
+
+
 def _k5_held_to_the_template(card, n, d, m, mask, dtype, bn):
     """The checks of ``test_k5_is_the_template_bitwise`` at one shape."""
     args = _k5_args(card, n, d, m, mask, dtype, 10 * d + m, bn)
@@ -1174,3 +1251,145 @@ def test_tile_cap_kernel_matches_plain(card, n, d, count):
         assert bool(torch.isinf(got).all())
     else:
         assert bool(torch.isfinite(got).all())
+
+
+def _same_bits(a, b) -> bool:
+    """Bitwise equality, fp32 compared as int32 patterns (NaN equals NaN)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,a", [(2, 1), (2, 8), (33, 8), (60_000, 1),
+                                 (60_000, 8)])
+@pytest.mark.parametrize("count", [0, 1, 8])
+def test_row_min_d2_prices_many_rows_in_one_launch(card, d, a, count):
+    """K11's (A,) form: one launch for A drawn rows (an index outside
+    [0, n) among them when A = 8), bitwise the plain version and, entry by
+    entry, the 0-d launch; NaN at the bad indices; two launches the same
+    bits; the row read from device memory, so d = 60,000 too."""
+    n = 5003 if d < 1000 else 40
+    x = torch.from_numpy(_data(n, d, seed=d)).to(card)
+    pend = (x[[7, 1, 20, 3, 5, 9, 15, 25]] + 0.01).contiguous()
+    idx = torch.tensor([0, n - 1, 7, -1, n, 13, 5, 7][:a], device=card)
+    ops.reset_launches()
+    got = kd.row_min_d2(x, idx, pend, count)
+    again = kd.row_min_d2(x, idx, pend, count)
+    assert ops.LAUNCHES["row_min_d2"] == 2
+    assert got.shape == (a,)
+    assert _same_bits(got, again)
+    assert _same_bits(got, kd.row_min_d2_torch(x, idx, pend, count))
+    for j in range(a):
+        assert _same_bits(got[j], kd.row_min_d2(x, idx[j], pend, count))
+        bad = not 0 <= int(idx[j]) < n
+        assert bool(torch.isnan(got[j])) == bad
+        if count == 0 and not bad:
+            assert float(got[j]) == float("inf")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,d", [(8, 8000), (64, 1000), (8, 20_000),
+                                 (3, 2)])
+@pytest.mark.parametrize("count", [0, 1, "P"])
+def test_tile_cap_takes_any_pending_block(card, p, d, count):
+    """K12 past the old shared-memory cap (a (P, d) block of more than
+    58,112 floats): whole slots a stage, or one slot in column chunks past
+    12,288 columns; bitwise the plain version, two launches the same
+    bits."""
+    count = p if count == "P" else count
+    gen = torch.Generator(device=card).manual_seed(d)
+    t = 300
+    centers = torch.randn((t, d), generator=gen, device=card)
+    radii = torch.rand(t, generator=gen, device=card)
+    pend = torch.randn((p, d), generator=gen, device=card)
+    cnt = torch.tensor(count, dtype=torch.int32, device=card)
+    ops.reset_launches()
+    got = kd.tile_cap(centers, radii, pend, cnt)
+    again = kd.tile_cap(centers, radii, pend, cnt)
+    assert ops.LAUNCHES["tile_cap"] == 2
+    assert _same_bits(got, again)
+    assert _same_bits(got, kd.tile_cap_torch(centers, radii, pend, cnt))
+    assert bool(torch.isinf(got).all()) == (count == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 16, 17, 128, 257, 300, 9588,
+                               9589, 20_000])
+@pytest.mark.parametrize("block_n", [128, 1024, 4096])
+def test_k1_is_the_template_bitwise(card, d, block_n):
+    """K1 bitwise the template entry in all four outputs, on ragged n (the
+    last tile short; the lone route staging all of a tile or its first
+    rows, the rest from device memory), on the route the width picks: the
+    lone route up to d = 9,588, the wide route past it; two launches the
+    same bits, each counted once. d = 3, 5, 17, 300: lane counts that are
+    no power of two."""
+    n = 2 * block_n + 77
+    x = torch.from_numpy(_data(n, d, seed=d + block_n)).to(card)
+    want = kd.seed_prologue_template(x, block_n)
+    assert kd.prologue_route(d, block_n) == (1 if d <= 9588 else 0)
+    ops.reset_launches()
+    got = kd.seed_prologue(x, block_n)
+    again = kd.seed_prologue(x, block_n)
+    assert ops.LAUNCHES["seed_prologue"] == 2
+    for g, a, w in zip(got, again, want):
+        assert _same_bits(g, w), (g, w)
+        assert _same_bits(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 16, 17])
+def test_k1_batched_rows_are_k1(card, d):
+    """The batched K1 bitwise the batched template entry, and row b
+    bitwise the single K1 on problem b."""
+    bsz, n, bn = 5, 3001, 1024
+    xb = torch.from_numpy(_data(bsz * n, d, seed=d)).reshape(bsz, n, d) \
+        .to(card)
+    want = kd.seed_prologue_template(xb, bn)
+    ops.reset_launches()
+    got = kd.seed_prologue_batched(xb, bn)
+    assert ops.LAUNCHES["seed_prologue_batched"] == 1
+    assert all(_same_bits(g, w) for g, w in zip(got, want))
+    for b in range(bsz):
+        single = kd.seed_prologue(xb[b], bn)
+        assert all(_same_bits(g[b], s) for g, s in zip(got, single))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [4, 6, 16, 32])
+def test_k1_reads_unaligned_points(card, d):
+    """Points one float past a 16-byte boundary (a contiguous view at
+    storage offset 1): the bulk copies' unaligned ends are copied by the
+    threads, rows read by float; bitwise the template entry."""
+    n, bn = 5000, 1024
+    flat = torch.from_numpy(_data(1, n * d + 1, seed=d)).reshape(-1).to(card)
+    x = flat[1:].view(n, d)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    want = kd.seed_prologue_template(x, bn)
+    got = kd.seed_prologue(x, bn)
+    assert all(_same_bits(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_k1_takes_any_width(card):
+    """d = 60,000: the template entry refuses (its center does not fit
+    beside 256 floats of shared memory) and K1 takes the wide route, held
+    to the plain twin: norms bitwise ``bounds.point_norms``, centers within
+    block_n roundings of the largest coordinate, radii and center_d within
+    d roundings (sums of d squares in two orders); two launches the same
+    bits."""
+    from repro_torch.core.guards import KernelFailureError
+    n, d, bn = 300, 60_000, 128
+    x = torch.from_numpy(_data(n, d, seed=1)).to(card)
+    with pytest.raises(KernelFailureError):
+        kd.seed_prologue_template(x, bn)
+    assert kd.prologue_route(d, bn) == 0
+    got = kd.seed_prologue(x, bn)
+    again = kd.seed_prologue(x, bn)
+    assert all(_same_bits(g, a) for g, a in zip(got, again))
+    assert torch.equal(got[0], bounds.point_norms(x))
+    want = kd.seed_prologue_torch(x, bn)
+    scale = float(x.abs().max())
+    assert float((got[1] - want[1]).abs().max()) <= bn * EPS32 * scale
+    for g, w in zip(got[2:], want[2:]):
+        assert bool(((g - w).abs() <= d * EPS32 * w.abs() + 1e-6).all())

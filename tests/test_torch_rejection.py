@@ -145,12 +145,127 @@ def test_kernel_wrappers_reject_bad_shapes():
     x = torch.zeros(50, 3)
     with pytest.raises(ValueError):
         kd.row_min_d2(x, torch.tensor(1), torch.zeros(4, 2), 2)
+    # idx is 0-d or (A,): one row or every attempt of a round
     with pytest.raises(ValueError):
-        kd.row_min_d2(x, torch.tensor([1, 2]), torch.zeros(4, 3), 2)
+        kd.row_min_d2(x, torch.tensor([[1, 2]]), torch.zeros(4, 3), 2)
+    with pytest.raises(ValueError):
+        kd.row_min_d2(x, torch.zeros(0, dtype=torch.int64),
+                      torch.zeros(4, 3), 2)
     with pytest.raises(ValueError):
         kd.tile_cap(torch.zeros(5, 3), torch.zeros(4), torch.zeros(4, 3), 1)
     with pytest.raises(ValueError):
         kd.tile_cap(torch.zeros(5, 3), torch.zeros(5), torch.zeros(4, 2), 1)
+
+
+@pytest.mark.parametrize("d", [2, 5])
+@pytest.mark.parametrize("count", [0, 1, 8])
+def test_row_min_d2_on_many_rows_is_each_single_row(ref, d, count):
+    """K11's (A,) form, one call for every attempt of a round: entry a
+    bitwise the 0-d call on ``idx[a]`` (A = 1 and 8, repeated rows among
+    them), each within the single-row test's roundings of the interpreted
+    ``row_min_d2_pallas`` at that index (+inf at count 0), and NaN for an
+    index outside [0, n)."""
+    jnp = ref.jnp
+    x = np.random.default_rng(d).normal(size=(300, d)).astype(np.float32)
+    pend = _pending(x, 8, seed=count)
+    xt, pt = torch.from_numpy(x), torch.from_numpy(pend)
+    for idx in (torch.tensor([123]),
+                torch.tensor([0, 17, 299, 17, 5, 123, 250, 1])):
+        got = kd.row_min_d2(xt, idx, pt, count)
+        assert got.shape == idx.shape and got.dtype == torch.float32
+        for a, i in enumerate(idx.tolist()):
+            one = kd.row_min_d2(xt, torch.tensor(i), pt, count)
+            assert one.shape == ()
+            assert got[a].view(torch.int32) == one.view(torch.int32)
+            kern = float(ref.ops.row_min_d2(
+                jnp.asarray(x), jnp.asarray(i), jnp.asarray(pend),
+                jnp.asarray(count), interpret=True))
+            if count == 0:
+                assert float(got[a]) == kern == np.inf
+            else:
+                assert abs(float(got[a]) - kern) <= (2 * d + 4) * EPS32 * kern
+    out = kd.row_min_d2(xt, torch.tensor([3, -1, 300, 299]), pt, count)
+    assert torch.isnan(out[1]) and torch.isnan(out[2])
+    for a, i in ((0, 3), (3, 299)):
+        assert out[a].view(torch.int32) == kd.row_min_d2(
+            xt, torch.tensor(i), pt, count).view(torch.int32)
+
+
+def _one_at_a_time(propose_fn, pq_fn, propose_u, accept_u, max_attempts,
+                   valid=True):
+    """The sequential rejection loop: attempt j proposes with
+    ``propose_u[j]`` alone, prices that one row and reads its accept bit,
+    stopping at the first accept."""
+    if not valid:
+        return None, False, 0
+    idx = None
+    for j in range(max_attempts):
+        idx = propose_fn(propose_u[j])
+        p, q = pq_fn(idx)
+        if bool(accept_u[j] * q < p):
+            return idx, True, j + 1
+    return idx, False, max_attempts
+
+
+def _proposal(kind, seed):
+    """(weights, propose_fn) of a tiled draw or a hier draw (tightened
+    windows, or none) over one weight vector."""
+    w, parts, tcdf, cap, tight = _hier_inputs(
+        seed, tightened=kind == "hier tightened")
+    wt = torch.from_numpy(w)
+    if kind == "tiled":
+        return wt, lambda u: sampling.tiled_index_from_uniform(
+            u, wt, parts, block_n=BN)
+    scdf = sampling.super_cdf(tcdf, TPS)
+    return wt, lambda u: sampling.hier_index_from_uniform(
+        u, wt, parts, tcdf, scdf, block_n=BN, tps=TPS, cap=cap, tight=tight)
+
+
+@pytest.mark.parametrize("kind", ["tiled", "hier", "hier tightened"])
+def test_many_draws_are_each_single_draw(kind):
+    """(A,) uniforms against one weight vector: row a of the draw is
+    bitwise the draw with ``u[a]`` alone (the rejection sampler proposes
+    every attempt of a round in one call)."""
+    _, propose = _proposal(kind, seed=5)
+    u = torch.from_numpy(np.random.default_rng(6).random(64)
+                         .astype(np.float32))
+    u[:3] = torch.tensor([0.0, 0.999999, 0.5])
+    many = propose(u)
+    assert many.shape == (64, 1)
+    for a in range(64):
+        assert torch.equal(many[a], propose(u[a]))
+
+
+@pytest.mark.parametrize("max_attempts", range(1, 9))
+@pytest.mark.parametrize("kind", ["tiled", "hier tightened"])
+def test_rejection_sample_is_the_sequential_loop(kind, max_attempts):
+    """All attempts at once against the one-at-a-time loop, on accept
+    patterns from every attempt accepting to none (p = 0), with NaN p on
+    some rows and ``valid=False``: the index, the accept bit and the
+    attempt count are equal."""
+    w, propose = _proposal(kind, seed=max_attempts)
+    rng = np.random.default_rng(100 + max_attempts)
+    for trial in range(12):
+        shrink = rng.choice(np.array([0.0, 0.3, 1.0, np.nan], np.float32),
+                            size=w.shape[0],
+                            p=[[0.25, 0.25, 0.25, 0.25], [0.9, 0.05, 0.0,
+                                                          0.05],
+                               [0.0, 0.0, 1.0, 0.0]][trial % 3])
+        p = w * torch.from_numpy(shrink)
+        pu = torch.from_numpy(rng.random(max_attempts).astype(np.float32))
+        au = torch.from_numpy(rng.random(max_attempts).astype(np.float32))
+        pq = lambda i: (p[i], w[i])   # noqa: E731
+        for valid in (True, False):
+            got = sampling.rejection_sample(propose, pq, pu, au,
+                                            max_attempts=max_attempts,
+                                            valid=valid)
+            want = _one_at_a_time(propose, pq, pu, au, max_attempts, valid)
+            assert got[1:] == want[1:]
+            if valid:
+                assert got[0].shape == (1,)
+                assert torch.equal(got[0], want[0].reshape(1))
+            else:
+                assert got[0] is None
 
 
 # ---------------------------------------------------------------------------
@@ -678,7 +793,8 @@ def card():
 @pytest.mark.parametrize("proposal", ["hier", "flat"])
 def test_rejection_on_the_card_goes_through_k11_and_k12(card, proposal):
     """``ClusterEngine(device='cuda')`` rejection seeding launches K11 once
-    per attempt and K12 once per round under 'hier' (never under 'flat');
+    per round that proposes (every attempt of the round priced in that
+    launch) and K12 once per round under 'hier' (never under 'flat');
     refresh_block=1 is bitwise the tiled seeds, two runs are bitwise equal,
     and flat gated is bitwise ungated."""
     from repro_torch.kernels import ops
@@ -691,7 +807,7 @@ def test_rejection_on_the_card_goes_through_k11_and_k12(card, proposal):
     res = eng.seed(pts, k, draws=draws, sampler="rejection",
                    proposal=proposal)
     got = dict(ops.LAUNCHES)
-    assert got["row_min_d2"] == int(res.proposals.sum())
+    assert got["row_min_d2"] == int((res.proposals > 0).sum()) == k - 1
     assert got["tile_cap"] == (k - 1 if proposal == "hier" else 0)
     assert got["distance_min_update_gated"] >= 2
     telemetry.check_rejection_counters(res.proposals, res.accepts, k, A,
