@@ -45,7 +45,11 @@ Phases, each of which exits non-zero on failure:
    no spill; their registers are printed. So are K1's 14 (the lone route
    ``lone_kernel<V, G, all | part>`` and the template's kernel
    ``seed_prologue_kernel<wide>``, the wide route at ``wide`` and the
-   template entry's kernel otherwise) and K11's and K12's, no spill.
+   template entry's kernel otherwise) and K11's and K12's (``tile_cap_kernel``
+   and ``tile_envelope_kernel``), no spill; and K16's 11
+   (``decode_kernel<q, V>`` for fp32 and bf16 queries at 1, 2 and 4 floats a
+   load, ``pq_lut_kernel<q>``, and the template entry's ``pq_split_kernel``
+   and ``pq_combine_kernel<q>``), no spill.
 2. Hold every kernel against its plain PyTorch twin on the card, at the
    paper's shape (n = 4,000,000, d = 2; label-sorted for the gated seeding
    round, so its gate skips) and a ragged wide one (n = 100,003, d = 128):
@@ -70,7 +74,10 @@ Phases, each of which exits non-zero on failure:
    B, the super reduce), K11 (the rejection sampler's drawn-row D², row by
    row and for a round's 8 attempts in one launch, each entry bitwise the
    one-row launch; timed at 8) and K12 (its per-tile envelope caps, over
-   K1's tile balls) against a pending block of 8 centroids with count 0, 1
+   K1's tile balls, and the hier round's whole tile envelope in one launch,
+   ``tile_envelope``: the caps, the capped tile masses, the tight tiles and
+   their count, bitwise ``tile_envelope_torch``, timed beside the caps
+   alone) against a pending block of 8 centroids with count 0, 1
    and 8. Two launches must give
    identical bits, skipped tiles must keep their carried values, all-active
    K5 and K6 (the latter with no carried bound) must be bitwise K2 and K3,
@@ -147,7 +154,8 @@ Phases, each of which exits non-zero on failure:
    and flat on both layouts, counted like phase 3: K1 once, K5 once per
    refresh (the schedule's, the exact fallbacks' and the settling one),
    K11 once per round that proposes (one launch prices every attempt of
-   the round), K12 once per round under hier and never under
+   the round), K12 (the tile envelope) once per hier round with a live
+   pending centroid (none in the round after a refresh) and never under
    flat; ungated, K2 in K5's place and no K12. Held: two runs bitwise
    equal; flat gated bitwise ungated (seeds, D², the kmeans fit); at
    ``refresh_block=1`` hier, flat and the tiled sampler pick the same
@@ -216,8 +224,8 @@ Phases, each of which exits non-zero on failure:
    launch, codes bitwise K10a's labels. Then the weighted
    ``ClusterEngine(device="cuda").kmeans`` at the paper's size for cdf,
    tiled and rejection (hier, flat), counted (K1 once, K2 per round or
-   refresh, K11 per proposing round, K12 per hier round, K4 per
-   iteration, no
+   refresh, K11 per proposing round, K12 per hier round with a live
+   pending centroid, K4 per iteration, no
    K3/K5/K6), bitwise a second run and (but for hier, which tightens its
    envelope only with the tile balls) the ``bounds=False`` run, the kmeans
    bitwise its seeding's seeds then a weighted fit, the inertia within
@@ -286,10 +294,17 @@ Phases, each of which exits non-zero on failure:
    compressed cache: one query per layer through K16
    (``pq_decode_attention``), 26 counted launches, at ``cache_len`` 8,192
    (an int) and 8,191 (a 0-d int32 tensor on the card); per layer K16
-   within 2e-4 of its twin and of K15 over the reconstructed cache
-   (decode form: Sq 1, ``causal=False``, keys cut at ``cache_len``), two
-   launches bitwise, and its relative error against K15 over the
-   uncompressed cache printed (Gaussian data: not a gate). Prefill,
+   within 2e-4 of its twin, of its template entry
+   (``pq_decode_attention_template``, the three-launch kernel its redesign
+   replaced) and of K15 over the reconstructed cache (decode form: Sq 1,
+   ``causal=False``, keys cut at ``cache_len``), two launches bitwise, the
+   arrival counters back at 0 after the step, and its relative error
+   against K15 over the uncompressed cache printed (Gaussian data: not a
+   gate). One layer's K16 is timed beside its template entry, its bound
+   and the launch floor (a one-element add on the same stream), the
+   device launches of one call counted by torch.profiler (it fails unless
+   they are ``pq_lut_kernel`` once and ``decode_kernel`` once), and the whole
+   26-layer step timed by CUDA events, K16 and the template entry. Prefill,
    Sq = Skv = 8,192, cap 50: a global (causal) and a local (window) layer
    in fp32 and bf16 through K15 (``flash_attention``: both on ``wgmma``
    tensor cores fed by TMA, fp32 in split TF32), 4 counted launches
@@ -584,8 +599,25 @@ def k1_build(_build, logs: dict) -> dict:
                    f"{'wide' if m.group(4) == '1' else 'template'}>"))
     out.update(kernel_build(
         _build, "rejection", logs["rejection"],
-        r"(row_min_d2_kernel|tile_cap_kernel)", lambda m: m.group(1)))
+        r"(row_min_d2_kernel|tile_cap_kernel|tile_envelope_kernel)",
+        lambda m: m.group(1)))
     return out
+
+
+def k16_build(_build, log: str) -> dict:
+    """K16's kernels (``decode_kernel<q, V>``, ``pq_lut_kernel<q>``) and its
+    template entry's (``pq_split_kernel``, ``pq_combine_kernel<q>``), q the
+    query's type, as ``kernel_build`` reads them."""
+    def q(t):
+        return "fp32" if t == "f" else "bf16"
+    return kernel_build(
+        _build, "pq_decode", log,
+        r"(decode_kernelI(f|13__nv_bfloat16)Li(\d)E|"
+        r"pq_(lut|combine)_kernelI(f|13__nv_bfloat16)E|pq_split_kernel)",
+        lambda m: (f"decode_kernel<{q(m.group(2))}, {m.group(3)}>"
+                   if m.group(2) else
+                   f"pq_{m.group(4)}_kernel<{q(m.group(5))}>" if m.group(4)
+                   else "pq_split_kernel"))
 
 
 def d2_tol(torch, norms, cents) -> float:
@@ -823,7 +855,13 @@ def rejection_kernel_cases(torch, kd, pts, centers, radii, gen, p=8,
     pend = pts[torch.randint(n, (p,), generator=gen, device=dev)].contiguous()
     rows = torch.randint(n, (4,), generator=gen, device=dev)
     many = torch.randint(n, (attempts,), generator=gen, device=dev)
+    # a hier round's envelope inputs: rows a tile as the tile masses, and
+    # partials that the caps of a fuller pending block undercut
+    t = centers.shape[0]
+    tile_w = torch.full((t,), float(-(-n // t)), device=dev)
+    partials = kd.tile_cap_torch(centers, radii, pend[:1], 1) * tile_w
     err11 = err12 = 0.0
+    n_tight = 0
     for count in (0, 1, p):
         cnt = torch.tensor(count, dtype=torch.int32, device=dev)
         what = f"n={n} d={d} count={count}"
@@ -856,26 +894,42 @@ def rejection_kernel_cases(torch, kd, pts, centers, radii, gen, p=8,
         check(bool(torch.isinf(c1).all()) if count == 0
               else bool(torch.isfinite(c1).all()),
               f"K12 {what}: +inf where it should not be, or missing")
+        env = kd.tile_envelope(centers, radii, pend, cnt, partials, tile_w)
+        check(all(bits_equal(torch, a, b) for a, b in zip(
+            env, kd.tile_envelope(centers, radii, pend, cnt, partials,
+                                  tile_w)))
+              and all(bits_equal(torch, a, b) for a, b in zip(
+                  env, kd.tile_envelope_torch(centers, radii, pend, cnt,
+                                              partials, tile_w)))
+              and bits_equal(torch, env[0], c1),
+              f"K12 {what}: the tile envelope is not bitwise its twin, a "
+              "second launch's, or its caps K12's")
+        n_tight = int(env[3])
     i = rows[0]
     cnt = torch.tensor(p, dtype=torch.int32, device=dev)
-    t = centers.shape[0]
     ms11, plain11 = timed(torch, lambda: kd.row_min_d2(pts, many, pend, cnt),
                           lambda: kd.row_min_d2_torch(pts, many, pend, cnt))
     ms11_one = gpu_ms(torch, lambda: kd.row_min_d2(pts, i, pend, cnt))
+    cap_ms = gpu_ms(torch, lambda: kd.tile_cap(centers, radii, pend, cnt))
     ms12, plain12 = timed(
-        torch, lambda: kd.tile_cap(centers, radii, pend, cnt),
-        lambda: kd.tile_cap_torch(centers, radii, pend, cnt))
+        torch, lambda: kd.tile_envelope(centers, radii, pend, cnt, partials,
+                                        tile_w),
+        lambda: kd.tile_envelope_torch(centers, radii, pend, cnt, partials,
+                                       tile_w))
     # K11 reads the drawn rows, the block, idx and count and writes a float
-    # a row; K12 reads the balls, the block and count and writes T caps
+    # a row; K12 as the hier round runs it (the tile envelope) reads the
+    # balls, the block, the partials, the tile masses and count and writes
+    # the caps, the capped masses, the tight flags and their count
     b11, by11 = bound_ms(4 * (attempts * (d + 1) + p * d) + 8 * attempts + 4,
                          attempts * p * 3 * d)
-    b12, by12 = bound_ms(4 * (t * (d + 1) + p * d + t) + 4,
-                         t * (p * 3 * d + 3))
+    b12, by12 = bound_ms(4 * (t * (d + 1) + p * d + 2 * t) + 4
+                         + 9 * t + 4, t * (p * 3 * d + 3 + 3))
     return (dict(n=n, d=d, p=p, a=attempts, max_abs_err=err11, ms=ms11,
                  one_row_ms=ms11_one, plain_ms=plain11, bound_ms=b11,
                  bound_by=by11),
             dict(n=n, d=d, p=p, tiles=t, max_abs_err=err12, ms=ms12,
-                 plain_ms=plain12, bound_ms=b12, bound_by=by12))
+                 tile_cap_ms=cap_ms, tight=n_tight, plain_ms=plain12,
+                 bound_ms=b12, bound_by=by12))
 
 
 def k1_case(torch, kd, bounds, pts, bn=None):
@@ -1283,6 +1337,40 @@ def profile_call(torch, fn) -> dict:
                          for name, (ms, c) in top})
 
 
+def device_launches(torch, fn, reps: int = 10, sessions: int = 8) -> dict:
+    """Device kernels a call of ``fn`` launches, by kernel name (the
+    function's, without namespace or arguments), per call: the most that
+    any of ``sessions`` torch.profiler sessions records, each over ``reps``
+    calls after a warm-up step of ``reps`` calls whose records it drops.
+    The profiler loses records, at a session's start and at times within
+    one (ROADMAP hazards 9 and 17), but makes none up, so each session's
+    count is a lower bound."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        seen = {}
+        for evt in prof.key_averages():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                key = re.sub(r"^void\s+", "", evt.key.replace(
+                    "(anonymous namespace)::", ""))
+                name = re.match(r"[\w:]*", key).group(0).split("::")[-1]
+                name = name or evt.key
+                seen[name] = seen.get(name, 0) + evt.count / reps
+        for name, n in seen.items():
+            out[name] = max(out.get(name, 0), n)
+    return out
+
+
 def print_profile(name: str, p: dict) -> None:
     top = ", ".join(f"{kname[:48]} {v['ms']:.3f} ms x{v['count']}"
                     for kname, v in list(p["kernels"].items())[:5])
@@ -1336,6 +1424,21 @@ def refreshes(accepts, k: int, p: int) -> int:
         if not accepts[m]:
             r, count = r + 1, 0
     return r + 1
+
+
+def live_rounds(accepts, k: int, p: int) -> int:
+    """Rounds of a rejection seeding that start with a live pending
+    centroid (the count after the round's append and any refresh is not
+    0): a hier seeding's tile envelopes, K12's launches."""
+    count, live = p - 1, 0
+    for m in range(1, k):
+        count += 1
+        if count >= p:
+            count = 0
+        live += count > 0
+        if not accepts[m]:
+            count = 0
+    return live
 
 
 def same_seeds(torch, a, b) -> bool:
@@ -1580,7 +1683,8 @@ def rejection_phase(torch, ops, kd, bounds, telemetry, Draws, eng, ungated,
                 if tag == "gated":
                     want.update(seed_prologue=1,
                                 distance_min_update_gated=r,
-                                tile_cap=k - 1 if hier else 0)
+                                tile_cap=live_rounds(res.accepts.tolist(), k,
+                                                     P) if hier else 0)
                 else:
                     want["distance_min_update"] = r
                 check(got == want, f"{what} {tag}: launches {got}, want "
@@ -1630,7 +1734,8 @@ def rejection_phase(torch, ops, kd, bounds, telemetry, Draws, eng, ungated,
             check(fgot["lloyd_assign_gated"] == fit.n_iters
                   and fgot["seed_prologue"] == 1
                   and fgot["row_min_d2"] == int((on.proposals > 0).sum())
-                  and fgot["tile_cap"] == (k - 1 if hier else 0),
+                  and fgot["tile_cap"] == (live_rounds(
+                      on.accepts.tolist(), k, P) if hier else 0),
                   f"{what}: kmeans launches {fgot}")
             check(same_fit(torch, fit, eng.fit(pts, on.centroids,
                                                max_iters=max_iters)),
@@ -2782,7 +2887,8 @@ def weighted_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws, paper,
             want.update(distance_min_update=refreshes(
                 seeds.accepts.tolist(), k, 8),
                 row_min_d2=int((seeds.proposals > 0).sum()),
-                tile_cap=k - 1 if prop == "hier" else 0)
+                tile_cap=live_rounds(seeds.accepts.tolist(), k, 8)
+                if prop == "hier" else 0)
         check(got == want, f"{what}: launches {got}, want {want}")
         check(tuple(res.centroids.shape) == (k, full.dim)
               and bool(torch.isfinite(res.centroids).all())
@@ -3967,7 +4073,11 @@ def attention_phase(torch, ops, dense, pqc, dev, launches, profile):
               f"decode step at cache_len {cache_len}: launches {got}, want "
               f"{L} K16")
         launches["pq_decode_attention"] += L
-        err = err_k15 = sq = num = 0.0
+        check(all(not c.any() for key, c in ops._ARRIVALS.items()
+                  if key[0] == "pq_decode_attention"),
+              f"decode step at cache_len {cache_len}: K16's arrival counters "
+              "not back at 0")
+        err = err_k15 = err_tpl = sq = num = 0.0
         for li in range(L):
             o = outs[li]
             check(o.shape == (1, 1, H, hd) and bool(torch.isfinite(o).all()),
@@ -3977,6 +4087,8 @@ def attention_phase(torch, ops, dense, pqc, dev, launches, profile):
                 f"K16 layer {li}: two launches differ")
             twin = pqd.pq_decode_attention_torch(qs[li], *layer(li), arg)
             err = max(err, float((o - twin).abs().max()))
+            err_tpl = max(err_tpl, float((o - pqd.pq_decode_attention_template(
+                qs[li], *layer(li), arg)).abs().max()))
             kc, vc, kcb, vcb = layer(li)
             rec = fa.flash_attention(
                 qs[li], pqd.reconstruct(kc[:, :cache_len], kcb),
@@ -3987,37 +4099,61 @@ def attention_phase(torch, ops, dense, pqc, dev, launches, profile):
                 dense["v"][li][:, :cache_len].contiguous(), causal=False)
             num += float(((o - full).double() ** 2).sum())
             sq += float((full.double() ** 2).sum())
-        check(err <= 2e-4 and err_k15 <= 2e-4,
+        check(err <= 2e-4 and err_k15 <= 2e-4 and err_tpl <= 2e-4,
               f"K16 at cache_len {cache_len}: |K16 - twin| {err:.3g}, "
-              f"|K16 - K15 over the reconstruction| {err_k15:.3g} (tol 2e-4)")
+              f"|K16 - K15 over the reconstruction| {err_k15:.3g}, |K16 - "
+              f"template entry| {err_tpl:.3g} (tol 2e-4)")
         rel = math.sqrt(num / sq)
         cases["K16"].append(dict(n=ctx, cache_len=cache_len,
                                  step_ms=step_s * 1e3,
                                  max_abs_err=err, err_vs_k15=err_k15,
+                                 err_vs_template=err_tpl,
                                  rel_err_vs_dense=rel, bitwise_repeat=True))
         print(f"K16 decode step, {L} layers at cache_len {cache_len}: "
               f"{step_s * 1e3:.3f} ms host clock, launches "
               f"{ {k: c for k, c in got.items() if c} }; |K16 - "
               f"twin| {err:.3g}, |K16 - K15 over the reconstructed cache| "
-              f"{err_k15:.3g} (tol 2e-4), two launches bitwise; relative "
-              f"error against K15 over the uncompressed cache {rel:.5f}")
+              f"{err_k15:.3g}, |K16 - template entry| {err_tpl:.3g} (tol "
+              f"2e-4), two launches bitwise, arrival counters at 0; "
+              f"relative error against K15 over the uncompressed cache "
+              f"{rel:.5f}")
     # one layer's launch beside its bound: the codes of the valid positions
     # and both codebooks read once, q read and the output written; the LUT,
     # the scores' lookups and P.V
     c16 = cases["K16"][0]
     ms = gpu_ms(torch, lambda: pqd.pq_decode_attention(qs[0], *layer(0),
                                                        ctx))
+    template_ms = gpu_ms(torch, lambda: pqd.pq_decode_attention_template(
+        qs[0], *layer(0), ctx))
+    one = torch.zeros(1, device=dev)
+    floor_ms = gpu_ms(torch, lambda: one.add_(1.0))
     plain_ms = gpu_ms(torch, lambda: pqd.pq_decode_attention_torch(
         qs[0], *layer(0), ctx), reps=3, warmup=1)
     n_bytes = (2 * ctx * KH * n_sub + 2 * pqc["k_cb"][0].numel() * 4
                + 2 * H * hd * 4)
     flops = 2 * H * 256 * hd + H * ctx * n_sub + 2 * H * ctx * hd
     bms, by = bound_ms(n_bytes, flops)
-    c16.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-               library_ms=None)
-    print(f"K16 one layer at cache_len {ctx}: {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bms:.6f} ms ({by}; {n_bytes} bytes, "
-          f"{flops} flops)")
+    per_call = device_launches(
+        torch, lambda: pqd.pq_decode_attention(qs[0], *layer(0), ctx))
+    check(per_call == {"pq_lut_kernel": 1.0, "decode_kernel": 1.0},
+          f"K16: a call should launch pq_lut_kernel and decode_kernel once "
+          f"each; the profiler recorded {per_call} a call")
+    # the whole step on the device: 26 launches queued behind a sleep
+    step = {what: gpu_ms(torch, lambda: [fn(qs[li], *layer(li), ctx)
+                                         for li in range(L)], reps=5)
+            for what, fn in (("K16", pqd.pq_decode_attention),
+                             ("template", pqd.pq_decode_attention_template))}
+    c16.update(ms=ms, template_ms=template_ms, launch_floor_ms=floor_ms,
+               plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               library_ms=None, device_launches_per_call=per_call,
+               step_device_ms=step["K16"],
+               template_step_device_ms=step["template"])
+    print(f"K16 one layer at cache_len {ctx}: {ms:.4f} ms, template entry "
+          f"{template_ms:.4f} ms, launch floor (a one-element add) "
+          f"{floor_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.6f} ms "
+          f"({by}; {n_bytes} bytes, {flops} flops); device launches a K16 "
+          f"call (torch.profiler) {per_call}; the {L}-layer step by CUDA events "
+          f"{step['K16']:.4f} ms, template entry {step['template']:.4f} ms")
     lap("decode")
 
     # K15 prefill over the full context: a global (causal) and a local
@@ -4280,10 +4416,20 @@ def main() -> int:
         check(c["spill_bytes"] == 0, f"{fn} spills")
     # K1's routes and the template entry, K11 and K12: no spill
     report["k1_build"] = k1_build(_build, logs)
-    check(len(report["k1_build"]) == 16,
+    check(len(report["k1_build"]) == 17,
           f"K1, K11 and K12 kernels in the SASS: "
           f"{sorted(report['k1_build'])}")
     for fn, c in sorted(report["k1_build"].items()):
+        check("registers" in c and "spill_bytes" in c,
+              f"{fn}: no registers or spills in the ptxas log")
+        print(f"{fn}: {c['registers']} registers, {c['spill_bytes']} spill "
+              f"bytes")
+        check(c["spill_bytes"] == 0, f"{fn} spills")
+    # K16's decode and table kernels and its template entry's: no spill
+    report["k16_build"] = k16_build(_build, logs["pq_decode"])
+    check(len(report["k16_build"]) == 11,
+          f"K16 kernels in the SASS: {sorted(report['k16_build'])}")
+    for fn, c in sorted(report["k16_build"].items()):
         check("registers" in c and "spill_bytes" in c,
               f"{fn}: no registers or spills in the ptxas log")
         print(f"{fn}: {c['registers']} registers, {c['spill_bytes']} spill "
@@ -4405,7 +4551,8 @@ def main() -> int:
                   + f": bitwise the plain version at count 0, 1, P; "
                   f"{c['ms']:.4f} ms"
                   + (f" (one row {c['one_row_ms']:.4f} ms)" if name == "K11"
-                     else "")
+                     else f" the tile envelope ({c['tight']} tight at P; "
+                     f"the caps alone {c['tile_cap_ms']:.4f} ms)")
                   + f", plain {c['plain_ms']:.4f} ms, bound "
                   f"{c['bound_ms']:.6f} ms ({c['bound_by']})")
         del centers, radii

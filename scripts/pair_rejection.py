@@ -4,19 +4,24 @@ port on one NVIDIA card, in turn, at the paper's ``FULL`` shape
 (``configs/kmeans_paper.py``: n = 4,000,000, d = 2, k = 50) and K1 also at
 ``kvquant-gemma2-2b`` (``configs/kvquant.py``: B = 1664, n = 16384, d = 16).
 
-    python3 scripts/pair_rejection.py TREE [TREE ...] [--reps N] [--out PATH]
+    python3 scripts/pair_rejection.py TREE [TREE ...] [--reps N]
+        [--out PATH]
 
 Each TREE is the root of a checkout (its ``src/`` holds ``repro_torch``).
 Each is run in a process of its own, in the order given (say parent,
-change, change, parent), which builds that tree's kernels and measures, on
-the same blobs made from seed 0 and the same injected draws:
+change, change, parent; repeat the list for more pairs), which builds that
+tree's kernels and measures, on the same blobs made from seed 0 and the
+same injected draws:
 
 - rejection seeding, gated (the engine default), ``proposal`` hier and
-  flat, ``refresh_block`` 8, ``max_attempts`` 8: the median host-clock ms
-  of ``reps`` synchronised ``ClusterEngine.seed`` calls, the launches of
-  one counted call, and one call under torch.profiler (device busy ms and
-  the device's idle share of that call's wall time, an upper bound: the
-  profiler's own host cost lengthens the wall);
+  flat, ``refresh_block`` 8, ``max_attempts`` 8, unweighted and with
+  integer weights 1-8: the median host-clock ms of ``reps`` synchronised
+  ``ClusterEngine.seed`` calls (unweighted), the launches of one counted
+  call, the bits of its outputs (indices and every counter as lists,
+  ``min_d2`` and the centroids as a hash of their bytes), and one call
+  under torch.profiler (device busy ms, the device's idle share of that
+  call's wall time, an upper bound: the profiler's own host cost
+  lengthens the wall; and the device kernels by name with their counts);
 - K1: the median of ``reps`` launches (CUDA events, queued behind a
   device-side sleep) at ``FULL`` (4,096-row tiles) and of the batched K1 at
   ``kvquant``.
@@ -28,6 +33,7 @@ on one card.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -82,7 +88,22 @@ def profiled(torch, fn) -> dict:
         wall = (time.perf_counter() - t0) * 1e3
     busy = sum(evt.self_device_time_total / 1e3 for evt in prof.key_averages()
                if evt.device_type == torch.autograd.DeviceType.CUDA)
-    return dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall)
+    kernels = {evt.key[:60]: evt.count for evt in prof.key_averages()
+               if evt.device_type == torch.autograd.DeviceType.CUDA}
+    return dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
+                kernels=kernels)
+
+
+def bits(res) -> dict:
+    """A seeding's outputs: indices and every counter as lists, min_d2 and
+    the centroids as the sha256 of their bytes."""
+    out = {f: hashlib.sha256(getattr(res, f).cpu().numpy().tobytes())
+           .hexdigest()[:16] for f in ("min_d2", "centroids")}
+    for f in ("indices", "proposals", "accepts", "recovered", "tightened",
+              "supers", "skipped", "pruned"):
+        v = getattr(res, f)
+        out[f] = None if v is None else v.tolist()
+    return out
 
 
 def one(tree: Path, reps: int) -> dict:
@@ -101,20 +122,29 @@ def one(tree: Path, reps: int) -> dict:
     k = FULL.k
     draws = Draws.sample(FULL.n_points, k, max_attempts=8, device=dev,
                          generator=torch.Generator().manual_seed(0))
+    wdraws = Draws.sample(FULL.n_points, k, max_attempts=8, device=dev,
+                          generator=torch.Generator().manual_seed(0),
+                          weighted=True)
+    wts = torch.randint(1, 9, (FULL.n_points,),
+                        generator=torch.Generator(device=dev).manual_seed(1),
+                        device=dev).float()
     eng = ClusterEngine(device="cuda")
     res = dict(tree=str(tree))
     for prop in ("hier", "flat"):
-        def seed(prop=prop):
-            return eng.seed(pts, k, draws=draws, sampler="rejection",
-                            proposal=prop, refresh_block=8, max_attempts=8)
-        ops.reset_launches()
-        out = seed()
-        torch.cuda.synchronize()
-        launches = {name: v for name, v in ops.LAUNCHES.items() if v}
-        res[f"rejection {prop}"] = dict(
-            ms=wall_ms(torch, seed, reps), profiled=profiled(torch, seed),
-            indices=out.indices.tolist(),
-            proposals=int(out.proposals.sum()), launches=launches)
+        for tag, kw in (("", dict(draws=draws)),
+                        (" weighted", dict(draws=wdraws, weights=wts))):
+            def seed(prop=prop, kw=kw):
+                return eng.seed(pts, k, sampler="rejection", proposal=prop,
+                                refresh_block=8, max_attempts=8, **kw)
+            ops.reset_launches()
+            out = seed()
+            torch.cuda.synchronize()
+            launches = {name: v for name, v in ops.LAUNCHES.items() if v}
+            run = dict(bits=bits(out), launches=launches,
+                       profiled=profiled(torch, seed))
+            if not tag:
+                run["ms"] = wall_ms(torch, seed, reps)
+            res[f"rejection {prop}{tag}"] = run
     res["K1 FULL ms"] = gpu_ms(torch, lambda: kd.seed_prologue(pts, 4096),
                                reps)
     del pts

@@ -25,10 +25,12 @@ against:
       Without a cache it is the untiled round of the weighted and
       mini-batch fits: labels, D², and the (weighted) cluster sums and
       counts over all rows.
-  row_min_d2(points, idx, pending, count) / tile_cap(centers, radii,
-      pending, count): the rejection sampler's D² of the drawn rows (every
-      attempt of a round at once), and the per-tile envelope caps, against
-      the first ``count`` pending centroids.
+  row_min_d2(points, idx, pending, count) / tile_envelope(centers, radii,
+      pending, count, partials, tile_w): the rejection sampler's D² of the
+      drawn rows (every attempt of a round at once), and a hier round's
+      tile envelope (cap, ph, tight, n_tight): the per-tile caps against
+      the first ``count`` pending centroids and the capped tile masses
+      (one launch on the card).
   seed_round_batched / assign_update_batched: the rounds of B independent
       problems at once, every tensor with a leading problem axis, gated
       like the single rounds when given a carried state (each problem by
@@ -467,11 +469,16 @@ class Backend:
         whatever n is."""
         return kmeans_distance.row_min_d2_torch(points, idx, pending, count)
 
-    def tile_cap(self, centers, radii, pending, count) -> torch.Tensor:
-        """(T,) per-tile envelope caps ``(d(center_t, pending) + r_t)²``
-        against ``pending[:count]`` from the prologue's tile balls (never a
-        row); +inf everywhere when count is 0."""
-        return kmeans_distance.tile_cap_torch(centers, radii, pending, count)
+    def tile_envelope(self, centers, radii, pending, count, partials,
+                      tile_w):
+        """A hier round's tile envelope: ``(cap, ph, tight, n_tight)``,
+        the (T,) caps ``(d(center_t, pending) + r_t)²`` against
+        ``pending[:count]`` from the prologue's tile balls (never a row;
+        +inf everywhere when count is 0), the tile masses ``ph = min(cap ·
+        tile_w, partials)`` (a NaN product keeps the partial), ``tight = ph
+        < partials`` and its (0-d int32) count."""
+        return kmeans_distance.tile_envelope_torch(centers, radii, pending,
+                                                   count, partials, tile_w)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -538,8 +545,10 @@ class CudaBackend(Backend):
     def row_min_d2(self, points, idx, pending, count) -> torch.Tensor:
         return kmeans_distance.row_min_d2(points, idx, pending, count)
 
-    def tile_cap(self, centers, radii, pending, count) -> torch.Tensor:
-        return kmeans_distance.tile_cap(centers, radii, pending, count)
+    def tile_envelope(self, centers, radii, pending, count, partials,
+                      tile_w):
+        return kmeans_distance.tile_envelope(centers, radii, pending, count,
+                                             partials, tile_w)
 
     def prologue(self, points, m: int = 1,
                  with_bounds: bool = True) -> RoundCache:
@@ -821,8 +830,11 @@ def _seed_rejection_loop(draws: Draws, pts, k, *, round_fn, propose_fn,
     the reference's ``neg_envelope``/``stale_super`` corruption. ``guard``
     also checks the settling refresh's total.
 
-    ``prep_fn(partials, pending, count) -> (pstate, tightened)`` builds the
-    hier proposal state once per round from the (healed) partials.
+    ``prep_fn(partials, pending, live, count) -> (pstate, tightened)``
+    builds the hier proposal state once per round from the (healed)
+    partials; ``live`` is ``count`` as a 0-d device view (what the kernels
+    read), the host ``count`` lets a round with no live pending centroid
+    launch nothing.
 
     Host syncs: two per round (the envelope check, the first accepting
     attempt), one for the guard's final check.
@@ -874,7 +886,7 @@ def _seed_rejection_loop(draws: Draws, pts, k, *, round_fn, propose_fn,
         if not env_ok:
             md, partials, state = heal_stale(m, count)
         live = counts[count]
-        pstate, tightened = prep_fn(partials, pending, live)
+        pstate, tightened = prep_fn(partials, pending, live, count)
         weight = bounds.seed_envelope(md, w)
         idx, ok, att = sampling.rejection_sample(
             lambda u: propose_fn(u, weight, partials, pstate),
@@ -939,21 +951,28 @@ def _seed_rejection(draws: Draws, pts, k, backend: Backend,
         tile_w = sampling.tile_partials(
             pts.new_ones(n) if w is None else w, tile)
 
-        def prep_fn(partials, pending, count):
+        # the envelope of a round with no live pending centroid, or with
+        # no balls (no bounds): +inf caps, which tighten no tile (the
+        # bits the computed envelope gives there)
+        no_cap = torch.full((n_tiles,), torch.inf, device=dev)
+        no_tight = torch.zeros(n_tiles, dtype=torch.bool, device=dev)
+        none_tight = torch.zeros((), dtype=torch.int32, device=dev)
+
+        def prep_fn(partials, pending, live, count):
             # rebuilt each round from the healed partials: cap_t bounds
             # every row's D² to the pending block from tile summaries
             # alone, so min(partials_t, cap_t * W_t) is a valid tile
             # envelope mass
-            if cache.centers is not None:
-                cap = be.tile_cap(cache.centers, cache.radii, pending, count)
-            else:   # no balls without bounds: never tighten
-                cap = torch.full((n_tiles,), torch.inf, device=dev)
-            capw = cap * tile_w   # inf·0 is NaN: loses every < below
-            ph = torch.where(capw < partials, capw, partials)
-            tight = ph < partials
+            if count == 0 or cache.centers is None:
+                cap, ph, tight, n_tight = no_cap, partials, no_tight, \
+                    none_tight
+            else:
+                cap, ph, tight, n_tight = be.tile_envelope(
+                    cache.centers, cache.radii, pending, live, partials,
+                    tile_w)
             tcdf = sampling.prefix_sum(ph)
             return ((ph, tcdf, sampling.super_cdf(tcdf, tps), cap, tight),
-                    tight.sum(dtype=torch.int32))
+                    n_tight)
 
         def propose_fn(u, weight, partials, pstate):
             ph, tcdf, scdf, cap, tight = pstate
@@ -985,7 +1004,7 @@ def _seed_rejection(draws: Draws, pts, k, backend: Backend,
             return sampling.categorical_hier(u, fb, weight, partials,
                                              block_n=tile, tps=tps)
     else:
-        def prep_fn(partials, pending, count):
+        def prep_fn(partials, pending, live, count):
             return None, 0
 
         def propose_fn(u, weight, partials, pstate):
@@ -1075,7 +1094,7 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
     row; ``refresh_block=1`` picks bitwise the 'tiled' seeds — see
     :func:`_seed_rejection_loop`). ``proposal`` (rejection only) is 'hier'
     (super-tile -> tile -> row, the per-tile envelope tightened between
-    refreshes by the caps of ``Backend.tile_cap``) or 'flat' (the tiled
+    refreshes by the caps of ``Backend.tile_envelope``) or 'flat' (the tiled
     draw); ``max_attempts`` truncates the attempts of a round, past which
     it takes one exact draw; ``fault`` injects an envelope fault (tests).
     ``weights`` (n,) draw every seed ∝ D²·w, the first ∝ w (see

@@ -29,6 +29,13 @@
 // and writes T (at n = 4M, d = 2: 977 tiles, about 16 KB). Both are far
 // below a microsecond of memory traffic or arithmetic.
 //
+// tile_envelope_kernel is K12 as a hier round uses it, one launch a round
+// with a live pending slot: the caps, then the round's envelope from them
+// (the capped tile masses, which tiles tightened, and their count), which
+// took five more launches of elementwise ops and a sum. Its cap has K12's
+// bits, and the rest is the plain version's arithmetic (one rounded
+// product, two compares, an exact integer count).
+//
 // Design. K11 is one warp per drawn row, four to a block: each lane takes
 // pending slots lane, lane + 32, ... and reads the row from device memory
 // (every lane the same address, so one load serves the warp; any d), and a
@@ -86,20 +93,15 @@ row_min_d2_kernel(const float* __restrict__ points,
   if (lane == 0) out[w] = best;
 }
 
-__global__ void __launch_bounds__(kCapThreads)
-tile_cap_kernel(const float* __restrict__ centers,
-                const float* __restrict__ radii,
-                const float* __restrict__ pending,
-                const int* __restrict__ count, float* __restrict__ out,
-                int n_tiles, int d, int p) {
-  __shared__ float stage[kCapFloats];
-  const int cnt = *count;
-  const int t = blockIdx.x * kCapThreads + threadIdx.x;
+// K12's cap of tile t against pending[: cnt]; every thread of the block
+// calls it (the pending block passes through `stage`), a t past n_tiles
+// gets 0
+__device__ float tile_cap_of(const float* __restrict__ centers,
+                             const float* __restrict__ radii,
+                             const float* __restrict__ pending, int cnt,
+                             int t, int n_tiles, int d, int p, float* stage) {
   const int live = min(p, cnt);
-  if (live <= 0) {
-    if (t < n_tiles) out[t] = CUDART_INF_F;
-    return;
-  }
+  if (live <= 0) return CUDART_INF_F;
   // whole slots a stage where one fits, else one slot in column chunks
   const int slots = max(1, min(live, kCapFloats / d));
   const int cols = min(d, kCapFloats);
@@ -124,9 +126,65 @@ tile_cap_kernel(const float* __restrict__ centers,
     }
     if (cols < d) best = nan_min(best, s);
   }
-  if (t >= n_tiles) return;
+  if (t >= n_tiles) return 0.f;
   const float v = __fadd_rn(__fsqrt_rn(best), radii[t]);
-  out[t] = __fmul_rn(v, v);
+  return __fmul_rn(v, v);
+}
+
+__global__ void __launch_bounds__(kCapThreads)
+tile_cap_kernel(const float* __restrict__ centers,
+                const float* __restrict__ radii,
+                const float* __restrict__ pending,
+                const int* __restrict__ count, float* __restrict__ out,
+                int n_tiles, int d, int p) {
+  __shared__ float stage[kCapFloats];
+  const int t = blockIdx.x * kCapThreads + threadIdx.x;
+  const float cap = tile_cap_of(centers, radii, pending, *count, t, n_tiles,
+                                d, p, stage);
+  if (t < n_tiles) out[t] = cap;
+}
+
+// a hier round's tile envelope: K12's cap, capw = cap * tile_w (one
+// rounding; inf * 0 is NaN), ph = capw < partials ? capw : partials,
+// tight = ph < partials (a NaN loses every compare, as torch's), and the
+// count of tight tiles: each block's count summed exactly into acc[0],
+// which the last block to arrive (acc[1] wraps to 0) takes and clears
+__global__ void __launch_bounds__(kCapThreads)
+tile_envelope_kernel(const float* __restrict__ centers,
+                     const float* __restrict__ radii,
+                     const float* __restrict__ pending,
+                     const int* __restrict__ count,
+                     const float* __restrict__ tile_w,
+                     const float* __restrict__ partials,
+                     float* __restrict__ cap, float* __restrict__ ph,
+                     bool* __restrict__ tight, int* __restrict__ n_tight,
+                     unsigned* __restrict__ acc, int n_tiles, int d, int p) {
+  __shared__ float stage[kCapFloats];
+  const int t = blockIdx.x * kCapThreads + threadIdx.x;
+  const float c = tile_cap_of(centers, radii, pending, *count, t, n_tiles, d,
+                              p, stage);
+  __syncthreads();  // the stage is read: it holds the warps' counts next
+  int* warp_tight = reinterpret_cast<int*>(stage);
+  bool is_tight = false;
+  if (t < n_tiles) {
+    const float capw = __fmul_rn(c, tile_w[t]);
+    const float part = partials[t];
+    const float h = capw < part ? capw : part;
+    is_tight = h < part;
+    cap[t] = c;
+    ph[t] = h;
+    tight[t] = is_tight;
+  }
+  const int in_warp = __popc(__ballot_sync(0xffffffffu, is_tight));
+  if (threadIdx.x % 32 == 0) warp_tight[threadIdx.x / 32] = in_warp;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  int sum = 0;
+  for (int w = 0; w < kCapThreads / 32; ++w) sum += warp_tight[w];
+  atomicAdd(reinterpret_cast<int*>(acc), sum);
+  __threadfence();
+  if (atomicInc(acc + 1, gridDim.x - 1) == gridDim.x - 1)
+    *n_tight = atomicExch(reinterpret_cast<int*>(acc), 0);
 }
 
 }  // namespace
@@ -154,5 +212,25 @@ extern "C" int tile_cap_launch(const float* centers, const float* radii,
   tile_cap_kernel<<<blocks, kCapThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(
       centers, radii, pending, count, out, n_tiles, d, p);
+  return (int)cudaGetLastError();
+}
+
+// Launches the tile envelope on `stream`: cap, ph (n_tiles,) fp32, tight
+// (n_tiles,) bool and n_tight (one int32) of the tile balls against
+// pending[: *count] (K12's cap) and the round's partials and tile masses
+// tile_w. acc: two uint32 counters, 0 before the launch (it leaves them
+// 0). Returns cudaGetLastError().
+extern "C" int tile_envelope_launch(const float* centers, const float* radii,
+                                    const float* pending, const int* count,
+                                    const float* tile_w,
+                                    const float* partials, float* cap,
+                                    float* ph, bool* tight, int* n_tight,
+                                    unsigned* acc, int n_tiles, int d, int p,
+                                    void* stream) {
+  const int blocks = (n_tiles + kCapThreads - 1) / kCapThreads;
+  tile_envelope_kernel<<<blocks, kCapThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      centers, radii, pending, count, tile_w, partials, cap, ph, tight,
+      n_tight, acc, n_tiles, d, p);
   return (int)cudaGetLastError();
 }

@@ -40,7 +40,9 @@ live: K11 ``row_min_d2`` is the D² of each drawn row to them (the exact
 p of every proposal of a round, one launch), K12 ``tile_cap`` bounds every
 tile's current D² from its ball alone. Both use the diff-square form and
 add the columns in a fixed order, so the kernels and their plain twins
-agree bitwise; both take any (P, d).
+agree bitwise; both take any (P, d). ``tile_envelope`` is K12 as a hier
+round runs it: the caps and, in the same launch, the round's capped tile
+masses, tight tiles and their count (bitwise ``tile_envelope_torch``).
 
 The rounds (K2, K5, K7, K8) read points and centroids as fp32 or as a
 bf16 stream, both of one dtype: the bf16 instance widens each value
@@ -83,6 +85,8 @@ _PROLOGUE_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4
 _ROW_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_longlong,)
                  + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
 _CAP_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (
+    ctypes.c_void_p,)
+_ENVELOPE_ARGTYPES = (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 3 + (
     ctypes.c_void_p,)
 
 
@@ -746,3 +750,64 @@ def tile_cap(centers: torch.Tensor, radii: torch.Tensor,
         raise KernelFailureError(f"tile_cap launch failed: cudaError {err}")
     ops.LAUNCHES["tile_cap"] += 1
     return out
+
+
+def tile_envelope_torch(centers, radii, pending, count, partials, tile_w):
+    """Plain twin of :func:`tile_envelope`: ``tile_cap_torch``, then the
+    hier round's envelope ops."""
+    cap = tile_cap_torch(centers, radii, pending, count)
+    capw = cap * tile_w   # inf·0 is NaN: loses every < below
+    ph = torch.where(capw < partials, capw, partials)
+    tight = ph < partials
+    return cap, ph, tight, tight.sum(dtype=torch.int32)
+
+
+def tile_envelope(centers: torch.Tensor, radii: torch.Tensor,
+                  pending: torch.Tensor, count, partials: torch.Tensor,
+                  tile_w: torch.Tensor):
+    """A hier round's tile envelope from the tile balls (``centers`` (T,
+    d), ``radii`` (T,)), ``pending[:count]``, the round's ``partials``
+    (T,) and the tiles' masses ``tile_w`` (T,): ``(cap, ph, tight,
+    n_tight)``, the caps (:func:`tile_cap`), ``ph = min(cap · tile_w,
+    partials)`` (a NaN product keeps the partial), ``tight = ph <
+    partials`` and its count (0-d int32). On the card this is one launch,
+    counted as K12's; CPU tensors take the plain twin."""
+    if centers.dim() != 2 or centers.shape[0] < 1:
+        raise ValueError(f"centers must be (T, d), got "
+                         f"{tuple(centers.shape)}")
+    t, d = centers.shape
+    _check_pending(pending, d)
+    for name, x in (("radii", radii), ("partials", partials),
+                    ("tile_w", tile_w)):
+        if tuple(x.shape) != (t,):
+            raise ValueError(f"{name} {tuple(x.shape)} must be ({t},)")
+    if centers.device.type == "cpu":
+        return tile_envelope_torch(centers, radii, pending, count, partials,
+                                   tile_w)
+    if centers.device.type != "cuda":
+        raise ValueError(f"unsupported device {centers.device}")
+    ops.check_card_tensors(centers=centers, radii=radii, pending=pending,
+                           partials=partials, tile_w=tile_w)
+    cnt = _card_count(count, centers.device)
+    fn = _build.function("rejection", "tile_envelope_launch",
+                         _ENVELOPE_ARGTYPES)
+    out = torch.empty(2 * t + 1, dtype=torch.float32, device=centers.device)
+    cap, ph = out[:t], out[t:2 * t]
+    n_tight = out[2 * t:].view(torch.int32).reshape(())
+    tight = torch.empty(t, dtype=torch.bool, device=centers.device)
+    with torch.cuda.device(centers.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        key = ("tile_envelope", torch.cuda.current_device(), stream)
+        acc = ops.arrivals(key, 2)
+        err = fn(centers.data_ptr(), radii.data_ptr(), pending.data_ptr(),
+                 cnt.data_ptr(), tile_w.data_ptr(), partials.data_ptr(),
+                 cap.data_ptr(), ph.data_ptr(), tight.data_ptr(),
+                 n_tight.data_ptr(), acc.data_ptr(), t, d,
+                 pending.shape[0], stream)
+        if err != 0:
+            ops.drop_arrivals(key)
+    if err != 0:
+        raise KernelFailureError(f"tile_envelope launch failed: cudaError "
+                                 f"{err}")
+    ops.LAUNCHES["tile_cap"] += 1
+    return cap, ph, tight, n_tight

@@ -29,7 +29,9 @@ The IVF scan (K13, K14; ``ivf_scan.py``) runs in two parts and budgets its
 own shared memory (``ivf_scan.max_k``); its tile height is the index's.
 The attention kernels (K15, K16; ``flash_attention.py``,
 ``pq_decode.py``) take their tiles from their own sources and check their
-inputs with :func:`check_inputs`.
+inputs with :func:`check_inputs`. K16 and the hier round's tile envelope
+(K12's ``kmeans_distance.tile_envelope``) count their blocks' arrivals in
+counters :func:`arrivals` keeps.
 
 Launch counters. Each wrapper adds one to its kernel's counter where it
 launches the kernel on the card, and nowhere else (the CPU path, which runs
@@ -86,6 +88,31 @@ LAUNCHES.update({f"{name}_bf16": 0 for name in ROUND_KERNELS})
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# arrival counters of the kernels whose last block to finish does the
+# final step (K16's merge, the tile envelope's count), one set per
+# (kernel, device, stream): all 0 between launches, since the last block
+# wraps each count back to 0, so no launch resets them
+_ARRIVALS: dict = {}
+
+
+def arrivals(key: tuple, n: int) -> torch.Tensor:
+    """At least ``n`` int32 arrival counters for ``key`` = (kernel name,
+    device index, stream), made zeroed on first use (or when more are
+    needed) and kept."""
+    have = _ARRIVALS.get(key)
+    if have is None or have.numel() < n:
+        have = torch.zeros(max(n, 64), dtype=torch.int32,
+                           device=torch.device("cuda", key[1]))
+        _ARRIVALS[key] = have
+    return have
+
+
+def drop_arrivals(key: tuple) -> None:
+    """After a failed launch, which may leave a count behind: the next
+    launch of ``key`` starts from fresh zeroed counters."""
+    _ARRIVALS.pop(key, None)
 
 
 def check_inputs(device, **tensors) -> None:

@@ -19,12 +19,21 @@ The kernel (``csrc/pq_decode.cu``) reconstructs nothing: the codebooks of
 one kv head (512 KiB at gemma2-2b's width) do not fit a block's shared
 memory, as the TPU kernel's resident codebooks do in VMEM. It scores K
 through a per-query table ``lut[g, s, c] = q_g,s · k_cb[s, c]`` (the
-ADC idea of K14), reads V's code rows from the codebook in device memory
-(L2-resident), and splits the sequence over blocks of :data:`CHUNK`
-positions whose partial (m, l, acc) one combine pass merges in chunk
-order. That changes the order of additions against the twin's
-reconstruct-then-dot, so the two agree to a stated tolerance (2e-4 in the
-tests), not bitwise; two launches give the same bits.
+ADC idea of K14; one launch, which lets the next start at once), and cuts
+the work into blocks of (a chunk of positions, a slice of at most 64 head
+dims, a kv head) (:func:`plan`): a block stages its slice's V codebook
+rows (64 KiB) and reads V from them, so the codebook crosses from L2 once
+a block rather than once a position. The last block of a (slice, kv
+head) to finish merges the partial (m, l, acc) in chunk order, so a call
+is two launches. A block stages the table rows of as many query heads as
+fit its shared memory, in groups, and reads them from device memory where
+not even one head's fit: any (G, n_sub) the twin takes runs. That changes
+the order of additions against the twin's reconstruct-then-dot, so the
+two agree to a stated tolerance (2e-4 in the tests), not bitwise; two
+launches give the same bits.
+:func:`pq_decode_attention_template` runs the kernel before (three
+launches, the whole table staged in one block; it refuses past that) for
+the card's comparisons.
 
 The wrapper launches the kernel for tensors on the card and runs the twin
 only for tensors on the CPU. A ``cache_len`` tensor on the card is read by
@@ -43,17 +52,34 @@ from repro_torch.kernels import _build, ops
 
 NEG_INF = -1e30
 N_CODES = 256
-CHUNK = 256          # positions per split block: csrc/pq_decode.cu's kChunk
+MAX_DIMS = 64          # head dims a decode block takes at most (:func:`plan`)
+MAX_CHUNK = 1024       # positions a decode block takes at most
+TEMPLATE_CHUNK = 256   # the template's split: csrc/pq_decode.cu's kChunk
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_P,) * 11 + (_I,) * 8 + (ctypes.c_float, _P)
+_ARGTYPES = (_P,) * 12 + (_I,) * 8 + (ctypes.c_float,) + (_I,) * 3 + (_P,)
+_TEMPLATE_ARGTYPES = (_P,) * 11 + (_I,) * 8 + (ctypes.c_float, _P)
 
 
-def split_smem_bytes(G: int, n_sub: int) -> int:
-    """Dynamic shared memory of one split block: the (G, n_sub, 256) LUT,
-    the (G, CHUNK) scores, a (CHUNK,) reduction buffer (fp32 each), and the
-    chunk's K and V codes (CHUNK·n_sub bytes each)."""
-    return 4 * (G * n_sub * N_CODES + G * CHUNK + CHUNK) + 2 * CHUNK * n_sub
+def plan(B: int, S: int, KH: int, hd: int, n_sub: int,
+         sms: int) -> tuple[int, int]:
+    """(chunk, dims) of the decode kernel's blocks: ``dims`` the largest
+    divisor of hd up to :data:`MAX_DIMS` (a block stages those dims'
+    codebook rows, dims KiB, and reads V from them), ``chunk`` the
+    positions a block takes, a multiple of 32 that leaves about one block
+    on each of the card's ``sms`` SMs over a full cache of S positions, at
+    most :data:`MAX_CHUNK`, and its codes (chunk·(n_sub + the slice's
+    sub-spaces) bytes, staged) within 48 KiB. The plan reads no
+    ``cache_len``, so an int and a device length give the same bits; the
+    blocks past ``cache_len`` return at once, so a short cache leaves most
+    SMs idle (16 of 128 blocks work at gemma2-2b's width, S 8,192 and
+    ``cache_len`` 1,024)."""
+    dims = max(d for d in range(1, min(hd, MAX_DIMS) + 1) if hd % d == 0)
+    dsub = hd // n_sub
+    ns = min(n_sub, (dims - 1) // dsub + 2)
+    cap = max(32, min(MAX_CHUNK, 49152 // (n_sub + ns)) // 32 * 32)
+    want = -(-S * (hd // dims) * KH * B // sms)
+    return min(cap, max(32, -(-want // 32) * 32)), dims
 
 
 # ---------------------------------------------------------------------------
@@ -172,12 +198,6 @@ def _check(q, k_codes, v_codes, k_cb, v_cb, cache_len, block_k):
     if torch.is_tensor(cache_len):
         tensors["cache_len"] = cache_len
     ops.check_inputs(q.device, **tensors)
-    need = split_smem_bytes(H // KH, n_sub)
-    if need > ops.SMEM_LIMIT:
-        raise InvalidInputError(
-            f"q's {H // KH} query heads per kv head with n_sub={n_sub} need "
-            f"{need} bytes of shared memory per block (LUT), above "
-            f"{ops.SMEM_LIMIT}")
 
 
 def pq_decode_attention(q: torch.Tensor, k_codes: torch.Tensor,
@@ -190,12 +210,46 @@ def pq_decode_attention(q: torch.Tensor, k_codes: torch.Tensor,
     uint8; k_cb / v_cb (KH, n_sub, 256, hd / n_sub) fp32; ``cache_len``
     the valid positions, an int or a 0-d int32 tensor on q's device.
     Returns (B, 1, H, hd) in q's dtype. ``block_k`` is the twin's block
-    of positions; the kernel's split is its own (:data:`CHUNK`). On the
-    card this launches K16; CPU tensors take the plain twin."""
+    of positions; the kernel's split is its own (:func:`plan`). On
+    the card this launches K16 (counted once); CPU tensors take the plain
+    twin."""
     _check(q, k_codes, v_codes, k_cb, v_cb, cache_len, block_k)
     if q.device.type == "cpu":
         return pq_decode_attention_torch(q, k_codes, v_codes, k_cb, v_cb,
                                          cache_len, block_k=block_k)
+    out = _launch(q, k_codes, v_codes, k_cb, v_cb, cache_len,
+                  template=False)
+    if out.numel():
+        ops.LAUNCHES["pq_decode_attention"] += 1
+    return out
+
+
+def pq_decode_attention_template(q, k_codes, v_codes, k_cb, v_cb, cache_len,
+                                 *, block_k: int = 512) -> torch.Tensor:
+    """K16 before its redesign (the table, a split over 256-position
+    chunks staging the whole (G, n_sub, 256) table, an ordered combine):
+    :func:`pq_decode_attention`'s arguments and result, for the card's
+    comparisons. Counts no launch; raises ``KernelFailureError`` where
+    the table does not fit one block's shared memory. CPU tensors take
+    the twin."""
+    _check(q, k_codes, v_codes, k_cb, v_cb, cache_len, block_k)
+    if q.device.type == "cpu":
+        return pq_decode_attention_torch(q, k_codes, v_codes, k_cb, v_cb,
+                                         cache_len, block_k=block_k)
+    return _launch(q, k_codes, v_codes, k_cb, v_cb, cache_len,
+                   template=True)
+
+
+def _vec(dsub: int, dims: int, v_cb: torch.Tensor) -> int:
+    """Floats a decode thread copies and reads at once: 4, 2 or 1, the
+    most that divides dsub, a block's dims and the codebook's alignment."""
+    for v in (4, 2):
+        if dsub % v == 0 and dims % v == 0 and v_cb.data_ptr() % (4 * v) == 0:
+            return v
+    return 1
+
+
+def _launch(q, k_codes, v_codes, k_cb, v_cb, cache_len, *, template):
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     B, _, H, hd = q.shape
@@ -205,26 +259,45 @@ def pq_decode_attention(q: torch.Tensor, k_codes: torch.Tensor,
     if out.numel() == 0:
         return out
     dev = q.device
-    nc = max(1, -(-S // CHUNK))
-    lut = torch.empty((B, KH, G, n_sub, N_CODES), device=dev)
-    part_m = torch.empty((B, KH, nc, G), device=dev)
-    part_l = torch.empty((B, KH, nc, G), device=dev)
-    part_acc = torch.empty((B, KH, nc, G, hd), device=dev)
+    if template:
+        chunk, n_slices = TEMPLATE_CHUNK, 1
+    else:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        chunk, dims = plan(B, S, KH, hd, n_sub, sms)
+        n_slices = hd // dims
+    nc = max(1, -(-S // chunk))
+    n_lut, n_acc = B * KH * G * n_sub * N_CODES, B * KH * nc * G * hd
+    n_ml = B * KH * n_slices * nc * G
+    scratch = torch.empty(n_lut + 2 * n_ml + n_acc, device=dev)
+    lut = scratch.data_ptr()
+    part_m, part_l = lut + 4 * n_lut, lut + 4 * (n_lut + n_ml)
+    part_acc = lut + 4 * (n_lut + 2 * n_ml)
     on_device = torch.is_tensor(cache_len)
-    fn = _build.function("pq_decode", "pq_decode_launch", _ARGTYPES)
+    args = (q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(),
+            k_cb.data_ptr(), v_cb.data_ptr(),
+            cache_len.data_ptr() if on_device else None,
+            lut, part_m, part_l, part_acc)
+    dims_ = (B, S, KH, G, hd, n_sub, 0 if on_device else int(cache_len),
+             int(q.dtype == torch.bfloat16), hd ** -0.5)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(),
-                 k_cb.data_ptr(), v_cb.data_ptr(),
-                 cache_len.data_ptr() if on_device else None,
-                 lut.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-                 part_acc.data_ptr(), out.data_ptr(), B, S, KH, G, hd, n_sub,
-                 0 if on_device else int(cache_len),
-                 int(q.dtype == torch.bfloat16), hd ** -0.5, stream)
+        if template:
+            fn = _build.function("pq_decode", "pq_decode_template_launch",
+                                 _TEMPLATE_ARGTYPES)
+            err = fn(*args, out.data_ptr(), *dims_, stream)
+        else:
+            fn = _build.function("pq_decode", "pq_decode_launch", _ARGTYPES)
+            key = ("pq_decode_attention", torch.cuda.current_device(),
+                   stream)
+            arrivals = ops.arrivals(key, B * KH * n_slices)
+            err = fn(*args, arrivals.data_ptr(), out.data_ptr(), *dims_,
+                     chunk, dims, _vec(hd // n_sub, dims, v_cb), stream)
+            if err != 0:
+                ops.drop_arrivals(key)
     if err != 0:
-        raise KernelFailureError(
-            f"pq_decode_attention launch failed: cudaError {err}")
-    ops.LAUNCHES["pq_decode_attention"] += 1
+        what = "pq_decode_attention_template" if template else \
+            "pq_decode_attention"
+        raise KernelFailureError(f"{what} launch failed: cudaError {err}")
     return out
 
 

@@ -35,7 +35,8 @@ import torch
 from test_torch_batched_gated import _engines
 from test_torch_jaxref import ref  # noqa: F401  (fixture)
 from repro_torch import convert
-from repro_torch.core import ClusterEngine, InvalidInputError
+from repro_torch.core import (ClusterEngine, InvalidInputError,
+                              KernelFailureError)
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import pq_decode as pqd
@@ -84,8 +85,12 @@ KERNEL_EDGE = [
 # (B, S, KH, G, hd, n_sub, block_k, cache_len): the reference's CASES
 # (tests/test_pq_decode.py:36), then hd 256 with 16 sub-spaces at G = 2
 # (gemma2-2b's), cache_len 0, a cache_len that is not a multiple of
-# block_k, hd past the kernel's 256 threads, and G past its 8 query heads a
-# pass over V
+# block_k, hd past a block's 256 threads, G past the kernel's 8 query heads
+# a pass over V, and three (G, n_sub) whose tables (G, n_sub, 256) pass one
+# block's shared memory: qwen2-vl-7b's 7 query heads a kv head at hd 128
+# (src/repro/configs/qwen2_vl_7b.py:8) with 32 sub-spaces, 8 heads with 64
+# one-wide sub-spaces, and n_sub = hd = 256, where not even one head's
+# (n_sub, 256) rows fit and the kernel reads them from device memory
 PQ_CASES = [
     (2, 256, 2, 2, 32, 4, 128, 256),
     (1, 300, 4, 1, 64, 8, 128, 300),
@@ -96,6 +101,9 @@ PQ_CASES = [
     (2, 300, 2, 2, 32, 4, 128, 201),
     (1, 64, 1, 2, 320, 20, 64, 50),
     (1, 64, 1, 12, 32, 4, 64, 64),
+    (1, 64, 1, 7, 128, 32, 64, 64),
+    (1, 64, 1, 8, 64, 64, 64, 64),
+    (1, 64, 1, 2, 256, 256, 64, 64),
 ]
 
 # fp32: the reference's own flash tolerance; twin and kernel sum in other
@@ -667,6 +675,88 @@ def test_pq_decode_kernel_matches_twin_on_the_card(card, case):
     np.testing.assert_allclose(got16.float().cpu().numpy(),
                                want16.float().cpu().numpy(), rtol=RTOL16,
                                atol=ATOL16)
+
+
+def _template_takes(case) -> bool:
+    """Whether K16's template entry stages this case's table: its split
+    block holds the (G, n_sub, 256) table, (G, 256) scores, a (256,)
+    buffer and 256 positions' K and V codes."""
+    G, n_sub = case[3], case[5]
+    return 4 * (G * n_sub * 256 + G * 256 + 256) + 2 * 256 * n_sub \
+        <= ops.SMEM_LIMIT
+
+
+def _arrivals_zero(card) -> bool:
+    """Every arrival counter K16 keeps on the card is back at 0."""
+    dev = card.index if card.index is not None else torch.cuda.current_device()
+    held = [t for key, t in ops._ARRIVALS.items()
+            if key[0] == "pq_decode_attention" and key[1] == dev]
+    return bool(held) and all(not t.any() for t in held)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PQ_CASES)
+def test_pq_decode_cache_lens_on_the_card(card, case):
+    """K16 at B = 2 and cache_len 0, 1, 255, 256, 257 and S (those within
+    S), fp32 and bf16 q: within 2e-4 of the twin and of the template entry
+    (where its staging takes the shape; it raises past it, and the next
+    K16 launch still succeeds), the same bits for an int and a device
+    cache_len and on a second launch, zeros at 0, and the arrival counters
+    back at 0 after every call."""
+    S = case[1]
+    case = (2,) + case[1:]
+    port = [_port(a, torch.uint8 if a.dtype == np.uint8 else
+                  torch.float32).to(card) for a in _pq_inputs(case, seed=5)]
+    takes = _template_takes(case)
+    for q in (port[0], port[0].to(torch.bfloat16)):
+        args = [q] + port[1:]
+        for cache_len in sorted({min(n, S) for n in (0, 1, 255, 256, 257,
+                                                     S)}):
+            got = pqd.pq_decode_attention(*args, cache_len)
+            dev_len = torch.tensor(cache_len, dtype=torch.int32, device=card)
+            assert torch.equal(got, pqd.pq_decode_attention(*args, dev_len))
+            assert torch.equal(got, pqd.pq_decode_attention(*args,
+                                                            cache_len))
+            torch.cuda.synchronize()
+            assert _arrivals_zero(card)
+            want = pqd.pq_decode_attention_torch(*args, cache_len)
+            tol = (dict(rtol=TOL_PQ, atol=TOL_PQ) if q.dtype == torch.float32
+                   else dict(rtol=RTOL16, atol=ATOL16))
+            np.testing.assert_allclose(got.float().cpu().numpy(),
+                                       want.float().cpu().numpy(), **tol)
+            if cache_len == 0:
+                assert not got.any()
+            if takes:
+                old = pqd.pq_decode_attention_template(*args, cache_len)
+                np.testing.assert_allclose(got.float().cpu().numpy(),
+                                           old.float().cpu().numpy(), **tol)
+    if not takes:
+        before = pqd.pq_decode_attention(*port, S)
+        with pytest.raises(KernelFailureError):
+            pqd.pq_decode_attention_template(*port, S)
+            torch.cuda.synchronize()
+        # the refusal's error stays with it: the next launch succeeds
+        assert torch.equal(before, pqd.pq_decode_attention(*port, S))
+
+
+@pytest.mark.cuda
+def test_pq_decode_decode_steps_leave_the_counters_at_zero(card):
+    """Two decode steps in a row over four layers (gemma2-2b's heads, a
+    ragged last chunk, a device cache_len): each step's outputs the first
+    step's bits, and the arrival counters at 0 after each."""
+    case = (1, 1000, 4, 2, 256, 16, 128, 1000)
+    layers = [[_port(a, torch.uint8 if a.dtype == np.uint8 else
+                     torch.float32).to(card)
+               for a in _pq_inputs(case, seed=li)] for li in range(4)]
+    dev_len = torch.tensor(999, dtype=torch.int32, device=card)
+    steps = []
+    for _ in range(2):
+        steps.append([pqd.pq_decode_attention(*layer, dev_len)
+                      for layer in layers])
+        torch.cuda.synchronize()
+        assert _arrivals_zero(card)
+    for a, b in zip(*steps):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

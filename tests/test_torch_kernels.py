@@ -1314,6 +1314,63 @@ def test_tile_cap_takes_any_pending_block(card, p, d, count):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["FULL", "(8, 8000)"])
+@pytest.mark.parametrize("tile_w_kind", ["counts", "weighted", "special"])
+def test_tile_envelope_is_its_twin_on_the_card(card, shape, tile_w_kind):
+    """The hier round's tile envelope in one launch, counted as K12: its
+    four outputs (caps, capped masses, tight tiles, their count) bitwise
+    the twin's on the card at count 0, 1 and P, at the paper's 977 tiles
+    (4M rows, d = 2) and at a (8, 8,000) pending block; tile masses of
+    rows, weighted with a zero tile, or with NaN, +inf and 0 (and a NaN and
+    +inf partial); two launches the same bits; its counters back at 0."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    if shape == "FULL":
+        x = torch.from_numpy(_data(4_000_000, 2, seed=2)).to(card)
+        cache = bounds.prologue(x, 4096)
+        centers, radii = cache.centers, cache.radii
+        pend = (x[[7, 100, 2000, 3, 55, 900, 1500, 2500]] + 0.01).contiguous()
+        md = kd.row_min_d2_torch(x, torch.arange(x.shape[0], device=card),
+                                 pend[:1], 1)
+        partials = tile_partials(md, 4096)
+        rows = tile_partials(torch.ones(x.shape[0], device=card), 4096)
+    else:
+        t, d = 157, 8000
+        centers = torch.randn((t, d), generator=gen, device=card)
+        radii = torch.rand(t, generator=gen, device=card)
+        pend = torch.randn((8, d), generator=gen, device=card)
+        partials = 128 * (2 * d + 40) * torch.rand(t, generator=gen,
+                                                   device=card)
+        rows = torch.full((t,), 128.0, device=card)
+    t = partials.shape[0]
+    if tile_w_kind == "counts":
+        tile_w = rows
+    elif tile_w_kind == "weighted":
+        tile_w = rows * torch.rand(t, generator=gen, device=card)
+        tile_w[0] = 0.0
+    else:
+        tile_w = torch.linspace(0.5, 40.0, t, device=card)
+        tile_w[[1, 4, 9]] = torch.tensor([torch.nan, torch.inf, 0.0],
+                                         device=card)
+        partials = partials.clone()
+        partials[[2, 9]] = torch.tensor([torch.nan, torch.inf], device=card)
+    for count in (0, 1, 8):
+        cnt = torch.tensor(count, dtype=torch.int32, device=card)
+        ops.reset_launches()
+        got = kd.tile_envelope(centers, radii, pend, cnt, partials, tile_w)
+        again = kd.tile_envelope(centers, radii, pend, cnt, partials, tile_w)
+        assert ops.LAUNCHES["tile_cap"] == 2
+        assert sum(ops.LAUNCHES.values()) == 2
+        want = kd.tile_envelope_torch(centers, radii, pend, cnt, partials,
+                                      tile_w)
+        for g, a, w in zip(got, again, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert _same_bits(g, a) and _same_bits(g, w)
+        torch.cuda.synchronize()
+        assert all(not c.any() for key, c in ops._ARRIVALS.items()
+                   if key[0] == "tile_envelope")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [1, 2, 3, 5, 16, 17, 128, 257, 300, 9588,
                                9589, 20_000])
 @pytest.mark.parametrize("block_n", [128, 1024, 4096])

@@ -191,6 +191,136 @@ def test_row_min_d2_on_many_rows_is_each_single_row(ref, d, count):
             xt, torch.tensor(i), pt, count).view(torch.int32)
 
 
+def _prep_ops(centers, radii, pending, count, partials, tile_w):
+    """The hier round's envelope as the engine's prep wrote it before
+    ``tile_envelope``: K12's caps, then the elementwise ops and the sum."""
+    cap = kd.tile_cap_torch(centers, radii, pending, count)
+    capw = cap * tile_w
+    ph = torch.where(capw < partials, capw, partials)
+    tight = ph < partials
+    return cap, ph, tight, tight.sum(dtype=torch.int32)
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _envelope_inputs(tile_w_kind, seed=0):
+    """Tile balls of sorted blobs (16 tiles of 128 rows), a pending block
+    of 8 rows near the data, the partials of a fold of its first row, and
+    tile masses: the row counts, weighted tile sums with a zero, or masses
+    with NaN, +inf and 0 among them; the partials then carry a NaN and a
+    +inf of their own."""
+    x = torch.from_numpy(_sorted_blobs(N, D, 6, seed=seed))
+    cache = bounds.prologue(x, BN)
+    pend = torch.from_numpy(_pending(x.numpy(), 8, seed=seed))
+    md = kd.diff_sq(x[:, None, :], pend[None, :1, :]).amin(dim=1)
+    partials = sampling.tile_partials(md, BN)
+    n_tiles = partials.shape[0]
+    if tile_w_kind == "counts":
+        tile_w = sampling.tile_partials(torch.ones(N), BN)
+    elif tile_w_kind == "weighted":
+        w = torch.from_numpy(np.random.default_rng(seed).uniform(
+            size=N).astype(np.float32))
+        w[:BN] = 0.0                          # a tile of weight 0
+        tile_w = sampling.tile_partials(w, BN)
+    else:
+        tile_w = torch.linspace(0.5, 40.0, n_tiles)
+        tile_w[[1, 4, 9]] = torch.tensor([torch.nan, torch.inf, 0.0])
+        partials = partials.clone()
+        partials[[2, 9]] = torch.tensor([torch.nan, torch.inf])
+    return cache, pend, partials, tile_w
+
+
+@pytest.mark.parametrize("tile_w_kind", ["counts", "weighted", "special"])
+def test_tile_envelope_is_the_prep_composition(tile_w_kind):
+    """``tile_envelope`` (its plain twin, through the wrapper and the
+    backends) is bitwise K12's caps followed by the elementwise ops the
+    hier prep ran, at every count 0..P, with +inf, NaN and zero tile
+    masses and a NaN and +inf partial (a NaN product or partial loses
+    every compare)."""
+    cache, pend, partials, tile_w = _envelope_inputs(tile_w_kind)
+    for count in range(9):
+        want = _prep_ops(cache.centers, cache.radii, pend,
+                         torch.tensor(count), partials, tile_w)
+        for got in (kd.tile_envelope(cache.centers, cache.radii, pend,
+                                     torch.tensor(count), partials, tile_w),
+                    make_backend("cuda").tile_envelope(
+                        cache.centers, cache.radii, pend, count, partials,
+                        tile_w)):
+            assert [g.dtype for g in got] == [torch.float32, torch.float32,
+                                              torch.bool, torch.int32]
+            assert got[3].shape == ()
+            for g, w in zip(got, want):
+                assert torch.equal(_bits(g), _bits(w))
+        if count == 8 and tile_w_kind != "special":
+            assert int(want[3]) > 0   # the caps tighten some tile
+
+
+@pytest.mark.parametrize("tile_w_kind", ["counts", "weighted", "special"])
+def test_tile_envelope_shortcut_at_count_0_is_the_computed_one(tile_w_kind):
+    """What the hier prep uses when no pending centroid is live (+inf
+    caps, the partials, no tight tile, 0) is bitwise the envelope computed
+    at count 0."""
+    cache, pend, partials, tile_w = _envelope_inputs(tile_w_kind, seed=1)
+    n_tiles = partials.shape[0]
+    cap, ph, tight, n_tight = kd.tile_envelope(
+        cache.centers, cache.radii, pend, torch.tensor(0), partials, tile_w)
+    assert torch.equal(_bits(cap), _bits(torch.full((n_tiles,), torch.inf)))
+    assert torch.equal(_bits(ph), _bits(partials))
+    assert torch.equal(tight, torch.zeros(n_tiles, dtype=torch.bool))
+    assert int(n_tight) == 0
+
+
+def _live_rounds(accepts, k, p):
+    """Rounds of a rejection seeding that start with a live pending
+    centroid (count > 0 after the round's append and any refresh): the
+    hier rounds that compute their tile envelope."""
+    count, live = p - 1, 0
+    for m in range(1, k):
+        count += 1
+        if count >= p:
+            count = 0
+        live += count > 0
+        if not accepts[m]:
+            count = 0
+    return live
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_hier_round_computes_its_envelope_once_when_live(weighted):
+    """A backend double counts ``tile_envelope``: one call per hier round
+    with a live pending centroid, each with count > 0, none in a round
+    after a refresh; the seeds are those of the plain backend."""
+
+    @dataclasses.dataclass(frozen=True)
+    class Counting(FusedBackend):
+        counts: list = dataclasses.field(default_factory=list)
+
+        def tile_envelope(self, centers, radii, pending, count, partials,
+                          tile_w):
+            self.counts.append(int(count))
+            return super().tile_envelope(centers, radii, pending, count,
+                                         partials, tile_w)
+
+    k = 24
+    pts = torch.from_numpy(_sorted_blobs(4096, 2, 8, seed=2))
+    w = (torch.from_numpy(np.random.default_rng(3).uniform(
+        0.5, 2.0, size=4096).astype(np.float32)) if weighted else None)
+    draws = draws_for(8, 4096, k, A, weighted=weighted)
+    be = Counting(block_n=BN, tps=TPS)
+    res = engine.seed_points(draws, pts, k, be, "rejection",
+                             refresh_block=8, weights=w)
+    assert len(be.counts) == _live_rounds(res.accepts.tolist(), k, 8)
+    assert 0 < len(be.counts) < k - 1
+    assert min(be.counts) > 0
+    plain = engine.seed_points(draws, pts, k, FusedBackend(block_n=BN,
+                                                           tps=TPS),
+                               "rejection", refresh_block=8, weights=w)
+    for f in COUNTERS + ("centroids", "min_d2"):
+        assert torch.equal(getattr(res, f), getattr(plain, f)), f
+
+
 def _one_at_a_time(propose_fn, pq_fn, propose_u, accept_u, max_attempts,
                    valid=True):
     """The sequential rejection loop: attempt j proposes with
@@ -794,7 +924,8 @@ def card():
 def test_rejection_on_the_card_goes_through_k11_and_k12(card, proposal):
     """``ClusterEngine(device='cuda')`` rejection seeding launches K11 once
     per round that proposes (every attempt of the round priced in that
-    launch) and K12 once per round under 'hier' (never under 'flat');
+    launch) and K12 (the tile envelope) once per round with a live pending
+    centroid under 'hier' (never under 'flat');
     refresh_block=1 is bitwise the tiled seeds, two runs are bitwise equal,
     and flat gated is bitwise ungated."""
     from repro_torch.kernels import ops
@@ -808,7 +939,10 @@ def test_rejection_on_the_card_goes_through_k11_and_k12(card, proposal):
                    proposal=proposal)
     got = dict(ops.LAUNCHES)
     assert got["row_min_d2"] == int((res.proposals > 0).sum()) == k - 1
-    assert got["tile_cap"] == (k - 1 if proposal == "hier" else 0)
+    # one tile envelope (counted as K12) a hier round with a live pending
+    # centroid
+    assert got["tile_cap"] == (_live_rounds(res.accepts.tolist(), k, 8)
+                               if proposal == "hier" else 0)
     assert got["distance_min_update_gated"] >= 2
     telemetry.check_rejection_counters(res.proposals, res.accepts, k, A,
                                        res.recovered)
