@@ -208,6 +208,28 @@ Phases, each of which exits non-zero on failure:
    NaN), all-active K10b bitwise K10a, K10b screening exactly the rows that
    do not prune, the counters printed; and K10b at the IVF build's PQ
    sweep shape (16 problems, d = 8, k = 256) on its own.
+   Then (phase 6 (rejection)) batched rejection seeding at
+   ``kvquant-gemma2-2b``: the problem-list forms of K7 and K8 over an
+   unsorted eighth of the problems against a pending block of 8 (the
+   listed carries bitwise the full launch, the rest untouched, within
+   tolerance of the twins, an empty list launching nothing), the batched
+   K11 (8 attempts a problem) and K12 (the tile envelope, every eighth
+   problem at count 0) bitwise their twins and the single launches on
+   problems 0, 1 and B−1, each timed beside its twin and bound; then
+   ``kmeans_batched(sampler="rejection")`` (refresh_block 8, hier, 8
+   attempts) gated and ungated, counted (per seeding: one listed K8 or K7
+   launch a round in which some problem's block filled, one a round in
+   which some problem's attempts all rejected, the settle; K11 once a
+   round; K12 once a round with a live pending centroid, gated; the
+   batched K1 once per phase; K10b or K10a once per iteration), each
+   problem's refreshes recorded from the listed launches and equal to its
+   single seeding's (``refreshes``), rows 0, 1 and B−1 bitwise their single
+   rejection seedings with their counters, two runs bitwise, the fit
+   bitwise ``seed_batched`` then ``fit_batched``; the host syncs of one
+   seeding (torch's sync debug mode), its seconds, device busy time and
+   idle share beside the batched cdf and tiled seedings, and the fit's
+   inertia over the cdf seeds' fit (printed, not held). Then 16 problems
+   sorted by blob, each bitwise its single gated rejection seeding.
 7. Weighted and mini-batch Lloyd. K4 (the untiled assignment round) at
    the paper's shape, unweighted and with integer weights 1–8, and at
    n = 100,003, d = 128, k = 64, and K9 (K4 over a batch of problems) at
@@ -1314,14 +1336,16 @@ def scan_determinism(torch, sampling, w, reps: int) -> dict:
     return out
 
 
-def profile_call(torch, fn) -> dict:
+def profile_call(torch, fn, cpu: bool = True) -> dict:
     """Device time by kernel over one call of ``fn`` and the device's idle
     share of the call's wall time, from torch.profiler (whose own host-side
-    cost lengthens the wall time, so the idle share is an upper bound)."""
+    cost lengthens the wall time, so the idle share is an upper bound).
+    ``cpu=False`` records the device's activity only: a call of tens of
+    thousands of operations is then read back in seconds, not minutes."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2631,6 +2655,443 @@ def gated_batched_phase(torch, ops, kd, la, bounds, ClusterEngine, Draws,
                   f"rows; Lloyd skipped {run['fit_skipped']} tiles, pruned "
                   f"{run['fit_pruned']} rows; launches "
                   f"{ {n_: c for n_, c in got.items() if c} }")
+    return cases, runs
+
+
+def listed_round_cases(torch, kd, bounds, ops, sampling, pts, gen) -> dict:
+    """The problem-list forms of K7 and K8 at the batched shape, over an
+    unsorted list of every eighth problem, against a pending block of 8
+    centroids (the refresh rejection seeding runs): each listed problem's
+    carries bitwise the full-batch launch's, every other problem's
+    untouched (K8's pruned counts 0 there), the listed rows within tolerance
+    of the plain twin on those problems, two launches bitwise; an empty
+    list launches nothing. Timed (CUDA events, in place) beside the full
+    batch; the bound from the listed problems' bytes."""
+    bsz, n, d = pts.shape
+    dev = pts.device
+    bn = ops.choose_block_n(n, d, 1)
+    cache = bounds.RoundCache(*kd.seed_prologue_batched(pts, bn))
+    rows = torch.randint(n, (bsz, 16, 1), generator=gen, device=dev)
+    picks = torch.take_along_dim(pts, rows, dim=1)
+    md = kd.distance_min_update_batched(
+        pts, cache.norms, picks[:, 8:].contiguous(),
+        torch.full((bsz, n), torch.inf, device=dev), block_n=bn)[0]
+    cents = picks[:, :8].contiguous()
+    parts = sampling.tile_partials(md, bn)
+    tmax = bounds.tile_reduce_max(md, bn)
+    act, dc, margin = bounds.seed_gate(cents, cache, tmax)
+    perm = torch.randperm(bsz, generator=torch.Generator().manual_seed(0))
+    lst = perm[: max(bsz // 8, 1)].to(torch.int32).to(dev)
+    rows_l = lst.long()
+    off = torch.ones(bsz, dtype=torch.bool, device=dev)
+    off[rows_l] = False
+    tol = d2_tol(torch, cache.norms, cents.reshape(-1, d))
+    t = act.shape[-1]
+    xb = pts.element_size()
+    r = lst.numel()
+    cases = {}
+    for name, gated in (("K7", False), ("K8", True)):
+        if gated:
+            full = kd.distance_min_update_gated_batched(
+                pts, cache.norms, cents, md, cache.center_d, dc, margin,
+                parts, tmax, act, block_n=bn)
+
+            def listed(carries, problems=lst):
+                return kd.distance_min_update_gated_batched(
+                    pts, cache.norms, cents, carries[0], cache.center_d, dc,
+                    margin, carries[1], carries[2], act, block_n=bn,
+                    problems=problems)
+            old = (md, parts, tmax)
+        else:
+            full = kd.distance_min_update_batched(pts, cache.norms, cents,
+                                                  md, block_n=bn)
+
+            def listed(carries, problems=lst):
+                return kd.distance_min_update_batched(
+                    pts, cache.norms, cents, carries[0], block_n=bn,
+                    problems=problems, partials=carries[1])
+            old = (md, parts)
+        carries = tuple(x.clone() for x in old)
+        ops.reset_launches()
+        out = listed(carries)
+        twice = tuple(x.clone() for x in old)
+        listed(twice)
+        empty = tuple(x.clone() for x in old)
+        listed(empty, lst[:0])
+        counted = sum(ops.LAUNCHES.values())
+        torch.cuda.synchronize()
+        what = f"{name} over {r} of {bsz} problems"
+        check(counted == 2, f"{what}: {counted} launches counted, want 2")
+        check(all(torch.equal(a, b) for a, b in zip(carries, twice)),
+              f"{what}: two launches differ")
+        check(all(torch.equal(a, b) for a, b in zip(empty, old)),
+              f"{what}: an empty list changed a carry")
+        check(all(out[i] is carries[i] for i in range(len(carries))),
+              f"{what}: not written in place")
+        for got, want, before in zip(carries, full, old):
+            check(bits_equal(torch, got[rows_l], want[rows_l])
+                  and bits_equal(torch, got[off], before[off]),
+                  f"{what}: the listed rows are not the full launch's, or "
+                  "a problem off the list moved")
+        if gated:
+            check(torch.equal(out[3][rows_l], full[3][rows_l])
+                  and not bool(out[3][off].any()),
+                  f"{what}: pruned counts")
+            sub = [x[rows_l] for x in (pts, cache.norms, cents, md,
+                                       cache.center_d, dc, margin, parts,
+                                       tmax, act)]
+            twin_fn = kd.distance_min_update_gated_batched_torch
+        else:
+            sub = [x[rows_l] for x in (pts, cache.norms, cents, md)]
+            twin_fn = kd.distance_min_update_batched_torch
+        twin = twin_fn(*sub, block_n=bn)
+        err = float((carries[0][rows_l] - twin[0]).abs().max())
+        check(err <= tol, f"{what}: min_d2 err {err} > {tol}")
+        check(bool(((carries[1][rows_l] - twin[1]).abs()
+                    <= partial_tol(tol, bn, twin[1])).all()),
+              f"{what}: partials outside tolerance")
+        ms = gpu_ms(torch, lambda: listed(carries), reps=5)
+        full_ms = gpu_ms(torch, (lambda: kd.distance_min_update_gated_batched(
+            pts, cache.norms, cents, md, cache.center_d, dc, margin, parts,
+            tmax, act, block_n=bn)) if gated else (
+            lambda: kd.distance_min_update_batched(pts, cache.norms, cents,
+                                                   md, block_n=bn)), reps=5)
+        plain = gpu_ms(torch, lambda: twin_fn(*sub, block_n=bn), reps=1,
+                       warmup=0)
+        if gated:
+            rows_act = int(bounds.expand_mask(act[rows_l], bn, n).sum())
+            fresh = rows_act - int(out[3][rows_l].sum())
+            bms, by = round_bound_ms(
+                torch, pts, xb * (fresh * d + r * 8 * d)
+                + 4 * (3 * rows_act + fresh + 7 * r * t),
+                fresh * 8 * 2 * d, fresh * 8 * 3 + rows_act * 6)
+        else:
+            bms, by = round_bound_ms(
+                torch, pts, r * (xb * (n * d + 8 * d) + 4 * (3 * n + 2 * t)),
+                r * n * 8 * 2 * d, r * n * 8 * 3)
+        cases[name] = dict(batch=bsz, listed=r, n=n, d=d, m=8, block_n=bn,
+                           max_abs_err=err, tol=tol, ms=ms, full_ms=full_ms,
+                           plain_ms=plain, bound_ms=bms, bound_by=by)
+        print(f"{name} listed: {r} of {bsz} problems (unsorted), m=8: the "
+              f"listed carries bitwise the full launch, the rest untouched, "
+              f"err {err:.3g} (tol {tol:.3g}); {ms:.4f} ms (the full batch "
+              f"{full_ms:.4f} ms), plain {plain:.4f} ms, bound {bms:.4f} ms "
+              f"({by})")
+    return cases
+
+
+def batched_rejection_kernel_cases(torch, kd, bounds, ops, sampling, pts,
+                                   gen, attempts=8, p=8) -> dict:
+    """The batched K11 (every problem's ``attempts`` drawn rows, one warp a
+    row) and K12 (the tile envelope of every problem) at the batched shape,
+    against (B, p, d) pending blocks with counts 0..p (every eighth problem
+    at 0): bitwise their twins, a second launch, and the single launch on
+    problems 0, 1 and B−1 (K12 at count 0: +inf caps, ph = partials, no
+    tight tile). Timed (CUDA events) beside the twins; bounds from bytes
+    and operations."""
+    bsz, n, d = pts.shape
+    dev = pts.device
+    bn = ops.choose_block_n(n, d, 1)
+    _, centers, radii, _ = kd.seed_prologue_batched(pts, bn)
+    t = centers.shape[1]
+    idx = torch.randint(n, (bsz, attempts), generator=gen, device=dev)
+    pend = torch.take_along_dim(pts, torch.randint(
+        n, (bsz, p, 1), generator=gen, device=dev), dim=1).contiguous()
+    cnt = (torch.arange(bsz, device=dev) % (p + 1)).to(torch.int32)
+    cnt[::8] = 0
+    tile_w = sampling.tile_partials(torch.ones(n, device=dev), bn)
+    parts = kd.tile_cap_torch(centers, radii, pend[:, :1], torch.ones(
+        bsz, dtype=torch.int32, device=dev)) * tile_w
+    got11 = kd.row_min_d2(pts, idx, pend, cnt)
+    env = kd.tile_envelope(centers, radii, pend, cnt, parts, tile_w)
+    check(bits_equal(torch, got11, kd.row_min_d2(pts, idx, pend, cnt))
+          and bits_equal(torch, got11, kd.row_min_d2_torch(pts, idx, pend,
+                                                           cnt)),
+          "batched K11: not bitwise its twin or a second launch")
+    check(all(bits_equal(torch, a, b) for a, b in zip(
+        env, kd.tile_envelope(centers, radii, pend, cnt, parts, tile_w)))
+          and all(bits_equal(torch, a, b) for a, b in zip(
+              env, kd.tile_envelope_torch(centers, radii, pend, cnt, parts,
+                                          tile_w))),
+          "batched K12: not bitwise its twin or a second launch")
+    for b in (0, 1, bsz - 1):
+        check(bits_equal(torch, got11[b], kd.row_min_d2(
+            pts[b], idx[b], pend[b], cnt[b])),
+              f"batched K11: problem {b} is not the single launch")
+        one = kd.tile_envelope(centers[b], radii[b], pend[b], cnt[b],
+                               parts[b], tile_w)
+        check(all(bits_equal(torch, u[b], v) for u, v in zip(env, one)),
+              f"batched K12: problem {b} is not the single launch")
+    check(bool(torch.isinf(env[0][0]).all()) and torch.equal(env[1][0],
+                                                              parts[0])
+          and not bool(env[2][0].any()) and int(env[3][0]) == 0,
+          "batched K12: a problem at count 0 is not the +inf envelope")
+    key = ("tile_envelope", torch.cuda.current_device(),
+           torch.cuda.current_stream().cuda_stream)
+    check(int(ops.arrivals(key, 2 * bsz).abs().sum()) == 0,
+          "batched K12: arrival counters not back at 0")
+    ms11, plain11 = timed(torch, lambda: kd.row_min_d2(pts, idx, pend, cnt),
+                          lambda: kd.row_min_d2_torch(pts, idx, pend, cnt))
+    ms12, plain12 = timed(
+        torch, lambda: kd.tile_envelope(centers, radii, pend, cnt, parts,
+                                        tile_w),
+        lambda: kd.tile_envelope_torch(centers, radii, pend, cnt, parts,
+                                       tile_w))
+    live = int(cnt.clamp(max=p).sum())
+    b11, by11 = bound_ms(bsz * (4 * (attempts * (d + 1) + p * d) + 8
+                                * attempts + 4), attempts * live * 3 * d)
+    b12, by12 = bound_ms(bsz * (4 * (t * (d + 1) + p * d + 3 * t) + 9 * t
+                                + 8), t * (live * 3 * d + 6 * bsz))
+    out = {"K11": dict(batch=bsz, n=n, d=d, p=p, a=attempts, ms=ms11,
+                       plain_ms=plain11, bound_ms=b11, bound_by=by11,
+                       max_abs_err=0.0),
+           "K12": dict(batch=bsz, n=n, d=d, p=p, tiles=t, ms=ms12,
+                       plain_ms=plain12, bound_ms=b12, bound_by=by12,
+                       zero_counts=int((cnt == 0).sum()), max_abs_err=0.0)}
+    for name, c in out.items():
+        print(f"{name} batched: B={bsz} d={d} P={p}"
+              + (f" A={attempts}" if name == "K11" else f" tiles={t}")
+              + f", {out['K12']['zero_counts']} problems at count 0: bitwise "
+              f"the twin, a second launch and the single launch on problems "
+              f"0, 1, B-1; {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
+              f"bound {c['bound_ms']:.6f} ms ({c['bound_by']})")
+    return out
+
+
+def schedule_of(accepts, k: int, p: int) -> dict:
+    """A batched rejection seeding's launches from its (B, k) accepts: the
+    listed refresh launches (one a round where some problem's block filled,
+    one a round where some problem's attempts all rejected, and the
+    settle), the rounds starting with some live pending centroid (the
+    batched K12's, under hier with the tile balls), and the problem-
+    refreshes summed over rounds."""
+    bsz = len(accepts)
+    counts = [p - 1] * bsz
+    launches = live = total = 0
+    for m in range(1, k):
+        counts = [c + 1 for c in counts]
+        due = [b for b in range(bsz) if counts[b] >= p]
+        for b in due:
+            counts[b] = 0
+        live += any(counts)
+        failed = [b for b in range(bsz) if not accepts[b][m]]
+        for b in failed:
+            counts[b] = 0
+        launches += bool(due) + bool(failed)
+        total += len(due) + len(failed)
+    return dict(launches=launches + 1, live_rounds=live,
+                problem_refreshes=total + bsz)
+
+
+def count_syncs(torch, fn) -> int:
+    """Host syncs ``fn()`` makes: the operations torch's sync debug mode
+    reports as synchronizing (reads of device values, pageable copies)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def batched_rejection_phase(torch, ops, kd, bounds, sampling, ClusterEngine,
+                            CudaBackend, Draws, layouts, cfg, dev, launches,
+                            gen, p=8) -> tuple[dict, list]:
+    """Phase 6 (rejection): the problem-list forms of K7 and K8 and the
+    batched K11 and K12 against their twins, then batched rejection
+    seeding (``kmeans_batched(sampler="rejection")``, the reference's
+    defaults: refresh_block 8, hier, 8 attempts), gated and ungated, on the
+    first ``(name, points)`` of ``layouts``: counted (the listed refresh,
+    K11 and K12 launches the seeding's own accepts call for; the batched K1
+    once per phase and K10b/K10a once per iteration), each problem's
+    refreshes (recorded from the listed launches) the count its single
+    seeding makes, rows 0, 1 and B−1 bitwise their single seedings
+    (counters included), two runs bitwise, ``kmeans_batched`` bitwise
+    ``seed_batched`` then ``fit_batched``; host syncs counted; seconds,
+    device busy time and idle share beside the batched cdf and tiled
+    seedings; the fit's inertia over the cdf fit's. Then every problem of
+    the other layouts bitwise its single gated seeding."""
+    pts = layouts[0][1]
+    bsz, n, d = pts.shape
+    k = cfg.k
+    cases = {f"{name} listed": [c] for name, c in listed_round_cases(
+        torch, kd, bounds, ops, sampling, pts, gen).items()}
+    cases.update({f"{name} batched": [c] for name, c in
+                  batched_rejection_kernel_cases(
+                      torch, kd, bounds, ops, sampling, pts, gen).items()})
+    torch.cuda.empty_cache()
+    seen = []
+
+    class Recording(CudaBackend):
+        """The card backend, recording each listed round's problems."""
+
+        def seed_round_listed(self, *args, problems, **kw):
+            seen.append(problems.clone())
+            return super().seed_round_listed(*args, problems=problems, **kw)
+
+    fields = ("centroids", "indices", "min_d2", "skipped", "pruned",
+              "proposals", "accepts", "tightened", "supers")
+
+    def same(a, b, b_=None):
+        return all((getattr(a, f) is None and getattr(b, f) is None)
+                   or bits_equal(torch, getattr(a, f) if b_ is None
+                                 else getattr(a, f)[b_], getattr(b, f))
+                   for f in fields)
+
+    draws = Draws.sample_batched(bsz, n, k, device=dev, max_attempts=8,
+                                 generator=torch.Generator().manual_seed(0))
+    cdf_fit = ClusterEngine(device="cuda").kmeans_batched(
+        pts, k, draws=draws, sampler="cdf", max_iters=cfg.max_iters)
+    runs = []
+    for gated in (True, False):
+        t_mode = time.perf_counter()
+        tag = "gated" if gated else "ungated"
+        what = f"{tag} kmeans_batched[rejection]"
+        eng = ClusterEngine(device="cuda", bounds=gated)
+        kw = dict(draws=draws, sampler="rejection")
+        res, total_s, got = counted(torch, ops, lambda: eng.kmeans_batched(
+            pts, k, max_iters=cfg.max_iters, **kw))
+        for name in launches:
+            launches[name] += got[name]
+        # the seeding again, its listed rounds' problems recorded
+        seen.clear()
+        seeds, seed_s, sgot = counted(torch, ops, lambda: ClusterEngine(
+            Recording(), device="cuda", bounds=gated).seed_batched(
+                pts, k, **kw))
+        acc = seeds.accepts.tolist()
+        sched = schedule_of(acc, k, p)
+        listed = ("distance_min_update_gated_batched" if gated
+                  else "distance_min_update_batched")
+        want = {name: 0 for name in sgot}
+        want.update({listed: sched["launches"], "row_min_d2": k - 1,
+                     "tile_cap": sched["live_rounds"] if gated else 0,
+                     "seed_prologue_batched": int(gated)})
+        check(sgot == want, f"{what}: seeding launches "
+              f"{ {n_: c for n_, c in sgot.items() if c} }, want "
+              f"{ {n_: c for n_, c in want.items() if c} }")
+        iters = int(res.n_iters.max())
+        want.update({"seed_prologue_batched": 2 * int(gated),
+                     ("lloyd_assign_gated_batched" if gated
+                      else "lloyd_assign_tiled_batched"): iters})
+        check(got == want, f"{what}: launches "
+              f"{ {n_: c for n_, c in got.items() if c} }, want "
+              f"{ {n_: c for n_, c in want.items() if c} }")
+        check(tuple(res.centroids.shape) == (bsz, k, d)
+              and bool(torch.isfinite(res.centroids).all())
+              and bool(torch.isfinite(res.inertia).all())
+              and int(res.assignment.min()) >= 0
+              and int(res.assignment.max()) < k
+              and int(seeds.indices.min()) >= 0
+              and int(seeds.indices.max()) < n
+              and bool((seeds.proposals[:, 0] == 0).all())
+              and bool((seeds.proposals[:, 1:] >= 1).all())
+              and bool((seeds.proposals[:, 1:] <= 8).all()),
+              f"{what}: output or rejection counters malformed")
+        fit = eng.fit_batched(pts, seeds.centroids, max_iters=cfg.max_iters)
+        check(same_fit(torch, fit, res),
+              f"{what}: not seed_batched then fit_batched")
+        per = torch.bincount(torch.cat(seen).long(),
+                             minlength=bsz).tolist()
+        check(len(seen) == sched["launches"]
+              and per == [refreshes(a, k, p) for a in acc],
+              f"{what}: a problem's refreshes are not the count its "
+              "accepts call for")
+        again = []
+        syncs = count_syncs(torch, lambda: again.append(eng.seed_batched(
+            pts, k, **kw)))
+        check(same(again[0], seeds), f"{what}: two seedings differ")
+        del again
+        t_single = time.perf_counter()
+        for b in (0, 1, bsz - 1):
+            ops.reset_launches()
+            one = eng.seed(pts[b], k, draws=draws[b], sampler="rejection")
+            single = ops.LAUNCHES["distance_min_update_gated" if gated
+                                  else "distance_min_update"]
+            check(same(seeds, one, b) and single == per[b],
+                  f"{what}: problem {b} is not its single rejection "
+                  f"seeding (counters included), or its refreshes "
+                  f"({per[b]}) not the single seeding's ({single})")
+        single_s = (time.perf_counter() - t_single) / 3
+        single_syncs = count_syncs(torch, lambda: eng.seed(
+            pts[0], k, draws=draws[0], sampler="rejection"))
+        times = {}
+        for s_ in ("rejection", "cdf", "tiled"):
+            def fn(s_=s_):
+                return eng.seed_batched(pts, k, draws=draws, sampler=s_)
+            if s_ == "rejection":
+                host_s = seed_s
+            else:
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                host_s = time.perf_counter() - t0
+            prof = profile_call(torch, fn, cpu=False)
+            times[s_] = dict(s=host_s, busy_ms=prof["busy_ms"],
+                             idle_share=prof["idle_share"],
+                             profiled_wall_ms=prof["wall_ms"],
+                             top=dict(list(prof["kernels"].items())[:6]))
+        ratio = float(res.inertia.double().sum()
+                      / cdf_fit.inertia.double().sum())
+        per_problem = (res.inertia / cdf_fit.inertia).median().item()
+        run = dict(gated=gated, batch=bsz, n=n, d=d, k=k,
+                   kmeans_batched_s=total_s, seed_s=seed_s,
+                   n_iters_max=iters, launches=got, seed_launches=sgot,
+                   listed_launches=sched["launches"],
+                   k12_rounds=sched["live_rounds"],
+                   problem_refreshes=sum(per),
+                   refreshes_min=min(per), refreshes_max=max(per),
+                   exact_fallbacks=int((seeds.accepts[:, 1:] == 0).sum()),
+                   host_syncs=syncs, syncs_per_round=syncs / (k - 1),
+                   single_s=single_s, single_syncs=single_syncs,
+                   times=times, inertia_over_cdf=ratio,
+                   inertia_over_cdf_median=per_problem,
+                   rows_bitwise_single=True, repeat_bitwise=True)
+        runs.append(run)
+        print(f"{what} at {cfg.name} (B={bsz}, n={n}, d={d}, k={k}, "
+              f"refresh_block {p}, hier): {total_s:.3f} s end to end, "
+              f"seeding {seed_s:.3f} s counted; launches a seeding: "
+              f"{listed} {sched['launches']}, K11 {k - 1}, K12 "
+              f"{want['tile_cap']}; problem-refreshes {sum(per)} (per "
+              f"problem {min(per)}-{max(per)}, each its single seeding's; "
+              f"{run['exact_fallbacks']} exact fallbacks); host syncs "
+              f"{syncs} ({run['syncs_per_round']:.3f} a round; a single "
+              f"seeding {single_syncs} in {single_s:.3f} s); fit inertia "
+              f"over the cdf seeds' fit {ratio:.6f} (median per problem "
+              f"{per_problem:.6f}); {time.perf_counter() - t_mode:.1f} s "
+              "of checks")
+        for s_, tm in times.items():
+            print(f"  {tag} seed_batched[{s_}]: {tm['s']:.4f} s host clock, "
+                  f"device busy {tm['busy_ms']:.2f} ms, idle share "
+                  f"{tm['idle_share']:.3f} (profiled wall "
+                  f"{tm['profiled_wall_ms']:.1f} ms); "
+                  + ", ".join(f"{nm[:40]} {v['ms']:.2f} ms x{v['count']}"
+                              for nm, v in list(tm["top"].items())[:4]))
+    eng = ClusterEngine(device="cuda")
+    for layout, lp in layouts[1:]:
+        b2 = lp.shape[0]
+        dr = Draws.sample_batched(b2, n, k, device=dev, max_attempts=8,
+                                  generator=torch.Generator().manual_seed(1))
+        res = eng.seed_batched(lp, k, draws=dr, sampler="rejection")
+        for b in range(b2):
+            one = eng.seed(lp[b], k, draws=dr[b], sampler="rejection")
+            check(same(res, one, b), f"gated seed_batched[rejection, "
+                  f"{layout}]: problem {b} is not its single seeding")
+        syncs = count_syncs(torch, lambda: eng.seed_batched(
+            lp, k, draws=dr, sampler="rejection"))
+        runs.append(dict(layout=layout, batch=b2, host_syncs=syncs,
+                         seed_skipped=int(res.skipped.sum()),
+                         tightened=int(res.tightened.sum()),
+                         rows_bitwise_single=True))
+        print(f"gated seed_batched[rejection, {layout}] ({b2} problems): "
+              f"every problem bitwise its single seeding; skipped "
+              f"{runs[-1]['seed_skipped']} tiles, tightened "
+              f"{runs[-1]['tightened']}; host syncs {syncs}")
     return cases, runs
 
 
@@ -4291,8 +4752,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import numpy as np
-    from repro_torch.core import (ClusterEngine, Draws, bounds, sampling,
-                                  telemetry)
+    from repro_torch.core import (ClusterEngine, CudaBackend, Draws, bounds,
+                                  sampling, telemetry)
     from repro_torch.configs import FULL, IVF_SIFT1M as IVF
     from repro_torch.configs import KVQUANT_GEMMA2_2B as KVQ
     from repro_torch.data import blobs, blobs_batched
@@ -4754,7 +5215,17 @@ def main() -> int:
         gen)
     cases.update(gcases)
     report["gated_batched"] = grun
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 6 (rejection)")
+    # 6 (rejection). batched rejection seeding at the sweep: the listed K7
+    #    and K8, the batched K11 and K12, then kmeans_batched
+    rcases, rrun = batched_rejection_phase(
+        torch, ops, kd, bounds, sampling, ClusterEngine, CudaBackend, Draws,
+        (("shuffled", kvq_pts), ("sorted", kvq_sorted)), KVQ, dev, launches,
+        gen)
+    cases.update(rcases)
+    report["batched_rejection"] = rrun
     del kvq_sorted
+    torch.cuda.empty_cache()
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 6 (screen)")
     # 6 (screen). K10a/K10b's screened route on adversarial problems, and
     #    K10b at the IVF build's PQ sweep shape

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Time the batched assignment rounds of several checkouts of the port on
-one NVIDIA card, in turn, at ``kvquant-gemma2-2b`` (``configs/kvquant.py``:
-B = 1664 problems of n = 16384 rows, d = 16, k = 256).
+"""Time the batched seeding and assignment rounds of several checkouts of
+the port on one NVIDIA card, in turn, at ``kvquant-gemma2-2b``
+(``configs/kvquant.py``: B = 1664 problems of n = 16384 rows, d = 16,
+k = 256).
 
     python3 scripts/pair_rounds.py TREE [TREE ...] [--dim D] [--reps N]
                                    [--out PATH]
 
 Each TREE is the root of a checkout (its ``src/`` holds ``repro_torch``).
 Each is run in a process of its own, in the order given (say parent,
-change, change, parent), which builds that tree's kernels and times K10a
+change, change, parent), which builds that tree's kernels and times K7
+(``distance_min_update_batched``, m = 1 and 8), K8
+(``distance_min_update_gated_batched``, m = 1, each problem's gate), K10a
 (``lloyd_assign_tiled_batched``) and K9 (``lloyd_assign_batched``) on the
 fp32 and the bf16 stream: the median of ``reps`` launches (CUDA events,
 queued behind a device-side sleep) and each kernel's device time a launch
@@ -71,6 +74,7 @@ def one(tree: Path, reps: int, dim: int | None) -> dict:
     from repro_torch.configs import KVQUANT_GEMMA2_2B as KVQ
     from repro_torch.core import bounds
     from repro_torch.data import blobs_batched
+    from repro_torch.kernels import kmeans_distance as kd
     from repro_torch.kernels import lloyd_assign as la
     from repro_torch.kernels import ops
 
@@ -87,12 +91,30 @@ def one(tree: Path, reps: int, dim: int | None) -> dict:
     res = dict(tree=str(tree), batch=bsz, n=n, d=d, k=k, block_n=bn,
                tps=tps)
     norms = bounds.point_norms(pts)   # fp32 on both streams
+    # the seeding rounds: D² to two earlier seeds, the next 1 or 8 folded
+    bn1 = ops.choose_block_n(n, d, 1)
+    cache = bounds.RoundCache(*kd.seed_prologue_batched(pts, bn1))
+    md = kd.distance_min_update_batched_torch(
+        pts, cache.norms, cents[:, 8:10].contiguous(),
+        torch.full((bsz, n), torch.inf, device=dev), block_n=bn1)[0]
+    parts = kd.tile_partials(md, bn1)
+    tmax = bounds.tile_reduce_max(md, bn1)
+    gate = bounds.seed_gate(cents[:, :1].contiguous(), cache, tmax)
     for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         p, c = pts.to(dtype), cents.to(dtype)
+        c1, c8 = c[:, :1].contiguous(), c[:, :8].contiguous()
         calls = {
+            "K7 m=1": lambda: kd.distance_min_update_batched(
+                p, cache.norms, c1, md, block_n=bn1),
+            "K7 m=8": lambda: kd.distance_min_update_batched(
+                p, cache.norms, c8, md, block_n=bn1),
+            "K8 m=1": lambda: kd.distance_min_update_gated_batched(
+                p, cache.norms, c1, md, cache.center_d, gate[1], gate[2],
+                parts, tmax, gate[0], block_n=bn1)}
+        calls.update({
             "K10a": lambda: la.lloyd_assign_tiled_batched(
                 p, norms, c, block_n=bn, tps=tps),
-            "K9": lambda: la.lloyd_assign_batched(p, norms, c, block_n=bn)}
+            "K9": lambda: la.lloyd_assign_batched(p, norms, c, block_n=bn)})
         for name, fn in calls.items():
             res[f"{name}_{tag}"] = dict(ms=gpu_ms(torch, fn, reps),
                                         kernels_ms=kernel_ms(torch, fn))

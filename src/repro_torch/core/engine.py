@@ -35,6 +35,9 @@ against:
       problems at once, every tensor with a leading problem axis, gated
       like the single rounds when given a carried state (each problem by
       its own masks); row b is bitwise the single round on problem b.
+  seed_round_listed: the batched seeding round on a list of the batch's
+      problems only, in place into the carries (batched rejection
+      seeding's refreshes; one K8 or K7 launch on the card).
 
 Gating is exact: the fp32 results are bitwise those of ``bounds=False``.
 
@@ -51,8 +54,9 @@ reference's do; the bitwise gated == ungated guarantee is fp32's.
 
 ``CudaBackend`` runs them through the hand-written kernels (K1 prologue, K2
 and K5 seeding rounds, K3 and K6 assignment rounds, K4 the untiled one;
-for batched problems K1's batched form, K7 and K8, K10a and K10b; K11 and
-K12 for rejection seeding); ``FusedBackend`` runs the kernels' plain torch
+for batched problems K1's batched form, K7 and K8 (also over a list of the
+batch's problems), K10a and K10b; K11 and K12 for rejection seeding, single
+or batched); ``FusedBackend`` runs the kernels' plain torch
 twins; ``ReferenceBackend`` is the global-memory (two-pass) seeding
 semantics.
 
@@ -67,10 +71,13 @@ Batched problems (``seed_batched``, ``fit_batched``, ``kmeans_batched``) run
 through the same seeding and Lloyd loops as one problem, with the leading
 problem axis on every carry, the bound state and the skip/prune counters
 included; each problem stops Lloyd at its own convergence test and is
-frozen from then on.
+frozen from then on. Batched rejection seeding refreshes each problem on
+its own schedule (``seed_round_listed``: one launch over the problems whose
+pending block filled, in place).
 Loops are Python loops over device tensors: a sampled index, a gate mask
 and a skip count never leave the device (the rejection loop reads one
-validity bit and one first accepting attempt per round).
+validity bit and one first accepting attempt per round, a (B,) vector of
+each when batched).
 """
 from __future__ import annotations
 
@@ -356,6 +363,42 @@ class Backend:
         return SeedRound(*(torch.stack(f)
                            for f in zip(*(r[:width] for r in rounds))))
 
+    def seed_round_listed(self, points, c_new, min_d2, partials, *,
+                          cache: RoundCache, problems: torch.Tensor,
+                          state: Optional[BoundState] = None) -> SeedRound:
+        """One seeding round of the LISTED problems of a batch, in place:
+        ``problems`` (R,) int32 device indices into the batch (each at most
+        once), the other arguments those of :meth:`seed_round_batched`,
+        and ``partials`` the (B, T) carry (gated: ``state.partials``
+        itself). The listed problems' rows of ``min_d2``, ``partials`` and
+        (gated) ``state.tile_max`` are rewritten, bitwise the batched round
+        on them; the other rows are not touched. Returns the carries as a
+        ``SeedRound`` (no total), gated with (B,) skipped and pruned counts
+        (0 off the list). Here: the batched round on the listed problems'
+        slices, written back."""
+        rows = problems.long()
+
+        def sub(x):
+            return None if x is None else type(x)(
+                *(None if f is None else f.index_select(0, rows) for f in x))
+
+        st = None if state is None else BoundState(
+            state.partials.index_select(0, rows),
+            state.tile_max.index_select(0, rows))
+        rnd = self.seed_round_batched(
+            points.index_select(0, rows), c_new.index_select(0, rows),
+            min_d2.index_select(0, rows), cache=sub(cache), state=st)
+        min_d2.index_copy_(0, rows, rnd.min_d2)
+        partials.index_copy_(0, rows, rnd.partials)
+        if not _gates(state, cache):
+            return SeedRound(min_d2, None, partials)
+        state.tile_max.index_copy_(0, rows, rnd.tile_max)
+        zero = torch.zeros(min_d2.shape[:1], dtype=torch.int32,
+                           device=min_d2.device)
+        return SeedRound(min_d2, None, partials, state.tile_max,
+                         zero.index_copy(0, rows, rnd.skipped),
+                         zero.index_copy(0, rows, rnd.pruned))
+
     def assign_update_batched(self, points, centroids, *, cache: RoundCache,
                               state: Optional[BoundState] = None,
                               delta: Optional[torch.Tensor] = None,
@@ -613,6 +656,28 @@ class CudaBackend(Backend):
             resident=self.resident)
         return SeedRound(new_md, partials.sum(-1), partials)
 
+    def seed_round_listed(self, points, c_new, min_d2, partials, *, cache,
+                          problems, state=None):
+        # one K8 (gated) or K7 launch over the listed problems' tiles, in
+        # place; each problem's gate is (B, T) device ops, read only on the
+        # list
+        n, d = points.shape[-2:]
+        tile = self.seed_tile(n, d, c_new.shape[-2])
+        c = c_new.contiguous()
+        if _gates(state, cache):
+            active, dc, margin = bounds.seed_gate(c, cache, state.tile_max)
+            _, _, _, pruned = kmeans_distance.distance_min_update_gated_batched(
+                points, cache.norms, c, min_d2, cache.center_d, dc, margin,
+                state.partials, state.tile_max, active, block_n=tile,
+                resident=self.resident, problems=problems)
+            return SeedRound(min_d2, None, partials, state.tile_max,
+                             _seed_skipped(active),
+                             pruned.sum(-1).to(torch.int32))
+        kmeans_distance.distance_min_update_batched(
+            points, cache.norms, c, min_d2, block_n=tile,
+            resident=self.resident, problems=problems, partials=partials)
+        return SeedRound(min_d2, None, partials)
+
     def _assign_tiled(self, points, norms, centroids, tile, tps):
         return lloyd_assign.lloyd_assign_tiled(
             points, norms, centroids.contiguous(), block_n=tile, tps=tps)
@@ -767,19 +832,40 @@ def _envelope_fault(fault, m: int, partials: torch.Tensor) -> torch.Tensor:
     """The reference's two rejection-envelope faults at round
     ``fault.round``: ``neg_envelope`` makes the first tile partial -1,
     ``stale_super`` makes every partial of the last super-tile NaN (a torn
-    coarse aggregate). Other kinds and rounds leave ``partials`` as is."""
+    coarse aggregate); batched, every problem's (the reference's ``vmap``
+    of the single fault). Other kinds and rounds leave ``partials`` as
+    is."""
     kind = getattr(fault, "kind", None)
     if fault is None or m != fault.round or kind not in (
             "neg_envelope", "stale_super"):
         return partials
     partials = partials.clone()
     if kind == "neg_envelope":
-        partials[0] = -1.0
+        partials[..., 0] = -1.0
     else:
-        n_tiles = partials.shape[0]
-        partials[max(n_tiles - bounds.tiles_per_super(n_tiles), 0):] = \
+        n_tiles = partials.shape[-1]
+        partials[..., max(n_tiles - bounds.tiles_per_super(n_tiles), 0):] = \
             torch.nan
     return partials
+
+
+def _put(dst: torch.Tensor, value) -> None:
+    """``dst[...] = value`` for a tensor or a host number (by ``fill_``, no
+    host sync)."""
+    if isinstance(value, torch.Tensor):
+        dst.copy_(value)
+    else:
+        dst.fill_(value)
+
+
+def _ints(values, device) -> torch.Tensor:
+    """Host integers as an int32 tensor on ``device``; on the card through
+    pinned memory, so the copy queues behind the work before it and the
+    host does not wait."""
+    t = torch.tensor(values, dtype=torch.int32)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def _seed_rejection_loop(draws: Draws, pts, k, *, round_fn, propose_fn,
@@ -809,7 +895,7 @@ def _seed_rejection_loop(draws: Draws, pts, k, *, round_fn, propose_fn,
 
     The pending block starts as P copies of centroid 0 with count P - 1, so
     round 1's append forces the first refresh; it is never cleared (rows
-    past the count were folded already, a value-noop under min). ``count``
+    past the count were folded already, a value-noop under min). The count
     is a host integer: the refresh decision needs no sync, and the kernels
     read it as a 0-d device view.
 
@@ -830,93 +916,206 @@ def _seed_rejection_loop(draws: Draws, pts, k, *, round_fn, propose_fn,
     the reference's ``neg_envelope``/``stale_super`` corruption. ``guard``
     also checks the settling refresh's total.
 
-    ``prep_fn(partials, pending, live, count) -> (pstate, tightened)``
+    ``prep_fn(partials, pending, live, counts) -> (pstate, tightened)``
     builds the hier proposal state once per round from the (healed)
-    partials; ``live`` is ``count`` as a 0-d device view (what the kernels
-    read), the host ``count`` lets a round with no live pending centroid
+    partials; ``live`` is the count as a device view (what the kernels
+    read), the host ``counts`` let a round with no live pending centroid
     launch nothing.
 
-    Host syncs: two per round (the envelope check, the first accepting
-    attempt), one for the guard's final check.
+    Batched problems (``pts`` (B, n, d), the draws, ``first`` and the
+    carries with a leading axis) run through this same loop, problem b
+    bitwise the single loop on problem b, counters included. Problems fall
+    out of step (a round whose attempts all reject refreshes its problem
+    early), so each keeps its own host count, and the kernels read the
+    (B,) counts, uploaded once a round without a host sync. ``round_fn(c,
+    md, state, problems, partials)`` is then one round over the listed
+    problems only, writing in place into the carries (``init_min_d2``, the
+    (B, T) partials, ``init_state``): the refresh of the problems whose
+    block filled, the heal of those whose envelope is bad (their D² reset
+    to +inf, then the ungated refold), the refresh of those whose attempts
+    all rejected (before their exact draws, on their rows only), and the
+    settle of all B. Nothing is launched for an empty list. ``propose_fn``,
+    ``pq_fn`` and ``prep_fn`` take every problem at once ((B, A) uniforms,
+    one K11 and at most one K12 launch a round), and ``fallback_fn`` the
+    listed problems' rows.
+
+    Host syncs: two per round whatever B is (the envelope check, the first
+    accepting attempts), one for the guard's final check.
 
     Returns (centroids, indices, min_d2, skipped, pruned, proposals,
-    accepts, recovered, tightened, supers), all counters (k,) int32."""
-    d = pts.shape[1]
+    accepts, recovered, tightened, supers), all counters (k,) int32
+    ((B, k) batched)."""
+    lead = tuple(pts.shape[:-2])
+    bsz = lead[0] if lead else 1
+    d = pts.shape[-1]
     dev = pts.device
     P = max(int(refresh_block), 1)
     gated = init_state is not None
-    counts = torch.arange(P + 1, dtype=torch.int32, device=dev)
-    centroids = pts.new_zeros((k, d))
-    indices = torch.zeros(k, dtype=torch.int64, device=dev)
-    first = first.reshape(1)
-    centroids[0:1] = pts.index_select(0, first)
-    indices[0:1] = first
-    skips = torch.zeros(k, dtype=torch.int32, device=dev)
-    prunes = torch.zeros(k, dtype=torch.int32, device=dev)
-    tights = torch.zeros(k, dtype=torch.int32, device=dev)
-    props, accs, sups, rec = [0] * k, [0] * k, [0] * k, [0] * k
-    pending = centroids[0:1].expand(P, d).clone()
-    count = P - 1
+    centroids = pts.new_zeros(lead + (k, d))
+    indices = torch.zeros(lead + (k,), dtype=torch.int64, device=dev)
+    first = first.reshape(lead + (1,))
+    centroids[..., 0:1, :] = _take_rows(pts, first)
+    indices[..., 0:1] = first
+    skips = torch.zeros(lead + (k,), dtype=torch.int32, device=dev)
+    prunes = torch.zeros(lead + (k,), dtype=torch.int32, device=dev)
+    tights = torch.zeros(lead + (k,), dtype=torch.int32, device=dev)
+    props, accs, sups, rec = ([[0] * bsz for _ in range(k)]
+                              for _ in range(4))
+    pending = centroids[..., 0:1, :].expand(lead + (P, d)).clone()
+    counts = [P - 1] * bsz
     md, state = init_min_d2, init_state
-    partials = torch.zeros(n_tiles, device=dev)   # never drawn from
+    if lead:
+        # the carries the listed rounds write into
+        carry = (state.partials if gated
+                 else torch.zeros(lead + (n_tiles,), device=dev))
+        every = torch.arange(bsz, dtype=torch.int32, device=dev)
+        full = torch.full(lead, n_tiles, dtype=torch.int32, device=dev)
+    else:
+        count_views = torch.arange(P + 1, dtype=torch.int32, device=dev)
+        carry = torch.zeros(n_tiles, device=dev)   # never drawn from
+    partials = carry
 
-    def refresh(md, state):
-        rnd = round_fn(pending, md, state)
-        st = BoundState(rnd.partials, rnd.tile_max) if gated else None
-        return rnd.min_d2, rnd.partials, st, rnd.skipped, rnd.pruned
+    def refresh(problems, listed, rs, rp):
+        # fold the pending blocks (batched: of ``problems``, ``listed`` their
+        # mask, None for all); rs/rp: the round's skipped/pruned so far
+        # (None: none). Returns them updated, and the round
+        nonlocal md, partials, state
+        if lead:
+            rnd = round_fn(pending, md, state, problems, carry)
+            if not gated:
+                return rs, rp, rnd
+            rs = rnd.skipped if listed is None else torch.where(
+                listed, rnd.skipped, full if rs is None else rs)
+        else:
+            rnd = round_fn(pending, md, state)
+            md, partials = rnd.min_d2, rnd.partials
+            state = BoundState(rnd.partials, rnd.tile_max) if gated else None
+            rs = rnd.skipped
+        return rs, rnd.pruned if rp is None else rp + rnd.pruned, rnd
 
-    def heal_stale(m, count):
-        block = centroids.clone()
-        block[m - count:] = centroids[0]
+    def refold(problems, block):
+        # D² of ``problems`` refolded ungated from the clean +inf carry
+        nonlocal md, partials, state
+        if lead:
+            rows = problems.long()
+            md.index_fill_(0, rows, torch.inf)
+            round_fn(block, md, None, problems, carry)
+            partials = carry
+            if gated:
+                state.tile_max.index_copy_(0, rows, bounds.tile_reduce_max(
+                    md.index_select(0, rows), tile))
+            return
         rnd = round_fn(block, init_min_d2, None)
-        st = (BoundState(rnd.partials,
-                         bounds.tile_reduce_max(rnd.min_d2, tile))
-              if gated else None)
-        return rnd.min_d2, rnd.partials, st
+        md, partials = rnd.min_d2, rnd.partials
+        state = (BoundState(rnd.partials,
+                            bounds.tile_reduce_max(rnd.min_d2, tile))
+                 if gated else None)
+
+    def append(j, slots, tail):
+        # centroid j into each problem's pending slot; batched, uploads the
+        # slots and the host ints ``tail`` at once, and returns tail's view
+        if not lead:
+            pending[slots[0]] = centroids[j]
+            return None
+        buf = _ints([b * P + c for b, c in enumerate(slots)] + tail, dev)
+        pending.view(-1, d).index_copy_(0, buf[:bsz].long(),
+                                        centroids[:, j])
+        return buf[bsz:]
 
     for m in range(1, k):
-        pending[count] = centroids[m - 1]
-        count += 1
-        rs, rp = n_tiles, 0          # an untouched round read no tile
-        if count >= P:
-            md, partials, state, rs, rp = refresh(md, state)
-            count = 0
+        slots = counts
+        counts = [c + 1 for c in counts]
+        due = [b for b, c in enumerate(counts) if c >= P]
+        for b in due:
+            counts[b] = 0
+        sent = append(m - 1, slots, counts + due)
+        live = sent[:bsz] if lead else count_views[counts[0]]
+        rs = rp = None
+        if due:
+            rs, rp, _ = refresh(sent[bsz:] if lead else None,
+                                live == 0 if lead and gated else None, rs,
+                                rp)
         partials = _envelope_fault(fault, m, partials)
-        env_ok = not bool((~torch.isfinite(partials) | (partials < 0)).any())
-        if not env_ok:
-            md, partials, state = heal_stale(m, count)
-        live = counts[count]
-        pstate, tightened = prep_fn(partials, pending, live, count)
+        bad = (~torch.isfinite(partials) | (partials < 0)).any(-1)
+        healed = ([b for b, x in enumerate(bad.tolist()) if x] if lead
+                  else [0] * bool(bad))                        # one sync
+        if healed:
+            if lead:
+                keep = (torch.arange(k, device=dev)
+                        < (m - live)[:, None])[..., None]
+                refold(_ints(healed, dev),
+                       torch.where(keep, centroids, centroids[:, :1]))
+            else:
+                block = centroids.clone()
+                block[m - counts[0]:] = centroids[0]
+                refold(None, block)
+        pstate, tightened = prep_fn(partials, pending, live, counts)
         weight = bounds.seed_envelope(md, w)
         idx, ok, att = sampling.rejection_sample(
             lambda u: propose_fn(u, weight, partials, pstate),
             lambda i: pq_fn(i, weight, pending, live, pstate),
-            torch.cat([draws.u[m - 1:m], draws.propose_u[m - 1]]),
-            draws.accept_u[m - 1], max_attempts=max_attempts)
-        if not ok:
-            md, partials, state, rs, rp2 = refresh(md, state)
-            rp = rp + rp2
-            count = 0
-            idx = fallback_fn(draws.exact_u[m - 1],
-                              draws.exact_fallback[m - 1:m],
-                              bounds.seed_envelope(md, w), partials)
-        centroids[m:m + 1] = pts.index_select(0, idx)
-        indices[m:m + 1] = idx
-        skips[m - 1], prunes[m - 1], tights[m] = rs, rp, tightened
-        props[m], accs[m], rec[m] = att, int(ok), int(not env_ok)
-        if hier:
-            sups[m] = att + (0 if ok else 1)
+            torch.cat([draws.u[..., m - 1:m], draws.propose_u[..., m - 1, :]],
+                      -1),
+            draws.accept_u[..., m - 1, :], max_attempts=max_attempts)
+        if not lead:
+            ok, att = [ok], [att]
+        failed = [b for b in range(bsz) if not ok[b]]
+        if failed:
+            for b in failed:
+                counts[b] = 0
+            exact_u = draws.exact_u[..., m - 1]
+            exact_fb = draws.exact_fallback[..., m - 1:m]
+            if lead:
+                sent = _ints([int(not x) for x in ok] + failed, dev)
+                rows = sent[bsz:].long()
+                rs, rp, _ = refresh(sent[bsz:], sent[:bsz].bool() if gated
+                                    else None, rs, rp)
+                picked = fallback_fn(
+                    exact_u.index_select(0, rows),
+                    exact_fb.index_select(0, rows),
+                    bounds.seed_envelope(md, w).index_select(0, rows),
+                    partials.index_select(0, rows))
+                idx = idx.index_copy(0, rows, picked)
+            else:
+                rs, rp, _ = refresh(None, None, rs, rp)
+                idx = fallback_fn(exact_u, exact_fb,
+                                  bounds.seed_envelope(md, w), partials)
+        if lead:
+            centroids[:, m:m + 1] = _take_rows(pts, idx)
+        else:
+            centroids[m:m + 1] = pts.index_select(0, idx)
+        indices[..., m:m + 1] = idx
+        # a host number goes in by fill_: assigned, it would be copied
+        # from pageable memory, a host sync
+        if gated:
+            _put(skips[..., m - 1], n_tiles if rs is None else rs)
+            _put(prunes[..., m - 1], 0 if rp is None else rp)
+        _put(tights[..., m], tightened)
+        for b in range(bsz):
+            props[m][b], accs[m][b] = att[b], int(ok[b])
+            if hier:
+                sups[m][b] = att[b] + (0 if ok[b] else 1)
+        for b in healed:
+            rec[m][b] = 1
     # settle: fold the last seed and every still-pending one
-    pending[count] = centroids[k - 1]
-    rnd = round_fn(pending, md, state)
-    final_md = rnd.min_d2
-    if guard and not bool(torch.isfinite(rnd.total)):
-        final_md = round_fn(centroids, init_min_d2, None).min_d2
-        rec[k - 1] = 1
-    skips[k - 1], prunes[k - 1] = rnd.skipped, rnd.pruned
+    append(k - 1, counts, [])
+    rs, rp, rnd = refresh(every if lead else None, None, None, None)
+    final_md = md
+    if guard:
+        total = carry.sum(-1) if lead else rnd.total
+        redo = [b for b, x in enumerate(
+            (~torch.isfinite(total)).reshape(-1).tolist()) if x]
+        if redo:
+            refold(_ints(redo, dev) if lead else None, centroids)
+            final_md = md
+        for b in redo:
+            rec[k - 1][b] = 1
+    if gated:
+        skips[..., k - 1], prunes[..., k - 1] = rs, rp
 
     def i32(xs):
-        return torch.tensor(xs, dtype=torch.int32, device=dev)
+        t = _ints(xs, dev)
+        return t.T.contiguous() if lead else t[:, 0]
 
     return (centroids, indices, final_md, skips, prunes, i32(props),
             i32(accs), i32(rec), tights, i32(sups))
@@ -934,8 +1133,11 @@ def _seed_rejection(draws: Draws, pts, k, backend: Backend,
     :func:`_seed_rejection_loop`. With point weights ``w`` a drawn row's
     exact weight is ``w_i · row_min_d2`` and the hier cap bounds a tile's
     mass through the weights' own tile sums. The refreshes fold through
-    ``stream`` (the rounds' points); the drawn row's D² reads ``pts``."""
-    n, d = pts.shape
+    ``stream`` (the rounds' points); the drawn row's D² reads ``pts``.
+    Batched points (B, n, d) fold through ``Backend.seed_round_listed`` and
+    give every function a leading problem axis (no weights)."""
+    n, d = pts.shape[-2:]
+    lead = tuple(pts.shape[:-2])
     dev = pts.device
     n_tiles = -(-n // tile)
     tps = backend.tiles_per_super(n_tiles)
@@ -943,6 +1145,7 @@ def _seed_rejection(draws: Draws, pts, k, backend: Backend,
     # the refresh folds P centroids at once: pin its tile height to the
     # sampler's, so its partials cover the rows the draws' windows cover
     be = dataclasses.replace(backend, block_n=tile)
+    take = sampling.gather
 
     if hier:
         tiny = torch.finfo(torch.float32).tiny
@@ -954,16 +1157,18 @@ def _seed_rejection(draws: Draws, pts, k, backend: Backend,
         # the envelope of a round with no live pending centroid, or with
         # no balls (no bounds): +inf caps, which tighten no tile (the
         # bits the computed envelope gives there)
-        no_cap = torch.full((n_tiles,), torch.inf, device=dev)
-        no_tight = torch.zeros(n_tiles, dtype=torch.bool, device=dev)
-        none_tight = torch.zeros((), dtype=torch.int32, device=dev)
+        no_cap = torch.full(lead + (n_tiles,), torch.inf, device=dev)
+        no_tight = torch.zeros(lead + (n_tiles,), dtype=torch.bool,
+                               device=dev)
+        none_tight = torch.zeros(lead, dtype=torch.int32, device=dev)
 
-        def prep_fn(partials, pending, live, count):
+        def prep_fn(partials, pending, live, counts):
             # rebuilt each round from the healed partials: cap_t bounds
             # every row's D² to the pending block from tile summaries
             # alone, so min(partials_t, cap_t * W_t) is a valid tile
-            # envelope mass
-            if count == 0 or cache.centers is None:
+            # envelope mass; batched, one launch covers every problem (a
+            # problem at count 0 gets the +inf caps' bits)
+            if not any(counts) or cache.centers is None:
                 cap, ph, tight, n_tight = no_cap, partials, no_tight, \
                     none_tight
             else:
@@ -984,27 +1189,29 @@ def _seed_rejection(draws: Draws, pts, k, backend: Backend,
             # priced under the proposal's own association: a tightened
             # tile drew its row ∝ the capped window with tile mass ph_t,
             # so q = cwin[li] * ph_t / sum(cwin); other tiles keep the flat
-            # q = weight[idx] bitwise. idx (A,): every attempt at once,
-            # each window a row
+            # q = weight[idx] bitwise. idx (A,) or (B, A): every attempt at
+            # once, each window a row
             ph, _, _, cap, tight = pstate
             rd2 = be.row_min_d2(pts, idx, pending, count)
-            t = (idx // tile)[:, None]
-            li = idx[:, None] - t * tile
+            t = (idx // tile)[..., None]
+            li = idx[..., None] - t * tile
             win = sampling.tile_window(weight, t, tile)
-            cw = (cap[t] if w is None
-                  else cap[t] * sampling.tile_window(w, t, tile))
+            cw = (take(cap, t) if w is None
+                  else take(cap, t) * sampling.tile_window(w, t, tile))
             cwin = torch.where(cw < win, cw, win)
-            s_t = sampling.prefix_sum(cwin)[:, tile - 1:tile]
-            q = torch.where(tight[t], torch.take_along_dim(cwin, li, dim=1)
-                            * (ph[t] / s_t.clamp_min(tiny)),
-                            weight[idx][:, None])[:, 0]
-            return torch.minimum(q, rd2 if w is None else w[idx] * rd2), q
+            s_t = sampling.prefix_last(cwin)
+            q = torch.where(take(tight, t),
+                            torch.take_along_dim(cwin, li, dim=-1)
+                            * (take(ph, t) / s_t.clamp_min(tiny)),
+                            take(weight, idx[..., None]))[..., 0]
+            return torch.minimum(q, rd2 if w is None else take(w, idx)
+                                 * rd2), q
 
         def fallback_fn(u, fb, weight, partials):
             return sampling.categorical_hier(u, fb, weight, partials,
                                              block_n=tile, tps=tps)
     else:
-        def prep_fn(partials, pending, live, count):
+        def prep_fn(partials, pending, live, counts):
             return None, 0
 
         def propose_fn(u, weight, partials, pstate):
@@ -1012,24 +1219,32 @@ def _seed_rejection(draws: Draws, pts, k, backend: Backend,
                                                      block_n=tile)
 
         def pq_fn(idx, weight, pending, count, pstate):
-            q = weight[idx]
+            q = take(weight, idx)
             rd2 = be.row_min_d2(pts, idx, pending, count)
-            return torch.minimum(q, rd2 if w is None else w[idx] * rd2), q
+            return torch.minimum(q, rd2 if w is None else take(w, idx)
+                                 * rd2), q
 
         def fallback_fn(u, fb, weight, partials):
             return sampling.categorical_tiled(u, fb, weight, partials,
                                               block_n=tile)
 
+    if lead:
+        def round_fn(c, md, st, problems, partials):
+            return be.seed_round_listed(stream, c.to(stream.dtype), md,
+                                        partials, cache=cache,
+                                        problems=problems, state=st)
+    else:
+        def round_fn(c, md, st):
+            return be.seed_round(stream, c.to(stream.dtype), md, cache=cache,
+                                 state=st, **_weighted(w))
+
     (centroids, indices, min_d2, skips, prunes, props, accs, rec, tights,
      sups) = _seed_rejection_loop(
-        draws, pts, k,
-        round_fn=lambda c, md, st: be.seed_round(
-            stream, c.to(stream.dtype), md, cache=cache, state=st,
-            **_weighted(w)),
-        propose_fn=propose_fn, pq_fn=pq_fn, fallback_fn=fallback_fn,
-        prep_fn=prep_fn, n_tiles=n_tiles, refresh_block=refresh_block,
+        draws, pts, k, round_fn=round_fn, propose_fn=propose_fn,
+        pq_fn=pq_fn, fallback_fn=fallback_fn, prep_fn=prep_fn,
+        n_tiles=n_tiles, refresh_block=refresh_block,
         max_attempts=max_attempts,
-        init_min_d2=torch.full((n,), torch.inf, device=dev),
+        init_min_d2=torch.full(lead + (n,), torch.inf, device=dev),
         init_state=init_state, tile=tile, guard=guard, hier=hier,
         first=first, w=w, fault=fault)
     gated = init_state is not None
@@ -1110,22 +1325,21 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
     active tiles; the results are bitwise those of the ungated loop (for
     'hier', which tightens only with the tile balls, the draws differ).
 
-    ``points`` (B, n, d) seeds B independent problems in one loop, one
-    ``seed_round_batched`` per round, from batched ``draws``
-    (``Draws.sample_batched``): 'cdf' or 'tiled', gated or not, with no
-    in-flight guard (the reference turns it off under ``vmap``); the
-    counters are (B, k). Row b of every field is bitwise the single seeding
-    of problem b with ``draws[b]``."""
+    ``points`` (B, n, d) seeds B independent problems in one loop from
+    batched ``draws`` (``Draws.sample_batched``), gated or not: 'cdf' and
+    'tiled' with one ``seed_round_batched`` per round and no in-flight
+    guard (the reference turns it off under ``vmap``); 'rejection' through
+    the same rejection loop as one problem, each refresh one
+    ``seed_round_listed`` over the problems that need it (``guard`` there
+    only checks the settling refresh, problem by problem). The counters are
+    (B, k). Row b of every field is bitwise the single seeding of problem b
+    with ``draws[b]``."""
     if proposal not in ("flat", "hier"):
         raise ValueError(f"unknown proposal {proposal!r}; "
                          "expected 'flat' or 'hier'")
     _check_sampler(sampler)
     lead = tuple(points.shape[:-2])
-    if lead and sampler == "rejection":
-        raise NotImplementedError(
-            "batched rejection seeding is not ported yet (the next port "
-            "slice); use sampler='cdf' or 'tiled'")
-    if lead and guard:
+    if lead and guard and sampler != "rejection":
         raise NotImplementedError(
             "batched seeding runs without the in-flight guard, as the "
             "reference does under vmap")
@@ -1591,9 +1805,8 @@ class ClusterEngine:
     Batched problems: ``seed_batched``, ``fit_batched`` and
     ``kmeans_batched`` take (B, n, d) points and return results with a
     leading (B,) axis, row b bitwise the single problem's, counters
-    included; they take ``bounds`` on or off and the cdf or tiled sampler
-    (batched rejection seeding is not ported yet). They run without the
-    in-flight guards, as the reference does under ``vmap``.
+    included; they take ``bounds`` on or off and every sampler. They run
+    without the in-flight guards, as the reference does under ``vmap``.
     """
 
     def __init__(self, backend: Union[str, Backend] = "cuda", *,
@@ -1802,13 +2015,8 @@ class ClusterEngine:
     # -- batched multi-problem clustering ---------------------------------
 
     def _batched(self, points, sampler: str = "cdf") -> torch.Tensor:
-        """The (B, n, d) points of a batched call, after the entry guard;
-        raises for what the batched path does not run yet."""
+        """The (B, n, d) points of a batched call, after the entry guard."""
         _check_sampler(sampler)
-        if sampler == "rejection":
-            raise NotImplementedError(
-                "batched rejection seeding is not ported yet (the next port "
-                "slice); use sampler='cdf' or 'tiled'")
         pts = torch.as_tensor(points, dtype=torch.float32, device=self.device)
         if pts.dim() != 3:
             raise guards.InvalidInputError(
@@ -1818,20 +2026,32 @@ class ClusterEngine:
     def seed_batched(self, points, k: int, *,
                      generator: Optional[torch.Generator] = None,
                      draws: Optional[Draws] = None,
-                     sampler: str = "cdf") -> KmeansppResult:
+                     sampler: str = "cdf", refresh_block: int = 8,
+                     proposal: str = "hier",
+                     max_attempts: int = _REJECT_ATTEMPTS) -> KmeansppResult:
         """Seed B independent (n, d) problems, one seeding round for all B
         per round (K8 on the card, K7 with ``bounds=False``), the counters
         (B, k). ``draws`` are batched
-        (``Draws.sample_batched``); problem b picks exactly the seeds
-        ``seed`` picks with ``draws[b]``. No in-flight guard, as in the
-        reference under ``vmap``; the entry guard covers all B."""
+        (``Draws.sample_batched``, with ``max_attempts`` for 'rejection');
+        problem b picks exactly the seeds ``seed`` picks with ``draws[b]``.
+        'rejection' (``refresh_block``, ``proposal`` and ``max_attempts``
+        as for :meth:`seed`, with the reference's defaults) refreshes only
+        the problems that need it, one K8 (K7) launch over their list, and
+        prices every problem's attempts in one K11 launch a round. No
+        in-flight guard, as in the reference under ``vmap``; the entry
+        guard covers all B."""
         pts = self._batched(points, sampler)
         bsz, n, _ = pts.shape
         guards.check_shape(k, n)
         if draws is None:
-            draws = Draws.sample_batched(bsz, n, k, generator=generator)
+            draws = Draws.sample_batched(
+                bsz, n, k, generator=generator,
+                max_attempts=(max(int(max_attempts), 1)
+                              if sampler == "rejection" else 0))
         return seed_points(draws.to(self.device), pts, k, self.backend,
                            sampler, bound_gate=self.bounds,
+                           refresh_block=int(refresh_block),
+                           proposal=proposal, max_attempts=int(max_attempts),
                            stream=_stream_of(pts, self.precision))
 
     def fit_batched(self, points, init_centroids, *, max_iters: int = 50,
@@ -1866,7 +2086,10 @@ class ClusterEngine:
         """``seed_batched`` then ``fit_batched``, each with its own prologue
         (the batched K1 on the card, with ``bounds``) and tile geometry, as
         in the reference (unlike ``kmeans``, which shares one prologue at the
-        fit's tile height). The result carries the fit's counters.
+        fit's tile height). Rejection seeding takes ``seed_batched``'s
+        defaults (``refresh_block=8``, ``proposal='hier'``,
+        ``max_attempts=8``), as the reference's, which passes only the
+        sampler. The result carries the fit's counters.
         ``order`` reorders each problem once up front, so both phases see
         that layout; assignments map back to the caller's rows."""
         pts = self._batched(points, sampler)

@@ -23,10 +23,14 @@ Many draws from one distribution: ``tiled_index_from_uniform`` and
 and return (A, 1) indices, row a bitwise the call on ``u[a]`` (the
 rejection sampler proposes every attempt of a round at once).
 
-Batched problems: ``categorical_cdf``, ``categorical_tiled``, ``_guarded``,
-``prefix_sum`` and ``tile_partials`` also take (B, ·) rows, one problem per
-row, with ``u`` (B,) and ``fallback`` (B, 1), and return (B, 1) indices.
-Row b is bitwise the 1-D call on problem b.
+Batched problems: ``categorical_cdf``, ``categorical_tiled``,
+``categorical_hier``, ``_guarded``, ``prefix_sum``, ``super_cdf`` and
+``tile_partials`` also take (B, ·) rows, one problem per row, with ``u``
+(B,) and ``fallback`` (B, 1), and return (B, 1) indices; the many-draw
+forms of ``tiled_index_from_uniform`` and ``hier_index_from_uniform`` take
+(B, A) uniforms against (B, ·) rows and return (B, A, 1) indices, and
+``rejection_sample`` draws for B problems at once (batched rejection
+seeding). Row b is bitwise the 1-D call on problem b.
 
 Every prefix sum goes through :func:`prefix_sum`, which adds in one fixed
 order. A plain ``torch.cumsum`` over a long 1-D tensor on the card is a
@@ -121,14 +125,16 @@ class Draws:
     @classmethod
     def sample_batched(cls, batch: int, n: int, k: int, *,
                        generator: Optional[torch.Generator] = None,
-                       device="cpu") -> "Draws":
-        """Draws for ``batch`` problems: problem b's are the ``sample(n, k)``
-        the generator gives after b earlier problems' draws, so a loop of
-        single runs fed ``draws[b]`` repeats the batched run problem by
-        problem."""
-        runs = [cls.sample(n, k, generator=generator) for _ in range(batch)]
-        return Draws(*(torch.stack(ts) for ts in zip(
-            *((r.first, r.u, r.fallback) for r in runs)))).to(device)
+                       device="cpu", max_attempts: int = 0) -> "Draws":
+        """Draws for ``batch`` problems: problem b's are the ``sample(n, k,
+        max_attempts=max_attempts)`` the generator gives after b earlier
+        problems' draws, so a loop of single runs fed ``draws[b]`` repeats
+        the batched run problem by problem."""
+        runs = [cls.sample(n, k, generator=generator,
+                           max_attempts=max_attempts) for _ in range(batch)]
+        return Draws(*(None if ts[0] is None else torch.stack(ts)
+                       for ts in zip(*(dataclasses.astuple(r)
+                                       for r in runs)))).to(device)
 
     def to(self, device) -> "Draws":
         def mv(t, dtype):
@@ -147,17 +153,37 @@ def _search(cdf: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """First index with cdf[idx] > r (searchsorted, side='right'), clipped
     to the array; r is 0-d, the result (1,) int64 (batched: cdf (B, n), r
     (B,), the result (B, 1); one cdf, many draws: r (A,), the result
-    (A, 1))."""
+    (A, 1); batched, many draws: r (B, A), the result (B, A, 1))."""
+    if cdf.dim() > 1 and r.dim() >= cdf.dim():
+        # each draw searches its own problem's cdf
+        lead = cdf.shape[:-1]
+        seq = cdf.reshape(lead + (1,) * (r.dim() - len(lead))
+                          + cdf.shape[-1:]).expand(r.shape + cdf.shape[-1:])
+        idx = torch.searchsorted(seq.contiguous(),
+                                 r[..., None].to(cdf.dtype), right=True)
+        return idx.clamp(0, cdf.shape[-1] - 1)
     lead = cdf.shape[:-1] if cdf.dim() > 1 else r.shape
     idx = torch.searchsorted(cdf, r.reshape(lead + (1,)).to(cdf.dtype),
                              right=True)
     return idx.clamp(0, cdf.shape[-1] - 1)
 
 
-def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``x[idx]`` along the last axis, row by row when batched (1-D ``x``:
-    any shape of ``idx``)."""
-    return x[idx] if x.dim() == 1 else torch.take_along_dim(x, idx, dim=-1)
+    any shape of ``idx``; (B, ·) ``x`` with (B, A, ·) ``idx``: each draw's
+    own problem's row)."""
+    if x.dim() == 1:
+        return x[idx]
+    if idx.dim() > x.dim():
+        x = x.reshape(x.shape[:-1] + (1,) * (idx.dim() - x.dim())
+                      + x.shape[-1:])
+    return torch.take_along_dim(x, idx, dim=-1)
+
+
+def _per_problem(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-problem value ``x`` (0-d, or (B,)) shaped to broadcast against
+    ``like``, whose leading axes are the problems'."""
+    return x.reshape(x.shape + (1,) * (like.dim() - x.dim()))
 
 
 SCAN_BLOCK = 128   # length of prefix_sum's sequential row scans
@@ -208,6 +234,23 @@ def _prefix_sum(w: torch.Tensor) -> torch.Tensor:
     out[..., 0, :] = local[..., 0, :]
     torch.add(local[..., 1:, :], tot[..., :-1, None], out=out[..., 1:, :])
     return out.reshape(lead + (-1,))[..., :n]
+
+
+def prefix_last(w: torch.Tensor) -> torch.Tensor:
+    """``prefix_sum(w)[..., -1:]`` bitwise — the same row scans and the same
+    last add — without writing the rest of the scan out."""
+    n = w.shape[-1]
+    lead = w.shape[:-1]
+    if n <= SCAN_BLOCK:
+        return _row_scan(w.reshape(-1, n))[:, -1:].reshape(lead + (1,))
+    pad = (-n) % SCAN_BLOCK
+    if pad:
+        w = torch.nn.functional.pad(w, (0, pad))
+    local = _row_scan(w.reshape(-1, SCAN_BLOCK))
+    blocks = w.shape[-1] // SCAN_BLOCK
+    tot = _prefix_sum(local[:, -1].reshape(lead + (blocks,)))
+    last = local[blocks - 1::blocks, (n - 1) % SCAN_BLOCK].reshape(lead)
+    return torch.add(last, tot[..., -2])[..., None]
 
 
 def fixed_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -272,11 +315,20 @@ def tile_window(weights: torch.Tensor, t: torch.Tensor,
                 block_n: int) -> torch.Tensor:
     """The (block_n,) weight slice of tile t (zero past the last row) — the
     only O(block_n) read a two-level draw performs. ``t`` is a (1,) device
-    index (batched, or many draws from 1-D weights: (B, 1), one window per
-    row), gathered without a host sync."""
+    index in [0, n_tiles) (batched, or many draws from 1-D weights: (B, 1),
+    one window per row; batched, many draws: (B, A, 1)), gathered without a
+    host sync. Where the tiles are whole, each window is one row of the
+    (..., n_tiles, block_n) view, gathered as is."""
     n = weights.shape[-1]
+    if n % block_n == 0:
+        tiles = weights.reshape(weights.shape[:-1] + (n // block_n, block_n))
+        if weights.dim() == 1:
+            return tiles[t][..., 0, :]
+        tiles = tiles.reshape(weights.shape[:-1] + (1,) * (t.dim() - 2)
+                              + tiles.shape[-2:])
+        return torch.take_along_dim(tiles, t[..., None], dim=-2)[..., 0, :]
     rows = t * block_n + torch.arange(block_n, device=weights.device)
-    win = _gather(weights, rows.clamp(max=n - 1))
+    win = gather(weights, rows.clamp(max=n - 1))
     return torch.where(rows < n, win, torch.zeros((), dtype=weights.dtype,
                                                    device=weights.device))
 
@@ -290,13 +342,13 @@ def tiled_index_from_uniform(u: torch.Tensor, weights: torch.Tensor,
     on the tile's mass, so the composite is an exact draw."""
     n = weights.shape[-1]
     tcdf = prefix_sum(partials)
-    r = u.to(tcdf.dtype) * tcdf[..., -1]
+    r = u.to(tcdf.dtype) * _per_problem(tcdf[..., -1], u)
     t = _search(tcdf, r)
-    prev = _gather(tcdf, (t - 1).clamp(min=0))
+    prev = gather(tcdf, (t - 1).clamp(min=0))
     r_local = r[..., None] - torch.where(t > 0, prev, torch.zeros_like(prev))
 
     lcdf = prefix_sum(tile_window(weights, t, block_n))
-    return _row_in_tile(lcdf, r_local, r_local, _gather(partials, t), t,
+    return _row_in_tile(lcdf, r_local, r_local, gather(partials, t), t,
                         block_n=block_n, n=n)
 
 
@@ -342,10 +394,10 @@ def super_cdf(tcdf: torch.Tensor, tps: int) -> torch.Tensor:
     CDF GATHERED at each super's last tile, not a re-sum of the partials,
     so every boundary is bitwise a tile-CDF prefix (``scdf[-1] ==
     tcdf[-1]``) and the two-level search telescopes to the flat one."""
-    n_tiles = tcdf.shape[0]
+    n_tiles = tcdf.shape[-1]
     n_super = -(-n_tiles // tps)
     ends = (torch.arange(n_super, device=tcdf.device) + 1) * tps - 1
-    return tcdf[ends.clamp(max=n_tiles - 1)]
+    return tcdf[..., ends.clamp(max=n_tiles - 1)]
 
 
 def hier_index_from_uniform(u: torch.Tensor, weights: torch.Tensor,
@@ -367,34 +419,36 @@ def hier_index_from_uniform(u: torch.Tensor, weights: torch.Tensor,
     bitwise.
 
     ``u`` may be (A,): A draws from these weights, (A, 1) indices, row a
-    bitwise the call on ``u[a]``.
+    bitwise the call on ``u[a]``. Batched: (B, ·) weights, partials, cdfs,
+    caps and tight masks with ``u`` (B,) ((B, 1) indices) or (B, A)
+    ((B, A, 1)), row b bitwise the call on problem b.
 
     Super-level degenerate guard: a zero or non-finite coarse mass
     telescopes the one uniform through uniform super -> tile -> row picks
     instead of letting a clipped search steer the draw."""
-    n = weights.shape[0]
-    n_tiles = partials.shape[0]
-    n_super = scdf.shape[0]
-    stot = scdf[n_super - 1]                # == tcdf[-1] bitwise
+    n = weights.shape[-1]
+    n_tiles = partials.shape[-1]
+    n_super = scdf.shape[-1]
+    stot = scdf[..., n_super - 1]           # == tcdf[-1] bitwise
     uf = u.to(tcdf.dtype)
-    r = uf * stot
+    r = uf * _per_problem(stot, uf)
     s = _search(scdf, r)
     # the super's window of the tile CDF, +inf past the last tile so a pad
     # never wins a right-search against a finite r
     wid = s * tps + torch.arange(tps, device=tcdf.device)
-    twin = torch.where(wid < n_tiles, tcdf[wid.clamp(max=n_tiles - 1)],
-                       torch.inf)
+    twin = torch.where(wid < n_tiles,
+                       gather(tcdf, wid.clamp(max=n_tiles - 1)), torch.inf)
     t = (s * tps + torch.searchsorted(twin, r.reshape(s.shape), right=True)
          ).clamp(0, n_tiles - 1)
-    prev = tcdf[(t - 1).clamp(min=0)]
+    prev = gather(tcdf, (t - 1).clamp(min=0))
     r_local = r.reshape(t.shape) - torch.where(t > 0, prev,
                                                torch.zeros_like(prev))
 
     win = tile_window(weights, t, block_n)
-    ph_t = partials[t]
+    ph_t = gather(partials, t)
     use, r2 = win, r_local
     if cap is not None:
-        cw, tight_t = cap[t], tight[t]
+        cw, tight_t = gather(cap, t), gather(tight, t)
         # where-form: a NaN cap loses the comparison, leaving the window
         use = torch.where(tight_t, torch.where(cw < win, cw, win), win)
     lcdf = prefix_sum(use)
@@ -413,7 +467,7 @@ def hier_index_from_uniform(u: torch.Tensor, weights: torch.Tensor,
     idx_fb = (t_fb * block_n + ur.to(torch.int64).clamp(max=block_n - 1)
               ).clamp(max=n - 1)
     sok = torch.isfinite(stot) & (stot > 0)
-    return torch.where(sok, idx, idx_fb.reshape(idx.shape))
+    return torch.where(_per_problem(sok, idx), idx, idx_fb.reshape(idx.shape))
 
 
 def categorical_hier(u: torch.Tensor, fallback: torch.Tensor,
@@ -426,7 +480,7 @@ def categorical_hier(u: torch.Tensor, fallback: torch.Tensor,
     idx = hier_index_from_uniform(u, weights, partials, tcdf,
                                   super_cdf(tcdf, tps), block_n=block_n,
                                   tps=tps)
-    return _guarded(idx, fallback, partials.sum())
+    return _guarded(idx, fallback, partials.sum(-1))
 
 
 def rejection_sample(propose_fn, pq_fn, propose_u: torch.Tensor,
@@ -447,17 +501,30 @@ def rejection_sample(propose_fn, pq_fn, propose_u: torch.Tensor,
     none accepts) and the attempts that took, j + 1 or ``max_attempts``;
     when no attempt accepts the caller MUST take an exact draw with
     independent uniforms (the truncated mixture stays exactly p).
-    ``valid`` False skips the attempts outright (``attempts == 0``)."""
+    ``valid`` False skips the attempts outright (``attempts == 0``).
+
+    B problems at once: ``propose_u`` and ``accept_u`` (B, ≥ A), indices,
+    p and q (B, A); the one host sync reads the (B,) first accepting
+    attempts, and the result is ((B, 1) indices, B accept flags, B attempt
+    counts), row b the single call on problem b."""
     if not valid or max_attempts < 1:
         return None, False, max_attempts if valid else 0
-    u = propose_u[:max_attempts]
-    idx = propose_fn(u).reshape(max_attempts)
+    u = propose_u[..., :max_attempts]
+    shape = u.shape
+    idx = propose_fn(u).reshape(shape)
     p, q = pq_fn(idx)
-    ok = accept_u[:max_attempts] * q.reshape(-1) < p.reshape(-1)
+    ok = accept_u[..., :max_attempts] * q.reshape(shape) < p.reshape(shape)
     order = torch.arange(max_attempts, device=ok.device)
-    first = int(torch.where(ok, order, max_attempts).amin())   # one sync
-    j = min(first, max_attempts - 1)
-    return idx[j:j + 1], first < max_attempts, min(first + 1, max_attempts)
+    first = torch.where(ok, order, max_attempts).amin(-1)
+    if first.dim() == 0:
+        f = int(first)                                          # one sync
+        j = min(f, max_attempts - 1)
+        return idx[j:j + 1], f < max_attempts, min(f + 1, max_attempts)
+    pick = torch.take_along_dim(idx, first.clamp(max=max_attempts - 1)[
+        ..., None], dim=-1)
+    fs = first.tolist()                                         # one sync
+    return (pick, [f < max_attempts for f in fs],
+            [min(f + 1, max_attempts) for f in fs])
 
 
 def _guarded(idx: torch.Tensor, fallback: torch.Tensor,

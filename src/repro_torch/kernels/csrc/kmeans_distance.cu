@@ -45,6 +45,17 @@
 // B * n_tiles grid is launched and reads the (B, n_tiles) mask. Row b of a
 // K8 launch is K5 on problem b, bitwise.
 //
+// K7 and K8 also run over a list of the batch's problems (rejection
+// seeding refreshes only the problems whose pending block has filled): the
+// grid covers the listed problems' tiles, block i taking tile i % n_tiles of
+// problem problems[i / n_tiles], and the rest is K7's or K8's code, so a
+// listed problem's outputs are bitwise the full launch's. The listed forms
+// write in place into the caller's carries (md, partials, tile maxima; the
+// TPU kernels' aliasing), so a problem off the list is not touched and no
+// listed problem's points are copied. In place, the template body's running
+// minimum over centroid chunks folds the carried md in at every chunk (min
+// is exact, so the bits are the separate output's).
+//
 // K2, K7 and the template entries are one template (distance_min_update_
 // kernel); K5 and K8 are gated_round_kernel, whose every output is the
 // template's gated instance's bits: an active tile's unpruned rows go
@@ -230,11 +241,14 @@ distance_min_update_kernel(const T* __restrict__ points,
                            const unsigned char* __restrict__ active,
                            float* __restrict__ tile_max,
                            int* __restrict__ pruned,
+                           const int* __restrict__ problems,
                            int n, int d, int m, int block_n, int mc) {
-  // problem b, tile t of it; its arrays are offset to problem b
+  // problem b (the list's r-th where there is a list), tile t of it; its
+  // arrays are offset to problem b
   const int n_tiles = (n + block_n - 1) / block_n;
-  const int b = blockIdx.x / n_tiles;
-  const int t = blockIdx.x - b * n_tiles;
+  const int r = blockIdx.x / n_tiles;
+  const int b = problems ? problems[r] : r;
+  const int t = blockIdx.x - r * n_tiles;
   points += (size_t)b * n * d;
   norms += (size_t)b * n;
   cents += (size_t)b * m * d;
@@ -296,7 +310,10 @@ distance_min_update_kernel(const T* __restrict__ points,
           best = nan_min(best, d2);
         }
         if (!last) {
-          md_out[row] = best;
+          // in place, the carried md is folded in: a later chunk may read
+          // either this value or the one it replaced, and gets the bits
+          // the separate output gives
+          md_out[row] = md_out == md_in ? nan_min(md, best) : best;
           continue;
         }
         v = nan_min(md, best);
@@ -344,7 +361,8 @@ int launch(const T* points, const float* norms, const T* cents,
            const float* md_in, float* md_out, float* partials,
            const float* center_d, const float* dc, const float* margin,
            const unsigned char* active, float* tile_max, int* pruned, int batch,
-           int n, int d, int m, int block_n, int resident, cudaStream_t s) {
+           int n, int d, int m, int block_n, int resident,
+           const int* problems, cudaStream_t s) {
   const long long blocks = (long long)batch * ((n + block_n - 1) / block_n);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const unsigned grid = (unsigned)blocks;
@@ -358,11 +376,12 @@ int launch(const T* points, const float* norms, const T* cents,
                          (int)smem);
     kern<<<grid, kThreads, smem, s>>>(points, norms, cents, md_in, md_out,
                                       partials, center_d, dc, margin, active,
-                                      tile_max, pruned, n, d, m, block_n, mc);
+                                      tile_max, pruned, problems, n, d, m,
+                                      block_n, mc);
   } else {
     distance_min_update_kernel<T, false, Gated><<<grid, kThreads, smem, s>>>(
         points, norms, cents, md_in, md_out, partials, center_d, dc, margin,
-        active, tile_max, pruned, n, d, m, block_n, mc);
+        active, tile_max, pruned, problems, n, d, m, block_n, mc);
   }
   return (int)cudaGetLastError();
 }
@@ -375,18 +394,19 @@ int dispatch(const void* points, const float* norms, const void* cents,
              const float* center_d, const float* dc, const float* margin,
              const unsigned char* active, float* tile_max, int* pruned,
              int batch, int n, int d, int m, int block_n, int resident,
-             int bf16, void* stream) {
+             int bf16, void* stream, const int* problems = nullptr) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch<__nv_bfloat16, Gated>(
         static_cast<const __nv_bfloat16*>(points), norms,
         static_cast<const __nv_bfloat16*>(cents), md_in, md_out, partials,
         center_d, dc, margin, active, tile_max, pruned, batch, n, d, m,
-        block_n, resident, s);
+        block_n, resident, problems, s);
   return launch<float, Gated>(
       static_cast<const float*>(points), norms,
       static_cast<const float*>(cents), md_in, md_out, partials, center_d, dc,
-      margin, active, tile_max, pruned, batch, n, d, m, block_n, resident, s);
+      margin, active, tile_max, pruned, batch, n, d, m, block_n, resident,
+      problems, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -625,18 +645,19 @@ __global__ void __launch_bounds__(kThreads, path_blocks(P))
 gated_round_kernel(const T* __restrict__ points,
                    const float* __restrict__ norms,
                    const T* __restrict__ cents, const float* md_in,
-                   float* md_out, float* __restrict__ partials,
+                   float* md_out, float* partials,
                    const float* __restrict__ center_d,
                    const float* __restrict__ dc,
                    const float* __restrict__ margin,
                    const unsigned char* __restrict__ active,
-                   const float* __restrict__ prev_partials,
-                   const float* __restrict__ prev_tile_max,
-                   float* __restrict__ tile_max, int* __restrict__ pruned,
+                   const float* prev_partials, const float* prev_tile_max,
+                   float* tile_max, int* __restrict__ pruned,
+                   const int* __restrict__ problems,
                    int n, int d, int m, int block_n, int mc) {
   const int n_tiles = (n + block_n - 1) / block_n;
-  const int b = blockIdx.x / n_tiles;
-  const int t = blockIdx.x - b * n_tiles;
+  const int r = blockIdx.x / n_tiles;
+  const int b = problems ? problems[r] : r;
+  const int t = blockIdx.x - r * n_tiles;
   const size_t tb = (size_t)b * n_tiles + t;
   points += (size_t)b * n * d;
   norms += (size_t)b * n;
@@ -805,14 +826,17 @@ wide_rows_kernel(const T* __restrict__ points,
                  const float* __restrict__ dc,
                  const float* __restrict__ margin,
                  const unsigned char* __restrict__ active,
-                 int* __restrict__ pruned, int n, int d, int m, int block_n,
-                 int mc, int kB, int stride) {
+                 int* __restrict__ pruned,
+                 const int* __restrict__ problems, int n, int d, int m,
+                 int block_n, int mc, int kB, int stride) {
   const int n_tiles = (n + block_n - 1) / block_n;
   const int segs = (block_n + kSeg - 1) / kSeg;
-  const int tb = blockIdx.x / segs;              // b * n_tiles + t
-  const int seg0 = (blockIdx.x - tb * segs) * kSeg;
-  const int b = tb / n_tiles;
-  const int t = tb - b * n_tiles;
+  const int tg = blockIdx.x / segs;              // r * n_tiles + t
+  const int seg0 = (blockIdx.x - tg * segs) * kSeg;
+  const int r = tg / n_tiles;
+  const int b = problems ? problems[r] : r;
+  const int t = tg - r * n_tiles;
+  const int tb = b * n_tiles + t;
   points += (size_t)b * n * d;
   norms += (size_t)b * n;
   cents += (size_t)b * m * d;
@@ -970,15 +994,15 @@ template <bool Gated>
 __global__ void __launch_bounds__(kThreads)
 wide_tile_kernel(const float* __restrict__ md_out,
                  const unsigned char* __restrict__ active,
-                 const float* __restrict__ prev_partials,
-                 const float* __restrict__ prev_tile_max,
-                 float* __restrict__ partials, float* __restrict__ tile_max,
-                 int n, int block_n) {
+                 const float* prev_partials, const float* prev_tile_max,
+                 float* partials, float* tile_max,
+                 const int* __restrict__ problems, int n, int block_n) {
   __shared__ float red[3 * kThreads];
   const int n_tiles = (n + block_n - 1) / block_n;
-  const int tb = blockIdx.x;
-  const int b = tb / n_tiles;
-  const int t = tb - b * n_tiles;
+  const int r = blockIdx.x / n_tiles;
+  const int b = problems ? problems[r] : r;
+  const int t = blockIdx.x - r * n_tiles;
+  const int tb = b * n_tiles + t;
   const int tid = threadIdx.x;
   if (Gated && !active[tb]) {
     if (tid == 0) {
@@ -1018,7 +1042,8 @@ int launch_gated(const T* points, const float* norms, const T* cents,
                  const unsigned char* active, const float* prev_partials,
                  const float* prev_tile_max, float* tile_max, int* pruned,
                  int batch, int n, int d, int m, int block_n, int resident,
-                 cudaStream_t s) {
+                 const int* problems, cudaStream_t s) {
+  // a list: `batch` counts the listed problems, and pruned comes zeroed
   const long long blocks = (long long)batch * ((n + block_n - 1) / block_n);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   // d = 2 reads a row as one 8-byte (bf16: 4-byte) load where aligned;
@@ -1063,16 +1088,16 @@ int launch_gated(const T* points, const float* norms, const T* cents,
     const long long segs = (block_n + kSeg - 1) / kSeg;
     if (blocks * segs > 0x7fffffffLL)
       return (int)cudaErrorInvalidConfiguration;
-    int err = gated ? (int)cudaMemsetAsync(pruned, 0, sizeof(int) * blocks,
-                                           s)
-                    : 0;
+    int err = gated && !problems
+                  ? (int)cudaMemsetAsync(pruned, 0, sizeof(int) * blocks, s)
+                  : 0;
     if (err != 0) return err;
     const auto run = [&](auto kern) {
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
       kern<<<(unsigned)(blocks * segs), kThreads, smem, s>>>(
           points, norms, cents, md_in, md_out, center_d, dc, margin, active,
-          pruned, n, d, m, block_n, mc, kB, stride);
+          pruned, problems, n, d, m, block_n, mc, kB, stride);
     };
     const auto by_gate = [&](auto gate) {
       constexpr bool G = decltype(gate)::value;
@@ -1087,8 +1112,8 @@ int launch_gated(const T* points, const float* norms, const T* cents,
       err = (int)cudaGetLastError();
       if (err != 0) return;
       wide_tile_kernel<G><<<(unsigned)blocks, kThreads, 0, s>>>(
-          md_out, active, prev_partials, prev_tile_max, partials, tile_max, n,
-          block_n);
+          md_out, active, prev_partials, prev_tile_max, partials, tile_max,
+          problems, n, block_n);
       err = (int)cudaGetLastError();
     };
     if (gated)
@@ -1109,8 +1134,8 @@ int launch_gated(const T* points, const float* norms, const T* cents,
                          (int)smem);
     kern<<<(unsigned)blocks, kThreads, smem, s>>>(
         points, norms, cents, md_in, md_out, partials, center_d, dc, margin,
-        active, prev_partials, prev_tile_max, tile_max, pruned, n, d, m,
-        block_n, mc);
+        active, prev_partials, prev_tile_max, tile_max, pruned, problems, n,
+        d, m, block_n, mc);
   };
   const auto by_path = [&](auto res, auto gate) {
     constexpr bool R = decltype(res)::value, G = decltype(gate)::value;
@@ -1138,19 +1163,20 @@ int dispatch_gated(const void* points, const float* norms, const void* cents,
                    const float* margin, const unsigned char* active,
                    const float* prev_partials, const float* prev_tile_max,
                    float* tile_max, int* pruned, int batch, int n, int d,
-                   int m, int block_n, int resident, int bf16, void* stream) {
+                   int m, int block_n, int resident, int bf16, void* stream,
+                   const int* problems = nullptr) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch_gated<__nv_bfloat16>(
         static_cast<const __nv_bfloat16*>(points), norms,
         static_cast<const __nv_bfloat16*>(cents), md_in, md_out, partials,
         center_d, dc, margin, active, prev_partials, prev_tile_max, tile_max,
-        pruned, batch, n, d, m, block_n, resident, s);
+        pruned, batch, n, d, m, block_n, resident, problems, s);
   return launch_gated<float>(
       static_cast<const float*>(points), norms,
       static_cast<const float*>(cents), md_in, md_out, partials, center_d, dc,
       margin, active, prev_partials, prev_tile_max, tile_max, pruned, batch,
-      n, d, m, block_n, resident, s);
+      n, d, m, block_n, resident, problems, s);
 }
 
 // K2 and K7 take K5's row loop, ungated, at d >= 8 (at d = 128, m = 8 it
@@ -1159,16 +1185,16 @@ int dispatch_gated(const void* points, const float* norms, const void* cents,
 int dispatch_seed(const void* points, const float* norms, const void* cents,
                   const float* md_in, float* md_out, float* partials,
                   int batch, int n, int d, int m, int block_n, int resident,
-                  int bf16, void* stream) {
+                  int bf16, void* stream, const int* problems = nullptr) {
   if (d <= kNarrow)
     return dispatch<false>(points, norms, cents, md_in, md_out, partials,
                            nullptr, nullptr, nullptr, nullptr, nullptr,
                            nullptr, batch, n, d, m, block_n, resident, bf16,
-                           stream);
+                           stream, problems);
   return dispatch_gated(points, norms, cents, md_in, md_out, partials,
                         nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                         nullptr, nullptr, batch, n, d, m, block_n, resident,
-                        bf16, stream);
+                        bf16, stream, problems);
 }
 
 }  // namespace
@@ -1242,6 +1268,41 @@ extern "C" int distance_min_update_gated_batched_launch(
                         center_d, dc, margin, active, prev_partials,
                         prev_tile_max, tile_max, pruned, batch, n, d, m,
                         block_n, resident, bf16, stream);
+}
+
+// Launches K7 over the listed problems on `stream`: problems (n_listed,)
+// int32 indices into the batch, on the device, any order, each at most
+// once. The grid is n_listed * n_tiles blocks, block i taking tile
+// i % n_tiles of problem problems[i / n_tiles]; every array keeps the whole
+// batch's layout (points (B, n, d), cents (B, m, d), ...). md (B, n) and
+// partials (B, n_tiles) are updated in place for the listed problems, whose
+// outputs are bitwise K7's (and K2's) on them; the other problems' entries
+// are not read or written. Returns cudaGetLastError().
+extern "C" int distance_min_update_listed_launch(
+    const void* points, const float* norms, const void* cents, float* md,
+    float* partials, const int* problems, int n_listed, int n, int d, int m,
+    int block_n, int resident, int bf16, void* stream) {
+  return dispatch_seed(points, norms, cents, md, md, partials, n_listed, n,
+                       d, m, block_n, resident, bf16, stream, problems);
+}
+
+// Launches K8 over the listed problems on `stream` (problems as for K7's
+// list): md (B, n), partials and tile_max (B, n_tiles) are the carries,
+// updated in place for the listed problems (a skipped tile keeps its
+// entries), and pruned (B, n_tiles) must come zeroed: the listed problems'
+// counts are written into it. A listed problem's outputs are bitwise K8's
+// (and K5's) on it; the other problems' entries are not read or written.
+// Returns cudaGetLastError().
+extern "C" int distance_min_update_gated_listed_launch(
+    const void* points, const float* norms, const void* cents, float* md,
+    float* partials, const float* center_d, const float* dc,
+    const float* margin, const unsigned char* active, float* tile_max,
+    int* pruned, const int* problems, int n_listed, int n, int d, int m,
+    int block_n, int resident, int bf16, void* stream) {
+  return dispatch_gated(points, norms, cents, md, md, partials, center_d, dc,
+                        margin, active, partials, tile_max, tile_max, pruned,
+                        n_listed, n, d, m, block_n, resident, bf16, stream,
+                        problems);
 }
 
 // The template's gated instance (distance_min_update_kernel, K5's kernel

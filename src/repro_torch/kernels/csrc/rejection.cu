@@ -29,6 +29,11 @@
 // and writes T (at n = 4M, d = 2: 977 tiles, about 16 KB). Both are far
 // below a microsecond of memory traffic or arithmetic.
 //
+// Batched rejection seeding runs both over B problems in one launch, row b
+// the single launch on problem b: K11 one warp per (problem, drawn row), the
+// tile envelope a run of blocks per problem with the problem's own count and
+// arrival counters.
+//
 // tile_envelope_kernel is K12 as a hier round uses it, one launch a round
 // with a live pending slot: the caps, then the round's envelope from them
 // (the capped tile masses, which tiles tightened, and their count), which
@@ -69,15 +74,21 @@ __device__ __forceinline__ float diff_sq(const float* a, const float* b,
   return s;
 }
 
+// warp w prices drawn row w % a of problem w / a (batch 1: the single
+// launch); every array is offset to that problem
 __global__ void __launch_bounds__(32 * kRowWarps)
 row_min_d2_kernel(const float* __restrict__ points,
                   const long long* __restrict__ idx,
                   const float* __restrict__ pending,
                   const int* __restrict__ count, float* __restrict__ out,
-                  long long n, int d, int p, int a) {
-  const int w = blockIdx.x * kRowWarps + threadIdx.x / 32;
+                  long long n, int d, int p, int a, int batch) {
+  const long long w = (long long)blockIdx.x * kRowWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (w >= a) return;
+  if (w >= (long long)a * batch) return;
+  const long long b = w / a;
+  points += b * n * d;
+  pending += b * p * d;
+  count += b;
   const long long i = idx[w];
   if (i < 0 || i >= n) {  // no such row: the accept test then rejects
     if (lane == 0) out[w] = __int_as_float(0x7fc00000);  // torch.nan's bits
@@ -148,7 +159,12 @@ tile_cap_kernel(const float* __restrict__ centers,
 // rounding; inf * 0 is NaN), ph = capw < partials ? capw : partials,
 // tight = ph < partials (a NaN loses every compare, as torch's), and the
 // count of tight tiles: each block's count summed exactly into acc[0],
-// which the last block to arrive (acc[1] wraps to 0) takes and clears
+// which the last block to arrive (acc[1] wraps to 0) takes and clears.
+// Batched, blocks (b, i) for i < bpp take tiles i * kCapThreads + tid of
+// problem b, every array offset to it (tile_w by w_stride: 0 where the
+// problems share one), and problem b counts in acc[2b], acc[2b + 1]; a
+// problem whose count is 0 gets +inf caps, ph = partials and no tight tile,
+// the bits of its single launch
 __global__ void __launch_bounds__(kCapThreads)
 tile_envelope_kernel(const float* __restrict__ centers,
                      const float* __restrict__ radii,
@@ -158,9 +174,24 @@ tile_envelope_kernel(const float* __restrict__ centers,
                      const float* __restrict__ partials,
                      float* __restrict__ cap, float* __restrict__ ph,
                      bool* __restrict__ tight, int* __restrict__ n_tight,
-                     unsigned* __restrict__ acc, int n_tiles, int d, int p) {
+                     unsigned* __restrict__ acc, int n_tiles, int d, int p,
+                     int bpp, int w_stride) {
   __shared__ float stage[kCapFloats];
-  const int t = blockIdx.x * kCapThreads + threadIdx.x;
+  const int b = blockIdx.x / bpp;
+  const int blk = blockIdx.x - b * bpp;
+  const size_t off = (size_t)b * n_tiles;
+  centers += off * d;
+  radii += off;
+  pending += (size_t)b * p * d;
+  count += b;
+  tile_w += (size_t)b * w_stride;
+  partials += off;
+  cap += off;
+  ph += off;
+  tight += off;
+  n_tight += b;
+  acc += 2 * b;
+  const int t = blk * kCapThreads + threadIdx.x;
   const float c = tile_cap_of(centers, radii, pending, *count, t, n_tiles, d,
                               p, stage);
   __syncthreads();  // the stage is read: it holds the warps' counts next
@@ -183,7 +214,7 @@ tile_envelope_kernel(const float* __restrict__ centers,
   for (int w = 0; w < kCapThreads / 32; ++w) sum += warp_tight[w];
   atomicAdd(reinterpret_cast<int*>(acc), sum);
   __threadfence();
-  if (atomicInc(acc + 1, gridDim.x - 1) == gridDim.x - 1)
+  if (atomicInc(acc + 1, bpp - 1) == (unsigned)bpp - 1)
     *n_tight = atomicExch(reinterpret_cast<int*>(acc), 0);
 }
 
@@ -198,7 +229,25 @@ extern "C" int row_min_d2_launch(const float* points, const long long* idx,
   const int blocks = (a + kRowWarps - 1) / kRowWarps;
   row_min_d2_kernel<<<blocks, 32 * kRowWarps, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      points, idx, pending, count, out, n, d, p, a);
+      points, idx, pending, count, out, n, d, p, a, 1);
+  return (int)cudaGetLastError();
+}
+
+// Launches K11 over `batch` problems on `stream`: points (batch, n, d), idx
+// (batch, a), pending (batch, p, d), count (batch,); out (batch, a), row b
+// bitwise the single launch on problem b. Returns cudaGetLastError().
+extern "C" int row_min_d2_batched_launch(const float* points,
+                                         const long long* idx,
+                                         const float* pending,
+                                         const int* count, float* out,
+                                         long long n, int d, int p, int a,
+                                         int batch, void* stream) {
+  const long long blocks =
+      ((long long)a * batch + kRowWarps - 1) / kRowWarps;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  row_min_d2_kernel<<<(unsigned)blocks, 32 * kRowWarps, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      points, idx, pending, count, out, n, d, p, a, batch);
   return (int)cudaGetLastError();
 }
 
@@ -231,6 +280,27 @@ extern "C" int tile_envelope_launch(const float* centers, const float* radii,
   tile_envelope_kernel<<<blocks, kCapThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       centers, radii, pending, count, tile_w, partials, cap, ph, tight,
-      n_tight, acc, n_tiles, d, p);
+      n_tight, acc, n_tiles, d, p, blocks, 0);
+  return (int)cudaGetLastError();
+}
+
+// Launches the tile envelope over `batch` problems on `stream`: centers
+// (batch, n_tiles, d), radii, partials, cap, ph and tight (batch, n_tiles),
+// pending (batch, p, d), count and n_tight (batch,), tile_w (batch,
+// n_tiles), or (n_tiles,) shared with w_stride 0 (else n_tiles). acc: 2 *
+// batch uint32 counters, 0 before the launch (it leaves them 0). Row b is
+// bitwise the single launch on problem b. Returns cudaGetLastError().
+extern "C" int tile_envelope_batched_launch(
+    const float* centers, const float* radii, const float* pending,
+    const int* count, const float* tile_w, const float* partials, float* cap,
+    float* ph, bool* tight, int* n_tight, unsigned* acc, int n_tiles, int d,
+    int p, int batch, int w_stride, void* stream) {
+  const int bpp = (n_tiles + kCapThreads - 1) / kCapThreads;
+  const long long blocks = (long long)bpp * batch;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  tile_envelope_kernel<<<(unsigned)blocks, kCapThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      centers, radii, pending, count, tile_w, partials, cap, ph, tight,
+      n_tight, acc, n_tiles, d, p, bpp, w_stride);
   return (int)cudaGetLastError();
 }

@@ -34,6 +34,14 @@ b. At d >= 8, K2 and K7 run K5's row loop with every tile active and no
 prune (the same bits as their template body, which ``*_template`` keeps
 reachable for the card tests).
 
+K7 and K8 also take a problem list (``problems=``, an (R,) int32 device
+tensor): one launch over the listed problems' tiles, writing in place into
+the caller's carries (D², partials, and K8's tile maxima), so a problem off
+the list is not touched and no listed problem's points are copied; a
+listed problem's outputs are bitwise the full launch's. Batched rejection
+seeding refreshes through them only the problems whose pending block has
+filled.
+
 Rejection seeding (K11, K12) works between refreshes against the pending
 block of P centroids not yet folded in, of which the first ``count`` are
 live: K11 ``row_min_d2`` is the D² of each drawn row to them (the exact
@@ -43,6 +51,9 @@ add the columns in a fixed order, so the kernels and their plain twins
 agree bitwise; both take any (P, d). ``tile_envelope`` is K12 as a hier
 round runs it: the caps and, in the same launch, the round's capped tile
 masses, tight tiles and their count (bitwise ``tile_envelope_torch``).
+``row_min_d2`` and ``tile_envelope`` also take B problems at once (a leading
+axis on every argument, the counts (B,)), one launch for all, row b bitwise
+the single launch on problem b.
 
 The rounds (K2, K5, K7, K8) read points and centroids as fp32 or as a
 bf16 stream, both of one dtype: the bf16 instance widens each value
@@ -88,6 +99,15 @@ _CAP_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (
     ctypes.c_void_p,)
 _ENVELOPE_ARGTYPES = (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 3 + (
     ctypes.c_void_p,)
+# the problem-list forms of K7 and K8, and the batched K11 and K12
+_LISTED_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7
+                    + (ctypes.c_void_p,))
+_GATED_LISTED_ARGTYPES = ((ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 7
+                          + (ctypes.c_void_p,))
+_ROW_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_longlong,)
+                         + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
+_ENVELOPE_BATCHED_ARGTYPES = ((ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 5
+                              + (ctypes.c_void_p,))
 
 
 def tile_d2(x: torch.Tensor, c: torch.Tensor, xn: torch.Tensor) -> torch.Tensor:
@@ -340,16 +360,57 @@ def distance_min_update(points: torch.Tensor, norms: torch.Tensor,
     return out, partials
 
 
+def _check_listed(problems, bsz: int, device, carries) -> None:
+    """A problem list's checks: (R,) int32 on the points' device, and the
+    in-place carries ``carries`` (name -> (tensor, shape)) as given."""
+    if problems.dim() != 1 or problems.dtype != torch.int32 \
+            or problems.device != device or problems.numel() > bsz:
+        raise ValueError(f"problems must be (R,) int32 on {device} with "
+                         f"R <= {bsz}, got {tuple(problems.shape)} "
+                         f"{problems.dtype} on {problems.device}")
+    for name, (t, shape) in carries.items():
+        if t is None or tuple(t.shape) != shape or t.dtype != torch.float32 \
+                or t.device != device:
+            raise ValueError(f"{name} must be an fp32 {shape} carry on "
+                             f"{device}")
+
+
+def _listed_twin(twin, problems, args, carries, block_n):
+    """The plain twin of a listed round: ``twin`` on the listed problems'
+    slices of ``args``, its outputs written into the ``carries`` rows of
+    those problems (in order). Returns the twin's outputs."""
+    pl = problems.long()
+    out = twin(*(a.index_select(0, pl) for a in args), block_n=block_n)
+    for carry, o in zip(carries, out):
+        carry.index_copy_(0, pl, o)
+    return out
+
+
 def distance_min_update_batched(points: torch.Tensor, norms: torch.Tensor,
                                 centroids: torch.Tensor, min_d2: torch.Tensor,
-                                *, block_n: int, resident: bool = True):
+                                *, block_n: int, resident: bool = True,
+                                problems: torch.Tensor | None = None,
+                                partials: torch.Tensor | None = None):
     """One seeding round of B independent problems: points (B, n, d), norms
     and min_d2 (B, n), centroids (B, m, d). Returns (new_min_d2 (B, n),
     partials (B, n_tiles)). On the card this launches K7, one launch for
     every problem, ``resident`` as for K2; CPU tensors take the plain
-    twin."""
+    twin.
+
+    ``problems`` (R,) int32 on the points' device (any order, each at most
+    once) runs the round on the listed problems only, in place: their rows
+    of ``min_d2`` and of the ``partials`` carry (B, n_tiles) are updated,
+    bitwise the full round's, and nothing else is read or written; returns
+    (min_d2, partials). An empty list launches nothing."""
     _check_batched(points, norms, centroids, min_d2, block_n)
     bsz = points.shape[0]
+    if problems is not None:
+        n_tiles = -(-points.shape[1] // block_n)
+        _check_listed(problems, bsz, points.device, {
+            "min_d2": (min_d2, (bsz, points.shape[1])),
+            "partials": (partials, (bsz, n_tiles))})
+        return _listed_round(points, norms, centroids, min_d2, partials,
+                             problems, block_n=block_n, resident=resident)
     if points.device.type == "cpu":
         return distance_min_update_batched_torch(points, norms, centroids,
                                                  min_d2, block_n=block_n)
@@ -379,6 +440,42 @@ def distance_min_update_batched(points: torch.Tensor, norms: torch.Tensor,
                                  f"failed: cudaError {err}")
     ops.count_launch("distance_min_update_batched", bf16)
     return out, partials
+
+
+def _listed_round(points, norms, centroids, min_d2, partials, problems, *,
+                  block_n: int, resident: bool):
+    """K7 over the listed problems, in place (see
+    :func:`distance_min_update_batched`)."""
+    if problems.numel() == 0:
+        return min_d2, partials
+    if points.device.type == "cpu":
+        _listed_twin(distance_min_update_batched_torch, problems,
+                     (points, norms, centroids, min_d2), (min_d2, partials),
+                     block_n)
+        return min_d2, partials
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    bf16 = ops.check_round_tensors(points, centroids, norms=norms,
+                                   min_d2=min_d2, partials=partials)
+    _, n, d = points.shape
+    if problems.numel() * -(-n // block_n) >= 2 ** 31:
+        raise ValueError("the listed problems' tiles exceed the grid's "
+                         "2^31 - 1 blocks")
+    fn = _build.function("kmeans_distance",
+                         "distance_min_update_listed_launch",
+                         _LISTED_ARGTYPES)
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
+                 min_d2.data_ptr(), partials.data_ptr(),
+                 problems.contiguous().data_ptr(), problems.numel(), n, d,
+                 centroids.shape[1], block_n, int(resident), int(bf16),
+                 stream)
+    if err != 0:
+        raise KernelFailureError(f"distance_min_update_listed launch failed: "
+                                 f"cudaError {err}")
+    ops.count_launch("distance_min_update_batched", bf16)
+    return min_d2, partials
 
 
 def distance_min_update_template(points: torch.Tensor, norms: torch.Tensor,
@@ -499,7 +596,8 @@ def distance_min_update_gated_batched(points: torch.Tensor,
                                       prev_tile_max: torch.Tensor,
                                       active: torch.Tensor, *, block_n: int,
                                       resident: bool = True,
-                                      inplace: bool = False):
+                                      inplace: bool = False,
+                                      problems: torch.Tensor | None = None):
     """One bound-gated seeding round of B independent problems: the
     arguments of ``distance_min_update_gated`` with a leading problem axis
     (points (B, n, d), centroids (B, m, d), norms, min_d2 and center_d
@@ -508,11 +606,27 @@ def distance_min_update_gated_batched(points: torch.Tensor,
     tile_max (B, T), pruned (B, T) int32). On the card this launches K8,
     one launch over every problem's tiles, which writes every output as K5
     does (``inplace`` as K5's); row b is K5 on problem b, bitwise. CPU
-    tensors take the plain twin."""
+    tensors take the plain twin.
+
+    ``problems`` (R,) int32 on the points' device (any order, each at most
+    once) runs the round on the listed problems only, in place: their rows
+    of ``min_d2``, ``prev_partials`` and ``prev_tile_max`` (the carries)
+    are updated, bitwise the full round's, and nothing else of them is read
+    or written; returns (min_d2, prev_partials, prev_tile_max, pruned
+    (B, T) int32, 0 off the list). An empty list launches nothing."""
     _check_gated(points, norms, centroids, min_d2, center_d, dc, margin,
                  prev_partials, prev_tile_max, active, block_n)
     if points.dim() != 3:
         raise ValueError("points and centroids must be 3-D (B, rows, d)")
+    if problems is not None:
+        _check_listed(problems, points.shape[0], points.device, {
+            "min_d2": (min_d2, tuple(min_d2.shape)),
+            "prev_partials": (prev_partials, tuple(active.shape)),
+            "prev_tile_max": (prev_tile_max, tuple(active.shape))})
+        return _gated_listed_round(
+            points, norms, centroids, min_d2, center_d, dc, margin,
+            prev_partials, prev_tile_max, active, problems, block_n=block_n,
+            resident=resident)
     if points.device.type == "cpu":
         return distance_min_update_gated_batched_torch(
             points, norms, centroids, min_d2, center_d, dc, margin,
@@ -565,6 +679,52 @@ def _gated_launch(points, norms, centroids, min_d2, center_d, dc, margin,
         raise KernelFailureError(f"{name} launch failed: cudaError {err}")
     ops.count_launch(name, bf16)
     return out, partials, tile_max, pruned
+
+
+def _gated_listed_round(points, norms, centroids, min_d2, center_d, dc,
+                        margin, partials, tile_max, active, problems, *,
+                        block_n: int, resident: bool):
+    """K8 over the listed problems, in place (see
+    :func:`distance_min_update_gated_batched`)."""
+    pruned = torch.zeros(active.shape, dtype=torch.int32,
+                         device=points.device)
+    if problems.numel() == 0:
+        return min_d2, partials, tile_max, pruned
+    if points.device.type == "cpu":
+        pruned_r = _listed_twin(
+            distance_min_update_gated_batched_torch, problems,
+            (points, norms, centroids, min_d2, center_d, dc, margin,
+             partials, tile_max, active),
+            (min_d2, partials, tile_max), block_n)[3]
+        pruned.index_copy_(0, problems.long(), pruned_r)
+        return min_d2, partials, tile_max, pruned
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    bf16 = ops.check_round_tensors(points, centroids, norms=norms,
+                                   min_d2=min_d2, center_d=center_d, dc=dc,
+                                   margin=margin, partials=partials,
+                                   tile_max=tile_max)
+    _, n, d = points.shape
+    if problems.numel() * -(-n // block_n) >= 2 ** 31:
+        raise ValueError("the listed problems' tiles exceed the grid's "
+                         "2^31 - 1 blocks")
+    fn = _build.function("kmeans_distance",
+                         "distance_min_update_gated_listed_launch",
+                         _GATED_LISTED_ARGTYPES)
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(points.data_ptr(), norms.data_ptr(), centroids.data_ptr(),
+                 min_d2.data_ptr(), partials.data_ptr(), center_d.data_ptr(),
+                 dc.data_ptr(), margin.data_ptr(),
+                 _mask_bytes(active).data_ptr(), tile_max.data_ptr(),
+                 pruned.data_ptr(), problems.contiguous().data_ptr(),
+                 problems.numel(), n, d, centroids.shape[1], block_n,
+                 int(resident), int(bf16), stream)
+    if err != 0:
+        raise KernelFailureError(f"distance_min_update_gated_listed launch "
+                                 f"failed: cudaError {err}")
+    ops.count_launch("distance_min_update_gated_batched", bf16)
+    return min_d2, partials, tile_max, pruned
 
 
 def distance_min_update_gated_template(points: torch.Tensor,
@@ -638,8 +798,12 @@ def diff_sq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _live(count, p: int, device) -> torch.Tensor:
-    """(p,) bool: pending slot j is live when j < count."""
-    return torch.arange(p, device=device) < count
+    """(p,) bool: pending slot j is live when j < count ((B, p) for (B,)
+    counts, each problem's)."""
+    slots = torch.arange(p, device=device)
+    if isinstance(count, torch.Tensor):
+        return slots < count[..., None]
+    return slots < count
 
 
 def row_min_d2_torch(points: torch.Tensor, idx: torch.Tensor,
@@ -647,28 +811,41 @@ def row_min_d2_torch(points: torch.Tensor, idx: torch.Tensor,
     """Plain PyTorch twin of K11: fp32 D² of each row ``idx`` (0-d or
     (A,), the result the same shape) to the nearest of
     ``pending[:count]``, +inf when count is 0, NaN for an index outside
-    [0, n). Entry a is bitwise the 0-d call on ``idx[a]``."""
-    n = points.shape[0]
-    flat = idx.reshape(-1).long()
+    [0, n). Entry a is bitwise the 0-d call on ``idx[a]``. Batched: points
+    (B, n, d), idx (B, A), pending (B, P, d) and counts (B,), row b bitwise
+    the single call on problem b."""
+    n = points.shape[-2]
+    lead = points.shape[:-2]
+    flat = idx.reshape(lead + (-1,)).long()
     inside = (flat >= 0) & (flat < n)
-    x = points.index_select(0, torch.where(inside, flat, 0))     # (A, d)
-    d2 = diff_sq(x[:, None, :], pending[None, :, :])            # (A, P)
-    live = _live(count, pending.shape[0], points.device)
-    best = torch.where(live[None, :], d2, torch.inf).amin(dim=1)
+    x = _rows(points, torch.where(inside, flat, 0))          # (..., A, d)
+    d2 = diff_sq(x[..., :, None, :], pending[..., None, :, :])  # (..., A, P)
+    live = _live(count, pending.shape[-2], points.device)
+    best = torch.where(live[..., None, :], d2, torch.inf).amin(dim=-1)
     return torch.where(inside, best, torch.nan).reshape(idx.shape)
+
+
+def _rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` (..., A) of ``points`` (..., n, d), problem by
+    problem."""
+    if points.dim() == 2:
+        return points.index_select(0, idx)
+    return torch.take_along_dim(points, idx[..., None], dim=-2)
 
 
 def tile_cap_torch(centers: torch.Tensor, radii: torch.Tensor,
                    pending: torch.Tensor, count) -> torch.Tensor:
     """Plain PyTorch twin of K12: (T,) fp32 ``(sqrt(min_j D²(center_t,
     pending_j)) + r_t)²`` over ``pending[:count]``, +inf everywhere when
-    count is 0."""
-    d2 = diff_sq(centers[:, None, :], pending[None, :, :])     # (T, P)
-    live = _live(count, pending.shape[0], centers.device)
-    v = torch.where(live[None, :], d2, torch.inf).amin(dim=1).sqrt() + radii
+    count is 0. Batched: a leading problem axis on every argument, the
+    counts (B,)."""
+    d2 = diff_sq(centers[..., :, None, :], pending[..., None, :, :])
+    live = _live(count, pending.shape[-2], centers.device)
+    v = torch.where(live[..., None, :], d2, torch.inf).amin(
+        dim=-1).sqrt() + radii
     cap = v * v
-    return torch.where(torch.as_tensor(count, device=centers.device) > 0,
-                       cap, torch.inf)
+    return torch.where(torch.as_tensor(count, device=centers.device)[
+        ..., None] > 0, cap, torch.inf)
 
 
 def _card_count(count, device) -> torch.Tensor:
@@ -678,6 +855,14 @@ def _card_count(count, device) -> torch.Tensor:
             raise ValueError(f"count must be one value on {device}")
         return count.reshape(()).to(torch.int32)
     return torch.full((), int(count), dtype=torch.int32, device=device)
+
+
+def _card_counts(count, bsz: int, device) -> torch.Tensor:
+    """Batched counts as the (B,) int32 device tensor the kernels read."""
+    if not isinstance(count, torch.Tensor) or tuple(count.shape) != (bsz,) \
+            or count.device != device:
+        raise ValueError(f"counts must be a ({bsz},) tensor on {device}")
+    return count.to(torch.int32).contiguous()
 
 
 def _check_pending(pending: torch.Tensor, d: int) -> None:
@@ -694,8 +879,10 @@ def row_min_d2(points: torch.Tensor, idx: torch.Tensor,
     ``pending[:count]``; +inf when count is 0, NaN for an index outside
     [0, n). On the card this is one K11 launch for all A rows; CPU tensors
     take the plain twin."""
+    if points.dim() == 3:
+        return _row_min_d2_batched(points, idx, pending, count)
     if points.dim() != 2:
-        raise ValueError("points must be 2-D")
+        raise ValueError("points must be 2-D, or 3-D (B, n, d)")
     n, d = points.shape
     _check_pending(pending, d)
     if idx.dim() > 1 or idx.numel() < 1:
@@ -716,6 +903,38 @@ def row_min_d2(points: torch.Tensor, idx: torch.Tensor,
                  cnt.data_ptr(), out.data_ptr(), n, d, p, idx.numel(), stream)
     if err != 0:
         raise KernelFailureError(f"row_min_d2 launch failed: cudaError {err}")
+    ops.LAUNCHES["row_min_d2"] += 1
+    return out
+
+
+def _row_min_d2_batched(points, idx, pending, count) -> torch.Tensor:
+    """K11 over B problems (see :func:`row_min_d2`): one launch, a warp a
+    (problem, drawn row)."""
+    bsz, n, d = points.shape
+    if pending.dim() != 3 or pending.shape[0] != bsz:
+        raise ValueError(f"pending must be ({bsz}, P, {d}), got "
+                         f"{tuple(pending.shape)}")
+    _check_pending(pending[0], d)
+    if idx.dim() != 2 or idx.shape[0] != bsz or idx.shape[1] < 1:
+        raise ValueError(f"idx must be ({bsz}, A), got {tuple(idx.shape)}")
+    if points.device.type == "cpu":
+        return row_min_d2_torch(points, idx, pending, count)
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    ops.check_card_tensors(points=points, pending=pending)
+    ops.check_card_tensors(torch.int64, idx=idx)
+    cnt = _card_counts(count, bsz, points.device)
+    fn = _build.function("rejection", "row_min_d2_batched_launch",
+                         _ROW_BATCHED_ARGTYPES)
+    out = torch.empty(idx.shape, dtype=torch.float32, device=points.device)
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(points.data_ptr(), idx.data_ptr(), pending.data_ptr(),
+                 cnt.data_ptr(), out.data_ptr(), n, d, pending.shape[1],
+                 idx.shape[1], bsz, stream)
+    if err != 0:
+        raise KernelFailureError(f"row_min_d2_batched launch failed: "
+                                 f"cudaError {err}")
     ops.LAUNCHES["row_min_d2"] += 1
     return out
 
@@ -754,12 +973,12 @@ def tile_cap(centers: torch.Tensor, radii: torch.Tensor,
 
 def tile_envelope_torch(centers, radii, pending, count, partials, tile_w):
     """Plain twin of :func:`tile_envelope`: ``tile_cap_torch``, then the
-    hier round's envelope ops."""
+    hier round's envelope ops (batched: each problem's)."""
     cap = tile_cap_torch(centers, radii, pending, count)
     capw = cap * tile_w   # inf·0 is NaN: loses every < below
     ph = torch.where(capw < partials, capw, partials)
     tight = ph < partials
-    return cap, ph, tight, tight.sum(dtype=torch.int32)
+    return cap, ph, tight, tight.sum(dim=-1, dtype=torch.int32)
 
 
 def tile_envelope(centers: torch.Tensor, radii: torch.Tensor,
@@ -771,7 +990,16 @@ def tile_envelope(centers: torch.Tensor, radii: torch.Tensor,
     n_tight)``, the caps (:func:`tile_cap`), ``ph = min(cap · tile_w,
     partials)`` (a NaN product keeps the partial), ``tight = ph <
     partials`` and its count (0-d int32). On the card this is one launch,
-    counted as K12's; CPU tensors take the plain twin."""
+    counted as K12's; CPU tensors take the plain twin.
+
+    Batched: centers (B, T, d), radii and partials (B, T), pending
+    (B, P, d), counts (B,) and tile_w (B, T) or (T,) shared: every output
+    gains the leading axis (n_tight (B,)), row b bitwise the single call on
+    problem b (a problem whose count is 0 gets +inf caps, ph = partials and
+    no tight tile), one launch."""
+    if centers.dim() == 3:
+        return _tile_envelope_batched(centers, radii, pending, count,
+                                      partials, tile_w)
     if centers.dim() != 2 or centers.shape[0] < 1:
         raise ValueError(f"centers must be (T, d), got "
                          f"{tuple(centers.shape)}")
@@ -809,5 +1037,52 @@ def tile_envelope(centers: torch.Tensor, radii: torch.Tensor,
     if err != 0:
         raise KernelFailureError(f"tile_envelope launch failed: cudaError "
                                  f"{err}")
+    ops.LAUNCHES["tile_cap"] += 1
+    return cap, ph, tight, n_tight
+
+
+def _tile_envelope_batched(centers, radii, pending, count, partials, tile_w):
+    """The tile envelope over B problems (see :func:`tile_envelope`)."""
+    bsz, t, d = centers.shape
+    if t < 1 or pending.dim() != 3 or pending.shape[0] != bsz:
+        raise ValueError(f"bad shapes: centers {tuple(centers.shape)}, "
+                         f"pending {tuple(pending.shape)}")
+    _check_pending(pending[0], d)
+    for name, x in (("radii", radii), ("partials", partials)):
+        if tuple(x.shape) != (bsz, t):
+            raise ValueError(f"{name} {tuple(x.shape)} must be ({bsz}, {t})")
+    if tuple(tile_w.shape) not in ((t,), (bsz, t)):
+        raise ValueError(f"tile_w {tuple(tile_w.shape)} must be ({t},) or "
+                         f"({bsz}, {t})")
+    if centers.device.type == "cpu":
+        return tile_envelope_torch(centers, radii, pending, count, partials,
+                                   tile_w)
+    if centers.device.type != "cuda":
+        raise ValueError(f"unsupported device {centers.device}")
+    ops.check_card_tensors(centers=centers, radii=radii, pending=pending,
+                           partials=partials, tile_w=tile_w)
+    cnt = _card_counts(count, bsz, centers.device)
+    fn = _build.function("rejection", "tile_envelope_batched_launch",
+                         _ENVELOPE_BATCHED_ARGTYPES)
+    dev = centers.device
+    out = torch.empty((2 * bsz * t + bsz,), dtype=torch.float32, device=dev)
+    cap = out[:bsz * t].view(bsz, t)
+    ph = out[bsz * t:2 * bsz * t].view(bsz, t)
+    n_tight = out[2 * bsz * t:].view(torch.int32)
+    tight = torch.empty((bsz, t), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        key = ("tile_envelope", torch.cuda.current_device(), stream)
+        acc = ops.arrivals(key, 2 * bsz)
+        err = fn(centers.data_ptr(), radii.data_ptr(), pending.data_ptr(),
+                 cnt.data_ptr(), tile_w.data_ptr(), partials.data_ptr(),
+                 cap.data_ptr(), ph.data_ptr(), tight.data_ptr(),
+                 n_tight.data_ptr(), acc.data_ptr(), t, d, pending.shape[1],
+                 bsz, t if tile_w.dim() == 2 else 0, stream)
+        if err != 0:
+            ops.drop_arrivals(key)
+    if err != 0:
+        raise KernelFailureError(f"tile_envelope_batched launch failed: "
+                                 f"cudaError {err}")
     ops.LAUNCHES["tile_cap"] += 1
     return cap, ph, tight, n_tight

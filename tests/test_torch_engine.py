@@ -618,18 +618,21 @@ def test_unported_options_raise():
     # name raises instead of running in the natural order
     with pytest.raises(ValueError, match="ordering"):
         eng.fit_minibatch(pts[:3], [pts], order="zorder")
-    # batched problems: rejection seeding raises, with bounds on (the
-    # default) and off, instead of running elsewhere; so does the in-flight
-    # guard, which the batched loops do not run (as the reference's vmap)
+    # batched problems: rejection seeding runs, with bounds on (the
+    # default) and off (tests/test_torch_batched_rejection.py), and asks for
+    # the rejection schedule in its draws; the in-flight guard of the cdf
+    # and tiled loops raises, as the batched loops do not run it (as the
+    # reference's vmap)
     many = np.stack([pts, pts])
     off = ClusterEngine(device="cpu", bounds=False)
+    gen = torch.Generator().manual_seed(0)
     for e in (eng, off):
-        for call in (lambda: e.seed_batched(many, 3, sampler="rejection"),
-                     lambda: e.kmeans_batched(many, 3, sampler="rejection")):
-            with pytest.raises(NotImplementedError, match="rejection"):
-                call()
+        res = e.seed_batched(many, 3, sampler="rejection", generator=gen)
+        assert tuple(res.indices.shape) == (2, 3)
+        fit = e.kmeans_batched(many, 3, sampler="rejection", generator=gen)
+        assert tuple(fit.centroids.shape) == (2, 3, 2)
     for gate in (True, False):
-        with pytest.raises(NotImplementedError, match="rejection"):
+        with pytest.raises(ValueError, match="attempts"):
             engine.seed_points(Draws.sample_batched(2, 100, 3),
                                torch.from_numpy(many), 3,
                                make_backend("fused"), "rejection",

@@ -31,6 +31,7 @@ tests (``-m cuda``) needs no JAX on the machine with the card.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import os
 import subprocess
@@ -112,9 +113,11 @@ def _schedule(key, n: int, k: int):
     return first, np.asarray(us, np.float32), np.asarray(fbs, np.int64)
 
 
-def rejection_schedule(seed: int, n: int, k: int, max_attempts: int):
+def rejection_schedule(seed: int, n: int, k: int, max_attempts: int,
+                       batch=None):
     """The rejection loop's numbers for rounds 1..k-1 under
-    ``PRNGKey(seed)``: (propose_u (k-1, A-1), accept_u (k-1, A), exact_u
+    ``PRNGKey(seed)`` (with ``batch=(b, B)``, problem b's key of
+    ``seed_batched``): (propose_u (k-1, A-1), accept_u (k-1, A), exact_u
     (k-1,), exact_fallback (k-1,)). Round key ``ks`` as in
     :func:`key_schedule`; attempt j's key is ``ks`` itself for j = 0 (so
     its proposal uniform is the round's ``u``) and ``fold_in(ks, j)`` after;
@@ -131,7 +134,7 @@ def rejection_schedule(seed: int, n: int, k: int, max_attempts: int):
         return int(jax.random.randint(jax.random.fold_in(key, GUARD_SALT),
                                       (), 0, n, dtype=jnp.int32))
 
-    key, _ = jax.random.split(jax.random.PRNGKey(seed))
+    key, _ = jax.random.split(_root_key(seed, batch))
     pu, au, eu, eg = [], [], [], []
     for _ in range(1, k):
         key, ks = jax.random.split(key)
@@ -165,14 +168,15 @@ def draws_for(seed: int, n: int, k: int, max_attempts: int = 0,
     """The reference's key schedule as the port's ``Draws``; with
     ``max_attempts`` > 0 also the rejection loop's; with ``weighted`` the
     weighted first seed's; with ``batch=(b, B)`` problem b's of
-    ``seed_batched`` (cdf and tiled only)."""
+    ``seed_batched``."""
     first, u, fb = key_schedule(seed, n, k, batch)
     extra = {}
     if max_attempts > 0:
         extra = dict(zip(("propose_u", "accept_u", "exact_u",
                           "exact_fallback"),
                          map(torch.from_numpy,
-                             rejection_schedule(seed, n, k, max_attempts))))
+                             rejection_schedule(seed, n, k, max_attempts,
+                                                batch))))
     if weighted:
         fu, ffb = weighted_first(seed, n)
         extra.update(first_u=torch.tensor([fu], dtype=torch.float32),
@@ -181,13 +185,15 @@ def draws_for(seed: int, n: int, k: int, max_attempts: int = 0,
                  torch.from_numpy(fb), **extra)
 
 
-def batched_draws_for(seed: int, n_problems: int, n: int, k: int) -> Draws:
+def batched_draws_for(seed: int, n_problems: int, n: int, k: int,
+                      max_attempts: int = 0) -> Draws:
     """``seed_batched(PRNGKey(seed), ...)``'s draws for all problems, as
-    the port's batched ``Draws`` (leading axis B)."""
-    runs = [draws_for(seed, n, k, batch=(b, n_problems))
+    the port's batched ``Draws`` (leading axis B); with ``max_attempts``
+    > 0 also each problem's rejection schedule."""
+    runs = [draws_for(seed, n, k, max_attempts, batch=(b, n_problems))
             for b in range(n_problems)]
-    return Draws(*(torch.stack(ts) for ts in zip(
-        *((r.first, r.u, r.fallback) for r in runs))))
+    return Draws(*(None if ts[0] is None else torch.stack(ts)
+                   for ts in zip(*(dataclasses.astuple(r) for r in runs))))
 
 
 def key_draws(keys, n: int, k: int) -> Draws:
