@@ -149,6 +149,24 @@ Phases, each of which exits non-zero on failure:
    the same seeds (the reference's pin); the seeds and labels where gated
    and ungated bf16 differ are printed, not held (under bf16 the gate
    suppresses bf16-noise updates its bound proves spurious).
+   Then (phase 3 (robustness)) the reference's robustness contract on the
+   label-sorted copy, ``cuda`` backend: every fault of the matrix
+   (``repro_torch.testing.FaultSpec`` through ``seed``/``fit``'s
+   ``_fault=``: seeding ``nan_tile`` at round 2 and ``nan_state`` at the
+   first round whose gate skips tile 0 and the first that skips other
+   tiles only, the gated fit's ``zero_counts`` and ``nan_state`` at
+   iterations 2 and 4, rejection hier's ``neg_envelope`` and
+   ``stale_super`` at round 3) bitwise the clean run of the same call,
+   ``recovered`` flagged where the plain twin (``fused`` on the card)
+   flags it, each heal's extra launches and host ms printed; K5 and K6 on
+   NaN carries (a skipped tile's NaN partial copied through, a NaN D² row
+   kept NaN); the checkpointed gated ``seed`` (cdf, tiled; every 10
+   rounds) and ``fit`` (25 iterations, every 5) bitwise the plain calls,
+   and again after the newest two steps are deleted, each save's MB,
+   snapshot and write ms printed beside the chunk before it; a resume
+   with another k or precision raising ``CheckpointError``;
+   ``fit_minibatch`` over a ``flaky_read_fn`` source bitwise the clean
+   run, and ``kill_prefetch`` raising ``PipelineError`` with its step.
 4. Rejection seeding at the paper's size, ``ClusterEngine(device="cuda")
    .seed/kmeans(sampler="rejection", refresh_block=8)`` for proposal hier
    and flat on both layouts, counted like phase 3: K1 once, K5 once per
@@ -1577,6 +1595,381 @@ def bf16_main_path(torch, ops, ClusterEngine, Draws, pts, full, dev,
               f"of {k} seeds and {label_diff} of {pts.shape[0]} labels "
               "differ (not a gate)")
     return runs
+
+
+def launch_diff(got: dict, base: dict) -> dict:
+    """The launches ``got`` made beyond ``base``, by kernel."""
+    return {n: c - base.get(n, 0) for n, c in got.items()
+            if c != base.get(n, 0)}
+
+
+def carry_checks(torch, kd, bounds, sampling, engine, eng, pts, seeds,
+                 k) -> dict:
+    """K5 and K6 on a NaN carry, at ``pts``' shape: a skipped tile's
+    poisoned partial is copied through (so it reaches the round's total or
+    the inertia), and K5 keeps a NaN D² row of an active tile NaN (its
+    nan_min: an fminf would replace it with the new distance, a wrong D²
+    no check could see)."""
+    be = eng.backend
+    n, d = pts.shape
+    out = {}
+    # K5: tile 0 skipped with a NaN carried partial; then every tile active
+    # with NaN D² rows
+    bn = be.seed_tile(n, d)
+    cache = be.prologue(pts)
+    md = kd.distance_min_update_torch(pts, cache.norms, seeds[:4].contiguous(),
+                                      torch.full((n,), torch.inf,
+                                                 device=pts.device),
+                                      block_n=bn)[0]
+    c = seeds[4:5].contiguous()
+    tmax = bounds.tile_reduce_max(md, bn)
+    _, dc, margin = bounds.seed_gate(c, cache, tmax)
+    parts = sampling.tile_partials(md, bn)
+    parts[0] = torch.nan
+    active = torch.ones_like(tmax, dtype=torch.bool)
+    active[0] = False
+    got = kd.distance_min_update_gated(pts, cache.norms, c, md,
+                                       cache.center_d, dc, margin, parts,
+                                       tmax, active, block_n=bn)
+    out["K5 skipped tile keeps its NaN partial"] = bool(
+        torch.isnan(got[1][0]) and torch.isnan(got[1].sum()))
+    md_nan = md.clone()
+    md_nan[:64] = torch.nan
+    got = kd.distance_min_update_gated(pts, cache.norms, c, md_nan,
+                                       cache.center_d, dc, margin,
+                                       sampling.tile_partials(md, bn), tmax,
+                                       torch.ones_like(active), block_n=bn)
+    out["K5 active tile keeps its NaN rows"] = bool(
+        torch.isnan(got[0][:64]).all() and not torch.isnan(got[0][64:]).any()
+        and torch.isnan(got[1][0]))
+    # K6: three gated iterations, then the first super of tiles skipped
+    # with NaN carried partials
+    cache = be.prologue(pts, m=k)
+    make_init, step, _, _ = engine.fit_points(pts, seeds, be, 25, -1.0,
+                                              cache=cache, parts=True)
+    carry = make_init()
+    for _ in range(3):
+        carry = step(carry)
+    st = carry.state
+    tile = be.seed_tile(n, d, k)
+    tps = be.tiles_per_super(st.partials.shape[0])
+    parts = st.partials.clone()
+    parts[:tps] = torch.nan
+    delta = bounds.centroid_movement(carry.centroids, carry.prev_centroids)
+    thresh, absorb = bounds.assign_point_scalars(delta, carry.centroids, st,
+                                                 cache)
+    active = torch.ones_like(parts, dtype=torch.bool)
+    active[:tps] = False
+    got = be._assign_gated(pts, cache.norms, carry.centroids, delta, thresh,
+                           absorb, st._replace(partials=parts), active, tile,
+                           tps)
+    out["K6 skipped super keeps its NaN partials"] = bool(
+        torch.isnan(got[3][:tps]).all()
+        and not torch.isnan(got[3][tps:]).any()
+        and torch.isnan(sampling.fixed_sum(got[3])))
+    for what, ok in out.items():
+        check(ok, f"carry check failed: {what}")
+    return out
+
+
+def timed_manager(torch, directory):
+    """A ``CheckpointManager`` (blocking writes) whose saves are timed: for
+    each, in ``.saves``, the chunk it follows (host ms, and ms by CUDA
+    events from the end of the last save, or of the manager's making, to
+    the start of this one), the host snapshot ms, the file write ms and the
+    MB written."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    class Timed(CheckpointManager):
+        def mark(self):
+            self.t_mark = time.perf_counter()
+            self.ev_mark = torch.cuda.Event(enable_timing=True)
+            self.ev_mark.record()
+
+        def save(self, step, state, *, blocking=False, meta=None):
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            t0 = time.perf_counter()
+            named, manifest = self._snapshot(step, state, meta)
+            t1 = time.perf_counter()
+            self._commit(step, named, manifest)
+            t2 = time.perf_counter()
+            self.saves.append(dict(
+                step=step, chunk_host_ms=(t0 - self.t_mark) * 1e3,
+                chunk_event_ms=self.ev_mark.elapsed_time(end),
+                snapshot_ms=(t1 - t0) * 1e3, write_ms=(t2 - t1) * 1e3,
+                mb=sum(t.numel() * t.element_size()
+                       for t in named.values()) / 1e6))
+            self.mark()
+
+    mgr = Timed(directory, async_save=False)
+    mgr.saves = []
+    mgr.mark()
+    return mgr
+
+
+def robustness_phase(torch, ops, kd, bounds, sampling, ClusterEngine, Draws,
+                     pts, full, dev, launches) -> dict:
+    """Phase 3 (robustness) at ``full``, label-sorted (the gate skips), on
+    the ``cuda`` backend. The fault matrix: seeding ``nan_tile`` at round
+    2 (or the first round after it whose gate computes tile 0, whose rows
+    it poisons), ``nan_state`` at the first round whose gate skips tile 0
+    (its carried partial, poisoned, reaches the total: flagged) and at the
+    first that skips tiles but not tile 0 (recomputed: not flagged), the
+    gated fit's ``zero_counts`` and ``nan_state`` at iterations 2 and 4,
+    rejection (hier) seeding's ``neg_envelope`` and ``stale_super`` at
+    round 3: each bitwise the clean run of the same call (seeds, min_d2,
+    centroids, assignment, inertia, n_iters, the rejection counters) with
+    ``recovered`` the fused twin's on the same card, and each heal's extra
+    launches and host ms printed. Also the reference's blind spot,
+    ``nan_tile`` at a round whose gate skips tile 0: healed a round late,
+    the seeds before it the clean run's, flagged as the fused twin flags
+    it. Then K5 and K6 on NaN carries (:func:`carry_checks`). Checkpointed:
+    gated ``seed`` (cdf and tiled, ``checkpoint_every=10``) and gated
+    ``fit`` (25 iterations, ``checkpoint_every=5``) bitwise the plain
+    calls, again after the newest two steps are deleted; a resume with
+    another k or precision raises ``CheckpointError``; every save timed
+    (:func:`timed_manager`). The pipeline: ``fit_minibatch`` over a
+    ``flaky_read_fn`` source bitwise the clean run, and ``kill_prefetch``
+    surfacing as a ``PipelineError`` with its step. Every counted launch
+    goes into ``launches``."""
+    import shutil
+    import tempfile
+    from repro_torch.core import CheckpointError, PipelineError
+    from repro_torch.core import engine
+    from repro_torch.data import DataPipeline
+    from repro_torch.testing import FaultSpec, flaky_read_fn, kill_prefetch
+    k, n = full.k, pts.shape[0]
+    eng = ClusterEngine(device=dev)
+    fused = ClusterEngine("fused", device=dev)
+    out = {"faults": [], "saves": {}}
+
+    def run(e, fn):
+        res, s, got = counted(torch, ops, fn)
+        if e is eng:
+            for name in launches:
+                launches[name] += got[name]
+        return res, s * 1e3, got
+
+    def case(what, loop, call, kind, rd, fields, clean, flags):
+        # the fault's run bitwise the clean run, flagged at ``flags`` and
+        # where the fused twin flags it; ``fields`` None: the reference's
+        # blind spot (a nan_tile in a tile the gate skips: the guard sees
+        # it in a later round, after the sampler read the NaN rows), where
+        # only the seeds drawn before round ``rd`` are the clean run's, and
+        # ``flags`` None, one flag after round ``rd``'s slot
+        hurt, ms, got = run(eng, lambda: call(eng, FaultSpec(kind, rd)))
+        twin = call(fused, FaultSpec(kind, rd))
+        if fields is None:
+            check(torch.equal(hurt.indices[:rd], clean[0].indices[:rd]),
+                  f"{what}: the seeds before round {rd} differ")
+        else:
+            check(all(bits_equal(torch, getattr(hurt, f),
+                                 getattr(clean[0], f))
+                      if isinstance(getattr(hurt, f), torch.Tensor)
+                      else getattr(hurt, f) == getattr(clean[0], f)
+                      for f in fields), f"{what}: not bitwise the clean run")
+        check(torch.equal(hurt.recovered, twin.recovered),
+              f"{what}: recovered {hurt.recovered.tolist()} != the fused "
+              f"twin's {twin.recovered.tolist()}")
+        slots = torch.nonzero(hurt.recovered).flatten().tolist()
+        check(slots == flags if flags is not None
+              else len(slots) == 1 and slots[0] >= rd,
+              f"{what}: recovered at {slots}, not {flags or 'one later'}")
+        c = dict(loop=loop, kind=kind, round=rd, recovered_slots=slots,
+                 bitwise_clean=fields is not None,
+                 extra_launches=launch_diff(got, clean[2]),
+                 extra_host_ms=ms - clean[1])
+        out["faults"].append(c)
+        print(f"fault {what}: "
+              + ("bitwise the clean run" if fields is not None else
+                 f"the seeds before round {rd} the clean run's, "
+                 f"{int((hurt.indices != clean[0].indices).sum())} later "
+                 "ones not (the reference's blind spot)")
+              + f", recovered at slots {slots} (the fused twin's), heal's "
+              f"extra launches {c['extra_launches']}, extra host "
+              f"{c['extra_host_ms']:.2f} ms")
+        return c
+
+    draws = Draws.sample(n, k, generator=torch.Generator().manual_seed(0),
+                         device=dev, max_attempts=8)
+    seed_fields = ("indices", "centroids", "min_d2")
+
+    def seed_call(e, fault=None):
+        return e.seed(pts, k, draws=draws, _fault=fault)
+
+    seed_call(eng)          # warm: the clean runs' host ms are the base
+    clean = run(eng, lambda: seed_call(eng))
+    check(int(clean[0].recovered.sum()) == 0, "clean seeding healed")
+    # the rounds whose gate skips tile 0 (the rows and the partial the
+    # seeding faults poison), from the loop's own parts and gate on the
+    # clean run's carries
+    cache = eng.backend.prologue(pts)
+    make_init, body, _ = engine.seed_points(draws, pts, k, eng.backend,
+                                            cache=cache, parts=True)
+    carry, tile0_skipped = make_init(draws), []
+    while carry.m < k:
+        c_m = carry.centroids[carry.m - 1:carry.m]
+        if not bool(bounds.seed_gate(c_m, cache, carry.state.tile_max)[0][0]):
+            tile0_skipped.append(carry.m)
+        carry = body(carry)
+    del cache, carry
+    skipped = clean[0].skipped.tolist()
+    tile0_active = [m for m in range(2, k) if m not in tile0_skipped]
+    others_only = [m for m in tile0_active if skipped[m - 1]]
+    check(tile0_skipped and others_only, f"no round to poison: tile 0 "
+          f"skipped in {tile0_skipped}, other tiles only in {others_only}")
+    out["tile0_skipped_rounds"] = tile0_skipped
+    print(f"the gate skips tile 0 in rounds {tile0_skipped} of the clean "
+          f"seeding")
+    # nan_tile at round 2, or at the first round after it that computes
+    # tile 0 (the guard sees a NaN row only where its tile is computed)
+    rd = tile0_active[0]
+    case(f"seed[cdf] nan_tile round {rd}", "seed", seed_call, "nan_tile", rd,
+         seed_fields, clean, [rd - 1])
+    rd = tile0_skipped[0]
+    case(f"seed[cdf] nan_tile round {rd} (tile 0 skipped)", "seed",
+         seed_call, "nan_tile", rd, None, clean, None)
+    for rd, flags in ((tile0_skipped[0], [tile0_skipped[0] - 1]),
+                      (others_only[0], [])):
+        case(f"seed[cdf] nan_state round {rd} ({skipped[rd - 1]} tiles "
+             f"skipped, tile 0 {'not ' * (not flags)}among them)", "seed",
+             seed_call, "nan_state", rd, seed_fields, clean, flags)
+
+    seeds = clean[0].centroids
+    fit_fields = ("centroids", "assignment", "inertia", "n_iters")
+
+    def fit_call(e, fault=None):
+        return e.fit(pts, seeds, max_iters=full.max_iters, _fault=fault)
+
+    fit_call(eng)
+    fclean = run(eng, lambda: fit_call(eng))
+    check(int(fclean[0].recovered.sum()) == 0, "clean fit healed")
+    for kind in ("zero_counts", "nan_state"):
+        for rd in (2, 4):
+            case(f"fit {kind} iteration {rd}", "fit", fit_call, kind, rd,
+                 fit_fields, fclean, [rd])
+    rej_fields = seed_fields + ("proposals", "accepts", "tightened",
+                                "supers")
+
+    def rej_call(e, fault=None):
+        return e.seed(pts, k, draws=draws, sampler="rejection",
+                      proposal="hier", _fault=fault)
+
+    rej_call(eng)
+    rclean = run(eng, lambda: rej_call(eng))
+    for kind in ("neg_envelope", "stale_super"):
+        case(f"rejection[hier] {kind} round 3", "rejection", rej_call, kind,
+             3, rej_fields, rclean, [3])
+    out["carry_checks"] = carry_checks(torch, kd, bounds, sampling, engine,
+                                       eng, pts, seeds, k)
+    print(f"carry checks: {out['carry_checks']}")
+
+    # checkpointed runs
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        def drop_newest(mgr):
+            for st in mgr.all_steps()[-2:]:
+                shutil.rmtree(mgr.dir / f"step_{st:08d}")
+
+        def checkpointed(what, plain, call, fields, every):
+            for attempt in ("run", "resume"):
+                mgr = timed_manager(torch, tmp / what)
+                res, ms, _ = run(eng, lambda: call(mgr, every))
+                check(all(bits_equal(torch, getattr(res, f),
+                                     getattr(plain, f))
+                          if isinstance(getattr(res, f), torch.Tensor)
+                          else getattr(res, f) == getattr(plain, f)
+                          for f in fields),
+                      f"checkpointed {what} ({attempt}): not bitwise the "
+                      "plain call")
+                out["saves"][f"{what} {attempt}"] = dict(host_ms=ms,
+                                                          saves=mgr.saves)
+                for sv in mgr.saves:
+                    print(f"checkpointed {what} ({attempt}) save at step "
+                          f"{sv['step']}: {sv['mb']:.2f} MB, snapshot "
+                          f"{sv['snapshot_ms']:.2f} ms, write "
+                          f"{sv['write_ms']:.2f} ms; the chunk before it "
+                          f"{sv['chunk_host_ms']:.2f} ms host, "
+                          f"{sv['chunk_event_ms']:.2f} ms by events")
+                print(f"checkpointed {what} ({attempt}): {ms:.1f} ms, "
+                      f"bitwise the plain call")
+                if attempt == "run":
+                    drop_newest(mgr)
+
+        for sampler in ("cdf", "tiled"):
+            plain = eng.seed(pts, k, draws=draws, sampler=sampler)
+            checkpointed(f"seed[{sampler}]", plain, lambda mgr, every: (
+                eng.seed(pts, k, draws=draws, sampler=sampler,
+                         checkpoint_dir=mgr, checkpoint_every=every)),
+                seed_fields + ("skipped", "pruned", "recovered"), 10)
+        plain = eng.fit(pts, seeds, max_iters=full.max_iters, tol=-1.0)
+        checkpointed("fit", plain, lambda mgr, every: eng.fit(
+            pts, seeds, max_iters=full.max_iters, tol=-1.0,
+            checkpoint_dir=mgr, checkpoint_every=every),
+            fit_fields + ("skipped", "pruned", "recovered"), 5)
+        bf16 = ClusterEngine(device=dev, precision="bf16")
+        refused = []
+        for what, fn in (
+                ("seed, another k", lambda: eng.seed(
+                    pts, k - 1, draws=draws, checkpoint_dir=tmp / "seed[cdf]",
+                    checkpoint_every=10)),
+                ("seed, another precision", lambda: bf16.seed(
+                    pts, k, draws=draws, checkpoint_dir=tmp / "seed[cdf]",
+                    checkpoint_every=10)),
+                ("fit, another k", lambda: eng.fit(
+                    pts, seeds[:-1], max_iters=full.max_iters, tol=-1.0,
+                    checkpoint_dir=tmp / "fit", checkpoint_every=5)),
+                ("fit, another precision", lambda: bf16.fit(
+                    pts, seeds, max_iters=full.max_iters, tol=-1.0,
+                    checkpoint_dir=tmp / "fit", checkpoint_every=5))):
+            try:
+                fn()
+            except CheckpointError:
+                refused.append(what)
+            else:
+                check(False, f"checkpointed {what}: resumed, not refused")
+        out["refused_resumes"] = refused
+        print(f"refused with CheckpointError: {', '.join(refused)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the pipeline
+    rows = 262_144
+    host = pts.cpu().numpy()
+
+    def read(i):
+        return host[i * rows:(i + 1) * rows]
+
+    n_batches = -(-n // rows)
+    mclean = run(eng, lambda: eng.fit_minibatch(seeds, read,
+                                                n_batches=n_batches))
+    fails = {1: 2, n_batches - 1: 1}
+    mflaky = run(eng, lambda: eng.fit_minibatch(
+        seeds, flaky_read_fn(read, fail_steps=fails), n_batches=n_batches))
+    check(same_fit(torch, mflaky[0], mclean[0])
+          and set(fails.values()) == {0},
+          "fit_minibatch over a flaky source: not the clean run")
+    pipe = DataPipeline(read, prefetch=1, device=dev)
+    it = iter(pipe)
+    next(it)
+    kill_prefetch(pipe)
+    step = None
+    try:
+        for _ in range(8):
+            next(it)
+    except PipelineError as e:
+        step = e.step
+    finally:
+        pipe.stop()
+    check(step is not None, "kill_prefetch: no PipelineError with a step")
+    out["pipeline"] = dict(flaky_bitwise=True, retried_reads=3,
+                           flaky_ms=mflaky[1], clean_ms=mclean[1],
+                           killed_at_step=step)
+    print(f"pipeline: fit_minibatch over a flaky source ({mflaky[1]:.1f} ms, "
+          f"3 retried reads) bitwise the clean run ({mclean[1]:.1f} ms); "
+          f"kill_prefetch raised PipelineError at step {step}")
+    return out
 
 
 def bf16_entry_points(torch, ops, bounds, ClusterEngine, Draws, paper,
@@ -5182,6 +5575,14 @@ def main() -> int:
     report["main_path_bf16"] = bf16_main_path(torch, ops, ClusterEngine,
                                               Draws, paper, FULL, dev,
                                               launches)
+
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 3 (robustness)")
+    # 3 (robustness). the fault matrix, checkpointed seed and fit, and the
+    #    pipeline faults at the paper's shape, label-sorted
+    report["robustness"] = robustness_phase(
+        torch, ops, kd, bounds, sampling, ClusterEngine, Draws, paper_sorted,
+        FULL, dev, launches)
+    torch.cuda.empty_cache()
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 4")
     # 4. rejection seeding at the paper's size: both layouts, both proposals

@@ -78,6 +78,16 @@ Loops are Python loops over device tensors: a sampled index, a gate mask
 and a skip count never leave the device (the rejection loop reads one
 validity bit and one first accepting attempt per round, a (B,) vector of
 each when batched).
+
+Robustness: the seeding and Lloyd loops are built as parts
+(``_seed_parts``: make_init, body, finish over a :class:`SeedCarry`;
+``_fit_parts``: make_init, step, stopped, finish over a
+:class:`FitCarry`), which the one-shot loops run to the end and
+``seed``/``fit(..., checkpoint_dir=)`` run in chunks, saving the carry
+between chunks (``repro_torch.checkpoint``), so a checkpointed or resumed
+run is bitwise the plain one. ``_fault=`` on ``seed``/``fit`` poisons the
+loops' carries at one round (``repro_torch.testing.FaultSpec``), which the
+in-flight guards heal.
 """
 from __future__ import annotations
 
@@ -733,13 +743,71 @@ def make_backend(name: Union[str, Backend], **opts) -> Backend:
 # ---------------------------------------------------------------------------
 
 
-def _seed_parts(*, round_fn, init_min_d2, gated: bool, guard: bool,
-                tile: int):
-    """The round step of the k-means++ loop, ``checked_round(m, centroids,
-    min_d2, state) -> (min_d2, partials, state, skipped, pruned,
-    recovered)``: fold centroid m-1 in. ``round_fn(c, md, state,
+def _inject_seed_fault(fault, m: int, min_d2=None, state=None,
+                       envelope=None):
+    """The reference's seeding faults (``testing.FaultSpec``) at round
+    ``fault.round``, each written into a copy (the clean +inf carry a heal
+    refolds from must stay clean): ``nan_tile`` NaNs the first min(64, n)
+    rows of the carried D² ``min_d2``, ``nan_state`` the first carried tile
+    partial of the bound ``state``; on the rejection loop's stale
+    ``envelope`` (its tile partials) ``neg_envelope`` makes the first -1
+    and ``stale_super`` every partial of the last super-tile NaN (a torn
+    coarse aggregate). Batched, every problem's (the reference's ``vmap``
+    of the single fault). Other rounds, and a kind whose target is not
+    passed, leave all three as they are. Returns (min_d2, state,
+    envelope)."""
+    kind = getattr(fault, "kind", None)
+    if fault is None or m != fault.round:
+        return min_d2, state, envelope
+    if kind == "nan_tile" and min_d2 is not None:
+        min_d2 = min_d2.clone()
+        min_d2[..., :64] = torch.nan
+    elif kind == "nan_state" and state is not None:
+        partials = state.partials.clone()
+        partials[..., 0] = torch.nan
+        state = state._replace(partials=partials)
+    elif kind == "neg_envelope" and envelope is not None:
+        envelope = envelope.clone()
+        envelope[..., 0] = -1.0
+    elif kind == "stale_super" and envelope is not None:
+        envelope = envelope.clone()
+        n_tiles = envelope.shape[-1]
+        envelope[..., max(n_tiles - bounds.tiles_per_super(n_tiles), 0):] = \
+            torch.nan
+    return min_d2, state, envelope
+
+
+class SeedCarry(NamedTuple):
+    """What the k-means++ loop carries from round to round, and what a
+    checkpointed seeding saves. Batched problems put a leading axis on
+    every tensor but ``recovered``."""
+    m: int                           # the next round
+    draws: Draws                     # the run's random numbers
+    centroids: torch.Tensor          # (k, d): seeds 0..m-1 set
+    indices: torch.Tensor            # (k,) int64
+    min_d2: torch.Tensor             # (n,) D² to seeds 0..m-2
+    state: Optional[BoundState]      # gated: (partials, tile_max)
+    skipped: Optional[torch.Tensor]  # (k,) int32 (gated)
+    pruned: Optional[torch.Tensor]   # (k,) int32 (gated)
+    recovered: torch.Tensor          # (k,) int32 heal flags, host memory
+
+
+def _seed_parts(pts, k, *, round_fn, sample_fn, first_fn, init_min_d2,
+                init_state: Optional[BoundState], guard: bool, tile: int,
+                w: Optional[torch.Tensor] = None, fault=None):
+    """The k-means++ loop as ``(make_init, body, finish)``, so the one-shot
+    :func:`_seed_loop` and the checkpointed seeding run the same rounds:
+    ``make_init(draws)`` is the carry before round 1 (seed 0 is
+    ``first_fn(draws)``), ``body(carry)`` runs round ``carry.m`` (fold
+    centroid m-1 into min_d2, draw seed m with ``draws.u[m-1]`` ∝
+    min_d2·``w``), and ``finish(carry)`` the final round, which folds the
+    last seed, so the returned min_d2 covers all k: (centroids, indices,
+    min_d2, skipped, pruned, recovered). ``round_fn(c, md, state,
     consume=)`` is one backend round (``consume``: ``md`` may be
-    overwritten); ``gated`` carries ``BoundState(partials, tile_max)``.
+    overwritten); ``init_state`` turns on gating, the carry then holding
+    ``BoundState(partials, tile_max)``. ``fault`` poisons the carried
+    round inputs at its round (:func:`_inject_seed_fault`), before the
+    round and before the final one.
 
     ``guard`` arms in-flight corruption detection: every round's ``total``
     doubles as the finite flag. A non-finite total means the carry is
@@ -749,6 +817,9 @@ def _seed_parts(*, round_fn, init_min_d2, gated: bool, guard: bool,
     carry (and its last round's partials) is the one an uncorrupted run has.
     The rebuilt tile_max is the healed min_d2's. Corruption in a tile the
     gate is skipping is not seen until that tile next activates."""
+    gated = init_state is not None
+    lead = tuple(pts.shape[:-2])
+    dev = pts.device
 
     def heal(m, centroids) -> SeedRound:
         md, rnd = init_min_d2, None
@@ -773,7 +844,45 @@ def _seed_parts(*, round_fn, init_min_d2, gated: bool, guard: bool,
         st = BoundState(rnd.partials, rnd.tile_max) if gated else None
         return rnd.min_d2, rnd.partials, st, rnd.skipped, rnd.pruned, 0
 
-    return checked_round
+    def make_init(draws: Draws) -> SeedCarry:
+        draws = draws.to(dev)
+        centroids = pts.new_zeros(lead + (k, pts.shape[-1]))
+        indices = torch.zeros(lead + (k,), dtype=torch.int64, device=dev)
+        first = first_fn(draws).reshape(lead + (1,))
+        centroids[..., 0:1, :] = _take_rows(pts, first)
+        indices[..., 0:1] = first
+        skips = prunes = None
+        if gated:
+            skips = torch.zeros(lead + (k,), dtype=torch.int32, device=dev)
+            prunes = torch.zeros(lead + (k,), dtype=torch.int32, device=dev)
+        return SeedCarry(1, draws, centroids, indices, init_min_d2,
+                         init_state, skips, prunes,
+                         torch.zeros(k, dtype=torch.int32))
+
+    def fold(c: SeedCarry, m: int):
+        # round m into the carry's counters: (min_d2, partials, state)
+        min_d2, state, _ = _inject_seed_fault(fault, m, c.min_d2, c.state)
+        min_d2, partials, state, rs, rp, c.recovered[m - 1] = checked_round(
+            m, c.centroids, min_d2, state)
+        if gated:
+            c.skipped[..., m - 1], c.pruned[..., m - 1] = rs, rp
+        return min_d2, partials, state
+
+    def body(c: SeedCarry) -> SeedCarry:
+        m = c.m
+        min_d2, partials, state = fold(c, m)
+        nxt = sample_fn(c.draws.u[..., m - 1], c.draws.fallback[..., m - 1:m],
+                        _weigh(min_d2, w), partials)
+        c.centroids[..., m:m + 1, :] = _take_rows(pts, nxt)
+        c.indices[..., m:m + 1] = nxt
+        return c._replace(m=m + 1, min_d2=min_d2, state=state)
+
+    def finish(c: SeedCarry):
+        min_d2, _, _ = fold(c, k)
+        return (c.centroids, c.indices, min_d2, c.skipped, c.pruned,
+                c.recovered)
+
+    return make_init, body, finish
 
 
 def _take_rows(pts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -781,72 +890,26 @@ def _take_rows(pts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.take_along_dim(pts, idx[..., None], dim=-2)
 
 
-def _seed_loop(draws: Draws, pts, k, *, round_fn, sample_fn, init_min_d2,
-               init_state: Optional[BoundState], guard: bool, tile: int,
-               first: torch.Tensor, w: Optional[torch.Tensor] = None):
-    """Generic k-means++ loop: seed 0 is ``first``; round m folds centroid
-    m-1 into min_d2 and draws seed m with ``draws.u[m-1]`` ∝ min_d2·``w``;
-    a final round folds the last seed, so the returned min_d2 covers all
-    k. The sampled index stays on the device: seeds are gathered on the
-    device, never read on the host.
-    ``init_state`` turns on bound gating (round 1 starts from tile_max =
-    +inf, nothing skippable); the per-round skip and prune counts stay on
-    the device. Batched problems carry a leading axis on ``pts`` (B, n, d),
-    the draws, every carry and the counters (B, k); one round serves all B.
-    Returns (centroids, indices, min_d2, skipped, pruned, recovered)."""
-    gated = init_state is not None
-    checked_round = _seed_parts(round_fn=round_fn, init_min_d2=init_min_d2,
-                                gated=gated, guard=guard, tile=tile)
-    dev = pts.device
-    lead = tuple(pts.shape[:-2])
-    centroids = pts.new_zeros(lead + (k, pts.shape[-1]))
-    indices = torch.zeros(lead + (k,), dtype=torch.int64, device=dev)
-    skips = prunes = None
-    if gated:
-        skips = torch.zeros(lead + (k,), dtype=torch.int32, device=dev)
-        prunes = torch.zeros(lead + (k,), dtype=torch.int32, device=dev)
-    rec = [0] * k
-    first = first.reshape(lead + (1,))
-    centroids[..., 0:1, :] = _take_rows(pts, first)
-    indices[..., 0:1] = first
-    min_d2, state = init_min_d2, init_state
-    for m in range(1, k + 1):
-        min_d2, partials, state, rs, rp, rec[m - 1] = checked_round(
-            m, centroids, min_d2, state)
-        if gated:
-            skips[..., m - 1], prunes[..., m - 1] = rs, rp
-        if m == k:
-            break
-        nxt = sample_fn(draws.u[..., m - 1], draws.fallback[..., m - 1:m],
-                        _weigh(min_d2, w), partials)
-        centroids[..., m:m + 1, :] = _take_rows(pts, nxt)
-        indices[..., m:m + 1] = nxt
-    return (centroids, indices, min_d2, skips, prunes,
-            torch.tensor(rec, dtype=torch.int32))
+def _seed_loop(draws: Draws, pts, k, **parts):
+    """Generic k-means++ loop (:func:`_seed_parts`' parts run to the end):
+    seed 0 is ``first_fn(draws)``; round m folds centroid m-1 into min_d2
+    and draws seed m with ``draws.u[m-1]`` ∝ min_d2·``w``; a final round
+    folds the last seed, so the returned min_d2 covers all k. The sampled
+    index stays on the device: seeds are gathered on the device, never read
+    on the host. ``init_state`` turns on bound gating (round 1 starts from
+    tile_max = +inf, nothing skippable); the per-round skip and prune
+    counts stay on the device. Batched problems carry a leading axis on
+    ``pts`` (B, n, d), the draws, every carry and the counters (B, k); one
+    round serves all B. Returns (centroids, indices, min_d2, skipped,
+    pruned, recovered)."""
+    make_init, body, finish = _seed_parts(pts, k, **parts)
+    carry = make_init(draws)
+    while carry.m < k:
+        carry = body(carry)
+    return finish(carry)
 
 
 _REJECT_ATTEMPTS = 8   # default truncation depth of the rejection loop
-
-
-def _envelope_fault(fault, m: int, partials: torch.Tensor) -> torch.Tensor:
-    """The reference's two rejection-envelope faults at round
-    ``fault.round``: ``neg_envelope`` makes the first tile partial -1,
-    ``stale_super`` makes every partial of the last super-tile NaN (a torn
-    coarse aggregate); batched, every problem's (the reference's ``vmap``
-    of the single fault). Other kinds and rounds leave ``partials`` as
-    is."""
-    kind = getattr(fault, "kind", None)
-    if fault is None or m != fault.round or kind not in (
-            "neg_envelope", "stale_super"):
-        return partials
-    partials = partials.clone()
-    if kind == "neg_envelope":
-        partials[..., 0] = -1.0
-    else:
-        n_tiles = partials.shape[-1]
-        partials[..., max(n_tiles - bounds.tiles_per_super(n_tiles), 0):] = \
-            torch.nan
-    return partials
 
 
 def _put(dst: torch.Tensor, value) -> None:
@@ -913,8 +976,9 @@ def _seed_rejection_loop(draws: Draws, pts, k, *, round_fn, propose_fn,
     block padded with centroid 0); min-folds are exact, so the rebuilt
     envelope is bitwise the clean run's and the round replays identically,
     flagged in ``recovered[m]``. ``fault`` (``.kind``, ``.round``) injects
-    the reference's ``neg_envelope``/``stale_super`` corruption. ``guard``
-    also checks the settling refresh's total.
+    the reference's ``neg_envelope``/``stale_super`` corruption
+    (:func:`_inject_seed_fault`). ``guard`` also checks the settling
+    refresh's total.
 
     ``prep_fn(partials, pending, live, counts) -> (pstate, tightened)``
     builds the hier proposal state once per round from the (healed)
@@ -1035,7 +1099,7 @@ def _seed_rejection_loop(draws: Draws, pts, k, *, round_fn, propose_fn,
             rs, rp, _ = refresh(sent[bsz:] if lead else None,
                                 live == 0 if lead and gated else None, rs,
                                 rp)
-        partials = _envelope_fault(fault, m, partials)
+        partials = _inject_seed_fault(fault, m, envelope=partials)[2]
         bad = (~torch.isfinite(partials) | (partials < 0)).any(-1)
         healed = ([b for b, x in enumerate(bad.tolist()) if x] if lead
                   else [0] * bool(bad))                        # one sync
@@ -1299,7 +1363,8 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
                 proposal: str = "hier",
                 max_attempts: int = _REJECT_ATTEMPTS,
                 fault=None,
-                stream: Optional[torch.Tensor] = None) -> KmeansppResult:
+                stream: Optional[torch.Tensor] = None,
+                parts: bool = False):
     """Full k-means++ seeding through ``backend``. Samplers: 'cdf' (full
     inverse CDF, the serial algorithm), 'tiled' (two-level inverse CDF
     from the round's per-tile partials — O(n/tile + tile) reads per draw,
@@ -1311,9 +1376,11 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
     (super-tile -> tile -> row, the per-tile envelope tightened between
     refreshes by the caps of ``Backend.tile_envelope``) or 'flat' (the tiled
     draw); ``max_attempts`` truncates the attempts of a round, past which
-    it takes one exact draw; ``fault`` injects an envelope fault (tests).
-    ``weights`` (n,) draw every seed ∝ D²·w, the first ∝ w (see
-    :func:`_first_seed`; the draws need ``first_u``).
+    it takes one exact draw. ``fault`` (a ``testing.FaultSpec``) injects
+    the reference's seeding faults (tests; :func:`_inject_seed_fault`):
+    ``nan_tile`` and ``nan_state`` on 'cdf' and 'tiled', the envelope
+    faults on 'rejection'. ``weights`` (n,) draw every seed ∝ D²·w, the
+    first ∝ w (see :func:`_first_seed`; the draws need ``first_u``).
     ``stream`` is the points the rounds read, the fp32 points by default;
     :func:`_stream_of`'s bf16 copy under ``precision='bf16'``, each round's
     centroids then rounded to bf16 (see the module's Precision note).
@@ -1333,7 +1400,11 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
     ``seed_round_listed`` over the problems that need it (``guard`` there
     only checks the settling refresh, problem by problem). The counters are
     (B, k). Row b of every field is bitwise the single seeding of problem b
-    with ``draws[b]``."""
+    with ``draws[b]``.
+
+    ``parts`` ('cdf' and 'tiled') returns the loop's ``(make_init, body,
+    finish)`` (:func:`_seed_parts`; ``make_init`` takes the draws) instead
+    of running it: what the checkpointed seeding drives in chunks."""
     if proposal not in ("flat", "hier"):
         raise ValueError(f"unknown proposal {proposal!r}; "
                          "expected 'flat' or 'hier'")
@@ -1361,8 +1432,11 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
                          f"points for {lead}")
     draws = draws.to(pts.device)
     w = None if weights is None else weights.to(pts)
-    first = _first_seed(draws, w, sampler, proposal, tile,
-                        backend.tiles_per_super(-(-n // tile)))
+    tps = backend.tiles_per_super(-(-n // tile))
+
+    def first_fn(draws):
+        return _first_seed(draws, w, sampler, proposal, tile, tps)
+
     init_state = None
     if bound_gate and cache.centers is not None:
         n_tiles = lead + (-(-n // tile),)
@@ -1378,8 +1452,8 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
         return _seed_rejection(draws, pts, k, backend, cache, tile,
                                init_state, refresh_block=refresh_block,
                                proposal=proposal, max_attempts=max_attempts,
-                               guard=guard, first=first, stream=stream, w=w,
-                               fault=fault)
+                               guard=guard, first=first_fn(draws),
+                               stream=stream, w=w, fault=fault)
 
     if sampler == "tiled":
         def sample_fn(u, fb, weight, partials):
@@ -1404,10 +1478,15 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
                 stream, c.to(stream.dtype), md, cache=cache, state=st,
                 consume=consume, **_weighted(w))
 
+    loop = dict(round_fn=round_fn, sample_fn=sample_fn, first_fn=first_fn,
+                init_min_d2=torch.full(lead + (n,), torch.inf,
+                                       device=pts.device),
+                init_state=init_state, guard=guard, tile=tile, w=w,
+                fault=fault)
+    if parts:
+        return _seed_parts(pts, k, **loop)
     centroids, indices, min_d2, skips, prunes, rec = _seed_loop(
-        draws, pts, k, round_fn=round_fn, sample_fn=sample_fn,
-        init_min_d2=torch.full(lead + (n,), torch.inf, device=pts.device),
-        init_state=init_state, guard=guard, tile=tile, first=first, w=w)
+        draws, pts, k, **loop)
     return KmeansppResult(centroids, indices, min_d2, skips, prunes,
                           recovered=rec if guard else None)
 
@@ -1426,14 +1505,57 @@ def _check_sampler(sampler: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _fit_loop(pts, init_centroids, backend: Backend, max_iters: int,
-              tol: float, empty: str, cache: RoundCache, *, gated: bool,
-              guard: bool, stream: torch.Tensor,
-              w: Optional[torch.Tensor] = None):
-    """Lloyd iterations until the relative inertia improvement falls below
-    ``tol`` or ``max_iters`` is hit. Each iteration is one tiled
-    ``assign_update``; the inertia is the sum of its per-tile partials, the
-    centroid update the super-axis sum of its accumulators.
+def _inject_fit_fault(fault, i: int, rnd: AssignRound) -> AssignRound:
+    """The reference's fit faults (``testing.FaultSpec``) on iteration
+    ``fault.round``'s outputs, before the guard reads them: ``zero_counts``
+    halves the cluster sums and counts (a lost contribution: the count
+    mass check trips), ``nan_state`` NaNs the first tile partial of the
+    iteration's bound state, in a copy (the finite check trips). Other
+    iterations and kinds leave ``rnd`` as it is."""
+    kind = getattr(fault, "kind", None)
+    if fault is None or i != fault.round:
+        return rnd
+    if kind == "zero_counts":
+        return rnd._replace(sums=rnd.sums * 0.5, counts=rnd.counts * 0.5)
+    if kind == "nan_state" and rnd.state is not None:
+        partials = rnd.state.partials.clone()
+        partials[..., 0] = torch.nan
+        return rnd._replace(state=rnd.state._replace(partials=partials))
+    return rnd
+
+
+class FitCarry(NamedTuple):
+    """What the Lloyd loop carries from iteration to iteration, and what a
+    checkpointed fit saves. Batched problems put a leading axis on every
+    tensor but ``recovered``."""
+    i: int                              # iterations run
+    centroids: torch.Tensor             # (k, d) fp32
+    prev_centroids: torch.Tensor        # (k, d) fp32, the movement's base
+    inertia: torch.Tensor               # () of the last iteration
+    assignment: torch.Tensor            # (n,) int32
+    state: Optional[BoundState]         # gated
+    skipped: Optional[torch.Tensor]     # (max_iters,) int32 (gated)
+    pruned: Optional[torch.Tensor]      # (max_iters,) int32 (gated)
+    recovered: torch.Tensor             # (max_iters,) int32, host memory
+    live: Optional[torch.Tensor]        # (B,) bool: batched, still going
+    n_iters: Optional[torch.Tensor]     # (B,) int32: batched, each's count
+    go_on: bool                         # the last stop test's verdict
+
+
+def _fit_parts(pts, init_centroids, backend: Backend, max_iters: int,
+               tol: float, empty: str, cache: RoundCache, *, gated: bool,
+               guard: bool, stream: torch.Tensor,
+               w: Optional[torch.Tensor] = None, fault=None):
+    """The Lloyd loop as ``(make_init, step, stopped, finish)``, so the
+    one-shot :func:`_fit_loop` and the checkpointed fit run the same
+    iterations: ``make_init()`` is the carry before iteration 0,
+    ``step(carry)`` runs one iteration, ``stopped(carry)`` is the loop's
+    exit test (``max_iters`` run, or the convergence test failed) and
+    ``finish(carry)`` the loop's return. Iterations stop when the relative
+    inertia improvement falls below ``tol`` or ``max_iters`` is hit. Each
+    iteration is one tiled ``assign_update``; the inertia is the sum of its
+    per-tile partials, the centroid update the super-axis sum of its
+    accumulators.
 
     With point weights ``w`` (the reference's weighted branch) each
     iteration is instead the untiled round on ``cache.norms`` (no tiles,
@@ -1448,7 +1570,8 @@ def _fit_loop(pts, init_centroids, backend: Backend, max_iters: int,
     per-centroid movement ``delta`` from the loop's own consecutive
     centroids and threads a ``BoundState`` through ``assign_update``, which
     skips every tile the movement bound proves unchanged — exactly, so the
-    results are bitwise the ungated loop's.
+    results are bitwise the ungated loop's. ``fault`` poisons a gated
+    iteration's outputs (:func:`_inject_fit_fault`).
 
     ``guard`` (gated loops only, as in the reference) adds the in-flight
     corruption detector: each iteration checks its inertia for finiteness
@@ -1457,7 +1580,8 @@ def _fit_loop(pts, init_centroids, backend: Backend, max_iters: int,
     per-point bounds restart pessimistic (-inf point_lb, zero debt), so
     later iterations prune less but compute the same bits. ``recovered[i]``
     records the trip. The guard's checks and the next iteration's
-    convergence test are read in one host sync.
+    convergence test are read in one host sync, so the carry holds the
+    test's verdict (``go_on``), not its inputs.
 
     Batched problems (``pts`` (B, n, d)) run one ``assign_update_batched``
     per iteration for all B, gated or not. Each problem takes its own
@@ -1471,16 +1595,15 @@ def _fit_loop(pts, init_centroids, backend: Backend, max_iters: int,
     The inertia is the fixed-order sum of the per-tile partials
     (``sampling.fixed_sum``), so row b's is bitwise the single problem's.
 
-    Returns (centroids, assignment, inertia, n_iters, skipped, pruned,
-    recovered); the counters are None when the loop is not gated, and
-    ``recovered`` also when the guard is off. ``n_iters`` is an int, or
+    ``finish`` returns (centroids, assignment, inertia, n_iters, skipped,
+    pruned, recovered); the counters are None when the loop is not gated,
+    and ``recovered`` also when the guard is off. ``n_iters`` is an int, or
     (B,) int32 when batched (the counters (B, max_iters))."""
     n, d = pts.shape[-2:]
     lead = tuple(pts.shape[:-2])
     k = init_centroids.shape[-2]
     dev = pts.device
     guard = guard and gated
-    bstate = skips = prunes = None
     if gated:
         tile = backend.seed_tile(n, d, k)
         n_tiles = -(-n // tile)
@@ -1491,33 +1614,45 @@ def _fit_loop(pts, init_centroids, backend: Backend, max_iters: int,
                 point_lb=torch.full(lead + (n,), -torch.inf, device=dev),
                 lb_debt=torch.zeros(lead + (n_tiles,), device=dev))
 
-        bstate = fresh_bounds(BoundState(
-            torch.zeros(lead + (n_tiles,), device=dev),
-            tile_gap=torch.full(lead + (n_tiles,), -torch.inf, device=dev),
-            tile_sums=torch.zeros(lead + (n_super, k, d), device=dev),
-            tile_counts=torch.zeros(lead + (n_super, k), device=dev),
-            assignment=torch.zeros(lead + (n,), dtype=torch.int32,
-                                   device=dev),
-            min_d2=torch.zeros(lead + (n,), device=dev)))
-        skips = torch.zeros(lead + (max_iters,), dtype=torch.int32,
-                            device=dev)
-        prunes = torch.zeros(lead + (max_iters,), dtype=torch.int32,
-                             device=dev)
-    cents = prev_cents = init_centroids.float()
-    inertia = torch.full(lead, torch.inf, device=dev)
-    a = torch.zeros(lead + (n,), dtype=torch.int32, device=dev)
-    rec = [0] * max_iters
-    live = n_iters = None
-    if lead:   # the problems still iterating, and each one's count
-        live = torch.ones(lead, dtype=torch.bool, device=dev)
-        n_iters = torch.zeros(lead, dtype=torch.int32, device=dev)
+    def make_init() -> FitCarry:
+        bstate = skips = prunes = live = n_iters = None
+        if gated:
+            bstate = fresh_bounds(BoundState(
+                torch.zeros(lead + (n_tiles,), device=dev),
+                tile_gap=torch.full(lead + (n_tiles,), -torch.inf,
+                                    device=dev),
+                tile_sums=torch.zeros(lead + (n_super, k, d), device=dev),
+                tile_counts=torch.zeros(lead + (n_super, k), device=dev),
+                assignment=torch.zeros(lead + (n,), dtype=torch.int32,
+                                       device=dev),
+                min_d2=torch.zeros(lead + (n,), device=dev)))
+            skips = torch.zeros(lead + (max_iters,), dtype=torch.int32,
+                                device=dev)
+            prunes = torch.zeros(lead + (max_iters,), dtype=torch.int32,
+                                 device=dev)
+        if lead:   # the problems still iterating, and each one's count
+            live = torch.ones(lead, dtype=torch.bool, device=dev)
+            n_iters = torch.zeros(lead, dtype=torch.int32, device=dev)
+        cents = init_centroids.float()
+        return FitCarry(0, cents, cents, torch.full(lead, torch.inf,
+                                                    device=dev),
+                        torch.zeros(lead + (n,), dtype=torch.int32,
+                                    device=dev),
+                        bstate, skips, prunes,
+                        torch.zeros(max_iters, dtype=torch.int32), live,
+                        n_iters, True)
 
-    def improves(new_inertia) -> torch.Tensor:
-        return (inertia - new_inertia) / inertia.clamp_min(1e-30) > tol
+    def stopped(c: FitCarry) -> bool:
+        return c.i >= max_iters or not c.go_on
 
-    i = 0
-    while i < max_iters:
-        delta = (bounds.centroid_movement(cents, prev_cents) if gated
+    def step(c: FitCarry) -> FitCarry:
+        i, cents, live = c.i, c.centroids, c.live
+
+        def improves(new_inertia) -> torch.Tensor:
+            return (c.inertia - new_inertia) / c.inertia.clamp_min(1e-30) \
+                > tol
+
+        delta = (bounds.centroid_movement(cents, c.prev_centroids) if gated
                  else None)
         c_round = cents.to(stream.dtype)
         if w is not None:
@@ -1529,11 +1664,13 @@ def _fit_loop(pts, init_centroids, backend: Backend, max_iters: int,
                 if gated:   # a stopped problem does not move
                     delta = torch.where(live[..., None], delta, 0.0)
                 rnd = backend.assign_update_batched(
-                    stream, c_round, cache=cache, state=bstate, delta=delta,
+                    stream, c_round, cache=cache, state=c.state, delta=delta,
                     live=live)
             else:
                 rnd = backend.assign_update(stream, c_round, cache=cache,
-                                            state=bstate, delta=delta)
+                                            state=c.state, delta=delta)
+            if gated:
+                rnd = _inject_fit_fault(fault, i, rnd)
             new_inertia = sampling.fixed_sum(rnd.state.partials)
         flags = []
         if guard:
@@ -1553,32 +1690,50 @@ def _fit_loop(pts, init_centroids, backend: Backend, max_iters: int,
                               fresh_bounds(r2.state))
             new_inertia = sampling.fixed_sum(r2.state.partials)
             go_on = bool(improves(new_inertia)) if test else True
-            rec[i] = 1
+            c.recovered[i] = 1
+        bstate = c.state
         if gated:
             rs, rp = rnd.skipped, rnd.pruned
             if live is not None:
                 rs, rp = torch.where(live, rs, 0), torch.where(live, rp, 0)
-            skips[..., i], prunes[..., i] = rs, rp
+            c.skipped[..., i], c.pruned[..., i] = rs, rp
             bstate = rnd.state
         new_cents = centroid_means(rnd.sums, rnd.counts, cents)
         if empty == "reseed":
             new_cents = reseed_split_largest(new_cents, rnd.counts)
         if live is None:
-            prev_cents, cents, inertia, a = (cents, new_cents, new_inertia,
-                                             rnd.assignment)
-        else:   # a problem that has stopped keeps its results
-            prev_cents = cents
-            cents = torch.where(live[..., None, None], new_cents, cents)
-            inertia = torch.where(live, new_inertia, inertia)
-            a = torch.where(live[..., None], rnd.assignment, a)
-            n_iters = n_iters + live.int()
-            if test:
-                live = flags[-1]
-        i += 1
-        if not go_on:
-            break
-    return (cents, a, inertia, i if live is None else n_iters, skips, prunes,
-            torch.tensor(rec, dtype=torch.int32) if guard else None)
+            return c._replace(i=i + 1, centroids=new_cents,
+                              prev_centroids=cents, inertia=new_inertia,
+                              assignment=rnd.assignment, state=bstate,
+                              go_on=go_on)
+        # a problem that has stopped keeps its results
+        return c._replace(
+            i=i + 1,
+            centroids=torch.where(live[..., None, None], new_cents, cents),
+            prev_centroids=cents,
+            inertia=torch.where(live, new_inertia, c.inertia),
+            assignment=torch.where(live[..., None], rnd.assignment,
+                                   c.assignment),
+            state=bstate, live=flags[-1] if test else live,
+            n_iters=c.n_iters + live.int(), go_on=go_on)
+
+    def finish(c: FitCarry):
+        return (c.centroids, c.assignment, c.inertia,
+                c.i if c.live is None else c.n_iters, c.skipped, c.pruned,
+                c.recovered if guard else None)
+
+    return make_init, step, stopped, finish
+
+
+def _fit_loop(pts, init_centroids, backend: Backend, max_iters: int,
+              tol: float, empty: str, cache: RoundCache, **parts):
+    """Lloyd iterations (:func:`_fit_parts`' parts run to the end)."""
+    make_init, step, stopped, finish = _fit_parts(
+        pts, init_centroids, backend, max_iters, tol, empty, cache, **parts)
+    carry = make_init()
+    while not stopped(carry):
+        carry = step(carry)
+    return finish(carry)
 
 
 def fit_points(points: torch.Tensor, init_centroids: torch.Tensor,
@@ -1587,12 +1742,18 @@ def fit_points(points: torch.Tensor, init_centroids: torch.Tensor,
                cache: Optional[RoundCache] = None, *,
                weights: Optional[torch.Tensor] = None,
                bound_gate: bool = True, guard: bool = False,
-               stream: Optional[torch.Tensor] = None) -> LloydResult:
+               stream: Optional[torch.Tensor] = None, fault=None,
+               parts: bool = False):
     """Lloyd clustering through ``backend``. ``empty`` picks the
     empty-cluster policy: 'keep' (previous centroid survives) or 'reseed'
     (split the largest cluster). ``cache`` is an optional precomputed
     prologue. ``bound_gate`` runs the gated loop (bitwise the ungated
-    results); ``guard`` arms its in-flight corruption detector.
+    results); ``guard`` arms its in-flight corruption detector, and
+    ``fault`` (a ``testing.FaultSpec``: ``zero_counts`` or ``nan_state``)
+    poisons one gated iteration (tests; :func:`_inject_fit_fault`).
+    ``parts`` returns the loop's ``(make_init, step, stopped, finish)``
+    (:func:`_fit_parts`) instead of running it: what the checkpointed fit
+    drives in chunks.
 
     ``weights`` (n,) weigh each point in the update and the inertia. A
     weighted fit runs the untiled round on the cached norms (computed here,
@@ -1625,16 +1786,17 @@ def fit_points(points: torch.Tensor, init_centroids: torch.Tensor,
             raise ValueError("batched problems take no weights, as in the "
                              "reference")
         norms = bounds.point_norms(pts) if cache is None else cache.norms
-        return LloydResult(*_fit_loop(
-            pts, init_centroids, backend, max_iters, tol, empty,
-            RoundCache(norms), gated=False, guard=False, stream=stream,
-            w=weights.to(pts)))
-    if cache is None:
-        cache = backend.prologue(pts, m=k, with_bounds=bound_gate)
-    return LloydResult(*_fit_loop(
-        pts, init_centroids, backend, max_iters, tol, empty, cache,
-        gated=bound_gate and cache.centers is not None, guard=guard,
-        stream=stream))
+        cache = RoundCache(norms)
+        loop = dict(gated=False, guard=False, w=weights.to(pts))
+    else:
+        if cache is None:
+            cache = backend.prologue(pts, m=k, with_bounds=bound_gate)
+        loop = dict(gated=bound_gate and cache.centers is not None,
+                    guard=guard, fault=fault)
+    args = (pts, init_centroids, backend, max_iters, tol, empty, cache)
+    if parts:
+        return _fit_parts(*args, stream=stream, **loop)
+    return LloydResult(*_fit_loop(*args, stream=stream, **loop))
 
 
 def kmeans_points(draws: Draws, points: torch.Tensor, k: int,
@@ -1890,43 +2052,180 @@ class ClusterEngine:
              draws: Optional[Draws] = None,
              sampler: str = "cdf", refresh_block: int = 8,
              proposal: str = "hier",
-             max_attempts: int = _REJECT_ATTEMPTS) -> KmeansppResult:
+             max_attempts: int = _REJECT_ATTEMPTS,
+             checkpoint_dir=None, checkpoint_every: int = 1,
+             _fault=None) -> KmeansppResult:
         """K-means++ seeding: k centroids chosen from ``points`` ∝ D² (∝
         D²·w with ``weights``, the first ∝ w). ``refresh_block``,
         ``proposal`` and ``max_attempts`` are the rejection sampler's (see
-        :func:`seed_points`)."""
+        :func:`seed_points`).
+
+        ``checkpoint_dir`` (a directory or a
+        ``checkpoint.CheckpointManager``) runs the loop in resumable chunks
+        of ``checkpoint_every`` rounds, saving the whole carry after each
+        (:class:`SeedCarry`: the round counter, the run's ``Draws``,
+        centroids, indices, min_d2, the bound state and the counters); a
+        checkpoint already in the directory resumes the run there, with
+        the saved draws, and the finished result is bitwise the
+        uninterrupted one. 'cdf' and 'tiled' only. ``_fault`` is the
+        fault-injection hook (a ``testing.FaultSpec``; tests only)."""
         pts = self._points(points)
         n = pts.shape[0]
         guards.check_shape(k, n)
         w = self._weights(weights, n)
-        return seed_points(
-            self._draws(n, k, generator, draws, sampler, max_attempts,
-                        w is not None),
-            pts, k, self.backend, sampler, weights=w,
-            bound_gate=self.bounds, guard=self._guard,
-            refresh_block=int(refresh_block), proposal=proposal,
-            max_attempts=int(max_attempts),
-            stream=_stream_of(pts, self.precision))
+        if checkpoint_dir is not None and sampler == "rejection":
+            raise guards.CheckpointError(
+                "checkpointed seeding needs a per-round refresh; the "
+                "rejection sampler's stale-envelope carry is not saved: use "
+                "sampler='tiled' (the same distribution)")
+        drawn = self._draws(n, k, generator, draws, sampler, max_attempts,
+                            w is not None)
+        kw = dict(weights=w, bound_gate=self.bounds, guard=self._guard,
+                  fault=_fault, stream=_stream_of(pts, self.precision))
+        if checkpoint_dir is not None:
+            return self._seed_checkpointed(drawn, pts, k, sampler, kw,
+                                           checkpoint_dir, checkpoint_every)
+        return seed_points(drawn, pts, k, self.backend, sampler,
+                           refresh_block=int(refresh_block),
+                           proposal=proposal,
+                           max_attempts=int(max_attempts), **kw)
 
     def fit(self, points, init_centroids, *, max_iters: int = 50,
             tol: float = 1e-6, weights=None, empty: str = "keep",
-            order=None) -> LloydResult:
+            order=None, checkpoint_dir=None, checkpoint_every: int = 1,
+            _fault=None) -> LloydResult:
         """Lloyd iterations from ``init_centroids`` until convergence, each
         point weighted by ``weights`` when given. ``order`` feeds the
         kernels a tile-coherent row layout ('morton', or a precomputed (n,)
         permutation; None and 'auto' keep the caller's order): applied on
         the way in and inverted on the way out, so ``assignment`` is in the
-        caller's row order, with the permutation in ``reorder``."""
+        caller's row order, with the permutation in ``reorder``.
+
+        ``checkpoint_dir`` (a directory or a
+        ``checkpoint.CheckpointManager``) runs the loop in resumable chunks
+        of ``checkpoint_every`` iterations, saving the whole carry after
+        each (:class:`FitCarry`: the iteration counter, the centroid pair,
+        the inertia, the bound state, the counters and the stop test's
+        verdict); a checkpoint already in the directory resumes the fit
+        there (one restored from a converged run runs no iteration), and
+        the result is bitwise the uninterrupted one. Unweighted and
+        ``bounds=True`` only. ``_fault`` is the fault-injection hook (a
+        ``testing.FaultSpec``; tests only)."""
         pts = self._points(points)
         w = self._weights(weights, pts.shape[0])
         cents = torch.as_tensor(init_centroids, dtype=torch.float32,
                                 device=self.device)
         cents = guards.guard_centroids(cents, pts.shape[1], self.validate)
+        if checkpoint_dir is not None and (w is not None or not self.bounds):
+            raise guards.CheckpointError(
+                "checkpointed fit needs unweighted points and bounds=True "
+                "(the saved carry is the gated loop's)")
         pts, w, perm, inv = self._order_in(pts, order, w)
-        return self._order_out(fit_points(
-            pts, cents, self.backend, max_iters, float(tol), empty,
-            weights=w, bound_gate=self.bounds, guard=self._guard,
-            stream=_stream_of(pts, self.precision)), perm, inv)
+        kw = dict(weights=w, bound_gate=self.bounds, guard=self._guard,
+                  stream=_stream_of(pts, self.precision), fault=_fault)
+        if checkpoint_dir is not None:
+            res = self._fit_checkpointed(pts, cents, max_iters, float(tol),
+                                         empty, kw, checkpoint_dir,
+                                         checkpoint_every)
+        else:
+            res = fit_points(pts, cents, self.backend, max_iters, float(tol),
+                             empty, **kw)
+        return self._order_out(res, perm, inv)
+
+    # -- checkpointed runs ------------------------------------------------
+
+    def _ckpt_meta(self, kind: str, n: int, d: int, k: int, **extra) -> dict:
+        """What decides a checkpointed run's bits: the problem, the
+        engine's precision, gating, backend and device, and the tile
+        geometry (the kernels are not bitwise their plain twins, and a
+        bound state read under another tile height describes other rows)."""
+        tile = self.backend.seed_tile(n, d, k if kind == "fit" else 1)
+        meta = {"kind": kind, "n": int(n), "d": int(d), "k": int(k),
+                "precision": self.precision, "bounds": self.bounds,
+                "backend": self.backend.name, "device": self.device.type,
+                "block_n": int(tile),
+                "tps": int(self.backend.tiles_per_super(-(-n // tile)))}
+        meta.update(extra)
+        return meta
+
+    @staticmethod
+    def _check_meta(mgr, want: dict) -> Optional[int]:
+        """The latest resumable step, or None for a fresh start. A
+        checkpoint written by an incompatible call raises
+        ``CheckpointError``, never a silent restore."""
+        step = mgr.latest_step()
+        if step is None:
+            return None
+        got = mgr.read_manifest(step).get("meta")
+        if got != want:
+            raise guards.CheckpointError(
+                f"checkpoint under {mgr.dir} was written by an incompatible "
+                f"call: saved meta {got} != expected {want}")
+        return step
+
+    @staticmethod
+    def _manager(checkpoint_dir):
+        from repro_torch.checkpoint.manager import CheckpointManager
+        if isinstance(checkpoint_dir, CheckpointManager):
+            return checkpoint_dir
+        return CheckpointManager(checkpoint_dir, async_save=False)
+
+    def _seed_checkpointed(self, draws, pts, k, sampler, kw, checkpoint_dir,
+                           checkpoint_every) -> KmeansppResult:
+        """seed() with a checkpoint: :func:`_seed_parts`' rounds (the
+        one-shot loop's) in chunks of ``checkpoint_every``, the carry saved
+        after each chunk (a host snapshot taken before the next round's
+        first launch: the rounds write min_d2 in place)."""
+        n, d = pts.shape
+        mgr = self._manager(checkpoint_dir)
+        make_init, body, finish = seed_points(draws, pts, k, self.backend,
+                                              sampler, parts=True, **kw)
+        meta = self._ckpt_meta("seed", n, d, k, sampler=sampler,
+                               weighted=kw["weights"] is not None)
+        step = self._check_meta(mgr, meta)
+        carry = make_init(draws)
+        if step is not None:
+            _, carry = mgr.restore(carry, step=step)
+        every = max(int(checkpoint_every), 1)
+        while carry.m < k:
+            stop = min(carry.m + every, k)
+            while carry.m < stop:
+                carry = body(carry)
+            mgr.save(carry.m, carry, blocking=True, meta=meta)
+        centroids, indices, min_d2, skips, prunes, rec = finish(carry)
+        return KmeansppResult(centroids, indices, min_d2, skips, prunes,
+                              recovered=rec if self._guard else None)
+
+    def _fit_checkpointed(self, pts, cents, max_iters, tol, empty, kw,
+                          checkpoint_dir, checkpoint_every) -> LloydResult:
+        """fit() with a checkpoint: :func:`_fit_parts`' iterations (the
+        one-shot loop's) in chunks of ``checkpoint_every``, the carry saved
+        after each chunk. The assignment is saved once, as the bound
+        state's (the carry's two are one tensor after an iteration); a
+        carry restored from a converged run runs no iteration and saves no
+        step again."""
+        n, d = pts.shape
+        mgr = self._manager(checkpoint_dir)
+        make_init, step_fn, stopped, finish = fit_points(
+            pts, cents, self.backend, max_iters, tol, empty, parts=True,
+            **kw)
+        meta = self._ckpt_meta("fit", n, d, cents.shape[0],
+                               max_iters=int(max_iters), tol=float(tol),
+                               empty=empty)
+        step = self._check_meta(mgr, meta)
+        carry = make_init()
+        if step is not None:
+            _, saved = mgr.restore(carry._replace(assignment=None),
+                                   step=step)
+            carry = saved._replace(assignment=saved.state.assignment)
+        every = max(int(checkpoint_every), 1)
+        while not stopped(carry):
+            stop = carry.i + every
+            while carry.i < stop and not stopped(carry):
+                carry = step_fn(carry)
+            mgr.save(carry.i, carry._replace(assignment=None), blocking=True,
+                     meta=meta)
+        return LloydResult(*finish(carry))
 
     def kmeans(self, points, k: int, *,
                generator: Optional[torch.Generator] = None,

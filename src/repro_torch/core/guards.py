@@ -6,7 +6,8 @@
   caught before they enter a round loop;
 * the :class:`ClusteringError` hierarchy, so callers can tell a typed
   failure from a silent wrong answer (a batch source that keeps failing
-  raises :class:`PipelineError` with the step).
+  raises :class:`PipelineError` with the step; a checkpoint that cannot be
+  resumed raises :class:`CheckpointError`).
 
 A kernel that fails to build or launch raises :class:`KernelFailureError`.
 The port has no fallback chain: nothing catches it.
@@ -19,8 +20,9 @@ import torch
 
 __all__ = [
     "ClusteringError", "CorruptedStateError", "InvalidInputError",
-    "KernelFailureError", "PipelineError", "POLICIES", "check_policy",
-    "check_shape", "guard_points", "guard_weights", "guard_centroids",
+    "KernelFailureError", "PipelineError", "CheckpointError", "POLICIES",
+    "check_policy", "check_shape", "guard_points", "guard_weights",
+    "guard_centroids",
 ]
 
 
@@ -50,6 +52,12 @@ class PipelineError(ClusteringError, RuntimeError):
     def __init__(self, message: str, *, step: Optional[int] = None):
         super().__init__(message)
         self.step = step
+
+
+class CheckpointError(ClusteringError, RuntimeError):
+    """Checkpoint save/restore failed, or the checkpoint was written by an
+    incompatible call (another problem shape, sampler, precision, backend,
+    device or tile height), or the call cannot be checkpointed."""
 
 
 POLICIES = ("raise", "sanitize", "off")

@@ -1,13 +1,15 @@
-"""The seeding loop's round-counter contract, stated and checked in one place
-(the port's copy of ``repro.core.telemetry``'s seeding and IVF checks).
+"""The loops' round-counter contract, stated and checked in one place (the
+port's copy of ``repro.core.telemetry``).
 
 Every counter on :class:`~repro_torch.core.engine.KmeansppResult`
 (``skipped``, ``pruned``, ``proposals``, ``accepts``, ``recovered``,
 ``tightened``, ``supers``) is:
 
-* **fixed length** — ``(k,)``, one slot per seed round;
+* **fixed length** — ``(k,)``, one slot per seed round (a fit's
+  ``skipped``/``pruned``/``recovered``: ``(max_iters,)``, one per
+  iteration);
 * **zero-filled** — slots of rounds that did not run the counted event hold
-  exact 0;
+  exact 0 (a fit's slots past ``n_iters``: :func:`check_converged_zeros`);
 * **int32**, non-negative.
 
 Rejection counters: ``proposals[0] == accepts[0] == 0`` (the first seed is
@@ -31,7 +33,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["check_counter", "check_rejection_counters", "check_hier_counters",
+__all__ = ["check_counter", "check_converged_zeros",
+           "check_rejection_counters", "check_hier_counters",
            "check_ivf_counters", "check_recovered"]
 
 
@@ -51,6 +54,18 @@ def check_counter(arr, length: int, name: str = "counter") -> np.ndarray:
     assert a.dtype == np.int32, \
         f"{name} dtype {a.dtype} != int32: counters are exact integers"
     assert np.all(a >= 0), f"{name} has negative entries: {a}"
+    return a
+
+
+def check_converged_zeros(arr, n_ran, length: int,
+                          name: str = "counter") -> np.ndarray:
+    """Assert the zero-filled-past-convergence half of the contract (a
+    fit's ``(max_iters,)`` counters): the slots of the ``length - n_ran``
+    rounds that never ran are exact zeros."""
+    a = check_counter(arr, length, name)
+    n_ran = int(n_ran)
+    assert np.array_equal(a[n_ran:], np.zeros(length - n_ran, np.int32)), \
+        f"{name} slots past round {n_ran} are not zero-filled: {a[n_ran:]}"
     return a
 
 
