@@ -361,7 +361,40 @@ Phases, each of which exits non-zero on failure:
    enable_gqa=True)`` call on the global layer in the same dtype (the
    yardstick only: SDPA has no softcap, and the port never calls it). The prefill's host wall
    is printed beside its kernel time (the device's idle share).
-10. With ``--profile`` only: trace one seeding run per sampler (rejection
+10. The other training paths (phase 10 (init)). The Gumbel sampler at
+   the paper's shape, gated (K1 once, K5 k times) and ungated (K2 k
+   times): bitwise each other and a second run, the fused twin's seeds on
+   the card from the same draws (D² within tolerance); a round's noise
+   and draw timed on the device beside the tiled and cdf draws, and the
+   seeding's host time beside theirs. Batched at the codebook sweep (the
+   batched K1 once, K8 k times), rows 0, 1 and B−1 bitwise the single
+   seedings, timed beside the batched tiled seeding. k-means|| at the
+   paper's shape (l = 100, 5 rounds; K1 twice, K5 5 times at m = l, K4
+   twice, K2 k times in the reduce), its peak allocation below an
+   (n, n_cand) matrix, bitwise a second run; against the fused twin: the
+   same candidates, K4's labels the twin's outside near-ties and the
+   weights their counts, and the twin's reduce on these candidates and
+   weights the same seeds (D² within tolerance); K5 at m = l, K4 against
+   the 501 candidates, and K1 and K2 on the candidate rows, each held to
+   its twin and timed. ``kmeans(init=...)`` for 'kmeans++', 'kmeans||' and
+   'random' at the paper's shape, each bitwise a second run, their
+   inertia printed side by side (not a gate). The reference backend's
+   serial mode bitwise its global mode on the card. ``semdedup`` on
+   200,000 embeddings of width 512 (CLIP ViT-B/16's; 1,024 topics, 2,000
+   planted near-copies), k = 256, threshold 0.95: its keep mask against a
+   plain pass that sorts the rows by cluster and compares within each
+   cluster only (rows may differ only on the threshold's rounding), every
+   copy that shares its source's cluster dropped, and the copies the
+   clustering put elsewhere (they escape by design) at most 5% of them;
+   its clustering bitwise its seeding then its fit, the fit from those
+   seeds held to the fused twin's (inertia within 1e-4), its labels the
+   plain assignment's against the centroids its last iteration read
+   (outside near-ties), and K5 (m = 1) and K6 (k = 256, every tile
+   and the gate's mask) at its shape held to their twins and timed; its
+   (2048, n) fp32 products timed beside their bound. The Gumbel seeding,
+   k-means|| and SemDeDup's fit are also profiled (device busy, idle
+   share).
+11. With ``--profile`` only: trace one seeding run per sampler (rejection
    hier and flat included) and one Lloyd fit at the paper's shape,
    ungated and gated (shuffled and sorted), the weighted seeding (cdf,
    tiled), the weighted fit and the mini-batch run, the batched seeding
@@ -1233,15 +1266,19 @@ def k6_held(torch, la, bounds, what, args, bn, tps, out1) -> dict:
     return dict(label_diffs=n_diff, max_abs_err=err, tol=tol)
 
 
-def k6_case(torch, la, bounds, ops, pts, cache, k, gen):
+def k6_case(torch, la, bounds, ops, pts, cache, k, gen,
+            masks=("all", "half", "gate")):
     """K6 from a carried state: one all-active launch with no carried bound
     (held bitwise to K3 and to the template entry) gives the state; two
     centroids then move a little (none at k = 1), so the rows of unmoved
-    clusters prune. Masks: every tile, half the supers, the movement gate's;
-    each launch bitwise the template entry (all eight outputs), whose time
-    is measured beside K6's."""
+    clusters prune. ``masks`` of every tile ('all'), half the supers
+    ('half'), the movement gate's ('gate'); each launch bitwise the
+    template entry (all eight outputs), whose time is measured beside
+    K6's, where the template holds k (``ops.template_max_k``; past it
+    ``template_ms`` is None)."""
     n, d = pts.shape
     bn = ops.choose_block_n(n, d, k)
+    has_tmpl = k <= ops.template_max_k(d, bn, gated=True)
     t = -(-n // bn)
     tps = bounds.tiles_per_super(t)
     s = -(-t // tps)
@@ -1259,19 +1296,22 @@ def k6_case(torch, la, bounds, ops, pts, cache, k, gen):
         zero_t, zero_t, torch.zeros((s, k, d), device=dev),
         torch.zeros((s, k), device=dev), all_on, block_n=bn, tps=tps)
     k3 = la.lloyd_assign_tiled(pts, cache.norms, c0k, block_n=bn, tps=tps)
-    tmpl = la.lloyd_assign_gated_template(
-        pts, cache.norms, c0k, torch.zeros(k, device=dev), zero_t, zero_t,
-        torch.zeros(n, dtype=torch.int32, device=dev),
-        torch.zeros(n, device=dev), torch.full((n,), -torch.inf, device=dev),
-        zero_t, zero_t, torch.zeros((s, k, d), device=dev),
-        torch.zeros((s, k), device=dev), all_on, block_n=bn, tps=tps)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(
         (first[0], first[1], first[3], first[4], first[5], first[6]), k3))
         and not bool(first[7].any()),
         f"K6 d={d} k={k}: all-active K6 without a bound is not bitwise K3")
-    same_bits(torch, f"K6 d={d} k={k} all-active vs the template entry",
-              first, tmpl)
+    if has_tmpl:
+        same_bits(torch, f"K6 d={d} k={k} all-active vs the template entry",
+                  first, la.lloyd_assign_gated_template(
+                      pts, cache.norms, c0k, torch.zeros(k, device=dev),
+                      zero_t, zero_t,
+                      torch.zeros(n, dtype=torch.int32, device=dev),
+                      torch.zeros(n, device=dev),
+                      torch.full((n,), -torch.inf, device=dev), zero_t,
+                      zero_t, torch.zeros((s, k, d), device=dev),
+                      torch.zeros((s, k), device=dev), all_on, block_n=bn,
+                      tps=tps))
     scr = la.screened(d, pts.dtype == torch.bfloat16)
     c1 = c0.clone()
     if k > 1:
@@ -1283,12 +1323,14 @@ def k6_case(torch, la, bounds, ops, pts, cache, k, gen):
     delta = bounds.centroid_movement(c1, c0)
     c1 = c1.to(pts.dtype)
     thresh, absorb = bounds.assign_point_scalars(delta, c1, st, cache)
-    masks = {"all": all_on,
-             "half": (torch.arange(t, device=dev) // tps) % 2 == 0,
-             "gate": bounds.expand_active_supers(bounds.assign_active_tiles(
-                 delta, c1, st, cache, tps=tps), tps)}
+    made = {"all": lambda: all_on,
+            "half": lambda: (torch.arange(t, device=dev) // tps) % 2 == 0,
+            "gate": lambda: bounds.expand_active_supers(
+                bounds.assign_active_tiles(delta, c1, st, cache, tps=tps),
+                tps)}
     res = []
-    for name, act in masks.items():
+    for name in masks:
+        act = made[name]()
         what = f"K6 d={d} k={k} mask={name}"
         args = (pts, cache.norms, c1, delta, thresh, absorb, st.assignment,
                 st.min_d2, st.point_lb, st.partials, st.tile_gap,
@@ -1299,8 +1341,10 @@ def k6_case(torch, la, bounds, ops, pts, cache, k, gen):
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for a, b in zip(out1, out2)),
               f"{what}: two launches differ")
-        same_bits(torch, f"{what} vs the template entry", out1,
-                  la.lloyd_assign_gated_template(*args, block_n=bn, tps=tps))
+        if has_tmpl:
+            same_bits(torch, f"{what} vs the template entry", out1,
+                      la.lloyd_assign_gated_template(*args, block_n=bn,
+                                                     tps=tps))
         held = k6_held(torch, la, bounds, what, args, bn, tps, out1)
         if name != "half":
             check(int(out1[7].sum()) > 0, f"{what}: the prune never fired")
@@ -1313,7 +1357,7 @@ def k6_case(torch, la, bounds, ops, pts, cache, k, gen):
             torch, lambda: la.lloyd_assign_gated(*args, block_n=bn, tps=tps),
             lambda: la.lloyd_assign_gated_torch(*args, block_n=bn, tps=tps))
         tmpl_ms = gpu_ms(torch, lambda: la.lloyd_assign_gated_template(
-            *args, block_n=bn, tps=tps), reps=5)
+            *args, block_n=bn, tps=tps), reps=5) if has_tmpl else None
         rows_act = int(act_pt.sum())
         n_pruned = int(out1[7].sum())
         bms, by, fma_ms = k6_bound(torch, pts, k, rows_act,
@@ -5124,6 +5168,481 @@ def attention_phase(torch, ops, dense, pqc, dev, launches, profile):
     return cases, out
 
 
+def semdedup_data(torch, gen, n: int, d: int, n_dups: int):
+    """SemDeDup's rows, made on the card from ``gen``: n embeddings of
+    width d from 1,024 topics (a row is its topic's center plus noise of
+    the same scale, so two rows of one topic sit at cosine ~0.5 and no
+    natural pair nears 0.95), then ``n_dups`` rows past the first tenth
+    overwritten by a near copy (noise 0.05 a coordinate, cosine ~0.9994)
+    of a row before them. Returns (rows, the copies' rows, their
+    sources' rows)."""
+    dev = gen.device
+    centers = torch.randn((1024, d), generator=gen, device=dev)
+    topic = torch.randint(1024, (n,), generator=gen, device=dev)
+    x = centers[topic] + torch.randn((n, d), generator=gen, device=dev)
+    dups = torch.randperm(n - n // 10, generator=gen,
+                          device=dev)[:n_dups] + n // 10
+    src = (torch.rand(n_dups, generator=gen, device=dev) * dups).long()
+    x[dups] = x[src] + 0.05 * torch.randn((n_dups, d), generator=gen,
+                                          device=dev)
+    return x.contiguous(), dups, src
+
+
+def dedup_by_cluster(torch, x, assignment, threshold: float):
+    """The plain SemDeDup check, independent of the port's: the rows
+    sorted by cluster (stably, so each cluster keeps its row order), then
+    each cluster's own cosine block, a row dropped when an earlier row of
+    its cluster is above ``threshold``. Returns (keep mask, each row's
+    largest cosine to an earlier row of its cluster)."""
+    xn = x / (torch.sqrt((x * x).sum(dim=1, keepdim=True)) + 1e-8)
+    order = torch.argsort(assignment, stable=True)
+    best = torch.full((x.shape[0],), -torch.inf, device=x.device)
+    start = 0
+    for size in torch.bincount(assignment.long()).tolist():
+        rows = order[start:start + size]
+        start += size
+        if size > 1:
+            sim = xn[rows] @ xn[rows].T
+            earlier = torch.ones_like(sim, dtype=torch.bool).tril(-1)
+            best[rows] = torch.where(earlier, sim, -torch.inf).amax(dim=1)
+    return ~(best > threshold), best
+
+
+def events_ms(torch, fn) -> float:
+    """One call's device time by CUDA events (launches not queued behind
+    a sleep: the host's issue time is inside)."""
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def semdedup_part(torch, ops, kd, la, bounds, eng, fused, gen, run, cases,
+                  sn: int, sd: int, sk: int, n_dups: int, thr: float) -> dict:
+    """Phase 10's SemDeDup: ``semdedup`` on ``sn`` rows of width ``sd``
+    with ``n_dups`` planted copies at k = ``sk`` through ``run`` (counted),
+    its keep mask against the per-cluster plain pass, its clustering
+    against the fused twin's, the planted copies' fate, K5 and K6 at its
+    shapes appended to ``cases``, and its (2048, n) products beside their
+    bound. Returns the part's report."""
+    from repro_torch.core import point_d2
+    from repro_torch.core.quality import balance
+    from repro_torch.data import semdedup
+
+    emb, dups, src = semdedup_data(torch, torch.Generator(device=eng.device)
+                                   .manual_seed(15), sn, sd, n_dups)
+    dd, dd_s, got = run("semdedup", lambda: semdedup(
+        emb, k=sk, threshold=thr,
+        generator=torch.Generator().manual_seed(15)))
+    check(got.get("seed_prologue") == 1
+          and got.get("distance_min_update_gated") == sk
+          and got.get("lloyd_assign_gated", 0) >= 1,
+          f"semdedup: launches {got}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    keep, best = dedup_by_cluster(torch, emb, dd.assignment, thr)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    diff = (keep != dd.keep_mask).nonzero().reshape(-1)
+    check(bool(((best[diff] - thr).abs() <= 1e-5).all()),
+          f"semdedup: {int(diff.numel())} rows differ from the per-cluster "
+          f"pass beyond the threshold's rounding")
+    check(int(dd.n_kept) == int(dd.keep_mask.sum()), "semdedup: n_kept")
+    # the clustering it checks within: its kmeans is the seeding then the
+    # fit, bitwise; its labels are the plain assignment against the
+    # centroids its last iteration read (a fit one iteration shorter ends
+    # on them), outside near-ties; the fused twin's seeds from the same
+    # draws (counted beside: a cdf draw may fall the other way on a D²
+    # rounding), and the twin's fit from the kernels' own seeds within
+    # 1e-4 in inertia (the same Lloyd steps in another fp32 summation
+    # order; labels on near-ties part the two runs, so theirs are counted)
+    xn = emb / (torch.sqrt((emb * emb).sum(dim=1, keepdim=True)) + 1e-8)
+    norms = bounds.point_norms(xn)
+    sgen = lambda: torch.Generator().manual_seed(15)  # noqa: E731
+    seed_ms = events_ms(torch, lambda: eng.seed(xn, sk, generator=sgen()))
+    sseeds = eng.seed(xn, sk, generator=sgen())
+    sfit = eng.fit(xn, sseeds.centroids, max_iters=25)
+    check(torch.equal(sfit.assignment, dd.assignment),
+          "semdedup: its labels are not its seeding then its fit")
+    last = int(sfit.n_iters)
+    read = (sseeds.centroids if last == 1 else
+            eng.fit(xn, sseeds.centroids, max_iters=last - 1).centroids)
+    near, bad = label_diffs(torch, la.tile_d2(xn, read, norms),
+                            sfit.assignment,
+                            la.lloyd_assign_torch(xn, norms, read)[0],
+                            d2_tol(torch, norms, read))
+    check(bad == 0, f"semdedup: {bad} labels differ from the plain "
+          f"assignment beyond near-ties")
+    seeds_same = int((fused.seed(xn, sk, generator=sgen()).indices
+                      == sseeds.indices).sum())
+    tfit = fused.fit(xn, sseeds.centroids, max_iters=25)
+    rel = abs(float(tfit.inertia) - float(sfit.inertia)) / float(
+        sfit.inertia)
+    moved = int((tfit.assignment != sfit.assignment).sum())
+    check(rel <= 1e-4, f"semdedup: the fit's inertia differs from the "
+          f"fused twin's from its seeds by {rel:.3g}")
+    fit_prof = profile_call(torch, lambda: eng.fit(
+        xn, sseeds.centroids, max_iters=25), cpu=False)
+    print_profile("semdedup's fit", fit_prof)
+    # a copy in its source's cluster must go; one the clustering put in
+    # another cluster escapes the within-cluster check, by design, and the
+    # escapes stay a small share (a random split into sk clusters lets
+    # ~(sk-1)/sk of them through)
+    together = dd.assignment[dups] == dd.assignment[src]
+    check(not bool(dd.keep_mask[dups[together]].any()),
+          f"semdedup: {int(dd.keep_mask[dups[together]].sum())} planted "
+          f"copies kept beside their source")
+    escaped = int((~together).sum())
+    twin_escaped = int((tfit.assignment[dups]
+                        != tfit.assignment[src]).sum())
+    check(escaped <= n_dups // 20,
+          f"semdedup: {escaped} of {n_dups} planted copies clustered apart "
+          f"from their source")
+    kept_copies = int(dd.keep_mask[dups].sum())
+    # K5 and K6 at the shapes SemDeDup gives them: K5 at m = 1 on a
+    # seeding state, K6 from the fit's first state (every tile, the gate's)
+    scache = bounds.prologue(xn, ops.choose_block_n(sn, sd, 50))
+    cases["K5"].append(k5_case(
+        torch, kd, bounds, ops, xn, scache, point_d2(xn, xn[dups[0]]),
+        xn[src[:1]].contiguous(), "gate", True))
+    del scache
+    scache = bounds.prologue(xn, ops.choose_block_n(sn, sd, sk))
+    cases["K6"].extend(k6_case(torch, la, bounds, ops, xn, scache, sk, gen,
+                               masks=("all", "gate")))
+    del scache
+    for c in (cases["K5"][-1], *cases["K6"][-2:]):
+        print(f"  {'K5' if 'm' in c else 'K6'} at SemDeDup's shape n={c['n']}"
+              f" d={c['d']}" + (f" m={c['m']}" if "m" in c
+                                else f" k={c['k']} mask={c['mask']}")
+              + f": err {c['max_abs_err']:.3g} (tol {c['tol']:.3g}), "
+              f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, bound "
+              f"{c['bound_ms']:.4f} ms ({c['bound_by']})")
+    # the check's (2048, n) products alone, as semdedup runs them
+
+    def products():
+        for s_ in range(0, sn, 2048):
+            xn[s_:s_ + 2048] @ xn.T
+
+    prod_ms = events_ms(torch, products)
+    prod_bound, prod_by = bound_ms(4 * (sn * sd + sn * sn),
+                                   2.0 * sn * sn * sd)
+    out = dict(
+        n=sn, d=sd, k=sk, planted=n_dups, kept=int(dd.n_kept), s=dd_s,
+        plain_s=plain_s, seed_events_ms=seed_ms,
+        fit_busy_ms=fit_prof["busy_ms"], fit_idle_share=fit_prof["idle_share"],
+        fit_top_kernels=dict(list(fit_prof["kernels"].items())[:4]),
+        n_iters=last, labels_near_ties=near, twin_seeds_equal=seeds_same,
+        twin_inertia_rel=rel, twin_labels_differ=moved, escaped=escaped,
+        twin_escaped=twin_escaped, kept_copies=kept_copies,
+        launches=got, product_ms=prod_ms, product_bound_ms=prod_bound,
+        product_bound_by=prod_by, on_threshold=int(diff.numel()),
+        balance=float(balance(dd.assignment, sk)))
+    print(f"semdedup ({sn} x {sd}, k = {sk}, threshold {thr}, {n_dups} "
+          f"planted): kept {int(dd.n_kept)}; every copy in its source's "
+          f"cluster dropped, {escaped} copies in another cluster than their "
+          f"source (the twin's fit: {twin_escaped}; {kept_copies} copies "
+          f"kept); {int(diff.numel())} rows on the threshold's rounding "
+          f"against the per-cluster pass ({plain_s:.3f} s); {dd_s:.3f} s "
+          f"host, launches {got}; its seeding {seed_ms:.1f} ms by CUDA "
+          f"events, {seeds_same}/{sk} seeds the fused twin's; its fit "
+          f"({last} iterations; its labels the plain assignment's but "
+          f"{near} on near-ties) device busy "
+          f"{fit_prof['busy_ms']:.1f} ms, idle share "
+          f"{fit_prof['idle_share']:.3f}, the twin's fit from its seeds: "
+          f"inertia rel diff {rel:.3g}, {moved} labels differ; the (2048, "
+          f"n) products {prod_ms:.2f} ms by CUDA events, bound "
+          f"{prod_bound:.2f} ms ({prod_by}, fp32 at "
+          f"{FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s); cluster balance "
+          f"{out['balance']:.3f}")
+    return out
+
+
+def init_phase(torch, ops, kd, la, bounds, sampling, ClusterEngine, Draws,
+               paper, kvq_pts, full, kvq, dev, launches, gen):
+    """Phase 10 (init): the Gumbel sampler at ``FULL`` (gated, ungated,
+    the fused twin) and at the codebook sweep (batched), k-means|| at
+    ``FULL`` against the fused twin, the three inits' kmeans, serial mode
+    against global mode, and SemDeDup at one card's size. Returns (the
+    kernel cases at k-means||'s and SemDeDup's shapes, the phase's
+    report)."""
+    from repro_torch.core import (ParallelDraws, kmeans_parallel,
+                                  kmeans_parallel_init, point_d2)
+
+    t10 = time.perf_counter()
+
+    def lap(what):
+        print(f"  [phase 10 +{time.perf_counter() - t10:.1f} s] {what}")
+
+    def run(what, fn, want=None):
+        # counters zeroed just before and read just after; the launches go
+        # to the record's counts
+        res, s, got = counted(torch, ops, fn)
+        for name in launches:
+            launches[name] += got[name]
+        if want is not None:
+            counted_as(what, got, want)
+        return res, s, {nm: c for nm, c in got.items() if c}
+
+    k, n = full.k, paper.shape[0]
+    eng = ClusterEngine(device="cuda")
+    ungated = ClusterEngine(device="cuda", bounds=False)
+    fused = ClusterEngine("fused", device="cuda", bounds=False)
+    norms = bounds.point_norms(paper)
+    report: dict = {}
+    cases = {"K1": [], "K2": [], "K4": [], "K5": [], "K6": []}
+
+    # -- the Gumbel sampler at FULL: gated, ungated, the fused twin ---------
+    lap("gumbel seeding at FULL")
+
+    def gdraws(seed, gumbel=True):
+        return Draws.sample(n, k, gumbel=gumbel, device=dev,
+                            generator=torch.Generator().manual_seed(seed))
+
+    draws = gdraws(10)
+    g_on, g_on_s, _ = run("gumbel seed (gated)", lambda: eng.seed(
+        paper, k, draws=draws, sampler="gumbel"),
+        {"seed_prologue": 1, "distance_min_update_gated": k})
+    g_off, g_off_s, _ = run("gumbel seed (ungated)", lambda: ungated.seed(
+        paper, k, draws=draws, sampler="gumbel"),
+        {"distance_min_update": k})
+    check(same_seeds(torch, g_on, g_off),
+          "gumbel seeding: gated is not bitwise ungated")
+    check(same_seeds(torch, g_on, eng.seed(paper, k, draws=draws,
+                                           sampler="gumbel")),
+          "gumbel seeding: two runs differ")
+    twin = fused.seed(paper, k, draws=draws, sampler="gumbel")
+    tol = d2_tol(torch, norms, g_on.centroids)
+    g_err = float((g_on.min_d2 - twin.min_d2).abs().max())
+    check(torch.equal(g_on.indices, twin.indices) and g_err <= tol,
+          f"gumbel seeding: not the fused twin's seeds, or D² err {g_err} "
+          f"> {tol}")
+    # a round's sampler on the device, beside the tiled and cdf draws
+    bn1 = ops.choose_block_n(n, full.dim, 1)
+    md, fb = g_on.min_d2, draws.fallback[:1]
+    parts = sampling.tile_partials(md, bn1)
+    noise = draws.gumbel_round(2, n, dev)
+    dev_ms = {
+        "noise": gpu_ms(torch, lambda: draws.gumbel_round(2, n, dev),
+                        reps=9),
+        "gumbel draw": gpu_ms(torch, lambda: sampling.gumbel_categorical(
+            noise, fb, md), reps=9),
+        "tiled draw": gpu_ms(torch, lambda: sampling.categorical_tiled(
+            draws.u[0], fb, md, parts, block_n=bn1), reps=9),
+        "cdf draw": gpu_ms(torch, lambda: sampling.categorical_cdf(
+            draws.u[0], fb, md), reps=9)}
+    host = {s: median_seed_ms(torch, eng, paper, k,
+                              gdraws(10, s == "gumbel"), sampler=s)
+            for s in ("gumbel", "tiled", "cdf")}
+    ev = events_ms(torch, lambda: eng.seed(paper, k, draws=draws,
+                                           sampler="gumbel"))
+    prof = profile_call(torch, lambda: eng.seed(paper, k, draws=draws,
+                                                sampler="gumbel"), cpu=False)
+    print_profile("gumbel seed (gated, FULL)", prof)
+    report["gumbel_full"] = dict(
+        busy_ms=prof["busy_ms"], idle_share=prof["idle_share"],
+        top_kernels=dict(list(prof["kernels"].items())[:6]),
+        gated_ms=g_on_s * 1e3, ungated_ms=g_off_s * 1e3,
+        median_host_ms=host, events_ms=ev, device_ms=dev_ms,
+        twin_d2_err=g_err, tol=tol, skipped=int(g_on.skipped.sum()),
+        pruned=int(g_on.pruned.sum()))
+    print(f"gumbel seed at FULL: gated {g_on_s * 1e3:.2f} ms, ungated "
+          f"{g_off_s * 1e3:.2f} ms host, bitwise equal (median of 3: gumbel "
+          f"{host['gumbel']:.2f}, tiled {host['tiled']:.2f}, cdf "
+          f"{host['cdf']:.2f} ms); {ev:.2f} ms by CUDA events; the fused "
+          f"twin's seeds, D² err {g_err:.3g} (tol {tol:.3g}); a round on "
+          f"the device: noise {dev_ms['noise']:.4f} ms + draw "
+          f"{dev_ms['gumbel draw']:.4f} ms, the tiled draw "
+          f"{dev_ms['tiled draw']:.4f} ms, cdf's {dev_ms['cdf draw']:.4f} ms")
+    del twin, noise, parts
+
+    # -- batched Gumbel at the codebook sweep -------------------------------
+    lap("batched gumbel seeding at kvquant")
+    bsz = kvq_pts.shape[0]
+    bdraws = Draws.sample_batched(bsz, kvq.n_points, kvq.k, gumbel=True,
+                                  generator=torch.Generator().manual_seed(11))
+    bres, b_s, _ = run("batched gumbel seed", lambda: eng.seed_batched(
+        kvq_pts, kvq.k, draws=bdraws, sampler="gumbel"),
+        {"seed_prologue_batched": 1,
+         "distance_min_update_gated_batched": kvq.k})
+    for b in (0, 1, bsz - 1):
+        one = eng.seed(kvq_pts[b], kvq.k, draws=bdraws[b], sampler="gumbel")
+        check(all(bits_equal(torch, getattr(bres, f)[b], getattr(one, f))
+                  for f in ("indices", "centroids", "min_d2", "skipped",
+                            "pruned")),
+              f"batched gumbel seeding: problem {b} is not the single run")
+    tiled_s = counted(torch, ops, lambda: eng.seed_batched(
+        kvq_pts, kvq.k, draws=bdraws, sampler="tiled"))[1]
+    report["gumbel_batched"] = dict(s=b_s, tiled_s=tiled_s)
+    print(f"batched gumbel seed at kvquant ({bsz} problems): {b_s:.3f} s "
+          f"host, the tiled sampler's {tiled_s:.3f} s; rows 0, 1 and B-1 "
+          f"bitwise the single runs")
+    del bres, bdraws
+
+    # -- k-means|| at FULL --------------------------------------------------
+    lap("k-means|| at FULL")
+    rounds, l = 5, 2 * k
+    n_cand = rounds * l + 1
+    pdraws = ParallelDraws.sample(n, k, rounds=rounds, device=dev,
+                                  generator=torch.Generator().manual_seed(12))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kp, kp_s, _ = run("kmeans_parallel_init", lambda: kmeans_parallel_init(
+        paper, k, draws=pdraws),
+        {"seed_prologue": 2, "distance_min_update_gated": rounds,
+         "lloyd_assign": 2, "distance_min_update": k})
+    peak = torch.cuda.max_memory_allocated() - base
+    check(peak < n * n_cand * 4,
+          f"k-means||: {peak} bytes at its peak, an (n, n_cand) matrix's "
+          f"{n * n_cand * 4}")
+    check(same_seeds(torch, kp, kmeans_parallel_init(paper, k,
+                                                     draws=pdraws)),
+          "k-means||: two runs differ")
+    kp_twin = kmeans_parallel_init(paper, k, draws=pdraws, backend="fused")
+    cand = kmeans_parallel.oversample_candidates(paper, k, draws=pdraws)
+    cand_twin = kmeans_parallel.oversample_candidates(paper, k, draws=pdraws,
+                                                      backend="fused")
+    check(torch.equal(cand.indices, cand_twin.indices),
+          "k-means||: the candidates are not the fused twin's")
+    cands = paper[cand.indices].contiguous()
+    lab = la.lloyd_assign(paper, norms, cands, block_n=ops.choose_block_n(
+        n, full.dim, n_cand))[0]
+    lab_twin = la.lloyd_assign_torch(paper, norms, cands)[0]
+    # a row the twin labels otherwise must be a near-tie: both picks' D²
+    # (diff-square, fp64) within the tolerance
+    ctol = d2_tol(torch, norms, cands)
+    moved = (lab != lab_twin).nonzero().reshape(-1)
+    x64 = paper[moved].double()
+    gap = (((x64 - cands[lab[moved].long()].double()) ** 2).sum(1)
+           - ((x64 - cands[lab_twin[moved].long()].double()) ** 2).sum(1))
+    check(bool((gap.abs() <= ctol).all()),
+          f"k-means||: {int((gap.abs() > ctol).sum())} candidate labels "
+          f"differ from the twin's beyond near-ties")
+    check(torch.equal(cand.weights, torch.bincount(
+        lab.long(), minlength=n_cand).float()),
+        "k-means||: the weights are not the counts of K4's labels")
+    w_diff = int((cand.weights != cand_twin.weights).sum())
+    # the twin's reduce on the kernels' candidates and weights (a label on
+    # a near-tie moves a weight by one, and the reduce's draws with it)
+    same_w = kmeans_parallel.reduce_candidates(paper, cand, k, draws=pdraws,
+                                               backend="fused")
+    check(torch.equal(kp.indices, same_w.indices),
+          "k-means||: the seeds are not the fused twin's reduce's on the "
+          "same candidates and weights")
+    twin_seeds = int((kp.indices == kp_twin.indices).sum())
+    kp_err = float((kp.min_d2 - same_w.min_d2).abs().max())
+    ktol = d2_tol(torch, norms, kp.centroids)
+    check(kp_err <= ktol, f"k-means||: final D² err {kp_err} > {ktol}")
+    kp_ev = events_ms(torch, lambda: kmeans_parallel_init(paper, k,
+                                                          draws=pdraws))
+    twin_s = counted(torch, ops, lambda: kmeans_parallel_init(
+        paper, k, draws=pdraws, backend="fused"))[1]
+    topl_ms = gpu_ms(torch, lambda: sampling.gumbel_topk(
+        pdraws.noise[0], sampling.safe_log(kp.min_d2), l), reps=5)
+    prof = profile_call(torch, lambda: kmeans_parallel_init(
+        paper, k, draws=pdraws), cpu=False)
+    print_profile("kmeans_parallel_init (FULL)", prof)
+    report["kmeans_parallel"] = dict(
+        busy_ms=prof["busy_ms"], idle_share=prof["idle_share"],
+        top_kernels=dict(list(prof["kernels"].items())[:6]),
+        host_ms=kp_s * 1e3, events_ms=kp_ev, twin_host_ms=twin_s * 1e3,
+        peak_bytes=peak, matrix_bytes=n * n_cand * 4, d2_err=kp_err,
+        tol=ktol, labels_moved=int(moved.numel()), weights_differ=w_diff,
+        zero_weights=int((cand.weights == 0).sum()), topl_ms=topl_ms,
+        twin_seeds_equal=twin_seeds)
+    print(f"kmeans_parallel_init at FULL (l = {l}, {rounds} rounds, "
+          f"{n_cand} candidates): {kp_s * 1e3:.2f} ms host, {kp_ev:.2f} ms "
+          f"by CUDA events, peak {peak / 2**20:.1f} MiB (an (n, n_cand) "
+          f"matrix: {n * n_cand * 4 / 2**20:.0f} MiB); the fused twin "
+          f"{twin_s * 1e3:.2f} ms: the same candidates, "
+          f"{int(moved.numel())} labels on near-ties, {w_diff} weights "
+          f"differing, {twin_seeds}/{k} seeds equal; its reduce on these "
+          f"candidates and weights: the same seeds, final D² err "
+          f"{kp_err:.3g} (tol {ktol:.3g}); a round's top-l {topl_ms:.4f} ms "
+          f"on the device")
+    # the kernels at the shapes k-means|| gives them: K5 at m = l on the
+    # m = l prologue's tiles, K4 against the candidates, the reduce's K1
+    # and K2 on the candidate rows
+    cache = eng.backend.prologue(paper, m=l)
+    md0 = point_d2(paper, paper[pdraws.first[0]])
+    cases["K5"].append(k5_case(torch, kd, bounds, ops, paper, cache, md0,
+                               paper[cand.indices[1:1 + l]].contiguous(),
+                               "gate", True))
+    cases["K4"].append(k4_case(torch, la, ops, bounds, paper, norms, n_cand,
+                               gen))
+    cases["K1"].append(k1_case(torch, kd, bounds, cands))
+    cases["K2"].append(k2_case(torch, kd, ops, cands,
+                               bounds.point_norms(cands), 1, True, gen))
+    for name, c in cases.items():
+        if not c:
+            continue
+        c = c[-1]
+        print(f"  {name} at k-means||'s shape n={c['n']} d={c['d']}"
+              + "".join(f" {key}={c[key]}" for key in ("m", "k") if key in c)
+              + f": err {c['max_abs_err']:.3g} (tol {c['tol']:.3g}), "
+              f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, bound "
+              f"{c['bound_ms']:.4f} ms ({c['bound_by']})")
+    del cache, md0, cand, cand_twin, kp_twin, same_w, lab, lab_twin
+
+    # -- kmeans(init=) for the three inits at FULL ---------------------------
+    lap("kmeans(init=) at FULL")
+    inits = {}
+    for init, idraws in (("kmeans++", gdraws(13, False)),
+                         ("kmeans||", pdraws),
+                         ("random", torch.randperm(
+                             n, generator=torch.Generator().manual_seed(13)
+                         )[:k])):
+        res, s, got = run(f"kmeans(init={init!r})", lambda: eng.kmeans(
+            paper, k, init=init, draws=idraws, max_iters=full.max_iters))
+        check(tuple(res.centroids.shape) == (k, full.dim)
+              and bool(torch.isfinite(res.centroids).all())
+              and bool(torch.isfinite(res.inertia))
+              and int(res.assignment.min()) >= 0
+              and int(res.assignment.max()) < k,
+              f"kmeans(init={init!r}): output malformed")
+        check(same_fit(torch, res, eng.kmeans(paper, k, init=init,
+                                              draws=idraws,
+                                              max_iters=full.max_iters)),
+              f"kmeans(init={init!r}): two runs differ")
+        inits[init] = dict(s=s, inertia=float(res.inertia),
+                           n_iters=int(res.n_iters), launches=got)
+    report["inits"] = inits
+    print("kmeans at FULL by init (inertia; n_iters; host s; launches): "
+          + "; ".join(f"{i} {v['inertia']:.6g}; {v['n_iters']}; "
+                      f"{v['s']:.3f} s; {v['launches']}"
+                      for i, v in inits.items()))
+
+    # -- the reference backend's serial mode == its global mode -------------
+    lap("serial and global modes at FULL")
+    sdraws = gdraws(14, False)
+    modes = {}
+    for mode in ("serial", "global"):
+        e = ClusterEngine(mode, device="cuda")
+        res, s, got = counted(torch, ops, lambda: e.seed(paper, k,
+                                                         draws=sdraws))
+        check(not any(got.values()), f"{mode} mode launched a kernel")
+        modes[mode] = (res, s * 1e3)
+    check(same_seeds(torch, modes["serial"][0], modes["global"][0]),
+          "serial mode is not bitwise global mode on the card")
+    report["modes_ms"] = {m: v[1] for m, v in modes.items()}
+    print(f"reference backend at FULL: serial {modes['serial'][1]:.2f} ms, "
+          f"global {modes['global'][1]:.2f} ms host; the same seeds and D² "
+          f"bitwise")
+    del modes
+
+    # -- SemDeDup at one card's size -----------------------------------------
+    lap("semdedup")
+    report["semdedup"] = semdedup_part(
+        torch, ops, kd, la, bounds, eng, fused, gen, run, cases,
+        200_000, 512, 256, 2_000, 0.95)
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t10
+    return cases, report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every measurement here")
@@ -5670,9 +6189,18 @@ def main() -> int:
     del kv_dense, kv_pq
     cases.update(acases)
     report["attention"] = arun
+
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 10 (init)")
+    # 10 (init). the other training paths: the gumbel sampler, k-means||,
+    #     the three inits, serial mode and SemDeDup
+    icases, report["init"] = init_phase(
+        torch, ops, kd, la, bounds, sampling, ClusterEngine, Draws, paper,
+        kvq_pts, FULL, KVQ, dev, launches, gen)
+    for name, got in icases.items():
+        cases.setdefault(name, []).extend(got)
     report["launches"] = launches
     report["seconds"] = time.perf_counter() - t_start
-    print(f"[{report['seconds']:.1f} s] phases 0-9 done")
+    print(f"[{report['seconds']:.1f} s] phases 0-10 done")
 
     if args.profile:
         report["profile"] = {}

@@ -7,7 +7,9 @@ from repro_torch.core.engine import (Backend, ClusterEngine, CudaBackend,
 from repro_torch.core.guards import (CheckpointError, ClusteringError,
                                      InvalidInputError, KernelFailureError,
                                      PipelineError)
-from repro_torch.core.kmeanspp import kmeanspp
+from repro_torch.core.kmeans_parallel import (ParallelDraws,
+                                              kmeans_parallel_init)
+from repro_torch.core.kmeanspp import kmeanspp, random_init
 from repro_torch.core.lloyd import assign, kmeans, lloyd, update
 from repro_torch.core.sampling import Draws
 
@@ -16,5 +18,6 @@ __all__ = [
     "KmeansppResult", "LloydResult", "ReferenceBackend", "make_backend",
     "pairwise_d2", "point_d2", "CheckpointError", "ClusteringError",
     "InvalidInputError", "KernelFailureError", "PipelineError", "kmeanspp",
-    "assign", "kmeans", "lloyd", "update", "Draws",
+    "random_init", "kmeans_parallel_init", "ParallelDraws", "assign",
+    "kmeans", "lloyd", "update", "Draws",
 ]

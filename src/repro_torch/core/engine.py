@@ -58,7 +58,8 @@ for batched problems K1's batched form, K7 and K8 (also over a list of the
 batch's problems), K10a and K10b; K11 and K12 for rejection seeding, single
 or batched); ``FusedBackend`` runs the kernels' plain torch
 twins; ``ReferenceBackend`` is the global-memory (two-pass) seeding
-semantics.
+semantics, or with ``mode="serial"`` the paper's serial baseline's
+(registry aliases ``"global"`` and ``"serial"``).
 
 Weights (``weights=`` on seeding, fit and kmeans) weigh each point's D²
 in the seeding draws, first seed included, and its entry in the Lloyd
@@ -93,6 +94,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 from typing import Callable, ClassVar, Iterable, NamedTuple, Optional, Union
 
@@ -534,17 +536,50 @@ class Backend:
                                                    count, partials, tile_w)
 
 
+def _min_d2_serial(points: torch.Tensor, c_new: torch.Tensor) -> torch.Tensor:
+    """D² of every point to its nearest centroid among c_new (m, d), each
+    centroid's in the diff-square form of the reference's serial loop
+    (``sum((x_i - c)²)``), folded by min one centroid at a time: O(n)
+    memory whatever m is, and at m == 1 bitwise :func:`_min_d2_to`."""
+    md = point_d2(points, c_new[0])
+    for j in range(1, c_new.shape[0]):
+        md = torch.minimum(md, point_d2(points, c_new[j]))
+    return md
+
+
 @dataclasses.dataclass(frozen=True)
 class ReferenceBackend(Backend):
-    """The paper's global-memory variant: the min-update is materialized and
-    re-read by a second reduction pass (the serial mode is not ported)."""
+    """The paper's CPU-side variants of a seeding round.
+
+    ``mode="global"`` (the default) is the global-memory variant: the
+    min-update is materialized and re-read by a second reduction pass, the
+    bound gate modelled on it. ``mode="serial"`` is the serial baseline's
+    arithmetic: every row's D² in the diff-square form, for every m, and no
+    gate (it never skips; the tile maxima are handed back for a gated
+    caller); its total, which only the in-flight guard's finite check reads,
+    is the fixed-order sum. Its seeds are global mode's. It is vectorized
+    over the rows, not a per-row loop, so it is no timing copy of the
+    paper's serial CPU baseline."""
 
     name: ClassVar[str] = "reference"
+    mode: str = "global"
+
+    def __post_init__(self):
+        if self.mode not in ("global", "serial"):
+            raise ValueError(f"unknown reference mode {self.mode!r}; "
+                             "expected 'global' or 'serial'")
 
     def seed_round(self, points, c_new, min_d2, *, cache, state=None,
                    weights=None, consume=False):
         n, d = points.shape
         tile = self.seed_tile(n, d, c_new.shape[0])
+        if self.mode == "serial":
+            new_md = torch.minimum(min_d2, _min_d2_serial(points, c_new))
+            wmd = _weigh(new_md, weights)
+            tmax = (None if state is None
+                    else bounds.tile_reduce_max(new_md, tile))
+            return SeedRound(new_md, sampling.fixed_sum(wmd),
+                             sampling.tile_partials(wmd, tile), tmax)
         new_md = torch.minimum(min_d2, _min_d2_to(points, c_new))
         if _gates(state, cache):
             rnd = _gate_model(new_md, min_d2, c_new, cache, state, tile,
@@ -719,13 +754,16 @@ class CudaBackend(Backend):
 
 _BACKENDS: dict[str, Callable[..., Backend]] = {
     "reference": ReferenceBackend,
+    "serial": functools.partial(ReferenceBackend, mode="serial"),
+    "global": functools.partial(ReferenceBackend, mode="global"),
     "fused": FusedBackend,
     "cuda": CudaBackend,
 }
 
 
 def make_backend(name: Union[str, Backend], **opts) -> Backend:
-    """Backend registry: 'reference' | 'fused' | 'cuda'."""
+    """Backend registry: 'reference' | 'fused' | 'cuda', plus the reference
+    backend's modes by name, 'serial' and 'global'."""
     if isinstance(name, Backend):
         if opts:
             raise ValueError("cannot pass options with a Backend instance")
@@ -799,8 +837,9 @@ def _seed_parts(pts, k, *, round_fn, sample_fn, first_fn, init_min_d2,
     :func:`_seed_loop` and the checkpointed seeding run the same rounds:
     ``make_init(draws)`` is the carry before round 1 (seed 0 is
     ``first_fn(draws)``), ``body(carry)`` runs round ``carry.m`` (fold
-    centroid m-1 into min_d2, draw seed m with ``draws.u[m-1]`` ∝
-    min_d2·``w``), and ``finish(carry)`` the final round, which folds the
+    centroid m-1 into min_d2, draw seed m ∝ min_d2·``w`` with
+    ``sample_fn(draws, m, weights, partials)``, which takes round m's
+    uniform or noise), and ``finish(carry)`` the final round, which folds the
     last seed, so the returned min_d2 covers all k: (centroids, indices,
     min_d2, skipped, pruned, recovered). ``round_fn(c, md, state,
     consume=)`` is one backend round (``consume``: ``md`` may be
@@ -871,8 +910,7 @@ def _seed_parts(pts, k, *, round_fn, sample_fn, first_fn, init_min_d2,
     def body(c: SeedCarry) -> SeedCarry:
         m = c.m
         min_d2, partials, state = fold(c, m)
-        nxt = sample_fn(c.draws.u[..., m - 1], c.draws.fallback[..., m - 1:m],
-                        _weigh(min_d2, w), partials)
+        nxt = sample_fn(c.draws, m, _weigh(min_d2, w), partials)
         c.centroids[..., m:m + 1, :] = _take_rows(pts, nxt)
         c.indices[..., m:m + 1] = nxt
         return c._replace(m=m + 1, min_d2=min_d2, state=state)
@@ -1322,16 +1360,16 @@ def _first_seed(draws: Draws, w: Optional[torch.Tensor], sampler: str,
                 proposal: str, tile: int, tps: int) -> torch.Tensor:
     """Seed 0: ``draws.first``, or with point weights ``w`` a draw ∝ w with
     ``draws.first_u`` (fallback ``draws.first_fallback``), as the
-    reference's: inverse CDF for cdf, the two-level draw over the weights'
-    tile sums for tiled and rejection flat, the super -> tile -> row draw
-    for rejection hier."""
+    reference's: inverse CDF for cdf and gumbel, the two-level draw over the
+    weights' tile sums for tiled and rejection flat, the super -> tile ->
+    row draw for rejection hier."""
     if w is None:
         return draws.first
     if draws.first_u is None:
         raise ValueError("draws hold no weighted first-seed draws; sample "
                          "them with Draws.sample(..., weighted=True)")
     u, fb = draws.first_u.reshape(()), draws.first_fallback.reshape(1)
-    if sampler == "cdf":
+    if sampler in ("cdf", "gumbel"):
         return sampling.categorical_cdf(u, fb, w)
     parts = sampling.tile_partials(w, tile)
     if sampler == "rejection" and proposal == "hier":
@@ -1366,9 +1404,12 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
                 stream: Optional[torch.Tensor] = None,
                 parts: bool = False):
     """Full k-means++ seeding through ``backend``. Samplers: 'cdf' (full
-    inverse CDF, the serial algorithm), 'tiled' (two-level inverse CDF
+    inverse CDF, the serial algorithm), 'gumbel' (Gumbel-max over the
+    round's D² with the round's noise from ``draws``; a weighted run's
+    first seed by inverse CDF), 'tiled' (two-level inverse CDF
     from the round's per-tile partials — O(n/tile + tile) reads per draw,
-    the same distribution) and 'rejection' (exact rejection sampling from
+    the same distribution), 'auto' (the tiled sampler: the port has no
+    tuner) and 'rejection' (exact rejection sampling from
     the stale envelope of the last refresh, which runs every
     ``refresh_block`` seeds: a round in between touches only the drawn
     row; ``refresh_block=1`` picks bitwise the 'tiled' seeds — see
@@ -1402,13 +1443,14 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
     (B, k). Row b of every field is bitwise the single seeding of problem b
     with ``draws[b]``.
 
-    ``parts`` ('cdf' and 'tiled') returns the loop's ``(make_init, body,
-    finish)`` (:func:`_seed_parts`; ``make_init`` takes the draws) instead
-    of running it: what the checkpointed seeding drives in chunks."""
+    ``parts`` ('cdf', 'gumbel' and 'tiled') returns the loop's
+    ``(make_init, body, finish)`` (:func:`_seed_parts`; ``make_init`` takes
+    the draws) instead of running it: what the checkpointed seeding drives
+    in chunks."""
     if proposal not in ("flat", "hier"):
         raise ValueError(f"unknown proposal {proposal!r}; "
                          "expected 'flat' or 'hier'")
-    _check_sampler(sampler)
+    sampler = resolve_sampler(sampler)
     lead = tuple(points.shape[:-2])
     if lead and guard and sampler != "rejection":
         raise NotImplementedError(
@@ -1430,6 +1472,13 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
     if tuple(draws.u.shape[:-1]) != lead:
         raise ValueError(f"draws for {tuple(draws.u.shape[:-1])} problems, "
                          f"points for {lead}")
+    if sampler == "gumbel":
+        noise = (draws.gumbel_seed if draws.gumbel is None
+                 else draws.gumbel[..., 0])
+        if noise is None or noise.shape[-1] < k - 1:
+            raise ValueError(f"sampler 'gumbel' needs Gumbel noise for "
+                             f"{k - 1} rounds; sample the draws with "
+                             "Draws.sample(..., gumbel=True)")
     draws = draws.to(pts.device)
     w = None if weights is None else weights.to(pts)
     tps = backend.tiles_per_super(-(-n // tile))
@@ -1456,16 +1505,23 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
                                stream=stream, w=w, fault=fault)
 
     if sampler == "tiled":
-        def sample_fn(u, fb, weight, partials):
-            return sampling.categorical_tiled(u, fb, weight, partials,
-                                              block_n=tile)
+        def sample_fn(draws, m, weight, partials):
+            return sampling.categorical_tiled(
+                draws.u[..., m - 1], draws.fallback[..., m - 1:m], weight,
+                partials, block_n=tile)
+    elif sampler == "gumbel":
+        def sample_fn(draws, m, weight, partials):
+            return sampling.gumbel_categorical(
+                draws.gumbel_round(m, n, pts.device),
+                draws.fallback[..., m - 1:m], weight)
     else:
         # the cdf sampler normalizes by its OWN prefix sum's last entry, not
         # by the round's total: the two sum in different orders, and a
         # 1-ulp difference in the scale would flip boundary samples between
         # backends
-        def sample_fn(u, fb, weight, partials):
-            return sampling.categorical_cdf(u, fb, weight)
+        def sample_fn(draws, m, weight, partials):
+            return sampling.categorical_cdf(
+                draws.u[..., m - 1], draws.fallback[..., m - 1:m], weight)
 
     if lead:
         def round_fn(c, md, st, consume=False):
@@ -1491,13 +1547,17 @@ def seed_points(draws: Draws, points: torch.Tensor, k: int,
                           recovered=rec if guard else None)
 
 
-def _check_sampler(sampler: str) -> None:
-    if sampler == "gumbel":
-        raise NotImplementedError("sampler 'gumbel' is not ported yet; use "
-                                  "'cdf', 'tiled' or 'rejection'")
-    if sampler not in ("cdf", "tiled", "rejection"):
-        raise ValueError(f"unknown sampler {sampler!r}; expected 'cdf', "
-                         "'tiled' or 'rejection'")
+SAMPLERS = ("cdf", "gumbel", "tiled", "rejection", "auto")
+
+
+def resolve_sampler(sampler: str) -> str:
+    """The sampler a run draws with: 'auto' is 'tiled', the reference's
+    pick with no tune record (the port has no tuner); any other name of
+    ``SAMPLERS`` is itself, and an unknown one raises ``ValueError``."""
+    if sampler not in SAMPLERS:
+        raise ValueError(f"unknown sampler {sampler!r}; expected one of "
+                         f"{list(SAMPLERS)}")
+    return "tiled" if sampler == "auto" else sampler
 
 
 # ---------------------------------------------------------------------------
@@ -1933,9 +1993,13 @@ class ClusterEngine:
     of the seeding loop and of the gated Lloyd loop, which heal a corrupted
     round and record it in ``recovered``.
 
-    Samplers: 'cdf', 'tiled' and 'rejection' (with ``refresh_block``,
-    ``proposal`` 'hier' or 'flat' and ``max_attempts``; see
-    :func:`seed_points`).
+    Samplers: 'cdf', 'gumbel', 'tiled', 'auto' (the tiled sampler: the port
+    has no tuner) and 'rejection' (with ``refresh_block``, ``proposal``
+    'hier' or 'flat' and ``max_attempts``; see :func:`seed_points`).
+
+    Inits: ``kmeans(init=)`` seeds by 'kmeans++' (the paper's phase, one
+    prologue shared with the fit), 'kmeans||' (``core.kmeans_parallel``)
+    or 'random' (``core.kmeanspp.random_init``), then fits.
 
     Precision: ``precision`` 'fp32' (the default) or 'bf16'. Under 'bf16'
     every seeding and assignment round, on every entry point (batched,
@@ -2002,7 +2066,7 @@ class ClusterEngine:
                 n, k, generator=generator, device=self.device,
                 max_attempts=(max(int(max_attempts), 1)
                               if sampler == "rejection" else 0),
-                weighted=weighted)
+                weighted=weighted, gumbel=sampler == "gumbel")
         return draws.to(self.device)
 
     # -- row ordering (order=) -------------------------------------------
@@ -2067,8 +2131,10 @@ class ClusterEngine:
         centroids, indices, min_d2, the bound state and the counters); a
         checkpoint already in the directory resumes the run there, with
         the saved draws, and the finished result is bitwise the
-        uninterrupted one. 'cdf' and 'tiled' only. ``_fault`` is the
-        fault-injection hook (a ``testing.FaultSpec``; tests only)."""
+        uninterrupted one. 'cdf', 'gumbel' and 'tiled' ('auto') only.
+        ``_fault`` is the fault-injection hook (a ``testing.FaultSpec``;
+        tests only)."""
+        sampler = resolve_sampler(sampler)
         pts = self._points(points)
         n = pts.shape[0]
         guards.check_shape(k, n)
@@ -2227,22 +2293,50 @@ class ClusterEngine:
                      meta=meta)
         return LloydResult(*finish(carry))
 
-    def kmeans(self, points, k: int, *,
+    def kmeans(self, points, k: int, *, init: str = "kmeans++",
                generator: Optional[torch.Generator] = None,
-               draws: Optional[Draws] = None, sampler: str = "cdf",
+               draws=None, sampler: str = "cdf",
                max_iters: int = 50, tol: float = 1e-6,
                empty: str = "keep", weights=None, refresh_block: int = 8,
                proposal: str = "hier", max_attempts: int = _REJECT_ATTEMPTS,
                order=None) -> LloydResult:
-        """End to end: k-means++ seeding (the paper's phase) + Lloyd, sharing
-        one prologue; ``weights`` go to both phases. ``order`` reorders the
-        rows once up front (see :meth:`fit`), so both phases see that
-        layout; the draws index the reordered rows."""
+        """End to end: seeding + Lloyd. ``init='kmeans++'`` (the paper's
+        phase) shares one prologue between seeding and the fit, ``weights``
+        going to both phases. ``init='kmeans||'``
+        (:func:`~repro_torch.core.kmeans_parallel.kmeans_parallel_init` on
+        the engine's backend, always gated and fp32, as the reference's)
+        and ``'random'`` (:func:`~repro_torch.core.kmeanspp.random_init`)
+        seed unweighted, then :meth:`fit` with ``weights``, ``empty`` and
+        ``tol``, as the reference does. ``draws`` replays a run: a
+        :class:`Draws` for 'kmeans++', a ``ParallelDraws`` for 'kmeans||',
+        the (k,) chosen rows for 'random'; without them ``generator``
+        draws. ``order`` reorders the rows once up front (see :meth:`fit`),
+        so both phases see that layout; the draws index the reordered
+        rows."""
+        if init not in ("kmeans++", "kmeans||", "random"):
+            raise ValueError(f"unknown init {init!r}; expected 'kmeans++', "
+                             "'kmeans||' or 'random'")
+        sampler = resolve_sampler(sampler)
         pts = self._points(points)
         n = pts.shape[0]
         w = self._weights(weights, n)
         guards.check_shape(k, n)
         pts, w, perm, inv = self._order_in(pts, order, w)
+        if init != "kmeans++":
+            if init == "kmeans||":
+                from repro_torch.core.kmeans_parallel import \
+                    kmeans_parallel_init
+                seeds = kmeans_parallel_init(
+                    pts, k, backend=self.backend, draws=draws,
+                    generator=generator, device=self.device)
+            else:
+                from repro_torch.core.kmeanspp import random_init
+                seeds = random_init(pts, k, generator=generator,
+                                    indices=draws, backend=self.backend,
+                                    device=self.device)
+            return self._order_out(self.fit(
+                pts, seeds.centroids, max_iters=max_iters, tol=tol,
+                weights=w, empty=empty), perm, inv)
         return self._order_out(kmeans_points(
             self._draws(n, k, generator, draws, sampler, max_attempts,
                         w is not None),
@@ -2313,9 +2407,8 @@ class ClusterEngine:
 
     # -- batched multi-problem clustering ---------------------------------
 
-    def _batched(self, points, sampler: str = "cdf") -> torch.Tensor:
+    def _batched(self, points) -> torch.Tensor:
         """The (B, n, d) points of a batched call, after the entry guard."""
-        _check_sampler(sampler)
         pts = torch.as_tensor(points, dtype=torch.float32, device=self.device)
         if pts.dim() != 3:
             raise guards.InvalidInputError(
@@ -2338,15 +2431,18 @@ class ClusterEngine:
         the problems that need it, one K8 (K7) launch over their list, and
         prices every problem's attempts in one K11 launch a round. No
         in-flight guard, as in the reference under ``vmap``; the entry
-        guard covers all B."""
-        pts = self._batched(points, sampler)
+        guard covers all B. 'gumbel' makes each problem's noise from its
+        own draws, so row b is the single run's."""
+        sampler = resolve_sampler(sampler)
+        pts = self._batched(points)
         bsz, n, _ = pts.shape
         guards.check_shape(k, n)
         if draws is None:
             draws = Draws.sample_batched(
                 bsz, n, k, generator=generator,
                 max_attempts=(max(int(max_attempts), 1)
-                              if sampler == "rejection" else 0))
+                              if sampler == "rejection" else 0),
+                gumbel=sampler == "gumbel")
         return seed_points(draws.to(self.device), pts, k, self.backend,
                            sampler, bound_gate=self.bounds,
                            refresh_block=int(refresh_block),
@@ -2391,7 +2487,8 @@ class ClusterEngine:
         sampler. The result carries the fit's counters.
         ``order`` reorders each problem once up front, so both phases see
         that layout; assignments map back to the caller's rows."""
-        pts = self._batched(points, sampler)
+        sampler = resolve_sampler(sampler)
+        pts = self._batched(points)
         pts, _, perm, inv = self._order_in(pts, order, batched=True)
         seeds = self.seed_batched(pts, k, generator=generator,
                                   draws=draws, sampler=sampler)

@@ -45,9 +45,13 @@ def lloyd(points, init_centroids, *, max_iters: int = 50, tol: float = 1e-6,
         weights=weights)
 
 
-def kmeans(points, k: int, *, generator: Optional[torch.Generator] = None,
+def kmeans(points, k: int, *, init: str = "kmeans++",
+           generator: Optional[torch.Generator] = None, draws=None,
            variant: str = "cuda", max_iters: int = 50,
            device=None) -> LloydResult:
-    """End-to-end k-means: k-means++ seeding + Lloyd clustering."""
+    """End-to-end k-means: seeding by ``init`` ('kmeans++', 'kmeans||' or
+    'random'; ``draws`` as ``ClusterEngine.kmeans`` takes them) + Lloyd
+    clustering."""
     return ClusterEngine(variant, device=device).kmeans(
-        points, k, generator=generator, max_iters=max_iters)
+        points, k, init=init, generator=generator, draws=draws,
+        max_iters=max_iters)

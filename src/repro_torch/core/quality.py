@@ -19,6 +19,19 @@ def inertia(points: torch.Tensor, centroids: torch.Tensor, *,
     return total
 
 
+def quantization_error(points: torch.Tensor,
+                       centroids: torch.Tensor) -> torch.Tensor:
+    """Mean squared quantization error (inertia / n), as KV-PQ reports
+    it."""
+    return inertia(points, centroids) / points.shape[0]
+
+
 def cluster_sizes(assignment: torch.Tensor, k: int) -> torch.Tensor:
     """(k,) fp32 number of points assigned to each cluster."""
     return torch.bincount(assignment.long(), minlength=k).float()
+
+
+def balance(assignment: torch.Tensor, k: int) -> torch.Tensor:
+    """Load balance max / mean cluster size (1.0 = perfectly balanced)."""
+    sizes = cluster_sizes(assignment, k)
+    return sizes.max() / sizes.mean().clamp_min(1e-12)

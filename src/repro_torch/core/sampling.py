@@ -1,7 +1,9 @@
 """Weighted categorical sampling for k-means++ seeding (port of
-``repro.core.sampling``: the inverse-CDF samplers).
+``repro.core.sampling``).
 
 * inverse-CDF (``cdf``) — prefix sum + searchsorted over all n weights.
+* Gumbel-max (``gumbel``) — argmax(log w + Gumbel noise): no prefix sum;
+  ``gumbel_topk`` draws k indices without replacement (k-means||).
 * two-level tiled (``tiled``) — inverse-CDF over the per-tile partial sums
   the seeding round already produced, then inside the chosen tile only:
   O(n_tiles + block_n) reads per draw, the same distribution.
@@ -10,11 +12,12 @@
 * rejection — truncated rejection from a stale dominating envelope, the
   proposal drawn by one of the above and accepted with probability p/q.
 
-Every function takes its uniform ``u`` and, where the degenerate-weight
-guard needs one, its fallback index as ARGUMENTS. torch cannot reproduce
-JAX's threefry stream, so randomness comes from a :class:`Draws` source:
-sampled from a ``torch.Generator`` by default, or injected (the parity
-tests replay the reference's key schedule through it).
+Every function takes its uniform ``u`` (the Gumbel draws: their noise)
+and, where the degenerate-weight guard needs one, its fallback index as
+ARGUMENTS. torch cannot reproduce JAX's threefry stream, so randomness
+comes from a :class:`Draws` source: sampled from a ``torch.Generator`` by
+default, or injected (the parity tests replay the reference's key schedule
+through it).
 
 Indices stay on the device as (1,) int64 tensors: no draw syncs the host.
 
@@ -64,7 +67,15 @@ class Draws:
     A weighted run draws its first seed by the point weights with
     ``first_u`` in [0, 1), and takes ``first_fallback`` when the weights
     are degenerate (None unless asked for; batched draws leave them None,
-    as batched problems take no weights)."""
+    as batched problems take no weights).
+
+    A Gumbel run (``sampler="gumbel"``) draws round m from (n,) Gumbel
+    noise: ``gumbel[m-1]`` when injected (the parity tests fill it with the
+    reference's ``jax.random.gumbel`` output), else the noise
+    :func:`gumbel_noise` makes on the run's device from the seed
+    ``gumbel_seed[m-1]``, so a run carries k-1 integers where the noise
+    would take (k-1)·n floats, and a replayed or resumed run makes the same
+    bits."""
 
     first: torch.Tensor        # (1,) int64
     u: torch.Tensor            # (k-1,) fp32 in [0, 1)
@@ -78,6 +89,8 @@ class Draws:
     exact_fallback: Optional[torch.Tensor] = None  # (k-1,) int64
     first_u: Optional[torch.Tensor] = None         # (1,) fp32
     first_fallback: Optional[torch.Tensor] = None  # (1,) int64
+    gumbel_seed: Optional[torch.Tensor] = None     # (k-1,) int64
+    gumbel: Optional[torch.Tensor] = None          # (k-1, n) fp32
 
     @property
     def max_attempts(self) -> int:
@@ -89,17 +102,29 @@ class Draws:
         return Draws(*(None if t is None else t[b] for t in (
             getattr(self, f.name) for f in dataclasses.fields(self))))
 
+    def gumbel_round(self, m: int, n: int, device) -> torch.Tensor:
+        """Round m's (n,) Gumbel noise on ``device`` ((B, n) for batched
+        draws, row b problem b's): the injected ``gumbel[..., m-1, :]``, or
+        made from ``gumbel_seed[..., m-1]``."""
+        if self.gumbel is not None:
+            return self.gumbel[..., m - 1, :]
+        if self.gumbel_seed is None:
+            raise ValueError("draws hold no Gumbel noise; sample them with "
+                             "Draws.sample(..., gumbel=True)")
+        return gumbel_noise(self.gumbel_seed[..., m - 1], n, device)
+
     @classmethod
     def sample(cls, n: int, k: int, *,
                generator: Optional[torch.Generator] = None,
                device="cpu", max_attempts: int = 0,
-               weighted: bool = False) -> "Draws":
+               weighted: bool = False, gumbel: bool = False) -> "Draws":
         """All of a run's draws from ``generator`` on its device, moved to
         ``device`` once. ``max_attempts`` > 0 adds the rejection schedule
         for that many attempts per round; the first three draws are the
         same either way, so a run's cdf/tiled draws do not depend on it.
         ``weighted`` adds the weighted first seed's two draws after all the
-        others, so the rest do not depend on it either."""
+        others, so the rest do not depend on it either; ``gumbel`` adds the
+        per-round noise seeds after those."""
         gdev = "cpu" if generator is None else generator.device
         r = max(k - 1, 0)
         first = torch.randint(n, (1,), generator=generator, device=gdev)
@@ -120,23 +145,29 @@ class Draws:
                                           device=gdev),
                        first_fallback=torch.randint(
                            n, (1,), generator=generator, device=gdev))
+        if gumbel:
+            extra["gumbel_seed"] = torch.randint(
+                2 ** 62, (r,), generator=generator, device=gdev)
         return cls(first, u, fb, **extra).to(device)
 
     @classmethod
     def sample_batched(cls, batch: int, n: int, k: int, *,
                        generator: Optional[torch.Generator] = None,
-                       device="cpu", max_attempts: int = 0) -> "Draws":
+                       device="cpu", max_attempts: int = 0,
+                       gumbel: bool = False) -> "Draws":
         """Draws for ``batch`` problems: problem b's are the ``sample(n, k,
-        max_attempts=max_attempts)`` the generator gives after b earlier
-        problems' draws, so a loop of single runs fed ``draws[b]`` repeats
-        the batched run problem by problem."""
+        max_attempts=max_attempts, gumbel=gumbel)`` the generator gives
+        after b earlier problems' draws, so a loop of single runs fed
+        ``draws[b]`` repeats the batched run problem by problem."""
         runs = [cls.sample(n, k, generator=generator,
-                           max_attempts=max_attempts) for _ in range(batch)]
+                           max_attempts=max_attempts, gumbel=gumbel)
+                for _ in range(batch)]
         return Draws(*(None if ts[0] is None else torch.stack(ts)
                        for ts in zip(*(dataclasses.astuple(r)
                                        for r in runs)))).to(device)
 
     def to(self, device) -> "Draws":
+        """The draws on ``device``."""
         def mv(t, dtype):
             return None if t is None else t.to(device=device, dtype=dtype)
         return Draws(mv(self.first, torch.int64), mv(self.u, torch.float32),
@@ -146,7 +177,94 @@ class Draws:
                      mv(self.exact_u, torch.float32),
                      mv(self.exact_fallback, torch.int64),
                      mv(self.first_u, torch.float32),
-                     mv(self.first_fallback, torch.int64))
+                     mv(self.first_fallback, torch.int64),
+                     mv(self.gumbel_seed, torch.int64),
+                     mv(self.gumbel, torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# Gumbel-max
+# ---------------------------------------------------------------------------
+
+
+def safe_log(w: torch.Tensor) -> torch.Tensor:
+    """log(w) with log(0) -> -inf (zero-weight entries can never be
+    sampled)."""
+    pos = w > 0
+    return torch.where(pos, torch.log(torch.where(pos, w, 1.0)), -torch.inf)
+
+
+def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel noise −log(−log(u)) from uniforms in [0, 1), each
+    clamped up to the smallest normal fp32 (``jax.random.gumbel``'s
+    interval)."""
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit avalanche hash (shift-xor-multiply, multipliers 0x21f0aaad
+    and 0x735a2d97) of int64 values in [0, 2^32): both multipliers are
+    below 2^31, so no product leaves int64 and every device gives the same
+    bits."""
+    x = x ^ (x >> 16)
+    x = (x * 0x21F0AAAD) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x735A2D97) & _M32
+    return x ^ (x >> 15)
+
+
+def gumbel_noise(seeds: torch.Tensor, n: int, device) -> torch.Tensor:
+    """(n,) fp32 Gumbel noise on ``device`` from one int64 seed ((B, n)
+    from (B,) seeds, in one pass over all rows; row b the noise of seed b
+    alone). Counter-based: entry i is a hash of i keyed by the seed, its
+    top 24 bits the uniform, so the same seed gives the same bits on every
+    run, and the same uniforms on every device."""
+    s = seeds.reshape(-1, 1).to(device=device, dtype=torch.int64)
+    key = _mix32((s & _M32) ^ _mix32(s >> 32))
+    x = _mix32(_mix32(torch.arange(n, device=device)) ^ key)
+    u = (x >> 8).to(torch.float32) * 2.0 ** -24
+    return gumbel_from_uniform(u).reshape(tuple(seeds.shape) + (n,))
+
+
+def gumbel_max(noise: torch.Tensor, log_weights: torch.Tensor) -> torch.Tensor:
+    """argmax(log w + noise) along the last axis, the first index on a tie
+    (``jnp.argmax``'s); (1,) int64, (B, 1) batched."""
+    return (log_weights + noise).argmax(dim=-1, keepdim=True)
+
+
+def gumbel_topk(noise: torch.Tensor, log_weights: torch.Tensor,
+                k: int) -> torch.Tensor:
+    """Exact weighted sampling of k indices WITHOUT replacement (Gumbel
+    top-k): the k largest scores log w + noise, in ``lax.top_k``'s order —
+    descending score, ties by the lower index — which a stable descending
+    sort gives (``torch.topk`` orders ties otherwise, and the order sets
+    which candidate k-means|| keeps). (k,) int64."""
+    n = log_weights.shape[-1]
+    if k > n:
+        raise ValueError(f"gumbel_topk needs k <= n, got k={k}, n={n}")
+    scores = log_weights + noise
+    return torch.sort(scores, dim=-1, descending=True,
+                      stable=True).indices[..., :k]
+
+
+def gumbel_categorical(noise: torch.Tensor, fallback: torch.Tensor,
+                       weights: torch.Tensor) -> torch.Tensor:
+    """One guarded draw ∝ ``weights`` from the (n,) Gumbel ``noise``: the
+    :func:`gumbel_max` of the weights' :func:`safe_log`, guarded by the
+    largest weight, the cheapest witness of positive mass (all-zero weights
+    make every score -inf). Batched (B, n) weights take (B, n) noise and
+    (B, 1) fallbacks."""
+    return _guarded(gumbel_max(noise, safe_log(weights)), fallback,
+                    weights.amax(dim=-1))
+
+
+# ---------------------------------------------------------------------------
+# inverse-CDF: global, tiled and coarse-to-fine
+# ---------------------------------------------------------------------------
 
 
 def _search(cdf: torch.Tensor, r: torch.Tensor) -> torch.Tensor:

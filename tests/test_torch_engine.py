@@ -610,8 +610,10 @@ def test_entry_points_need_a_card_or_device_cpu():
 def test_unported_options_raise():
     pts, _ = blobs(100, 2, 3, seed=0)
     eng = ClusterEngine(device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.seed(pts, 3, sampler="gumbel")
+    # the gumbel sampler is ported (tests/test_torch_init.py): it runs
+    assert eng.seed(pts, 3, sampler="gumbel",
+                    generator=torch.Generator().manual_seed(0)
+                    ).indices.shape == (3,)
     with pytest.raises(ValueError):
         make_backend("pallas")
     # order= is ported (tests/test_torch_ordering.py); an unknown ordering

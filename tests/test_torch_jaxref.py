@@ -24,7 +24,10 @@ so parity tests hand the reference's draws to the port. ``batch=(b, B)``
 replays problem b of ``seed_batched``, which seeds problem b from
 ``jax.random.split(PRNGKey(seed), B)[b]``; ``batched_draws_for`` stacks all
 B as the port's batched ``Draws``, and ``key_draws`` does so for any
-(B,) keys.
+(B,) keys. ``gumbel_draws_for`` adds each round's Gumbel noise
+(``jax.random.gumbel`` of the round key), ``parallel_draws_for`` replays
+``kmeans_parallel_init``'s schedule as the port's ``ParallelDraws``, and
+``choice_indices`` gives ``jax.random.choice``'s rows (``random_init``).
 
 JAX is imported only inside these functions, so a run of the card-only
 tests (``-m cuda``) needs no JAX on the machine with the card.
@@ -66,10 +69,21 @@ def load_reference() -> SimpleNamespace:
     if not hasattr(pltpu, "TPUMemorySpace"):
         pltpu.TPUMemorySpace = SimpleNamespace(ANY=pl.ANY)
 
-    from repro.core import bounds, engine, sampling
+    import importlib
+
+    from repro.core import bounds, engine, quality, sampling
     from repro.kernels import ops, ref
+
+    # repro.core re-exports functions under these modules' names
+    kmeans_parallel, kmeanspp, lloyd, semdedup = (
+        importlib.import_module(f"repro.{m}") for m in (
+            "core.kmeans_parallel", "core.kmeanspp", "core.lloyd",
+            "data.semdedup"))
     return SimpleNamespace(jax=jax, jnp=jnp, bounds=bounds, engine=engine,
-                           sampling=sampling, ops=ops, ref=ref)
+                           sampling=sampling, ops=ops, ref=ref,
+                           kmeans_parallel=kmeans_parallel,
+                           kmeanspp=kmeanspp, lloyd=lloyd, quality=quality,
+                           semdedup=semdedup)
 
 
 @pytest.fixture(scope="module")
@@ -156,11 +170,80 @@ def weighted_first(seed: int, n: int):
     the same ``k0`` as the unweighted first index, with ``uniform(k0)`` and
     ``_guarded``'s ``randint(fold_in(k0, 0x0DD))``."""
     import jax
+    return _weighted_first(jax.random.PRNGKey(seed), n)
+
+
+def _weighted_first(key, n: int):
+    """:func:`weighted_first` from one jax key."""
+    import jax
     import jax.numpy as jnp
-    _, k0 = jax.random.split(jax.random.PRNGKey(seed))
+    _, k0 = jax.random.split(key)
     return (float(jax.random.uniform(k0, (), jnp.float32)),
             int(jax.random.randint(jax.random.fold_in(k0, GUARD_SALT), (), 0,
                                    n, dtype=jnp.int32)))
+
+
+def _gumbel_rounds(key, n: int, k: int) -> np.ndarray:
+    """(k-1, n) fp32: ``jax.random.gumbel`` of each round key of the
+    seeding loop run from ``key`` (the noise its Gumbel draw adds)."""
+    import jax
+    import jax.numpy as jnp
+    key, _ = jax.random.split(key)
+    rows = []
+    for _ in range(1, k):
+        key, ks = jax.random.split(key)
+        rows.append(np.asarray(jax.random.gumbel(ks, (n,), jnp.float32)))
+    return np.stack(rows).reshape(k - 1, n).astype(np.float32)
+
+
+def gumbel_draws_for(seed: int, n: int, k: int, batch=None,
+                     weighted: bool = False) -> Draws:
+    """:func:`draws_for` plus the reference's Gumbel noise: round m's
+    ``jax.random.gumbel(ks, (n,))`` from its round key ``ks``, which also
+    gives the round's fallback index (``_guarded``'s)."""
+    draws = draws_for(seed, n, k, batch=batch, weighted=weighted)
+    noise = _gumbel_rounds(_root_key(seed, batch), n, k)
+    return dataclasses.replace(draws, gumbel=torch.from_numpy(noise))
+
+
+def parallel_draws_for(seed: int, n: int, k: int, rounds: int = 5,
+                       oversample: int = 0):
+    """``kmeans_parallel_init(PRNGKey(seed), ...)``'s schedule as the
+    port's ``ParallelDraws``: ``split`` → k0 for the first index
+    (``randint(k0, (), 0, n)``); per round ``split`` → ks and
+    ``gumbel(ks, (n,))``; then ``split`` → kr, the key of the weighted
+    tiled reduce over the rounds·l + 1 candidates (its weighted first seed
+    and per-round draws, as :func:`draws_for` replays them)."""
+    import jax
+    import jax.numpy as jnp
+    from repro_torch.core import ParallelDraws
+    l = oversample or 2 * k
+    n_cand = rounds * l + 1
+    key, k0 = jax.random.split(jax.random.PRNGKey(seed))
+    first = int(jax.random.randint(k0, (), 0, n, dtype=jnp.int32))
+    noise = []
+    for _ in range(rounds):
+        key, ks = jax.random.split(key)
+        noise.append(np.asarray(jax.random.gumbel(ks, (n,), jnp.float32)))
+    key, kr = jax.random.split(key)
+    rfirst, u, fb = _schedule(kr, n_cand, k)
+    fu, ffb = _weighted_first(kr, n_cand)
+    reduce = Draws(torch.tensor([rfirst]), torch.from_numpy(u),
+                   torch.from_numpy(fb),
+                   first_u=torch.tensor([fu], dtype=torch.float32),
+                   first_fallback=torch.tensor([ffb]))
+    return ParallelDraws(torch.tensor([first]),
+                         torch.from_numpy(np.stack(noise).reshape(rounds, n)),
+                         reduce)
+
+
+def choice_indices(seed: int, n: int, k: int) -> torch.Tensor:
+    """The rows ``random_init(PRNGKey(seed), ...)`` seeds with:
+    ``jax.random.choice(key, n, (k,), replace=False)``."""
+    import jax
+    idx = jax.random.choice(jax.random.PRNGKey(seed), n, (k,),
+                            replace=False)
+    return torch.from_numpy(np.asarray(idx, np.int64))
 
 
 def draws_for(seed: int, n: int, k: int, max_attempts: int = 0,
@@ -186,11 +269,13 @@ def draws_for(seed: int, n: int, k: int, max_attempts: int = 0,
 
 
 def batched_draws_for(seed: int, n_problems: int, n: int, k: int,
-                      max_attempts: int = 0) -> Draws:
+                      max_attempts: int = 0, gumbel: bool = False) -> Draws:
     """``seed_batched(PRNGKey(seed), ...)``'s draws for all problems, as
     the port's batched ``Draws`` (leading axis B); with ``max_attempts``
-    > 0 also each problem's rejection schedule."""
-    runs = [draws_for(seed, n, k, max_attempts, batch=(b, n_problems))
+    > 0 also each problem's rejection schedule, with ``gumbel`` each
+    problem's Gumbel noise (:func:`gumbel_draws_for`)."""
+    runs = [gumbel_draws_for(seed, n, k, batch=(b, n_problems)) if gumbel
+            else draws_for(seed, n, k, max_attempts, batch=(b, n_problems))
             for b in range(n_problems)]
     return Draws(*(None if ts[0] is None else torch.stack(ts)
                    for ts in zip(*(dataclasses.astuple(r) for r in runs))))

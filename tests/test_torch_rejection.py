@@ -894,8 +894,9 @@ def test_bad_rejection_options_raise():
         eng.seed(pts, 3, sampler="rejection", proposal="tree")
     with pytest.raises(ValueError, match="proposal"):
         eng.kmeans(pts, 3, proposal="tree")
-    with pytest.raises(NotImplementedError):
-        eng.seed(pts, 3, sampler="gumbel")
+    # the gumbel sampler is ported: draws without its noise raise
+    with pytest.raises(ValueError, match="Gumbel"):
+        eng.seed(pts, 3, sampler="gumbel", draws=Draws.sample(200, 3))
     with pytest.raises(ValueError, match="sampler"):
         eng.seed(pts, 3, sampler="rejected")
     short = Draws.sample(200, 3, max_attempts=2)
